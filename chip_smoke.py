@@ -1,0 +1,534 @@
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+Run from the repository root on a machine with the card:
+
+    python3 chip_smoke.py
+
+It drives the port (`imaginary_tpu_torch`) and never JAX or `imaginary_tpu`.
+Phases, in order; any failure raises and exits non-zero:
+
+1. environment: card name and power limit, torch and CUDA versions;
+2. build: the four CUDA kernels (nvcc, sm_90a, in parallel) and the native
+   JPEG codec (g++), with the time each took;
+3. kernels: each kernel against its plain PyTorch version on the card at
+   the main path's shapes (B=1 and B=16) and at full 1080p, with the
+   stated tolerance (f32 outputs 1e-3 absolute on the 0-255 scale, uint8
+   outputs 1 LSB), its median time from CUDA events, the plain version's
+   time, the least time the card could take (bytes over 3.35 TB/s or FLOPs
+   over 67 TFLOP/s f32, whichever is larger) and, where one PyTorch call
+   computes the same function, that call's time;
+4. main path: the port's HTTP server in-process on 127.0.0.1 serving
+   POST /resize and /crop?width=300&height=200 on tests/testdata/large.jpg
+   three times each on `cuda`, with every kernel's launch counter set to 0
+   just before and read just after; the server's packed output planes for
+   the same plan on cuda and on cpu agree to 1 LSB;
+5. batch: `run_batch` at B=16 on the main-path plan, cuda against cpu.
+
+It ends with the card's `nvidia-smi` name and power limit, one
+`{"kernels": [...]}` line, and the last line
+`{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
+Details go to chip_smoke_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import threading
+import time
+import urllib.request
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+LARGE_JPG = os.path.join(ROOT, "tests", "testdata", "large.jpg")
+OUT_DIR = os.path.join(ROOT, "chip_smoke_out")
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
+F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
+F32_TOL = 1e-3  # absolute, on the 0-255 scale
+U8_TOL = 1  # LSB
+SEED = 20261017
+
+KERNEL_ROWS = {
+    "resample": ("imaginary_tpu_torch/kernels/csrc/resample.cu",
+                 "imaginary_tpu/ops/stages.py:46"),
+    "yuv420_unpack": ("imaginary_tpu_torch/kernels/csrc/yuv420_unpack.cu",
+                      "imaginary_tpu/ops/stages.py:403"),
+    "yuv420_pack": ("imaginary_tpu_torch/kernels/csrc/yuv420_pack.cu",
+                    "imaginary_tpu/ops/stages.py:521"),
+    "gather": ("imaginary_tpu_torch/kernels/csrc/gather.cu",
+               "imaginary_tpu/ops/stages.py:151"),
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def call_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """Median per-call time between CUDA events recorded around each call:
+    what one call costs its caller, host launch overhead included (the
+    card waits for the launch while the host runs the wrapper)."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, calls: int = 10, reps: int = 5) -> float:
+    """Device time per call: median over `reps` windows of `calls` calls
+    queued behind a GPU sleep, so the card runs them back to back and the
+    host's launch overhead stays hidden (warm L2, as on the path)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    # ~2e6 cycles per ms at the H100's boost clock; 3x the host's time to
+    # enqueue the window, so the queue never runs dry inside it
+    cycles = int(max(enqueue_ms, 0.05) * calls * 3 * 2e6)
+    means = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(calls):
+            fn()
+        b.record()
+        b.synchronize()
+        means.append(a.elapsed_time(b) / calls)
+    return statistics.median(means)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max().item()) if a.numel() else 0.0
+
+
+def bound_ms(nbytes: int, flops: float) -> tuple:
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    tf = flops / F32_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+# --- phase 3: kernels against their plain versions --------------------------
+
+def packed_inputs(codecs, bsz: int, shrink: int, hb: int, wb: int, rng):
+    """B packed 4:2:0 buffers: large.jpg decoded at 1/shrink, then per-image
+    seeded noise so the batch's images differ."""
+    import numpy as np
+
+    with open(LARGE_JPG, "rb") as f:
+        buf = f.read()
+    packed, h, w, _ = codecs.decode_yuv420(buf, shrink, hb, wb)
+    out = []
+    for i in range(bsz):
+        if i == 0:
+            out.append(np.array(packed))
+            continue
+        noise = rng.integers(-12, 13, size=packed.shape)
+        out.append(np.clip(packed.astype(np.int32) + noise, 0, 255).astype(np.uint8))
+    return np.stack(out), h, w
+
+
+def check(name, got, want, results, case, tol):
+    err = max_err(got, want)
+    if not err <= tol:
+        raise AssertionError(f"{name} [{case}]: max |err| {err} > {tol}")
+    results.setdefault(name, {})[case] = {"max_abs_err": err}
+    return err
+
+
+def kernel_phase(rng) -> dict:
+    import torch
+
+    from imaginary_tpu_torch import codecs, kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device("cuda")
+    res: dict = {}
+
+    def i32(v, b):
+        return torch.full((b,), v, dtype=torch.int32, device=dev)
+
+    def f32(v, b):
+        return torch.full((b,), float(v), dtype=torch.float32, device=dev)
+
+    # main path: FromYuv420(320,512) -> Sample(192,320){169x300}
+    #   -> Embed(208,304,COPY){off_y 15} -> ToYuv420(208,304);
+    # crop: Sample(256,384){200x356} -> Extract(208,304){left 28}
+    hb, wb = 320, 512
+    for case, bsz in (("B1", 1), ("B16", 16)):
+        np_packed, h, w = packed_inputs(codecs, bsz, 4, hb, wb, rng)
+        x2 = torch.from_numpy(np_packed).to(dev)
+        hh, ww = i32(h, bsz), i32(w, bsz)
+        rgb = kernels.yuv420_to_rgb(x2, hh, ww, hb, wb)
+        rgb_ref = reference.yuv420_to_rgb(x2, hh, ww, hb, wb)
+        check("yuv420_unpack", rgb, rgb_ref, res, case, F32_TOL)
+        timing(res, "yuv420_unpack", case,
+               lambda: kernels.yuv420_to_rgb(x2, hh, ww, hb, wb),
+               lambda: reference.yuv420_to_rgb(x2, hh, ww, hb, wb), None,
+               x2.numel() + rgb.numel() * 4, 30.0 * rgb.numel() / 3)
+
+        for variant, (ohb, owb, dh, dw) in (("resize", (192, 320, 169, 300)),
+                                            ("crop", (256, 384, 200, 356))):
+            dst_h, dst_w = f32(dh, bsz), f32(dw, bsz)
+            out, oh, ow = kernels.resample(rgb_ref, hh, ww, dst_h, dst_w, ohb, owb, "lanczos3")
+            ref, _, _ = reference.resample(rgb_ref, hh, ww, dst_h, dst_w, ohb, owb, "lanczos3")
+            if not (torch.equal(oh.cpu(), torch.full((bsz,), dh, dtype=torch.int32))
+                    and torch.equal(ow.cpu(), torch.full((bsz,), dw, dtype=torch.int32))):
+                raise AssertionError("resample output dims wrong")
+            check("resample", out, ref, res, f"{case}-{variant}", F32_TOL)
+            wy = reference.sample_matrix(ohb, hb, hh, dst_h, "lanczos3")
+            wx = reference.sample_matrix(owb, wb, ww, dst_w, "lanczos3")
+            flops = 2.0 * (float((wy != 0).sum()) * wb * 3 + float((wx != 0).sum()) * ohb * 3)
+            xin = rgb_ref
+
+            def lib(xin=xin, wy=wy, wx=wx, ohb=ohb, bsz=bsz):
+                t = torch.bmm(wy, xin.reshape(bsz, hb, wb * 3)).view(bsz, ohb, wb, 3)
+                return torch.matmul(wx[:, None], t)
+
+            if max_err(lib(), ref) > F32_TOL:
+                raise AssertionError("library resample disagrees with the plain version")
+            timing(res, "resample", f"{case}-{variant}",
+                   lambda: kernels.resample(xin, hh, ww, dst_h, dst_w, ohb, owb, "lanczos3"),
+                   lambda: reference.resample(xin, hh, ww, dst_h, dst_w, ohb, owb, "lanczos3"),
+                   lib, xin.numel() * 4 + out.numel() * 4, flops)
+
+            if variant == "resize":
+                off_y, off_x = i32(15, bsz), i32(0, bsz)
+                ch, cw = i32(200, bsz), i32(300, bsz)
+                args = (208, 304, off_y, off_x, oh, ow, "clamp")
+                g = kernels.gather(ref, *args)
+                g_ref = reference.gather(ref, *args)
+                check("gather", g, g_ref, res, f"{case}-embed", 0.0)
+                timing(res, "gather", f"{case}-embed",
+                       lambda: kernels.gather(ref, *args),
+                       lambda: reference.gather(ref, *args), None,
+                       ref.numel() * 4 + g.numel() * 4, 0.0)
+                y = kernels.rgb_to_yuv420(g_ref, ch, cw, 208, 304)
+                y_ref = reference.rgb_to_yuv420(g_ref, ch, cw, 208, 304)
+                check("yuv420_pack", y, y_ref, res, case, U8_TOL)
+                timing(res, "yuv420_pack", case,
+                       lambda: kernels.rgb_to_yuv420(g_ref, ch, cw, 208, 304),
+                       lambda: reference.rgb_to_yuv420(g_ref, ch, cw, 208, 304), None,
+                       g_ref.numel() * 4 + y.numel(), 20.0 * g_ref.numel() / 3)
+                # the other gather modes, at the same shapes
+                margs = (208, 304, off_y, off_x, oh, ow, "mirror")
+                check("gather", kernels.gather(ref, *margs),
+                      reference.gather(ref, *margs), res, f"{case}-mirror", 0.0)
+                fill = torch.full((bsz, 3), 255.0, device=dev)
+                check("gather", kernels.gather(ref, *args, fill=fill),
+                      reference.gather(ref, *args, fill=fill), res,
+                      f"{case}-fill", 0.0)
+            else:
+                top, left = i32(0, bsz), i32(28, bsz)
+                g = kernels.gather(ref, 208, 304, top, left, mode="window")
+                g_ref = reference.gather(ref, 208, 304, top, left, mode="window")
+                check("gather", g, g_ref, res, f"{case}-extract", 0.0)
+
+    # full 1080p, no shrink-on-load: K2 on [8,1632,1920,1], K1 from
+    # [8,1088,1920,3] to the 300-wide target (169x300 in a 192x320 bucket)
+    bsz, hb, wb = 8, 1088, 1920
+    np_packed, h, w = packed_inputs(codecs, bsz, 1, hb, wb, rng)
+    x2 = torch.from_numpy(np_packed).to(dev)
+    hh, ww = i32(h, bsz), i32(w, bsz)
+    rgb = kernels.yuv420_to_rgb(x2, hh, ww, hb, wb)
+    rgb_ref = reference.yuv420_to_rgb(x2, hh, ww, hb, wb)
+    check("yuv420_unpack", rgb, rgb_ref, res, "1080p-B8", F32_TOL)
+    timing(res, "yuv420_unpack", "1080p-B8",
+           lambda: kernels.yuv420_to_rgb(x2, hh, ww, hb, wb),
+           lambda: reference.yuv420_to_rgb(x2, hh, ww, hb, wb), None,
+           x2.numel() + rgb.numel() * 4, 30.0 * rgb.numel() / 3)
+    del rgb
+    dst_h, dst_w = f32(169, bsz), f32(300, bsz)
+    out, _, _ = kernels.resample(rgb_ref, hh, ww, dst_h, dst_w, 192, 320, "lanczos3")
+    ref, _, _ = reference.resample(rgb_ref, hh, ww, dst_h, dst_w, 192, 320, "lanczos3")
+    check("resample", out, ref, res, "1080p-B8", F32_TOL)
+    wy = reference.sample_matrix(192, hb, hh, dst_h, "lanczos3")
+    wx = reference.sample_matrix(320, wb, ww, dst_w, "lanczos3")
+    flops = 2.0 * (float((wy != 0).sum()) * wb * 3 + float((wx != 0).sum()) * 192 * 3)
+
+    def lib1080():
+        t = torch.bmm(wy, rgb_ref.reshape(bsz, hb, wb * 3)).view(bsz, 192, wb, 3)
+        return torch.matmul(wx[:, None], t)
+
+    timing(res, "resample", "1080p-B8",
+           lambda: kernels.resample(rgb_ref, hh, ww, dst_h, dst_w, 192, 320, "lanczos3"),
+           lambda: reference.resample(rgb_ref, hh, ww, dst_h, dst_w, 192, 320, "lanczos3"),
+           lib1080, rgb_ref.numel() * 4 + out.numel() * 4, flops)
+    # nearest at 2x and 1/2 (exact-tie sensitive), the other kernels once
+    small = rgb_ref[:2, :64, :96].contiguous()
+    sh, sw = i32(64, 2), i32(96, 2)
+    for kind, (dh, dw, ohb, owb) in (("nearest", (128, 192, 128, 192)),
+                                    ("nearest", (32, 48, 32, 48)),
+                                    ("lanczos2", (50, 70, 64, 96)),
+                                    ("cubic", (100, 150, 128, 192)),
+                                    ("linear", (40, 60, 48, 64))):
+        a = f32(dh, 2), f32(dw, 2)
+        check("resample", kernels.resample(small, sh, sw, *a, ohb, owb, kind)[0],
+              reference.resample(small, sh, sw, *a, ohb, owb, kind)[0], res,
+              f"{kind}-{dh}x{dw}", F32_TOL)
+    return res
+
+
+def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
+    import torch
+
+    ms = device_ms(kernel_fn)
+    call = call_ms(kernel_fn)
+    plain = device_ms(plain_fn)
+    lib = device_ms(lib_fn) if lib_fn is not None else None
+    b, by = bound_ms(int(nbytes), float(flops))
+    res[name][case].update({"ms": ms, "call_ms": call, "plain_ms": plain,
+                            "library_ms": lib, "bound_ms": b, "bound_by": by,
+                            "bytes": int(nbytes), "flops": float(flops)})
+    lib_s = f"{lib:.4f}" if lib is not None else "null"
+    log(f"  {name:14s} {case:16s} err {res[name][case]['max_abs_err']:.3g}  "
+        f"kernel {ms:.4f} ms (call {call:.4f})  plain {plain:.4f} ms  "
+        f"library {lib_s} ms  bound {b:.4f} ms ({by})")
+    torch.cuda.synchronize()
+
+
+# --- phase 4: the main path through the server ------------------------------
+
+def http(port: int, path: str, body: bytes):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers={"Content-Type": "image/jpeg"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        return r.status, r.headers["Content-Type"], r.read()
+
+
+def main_path_phase() -> dict:
+    import torch
+
+    from imaginary_tpu_torch import codecs, kernels
+    from imaginary_tpu_torch.web.app import make_server
+
+    with open(LARGE_JPG, "rb") as f:
+        buf = f.read()
+    srv = make_server("127.0.0.1", 0, device="cuda")
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    lat: dict = {}
+    try:
+        # one untimed request per route first: the first CUDA use loads the
+        # kernel libraries and the caching allocator's first blocks
+        for op in ("resize", "crop"):
+            http(port, f"/{op}?width=300&height=200", buf)
+        kernels.reset_launches()
+        for op in ("resize", "crop"):
+            lat[op] = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                status, ctype, body = http(port, f"/{op}?width=300&height=200", buf)
+                lat[op].append((time.perf_counter() - t0) * 1e3)
+                if status != 200 or ctype != "image/jpeg":
+                    raise AssertionError(f"/{op}: {status} {ctype}")
+                d = codecs.decode(body)
+                if d.array.shape[:2] != (200, 300):
+                    raise AssertionError(f"/{op}: output {d.array.shape}")
+        launches = dict(kernels.LAUNCHES)
+        prof = profile_requests(port, buf)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for op, ts in lat.items():
+        log(f"  /{op}: {', '.join(f'{t:.2f}' for t in ts)} ms")
+    log(f"  launches: {launches}")
+    log(f"  profiled {prof['requests']} requests: device busy {prof['device_busy_us']:.1f} us "
+        f"of {prof['wall_us']:.1f} us wall (share {prof['busy_share']:.4f})")
+    for name, us in sorted(prof["by_name_us"].items(), key=lambda kv: -kv[1]):
+        log(f"    {us / prof['requests']:9.2f} us/request  {name[:90]}")
+    torch.cuda.synchronize()
+    return {"latency_ms": lat, "launches": launches, "profile": prof}
+
+
+def profile_requests(port: int, buf: bytes, rounds: int = 3) -> dict:
+    """Device busy time over a window of requests, from torch.profiler
+    (CUPTI): every kernel and copy the card ran, summed by name."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(rounds):
+            for op in ("resize", "crop"):
+                http(port, f"/{op}?width=300&height=200", buf)
+        wall_us = (time.perf_counter() - t0) * 1e6
+    by_name: dict = collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us()
+    busy = sum(by_name.values())
+    return {"requests": 2 * rounds, "wall_us": wall_us, "device_busy_us": busy,
+            "busy_share": busy / wall_us, "by_name_us": dict(by_name)}
+
+
+def main_plan(op: str, transport: str):
+    """(input array, plan) of the server's request for `op` 300x200."""
+    from imaginary_tpu_torch import codecs
+    from imaginary_tpu_torch.ops import plan as plan_mod
+    from imaginary_tpu_torch.ops.buckets import bucket_shape
+    from imaginary_tpu_torch.params import build_params_from_query
+
+    with open(LARGE_JPG, "rb") as f:
+        buf = f.read()
+    o = build_params_from_query({"width": "300", "height": "200"})
+    meta = codecs.probe_fast(buf)
+    shrink = plan_mod.choose_decode_shrink(op, o, meta.height, meta.width, 0, 3)
+    sh, sw = -(-meta.height // shrink), -(-meta.width // shrink)
+    p = plan_mod.plan_operation(op, o, sh, sw, meta.orientation, 3)
+    if transport == "yuv420":
+        hb, wb = bucket_shape(sh, sw)
+        packed, _, _, _ = codecs.decode_yuv420(buf, shrink, hb, wb)
+        return packed, plan_mod.wrap_plan_yuv420(p, sh, sw)
+    return codecs.decode(buf, shrink).array, p
+
+
+def planes_err(a, b) -> int:
+    import numpy as np
+
+    if hasattr(a, "y"):
+        return max(int(np.abs(getattr(a, k).astype(int) - getattr(b, k).astype(int)).max())
+                   for k in ("y", "u", "v"))
+    return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+
+def parity_phase(rng) -> dict:
+    import numpy as np
+
+    from imaginary_tpu_torch.ops import chain
+
+    out = {}
+    for op in ("resize", "crop"):
+        for transport in ("yuv420", "rgb"):
+            arr, p = main_plan(op, transport)
+            err = planes_err(chain.run_single(arr, p, device="cuda"),
+                             chain.run_single(arr, p, device="cpu"))
+            if err > U8_TOL:
+                raise AssertionError(f"{op}/{transport}: cuda vs cpu {err} LSB")
+            out[f"{op}-{transport}"] = err
+    log(f"  run_single cuda vs cpu, max LSB: {out}")
+    # phase 5: B=16 on the main-path plan
+    arr, p = main_plan("resize", "yuv420")
+    arrs = [arr] + [np.clip(arr.astype(np.int32) + rng.integers(-12, 13, size=arr.shape),
+                            0, 255).astype(np.uint8) for _ in range(15)]
+    plans = [p] * 16
+    got = chain.run_batch(arrs, plans, device="cuda")
+    want = chain.run_batch(arrs, plans, device="cpu")
+    err = max(planes_err(a, b) for a, b in zip(got, want))
+    if err > U8_TOL:
+        raise AssertionError(f"run_batch B=16: cuda vs cpu {err} LSB")
+    out["run_batch-B16"] = err
+    log(f"  run_batch B=16 cuda vs cpu, max LSB: {err}")
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    import numpy as np
+
+    from imaginary_tpu_torch import kernels  # fails outside the repository
+    from imaginary_tpu_torch.native import build as native_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report: dict = {}
+    smi = smi_line()
+    log("== phase 1: environment")
+    log(f"  {smi}")
+    log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
+        f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
+    report["env"] = {"smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
+
+    log("== phase 2: build")
+    codec_box: dict = {}
+
+    def build_codec():
+        try:
+            codec_box["result"] = native_build.build()
+        except Exception as e:  # re-raised below, in the main thread
+            codec_box["error"] = e
+
+    t0 = time.monotonic()
+    tc = threading.Thread(target=build_codec)
+    tc.start()
+    built = kernels.load_all()
+    tc.join()
+    if "error" in codec_box:
+        raise codec_box["error"]
+    log(f"  kernels: {time.monotonic() - t0:.1f} s wall for "
+        + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in built.items()))
+    _, codec_secs, codec_route = codec_box["result"]
+    log(f"  native codec: {codec_secs:.1f} s, libjpeg: {codec_route or 'an earlier build'}")
+    report["build"] = {k: {"seconds": v["seconds"], "log": v["log"]} for k, v in built.items()}
+    report["build"]["codec"] = {"seconds": codec_secs, "libjpeg": codec_route}
+
+    rng = np.random.default_rng(SEED)
+    log("== phase 3: kernels against their plain versions")
+    report["kernels"] = kernel_phase(rng)
+    log("== phase 4: main path through the server")
+    report["main_path"] = main_path_phase()
+    log("== phase 4b/5: cuda against cpu (run_single, run_batch B=16)")
+    report["parity"] = parity_phase(rng)
+
+    rows = []
+    for name, (source, replaces) in KERNEL_ROWS.items():
+        per_case = report["kernels"][name]
+        main_case = {"resample": "B1-resize", "yuv420_unpack": "B1",
+                     "yuv420_pack": "B1", "gather": "B1-embed"}[name]
+        m = per_case[main_case]
+        rows.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": report["main_path"]["launches"][name],
+            "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
+            "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
+            "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+        })
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
+        json.dump(report, f, indent=1, default=str)
+    log(smi)
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

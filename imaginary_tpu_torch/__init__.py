@@ -1,0 +1,9 @@
+"""imaginary-tpu ported to PyTorch and CUDA for an NVIDIA H100.
+
+A second package beside `imaginary_tpu` (the JAX reference, which it never
+imports): the same HTTP contract and planner, with the device work in
+hand-written CUDA C++ kernels for Hopper (`kernels/`). This slice serves
+/resize and /crop on JPEG; see ROADMAP.md for what is still to port.
+"""
+
+Version = "0.1.0"

@@ -1,0 +1,259 @@
+"""Host codec layer of the port: bytes <-> HWC uint8 arrays and packed
+YUV 4:2:0 planes, plus the JPEG metadata carry.
+
+The port's own copy of the parts of `imaginary_tpu/codecs` that the
+/resize and /crop slice uses. Every pixel codec call goes to the native
+JPEG extension (`native_backend`); other formats answer 501 until their
+slice lands. Decoding is RAW: EXIF rotation is *not* applied here —
+orientation is reported and the planner decides.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+
+from imaginary_tpu_torch.errors import ImageError
+from imaginary_tpu_torch.imgtype import ImageType, determine_image_type
+
+
+class CodecError(ImageError):
+    def __init__(self, message: str, code: int = 400):
+        super().__init__(message, code)
+
+
+@dataclasses.dataclass
+class DecodedImage:
+    """A decoded frame plus the source facts the pipeline needs."""
+
+    array: np.ndarray  # HWC uint8, C in {3, 4}
+    type: ImageType
+    orientation: int  # EXIF orientation 0..8 (0 = absent)
+    has_alpha: bool
+
+
+@dataclasses.dataclass
+class ImageMetadata:
+    """The `/info` contract (ref: image.go:41-50, ImageInfo JSON).
+
+    subsampling is an internal extra (not part of the /info JSON): the JPEG
+    chroma layout ("420"/"422"/"444"/"gray", "" when unknown/not JPEG), used
+    to gate the packed-YUV420 device transport.
+    """
+
+    width: int
+    height: int
+    type: str
+    space: str
+    has_alpha: bool
+    has_profile: bool
+    channels: int
+    orientation: int
+    subsampling: str = ""
+
+
+@dataclasses.dataclass
+class EncodeOptions:
+    """Encode-side knobs (subset of bimg.Options consumed by save paths)."""
+
+    type: ImageType = ImageType.JPEG
+    quality: int = 0  # 0 -> default 80 (README.md:571)
+    compression: int = 0  # PNG zlib level, 0 -> default 6
+    interlace: bool = False  # progressive JPEG / interlaced PNG
+    palette: bool = False  # PNG8
+    speed: int = 0  # encoder effort: HEIF/AVIF speed, PNG filter strategy
+    strip_metadata: bool = False
+
+    def effective_quality(self) -> int:
+        q = self.quality if self.quality > 0 else 80
+        return max(1, min(q, 100))
+
+
+@dataclasses.dataclass
+class YuvPlanes:
+    """Raw 4:2:0 planes: Y is (h, w) uint8, U/V are (ceil(h/2), ceil(w/2)).
+
+    The packed-transport output format: the device returns these instead of
+    RGB for JPEG-in/JPEG-out requests, and encode_yuv() writes them through
+    libjpeg's raw-data path with zero host color math.
+    """
+
+    y: np.ndarray
+    u: np.ndarray
+    v: np.ndarray
+
+
+def unpack_planes(packed: np.ndarray, h: int, w: int, hb: int, wb: int) -> YuvPlanes:
+    """Slice Y/U/V out of the packed transport layout (the ONE definition
+    of the layout's geometry on the Python side; the C++ packer in
+    native/codecs.cpp mirrors it): Y in rows [0, hb), chroma block below
+    with U in columns [0, wb/2) and V in [wb/2, wb)."""
+    ch, cw = (h + 1) // 2, (w + 1) // 2
+    a = packed[..., 0] if packed.ndim == 3 else packed
+    return YuvPlanes(
+        y=np.ascontiguousarray(a[:h, :w]),
+        u=np.ascontiguousarray(a[hb : hb + ch, :cw]),
+        v=np.ascontiguousarray(a[hb : hb + ch, wb // 2 : wb // 2 + cw]),
+    )
+
+
+# --- JPEG metadata carry-through (ref: options.go:139 StripMetadata) ---------
+#
+# libvips preserves EXIF/ICC unless StripMetadata is set, and the reference
+# defaults stripmeta to false. Our encoders write clean JPEGs, so metadata
+# preservation is a byte-level splice: lift the source's APP1(Exif)/APP2(ICC)
+# segments and re-insert them into the encoded output. Orientation is reset
+# to 1 when the pipeline applied the EXIF rotation (otherwise viewers would
+# rotate twice) — the same normalization libvips autorotate performs.
+
+
+def jpeg_metadata_segments(buf: bytes) -> list:
+    """Raw APP1(Exif) + APP2(ICC_PROFILE) segments of a JPEG, marker included."""
+    segs: list = []
+    if len(buf) < 4 or buf[0] != 0xFF or buf[1] != 0xD8:
+        return segs
+    i = 2
+    while i + 4 <= len(buf):
+        if buf[i] != 0xFF:
+            break
+        # ISO 10918-1 B.1.1.2: any number of 0xFF fill bytes may precede a
+        # marker — skip them or the length read lands on the marker byte
+        while i + 4 <= len(buf) and buf[i + 1] == 0xFF:
+            i += 1
+        if i + 4 > len(buf):
+            break
+        marker = buf[i + 1]
+        if marker == 0xD8 or 0xD0 <= marker <= 0xD9:
+            i += 2
+            continue
+        seglen = (buf[i + 2] << 8) | buf[i + 3]
+        if seglen < 2 or i + 2 + seglen > len(buf):
+            break
+        if marker == 0xE1 and buf[i + 4 : i + 10] == b"Exif\x00\x00":
+            segs.append(bytes(buf[i : i + 2 + seglen]))
+        elif marker == 0xE2 and buf[i + 4 : i + 16] == b"ICC_PROFILE\x00":
+            segs.append(bytes(buf[i : i + 2 + seglen]))
+        if marker == 0xDA:
+            break
+        i += 2 + seglen
+    return segs
+
+
+def patch_exif_segment(seg: bytes, orientation: Optional[int] = None,
+                       pixel_w: Optional[int] = None,
+                       pixel_h: Optional[int] = None) -> bytes:
+    """Rewrite in-place EXIF tags so carried metadata describes the OUTPUT:
+    IFD0 Orientation (0x0112), and the Exif sub-IFD's PixelXDimension
+    (0xA002) / PixelYDimension (0xA003) — libvips re-syncs the same fields
+    on save. None leaves a field untouched; missing tags are skipped."""
+    # segment: FF E1 len 'Exif\0\0' TIFF...
+    t = 10  # TIFF header offset within the segment
+    if len(seg) < t + 8:
+        return seg
+    le = seg[t : t + 2] == b"II"
+    if not le and seg[t : t + 2] != b"MM":
+        return seg
+    endian = "little" if le else "big"
+
+    def rd16(o):
+        return int.from_bytes(seg[o : o + 2], endian)
+
+    def rd32(o):
+        return int.from_bytes(seg[o : o + 4], endian)
+
+    out = bytearray(seg)
+
+    def write_value(off, value):
+        # entry: tag(2) type(2) count(4) value(4); SHORT(3) and LONG(4)
+        # values of count 1 sit left-justified in the value field
+        typ = rd16(off + 2)
+        if typ == 3:
+            out[off + 8 : off + 10] = value.to_bytes(2, endian)
+        elif typ == 4:
+            out[off + 8 : off + 12] = value.to_bytes(4, endian)
+
+    def walk(ifd, wanted):
+        """Patch wanted tags in one IFD; returns the Exif sub-IFD offset."""
+        sub = None
+        if ifd + 2 > len(seg):
+            return None
+        n = rd16(ifd)
+        for e in range(n):
+            off = ifd + 2 + 12 * e
+            if off + 12 > len(seg):
+                return sub
+            tag = rd16(off)
+            if tag in wanted and wanted[tag] is not None:
+                write_value(off, wanted[tag])
+            if tag == 0x8769:  # ExifIFD pointer
+                sub = t + rd32(off + 8)
+        return sub
+
+    sub_ifd = walk(t + rd32(t + 4), {0x0112: orientation})
+    if sub_ifd is not None and (pixel_w is not None or pixel_h is not None):
+        walk(sub_ifd, {0xA002: pixel_w, 0xA003: pixel_h})
+    return bytes(out)
+
+
+def insert_jpeg_segments(jpeg: bytes, segs: list) -> bytes:
+    """Splice metadata segments into a JPEG after SOI (and any APP0/JFIF)."""
+    if not segs or len(jpeg) < 4 or jpeg[0] != 0xFF or jpeg[1] != 0xD8:
+        return jpeg
+    i = 2
+    while i + 4 <= len(jpeg) and jpeg[i] == 0xFF and jpeg[i + 1] == 0xE0:
+        i += 2 + ((jpeg[i + 2] << 8) | jpeg[i + 3])
+    return jpeg[:i] + b"".join(segs) + jpeg[i:]
+
+
+def _backend():
+    from imaginary_tpu_torch.codecs import native_backend
+
+    return native_backend
+
+
+def yuv420_supported() -> bool:
+    """True once the native extension (with the packed-YUV420 entry points)
+    is built and loaded; a failed build raises instead of answering False."""
+    return _backend().extension() is not None
+
+
+def decode_yuv420(buf: bytes, shrink: int, hb: int, wb: int):
+    """Packed-layout 4:2:0 decode; see native_backend.decode_yuv420."""
+    return _backend().decode_yuv420(buf, shrink, hb, wb)
+
+
+def encode_yuv(planes: YuvPlanes, opts: EncodeOptions) -> bytes:
+    """Encode raw planes as JPEG via the native raw-data path."""
+    if opts.type is not ImageType.JPEG:
+        raise CodecError("raw YUV planes can only encode to JPEG", 500)
+    return _backend().encode_yuv420(
+        planes.y, planes.u, planes.v, opts.effective_quality(), opts.interlace)
+
+
+def decode(buf: bytes, shrink: int = 1) -> DecodedImage:
+    """Decode bytes into an HWC uint8 array (RGB).
+
+    shrink in {2, 4, 8} asks for 1/N-scale shrink-on-load (JPEG DCT
+    scaling; result dims are ceil(dim/N))."""
+    if not buf:
+        raise CodecError("Empty or unreadable image", 400)
+    return _backend().decode(buf, determine_image_type(buf), shrink)
+
+
+def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
+    """Encode an HWC uint8 array (JPEG flattens alpha onto black)."""
+    if arr.ndim != 3 or arr.shape[2] not in (1, 3, 4):
+        raise CodecError(f"cannot encode array of shape {arr.shape}", 500)
+    if arr.dtype != np.uint8:
+        raise CodecError(f"cannot encode dtype {arr.dtype}", 500)
+    return _backend().encode(arr, opts)
+
+
+def probe_fast(buf: bytes) -> ImageMetadata:
+    """Dims/orientation/subsampling from the header, for the request hot
+    path (shrink-on-load selection and the transport gate)."""
+    if not buf:
+        raise CodecError("Cannot retrieve image metadata: empty buffer", 400)
+    return _backend().probe_fast(buf, determine_image_type(buf))

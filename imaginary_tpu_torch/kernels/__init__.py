@@ -1,0 +1,213 @@
+"""The port's device kernels: four CUDA C++ kernels for Hopper (sm_90a).
+
+| kernel          | source                 | replaces (imaginary_tpu/...)                     |
+| --------------- | ---------------------- | ------------------------------------------------ |
+| resample        | csrc/resample.cu       | ops/stages.py:46-116 sample_matrix + SampleSpec  |
+| yuv420_unpack   | csrc/yuv420_unpack.cu  | ops/stages.py:344-423 FromYuv420Spec (+ cast)    |
+| yuv420_pack     | csrc/yuv420_pack.cu    | ops/stages.py:521-552 ToYuv420Spec + epilogue    |
+| gather          | csrc/gather.cu         | ops/stages.py:119-198, 330-341 Extract/Embed/Shrink |
+
+Each wrapper below takes tensors on one device. On a CPU tensor it runs
+the kernel's plain version (`reference.py`). On a CUDA tensor it checks
+dtype, shape and contiguity, allocates outputs with `torch.empty`,
+launches on the current stream, raises if the launch reports a CUDA
+error, and adds one to `LAUNCHES[name]` per kernel launch. There is no
+fallback from CUDA to the plain version.
+
+The libraries are built by nvcc at first CUDA use (`build.py`) and loaded
+with ctypes; importing this module needs neither nvcc nor a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from imaginary_tpu_torch.kernels import reference
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+# name -> (C symbol, argtypes); every function ends with the stream.
+_SIGNATURES = {
+    "resample": ("itpu_resample_pass",
+                 [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "yuv420_unpack": ("itpu_yuv420_to_rgb", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "yuv420_pack": ("itpu_rgb_to_yuv420", [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "gather": ("itpu_gather",
+               [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                _I, _P]),
+}
+
+# Kernel launches since the last reset, per kernel (resample counts its
+# two passes as two launches).
+LAUNCHES = {name: 0 for name in _SIGNATURES}
+
+_FNS: dict = {}
+_LOCK = threading.Lock()
+_RESAMPLE_KIND = {k: i for i, k in enumerate(reference.RESAMPLE_KINDS)}
+_GATHER_MODE = {m: i for i, m in enumerate(reference.GATHER_MODES)}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def load_all() -> dict:
+    """Build (if needed) and load every kernel library; returns the build
+    report of `build.build_all` for the libraries this call loaded."""
+    with _LOCK:
+        if _FNS:
+            return {}
+        from imaginary_tpu_torch.kernels.build import build_all
+
+        built = build_all()
+        for name, info in built.items():
+            symbol, argtypes = _SIGNATURES[name]
+            fn = getattr(ctypes.CDLL(info["path"]), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _FNS[name] = fn
+        return built
+
+
+def _launch(name: str, device: torch.device, *args) -> None:
+    if not _FNS:
+        load_all()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _FNS[name](*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    LAUNCHES[name] += 1
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _require(t: torch.Tensor, what: str, dtypes: tuple, shape: tuple,
+             device: torch.device) -> None:
+    if t.device != device:
+        raise ValueError(f"{what} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{what} has dtype {t.dtype}, expected one of {dtypes}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{what} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+_IMG = (torch.uint8, torch.float32)
+_I32 = (torch.int32,)
+_F32 = (torch.float32,)
+
+
+def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
+             out_u8: bool = False):
+    """K1: separable resample of x [B, Hb, Wb, C] (uint8 or f32) to
+    [B, out_hb, out_wb, C] (f32, or uint8 with the epilogue).
+
+    h, w: int32 [B] valid input dims; dst_h, dst_w: f32 [B] target dims.
+    Returns (out, int32 dst_h, int32 dst_w)."""
+    if x.device.type == "cpu":
+        return reference.resample(x, h, w, dst_h, dst_w, out_hb, out_wb,
+                                  kind, out_u8)
+    if kind not in _RESAMPLE_KIND:
+        raise ValueError(f"unknown kernel {kind!r}")
+    dev = x.device
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    bsz, in_h, in_w, c = x.shape
+    _require(x, "x", _IMG, (bsz, in_h, in_w, c), dev)
+    for t, n, dts in ((h, "h", _I32), (w, "w", _I32), (dst_h, "dst_h", _F32),
+                      (dst_w, "dst_w", _F32)):
+        _require(t, n, dts, (bsz,), dev)
+    mid = torch.empty((bsz, out_hb, in_w, c), dtype=torch.float32, device=dev)
+    out = torch.empty((bsz, out_hb, out_wb, c),
+                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    h_out = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    w_out = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    k = _RESAMPLE_KIND[kind]
+    _launch("resample", dev, x.data_ptr(), int(x.dtype == torch.uint8),
+            mid.data_ptr(), 0, h.data_ptr(), dst_h.data_ptr(), h_out.data_ptr(),
+            bsz, 1, in_h, out_hb, in_w * c, k)
+    _launch("resample", dev, mid.data_ptr(), 0, out.data_ptr(), int(out_u8),
+            w.data_ptr(), dst_w.data_ptr(), w_out.data_ptr(),
+            bsz, out_hb, in_w, out_wb, c, k)
+    return out, h_out, w_out
+
+
+def yuv420_to_rgb(x, h, w, hb: int, wb: int):
+    """K2: uint8 packed planes [B, hb + hb/2, wb, 1] -> f32 RGB [B, hb, wb, 3]."""
+    if x.device.type == "cpu":
+        return reference.yuv420_to_rgb(x, h, w, hb, wb)
+    dev = x.device
+    bsz = x.shape[0]
+    if hb % 2 or wb % 2:
+        raise ValueError(f"bucket ({hb}, {wb}) must be even")
+    _require(x, "x", (torch.uint8,), (bsz, hb + hb // 2, wb, 1), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    out = torch.empty((bsz, hb, wb, 3), dtype=torch.float32, device=dev)
+    _launch("yuv420_unpack", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(),
+            w.data_ptr(), bsz, hb, wb)
+    return out
+
+
+def rgb_to_yuv420(x, h, w, hb: int, wb: int):
+    """K3: f32 RGB [B, hb, wb, 3] -> uint8 packed planes [B, hb + hb/2, wb, 1]
+    (chroma pooled over valid pixels; epilogue fused)."""
+    if x.device.type == "cpu":
+        return reference.rgb_to_yuv420(x, h, w, hb, wb)
+    dev = x.device
+    bsz = x.shape[0]
+    if hb % 2 or wb % 2:
+        raise ValueError(f"bucket ({hb}, {wb}) must be even")
+    _require(x, "x", _F32, (bsz, hb, wb, 3), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    out = torch.empty((bsz, hb + hb // 2, wb, 1), dtype=torch.uint8, device=dev)
+    _launch("yuv420_pack", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(),
+            w.data_ptr(), bsz, hb, wb)
+    return out
+
+
+def gather(x, out_hb: int, out_wb: int, off_y=None, off_x=None, size_h=None,
+           size_w=None, mode: str = "window", fill=None, out_u8: bool = False):
+    """K4: index-map gather of x [B, Hb, Wb, C] (uint8 or f32) into
+    [B, out_hb, out_wb, C] (f32, or uint8 with the epilogue).
+
+    mode "window": source index pos + off, each clamped into the bucket
+    (offsets None means identity); "clamp" / "mirror": canvas placement at
+    off with the image's valid size, edge-clamped or mirrored; a fill
+    f32 [B, C] paints canvas pixels outside the image."""
+    if mode not in _GATHER_MODE:
+        raise ValueError(f"unknown gather mode {mode!r}")
+    if mode != "window" and (size_h is None or size_w is None or off_y is None
+                             or off_x is None):
+        raise ValueError(f"gather mode {mode!r} needs offsets and sizes")
+    if x.device.type == "cpu":
+        return reference.gather(x, out_hb, out_wb, off_y, off_x, size_h,
+                                size_w, mode, fill, out_u8)
+    dev = x.device
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    bsz, in_hb, in_wb, c = x.shape
+    _require(x, "x", _IMG, (bsz, in_hb, in_wb, c), dev)
+    for t, n in ((off_y, "off_y"), (off_x, "off_x"), (size_h, "size_h"),
+                 (size_w, "size_w")):
+        if t is not None:
+            _require(t, n, _I32, (bsz,), dev)
+    if fill is not None:
+        _require(fill, "fill", _F32, (bsz, c), dev)
+    out = torch.empty((bsz, out_hb, out_wb, c),
+                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    _launch("gather", dev, x.data_ptr(), int(x.dtype == torch.uint8),
+            out.data_ptr(), int(out_u8), _ptr(off_y), _ptr(off_x), _ptr(size_h),
+            _ptr(size_w), _ptr(fill), _GATHER_MODE[mode], bsz, in_hb, in_wb, c,
+            out_hb, out_wb)
+    return out

@@ -1,0 +1,182 @@
+"""Plain PyTorch versions of the four kernels.
+
+Each function computes what its CUDA kernel computes, in the reference's
+formulation (dense sampling matrices and einsums for the resample, index
+vectors and gathers for the rest), in IEEE f32. They are the CPU path of
+the port and the oracle `chip_smoke.py` holds each kernel against on the
+card. They are no yardstick of speed.
+
+Conventions shared with the kernels: images are NHWC; `h`, `w` and the
+integer dyn params are int32 [B]; uint8 inputs are cast on entry, and
+`out_u8=True` applies the chain's epilogue clip(x + 0.5, 0, 255) -> uint8.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_EPS = 1e-6
+
+RESAMPLE_KINDS = ("lanczos3", "lanczos2", "cubic", "linear", "nearest")
+GATHER_MODES = ("window", "clamp", "mirror")
+
+
+def epilogue_u8(x: torch.Tensor) -> torch.Tensor:
+    """`_run_chain`'s uint8 epilogue: clip(x + 0.5) then a truncating cast."""
+    return torch.clamp(x + 0.5, 0.0, 255.0).to(torch.uint8)
+
+
+def _finish(x: torch.Tensor, out_u8: bool) -> torch.Tensor:
+    return epilogue_u8(x) if out_u8 else x
+
+
+def kernel_weight(kind: str, d: torch.Tensor) -> torch.Tensor:
+    """The resampling kernel at (scaled) distance d (stages.py:_kernel_weight)."""
+    ad = d.abs()
+    zero = torch.zeros((), dtype=d.dtype, device=d.device)
+    if kind == "lanczos3":
+        return torch.where(ad < 3.0, torch.sinc(d) * torch.sinc(d / 3.0), zero)
+    if kind == "lanczos2":
+        return torch.where(ad < 2.0, torch.sinc(d) * torch.sinc(d / 2.0), zero)
+    if kind == "cubic":
+        a = -0.5
+        w1 = (a + 2) * ad ** 3 - (a + 3) * ad ** 2 + 1
+        w2 = a * ad ** 3 - 5 * a * ad ** 2 + 8 * a * ad - 4 * a
+        return torch.where(ad <= 1, w1, torch.where(ad < 2, w2, zero))
+    if kind == "linear":
+        return torch.clamp(1.0 - ad, min=0.0)
+    if kind == "nearest":
+        return torch.where((d >= -0.5) & (d < 0.5), 1.0 + zero, zero)
+    raise ValueError(f"unknown kernel {kind!r}")
+
+
+def sample_matrix(out_b: int, in_b: int, src: torch.Tensor, dst: torch.Tensor,
+                  kind: str) -> torch.Tensor:
+    """[B, out_b, in_b] row-stochastic resampling matrices (stages.py:sample_matrix)."""
+    dev = src.device
+    y = torch.arange(out_b, dtype=torch.float32, device=dev)[None, :, None]
+    k = torch.arange(in_b, dtype=torch.float32, device=dev)[None, None, :]
+    src = torch.clamp(src.float(), min=1.0)[:, None, None]
+    dst = torch.clamp(dst.float(), min=1.0)[:, None, None]
+    scale = dst / src
+    centre = (y + 0.5) / scale - 0.5
+    stretch = torch.clamp(1.0 / scale, min=1.0)
+    d = (k - centre) / stretch
+    wts = kernel_weight(kind, d)
+    valid = (k < src) & (y < dst)
+    wts = torch.where(valid, wts, 0.0)
+    norm = wts.sum(dim=-1, keepdim=True)
+    return torch.where(norm > _EPS, wts / torch.clamp(norm, min=_EPS), 0.0)
+
+
+def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
+             out_u8: bool = False):
+    """K1's function: separable resample of [B, Hb, Wb, C] to
+    [B, out_hb, out_wb, C]. Returns (out, int32 dst_h, int32 dst_w)."""
+    xf = x.float()
+    wy = sample_matrix(out_hb, x.shape[1], h, dst_h, kind)
+    t = torch.einsum("byk,bkwc->bywc", wy, xf)
+    wx = sample_matrix(out_wb, x.shape[2], w, dst_w, kind)
+    out = torch.einsum("bxw,bywc->byxc", wx, t).contiguous()
+    return _finish(out, out_u8), dst_h.to(torch.int32), dst_w.to(torch.int32)
+
+
+def _chroma_up_indices(out_n: int, cn: torch.Tensor, chroma_b: int):
+    """(i0, i1 [B, out_n], t [out_n]) of stages.py:_chroma_up_indices."""
+    r = torch.arange(out_n, dtype=torch.float32, device=cn.device)
+    pos = r * 0.5 - 0.25
+    i0f = torch.floor(pos)
+    t = pos - i0f
+    hi = torch.clamp(cn - 1, min=0)[:, None]
+    base = i0f.to(torch.int64)[None, :]
+    i0 = torch.minimum(torch.clamp(base, min=0), hi)
+    i1 = torch.minimum(torch.clamp(base + 1, min=0), hi)
+    return i0, torch.clamp(i1, max=chroma_b - 1), t
+
+
+def yuv420_to_rgb(x: torch.Tensor, h, w, hb: int, wb: int) -> torch.Tensor:
+    """K2's function: uint8 [B, hb + hb/2, wb, 1] packed planes -> f32
+    [B, hb, wb, 3] RGB (stages.py:FromYuv420Spec with the chain's cast)."""
+    xf = x[..., 0].float()
+    y = xf[:, :hb]
+    u = xf[:, hb:, : wb // 2]
+    v = xf[:, hb:, wb // 2:]
+    ch = (h.long() + 1) // 2
+    cw = (w.long() + 1) // 2
+    i0, i1, t = _chroma_up_indices(hb, ch, hb // 2)
+    j0, j1, s = _chroma_up_indices(wb, cw, wb // 2)
+    bsz = x.shape[0]
+
+    def up2(plane):
+        rows0 = torch.gather(plane, 1, i0[:, :, None].expand(bsz, hb, wb // 2))
+        rows1 = torch.gather(plane, 1, i1[:, :, None].expand(bsz, hb, wb // 2))
+        plane = rows0 * (1.0 - t)[None, :, None] + rows1 * t[None, :, None]
+        cols0 = torch.gather(plane, 2, j0[:, None, :].expand(bsz, hb, wb))
+        cols1 = torch.gather(plane, 2, j1[:, None, :].expand(bsz, hb, wb))
+        return cols0 * (1.0 - s)[None, None, :] + cols1 * s[None, None, :]
+
+    uu = up2(u) - 128.0
+    vv = up2(v) - 128.0
+    r = y + 1.402 * vv
+    g = y - 0.344136 * uu - 0.714136 * vv
+    b = y + 1.772 * uu
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0)
+
+
+def rgb_to_yuv420(x: torch.Tensor, h, w, hb: int, wb: int) -> torch.Tensor:
+    """K3's function: f32 [B, hb, wb, 3] RGB -> uint8 [B, hb + hb/2, wb, 1]
+    packed planes (stages.py:ToYuv420Spec with the chain's uint8 epilogue)."""
+    x = torch.clamp(x.float(), 0.0, 255.0)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    dev = x.device
+    iy = torch.arange(hb, dtype=torch.int32, device=dev)[None, :, None]
+    ix = torch.arange(wb, dtype=torch.int32, device=dev)[None, None, :]
+    m = ((iy < h[:, None, None]) & (ix < w[:, None, None])).float()
+
+    def pool(c):
+        s = (c * m).reshape(-1, hb // 2, 2, wb // 2, 2).sum(dim=(2, 4))
+        n = m.reshape(-1, hb // 2, 2, wb // 2, 2).sum(dim=(2, 4))
+        return torch.where(n > 0, s / torch.clamp(n, min=1.0), 128.0)
+
+    bottom = torch.cat([pool(cb), pool(cr)], dim=2)
+    packed = torch.cat([y, bottom], dim=1)[..., None]
+    return epilogue_u8(packed)
+
+
+def _axis_index(out_b: int, in_b: int, off, size, mode: str):
+    """(idx, inside) for one axis; inside is None in window mode."""
+    pos = torch.arange(out_b, dtype=torch.int64, device=off.device)[None, :]
+    if mode == "window":
+        return torch.clamp(pos + off.long()[:, None], 0, in_b - 1), None
+    size = torch.clamp(size.long(), min=1)[:, None]
+    rel = pos - off.long()[:, None]
+    inside = (rel >= 0) & (rel < size)
+    if mode == "mirror":
+        period = 2 * size
+        m = torch.remainder(rel, period)
+        idx = torch.where(m < size, m, period - 1 - m)
+    else:
+        idx = torch.minimum(torch.clamp(rel, min=0), size - 1)
+    return torch.clamp(idx, 0, in_b - 1), inside
+
+
+def gather(x: torch.Tensor, out_hb: int, out_wb: int, off_y=None, off_x=None,
+           size_h=None, size_w=None, mode: str = "window", fill=None,
+           out_u8: bool = False) -> torch.Tensor:
+    """K4's function: out[b, y, x] = x[b, iy(b, y), ix(b, x)], with canvas
+    pixels outside the image taking fill[b] when a fill is given (see
+    csrc/gather.cu for the three index modes)."""
+    bsz, in_hb, in_wb, _ = x.shape
+    if mode == "window" and off_y is None:
+        off_y = off_x = torch.zeros(bsz, dtype=torch.int32, device=x.device)
+    iy, in_y = _axis_index(out_hb, in_hb, off_y, size_h, mode)
+    ix, in_x = _axis_index(out_wb, in_wb, off_x, size_w, mode)
+    bidx = torch.arange(bsz, device=x.device)[:, None, None]
+    out = x.float()[bidx, iy[:, :, None], ix[:, None, :]]
+    if fill is not None and in_y is not None:
+        keep = (in_y[:, :, None] & in_x[:, None, :])[..., None]
+        out = torch.where(keep, out, fill.float()[:, None, None, :])
+    return _finish(out, out_u8)

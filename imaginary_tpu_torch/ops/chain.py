@@ -1,0 +1,217 @@
+"""Chain runner: a plan's stage chain -> kernel launches on one device.
+
+The port's counterpart of `imaginary_tpu/ops/chain.py`, with the surface
+the executor calls (`launch_batch`, `fetch_batch`, `finish_batch`,
+`run_batch`, `run_single`, `pad_to_bucket`, `cache_size`, `is_oom_error`,
+`output_checksum`). Every entry point takes a `device` and runs on the
+card unless the caller asks for the CPU.
+
+PyTorch runs eagerly, so there is no compiled program per chain: a launch
+stages the batch and its per-image params to the device in ONE copy from
+pinned host memory, runs each stage's kernel in order on the current
+stream, and returns the output tensor while the card is still computing.
+The chain's uint8 -> f32 cast and its uint8 epilogue are fused into the
+first and last stages' kernels. The fetch copies the output into pinned
+host memory and waits for that copy only.
+
+Buffer donation has no torch meaning (the kernels allocate their outputs
+and the caching allocator recycles freed buffers); `donation_stats`
+reports it off. The int16 egress of the DCT transport waits for the DCT
+slice.
+"""
+
+from __future__ import annotations
+
+import threading
+import zlib
+
+import numpy as np
+import torch
+
+from imaginary_tpu_torch.ops.buckets import bucket_shape
+from imaginary_tpu_torch.ops.plan import ImagePlan
+
+DEFAULT_DEVICE = "cuda"
+
+# Distinct (chain, input shape, device) signatures launched so far: the
+# count the executor reads as `cache_size()`. Nothing is compiled per
+# signature here; the count keeps the reference's meaning of "a launch
+# shape this process has seen".
+_SIGNATURES: set = set()
+_LOCK = threading.Lock()
+
+_ALIGN = 16
+
+
+def donation_stats() -> dict:
+    return {"enabled": False, "rejected": 0}
+
+
+def cache_size() -> int:
+    return len(_SIGNATURES)
+
+
+def clear_cache() -> None:
+    with _LOCK:
+        _SIGNATURES.clear()
+
+
+def _run_chain(specs, x, h, w, dyns):
+    """Run every stage; the last one writes uint8 (epilogue fused)."""
+    last = len(specs) - 1
+    for i, (spec, dyn) in enumerate(zip(specs, dyns)):
+        x, h, w = spec.apply(x, h, w, dyn, out_u8=(i == last))
+    return x, h, w
+
+
+def pad_to_bucket(arr: np.ndarray) -> np.ndarray:
+    """Zero-pad HWC uint8 to bucket dims."""
+    h, w = arr.shape[:2]
+    hb, wb = bucket_shape(h, w)
+    if (hb, wb) == (h, w):
+        return arr
+    out = np.zeros((hb, wb, arr.shape[2]), dtype=arr.dtype)
+    out[:h, :w] = arr
+    return out
+
+
+_TORCH_DTYPES = {
+    np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.float32): torch.float32,
+}
+
+
+def _stage(arrays: list, device: torch.device) -> list:
+    """Copy host arrays to `device` as ONE transfer; returns typed views.
+
+    The arrays are packed at 16-byte offsets into one host buffer (pinned
+    when the target is a card, so the copy is asynchronous and runs at the
+    link's full rate) and moved with one non-blocking copy."""
+    offsets, total = [], 0
+    for a in arrays:
+        offsets.append(total)
+        total += (a.nbytes + _ALIGN - 1) // _ALIGN * _ALIGN
+    pinned = device.type == "cuda"
+    host = torch.empty(max(total, _ALIGN), dtype=torch.uint8, pin_memory=pinned)
+    hv = host.numpy()
+    for a, off in zip(arrays, offsets):
+        hv[off:off + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    dev = host.to(device, non_blocking=True) if pinned else host
+    return [
+        dev[off:off + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
+        for a, off in zip(arrays, offsets)
+    ]
+
+
+def _stack_dyns(plans: list) -> list:
+    """Per-stage dicts of host arrays stacked over the batch."""
+    out = []
+    for i, st in enumerate(plans[0].stages):
+        out.append({k: np.stack([np.asarray(p.stages[i].dyn[k]) for p in plans])
+                    for k in st.dyn})
+    return out
+
+
+def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE):
+    """Stage + launch one batched chain WITHOUT waiting for it.
+
+    arrs: HWC uint8 arrays, all with the same bucket shape and C (packed
+    transports: the pre-padded packed buffers, with the image dims on the
+    plan). plans: matching ImagePlans with identical spec_key().
+    Returns the output tensor on `device` (uint8, possibly still
+    computing), or None for an identity chain."""
+    specs = plans[0].spec_key()
+    if not specs:
+        return None
+    device = torch.device(device)
+    if plans[0].in_bucket is not None:
+        batch = np.stack(arrs)
+        h = np.array([p.in_h for p in plans], dtype=np.int32)
+        w = np.array([p.in_w for p in plans], dtype=np.int32)
+    else:
+        batch = np.stack([pad_to_bucket(a) for a in arrs])
+        h = np.array([a.shape[0] for a in arrs], dtype=np.int32)
+        w = np.array([a.shape[1] for a in arrs], dtype=np.int32)
+    host_dyns = _stack_dyns(plans)
+    flat = [batch, h, w] + [v for d in host_dyns for v in d.values()]
+    staged = iter(_stage(flat, device))
+    x, ht, wt = next(staged), next(staged), next(staged)
+    dyns = [{k: next(staged) for k in d} for d in host_dyns]
+    with _LOCK:
+        _SIGNATURES.add((specs, batch.shape, str(device)))
+    y, _, _ = _run_chain(specs, x, ht, wt, dyns)
+    return y
+
+
+def _to_host(y: torch.Tensor) -> np.ndarray:
+    if y.device.type != "cuda":
+        return y.numpy()
+    host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+    host.copy_(y, non_blocking=True)
+    torch.cuda.current_stream(y.device).synchronize()
+    return host.numpy()
+
+
+def finish_batch(host_y, arrs: list, plans: list) -> list:
+    """Slice per-image outputs out of a fetched (host) batch array.
+
+    Slices are copied, so no output pins the batch buffer. yuv420-transport
+    plans return YuvPlanes sliced out of the packed layout."""
+    if host_y is None:
+        return [np.asarray(a) for a in arrs]
+    if plans[0].transport == "yuv420":
+        from imaginary_tpu_torch.codecs import unpack_planes
+
+        return [
+            unpack_planes(host_y[i], p.out_h, p.out_w, *p.out_bucket)
+            for i, p in enumerate(plans)
+        ]
+    return [np.ascontiguousarray(host_y[i, : p.out_h, : p.out_w])
+            for i, p in enumerate(plans)]
+
+
+def fetch_batch(y, arrs: list, plans: list) -> list:
+    """Wait for a launch_batch result and slice out per-image outputs."""
+    if y is None:
+        return [np.asarray(a) for a in arrs]
+    return finish_batch(_to_host(y), arrs, plans)
+
+
+def run_batch(arrs: list, plans: list, device=DEFAULT_DEVICE) -> list:
+    """Synchronous convenience: launch + fetch in one call."""
+    return fetch_batch(launch_batch(arrs, plans, device=device), arrs, plans)
+
+
+def run_single(arr: np.ndarray, plan: ImagePlan, device=DEFAULT_DEVICE):
+    """Single-image convenience wrapper (the server's path in this slice)."""
+    return run_batch([arr], [plan], device=device)[0]
+
+
+_OOM_MARKERS = ("out of memory", "failed to allocate", "resource exhausted")
+
+
+def is_oom_error(e: BaseException) -> bool:
+    """True when an exception reads as memory exhaustion rather than a
+    device fault (the executor bisects such batches instead of blaming
+    the card)."""
+    if isinstance(e, (MemoryError, torch.cuda.OutOfMemoryError)):
+        return True
+    s = str(e).lower()
+    return any(m in s for m in _OOM_MARKERS)
+
+
+def output_checksum(out) -> int:
+    """Order-sensitive CRC32 over a staged output's bytes (an ndarray or
+    YuvPlanes): two launches of the same kernels on the same input are
+    expected bit-identical."""
+    if out is None:
+        return 0
+    if isinstance(out, np.ndarray):
+        return zlib.crc32(np.ascontiguousarray(out).tobytes())
+    crc = 0
+    for k in ("y", "u", "v"):
+        p = getattr(out, k, None)
+        if p is not None:
+            crc = zlib.crc32(np.ascontiguousarray(p).tobytes(), crc)
+    return crc

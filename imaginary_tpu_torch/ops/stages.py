@@ -1,0 +1,187 @@
+"""Stage specs of the port, one for one with `imaginary_tpu/ops/stages.py`.
+
+Each stage is a (static spec, dynamic params) pair. Class names and fields
+match the reference exactly, so a plan built by either package describes
+the same chain and plans compare across the two.
+
+Tensor convention: x is [B, Hb, Wb, C] on one device (uint8 only as the
+first stage's input, float32 in [0, 255] otherwise), padded to bucket dims;
+h and w are int32 [B] valid dims; dyn holds the stage's per-image params as
+tensors on the same device. `apply(x, h, w, dyn, out_u8)` returns
+(x, h, w); with `out_u8` the stage is the chain's last and also applies the
+uint8 epilogue. The main-path stages run one of the port's CUDA kernels on
+a CUDA tensor and its plain version on a CPU tensor (`kernels/`). The other
+specs are not ported yet and raise NotImplementedError naming the spec.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+from imaginary_tpu_torch import kernels
+from imaginary_tpu_torch.options import Extend
+
+
+class _NotPorted:
+    """Mixin for specs whose device work waits for a later slice."""
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        raise NotImplementedError(
+            f"{type(self).__name__} is not ported to the PyTorch/CUDA package yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class SampleSpec:
+    """Separable resample to (dst_h, dst_w) inside an (out_hb, out_wb) bucket
+    (kernel K1). dyn: dst_h, dst_w (f32 [B])."""
+
+    out_hb: int
+    out_wb: int
+    kernel: str = "lanczos3"
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        return kernels.resample(x, h, w, dyn["dst_h"], dyn["dst_w"],
+                                self.out_hb, self.out_wb, self.kernel, out_u8)
+
+
+@dataclasses.dataclass(frozen=True)
+class ExtractSpec:
+    """Crop a (new_h, new_w) window at dynamic (top, left), each index
+    clamped on its own (kernel K4, window mode).
+    dyn: top, left, new_h, new_w (i32 [B])."""
+
+    out_hb: int
+    out_wb: int
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        out = kernels.gather(x, self.out_hb, self.out_wb, dyn["top"],
+                             dyn["left"], mode="window", out_u8=out_u8)
+        return out, dyn["new_h"], dyn["new_w"]
+
+
+_FILL_MODES = (Extend.BLACK, Extend.WHITE, Extend.BACKGROUND)
+
+
+@dataclasses.dataclass(frozen=True)
+class EmbedSpec:
+    """Place the image on a (canvas_h, canvas_w) canvas with an extend mode
+    (kernel K4: mirror, or clamp with an optional fill).
+    dyn: off_y, off_x, canvas_h, canvas_w (i32 [B]), fill (f32 [B, C])."""
+
+    out_hb: int
+    out_wb: int
+    mode: Extend = Extend.MIRROR
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        mode = "mirror" if self.mode is Extend.MIRROR else "clamp"
+        fill = dyn["fill"] if self.mode in _FILL_MODES else None
+        out = kernels.gather(x, self.out_hb, self.out_wb, dyn["off_y"],
+                             dyn["off_x"], h, w, mode=mode, fill=fill,
+                             out_u8=out_u8)
+        return out, dyn["canvas_h"], dyn["canvas_w"]
+
+
+@dataclasses.dataclass(frozen=True)
+class FlipSpec(_NotPorted):
+    """Vertical flip of the valid region."""
+
+
+@dataclasses.dataclass(frozen=True)
+class FlopSpec(_NotPorted):
+    """Horizontal flip of the valid region."""
+
+
+@dataclasses.dataclass(frozen=True)
+class TransposeSpec(_NotPorted):
+    """Swap H and W."""
+
+
+@dataclasses.dataclass(frozen=True)
+class BlurSpec(_NotPorted):
+    """Separable gaussian blur, radius static, sigma dynamic. dyn: sigma."""
+
+    radius: int
+
+
+@dataclasses.dataclass(frozen=True)
+class CompositeSpec(_NotPorted):
+    """Alpha-blend an RGBA overlay block (watermark)."""
+
+    block_hb: int
+    block_wb: int
+    replicate: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class ShrinkBucketSpec:
+    """Static slice of the padded buffer down to a snugger bucket, valid dims
+    unchanged (kernel K4, identity window)."""
+
+    out_hb: int
+    out_wb: int
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        out = kernels.gather(x, self.out_hb, self.out_wb, mode="window",
+                             out_u8=out_u8)
+        return out, h, w
+
+
+@dataclasses.dataclass(frozen=True)
+class FromYuv420Spec:
+    """Unpack the packed YUV420 transport buffer [B, hb + hb/2, wb, 1] into
+    RGB: centred 2x chroma upsample, BT.601 full range (kernel K2)."""
+
+    hb: int
+    wb: int
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        if out_u8:
+            raise ValueError("FromYuv420Spec cannot end a chain")
+        return kernels.yuv420_to_rgb(x, h, w, self.hb, self.wb), h, w
+
+
+@dataclasses.dataclass(frozen=True)
+class FromDctSpec(_NotPorted):
+    """Scaled IDCT of the packed DCT-coefficient buffer into RGB."""
+
+    hb: int
+    wb: int
+    k: int
+    layout: str = "420"
+
+
+@dataclasses.dataclass(frozen=True)
+class ToYuv420Spec:
+    """Pack RGB into the YUV420 transport layout, chroma pooled over valid
+    pixels, with the uint8 epilogue fused (kernel K3)."""
+
+    hb: int
+    wb: int
+
+    def apply(self, x, h, w, dyn, out_u8: bool = True):
+        if not out_u8:
+            raise ValueError("ToYuv420Spec must end its chain")
+        return kernels.rgb_to_yuv420(x, h, w, self.hb, self.wb), h, w
+
+
+@dataclasses.dataclass(frozen=True)
+class ToDctSpec(_NotPorted):
+    """Forward DCT + quantize into the egress coefficient buffer."""
+
+    hb: int
+    wb: int
+
+    out_dtype = "int16"
+
+
+@dataclasses.dataclass(frozen=True)
+class GraySpec(_NotPorted):
+    """Rec.709 luma broadcast over RGB."""
+
+
+@dataclasses.dataclass(frozen=True)
+class SmartExtractSpec(_NotPorted):
+    """Saliency-guided crop. dyn: new_h, new_w."""
+
+    out_hb: int
+    out_wb: int

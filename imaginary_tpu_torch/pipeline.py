@@ -1,0 +1,210 @@
+"""The synchronous processing path of the port: bytes -> plan -> kernels -> bytes.
+
+The port's counterpart of `imaginary_tpu/pipeline.py:process_operation`
+for the `rgb` and `yuv420` transports: header probe, shrink-on-load
+choice, transport gate, decode, plan, chain run on `device`, encode and
+metadata carry. A 4:2:0 JPEG in and JPEG out rides the packed-YUV420
+transport (half the link bytes; the color math runs on the card); every
+other request rides the RGB transport.
+
+The dct transport, `process_pipeline`, `info`, the frame cache, the
+TIMES/COPIES ledgers and failpoints wait for later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from imaginary_tpu_torch import codecs
+from imaginary_tpu_torch.codecs import EncodeOptions, YuvPlanes
+from imaginary_tpu_torch.errors import ImageError, new_error
+from imaginary_tpu_torch.imgtype import ENCODABLE, ImageType, determine_image_type, get_image_mime_type, image_type
+from imaginary_tpu_torch.options import ImageOptions
+from imaginary_tpu_torch.ops import chain as chain_mod
+from imaginary_tpu_torch.ops.buckets import bucket_shape
+from imaginary_tpu_torch.ops.plan import (
+    OPERATION_NAMES,
+    ImagePlan,
+    choose_decode_shrink,
+    plan_operation,
+    wrap_plan_yuv420,
+)
+
+# Type values under which a request's output stays JPEG ("" and "auto"
+# inherit a JPEG source) — the packed-YUV420 transport gate.
+_JPEG_TYPE_NAMES = ("", "jpeg", "jpg", "auto")
+
+
+@dataclasses.dataclass
+class ProcessedImage:
+    body: bytes
+    mime: str
+    width: int = 0
+    height: int = 0
+
+
+def _encode_type(o: ImageOptions, source: ImageType) -> ImageType:
+    """Output format resolution (ref: Process type handling + type.go)."""
+    if o.type and o.type != "auto":
+        t = image_type(o.type)
+        if t is ImageType.UNKNOWN:
+            raise new_error("Unsupported output image format", 400)
+        return t
+    return source if source in ENCODABLE else ImageType.JPEG
+
+
+def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
+    """Encode an HWC uint8 array, or YuvPlanes from the packed transport
+    (raw-plane JPEG path, no host color math)."""
+    opts = EncodeOptions(
+        type=target,
+        quality=o.quality,
+        compression=o.compression,
+        interlace=o.interlace,
+        palette=o.palette,
+        speed=o.speed,
+        strip_metadata=o.strip_metadata,
+    )
+    if isinstance(arr, YuvPlanes):
+        body = codecs.encode_yuv(arr, opts)
+    else:
+        body = codecs.encode(arr, opts)
+    return ProcessedImage(body=body, mime=get_image_mime_type(target))
+
+
+def _carry_metadata(src_buf: bytes, strip: bool, out: ProcessedImage,
+                    orientation_applied: bool, out_w: int = 0,
+                    out_h: int = 0) -> ProcessedImage:
+    """Preserve source EXIF/ICC on JPEG output unless stripmeta is set;
+    Orientation resets to 1 when the chain applied the EXIF rotation and
+    PixelX/YDimension re-sync to the output geometry (as libvips does)."""
+    out.width = out_w
+    out.height = out_h
+    if strip or out.mime != "image/jpeg":
+        return out
+    segs = codecs.jpeg_metadata_segments(src_buf)
+    if not segs:
+        return out
+    segs = [
+        codecs.patch_exif_segment(
+            s,
+            orientation=1 if orientation_applied else None,
+            pixel_w=out_w or None,
+            pixel_h=out_h or None,
+        )
+        if s[4:10] == b"Exif\x00\x00" else s
+        for s in segs
+    ]
+    body = codecs.insert_jpeg_segments(out.body, segs)
+    return ProcessedImage(body=body, mime=out.mime, width=out_w, height=out_h)
+
+
+def _run_stages(arr, plan: ImagePlan, device):
+    """Device execution. Stages the port has not ported yet surface as 501;
+    other device failures as 400 (ref: Process recover(), image.go:82-94)."""
+    if not plan.stages:
+        return arr
+    try:
+        return chain_mod.run_single(arr, plan, device=device)
+    except NotImplementedError as e:
+        raise new_error(str(e), 501) from None
+    except (RuntimeError, ValueError, TypeError) as e:
+        raise new_error(f"image processing error: {e}", 400) from None
+
+
+def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
+                      meta=None) -> ProcessedImage:
+    """Run one named operation end to end (decode -> device -> encode).
+
+    meta: an ImageMetadata the caller already probed, so the hot path
+    parses headers once."""
+    if name not in OPERATION_NAMES:
+        raise new_error(f"Unsupported operation: {name}", 400)
+    src_type = determine_image_type(buf)
+    if meta is None and src_type is ImageType.JPEG:
+        try:
+            meta = codecs.probe_fast(buf)
+        except ImageError:
+            meta = None  # the decode below raises the user-facing error
+    shrink = _pick_shrink(name, src_type, o, meta)
+
+    if _yuv_eligible(src_type, meta, o):
+        out = _process_yuv420(name, buf, o, meta, shrink, device)
+        if out is not None:
+            return out
+
+    d = codecs.decode(buf, shrink)
+    plan = _plan(name, o, d.array.shape[0], d.array.shape[1], d.orientation,
+                 d.array.shape[2])
+    arr = _run_stages(d.array, plan, device)
+    out = _encode(arr, o, _encode_type(o, d.type))
+    return _carry_metadata(buf, o.strip_metadata, out, not o.no_rotation,
+                           plan.out_w, plan.out_h)
+
+
+def _plan(name, o, h, w, orientation, channels) -> ImagePlan:
+    try:
+        return plan_operation(name, o, h, w, orientation, channels)
+    except NotImplementedError as e:
+        raise new_error(str(e), 501) from None
+
+
+def _yuv_eligible(src_type, meta, o: ImageOptions) -> bool:
+    """Gate for the packed-YUV420 transport: plain 4:2:0 JPEG in, JPEG out,
+    raw codec entry points present (a codec that fails to build raises)."""
+    if src_type is not ImageType.JPEG or meta is None:
+        return False
+    if meta.subsampling != "420":
+        return False
+    return o.type in _JPEG_TYPE_NAMES and codecs.yuv420_supported()
+
+
+def _decode_yuv_packed(buf, shrink, sh, sw):
+    """Raw-decode into the packed layout; None means 'use the RGB path'
+    (non-420 surprise or probe/decode disagreement — the RGB decode then
+    raises any user-facing error itself)."""
+    hb, wb = bucket_shape(sh, sw)
+    try:
+        packed, h, w, _orient = codecs.decode_yuv420(buf, shrink, hb, wb)
+    except ImageError:
+        return None
+    if (h, w) != (sh, sw):
+        return None
+    return packed, hb, wb
+
+
+def _process_yuv420(name, buf, o, meta, shrink, device) -> Optional[ProcessedImage]:
+    """Serve a JPEG->JPEG request over the packed-plane transport; None
+    falls back to the RGB path. Parameter errors raise exactly as the RGB
+    path would, since the plan math is identical."""
+    sh = -(-meta.height // shrink)
+    sw = -(-meta.width // shrink)
+    got = _decode_yuv_packed(buf, shrink, sh, sw)
+    if got is None:
+        return None
+    packed, hb, wb = got
+    plan = _plan(name, o, sh, sw, meta.orientation, 3)
+    target = _encode_type(o, ImageType.JPEG)
+    if not plan.stages:
+        # identity chain: planes go straight back to the raw encoder
+        out = _encode(codecs.unpack_planes(packed, sh, sw, hb, wb), o, target)
+    else:
+        wrapped = wrap_plan_yuv420(plan, sh, sw)
+        out = _encode(_run_stages(packed, wrapped, device), o, target)
+    return _carry_metadata(buf, o.strip_metadata, out, not o.no_rotation,
+                           plan.out_w, plan.out_h)
+
+
+def _pick_shrink(name: str, src_type: ImageType, o: ImageOptions, meta) -> int:
+    """JPEG shrink-on-load denominator for this request (1 = full decode):
+    the planner proves by re-planning that decoding at 1/N preserves the
+    output."""
+    if src_type is not ImageType.JPEG or meta is None:
+        return 1
+    try:
+        return choose_decode_shrink(name, o, meta.height, meta.width,
+                                    meta.orientation, max(3, meta.channels))
+    except (ImageError, NotImplementedError):
+        return 1
+

@@ -1,0 +1,223 @@
+"""HTTP handlers of the port: sources, params, errors and the image routes.
+
+The port's counterpart of `imaginary_tpu/web/{sources,handlers}.py` for
+this slice, free of any HTTP framework: `ImageService.handle` takes the
+method, path, query, headers and body and returns a `Response`, and
+`web/app.py` binds it to the standard library's HTTP server. It keeps the
+reference's param parsing, error JSON and status codes.
+
+Served: `/`, `/health`, `/resize`, `/crop`. The reference's other
+operation routes answer 501 until their slice lands. Requests run one at
+a time through `chain.run_single`; micro-batching arrives with the
+executor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import threading
+import time
+import urllib.parse
+from email.parser import BytesParser
+from email.policy import HTTP
+
+import torch
+
+from imaginary_tpu_torch import Version, codecs, kernels, pipeline
+from imaginary_tpu_torch.errors import (
+    ErrEmptyBody,
+    ErrGetMethodNotAllowed,
+    ErrInvalidFilePath,
+    ErrMethodNotAllowed,
+    ErrMissingParamFile,
+    ErrNotFound,
+    ErrNotImplemented,
+    ErrOutputFormat,
+    ErrResolutionTooBig,
+    ErrUnsupportedMedia,
+    ImageError,
+    new_error,
+)
+from imaginary_tpu_torch.imgtype import (
+    ImageType,
+    determine_image_type,
+    get_image_mime_type,
+    image_type,
+    is_image_mime_type_supported,
+)
+from imaginary_tpu_torch.params import ParamError, build_params_from_query
+
+MAX_BODY_SIZE = 1 << 26  # 64 MB (ref: source_body.go:13)
+FORM_FIELD = "file"  # ref: source_body.go:12
+MAX_ALLOWED_MPIX = 18.0  # ref: imaginary.go:36
+
+SERVED_OPERATIONS = ("resize", "crop")
+# The reference's image routes (ref: OperationsMap, image.go:15-32, plus
+# /info and /pipeline): known here so they answer 501, not 404.
+REFERENCE_OPERATIONS = (
+    "resize", "fit", "enlarge", "extract", "crop", "smartcrop", "rotate",
+    "autorotate", "flip", "flop", "thumbnail", "zoom", "convert", "blur",
+    "watermark", "watermarkimage", "info", "pipeline",
+)
+
+_ACCEPT_TO_TYPE = {"image/webp": "webp", "image/png": "png", "image/jpeg": "jpeg"}
+
+
+@dataclasses.dataclass
+class Response:
+    status: int
+    content_type: str
+    body: bytes
+    headers: dict = dataclasses.field(default_factory=dict)
+
+
+def error_response(err: ImageError) -> Response:
+    """ErrorReply equivalent (error.go:58-67): the JSON error body."""
+    return Response(err.http_code(), "application/json", err.json_bytes(),
+                    dict(err.headers))
+
+
+def determine_accept_mime_type(accept: str) -> str:
+    """Preferred output format from the Accept header (ref: controllers.go:63-76)."""
+    for part in accept.split(","):
+        media = part.split(";", 1)[0].strip().lower()
+        if media in _ACCEPT_TO_TYPE:
+            return _ACCEPT_TO_TYPE[media]
+    return ""
+
+
+def _read_form(body: bytes, ctype: str, field: str) -> bytes:
+    """The multipart part named `field` (ref: source_body.go:30-100)."""
+    msg = BytesParser(policy=HTTP).parsebytes(
+        b"Content-Type: " + ctype.encode("latin-1") + b"\r\n\r\n" + body)
+    if msg.is_multipart():
+        for part in msg.iter_parts():
+            if part.get_param("name", header="content-disposition") == field:
+                return part.get_payload(decode=True) or b""
+    raise ErrMissingParamFile
+
+
+class ImageService:
+    """Serves the slice's routes on one device, one request at a time."""
+
+    def __init__(self, device="cuda", mount: str = ""):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass --device cpu to serve on the CPU")
+        self.mount = os.path.abspath(mount) if mount else ""
+        self._lock = threading.Lock()
+        self._started = time.time()
+
+    def handle(self, method: str, path: str, query: dict, headers,
+               body: bytes) -> Response:
+        """Route one request. `query` maps key -> first value."""
+        try:
+            if path == "/":
+                return self._json(self.versions())
+            if path == "/health":
+                return self._json(self.health())
+            name = path.lstrip("/").lower()
+            if name not in REFERENCE_OPERATIONS or "/" in name:
+                raise ErrNotFound
+            if method not in ("GET", "POST"):
+                raise ErrMethodNotAllowed
+            if name not in SERVED_OPERATIONS:
+                raise ErrNotImplemented
+            buf = self._source(method, query, headers, body)
+            return self._process(name, buf, query, headers)
+        except ImageError as e:
+            return error_response(e)
+        except ParamError as e:
+            return error_response(new_error(str(e), 400))
+
+    def versions(self) -> dict:
+        return {"imaginary_tpu_torch": Version, "torch": torch.__version__,
+                "backend": self.device.type}
+
+    def health(self) -> dict:
+        stats = {
+            "uptime": round(time.time() - self._started, 2),
+            "threads": threading.active_count(),
+            "cpus": os.cpu_count() or 1,
+            "pid": os.getpid(),
+            "device": str(self.device),
+            "kernelLaunches": dict(kernels.LAUNCHES),
+        }
+        if self.device.type == "cuda":
+            stats["deviceName"] = torch.cuda.get_device_name(self.device)
+            stats["allocatedDeviceMb"] = round(
+                torch.cuda.memory_allocated(self.device) / (1 << 20), 2)
+        return stats
+
+    @staticmethod
+    def _json(obj: dict) -> Response:
+        return Response(200, "application/json", json.dumps(obj).encode())
+
+    def _source(self, method: str, query: dict, headers, body: bytes) -> bytes:
+        """POST: multipart field or raw body; GET: ?file= under the mount
+        (ref: source_body.go, source_fs.go)."""
+        if method == "POST":
+            ctype = headers.get("Content-Type", "") or ""
+            if ctype.startswith("multipart/"):
+                buf = _read_form(body, ctype, query.get("field") or FORM_FIELD)
+            else:
+                buf = body
+        else:
+            if not self.mount:
+                raise ErrGetMethodNotAllowed
+            buf = self._read_file(query.get("file", ""))
+        if not buf:
+            raise ErrEmptyBody
+        return buf
+
+    def _read_file(self, raw: str) -> bytes:
+        if not raw:
+            raise ErrMissingParamFile
+        name = urllib.parse.unquote(raw)
+        path = os.path.normpath(os.path.join(self.mount, name.lstrip("/")))
+        if not (path == self.mount or path.startswith(self.mount + os.sep)):
+            raise ErrInvalidFilePath
+        try:
+            with open(path, "rb") as f:
+                return f.read()
+        except (FileNotFoundError, IsADirectoryError):
+            raise ErrInvalidFilePath from None
+
+    def _process(self, name: str, buf: bytes, query: dict, headers) -> Response:
+        sniffed = determine_image_type(buf)
+        if sniffed is ImageType.UNKNOWN or not is_image_mime_type_supported(
+                get_image_mime_type(sniffed)):
+            raise ErrUnsupportedMedia
+        try:
+            opts = build_params_from_query(query)
+        except ParamError as e:
+            raise new_error("Error while processing parameters: " + str(e), 400) from None
+        if opts.type == "auto":
+            opts.type = determine_accept_mime_type(headers.get("Accept", "") or "")
+        elif opts.type and image_type(opts.type) is ImageType.UNKNOWN:
+            raise ErrOutputFormat
+        meta = None
+        try:
+            meta = codecs.probe_fast(buf)
+        except ImageError as e:
+            if e.code == 501:
+                raise
+            # probe failure falls through; the decode produces the error
+        if meta is not None and meta.width * meta.height / 1e6 > MAX_ALLOWED_MPIX:
+            raise ErrResolutionTooBig
+        with self._lock:
+            out = pipeline.process_operation(name, buf, opts, device=self.device,
+                                             meta=meta)
+        return Response(200, out.mime, out.body)
+
+
+def parse_query(qs: str) -> dict:
+    """Query string -> {key: first value} (Go's url.Values.Get)."""
+    out: dict = {}
+    for k, v in urllib.parse.parse_qsl(qs, keep_blank_values=True):
+        out.setdefault(k, v)
+    return out
+

@@ -1,0 +1,242 @@
+"""Port kernels' plain versions held against the JAX reference on the CPU.
+
+The same seeded numpy inputs go through each JAX stage `apply` (what XLA
+runs for the TPU) and through the port's kernel wrapper on a CPU tensor,
+which runs the kernel's plain PyTorch version (the CUDA kernels themselves
+run only on the card: chip_smoke.py holds them against these same plain
+versions there). Tolerances: f32 outputs 1e-3 absolute on the 0-255
+scale (summation order differs); uint8 outputs at most 1 LSB (the
+truncating epilogue can flip at an exact .5 after such a difference).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from imaginary_tpu.ops import stages as jst
+from imaginary_tpu.options import Extend as JExtend
+from imaginary_tpu_torch import kernels
+from imaginary_tpu_torch.kernels import reference
+from imaginary_tpu_torch.ops import stages as pst
+from imaginary_tpu_torch.options import Extend as PExtend
+
+F32_TOL = 1e-3
+U8_TOL = 1
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _img(rng, b, hb, wb, c=3):
+    return rng.uniform(0.0, 255.0, size=(b, hb, wb, c)).astype(np.float32)
+
+
+def _i32(*v):
+    return np.array(v, dtype=np.int32)
+
+
+def _f32(*v):
+    return np.array(v, dtype=np.float32)
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def _japply(spec, x, h, w, dyn):
+    """The reference stage as the reference runs it: jitted (chain.py)."""
+    return spec.apply(x, h, w, dyn)
+
+
+def _jax_epilogue(x):
+    return np.asarray(jnp.clip(x + 0.5, 0.0, 255.0).astype(jnp.uint8))
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+# (kind, in bucket, valid h/w per image, dst per image, out bucket)
+RESAMPLE_CASES = [
+    ("lanczos3", (48, 64), ((40, 61), (48, 64)), ((17, 30), (20, 25)), (24, 32)),
+    ("lanczos3", (32, 48), ((31, 45), (27, 33)), ((50, 70), (60, 90)), (64, 96)),
+    ("lanczos2", (48, 64), ((40, 61), (33, 47)), ((19, 29), (40, 40)), (48, 48)),
+    ("cubic", (32, 48), ((31, 45), (32, 48)), ((13, 20), (55, 77)), (64, 96)),
+    ("linear", (32, 48), ((29, 41), (32, 48)), ((15, 21), (47, 70)), (48, 96)),
+    # nearest at exactly 2x and 1/2x: the half-open box is tie sensitive
+    ("nearest", (32, 48), ((32, 48), (20, 30)), ((64, 96), (40, 60)), (64, 96)),
+    ("nearest", (32, 48), ((32, 48), (20, 30)), ((16, 24), (10, 15)), (16, 24)),
+    # the main path's scale factor (270x480 -> 169x300), cut to a band
+    ("lanczos3", (64, 512), ((64, 480), (57, 479)), ((40, 300), (36, 299)), (48, 320)),
+]
+
+
+@pytest.mark.parametrize("kind,inb,hw,dst,outb", RESAMPLE_CASES,
+                         ids=[f"{c[0]}-{i}" for i, c in enumerate(RESAMPLE_CASES)])
+def test_resample_matches_sample_spec(kind, inb, hw, dst, outb):
+    rng = np.random.default_rng(7)
+    x = _img(rng, 2, *inb)
+    h, w = _i32(*(a for a, _ in hw)), _i32(*(b for _, b in hw))
+    dh, dw = _f32(*(a for a, _ in dst)), _f32(*(b for _, b in dst))
+    want, wh, ww = _japply(jst.SampleSpec(*outb, kind), x, h, w,
+                           {"dst_h": dh, "dst_w": dw})
+    got, gh, gw = kernels.resample(_t(x), _t(h), _t(w), _t(dh), _t(dw), *outb, kind)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, *outb, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
+    assert np.array_equal(gh.numpy(), np.asarray(wh))
+    assert np.array_equal(gw.numpy(), np.asarray(ww))
+
+
+def test_resample_uint8_in_and_out_match_cast_and_epilogue():
+    """The RGB transport fuses the chain's cast into the first stage and
+    the uint8 epilogue into the last: uint8 -> resample -> uint8."""
+    rng = np.random.default_rng(8)
+    x = rng.integers(0, 256, size=(2, 48, 64, 3), dtype=np.uint8)
+    h, w, dh, dw = _i32(45, 48), _i32(64, 57), _f32(20, 31), _f32(30, 40)
+    want, _, _ = _japply(jst.SampleSpec(32, 48), x.astype(np.float32), h, w,
+                         {"dst_h": dh, "dst_w": dw})
+    got, _, _ = kernels.resample(_t(x), _t(h), _t(w), _t(dh), _t(dw), 32, 48,
+                                 "lanczos3", out_u8=True)
+    assert got.dtype == torch.uint8
+    diff = np.abs(got.numpy().astype(int) - _jax_epilogue(want).astype(int))
+    assert diff.max() <= U8_TOL
+
+
+def test_sample_matrix_is_the_reference_matrix():
+    src, dst = _f32(37, 64), _f32(20, 90)
+    want = np.asarray(jst.sample_matrix(96, 64, jnp.asarray(src), jnp.asarray(dst), "lanczos3"))
+    got = reference.sample_matrix(96, 64, _t(src), _t(dst), "lanczos3").numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("hb,wb,hw", [
+    (32, 48, ((32, 48), (27, 41))),  # full bucket, and odd valid dims
+    (320, 512, ((270, 480), (269, 479))),  # the main path's bucket
+])
+def test_yuv420_unpack_matches_from_yuv420_spec(hb, wb, hw):
+    rng = np.random.default_rng(9)
+    x = rng.integers(0, 256, size=(2, hb + hb // 2, wb, 1), dtype=np.uint8)
+    h, w = _i32(*(a for a, _ in hw)), _i32(*(b for _, b in hw))
+    want, _, _ = _japply(jst.FromYuv420Spec(hb, wb), x.astype(np.float32), h, w, {})
+    got = kernels.yuv420_to_rgb(_t(x), _t(h), _t(w), hb, wb)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, hb, wb, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
+
+
+@pytest.mark.parametrize("hb,wb,hw", [
+    (32, 48, ((32, 48), (27, 41))),
+    (208, 304, ((200, 300), (199, 301))),  # the main path's output bucket
+    (16, 16, ((0, 0), (1, 1))),  # empty and single-pixel images: 128 chroma
+])
+def test_yuv420_pack_matches_to_yuv420_spec_and_epilogue(hb, wb, hw):
+    rng = np.random.default_rng(10)
+    x = rng.uniform(-20.0, 275.0, size=(2, hb, wb, 3)).astype(np.float32)
+    h, w = _i32(*(a for a, _ in hw)), _i32(*(b for _, b in hw))
+    want, _, _ = _japply(jst.ToYuv420Spec(hb, wb), x, h, w, {})
+    got = kernels.rgb_to_yuv420(_t(x), _t(h), _t(w), hb, wb)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (2, hb + hb // 2, wb, 1)
+    diff = np.abs(got.numpy().astype(int) - _jax_epilogue(want).astype(int))
+    assert diff.max() <= U8_TOL
+    assert (diff == 0).mean() > 0.999
+
+
+EMBED_MODES = [
+    (JExtend.COPY, PExtend.COPY), (JExtend.LAST, PExtend.LAST),
+    (JExtend.MIRROR, PExtend.MIRROR), (JExtend.BLACK, PExtend.BLACK),
+    (JExtend.WHITE, PExtend.WHITE), (JExtend.BACKGROUND, PExtend.BACKGROUND),
+]
+
+
+@pytest.mark.parametrize("jmode,pmode", EMBED_MODES, ids=[m[1].value for m in EMBED_MODES])
+def test_embed_matches_embed_spec(jmode, pmode):
+    """Canvas larger than the image on both axes, offsets that put the
+    image off-centre and (mirror) several periods away from it."""
+    rng = np.random.default_rng(11)
+    x = _img(rng, 2, 24, 32)
+    h, w = _i32(17, 24), _i32(23, 31)
+    dyn = {"off_y": _i32(15, 2), "off_x": _i32(0, 40), "canvas_h": _i32(40, 30),
+           "canvas_w": _i32(36, 80), "fill": np.array([[10, 20, 30], [255, 255, 255]], np.float32)}
+    want, wh, ww = _japply(jst.EmbedSpec(48, 96, jmode), x, h, w, dyn)
+    got, gh, gw = pst.EmbedSpec(48, 96, pmode).apply(
+        _t(x), _t(h), _t(w), {k: _t(v) for k, v in dyn.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
+    assert np.array_equal(gh.numpy(), np.asarray(wh)) and np.array_equal(gw.numpy(), np.asarray(ww))
+
+
+@pytest.mark.parametrize("top,left", [(0, 0), (5, 7), (20, 30)],
+                         ids=["origin", "inside", "crop-at-edge"])
+def test_extract_matches_extract_spec(top, left):
+    """crop-at-edge: top + out bucket runs past the input bucket, so each
+    index clamps on its own (not a shifted window)."""
+    rng = np.random.default_rng(12)
+    x = _img(rng, 2, 32, 48)
+    h, w = _i32(32, 30), _i32(48, 45)
+    dyn = {"top": _i32(top, top // 2), "left": _i32(left, left // 3),
+           "new_h": _i32(12, 10), "new_w": _i32(18, 15)}
+    want, wh, ww = _japply(jst.ExtractSpec(16, 24), x, h, w, dyn)
+    got, gh, gw = pst.ExtractSpec(16, 24).apply(
+        _t(x), _t(h), _t(w), {k: _t(v) for k, v in dyn.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
+    assert np.array_equal(gh.numpy(), np.asarray(wh)) and np.array_equal(gw.numpy(), np.asarray(ww))
+
+
+def test_shrink_bucket_matches_and_fuses_the_epilogue():
+    rng = np.random.default_rng(13)
+    x = _img(rng, 2, 32, 48)
+    h, w = _i32(20, 31), _i32(17, 40)
+    want, _, _ = _japply(jst.ShrinkBucketSpec(24, 40), x, h, w, {})
+    got, gh, gw = pst.ShrinkBucketSpec(24, 40).apply(_t(x), _t(h), _t(w), {})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=F32_TOL)
+    assert gh is not None and np.array_equal(gh.numpy(), h)
+    got_u8, _, _ = pst.ShrinkBucketSpec(24, 40).apply(_t(x), _t(h), _t(w), {}, out_u8=True)
+    assert np.array_equal(got_u8.numpy(), _jax_epilogue(want))
+
+
+@pytest.mark.parametrize("spec", [
+    pst.FlipSpec(), pst.FlopSpec(), pst.TransposeSpec(), pst.BlurSpec(4),
+    pst.CompositeSpec(8, 8), pst.FromDctSpec(16, 16, 8), pst.ToDctSpec(16, 16),
+    pst.GraySpec(), pst.SmartExtractSpec(8, 8),
+], ids=lambda s: type(s).__name__)
+def test_off_path_specs_raise_not_implemented_naming_the_spec(spec):
+    x = torch.zeros((1, 16, 16, 3))
+    with pytest.raises(NotImplementedError, match=type(spec).__name__):
+        spec.apply(x, torch.tensor([16], dtype=torch.int32),
+                   torch.tensor([16], dtype=torch.int32), {})
+
+
+def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
+    kernels.reset_launches()
+    x = torch.zeros((1, 16, 16, 3))
+    i = torch.tensor([16], dtype=torch.int32)
+    f = torch.tensor([8.0])
+    kernels.resample(x, i, i, f, f, 8, 8, "lanczos3")
+    kernels.gather(x, 8, 8)
+    kernels.rgb_to_yuv420(x, i, i, 16, 16)
+    kernels.yuv420_to_rgb(torch.zeros((1, 24, 16, 1), dtype=torch.uint8), i, i, 16, 16)
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def test_every_spec_class_and_field_matches_the_reference():
+    import dataclasses
+
+    names = [n for n, v in vars(jst).items()
+             if isinstance(v, type) and dataclasses.is_dataclass(v) and n.endswith("Spec")]
+    assert len(names) == 15
+    for n in names:
+        jf = [(f.name, f.default) for f in dataclasses.fields(getattr(jst, n))]
+        pf = [(f.name, f.default) for f in dataclasses.fields(getattr(pst, n))]
+        norm = [(k, getattr(d, "value", d)) for k, d in jf]
+        assert [(k, getattr(d, "value", d)) for k, d in pf] == norm, n

@@ -1,0 +1,177 @@
+"""The port's chain, codec and pipeline held against the JAX package on the CPU.
+
+- `run_batch` of the port (plans carried over with `plan_from_dict`) against
+  the reference `run_batch`, for the main path's resize and crop plans, in
+  both transports, at B=1 and B=4: uint8 outputs to at most 1 LSB;
+- the port's packed 4:2:0 decode byte-equal to the reference's;
+- `process_operation` on the 1080p main-path JPEG: exact 300x200 and
+  PSNR >= 45 dB against the reference's output.
+"""
+
+from __future__ import annotations
+
+import io
+
+import numpy as np
+import pytest
+import torch
+from PIL import Image
+
+from imaginary_tpu import codecs as jcodecs
+from imaginary_tpu import pipeline as jpipeline
+from imaginary_tpu.ops import chain as jchain
+from imaginary_tpu.ops import plan as jplan
+from imaginary_tpu.ops.buckets import bucket_shape
+from imaginary_tpu.params import build_params_from_query as jquery
+from imaginary_tpu_torch import codecs as pcodecs
+from imaginary_tpu_torch import pipeline as ppipeline
+from imaginary_tpu_torch.ops import chain as pchain
+from imaginary_tpu_torch.ops import plan as pplan
+from imaginary_tpu_torch.params import build_params_from_query as pquery
+from tests.conftest import fixture_bytes, psnr
+from tests.test_torch_plan import plan_to_dict
+
+U8_TOL = 1
+QUERY = {"width": "300", "height": "200"}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def large():
+    return fixture_bytes("large.jpg")
+
+
+def _variants(base: np.ndarray, n: int, seed: int) -> list:
+    """base plus n-1 seeded noisy copies (distinct images in one batch)."""
+    rng = np.random.default_rng(seed)
+    out = [np.array(base)]
+    for _ in range(n - 1):
+        noise = rng.integers(-12, 13, size=base.shape)
+        out.append(np.clip(base.astype(np.int32) + noise, 0, 255).astype(np.uint8))
+    return out
+
+
+def _max_lsb(a, b) -> int:
+    if hasattr(a, "y"):
+        return max(int(np.abs(getattr(a, k).astype(int) - getattr(b, k).astype(int)).max())
+                   for k in ("y", "u", "v"))
+    return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("transport", ["yuv420", "rgb"])
+@pytest.mark.parametrize("op", ["resize", "crop"])
+def test_run_batch_matches_reference(large, op, transport, batch):
+    meta = jcodecs.probe_fast(large)
+    shrink = jplan.choose_decode_shrink(op, jquery(QUERY), meta.height, meta.width, 0, 3)
+    assert shrink == 4
+    sh, sw = -(-meta.height // shrink), -(-meta.width // shrink)
+    jp = jplan.plan_operation(op, jquery(QUERY), sh, sw, 0, 3)
+    if transport == "yuv420":
+        hb, wb = bucket_shape(sh, sw)
+        base, _, _, _ = jcodecs.decode_yuv420(large, shrink, hb, wb)
+        jp = jplan.wrap_plan_yuv420(jp, sh, sw)
+    else:
+        base = jcodecs.decode(large, shrink).array
+    arrs = _variants(base, batch, seed=batch)
+    pp = pplan.plan_from_dict(plan_to_dict(jp))
+    want = jchain.run_batch(arrs, [jp] * batch)
+    got = pchain.run_batch(arrs, [pp] * batch, device="cpu")
+    assert len(got) == batch
+    for g, w in zip(got, want):
+        if transport == "yuv420":
+            assert (g.y.shape, g.u.shape, g.v.shape) == (w.y.shape, w.u.shape, w.v.shape)
+        else:
+            assert g.shape == w.shape == (200, 300, 3)
+        assert _max_lsb(g, w) <= U8_TOL
+
+
+def test_chain_surface(large):
+    """The executor-facing helpers: identity chains skip the device, the
+    checksum is order sensitive, OOM errors are recognised, donation is off."""
+    arr = np.zeros((4, 4, 3), np.uint8)
+    ident = pplan.ImagePlan(stages=[], out_h=4, out_w=4)
+    assert pchain.launch_batch([arr], [ident], device="cpu") is None
+    assert np.array_equal(pchain.run_single(arr, ident, device="cpu"), arr)
+    assert pchain.output_checksum(np.arange(4, dtype=np.uint8)) != pchain.output_checksum(
+        np.arange(4, dtype=np.uint8)[::-1])
+    assert pchain.is_oom_error(MemoryError()) and pchain.is_oom_error(
+        RuntimeError("CUDA out of memory. Tried to allocate 2.00 GiB"))
+    assert not pchain.is_oom_error(RuntimeError("device-side assert"))
+    assert pchain.donation_stats() == {"enabled": False, "rejected": 0}
+    padded = pchain.pad_to_bucket(np.ones((270, 480, 3), np.uint8))
+    assert padded.shape == (320, 512, 3) and padded[270:].sum() == 0
+    pchain.clear_cache()
+    p = pplan.plan_operation("resize", pquery(QUERY), 40, 60, 0, 3)
+    for _ in range(2):
+        pchain.run_single(np.zeros((40, 60, 3), np.uint8), p, device="cpu")
+    assert pchain.cache_size() == 1
+
+
+@pytest.mark.parametrize("shrink", [1, 4])
+def test_decode_yuv420_byte_equal_to_reference(large, shrink):
+    sh, sw = -(-1080 // shrink), -(-1920 // shrink)
+    hb, wb = bucket_shape(sh, sw)
+    want = jcodecs.decode_yuv420(large, shrink, hb, wb)
+    got = pcodecs.decode_yuv420(large, shrink, hb, wb)
+    assert got[1:] == want[1:]
+    assert got[0].shape == want[0].shape and got[0].tobytes() == want[0].tobytes()
+    meta = pcodecs.probe_fast(large)
+    assert (meta.width, meta.height, meta.subsampling) == (1920, 1080, "420")
+
+
+def _pixels(body: bytes) -> np.ndarray:
+    return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+
+
+@pytest.mark.parametrize("op", ["resize", "crop"])
+def test_process_operation_matches_reference(large, op):
+    want = jpipeline.process_operation(op, large, jquery(QUERY))
+    got = ppipeline.process_operation(op, large, pquery(QUERY), device="cpu")
+    assert got.mime == want.mime == "image/jpeg"
+    assert (got.width, got.height) == (300, 200)
+    a, b = _pixels(got.body), _pixels(want.body)
+    assert a.shape == b.shape == (200, 300, 3)
+    assert psnr(a, b) >= 45.0
+
+
+def test_process_operation_rgb_transport_matches_reference(large):
+    """A 4:4:4 JPEG cannot ride the packed 4:2:0 transport: the RGB path
+    (uint8 cast and epilogue fused into the first and last kernels)."""
+    img = Image.open(io.BytesIO(large)).convert("RGB").resize((480, 270))
+    bio = io.BytesIO()
+    img.save(bio, format="JPEG", quality=90, subsampling=0)
+    buf = bio.getvalue()
+    assert pcodecs.probe_fast(buf).subsampling == "444"
+    for op in ("resize", "crop"):
+        want = jpipeline.process_operation(op, buf, jquery(QUERY))
+        got = ppipeline.process_operation(op, buf, pquery(QUERY), device="cpu")
+        assert (got.width, got.height) == (300, 200)
+        assert psnr(_pixels(got.body), _pixels(want.body)) >= 45.0
+
+
+def test_process_operation_carries_metadata_like_reference():
+    buf = fixture_bytes("exif-orient-6.jpg")
+    q = {"width": "120", "height": "90", "norotation": "true"}
+    want = jpipeline.process_operation("resize", buf, jquery(q))
+    got = ppipeline.process_operation("resize", buf, pquery(q), device="cpu")
+    assert pcodecs.jpeg_metadata_segments(got.body) == jcodecs.jpeg_metadata_segments(want.body)
+    assert (got.width, got.height) == (want.width, want.height)
+
+
+def test_process_operation_maps_unported_stages_to_501(large):
+    from imaginary_tpu_torch.errors import ImageError
+
+    with pytest.raises(ImageError) as e:
+        ppipeline.process_operation("resize", large, pquery({"width": "300", "sigma": "2"}),
+                                    device="cpu")
+    assert e.value.code == 501 and "BlurSpec" in e.value.message

@@ -1,0 +1,203 @@
+"""The port's standard-library HTTP server on the CPU, and its isolation
+from the JAX package.
+
+The server answers the reference's status codes and error JSON: 200 for
+/resize and /crop (raw body, multipart `file` field, or ?file= under
+--mount), 400 for bad params, 404 for unknown paths, 405 for GET without a
+mount, 406 for non-images, 501 for routes and stages not ported yet. The
+port must import neither `jax` nor `imaginary_tpu` (checked in a fresh
+interpreter and by a scan of its sources).
+"""
+
+from __future__ import annotations
+
+import ast
+import json
+import os
+import subprocess
+import sys
+import threading
+import urllib.error
+import urllib.request
+import uuid
+
+import numpy as np
+import pytest
+import torch
+
+from imaginary_tpu_torch import codecs as pcodecs
+from imaginary_tpu_torch.web.app import make_server
+from tests.conftest import FIXTURES, fixture_bytes
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def server():
+    fixture_bytes("large.jpg")  # make sure the fixture directory exists
+    srv = make_server("127.0.0.1", 0, device="cpu", mount=FIXTURES)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield srv.server_address[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+        assert not th.is_alive()
+
+
+def _req(port, path, body=None, ctype="image/jpeg"):
+    headers = {"Content-Type": ctype} if body is not None else {}
+    r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                               headers=headers)
+    try:
+        with urllib.request.urlopen(r, timeout=60) as resp:
+            return resp.status, resp.headers["Content-Type"], resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers["Content-Type"], e.read()
+
+
+def _dims(body: bytes) -> tuple:
+    return pcodecs.decode(body).array.shape[:2]
+
+
+@pytest.mark.parametrize("op", ["resize", "crop"])
+def test_raw_post_serves_300x200_jpeg(server, op):
+    status, ctype, body = _req(server, f"/{op}?width=300&height=200",
+                               fixture_bytes("large.jpg"))
+    assert (status, ctype) == (200, "image/jpeg")
+    assert _dims(body) == (200, 300)
+
+
+def test_multipart_and_mounted_file_sources(server):
+    buf = fixture_bytes("large.jpg")
+    bd = uuid.uuid4().hex
+    form = (f"--{bd}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"large.jpg\"\r\nContent-Type: image/jpeg\r\n\r\n").encode() \
+        + buf + f"\r\n--{bd}--\r\n".encode()
+    status, _, body = _req(server, "/resize?width=300&height=200", form,
+                           f"multipart/form-data; boundary={bd}")
+    assert status == 200 and _dims(body) == (200, 300)
+    status, _, body = _req(server, "/crop?width=300&height=200&file=large.jpg")
+    assert status == 200 and _dims(body) == (200, 300)
+    status, _, body = _req(server, "/crop?width=300&file=../../etc/passwd")
+    assert status == 400 and json.loads(body)["message"] == "Invalid file path"
+
+
+ERRORS = [
+    ("/resize", "large.jpg", 400, "Missing required param: height or width"),
+    ("/resize?width=abc", "large.jpg", 400, None),
+    ("/crop?width=300&type=bogus", "large.jpg", 400, "Unsupported output image format"),
+    ("/resize?width=300", "1024bytes", 406, "Unsupported media type"),
+    ("/nope?width=300", "large.jpg", 404, "Not found"),
+    ("/rotate?rotate=90", "large.jpg", 501, "Not implemented endpoint"),
+    ("/resize?width=300&sigma=2", "large.jpg", 501, None),
+    ("/resize?width=300", "test.png", 501, None),
+]
+
+
+@pytest.mark.parametrize("path,fixture,code,message", ERRORS,
+                         ids=[f"{e[2]}-{e[0]}" for e in ERRORS])
+def test_error_statuses_and_json(server, path, fixture, code, message):
+    status, ctype, body = _req(server, path, fixture_bytes(fixture))
+    assert status == code and ctype == "application/json"
+    err = json.loads(body)
+    assert err["status"] == code
+    if message is not None:
+        assert err["message"] == message
+
+
+def test_get_without_mount_is_405():
+    srv = make_server("127.0.0.1", 0, device="cpu")
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        status, _, body = _req(srv.server_address[1], "/resize?width=300&file=large.jpg")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    assert status == 405 and json.loads(body)["status"] == 405
+
+
+def test_index_and_health(server):
+    status, ctype, body = _req(server, "/")
+    assert status == 200 and ctype == "application/json"
+    assert json.loads(body)["backend"] == "cpu"
+    status, _, body = _req(server, "/health")
+    stats = json.loads(body)
+    assert status == 200 and stats["device"] == "cpu"
+    assert set(stats["kernelLaunches"]) == {"resample", "yuv420_unpack", "yuv420_pack", "gather"}
+
+
+def test_cuda_device_without_cuda_raises():
+    """No silent CPU fallback: asking for the card where there is none fails."""
+    if torch.cuda.is_available():
+        srv = make_server("127.0.0.1", 0, device="cuda")
+        srv.server_close()
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_server("127.0.0.1", 0, device="cuda")
+
+
+def test_import_leaves_jax_and_the_reference_out():
+    code = (
+        "import sys\n"
+        "import imaginary_tpu_torch, imaginary_tpu_torch.pipeline\n"
+        "import imaginary_tpu_torch.web.app, imaginary_tpu_torch.kernels\n"
+        "import imaginary_tpu_torch.cli, imaginary_tpu_torch.ops.chain\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'imaginary_tpu' or m.startswith('imaginary_tpu.'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ)
+    env.pop("JAX_PLATFORMS", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
+
+
+def _imports(path: str) -> list:
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            names.append(node.module)
+    return names
+
+
+def test_no_source_of_the_port_imports_jax_or_the_reference():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, fs in os.walk(os.path.join(ROOT, "imaginary_tpu_torch")):
+        files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
+    assert len(files) > 15
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "imaginary_tpu"), (path, name)
+
+
+def test_server_output_matches_pipeline_output(server):
+    from imaginary_tpu_torch import pipeline
+    from imaginary_tpu_torch.params import build_params_from_query
+
+    buf = fixture_bytes("large.jpg")
+    direct = pipeline.process_operation(
+        "resize", buf, build_params_from_query({"width": "300", "height": "200"}), device="cpu")
+    _, _, body = _req(server, "/resize?width=300&height=200", buf)
+    assert np.array_equal(pcodecs.decode(body).array, pcodecs.decode(direct.body).array)
