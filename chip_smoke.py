@@ -8,21 +8,37 @@ It drives the port (`imaginary_tpu_torch`) and never JAX or `imaginary_tpu`.
 Phases, in order; any failure raises and exits non-zero:
 
 1. environment: card name and power limit, torch and CUDA versions;
-2. build: the four CUDA kernels (nvcc, sm_90a, in parallel) and the native
+2. build: the five CUDA kernels (nvcc, sm_90a, in parallel) and the native
    JPEG codec (g++), with the time each took;
 3. kernels: each kernel against its plain PyTorch version on the card at
-   the main path's shapes (B=1 and B=16) and at full 1080p, with the
-   stated tolerance (f32 outputs 1e-3 absolute on the 0-255 scale, uint8
-   outputs 1 LSB), its median time from CUDA events, the plain version's
+   the main paths' shapes (config 1: B=1 and B=16; config 2's orientation
+   kernel: the /rotate chain's 1080p buckets at B=1 and B=32, and uint8
+   input; K1, K2 and K3 at config 2's B=32 shapes) and at full 1080p, with the stated tolerance (f32 outputs 1e-3
+   absolute on the 0-255 scale, uint8 outputs 1 LSB, the orientation
+   kernel exact), its median time from CUDA events, the plain version's
    time, the least time the card could take (bytes over 3.35 TB/s or FLOPs
    over 67 TFLOP/s f32, whichever is larger) and, where one PyTorch call
    computes the same function, that call's time;
-4. main path: the port's HTTP server in-process on 127.0.0.1 serving
-   POST /resize and /crop?width=300&height=200 on tests/testdata/large.jpg
-   three times each on `cuda`, with every kernel's launch counter set to 0
-   just before and read just after; the server's packed output planes for
-   the same plan on cuda and on cpu agree to 1 LSB;
-5. batch: `run_batch` at B=16 on the main-path plan, cuda against cpu.
+4. config 1's path: the port's HTTP server in-process on 127.0.0.1
+   serving POST /resize and /crop?width=300&height=200 on
+   tests/testdata/large.jpg three times each on `cuda`, with every
+   kernel's launch counter set to 0 just before and read just after; the
+   server's packed output planes for the same plan on cuda and on cpu
+   agree to 1 LSB (also for config 2's /thumbnail and /rotate plans);
+5. batch: `run_batch` cuda against cpu, to 1 LSB, at B=16 on config 1's
+   plan and at B=32 on config 2's /thumbnail, /crop, /rotate?rotate=90
+   and EXIF-6 /resize plans, each image with its own noise;
+6. config 2's path under load: the server with --max-batch 32
+   --batch-form-ms 5 serving 32 client threads, 8 requests each, cycling
+   through /thumbnail, /crop and /rotate?rotate=90 on large.jpg and
+   /resize of the EXIF-rotated tests/testdata/exif-orient-6.jpg at equal
+   weights (the smoke's own mix, chosen, not measured traffic), in three
+   timed windows with the launch counters set to 0 just before and read
+   just after: every answer 200 image/jpeg of the expected size, batches
+   formed (largest group at least 2), every request's decoded planes
+   within 1 LSB of the same request served alone; requests per second by
+   window, p50/p99 latency, items per batch, and the card's busy share
+   over a fourth, profiled window.
 
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
@@ -43,6 +59,7 @@ import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LARGE_JPG = os.path.join(ROOT, "tests", "testdata", "large.jpg")
+EXIF6_JPG = os.path.join(ROOT, "tests", "testdata", "exif-orient-6.jpg")
 OUT_DIR = os.path.join(ROOT, "chip_smoke_out")
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
@@ -50,6 +67,7 @@ F32_FLOPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (data sheet)
 F32_TOL = 1e-3  # absolute, on the 0-255 scale
 U8_TOL = 1  # LSB
 SEED = 20261017
+DEVICE = "cuda"
 
 KERNEL_ROWS = {
     "resample": ("imaginary_tpu_torch/kernels/csrc/resample.cu",
@@ -60,7 +78,12 @@ KERNEL_ROWS = {
                     "imaginary_tpu/ops/stages.py:521"),
     "gather": ("imaginary_tpu_torch/kernels/csrc/gather.cu",
                "imaginary_tpu/ops/stages.py:151"),
+    "orient": ("imaginary_tpu_torch/kernels/csrc/orient.cu",
+               "imaginary_tpu/ops/stages.py:201"),
 }
+# The kernels each main path runs.
+CONFIG1_KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather")
+CONFIG2_KERNELS = CONFIG1_KERNELS + ("orient",)
 
 
 def log(msg: str) -> None:
@@ -167,7 +190,7 @@ def kernel_phase(rng) -> dict:
     from imaginary_tpu_torch import codecs, kernels
     from imaginary_tpu_torch.kernels import reference
 
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     res: dict = {}
 
     def i32(v, b):
@@ -294,6 +317,178 @@ def kernel_phase(rng) -> dict:
     return res
 
 
+# (mode, image shape): the /rotate chain's 1080p buckets; rotate=90 is a
+# transpose of [1152, 2048] then a flop of [2048, 1152], rotate=180 a flip
+# then a flop of [1152, 2048]
+ORIENT_CASES = (("transpose", (1152, 2048, 3)), ("flop", (2048, 1152, 3)),
+                ("flip", (1152, 2048, 3)))
+ORIENT_BATCHES = (1, 32)
+ORIENT_FRAMES = ((1, 1088, 1920, 3), (32, 1088, 1920, 3))  # the 1080p frame, f32
+ORIENT_U8 = (4, 1088, 1920, 4)  # uint8 input (the RGB transport's first stage)
+SHRINK_IN, SHRINK_OUT = (2048, 1152, 3), (1920, 1088)  # /rotate's bucket shrink
+ROTATE_IN_BUCKET = (1152, 2048)  # /rotate's decode bucket (K2's RGB output)
+CONFIG2_BATCH = 32
+
+
+def valid_dims(bsz: int, hb: int, wb: int, dev):
+    """Per-image valid dims that differ inside the batch: the 1080p frame
+    (its long side along the bucket's long side) minus a few pixels per
+    image, so every image has its own padding."""
+    import torch
+
+    base_h, base_w = (1080, 1920) if hb <= wb else (1920, 1080)
+    i = torch.arange(bsz, dtype=torch.int32, device=dev)
+    h = torch.clamp(min(hb, base_h) - 2 * i, min=1).to(torch.int32)
+    w = torch.clamp(min(wb, base_w) - 4 * i, min=1).to(torch.int32)
+    return h, w
+
+
+def orient_phase(res: dict) -> None:
+    """K5 against its plain version, exact, and timed at the /rotate
+    chain's shapes; the library call for the transpose is
+    permute(0, 2, 1, 3).contiguous(). Flip and flop inside per-image valid
+    dims have no single PyTorch call, so their library_ms is null."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for bsz in ORIENT_BATCHES:
+        for mode, shape in ORIENT_CASES:
+            case = f"B{bsz}-{mode}"
+            x = torch.rand((bsz, *shape), generator=gen, device=dev) * 255.0
+            h, w = valid_dims(bsz, shape[0], shape[1], dev)
+            got = kernels.orient(x, h, w, mode)
+            want = reference.orient(x, h, w, mode)
+            check("orient", got, want, res, case, 0.0)
+            lib = None
+            if mode == "transpose":
+                def lib(x=x):
+                    return x.permute(0, 2, 1, 3).contiguous()
+
+                if not torch.equal(lib(), want):
+                    raise AssertionError("library transpose disagrees with the plain version")
+            timing(res, "orient", case,
+                   lambda x=x, h=h, w=w, mode=mode: kernels.orient(x, h, w, mode),
+                   lambda x=x, h=h, w=w, mode=mode: reference.orient(x, h, w, mode),
+                   lib, x.numel() * 4 + got.numel() * 4, 0.0)
+            del x, got, want
+    for mode, _ in ORIENT_CASES:
+        for frame in ORIENT_FRAMES:
+            bsz, hb, wb, c = frame
+            x = torch.rand(frame, generator=gen, device=dev) * 255.0
+            h, w = valid_dims(bsz, hb, wb, dev)
+            check("orient", kernels.orient(x, h, w, mode), reference.orient(x, h, w, mode),
+                  res, f"frame-B{bsz}-{mode}", 0.0)
+        bsz, hb, wb, c = ORIENT_U8
+        xu = torch.randint(0, 256, ORIENT_U8, generator=gen, device=dev, dtype=torch.uint8)
+        h, w = valid_dims(bsz, hb, wb, dev)
+        for out_u8 in (False, True):
+            check("orient", kernels.orient(xu, h, w, mode, out_u8),
+                  reference.orient(xu, h, w, mode, out_u8), res,
+                  f"u8-{'u8' if out_u8 else 'f32'}-{mode}", 0.0)
+        del x, xu
+    log("  orient: flip and flop have no single-call library equivalent "
+        "(mirror inside per-image valid dims): library_ms null")
+    # K4's identity window on /rotate: the flopped [B, 2048, 1152, 3]
+    # sliced to the [B, 1920, 1088, 3] output bucket; one library call
+    # computes the same function
+    for bsz in ORIENT_BATCHES:
+        x = torch.rand((bsz, *SHRINK_IN), generator=gen, device=dev) * 255.0
+        ohb, owb = SHRINK_OUT
+        got = kernels.gather(x, ohb, owb, mode="window")
+        want = reference.gather(x, ohb, owb, mode="window")
+        check("gather", got, want, res, f"B{bsz}-shrink", 0.0)
+
+        def lib(x=x):
+            return x[:, :ohb, :owb].contiguous()
+
+        if not torch.equal(lib(), want):
+            raise AssertionError("library slice disagrees with the plain shrink")
+        # the window reads only the output's pixels of x: bytes of the
+        # output read once and written once
+        timing(res, "gather", f"B{bsz}-shrink",
+               lambda x=x: kernels.gather(x, ohb, owb, mode="window"),
+               lambda x=x: reference.gather(x, ohb, owb, mode="window"),
+               lib, got.numel() * 4 * 2, 0.0)
+        del x, got, want
+
+
+def config2_kernel_phase(rng, res: dict) -> None:
+    """K1, K2 and K3 at the shapes config 2's chains give them at B=32:
+    /rotate's K2 on the 1080p packed bucket and K3 on the rotated
+    [B, 1920, 1088, 3] output bucket, and /thumbnail's K1 (its K2 and
+    K3 shapes are config 1's, held in kernel_phase)."""
+    import torch
+
+    from imaginary_tpu_torch import codecs, kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    bsz = CONFIG2_BATCH
+    hb, wb = ROTATE_IN_BUCKET
+    np_packed, h, w = packed_inputs(codecs, bsz, 1, hb, wb, rng)
+    x2 = torch.from_numpy(np_packed).to(dev)
+    del np_packed
+    hh = torch.full((bsz,), h, dtype=torch.int32, device=dev)
+    ww = torch.full((bsz,), w, dtype=torch.int32, device=dev)
+    rgb = kernels.yuv420_to_rgb(x2, hh, ww, hb, wb)
+    rgb_ref = reference.yuv420_to_rgb(x2, hh, ww, hb, wb)
+    case = f"B{bsz}-rotate"
+    check("yuv420_unpack", rgb, rgb_ref, res, case, F32_TOL)
+    timing(res, "yuv420_unpack", case,
+           lambda: kernels.yuv420_to_rgb(x2, hh, ww, hb, wb),
+           lambda: reference.yuv420_to_rgb(x2, hh, ww, hb, wb), None,
+           x2.numel() + rgb.numel() * 4, 30.0 * rgb.numel() / 3)
+    del x2, rgb
+    # K3 on the rotated, flopped and shrunk frame: [B, 1920, 1088, 3]
+    # holding 1920x1080 valid pixels
+    ohb, owb = SHRINK_OUT
+    t = rgb_ref.transpose(1, 2)[:, :ohb, :owb].contiguous()
+    del rgb_ref
+    ch = torch.full((bsz,), w, dtype=torch.int32, device=dev)
+    cw = torch.full((bsz,), h, dtype=torch.int32, device=dev)
+    y = kernels.rgb_to_yuv420(t, ch, cw, ohb, owb)
+    y_ref = reference.rgb_to_yuv420(t, ch, cw, ohb, owb)
+    check("yuv420_pack", y, y_ref, res, case, U8_TOL)
+    timing(res, "yuv420_pack", case,
+           lambda: kernels.rgb_to_yuv420(t, ch, cw, ohb, owb),
+           lambda: reference.rgb_to_yuv420(t, ch, cw, ohb, owb), None,
+           t.numel() * 4 + y.numel(), 20.0 * t.numel() / 3)
+    del t, y, y_ref
+    # /thumbnail: K1 from the 1/4 decode's [B, 320, 512, 3] bucket to
+    # 200x300 in a [B, 208, 304, 3] bucket
+    hb, wb = 320, 512
+    np_packed, h, w = packed_inputs(codecs, bsz, 4, hb, wb, rng)
+    x2 = torch.from_numpy(np_packed).to(dev)
+    hh = torch.full((bsz,), h, dtype=torch.int32, device=dev)
+    ww = torch.full((bsz,), w, dtype=torch.int32, device=dev)
+    xin = reference.yuv420_to_rgb(x2, hh, ww, hb, wb)
+    ohb, owb = 208, 304
+    dst_h = torch.full((bsz,), 200.0, device=dev)
+    dst_w = torch.full((bsz,), 300.0, device=dev)
+    out, _, _ = kernels.resample(xin, hh, ww, dst_h, dst_w, ohb, owb, "lanczos3")
+    ref, _, _ = reference.resample(xin, hh, ww, dst_h, dst_w, ohb, owb, "lanczos3")
+    case = f"B{bsz}-thumbnail"
+    check("resample", out, ref, res, case, F32_TOL)
+    wy = reference.sample_matrix(ohb, hb, hh, dst_h, "lanczos3")
+    wx = reference.sample_matrix(owb, wb, ww, dst_w, "lanczos3")
+    flops = 2.0 * (float((wy != 0).sum()) * wb * 3 + float((wx != 0).sum()) * ohb * 3)
+
+    def lib():
+        t = torch.bmm(wy, xin.reshape(bsz, hb, wb * 3)).view(bsz, ohb, wb, 3)
+        return torch.matmul(wx[:, None], t)
+
+    if max_err(lib(), ref) > F32_TOL:
+        raise AssertionError("library resample disagrees with the plain version")
+    timing(res, "resample", case,
+           lambda: kernels.resample(xin, hh, ww, dst_h, dst_w, ohb, owb, "lanczos3"),
+           lambda: reference.resample(xin, hh, ww, dst_h, dst_w, ohb, owb, "lanczos3"),
+           lib, xin.numel() * 4 + out.numel() * 4, flops)
+
+
 def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
     import torch
 
@@ -329,7 +524,7 @@ def main_path_phase() -> dict:
 
     with open(LARGE_JPG, "rb") as f:
         buf = f.read()
-    srv = make_server("127.0.0.1", 0, device="cuda")
+    srv = make_server("127.0.0.1", 0, device=DEVICE)
     port = srv.server_address[1]
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -357,9 +552,9 @@ def main_path_phase() -> dict:
         srv.shutdown()
         srv.server_close()
         th.join(timeout=10)
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for name in CONFIG1_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on config 1's path")
     for op, ts in lat.items():
         log(f"  /{op}: {', '.join(f'{t:.2f}' for t in ts)} ms")
     log(f"  launches: {launches}")
@@ -394,18 +589,20 @@ def profile_requests(port: int, buf: bytes, rounds: int = 3) -> dict:
             "busy_share": busy / wall_us, "by_name_us": dict(by_name)}
 
 
-def main_plan(op: str, transport: str):
-    """(input array, plan) of the server's request for `op` 300x200."""
+def main_plan(op: str, transport: str, query=None, src: str = LARGE_JPG):
+    """(input array, plan) of the server's request for `op` on `src`
+    (300x200 unless a query is given), planned as the pipeline plans it."""
     from imaginary_tpu_torch import codecs
     from imaginary_tpu_torch.ops import plan as plan_mod
     from imaginary_tpu_torch.ops.buckets import bucket_shape
     from imaginary_tpu_torch.params import build_params_from_query
 
-    with open(LARGE_JPG, "rb") as f:
+    with open(src, "rb") as f:
         buf = f.read()
-    o = build_params_from_query({"width": "300", "height": "200"})
+    o = build_params_from_query(query or {"width": "300", "height": "200"})
     meta = codecs.probe_fast(buf)
-    shrink = plan_mod.choose_decode_shrink(op, o, meta.height, meta.width, 0, 3)
+    shrink = plan_mod.choose_decode_shrink(op, o, meta.height, meta.width,
+                                           meta.orientation, 3)
     sh, sw = -(-meta.height // shrink), -(-meta.width // shrink)
     p = plan_mod.plan_operation(op, o, sh, sw, meta.orientation, 3)
     if transport == "yuv420":
@@ -430,27 +627,240 @@ def parity_phase(rng) -> dict:
     from imaginary_tpu_torch.ops import chain
 
     out = {}
-    for op in ("resize", "crop"):
+    for op, query in (("resize", None), ("crop", None), ("thumbnail", None),
+                      ("rotate", {"rotate": "90"})):
         for transport in ("yuv420", "rgb"):
-            arr, p = main_plan(op, transport)
-            err = planes_err(chain.run_single(arr, p, device="cuda"),
+            arr, p = main_plan(op, transport, query)
+            err = planes_err(chain.run_single(arr, p, device=DEVICE),
                              chain.run_single(arr, p, device="cpu"))
             if err > U8_TOL:
                 raise AssertionError(f"{op}/{transport}: cuda vs cpu {err} LSB")
             out[f"{op}-{transport}"] = err
     log(f"  run_single cuda vs cpu, max LSB: {out}")
-    # phase 5: B=16 on the main-path plan
-    arr, p = main_plan("resize", "yuv420")
-    arrs = [arr] + [np.clip(arr.astype(np.int32) + rng.integers(-12, 13, size=arr.shape),
-                            0, 255).astype(np.uint8) for _ in range(15)]
-    plans = [p] * 16
-    got = chain.run_batch(arrs, plans, device="cuda")
-    want = chain.run_batch(arrs, plans, device="cpu")
-    err = max(planes_err(a, b) for a, b in zip(got, want))
-    if err > U8_TOL:
-        raise AssertionError(f"run_batch B=16: cuda vs cpu {err} LSB")
-    out["run_batch-B16"] = err
-    log(f"  run_batch B=16 cuda vs cpu, max LSB: {err}")
+    # phase 5: B=16 on config 1's plan, and config 2's chains at the
+    # batch its server forms (B=32), each image with its own noise
+    batches = [("resize", None, LARGE_JPG, 16)] + [
+        (op, query, src, CONFIG2_BATCH) for op, query, src in CONFIG2_PLANS]
+    for op, query, src, bsz in batches:
+        arr, p = main_plan(op, "yuv420", query, src)
+        arrs = [arr] + [np.clip(arr.astype(np.int32) + rng.integers(-12, 13, size=arr.shape),
+                                0, 255).astype(np.uint8) for _ in range(bsz - 1)]
+        plans = [p] * bsz
+        got = chain.run_batch(arrs, plans, device=DEVICE)
+        want = chain.run_batch(arrs, plans, device="cpu")
+        err = max(planes_err(a, b) for a, b in zip(got, want))
+        if err > U8_TOL:
+            raise AssertionError(f"run_batch {op} B={bsz}: cuda vs cpu {err} LSB")
+        name = f"run_batch-{op}{'-exif6' if src == EXIF6_JPG else ''}-B{bsz}"
+        out[name] = err
+        log(f"  {name} cuda vs cpu, max LSB: {err}")
+        del arrs, got, want
+    return out
+
+
+# --- phase 6: config 2's mixed traffic under load ---------------------------
+
+# config 2's chains as (op, query, source): the three routes on the 1080p
+# JPEG, and /resize of a JPEG stored with EXIF orientation 6
+CONFIG2_PLANS = (
+    ("thumbnail", None, LARGE_JPG),
+    ("crop", None, LARGE_JPG),
+    ("rotate", {"rotate": "90"}, LARGE_JPG),
+    ("resize", {"width": "120", "height": "90"}, EXIF6_JPG),
+)
+
+# (path, source, decoded output (h, w)); exif-orient-6.jpg is 400x300
+# stored with EXIF orientation 6, so its /resize transposes and flops first
+CONFIG2_REQUESTS = (
+    ("/thumbnail?width=300&height=200", LARGE_JPG, (200, 300)),
+    ("/crop?width=300&height=200", LARGE_JPG, (200, 300)),
+    ("/rotate?rotate=90", LARGE_JPG, (1920, 1080)),
+    ("/resize?width=120&height=90", EXIF6_JPG, (90, 120)),
+)
+CLIENTS = 32
+PER_CLIENT = 8
+# timed load windows of CLIENTS * PER_CLIENT requests each: one window
+# lasts about a second on the card's host, so one alone says little
+WINDOWS = 3
+CONFIG2_MAX_BATCH = 32
+CONFIG2_FORM_MS = 5.0
+
+
+def load_window(port: int, bodies: dict) -> tuple:
+    """CLIENTS threads, PER_CLIENT requests each, cycling through
+    CONFIG2_REQUESTS, all started together. Returns (wall seconds,
+    [(request index, latency ms, status, content type, body)])."""
+    n_req = CLIENTS * PER_CLIENT
+    results: list = [None] * n_req
+    errors: list = []
+    start = threading.Barrier(CLIENTS + 1)
+
+    def client(t: int) -> None:
+        start.wait()
+        try:
+            for i in range(PER_CLIENT):
+                n = t * PER_CLIENT + i
+                k = n % len(CONFIG2_REQUESTS)
+                path, src, _ = CONFIG2_REQUESTS[k]
+                t0 = time.perf_counter()
+                status, ctype, body = http(port, path, bodies[src])
+                results[n] = (k, (time.perf_counter() - t0) * 1e3, status, ctype, body)
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(CLIENTS)]
+    for th in threads:
+        th.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return wall, results
+
+
+def busy_union_us(prof) -> tuple:
+    """(busy us, summed us, by-name us) of the card's activity in a
+    torch.profiler window. The busy time is the union of the kernels' and
+    copies' intervals, so work that overlaps (a copy engine beside the
+    compute units, or another stream) counts once."""
+    import collections
+
+    from torch.autograd import DeviceType
+
+    spans, by_name = [], collections.defaultdict(float)
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+            by_name[e.name] += e.time_range.elapsed_us()
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy, sum(by_name.values()), dict(by_name)
+
+
+def decoded_planes(codecs, body: bytes, dims: tuple):
+    from imaginary_tpu_torch.ops.buckets import bucket_shape
+
+    packed, h, w, _ = codecs.decode_yuv420(body, 1, *bucket_shape(*dims))
+    if (h, w) != dims:
+        raise AssertionError(f"decoded {h}x{w}, expected {dims}")
+    return packed
+
+
+def config2_phase() -> dict:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imaginary_tpu_torch import codecs, kernels
+    from imaginary_tpu_torch.web.app import make_server
+
+    bodies = {}
+    for _, src, _ in CONFIG2_REQUESTS:
+        with open(src, "rb") as f:
+            bodies[src] = f.read()
+    srv = make_server("127.0.0.1", 0, device=DEVICE, max_batch=CONFIG2_MAX_BATCH,
+                      batch_form_ms=CONFIG2_FORM_MS)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    ex = srv.service.executor
+    try:
+        # one untimed request per route, then each served alone: the
+        # planes every batched answer is held against
+        for path, src, _ in CONFIG2_REQUESTS:
+            http(port, path, bodies[src])
+        alone = []
+        for path, src, dims in CONFIG2_REQUESTS:
+            status, ctype, body = http(port, path, bodies[src])
+            if (status, ctype) != (200, "image/jpeg"):
+                raise AssertionError(f"{path} alone: {status} {ctype}")
+            alone.append((body, decoded_planes(codecs, body, dims)))
+        items0, batches0 = ex.stats.items, ex.stats.batches
+        kernels.reset_launches()
+        walls, results = [], []
+        for _ in range(WINDOWS):
+            wall, got = load_window(port, bodies)
+            walls.append(wall)
+            results.extend(got)
+        launches = dict(kernels.LAUNCHES)
+        items, batches = ex.stats.items - items0, ex.stats.batches - batches0
+        max_group = ex.stats.max_group_seen
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            wall2, _ = load_window(port, bodies)
+            prof_wall_us = (time.perf_counter() - t0) * 1e6
+        executor = ex.stats.to_dict()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    for name in CONFIG2_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on config 2's path")
+    if max_group < 2:
+        raise AssertionError(f"no batch formed under load (largest group {max_group})")
+    identical, worst = 0, 0
+    lat = [r[1] for r in results]
+    by_kind: dict = {}
+    for k, ms, status, ctype, body in results:
+        path, _, dims = CONFIG2_REQUESTS[k]
+        if (status, ctype) != (200, "image/jpeg"):
+            raise AssertionError(f"{path}: {status} {ctype}")
+        if body == alone[k][0]:
+            identical += 1
+        else:
+            planes = decoded_planes(codecs, body, dims)
+            err = int(np.abs(planes.astype(np.int32) - alone[k][1].astype(np.int32)).max())
+            if err > U8_TOL:
+                raise AssertionError(f"{path}: batched planes {err} LSB from alone")
+            worst = max(worst, err)
+        if codecs.decode(body).array.shape[:2] != dims:
+            raise AssertionError(f"{path}: output is not {dims}")
+        by_kind.setdefault(path, []).append(ms)
+    busy, summed, by_name = busy_union_us(prof)
+    n = len(results)
+    rps = [CLIENTS * PER_CLIENT / w for w in walls]
+    out = {
+        "mix": "equal weights, chosen: " + ", ".join(p for p, _, _ in CONFIG2_REQUESTS),
+        "requests": n, "windows": WINDOWS, "wall_s": walls, "rps_by_window": rps,
+        "rps": statistics.median(rps),
+        "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+        "p50_ms_by_route": {p: float(np.percentile(v, 50)) for p, v in by_kind.items()},
+        "items": items, "batches": batches, "mean_batch": items / batches,
+        "max_group_seen": max_group, "launches": launches,
+        "identical_bodies": identical, "max_lsb_vs_alone": worst,
+        "profiled": {"wall_s": wall2, "rps": CLIENTS * PER_CLIENT / wall2,
+                     "wall_us": prof_wall_us,
+                     "device_busy_us": busy, "device_summed_us": summed,
+                     "busy_share": busy / prof_wall_us, "by_name_us": by_name},
+        "executor": executor,
+    }
+    log(f"  the smoke's mix ({out['mix']}): {n} requests from {CLIENTS} clients in "
+        f"{WINDOWS} windows of {sum(walls):.3f} s in all; req/s by window "
+        f"{', '.join(f'{r:.1f}' for r in rps)} (median {out['rps']:.1f}); "
+        f"p50 {out['p50_ms']:.2f} ms, p99 {out['p99_ms']:.2f} ms over all {n}")
+    for p, ms in out["p50_ms_by_route"].items():
+        log(f"    p50 {ms:8.2f} ms  {p}")
+    log(f"  executor: {items} items in {batches} batches (mean {out['mean_batch']:.2f}), "
+        f"largest group {max_group}; launches {launches}")
+    log(f"  answers byte-identical to the same request alone: {identical} of {n} "
+        f"(max {worst} LSB on the rest)")
+    log(f"  profiled window: {out['profiled']['rps']:.1f} req/s; device busy {busy:.1f} us "
+        f"of {prof_wall_us:.1f} us wall (share {out['profiled']['busy_share']:.4f}; "
+        f"summed over streams {summed:.1f} us)")
+    per_window = CLIENTS * PER_CLIENT
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {us / per_window:9.2f} us/request  {name[:90]}")
+    torch.cuda.synchronize()
     return out
 
 
@@ -501,20 +911,26 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     log("== phase 3: kernels against their plain versions")
     report["kernels"] = kernel_phase(rng)
+    orient_phase(report["kernels"])
+    config2_kernel_phase(rng, report["kernels"])
     log("== phase 4: main path through the server")
     report["main_path"] = main_path_phase()
-    log("== phase 4b/5: cuda against cpu (run_single, run_batch B=16)")
+    log("== phase 4b/5: cuda against cpu (run_single; run_batch B=16 and B=32)")
     report["parity"] = parity_phase(rng)
+    log("== phase 6: config 2 under load (/thumbnail, /crop, /rotate, EXIF /resize)")
+    report["config2"] = config2_phase()
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         per_case = report["kernels"][name]
         main_case = {"resample": "B1-resize", "yuv420_unpack": "B1",
-                     "yuv420_pack": "B1", "gather": "B1-embed"}[name]
+                     "yuv420_pack": "B1", "gather": "B1-embed",
+                     "orient": "B32-transpose"}[name]
         m = per_case[main_case]
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": report["main_path"]["launches"][name],
+            "launches": report["config2"]["launches"][name],
+            "launches_config1": report["main_path"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

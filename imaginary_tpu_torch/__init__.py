@@ -2,8 +2,10 @@
 
 A second package beside `imaginary_tpu` (the JAX reference, which it never
 imports): the same HTTP contract and planner, with the device work in
-hand-written CUDA C++ kernels for Hopper (`kernels/`). This slice serves
-/resize and /crop on JPEG; see ROADMAP.md for what is still to port.
+hand-written CUDA C++ kernels for Hopper (`kernels/`), micro-batched by
+the executor (`engine/`). It serves /resize, /crop, /thumbnail, /rotate,
+/autorotate, /flip and /flop on JPEG; see ROADMAP.md for what is still to
+port.
 """
 
 Version = "0.1.0"

@@ -4,17 +4,27 @@ from __future__ import annotations
 
 import argparse
 
+from imaginary_tpu_torch.engine import MAX_BATCH
+
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="imaginary_tpu_torch",
-        description="imaginary-tpu on PyTorch/CUDA: /resize and /crop on JPEG")
+        description="imaginary-tpu on PyTorch/CUDA: /resize, /crop, /thumbnail, "
+                    "/rotate, /autorotate, /flip and /flop on JPEG")
     ap.add_argument("--host", default="0.0.0.0", help="bind address")
     ap.add_argument("--port", type=int, default=9000, help="TCP port")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run the kernels on (cuda, cuda:N, or cpu)")
     ap.add_argument("--mount", default="",
                     help="directory served to GET ?file= requests")
+    ap.add_argument("--max-batch", type=int, default=MAX_BATCH,
+                    help="micro-batch size cap")
+    ap.add_argument("--batch-form-ms", type=float, default=5.0,
+                    help="max milliseconds an item may wait for its chunk "
+                         "to close (the batch-formation latency cap)")
+    ap.add_argument("--max-inflight", type=int, default=4,
+                    help="device chunks launched but not yet fetched")
     return ap.parse_args(argv)
 
 
@@ -22,7 +32,9 @@ def main(argv=None) -> None:
     args = parse_args(argv)
     from imaginary_tpu_torch.web.app import make_server
 
-    srv = make_server(args.host, args.port, device=args.device, mount=args.mount)
+    srv = make_server(args.host, args.port, device=args.device, mount=args.mount,
+                      max_batch=args.max_batch, batch_form_ms=args.batch_form_ms,
+                      max_inflight=args.max_inflight)
     print(f"imaginary_tpu_torch listening on {args.host}:{args.port} "
           f"(device {srv.service.device})", flush=True)
     try:

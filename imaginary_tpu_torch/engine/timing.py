@@ -1,0 +1,72 @@
+"""Per-stage timing of the executor (the port's trimmed copy of
+`imaginary_tpu/engine/timing.py`: `StageTimes` and `TIMES`).
+
+Each stage records into a bounded ring, so /health can report count,
+mean, p50 and p99 without unbounded memory. The stages are the ones the
+executor records, all in milliseconds per item:
+
+- queue_wait: submit -> launch issued (batch_form + dispatch_wait);
+- batch_form: submit -> chunk close (bounded by the formation cap);
+- dispatch_wait: chunk close -> launch issued (time behind in-flight
+  chunks, when the bounded fetch queue held the collector back);
+- launch: the collector's host time to stage and enqueue a chunk
+  (H2D, kernels, D2H), shared over its items;
+- drain: fetch start -> host bytes landed (the wait on the chunk's
+  event), shared over its items.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import numpy as np
+
+_RING = 2048  # samples kept per stage for percentile estimates
+
+STAGES = ("queue_wait", "batch_form", "dispatch_wait", "launch", "drain")
+
+
+class StageTimes:
+    """Thread-safe per-stage latency aggregator."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._sum = {s: 0.0 for s in STAGES}
+        self._count = {s: 0 for s in STAGES}
+        self._ring = {s: np.zeros(_RING, dtype=np.float32) for s in STAGES}
+        self._pos = {s: 0 for s in STAGES}
+
+    def record(self, stage: str, ms: float) -> None:
+        with self._lock:
+            self._sum[stage] += ms
+            self._count[stage] += 1
+            self._ring[stage][self._pos[stage]] = ms
+            self._pos[stage] = (self._pos[stage] + 1) % _RING
+
+    def snapshot(self) -> dict:
+        out = {}
+        with self._lock:
+            for s in STAGES:
+                c = self._count[s]
+                if not c:
+                    continue
+                n = min(c, _RING)
+                window = np.sort(self._ring[s][:n])
+                out[s] = {
+                    "count": c,
+                    "mean_ms": round(self._sum[s] / c, 3),
+                    "p50_ms": round(float(window[int(0.50 * (n - 1))]), 3),
+                    "p99_ms": round(float(window[int(0.99 * (n - 1))]), 3),
+                }
+        return out
+
+    def reset(self) -> None:
+        with self._lock:
+            for s in STAGES:
+                self._sum[s] = 0.0
+                self._count[s] = 0
+                self._pos[s] = 0
+
+
+# Process-wide registry: the executor and /health share it.
+TIMES = StageTimes()

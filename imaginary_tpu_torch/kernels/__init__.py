@@ -1,4 +1,4 @@
-"""The port's device kernels: four CUDA C++ kernels for Hopper (sm_90a).
+"""The port's device kernels: five CUDA C++ kernels for Hopper (sm_90a).
 
 | kernel          | source                 | replaces (imaginary_tpu/...)                     |
 | --------------- | ---------------------- | ------------------------------------------------ |
@@ -6,6 +6,7 @@
 | yuv420_unpack   | csrc/yuv420_unpack.cu  | ops/stages.py:344-423 FromYuv420Spec (+ cast)    |
 | yuv420_pack     | csrc/yuv420_pack.cu    | ops/stages.py:521-552 ToYuv420Spec + epilogue    |
 | gather          | csrc/gather.cu         | ops/stages.py:119-198, 330-341 Extract/Embed/Shrink |
+| orient          | csrc/orient.cu         | ops/stages.py:201-234 Flip/Flop/Transpose        |
 
 Each wrapper below takes tensors on one device. On a CPU tensor it runs
 the kernel's plain version (`reference.py`). On a CUDA tensor it checks
@@ -39,6 +40,7 @@ _SIGNATURES = {
     "gather": ("itpu_gather",
                [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 _I, _P]),
+    "orient": ("itpu_orient", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
 }
 
 # Kernel launches since the last reset, per kernel (resample counts its
@@ -49,6 +51,7 @@ _FNS: dict = {}
 _LOCK = threading.Lock()
 _RESAMPLE_KIND = {k: i for i, k in enumerate(reference.RESAMPLE_KINDS)}
 _GATHER_MODE = {m: i for i, m in enumerate(reference.GATHER_MODES)}
+_ORIENT_MODE = {m: i for i, m in enumerate(reference.ORIENT_MODES)}
 
 
 def reset_launches() -> None:
@@ -210,4 +213,31 @@ def gather(x, out_hb: int, out_wb: int, off_y=None, off_x=None, size_h=None,
             out.data_ptr(), int(out_u8), _ptr(off_y), _ptr(off_x), _ptr(size_h),
             _ptr(size_w), _ptr(fill), _GATHER_MODE[mode], bsz, in_hb, in_wb, c,
             out_hb, out_wb)
+    return out
+
+
+def orient(x, h, w, mode: str, out_u8: bool = False):
+    """K5: "flip" or "flop" x [B, Hb, Wb, C] (uint8 or f32, C 1 to 4)
+    inside each image's valid h or w (padding copied as it is), or
+    "transpose" it to [B, Wb, Hb, C]; f32 out, or uint8 with the epilogue.
+
+    h, w: int32 [B] valid dims. The caller swaps h and w after a
+    transpose."""
+    if mode not in _ORIENT_MODE:
+        raise ValueError(f"unknown orient mode {mode!r}")
+    if x.device.type == "cpu":
+        return reference.orient(x, h, w, mode, out_u8)
+    dev = x.device
+    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
+        raise ValueError(f"x must be [B, H, W, C] with C 1 to 4, got {tuple(x.shape)}")
+    bsz, hb, wb, c = x.shape
+    _require(x, "x", _IMG, (bsz, hb, wb, c), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    shape = (bsz, wb, hb, c) if mode == "transpose" else (bsz, hb, wb, c)
+    out = torch.empty(shape, dtype=torch.uint8 if out_u8 else torch.float32,
+                      device=dev)
+    _launch("orient", dev, x.data_ptr(), int(x.dtype == torch.uint8),
+            out.data_ptr(), int(out_u8), h.data_ptr(), w.data_ptr(),
+            _ORIENT_MODE[mode], bsz, hb, wb, c)
     return out

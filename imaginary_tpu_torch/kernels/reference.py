@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four kernels.
+"""Plain PyTorch versions of the five kernels.
 
 Each function computes what its CUDA kernel computes, in the reference's
 formulation (dense sampling matrices and einsums for the resample, index
@@ -19,6 +19,7 @@ _EPS = 1e-6
 
 RESAMPLE_KINDS = ("lanczos3", "lanczos2", "cubic", "linear", "nearest")
 GATHER_MODES = ("window", "clamp", "mirror")
+ORIENT_MODES = ("flip", "flop", "transpose")
 
 
 def epilogue_u8(x: torch.Tensor) -> torch.Tensor:
@@ -180,3 +181,19 @@ def gather(x: torch.Tensor, out_hb: int, out_wb: int, off_y=None, off_x=None,
         keep = (in_y[:, :, None] & in_x[:, None, :])[..., None]
         out = torch.where(keep, out, fill.float()[:, None, None, :])
     return _finish(out, out_u8)
+
+
+def orient(x: torch.Tensor, h, w, mode: str, out_u8: bool = False) -> torch.Tensor:
+    """K5's function (stages.py:FlipSpec/FlopSpec/TransposeSpec): mirror
+    rows ("flip") or columns ("flop") inside each image's valid h or w,
+    copying the padding beyond it as it is, or swap H and W of the whole
+    bucket ("transpose")."""
+    xf = x.float()
+    if mode == "transpose":
+        return _finish(xf.permute(0, 2, 1, 3).contiguous(), out_u8)
+    axis = 1 if mode == "flip" else 2
+    valid = (h if mode == "flip" else w).long()[:, None]
+    pos = torch.arange(x.shape[axis], dtype=torch.int64, device=x.device)[None, :]
+    idx = torch.where(pos < valid, valid - 1 - pos, pos)
+    idx = idx[:, :, None, None] if axis == 1 else idx[:, None, :, None]
+    return _finish(torch.take_along_dim(xf, idx, dim=axis), out_u8)

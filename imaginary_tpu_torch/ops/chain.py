@@ -6,13 +6,18 @@ the executor calls (`launch_batch`, `fetch_batch`, `finish_batch`,
 `output_checksum`). Every entry point takes a `device` and runs on the
 card unless the caller asks for the CPU.
 
-PyTorch runs eagerly, so there is no compiled program per chain: a launch
-stages the batch and its per-image params to the device in ONE copy from
-pinned host memory, runs each stage's kernel in order on the current
-stream, and returns the output tensor while the card is still computing.
-The chain's uint8 -> f32 cast and its uint8 epilogue are fused into the
-first and last stages' kernels. The fetch copies the output into pinned
-host memory and waits for that copy only.
+PyTorch runs eagerly, so there is no compiled program per chain. On a
+card, every launch runs on one side stream per device: it stages the
+batch and its per-image params to the device in ONE copy from pinned host
+memory, runs each stage's kernel in order, copies the output into a
+pinned host buffer and records an event after that copy. It returns while
+the card is still working. The fetch waits on that event only, not on the
+stream, so it never waits for chunks launched after its own. Every device
+tensor of a launch is allocated under the side stream, so the caching
+allocator reuses its memory only for work queued later on that stream.
+On the CPU the chain runs at once and the fetch has nothing to wait for. The chain's uint8 -> f32
+cast and its uint8 epilogue are fused into the first and last stages'
+kernels.
 
 Buffer donation has no torch meaning (the kernels allocate their outputs
 and the caching allocator recycles freed buffers); `donation_stats`
@@ -41,6 +46,9 @@ _SIGNATURES: set = set()
 _LOCK = threading.Lock()
 
 _ALIGN = 16
+
+# The side stream each device's launches run on (`_stream`).
+_STREAMS: dict = {}
 
 
 def donation_stats() -> dict:
@@ -82,26 +90,34 @@ _TORCH_DTYPES = {
 }
 
 
-def _stage(arrays: list, device: torch.device) -> list:
-    """Copy host arrays to `device` as ONE transfer; returns typed views.
+def _stage(arrays: list, device: torch.device) -> tuple:
+    """Copy host arrays to `device` as ONE transfer on the current stream;
+    returns (typed device views, the host buffer).
 
-    The arrays are packed at 16-byte offsets into one host buffer (pinned
-    when the target is a card, so the copy is asynchronous and runs at the
-    link's full rate) and moved with one non-blocking copy."""
-    offsets, total = [], 0
+    Each entry is an array, or a list of same-shaped arrays that lands as
+    their stack (the batch, written straight into the buffer). The entries
+    are packed at 16-byte offsets into one host buffer (pinned when the
+    target is a card, so the copy is asynchronous and runs at the link's
+    full rate) and moved with one non-blocking copy. The caller keeps the
+    host buffer until the copy is done."""
+    metas, total = [], 0
     for a in arrays:
-        offsets.append(total)
-        total += (a.nbytes + _ALIGN - 1) // _ALIGN * _ALIGN
+        parts = a if isinstance(a, list) else [a]
+        shape = ((len(parts),) if isinstance(a, list) else ()) + parts[0].shape
+        nbytes = sum(p.nbytes for p in parts)
+        metas.append((parts, shape, parts[0].dtype, total, nbytes))
+        total += (nbytes + _ALIGN - 1) // _ALIGN * _ALIGN
     pinned = device.type == "cuda"
     host = torch.empty(max(total, _ALIGN), dtype=torch.uint8, pin_memory=pinned)
     hv = host.numpy()
-    for a, off in zip(arrays, offsets):
-        hv[off:off + a.nbytes] = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+    for parts, _, _, off, _ in metas:
+        for p in parts:
+            hv[off:off + p.nbytes] = np.ascontiguousarray(p).reshape(-1).view(np.uint8)
+            off += p.nbytes
     dev = host.to(device, non_blocking=True) if pinned else host
-    return [
-        dev[off:off + a.nbytes].view(_TORCH_DTYPES[a.dtype]).view(a.shape)
-        for a, off in zip(arrays, offsets)
-    ]
+    views = [dev[off:off + n].view(_TORCH_DTYPES[dt]).view(shape)
+             for _, shape, dt, off, n in metas]
+    return views, host
 
 
 def _stack_dyns(plans: list) -> list:
@@ -113,44 +129,78 @@ def _stack_dyns(plans: list) -> list:
     return out
 
 
+class Launched:
+    """A launched chunk: its output in host memory once `event` (None on
+    the CPU) has completed, and the staged input buffer kept alive until
+    then."""
+
+    __slots__ = ("host", "event", "staged")
+
+    def __init__(self, host: torch.Tensor, event=None, staged=None):
+        self.host = host
+        self.event = event
+        self.staged = staged
+
+
+def _stream(device: torch.device):
+    with _LOCK:
+        stream = _STREAMS.get(device)
+        if stream is None:
+            stream = _STREAMS[device] = torch.cuda.Stream(device)
+        return stream
+
+
 def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE):
     """Stage + launch one batched chain WITHOUT waiting for it.
 
     arrs: HWC uint8 arrays, all with the same bucket shape and C (packed
     transports: the pre-padded packed buffers, with the image dims on the
     plan). plans: matching ImagePlans with identical spec_key().
-    Returns the output tensor on `device` (uint8, possibly still
-    computing), or None for an identity chain."""
+    Returns a `Launched` (on a card, possibly still computing), or None
+    for an identity chain."""
     specs = plans[0].spec_key()
     if not specs:
         return None
     device = torch.device(device)
     if plans[0].in_bucket is not None:
-        batch = np.stack(arrs)
+        batch = list(arrs)
         h = np.array([p.in_h for p in plans], dtype=np.int32)
         w = np.array([p.in_w for p in plans], dtype=np.int32)
     else:
-        batch = np.stack([pad_to_bucket(a) for a in arrs])
+        batch = [pad_to_bucket(a) for a in arrs]
         h = np.array([a.shape[0] for a in arrs], dtype=np.int32)
         w = np.array([a.shape[1] for a in arrs], dtype=np.int32)
     host_dyns = _stack_dyns(plans)
     flat = [batch, h, w] + [v for d in host_dyns for v in d.values()]
-    staged = iter(_stage(flat, device))
+    with _LOCK:
+        _SIGNATURES.add((specs, (len(batch),) + batch[0].shape, str(device)))
+    if device.type != "cuda":
+        return Launched(_run_staged(specs, _stage(flat, device)[0], host_dyns))
+    stream = _stream(device)
+    with torch.cuda.stream(stream):
+        views, staged = _stage(flat, device)
+        y = _run_staged(specs, views, host_dyns)
+        host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+        host.copy_(y, non_blocking=True)
+        event = torch.cuda.Event(blocking=True)
+        event.record(stream)
+    return Launched(host, event, staged)
+
+
+def _run_staged(specs, views: list, host_dyns: list) -> torch.Tensor:
+    staged = iter(views)
     x, ht, wt = next(staged), next(staged), next(staged)
     dyns = [{k: next(staged) for k in d} for d in host_dyns]
-    with _LOCK:
-        _SIGNATURES.add((specs, batch.shape, str(device)))
     y, _, _ = _run_chain(specs, x, ht, wt, dyns)
     return y
 
 
-def _to_host(y: torch.Tensor) -> np.ndarray:
-    if y.device.type != "cuda":
-        return y.numpy()
-    host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-    host.copy_(y, non_blocking=True)
-    torch.cuda.current_stream(y.device).synchronize()
-    return host.numpy()
+def _to_host(launched: Launched) -> np.ndarray:
+    """Wait for the launch's copy back to host memory (its event only)."""
+    if launched.event is not None:
+        launched.event.synchronize()
+        launched.staged = None
+    return launched.host.numpy()
 
 
 def finish_batch(host_y, arrs: list, plans: list) -> list:
@@ -172,7 +222,8 @@ def finish_batch(host_y, arrs: list, plans: list) -> list:
 
 
 def fetch_batch(y, arrs: list, plans: list) -> list:
-    """Wait for a launch_batch result and slice out per-image outputs."""
+    """Wait for a launch_batch result (a `Launched`, or None for an
+    identity chain) and slice out per-image outputs."""
     if y is None:
         return [np.asarray(a) for a in arrs]
     return finish_batch(_to_host(y), arrs, plans)
@@ -184,7 +235,7 @@ def run_batch(arrs: list, plans: list, device=DEFAULT_DEVICE) -> list:
 
 
 def run_single(arr: np.ndarray, plan: ImagePlan, device=DEFAULT_DEVICE):
-    """Single-image convenience wrapper (the server's path in this slice)."""
+    """Single-image convenience wrapper (the pipeline's default runner)."""
     return run_batch([arr], [plan], device=device)[0]
 
 

@@ -82,18 +82,30 @@ class EmbedSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class FlipSpec(_NotPorted):
-    """Vertical flip of the valid region."""
+class FlipSpec:
+    """Vertical flip of the valid region; padding rows stay as they are
+    (kernel K5, flip)."""
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        return kernels.orient(x, h, w, "flip", out_u8), h, w
 
 
 @dataclasses.dataclass(frozen=True)
-class FlopSpec(_NotPorted):
-    """Horizontal flip of the valid region."""
+class FlopSpec:
+    """Horizontal flip of the valid region; padding columns stay as they
+    are (kernel K5, flop)."""
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        return kernels.orient(x, h, w, "flop", out_u8), h, w
 
 
 @dataclasses.dataclass(frozen=True)
-class TransposeSpec(_NotPorted):
-    """Swap H and W."""
+class TransposeSpec:
+    """Swap H and W of the whole bucket, valid dims swapped with it
+    (kernel K5, transpose)."""
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        return kernels.orient(x, h, w, "transpose", out_u8), w, h
 
 
 @dataclasses.dataclass(frozen=True)

@@ -100,13 +100,19 @@ def _carry_metadata(src_buf: bytes, strip: bool, out: ProcessedImage,
     return ProcessedImage(body=body, mime=out.mime, width=out_w, height=out_h)
 
 
-def _run_stages(arr, plan: ImagePlan, device):
+def _run_stages(arr, plan: ImagePlan, device, runner=None):
     """Device execution. Stages the port has not ported yet surface as 501;
-    other device failures as 400 (ref: Process recover(), image.go:82-94)."""
+    other device failures as 400 (ref: Process recover(), image.go:82-94).
+
+    runner: (arr, plan) -> output; defaults to `chain.run_single` on
+    `device`, and the web layer passes `Executor.process` for
+    micro-batched dispatch."""
     if not plan.stages:
         return arr
     try:
-        return chain_mod.run_single(arr, plan, device=device)
+        if runner is None:
+            return chain_mod.run_single(arr, plan, device=device)
+        return runner(arr, plan)
     except NotImplementedError as e:
         raise new_error(str(e), 501) from None
     except (RuntimeError, ValueError, TypeError) as e:
@@ -114,11 +120,11 @@ def _run_stages(arr, plan: ImagePlan, device):
 
 
 def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
-                      meta=None) -> ProcessedImage:
+                      meta=None, runner=None) -> ProcessedImage:
     """Run one named operation end to end (decode -> device -> encode).
 
     meta: an ImageMetadata the caller already probed, so the hot path
-    parses headers once."""
+    parses headers once. runner: see `_run_stages`."""
     if name not in OPERATION_NAMES:
         raise new_error(f"Unsupported operation: {name}", 400)
     src_type = determine_image_type(buf)
@@ -130,14 +136,14 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
     shrink = _pick_shrink(name, src_type, o, meta)
 
     if _yuv_eligible(src_type, meta, o):
-        out = _process_yuv420(name, buf, o, meta, shrink, device)
+        out = _process_yuv420(name, buf, o, meta, shrink, device, runner)
         if out is not None:
             return out
 
     d = codecs.decode(buf, shrink)
     plan = _plan(name, o, d.array.shape[0], d.array.shape[1], d.orientation,
                  d.array.shape[2])
-    arr = _run_stages(d.array, plan, device)
+    arr = _run_stages(d.array, plan, device, runner)
     out = _encode(arr, o, _encode_type(o, d.type))
     return _carry_metadata(buf, o.strip_metadata, out, not o.no_rotation,
                            plan.out_w, plan.out_h)
@@ -174,7 +180,8 @@ def _decode_yuv_packed(buf, shrink, sh, sw):
     return packed, hb, wb
 
 
-def _process_yuv420(name, buf, o, meta, shrink, device) -> Optional[ProcessedImage]:
+def _process_yuv420(name, buf, o, meta, shrink, device,
+                    runner) -> Optional[ProcessedImage]:
     """Serve a JPEG->JPEG request over the packed-plane transport; None
     falls back to the RGB path. Parameter errors raise exactly as the RGB
     path would, since the plan math is identical."""
@@ -191,7 +198,7 @@ def _process_yuv420(name, buf, o, meta, shrink, device) -> Optional[ProcessedIma
         out = _encode(codecs.unpack_planes(packed, sh, sw, hb, wb), o, target)
     else:
         wrapped = wrap_plan_yuv420(plan, sh, sw)
-        out = _encode(_run_stages(packed, wrapped, device), o, target)
+        out = _encode(_run_stages(packed, wrapped, device, runner), o, target)
     return _carry_metadata(buf, o.strip_metadata, out, not o.no_rotation,
                            plan.out_w, plan.out_h)
 

@@ -1,8 +1,10 @@
 """The port's HTTP server: `ImageService` behind `http.server`.
 
 `make_server` binds a `ThreadingHTTPServer`; each connection gets a thread,
-and `ImageService` runs the image work one request at a time. The aiohttp
-layer of the reference (middleware, h2, workers) is a later slice.
+on which `ImageService` decodes, plans and encodes, while its executor
+batches the device work of concurrent requests. Closing the server shuts
+the executor down. The aiohttp layer of the reference (middleware, h2,
+workers) is a later slice.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from imaginary_tpu_torch.engine import MAX_BATCH
 from imaginary_tpu_torch.errors import ErrEntityTooLarge
 from imaginary_tpu_torch.web.handlers import (
     MAX_BODY_SIZE,
@@ -58,11 +61,31 @@ class _Handler(BaseHTTPRequestHandler):
         pass
 
 
+class _Server(ThreadingHTTPServer):
+    daemon_threads = True
+    # concurrent clients connect at once; the default backlog of 5 would
+    # make the kernel drop their SYNs and the clients retry a second later
+    request_queue_size = 128
+
+    def server_close(self) -> None:
+        super().server_close()
+        service = getattr(self, "service", None)
+        if service is not None:
+            service.close()
+
+
 def make_server(host: str = "0.0.0.0", port: int = 9000, device="cuda",
-                mount: str = "") -> ThreadingHTTPServer:
+                mount: str = "", max_batch: int = MAX_BATCH,
+                batch_form_ms: float = 5.0,
+                max_inflight: int = 4) -> ThreadingHTTPServer:
     """Bind (not start) the server; `serve_forever()` runs it and
-    `shutdown()` + `server_close()` stop it."""
-    srv = ThreadingHTTPServer((host, port), _Handler)
-    srv.daemon_threads = True
-    srv.service = ImageService(device=device, mount=mount)
+    `shutdown()` + `server_close()` stop it (and its executor)."""
+    srv = _Server((host, port), _Handler)
+    try:
+        srv.service = ImageService(device=device, mount=mount, max_batch=max_batch,
+                                   batch_form_ms=batch_form_ms,
+                                   max_inflight=max_inflight)
+    except BaseException:
+        srv.server_close()
+        raise
     return srv

@@ -6,10 +6,12 @@ method, path, query, headers and body and returns a `Response`, and
 `web/app.py` binds it to the standard library's HTTP server. It keeps the
 reference's param parsing, error JSON and status codes.
 
-Served: `/`, `/health`, `/resize`, `/crop`. The reference's other
-operation routes answer 501 until their slice lands. Requests run one at
-a time through `chain.run_single`; micro-batching arrives with the
-executor.
+Served: `/`, `/health`, `/resize`, `/crop`, `/thumbnail`, `/rotate`,
+`/autorotate`, `/flip` and `/flop`. The reference's other operation
+routes answer 501 until their slice lands. Requests run concurrently on
+the server's threads: decode and encode on the request's own thread, the
+device work through one micro-batching `Executor` per service, which
+groups concurrent requests that share a chain into one launch.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from email.policy import HTTP
 import torch
 
 from imaginary_tpu_torch import Version, codecs, kernels, pipeline
+from imaginary_tpu_torch.engine import MAX_BATCH, Executor, ExecutorConfig
 from imaginary_tpu_torch.errors import (
     ErrEmptyBody,
     ErrGetMethodNotAllowed,
@@ -53,7 +56,8 @@ MAX_BODY_SIZE = 1 << 26  # 64 MB (ref: source_body.go:13)
 FORM_FIELD = "file"  # ref: source_body.go:12
 MAX_ALLOWED_MPIX = 18.0  # ref: imaginary.go:36
 
-SERVED_OPERATIONS = ("resize", "crop")
+SERVED_OPERATIONS = ("resize", "crop", "thumbnail", "rotate", "autorotate",
+                     "flip", "flop")
 # The reference's image routes (ref: OperationsMap, image.go:15-32, plus
 # /info and /pipeline): known here so they answer 501, not 404.
 REFERENCE_OPERATIONS = (
@@ -100,16 +104,23 @@ def _read_form(body: bytes, ctype: str, field: str) -> bytes:
 
 
 class ImageService:
-    """Serves the slice's routes on one device, one request at a time."""
+    """Serves the slice's routes on one device; `handle` may run on many
+    threads at once. `close()` shuts the executor down."""
 
-    def __init__(self, device="cuda", mount: str = ""):
+    def __init__(self, device="cuda", mount: str = "", max_batch: int = MAX_BATCH,
+                 batch_form_ms: float = 5.0, max_inflight: int = 4):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass --device cpu to serve on the CPU")
         self.mount = os.path.abspath(mount) if mount else ""
-        self._lock = threading.Lock()
         self._started = time.time()
+        self.executor = Executor(ExecutorConfig(
+            max_batch=max_batch, max_form_ms=batch_form_ms,
+            max_inflight=max(1, max_inflight), device=str(self.device)))
+
+    def close(self) -> None:
+        self.executor.shutdown()
 
     def handle(self, method: str, path: str, query: dict, headers,
                body: bytes) -> Response:
@@ -145,6 +156,7 @@ class ImageService:
             "pid": os.getpid(),
             "device": str(self.device),
             "kernelLaunches": dict(kernels.LAUNCHES),
+            "executor": self.executor.stats.to_dict(),
         }
         if self.device.type == "cuda":
             stats["deviceName"] = torch.cuda.get_device_name(self.device)
@@ -208,9 +220,8 @@ class ImageService:
             # probe failure falls through; the decode produces the error
         if meta is not None and meta.width * meta.height / 1e6 > MAX_ALLOWED_MPIX:
             raise ErrResolutionTooBig
-        with self._lock:
-            out = pipeline.process_operation(name, buf, opts, device=self.device,
-                                             meta=meta)
+        out = pipeline.process_operation(name, buf, opts, device=self.device,
+                                         meta=meta, runner=self.executor.process)
         return Response(200, out.mime, out.body)
 
 

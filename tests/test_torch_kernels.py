@@ -6,7 +6,8 @@ which runs the kernel's plain PyTorch version (the CUDA kernels themselves
 run only on the card: chip_smoke.py holds them against these same plain
 versions there). Tolerances: f32 outputs 1e-3 absolute on the 0-255
 scale (summation order differs); uint8 outputs at most 1 LSB (the
-truncating epilogue can flip at an exact .5 after such a difference).
+truncating epilogue can flip at an exact .5 after such a difference);
+the orientation kernel (K5) moves data only, so it must be exact.
 """
 
 from __future__ import annotations
@@ -205,10 +206,54 @@ def test_shrink_bucket_matches_and_fuses_the_epilogue():
     assert np.array_equal(got_u8.numpy(), _jax_epilogue(want))
 
 
+ORIENT_SPECS = [(jst.FlipSpec(), pst.FlipSpec()), (jst.FlopSpec(), pst.FlopSpec()),
+                (jst.TransposeSpec(), pst.TransposeSpec())]
+ORIENT_IDS = [type(p).__name__ for _, p in ORIENT_SPECS]
+
+
+@pytest.mark.parametrize("c", [1, 3, 4])
+@pytest.mark.parametrize("jspec,pspec", ORIENT_SPECS, ids=ORIENT_IDS)
+def test_orient_matches_orientation_specs_exactly(jspec, pspec, c):
+    """K5's plain version is pure data movement: equal to the JAX spec to
+    the bit. Three images of different valid dims in one bucket (one full,
+    two with padding rows and columns that the mirror must leave as they
+    are), a bucket that is not a multiple of the kernel's 32-pixel tile."""
+    rng = np.random.default_rng(14 + c)
+    x = _img(rng, 3, 40, 56, c)
+    h, w = _i32(40, 33, 1), _i32(56, 41, 17)
+    want, wh, ww = _japply(jspec, x, h, w, {})
+    got, gh, gw = pspec.apply(_t(x), _t(h), _t(w), {})
+    assert got.dtype == torch.float32 and tuple(got.shape) == np.asarray(want).shape
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(gh.numpy(), np.asarray(wh)) and np.array_equal(gw.numpy(), np.asarray(ww))
+
+
+@pytest.mark.parametrize("jspec,pspec", ORIENT_SPECS, ids=ORIENT_IDS)
+def test_orient_uint8_in_and_out_match_cast_and_epilogue(jspec, pspec):
+    """The RGB transport starts /flip's chain with uint8 (the cast fused
+    into K5) and may end a chain with it (the epilogue fused)."""
+    rng = np.random.default_rng(15)
+    x = rng.integers(0, 256, size=(3, 24, 40, 3), dtype=np.uint8)
+    h, w = _i32(24, 19, 7), _i32(40, 31, 2)
+    want, _, _ = _japply(jspec, x.astype(np.float32), h, w, {})
+    got, _, _ = pspec.apply(_t(x), _t(h), _t(w), {})
+    assert got.dtype == torch.float32
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    got_u8, _, _ = pspec.apply(_t(x), _t(h), _t(w), {}, out_u8=True)
+    assert got_u8.dtype == torch.uint8
+    assert np.array_equal(got_u8.numpy(), _jax_epilogue(want))
+
+
+def test_orient_rejects_an_unknown_mode():
+    x = torch.zeros((1, 8, 8, 3))
+    i = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises(ValueError, match="orient mode"):
+        kernels.orient(x, i, i, "rotate")
+
+
 @pytest.mark.parametrize("spec", [
-    pst.FlipSpec(), pst.FlopSpec(), pst.TransposeSpec(), pst.BlurSpec(4),
-    pst.CompositeSpec(8, 8), pst.FromDctSpec(16, 16, 8), pst.ToDctSpec(16, 16),
-    pst.GraySpec(), pst.SmartExtractSpec(8, 8),
+    pst.BlurSpec(4), pst.CompositeSpec(8, 8), pst.FromDctSpec(16, 16, 8),
+    pst.ToDctSpec(16, 16), pst.GraySpec(), pst.SmartExtractSpec(8, 8),
 ], ids=lambda s: type(s).__name__)
 def test_off_path_specs_raise_not_implemented_naming_the_spec(spec):
     x = torch.zeros((1, 16, 16, 3))
@@ -226,6 +271,10 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.gather(x, 8, 8)
     kernels.rgb_to_yuv420(x, i, i, 16, 16)
     kernels.yuv420_to_rgb(torch.zeros((1, 24, 16, 1), dtype=torch.uint8), i, i, 16, 16)
+    for mode in ("flip", "flop", "transpose"):
+        kernels.orient(x, i, i, mode)
+    assert set(kernels.LAUNCHES) == {"resample", "yuv420_unpack", "yuv420_pack",
+                                     "gather", "orient"}
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 

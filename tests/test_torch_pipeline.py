@@ -1,11 +1,13 @@
 """The port's chain, codec and pipeline held against the JAX package on the CPU.
 
 - `run_batch` of the port (plans carried over with `plan_from_dict`) against
-  the reference `run_batch`, for the main path's resize and crop plans, in
-  both transports, at B=1 and B=4: uint8 outputs to at most 1 LSB;
+  the reference `run_batch`, for the resize and crop plans of config 1 and
+  the thumbnail, rotate, flip and flop plans of config 2, in both
+  transports, at B=1 and B=4: uint8 outputs to at most 1 LSB;
 - the port's packed 4:2:0 decode byte-equal to the reference's;
-- `process_operation` on the 1080p main-path JPEG: exact 300x200 and
-  PSNR >= 45 dB against the reference's output.
+- `process_operation` on the 1080p main-path JPEG, and on an EXIF-rotated
+  JPEG: the reference's dimensions and metadata, and PSNR >= 45 dB against
+  the reference's output.
 """
 
 from __future__ import annotations
@@ -95,6 +97,45 @@ def test_run_batch_matches_reference(large, op, transport, batch):
         assert _max_lsb(g, w) <= U8_TOL
 
 
+ORIENT_QUERIES = [
+    ("thumbnail", {"width": "300", "height": "200"}),
+    ("rotate", {"rotate": "90"}),
+    ("rotate", {"rotate": "180"}),
+    ("rotate", {"rotate": "270"}),
+    ("flip", {}),
+    ("flop", {}),
+]
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("transport", ["yuv420", "rgb"])
+@pytest.mark.parametrize("op,query", ORIENT_QUERIES,
+                         ids=[f"{op}-{'-'.join(q.values()) or 'plain'}" for op, q in ORIENT_QUERIES])
+def test_run_batch_matches_reference_on_orientation_plans(large, op, query, transport, batch):
+    """The orientation chains (K5 with K2, K3 and K4 around it), planned on
+    large.jpg decoded at 1/4 (480x270) so the CPU runs stay short; the
+    thumbnail plan is config 2's own."""
+    sh, sw = 270, 480
+    jp = jplan.plan_operation(op, jquery(query), sh, sw, 0, 3)
+    if transport == "yuv420":
+        hb, wb = bucket_shape(sh, sw)
+        base, _, _, _ = jcodecs.decode_yuv420(large, 4, hb, wb)
+        jp = jplan.wrap_plan_yuv420(jp, sh, sw)
+    else:
+        base = jcodecs.decode(large, 4).array
+    arrs = _variants(base, batch, seed=10 + batch)
+    pp = pplan.plan_from_dict(plan_to_dict(jp))
+    want = jchain.run_batch(arrs, [jp] * batch)
+    got = pchain.run_batch(arrs, [pp] * batch, device="cpu")
+    assert len(got) == batch
+    for g, w in zip(got, want):
+        if transport == "yuv420":
+            assert (g.y.shape, g.u.shape, g.v.shape) == (w.y.shape, w.u.shape, w.v.shape)
+        else:
+            assert g.shape == w.shape == (jp.out_h, jp.out_w, 3)
+        assert _max_lsb(g, w) <= U8_TOL
+
+
 def test_chain_surface(large):
     """The executor-facing helpers: identity chains skip the device, the
     checksum is order sensitive, OOM errors are recognised, donation is off."""
@@ -166,6 +207,37 @@ def test_process_operation_carries_metadata_like_reference():
     got = ppipeline.process_operation("resize", buf, pquery(q), device="cpu")
     assert pcodecs.jpeg_metadata_segments(got.body) == jcodecs.jpeg_metadata_segments(want.body)
     assert (got.width, got.height) == (want.width, want.height)
+
+
+def test_process_operation_applies_exif_orientation_like_reference():
+    """An EXIF-rotated JPEG (orientation 6) without norotation: the chain
+    transposes and flops on the card before it resizes."""
+    buf = fixture_bytes("exif-orient-6.jpg")
+    q = {"width": "120", "height": "90"}
+    want = jpipeline.process_operation("resize", buf, jquery(q))
+    got = ppipeline.process_operation("resize", buf, pquery(q), device="cpu")
+    assert got.mime == want.mime == "image/jpeg"
+    assert (got.width, got.height) == (want.width, want.height) == (120, 90)
+    assert pcodecs.jpeg_metadata_segments(got.body) == jcodecs.jpeg_metadata_segments(want.body)
+    a, b = _pixels(got.body), _pixels(want.body)
+    assert a.shape == b.shape == (90, 120, 3)
+    assert psnr(a, b) >= 45.0
+
+
+def test_process_operation_runs_through_a_given_runner(large):
+    """The web layer's executor hook: the runner sees every chain the
+    request runs, and its output is what gets encoded."""
+    seen = []
+
+    def runner(arr, plan):
+        seen.append(type(plan.stages[1].spec).__name__)
+        return pchain.run_single(arr, plan, device="cpu")
+
+    direct = ppipeline.process_operation("rotate", large, pquery({"rotate": "90"}), device="cpu")
+    via = ppipeline.process_operation("rotate", large, pquery({"rotate": "90"}), device="cpu",
+                                      runner=runner)
+    assert seen == ["TransposeSpec"]
+    assert via.body == direct.body and (via.width, via.height) == (1080, 1920)
 
 
 def test_process_operation_maps_unported_stages_to_501(large):

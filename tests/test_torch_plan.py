@@ -106,6 +106,43 @@ def test_query_plans_and_shrink_match_reference(op, query, orientation):
     assert_same_plan(jplan.wrap_plan_yuv420(jp, sh, sw), pplan.wrap_plan_yuv420(pp, sh, sw))
 
 
+EXIF_QUERIES = [
+    ("resize", {"width": "120", "height": "90"}),
+    ("autorotate", {}),
+    ("rotate", {"rotate": "90"}),
+]
+
+
+@pytest.mark.parametrize("op,query", EXIF_QUERIES,
+                         ids=[f"{op}-{'-'.join(q.values()) or 'plain'}" for op, q in EXIF_QUERIES])
+@pytest.mark.parametrize("orientation", range(2, 9))
+def test_exif_orientation_plans_match_reference(op, query, orientation):
+    """EXIF orientations 2-8 become Flip/Flop/Transpose stages ahead of the
+    operation; after a transpose the packed wrap's output bucket is the
+    swapped one (`_final_bucket`). Source: the 400x300 EXIF fixture's
+    dims, at the shrink each planner picks."""
+    jo, po = jquery(query), pquery(query)
+    js = jplan.choose_decode_shrink(op, jo, 300, 400, orientation, 3)
+    assert pplan.choose_decode_shrink(op, po, 300, 400, orientation, 3) == js
+    sh, sw = -(-300 // js), -(-400 // js)
+    jp = jplan.plan_operation(op, jo, sh, sw, orientation, 3)
+    pp = pplan.plan_operation(op, po, sh, sw, orientation, 3)
+    assert_same_plan(jplan.wrap_plan_yuv420(jp, sh, sw), pplan.wrap_plan_yuv420(pp, sh, sw))
+
+
+def test_rotate_90_chain_is_the_documented_one():
+    """Config 2's /rotate runs at full 1080p (rotate never shrinks on
+    load): K2 -> Transpose -> Flop -> a real bucket shrink -> K3."""
+    o = pquery({"rotate": "90"})
+    assert pplan.choose_decode_shrink("rotate", o, 1080, 1920, 0, 3) == 1
+    p = pplan.wrap_plan_yuv420(pplan.plan_operation("rotate", o, 1080, 1920, 0, 3), 1080, 1920)
+    names = [type(s.spec).__name__ for s in p.stages]
+    assert names == ["FromYuv420Spec", "TransposeSpec", "FlopSpec", "ShrinkBucketSpec",
+                     "ToYuv420Spec"]
+    assert p.in_bucket == (1728, 2048) and p.out_bucket == (1920, 1088)
+    assert (p.out_h, p.out_w) == (1920, 1080)
+
+
 def test_main_path_chain_is_the_documented_one():
     o = pquery({"width": "300", "height": "200"})
     assert pplan.choose_decode_shrink("resize", o, 1080, 1920, 0, 3) == 4

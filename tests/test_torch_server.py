@@ -2,11 +2,13 @@
 from the JAX package.
 
 The server answers the reference's status codes and error JSON: 200 for
-/resize and /crop (raw body, multipart `file` field, or ?file= under
---mount), 400 for bad params, 404 for unknown paths, 405 for GET without a
-mount, 406 for non-images, 501 for routes and stages not ported yet. The
-port must import neither `jax` nor `imaginary_tpu` (checked in a fresh
-interpreter and by a scan of its sources).
+/resize, /crop, /thumbnail, /rotate, /autorotate, /flip and /flop (raw
+body, multipart `file` field, or ?file= under --mount), 400 for bad
+params, 404 for unknown paths, 405 for GET without a mount, 406 for
+non-images, 501 for routes and stages not ported yet. Concurrent requests
+get the bodies they get alone. The port must import neither `jax` nor
+`imaginary_tpu` (checked in a fresh interpreter and by a scan of its
+sources).
 """
 
 from __future__ import annotations
@@ -101,7 +103,7 @@ ERRORS = [
     ("/crop?width=300&type=bogus", "large.jpg", 400, "Unsupported output image format"),
     ("/resize?width=300", "1024bytes", 406, "Unsupported media type"),
     ("/nope?width=300", "large.jpg", 404, "Not found"),
-    ("/rotate?rotate=90", "large.jpg", 501, "Not implemented endpoint"),
+    ("/smartcrop?width=300&height=200", "large.jpg", 501, "Not implemented endpoint"),
     ("/resize?width=300&sigma=2", "large.jpg", 501, None),
     ("/resize?width=300", "test.png", 501, None),
 ]
@@ -116,6 +118,62 @@ def test_error_statuses_and_json(server, path, fixture, code, message):
     assert err["status"] == code
     if message is not None:
         assert err["message"] == message
+
+
+# (path, fixture, decoded output (h, w)); exif-orient-6.jpg is 400x300
+# stored with EXIF orientation 6, so every chain first turns it upright
+ORIENT_ROUTES = [
+    ("/thumbnail?width=300&height=200", "large.jpg", (200, 300)),
+    ("/rotate?rotate=90", "large.jpg", (1920, 1080)),
+    ("/rotate?rotate=180", "exif-orient-6.jpg", (400, 300)),
+    ("/flip", "exif-orient-6.jpg", (400, 300)),
+    ("/flop", "exif-orient-6.jpg", (400, 300)),
+    ("/autorotate", "exif-orient-6.jpg", (400, 300)),
+]
+
+
+@pytest.mark.parametrize("path,fixture,dims", ORIENT_ROUTES,
+                         ids=[r[0].split("?")[0].strip("/") + "-" + r[1] for r in ORIENT_ROUTES])
+def test_orientation_routes_serve_jpeg(server, path, fixture, dims):
+    status, ctype, body = _req(server, path, fixture_bytes(fixture))
+    assert (status, ctype) == (200, "image/jpeg")
+    assert _dims(body) == dims
+
+
+def test_concurrent_mixed_requests_get_the_bodies_they_get_alone():
+    """Eight requests at once through a server that batches across a wide
+    formation window: each answer is byte-equal to the same request
+    served alone (every kernel computes each image on its own)."""
+    reqs = [("/thumbnail?width=300&height=200", "large.jpg"),
+            ("/crop?width=300&height=200", "large.jpg"),
+            ("/resize?width=120&height=90", "exif-orient-6.jpg"),
+            ("/flop", "exif-orient-6.jpg")] * 2
+    srv = make_server("127.0.0.1", 0, device="cpu", batch_form_ms=50.0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        port = srv.server_address[1]
+        alone = {r: _req(port, r[0], fixture_bytes(r[1])) for r in reqs[:4]}
+        got = [None] * len(reqs)
+
+        def send(i):
+            got[i] = _req(port, reqs[i][0], fixture_bytes(reqs[i][1]))
+
+        threads = [threading.Thread(target=send, args=(i,)) for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        stats = srv.service.executor.stats
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    assert not srv.service.executor._thread.is_alive()
+    for r, g in zip(reqs, got):
+        assert g is not None and g[0] == 200, r
+        assert g == alone[r], r
+    assert stats.items == 12 and stats.device_failures == 0
 
 
 def test_get_without_mount_is_405():
@@ -138,7 +196,12 @@ def test_index_and_health(server):
     status, _, body = _req(server, "/health")
     stats = json.loads(body)
     assert status == 200 and stats["device"] == "cpu"
-    assert set(stats["kernelLaunches"]) == {"resample", "yuv420_unpack", "yuv420_pack", "gather"}
+    assert set(stats["kernelLaunches"]) == {"resample", "yuv420_unpack", "yuv420_pack",
+                                            "gather", "orient"}
+    ex = stats["executor"]
+    assert {"items", "batches", "groups", "avg_batch", "max_group", "queue_depth",
+            "device_failures", "batch_form_p99_ms", "dispatch_wait_p99_ms"} <= set(ex)
+    assert ex["device_failures"] == 0 and ex["items"] >= ex["batches"] >= 0
 
 
 def test_cuda_device_without_cuda_raises():
@@ -157,6 +220,7 @@ def test_import_leaves_jax_and_the_reference_out():
         "import imaginary_tpu_torch, imaginary_tpu_torch.pipeline\n"
         "import imaginary_tpu_torch.web.app, imaginary_tpu_torch.kernels\n"
         "import imaginary_tpu_torch.cli, imaginary_tpu_torch.ops.chain\n"
+        "import imaginary_tpu_torch.engine.executor\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'imaginary_tpu' or m.startswith('imaginary_tpu.'))\n"
         "print(','.join(bad))\n"
