@@ -8,12 +8,16 @@ It drives the port (`imaginary_tpu_torch`) and never JAX or `imaginary_tpu`.
 Phases, in order; any failure raises and exits non-zero:
 
 1. environment: card name and power limit, torch and CUDA versions;
-2. build: the five CUDA kernels (nvcc, sm_90a, in parallel) and the native
-   JPEG codec (g++), with the time each took;
+2. build: the eight CUDA kernels (nvcc, sm_90a, in parallel) and the
+   native JPEG codec (g++), with the time each took;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (config 1: B=1 and B=16; config 2's orientation
    kernel: the /rotate chain's 1080p buckets at B=1 and B=32, and uint8
-   input; K1, K2 and K3 at config 2's B=32 shapes) and at full 1080p, with the stated tolerance (f32 outputs 1e-3
+   input; K1, K2 and K3 at config 2's B=32 shapes; config 3's K1 on the
+   4K PNG's uint8 [1, 2560, 4096, 3] bucket, the blur (K6) at
+   [B, 736, 1280, 3] for B=1 and 8 and at r=64, sigma=0 and uint8 input,
+   the composite (K7) in both modes at C=3 and 4, the gray (K8) at C=3 and
+   4) and at full 1080p, with the stated tolerance (f32 outputs 1e-3
    absolute on the 0-255 scale, uint8 outputs 1 LSB, the orientation
    kernel exact), its median time from CUDA events, the plain version's
    time, the least time the card could take (bytes over 3.35 TB/s or FLOPs
@@ -26,8 +30,10 @@ Phases, in order; any failure raises and exits non-zero:
    server's packed output planes for the same plan on cuda and on cpu
    agree to 1 LSB (also for config 2's /thumbnail and /rotate plans);
 5. batch: `run_batch` cuda against cpu, to 1 LSB, at B=16 on config 1's
-   plan and at B=32 on config 2's /thumbnail, /crop, /rotate?rotate=90
-   and EXIF-6 /resize plans, each image with its own noise;
+   plan, at B=32 on config 2's /thumbnail, /crop, /rotate?rotate=90 and
+   EXIF-6 /resize plans, and at B=1 and B=8 on config 3's /pipeline chain
+   (4K PNG) and the 1080p JPEG /pipeline chain, each image with its own
+   noise;
 6. config 2's path under load: the server with --max-batch 32
    --batch-form-ms 5 serving 32 client threads, 8 requests each, cycling
    through /thumbnail, /crop and /rotate?rotate=90 on large.jpg and
@@ -38,7 +44,19 @@ Phases, in order; any failure raises and exits non-zero:
    formed (largest group at least 2), every request's decoded planes
    within 1 LSB of the same request served alone; requests per second by
    window, p50/p99 latency, items per batch, and the card's busy share
-   over a fourth, profiled window.
+   over a fourth, profiled window;
+7. config 3's path (BASELINE.json config 3): the server serving
+   bench_latency.py's exact /pipeline chain [resize 1280, blur 1.2,
+   watermark "bench" 0.5, convert webp] on a 3840x2160 PNG made here from
+   a seed, bench_latency.py's 1080p JPEG /pipeline [crop 1600x900, resize
+   640, blur 1.5, convert jpeg] on large.jpg and a colorspace=bw /resize,
+   one request at a time with the launch counters set to 0 just before
+   and read just after (each kernel launched exactly as often as the
+   plans say); every answer 200 with the right MIME type and size; the
+   WEBP within a PSNR bound of the same chain's array on the CPU; p50/p99
+   of one client, then requests per second, p50/p99 and the busy share
+   from 8 client threads in three windows; and the host's Pillow PNG
+   decode and WEBP encode of the same bytes on the host clock.
 
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
@@ -55,6 +73,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.parse
 import urllib.request
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -80,10 +99,17 @@ KERNEL_ROWS = {
                "imaginary_tpu/ops/stages.py:151"),
     "orient": ("imaginary_tpu_torch/kernels/csrc/orient.cu",
                "imaginary_tpu/ops/stages.py:201"),
+    "blur": ("imaginary_tpu_torch/kernels/csrc/blur.cu",
+             "imaginary_tpu/ops/stages.py:237"),
+    "composite": ("imaginary_tpu_torch/kernels/csrc/composite.cu",
+                  "imaginary_tpu/ops/stages.py:283"),
+    "gray": ("imaginary_tpu_torch/kernels/csrc/gray.cu",
+             "imaginary_tpu/ops/stages.py:625"),
 }
 # The kernels each main path runs.
 CONFIG1_KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather")
 CONFIG2_KERNELS = CONFIG1_KERNELS + ("orient",)
+CONFIG3_KERNELS = CONFIG1_KERNELS + ("blur", "composite", "gray")
 
 
 def log(msg: str) -> None:
@@ -489,6 +515,168 @@ def config2_kernel_phase(rng, res: dict) -> None:
            lib, xin.numel() * 4 + out.numel() * 4, flops)
 
 
+# config 3's chain after K1: f32 [B, 736, 1280, 3] holding 720x1280
+CONFIG3_BATCHES = (1, 8)
+CONFIG3_FRAME = (736, 1280)
+CONFIG3_VALID = (720, 1280)
+CONFIG3_SRC = (2160, 3840)  # the 4K PNG, in its [2560, 4096] bucket
+CONFIG3_SRC_BUCKET = (2560, 4096)
+CONFIG3_BLOCK = (24, 48)  # the "bench" text watermark's block bucket
+BW_FRAME = (368, 640)  # the colorspace=bw /resize: K8 after K1 at 1/2 decode
+
+
+def blur_flops(h, w, r: int, c: int) -> float:
+    """Flops of K6 for these valid dims: per valid element 2 per vertical
+    tap, 3 per horizontal tap (product, sum, column denominator) and 2 for
+    the normalisation, with the tap loops clipped to the valid region."""
+    import numpy as np
+
+    def taps(n):
+        i = np.arange(n)
+        return int((np.minimum(r, n - 1 - i) - np.maximum(-r, -i) + 1).sum())
+
+    total = 0.0
+    for hh, ww in zip(h.tolist(), w.tolist()):
+        total += c * (2.0 * ww * taps(hh) + 3.0 * hh * taps(ww) + 2.0 * hh * ww)
+    return total
+
+
+def config3_dims(bsz: int, dev):
+    """Per-image valid dims and sigma that differ inside the batch, none a
+    multiple of the block: config 3's 720x1280 minus a few pixels each."""
+    import torch
+
+    i = torch.arange(bsz, dtype=torch.int32, device=dev)
+    h = (CONFIG3_VALID[0] - 3 * i).to(torch.int32)
+    w = (CONFIG3_VALID[1] - 5 * i).to(torch.int32)
+    sigma = (1.2 + 0.25 * i).to(torch.float32)
+    return h, w, sigma
+
+
+def config3_kernel_phase(res: dict) -> None:
+    """K6, K7 and K8 against their plain versions at config 3's shapes,
+    and K1 on the 4K PNG's uint8 bucket. No single PyTorch call computes
+    K6 (per-image taps and a normalisation by the masked tap sums) or K7
+    (a per-image floored-modulo tile or placement, then the blend), so
+    their library_ms is null; K8's library call is a matmul by the luma
+    matrix, and K1's the bmm + matmul over the sampling matrices."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    hb, wb = CONFIG3_FRAME
+    for bsz in CONFIG3_BATCHES:
+        x = torch.rand((bsz, hb, wb, 3), generator=gen, device=dev) * 255.0
+        h, w, sigma = config3_dims(bsz, dev)
+        case = f"B{bsz}-r4"
+        got = kernels.blur(x, h, w, sigma, 4)
+        check("blur", got, reference.blur(x, h, w, sigma, 4), res, case, F32_TOL)
+        timing(res, "blur", case,
+               lambda x=x, h=h, w=w, s=sigma: kernels.blur(x, h, w, s, 4),
+               lambda x=x, h=h, w=w, s=sigma: reference.blur(x, h, w, s, 4), None,
+               x.numel() * 4 + got.numel() * 4, blur_flops(h, w, 4, 3))
+        del x, got
+    x = torch.rand((1, hb, wb, 3), generator=gen, device=dev) * 255.0
+    h, w, _ = config3_dims(1, dev)
+    for case, r, sig in (("B1-r64", 64, 20.0), ("B1-sigma0", 4, 0.0)):
+        sigma = torch.full((1,), sig, device=dev)
+        got = kernels.blur(x, h, w, sigma, r)
+        check("blur", got, reference.blur(x, h, w, sigma, r), res, case, F32_TOL)
+        timing(res, "blur", case,
+               lambda r=r, s=sigma: kernels.blur(x, h, w, s, r),
+               lambda r=r, s=sigma: reference.blur(x, h, w, s, r), None,
+               x.numel() * 4 + got.numel() * 4, blur_flops(h, w, r, 3))
+    # /blur on a PNG: uint8 in (the chain's first stage); and a uint8 out
+    xu = torch.randint(0, 256, (1, hb, wb, 4), generator=gen, device=dev, dtype=torch.uint8)
+    sigma = torch.full((1,), 1.2, device=dev)
+    check("blur", kernels.blur(xu, h, w, sigma, 4), reference.blur(xu, h, w, sigma, 4),
+          res, "B1-u8-in-C4", F32_TOL)
+    check("blur", kernels.blur(xu, h, w, sigma, 4, True),
+          reference.blur(xu, h, w, sigma, 4, True), res, "B1-u8-in-out-C4", U8_TOL)
+
+    # K7: the text block tiled from (top, left) past the block's size, and
+    # placed so that it overhangs the valid region and the bucket
+    bhb, bwb = CONFIG3_BLOCK
+    for c in (3, 4):
+        for mode in ("replicate", "placed"):
+            for bsz in (CONFIG3_BATCHES if (c, mode) == (3, "replicate") else (1,)):
+                x = torch.rand((bsz, hb, wb, c), generator=gen, device=dev) * 255.0
+                ovl = torch.rand((bsz, bhb, bwb, 4), generator=gen, device=dev) * 255.0
+                i = torch.arange(bsz, dtype=torch.int32, device=dev)
+                top = (29 + 37 * i if mode == "replicate" else 700 + i).to(torch.int32)
+                left = (61 + 11 * i if mode == "replicate" else 1250 - 3 * i).to(torch.int32)
+                bh = torch.full((bsz,), 19, dtype=torch.int32, device=dev)
+                bw = (43 + i).to(torch.int32)
+                op = torch.full((bsz,), 0.5, device=dev)
+                args = (x, ovl, top, left, op, bh, bw, mode == "replicate")
+                case = f"B{bsz}-{mode}-C{c}"
+                got = kernels.composite(*args)
+                check("composite", got, reference.composite(*args), res, case, F32_TOL)
+                check("composite", kernels.composite(*args, out_u8=True),
+                      reference.composite(*args, out_u8=True), res, case + "-u8", U8_TOL)
+                if c == 3 and mode == "replicate":
+                    timing(res, "composite", case,
+                           lambda a=args: kernels.composite(*a),
+                           lambda a=args: reference.composite(*a), None,
+                           x.numel() * 4 + ovl.numel() * 4 + got.numel() * 4,
+                           12.0 * bsz * hb * wb)
+                del x, got
+
+    # K8: uint8 in and out at config 3's frame (C = 3 and 4), and f32 at
+    # the colorspace=bw /resize's shape, where one matmul by the luma
+    # matrix computes the same function
+    for c in (3, 4):
+        xu = torch.randint(0, 256, (1, hb, wb, c), generator=gen, device=dev, dtype=torch.uint8)
+        check("gray", kernels.gray(xu, True), reference.gray(xu, True), res,
+              f"B1-u8-C{c}", U8_TOL)
+    x = torch.rand((1, *BW_FRAME, 3), generator=gen, device=dev) * 255.0
+    got = kernels.gray(x)
+    check("gray", got, reference.gray(x), res, "bw-route", F32_TOL)
+    luma = torch.tensor([0.2126, 0.7152, 0.0722], device=dev)[:, None].expand(3, 3).contiguous()
+
+    def lib_gray(x=x):
+        return torch.matmul(x, luma)
+
+    if max_err(lib_gray(), got) > F32_TOL:
+        raise AssertionError("library gray disagrees with the plain version")
+    timing(res, "gray", "bw-route", lambda: kernels.gray(x), lambda: reference.gray(x),
+           lib_gray, x.numel() * 4 + got.numel() * 4, 5.0 * x.numel() / 3)
+
+    # K1 at config 3's first stage: uint8 [1, 2560, 4096, 3] holding the
+    # 2160x3840 PNG, to 720x1280 in the [1, 736, 1280, 3] bucket (a 3x
+    # downscale, cast fused)
+    shb, swb = CONFIG3_SRC_BUCKET
+    xs = torch.zeros((1, shb, swb, 3), dtype=torch.uint8, device=dev)
+    xs[:, :CONFIG3_SRC[0], :CONFIG3_SRC[1]] = torch.randint(
+        0, 256, (1, *CONFIG3_SRC, 3), generator=gen, device=dev, dtype=torch.uint8)
+    sh = torch.full((1,), CONFIG3_SRC[0], dtype=torch.int32, device=dev)
+    sw = torch.full((1,), CONFIG3_SRC[1], dtype=torch.int32, device=dev)
+    dst_h = torch.full((1,), float(CONFIG3_VALID[0]), device=dev)
+    dst_w = torch.full((1,), float(CONFIG3_VALID[1]), device=dev)
+    out, _, _ = kernels.resample(xs, sh, sw, dst_h, dst_w, hb, wb, "lanczos3")
+    ref, _, _ = reference.resample(xs, sh, sw, dst_h, dst_w, hb, wb, "lanczos3")
+    check("resample", out, ref, res, "config3-4K-u8", F32_TOL)
+    wy = reference.sample_matrix(hb, shb, sh, dst_h, "lanczos3")
+    wx = reference.sample_matrix(wb, swb, sw, dst_w, "lanczos3")
+    flops = 2.0 * (float((wy != 0).sum()) * swb * 3 + float((wx != 0).sum()) * hb * 3)
+
+    def lib4k():
+        t = torch.bmm(wy, xs.float().reshape(1, shb, swb * 3)).view(1, hb, swb, 3)
+        return torch.matmul(wx[:, None], t)
+
+    if max_err(lib4k(), ref) > F32_TOL:
+        raise AssertionError("library resample disagrees with the plain version")
+    timing(res, "resample", "config3-4K-u8",
+           lambda: kernels.resample(xs, sh, sw, dst_h, dst_w, hb, wb, "lanczos3"),
+           lambda: reference.resample(xs, sh, sw, dst_h, dst_w, hb, wb, "lanczos3"),
+           lib4k, xs.numel() + out.numel() * 4, flops)
+    log("  blur and composite: no single-call library equivalent (per-image "
+        "masked taps; per-image tiling and blend): library_ms null")
+
+
 def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
     import torch
 
@@ -510,8 +698,9 @@ def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
 # --- phase 4: the main path through the server ------------------------------
 
 def http(port: int, path: str, body: bytes):
+    ctype = "image/png" if body[:4] == b"\x89PNG" else "image/jpeg"
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
-                                 headers={"Content-Type": "image/jpeg"})
+                                 headers={"Content-Type": ctype})
     with urllib.request.urlopen(req, timeout=120) as r:
         return r.status, r.headers["Content-Type"], r.read()
 
@@ -621,7 +810,7 @@ def planes_err(a, b) -> int:
     return int(np.abs(a.astype(int) - b.astype(int)).max())
 
 
-def parity_phase(rng) -> dict:
+def parity_phase(rng, png: bytes) -> dict:
     import numpy as np
 
     from imaginary_tpu_torch.ops import chain
@@ -655,7 +844,51 @@ def parity_phase(rng) -> dict:
         out[name] = err
         log(f"  {name} cuda vs cpu, max LSB: {err}")
         del arrs, got, want
+    # config 3's /pipeline chain on the 4K PNG (rgb transport, uint8 4K in)
+    # and the 1080p JPEG /pipeline chain (yuv420 transport)
+    with open(LARGE_JPG, "rb") as f:
+        jpg = f.read()
+    for name, buf, ops, transport in (("config3", png, CONFIG3_OPS, "rgb"),
+                                      ("jpeg-pipeline", jpg, JPEG_PIPELINE_OPS, "yuv420")):
+        arr, p = pipeline_request(buf, ops, transport)
+        for bsz in CONFIG3_BATCHES:
+            arrs = [arr] + [np.clip(arr.astype(np.int16) + rng.integers(-12, 13, size=arr.shape,
+                                                                       dtype=np.int16),
+                                    0, 255).astype(np.uint8) for _ in range(bsz - 1)]
+            got = chain.run_batch(arrs, [p] * bsz, device=DEVICE)
+            want = chain.run_batch(arrs, [p] * bsz, device="cpu")
+            err = max(planes_err(a, b) for a, b in zip(got, want))
+            if err > U8_TOL:
+                raise AssertionError(f"run_batch {name} B={bsz}: cuda vs cpu {err} LSB")
+            out[f"run_batch-{name}-B{bsz}"] = err
+            log(f"  run_batch-{name}-B{bsz} cuda vs cpu, max LSB: {err}")
+            del arrs, got, want
     return out
+
+
+def pipeline_request(buf: bytes, ops: list, transport: str):
+    """(input array, plan) of the /pipeline request for `ops` on buf,
+    planned as `pipeline.process_pipeline` plans it: the packed 4:2:0
+    input and the wrapped plan for "yuv420", the decoded frame for "rgb"."""
+    from imaginary_tpu_torch import codecs, pipeline
+    from imaginary_tpu_torch.imgtype import ImageType
+    from imaginary_tpu_torch.ops.plan import wrap_plan_yuv420
+    from imaginary_tpu_torch.params import build_params_from_operation, build_params_from_query
+
+    o = build_params_from_query({"operations": json.dumps(ops)})
+    if transport == "yuv420":
+        meta = codecs.probe_fast(buf)
+        first = o.operations[0]
+        shrink = pipeline._pick_shrink(first.name, ImageType.JPEG,
+                                       build_params_from_operation(first), meta)
+        sh, sw = -(-meta.height // shrink), -(-meta.width // shrink)
+        packed, _, _ = pipeline._decode_yuv_packed(buf, shrink, sh, sw)
+        plan = pipeline._build_pipeline_plan(o, sh, sw, meta.orientation, 3, ImageType.JPEG)[0]
+        return packed, wrap_plan_yuv420(plan, sh, sw)
+    d = codecs.decode(buf)
+    plan = pipeline._build_pipeline_plan(o, d.array.shape[0], d.array.shape[1], d.orientation,
+                                         d.array.shape[2], d.type)[0]
+    return d.array, plan
 
 
 # --- phase 6: config 2's mixed traffic under load ---------------------------
@@ -686,29 +919,30 @@ CONFIG2_MAX_BATCH = 32
 CONFIG2_FORM_MS = 5.0
 
 
-def load_window(port: int, bodies: dict) -> tuple:
-    """CLIENTS threads, PER_CLIENT requests each, cycling through
-    CONFIG2_REQUESTS, all started together. Returns (wall seconds,
+def load_window(port: int, reqs: list, clients: int = CLIENTS,
+                per_client: int = PER_CLIENT) -> tuple:
+    """`clients` threads, `per_client` requests each, cycling through reqs
+    ((path, body) pairs), all started together. Returns (wall seconds,
     [(request index, latency ms, status, content type, body)])."""
-    n_req = CLIENTS * PER_CLIENT
+    n_req = clients * per_client
     results: list = [None] * n_req
     errors: list = []
-    start = threading.Barrier(CLIENTS + 1)
+    start = threading.Barrier(clients + 1)
 
     def client(t: int) -> None:
         start.wait()
         try:
-            for i in range(PER_CLIENT):
-                n = t * PER_CLIENT + i
-                k = n % len(CONFIG2_REQUESTS)
-                path, src, _ = CONFIG2_REQUESTS[k]
+            for i in range(per_client):
+                n = t * per_client + i
+                k = n % len(reqs)
+                path, body = reqs[k]
                 t0 = time.perf_counter()
-                status, ctype, body = http(port, path, bodies[src])
-                results[n] = (k, (time.perf_counter() - t0) * 1e3, status, ctype, body)
+                status, ctype, out = http(port, path, body)
+                results[n] = (k, (time.perf_counter() - t0) * 1e3, status, ctype, out)
         except Exception as e:  # re-raised below, in the main thread
             errors.append(e)
 
-    threads = [threading.Thread(target=client, args=(t,)) for t in range(CLIENTS)]
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(clients)]
     for th in threads:
         th.start()
     start.wait()
@@ -785,10 +1019,11 @@ def config2_phase() -> dict:
                 raise AssertionError(f"{path} alone: {status} {ctype}")
             alone.append((body, decoded_planes(codecs, body, dims)))
         items0, batches0 = ex.stats.items, ex.stats.batches
+        reqs = [(path, bodies[src]) for path, src, _ in CONFIG2_REQUESTS]
         kernels.reset_launches()
         walls, results = [], []
         for _ in range(WINDOWS):
-            wall, got = load_window(port, bodies)
+            wall, got = load_window(port, reqs)
             walls.append(wall)
             results.extend(got)
         launches = dict(kernels.LAUNCHES)
@@ -796,7 +1031,7 @@ def config2_phase() -> dict:
         max_group = ex.stats.max_group_seen
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            wall2, _ = load_window(port, bodies)
+            wall2, _ = load_window(port, reqs)
             prof_wall_us = (time.perf_counter() - t0) * 1e6
         executor = ex.stats.to_dict()
     finally:
@@ -864,6 +1099,257 @@ def config2_phase() -> dict:
     return out
 
 
+# --- phase 7: config 3, /pipeline on a 4K PNG to WEBP ------------------------
+
+# bench_latency.py's exact chains: BASELINE.json config 3 on a 4K PNG, and
+# the 1080p JPEG /pipeline
+CONFIG3_OPS = [
+    {"operation": "resize", "params": {"width": 1280}},
+    {"operation": "blur", "params": {"sigma": 1.2}},
+    {"operation": "watermark", "params": {"text": "bench", "opacity": 0.5}},
+    {"operation": "convert", "params": {"type": "webp"}},
+]
+JPEG_PIPELINE_OPS = [
+    {"operation": "crop", "params": {"width": 1600, "height": 900}},
+    {"operation": "resize", "params": {"width": 640}},
+    {"operation": "blur", "params": {"sigma": 1.5}},
+    {"operation": "convert", "params": {"type": "jpeg"}},
+]
+BW_QUERY = {"width": "640", "colorspace": "bw"}
+# (name, path, source, MIME type, decoded (h, w), requests served one at
+# a time in the counted run)
+CONFIG3_SERIAL = 20
+CONFIG3_REQUESTS = (
+    ("config3", "/pipeline?operations=" + urllib.parse.quote(json.dumps(CONFIG3_OPS)),
+     "png", "image/webp", (720, 1280), CONFIG3_SERIAL),
+    ("jpeg-pipeline", "/pipeline?operations=" + urllib.parse.quote(json.dumps(JPEG_PIPELINE_OPS)),
+     "jpg", "image/jpeg", (360, 640), 3),
+    ("bw-resize", "/resize?" + urllib.parse.urlencode(BW_QUERY), "jpg", "image/jpeg",
+     (360, 640), 3),
+)
+CONFIG3_CLIENTS = 8
+CONFIG3_PER_CLIENT = 2
+CONFIG3_MAX_BATCH = 8
+# The served WEBP (quality 80) against the same chain computed on the
+# CPU: against the host's WEBP of the CPU array (the two arrays are at
+# most 1 LSB apart, so the two encodes nearly agree), and against the CPU
+# array itself (WEBP's own loss on this noisy pattern: 30.6 dB with
+# Pillow 12.2 on the H100 machine's host)
+CONFIG3_PSNR_VS_CPU_WEBP_DB = 40.0
+CONFIG3_PSNR_VS_CPU_DB = 28.0
+# launches of one stage of each spec
+SPEC_LAUNCHES = {
+    "SampleSpec": {"resample": 2}, "BlurSpec": {"blur": 2},
+    "CompositeSpec": {"composite": 1}, "GraySpec": {"gray": 1},
+    "ExtractSpec": {"gather": 1}, "EmbedSpec": {"gather": 1},
+    "ShrinkBucketSpec": {"gather": 1}, "FromYuv420Spec": {"yuv420_unpack": 1},
+    "ToYuv420Spec": {"yuv420_pack": 1}, "FlipSpec": {"orient": 1},
+    "FlopSpec": {"orient": 1}, "TransposeSpec": {"orient": 1},
+}
+
+
+def make_4k_png() -> bytes:
+    """bench_latency.py's 3840x2160 test pattern with seeded noise of +-3,
+    as PNG (Pillow, zlib level 1)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED)
+    yy, xx = np.mgrid[0:CONFIG3_SRC[0], 0:CONFIG3_SRC[1]]
+    img = np.stack([xx % 256, yy % 256, (xx // 16 + yy // 16) % 256], axis=-1)
+    img = np.clip(img + rng.integers(-3, 4, size=img.shape), 0, 255).astype(np.uint8)
+    out = io.BytesIO()
+    Image.fromarray(img).save(out, "PNG", compress_level=1)
+    return out.getvalue()
+
+
+def expected_launches(plan) -> dict:
+    from imaginary_tpu_torch import kernels
+
+    out = dict.fromkeys(kernels.LAUNCHES, 0)
+    for st in plan.stages:
+        for name, n in SPEC_LAUNCHES[type(st.spec).__name__].items():
+            out[name] += n
+    return out
+
+
+def psnr(a, b) -> float:
+    import numpy as np
+
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def host_ms(fn, n: int = 5) -> float:
+    ts = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def config3_phase(png: bytes) -> dict:
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from imaginary_tpu_torch import codecs, kernels
+    from imaginary_tpu_torch.codecs import EncodeOptions
+    from imaginary_tpu_torch.imgtype import ImageType
+    from imaginary_tpu_torch.ops import chain
+    from imaginary_tpu_torch.ops.text import _load_font, _parse_font_spec, _resolve_font_path
+    from imaginary_tpu_torch.web.app import make_server
+
+    with open(LARGE_JPG, "rb") as f:
+        bodies = {"png": png, "jpg": f.read()}
+    font = _resolve_font_path(*_parse_font_spec("sans 12")[:3])
+    log(f"  watermark font for 'sans 12': {font or 'none found'} "
+        f"({type(_load_font('sans 12', 72)).__name__})")
+    # the plans the server runs, and each chain's launches
+    plans = {
+        "config3": pipeline_request(png, CONFIG3_OPS, "rgb"),
+        "jpeg-pipeline": pipeline_request(bodies["jpg"], JPEG_PIPELINE_OPS, "yuv420"),
+        "bw-resize": main_plan("resize", "yuv420", BW_QUERY),
+    }
+    expected = dict.fromkeys(kernels.LAUNCHES, 0)
+    for name, _, _, _, _, n in CONFIG3_REQUESTS:
+        for k, v in expected_launches(plans[name][1]).items():
+            expected[k] += n * v
+    srv = make_server("127.0.0.1", 0, device=DEVICE, max_batch=CONFIG3_MAX_BATCH,
+                      batch_form_ms=CONFIG2_FORM_MS)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    ex = srv.service.executor
+    lat: dict = {}
+    last: dict = {}
+    try:
+        for _, path, src, _, _, _ in CONFIG3_REQUESTS:  # one untimed each
+            http(port, path, bodies[src])
+        kernels.reset_launches()
+        for name, path, src, mime, dims, n in CONFIG3_REQUESTS:
+            lat[name] = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                status, ctype, body = http(port, path, bodies[src])
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+                if (status, ctype) != (200, mime):
+                    raise AssertionError(f"{name}: {status} {ctype}")
+                if codecs.decode(body).array.shape[:2] != dims:
+                    raise AssertionError(f"{name}: output is not {dims}")
+            last[name] = body
+        launches = dict(kernels.LAUNCHES)
+        reqs = [(CONFIG3_REQUESTS[0][1], png)]
+        items0, batches0 = ex.stats.items, ex.stats.batches
+        walls, results = [], []
+        for _ in range(WINDOWS):
+            wall, got = load_window(port, reqs, CONFIG3_CLIENTS, CONFIG3_PER_CLIENT)
+            walls.append(wall)
+            results.extend(got)
+        items, batches = ex.stats.items - items0, ex.stats.batches - batches0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            wall2, _ = load_window(port, reqs, CONFIG3_CLIENTS, CONFIG3_PER_CLIENT)
+            prof_wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    if launches != expected:
+        raise AssertionError(f"config 3 launches {launches}, the plans say {expected}")
+    for name in CONFIG3_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on config 3's path")
+    for _, _, status, ctype, body in results:
+        if (status, ctype) != (200, "image/webp"):
+            raise AssertionError(f"config 3 under load: {status} {ctype}")
+    # the WEBP against the same chain computed on the CPU
+    arr, p = plans["config3"]
+    cpu = chain.run_single(arr, p, device="cpu")
+    webp_opts = EncodeOptions(type=ImageType.WEBP)
+    cpu_webp = codecs.encode(cpu, webp_opts)
+
+    def pixels(body):
+        return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+
+    webp = pixels(last["config3"])
+    db_webp, db = psnr(webp, pixels(cpu_webp)), psnr(webp, cpu)
+    if db_webp < CONFIG3_PSNR_VS_CPU_WEBP_DB or db < CONFIG3_PSNR_VS_CPU_DB:
+        raise AssertionError(
+            f"config 3 WEBP: {db_webp:.2f} dB from the CPU array's WEBP (bound "
+            f"{CONFIG3_PSNR_VS_CPU_WEBP_DB}), {db:.2f} dB from the CPU array (bound "
+            f"{CONFIG3_PSNR_VS_CPU_DB})")
+    # one request's host work, step by step on the host clock: decode,
+    # plan (with the text raster), the chain on the card (staging, H2D,
+    # kernels, D2H), encode
+    from imaginary_tpu_torch import pipeline
+    from imaginary_tpu_torch.params import build_params_from_query
+
+    o3 = build_params_from_query({"operations": json.dumps(CONFIG3_OPS)})
+    steps = {
+        "png_decode": host_ms(lambda: codecs.decode(png)),
+        "plan": host_ms(lambda: pipeline._build_pipeline_plan(
+            o3, *CONFIG3_SRC, 0, 3, ImageType.PNG)),
+        "chain_on_card": host_ms(lambda: chain.run_single(arr, p, device=DEVICE)),
+        "webp_encode": host_ms(lambda: codecs.encode(cpu, webp_opts)),
+    }
+    busy, summed, by_name = busy_union_us(prof)
+    lat_load = [r[1] for r in results]
+    rps = [CONFIG3_CLIENTS * CONFIG3_PER_CLIENT / w for w in walls]
+    one = lat["config3"]
+    out = {
+        "serial_ms": lat, "launches": launches, "expected_launches": expected,
+        "p50_ms_one_client": float(np.percentile(one, 50)),
+        "p99_ms_one_client": float(np.percentile(one, 99)),
+        "webp_psnr_db_vs_cpu": db, "webp_psnr_db_vs_cpu_webp": db_webp,
+        "webp_identical_to_cpu_webp": last["config3"] == cpu_webp,
+        "webp_max_abs_vs_cpu": int(np.abs(webp.astype(np.int32) - cpu.astype(np.int32)).max()),
+        "png_bytes": len(png), "host_steps_ms": steps,
+        "load": {"clients": CONFIG3_CLIENTS, "per_client": CONFIG3_PER_CLIENT,
+                 "windows": WINDOWS, "wall_s": walls, "rps_by_window": rps,
+                 "rps": statistics.median(rps),
+                 "p50_ms": float(np.percentile(lat_load, 50)),
+                 "p99_ms": float(np.percentile(lat_load, 99)),
+                 "items": items, "batches": batches,
+                 "mean_batch": items / batches if batches else 0.0},
+        "profiled": {"wall_s": wall2, "rps": CONFIG3_CLIENTS * CONFIG3_PER_CLIENT / wall2,
+                     "wall_us": prof_wall_us, "device_busy_us": busy,
+                     "device_summed_us": summed, "busy_share": busy / prof_wall_us,
+                     "by_name_us": by_name},
+        "font": font,
+    }
+    for name, ts in lat.items():
+        log(f"  /{name} one at a time: p50 {np.percentile(ts, 50):.2f} ms "
+            f"(n={len(ts)}; min {min(ts):.2f}, max {max(ts):.2f})")
+    log(f"  config 3 one client: p50 {out['p50_ms_one_client']:.2f} ms, "
+        f"p99 {out['p99_ms_one_client']:.2f} ms over {len(one)} requests")
+    log(f"  launches: {launches} (as the plans say)")
+    log(f"  WEBP vs the CPU array's WEBP: PSNR {db_webp:.2f} dB (bytes identical: "
+        f"{out['webp_identical_to_cpu_webp']}); vs the CPU array: PSNR {db:.2f} dB, "
+        f"max {out['webp_max_abs_vs_cpu']} LSB")
+    log(f"  host steps of one request (median of 5, host clock; PNG {len(png)} bytes): "
+        + ", ".join(f"{k} {v:.2f} ms" for k, v in steps.items()))
+    ld = out["load"]
+    log(f"  {CONFIG3_CLIENTS} clients x {CONFIG3_PER_CLIENT} in {WINDOWS} windows: req/s "
+        f"{', '.join(f'{r:.2f}' for r in rps)} (median {ld['rps']:.2f}); "
+        f"p50 {ld['p50_ms']:.2f} ms, p99 {ld['p99_ms']:.2f} ms; "
+        f"{items} items in {batches} batches")
+    log(f"  profiled window: {out['profiled']['rps']:.2f} req/s; device busy {busy:.1f} us "
+        f"of {prof_wall_us:.1f} us wall (share {out['profiled']['busy_share']:.4f}; "
+        f"summed {summed:.1f} us)")
+    per_window = CONFIG3_CLIENTS * CONFIG3_PER_CLIENT
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:10]:
+        log(f"    {us / per_window:9.2f} us/request  {name[:90]}")
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -913,24 +1399,37 @@ def main() -> int:
     report["kernels"] = kernel_phase(rng)
     orient_phase(report["kernels"])
     config2_kernel_phase(rng, report["kernels"])
+    config3_kernel_phase(report["kernels"])
     log("== phase 4: main path through the server")
     report["main_path"] = main_path_phase()
-    log("== phase 4b/5: cuda against cpu (run_single; run_batch B=16 and B=32)")
-    report["parity"] = parity_phase(rng)
+    t0 = time.perf_counter()
+    png = make_4k_png()
+    log(f"  config 3's 3840x2160 PNG: {len(png)} bytes, made in "
+        f"{time.perf_counter() - t0:.2f} s")
+    log("== phase 4b/5: cuda against cpu (run_single; run_batch B=16, B=32, B=1 and B=8)")
+    report["parity"] = parity_phase(rng, png)
     log("== phase 6: config 2 under load (/thumbnail, /crop, /rotate, EXIF /resize)")
     report["config2"] = config2_phase()
+    log("== phase 7: config 3 (/pipeline on a 4K PNG to WEBP), the JPEG /pipeline, bw")
+    report["config3"] = config3_phase(png)
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         per_case = report["kernels"][name]
         main_case = {"resample": "B1-resize", "yuv420_unpack": "B1",
                      "yuv420_pack": "B1", "gather": "B1-embed",
-                     "orient": "B32-transpose"}[name]
+                     "orient": "B32-transpose", "blur": "B1-r4",
+                     "composite": "B1-replicate-C3", "gray": "bw-route"}[name]
         m = per_case[main_case]
+        # each kernel's launches come from the run of the path it serves
+        path = "config3" if name in ("blur", "composite", "gray") else "config2"
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": report["config2"]["launches"][name],
+            "launches": report[path]["launches"][name],
+            "launches_path": path,
             "launches_config1": report["main_path"]["launches"][name],
+            "launches_config2": report["config2"]["launches"][name],
+            "launches_config3": report["config3"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

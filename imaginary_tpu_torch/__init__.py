@@ -3,9 +3,10 @@
 A second package beside `imaginary_tpu` (the JAX reference, which it never
 imports): the same HTTP contract and planner, with the device work in
 hand-written CUDA C++ kernels for Hopper (`kernels/`), micro-batched by
-the executor (`engine/`). It serves /resize, /crop, /thumbnail, /rotate,
-/autorotate, /flip and /flop on JPEG; see ROADMAP.md for what is still to
-port.
+the executor (`engine/`). It serves /resize, /fit, /enlarge, /extract,
+/crop, /thumbnail, /zoom, /rotate, /autorotate, /flip, /flop, /convert,
+/blur, /watermark and /pipeline on JPEG, PNG, WEBP, GIF and TIFF; see
+ROADMAP.md for what is still to port.
 """
 
 Version = "0.1.0"

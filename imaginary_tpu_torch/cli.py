@@ -10,8 +10,8 @@ from imaginary_tpu_torch.engine import MAX_BATCH
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(
         prog="imaginary_tpu_torch",
-        description="imaginary-tpu on PyTorch/CUDA: /resize, /crop, /thumbnail, "
-                    "/rotate, /autorotate, /flip and /flop on JPEG")
+        description="imaginary-tpu on PyTorch/CUDA: the image routes and "
+                    "/pipeline on JPEG, PNG, WEBP, GIF and TIFF")
     ap.add_argument("--host", default="0.0.0.0", help="bind address")
     ap.add_argument("--port", type=int, default=9000, help="TCP port")
     ap.add_argument("--device", default="cuda",

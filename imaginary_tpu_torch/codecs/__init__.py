@@ -1,15 +1,18 @@
 """Host codec layer of the port: bytes <-> HWC uint8 arrays and packed
 YUV 4:2:0 planes, plus the JPEG metadata carry.
 
-The port's own copy of the parts of `imaginary_tpu/codecs` that the
-/resize and /crop slice uses. Every pixel codec call goes to the native
-JPEG extension (`native_backend`); other formats answer 501 until their
-slice lands. Decoding is RAW: EXIF rotation is *not* applied here —
-orientation is reported and the planner decides.
+The port's own copy of the parts of `imaginary_tpu/codecs` that its
+slices use. The backend is chosen by format, never by failure: JPEG goes
+to the native extension (`native_backend`, libjpeg, also the packed-YUV
+transport), PNG, WEBP, GIF and TIFF to Pillow (`pil_backend`); a native
+JPEG error never retries in Pillow. HEIF, AVIF, SVG and PDF answer 501
+until their slice lands. Decoding is RAW: EXIF rotation is *not* applied
+here — orientation is reported and the planner decides.
 """
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 from typing import Optional
 
@@ -69,6 +72,10 @@ class EncodeOptions:
     def effective_quality(self) -> int:
         q = self.quality if self.quality > 0 else 80
         return max(1, min(q, 100))
+
+    def effective_compression(self) -> int:
+        c = self.compression if self.compression > 0 else 6
+        return max(0, min(c, 9))
 
 
 @dataclasses.dataclass
@@ -207,39 +214,99 @@ def insert_jpeg_segments(jpeg: bytes, segs: list) -> bytes:
     return jpeg[:i] + b"".join(segs) + jpeg[i:]
 
 
-def _backend():
+# The codec route of each format the port decodes and encodes.
+ROUTES = {
+    ImageType.JPEG: "native",
+    ImageType.PNG: "pil",
+    ImageType.WEBP: "pil",
+    ImageType.GIF: "pil",
+    ImageType.TIFF: "pil",
+}
+
+
+def routes() -> dict:
+    """{format name: backend name}, as /health reports it."""
+    return {t.value: r for t, r in ROUTES.items()}
+
+
+def _native():
     from imaginary_tpu_torch.codecs import native_backend
 
     return native_backend
 
 
+def _backend(t: ImageType, what: str):
+    """The backend of format t; formats without one answer 501."""
+    route = ROUTES.get(t)
+    if route == "native":
+        return _native()
+    if route == "pil":
+        from imaginary_tpu_torch.codecs import pil_backend
+
+        return pil_backend
+    raise CodecError(f"{what} {t.value} is not ported to the PyTorch/CUDA package yet", 501)
+
+
+# Pre-decode dimension gate, in megapixels (0 = disarmed), per context.
+_DECODE_PIXEL_CAP: contextvars.ContextVar = contextvars.ContextVar(
+    "itpu_torch_decode_pixel_cap", default=0.0)
+
+
+def set_decode_pixel_cap(mpix: float):
+    """Arm the pre-decode dimension gate for the current context, in
+    megapixels (0 disarms). Returns the Token for callers that restore."""
+    return _DECODE_PIXEL_CAP.set(max(0.0, float(mpix)))
+
+
+def _bomb_gate(buf: bytes, t: ImageType) -> None:
+    """Reject a decode whose DECLARED dimensions exceed the armed cap,
+    before any frame is allocated (413: the payload demands more memory
+    than this server will commit)."""
+    cap = _DECODE_PIXEL_CAP.get()
+    if cap <= 0.0:
+        return
+    try:
+        m = probe_fast(buf)
+    except ImageError:
+        return  # unparseable header: the decoder raises the user-facing error
+    if m.width * m.height / 1_000_000.0 > cap:
+        raise CodecError(
+            f"image dimensions {m.width}x{m.height} exceed the "
+            f"{cap:g} megapixel decode limit", 413)
+
+
 def yuv420_supported() -> bool:
     """True once the native extension (with the packed-YUV420 entry points)
     is built and loaded; a failed build raises instead of answering False."""
-    return _backend().extension() is not None
+    return _native().extension() is not None
 
 
 def decode_yuv420(buf: bytes, shrink: int, hb: int, wb: int):
     """Packed-layout 4:2:0 decode; see native_backend.decode_yuv420."""
-    return _backend().decode_yuv420(buf, shrink, hb, wb)
+    return _native().decode_yuv420(buf, shrink, hb, wb)
 
 
 def encode_yuv(planes: YuvPlanes, opts: EncodeOptions) -> bytes:
     """Encode raw planes as JPEG via the native raw-data path."""
     if opts.type is not ImageType.JPEG:
         raise CodecError("raw YUV planes can only encode to JPEG", 500)
-    return _backend().encode_yuv420(
+    return _native().encode_yuv420(
         planes.y, planes.u, planes.v, opts.effective_quality(), opts.interlace)
 
 
 def decode(buf: bytes, shrink: int = 1) -> DecodedImage:
-    """Decode bytes into an HWC uint8 array (RGB).
+    """Decode bytes into an HWC uint8 array (RGB, or RGBA where the source
+    has alpha).
 
     shrink in {2, 4, 8} asks for 1/N-scale shrink-on-load (JPEG DCT
-    scaling; result dims are ceil(dim/N))."""
+    scaling; result dims are ceil(dim/N)); other formats decode at full
+    size."""
     if not buf:
         raise CodecError("Empty or unreadable image", 400)
-    return _backend().decode(buf, determine_image_type(buf), shrink)
+    t = determine_image_type(buf)
+    backend = _backend(t, "decoding")
+    _bomb_gate(buf, t)
+    return backend.decode(buf, t, shrink)
 
 
 def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
@@ -248,12 +315,16 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
         raise CodecError(f"cannot encode array of shape {arr.shape}", 500)
     if arr.dtype != np.uint8:
         raise CodecError(f"cannot encode dtype {arr.dtype}", 500)
-    return _backend().encode(arr, opts)
+    return _backend(opts.type, "encoding").encode(arr, opts)
 
 
 def probe_fast(buf: bytes) -> ImageMetadata:
-    """Dims/orientation/subsampling from the header, for the request hot
-    path (shrink-on-load selection and the transport gate)."""
+    """Dims/orientation (and JPEG subsampling) from the header, for the
+    request hot path (shrink-on-load selection and the transport gate)."""
     if not buf:
         raise CodecError("Cannot retrieve image metadata: empty buffer", 400)
-    return _backend().probe_fast(buf, determine_image_type(buf))
+    t = determine_image_type(buf)
+    backend = _backend(t, "probing")
+    if backend is _native():
+        return backend.probe_fast(buf, t)
+    return backend.probe(buf, t)

@@ -1,4 +1,5 @@
-"""Native JPEG codec backend of the port.
+"""Native JPEG codec backend of the port (JPEG only: `codecs._backend`
+routes every other format elsewhere).
 
 Wraps the `_itpu_torch_codecs` extension (`imaginary_tpu_torch/native/
 codecs.cpp`, libjpeg, all codec work with the GIL released). The extension
@@ -41,13 +42,7 @@ def extension():
     return _EXT
 
 
-def _require_jpeg(t: ImageType, what: str) -> None:
-    if t is not ImageType.JPEG:
-        raise CodecError(f"{what} {t.value} is not ported to the PyTorch/CUDA package yet", 501)
-
-
 def decode(buf: bytes, t: ImageType, shrink: int = 1) -> DecodedImage:
-    _require_jpeg(t, "decoding")
     denom = shrink if shrink in (2, 4, 8) else 1
     try:
         pixels, h, w, c, orientation, has_alpha = extension().decode(buf, t.value, denom)
@@ -58,7 +53,6 @@ def decode(buf: bytes, t: ImageType, shrink: int = 1) -> DecodedImage:
 
 
 def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
-    _require_jpeg(opts.type, "encoding")
     arr = np.ascontiguousarray(arr)
     h, w, c = arr.shape
     try:
@@ -71,7 +65,6 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
 
 def probe_fast(buf: bytes, t: ImageType) -> ImageMetadata:
     """Dims/orientation/subsampling from the JPEG header alone."""
-    _require_jpeg(t, "probing")
     try:
         w, h, c, has_alpha, orientation, subsampling = extension().probe(buf, t.value)
     except ValueError as e:

@@ -1,0 +1,110 @@
+"""Pillow codec backend of the port: PNG, WEBP, GIF and TIFF.
+
+The port's copy of `imaginary_tpu/codecs/pil_backend.py`, trimmed to the
+formats the port routes here (JPEG stays on the native codec; the
+dispatch in `codecs/__init__.py` picks the backend by format, never by
+failure). Decoding is RAW: EXIF orientation is reported, not applied.
+"""
+
+from __future__ import annotations
+
+import io
+
+import numpy as np
+from PIL import Image, ImageFile
+
+from imaginary_tpu_torch.codecs import CodecError, DecodedImage, EncodeOptions, ImageMetadata
+from imaginary_tpu_torch.imgtype import ImageType
+
+NAME = "pil"
+
+# Tolerate slightly-truncated files the way libvips' sequential access does.
+ImageFile.LOAD_TRUNCATED_IMAGES = True
+
+_MODE_SPACE = {
+    "RGB": "srgb",
+    "RGBA": "srgb",
+    "L": "b-w",
+    "LA": "b-w",
+    "1": "b-w",
+    "P": "srgb",
+    "CMYK": "cmyk",
+    "YCbCr": "srgb",
+    "I": "b-w",
+    "F": "b-w",
+}
+
+
+def _has_alpha(im: Image.Image) -> bool:
+    return im.mode in ("RGBA", "LA", "PA") or (im.mode == "P" and "transparency" in im.info)
+
+
+def decode(buf: bytes, t: ImageType, shrink: int = 1) -> DecodedImage:
+    """Full-size decode to RGB, or RGBA where the source has alpha
+    (shrink-on-load is a JPEG feature; other formats ignore it)."""
+    try:
+        im = Image.open(io.BytesIO(buf))
+        im.load()
+    except Exception as e:
+        raise CodecError(f"Cannot decode image: {e}", 400) from None
+    orientation = _orientation(im)
+    has_alpha = _has_alpha(im)
+    target = "RGBA" if has_alpha else "RGB"
+    if im.mode != target:
+        im = im.convert(target)
+    arr = np.asarray(im, dtype=np.uint8)
+    return DecodedImage(array=arr, type=t, orientation=orientation, has_alpha=has_alpha)
+
+
+def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
+    t = opts.type
+    im = Image.fromarray(arr[:, :, 0], mode="L") if arr.shape[2] == 1 else Image.fromarray(arr)
+    out = io.BytesIO()
+    try:
+        if t == ImageType.PNG:
+            if opts.palette:
+                im = im.convert("P", palette=Image.Palette.ADAPTIVE)
+            im.save(out, "PNG", compress_level=opts.effective_compression())
+        elif t == ImageType.WEBP:
+            im.save(out, "WEBP", quality=opts.effective_quality())
+        elif t == ImageType.TIFF:
+            im.save(out, "TIFF")
+        elif t == ImageType.GIF:
+            im.save(out, "GIF")
+        else:
+            raise CodecError(f"Unsupported output image format: {t.value}", 400)
+    except CodecError:
+        raise
+    except Exception as e:
+        raise CodecError(f"Cannot encode image: {e}", 400) from None
+    return out.getvalue()
+
+
+def probe(buf: bytes, t: ImageType) -> ImageMetadata:
+    """Dims, alpha and orientation from the header: Image.open parses
+    metadata lazily and nothing here loads pixels."""
+    try:
+        im = Image.open(io.BytesIO(buf))
+    except Exception as e:
+        raise CodecError(f"Cannot retrieve image metadata: {e}", 400) from None
+    has_alpha = _has_alpha(im)
+    return ImageMetadata(
+        width=im.width,
+        height=im.height,
+        type=t.value,
+        space=_MODE_SPACE.get(im.mode, "srgb"),
+        has_alpha=has_alpha,
+        has_profile="icc_profile" in im.info,
+        # the decoded channel count (decode gives RGB or RGBA), as the
+        # reference's native header probe reports it
+        channels=4 if has_alpha else 3,
+        orientation=_orientation(im),
+    )
+
+
+def _orientation(im: Image.Image) -> int:
+    try:
+        val = im.getexif().get(274, 0)  # 274 = Orientation
+    except Exception:
+        return 0
+    return int(val) if isinstance(val, int) and 0 <= val <= 8 else 0

@@ -1,4 +1,4 @@
-"""The port's device kernels: five CUDA C++ kernels for Hopper (sm_90a).
+"""The port's device kernels: eight CUDA C++ kernels for Hopper (sm_90a).
 
 | kernel          | source                 | replaces (imaginary_tpu/...)                     |
 | --------------- | ---------------------- | ------------------------------------------------ |
@@ -7,6 +7,9 @@
 | yuv420_pack     | csrc/yuv420_pack.cu    | ops/stages.py:521-552 ToYuv420Spec + epilogue    |
 | gather          | csrc/gather.cu         | ops/stages.py:119-198, 330-341 Extract/Embed/Shrink |
 | orient          | csrc/orient.cu         | ops/stages.py:201-234 Flip/Flop/Transpose        |
+| blur            | csrc/blur.cu           | ops/stages.py:237-280 BlurSpec                   |
+| composite       | csrc/composite.cu      | ops/stages.py:283-327 CompositeSpec              |
+| gray            | csrc/gray.cu           | ops/stages.py:625-635 GraySpec                   |
 
 Each wrapper below takes tensors on one device. On a CPU tensor it runs
 the kernel's plain version (`reference.py`). On a CUDA tensor it checks
@@ -41,10 +44,16 @@ _SIGNATURES = {
                [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 _I, _P]),
     "orient": ("itpu_orient", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "blur": ("itpu_blur_pass",
+             [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "composite": ("itpu_composite",
+                  [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                   _I, _I, _P]),
+    "gray": ("itpu_gray", [_P, _I, _P, _I, ctypes.c_longlong, _I, _P]),
 }
 
-# Kernel launches since the last reset, per kernel (resample counts its
-# two passes as two launches).
+# Kernel launches since the last reset, per kernel (resample and blur
+# count their two passes as two launches).
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 _FNS: dict = {}
@@ -240,4 +249,84 @@ def orient(x, h, w, mode: str, out_u8: bool = False):
     _launch("orient", dev, x.data_ptr(), int(x.dtype == torch.uint8),
             out.data_ptr(), int(out_u8), h.data_ptr(), w.data_ptr(),
             _ORIENT_MODE[mode], bsz, hb, wb, c)
+    return out
+
+
+MAX_BLUR_RADIUS = 64
+
+
+def blur(x, h, w, sigma, radius: int, out_u8: bool = False):
+    """K6: separable Gaussian of x [B, Hb, Wb, C] (uint8 or f32, C 1 to 4)
+    with a static radius (0 to 64) and per-image sigma (f32 [B]),
+    normalised against the valid mask and zero outside each image's valid
+    h, w (int32 [B]); f32 out, or uint8 with the epilogue. Two launches:
+    the vertical pass into an f32 intermediate, then the horizontal one."""
+    if not 0 <= radius <= MAX_BLUR_RADIUS:
+        raise ValueError(f"blur radius {radius} outside 0..{MAX_BLUR_RADIUS}")
+    if x.device.type == "cpu":
+        return reference.blur(x, h, w, sigma, radius, out_u8)
+    dev = x.device
+    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
+        raise ValueError(f"x must be [B, H, W, C] with C 1 to 4, got {tuple(x.shape)}")
+    bsz, hb, wb, c = x.shape
+    _require(x, "x", _IMG, (bsz, hb, wb, c), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    _require(sigma, "sigma", _F32, (bsz,), dev)
+    mid = torch.empty((bsz, hb, wb, c), dtype=torch.float32, device=dev)
+    out = torch.empty((bsz, hb, wb, c),
+                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    for vertical, src, dst in ((1, x, mid), (0, mid, out)):
+        _launch("blur", dev, src.data_ptr(), int(src.dtype == torch.uint8),
+                dst.data_ptr(), int(dst.dtype == torch.uint8), h.data_ptr(),
+                w.data_ptr(), sigma.data_ptr(), radius, vertical, bsz, hb, wb, c)
+    return out
+
+
+def composite(x, overlay, top, left, opacity, block_h, block_w,
+              replicate: bool, out_u8: bool = False):
+    """K7: alpha-blend the RGBA overlay f32 [B, BHb, BWb, 4] over every
+    pixel of x [B, Hb, Wb, C] (uint8 or f32, C 3 or 4), tiled from
+    (top, left) when `replicate`, else placed once there; top, left,
+    block_h, block_w int32 [B], opacity f32 [B]. f32 out, or uint8 with
+    the epilogue."""
+    if x.device.type == "cpu":
+        return reference.composite(x, overlay, top, left, opacity, block_h,
+                                   block_w, replicate, out_u8)
+    dev = x.device
+    if x.dim() != 4 or x.shape[3] not in (3, 4):
+        raise ValueError(f"x must be [B, H, W, C] with C 3 or 4, got {tuple(x.shape)}")
+    bsz, hb, wb, c = x.shape
+    _require(x, "x", _IMG, (bsz, hb, wb, c), dev)
+    if overlay.dim() != 4 or overlay.shape[3] != 4 or 0 in overlay.shape[1:3]:
+        raise ValueError(f"overlay must be [B, BHb, BWb, 4], got {tuple(overlay.shape)}")
+    bhb, bwb = overlay.shape[1], overlay.shape[2]
+    _require(overlay, "overlay", _F32, (bsz, bhb, bwb, 4), dev)
+    for t, n in ((top, "top"), (left, "left"), (block_h, "block_h"),
+                 (block_w, "block_w")):
+        _require(t, n, _I32, (bsz,), dev)
+    _require(opacity, "opacity", _F32, (bsz,), dev)
+    out = torch.empty((bsz, hb, wb, c),
+                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    _launch("composite", dev, x.data_ptr(), int(x.dtype == torch.uint8),
+            out.data_ptr(), int(out_u8), overlay.data_ptr(), top.data_ptr(),
+            left.data_ptr(), opacity.data_ptr(), block_h.data_ptr(),
+            block_w.data_ptr(), int(bool(replicate)), bsz, hb, wb, c, bhb, bwb)
+    return out
+
+
+def gray(x, out_u8: bool = False):
+    """K8: Rec.709 luma of x [B, Hb, Wb, C] (uint8 or f32, C 3 or 4)
+    broadcast over RGB, alpha kept; f32 out, or uint8 with the epilogue."""
+    if x.device.type == "cpu":
+        return reference.gray(x, out_u8)
+    dev = x.device
+    if x.dim() != 4 or x.shape[3] not in (3, 4):
+        raise ValueError(f"x must be [B, H, W, C] with C 3 or 4, got {tuple(x.shape)}")
+    bsz, hb, wb, c = x.shape
+    _require(x, "x", _IMG, (bsz, hb, wb, c), dev)
+    out = torch.empty((bsz, hb, wb, c),
+                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    _launch("gray", dev, x.data_ptr(), int(x.dtype == torch.uint8),
+            out.data_ptr(), int(out_u8), bsz * hb * wb, c)
     return out

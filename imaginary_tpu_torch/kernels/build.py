@@ -27,7 +27,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(HERE), "_build")
 
-KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather", "orient")
+KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather", "orient",
+           "blur", "composite", "gray")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

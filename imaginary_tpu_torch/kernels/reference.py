@@ -1,7 +1,8 @@
-"""Plain PyTorch versions of the five kernels.
+"""Plain PyTorch versions of the eight kernels.
 
 Each function computes what its CUDA kernel computes, in the reference's
-formulation (dense sampling matrices and einsums for the resample, index
+formulation (dense sampling matrices and einsums for the resample, a
+masked normalised convolution written as shifted sums for the blur, index
 vectors and gathers for the rest), in IEEE f32. They are the CPU path of
 the port and the oracle `chip_smoke.py` holds each kernel against on the
 card. They are no yardstick of speed.
@@ -197,3 +198,93 @@ def orient(x: torch.Tensor, h, w, mode: str, out_u8: bool = False) -> torch.Tens
     idx = torch.where(pos < valid, valid - 1 - pos, pos)
     idx = idx[:, :, None, None] if axis == 1 else idx[:, None, :, None]
     return _finish(torch.take_along_dim(xf, idx, dim=axis), out_u8)
+
+
+def blur_taps(sigma: torch.Tensor, radius: int) -> torch.Tensor:
+    """[B, 2r+1] normalised Gaussian taps, the delta where sigma <= 0
+    (stages.py:BlurSpec)."""
+    taps = torch.arange(-radius, radius + 1, dtype=torch.float32,
+                        device=sigma.device)[None, :]
+    s = torch.clamp(sigma.float(), min=1e-3)[:, None]
+    kern = torch.exp(-0.5 * (taps / s) ** 2)
+    kern = kern / kern.sum(dim=-1, keepdim=True)
+    delta = (taps.abs() < 0.5).float()
+    return torch.where(sigma[:, None] > 0, kern, delta)
+
+
+def _correlate(img: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor:
+    """Per-image 2r+1-tap correlation of img [B, H, W, C] along axis 1 or
+    2, zero-padded beyond the bucket ("SAME")."""
+    r = (k.shape[1] - 1) // 2
+    n = img.shape[axis]
+    pad = (0, 0, 0, 0, r, r) if axis == 1 else (0, 0, r, r)
+    padded = torch.nn.functional.pad(img, pad)
+    out = torch.zeros_like(img)
+    for i in range(2 * r + 1):
+        tap = k[:, i][:, None, None, None]
+        out = out + tap * padded.narrow(axis, i, n)
+    return out
+
+
+def blur(x: torch.Tensor, h, w, sigma, radius: int, out_u8: bool = False) -> torch.Tensor:
+    """K6's function (stages.py:BlurSpec): separable Gaussian, vertical then
+    horizontal, normalised against the valid mask, zero outside each
+    image's valid (h, w)."""
+    xf = x.float()
+    _, hb, wb, _ = xf.shape
+    k = blur_taps(sigma, radius)
+    iy = torch.arange(hb, dtype=torch.int32, device=x.device)[None, :, None]
+    ix = torch.arange(wb, dtype=torch.int32, device=x.device)[None, None, :]
+    m = ((iy < h[:, None, None]) & (ix < w[:, None, None])).float()[..., None]
+    num = _correlate(_correlate(xf * m, k, 1), k, 2)
+    den = _correlate(_correlate(m, k, 1), k, 2)
+    out = num / torch.clamp(den, min=_EPS)
+    return _finish(torch.where(m > 0, out, 0.0), out_u8)
+
+
+def composite(x: torch.Tensor, overlay, top, left, opacity, block_h, block_w,
+              replicate: bool, out_u8: bool = False) -> torch.Tensor:
+    """K7's function (stages.py:CompositeSpec): the RGBA overlay block,
+    tiled (replicate) or placed once at (top, left), alpha-blended over
+    every pixel of the bucket; x's alpha passes through."""
+    xf = x.float()
+    bsz, hb, wb, c = xf.shape
+    bhb, bwb = overlay.shape[1], overlay.shape[2]
+    dev = x.device
+    bh = block_h.long()[:, None]
+    bw = block_w.long()[:, None]
+    iy = torch.arange(bhb, device=dev)[None, :]
+    ix = torch.arange(bwb, device=dev)[None, :]
+    ovl = overlay.float() * ((iy < bh)[:, :, None] & (ix < bw)[:, None, :])[..., None]
+    ys = torch.arange(hb, device=dev)[None, :]
+    xs = torch.arange(wb, device=dev)[None, :]
+    bidx = torch.arange(bsz, device=dev)[:, None, None]
+    if replicate:
+        gy = torch.clamp(torch.remainder(ys - top.long()[:, None],
+                                         torch.clamp(bh, min=1)), max=bhb - 1)
+        gx = torch.clamp(torch.remainder(xs - left.long()[:, None],
+                                         torch.clamp(bw, min=1)), max=bwb - 1)
+        canvas = ovl[bidx, gy[:, :, None], gx[:, None, :]]
+    else:
+        ry = ys - top.long()[:, None]
+        rx = xs - left.long()[:, None]
+        iny = (ry >= 0) & (ry < bh)
+        inx = (rx >= 0) & (rx < bw)
+        gy = torch.clamp(ry, 0, bhb - 1)
+        gx = torch.clamp(rx, 0, bwb - 1)
+        canvas = ovl[bidx, gy[:, :, None], gx[:, None, :]]
+        canvas = canvas * (iny[:, :, None] & inx[:, None, :])[..., None]
+    op = torch.clamp(opacity.float(), 0.0, 1.0)[:, None, None, None]
+    alpha = canvas[..., 3:4] / 255.0 * op
+    rgb = xf[..., :3] * (1.0 - alpha) + canvas[..., :3] * alpha
+    out = torch.cat([rgb, xf[..., 3:]], dim=-1) if c == 4 else rgb
+    return _finish(out.contiguous(), out_u8)
+
+
+def gray(x: torch.Tensor, out_u8: bool = False) -> torch.Tensor:
+    """K8's function (stages.py:GraySpec): Rec.709 luma broadcast over RGB,
+    alpha kept."""
+    xf = x.float()
+    lum = 0.2126 * xf[..., 0:1] + 0.7152 * xf[..., 1:2] + 0.0722 * xf[..., 2:3]
+    parts = [lum, lum, lum] + ([xf[..., 3:]] if xf.shape[3] == 4 else [])
+    return _finish(torch.cat(parts, dim=-1), out_u8)

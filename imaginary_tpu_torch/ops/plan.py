@@ -4,7 +4,7 @@ The port's copy of `imaginary_tpu/ops/plan.py`, bound to the port's stage
 specs (`imaginary_tpu_torch.ops.stages`), so both packages plan the same
 chain for the same request. `plan_from_dict` rebuilds a port plan from a
 plain description of a reference plan. The dct transport's wrapper waits
-for the DCT slice, and text watermarks for the text rasterizer.
+for the DCT slice.
 
 This module encodes the reference's *dimension semantics* — what bimg's
 resizer does with Width/Height/Crop/Embed/Force/Enlarge/Zoom (SURVEY.md
@@ -492,7 +492,29 @@ def plan_watermark(p, o, channels):
     _require(o.text != "", "Missing required param: text")
     _resolve_resize(p, o, force=o.force, crop=False, embed=o.embed, enlarge=False,
                     channels=channels)
-    raise NotImplementedError("text watermark rasterization is not ported yet")
+    from imaginary_tpu_torch.ops.text import rasterize_text
+
+    block = rasterize_text(
+        text=o.text,
+        font=o.font,
+        dpi=o.dpi,
+        text_width=o.text_width or (p.w // 2),
+        color=o.color,
+        max_w=max(8, p.w),
+        max_h=max(8, p.h),
+    )
+    bh, bw = block.shape[0], block.shape[1]
+    margin = max(0, o.margin)
+    opacity = o.opacity if o.opacity > 0 else 0.25  # bimg watermark default
+    p.add(
+        CompositeSpec(bucket_dim(bh), bucket_dim(bw), replicate=not o.no_replicate),
+        overlay=_pad_block(block, bucket_dim(bh), bucket_dim(bw)),
+        top=_i32(min(margin, max(0, p.h - 1))),
+        left=_i32(min(margin, max(0, p.w - 1))),
+        opacity=_f32(opacity),
+        block_h=_i32(bh),
+        block_w=_i32(bw),
+    )
 
 
 def plan_watermark_image(p, o, channels, watermark_rgba: Optional[np.ndarray] = None):

@@ -109,19 +109,33 @@ class TransposeSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class BlurSpec(_NotPorted):
-    """Separable gaussian blur, radius static, sigma dynamic. dyn: sigma."""
+class BlurSpec:
+    """Separable gaussian blur, radius static, sigma dynamic, normalised
+    against the valid mask and zero outside it (kernel K6). dyn: sigma
+    (f32 [B])."""
 
     radius: int
 
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        return kernels.blur(x, h, w, dyn["sigma"], self.radius, out_u8), h, w
+
 
 @dataclasses.dataclass(frozen=True)
-class CompositeSpec(_NotPorted):
-    """Alpha-blend an RGBA overlay block (watermark)."""
+class CompositeSpec:
+    """Alpha-blend an RGBA overlay block (watermark), tiled when
+    `replicate`, over the whole bucket (kernel K7).
+    dyn: overlay (f32 [B, block_hb, block_wb, 4]), top, left, block_h,
+    block_w (i32 [B]), opacity (f32 [B])."""
 
     block_hb: int
     block_wb: int
     replicate: bool = False
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        out = kernels.composite(x, dyn["overlay"], dyn["top"], dyn["left"],
+                                dyn["opacity"], dyn["block_h"],
+                                dyn["block_w"], self.replicate, out_u8)
+        return out, h, w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -187,8 +201,11 @@ class ToDctSpec(_NotPorted):
 
 
 @dataclasses.dataclass(frozen=True)
-class GraySpec(_NotPorted):
-    """Rec.709 luma broadcast over RGB."""
+class GraySpec:
+    """Rec.709 luma broadcast over RGB, alpha kept (kernel K8)."""
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        return kernels.gray(x, out_u8), h, w
 
 
 @dataclasses.dataclass(frozen=True)

@@ -290,3 +290,13 @@ def build_params_from_query(query: Mapping[str, Any]) -> ImageOptions:
                 value = value[0] if value else ""
             _apply(options, key, value)
     return options
+
+
+def build_params_from_operation(op: PipelineOperation) -> ImageOptions:
+    """Pipeline stage params -> ImageOptions (ref: params.go:340-352)."""
+    options = ImageOptions()
+    options.extend = Extend.COPY  # the reference parser's default (params.go:342)
+    for key, value in op.params.items():
+        if key in PARAM_COERCIONS:
+            _apply(options, key, value)
+    return options

@@ -1,14 +1,17 @@
 """The synchronous processing path of the port: bytes -> plan -> kernels -> bytes.
 
 The port's counterpart of `imaginary_tpu/pipeline.py:process_operation`
-for the `rgb` and `yuv420` transports: header probe, shrink-on-load
-choice, transport gate, decode, plan, chain run on `device`, encode and
-metadata carry. A 4:2:0 JPEG in and JPEG out rides the packed-YUV420
-transport (half the link bytes; the color math runs on the card); every
-other request rides the RGB transport.
+and `process_pipeline` for the `rgb` and `yuv420` transports: header
+probe, shrink-on-load choice, transport gate, decode, plan, chain run on
+`device`, encode and metadata carry. A 4:2:0 JPEG in and JPEG out rides
+the packed-YUV420 transport (half the link bytes; the color math runs on
+the card); every other request (PNG, WEBP, GIF, TIFF sources or targets)
+rides the RGB transport. A /pipeline fuses every stage of every op into
+one chain: decode once, encode once.
 
-The dct transport, `process_pipeline`, `info`, the frame cache, the
-TIMES/COPIES ledgers and failpoints wait for later slices.
+The dct transport, `info`, URL sources (so `watermarkImage`, which
+answers 501), the frame cache, the TIMES/COPIES ledgers and failpoints
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -27,9 +30,13 @@ from imaginary_tpu_torch.ops.plan import (
     OPERATION_NAMES,
     ImagePlan,
     choose_decode_shrink,
+    fuse_adjacent_shrinking_samples,
     plan_operation,
     wrap_plan_yuv420,
 )
+from imaginary_tpu_torch.params import ParamError, build_params_from_operation
+
+MAX_PIPELINE_OPERATIONS = 10  # ref: image.go:383-385
 
 # Type values under which a request's output stays JPEG ("" and "auto"
 # inherit a JPEG source) — the packed-YUV420 transport gate.
@@ -125,8 +132,11 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
 
     meta: an ImageMetadata the caller already probed, so the hot path
     parses headers once. runner: see `_run_stages`."""
+    if name == "pipeline":
+        return process_pipeline(buf, o, device=device, meta=meta, runner=runner)
     if name not in OPERATION_NAMES:
         raise new_error(f"Unsupported operation: {name}", 400)
+    _fetch_watermark(name, o)
     src_type = determine_image_type(buf)
     if meta is None and src_type is ImageType.JPEG:
         try:
@@ -215,3 +225,110 @@ def _pick_shrink(name: str, src_type: ImageType, o: ImageOptions, meta) -> int:
     except (ImageError, NotImplementedError):
         return 1
 
+
+
+def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
+                     runner=None) -> ProcessedImage:
+    """Fused multi-op pipeline (ref: Pipeline, image.go:379-410).
+
+    All ops' stages concatenate into ONE chain; `ignore_failure` skips an
+    op whose planning fails (the reference skips ops whose execution
+    fails; planning is where the validation happens)."""
+    if not o.operations:
+        raise new_error("Missing pipeline operations", 400)
+    if len(o.operations) > MAX_PIPELINE_OPERATIONS:
+        raise new_error(f"Maximum pipeline operations ({MAX_PIPELINE_OPERATIONS}) exceeded", 400)
+    src_type = determine_image_type(buf)
+    if meta is None and src_type is ImageType.JPEG:
+        try:
+            meta = codecs.probe_fast(buf)
+        except ImageError:
+            meta = None  # the decode below raises the user-facing error
+
+    # Shrink-on-load keyed to the FIRST op: its planner proof keeps that
+    # op's output dims at 1/N decode, and every later op sees only them.
+    shrink = 1
+    first = o.operations[0]
+    if first.name in OPERATION_NAMES:
+        try:
+            shrink = _pick_shrink(first.name, src_type, build_params_from_operation(first), meta)
+        except ParamError:
+            shrink = 1
+
+    # The packed transport only pays off when the OUTPUT is JPEG too: any
+    # op requesting another type keeps the whole request on the RGB path.
+    ops_keep_jpeg = all(
+        (op.params or {}).get("type") in (None,) + _JPEG_TYPE_NAMES
+        for op in o.operations
+    )
+    if ops_keep_jpeg and _yuv_eligible(src_type, meta, o):
+        sh = -(-meta.height // shrink)
+        sw = -(-meta.width // shrink)
+        got = _decode_yuv_packed(buf, shrink, sh, sw)
+        if got is not None:
+            packed, hb, wb = got
+            combined, final_o, target, rotated, strip = _build_pipeline_plan(
+                o, sh, sw, meta.orientation, 3, ImageType.JPEG)
+            if not combined.stages:
+                planes = codecs.unpack_planes(packed, sh, sw, hb, wb)
+                out = _encode(planes, final_o, target)
+            else:
+                wrapped = wrap_plan_yuv420(combined, sh, sw)
+                out = _encode(_run_stages(packed, wrapped, device, runner), final_o, target)
+            return _carry_metadata(buf, strip, out, rotated, combined.out_w, combined.out_h)
+
+    d = codecs.decode(buf, shrink)
+    combined, final_o, target, rotated, strip = _build_pipeline_plan(
+        o, d.array.shape[0], d.array.shape[1], d.orientation, d.array.shape[2], d.type)
+    arr = _run_stages(d.array, combined, device, runner)
+    out = _encode(arr, final_o, target)
+    return _carry_metadata(buf, strip, out, rotated, combined.out_w, combined.out_h)
+
+
+def _build_pipeline_plan(o, cur_h, cur_w, orientation, channels, src_type):
+    """Concatenate every op's stages into one combined plan (host math
+    only, so both transports share it). Returns (plan, the last op's
+    options, the output type, whether the EXIF rotation was applied, and
+    whether any op strips metadata)."""
+    src_h0, src_w0 = cur_h, cur_w
+    stages: list = []
+    final_o = o
+    target = _encode_type(o, src_type)
+    orientation_applied = False
+    # stripmeta on ANY op (or top-level) strips: the reference re-encodes
+    # per op, so a mid-chain StripMetadata removes metadata for good
+    strip = o.strip_metadata
+    for i, op in enumerate(o.operations):
+        if op.name not in OPERATION_NAMES:  # info/pipeline are not nestable
+            raise new_error(f"Unsupported operation: {op.name}", 400)
+        try:
+            op_opts = build_params_from_operation(op)
+        except ParamError as e:
+            raise new_error(f"pipeline operation {i+1} failed: {e}", 400) from None
+        try:
+            _fetch_watermark(op.name, op_opts)
+            plan = _plan(op.name, op_opts, cur_h, cur_w, orientation, channels)
+        except ImageError:
+            if op.ignore_failure:
+                continue
+            raise
+        if orientation > 1 and not op_opts.no_rotation:
+            orientation_applied = True
+        strip = strip or op_opts.strip_metadata
+        stages.extend(plan.stages)
+        cur_h, cur_w = plan.out_h, plan.out_w
+        orientation = 0  # EXIF applies once; later ops see upright pixels
+        final_o = op_opts
+        if op_opts.type:
+            target = _encode_type(op_opts, src_type)
+    stages = fuse_adjacent_shrinking_samples(stages, src_h0, src_w0)
+    return (ImagePlan(stages=stages, out_h=cur_h, out_w=cur_w), final_o,
+            target, orientation_applied, strip)
+
+
+def _fetch_watermark(name: str, o: ImageOptions) -> None:
+    """watermarkImage needs its image fetched from a URL, and URL sources
+    are not ported yet: 501 (an empty `image` is the planner's 400)."""
+    if name == "watermarkImage" and o.image:
+        raise new_error("watermarkImage (URL sources) is not ported to the "
+                        "PyTorch/CUDA package yet", 501)

@@ -6,9 +6,12 @@ method, path, query, headers and body and returns a `Response`, and
 `web/app.py` binds it to the standard library's HTTP server. It keeps the
 reference's param parsing, error JSON and status codes.
 
-Served: `/`, `/health`, `/resize`, `/crop`, `/thumbnail`, `/rotate`,
-`/autorotate`, `/flip` and `/flop`. The reference's other operation
-routes answer 501 until their slice lands. Requests run concurrently on
+Served: `/`, `/health`, `/resize`, `/fit`, `/enlarge`, `/extract`,
+`/crop`, `/thumbnail`, `/zoom`, `/rotate`, `/autorotate`, `/flip`,
+`/flop`, `/convert`, `/blur`, `/watermark` and `/pipeline`, on JPEG (the
+native codec) and PNG, WEBP, GIF and TIFF (Pillow) sources and targets.
+The reference's other routes (`/smartcrop`, `/watermarkimage`, `/info`)
+answer 501 until their slice lands. Requests run concurrently on
 the server's threads: decode and encode on the request's own thread, the
 device work through one micro-batching `Executor` per service, which
 groups concurrent requests that share a chain into one launch.
@@ -56,8 +59,9 @@ MAX_BODY_SIZE = 1 << 26  # 64 MB (ref: source_body.go:13)
 FORM_FIELD = "file"  # ref: source_body.go:12
 MAX_ALLOWED_MPIX = 18.0  # ref: imaginary.go:36
 
-SERVED_OPERATIONS = ("resize", "crop", "thumbnail", "rotate", "autorotate",
-                     "flip", "flop")
+SERVED_OPERATIONS = ("resize", "fit", "enlarge", "extract", "crop",
+                     "thumbnail", "zoom", "rotate", "autorotate", "flip",
+                     "flop", "convert", "blur", "watermark", "pipeline")
 # The reference's image routes (ref: OperationsMap, image.go:15-32, plus
 # /info and /pipeline): known here so they answer 501, not 404.
 REFERENCE_OPERATIONS = (
@@ -156,6 +160,7 @@ class ImageService:
             "pid": os.getpid(),
             "device": str(self.device),
             "kernelLaunches": dict(kernels.LAUNCHES),
+            "codecs": codecs.routes(),
             "executor": self.executor.stats.to_dict(),
         }
         if self.device.type == "cuda":

@@ -1,0 +1,138 @@
+"""The port's codec layer held against the JAX package's on the CPU.
+
+PNG, WEBP and GIF decode go through Pillow in the port (`pil_backend`) and
+must give the reference's `codecs.decode` arrays exactly (the formats are
+lossless, or decode deterministically); PNG, TIFF and GIF encodes round
+trip exactly, WEBP within a PSNR bound. The backend is picked by format,
+never by failure: a bad JPEG stays a native-codec error, HEIF/AVIF/SVG/PDF
+answer 501, and the decompression-bomb gate refuses an over-cap PNG before
+decoding it.
+"""
+
+from __future__ import annotations
+
+import io
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from imaginary_tpu import codecs as jcodecs
+from imaginary_tpu_torch import codecs as pcodecs
+from imaginary_tpu_torch.codecs import EncodeOptions, pil_backend
+from imaginary_tpu_torch.errors import ImageError
+from imaginary_tpu_torch.imgtype import ImageType
+from tests.conftest import fixture_bytes, psnr
+
+
+def _png(arr: np.ndarray) -> bytes:
+    out = io.BytesIO()
+    Image.fromarray(arr).save(out, "PNG")
+    return out.getvalue()
+
+
+def _sources() -> dict:
+    rng = np.random.default_rng(7)
+    rgb = rng.integers(0, 256, size=(37, 53, 3), dtype=np.uint8)
+    rgba = rng.integers(0, 256, size=(29, 41, 4), dtype=np.uint8)
+    gray = rng.integers(0, 256, size=(23, 31), dtype=np.uint8)
+    pal = Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE, colors=16)
+    out = io.BytesIO()
+    pal.save(out, "PNG", transparency=3)
+    return {
+        "png-rgb": _png(rgb),
+        "png-rgba": _png(rgba),
+        "png-gray": _png(gray),
+        "png-palette-transparent": out.getvalue(),
+        "test.png": fixture_bytes("test.png"),
+        "test.webp": fixture_bytes("test.webp"),
+        "test.gif": fixture_bytes("test.gif"),
+    }
+
+
+SOURCES = sorted(_sources())
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_decode_equals_reference(name):
+    buf = _sources()[name]
+    want = jcodecs.decode(buf)
+    got = pcodecs.decode(buf)
+    assert got.array.dtype == np.uint8 and got.array.shape == want.array.shape
+    assert np.array_equal(got.array, want.array)
+    assert (got.type.value, got.orientation, got.has_alpha) == \
+        (want.type.value, want.orientation, want.has_alpha)
+
+
+@pytest.mark.parametrize("name", SOURCES)
+def test_probe_fast_equals_reference_dims(name):
+    buf = _sources()[name]
+    want = jcodecs.probe_fast(buf)
+    got = pcodecs.probe_fast(buf)
+    assert (got.width, got.height, got.type, got.has_alpha, got.channels) == \
+        (want.width, want.height, want.type, want.has_alpha, want.channels)
+
+
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("fmt", ["png", "tiff", "gif", "webp"])
+def test_encode_round_trips(fmt, c):
+    yy, xx = np.mgrid[0:48, 0:64]
+    arr = np.stack([xx * 4, yy * 5, (xx + yy) * 2] + ([255 - yy * 3] if c == 4 else []),
+                   axis=-1).astype(np.uint8)
+    if fmt == "gif":
+        # GIF holds 256 colours: encode an image that has fewer
+        arr = (arr // 64 * 64).astype(np.uint8)[..., :3]
+    arr = np.ascontiguousarray(arr)
+    t = {"png": ImageType.PNG, "tiff": ImageType.TIFF, "gif": ImageType.GIF,
+         "webp": ImageType.WEBP}[fmt]
+    body = pcodecs.encode(arr, EncodeOptions(type=t))
+    back = pcodecs.decode(body).array
+    assert pcodecs.decode(body).type is t
+    if fmt == "webp":
+        assert back.shape[:2] == arr.shape[:2] and psnr(back[..., :3], arr[..., :3]) >= 30.0
+    else:
+        assert np.array_equal(back, arr)
+
+
+def test_routes_pick_the_backend_by_format():
+    assert pcodecs.routes() == {"jpeg": "native", "png": "pil", "webp": "pil",
+                                "gif": "pil", "tiff": "pil"}
+
+
+def test_a_bad_jpeg_never_retries_in_pillow(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("Pillow was asked to decode a JPEG")
+
+    monkeypatch.setattr(pil_backend, "decode", boom)
+    buf = b"\xff\xd8\xff\xe0" + bytes(range(256)) * 4  # a JPEG marker, then junk
+    with pytest.raises(ImageError) as e:
+        pcodecs.decode(buf)
+    assert e.value.code == 400 and "Cannot decode image" in e.value.message
+
+
+@pytest.mark.parametrize("fixture", ["button.svg", "test.avif", "page.pdf"])
+def test_unported_formats_answer_501(fixture):
+    with pytest.raises(ImageError) as e:
+        pcodecs.decode(fixture_bytes(fixture))
+    assert e.value.code == 501 and "not ported" in e.value.message
+    with pytest.raises(ImageError) as e:
+        pcodecs.encode(np.zeros((4, 4, 3), np.uint8), EncodeOptions(type=ImageType.AVIF))
+    assert e.value.code == 501
+
+
+def test_bomb_gate_refuses_an_over_cap_png_before_decoding(monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the gate let the decode run")
+
+    buf = fixture_bytes("test.png")  # 512x512: 0.26 megapixels
+    token = pcodecs.set_decode_pixel_cap(0.2)
+    try:
+        monkeypatch.setattr(pil_backend, "decode", boom)
+        with pytest.raises(ImageError) as e:
+            pcodecs.decode(buf)
+        assert e.value.code == 413 and "megapixel decode limit" in e.value.message
+        monkeypatch.undo()
+        pcodecs.set_decode_pixel_cap(0.3)
+        assert pcodecs.decode(buf).array.shape == (512, 512, 3)
+    finally:
+        pcodecs._DECODE_PIXEL_CAP.reset(token)

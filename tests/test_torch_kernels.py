@@ -7,7 +7,9 @@ run only on the card: chip_smoke.py holds them against these same plain
 versions there). Tolerances: f32 outputs 1e-3 absolute on the 0-255
 scale (summation order differs); uint8 outputs at most 1 LSB (the
 truncating epilogue can flip at an exact .5 after such a difference);
-the orientation kernel (K5) moves data only, so it must be exact.
+the orientation kernel (K5) moves data only, so it must be exact. The
+blur (K6), composite (K7) and gray (K8) cases use images whose valid dims
+differ inside one batch and are no multiple of the block or bucket.
 """
 
 from __future__ import annotations
@@ -252,14 +254,139 @@ def test_orient_rejects_an_unknown_mode():
 
 
 @pytest.mark.parametrize("spec", [
-    pst.BlurSpec(4), pst.CompositeSpec(8, 8), pst.FromDctSpec(16, 16, 8),
-    pst.ToDctSpec(16, 16), pst.GraySpec(), pst.SmartExtractSpec(8, 8),
+    pst.FromDctSpec(16, 16, 8), pst.ToDctSpec(16, 16), pst.SmartExtractSpec(8, 8),
 ], ids=lambda s: type(s).__name__)
 def test_off_path_specs_raise_not_implemented_naming_the_spec(spec):
     x = torch.zeros((1, 16, 16, 3))
     with pytest.raises(NotImplementedError, match=type(spec).__name__):
         spec.apply(x, torch.tensor([16], dtype=torch.int32),
                    torch.tensor([16], dtype=torch.int32), {})
+
+
+# K6: (radius, sigma) with sigma 0 (the delta), small, near the radius and
+# far beyond it (the taps flatten into a box)
+BLUR_CASES = [(r, s) for r in (2, 4, 64) for s in (0.0, 0.7, 3.0, 40.0)]
+
+
+def _blur_inputs(rng, c, sigma):
+    """Three images of different valid dims in a 40x56 bucket, none a
+    multiple of 8, one with a single valid column; per-image sigma."""
+    x = _img(rng, 3, 40, 56, c)
+    h, w = _i32(40, 33, 17), _i32(56, 41, 1)
+    sig = _f32(sigma, sigma * 0.5, sigma * 1.5)
+    return x, h, w, sig
+
+
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("radius,sigma", BLUR_CASES,
+                         ids=[f"r{r}-s{s:g}" for r, s in BLUR_CASES])
+def test_blur_matches_reference(radius, sigma, c):
+    rng = np.random.default_rng(radius * 100 + int(sigma * 10) + c)
+    x, h, w, sig = _blur_inputs(rng, c, sigma)
+    want, wh, ww = _japply(jst.BlurSpec(radius), x, h, w, {"sigma": sig})
+    got, gh, gw = pst.BlurSpec(radius).apply(_t(x), _t(h), _t(w), {"sigma": _t(sig)})
+    assert got.dtype == torch.float32 and tuple(got.shape) == x.shape
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= F32_TOL
+    assert np.array_equal(gh.numpy(), np.asarray(wh)) and np.array_equal(gw.numpy(), np.asarray(ww))
+    # zero outside each image's valid region, padding included
+    assert not got.numpy()[1, 33:].any() and not got.numpy()[2, :, 1:].any()
+
+
+@pytest.mark.parametrize("c", [3, 4])
+def test_blur_uint8_in_and_out_match_cast_and_epilogue(c):
+    """/blur on a PNG starts its chain with the blur (uint8 in), and a blur
+    may end a chain (the epilogue fused)."""
+    rng = np.random.default_rng(30 + c)
+    x = rng.integers(0, 256, size=(3, 40, 56, c), dtype=np.uint8)
+    h, w = _i32(40, 29, 11), _i32(56, 50, 23)
+    sig = _f32(1.2, 0.0, 2.5)
+    want, _, _ = _japply(jst.BlurSpec(4), x.astype(np.float32), h, w, {"sigma": sig})
+    got, _, _ = pst.BlurSpec(4).apply(_t(x), _t(h), _t(w), {"sigma": _t(sig)})
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= F32_TOL
+    got_u8, _, _ = pst.BlurSpec(4).apply(_t(x), _t(h), _t(w), {"sigma": _t(sig)}, out_u8=True)
+    assert got_u8.dtype == torch.uint8
+    diff = np.abs(got_u8.numpy().astype(int) - _jax_epilogue(want).astype(int))
+    assert diff.max() <= U8_TOL
+
+
+def test_blur_rejects_a_radius_beyond_64():
+    x = torch.zeros((1, 8, 8, 3))
+    i = torch.tensor([8], dtype=torch.int32)
+    with pytest.raises(ValueError, match="radius"):
+        kernels.blur(x, i, i, torch.tensor([1.0]), 65)
+
+
+# K7: (replicate, top/left per image): offsets inside the block, past it
+# (the tile wraps upward and leftward: floored remainder), and a placed
+# block that overhangs the valid region and the bucket
+COMPOSITE_CASES = [
+    (True, (0, 5), (0, 7)),
+    (True, (29, 3), (61, 50)),
+    (False, (2, 30), (4, 40)),
+    (False, (21, 0), (47, 53)),
+]
+
+
+def _composite_dyn(rng, bsz, tops, lefts):
+    return {
+        "overlay": rng.uniform(0.0, 255.0, size=(bsz, 8, 16, 4)).astype(np.float32),
+        "top": _i32(*tops), "left": _i32(*lefts),
+        "opacity": _f32(0.5, 1.7)[:bsz], "block_h": _i32(7, 8)[:bsz],
+        "block_w": _i32(13, 16)[:bsz],
+    }
+
+
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("replicate,tops,lefts", COMPOSITE_CASES,
+                         ids=[f"{'tile' if c[0] else 'place'}-{c[1][0]}-{c[2][0]}"
+                              for c in COMPOSITE_CASES])
+def test_composite_matches_reference(replicate, tops, lefts, c):
+    rng = np.random.default_rng(sum(tops) + sum(lefts) + c)
+    x = _img(rng, 2, 24, 56, c)
+    h, w = _i32(21, 24), _i32(53, 37)
+    dyn = _composite_dyn(rng, 2, tops, lefts)
+    spec_j = jst.CompositeSpec(8, 16, replicate)
+    spec_p = pst.CompositeSpec(8, 16, replicate)
+    want, _, _ = _japply(spec_j, x, h, w, dyn)
+    got, _, _ = spec_p.apply(_t(x), _t(h), _t(w), {k: _t(v) for k, v in dyn.items()})
+    assert got.dtype == torch.float32 and tuple(got.shape) == x.shape
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= F32_TOL
+    if c == 4:
+        assert np.array_equal(got.numpy()[..., 3], x[..., 3])
+
+
+@pytest.mark.parametrize("replicate", [True, False])
+def test_composite_uint8_in_and_out_match_cast_and_epilogue(replicate):
+    rng = np.random.default_rng(40 + replicate)
+    x = rng.integers(0, 256, size=(2, 24, 56, 3), dtype=np.uint8)
+    h, w = _i32(24, 19), _i32(56, 31)
+    dyn = _composite_dyn(rng, 2, (3, 9), (11, 2))
+    want, _, _ = _japply(jst.CompositeSpec(8, 16, replicate), x.astype(np.float32), h, w, dyn)
+    pdyn = {k: _t(v) for k, v in dyn.items()}
+    spec = pst.CompositeSpec(8, 16, replicate)
+    got, _, _ = spec.apply(_t(x), _t(h), _t(w), pdyn)
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= F32_TOL
+    got_u8, _, _ = spec.apply(_t(x), _t(h), _t(w), pdyn, out_u8=True)
+    diff = np.abs(got_u8.numpy().astype(int) - _jax_epilogue(want).astype(int))
+    assert got_u8.dtype == torch.uint8 and diff.max() <= U8_TOL
+
+
+@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("u8", [False, True], ids=["f32", "u8"])
+def test_gray_matches_reference(c, u8):
+    rng = np.random.default_rng(50 + c)
+    xf = _img(rng, 2, 24, 40, c)
+    x = xf.astype(np.uint8) if u8 else xf
+    h, w = _i32(24, 17), _i32(40, 9)
+    want, _, _ = _japply(jst.GraySpec(), x.astype(np.float32), h, w, {})
+    got, _, _ = pst.GraySpec().apply(_t(x), _t(h), _t(w), {}, out_u8=u8)
+    if u8:
+        diff = np.abs(got.numpy().astype(int) - _jax_epilogue(want).astype(int))
+        assert got.dtype == torch.uint8 and diff.max() <= U8_TOL
+    else:
+        assert np.abs(got.numpy() - np.asarray(want)).max() <= F32_TOL
+    if c == 4:
+        assert np.array_equal(got.numpy()[..., 3].astype(np.float32), x[..., 3].astype(np.float32))
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
@@ -273,8 +400,11 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.yuv420_to_rgb(torch.zeros((1, 24, 16, 1), dtype=torch.uint8), i, i, 16, 16)
     for mode in ("flip", "flop", "transpose"):
         kernels.orient(x, i, i, mode)
+    kernels.blur(x, i, i, f, 4)
+    kernels.composite(x, torch.zeros((1, 8, 8, 4)), i, i, f, i, i, True)
+    kernels.gray(x)
     assert set(kernels.LAUNCHES) == {"resample", "yuv420_unpack", "yuv420_pack",
-                                     "gather", "orient"}
+                                     "gather", "orient", "blur", "composite", "gray"}
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 

@@ -7,7 +7,13 @@
 - the port's packed 4:2:0 decode byte-equal to the reference's;
 - `process_operation` on the 1080p main-path JPEG, and on an EXIF-rotated
   JPEG: the reference's dimensions and metadata, and PSNR >= 45 dB against
-  the reference's output.
+  the reference's output;
+- `process_pipeline` (BASELINE config 3's chain on a small PNG, the 1080p
+  JPEG /pipeline chain, ignore_failure, the operation-count limits) and
+  /blur, /watermark, /convert, colorspace=bw, /fit, /enlarge, /extract and
+  /zoom through `process_operation`: each package's chain output (the
+  array it encodes) within 1 LSB of the other's, same dims and MIME type;
+  the lossy WEBP at PSNR >= 30 dB against that array.
 """
 
 from __future__ import annotations
@@ -244,6 +250,169 @@ def test_process_operation_maps_unported_stages_to_501(large):
     from imaginary_tpu_torch.errors import ImageError
 
     with pytest.raises(ImageError) as e:
-        ppipeline.process_operation("resize", large, pquery({"width": "300", "sigma": "2"}),
+        ppipeline.process_operation("smartcrop", large, pquery({"width": "300", "height": "200"}),
                                     device="cpu")
-    assert e.value.code == 501 and "BlurSpec" in e.value.message
+    assert e.value.code == 501 and "SmartExtractSpec" in e.value.message
+
+
+# --- /pipeline and the slice-3 routes ----------------------------------------
+
+def _png(seed: int, h: int = 270, w: int = 480, c: int = 3) -> bytes:
+    """A seeded test pattern with noise, as PNG."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    chans = [xx * 255 // w, yy * 255 // h, (xx // 8 + yy // 8) * 16 % 256, 255 - yy * 200 // h]
+    img = np.stack(chans[:c], axis=-1) + rng.integers(-6, 7, size=(h, w, c))
+    out = io.BytesIO()
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(out, "PNG")
+    return out.getvalue()
+
+
+def _ops(*ops) -> dict:
+    import json
+
+    return {"operations": json.dumps(list(ops))}
+
+
+def _both(name, buf, query):
+    """(reference result, port result, reference pre-encode arrays, port
+    pre-encode arrays): each package's process_operation with a runner
+    that records what its chain returned."""
+    jseen, pseen = [], []
+
+    def jrun(arr, plan):
+        jseen.append(jchain.run_single(arr, plan))
+        return jseen[-1]
+
+    def prun(arr, plan):
+        pseen.append(pchain.run_single(arr, plan, device="cpu"))
+        return pseen[-1]
+
+    want = jpipeline.process_operation(name, buf, jquery(query), runner=jrun)
+    got = ppipeline.process_operation(name, buf, pquery(query), device="cpu", runner=prun)
+    return want, got, jseen, pseen
+
+
+def _assert_same_result(want, got, jseen, pseen):
+    assert got.mime == want.mime
+    assert (got.width, got.height) == (want.width, want.height)
+    assert len(jseen) == len(pseen)
+    for a, b in zip(pseen, jseen):
+        assert _max_lsb(a, b) <= U8_TOL
+
+
+CONFIG3 = [
+    {"operation": "resize", "params": {"width": 1280}},
+    {"operation": "blur", "params": {"sigma": 1.2}},
+    {"operation": "watermark", "params": {"text": "bench", "opacity": 0.5}},
+    {"operation": "convert", "params": {"type": "webp"}},
+]
+JPEG_PIPELINE = [
+    {"operation": "crop", "params": {"width": 1600, "height": 900}},
+    {"operation": "resize", "params": {"width": 640}},
+    {"operation": "blur", "params": {"sigma": 1.5}},
+    {"operation": "convert", "params": {"type": "jpeg"}},
+]
+
+
+@pytest.mark.parametrize("width", [160, 1280])
+def test_pipeline_config3_chain_matches_reference(width):
+    """BASELINE config 3's chain on a small PNG: the resize to 1/3 of the
+    width as config 3 does at 4K, and the exact width 1280."""
+    ops = [dict(CONFIG3[0], params={"width": width})] + CONFIG3[1:]
+    want, got, jseen, pseen = _both("pipeline", _png(3), _ops(*ops))
+    _assert_same_result(want, got, jseen, pseen)
+    assert got.mime == "image/webp" and len(pseen) == 1
+    # the lossy WEBP decodes within a bound of the chain's own array
+    dec = np.asarray(Image.open(io.BytesIO(got.body)).convert("RGB"))
+    assert dec.shape == pseen[0].shape and psnr(dec, pseen[0]) >= 30.0
+
+
+def test_pipeline_jpeg_chain_on_the_yuv_transport_matches_reference(large):
+    want, got, jseen, pseen = _both("pipeline", large, _ops(*JPEG_PIPELINE))
+    _assert_same_result(want, got, jseen, pseen)
+    assert hasattr(pseen[0], "y") and (got.width, got.height) == (640, 360)
+    assert psnr(_pixels(got.body), _pixels(want.body)) >= 45.0
+
+
+@pytest.mark.parametrize("ignore", [True, False])
+def test_pipeline_ignore_failure_skips_an_op_that_fails_planning(ignore):
+    from imaginary_tpu.errors import ImageError as JImageError
+    from imaginary_tpu_torch.errors import ImageError
+
+    ops = [{"operation": "resize", "params": {"width": 200}},
+           {"operation": "crop", "params": {}, "ignore_failure": ignore},
+           {"operation": "flip", "params": {}}]
+    buf = _png(5)
+    if ignore:
+        _assert_same_result(*_both("pipeline", buf, _ops(*ops)))
+        return
+    with pytest.raises(JImageError) as je:
+        jpipeline.process_operation("pipeline", buf, jquery(_ops(*ops)))
+    with pytest.raises(ImageError) as pe:
+        ppipeline.process_operation("pipeline", buf, pquery(_ops(*ops)), device="cpu")
+    assert (pe.value.code, pe.value.message) == (je.value.code, je.value.message) == \
+        (400, "Missing required param: height or width")
+
+
+@pytest.mark.parametrize("n_ops", [0, 11])
+def test_pipeline_operation_count_limits_match_reference(n_ops):
+    from imaginary_tpu.errors import ImageError as JImageError
+    from imaginary_tpu_torch.errors import ImageError
+
+    query = _ops(*[{"operation": "flip", "params": {}}] * n_ops) if n_ops else {}
+    buf = _png(6)
+    with pytest.raises(JImageError) as je:
+        jpipeline.process_operation("pipeline", buf, jquery(query))
+    with pytest.raises(ImageError) as pe:
+        ppipeline.process_operation("pipeline", buf, pquery(query), device="cpu")
+    assert (pe.value.code, pe.value.message) == (je.value.code, je.value.message)
+    assert pe.value.code == 400
+
+
+def test_pipeline_of_ten_operations_is_served():
+    ops = [{"operation": "flip", "params": {}}, {"operation": "flop", "params": {}}] * 5
+    _assert_same_result(*_both("pipeline", _png(7), _ops(*ops)))
+
+
+@pytest.mark.parametrize("where", ["alone", "in-pipeline"])
+def test_watermark_image_answers_501(where):
+    from imaginary_tpu_torch.errors import ImageError
+
+    q = {"image": "http://example.invalid/mark.png"}
+    name, query = ("watermarkImage", q) if where == "alone" else \
+        ("pipeline", _ops({"operation": "resize", "params": {"width": 100}},
+                          {"operation": "watermarkImage", "params": q}))
+    with pytest.raises(ImageError) as e:
+        ppipeline.process_operation(name, _png(8), pquery(query), device="cpu")
+    assert e.value.code == 501
+
+
+# (operation, query, source): the slice's routes, colorspace=bw through
+# K8 on both transports and on an RGBA PNG, and the routes this slice
+# serves with K1 and K4 alone
+ROUTES = [
+    ("blur", {"sigma": "2"}, "png"),
+    ("blur", {"sigma": "1.5", "minampl": "0.1"}, "jpg"),
+    ("watermark", {"text": "imaginary port", "opacity": "0.6"}, "png"),
+    ("watermark", {"text": "once", "noreplicate": "true", "margin": "12",
+                   "color": "255,0,0", "font": "sans bold 14"}, "png-rgba"),
+    ("convert", {"type": "webp"}, "png"),
+    ("convert", {"type": "png"}, "jpg"),
+    ("resize", {"width": "300", "colorspace": "bw"}, "jpg"),
+    ("resize", {"width": "200", "colorspace": "bw", "type": "png"}, "png-rgba"),
+    ("fit", {"width": "300", "height": "300"}, "jpg"),
+    ("enlarge", {"width": "2400", "height": "1400"}, "jpg"),
+    ("extract", {"top": "40", "left": "60", "areawidth": "500", "areaheight": "300"}, "jpg"),
+    ("zoom", {"factor": "2"}, "png"),
+]
+
+
+@pytest.mark.parametrize("op,query,src", ROUTES,
+                         ids=[f"{r[0]}-{r[2]}-{i}" for i, r in enumerate(ROUTES)])
+def test_route_matrix_matches_reference(large, op, query, src):
+    buf = {"png": _png(9), "png-rgba": _png(10, c=4), "jpg": large}[src]
+    want, got, jseen, pseen = _both(op, buf, query)
+    _assert_same_result(want, got, jseen, pseen)
+    if got.mime in ("image/png", "image/jpeg") and src != "jpg":
+        assert psnr(_pixels(got.body), _pixels(want.body)) >= 45.0

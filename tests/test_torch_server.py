@@ -2,10 +2,12 @@
 from the JAX package.
 
 The server answers the reference's status codes and error JSON: 200 for
-/resize, /crop, /thumbnail, /rotate, /autorotate, /flip and /flop (raw
-body, multipart `file` field, or ?file= under --mount), 400 for bad
-params, 404 for unknown paths, 405 for GET without a mount, 406 for
-non-images, 501 for routes and stages not ported yet. Concurrent requests
+/resize, /crop, /thumbnail, /rotate, /autorotate, /flip, /flop, /fit,
+/enlarge, /extract, /zoom, /convert, /blur, /watermark and /pipeline
+(raw body, multipart `file` field, or ?file= under --mount; JPEG, PNG,
+WEBP and GIF in and out), 400 for bad params, 404 for unknown paths, 405
+for GET without a mount, 406 for non-images, 501 for routes, stages and
+formats not ported yet. Concurrent requests
 get the bodies they get alone. The port must import neither `jax` nor
 `imaginary_tpu` (checked in a fresh interpreter and by a scan of its
 sources).
@@ -20,6 +22,7 @@ import subprocess
 import sys
 import threading
 import urllib.error
+import urllib.parse
 import urllib.request
 import uuid
 
@@ -104,8 +107,13 @@ ERRORS = [
     ("/resize?width=300", "1024bytes", 406, "Unsupported media type"),
     ("/nope?width=300", "large.jpg", 404, "Not found"),
     ("/smartcrop?width=300&height=200", "large.jpg", 501, "Not implemented endpoint"),
-    ("/resize?width=300&sigma=2", "large.jpg", 501, None),
-    ("/resize?width=300", "test.png", 501, None),
+    ("/watermarkimage?image=http://example.invalid/m.png", "large.jpg", 501,
+     "Not implemented endpoint"),
+    ("/pipeline?operations=" + urllib.parse.quote(
+        '[{"operation": "smartcrop", "params": {"width": 300, "height": 200}}]'),
+     "large.jpg", 501, None),
+    ("/resize?width=300", "button.svg", 501, None),
+    ("/pipeline", "test.png", 400, "Missing pipeline operations"),
 ]
 
 
@@ -137,6 +145,38 @@ ORIENT_ROUTES = [
 def test_orientation_routes_serve_jpeg(server, path, fixture, dims):
     status, ctype, body = _req(server, path, fixture_bytes(fixture))
     assert (status, ctype) == (200, "image/jpeg")
+    assert _dims(body) == dims
+
+
+_CONFIG3_OPS = urllib.parse.quote(
+    '[{"operation": "resize", "params": {"width": 1280}},'
+    ' {"operation": "blur", "params": {"sigma": 1.2}},'
+    ' {"operation": "watermark", "params": {"text": "bench", "opacity": 0.5}},'
+    ' {"operation": "convert", "params": {"type": "webp"}}]')
+
+# (path, fixture, content type, decoded output (h, w)); test.png and
+# test.webp are 512x512, test.gif 240x320
+SLICE3_ROUTES = [
+    # config 3 on a 512x512 PNG: 1280x512, as the JAX package answers
+    ("/pipeline?operations=" + _CONFIG3_OPS, "test.png", "image/webp", (512, 1280)),
+    ("/blur?sigma=2", "test.png", "image/png", (512, 512)),
+    ("/watermark?text=port&opacity=0.5", "test.webp", "image/webp", (512, 512)),
+    ("/convert?type=webp", "large.jpg", "image/webp", (1080, 1920)),
+    ("/convert?type=png", "test.gif", "image/png", (240, 320)),
+    ("/resize?width=300&colorspace=bw", "large.jpg", "image/jpeg", (169, 300)),
+    ("/fit?width=300&height=300", "large.jpg", "image/jpeg", (169, 300)),
+    ("/enlarge?width=2400&height=1400", "large.jpg", "image/jpeg", (1400, 2400)),
+    ("/extract?top=10&left=20&areawidth=300&areaheight=200", "large.jpg", "image/jpeg",
+     (200, 300)),
+    ("/zoom?factor=2", "test.gif", "image/gif", (480, 640)),
+]
+
+
+@pytest.mark.parametrize("path,fixture,ctype,dims", SLICE3_ROUTES,
+                         ids=[r[0].split("?")[0].strip("/") + "-" + r[1] for r in SLICE3_ROUTES])
+def test_slice3_routes_serve_their_formats(server, path, fixture, ctype, dims):
+    status, got_ctype, body = _req(server, path, fixture_bytes(fixture))
+    assert (status, got_ctype) == (200, ctype)
     assert _dims(body) == dims
 
 
@@ -197,7 +237,9 @@ def test_index_and_health(server):
     stats = json.loads(body)
     assert status == 200 and stats["device"] == "cpu"
     assert set(stats["kernelLaunches"]) == {"resample", "yuv420_unpack", "yuv420_pack",
-                                            "gather", "orient"}
+                                            "gather", "orient", "blur", "composite", "gray"}
+    assert stats["codecs"] == {"jpeg": "native", "png": "pil", "webp": "pil",
+                               "gif": "pil", "tiff": "pil"}
     ex = stats["executor"]
     assert {"items", "batches", "groups", "avg_batch", "max_group", "queue_depth",
             "device_failures", "batch_form_p99_ms", "dispatch_wait_p99_ms"} <= set(ex)
