@@ -8,8 +8,9 @@ It drives the port (`imaginary_tpu_torch`) and never JAX or `imaginary_tpu`.
 Phases, in order; any failure raises and exits non-zero:
 
 1. environment: card name and power limit, torch and CUDA versions;
-2. build: the eight CUDA kernels (nvcc, sm_90a, in parallel) and the
-   native JPEG codec (g++), with the time each took;
+2. build: the eleven CUDA sources of the twelve kernels (nvcc, sm_90a, in
+   parallel), the native JPEG codec and the native entropy codec of the
+   DCT transport (g++), with the time each took;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (config 1: B=1 and B=16; config 2's orientation
    kernel: the /rotate chain's 1080p buckets at B=1 and B=32, and uint8
@@ -17,9 +18,17 @@ Phases, in order; any failure raises and exits non-zero:
    4K PNG's uint8 [1, 2560, 4096, 3] bucket, the blur (K6) at
    [B, 736, 1280, 3] for B=1 and 8 and at r=64, sigma=0 and uint8 input,
    the composite (K7) in both modes at C=3 and 4, the gray (K8) at C=3 and
-   4) and at full 1080p, with the stated tolerance (f32 outputs 1e-3
-   absolute on the 0-255 scale, uint8 outputs 1 LSB, the orientation
-   kernel exact), its median time from CUDA events, the plain version's
+   4) and at full 1080p; config 4's saliency (K9) and window argmax (K10)
+   at f32 [8, 320, 640, 3] and [1, 320, 640, 3] with mixed valid dims; the
+   IDCT (K11) on large.jpg's packed coefficients at 1080p 4:2:0 (k = 8)
+   and at the main path's shrink 4 (k = 2), and once each on 4:2:2,
+   4:4:4 and gray; the forward DCT (K12) at the 208x304 /resize output
+   and a 1088x1920 output; each with the stated tolerance (f32 outputs
+   1e-3 absolute on the 0-255 scale, uint8 outputs 1 LSB, the
+   orientation kernel exact, K9's integral image 1e-5 relative, K10's
+   offsets exact on K9's own integral image, K12's int16 within 1 with
+   at most 0.1 % of them differing), its median time from CUDA events,
+   the plain version's
    time, the least time the card could take (bytes over 3.35 TB/s or FLOPs
    over 67 TFLOP/s f32, whichever is larger) and, where one PyTorch call
    computes the same function, that call's time;
@@ -56,7 +65,27 @@ Phases, in order; any failure raises and exits non-zero:
    WEBP within a PSNR bound of the same chain's array on the CPU; p50/p99
    of one client, then requests per second, p50/p99 and the busy share
    from 8 client threads in three windows; and the host's Pillow PNG
-   decode and WEBP encode of the same bytes on the host clock.
+   decode and WEBP encode of the same bytes on the host clock;
+8. config 4's path (BASELINE.json config 4): the server (--max-batch 16
+   --batch-form-ms 5) serving /smartcrop?width=300&height=300 on
+   bench_firehose.py's stream (24 images from seed 11, 420-780 x
+   560-1100, JPEG / PNG / WEBP, a salient disc each), made here with
+   numpy and Pillow: one request at a time with the launch counters set
+   to 0 just before and read just after (equal to the plans'), then 16
+   clients in three timed windows and a profiled fourth (req/s, p50/p99,
+   mean batch, busy share), every answer under load byte-equal to the
+   same request alone; and for every image the card's window offsets
+   against the plain version's on the CPU (equal, or the card's window
+   holds the CPU window's saliency within 1e-5 relative, counted);
+9. the DCT transport: a server with --transport-dct
+   --transport-dct-egress serving /resize?width=300&height=200 (shrink
+   4, k = 2) and /resize?width=1600 (shrink 1, k = 8) on large.jpg, with
+   the launches held equal to the plans', the native entropy arm and no
+   request refused by the codec's scope gate; each served JPEG's
+   quantized coefficients within 1 (at most 0.1 % differing) of the same
+   request on the CPU, its pixels within 1 LSB wherever an MCU's
+   coefficients agree; and the host steps (entropy decode, chain,
+   entropy encode) on the host clock.
 
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
@@ -105,11 +134,21 @@ KERNEL_ROWS = {
                   "imaginary_tpu/ops/stages.py:283"),
     "gray": ("imaginary_tpu_torch/kernels/csrc/gray.cu",
              "imaginary_tpu/ops/stages.py:625"),
+    "saliency": ("imaginary_tpu_torch/kernels/csrc/saliency.cu",
+                 "imaginary_tpu/ops/saliency.py:20"),
+    "window_argmax": ("imaginary_tpu_torch/kernels/csrc/saliency.cu",
+                      "imaginary_tpu/ops/saliency.py:55"),
+    "from_dct": ("imaginary_tpu_torch/kernels/csrc/from_dct.cu",
+                 "imaginary_tpu/ops/stages.py:425"),
+    "to_dct": ("imaginary_tpu_torch/kernels/csrc/to_dct.cu",
+               "imaginary_tpu/ops/stages.py:555"),
 }
 # The kernels each main path runs.
 CONFIG1_KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather")
 CONFIG2_KERNELS = CONFIG1_KERNELS + ("orient",)
 CONFIG3_KERNELS = CONFIG1_KERNELS + ("blur", "composite", "gray")
+CONFIG4_KERNELS = ("resample", "gather", "saliency", "window_argmax")
+DCT_KERNELS = ("from_dct", "to_dct")
 
 
 def log(msg: str) -> None:
@@ -1145,6 +1184,8 @@ SPEC_LAUNCHES = {
     "ShrinkBucketSpec": {"gather": 1}, "FromYuv420Spec": {"yuv420_unpack": 1},
     "ToYuv420Spec": {"yuv420_pack": 1}, "FlipSpec": {"orient": 1},
     "FlopSpec": {"orient": 1}, "TransposeSpec": {"orient": 1},
+    "SmartExtractSpec": {"saliency": 2, "window_argmax": 1, "gather": 1},
+    "FromDctSpec": {"from_dct": 2}, "ToDctSpec": {"to_dct": 1},
 }
 
 
@@ -1350,12 +1391,602 @@ def config3_phase(png: bytes) -> dict:
     return out
 
 
+# --- phase 3 (slice 4): K9-K12 against their plain versions -----------------
+
+II_RTOL = 1e-5  # K9's integral image, relative per entry (sums in another order)
+WINDOW_RTOL = 1e-5  # a window's f64 saliency sum, relative
+COEF_TOL = 1  # K12's int16 coefficients
+COEF_SHARE = 1e-3  # at most this share of them may differ (rounding ties)
+CONFIG4_FRAME = (320, 640)  # large.jpg's /smartcrop input bucket (300x533 valid)
+CONFIG4_BATCHES = (1, 8)
+CONFIG4_WINDOW = 300
+
+
+def check_rel(name, got, want, results, case, rtol):
+    """Relative check per entry, |got - want| <= rtol |want|; records the
+    largest absolute and relative errors."""
+    d = (got.double() - want.double()).abs()
+    rel = float((d / want.double().abs().clamp_min(1e-30)).max())
+    if not bool((d <= rtol * want.double().abs()).all()):
+        raise AssertionError(f"{name} [{case}]: max relative err {rel} > {rtol}")
+    results.setdefault(name, {})[case] = {"max_abs_err": float(d.max()), "max_rel_err": rel}
+    return rel
+
+
+def config4_kernel_phase(res: dict) -> None:
+    """K9 and K10 at config 4's /smartcrop shape: the window chosen over
+    f32 [B, 320, 640, 3] (large.jpg's input to SmartExtractSpec, 300x533
+    valid) with per-image valid dims and a bright disc each. K10's offsets
+    must equal the plain version's on K9's own integral image exactly. No
+    single PyTorch call computes either (the saliency terms and two
+    prefix sums; a masked argmax over every window), so library_ms is
+    null."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    hb, wb = CONFIG4_FRAME
+    for bsz in CONFIG4_BATCHES:
+        x = torch.rand((bsz, hb, wb, 3), generator=gen, device=dev) * 255.0
+        i = torch.arange(bsz, dtype=torch.int32, device=dev)
+        h = (300 + 2 * i).to(torch.int32)
+        w = (533 - 29 * i).to(torch.int32)
+        yy = torch.arange(hb, device=dev)[None, :, None]
+        xx = torch.arange(wb, device=dev)[None, None, :]
+        cy, cx = (60 + 20 * i)[:, None, None], (120 + 37 * i)[:, None, None]
+        disc = ((yy - cy) ** 2 + (xx - cx) ** 2) <= 40 ** 2
+        x = torch.where(disc[..., None], torch.tensor([230.0, 40.0, 40.0], device=dev), x)
+        x = x.contiguous()
+        case = f"B{bsz}"
+        ii = kernels.saliency_ii(x, h, w)
+        check_rel("saliency", ii, reference.saliency_ii(x, h, w), res, case, II_RTOL)
+        flops = 45.0 * bsz * hb * wb + 2.0 * bsz * hb * wb
+        timing(res, "saliency", case, lambda x=x, h=h, w=w: kernels.saliency_ii(x, h, w),
+               lambda x=x, h=h, w=w: reference.saliency_ii(x, h, w), None,
+               x.numel() * 4 + ii.numel() * 4, flops)
+        win = torch.full((bsz,), CONFIG4_WINDOW, dtype=torch.int32, device=dev)
+        top, left = kernels.window_argmax(ii, h, w, win, win)
+        rt, rl = reference.window_argmax(ii, h, w, win, win)
+        if not (torch.equal(top, rt) and torch.equal(left, rl)):
+            raise AssertionError(f"window_argmax [{case}]: {top.tolist()} {left.tolist()} "
+                                 f"against the plain {rt.tolist()} {rl.tolist()}")
+        res.setdefault("window_argmax", {})[case] = {"max_abs_err": 0.0,
+                                                     "top": top.tolist(), "left": left.tolist()}
+        # every candidate: 3 subtractions and a compare; ii read once
+        timing(res, "window_argmax", case,
+               lambda ii=ii, h=h, w=w, win=win: kernels.window_argmax(ii, h, w, win, win),
+               lambda ii=ii, h=h, w=w, win=win: reference.window_argmax(ii, h, w, win, win),
+               None, ii.numel() * 4 + bsz * 8, 4.0 * bsz * hb * wb)
+        xu = x.to(torch.uint8)
+        check_rel("saliency", kernels.saliency_ii(xu, h, w), reference.saliency_ii(xu, h, w),
+                  res, case + "-u8", II_RTOL)
+        del x, xu, ii
+    log("  saliency and window_argmax: no single-call library equivalent (saliency "
+        "terms + two prefix sums; a masked argmax over every window): library_ms null")
+
+
+def jpeg_of_large(layout: str) -> bytes:
+    """large.jpg's pixels re-encoded by Pillow (libjpeg, quality 90) in a
+    sampling layout."""
+    import io
+
+    from PIL import Image
+
+    im = Image.open(LARGE_JPG).convert("RGB")
+    out = io.BytesIO()
+    if layout == "gray":
+        im.convert("L").save(out, "JPEG", quality=90)
+    else:
+        im.save(out, "JPEG", quality=90, subsampling={"444": 0, "422": 1, "420": 2}[layout])
+    return out.getvalue()
+
+
+def idct_flops(layout: str, k: int, hb: int, wb: int) -> float:
+    """K11's operations: a separable kv x kh IDCT is 2 (kh + kv)
+    operations a coefficient of each region, then ~20 for the color
+    conversion of each output pixel (the upsample included)."""
+    from imaginary_tpu_torch import kernels
+
+    total = 0.0
+    for _, rows, _, cols, _, kv, kh in kernels.dct_regions(layout, k, hb, wb):
+        total += 2.0 * (kv + kh) * rows * cols
+    return total + 20.0 * hb * wb
+
+
+def dct_kernel_phase(res: dict) -> None:
+    """K11 on real packed coefficients (large.jpg, and its 4:2:2, 4:4:4 and
+    gray re-encodes) and K12 on the card's own RGB at the /resize output
+    bucket and at 1088x1920. No single PyTorch call computes either (the
+    IDCT with the chroma upsample and color convert; the color convert,
+    2x2 mean, FDCT and quantize), so library_ms is null."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.codecs import jpeg_dct
+    from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops.buckets import dct_packed_geometry
+
+    dev = torch.device(DEVICE)
+    with open(LARGE_JPG, "rb") as f:
+        large = f.read()
+    rgb_1080 = None
+    for case, buf, shrink in (("1080p-420-k8", large, 1), ("main-420-k2", large, 4),
+                              ("1080p-422-k8", jpeg_of_large("422"), 1),
+                              ("1080p-444-k8", jpeg_of_large("444"), 1),
+                              ("1080p-gray-k8", jpeg_of_large("gray"), 1)):
+        packed, h2, w2, layout = jpeg_dct.decode_packed(buf, shrink)
+        k, _, _, hb, wb = dct_packed_geometry(1080, 1920, shrink, layout)
+        x = torch.from_numpy(np.ascontiguousarray(packed))[None].to(dev)
+        h = torch.tensor([h2], dtype=torch.int32, device=dev)
+        w = torch.tensor([w2], dtype=torch.int32, device=dev)
+        got = kernels.from_dct(x, h, w, hb, wb, k, layout)
+        check("from_dct", got, reference.from_dct(x, h, w, hb, wb, k, layout), res, case,
+              F32_TOL)
+        timing(res, "from_dct", case,
+               lambda x=x, h=h, w=w, hb=hb, wb=wb, k=k, lay=layout:
+               kernels.from_dct(x, h, w, hb, wb, k, lay),
+               lambda x=x, h=h, w=w, hb=hb, wb=wb, k=k, lay=layout:
+               reference.from_dct(x, h, w, hb, wb, k, lay),
+               None, x.numel() * 2 + got.numel() * 4, idct_flops(layout, k, hb, wb))
+        if case == "1080p-420-k8":
+            rgb_1080 = got[:, :1088, :1920].contiguous()
+        del x, got
+    log("  from_dct and to_dct: no single-call library equivalent (IDCT + chroma "
+        "upsample + BT.601; BT.601 + 2x2 mean + FDCT + quantize): library_ms null")
+    # K12 at the /resize?width=300&height=200 output: the chain's own RGB
+    # before its ToDctSpec, and at 1088x1920 on K11's 1080p output
+    wrapped, packed, _ = dct_request_plan(large, "resize", {"width": "300", "height": "200"})
+    x300, h300, w300, _ = run_stages_until(packed, wrapped, "ToDctSpec", DEVICE)
+    qy, qc = jpeg_dct.quality_tables(80)
+    for case, x, h, w in (
+            ("resize-208x304", x300, h300, w300),
+            ("1088x1920", rgb_1080, torch.tensor([1080], dtype=torch.int32, device=dev),
+             torch.tensor([1920], dtype=torch.int32, device=dev))):
+        bsz, hb, wb, _ = x.shape
+        q_y = torch.tensor(np.stack([qy] * bsz), dtype=torch.float32, device=dev)
+        q_c = torch.tensor(np.stack([qc] * bsz), dtype=torch.float32, device=dev)
+        got = kernels.to_dct(x, h, w, q_y, q_c, hb, wb)
+        want = reference.to_dct(x, h, w, q_y, q_c, hb, wb)
+        d = (got.int() - want.int()).abs()
+        share = float((d > 0).float().mean())
+        err = int(d.max())
+        if err > COEF_TOL or share > COEF_SHARE:
+            raise AssertionError(f"to_dct [{case}]: max {err}, {share:.2e} of the "
+                                 f"coefficients differ (bounds {COEF_TOL}, {COEF_SHARE})")
+        res.setdefault("to_dct", {})[case] = {"max_abs_err": float(err), "differing_share": share}
+        log(f"  to_dct {case}: max |diff| {err}, differing share {share:.3e}")
+        # per pixel ~16 for the color convert and mean, per coefficient
+        # 32 for the separable FDCT and 2 for the quantize
+        flops = 16.0 * x.numel() / 3 + 34.0 * 1.5 * hb * wb * bsz
+        timing(res, "to_dct", case,
+               lambda x=x, h=h, w=w, a=q_y, b=q_c, hb=hb, wb=wb: kernels.to_dct(x, h, w, a, b, hb, wb),
+               lambda x=x, h=h, w=w, a=q_y, b=q_c, hb=hb, wb=wb: reference.to_dct(x, h, w, a, b, hb, wb),
+               None, x.numel() * 4 + got.numel() * 2, flops)
+
+
+def run_stages_until(arr, plan, spec_name: str, device):
+    """Run a plan's stages on `device` as the chain runs them, up to (not
+    including) the first stage of class `spec_name`. Returns (x, h, w,
+    that stage's dyn) as device tensors."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch.ops import chain
+
+    dev = torch.device(device)
+    if plan.in_bucket is not None:
+        x, h, w = arr, plan.in_h, plan.in_w
+    else:
+        x, h, w = chain.pad_to_bucket(arr), arr.shape[0], arr.shape[1]
+    x = torch.from_numpy(np.array(x))[None].to(dev)
+    h = torch.tensor([h], dtype=torch.int32, device=dev)
+    w = torch.tensor([w], dtype=torch.int32, device=dev)
+    for st, dyn in zip(plan.stages, chain._stack_dyns([plan])):
+        d = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in dyn.items()}
+        if type(st.spec).__name__ == spec_name:
+            return x, h, w, d
+        x, h, w = st.spec.apply(x, h, w, d, out_u8=False)
+    raise AssertionError(f"the plan has no {spec_name}")
+
+
+def dct_request_plan(buf: bytes, op: str, query: dict):
+    """(wrapped plan, packed coefficients, shrink) of `op` on the JPEG buf
+    as the pipeline plans it with the dct transport and its egress on."""
+    from imaginary_tpu_torch import codecs, pipeline
+    from imaginary_tpu_torch.codecs import jpeg_dct
+    from imaginary_tpu_torch.imgtype import ImageType
+    from imaginary_tpu_torch.ops import plan as plan_mod
+    from imaginary_tpu_torch.params import build_params_from_query
+
+    o = build_params_from_query(query)
+    meta = codecs.probe_fast(buf)
+    shrink = pipeline._pick_shrink(op, ImageType.JPEG, o, meta)
+    sh, sw = -(-meta.height // shrink), -(-meta.width // shrink)
+    p = plan_mod.plan_operation(op, o, sh, sw, meta.orientation, 3)
+    packed, _, _, layout = jpeg_dct.decode_packed(buf, shrink)
+    wrapped = plan_mod.wrap_plan_dct(p, meta.height, meta.width, shrink, layout=layout,
+                                     egress="dct", egress_quality=o.quality or 80)
+    return wrapped, packed, shrink
+
+
+# --- phase 8: config 4, /smartcrop on bench_firehose.py's stream -------------
+
+CONFIG4_N = 24
+CONFIG4_SEED = 11
+CONFIG4_PATH = "/smartcrop?width=300&height=300"
+CONFIG4_CLIENTS = 16
+CONFIG4_PER_CLIENT = 6
+CONFIG4_MAX_BATCH = 16
+CONFIG4_MIME = {"JPEG": "image/jpeg", "PNG": "image/png", "WEBP": "image/webp"}
+
+
+def make_config4_stream() -> list:
+    """bench_firehose.py:_gen_stream(24, seed=11) with numpy and Pillow:
+    the same draws from the same generator, so the same dims, patterns
+    and disc (a filled white disc with a black core), as JPEG (quality
+    95, 4:2:0), PNG and lossless WEBP in turn. The generator's arrays are
+    BGR (it encodes with OpenCV); Pillow gets them as RGB. Returns
+    [(bytes, format, (h, w))]."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(CONFIG4_SEED)
+    out = []
+    for i in range(CONFIG4_N):
+        h = int(rng.integers(420, 780))
+        w = int(rng.integers(560, 1100))
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        base = np.stack([
+            128 + 90 * np.sin(xx / (23 + (i % 7))),
+            128 + 90 * np.cos(yy / (29 + (i % 5))),
+            (xx + yy) % 255,
+        ], axis=-1)
+        cy, cx = int(h * (0.3 + 0.4 * rng.random())), int(w * (0.3 + 0.4 * rng.random()))
+        r = int(min(h, w) * 0.12)
+        d2 = (xx - cx) ** 2 + (yy - cy) ** 2
+        base[d2 <= r * r] = 255.0
+        base[d2 <= (r // 2) ** 2] = 0.0
+        noise = rng.normal(0, 6, (h, w, 3))
+        img = np.clip(base + noise, 0, 255).astype(np.uint8)[..., ::-1]
+        fmt = ("JPEG", "PNG", "WEBP")[i % 3]
+        buf = io.BytesIO()
+        im = Image.fromarray(np.ascontiguousarray(img))
+        if fmt == "JPEG":
+            im.save(buf, fmt, quality=95, subsampling=2)
+        elif fmt == "PNG":
+            im.save(buf, fmt, compress_level=1)
+        else:
+            im.save(buf, fmt, lossless=True, quality=0, method=0)
+        out.append((buf.getvalue(), fmt, (h, w)))
+    return out
+
+
+def request_plan(buf: bytes, op: str, query: dict):
+    """(input array, plan) of `op` on buf as `pipeline.process_operation`
+    routes it with the dct transport off: the packed 4:2:0 planes and the
+    wrapped plan for a 4:2:0 JPEG, else the decoded frame and its plan."""
+    from imaginary_tpu_torch import codecs, pipeline
+    from imaginary_tpu_torch.imgtype import ImageType, determine_image_type
+    from imaginary_tpu_torch.ops import plan as plan_mod
+    from imaginary_tpu_torch.params import build_params_from_query
+
+    o = build_params_from_query(query)
+    t = determine_image_type(buf)
+    meta = codecs.probe_fast(buf) if t is ImageType.JPEG else None
+    shrink = pipeline._pick_shrink(op, t, o, meta)
+    if pipeline._yuv_eligible(t, meta, o):
+        sh, sw = -(-meta.height // shrink), -(-meta.width // shrink)
+        packed, _, _ = pipeline._decode_yuv_packed(buf, shrink, sh, sw)
+        p = plan_mod.plan_operation(op, o, sh, sw, meta.orientation, 3)
+        return packed, plan_mod.wrap_plan_yuv420(p, sh, sw)
+    d = codecs.decode(buf, shrink)
+    return d.array, plan_mod.plan_operation(op, o, *d.array.shape[:2], d.orientation,
+                                            d.array.shape[2])
+
+
+def window_parity(stream: list) -> dict:
+    """For every image of the stream: SmartExtractSpec's input as the chain
+    computes it on the card and on the CPU, then the window on each (the
+    kernels K9 + K10 on the card, the plain versions on the CPU). Offsets
+    equal, or the card's window holds the CPU window's saliency (f64, on
+    the CPU's map) within WINDOW_RTOL."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.ops import saliency
+
+    mismatches, worst = 0, 0.0
+    for buf, _, _ in stream:
+        arr, plan = request_plan(buf, "smartcrop", {"width": "300", "height": "300"})
+        got = []
+        for dev in (DEVICE, "cpu"):
+            x, h, w, dyn = run_stages_until(arr, plan, "SmartExtractSpec", dev)
+            ii = kernels.saliency_ii(x, h, w)
+            t, lft = kernels.window_argmax(ii, h, w, dyn["new_h"], dyn["new_w"])
+            got.append((int(t[0]), int(lft[0])))
+        wh, ww = int(dyn["new_h"][0]), int(dyn["new_w"][0])
+        if got[0] == got[1]:
+            continue
+        mismatches += 1
+        sal = saliency.saliency_map(x, h, w)[0].double()
+        sums = [float(sal[t:t + wh, lf:lf + ww].sum()) for t, lf in got]
+        rel = abs(sums[0] - sums[1]) / sums[1]
+        worst = max(worst, rel)
+        if rel > WINDOW_RTOL:
+            raise AssertionError(f"smartcrop window on the card {got[0]} holds {sums[0]}, "
+                                 f"the CPU's {got[1]} {sums[1]} (relative {rel})")
+    return {"images": len(stream), "offset_mismatches": mismatches,
+            "worst_window_sum_rel": worst}
+
+
+def config4_phase(stream: list) -> dict:
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+    from torch.profiler import ProfilerActivity, profile
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.web.app import make_server
+
+    expected = dict.fromkeys(kernels.LAUNCHES, 0)
+    for buf, _, _ in stream:
+        for k, v in expected_launches(request_plan(buf, "smartcrop",
+                                                   {"width": "300", "height": "300"})[1]).items():
+            expected[k] += v
+    srv = make_server("127.0.0.1", 0, device=DEVICE, max_batch=CONFIG4_MAX_BATCH,
+                      batch_form_ms=CONFIG2_FORM_MS)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    ex = srv.service.executor
+    try:
+        for buf, _, _ in stream:  # one untimed each
+            http(port, CONFIG4_PATH, buf)
+        kernels.reset_launches()
+        alone, lat_one = [], []
+        for buf, fmt, _ in stream:
+            t0 = time.perf_counter()
+            status, ctype, body = http(port, CONFIG4_PATH, buf)
+            lat_one.append((time.perf_counter() - t0) * 1e3)
+            if (status, ctype) != (200, CONFIG4_MIME[fmt]):
+                raise AssertionError(f"/smartcrop on a {fmt}: {status} {ctype}")
+            alone.append(body)
+        launches = dict(kernels.LAUNCHES)
+        reqs = [(CONFIG4_PATH, buf) for buf, _, _ in stream]
+        items0, batches0 = ex.stats.items, ex.stats.batches
+        walls, results = [], []
+        for _ in range(WINDOWS):
+            wall, got = load_window(port, reqs, CONFIG4_CLIENTS, CONFIG4_PER_CLIENT)
+            walls.append(wall)
+            results.extend(got)
+        items, batches = ex.stats.items - items0, ex.stats.batches - batches0
+        max_group = ex.stats.max_group_seen
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            wall2, _ = load_window(port, reqs, CONFIG4_CLIENTS, CONFIG4_PER_CLIENT)
+            prof_wall_us = (time.perf_counter() - t0) * 1e6
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+    if launches != expected:
+        raise AssertionError(f"config 4 launches {launches}, the plans say {expected}")
+    for name in CONFIG4_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on config 4's path")
+    for body in alone:
+        im = Image.open(io.BytesIO(body))
+        if im.size != (300, 300):
+            raise AssertionError(f"/smartcrop answered {im.size}, not 300x300")
+    differing = 0
+    for k, _, status, ctype, body in results:
+        if (status, ctype) != (200, CONFIG4_MIME[stream[k][1]]):
+            raise AssertionError(f"/smartcrop under load: {status} {ctype}")
+        if body != alone[k]:
+            differing += 1
+    if differing:
+        raise AssertionError(f"{differing} answers under load differ from the same "
+                             "request served alone")
+    parity = window_parity(stream)
+    busy, summed, by_name = busy_union_us(prof)
+    lat = [r[1] for r in results]
+    per_window = CONFIG4_CLIENTS * CONFIG4_PER_CLIENT
+    rps = [per_window / w for w in walls]
+    out = {
+        "stream": {"images": len(stream), "formats": [s[1] for s in stream],
+                   "dims": [s[2] for s in stream], "bytes": sum(len(s[0]) for s in stream)},
+        "launches": launches, "expected_launches": expected,
+        "p50_ms_one_client": float(np.percentile(lat_one, 50)),
+        "p99_ms_one_client": float(np.percentile(lat_one, 99)),
+        "load": {"clients": CONFIG4_CLIENTS, "per_client": CONFIG4_PER_CLIENT,
+                 "windows": WINDOWS, "wall_s": walls, "rps_by_window": rps,
+                 "rps": statistics.median(rps),
+                 "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+                 "items": items, "batches": batches,
+                 "mean_batch": items / batches if batches else 0.0, "max_group_seen": max_group},
+        "identical_to_alone": len(results),
+        "profiled": {"wall_s": wall2, "rps": per_window / wall2, "wall_us": prof_wall_us,
+                     "device_busy_us": busy, "device_summed_us": summed,
+                     "busy_share": busy / prof_wall_us, "by_name_us": by_name},
+        "window_parity": parity,
+    }
+    log(f"  stream: {len(stream)} images ({out['stream']['bytes']} bytes), "
+        + ", ".join(f"{f} {h}x{w}" for _, f, (h, w) in stream[:6]) + ", ...")
+    log(f"  one at a time: p50 {out['p50_ms_one_client']:.2f} ms, "
+        f"p99 {out['p99_ms_one_client']:.2f} ms over {len(lat_one)} requests; "
+        f"launches {launches} (as the plans say)")
+    ld = out["load"]
+    log(f"  {CONFIG4_CLIENTS} clients x {CONFIG4_PER_CLIENT} in {WINDOWS} windows: req/s "
+        f"{', '.join(f'{r:.1f}' for r in rps)} (median {ld['rps']:.1f}); "
+        f"p50 {ld['p50_ms']:.2f} ms, p99 {ld['p99_ms']:.2f} ms; {items} items in "
+        f"{batches} batches (mean {ld['mean_batch']:.2f}, largest group {max_group}); "
+        f"all {len(results)} answers byte-equal to the same request alone")
+    log(f"  profiled window: {out['profiled']['rps']:.1f} req/s; device busy {busy:.1f} us "
+        f"of {prof_wall_us:.1f} us wall (share {out['profiled']['busy_share']:.4f}; "
+        f"summed {summed:.1f} us)")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {us / per_window:9.2f} us/request  {name[:90]}")
+    log(f"  window offsets card vs CPU: {parity['offset_mismatches']} of {parity['images']} "
+        f"differ (worst window-sum difference {parity['worst_window_sum_rel']:.2e} "
+        f"relative, bound {WINDOW_RTOL})")
+    torch.cuda.synchronize()
+    return out
+
+
+# --- phase 9: the DCT transport both ways ------------------------------------
+
+# (path, query, decoded output (h, w), requests in the counted run)
+DCT_REQUESTS = (
+    ("/resize?width=300&height=200", {"width": "300", "height": "200"}, (200, 300), 3),
+    ("/resize?width=1600", {"width": "1600"}, (900, 1600), 3),
+)
+
+
+def coefficient_parity(card: bytes, cpu: bytes, dims: tuple) -> dict:
+    """Two egress JPEGs of one request: their quantized coefficients
+    (entropy-decoded back) within COEF_TOL with at most COEF_SHARE
+    differing, and their decoded pixels within 1 LSB wherever a 16x16
+    MCU's coefficients agree."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    from imaginary_tpu_torch.codecs import jpeg_dct
+
+    a = jpeg_dct.decode_coefficients(card)
+    b = jpeg_dct.decode_coefficients(cpu)
+    if a is None or b is None or (a.h, a.w) != (b.h, b.w) != dims:
+        raise AssertionError("egress JPEG is not a baseline 4:2:0 stream of the right size")
+    worst, n_diff, n_all, eq = 0, 0, 0, None
+    for pa, pb in zip(a.planes, b.planes):
+        d = np.abs(pa.astype(np.int32) - pb.astype(np.int32))
+        worst = max(worst, int(d.max()))
+        n_diff += int((d > 0).sum())
+        n_all += d.size
+        same = (d == 0).all(axis=(2, 3))
+        if eq is None:
+            same = same[0::2, 0::2] & same[1::2, 0::2] & same[0::2, 1::2] & same[1::2, 1::2]
+        eq = same if eq is None else eq & same
+    share = n_diff / n_all
+    if worst > COEF_TOL or share > COEF_SHARE:
+        raise AssertionError(f"egress coefficients: max {worst}, {share:.2e} differ")
+    pa = np.asarray(Image.open(io.BytesIO(card)).convert("RGB")).astype(np.int32)
+    pb = np.asarray(Image.open(io.BytesIO(cpu)).convert("RGB")).astype(np.int32)
+    mask = np.kron(eq, np.ones((16, 16), bool))[: pa.shape[0], : pa.shape[1]]
+    lsb = int(np.abs(pa - pb).max(axis=2)[mask].max()) if mask.any() else 0
+    if lsb > U8_TOL:
+        raise AssertionError(f"egress pixels {lsb} LSB apart where the coefficients agree")
+    return {"max_coef_diff": worst, "differing_share": share,
+            "mcus_equal_share": float(eq.mean()), "max_lsb_where_equal": lsb,
+            "bytes_identical": card == cpu}
+
+
+def dct_phase() -> dict:
+    import torch
+
+    from imaginary_tpu_torch import codecs, kernels, pipeline
+    from imaginary_tpu_torch.codecs import jpeg_dct
+    from imaginary_tpu_torch.ops import chain
+    from imaginary_tpu_torch.params import build_params_from_query
+    from imaginary_tpu_torch.web.app import make_server
+
+    with open(LARGE_JPG, "rb") as f:
+        buf = f.read()
+    plans = {path: dct_request_plan(buf, "resize", q) for path, q, _, _ in DCT_REQUESTS}
+    expected = dict.fromkeys(kernels.LAUNCHES, 0)
+    for path, _, _, n in DCT_REQUESTS:
+        for k, v in expected_launches(plans[path][0]).items():
+            expected[k] += n * v
+    srv = make_server("127.0.0.1", 0, device=DEVICE, transport_dct=True,
+                      transport_dct_egress=True)
+    port = srv.server_address[1]
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    lat: dict = {}
+    last: dict = {}
+    try:
+        for path, _, _, _ in DCT_REQUESTS:  # one untimed each
+            http(port, path, buf)
+        counts0 = pipeline.dct_counts()
+        kernels.reset_launches()
+        for path, _, dims, n in DCT_REQUESTS:
+            lat[path] = []
+            for _ in range(n):
+                t0 = time.perf_counter()
+                status, ctype, body = http(port, path, buf)
+                lat[path].append((time.perf_counter() - t0) * 1e3)
+                if (status, ctype) != (200, "image/jpeg"):
+                    raise AssertionError(f"dct {path}: {status} {ctype}")
+                if codecs.decode(body).array.shape[:2] != dims:
+                    raise AssertionError(f"dct {path}: output is not {dims}")
+            last[path] = body
+        launches = dict(kernels.LAUNCHES)
+        counts = {k: v - counts0[k] for k, v in pipeline.dct_counts().items()}
+        decoder = jpeg_dct.decoder_name()
+        # the same requests through the plain versions on the CPU, with
+        # the same switches (still on)
+        parity = {}
+        for path, q, dims, _ in DCT_REQUESTS:
+            cpu = pipeline.process_operation("resize", buf, build_params_from_query(q),
+                                             device="cpu")
+            parity[path] = coefficient_parity(last[path], cpu.body, dims)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+        pipeline.set_transport_dct(False)
+        pipeline.set_transport_dct_egress(False)
+    if launches != expected:
+        raise AssertionError(f"dct launches {launches}, the plans say {expected}")
+    for name in DCT_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the dct path")
+    n_req = sum(n for _, _, _, n in DCT_REQUESTS)
+    if counts != {"served": n_req, "out_of_scope": 0}:
+        raise AssertionError(f"dct transport counts {counts}: every request must ride it")
+    if decoder != "native":
+        raise AssertionError(f"entropy decode ran on the {decoder} arm, not native")
+    # one request's host steps, on the host clock (median of 5)
+    steps = {}
+    for path, _, _, _ in DCT_REQUESTS:
+        wrapped, packed, shrink = plans[path]
+        qb = chain.run_single(packed, wrapped, device=DEVICE)
+        steps[path] = {
+            "entropy_decode": host_ms(lambda s=shrink: jpeg_dct.decode_packed(buf, s)),
+            "chain_on_card": host_ms(lambda p=packed, wp=wrapped: chain.run_single(p, wp,
+                                                                                  device=DEVICE)),
+            "entropy_encode": host_ms(lambda qb=qb: jpeg_dct.encode_quantized(qb)),
+        }
+    out = {"serial_ms": lat, "launches": launches, "expected_launches": expected,
+           "counts": counts, "decoder": decoder, "parity": parity, "host_steps_ms": steps}
+    for path, ts in lat.items():
+        log(f"  {path}: {', '.join(f'{t:.2f}' for t in ts)} ms")
+    log(f"  launches {launches} (as the plans say); counts {counts}; entropy arm {decoder}")
+    for path, p in parity.items():
+        log(f"  {path} vs the CPU: coefficients max |diff| {p['max_coef_diff']}, differing "
+            f"share {p['differing_share']:.3e}; {p['mcus_equal_share']:.4f} of MCUs equal, "
+            f"max {p['max_lsb_where_equal']} LSB there; bytes identical {p['bytes_identical']}")
+    for path, st in steps.items():
+        log(f"  host steps of {path} (median of 5): "
+            + ", ".join(f"{k} {v:.2f} ms" for k, v in st.items()))
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     import numpy as np
 
     from imaginary_tpu_torch import kernels  # fails outside the repository
@@ -1377,6 +2008,7 @@ def main() -> int:
     def build_codec():
         try:
             codec_box["result"] = native_build.build()
+            codec_box["entropy"] = native_build.build_entropy()
         except Exception as e:  # re-raised below, in the main thread
             codec_box["error"] = e
 
@@ -1391,8 +2023,16 @@ def main() -> int:
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in built.items()))
     _, codec_secs, codec_route = codec_box["result"]
     log(f"  native codec: {codec_secs:.1f} s, libjpeg: {codec_route or 'an earlier build'}")
+    from imaginary_tpu_torch.codecs import jpeg_dct
+
+    _, entropy_secs = codec_box["entropy"]
+    arm = jpeg_dct.decoder_name()
+    log(f"  native entropy codec: {entropy_secs:.1f} s, dct decode arm: {arm}")
+    if arm != "native":
+        raise AssertionError(f"the entropy codec resolved to the {arm} arm")
     report["build"] = {k: {"seconds": v["seconds"], "log": v["log"]} for k, v in built.items()}
     report["build"]["codec"] = {"seconds": codec_secs, "libjpeg": codec_route}
+    report["build"]["entropy"] = {"seconds": entropy_secs, "arm": arm}
 
     rng = np.random.default_rng(SEED)
     log("== phase 3: kernels against their plain versions")
@@ -1400,6 +2040,8 @@ def main() -> int:
     orient_phase(report["kernels"])
     config2_kernel_phase(rng, report["kernels"])
     config3_kernel_phase(report["kernels"])
+    config4_kernel_phase(report["kernels"])
+    dct_kernel_phase(report["kernels"])
     log("== phase 4: main path through the server")
     report["main_path"] = main_path_phase()
     t0 = time.perf_counter()
@@ -1412,6 +2054,13 @@ def main() -> int:
     report["config2"] = config2_phase()
     log("== phase 7: config 3 (/pipeline on a 4K PNG to WEBP), the JPEG /pipeline, bw")
     report["config3"] = config3_phase(png)
+    t0 = time.perf_counter()
+    stream = make_config4_stream()
+    log(f"== phase 8: config 4 (/smartcrop on bench_firehose.py's stream; made in "
+        f"{time.perf_counter() - t0:.2f} s)")
+    report["config4"] = config4_phase(stream)
+    log("== phase 9: the DCT transport both ways (/resize at k = 2 and k = 8)")
+    report["dct"] = dct_phase()
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -1419,10 +2068,14 @@ def main() -> int:
         main_case = {"resample": "B1-resize", "yuv420_unpack": "B1",
                      "yuv420_pack": "B1", "gather": "B1-embed",
                      "orient": "B32-transpose", "blur": "B1-r4",
-                     "composite": "B1-replicate-C3", "gray": "bw-route"}[name]
+                     "composite": "B1-replicate-C3", "gray": "bw-route",
+                     "saliency": "B1", "window_argmax": "B1",
+                     "from_dct": "main-420-k2", "to_dct": "resize-208x304"}[name]
         m = per_case[main_case]
         # each kernel's launches come from the run of the path it serves
-        path = "config3" if name in ("blur", "composite", "gray") else "config2"
+        path = {"blur": "config3", "composite": "config3", "gray": "config3",
+                "saliency": "config4", "window_argmax": "config4",
+                "from_dct": "dct", "to_dct": "dct"}.get(name, "config2")
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": report[path]["launches"][name],
@@ -1430,6 +2083,8 @@ def main() -> int:
             "launches_config1": report["main_path"]["launches"][name],
             "launches_config2": report["config2"]["launches"][name],
             "launches_config3": report["config3"]["launches"][name],
+            "launches_config4": report["config4"]["launches"][name],
+            "launches_dct": report["dct"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
@@ -1437,6 +2092,7 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
+    log(f"  total: {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

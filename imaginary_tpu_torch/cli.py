@@ -25,7 +25,21 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "to close (the batch-formation latency cap)")
     ap.add_argument("--max-inflight", type=int, default=4,
                     help="device chunks launched but not yet fetched")
-    return ap.parse_args(argv)
+    ap.add_argument("--transport-dct", action="store_true",
+                    help="serve baseline JPEG requests (4:2:0/4:2:2/4:4:4/"
+                         "grayscale) over the compressed-domain transport: "
+                         "host entropy decode ships DCT coefficients, the "
+                         "device runs the IDCT, and shrink-on-load folds in "
+                         "the DCT domain")
+    ap.add_argument("--transport-dct-egress", action="store_true",
+                    help="drain JPEG-bound dct-transport responses as "
+                         "quantized DCT coefficients: the device runs the "
+                         "forward DCT + quantization and the host only "
+                         "entropy-codes (requires --transport-dct)")
+    args = ap.parse_args(argv)
+    if args.transport_dct_egress and not args.transport_dct:
+        ap.error("--transport-dct-egress requires --transport-dct")
+    return args
 
 
 def main(argv=None) -> None:
@@ -34,7 +48,9 @@ def main(argv=None) -> None:
 
     srv = make_server(args.host, args.port, device=args.device, mount=args.mount,
                       max_batch=args.max_batch, batch_form_ms=args.batch_form_ms,
-                      max_inflight=args.max_inflight)
+                      max_inflight=args.max_inflight,
+                      transport_dct=args.transport_dct,
+                      transport_dct_egress=args.transport_dct_egress)
     print(f"imaginary_tpu_torch listening on {args.host}:{args.port} "
           f"(device {srv.service.device})", flush=True)
     try:

@@ -131,7 +131,8 @@ class Executor:
 
     def submit(self, arr: np.ndarray, plan: ImagePlan) -> Future:
         """Enqueue one image; resolves to the chain's output (an HWC uint8
-        array, or YuvPlanes on the packed transport). Identity chains
+        array, YuvPlanes on the packed transports, or QuantizedBlocks with
+        the dct egress). Identity chains
         resolve at once, with no device work."""
         item = _Item(arr, plan)
         if not plan.stages:
@@ -271,11 +272,9 @@ class Executor:
                 _resolve(it.future, result=out)
 
     def _fail(self, items: list, e: Exception) -> None:
-        """Fail one chunk's futures. A stage the port has not ported yet
-        (NotImplementedError) is no device failure."""
-        if not isinstance(e, NotImplementedError):
-            with self._lock:
-                self.stats.device_failures += 1
+        """Fail one chunk's futures."""
+        with self._lock:
+            self.stats.device_failures += 1
         self._release(items)
         for it in items:
             _resolve(it.future, error=e)

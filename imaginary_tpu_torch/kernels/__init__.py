@@ -1,4 +1,4 @@
-"""The port's device kernels: eight CUDA C++ kernels for Hopper (sm_90a).
+"""The port's device kernels: twelve CUDA C++ kernels for Hopper (sm_90a).
 
 | kernel          | source                 | replaces (imaginary_tpu/...)                     |
 | --------------- | ---------------------- | ------------------------------------------------ |
@@ -10,6 +10,10 @@
 | blur            | csrc/blur.cu           | ops/stages.py:237-280 BlurSpec                   |
 | composite       | csrc/composite.cu      | ops/stages.py:283-327 CompositeSpec              |
 | gray            | csrc/gray.cu           | ops/stages.py:625-635 GraySpec                   |
+| saliency        | csrc/saliency.cu       | ops/saliency.py:20-53 saliency map + integral image |
+| window_argmax   | csrc/saliency.cu       | ops/saliency.py:55-69 smart_offsets' argmax      |
+| from_dct        | csrc/from_dct.cu       | ops/stages.py:425-518 FromDctSpec (+ int16 cast) |
+| to_dct          | csrc/to_dct.cu         | ops/stages.py:555-622 ToDctSpec + int16 drain    |
 
 Each wrapper below takes tensors on one device. On a CPU tensor it runs
 the kernel's plain version (`reference.py`). On a CUDA tensor it checks
@@ -34,26 +38,36 @@ from imaginary_tpu_torch.kernels import reference
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-# name -> (C symbol, argtypes); every function ends with the stream.
+# name -> (source, C symbol, argtypes); every function ends with the stream.
 _SIGNATURES = {
-    "resample": ("itpu_resample_pass",
+    "resample": ("resample", "itpu_resample_pass",
                  [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "yuv420_unpack": ("itpu_yuv420_to_rgb", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "yuv420_pack": ("itpu_rgb_to_yuv420", [_P, _P, _P, _P, _I, _I, _I, _P]),
-    "gather": ("itpu_gather",
+    "yuv420_unpack": ("yuv420_unpack", "itpu_yuv420_to_rgb",
+                      [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "yuv420_pack": ("yuv420_pack", "itpu_rgb_to_yuv420",
+                    [_P, _P, _P, _P, _I, _I, _I, _P]),
+    "gather": ("gather", "itpu_gather",
                [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 _I, _P]),
-    "orient": ("itpu_orient", [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "blur": ("itpu_blur_pass",
+    "orient": ("orient", "itpu_orient",
+               [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "blur": ("blur", "itpu_blur_pass",
              [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "composite": ("itpu_composite",
+    "composite": ("composite", "itpu_composite",
                   [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                    _I, _I, _P]),
-    "gray": ("itpu_gray", [_P, _I, _P, _I, ctypes.c_longlong, _I, _P]),
+    "gray": ("gray", "itpu_gray", [_P, _I, _P, _I, ctypes.c_longlong, _I, _P]),
+    "saliency": ("saliency", "itpu_saliency_ii",
+                 [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
+    "window_argmax": ("saliency", "itpu_window_argmax",
+                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "from_dct": ("from_dct", "itpu_from_dct",
+                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "to_dct": ("to_dct", "itpu_to_dct", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
 }
 
-# Kernel launches since the last reset, per kernel (resample and blur
-# count their two passes as two launches).
+# Kernel launches since the last reset, per kernel (resample, blur,
+# saliency and from_dct count their two passes as two launches).
 LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 _FNS: dict = {}
@@ -77,9 +91,9 @@ def load_all() -> dict:
         from imaginary_tpu_torch.kernels.build import build_all
 
         built = build_all()
-        for name, info in built.items():
-            symbol, argtypes = _SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(info["path"]), symbol)
+        libs = {src: ctypes.CDLL(info["path"]) for src, info in built.items()}
+        for name, (src, symbol, argtypes) in _SIGNATURES.items():
+            fn = getattr(libs[src], symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
             _FNS[name] = fn
@@ -329,4 +343,124 @@ def gray(x, out_u8: bool = False):
                       dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
     _launch("gray", dev, x.data_ptr(), int(x.dtype == torch.uint8),
             out.data_ptr(), int(out_u8), bsz * hb * wb, c)
+    return out
+
+
+def saliency_ii(x, h, w):
+    """K9: f32 [B, Hb + 1, Wb + 1] integral image of the smartcrop saliency
+    of x [B, Hb, Wb, C] (uint8 or f32, C 3 or 4), zero outside each
+    image's valid h, w (int32 [B]). Two launches: the rows (saliency and
+    row prefix sums), then the columns."""
+    if x.device.type == "cpu":
+        return reference.saliency_ii(x, h, w)
+    dev = x.device
+    if x.dim() != 4 or x.shape[3] not in (3, 4):
+        raise ValueError(f"x must be [B, H, W, C] with C 3 or 4, got {tuple(x.shape)}")
+    bsz, hb, wb, c = x.shape
+    _require(x, "x", _IMG, (bsz, hb, wb, c), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    ii = torch.empty((bsz, hb + 1, wb + 1), dtype=torch.float32, device=dev)
+    _launch("saliency", dev, x.data_ptr(), int(x.dtype == torch.uint8),
+            ii.data_ptr(), h.data_ptr(), w.data_ptr(), bsz, hb, wb, c)
+    LAUNCHES["saliency"] += 1  # the column pass, launched by the same call
+    return ii
+
+
+def window_argmax(ii, h, w, win_h, win_w):
+    """K10: the best (top, left), int32 [B] each on ii's device, of a
+    (win_h, win_w) window over the integral image ii f32
+    [B, Hb + 1, Wb + 1], for images of valid h, w (all int32 [B])."""
+    if ii.device.type == "cpu":
+        return reference.window_argmax(ii, h, w, win_h, win_w)
+    dev = ii.device
+    if ii.dim() != 3:
+        raise ValueError(f"ii must be [B, H + 1, W + 1], got {tuple(ii.shape)}")
+    bsz, hb1, wb1 = ii.shape
+    _require(ii, "ii", _F32, (bsz, hb1, wb1), dev)
+    for t, n in ((h, "h"), (w, "w"), (win_h, "win_h"), (win_w, "win_w")):
+        _require(t, n, _I32, (bsz,), dev)
+    scratch = torch.zeros((2 * bsz,), dtype=torch.int64, device=dev)
+    top = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    left = torch.empty((bsz,), dtype=torch.int32, device=dev)
+    _launch("window_argmax", dev, ii.data_ptr(), h.data_ptr(), w.data_ptr(),
+            win_h.data_ptr(), win_w.data_ptr(), scratch.data_ptr(),
+            top.data_ptr(), left.data_ptr(), bsz, hb1 - 1, wb1 - 1)
+    return top, left
+
+
+def dct_regions(layout: str, k: int, hb: int, wb: int) -> list:
+    """The coefficient planes of FromDctSpec's packed input as
+    (row0, rows, col0, cols, channel, kv, kh) regions, in the order Y, U, V."""
+    if layout == "gray":
+        return [(0, hb, 0, wb, 0, k, k)]
+    if k == 8 and layout in ("420", "422"):
+        ch = hb // 2 if layout == "420" else hb
+        return [(0, hb, 0, wb, 0, 8, 8), (hb, ch, 0, wb // 2, 0, 8, 8),
+                (hb, ch, wb // 2, wb // 2, 0, 8, 8)]
+    kv, kh = {"420": (2 * k, 2 * k), "422": (k, 2 * k), "444": (k, k)}[layout]
+    return [(0, hb, 0, wb, 0, k, k), (0, hb, 0, wb, 1, kv, kh),
+            (0, hb, 0, wb, 2, kv, kh)]
+
+
+def dct_in_shape(layout: str, k: int, hb: int, wb: int) -> tuple:
+    """(rows, cols, channels) of FromDctSpec's packed input."""
+    if k == 8 and layout == "420":
+        return hb + hb // 2, wb, 1
+    if k == 8 and layout == "422":
+        return 2 * hb, wb, 1
+    return hb, wb, 1 if layout == "gray" else 3
+
+
+def from_dct(x, h, w, hb: int, wb: int, k: int, layout: str):
+    """K11: int16 packed, dequantized and folded coefficients (the shape
+    `dct_in_shape` gives) -> f32 RGB [B, hb, wb, 3]: the k-point IDCT of
+    every plane, then the 4:2:0 / 4:2:2 chroma upsample at k = 8, and
+    BT.601 (gray: luma broadcast). Two launches: the IDCT into an f32
+    plane array, then the color pass."""
+    if layout not in reference.DCT_LAYOUTS or k not in (1, 2, 4, 8):
+        raise ValueError(f"unsupported dct layout {layout!r} / k {k}")
+    if x.device.type == "cpu":
+        return reference.from_dct(x, h, w, hb, wb, k, layout)
+    dev = x.device
+    bsz = x.shape[0]
+    rows, cols, c = dct_in_shape(layout, k, hb, wb)
+    _require(x, "x", (torch.int16,), (bsz, rows, cols, c), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    regions = dct_regions(layout, k, hb, wb)
+    for r0, nr, c0, nc, _, kv, kh in regions:
+        if nr % kv or nc % kh or c0 % kh:
+            raise ValueError(f"bucket ({hb}, {wb}) does not tile into {kv}x{kh} blocks")
+    planes = torch.empty((bsz, rows, cols, c), dtype=torch.float32, device=dev)
+    out = torch.empty((bsz, hb, wb, 3), dtype=torch.float32, device=dev)
+    flat = [v for reg in regions for v in reg]
+    regs = (ctypes.c_int * len(flat))(*flat)
+    mode = 3 if layout == "gray" else (
+        0 if (k, layout) == (8, "420") else 1 if (k, layout) == (8, "422") else 2)
+    _launch("from_dct", dev, x.data_ptr(), planes.data_ptr(), out.data_ptr(),
+            h.data_ptr(), w.data_ptr(), ctypes.addressof(regs), len(regions), mode,
+            bsz, rows, cols, c, hb, wb)
+    LAUNCHES["from_dct"] += 1  # the color pass, launched by the same call
+    return out
+
+
+def to_dct(x, h, w, qy, qc, hb: int, wb: int):
+    """K12: f32 RGB [B, hb, wb, 3] (hb, wb multiples of 16) -> int16
+    [B, hb + hb/2, wb, 1] quantized coefficients, with qy, qc f32
+    [B, 8, 8] per-image steps and valid h, w (int32 [B])."""
+    if hb % 16 or wb % 16:
+        raise ValueError(f"ToDctSpec bucket ({hb}, {wb}) must be multiples of 16")
+    if x.device.type == "cpu":
+        return reference.to_dct(x, h, w, qy, qc, hb, wb)
+    dev = x.device
+    bsz = x.shape[0]
+    _require(x, "x", _F32, (bsz, hb, wb, 3), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    _require(qy, "qy", _F32, (bsz, 8, 8), dev)
+    _require(qc, "qc", _F32, (bsz, 8, 8), dev)
+    out = torch.empty((bsz, hb + hb // 2, wb, 1), dtype=torch.int16, device=dev)
+    _launch("to_dct", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(), w.data_ptr(),
+            qy.data_ptr(), qc.data_ptr(), bsz, hb, wb)
     return out

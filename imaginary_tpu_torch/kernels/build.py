@@ -27,8 +27,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(HERE), "_build")
 
+# One library per source; saliency.cu holds two kernels (K9 and K10).
 KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather", "orient",
-           "blur", "composite", "gray")
+           "blur", "composite", "gray", "saliency", "from_dct", "to_dct")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

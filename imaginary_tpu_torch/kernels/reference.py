@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the eight kernels.
+"""Plain PyTorch versions of the twelve kernels.
 
 Each function computes what its CUDA kernel computes, in the reference's
 formulation (dense sampling matrices and einsums for the resample, a
@@ -14,13 +14,18 @@ integer dyn params are int32 [B]; uint8 inputs are cast on entry, and
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+from imaginary_tpu_torch.ops import saliency as _saliency
 
 _EPS = 1e-6
 
 RESAMPLE_KINDS = ("lanczos3", "lanczos2", "cubic", "linear", "nearest")
 GATHER_MODES = ("window", "clamp", "mirror")
 ORIENT_MODES = ("flip", "flop", "transpose")
+DCT_LAYOUTS = ("420", "422", "444", "gray")
 
 
 def epilogue_u8(x: torch.Tensor) -> torch.Tensor:
@@ -96,33 +101,47 @@ def _chroma_up_indices(out_n: int, cn: torch.Tensor, chroma_b: int):
     return i0, torch.clamp(i1, max=chroma_b - 1), t
 
 
-def yuv420_to_rgb(x: torch.Tensor, h, w, hb: int, wb: int) -> torch.Tensor:
-    """K2's function: uint8 [B, hb + hb/2, wb, 1] packed planes -> f32
-    [B, hb, wb, 3] RGB (stages.py:FromYuv420Spec with the chain's cast)."""
-    xf = x[..., 0].float()
-    y = xf[:, :hb]
-    u = xf[:, hb:, : wb // 2]
-    v = xf[:, hb:, wb // 2:]
-    ch = (h.long() + 1) // 2
-    cw = (w.long() + 1) // 2
-    i0, i1, t = _chroma_up_indices(hb, ch, hb // 2)
-    j0, j1, s = _chroma_up_indices(wb, cw, wb // 2)
-    bsz = x.shape[0]
-
-    def up2(plane):
-        rows0 = torch.gather(plane, 1, i0[:, :, None].expand(bsz, hb, wb // 2))
-        rows1 = torch.gather(plane, 1, i1[:, :, None].expand(bsz, hb, wb // 2))
+def _up2(plane, i0, i1, t, j0, j1, s):
+    """Centred 2x upsample of plane [B, rows, cols]: rows through (i0, i1, t)
+    first, then columns through (j0, j1, s); either pair None skips its
+    axis (`_yuv420_to_rgb` / `_yuv422_to_rgb`)."""
+    bsz = plane.shape[0]
+    if i0 is not None:
+        cols = plane.shape[2]
+        rows0 = torch.gather(plane, 1, i0[:, :, None].expand(bsz, i0.shape[1], cols))
+        rows1 = torch.gather(plane, 1, i1[:, :, None].expand(bsz, i1.shape[1], cols))
         plane = rows0 * (1.0 - t)[None, :, None] + rows1 * t[None, :, None]
-        cols0 = torch.gather(plane, 2, j0[:, None, :].expand(bsz, hb, wb))
-        cols1 = torch.gather(plane, 2, j1[:, None, :].expand(bsz, hb, wb))
-        return cols0 * (1.0 - s)[None, None, :] + cols1 * s[None, None, :]
+    if j0 is not None:
+        rows = plane.shape[1]
+        cols0 = torch.gather(plane, 2, j0[:, None, :].expand(bsz, rows, j0.shape[1]))
+        cols1 = torch.gather(plane, 2, j1[:, None, :].expand(bsz, rows, j1.shape[1]))
+        plane = cols0 * (1.0 - s)[None, None, :] + cols1 * s[None, None, :]
+    return plane
 
-    uu = up2(u) - 128.0
-    vv = up2(v) - 128.0
+
+def _ycc_to_rgb(y, uu, vv):
+    """BT.601 full-range YCbCr -> RGB on level-shifted chroma, clipped."""
     r = y + 1.402 * vv
     g = y - 0.344136 * uu - 0.714136 * vv
     b = y + 1.772 * uu
     return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0)
+
+
+def _yuv420_planes_to_rgb(y, u, v, h, w, hb: int, wb: int):
+    """stages.py:_yuv420_to_rgb on f32 planes: centred 2x chroma upsample
+    (rows, then columns) and BT.601."""
+    i0, i1, t = _chroma_up_indices(hb, (h.long() + 1) // 2, hb // 2)
+    j0, j1, s = _chroma_up_indices(wb, (w.long() + 1) // 2, wb // 2)
+    return _ycc_to_rgb(y, _up2(u, i0, i1, t, j0, j1, s) - 128.0,
+                       _up2(v, i0, i1, t, j0, j1, s) - 128.0)
+
+
+def yuv420_to_rgb(x: torch.Tensor, h, w, hb: int, wb: int) -> torch.Tensor:
+    """K2's function: uint8 [B, hb + hb/2, wb, 1] packed planes -> f32
+    [B, hb, wb, 3] RGB (stages.py:FromYuv420Spec with the chain's cast)."""
+    xf = x[..., 0].float()
+    return _yuv420_planes_to_rgb(xf[:, :hb], xf[:, hb:, : wb // 2],
+                                 xf[:, hb:, wb // 2:], h, w, hb, wb)
 
 
 def rgb_to_yuv420(x: torch.Tensor, h, w, hb: int, wb: int) -> torch.Tensor:
@@ -288,3 +307,101 @@ def gray(x: torch.Tensor, out_u8: bool = False) -> torch.Tensor:
     lum = 0.2126 * xf[..., 0:1] + 0.7152 * xf[..., 1:2] + 0.0722 * xf[..., 2:3]
     parts = [lum, lum, lum] + ([xf[..., 3:]] if xf.shape[3] == 4 else [])
     return _finish(torch.cat(parts, dim=-1), out_u8)
+
+
+def saliency_ii(x: torch.Tensor, h, w) -> torch.Tensor:
+    """K9's function (ops/saliency.py:_saliency_map and the integral image
+    of smart_offsets): f32 [B, Hb + 1, Wb + 1] integral image of the
+    saliency of x [B, Hb, Wb, C >= 3] (uint8 or f32)."""
+    return _saliency.integral_image(_saliency.saliency_map(x, h, w))
+
+
+def window_argmax(ii: torch.Tensor, h, w, win_h, win_w) -> tuple:
+    """K10's function (smart_offsets.one): (top, left) int32 [B]."""
+    return _saliency.window_argmax(ii, h, w, win_h, win_w)
+
+
+def idct_basis(k: int, device=None) -> torch.Tensor:
+    """stages.py:_idct_basis in f32: C[u, x] = beta_u cos((2x+1) u pi / 2k)
+    times sqrt(k/8)."""
+    u = torch.arange(k, dtype=torch.float32, device=device)[:, None]
+    x = torch.arange(k, dtype=torch.float32, device=device)[None, :]
+    one = torch.ones((), dtype=torch.float32, device=device)
+    beta = torch.where(u == 0, torch.sqrt(one / k), torch.sqrt(one * 2.0 / k))
+    basis = beta * torch.cos((2.0 * x + 1.0) * u * math.pi / (2.0 * k))
+    return basis * torch.sqrt(one * k / 8.0)
+
+
+def _idct(plane: torch.Tensor, kv: int, kh: int) -> torch.Tensor:
+    """Per-block k-point IDCT of plane [B, ph, pw] (kv x kh blocks), +128."""
+    bsz, ph, pw = plane.shape
+    bv = idct_basis(kv, plane.device)
+    bh = idct_basis(kh, plane.device)
+    blk = plane.reshape(bsz, ph // kv, kv, pw // kh, kh)
+    out = torch.einsum("brucv,ux,vz->brxcz", blk, bv, bh)
+    return out.reshape(bsz, ph, pw) + 128.0
+
+
+def from_dct(x: torch.Tensor, h, w, hb: int, wb: int, k: int,
+             layout: str) -> torch.Tensor:
+    """K11's function (stages.py:FromDctSpec with the chain's cast):
+    dequantized, frequency-folded int16 coefficients in the packed layout
+    of `layout` and `k` -> f32 RGB [B, hb, wb, 3]."""
+    xf = x.float()
+    if layout == "gray":
+        y = _idct(xf[..., 0], k, k)
+        return torch.clamp(torch.stack([y, y, y], dim=-1), 0.0, 255.0)
+    if layout == "444":
+        return _ycc_to_rgb(_idct(xf[..., 0], k, k), _idct(xf[..., 1], k, k) - 128.0,
+                           _idct(xf[..., 2], k, k) - 128.0)
+    if layout == "422":
+        if k == 8:
+            y = _idct(xf[:, :hb, :, 0], 8, 8)
+            u = _idct(xf[:, hb:, : wb // 2, 0], 8, 8)
+            v = _idct(xf[:, hb:, wb // 2:, 0], 8, 8)
+            j0, j1, s = _chroma_up_indices(wb, (w.long() + 1) // 2, wb // 2)
+            return _ycc_to_rgb(y, _up2(u, None, None, None, j0, j1, s) - 128.0,
+                               _up2(v, None, None, None, j0, j1, s) - 128.0)
+        return _ycc_to_rgb(_idct(xf[..., 0], k, k), _idct(xf[..., 1], k, 2 * k) - 128.0,
+                           _idct(xf[..., 2], k, 2 * k) - 128.0)
+    if k == 8:
+        y = _idct(xf[:, :hb, :, 0], 8, 8)
+        u = _idct(xf[:, hb:, : wb // 2, 0], 8, 8)
+        v = _idct(xf[:, hb:, wb // 2:, 0], 8, 8)
+        return _yuv420_planes_to_rgb(y, u, v, h, w, hb, wb)
+    return _ycc_to_rgb(_idct(xf[..., 0], k, k), _idct(xf[..., 1], 2 * k, 2 * k) - 128.0,
+                       _idct(xf[..., 2], 2 * k, 2 * k) - 128.0)
+
+
+def to_dct(x: torch.Tensor, h, w, qy, qc, hb: int, wb: int) -> torch.Tensor:
+    """K12's function (stages.py:ToDctSpec + the int16 drain of
+    chain.py:_run_chain): f32 RGB [B, hb, wb, 3] -> quantized int16
+    [B, hb + hb/2, wb, 1] coefficients (Y above, U|V below), edges
+    replicated, chroma the plain 2x2 mean, 8x8 FDCT, divided by the
+    per-image qy / qc [B, 8, 8] and rounded half to even."""
+    bsz = x.shape[0]
+    dev = x.device
+    iy = torch.minimum(torch.arange(hb, device=dev)[None, :],
+                       torch.clamp(h.long() - 1, min=0)[:, None])
+    ix = torch.minimum(torch.arange(wb, device=dev)[None, :],
+                       torch.clamp(w.long() - 1, min=0)[:, None])
+    bidx = torch.arange(bsz, device=dev)[:, None, None]
+    x = torch.clamp(x.float()[bidx, iy[:, :, None], ix[:, None, :]], 0.0, 255.0)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    cbp = cb.reshape(bsz, hb // 2, 2, wb // 2, 2).mean(dim=(2, 4))
+    crp = cr.reshape(bsz, hb // 2, 2, wb // 2, 2).mean(dim=(2, 4))
+    basis = idct_basis(8, dev)
+
+    def fdct_q(plane, q, ph, pw):
+        blk = plane.reshape(bsz, ph // 8, 8, pw // 8, 8) - 128.0
+        coef = torch.einsum("brxcz,ux,vz->brucv", blk, basis, basis)
+        q = q.float()[:, None, :, None, :]
+        return torch.round(coef / q).reshape(bsz, ph, pw)
+
+    bottom = torch.cat([fdct_q(cbp, qc, hb // 2, wb // 2),
+                        fdct_q(crp, qc, hb // 2, wb // 2)], dim=2)
+    packed = torch.cat([fdct_q(y, qy, hb, wb), bottom], dim=1)[..., None]
+    return torch.clamp(packed, -32768.0, 32767.0).to(torch.int16)

@@ -1,4 +1,4 @@
-"""Build the port's native JPEG codec extension.
+"""Build the port's native extensions: the JPEG codec and the entropy codec.
 
 Compiles `codecs.cpp` with g++ into
 `imaginary_tpu_torch/_build/_itpu_torch_codecs-<digest>.so`, where the
@@ -22,6 +22,11 @@ it, tried in this order, and the build reports which one it took:
 
 Both are the same decoder; nothing else is ever substituted. When neither
 links, the build raises with the compiler's output.
+
+`build_entropy()` compiles `entropy.cpp` (the DCT transport's Huffman
+scan decode and encode; CPython's C API only, no libraries) into
+`_build/_itpu_torch_entropy-<digest>.so` the same way;
+`python -m imaginary_tpu_torch.native.build` builds both.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from imaginary_tpu_torch.kernels.build import BUILD_DIR, build_lock
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 MODULE = "_itpu_torch_codecs"
+ENTROPY_MODULE = "_itpu_torch_entropy"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 VENDORED_HEADERS = os.path.join(HERE, "libjpeg")
 
@@ -116,6 +122,37 @@ def build() -> tuple:
                        f"({len(routes)} found):\n" + "\n".join(errors))
 
 
+def entropy_path() -> str:
+    with open(os.path.join(HERE, "entropy.cpp"), "rb") as f:
+        src = f.read()
+    tag = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"{ENTROPY_MODULE}-{tag}.so")
+
+
+def build_entropy() -> tuple:
+    """Build the entropy codec extension unless present.
+
+    Returns (path, seconds spent); raises RuntimeError with the compiler's
+    output when the build fails."""
+    out = entropy_path()
+    t0 = time.monotonic()
+    with build_lock():
+        if os.path.exists(out):
+            return out, 0.0
+        tmp = f"{out}.tmp{os.getpid()}"
+        cmd = ["g++", *CXX_FLAGS, f"-I{sysconfig.get_path('include')}",
+               os.path.join(HERE, "entropy.cpp"), "-o", tmp]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(tmp)
+            raise RuntimeError(f"entropy codec build failed:\n{proc.stderr}")
+        os.replace(tmp, out)
+        return out, time.monotonic() - t0
+
+
 if __name__ == "__main__":
     path, secs, route = build()
     print(f"built {path} ({secs:.1f} s) against {route or 'an earlier build'}")
+    path, secs = build_entropy()
+    print(f"built {path} ({secs:.1f} s)")

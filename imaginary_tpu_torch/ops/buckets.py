@@ -37,6 +37,41 @@ def bucket_shape(h: int, w: int) -> tuple:
     return bucket_dim(h), bucket_dim(w)
 
 
+def dct_packed_geometry(src_h: int, src_w: int, shrink: int,
+                        layout: str = "420") -> tuple:
+    """Packed coefficient-plane geometry for the dct transport.
+
+    Returns (k, h2, w2, hb, wb): k = 8/shrink kept coefficients per block
+    axis, (h2, w2) = ceil(dim/shrink) valid pixel dims after the scaled
+    IDCT, and (hb, wb) = the Y coefficient-plane bucket. The bucket covers
+    BOTH the shrunk pixel dims and the full MCU-padded block grid — JPEG
+    entropy-codes whole MCUs, so edge blocks past the valid dims still need
+    packed slots. The Y block grid per MCU depends on the sampling layout:
+    4:2:0 MCUs are 16x16 (2x2 Y blocks), 4:2:2 are 8x16 (1x2), and
+    4:4:4/grayscale are 8x8 (1x1). Keeping 4:2:0's grid an even number of
+    blocks is what lets its chroma coefficient planes split the
+    [hb, hb + hb/2) rows exactly like yuv420; 4:2:2 stacks chroma in a
+    second full-height band instead (see codecs/jpeg_dct.pack_dct).
+    """
+    if shrink not in (1, 2, 4, 8):
+        raise ValueError(f"unsupported dct shrink {shrink}")
+    k = 8 // shrink
+    if layout == "420":
+        mh, mw, by, bx = 16, 16, 2, 2
+    elif layout == "422":
+        mh, mw, by, bx = 8, 16, 1, 2
+    elif layout in ("444", "gray"):
+        mh, mw, by, bx = 8, 8, 1, 1
+    else:
+        raise ValueError(f"unsupported dct layout {layout!r}")
+    mcu_y = -(-src_h // mh)
+    mcu_x = -(-src_w // mw)
+    h2 = -(-src_h // shrink)
+    w2 = -(-src_w // shrink)
+    hb, wb = bucket_shape(max(h2, by * mcu_y * k), max(w2, bx * mcu_x * k))
+    return k, h2, w2, hb, wb
+
+
 def tight_dim(n: int) -> int:
     """Snug bucket for *output* dims: device->host readback over the
     interconnect is the scarce resource (~fixed-cost + low bandwidth, see

@@ -15,14 +15,18 @@ the card is still working. The fetch waits on that event only, not on the
 stream, so it never waits for chunks launched after its own. Every device
 tensor of a launch is allocated under the side stream, so the caching
 allocator reuses its memory only for work queued later on that stream.
-On the CPU the chain runs at once and the fetch has nothing to wait for. The chain's uint8 -> f32
-cast and its uint8 epilogue are fused into the first and last stages'
-kernels.
+On the CPU the chain runs at once and the fetch has nothing to wait for.
+The chain's uint8 -> f32 cast (int16 -> f32 for the DCT transport's
+coefficients, staged as int16 in the same one H2D) and its uint8
+epilogue are fused into the first and last stages' kernels. A chain
+whose last spec has `out_dtype` "int16" (ToDctSpec) drains rounded,
+clamped int16 coefficients, written by that kernel itself, and
+`finish_batch` re-blocks them into `QuantizedBlocks` for the host
+entropy encoder.
 
 Buffer donation has no torch meaning (the kernels allocate their outputs
 and the caching allocator recycles freed buffers); `donation_stats`
-reports it off. The int16 egress of the DCT transport waits for the DCT
-slice.
+reports it off.
 """
 
 from __future__ import annotations
@@ -85,6 +89,7 @@ def pad_to_bucket(arr: np.ndarray) -> np.ndarray:
 
 _TORCH_DTYPES = {
     np.dtype(np.uint8): torch.uint8,
+    np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.float32): torch.float32,
 }
@@ -206,11 +211,20 @@ def _to_host(launched: Launched) -> np.ndarray:
 def finish_batch(host_y, arrs: list, plans: list) -> list:
     """Slice per-image outputs out of a fetched (host) batch array.
 
-    Slices are copied, so no output pins the batch buffer. yuv420-transport
-    plans return YuvPlanes sliced out of the packed layout."""
+    Slices are copied, so no output pins the batch buffer. yuv420- and
+    dct-transport plans return YuvPlanes sliced out of the packed layout,
+    or QuantizedBlocks with the dct egress."""
     if host_y is None:
         return [np.asarray(a) for a in arrs]
-    if plans[0].transport == "yuv420":
+    if plans[0].egress == "dct":
+        # the chain ended in ToDctSpec: quantized int16 coefficient planes
+        # in the yuv420 packed layout, re-blocked for encode_quantized
+        from imaginary_tpu_torch.codecs.jpeg_dct import unpack_dct_egress
+
+        return [unpack_dct_egress(host_y[i], p.out_h, p.out_w, *p.out_bucket,
+                                  p.egress_quality)
+                for i, p in enumerate(plans)]
+    if plans[0].transport in ("yuv420", "dct"):
         from imaginary_tpu_torch.codecs import unpack_planes
 
         return [

@@ -3,8 +3,7 @@
 The port's copy of `imaginary_tpu/ops/plan.py`, bound to the port's stage
 specs (`imaginary_tpu_torch.ops.stages`), so both packages plan the same
 chain for the same request. `plan_from_dict` rebuilds a port plan from a
-plain description of a reference plan. The dct transport's wrapper waits
-for the DCT slice.
+plain description of a reference plan.
 
 This module encodes the reference's *dimension semantics* — what bimg's
 resizer does with Width/Height/Crop/Embed/Force/Enlarge/Zoom (SURVEY.md
@@ -26,11 +25,12 @@ from typing import Optional
 
 import numpy as np
 
+from imaginary_tpu_torch import kernels
 from imaginary_tpu_torch.errors import ImageError, new_error
 from imaginary_tpu_torch.imgtype import ImageType, image_type
 from imaginary_tpu_torch.options import Colorspace, Extend, Gravity, ImageOptions, apply_aspect_ratio
 from imaginary_tpu_torch.ops import stages as stages_mod
-from imaginary_tpu_torch.ops.buckets import MAX_DIM, bucket_dim, bucket_shape, tight_dim
+from imaginary_tpu_torch.ops.buckets import MAX_DIM, bucket_dim, bucket_shape, dct_packed_geometry, tight_dim
 from imaginary_tpu_torch.ops.stages import (
     BlurSpec,
     CompositeSpec,
@@ -38,11 +38,13 @@ from imaginary_tpu_torch.ops.stages import (
     ExtractSpec,
     FlipSpec,
     FlopSpec,
+    FromDctSpec,
     FromYuv420Spec,
     GraySpec,
     SampleSpec,
     ShrinkBucketSpec,
     SmartExtractSpec,
+    ToDctSpec,
     ToYuv420Spec,
     TransposeSpec,
 )
@@ -131,6 +133,75 @@ def wrap_plan_yuv420(plan: ImagePlan, src_h: int, src_w: int) -> ImagePlan:
         in_h=src_h,
         in_w=src_w,
         out_bucket=(out_hb, out_wb),
+    )
+
+
+def dct_in_bucket(shrink: int, hb: int, wb: int, layout: str) -> tuple:
+    """Packed coefficient-array dims for one (shrink, layout) combination,
+    as K11 takes them (`kernels.dct_in_shape`).
+
+    4:2:0 at full scale packs yuv420-style [hb + hb/2, wb, 1]; 4:2:2 at
+    full scale stacks chroma in a second full-height band [2*hb, wb, 1];
+    grayscale/4:4:4 and every shrunk scale fold into [hb, wb, C] (see
+    codecs/jpeg_dct.pack_dct for the channel counts).
+    """
+    return kernels.dct_in_shape(layout, 8 // shrink, hb, wb)[:2]
+
+
+def wrap_plan_dct(plan: ImagePlan, src_h: int, src_w: int, shrink: int,
+                  layout: str = "420", egress: str = "",
+                  egress_quality: int = 75) -> ImagePlan:
+    """Re-express an RGB plan (planned at the SHRUNK dims) as a
+    dct-transport plan.
+
+    Prepends the device-side scaled IDCT + chroma upsample (FromDctSpec
+    consumes codecs/jpeg_dct.py's packed coefficient buffer) and appends
+    the yuv420 repack for the readback; the wrapped chain is the SAME RGB
+    geometry in the middle, so every operation composes unchanged. `plan`
+    must have been planned at (ceil(src/shrink)) dims — the dims the
+    scaled IDCT reconstructs. Identity plans return unchanged: with no
+    pixels host-side there is nothing to short-circuit to, so the caller
+    must route those to the rgb/yuv paths instead.
+
+    The coefficient bucket can exceed bucket_shape(shrunk dims) when the
+    MCU-padded block grid crosses a ladder rung; a static ShrinkBucketSpec
+    restores the exact mid-chain geometry the RGB plan was built against.
+
+    egress="dct" swaps the ToYuv420Spec repack for ToDctSpec: the chain
+    ends with a device-side forward DCT + quantization at egress_quality
+    (qy/qc ride as per-image dyn [8, 8] f32) and the readback is int16
+    coefficients for the host entropy encoder.
+    """
+    if not plan.stages:
+        return plan
+    k, h2, w2, hb, wb = dct_packed_geometry(src_h, src_w, shrink, layout)
+    stages = [StageInstance(FromDctSpec(hb, wb, k, layout), {})]
+    bh2, bw2 = bucket_shape(h2, w2)
+    if (hb, wb) != (bh2, bw2):
+        stages.append(StageInstance(ShrinkBucketSpec(bh2, bw2), {}))
+    out_hb, out_wb = _final_bucket(plan.stages, h2, w2)
+    if egress == "dct":
+        from imaginary_tpu_torch.codecs.jpeg_dct import quality_tables
+
+        qy, qc = quality_tables(int(egress_quality))
+        tail = StageInstance(
+            ToDctSpec(out_hb, out_wb),
+            {"qy": qy.astype(np.float32), "qc": qc.astype(np.float32)},
+        )
+    else:
+        tail = StageInstance(ToYuv420Spec(out_hb, out_wb), {})
+    stages = stages + plan.stages + [tail]
+    return ImagePlan(
+        stages=stages,
+        out_h=plan.out_h,
+        out_w=plan.out_w,
+        transport="dct",
+        in_bucket=dct_in_bucket(shrink, hb, wb, layout),
+        in_h=h2,
+        in_w=w2,
+        out_bucket=(out_hb, out_wb),
+        egress=egress,
+        egress_quality=int(egress_quality),
     )
 
 

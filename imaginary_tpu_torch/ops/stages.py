@@ -4,14 +4,15 @@ Each stage is a (static spec, dynamic params) pair. Class names and fields
 match the reference exactly, so a plan built by either package describes
 the same chain and plans compare across the two.
 
-Tensor convention: x is [B, Hb, Wb, C] on one device (uint8 only as the
-first stage's input, float32 in [0, 255] otherwise), padded to bucket dims;
-h and w are int32 [B] valid dims; dyn holds the stage's per-image params as
-tensors on the same device. `apply(x, h, w, dyn, out_u8)` returns
-(x, h, w); with `out_u8` the stage is the chain's last and also applies the
-uint8 epilogue. The main-path stages run one of the port's CUDA kernels on
-a CUDA tensor and its plain version on a CPU tensor (`kernels/`). The other
-specs are not ported yet and raise NotImplementedError naming the spec.
+Tensor convention: x is [B, Hb, Wb, C] on one device (uint8 or, for the
+DCT transport, int16 only as the first stage's input, float32 in [0, 255]
+otherwise), padded to bucket dims; h and w are int32 [B] valid dims; dyn
+holds the stage's per-image params as tensors on the same device.
+`apply(x, h, w, dyn, out_u8)` returns (x, h, w); with `out_u8` the stage
+is the chain's last and also applies the uint8 epilogue (ToDctSpec, whose
+`out_dtype` is "int16", drains rounded int16 coefficients instead). Every
+stage runs one or more of the port's CUDA kernels on a CUDA tensor and
+their plain versions on a CPU tensor (`kernels/`).
 """
 
 from __future__ import annotations
@@ -20,14 +21,6 @@ import dataclasses
 
 from imaginary_tpu_torch import kernels
 from imaginary_tpu_torch.options import Extend
-
-
-class _NotPorted:
-    """Mixin for specs whose device work waits for a later slice."""
-
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported to the PyTorch/CUDA package yet")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,13 +160,21 @@ class FromYuv420Spec:
 
 
 @dataclasses.dataclass(frozen=True)
-class FromDctSpec(_NotPorted):
-    """Scaled IDCT of the packed DCT-coefficient buffer into RGB."""
+class FromDctSpec:
+    """Scaled k-point IDCT of the packed DCT-coefficient buffer (int16
+    dequantized, frequency-folded coefficients from codecs/jpeg_dct.py)
+    into RGB, with the 4:2:0 / 4:2:2 chroma upsample at k = 8 (kernel
+    K11). The input shape per (layout, k) is `kernels.dct_in_shape`'s."""
 
     hb: int
     wb: int
     k: int
     layout: str = "420"
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        if out_u8:
+            raise ValueError("FromDctSpec cannot end a chain")
+        return kernels.from_dct(x, h, w, self.hb, self.wb, self.k, self.layout), h, w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,13 +192,21 @@ class ToYuv420Spec:
 
 
 @dataclasses.dataclass(frozen=True)
-class ToDctSpec(_NotPorted):
-    """Forward DCT + quantize into the egress coefficient buffer."""
+class ToDctSpec:
+    """Forward DCT + quantize RGB into the packed egress coefficient buffer
+    [B, hb + hb/2, wb, 1] int16, rounded half to even and clamped (kernel
+    K12). dyn: qy, qc (f32 [B, 8, 8], the quality-scaled steps)."""
 
     hb: int
     wb: int
 
+    # the chain drains int16 coefficients, not uint8 pixels
     out_dtype = "int16"
+
+    def apply(self, x, h, w, dyn, out_u8: bool = True):
+        if not out_u8:
+            raise ValueError("ToDctSpec must end its chain")
+        return kernels.to_dct(x, h, w, dyn["qy"], dyn["qc"], self.hb, self.wb), h, w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,8 +218,18 @@ class GraySpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class SmartExtractSpec(_NotPorted):
-    """Saliency-guided crop. dyn: new_h, new_w."""
+class SmartExtractSpec:
+    """Saliency-guided crop (ref: bimg GravitySmart): the saliency integral
+    image (kernel K9), the best window's offsets, chosen on the device
+    (K10), and the window gather at those offsets (K4), with no host
+    round trip between them. dyn: new_h, new_w (i32 [B])."""
 
     out_hb: int
     out_wb: int
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False):
+        ii = kernels.saliency_ii(x, h, w)
+        top, left = kernels.window_argmax(ii, h, w, dyn["new_h"], dyn["new_w"])
+        out = kernels.gather(x, self.out_hb, self.out_wb, top, left,
+                             mode="window", out_u8=out_u8)
+        return out, dyn["new_h"], dyn["new_w"]

@@ -1,26 +1,32 @@
 """The synchronous processing path of the port: bytes -> plan -> kernels -> bytes.
 
 The port's counterpart of `imaginary_tpu/pipeline.py:process_operation`
-and `process_pipeline` for the `rgb` and `yuv420` transports: header
-probe, shrink-on-load choice, transport gate, decode, plan, chain run on
-`device`, encode and metadata carry. A 4:2:0 JPEG in and JPEG out rides
-the packed-YUV420 transport (half the link bytes; the color math runs on
-the card); every other request (PNG, WEBP, GIF, TIFF sources or targets)
-rides the RGB transport. A /pipeline fuses every stage of every op into
-one chain: decode once, encode once.
+and `process_pipeline` for the `rgb`, `yuv420` and `dct` transports:
+header probe, shrink-on-load choice, transport gate, decode, plan, chain
+run on `device`, encode and metadata carry. A 4:2:0 JPEG in and JPEG out
+rides the packed-YUV420 transport (half the link bytes; the color math
+runs on the card); every other request (PNG, WEBP, GIF, TIFF sources or
+targets) rides the RGB transport. With `--transport-dct` a baseline JPEG
+in and JPEG out rides the compressed domain instead: the host only
+entropy-decodes (codecs/jpeg_dct.py) and the card runs the IDCT (K11);
+with `--transport-dct-egress` too, the card also runs the forward DCT and
+quantization (K12) and the host only entropy-codes the coefficients. A
+stream outside the entropy codec's scope (progressive and the like)
+takes the yuv420/rgb path, counted in `dct_counts()`. A /pipeline fuses
+every stage of every op into one chain: decode once, encode once.
 
-The dct transport, `info`, URL sources (so `watermarkImage`, which
-answers 501), the frame cache, the TIMES/COPIES ledgers and failpoints
-wait for later slices.
+`info`, URL sources (so `watermarkImage`, which answers 501), the frame
+cache, the TIMES/COPIES ledgers and failpoints wait for later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Optional
 
 from imaginary_tpu_torch import codecs
-from imaginary_tpu_torch.codecs import EncodeOptions, YuvPlanes
+from imaginary_tpu_torch.codecs import EncodeOptions, YuvPlanes, jpeg_dct
 from imaginary_tpu_torch.errors import ImageError, new_error
 from imaginary_tpu_torch.imgtype import ENCODABLE, ImageType, determine_image_type, get_image_mime_type, image_type
 from imaginary_tpu_torch.options import ImageOptions
@@ -32,6 +38,7 @@ from imaginary_tpu_torch.ops.plan import (
     choose_decode_shrink,
     fuse_adjacent_shrinking_samples,
     plan_operation,
+    wrap_plan_dct,
     wrap_plan_yuv420,
 )
 from imaginary_tpu_torch.params import ParamError, build_params_from_operation
@@ -39,8 +46,70 @@ from imaginary_tpu_torch.params import ParamError, build_params_from_operation
 MAX_PIPELINE_OPERATIONS = 10  # ref: image.go:383-385
 
 # Type values under which a request's output stays JPEG ("" and "auto"
-# inherit a JPEG source) — the packed-YUV420 transport gate.
+# inherit a JPEG source) — the packed-YUV420 and dct transport gate.
 _JPEG_TYPE_NAMES = ("", "jpeg", "jpg", "auto")
+
+# Compressed-domain ingest (--transport-dct): the host entropy-decodes and
+# ships dequantized DCT coefficients; the card runs the IDCT and color
+# convert (FromDctSpec, K11). OFF by default.
+_TRANSPORT_DCT = False
+
+# Compressed-domain egress (--transport-dct-egress): the chain ends in the
+# forward DCT + quantization (ToDctSpec, K12) and the host entropy-codes
+# the drained int16 coefficients. Rides on the dct transport; OFF by
+# default.
+_TRANSPORT_DCT_EGRESS = False
+
+# Requests the dct transport served, and JPEGs it handed to the yuv420/rgb
+# path because the entropy codec's scope check refused them (progressive,
+# arithmetic coding, odd sampling) or their frame dims disagreed with the
+# probe: a host codec scope gate, not a device fallback.
+_DCT_COUNTS = {"served": 0, "out_of_scope": 0}
+_DCT_LOCK = threading.Lock()
+
+
+def set_transport_dct(on: bool) -> None:
+    """Flip the dct transport on/off (wired from --transport-dct)."""
+    global _TRANSPORT_DCT
+    _TRANSPORT_DCT = bool(on)
+
+
+def transport_dct_enabled() -> bool:
+    return _TRANSPORT_DCT
+
+
+def set_transport_dct_egress(on: bool) -> None:
+    """Flip dct egress on/off (wired from --transport-dct-egress)."""
+    global _TRANSPORT_DCT_EGRESS
+    _TRANSPORT_DCT_EGRESS = bool(on)
+
+
+def transport_dct_egress_enabled() -> bool:
+    return _TRANSPORT_DCT_EGRESS
+
+
+def dct_counts() -> dict:
+    """A copy of the dct transport's counters."""
+    with _DCT_LOCK:
+        return dict(_DCT_COUNTS)
+
+
+def _count_dct(key: str) -> None:
+    with _DCT_LOCK:
+        _DCT_COUNTS[key] += 1
+
+
+def _pick_egress(o: ImageOptions, target: ImageType) -> str:
+    """"dct" when this request should drain quantized coefficients.
+
+    Baseline-JPEG output only: encode_quantized writes baseline 4:2:0
+    scans, so progressive (interlace) requests keep the pixel readback
+    and the normal encoder."""
+    if not _TRANSPORT_DCT_EGRESS:
+        return ""
+    if target is not ImageType.JPEG or o.interlace:
+        return ""
+    return "dct"
 
 
 @dataclasses.dataclass
@@ -62,8 +131,13 @@ def _encode_type(o: ImageOptions, source: ImageType) -> ImageType:
 
 
 def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
-    """Encode an HWC uint8 array, or YuvPlanes from the packed transport
-    (raw-plane JPEG path, no host color math)."""
+    """Encode an HWC uint8 array, YuvPlanes from the packed transports
+    (raw-plane JPEG path, no host color math), or QuantizedBlocks from the
+    dct egress (entropy-coded as they are: `_pick_egress` chose the egress
+    only for a baseline JPEG target)."""
+    if isinstance(arr, jpeg_dct.QuantizedBlocks):
+        return ProcessedImage(body=jpeg_dct.encode_quantized(arr),
+                              mime=get_image_mime_type(target))
     opts = EncodeOptions(
         type=target,
         quality=o.quality,
@@ -108,8 +182,8 @@ def _carry_metadata(src_buf: bytes, strip: bool, out: ProcessedImage,
 
 
 def _run_stages(arr, plan: ImagePlan, device, runner=None):
-    """Device execution. Stages the port has not ported yet surface as 501;
-    other device failures as 400 (ref: Process recover(), image.go:82-94).
+    """Device execution; device failures surface as 400 (ref: Process
+    recover(), image.go:82-94).
 
     runner: (arr, plan) -> output; defaults to `chain.run_single` on
     `device`, and the web layer passes `Executor.process` for
@@ -120,8 +194,6 @@ def _run_stages(arr, plan: ImagePlan, device, runner=None):
         if runner is None:
             return chain_mod.run_single(arr, plan, device=device)
         return runner(arr, plan)
-    except NotImplementedError as e:
-        raise new_error(str(e), 501) from None
     except (RuntimeError, ValueError, TypeError) as e:
         raise new_error(f"image processing error: {e}", 400) from None
 
@@ -145,25 +217,74 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
             meta = None  # the decode below raises the user-facing error
     shrink = _pick_shrink(name, src_type, o, meta)
 
+    if _dct_eligible(src_type, meta, o):
+        out = _process_dct(name, buf, o, meta, shrink, device, runner)
+        if out is not None:
+            return out
+
     if _yuv_eligible(src_type, meta, o):
         out = _process_yuv420(name, buf, o, meta, shrink, device, runner)
         if out is not None:
             return out
 
     d = codecs.decode(buf, shrink)
-    plan = _plan(name, o, d.array.shape[0], d.array.shape[1], d.orientation,
-                 d.array.shape[2])
+    plan = plan_operation(name, o, d.array.shape[0], d.array.shape[1], d.orientation,
+                          d.array.shape[2])
     arr = _run_stages(d.array, plan, device, runner)
     out = _encode(arr, o, _encode_type(o, d.type))
     return _carry_metadata(buf, o.strip_metadata, out, not o.no_rotation,
                            plan.out_w, plan.out_h)
 
 
-def _plan(name, o, h, w, orientation, channels) -> ImagePlan:
-    try:
-        return plan_operation(name, o, h, w, orientation, channels)
-    except NotImplementedError as e:
-        raise new_error(str(e), 501) from None
+def _dct_eligible(src_type, meta, o: ImageOptions) -> bool:
+    """Gate for the compressed-domain transport: the switch on, a JPEG in
+    (4:2:0, 4:2:2, 4:4:4 or grayscale by its header), JPEG out. Coarser
+    than the entropy codec's own scope check, which decode_packed runs."""
+    if not _TRANSPORT_DCT:
+        return False
+    if src_type is not ImageType.JPEG or meta is None:
+        return False
+    if meta.subsampling not in ("420", "422", "444", "gray"):
+        return False
+    return o.type in _JPEG_TYPE_NAMES
+
+
+def _decode_dct_packed(buf, shrink, sh, sw):
+    """Entropy-decode + dequantize + fold + pack the coefficients for the
+    card's IDCT. Returns (packed, layout), or None (counted) when the
+    stream is outside the codec's scope or its frame dims disagree with
+    the probe's: the request then takes the yuv420/rgb path."""
+    got = jpeg_dct.decode_packed(buf, shrink)
+    if got is None or (got[1], got[2]) != (sh, sw):
+        _count_dct("out_of_scope")
+        return None
+    return got[0], got[3]
+
+
+def _process_dct(name, buf, o, meta, shrink, device,
+                 runner) -> Optional[ProcessedImage]:
+    """Serve a JPEG->JPEG request over the compressed-domain transport;
+    None hands it to the yuv420/rgb paths: an identity chain (which the
+    yuv420 path serves from raw planes with no device work, so it is
+    planned before any entropy decode) or an out-of-scope stream.
+    Parameter errors raise exactly as the other paths would."""
+    sh = -(-meta.height // shrink)
+    sw = -(-meta.width // shrink)
+    plan = plan_operation(name, o, sh, sw, meta.orientation, 3)
+    if not plan.stages:
+        return None
+    got = _decode_dct_packed(buf, shrink, sh, sw)
+    if got is None:
+        return None
+    packed, layout = got
+    target = _encode_type(o, ImageType.JPEG)
+    wrapped = wrap_plan_dct(plan, meta.height, meta.width, shrink, layout=layout,
+                            egress=_pick_egress(o, target),
+                            egress_quality=o.quality if o.quality > 0 else 80)
+    out = _encode(_run_stages(packed, wrapped, device, runner), o, target)
+    _count_dct("served")
+    return _carry_metadata(buf, o.strip_metadata, out, not o.no_rotation,
+                           plan.out_w, plan.out_h)
 
 
 def _yuv_eligible(src_type, meta, o: ImageOptions) -> bool:
@@ -201,7 +322,7 @@ def _process_yuv420(name, buf, o, meta, shrink, device,
     if got is None:
         return None
     packed, hb, wb = got
-    plan = _plan(name, o, sh, sw, meta.orientation, 3)
+    plan = plan_operation(name, o, sh, sw, meta.orientation, 3)
     target = _encode_type(o, ImageType.JPEG)
     if not plan.stages:
         # identity chain: planes go straight back to the raw encoder
@@ -222,7 +343,7 @@ def _pick_shrink(name: str, src_type: ImageType, o: ImageOptions, meta) -> int:
     try:
         return choose_decode_shrink(name, o, meta.height, meta.width,
                                     meta.orientation, max(3, meta.channels))
-    except (ImageError, NotImplementedError):
+    except ImageError:
         return 1
 
 
@@ -261,6 +382,24 @@ def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
         (op.params or {}).get("type") in (None,) + _JPEG_TYPE_NAMES
         for op in o.operations
     )
+    if ops_keep_jpeg and _dct_eligible(src_type, meta, o):
+        sh = -(-meta.height // shrink)
+        sw = -(-meta.width // shrink)
+        combined, final_o, target, rotated, strip = _build_pipeline_plan(
+            o, sh, sw, meta.orientation, 3, ImageType.JPEG)
+        # identity chains go on to the yuv path, which serves them
+        # straight from raw planes with no device round trip at all
+        got = _decode_dct_packed(buf, shrink, sh, sw) if combined.stages else None
+        if got is not None:
+            packed, layout = got
+            q = final_o.quality if final_o.quality > 0 else 80
+            wrapped = wrap_plan_dct(combined, meta.height, meta.width, shrink,
+                                    layout=layout, egress=_pick_egress(final_o, target),
+                                    egress_quality=q)
+            out = _encode(_run_stages(packed, wrapped, device, runner), final_o, target)
+            _count_dct("served")
+            return _carry_metadata(buf, strip, out, rotated, combined.out_w, combined.out_h)
+
     if ops_keep_jpeg and _yuv_eligible(src_type, meta, o):
         sh = -(-meta.height // shrink)
         sw = -(-meta.width // shrink)
@@ -307,7 +446,7 @@ def _build_pipeline_plan(o, cur_h, cur_w, orientation, channels, src_type):
             raise new_error(f"pipeline operation {i+1} failed: {e}", 400) from None
         try:
             _fetch_watermark(op.name, op_opts)
-            plan = _plan(op.name, op_opts, cur_h, cur_w, orientation, channels)
+            plan = plan_operation(op.name, op_opts, cur_h, cur_w, orientation, channels)
         except ImageError:
             if op.ignore_failure:
                 continue

@@ -76,15 +76,18 @@ class _Server(ThreadingHTTPServer):
 
 def make_server(host: str = "0.0.0.0", port: int = 9000, device="cuda",
                 mount: str = "", max_batch: int = MAX_BATCH,
-                batch_form_ms: float = 5.0,
-                max_inflight: int = 4) -> ThreadingHTTPServer:
+                batch_form_ms: float = 5.0, max_inflight: int = 4,
+                transport_dct: bool = False,
+                transport_dct_egress: bool = False) -> ThreadingHTTPServer:
     """Bind (not start) the server; `serve_forever()` runs it and
     `shutdown()` + `server_close()` stop it (and its executor)."""
     srv = _Server((host, port), _Handler)
     try:
         srv.service = ImageService(device=device, mount=mount, max_batch=max_batch,
                                    batch_form_ms=batch_form_ms,
-                                   max_inflight=max_inflight)
+                                   max_inflight=max_inflight,
+                                   transport_dct=transport_dct,
+                                   transport_dct_egress=transport_dct_egress)
     except BaseException:
         srv.server_close()
         raise

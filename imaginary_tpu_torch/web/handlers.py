@@ -7,11 +7,12 @@ method, path, query, headers and body and returns a `Response`, and
 reference's param parsing, error JSON and status codes.
 
 Served: `/`, `/health`, `/resize`, `/fit`, `/enlarge`, `/extract`,
-`/crop`, `/thumbnail`, `/zoom`, `/rotate`, `/autorotate`, `/flip`,
-`/flop`, `/convert`, `/blur`, `/watermark` and `/pipeline`, on JPEG (the
-native codec) and PNG, WEBP, GIF and TIFF (Pillow) sources and targets.
-The reference's other routes (`/smartcrop`, `/watermarkimage`, `/info`)
-answer 501 until their slice lands. Requests run concurrently on
+`/crop`, `/smartcrop`, `/thumbnail`, `/zoom`, `/rotate`, `/autorotate`,
+`/flip`, `/flop`, `/convert`, `/blur`, `/watermark` and `/pipeline`, on
+JPEG (the native codec) and PNG, WEBP, GIF and TIFF (Pillow) sources and
+targets; with the dct transport switched on, JPEG in and out rides the
+compressed domain. The reference's other routes (`/watermarkimage`,
+`/info`) answer 501 until their slice lands. Requests run concurrently on
 the server's threads: decode and encode on the request's own thread, the
 device work through one micro-batching `Executor` per service, which
 groups concurrent requests that share a chain into one launch.
@@ -60,8 +61,8 @@ FORM_FIELD = "file"  # ref: source_body.go:12
 MAX_ALLOWED_MPIX = 18.0  # ref: imaginary.go:36
 
 SERVED_OPERATIONS = ("resize", "fit", "enlarge", "extract", "crop",
-                     "thumbnail", "zoom", "rotate", "autorotate", "flip",
-                     "flop", "convert", "blur", "watermark", "pipeline")
+                     "smartcrop", "thumbnail", "zoom", "rotate", "autorotate",
+                     "flip", "flop", "convert", "blur", "watermark", "pipeline")
 # The reference's image routes (ref: OperationsMap, image.go:15-32, plus
 # /info and /pipeline): known here so they answer 501, not 404.
 REFERENCE_OPERATIONS = (
@@ -109,10 +110,15 @@ def _read_form(body: bytes, ctype: str, field: str) -> bytes:
 
 class ImageService:
     """Serves the slice's routes on one device; `handle` may run on many
-    threads at once. `close()` shuts the executor down."""
+    threads at once. `close()` shuts the executor down. The dct transport
+    switches are process-wide (`pipeline.set_transport_dct`), set here
+    from the server's options as the reference's server sets them."""
 
     def __init__(self, device="cuda", mount: str = "", max_batch: int = MAX_BATCH,
-                 batch_form_ms: float = 5.0, max_inflight: int = 4):
+                 batch_form_ms: float = 5.0, max_inflight: int = 4,
+                 transport_dct: bool = False, transport_dct_egress: bool = False):
+        if transport_dct_egress and not transport_dct:
+            raise ValueError("the dct egress requires the dct transport")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -122,6 +128,8 @@ class ImageService:
         self.executor = Executor(ExecutorConfig(
             max_batch=max_batch, max_form_ms=batch_form_ms,
             max_inflight=max(1, max_inflight), device=str(self.device)))
+        pipeline.set_transport_dct(transport_dct)
+        pipeline.set_transport_dct_egress(transport_dct_egress)
 
     def close(self) -> None:
         self.executor.shutdown()
@@ -161,6 +169,9 @@ class ImageService:
             "device": str(self.device),
             "kernelLaunches": dict(kernels.LAUNCHES),
             "codecs": codecs.routes(),
+            "dctTransport": {"ingress": pipeline.transport_dct_enabled(),
+                             "egress": pipeline.transport_dct_egress_enabled(),
+                             **pipeline.dct_counts()},
             "executor": self.executor.stats.to_dict(),
         }
         if self.device.type == "cuda":

@@ -144,14 +144,6 @@ def test_fetch_error_reaches_its_chunk_only(make_ex, monkeypatch):
     assert ex.stats.device_failures == 1
 
 
-def test_unported_stage_is_no_device_failure(make_ex):
-    ex = make_ex(max_form_ms=1)
-    plan = plan_operation("smartcrop", ImageOptions(width=32, height=24), 64, 64, 0, 3)
-    with pytest.raises(NotImplementedError, match="SmartExtractSpec"):
-        ex.process(_img(64, 64), plan, timeout=WAIT_S)
-    assert ex.stats.device_failures == 0
-
-
 def test_concurrent_submitters(make_ex):
     """More submitting threads than cores, with a short switch interval:
     every result is its own image's, and no count or owed byte is lost."""

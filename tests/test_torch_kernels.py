@@ -253,16 +253,6 @@ def test_orient_rejects_an_unknown_mode():
         kernels.orient(x, i, i, "rotate")
 
 
-@pytest.mark.parametrize("spec", [
-    pst.FromDctSpec(16, 16, 8), pst.ToDctSpec(16, 16), pst.SmartExtractSpec(8, 8),
-], ids=lambda s: type(s).__name__)
-def test_off_path_specs_raise_not_implemented_naming_the_spec(spec):
-    x = torch.zeros((1, 16, 16, 3))
-    with pytest.raises(NotImplementedError, match=type(spec).__name__):
-        spec.apply(x, torch.tensor([16], dtype=torch.int32),
-                   torch.tensor([16], dtype=torch.int32), {})
-
-
 # K6: (radius, sigma) with sigma 0 (the delta), small, near the radius and
 # far beyond it (the taps flatten into a box)
 BLUR_CASES = [(r, s) for r in (2, 4, 64) for s in (0.0, 0.7, 3.0, 40.0)]
@@ -403,8 +393,13 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.blur(x, i, i, f, 4)
     kernels.composite(x, torch.zeros((1, 8, 8, 4)), i, i, f, i, i, True)
     kernels.gray(x)
+    ii = kernels.saliency_ii(x, i, i)
+    kernels.window_argmax(ii, i, i, i, i)
+    kernels.from_dct(torch.zeros((1, 24, 16, 1), dtype=torch.int16), i, i, 16, 16, 8, "420")
+    kernels.to_dct(x, i, i, torch.ones((1, 8, 8)), torch.ones((1, 8, 8)), 16, 16)
     assert set(kernels.LAUNCHES) == {"resample", "yuv420_unpack", "yuv420_pack",
-                                     "gather", "orient", "blur", "composite", "gray"}
+                                     "gather", "orient", "blur", "composite", "gray",
+                                     "saliency", "window_argmax", "from_dct", "to_dct"}
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 

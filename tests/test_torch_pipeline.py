@@ -246,15 +246,6 @@ def test_process_operation_runs_through_a_given_runner(large):
     assert via.body == direct.body and (via.width, via.height) == (1080, 1920)
 
 
-def test_process_operation_maps_unported_stages_to_501(large):
-    from imaginary_tpu_torch.errors import ImageError
-
-    with pytest.raises(ImageError) as e:
-        ppipeline.process_operation("smartcrop", large, pquery({"width": "300", "height": "200"}),
-                                    device="cpu")
-    assert e.value.code == 501 and "SmartExtractSpec" in e.value.message
-
-
 # --- /pipeline and the slice-3 routes ----------------------------------------
 
 def _png(seed: int, h: int = 270, w: int = 480, c: int = 3) -> bytes:

@@ -2,12 +2,12 @@
 from the JAX package.
 
 The server answers the reference's status codes and error JSON: 200 for
-/resize, /crop, /thumbnail, /rotate, /autorotate, /flip, /flop, /fit,
-/enlarge, /extract, /zoom, /convert, /blur, /watermark and /pipeline
-(raw body, multipart `file` field, or ?file= under --mount; JPEG, PNG,
-WEBP and GIF in and out), 400 for bad params, 404 for unknown paths, 405
-for GET without a mount, 406 for non-images, 501 for routes, stages and
-formats not ported yet. Concurrent requests
+/resize, /crop, /smartcrop, /thumbnail, /rotate, /autorotate, /flip,
+/flop, /fit, /enlarge, /extract, /zoom, /convert, /blur, /watermark and
+/pipeline (raw body, multipart `file` field, or ?file= under --mount;
+JPEG, PNG, WEBP and GIF in and out), 400 for bad params, 404 for unknown
+paths, 405 for GET without a mount, 406 for non-images, 501 for routes
+and formats not ported yet. Concurrent requests
 get the bodies they get alone. The port must import neither `jax` nor
 `imaginary_tpu` (checked in a fresh interpreter and by a scan of its
 sources).
@@ -106,11 +106,11 @@ ERRORS = [
     ("/crop?width=300&type=bogus", "large.jpg", 400, "Unsupported output image format"),
     ("/resize?width=300", "1024bytes", 406, "Unsupported media type"),
     ("/nope?width=300", "large.jpg", 404, "Not found"),
-    ("/smartcrop?width=300&height=200", "large.jpg", 501, "Not implemented endpoint"),
     ("/watermarkimage?image=http://example.invalid/m.png", "large.jpg", 501,
      "Not implemented endpoint"),
+    ("/info", "large.jpg", 501, "Not implemented endpoint"),
     ("/pipeline?operations=" + urllib.parse.quote(
-        '[{"operation": "smartcrop", "params": {"width": 300, "height": 200}}]'),
+        '[{"operation": "watermarkImage", "params": {"image": "http://example.invalid/m.png"}}]'),
      "large.jpg", 501, None),
     ("/resize?width=300", "button.svg", 501, None),
     ("/pipeline", "test.png", 400, "Missing pipeline operations"),
@@ -169,6 +169,8 @@ SLICE3_ROUTES = [
     ("/extract?top=10&left=20&areawidth=300&areaheight=200", "large.jpg", "image/jpeg",
      (200, 300)),
     ("/zoom?factor=2", "test.gif", "image/gif", (480, 640)),
+    ("/smartcrop?width=300&height=200", "large.jpg", "image/jpeg", (200, 300)),
+    ("/smartcrop?width=200&height=200", "test.png", "image/png", (200, 200)),
 ]
 
 
@@ -237,7 +239,9 @@ def test_index_and_health(server):
     stats = json.loads(body)
     assert status == 200 and stats["device"] == "cpu"
     assert set(stats["kernelLaunches"]) == {"resample", "yuv420_unpack", "yuv420_pack",
-                                            "gather", "orient", "blur", "composite", "gray"}
+                                            "gather", "orient", "blur", "composite", "gray",
+                                            "saliency", "window_argmax", "from_dct",
+                                            "to_dct"}
     assert stats["codecs"] == {"jpeg": "native", "png": "pil", "webp": "pil",
                                "gif": "pil", "tiff": "pil"}
     ex = stats["executor"]
