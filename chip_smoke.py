@@ -8,8 +8,8 @@ It drives the port (`imaginary_tpu_torch`) and never JAX or `imaginary_tpu`.
 Phases, in order; any failure raises and exits non-zero:
 
 1. environment: card name and power limit, torch and CUDA versions;
-2. build: the eleven CUDA sources of the twelve kernels (nvcc, sm_90a, in
-   parallel), the native JPEG codec and the native entropy codec of the
+2. build: the twelve CUDA sources of the thirteen kernels (nvcc, sm_90a,
+   in parallel), the native JPEG codec and the native entropy codec of the
    DCT transport (g++), with the time each took;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (config 1: B=1 and B=16; config 2's orientation
@@ -85,7 +85,28 @@ Phases, in order; any failure raises and exits non-zero:
    quantized coefficients within 1 (at most 0.1 % differing) of the same
    request on the CPU, its pixels within 1 LSB wherever an MCU's
    coefficients agree; and the host steps (entropy decode, chain,
-   entropy encode) on the host clock.
+   entropy encode) on the host clock;
+10. multi-GPU: (a) `parallel/spatial.sharded_blur` on two f32 4K frames
+   [2, 2160, 3840, 3] (valid 2100x3800, ending inside the last shard, and
+   2160x1920, ending at a seam) at r = 8 (sigma 3) and r = 64 (sigma 20)
+   on meshes (1, 4) and (2, 2) over four entries of card 0 (and over the
+   real cards when there are several): the counted run (one call per
+   mesh at r = 8, launches reset just before and read just after, equal
+   to 2 per shard, no other kernel), K13's passes against their plain
+   versions at every shard, the whole call against K6 and its plain
+   version within 1e-3, a uint8 frame, and the times of each pass, the
+   exchange, the whole call and K6 on the same image; (b) the server
+   started from the command line with `--mesh-policy lanes` (one lane per
+   card) under phase 6's mix from 32 clients in three windows, every
+   answer byte-equal to the `--mesh-policy off` server's, /health showing
+   one lane per card whose dispatches sum to the batches; (c) servers
+   with lanes and with sharded dispatch over four entries of card 0 under
+   the same mix: every lane dispatches, every answer byte-equal, the
+   lanes' ledgers at rest, chunks split over the mesh; then
+   `device.chip_error[1]` with a breaker threshold of 1 quarantines lane
+   1 while every answer stays byte-equal and the mesh generation rises
+   by 1. The off server serves the same mix before and after them in the
+   same call. Requests per second and p50/p99 are printed as findings.
 
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
@@ -142,6 +163,8 @@ KERNEL_ROWS = {
                  "imaginary_tpu/ops/stages.py:425"),
     "to_dct": ("imaginary_tpu_torch/kernels/csrc/to_dct.cu",
                "imaginary_tpu/ops/stages.py:555"),
+    "blur_halo": ("imaginary_tpu_torch/kernels/csrc/blur_halo.cu",
+                  "imaginary_tpu/parallel/spatial.py:56"),
 }
 # The kernels each main path runs.
 CONFIG1_KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather")
@@ -243,6 +266,15 @@ def packed_inputs(codecs, bsz: int, shrink: int, hb: int, wb: int, rng):
 
 def check(name, got, want, results, case, tol):
     err = max_err(got, want)
+    if not err <= tol:
+        raise AssertionError(f"{name} [{case}]: max |err| {err} > {tol}")
+    results.setdefault(name, {})[case] = {"max_abs_err": err}
+    return err
+
+
+def check_all(name, pairs, results, case, tol):
+    """check() over several (got, want) pairs, keeping the largest error."""
+    err = max(max_err(g, w) for g, w in pairs)
     if not err <= tol:
         raise AssertionError(f"{name} [{case}]: max |err| {err} > {tol}")
     results.setdefault(name, {})[case] = {"max_abs_err": err}
@@ -774,7 +806,7 @@ def main_path_phase() -> dict:
                 d = codecs.decode(body)
                 if d.array.shape[:2] != (200, 300):
                     raise AssertionError(f"/{op}: output {d.array.shape}")
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.launch_counts()
         prof = profile_requests(port, buf)
     finally:
         srv.shutdown()
@@ -1065,7 +1097,7 @@ def config2_phase() -> dict:
             wall, got = load_window(port, reqs)
             walls.append(wall)
             results.extend(got)
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.launch_counts()
         items, batches = ex.stats.items - items0, ex.stats.batches - batches0
         max_group = ex.stats.max_group_seen
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1285,7 +1317,7 @@ def config3_phase(png: bytes) -> dict:
                 if codecs.decode(body).array.shape[:2] != dims:
                     raise AssertionError(f"{name}: output is not {dims}")
             last[name] = body
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.launch_counts()
         reqs = [(CONFIG3_REQUESTS[0][1], png)]
         items0, batches0 = ex.stats.items, ex.stats.batches
         walls, results = [], []
@@ -1757,7 +1789,7 @@ def config4_phase(stream: list) -> dict:
             if (status, ctype) != (200, CONFIG4_MIME[fmt]):
                 raise AssertionError(f"/smartcrop on a {fmt}: {status} {ctype}")
             alone.append(body)
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.launch_counts()
         reqs = [(CONFIG4_PATH, buf) for buf, _, _ in stream]
         items0, batches0 = ex.stats.items, ex.stats.batches
         walls, results = [], []
@@ -1927,7 +1959,7 @@ def dct_phase() -> dict:
                 if codecs.decode(body).array.shape[:2] != dims:
                     raise AssertionError(f"dct {path}: output is not {dims}")
             last[path] = body
-        launches = dict(kernels.LAUNCHES)
+        launches = kernels.launch_counts()
         counts = {k: v - counts0[k] for k, v in pipeline.dct_counts().items()}
         decoder = jpeg_dct.decoder_name()
         # the same requests through the plain versions on the CPU, with
@@ -1977,6 +2009,355 @@ def dct_phase() -> dict:
         log(f"  host steps of {path} (median of 5): "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in st.items()))
     torch.cuda.synchronize()
+    return out
+
+
+# --- phase 10: multi-GPU serving and the W-sharded blur ---------------------
+
+SHARDED_X = (2, 2160, 3840, 3)  # f32, two 4K frames
+# image 0's valid region ends inside the last shard; image 1's at a seam
+SHARDED_VALID = ((2100, 3800), (2160, 1920))
+SHARDED_CASES = ((8, 3.0), (64, 20.0))  # (radius, sigma)
+SHARDED_MESHES = ((1, 4), (2, 2))  # over four entries of one card
+SHARDED_U8 = (1, 2160, 3840, 3)
+LANE_ENTRIES = 4
+LANE_SHARD_MIN = 4
+
+
+def shard_count(mesh, bsz: int) -> int:
+    """Shards a sharded_blur call makes: batch rows that own an image,
+    times the spatial axis."""
+    from imaginary_tpu_torch.parallel import split_batch
+
+    return sum(1 for a, b in split_batch(bsz, mesh) if a < b) * mesh.shape[1]
+
+
+def sharded_blur_phase(res: dict) -> dict:
+    """Phase 10(a): K13 (both passes) against its plain version at every
+    shard of the path's shapes, the exchange, and sharded_blur against K6
+    (kernel and plain) on the unsharded image, on meshes (1, 4) and (2, 2)
+    over four entries of one card (and over real cards when there are
+    several). The counted run: one sharded_blur call per mesh at r = 8,
+    launches reset just before and read just after."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.parallel import get_mesh, spatial
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    bsz, hb, wb, c = SHARDED_X
+    x = torch.rand(SHARDED_X, generator=gen, device=dev) * 255.0
+    h = torch.tensor([v[0] for v in SHARDED_VALID[:bsz]], dtype=torch.int32, device=dev)
+    w = torch.tensor([v[1] for v in SHARDED_VALID[:bsz]], dtype=torch.int32, device=dev)
+    meshes = [(f"{b}x{s}", get_mesh(devices=[dev] * (b * s), spatial=s))
+              for b, s in SHARDED_MESHES]
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    if cards > 1:
+        k = max(n for n in range(2, cards + 1) if wb % n == 0)
+        devs = [torch.device("cuda", i) for i in range(k)]
+        meshes.append((f"cards1x{k}", get_mesh(devices=devs, spatial=k)))
+        if k % 2 == 0:
+            meshes.append((f"cards2x{k // 2}", get_mesh(devices=devs, spatial=k // 2)))
+    out: dict = {"shape": list(SHARDED_X), "valid": [list(v) for v in SHARDED_VALID],
+                 "meshes": [n for n, _ in meshes], "cards": cards}
+
+    r0, sig0 = SHARDED_CASES[0]
+    s0 = torch.full((bsz,), sig0, device=dev)
+    spatial.sharded_blur(x, h, w, s0, r0, meshes[0][1])  # first use: build and load
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    counted = {name: spatial.sharded_blur(x, h, w, s0, r0, mesh) for name, mesh in meshes}
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    expected = sum(2 * shard_count(mesh, bsz) for _, mesh in meshes)
+    if launches["blur_halo"] != expected:
+        raise AssertionError(f"blur_halo launched {launches['blur_halo']} times in "
+                             f"the counted run, expected {expected}")
+    if any(n for k, n in launches.items() if k != "blur_halo"):
+        raise AssertionError(f"sharded_blur launched other kernels: {launches}")
+    out["launches"] = launches
+    log(f"  counted run: {len(meshes)} sharded_blur calls at r={r0}, launches {launches}")
+
+    for r, sig in SHARDED_CASES:
+        s = torch.full((bsz,), sig, device=dev)
+        k6 = kernels.blur(x, h, w, s, r)
+        plain6 = reference.blur(x, h, w, s, r)
+        check("blur", k6, plain6, res, f"4K-B{bsz}-r{r}", F32_TOL)
+        for name, mesh in meshes:
+            case = f"{name}-r{r}"
+            got = counted[name] if r == r0 else spatial.sharded_blur(x, h, w, s, r, mesh)
+            check("blur_halo", got, k6, res, case + "-vs-K6", F32_TOL)
+            check("blur_halo", got, plain6, res, case + "-vs-plain-K6", F32_TOL)
+            # each pass against its plain version, shard by shard, on
+            # every device's current stream
+            grid = spatial.shard_inputs(
+                x, h, w, s, mesh, [torch.cuda.current_stream(d) if d.type == "cuda"
+                                   else None for d in mesh.flat])
+            shards = [sh for row in grid for sh in row]
+            spatial.blur_v(grid, r)
+            check_all("blur_halo", [
+                (sh.buf, reference.blur_halo_v(sh.x, sh.h, sh.w, sh.sigma, r, sh.col0))
+                for sh in shards], res, case + "-pass-v", F32_TOL)
+            spatial.exchange_halos(grid, r)
+            check_all("blur_halo", [
+                (kernels.blur_halo_h(sh.buf, sh.h, sh.w, sh.sigma, r, sh.col0, wb),
+                 reference.blur_halo_h(sh.buf, sh.h, sh.w, sh.sigma, r, sh.col0, wb))
+                for sh in shards], res, case + "-pass-h", F32_TOL)
+            if name.startswith("cards"):
+                continue
+            ms_v = device_ms(lambda: [kernels.blur_halo_v(sh.x, sh.h, sh.w, sh.sigma, r,
+                                                          sh.col0) for sh in shards])
+            ms_h = device_ms(lambda: [kernels.blur_halo_h(sh.buf, sh.h, sh.w, sh.sigma, r,
+                                                          sh.col0, wb) for sh in shards])
+            ms_x = device_ms(lambda: spatial.exchange_halos(grid, r))
+            plain_v = device_ms(lambda: [reference.blur_halo_v(sh.x, sh.h, sh.w, sh.sigma,
+                                                               r, sh.col0) for sh in shards],
+                                calls=3, reps=3)
+            plain_h = device_ms(lambda: [reference.blur_halo_h(sh.buf, sh.h, sh.w, sh.sigma,
+                                                               r, sh.col0, wb) for sh in shards],
+                                calls=3, reps=3)
+            whole = device_ms(lambda: spatial.sharded_blur(x, h, w, s, r, mesh))
+            whole_call = call_ms(lambda: spatial.sharded_blur(x, h, w, s, r, mesh))
+            k6_ms = device_ms(lambda: kernels.blur(x, h, w, s, r))
+            strips = sum(2 * (len(row) - 1) * (row[0].b1 - row[0].b0) for row in grid)
+            x_bytes = 2 * strips * hb * r * c * 4  # each strip read once, written once
+            nbytes = x.numel() * 4 + got.numel() * 4
+            b, by = bound_ms(nbytes, blur_flops(h, w, r, c))
+            bx, _ = bound_ms(x_bytes, 0.0)
+            res["blur_halo"][case + "-vs-K6"].update({
+                "ms": ms_v + ms_h, "pass_v_ms": ms_v, "pass_h_ms": ms_h,
+                "exchange_ms": ms_x, "exchange_bytes": x_bytes, "exchange_bound_ms": bx,
+                "sharded_blur_ms": whole, "sharded_blur_call_ms": whole_call,
+                "k6_ms": k6_ms, "plain_ms": plain_v + plain_h, "plain_v_ms": plain_v,
+                "plain_h_ms": plain_h, "bound_ms": b, "bound_by": by, "library_ms": None,
+                "bytes": nbytes, "shards": len(shards)})
+            log(f"  blur_halo {case:8s} err {res['blur_halo'][case + '-vs-K6']['max_abs_err']:.3g}"
+                f"  pass V {ms_v:.4f} ms + pass H {ms_h:.4f} ms (all {len(shards)} shards, "
+                f"one stream)  exchange {ms_x:.4f} ms ({x_bytes / 1e6:.2f} MB, bound "
+                f"{bx:.4f})  sharded_blur {whole:.4f} ms device, {whole_call:.4f} ms call  "
+                f"K6 {k6_ms:.4f} ms  plain {plain_v + plain_h:.4f} ms  bound {b:.4f} ms ({by})")
+            del grid, shards
+        del k6, plain6
+    xu = torch.randint(0, 256, SHARDED_U8, generator=gen, device=dev, dtype=torch.uint8)
+    n = SHARDED_U8[0]
+    su = torch.full((n,), SHARDED_CASES[0][1], device=dev)
+    got = spatial.sharded_blur(xu, h[:n], w[:n], su, r0, meshes[0][1])
+    check("blur_halo", got, kernels.blur(xu, h[:n], w[:n], su, r0), res,
+          f"{meshes[0][0]}-u8-vs-K6", F32_TOL)
+    check("blur_halo", got, reference.blur(xu, h[:n], w[:n], su, r0), res,
+          f"{meshes[0][0]}-u8-vs-plain-K6", F32_TOL)
+    log("  blur_halo: no single-call library equivalent (per-image masked taps "
+        "over W-shards with halos): library_ms null")
+    torch.cuda.synchronize()
+    return out
+
+
+def serving(srv, fn):
+    """fn(srv) with srv serving on a thread; the server is closed after."""
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        return fn(srv)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+
+
+def alone_bodies(srv, bodies: dict) -> list:
+    """Each phase 6 route's answer served alone (after one warm request)."""
+    port = srv.server_address[1]
+    out = []
+    for path, src, _ in CONFIG2_REQUESTS:
+        http(port, path, bodies[src])
+        status, ctype, body = http(port, path, bodies[src])
+        if (status, ctype) != (200, "image/jpeg"):
+            raise AssertionError(f"{path} alone: {status} {ctype}")
+        out.append(body)
+    return out
+
+
+def serve_mix(srv, bodies: dict, want: list, windows: int = WINDOWS) -> dict:
+    """Phase 6's mix from CLIENTS threads in `windows` timed windows against
+    a started server, with the launch counters and the stage times set to
+    0 just before and read just after; every answer must be byte-equal to
+    `want`."""
+    import numpy as np
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.engine.timing import TIMES
+
+    port = srv.server_address[1]
+    reqs = [(path, bodies[src]) for path, src, _ in CONFIG2_REQUESTS]
+    for path, body in reqs:  # warm each route
+        http(port, path, body)
+    ex = srv.service.executor
+    items0, batches0 = ex.stats.items, ex.stats.batches
+    kernels.reset_launches()
+    TIMES.reset()
+    walls, results = [], []
+    for _ in range(windows):
+        wall, got = load_window(port, reqs, CLIENTS, PER_CLIENT)
+        walls.append(wall)
+        results.extend(got)
+    launches = kernels.launch_counts()
+    stages = ex.stats.to_dict()
+    for name in CONFIG2_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on this path")
+    bad = [r for r in results if (r[2], r[3], r[4]) != (200, "image/jpeg", want[r[0]])]
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(results)} answers differ from the "
+                             f"off server's (first: {CONFIG2_REQUESTS[bad[0][0]][0]}, "
+                             f"status {bad[0][2]})")
+    lat = [r[1] for r in results]
+    rps = [CLIENTS * PER_CLIENT / wl for wl in walls]
+    items, batches = ex.stats.items - items0, ex.stats.batches - batches0
+    return {"requests": len(results), "windows": windows, "wall_s": walls,
+            "rps_by_window": rps, "rps": statistics.median(rps),
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "items": items, "batches": batches, "mean_batch": items / max(1, batches),
+            "dispatch_wait_p50_ms": stages["dispatch_wait_p50_ms"],
+            "dispatch_wait_p99_ms": stages["dispatch_wait_p99_ms"],
+            "launches": launches, "byte_equal_to_off": len(results)}
+
+
+def wait_for(cond, seconds: float = 10.0) -> bool:
+    deadline = time.monotonic() + seconds
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    return cond()
+
+
+def mix_line(label: str, got: dict) -> str:
+    return (f"  {label}: req/s by window {', '.join(f'{v:.1f}' for v in got['rps_by_window'])}"
+            f" (median {got['rps']:.1f}); p50 {got['p50_ms']:.2f} ms, p99 "
+            f"{got['p99_ms']:.2f} ms; {got['items']} items in {got['batches']} batches "
+            f"(mean {got['mean_batch']:.2f}); dispatch_wait p50 "
+            f"{got['dispatch_wait_p50_ms']:.2f} ms; every answer byte-equal to off")
+
+
+def lanes_checks(ex, policy: str, got: dict) -> None:
+    """Every lane dispatched and the lanes' ledgers came to rest."""
+    snap = ex.stats.to_dict()["lanes"]
+    if not all(ln["dispatches"] > 0 for ln in snap):
+        raise AssertionError(f"{policy}: a lane never dispatched: {snap}")
+    if not wait_for(lambda: all(ln.owed == 0 and ln.inflight == 0
+                                for ln in ex._lanes.lanes)):
+        raise AssertionError(f"{policy}: lane ledgers not at rest")
+    got["lanes"] = snap
+    got["sharded_batches"] = ex.stats.sharded_batches
+
+
+def failover(srv, bodies: dict, want: list) -> dict:
+    """One window of the mix with device.chip_error[1] armed: lane 1 is
+    quarantined, every answer stays byte-equal, the generation rises by 1."""
+    from imaginary_tpu_torch import failpoints
+
+    ex = srv.service.executor
+    gen0 = ex._mesh_generation
+    failpoints.activate("device.chip_error[1]=error")
+    try:
+        got = serve_mix(srv, bodies, want, windows=1)
+    finally:
+        failpoints.deactivate()
+    lane1 = ex._lanes.lane(1)
+    if not wait_for(lambda: not lane1.active):
+        raise AssertionError("lane 1 was not quarantined")
+    if ex._mesh_generation - gen0 != 1:
+        raise AssertionError(f"mesh generation moved by {ex._mesh_generation - gen0}, "
+                             f"expected 1")
+    got["lanes"] = ex.stats.to_dict()["lanes"]
+    got["device_failures"] = ex.stats.device_failures
+    got["sharded_mesh"] = list(ex._lane_mesh.shape)
+    return got
+
+
+def mesh_lanes_phase() -> dict:
+    """Phase 10(b) and (c), bracketed by the off server under the same mix
+    in the same call (off, lanes from the command line, four lanes, sharded,
+    off): (b) the server started from the command line with --mesh-policy
+    lanes (one lane per visible card), (c) lanes and sharded dispatch over
+    LANE_ENTRIES entries of card 0, then device.chip_error[1] with
+    breaker_threshold 1 on the sharded server."""
+    import json as _json
+
+    import torch
+
+    from imaginary_tpu_torch import cli
+    from imaginary_tpu_torch.web.app import make_server
+
+    bodies = {}
+    for _, src, _ in CONFIG2_REQUESTS:
+        with open(src, "rb") as f:
+            bodies[src] = f.read()
+    off_kw = dict(device=DEVICE, max_batch=CONFIG2_MAX_BATCH, batch_form_ms=CONFIG2_FORM_MS)
+    out: dict = {}
+    box: dict = {}
+
+    def off_run(srv):
+        box.setdefault("want", alone_bodies(srv, bodies))
+        return serve_mix(srv, bodies, box["want"])
+
+    out["off_before"] = serving(make_server("127.0.0.1", 0, **off_kw), off_run)
+    want = box["want"]
+    log(mix_line("off (before)", out["off_before"]))
+
+    # (b) the normal entry point
+    def cli_run(srv):
+        got = serve_mix(srv, bodies, want)
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}/health",
+                                    timeout=60) as r:
+            got["health"] = _json.loads(r.read())["executor"]
+        return got
+
+    args = cli.parse_args(["--host", "127.0.0.1", "--port", "0", "--device", DEVICE,
+                           "--mesh-policy", "lanes", "--max-batch", str(CONFIG2_MAX_BATCH),
+                           "--batch-form-ms", str(CONFIG2_FORM_MS)])
+    got = serving(cli.make_server_from_args(args), cli_run)
+    health = got.pop("health")
+    lanes = health["lanes"]
+    cards = torch.cuda.device_count() if DEVICE == "cuda" else 1
+    if len(lanes) != cards or health["deviceHealth"]["count"] != cards:
+        raise AssertionError(f"/health shows {len(lanes)} lanes for {cards} cards")
+    dispatched = sum(ln["dispatches"] for ln in lanes)
+    if dispatched != health["batches"]:
+        raise AssertionError(f"lane dispatches {dispatched} != batches {health['batches']}")
+    got["lanes"] = lanes
+    out["cli_lanes"] = got
+    log(mix_line(f"--mesh-policy lanes, {cards} card(s), one lane each", got))
+
+    # (c) four lanes on one card: lanes, then sharded dispatch and failover
+    entries = [torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)]
+    entries = entries * LANE_ENTRIES
+    for policy in ("lanes", "sharded"):
+        def lane_run(srv, policy=policy):
+            ex = srv.service.executor
+            got = serve_mix(srv, bodies, want)
+            lanes_checks(ex, policy, got)
+            if policy == "sharded":
+                if ex.stats.sharded_batches <= 0:
+                    raise AssertionError("no chunk was split over the mesh")
+                got["failover"] = failover(srv, bodies, want)
+            return got
+
+        got = serving(make_server("127.0.0.1", 0, mesh_policy=policy, devices=entries,
+                                  shard_min_items=LANE_SHARD_MIN, breaker_threshold=1,
+                                  breaker_cooldown_s=600.0, **off_kw), lane_run)
+        out[f"entries4_{policy}"] = got
+        log(mix_line(f"{policy} over {LANE_ENTRIES} entries of one card", got)
+            + f"; dispatches {[ln['dispatches'] for ln in got['lanes']]}, "
+            f"{got['sharded_batches']} chunks split over the mesh")
+        if policy == "sharded":
+            f = got["failover"]
+            log(f"  chip_error[1]: {f['requests']} answers byte-equal to off, "
+                f"{f['device_failures']} failed launch(es), lane 1 quarantined, mesh "
+                f"generation +1, sharded mesh now {f['sharded_mesh']}; "
+                f"{f['rps']:.1f} req/s, p99 {f['p99_ms']:.2f} ms")
+    out["off_after"] = serving(make_server("127.0.0.1", 0, **off_kw), off_run)
+    log(mix_line("off (after)", out["off_after"]))
     return out
 
 
@@ -2061,6 +2442,11 @@ def main() -> int:
     report["config4"] = config4_phase(stream)
     log("== phase 9: the DCT transport both ways (/resize at k = 2 and k = 8)")
     report["dct"] = dct_phase()
+    log("== phase 10a: the W-sharded blur (K13) and its halo exchange")
+    report["sharded_blur"] = sharded_blur_phase(report["kernels"])
+    log("== phase 10b/c: multi-GPU lanes (--mesh-policy lanes; four lanes on one "
+        "card, lanes and sharded; chip_error[1] failover)")
+    report["mesh_lanes"] = mesh_lanes_phase()
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -2070,12 +2456,14 @@ def main() -> int:
                      "orient": "B32-transpose", "blur": "B1-r4",
                      "composite": "B1-replicate-C3", "gray": "bw-route",
                      "saliency": "B1", "window_argmax": "B1",
-                     "from_dct": "main-420-k2", "to_dct": "resize-208x304"}[name]
+                     "from_dct": "main-420-k2", "to_dct": "resize-208x304",
+                     "blur_halo": "1x4-r8-vs-K6"}[name]
         m = per_case[main_case]
         # each kernel's launches come from the run of the path it serves
         path = {"blur": "config3", "composite": "config3", "gray": "config3",
                 "saliency": "config4", "window_argmax": "config4",
-                "from_dct": "dct", "to_dct": "dct"}.get(name, "config2")
+                "from_dct": "dct", "to_dct": "dct",
+                "blur_halo": "sharded_blur"}.get(name, "config2")
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": report[path]["launches"][name],
@@ -2085,6 +2473,7 @@ def main() -> int:
             "launches_config3": report["config3"]["launches"][name],
             "launches_config4": report["config4"]["launches"][name],
             "launches_dct": report["dct"]["launches"][name],
+            "launches_sharded_blur": report["sharded_blur"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -36,21 +36,46 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "quantized DCT coefficients: the device runs the "
                          "forward DCT + quantization and the host only "
                          "entropy-codes (requires --transport-dct)")
+    ap.add_argument("--devices", type=int, default=0,
+                    help="device count of the lanes' mesh (0 = all visible "
+                         "cards; with --device cpu, that many cpu entries)")
+    ap.add_argument("--mesh-policy", default="off",
+                    choices=["off", "lanes", "sharded", "auto"],
+                    help="multi-GPU serving: 'lanes' gives every card its own "
+                         "continuous-batching lane (own stream, formation "
+                         "cap, in-flight window and fault domain); "
+                         "'sharded'/'auto' also split big chunks over the "
+                         "healthy cards; 'off' (default) is one "
+                         "collector/fetcher pair on --device")
+    ap.add_argument("--lane-form-ms", type=float, default=-1.0,
+                    help="per-lane batch-formation cap in ms (negative = "
+                         "inherit --batch-form-ms)")
+    ap.add_argument("--lane-inflight", type=int, default=2,
+                    help="per-lane chunks launched but not yet fetched "
+                         "(the lane's only backpressure)")
     args = ap.parse_args(argv)
     if args.transport_dct_egress and not args.transport_dct:
         ap.error("--transport-dct-egress requires --transport-dct")
     return args
 
 
-def main(argv=None) -> None:
-    args = parse_args(argv)
+def make_server_from_args(args: argparse.Namespace):
+    """Bind (not start) the server the parsed command line describes."""
     from imaginary_tpu_torch.web.app import make_server
 
-    srv = make_server(args.host, args.port, device=args.device, mount=args.mount,
-                      max_batch=args.max_batch, batch_form_ms=args.batch_form_ms,
-                      max_inflight=args.max_inflight,
-                      transport_dct=args.transport_dct,
-                      transport_dct_egress=args.transport_dct_egress)
+    return make_server(args.host, args.port, device=args.device, mount=args.mount,
+                       max_batch=args.max_batch, batch_form_ms=args.batch_form_ms,
+                       max_inflight=args.max_inflight,
+                       transport_dct=args.transport_dct,
+                       transport_dct_egress=args.transport_dct_egress,
+                       mesh_policy=args.mesh_policy, n_devices=args.devices,
+                       lane_form_ms=args.lane_form_ms if args.lane_form_ms >= 0 else None,
+                       lane_inflight=args.lane_inflight)
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+    srv = make_server_from_args(args)
     print(f"imaginary_tpu_torch listening on {args.host}:{args.port} "
           f"(device {srv.service.device})", flush=True)
     try:

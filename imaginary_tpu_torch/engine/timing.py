@@ -1,5 +1,6 @@
 """Per-stage timing of the executor (the port's trimmed copy of
-`imaginary_tpu/engine/timing.py`: `StageTimes` and `TIMES`).
+`imaginary_tpu/engine/timing.py`: `StageTimes`/`TIMES` and the lanes'
+`LaneStageTimes`/`LANE_TIMES`).
 
 Each stage records into a bounded ring, so /health can report count,
 mean, p50 and p99 without unbounded memory. The stages are the ones the
@@ -70,3 +71,37 @@ class StageTimes:
 
 # Process-wide registry: the executor and /health share it.
 TIMES = StageTimes()
+
+
+class LaneStageTimes:
+    """Per-lane split of batch_form, dispatch_wait and drain (the lane
+    tier): a count and an EWMA per (lane, stage), so a slow lane shows
+    apart from its peers; the fleet percentiles stay in TIMES."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._cells: dict = {}  # (lane, stage) -> [count, ewma_ms, total_ms]
+
+    def record(self, lane: int, stage: str, ms: float) -> None:
+        with self._lock:
+            cell = self._cells.get((lane, stage))
+            if cell is None:
+                self._cells[(lane, stage)] = [1, ms, ms]
+            else:
+                cell[0] += 1
+                cell[1] = 0.8 * cell[1] + 0.2 * ms
+                cell[2] += ms
+
+    def snapshot(self) -> dict:
+        """{lane: {stage: {count, ewma_ms, total_ms}}}; empty when no lane
+        recorded."""
+        with self._lock:
+            out: dict = {}
+            for (lane, stage), (count, ewma, total) in self._cells.items():
+                out.setdefault(lane, {})[stage] = {
+                    "count": count, "ewma_ms": round(ewma, 3),
+                    "total_ms": round(total, 3)}
+            return out
+
+
+LANE_TIMES = LaneStageTimes()

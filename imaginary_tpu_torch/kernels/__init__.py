@@ -1,4 +1,4 @@
-"""The port's device kernels: twelve CUDA C++ kernels for Hopper (sm_90a).
+"""The port's device kernels: thirteen CUDA C++ kernels for Hopper (sm_90a).
 
 | kernel          | source                 | replaces (imaginary_tpu/...)                     |
 | --------------- | ---------------------- | ------------------------------------------------ |
@@ -14,13 +14,16 @@
 | window_argmax   | csrc/saliency.cu       | ops/saliency.py:55-69 smart_offsets' argmax      |
 | from_dct        | csrc/from_dct.cu       | ops/stages.py:425-518 FromDctSpec (+ int16 cast) |
 | to_dct          | csrc/to_dct.cu         | ops/stages.py:555-622 ToDctSpec + int16 drain    |
+| blur_halo       | csrc/blur_halo.cu      | parallel/spatial.py:56-124 sharded_blur's passes |
 
 Each wrapper below takes tensors on one device. On a CPU tensor it runs
 the kernel's plain version (`reference.py`). On a CUDA tensor it checks
 dtype, shape and contiguity, allocates outputs with `torch.empty`,
-launches on the current stream, raises if the launch reports a CUDA
-error, and adds one to `LAUNCHES[name]` per kernel launch. There is no
-fallback from CUDA to the plain version.
+launches on the calling thread's current stream of that device, raises
+if the launch reports a CUDA error, and adds one to `LAUNCHES[name]` per
+kernel launch. There is no fallback from CUDA to the plain version. The
+counts and the lazy load are safe under concurrent launching threads (the
+executor's lanes): both happen under a lock.
 
 The libraries are built by nvcc at first CUDA use (`build.py`) and loaded
 with ctypes; importing this module needs neither nvcc nor a card.
@@ -64,22 +67,42 @@ _SIGNATURES = {
     "from_dct": ("from_dct", "itpu_from_dct",
                  [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
     "to_dct": ("to_dct", "itpu_to_dct", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    "blur_halo_v": ("blur_halo", "itpu_blur_halo_v",
+                    [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "blur_halo_h": ("blur_halo", "itpu_blur_halo_h",
+                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
+# C functions counted under another kernel's name (K13's two passes).
+_COUNTED_AS = {"blur_halo_v": "blur_halo", "blur_halo_h": "blur_halo"}
 
 # Kernel launches since the last reset, per kernel (resample, blur,
-# saliency and from_dct count their two passes as two launches).
-LAUNCHES = {name: 0 for name in _SIGNATURES}
+# saliency, from_dct and blur_halo count their two passes as two
+# launches). Written under _COUNT_LOCK only.
+LAUNCHES = {_COUNTED_AS.get(name, name): 0 for name in _SIGNATURES}
 
 _FNS: dict = {}
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # the build and load
+_COUNT_LOCK = threading.Lock()
 _RESAMPLE_KIND = {k: i for i, k in enumerate(reference.RESAMPLE_KINDS)}
 _GATHER_MODE = {m: i for i, m in enumerate(reference.GATHER_MODES)}
 _ORIENT_MODE = {m: i for i, m in enumerate(reference.ORIENT_MODES)}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict:
+    """A consistent copy of LAUNCHES."""
+    with _COUNT_LOCK:
+        return dict(LAUNCHES)
+
+
+def _count(name: str, n: int = 1) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += n
 
 
 def load_all() -> dict:
@@ -92,23 +115,30 @@ def load_all() -> dict:
 
         built = build_all()
         libs = {src: ctypes.CDLL(info["path"]) for src, info in built.items()}
+        fns = {}
         for name, (src, symbol, argtypes) in _SIGNATURES.items():
             fn = getattr(libs[src], symbol)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _FNS[name] = fn
+            fns[name] = fn
+        # filled at once, so a thread that finds a name here finds them all
+        _FNS.update(fns)
         return built
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    if not _FNS:
+def _launch(name: str, device: torch.device, *args, passes: int = 1) -> None:
+    """Launch C function `name` on the current stream of `device` and count
+    `passes` launches of its kernel (a C function may launch two)."""
+    fn = _FNS.get(name)
+    if fn is None:
         load_all()
+        fn = _FNS[name]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _FNS[name](*args, stream)
+        err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    _count(_COUNTED_AS.get(name, name), passes)
 
 
 def _ptr(t):
@@ -361,9 +391,9 @@ def saliency_ii(x, h, w):
     _require(h, "h", _I32, (bsz,), dev)
     _require(w, "w", _I32, (bsz,), dev)
     ii = torch.empty((bsz, hb + 1, wb + 1), dtype=torch.float32, device=dev)
+    # the row pass and the column pass, both launched by the one call
     _launch("saliency", dev, x.data_ptr(), int(x.dtype == torch.uint8),
-            ii.data_ptr(), h.data_ptr(), w.data_ptr(), bsz, hb, wb, c)
-    LAUNCHES["saliency"] += 1  # the column pass, launched by the same call
+            ii.data_ptr(), h.data_ptr(), w.data_ptr(), bsz, hb, wb, c, passes=2)
     return ii
 
 
@@ -438,10 +468,10 @@ def from_dct(x, h, w, hb: int, wb: int, k: int, layout: str):
     regs = (ctypes.c_int * len(flat))(*flat)
     mode = 3 if layout == "gray" else (
         0 if (k, layout) == (8, "420") else 1 if (k, layout) == (8, "422") else 2)
+    # the IDCT and the color pass, both launched by the one call
     _launch("from_dct", dev, x.data_ptr(), planes.data_ptr(), out.data_ptr(),
             h.data_ptr(), w.data_ptr(), ctypes.addressof(regs), len(regions), mode,
-            bsz, rows, cols, c, hb, wb)
-    LAUNCHES["from_dct"] += 1  # the color pass, launched by the same call
+            bsz, rows, cols, c, hb, wb, passes=2)
     return out
 
 
@@ -463,4 +493,60 @@ def to_dct(x, h, w, qy, qc, hb: int, wb: int):
     out = torch.empty((bsz, hb + hb // 2, wb, 1), dtype=torch.int16, device=dev)
     _launch("to_dct", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(), w.data_ptr(),
             qy.data_ptr(), qc.data_ptr(), bsz, hb, wb)
+    return out
+
+
+def _halo_args(h, w, sigma, bsz: int, dev) -> None:
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    _require(sigma, "sigma", _F32, (bsz,), dev)
+
+
+def blur_halo_v(x, h, w, sigma, radius: int, col0: int):
+    """K13, pass V: the shard x [B, Hb, lw, C] (uint8 or f32, C 1 to 4)
+    holding global columns [col0, col0 + lw) -> f32 [B, Hb, lw + 2 * radius,
+    C]: conv_v(x * mask) on the valid rows in the core columns [radius,
+    radius + lw), 0 elsewhere and in both halos. h, w: int32 [B] valid
+    dims of the whole image; sigma: f32 [B]; radius 0 to 64."""
+    if not 0 <= radius <= MAX_BLUR_RADIUS:
+        raise ValueError(f"blur radius {radius} outside 0..{MAX_BLUR_RADIUS}")
+    if x.device.type == "cpu":
+        return reference.blur_halo_v(x, h, w, sigma, radius, col0)
+    dev = x.device
+    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
+        raise ValueError(f"x must be [B, H, W, C] with C 1 to 4, got {tuple(x.shape)}")
+    bsz, hb, lw, c = x.shape
+    _require(x, "x", _IMG, (bsz, hb, lw, c), dev)
+    _halo_args(h, w, sigma, bsz, dev)
+    if col0 < 0:
+        raise ValueError(f"col0 {col0} < 0")
+    buf = torch.empty((bsz, hb, lw + 2 * radius, c), dtype=torch.float32, device=dev)
+    _launch("blur_halo_v", dev, x.data_ptr(), int(x.dtype == torch.uint8),
+            buf.data_ptr(), h.data_ptr(), w.data_ptr(), sigma.data_ptr(), radius,
+            bsz, hb, lw, c, col0)
+    return buf
+
+
+def blur_halo_h(buf, h, w, sigma, radius: int, col0: int, wb: int):
+    """K13, pass H: buf f32 [B, Hb, lw + 2 * radius, C] from pass V with
+    its halos filled by the exchange -> f32 [B, Hb, lw, C], normalised by
+    the masked tap sums over the valid rows and the valid global columns
+    of the wb-wide bucket, 0 outside the valid region."""
+    if not 0 <= radius <= MAX_BLUR_RADIUS:
+        raise ValueError(f"blur radius {radius} outside 0..{MAX_BLUR_RADIUS}")
+    if buf.dim() != 4 or not 1 <= buf.shape[3] <= 4:
+        raise ValueError(f"buf must be [B, H, W, C] with C 1 to 4, got {tuple(buf.shape)}")
+    lw = buf.shape[2] - 2 * radius
+    if lw < 1 or col0 < 0 or col0 + lw > wb:
+        raise ValueError(f"shard columns [{col0}, {col0 + lw}) outside the bucket "
+                         f"width {wb}")
+    if buf.device.type == "cpu":
+        return reference.blur_halo_h(buf, h, w, sigma, radius, col0, wb)
+    dev = buf.device
+    bsz, hb, _, c = buf.shape
+    _require(buf, "buf", _F32, tuple(buf.shape), dev)
+    _halo_args(h, w, sigma, bsz, dev)
+    out = torch.empty((bsz, hb, lw, c), dtype=torch.float32, device=dev)
+    _launch("blur_halo_h", dev, buf.data_ptr(), out.data_ptr(), h.data_ptr(),
+            w.data_ptr(), sigma.data_ptr(), radius, bsz, hb, lw, c, col0, wb)
     return out

@@ -29,7 +29,8 @@ BUILD_DIR = os.path.join(os.path.dirname(HERE), "_build")
 
 # One library per source; saliency.cu holds two kernels (K9 and K10).
 KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather", "orient",
-           "blur", "composite", "gray", "saliency", "from_dct", "to_dct")
+           "blur", "composite", "gray", "saliency", "from_dct", "to_dct",
+           "blur_halo")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

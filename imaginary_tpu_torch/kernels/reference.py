@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the twelve kernels.
+"""Plain PyTorch versions of the thirteen kernels.
 
 Each function computes what its CUDA kernel computes, in the reference's
 formulation (dense sampling matrices and einsums for the resample, a
@@ -259,6 +259,47 @@ def blur(x: torch.Tensor, h, w, sigma, radius: int, out_u8: bool = False) -> tor
     den = _correlate(_correlate(m, k, 1), k, 2)
     out = num / torch.clamp(den, min=_EPS)
     return _finish(torch.where(m > 0, out, 0.0), out_u8)
+
+
+def blur_halo_v(x: torch.Tensor, h, w, sigma, radius: int, col0: int) -> torch.Tensor:
+    """K13's vertical pass (spatial.py:sharded_blur's shard-local conv_v):
+    the shard x [B, Hb, lw, C] holding global columns [col0, col0 + lw) ->
+    f32 [B, Hb, lw + 2r, C], conv_v(x * m) on the valid rows in the core
+    columns [r, r + lw), 0 elsewhere, halos included."""
+    xf = x.float()
+    _, hb, lw, _ = xf.shape
+    k = blur_taps(sigma, radius)
+    iy = torch.arange(hb, dtype=torch.int32, device=x.device)[None, :, None]
+    ix = col0 + torch.arange(lw, dtype=torch.int32, device=x.device)[None, None, :]
+    rows = (iy < h[:, None, None])[..., None]
+    m = (rows & (ix < w[:, None, None])[..., None]).float()
+    core = torch.where(rows, _correlate(xf * m, k, 1), 0.0)
+    return torch.nn.functional.pad(core, (0, 0, radius, radius))
+
+
+def blur_halo_h(buf: torch.Tensor, h, w, sigma, radius: int, col0: int,
+                wb: int) -> torch.Tensor:
+    """K13's horizontal pass: buf f32 [B, Hb, lw + 2r, C] with its halos
+    filled -> f32 [B, Hb, lw, C], the taps over the halo-padded row divided
+    by rowden[y] * colden[col0 + x] (the masked tap sums over the valid
+    rows and the valid GLOBAL columns of a bucket wb wide), 0 outside the
+    valid region."""
+    bsz, hb, lw2, _ = buf.shape
+    lw = lw2 - 2 * radius
+    dev = buf.device
+    k = blur_taps(sigma, radius)
+    num = torch.zeros((bsz, hb, lw, buf.shape[3]), dtype=torch.float32, device=dev)
+    for i in range(2 * radius + 1):
+        num = num + k[:, i][:, None, None, None] * buf[:, :, i:i + lw]
+    iy = torch.arange(hb, dtype=torch.int32, device=dev)[None, :, None, None]
+    ix = torch.arange(wb, dtype=torch.int32, device=dev)[None, None, :, None]
+    rows = (iy < h[:, None, None, None]).float()
+    cols = (ix < w[:, None, None, None]).float()
+    rowden = _correlate(rows, k, 1)
+    colden = _correlate(cols, k, 2)[:, :, col0:col0 + lw]
+    m = (rows > 0) & (cols[:, :, col0:col0 + lw] > 0)
+    out = num / torch.clamp(rowden * colden, min=_EPS)
+    return torch.where(m, out, 0.0)
 
 
 def composite(x: torch.Tensor, overlay, top, left, opacity, block_h, block_w,

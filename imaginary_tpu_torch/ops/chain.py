@@ -1,20 +1,25 @@
 """Chain runner: a plan's stage chain -> kernel launches on one device.
 
 The port's counterpart of `imaginary_tpu/ops/chain.py`, with the surface
-the executor calls (`launch_batch`, `fetch_batch`, `finish_batch`,
-`run_batch`, `run_single`, `pad_to_bucket`, `cache_size`, `is_oom_error`,
-`output_checksum`). Every entry point takes a `device` and runs on the
-card unless the caller asks for the CPU.
+the executor calls (`launch_batch`, `launch_sharded`, `fetch_batch`,
+`finish_batch`, `run_batch`, `run_single`, `pad_to_bucket`, `cache_size`,
+`is_oom_error`, `output_checksum`). Every entry point takes a `device` and
+runs on the card unless the caller asks for the CPU.
 
 PyTorch runs eagerly, so there is no compiled program per chain. On a
-card, every launch runs on one side stream per device: it stages the
+card, a launch runs on the stream its caller names (an executor lane
+passes its own, so lanes that share a card never serialise on one
+stream), else on one side stream per device: it stages the
 batch and its per-image params to the device in ONE copy from pinned host
 memory, runs each stage's kernel in order, copies the output into a
 pinned host buffer and records an event after that copy. It returns while
 the card is still working. The fetch waits on that event only, not on the
 stream, so it never waits for chunks launched after its own. Every device
-tensor of a launch is allocated under the side stream, so the caching
+tensor of a launch is allocated under its stream, so the caching
 allocator reuses its memory only for work queued later on that stream.
+`launch_sharded` splits one chunk contiguously over a mesh's batch axis,
+one sub-launch per device on that device's stream, each with its own
+pinned buffers and event.
 On the CPU the chain runs at once and the fetch has nothing to wait for.
 The chain's uint8 -> f32 cast (int16 -> f32 for the DCT transport's
 coefficients, staged as int16 in the same one H2D) and its uint8
@@ -39,6 +44,7 @@ import torch
 
 from imaginary_tpu_torch.ops.buckets import bucket_shape
 from imaginary_tpu_torch.ops.plan import ImagePlan
+from imaginary_tpu_torch.parallel.mesh import Mesh, split_batch
 
 DEFAULT_DEVICE = "cuda"
 
@@ -155,14 +161,15 @@ def _stream(device: torch.device):
         return stream
 
 
-def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE):
+def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE, stream=None):
     """Stage + launch one batched chain WITHOUT waiting for it.
 
     arrs: HWC uint8 arrays, all with the same bucket shape and C (packed
     transports: the pre-padded packed buffers, with the image dims on the
-    plan). plans: matching ImagePlans with identical spec_key().
-    Returns a `Launched` (on a card, possibly still computing), or None
-    for an identity chain."""
+    plan). plans: matching ImagePlans with identical spec_key(). stream:
+    the CUDA stream of `device` to launch on (None: the device's side
+    stream). Returns a `Launched` (on a card, possibly still computing),
+    or None for an identity chain."""
     specs = plans[0].spec_key()
     if not specs:
         return None
@@ -181,7 +188,8 @@ def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE):
         _SIGNATURES.add((specs, (len(batch),) + batch[0].shape, str(device)))
     if device.type != "cuda":
         return Launched(_run_staged(specs, _stage(flat, device)[0], host_dyns))
-    stream = _stream(device)
+    if stream is None:
+        stream = _stream(device)
     with torch.cuda.stream(stream):
         views, staged = _stage(flat, device)
         y = _run_staged(specs, views, host_dyns)
@@ -190,6 +198,35 @@ def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE):
         event = torch.cuda.Event(blocking=True)
         event.record(stream)
     return Launched(host, event, staged)
+
+
+class ShardedLaunch:
+    """A chunk launched as contiguous sub-chunks: [(start, stop, Launched)]
+    in batch order."""
+
+    __slots__ = ("parts",)
+
+    def __init__(self, parts: list):
+        self.parts = parts
+
+
+def launch_sharded(arrs: list, plans: list, mesh: Mesh, streams=None):
+    """Split one chunk contiguously over the mesh's batch axis (sizes
+    differ by at most one; no padding to a multiple of the axis) and
+    launch each sub-chunk with `launch_batch` on its row's device and on
+    streams[row] (None: the device's side stream). Returns a
+    `ShardedLaunch`, or None for an identity chain."""
+    if not plans[0].spec_key():
+        return None
+    parts = []
+    for row, (a, b) in enumerate(split_batch(len(arrs), mesh)):
+        if a == b:
+            continue
+        stream = streams[row] if streams is not None else None
+        parts.append((a, b, launch_batch(arrs[a:b], plans[a:b],
+                                         device=mesh.devices[row][0],
+                                         stream=stream)))
+    return ShardedLaunch(parts)
 
 
 def _run_staged(specs, views: list, host_dyns: list) -> torch.Tensor:
@@ -236,10 +273,14 @@ def finish_batch(host_y, arrs: list, plans: list) -> list:
 
 
 def fetch_batch(y, arrs: list, plans: list) -> list:
-    """Wait for a launch_batch result (a `Launched`, or None for an
-    identity chain) and slice out per-image outputs."""
+    """Wait for a launch_batch or launch_sharded result (a `Launched`, a
+    `ShardedLaunch`, or None for an identity chain) and slice out
+    per-image outputs, in order."""
     if y is None:
         return [np.asarray(a) for a in arrs]
+    if isinstance(y, ShardedLaunch):
+        return [out for a, b, sub in y.parts
+                for out in fetch_batch(sub, arrs[a:b], plans[a:b])]
     return finish_batch(_to_host(y), arrs, plans)
 
 

@@ -78,7 +78,11 @@ def make_server(host: str = "0.0.0.0", port: int = 9000, device="cuda",
                 mount: str = "", max_batch: int = MAX_BATCH,
                 batch_form_ms: float = 5.0, max_inflight: int = 4,
                 transport_dct: bool = False,
-                transport_dct_egress: bool = False) -> ThreadingHTTPServer:
+                transport_dct_egress: bool = False, mesh_policy: str = "off",
+                n_devices: int = 0, devices=None, lane_form_ms=None,
+                lane_inflight: int = 2, shard_min_items: int = 0,
+                breaker_threshold: int = 3,
+                breaker_cooldown_s: float = 30.0) -> ThreadingHTTPServer:
     """Bind (not start) the server; `serve_forever()` runs it and
     `shutdown()` + `server_close()` stop it (and its executor)."""
     srv = _Server((host, port), _Handler)
@@ -87,7 +91,13 @@ def make_server(host: str = "0.0.0.0", port: int = 9000, device="cuda",
                                    batch_form_ms=batch_form_ms,
                                    max_inflight=max_inflight,
                                    transport_dct=transport_dct,
-                                   transport_dct_egress=transport_dct_egress)
+                                   transport_dct_egress=transport_dct_egress,
+                                   mesh_policy=mesh_policy, n_devices=n_devices,
+                                   devices=devices, lane_form_ms=lane_form_ms,
+                                   lane_inflight=lane_inflight,
+                                   shard_min_items=shard_min_items,
+                                   breaker_threshold=breaker_threshold,
+                                   breaker_cooldown_s=breaker_cooldown_s)
     except BaseException:
         srv.server_close()
         raise

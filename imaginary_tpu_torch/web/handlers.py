@@ -109,14 +109,18 @@ def _read_form(body: bytes, ctype: str, field: str) -> bytes:
 
 
 class ImageService:
-    """Serves the slice's routes on one device; `handle` may run on many
-    threads at once. `close()` shuts the executor down. The dct transport
+    """Serves the slice's routes on `device`, or with a `mesh_policy` on
+    one executor lane per mesh entry; `handle` may run on many threads at
+    once. `close()` shuts the executor down. The dct transport
     switches are process-wide (`pipeline.set_transport_dct`), set here
     from the server's options as the reference's server sets them."""
 
     def __init__(self, device="cuda", mount: str = "", max_batch: int = MAX_BATCH,
                  batch_form_ms: float = 5.0, max_inflight: int = 4,
-                 transport_dct: bool = False, transport_dct_egress: bool = False):
+                 transport_dct: bool = False, transport_dct_egress: bool = False,
+                 mesh_policy: str = "off", n_devices: int = 0, devices=None,
+                 lane_form_ms=None, lane_inflight: int = 2, shard_min_items: int = 0,
+                 breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0):
         if transport_dct_egress and not transport_dct:
             raise ValueError("the dct egress requires the dct transport")
         self.device = torch.device(device)
@@ -127,7 +131,11 @@ class ImageService:
         self._started = time.time()
         self.executor = Executor(ExecutorConfig(
             max_batch=max_batch, max_form_ms=batch_form_ms,
-            max_inflight=max(1, max_inflight), device=str(self.device)))
+            max_inflight=max(1, max_inflight), device=str(self.device),
+            mesh_policy=mesh_policy, n_devices=n_devices, devices=devices,
+            lane_form_ms=lane_form_ms, lane_inflight=max(1, lane_inflight),
+            shard_min_items=shard_min_items, breaker_threshold=breaker_threshold,
+            breaker_cooldown_s=breaker_cooldown_s))
         pipeline.set_transport_dct(transport_dct)
         pipeline.set_transport_dct_egress(transport_dct_egress)
 
@@ -167,13 +175,15 @@ class ImageService:
             "cpus": os.cpu_count() or 1,
             "pid": os.getpid(),
             "device": str(self.device),
-            "kernelLaunches": dict(kernels.LAUNCHES),
+            "kernelLaunches": kernels.launch_counts(),
             "codecs": codecs.routes(),
             "dctTransport": {"ingress": pipeline.transport_dct_enabled(),
                              "egress": pipeline.transport_dct_egress_enabled(),
                              **pipeline.dct_counts()},
             "executor": self.executor.stats.to_dict(),
         }
+        if self.executor.devhealth is not None:  # the lane tier's fault domains
+            stats["executor"]["deviceHealth"] = self.executor.devhealth.snapshot()
         if self.device.type == "cuda":
             stats["deviceName"] = torch.cuda.get_device_name(self.device)
             stats["allocatedDeviceMb"] = round(

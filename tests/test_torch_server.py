@@ -241,7 +241,7 @@ def test_index_and_health(server):
     assert set(stats["kernelLaunches"]) == {"resample", "yuv420_unpack", "yuv420_pack",
                                             "gather", "orient", "blur", "composite", "gray",
                                             "saliency", "window_argmax", "from_dct",
-                                            "to_dct"}
+                                            "to_dct", "blur_halo"}
     assert stats["codecs"] == {"jpeg": "native", "png": "pil", "webp": "pil",
                                "gif": "pil", "tiff": "pil"}
     ex = stats["executor"]
@@ -311,3 +311,54 @@ def test_server_output_matches_pipeline_output(server):
         "resize", buf, build_params_from_query({"width": "300", "height": "200"}), device="cpu")
     _, _, body = _req(server, "/resize?width=300&height=200", buf)
     assert np.array_equal(pcodecs.decode(body).array, pcodecs.decode(direct.body).array)
+
+
+def test_mesh_policy_lanes_serves_the_off_bytes_with_one_lane_per_device():
+    """`--mesh-policy lanes --device cpu --devices 2` through the command
+    line's own wiring: /resize answers the bytes the default server does,
+    and /health shows two lanes and two fault domains."""
+    from imaginary_tpu_torch import cli
+
+    buf = fixture_bytes("large.jpg")
+    bodies, healths = {}, {}
+    for policy in ("off", "lanes"):
+        args = cli.parse_args(["--port", "0", "--host", "127.0.0.1", "--device", "cpu",
+                               "--mesh-policy", policy, "--devices", "2"])
+        srv = cli.make_server_from_args(args)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            port = srv.server_address[1]
+            bodies[policy] = [_req(port, "/resize?width=300&height=200", buf)
+                              for _ in range(3)]
+            healths[policy] = json.loads(_req(port, "/health")[2])
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            th.join(timeout=10)
+    assert all(b[0] == 200 for b in bodies["off"])
+    assert bodies["lanes"] == bodies["off"]
+    assert "lanes" not in healths["off"]["executor"]
+    assert "deviceHealth" not in healths["off"]["executor"]
+    ex = healths["lanes"]["executor"]
+    assert [ln["lane"] for ln in ex["lanes"]] == [0, 1]
+    assert sum(ln["dispatches"] for ln in ex["lanes"]) == ex["batches"] >= 1
+    assert ex["deviceHealth"]["count"] == 2 and len(ex["deviceHealth"]["lanes"]) == 2
+
+
+def test_multi_gpu_modules_import_without_jax_or_the_reference():
+    code = (
+        "import sys\n"
+        "import imaginary_tpu_torch.parallel.mesh, imaginary_tpu_torch.parallel.spatial\n"
+        "import imaginary_tpu_torch.engine.lanes, imaginary_tpu_torch.engine.devhealth\n"
+        "import imaginary_tpu_torch.failpoints\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "             or m == 'imaginary_tpu' or m.startswith('imaginary_tpu.'))\n"
+        "print(','.join(bad))\n"
+    )
+    env = dict(os.environ)
+    env.pop("JAX_PLATFORMS", None)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == ""
