@@ -18,7 +18,11 @@ Phases, in order; any failure raises and exits non-zero:
    4K PNG's uint8 [1, 2560, 4096, 3] bucket, the blur (K6) at
    [B, 736, 1280, 3] for B=1 and 8 and at r=64, sigma=0 and uint8 input,
    the composite (K7) in both modes at C=3 and 4, the gray (K8) at C=3 and
-   4) and at full 1080p; config 4's saliency (K9) and window argmax (K10)
+   4) and at full 1080p; K1 and K4 at the seams of their designs (K1 at
+   dims off its tile, mixed scales in one batch, 1080p to 8x8, a 4x
+   upscale, uint8 in and out, C = 1 and 4; K4's window at odd and
+   negative offsets in every dtype pair, clamp, mirror and fill with
+   per-image offsets at B=32); config 4's saliency (K9) and window argmax (K10)
    at f32 [8, 320, 640, 3] and [1, 320, 640, 3] with mixed valid dims; the
    IDCT (K11) on large.jpg's packed coefficients at 1080p 4:2:0 (k = 8)
    and at the main path's shrink 4 (k = 2), and once each on 4:2:2,
@@ -61,7 +65,8 @@ Phases, in order; any failure raises and exits non-zero:
    640, blur 1.5, convert jpeg] on large.jpg and a colorspace=bw /resize,
    one request at a time with the launch counters set to 0 just before
    and read just after (each kernel launched exactly as often as the
-   plans say); every answer 200 with the right MIME type and size; the
+   plans say, identity ShrinkBucketSpecs dropped by the chain, so config
+   3 launches no K4); every answer 200 with the right MIME type and size; the
    WEBP within a PSNR bound of the same chain's array on the CPU; p50/p99
    of one client, then requests per second, p50/p99 and the busy share
    from 8 client threads in three windows; and the host's Pillow PNG
@@ -169,7 +174,8 @@ KERNEL_ROWS = {
 # The kernels each main path runs.
 CONFIG1_KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather")
 CONFIG2_KERNELS = CONFIG1_KERNELS + ("orient",)
-CONFIG3_KERNELS = CONFIG1_KERNELS + ("blur", "composite", "gray")
+# config 3's K4 stages are identity shrinks, which the chain drops
+CONFIG3_KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "blur", "composite", "gray")
 CONFIG4_KERNELS = ("resample", "gather", "saliency", "window_argmax")
 DCT_KERNELS = ("from_dct", "to_dct")
 
@@ -489,7 +495,7 @@ def orient_phase(res: dict) -> None:
         del x, xu
     log("  orient: flip and flop have no single-call library equivalent "
         "(mirror inside per-image valid dims): library_ms null")
-    # K4's identity window on /rotate: the flopped [B, 2048, 1152, 3]
+    # K4's window at no offset on /rotate: the flopped [B, 2048, 1152, 3]
     # sliced to the [B, 1920, 1088, 3] output bucket; one library call
     # computes the same function
     for bsz in ORIENT_BATCHES:
@@ -746,6 +752,87 @@ def config3_kernel_phase(res: dict) -> None:
            lib4k, xs.numel() + out.numel() * 4, flops)
     log("  blur and composite: no single-call library equivalent (per-image "
         "masked taps; per-image tiling and blend): library_ms null")
+
+
+def seams_phase(res: dict) -> None:
+    """K1 and K4 at the seams of their tiled and row-copy designs, against
+    their plain versions (K1 within F32_TOL, or U8_TOL on uint8 output;
+    K4 exact): K1 at output dims that are not multiples of its 16 x 32
+    tile, on a batch whose images have different scales (one of them an
+    upscale), at an extreme downscale (1080p to 8x8, whose input band
+    spans many staged chunks), at a 4x upscale, uint8 in and out, and at
+    C = 1 and 4; K4's window at odd and negative offsets (the unaligned
+    and clamped ends of its row copy) in every dtype pair, and its clamp,
+    mirror and fill modes with per-image offsets and sizes at B=32."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def f32(v):
+        return torch.tensor(v, dtype=torch.float32, device=dev)
+
+    def frame(shape, u8=False):
+        if u8:
+            return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+        return torch.rand(shape, generator=gen, device=dev) * 255.0
+
+    # (case, x shape, uint8 in, valid h, w, dst h, w, out bucket, kind, uint8 out)
+    k1_cases = (
+        ("tile-edges", (2, 100, 150, 3), False, (100, 97), (150, 141), (37, 41),
+         (53, 66), (41, 67), "lanczos3", False),
+        ("mixed-scales", (4, 1088, 1920, 3), False, (1080, 1080, 700, 200),
+         (1920, 1900, 1300, 300), (169.0, 540.0, 300.0, 530.0),
+         (300.0, 960.0, 557.0, 795.0), (544, 960), "lanczos3", False),
+        ("1080p-to-8x8", (1, 1088, 1920, 3), False, (1080,), (1920,), (8.0,), (8.0,),
+         (16, 16), "lanczos3", False),
+        ("upscale-4x", (2, 64, 96, 3), False, (64, 60), (96, 90), (256.0, 240.0),
+         (384.0, 360.0), (256, 384), "lanczos3", False),
+        ("u8-in-out", (8, 320, 512, 3), True, (300,) * 8, (512, 500, 480, 460) * 2,
+         (200.0,) * 8, (300.0, 293.0, 281.0, 270.0) * 2, (208, 304), "lanczos3", True),
+        ("C4-u8-cubic", (2, 96, 160, 4), True, (96, 90), (160, 150), (31.0, 60.0),
+         (47.0, 99.0), (64, 112), "cubic", False),
+        ("C1-nearest", (2, 96, 160, 1), False, (96, 95), (160, 159), (48.0, 190.0),
+         (80.0, 318.0), (192, 320), "nearest", False),
+    )
+    for case, shape, u8, h, w, dh, dw, (ohb, owb), kind, out_u8 in k1_cases:
+        x = frame(shape, u8)
+        args = (x, i32(h), i32(w), f32(dh), f32(dw), ohb, owb, kind, out_u8)
+        got, gh, gw = kernels.resample(*args)
+        want, _, _ = reference.resample(*args)
+        if not (torch.equal(gh.cpu(), torch.tensor(dh).to(torch.int32))
+                and torch.equal(gw.cpu(), torch.tensor(dw).to(torch.int32))):
+            raise AssertionError(f"resample [{case}]: output dims wrong")
+        check("resample", got, want, res, case, U8_TOL if out_u8 else F32_TOL)
+        del x, got, want
+    # K4's window at odd and negative offsets, each dtype pair
+    x = frame((4, 300, 517, 3))
+    xu = frame((4, 300, 517, 3), True)
+    top, left = i32((0, 5, -3, 290)), i32((1, 3, -7, 511))
+    for name, src, out_u8 in (("f32", x, False), ("f32-u8", x, True),
+                              ("u8", xu, True), ("u8-f32", xu, False)):
+        args = (src, 208, 301, top, left)
+        check("gather", kernels.gather(*args, mode="window", out_u8=out_u8),
+              reference.gather(*args, mode="window", out_u8=out_u8), res,
+              f"window-odd-{name}", 0.0)
+    # clamp, mirror and fill with per-image offsets and sizes at B=32
+    bsz = 32
+    x = frame((bsz, 192, 320, 3))
+    i = torch.arange(bsz, dtype=torch.int32, device=dev)
+    off_y, off_x = (i % 7 - 2) * 5, (i % 5) * 9 - 3
+    size_h, size_w = 169 - i, 300 - 3 * i
+    fill = torch.rand((bsz, 3), generator=gen, device=dev) * 255.0
+    for mode, f in (("clamp", None), ("mirror", None), ("clamp", fill), ("mirror", fill)):
+        args = (x, 208, 304, off_y, off_x, size_h, size_w, mode)
+        check("gather", kernels.gather(*args, fill=f), reference.gather(*args, fill=f),
+              res, f"B32-{mode}{'-fill' if f is not None else ''}", 0.0)
+    del x, xu
 
 
 def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
@@ -1210,7 +1297,7 @@ CONFIG3_PSNR_VS_CPU_WEBP_DB = 40.0
 CONFIG3_PSNR_VS_CPU_DB = 28.0
 # launches of one stage of each spec
 SPEC_LAUNCHES = {
-    "SampleSpec": {"resample": 2}, "BlurSpec": {"blur": 2},
+    "SampleSpec": {"resample": 1}, "BlurSpec": {"blur": 2},
     "CompositeSpec": {"composite": 1}, "GraySpec": {"gray": 1},
     "ExtractSpec": {"gather": 1}, "EmbedSpec": {"gather": 1},
     "ShrinkBucketSpec": {"gather": 1}, "FromYuv420Spec": {"yuv420_unpack": 1},
@@ -1238,14 +1325,62 @@ def make_4k_png() -> bytes:
     return out.getvalue()
 
 
-def expected_launches(plan) -> dict:
-    from imaginary_tpu_torch import kernels
+# Stages that read f32 only, and stages with no uint8 epilogue: an
+# identity shrink next to one of them still launches (see expected_launches)
+F32_ONLY_SPECS = ("ToYuv420Spec", "ToDctSpec")
+NOT_LAST_SPECS = ("FromYuv420Spec", "FromDctSpec")
+# Pinned gather (K4) launches of one request: config 3's only gather is an
+# identity shrink, /rotate?rotate=90's shrink changes the bucket
+CONFIG3_GATHERS = 0
+ROTATE_GATHERS = 1
 
+
+def expected_launches(plan, arr) -> dict:
+    """The launches of `plan` on input `arr` (a packed buffer, or an HWC
+    frame padded to its bucket): every stage's, but the identity
+    ShrinkBucketSpecs, whose output dims equal the bucket the stage before
+    left. Worked out here from the specs' own dims, apart from the chain
+    runner's `live_stages`, so that the card's counts check the runner."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.ops.buckets import bucket_shape
+
+    hb, wb = arr.shape[:2] if plan.in_bucket is not None else bucket_shape(*arr.shape[:2])
+    specs = plan.spec_key()
+    names = [type(s).__name__ for s in specs]
+    live = []
+    for i, (spec, name) in enumerate(zip(specs, names)):
+        if name == "TransposeSpec":
+            out = (wb, hb)
+        elif name in NOT_LAST_SPECS:
+            out = (spec.hb, spec.wb)
+        elif hasattr(spec, "out_hb"):
+            out = (spec.out_hb, spec.out_wb)
+        else:
+            out = (hb, wb)
+        if name == "ShrinkBucketSpec" and out == (hb, wb):
+            nxt = names[i + 1] if i + 1 < len(names) else None
+            if not ((not live and nxt in F32_ONLY_SPECS)
+                    or (nxt is None and live and names[live[-1]] in NOT_LAST_SPECS)):
+                continue
+        live.append(i)
+        hb, wb = out
     out = dict.fromkeys(kernels.LAUNCHES, 0)
-    for st in plan.stages:
-        for name, n in SPEC_LAUNCHES[type(st.spec).__name__].items():
+    for i in live:
+        for name, n in SPEC_LAUNCHES[names[i]].items():
             out[name] += n
     return out
+
+
+def check_gather_pins(config3_plan, config3_arr) -> None:
+    """Hold expected_launches to the pinned gather counts of config 3's
+    plan and of /rotate?rotate=90's."""
+    got = expected_launches(config3_plan, config3_arr)["gather"]
+    if got != CONFIG3_GATHERS:
+        raise AssertionError(f"config 3 plan: {got} gathers, pinned {CONFIG3_GATHERS}")
+    arr, p = main_plan("rotate", "yuv420", {"rotate": "90"})
+    got = expected_launches(p, arr)["gather"]
+    if got != ROTATE_GATHERS:
+        raise AssertionError(f"/rotate plan: {got} gathers, pinned {ROTATE_GATHERS}")
 
 
 def psnr(a, b) -> float:
@@ -1290,9 +1425,10 @@ def config3_phase(png: bytes) -> dict:
         "jpeg-pipeline": pipeline_request(bodies["jpg"], JPEG_PIPELINE_OPS, "yuv420"),
         "bw-resize": main_plan("resize", "yuv420", BW_QUERY),
     }
+    check_gather_pins(plans["config3"][1], plans["config3"][0])
     expected = dict.fromkeys(kernels.LAUNCHES, 0)
     for name, _, _, _, _, n in CONFIG3_REQUESTS:
-        for k, v in expected_launches(plans[name][1]).items():
+        for k, v in expected_launches(plans[name][1], plans[name][0]).items():
             expected[k] += n * v
     srv = make_server("127.0.0.1", 0, device=DEVICE, max_batch=CONFIG3_MAX_BATCH,
                       batch_form_ms=CONFIG2_FORM_MS)
@@ -1768,8 +1904,8 @@ def config4_phase(stream: list) -> dict:
 
     expected = dict.fromkeys(kernels.LAUNCHES, 0)
     for buf, _, _ in stream:
-        for k, v in expected_launches(request_plan(buf, "smartcrop",
-                                                   {"width": "300", "height": "300"})[1]).items():
+        arr, p = request_plan(buf, "smartcrop", {"width": "300", "height": "300"})
+        for k, v in expected_launches(p, arr).items():
             expected[k] += v
     srv = make_server("127.0.0.1", 0, device=DEVICE, max_batch=CONFIG4_MAX_BATCH,
                       batch_form_ms=CONFIG2_FORM_MS)
@@ -1934,7 +2070,7 @@ def dct_phase() -> dict:
     plans = {path: dct_request_plan(buf, "resize", q) for path, q, _, _ in DCT_REQUESTS}
     expected = dict.fromkeys(kernels.LAUNCHES, 0)
     for path, _, _, n in DCT_REQUESTS:
-        for k, v in expected_launches(plans[path][0]).items():
+        for k, v in expected_launches(plans[path][0], plans[path][1]).items():
             expected[k] += n * v
     srv = make_server("127.0.0.1", 0, device=DEVICE, transport_dct=True,
                       transport_dct_egress=True)
@@ -2310,7 +2446,7 @@ def mesh_lanes_phase() -> dict:
         got = serve_mix(srv, bodies, want)
         with urllib.request.urlopen(f"http://127.0.0.1:{srv.server_address[1]}/health",
                                     timeout=60) as r:
-            got["health"] = _json.loads(r.read())["executor"]
+            got["health"] = _json.loads(r.read())
         return got
 
     args = cli.parse_args(["--host", "127.0.0.1", "--port", "0", "--device", DEVICE,
@@ -2318,13 +2454,15 @@ def mesh_lanes_phase() -> dict:
                            "--batch-form-ms", str(CONFIG2_FORM_MS)])
     got = serving(cli.make_server_from_args(args), cli_run)
     health = got.pop("health")
-    lanes = health["lanes"]
+    ex = health["executor"]
+    lanes = ex["lanes"]
     cards = torch.cuda.device_count() if DEVICE == "cuda" else 1
-    if len(lanes) != cards or health["deviceHealth"]["count"] != cards:
+    if (len(lanes) != cards or health["deviceHealth"]["count"] != cards
+            or (health["backend"], health["devices"]) != (torch.device(DEVICE).type, cards)):
         raise AssertionError(f"/health shows {len(lanes)} lanes for {cards} cards")
     dispatched = sum(ln["dispatches"] for ln in lanes)
-    if dispatched != health["batches"]:
-        raise AssertionError(f"lane dispatches {dispatched} != batches {health['batches']}")
+    if dispatched != ex["batches"]:
+        raise AssertionError(f"lane dispatches {dispatched} != batches {ex['batches']}")
     got["lanes"] = lanes
     out["cli_lanes"] = got
     log(mix_line(f"--mesh-policy lanes, {cards} card(s), one lane each", got))
@@ -2421,6 +2559,7 @@ def main() -> int:
     orient_phase(report["kernels"])
     config2_kernel_phase(rng, report["kernels"])
     config3_kernel_phase(report["kernels"])
+    seams_phase(report["kernels"])
     config4_kernel_phase(report["kernels"])
     dct_kernel_phase(report["kernels"])
     log("== phase 4: main path through the server")

@@ -43,8 +43,9 @@ _I = ctypes.c_int
 
 # name -> (source, C symbol, argtypes); every function ends with the stream.
 _SIGNATURES = {
-    "resample": ("resample", "itpu_resample_pass",
-                 [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    "resample": ("resample", "itpu_resample",
+                 [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _I, _P]),
     "yuv420_unpack": ("yuv420_unpack", "itpu_yuv420_to_rgb",
                       [_P, _P, _P, _P, _I, _I, _I, _P]),
     "yuv420_pack": ("yuv420_pack", "itpu_rgb_to_yuv420",
@@ -75,9 +76,9 @@ _SIGNATURES = {
 # C functions counted under another kernel's name (K13's two passes).
 _COUNTED_AS = {"blur_halo_v": "blur_halo", "blur_halo_h": "blur_halo"}
 
-# Kernel launches since the last reset, per kernel (resample, blur,
-# saliency, from_dct and blur_halo count their two passes as two
-# launches). Written under _COUNT_LOCK only.
+# Kernel launches since the last reset, per kernel (blur, saliency,
+# from_dct and blur_halo count their two passes as two launches).
+# Written under _COUNT_LOCK only.
 LAUNCHES = {_COUNTED_AS.get(name, name): 0 for name in _SIGNATURES}
 
 _FNS: dict = {}
@@ -164,8 +165,9 @@ _F32 = (torch.float32,)
 
 def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
              out_u8: bool = False):
-    """K1: separable resample of x [B, Hb, Wb, C] (uint8 or f32) to
-    [B, out_hb, out_wb, C] (f32, or uint8 with the epilogue).
+    """K1: separable resample of x [B, Hb, Wb, C] (uint8 or f32, C 1 to 4)
+    to [B, out_hb, out_wb, C] (f32, or uint8 with the epilogue), both axes
+    in one launch.
 
     h, w: int32 [B] valid input dims; dst_h, dst_w: f32 [B] target dims.
     Returns (out, int32 dst_h, int32 dst_w)."""
@@ -175,25 +177,21 @@ def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
     if kind not in _RESAMPLE_KIND:
         raise ValueError(f"unknown kernel {kind!r}")
     dev = x.device
-    if x.dim() != 4:
-        raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
+        raise ValueError(f"x must be [B, H, W, C] with C 1 to 4, got {tuple(x.shape)}")
     bsz, in_h, in_w, c = x.shape
     _require(x, "x", _IMG, (bsz, in_h, in_w, c), dev)
     for t, n, dts in ((h, "h", _I32), (w, "w", _I32), (dst_h, "dst_h", _F32),
                       (dst_w, "dst_w", _F32)):
         _require(t, n, dts, (bsz,), dev)
-    mid = torch.empty((bsz, out_hb, in_w, c), dtype=torch.float32, device=dev)
     out = torch.empty((bsz, out_hb, out_wb, c),
                       dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
     h_out = torch.empty((bsz,), dtype=torch.int32, device=dev)
     w_out = torch.empty((bsz,), dtype=torch.int32, device=dev)
-    k = _RESAMPLE_KIND[kind]
     _launch("resample", dev, x.data_ptr(), int(x.dtype == torch.uint8),
-            mid.data_ptr(), 0, h.data_ptr(), dst_h.data_ptr(), h_out.data_ptr(),
-            bsz, 1, in_h, out_hb, in_w * c, k)
-    _launch("resample", dev, mid.data_ptr(), 0, out.data_ptr(), int(out_u8),
-            w.data_ptr(), dst_w.data_ptr(), w_out.data_ptr(),
-            bsz, out_hb, in_w, out_wb, c, k)
+            out.data_ptr(), int(out_u8), h.data_ptr(), w.data_ptr(),
+            dst_h.data_ptr(), dst_w.data_ptr(), h_out.data_ptr(), w_out.data_ptr(),
+            bsz, in_h, in_w, out_hb, out_wb, c, _RESAMPLE_KIND[kind])
     return out, h_out, w_out
 
 

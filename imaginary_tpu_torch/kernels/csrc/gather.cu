@@ -1,36 +1,44 @@
-// K4: per-image index-map gather with mask fill (embed / extract / shrink).
+// K4: per-image index-map gather with mask fill (embed / extract / shrink),
+// as a row copy.
 //
 // Replaces: imaginary_tpu/ops/stages.py:151-198 (`EmbedSpec.apply` with
 // `_axis_indices`), :119-148 (`ExtractSpec.apply` with `_window_gather`)
 // and :330-341 (`ShrinkBucketSpec.apply`).
 //
 // Bound on the H100: memory; it does no arithmetic beyond index math. At
-// [B,192,320,3] -> [B,208,304,3] f32 it reads at most the input once and
-// writes 0.76 MB per image.
+// /rotate's shrink ([32, 2048, 1152, 3] -> [32, 1920, 1088, 3] f32) it
+// reads and writes 0.80 GB.
 //
-// Design: one thread per output element; neighbouring threads write
-// neighbouring addresses, and reads stay row-contiguous wherever the index
-// map is (mirror and clamp maps are monotone runs). Each thread derives its
-// row and column source index from the per-image offset and valid size, so
-// no index vector is materialised:
-//   mode 0 (window): i = clamp(pos + off, 0, in_b - 1), each index on its
-//          own (not lax.dynamic_slice's whole-window clamp). Extract passes
+// Design: one block owns one output row (b, y). It derives the row's
+// source row iy and the row bases once (64-bit only there), then walks
+// the row with 32-bit column math. Index maps, each axis on its own:
+//   mode 0 (window): i = clamp(pos + off, 0, in_b - 1) (not
+//          lax.dynamic_slice's whole-window clamp). Extract passes
 //          off = (top, left); ShrinkBucket passes no offsets (identity).
+//          A row's source is one contiguous run, clamped only at its ends:
+//          the run is copied with 16-byte loads and stores wherever the
+//          source and destination are congruent mod 16 (a scalar head and
+//          tail around them), element by element where they are not or
+//          where the types differ; the clamped ends repeat the edge pixel.
 //   mode 1 (clamp):  rel = pos - off, i = clamp(rel, 0, max(size,1) - 1)
 //          (Embed with COPY / LAST and the colour fills).
 //   mode 2 (mirror): rel = pos - off, i = floored rel mod 2*size folded
 //          back (jnp.remainder is floored; CUDA's % truncates, hence
-//          ((a % p) + p) % p).
+//          ((a % p) + p) % p, in 32 bits).
+//   In modes 1 and 2 a thread owns a pixel and its C channels.
 // With a fill vector, canvas pixels outside [0, size) on either axis take
-// fill[b, c]. uint8 input (the RGB transport's first stage) and a uint8
-// output with the chain's clip(x + 0.5) epilogue (its last stage) are fused.
+// fill[b, c] (modes 1 and 2). uint8 input (the RGB transport's first
+// stage) and a uint8 output with the chain's clip(x + 0.5) epilogue (its
+// last stage) are fused; uint8 to uint8 is an exact copy.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 
 template <typename T>
 __device__ __forceinline__ float load(const T* p) { return (float)(*p); }
@@ -63,37 +71,77 @@ __device__ __forceinline__ int axis_index(int pos, int off, int size, int in_b,
   return min(max(idx, 0), in_b - 1);
 }
 
+// n contiguous elements from s to d by the block's threads.
 template <typename TIn, typename TOut>
-__global__ void gather(const TIn* __restrict__ in, TOut* __restrict__ out,
-                       const int32_t* __restrict__ off_y,
-                       const int32_t* __restrict__ off_x,
-                       const int32_t* __restrict__ size_h,
-                       const int32_t* __restrict__ size_w,
-                       const float* __restrict__ fill, int mode, int B,
-                       int in_hb, int in_wb, int C, int out_hb, int out_wb) {
-  const size_t n = (size_t)B * out_hb * out_wb * C;
-  const size_t stride_grid = (size_t)gridDim.x * blockDim.x;
-  for (size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += stride_grid) {
-    const int c = (int)(e % C);
-    const size_t pix = e / C;
-    const int x = (int)(pix % out_wb);
-    const int y = (int)((pix / out_wb) % out_hb);
-    const int b = (int)(pix / ((size_t)out_wb * out_hb));
-    const int oy = off_y ? off_y[b] : 0;
-    const int ox = off_x ? off_x[b] : 0;
-    const int sh = size_h ? size_h[b] : in_hb;
-    const int sw = size_w ? size_w[b] : in_wb;
-    bool in_y, in_x;
-    const int iy = axis_index(y, oy, sh, in_hb, mode, &in_y);
-    const int ix = axis_index(x, ox, sw, in_wb, mode, &in_x);
-    float v;
-    if (fill != nullptr && !(in_y && in_x)) {
-      v = fill[(size_t)b * C + c];
-    } else {
-      v = load(in + (((size_t)b * in_hb + iy) * in_wb + ix) * C + c);
+__device__ __forceinline__ void copy_run(const TIn* __restrict__ s,
+                                         TOut* __restrict__ d, int n) {
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  if constexpr (std::is_same<TIn, TOut>::value) {
+    constexpr int V = 16 / sizeof(TIn);
+    const uintptr_t sa = reinterpret_cast<uintptr_t>(s);
+    const uintptr_t da = reinterpret_cast<uintptr_t>(d);
+    if (((sa ^ da) & 15u) == 0) {
+      const int head = min(n, (int)(((16u - (da & 15u)) & 15u) / sizeof(TIn)));
+      const int nv = (n - head) / V;
+      const int4* sv = reinterpret_cast<const int4*>(s + head);
+      int4* dv = reinterpret_cast<int4*>(d + head);
+      for (int i = tid; i < nv; i += nthr) dv[i] = sv[i];
+      for (int i = tid; i < head; i += nthr) d[i] = s[i];
+      for (int i = head + nv * V + tid; i < n; i += nthr) d[i] = s[i];
+      return;
     }
-    store(out + e, v);
+    for (int i = tid; i < n; i += nthr) d[i] = s[i];
+  } else {
+    for (int i = tid; i < n; i += nthr) store(d + i, load(s + i));
+  }
+}
+
+// grid (out_hb, B), one block per output row.
+template <typename TIn, typename TOut>
+__global__ void __launch_bounds__(kThreads)
+gather_rows(const TIn* __restrict__ in, TOut* __restrict__ out,
+            const int32_t* __restrict__ off_y, const int32_t* __restrict__ off_x,
+            const int32_t* __restrict__ size_h, const int32_t* __restrict__ size_w,
+            const float* __restrict__ fill, int mode, int in_hb, int in_wb,
+            int C, int out_hb, int out_wb) {
+  const int y = blockIdx.x;
+  const int b = blockIdx.y;
+  const int oy = off_y ? off_y[b] : 0;
+  const int ox = off_x ? off_x[b] : 0;
+  const int sh = size_h ? size_h[b] : in_hb;
+  const int sw = size_w ? size_w[b] : in_wb;
+  bool in_y;
+  const int iy = axis_index(y, oy, sh, in_hb, mode, &in_y);
+  const int row_in = in_wb * C, row_out = out_wb * C;
+  const TIn* __restrict__ src = in + ((size_t)b * in_hb + iy) * (size_t)row_in;
+  TOut* __restrict__ dst = out + ((size_t)b * out_hb + y) * (size_t)row_out;
+
+  if (mode == 0) {
+    // columns [x0, x1) read the contiguous run from x0 + ox; those left of
+    // it clamp to column 0, those right of it to column in_wb - 1
+    const int x0 = min(max(-ox, 0), out_wb);
+    const int x1 = min(max(in_wb - ox, x0), out_wb);
+    if (x1 > x0) copy_run(src + (x0 + ox) * C, dst + x0 * C, (x1 - x0) * C);
+    const int nedge = x0 + (out_wb - x1);
+    for (int k = threadIdx.x; k < nedge; k += blockDim.x) {
+      const bool left = k < x0;
+      const int x = left ? k : x1 + (k - x0);
+      const TIn* p = src + (left ? 0 : (in_wb - 1) * C);
+      for (int c = 0; c < C; c++) store(dst + x * C + c, load(p + c));
+    }
+    return;
+  }
+  const float* fb = fill ? fill + (size_t)b * C : nullptr;
+  for (int x = threadIdx.x; x < out_wb; x += blockDim.x) {
+    bool in_x;
+    const int ix = axis_index(x, ox, sw, in_wb, mode, &in_x);
+    TOut* q = dst + x * C;
+    if (fb != nullptr && !(in_y && in_x)) {
+      for (int c = 0; c < C; c++) store(q + c, fb[c]);
+    } else {
+      const TIn* p = src + ix * C;
+      for (int c = 0; c < C; c++) store(q + c, load(p + c));
+    }
   }
 }
 
@@ -102,12 +150,10 @@ int launch(const void* in, void* out, const int32_t* off_y,
            const int32_t* off_x, const int32_t* size_h, const int32_t* size_w,
            const float* fill, int mode, int B, int in_hb, int in_wb, int C,
            int out_hb, int out_wb, cudaStream_t stream) {
-  const size_t n = (size_t)B * out_hb * out_wb * C;
-  size_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 65535u * 32u) blocks = 65535u * 32u;
-  gather<TIn, TOut><<<(unsigned)blocks, kThreads, 0, stream>>>(
+  dim3 grid((unsigned)out_hb, (unsigned)B);
+  gather_rows<TIn, TOut><<<grid, kThreads, 0, stream>>>(
       static_cast<const TIn*>(in), static_cast<TOut*>(out), off_y, off_x,
-      size_h, size_w, fill, mode, B, in_hb, in_wb, C, out_hb, out_wb);
+      size_h, size_w, fill, mode, in_hb, in_wb, C, out_hb, out_wb);
   return (int)cudaGetLastError();
 }
 
@@ -124,6 +170,7 @@ extern "C" int itpu_gather(const void* in, int in_u8, void* out, int out_u8,
                            int in_wb, int C, int out_hb, int out_wb,
                            void* stream) {
   if ((size_t)B * out_hb * out_wb * C == 0) return 0;
+  if (B > 65535) return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_u8 && out_u8)
     return launch<uint8_t, uint8_t>(in, out, off_y, off_x, size_h, size_w,

@@ -21,9 +21,10 @@ allocator reuses its memory only for work queued later on that stream.
 one sub-launch per device on that device's stream, each with its own
 pinned buffers and event.
 On the CPU the chain runs at once and the fetch has nothing to wait for.
-The chain's uint8 -> f32 cast (int16 -> f32 for the DCT transport's
-coefficients, staged as int16 in the same one H2D) and its uint8
-epilogue are fused into the first and last stages' kernels. A chain
+A ShrinkBucketSpec that would copy its input unchanged launches nothing
+(`live_stages`). The chain's uint8 -> f32 cast (int16 -> f32 for the DCT
+transport's coefficients, staged as int16 in the same one H2D) and its
+uint8 epilogue are fused into the first and last stages' kernels. A chain
 whose last spec has `out_dtype` "int16" (ToDctSpec) drains rounded,
 clamped int16 coefficients, written by that kernel itself, and
 `finish_batch` re-blocks them into `QuantizedBlocks` for the host
@@ -44,6 +45,14 @@ import torch
 
 from imaginary_tpu_torch.ops.buckets import bucket_shape
 from imaginary_tpu_torch.ops.plan import ImagePlan
+from imaginary_tpu_torch.ops.stages import (
+    FromDctSpec,
+    FromYuv420Spec,
+    ShrinkBucketSpec,
+    ToDctSpec,
+    ToYuv420Spec,
+    TransposeSpec,
+)
 from imaginary_tpu_torch.parallel.mesh import Mesh, split_batch
 
 DEFAULT_DEVICE = "cuda"
@@ -74,11 +83,52 @@ def clear_cache() -> None:
         _SIGNATURES.clear()
 
 
+# Stages that read f32 only, and stages that cannot end a chain (they have
+# no uint8 epilogue).
+_F32_ONLY = (ToYuv420Spec, ToDctSpec)
+_NOT_LAST = (FromYuv420Spec, FromDctSpec)
+
+
+def _bucket_after(spec, hb: int, wb: int) -> tuple:
+    """The padded-buffer dims a stage leaves (plan.py's `_final_bucket`
+    step, with the transports' unpack stages)."""
+    if isinstance(spec, TransposeSpec):
+        return wb, hb
+    if isinstance(spec, (FromYuv420Spec, FromDctSpec)):
+        return spec.hb, spec.wb
+    if hasattr(spec, "out_hb"):
+        return spec.out_hb, spec.out_wb
+    return hb, wb
+
+
+def live_stages(specs, hb: int, wb: int) -> list:
+    """Indices of the stages that launch, for an input bucket (hb, wb).
+
+    A ShrinkBucketSpec whose input already has its output dims is an
+    identity copy and is dropped (XLA elides it in the reference), unless
+    it is the first stage and the next reads f32 only, or the last and the
+    one before cannot write the uint8 epilogue. Plans keep the stage: they
+    stay equal to the reference's."""
+    live = []
+    for i, spec in enumerate(specs):
+        out = _bucket_after(spec, hb, wb)
+        if isinstance(spec, ShrinkBucketSpec) and out == (hb, wb):
+            nxt = specs[i + 1] if i + 1 < len(specs) else None
+            keep = ((not live and isinstance(nxt, _F32_ONLY))
+                    or (nxt is None and live and isinstance(specs[live[-1]], _NOT_LAST)))
+            if not keep:
+                continue
+        live.append(i)
+        hb, wb = out
+    return live
+
+
 def _run_chain(specs, x, h, w, dyns):
-    """Run every stage; the last one writes uint8 (epilogue fused)."""
-    last = len(specs) - 1
-    for i, (spec, dyn) in enumerate(zip(specs, dyns)):
-        x, h, w = spec.apply(x, h, w, dyn, out_u8=(i == last))
+    """Run every live stage; the last one writes uint8 (epilogue fused).
+    A chain of identity shrinks alone returns its uint8 input."""
+    live = live_stages(specs, x.shape[1], x.shape[2])
+    for i in live:
+        x, h, w = specs[i].apply(x, h, w, dyns[i], out_u8=(i == live[-1]))
     return x, h, w
 
 

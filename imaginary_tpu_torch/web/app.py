@@ -9,11 +9,12 @@ workers) is a later slice.
 
 from __future__ import annotations
 
+import re
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 from imaginary_tpu_torch.engine import MAX_BATCH
-from imaginary_tpu_torch.errors import ErrEntityTooLarge
+from imaginary_tpu_torch.errors import ErrEntityTooLarge, new_error
 from imaginary_tpu_torch.web.handlers import (
     MAX_BODY_SIZE,
     ImageService,
@@ -21,6 +22,9 @@ from imaginary_tpu_torch.web.handlers import (
     error_response,
     parse_query,
 )
+
+# a chunk-size line: hex digits only, so no sign, prefix or underscore
+_HEX = re.compile(rb"[0-9A-Fa-f]+")
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -33,20 +37,58 @@ class _Handler(BaseHTTPRequestHandler):
     def do_POST(self):
         self._dispatch("POST")
 
-    def do_PUT(self):
-        self._dispatch("PUT")
+    def __getattr__(self, name: str):
+        # every other method (PUT, DELETE, PATCH, HEAD, OPTIONS, ...) reaches
+        # the service too, which answers the reference's 405, instead of
+        # http.server's 501 page
+        if name.startswith("do_"):
+            return lambda: self._dispatch(name[3:])
+        raise AttributeError(name)
 
     def _dispatch(self, method: str) -> None:
         url = urllib.parse.urlsplit(self.path)
-        length = int(self.headers.get("Content-Length") or 0)
-        if length > MAX_BODY_SIZE:
-            self.close_connection = True  # the body stays unread
+        try:
+            body = self._read_body()
+        except ValueError:
+            self.close_connection = True
+            self._send(error_response(new_error("Malformed request body", 400)))
+            return
+        if body is None:
+            self.close_connection = True  # the rest of the body stays unread
             self._send(error_response(ErrEntityTooLarge))
             return
-        body = self.rfile.read(length) if length > 0 else b""
         service: ImageService = self.server.service
         self._send(service.handle(method, url.path, parse_query(url.query),
                                   self.headers, body))
+
+    def _read_body(self):
+        """The request body: Content-Length bytes, or the chunks of a
+        `Transfer-Encoding: chunked` body joined. None once it passes
+        MAX_BODY_SIZE; ValueError on a malformed length or chunk size."""
+        if "chunked" not in (self.headers.get("Transfer-Encoding") or "").lower():
+            length = int(self.headers.get("Content-Length") or 0)
+            if length > MAX_BODY_SIZE:
+                return None
+            return self.rfile.read(length) if length > 0 else b""
+        parts, total = [], 0
+        while True:
+            line = self.rfile.readline(1 << 16).split(b";", 1)[0].strip()
+            if not _HEX.fullmatch(line):
+                raise ValueError(f"chunk size {line[:32]!r}")
+            size = int(line, 16)
+            if size == 0:
+                while self.rfile.readline(1 << 16) not in (b"\r\n", b"\n", b""):
+                    pass  # trailer fields, unused
+                return b"".join(parts)
+            total += size
+            if total > MAX_BODY_SIZE:
+                return None
+            chunk = self.rfile.read(size)
+            if len(chunk) != size:
+                raise ValueError("chunk cut short")
+            parts.append(chunk)
+            if self.rfile.readline(1 << 16) not in (b"\r\n", b"\n"):
+                raise ValueError("no CRLF after a chunk")
 
     def _send(self, resp: Response) -> None:
         self.send_response(resp.status)
@@ -55,7 +97,8 @@ class _Handler(BaseHTTPRequestHandler):
         for k, v in resp.headers.items():
             self.send_header(k, v)
         self.end_headers()
-        self.wfile.write(resp.body)
+        if self.command != "HEAD":
+            self.wfile.write(resp.body)
 
     def log_message(self, fmt, *args):  # access logging is a later slice
         pass

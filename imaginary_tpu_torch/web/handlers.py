@@ -21,6 +21,7 @@ groups concurrent requests that share a chain into one launch.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import threading
@@ -146,6 +147,9 @@ class ImageService:
                body: bytes) -> Response:
         """Route one request. `query` maps key -> first value."""
         try:
+            # GET and POST only, on every path (ref: middleware.go:179-187)
+            if method not in ("GET", "POST"):
+                raise ErrMethodNotAllowed
             if path == "/":
                 return self._json(self.versions())
             if path == "/health":
@@ -153,8 +157,6 @@ class ImageService:
             name = path.lstrip("/").lower()
             if name not in REFERENCE_OPERATIONS or "/" in name:
                 raise ErrNotFound
-            if method not in ("GET", "POST"):
-                raise ErrMethodNotAllowed
             if name not in SERVED_OPERATIONS:
                 raise ErrNotImplemented
             buf = self._source(method, query, headers, body)
@@ -169,11 +171,16 @@ class ImageService:
                 "backend": self.device.type}
 
     def health(self) -> dict:
+        cuda = self.device.type == "cuda"
         stats = {
             "uptime": round(time.time() - self._started, 2),
+            "allocatedMemoryMb": _rss_mb(),
             "threads": threading.active_count(),
             "cpus": os.cpu_count() or 1,
+            "gcCollections": sum(s["collections"] for s in gc.get_stats()),
             "pid": os.getpid(),
+            "devices": torch.cuda.device_count() if cuda else 1,
+            "backend": self.device.type,
             "device": str(self.device),
             "kernelLaunches": kernels.launch_counts(),
             "codecs": codecs.routes(),
@@ -183,8 +190,8 @@ class ImageService:
             "executor": self.executor.stats.to_dict(),
         }
         if self.executor.devhealth is not None:  # the lane tier's fault domains
-            stats["executor"]["deviceHealth"] = self.executor.devhealth.snapshot()
-        if self.device.type == "cuda":
+            stats["deviceHealth"] = self.executor.devhealth.snapshot()
+        if cuda:
             stats["deviceName"] = torch.cuda.get_device_name(self.device)
             stats["allocatedDeviceMb"] = round(
                 torch.cuda.memory_allocated(self.device) / (1 << 20), 2)
@@ -233,8 +240,10 @@ class ImageService:
             opts = build_params_from_query(query)
         except ParamError as e:
             raise new_error("Error while processing parameters: " + str(e), 400) from None
+        vary = {}
         if opts.type == "auto":
             opts.type = determine_accept_mime_type(headers.get("Accept", "") or "")
+            vary = {"Vary": "Accept"}
         elif opts.type and image_type(opts.type) is ImageType.UNKNOWN:
             raise ErrOutputFormat
         meta = None
@@ -248,7 +257,19 @@ class ImageService:
             raise ErrResolutionTooBig
         out = pipeline.process_operation(name, buf, opts, device=self.device,
                                          meta=meta, runner=self.executor.process)
-        return Response(200, out.mime, out.body)
+        return Response(200, out.mime, out.body, vary)
+
+
+def _rss_mb() -> float:
+    """The process's resident set in MB, from /proc (0.0 where there is none)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return round(int(line.split()[1]) / 1024.0, 2)
+    except OSError:
+        pass
+    return 0.0
 
 
 def parse_query(qs: str) -> dict:

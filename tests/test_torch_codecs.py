@@ -15,6 +15,7 @@ import io
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from imaginary_tpu import codecs as jcodecs
@@ -23,6 +24,16 @@ from imaginary_tpu_torch.codecs import EncodeOptions, pil_backend
 from imaginary_tpu_torch.errors import ImageError
 from imaginary_tpu_torch.imgtype import ImageType
 from tests.conftest import fixture_bytes, psnr
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _png(arr: np.ndarray) -> bytes:

@@ -14,6 +14,7 @@ import threading
 import time
 
 import pytest
+import torch
 
 from imaginary_tpu import failpoints as jfailpoints
 from imaginary_tpu.engine import devhealth as jdevhealth
@@ -24,6 +25,16 @@ from imaginary_tpu_torch.engine.devhealth import (
     STATE_QUARANTINED,
     DeviceHealthRegistry,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 class TestRegistry:

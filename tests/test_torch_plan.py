@@ -14,6 +14,7 @@ import enum
 
 import numpy as np
 import pytest
+import torch
 
 from imaginary_tpu.options import ImageOptions as JOptions
 from imaginary_tpu.ops import plan as jplan
@@ -22,6 +23,16 @@ from imaginary_tpu_torch.options import ImageOptions as POptions
 from imaginary_tpu_torch.ops import plan as pplan
 from imaginary_tpu_torch.params import build_params_from_query as pquery
 from tests.gen_goldens import MATRIX, PIPELINES, SMARTCROP
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on few cores,
+    and torch's default of one thread per core oversubscribes them."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def plan_to_dict(plan) -> dict:

@@ -6,8 +6,11 @@ The server answers the reference's status codes and error JSON: 200 for
 /flop, /fit, /enlarge, /extract, /zoom, /convert, /blur, /watermark and
 /pipeline (raw body, multipart `file` field, or ?file= under --mount;
 JPEG, PNG, WEBP and GIF in and out), 400 for bad params, 404 for unknown
-paths, 405 for GET without a mount, 406 for non-images, 501 for routes
-and formats not ported yet. Concurrent requests
+paths, 405 for GET without a mount and for every method other than GET
+and POST (HEAD without a body), 406 for non-images, 501 for routes
+and formats not ported yet; type=auto answers Vary: Accept, chunked
+bodies read like plain ones, and /health has the reference's keys.
+Concurrent requests
 get the bodies they get alone. The port must import neither `jax` nor
 `imaginary_tpu` (checked in a fresh interpreter and by a scan of its
 sources).
@@ -16,8 +19,10 @@ sources).
 from __future__ import annotations
 
 import ast
+import http.client
 import json
 import os
+import socket
 import subprocess
 import sys
 import threading
@@ -250,6 +255,112 @@ def test_index_and_health(server):
     assert ex["device_failures"] == 0 and ex["items"] >= ex["batches"] >= 0
 
 
+def _raw(port, method, path, body=None, headers=None):
+    """(status, headers, body) of one request sent with http.client, which
+    sends any method and a chunked body from an iterable."""
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request(method, path, body=body, headers=headers or {},
+                     encode_chunked=not isinstance(body, (bytes, type(None))))
+        resp = conn.getresponse()
+        return resp.status, dict(resp.getheaders()), resp.read()
+    finally:
+        conn.close()
+
+
+def test_health_carries_the_reference_keys_and_device_health_at_the_top(server):
+    """ref: imaginary_tpu/web/health.py: process RSS, GC collections, the
+    device count and backend beside the executor's block."""
+    stats = json.loads(_req(server, "/health")[2])
+    assert stats["allocatedMemoryMb"] > 0
+    assert isinstance(stats["gcCollections"], int) and stats["gcCollections"] >= 0
+    assert (stats["devices"], stats["backend"]) == (1, "cpu")
+    assert "deviceHealth" not in stats["executor"]
+
+
+@pytest.mark.parametrize("accept,ctype", [
+    ("image/webp,*/*", "image/webp"),
+    ("text/html,application/xhtml+xml,application/xml;q=0.9,image/avif,image/webp,"
+     "image/apng,*/*;q=0.8", "image/webp"),
+    (None, "image/jpeg"),
+], ids=["webp", "chrome", "none"])
+def test_type_auto_answers_vary_accept(server, accept, ctype):
+    """ref: TestTypeAuto, tests/test_server.py: type=auto resolves the
+    format from Accept and says so with Vary: Accept."""
+    headers = {"Content-Type": "image/jpeg"}
+    if accept is not None:
+        headers["Accept"] = accept
+    status, got, _ = _raw(server, "POST", "/resize?width=100&type=auto",
+                          fixture_bytes("large.jpg"), headers)
+    assert (status, got["Content-Type"], got["Vary"]) == (200, ctype, "Accept")
+    status, got, _ = _raw(server, "POST", "/resize?width=100",
+                          fixture_bytes("large.jpg"), {"Content-Type": "image/jpeg"})
+    assert status == 200 and "Vary" not in got
+
+
+@pytest.mark.parametrize("method,path", [
+    ("DELETE", "/resize?width=300"), ("PATCH", "/resize?width=300"),
+    ("HEAD", "/resize?width=300"), ("OPTIONS", "/resize?width=300"),
+    ("PUT", "/"), ("PUT", "/health"), ("PUT", "/resize?width=300"),
+])
+def test_methods_other_than_get_and_post_get_the_405_json(server, method, path):
+    """ref: _validate_request, imaginary_tpu/web/middleware.py: every path,
+    `/` and `/health` too; a HEAD answer carries no body."""
+    status, headers, body = _raw(server, method, path)
+    assert status == 405 and headers["Content-Type"] == "application/json"
+    if method == "HEAD":
+        assert body == b""
+        return
+    err = json.loads(body)
+    assert err["status"] == 405 and err["message"].startswith("HTTP method not allowed")
+
+
+def test_chunked_post_is_answered_like_the_plain_one(server):
+    buf = fixture_bytes("large.jpg")
+    path = "/resize?width=300&height=200"
+    plain = _raw(server, "POST", path, buf, {"Content-Type": "image/jpeg"})
+    chunks = (buf[i:i + 7919] for i in range(0, len(buf), 7919))
+    chunked = _raw(server, "POST", path, chunks,
+                   {"Content-Type": "image/jpeg", "Transfer-Encoding": "chunked"})
+    assert plain[0] == chunked[0] == 200
+    assert chunked[1]["Content-Type"] == "image/jpeg"
+    assert chunked[2] == plain[2] and _dims(chunked[2]) == (200, 300)
+
+
+def test_chunked_body_over_the_limit_is_413(server, monkeypatch):
+    from imaginary_tpu_torch.web import app
+
+    monkeypatch.setattr(app, "MAX_BODY_SIZE", 1000)
+    chunks = iter([b"x" * 600, b"y" * 600])
+    status, headers, body = _raw(server, "POST", "/resize?width=300", chunks,
+                                 {"Content-Type": "image/jpeg",
+                                  "Transfer-Encoding": "chunked"})
+    assert status == 413 and json.loads(body)["status"] == 413
+
+
+@pytest.mark.parametrize("chunks", [
+    b"-1\r\nabc\r\n0\r\n\r\n", b"0x3\r\nabc\r\n0\r\n\r\n", b"1_0\r\nabc\r\n0\r\n\r\n",
+    b"zz\r\n0\r\n\r\n", b"3\r\nabcd\r\n0\r\n\r\n", b"a\r\nabc",
+], ids=["negative", "prefix", "underscore", "not-hex", "no-crlf", "cut-short"])
+def test_malformed_chunked_body_is_400(server, chunks):
+    """A chunk size that is not plain hex (a negative one would read on
+    with no limit), or a chunk that does not end where its size says, is
+    refused at once. The connection stays open for writing, so a server
+    that read on would leave the client waiting; only the cut-short body
+    ends the stream."""
+    with socket.create_connection(("127.0.0.1", server), timeout=20) as s:
+        s.sendall(b"POST /resize?width=300 HTTP/1.1\r\nHost: x\r\n"
+                  b"Content-Type: image/jpeg\r\nTransfer-Encoding: chunked\r\n\r\n" + chunks)
+        if chunks.endswith(b"abc"):
+            s.shutdown(socket.SHUT_WR)
+        got = b""
+        while data := s.recv(65536):
+            got += data
+    head, _, body = got.partition(b"\r\n\r\n")
+    assert head.split(b" ", 2)[1] == b"400"
+    assert json.loads(body)["message"] == "Malformed request body"
+
+
 def test_cuda_device_without_cuda_raises():
     """No silent CPU fallback: asking for the card where there is none fails."""
     if torch.cuda.is_available():
@@ -339,11 +450,13 @@ def test_mesh_policy_lanes_serves_the_off_bytes_with_one_lane_per_device():
     assert all(b[0] == 200 for b in bodies["off"])
     assert bodies["lanes"] == bodies["off"]
     assert "lanes" not in healths["off"]["executor"]
-    assert "deviceHealth" not in healths["off"]["executor"]
+    assert "deviceHealth" not in healths["off"]
     ex = healths["lanes"]["executor"]
     assert [ln["lane"] for ln in ex["lanes"]] == [0, 1]
     assert sum(ln["dispatches"] for ln in ex["lanes"]) == ex["batches"] >= 1
-    assert ex["deviceHealth"]["count"] == 2 and len(ex["deviceHealth"]["lanes"]) == 2
+    dh = healths["lanes"]["deviceHealth"]
+    assert dh["count"] == 2 and len(dh["lanes"]) == 2
+    assert "deviceHealth" not in ex
 
 
 def test_multi_gpu_modules_import_without_jax_or_the_reference():
