@@ -22,7 +22,11 @@ Phases, in order; any failure raises and exits non-zero:
    dims off its tile, mixed scales in one batch, 1080p to 8x8, a 4x
    upscale, uint8 in and out, C = 1 and 4; K4's window at odd and
    negative offsets in every dtype pair, clamp, mirror and fill with
-   per-image offsets at B=32); config 4's saliency (K9) and window argmax (K10)
+   per-image offsets at B=32; K6 with valid dims one pixel inside and past
+   its strips and row runs, at C = 1 to 4, uint8 in and out, an image
+   smaller than r = 64 and sigma 0 beside sigma > 0; K2 at odd dims, 1x1, a
+   full bucket and buckets with wb % 4 == 2, then a line with each
+   redesigned kernel's largest error); config 4's saliency (K9) and window argmax (K10)
    at f32 [8, 320, 640, 3] and [1, 320, 640, 3] with mixed valid dims; the
    IDCT (K11) on large.jpg's packed coefficients at 1080p 4:2:0 (k = 8)
    and at the main path's shrink 4 (k = 2), and once each on 4:2:2,
@@ -603,9 +607,11 @@ BW_FRAME = (368, 640)  # the colorspace=bw /resize: K8 after K1 at 1/2 decode
 
 
 def blur_flops(h, w, r: int, c: int) -> float:
-    """Flops of K6 for these valid dims: per valid element 2 per vertical
-    tap, 3 per horizontal tap (product, sum, column denominator) and 2 for
-    the normalisation, with the tap loops clipped to the valid region."""
+    """Flops that K6's function needs for these valid dims: per valid
+    element 2 per vertical tap, 2 per horizontal tap and 2 for the
+    normalisation by rowden[y] * colden[x]; per image one add per tap of
+    each valid row's rowden and each valid column's colden. The tap loops
+    are clipped to the valid region."""
     import numpy as np
 
     def taps(n):
@@ -614,7 +620,8 @@ def blur_flops(h, w, r: int, c: int) -> float:
 
     total = 0.0
     for hh, ww in zip(h.tolist(), w.tolist()):
-        total += c * (2.0 * ww * taps(hh) + 3.0 * hh * taps(ww) + 2.0 * hh * ww)
+        th, tw = taps(hh), taps(ww)
+        total += c * (2.0 * ww * th + 2.0 * hh * tw + 2.0 * hh * ww) + th + tw
     return total
 
 
@@ -754,16 +761,51 @@ def config3_kernel_phase(res: dict) -> None:
         "masked taps; per-image tiling and blend): library_ms null")
 
 
+# K6 at the seams of its design (a block walks a run of rows of one strip
+# of columns): (case, C, uint8 in and out)
+BLUR_SEAM_CASES = (("strip-edges", 1, False), ("strip-edges", 2, False),
+                   ("strip-edges", 3, False), ("strip-edges", 4, True),
+                   ("under-r", 3, False), ("sigma0-beside", 3, False))
+# K2 at the seams of its row design: (case, bucket, valid (h, w) per image)
+YUV_SEAM_CASES = (
+    ("odd-hw", (32, 48), ((31, 45), (27, 41))),
+    ("1x1", (16, 16), ((1, 1), (16, 16))),
+    ("full-bucket", (32, 48), ((32, 48), (32, 48))),  # chroma clamped at its edge
+    ("wb-mod4-2", (18, 54), ((18, 54), (17, 53), (1, 3))),
+    ("wb-mod4-2-wide", (64, 1922), ((64, 1922), (63, 1921))),
+)
+
+
+def blur_seam_inputs(case: str, c: int) -> tuple:
+    """(shape, h, w, sigma, radius) of a K6 seam case: "strip-edges" has
+    valid widths one column inside and one past a strip of
+    `kernels.blur_strip(c, 4)` columns and heights one row inside and past
+    a group of `kernels.BLUR_ROW_GROUP` rows; "under-r" images narrower
+    and shorter than r = 64; "sigma0-beside" the delta beside Gaussians."""
+    from imaginary_tpu_torch import kernels
+
+    if case == "strip-edges":
+        strip, rows = kernels.blur_strip(c, 4), kernels.BLUR_ROW_GROUP
+        return ((4, 10 * rows, 2 * strip + 6, c), (2 * rows - 1, 2 * rows + 1, 10 * rows, 1),
+                (strip - 1, strip + 1, 2 * strip + 6, 2 * strip + 5), (1.2, 2.0, 0.7, 3.0), 4)
+    if case == "under-r":
+        return (3, 40, 56, c), (5, 40, 1), (3, 56, 2), (20.0, 3.0, 0.5), 64
+    return (3, 40, 56, c), (40, 33, 17), (56, 41, 1), (0.0, 1.5, 0.0), 4
+
+
 def seams_phase(res: dict) -> None:
-    """K1 and K4 at the seams of their tiled and row-copy designs, against
-    their plain versions (K1 within F32_TOL, or U8_TOL on uint8 output;
-    K4 exact): K1 at output dims that are not multiples of its 16 x 32
-    tile, on a batch whose images have different scales (one of them an
-    upscale), at an extreme downscale (1080p to 8x8, whose input band
-    spans many staged chunks), at a 4x upscale, uint8 in and out, and at
-    C = 1 and 4; K4's window at odd and negative offsets (the unaligned
+    """K1, K4, K6 and K2 at the seams of their designs, against their
+    plain versions (K1, K6 and K2 within F32_TOL, or U8_TOL on uint8
+    output; K4 exact): K1 at output dims that are not multiples of its
+    16 x 32 tile, on a batch whose images have different scales (one of
+    them an upscale), at an extreme downscale (1080p to 8x8, whose input
+    band spans many staged chunks), at a 4x upscale, uint8 in and out, and
+    at C = 1 and 4; K4's window at odd and negative offsets (the unaligned
     and clamped ends of its row copy) in every dtype pair, and its clamp,
-    mirror and fill modes with per-image offsets and sizes at B=32."""
+    mirror and fill modes with per-image offsets and sizes at B=32; K6's
+    BLUR_SEAM_CASES; K2's
+    YUV_SEAM_CASES (rows whose output or luma start is unaligned, ragged
+    row ends)."""
     import torch
 
     from imaginary_tpu_torch import kernels
@@ -833,6 +875,20 @@ def seams_phase(res: dict) -> None:
         check("gather", kernels.gather(*args, fill=f), reference.gather(*args, fill=f),
               res, f"B32-{mode}{'-fill' if f is not None else ''}", 0.0)
     del x, xu
+    for case, c, u8 in BLUR_SEAM_CASES:
+        shape, h, w, sig, r = blur_seam_inputs(case, c)
+        args = (frame(shape, u8), i32(h), i32(w), f32(sig), r, u8)
+        check("blur", kernels.blur(*args), reference.blur(*args), res,
+              f"{case}-C{c}" + ("-u8" if u8 else ""), U8_TOL if u8 else F32_TOL)
+    for case, (hb, wb), hw in YUV_SEAM_CASES:
+        x = frame((len(hw), hb + hb // 2, wb, 1), True)
+        args = (x, i32([a for a, _ in hw]), i32([b for _, b in hw]), hb, wb)
+        check("yuv420_unpack", kernels.yuv420_to_rgb(*args),
+              reference.yuv420_to_rgb(*args), res, case, F32_TOL)
+    for name in ("blur", "yuv420_unpack"):
+        worst = max(res[name].items(), key=lambda kv: kv[1]["max_abs_err"])
+        log(f"  {name} (redesigned): max |err| against the plain version over "
+            f"{len(res[name])} cases {worst[1]['max_abs_err']!r} ({worst[0]})")
 
 
 def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
@@ -1297,7 +1353,7 @@ CONFIG3_PSNR_VS_CPU_WEBP_DB = 40.0
 CONFIG3_PSNR_VS_CPU_DB = 28.0
 # launches of one stage of each spec
 SPEC_LAUNCHES = {
-    "SampleSpec": {"resample": 1}, "BlurSpec": {"blur": 2},
+    "SampleSpec": {"resample": 1}, "BlurSpec": {"blur": 1},
     "CompositeSpec": {"composite": 1}, "GraySpec": {"gray": 1},
     "ExtractSpec": {"gather": 1}, "EmbedSpec": {"gather": 1},
     "ShrinkBucketSpec": {"gather": 1}, "FromYuv420Spec": {"yuv420_unpack": 1},
@@ -2224,8 +2280,10 @@ def sharded_blur_phase(res: dict) -> dict:
         for name, mesh in meshes:
             case = f"{name}-r{r}"
             got = counted[name] if r == r0 else spatial.sharded_blur(x, h, w, s, r, mesh)
-            check("blur_halo", got, k6, res, case + "-vs-K6", F32_TOL)
+            err = check("blur_halo", got, k6, res, case + "-vs-K6", F32_TOL)
             check("blur_halo", got, plain6, res, case + "-vs-plain-K6", F32_TOL)
+            log(f"  K13 vs K6 [{case}]: max |diff| {err!r}, bit-equal "
+                f"{bool(torch.equal(got, k6))}")
             # each pass against its plain version, shard by shard, on
             # every device's current stream
             grid = spatial.shard_inputs(

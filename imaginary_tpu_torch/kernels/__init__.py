@@ -55,7 +55,7 @@ _SIGNATURES = {
                 _I, _P]),
     "orient": ("orient", "itpu_orient",
                [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "blur": ("blur", "itpu_blur_pass",
+    "blur": ("blur", "itpu_blur",
              [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "composite": ("composite", "itpu_composite",
                   [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -76,8 +76,8 @@ _SIGNATURES = {
 # C functions counted under another kernel's name (K13's two passes).
 _COUNTED_AS = {"blur_halo_v": "blur_halo", "blur_halo_h": "blur_halo"}
 
-# Kernel launches since the last reset, per kernel (blur, saliency,
-# from_dct and blur_halo count their two passes as two launches).
+# Kernel launches since the last reset, per kernel (saliency, from_dct
+# and blur_halo count their two passes as two launches).
 # Written under _COUNT_LOCK only.
 LAUNCHES = {_COUNTED_AS.get(name, name): 0 for name in _SIGNATURES}
 
@@ -295,14 +295,24 @@ def orient(x, h, w, mode: str, out_u8: bool = False):
 
 
 MAX_BLUR_RADIUS = 64
+# K6's shared rows of vertical sums hold this many elements, by C (two to
+# four per thread of the block's 256)
+BLUR_EXT = {1: 512, 2: 512, 3: 768, 4: 1024}
+BLUR_ROW_GROUP = 8  # the output rows of one block
+
+
+def blur_strip(c: int, radius: int) -> int:
+    """K6's strip width: the shared rows' elements less the 2r halo
+    columns (at least 128 columns at r = 64)."""
+    return BLUR_EXT[c] // c - 2 * radius
 
 
 def blur(x, h, w, sigma, radius: int, out_u8: bool = False):
     """K6: separable Gaussian of x [B, Hb, Wb, C] (uint8 or f32, C 1 to 4)
     with a static radius (0 to 64) and per-image sigma (f32 [B]),
     normalised against the valid mask and zero outside each image's valid
-    h, w (int32 [B]); f32 out, or uint8 with the epilogue. Two launches:
-    the vertical pass into an f32 intermediate, then the horizontal one."""
+    h, w (int32 [B]); f32 out, or uint8 with the epilogue. One launch,
+    blocks of BLUR_ROW_GROUP rows by `blur_strip(c, radius)` columns."""
     if not 0 <= radius <= MAX_BLUR_RADIUS:
         raise ValueError(f"blur radius {radius} outside 0..{MAX_BLUR_RADIUS}")
     if x.device.type == "cpu":
@@ -315,13 +325,11 @@ def blur(x, h, w, sigma, radius: int, out_u8: bool = False):
     _require(h, "h", _I32, (bsz,), dev)
     _require(w, "w", _I32, (bsz,), dev)
     _require(sigma, "sigma", _F32, (bsz,), dev)
-    mid = torch.empty((bsz, hb, wb, c), dtype=torch.float32, device=dev)
     out = torch.empty((bsz, hb, wb, c),
                       dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
-    for vertical, src, dst in ((1, x, mid), (0, mid, out)):
-        _launch("blur", dev, src.data_ptr(), int(src.dtype == torch.uint8),
-                dst.data_ptr(), int(dst.dtype == torch.uint8), h.data_ptr(),
-                w.data_ptr(), sigma.data_ptr(), radius, vertical, bsz, hb, wb, c)
+    _launch("blur", dev, x.data_ptr(), int(x.dtype == torch.uint8), out.data_ptr(),
+            int(out_u8), h.data_ptr(), w.data_ptr(), sigma.data_ptr(), radius, bsz,
+            hb, wb, c, blur_strip(c, radius))
     return out
 
 

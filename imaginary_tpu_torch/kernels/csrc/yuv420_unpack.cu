@@ -8,14 +8,24 @@
 // and writes 12 bytes of f32 RGB, for ~30 FLOPs: at [B,480,512,1] ->
 // [B,320,512,3] the write dominates (1.97 MB per image).
 //
-// Design: one thread per output pixel. The packed bytes are read directly
-// (the cast is fused; no f32 copy of the planes ever exists). Each thread
-// recomputes its centred 2x chroma taps (1/4-3/4, libjpeg's fancy
-// upsampling) for its row and column, clamps them to the valid chroma
-// extent exactly as `_chroma_up_indices` does, blends rows first and then
-// columns (the reference's order), and applies the BT.601 full-range
-// transform and clip. Neighbouring threads share chroma samples through L1,
-// so each plane byte comes from device memory about once.
+// Design: one block per output row of one image. The packed bytes are
+// read directly (the cast is fused; no f32 copy of the planes ever
+// exists). The block works out the row's centred 2x chroma taps (i0, i1,
+// t) (1/4-3/4, libjpeg's fancy upsampling, clamped to the valid chroma
+// rows exactly as `_chroma_up_indices` does) once, then blends the two
+// chroma rows of both planes once per chroma column into shared memory,
+// P[i0, j] * (1 - t) + P[i1, j] * t. Each thread then makes 4 consecutive
+// pixels: one 4-byte luma load, the four shared chroma columns of its
+// group per plane (the taps from the pixel index by shifts, no division),
+// the column blend, BT.601 full range and the clip. A warp's 48-byte
+// groups go out through a per-warp shared slot as 16-byte stores of
+// contiguous 512-byte runs, streamed past L2 (the 12-byte f32 pixels are
+// what bound the kernel). The expressions are those of the per-pixel
+// design (rows first, then columns), so the output is the same bit for
+// bit. A row whose output or luma start is not 16- or 4-byte aligned
+// (possible where wb % 4 == 2) makes its first two pixels and its last
+// ragged ones one at a time, and reads luma a byte at a time where the
+// 4-byte load would be unaligned.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -23,75 +33,152 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kSlot = 96;  // float4s of a warp's staged output: 32 x 48 bytes
 
-// (i0, i1, t) of `_chroma_up_indices` for luma position r.
-__device__ __forceinline__ void up_taps(int r, int cn, int chroma_b, int* i0,
-                                        int* i1, float* t) {
-  const float pos = (float)r * 0.5f - 0.25f;
-  const float i0f = floorf(pos);
-  *t = pos - i0f;
-  const int hi = max(cn - 1, 0);
-  const int base = (int)i0f;
-  *i0 = min(max(base, 0), hi);
-  *i1 = min(min(max(base + 1, 0), hi), chroma_b - 1);
+// The clamped chroma index of `_chroma_up_indices`: into [0, hi].
+__device__ __forceinline__ int clampc(int j, int hi) { return min(max(j, 0), hi); }
+
+// BT.601 full range and the clip of one pixel, from its luma and the
+// column blend of the row-blended chroma (rows first, then columns:
+// `_yuv420_to_rgb`'s order and expressions).
+__device__ __forceinline__ void ycc(float y, float u0, float u1, float v0,
+                                    float v1, float s, float* o) {
+  const float uu = (u0 * (1.0f - s) + u1 * s) - 128.0f;
+  const float vv = (v0 * (1.0f - s) + v1 * s) - 128.0f;
+  const float rr = y + 1.402f * vv;
+  const float gg = y - 0.344136f * uu - 0.714136f * vv;
+  const float bb = y + 1.772f * uu;
+  o[0] = fminf(fmaxf(rr, 0.0f), 255.0f);
+  o[1] = fminf(fmaxf(gg, 0.0f), 255.0f);
+  o[2] = fminf(fmaxf(bb, 0.0f), 255.0f);
 }
 
-__device__ __forceinline__ float up2(const uint8_t* plane, int stride, int i0,
-                                     int i1, float t, int j0, int j1, float s) {
-  const float a0 = (float)plane[i0 * stride + j0] * (1.0f - t) +
-                   (float)plane[i1 * stride + j0] * t;
-  const float a1 = (float)plane[i0 * stride + j1] * (1.0f - t) +
-                   (float)plane[i1 * stride + j1] * t;
-  return a0 * (1.0f - s) + a1 * s;
+// Pixel x's column taps: floor(x / 2 - 1/4) is (x - 1) >> 1, and s is
+// 3/4 at even x and 1/4 at odd x.
+__device__ __forceinline__ void pixel(float y, const float* ru, const float* rv,
+                                      int x, int hi, float* o) {
+  const int j0 = clampc((x - 1) >> 1, hi);
+  const int j1 = clampc(((x - 1) >> 1) + 1, hi);
+  ycc(y, ru[j0], ru[j1], rv[j0], rv[j1], (x & 1) ? 0.25f : 0.75f, o);
 }
 
-__global__ void yuv420_to_rgb(const uint8_t* __restrict__ in,
-                              float* __restrict__ out,
-                              const int32_t* __restrict__ h,
-                              const int32_t* __restrict__ w, int B, int hb,
-                              int wb) {
-  const size_t n = (size_t)B * hb * wb;
-  const size_t stride_grid = (size_t)gridDim.x * blockDim.x;
-  for (size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += stride_grid) {
-    const int x = (int)(p % wb);
-    const int r = (int)((p / wb) % hb);
-    const int b = (int)(p / ((size_t)wb * hb));
-    const uint8_t* img = in + (size_t)b * (hb + hb / 2) * wb;
-    const int ch = (h[b] + 1) / 2;
-    const int cw = (w[b] + 1) / 2;
-    int i0, i1, j0, j1;
-    float t, s;
-    up_taps(r, ch, hb / 2, &i0, &i1, &t);
-    up_taps(x, cw, wb / 2, &j0, &j1, &s);
-    const uint8_t* uplane = img + (size_t)hb * wb;
-    const uint8_t* vplane = uplane + wb / 2;
-    const float y = (float)img[(size_t)r * wb + x];
-    const float uu = up2(uplane, wb, i0, i1, t, j0, j1, s) - 128.0f;
-    const float vv = up2(vplane, wb, i0, i1, t, j0, j1, s) - 128.0f;
-    const float rr = y + 1.402f * vv;
-    const float gg = y - 0.344136f * uu - 0.714136f * vv;
-    const float bb = y + 1.772f * uu;
-    float* o = out + p * 3;
-    o[0] = fminf(fmaxf(rr, 0.0f), 255.0f);
-    o[1] = fminf(fmaxf(gg, 0.0f), 255.0f);
-    o[2] = fminf(fmaxf(bb, 0.0f), 255.0f);
+// grid: x = hb, y = B; block: kThreads; shared: wb floats.
+__global__ void __launch_bounds__(kThreads)
+    yuv420_to_rgb(const uint8_t* __restrict__ in, float* __restrict__ out,
+                  const int32_t* __restrict__ h, const int32_t* __restrict__ w,
+                  int hb, int wb) {
+  extern __shared__ float rb[];  // U then V, wb / 2 columns each
+  const int r = blockIdx.x;
+  const int b = blockIdx.y;
+  const int cwb = wb / 2;
+  const uint8_t* img = in + (size_t)b * (hb + hb / 2) * wb;
+  const uint8_t* uplane = img + (size_t)hb * wb;
+  const uint8_t* vplane = uplane + cwb;
+
+  // the row's taps: floor(r / 2 - 1/4) is (r - 1) >> 1, t 3/4 or 1/4; the
+  // clamps keep every index inside the chroma buffer
+  const int chi = min(max((h[b] + 1) / 2 - 1, 0), hb / 2 - 1);
+  const int hi = min(max((w[b] + 1) / 2 - 1, 0), cwb - 1);
+  const int ibase = (r - 1) >> 1;
+  const int i0 = clampc(ibase, chi);
+  const int i1 = clampc(ibase + 1, chi);
+  const float t = (r & 1) ? 0.25f : 0.75f;
+  float* ru = rb;
+  float* rv = rb + cwb;
+  const uint8_t* u0 = uplane + (size_t)i0 * wb;
+  const uint8_t* u1 = uplane + (size_t)i1 * wb;
+  const uint8_t* v0 = vplane + (size_t)i0 * wb;
+  const uint8_t* v1 = vplane + (size_t)i1 * wb;
+  const int ncol = hi + 1;  // the chroma columns any pixel reads
+  for (int j = threadIdx.x; j < ncol; j += kThreads) {
+    ru[j] = (float)u0[j] * (1.0f - t) + (float)u1[j] * t;
+    rv[j] = (float)v0[j] * (1.0f - t) + (float)v1[j] * t;
+  }
+  __syncthreads();
+
+  const uint8_t* luma = img + (size_t)r * wb;
+  float* orow = out + ((size_t)b * hb + r) * wb * 3;
+  // pixels [head, head + 4 * groups) go four at a time: the output of
+  // pixel head must start on 16 bytes (12 * x is, for x a multiple of 4)
+  const size_t opix = ((size_t)b * hb + r) * wb;
+  const int head = (int)((4 - (opix & 3)) & 3);  // 0 or 2: wb is even
+  const int groups = (wb - head) / 4;
+  const bool luma4 = ((((size_t)luma + head) & 3) == 0);
+  // a warp makes 32 groups (128 pixels, 1536 bytes) at a time, stages
+  // them in its own shared slots and stores them as 16-byte vectors, lane
+  // i the i-th of each 512 contiguous bytes; the output is streamed
+  // (evict-first): nothing reads it back from L2
+  __shared__ float4 stage[kThreads / 32][kSlot];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float4* slot = stage[warp];
+  for (int g0 = warp * 32; g0 < groups; g0 += kThreads) {
+    const int g = g0 + lane;
+    if (g < groups) {
+      const int x = head + 4 * g;
+      float ys[4];
+      if (luma4) {
+        const uchar4 q = *reinterpret_cast<const uchar4*>(luma + x);
+        ys[0] = q.x; ys[1] = q.y; ys[2] = q.z; ys[3] = q.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) ys[k] = luma[x + k];
+      }
+      // x is even: pixels x .. x + 3 blend chroma columns (x - 2) / 2 + m,
+      // m = (0, 1), (1, 2), (1, 2), (2, 3), at s = 3/4, 1/4, 3/4, 1/4
+      const int jb = (x - 1) >> 1;
+      float cu[4], cv[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int j = clampc(jb + m, hi);
+        cu[m] = ru[j];
+        cv[m] = rv[j];
+      }
+      float o[12];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int m = (k + 1) >> 1;
+        ycc(ys[k], cu[m], cu[m + 1], cv[m], cv[m + 1], (k & 1) ? 0.25f : 0.75f,
+            o + 3 * k);
+      }
+      slot[lane * 3 + 0] = make_float4(o[0], o[1], o[2], o[3]);
+      slot[lane * 3 + 1] = make_float4(o[4], o[5], o[6], o[7]);
+      slot[lane * 3 + 2] = make_float4(o[8], o[9], o[10], o[11]);
+    }
+    __syncwarp();
+    float4* dst = reinterpret_cast<float4*>(orow + (size_t)(head + 4 * g0) * 3);
+    const int nvec = 3 * min(32, groups - g0);
+    for (int q = lane; q < nvec; q += 32) __stcs(dst + q, slot[q]);
+    __syncwarp();
+  }
+  // the head and the ragged tail, one pixel a thread
+  const int tail0 = head + 4 * groups;
+  const int nrest = head + (wb - tail0);
+  for (int k = threadIdx.x; k < nrest; k += kThreads) {
+    const int x = k < head ? k : tail0 + (k - head);
+    pixel((float)luma[x], ru, rv, x, hi, orow + (size_t)x * 3);
   }
 }
 
 }  // namespace
 
 // in: uint8 [B, hb + hb/2, wb] packed planes; out: f32 [B, hb, wb, 3];
-// h, w: int32 [B] valid luma dims. Returns the launch's CUDA error code.
+// h, w: int32 [B] valid luma dims; hb and wb even. Returns the launch's
+// CUDA error code.
 extern "C" int itpu_yuv420_to_rgb(const uint8_t* in, float* out,
                                   const int32_t* h, const int32_t* w, int B,
                                   int hb, int wb, void* stream) {
-  const size_t n = (size_t)B * hb * wb;
-  if (n == 0) return 0;
-  size_t blocks = (n + kThreads - 1) / kThreads;
-  if (blocks > 65535u * 32u) blocks = 65535u * 32u;
-  yuv420_to_rgb<<<(unsigned)blocks, kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(in, out, h, w, B, hb,
-                                                       wb);
+  if (hb % 2 || wb % 2 || B > 65535) return (int)cudaErrorInvalidValue;
+  if ((size_t)B * hb * wb == 0) return 0;
+  // dynamic: the blended chroma rows; static: the warps' output slots
+  const size_t smem = sizeof(float) * (size_t)wb;
+  const size_t stage = sizeof(float4) * (kThreads / 32) * kSlot;
+  if (smem + stage > 48 * 1024) {  // buckets over 9216 wide
+    const cudaError_t e = cudaFuncSetAttribute(
+        yuv420_to_rgb, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  yuv420_to_rgb<<<dim3(hb, B), kThreads, smem,
+                  static_cast<cudaStream_t>(stream)>>>(in, out, h, w, hb, wb);
   return (int)cudaGetLastError();
 }

@@ -1,0 +1,193 @@
+"""Hold the port's K6 (blur) and K2 (yuv420_unpack) against an earlier
+tree's on one card: outputs bit for bit, and device times in turns.
+
+Run from the repository root on a machine with the card:
+
+    python3 scripts/kernel_ab.py --parent DIR
+
+DIR is a checkout of the earlier tree. Its own `imaginary_tpu_torch.kernels`
+is imported first (its libraries built by its own `load_all` into DIR's
+`_build/`) and then taken out of `sys.modules`, so this tree's package
+imports as usual and the earlier module keeps its own globals: its `blur`
+and `yuv420_to_rgb` wrappers launch its kernels through its own ABI,
+whatever that is. For each case at the main paths' shapes and at the seams
+of the new designs, the script checks this tree's kernel against its plain
+version (`F32_TOL`, or `U8_TOL` on uint8 output), compares it with the
+earlier kernel (max |diff| and whether the two are bit-equal), and times
+both with `chip_smoke.device_ms` in turns (earlier, this, this, earlier).
+One JSON line per case on stdout; all of them in
+chip_smoke_out/kernel_ab.json.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+
+PKG = "imaginary_tpu_torch"
+
+
+def _package_modules() -> dict:
+    return {k: m for k, m in sys.modules.items() if k == PKG or k.startswith(PKG + ".")}
+
+
+def load_tree_kernels(tree: str):
+    """TREE's `imaginary_tpu_torch.kernels` module, its libraries built and
+    loaded; sys.modules and sys.path are left as they were."""
+    saved = _package_modules()
+    for k in saved:
+        del sys.modules[k]
+    sys.path.insert(0, tree)
+    try:
+        mod = importlib.import_module(PKG + ".kernels")
+        where = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(mod.__file__))))
+        if where != tree:
+            raise RuntimeError(f"imported {mod.__file__}, not the package under {tree}")
+        built = mod.load_all()
+    finally:
+        sys.path.remove(tree)
+        for k in _package_modules():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    for name in ("blur", "yuv420_unpack"):
+        cs.log(f"  earlier {name}: built\n{built.get(name, {}).get('log', '')}")
+    return mod
+
+
+def blur_cases(dev, gen):
+    """(case, x, h, w, sigma, radius, out_u8): config 3's shapes (chip_smoke
+    phase 3's), then the seams of the strip-and-row-run design."""
+    import torch
+
+    def i32(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def frame(shape, u8=False):
+        if u8:
+            return torch.randint(0, 256, shape, generator=gen, device=dev, dtype=torch.uint8)
+        return torch.rand(shape, generator=gen, device=dev) * 255.0
+
+    hb, wb = cs.CONFIG3_FRAME
+    out = []
+    for bsz in cs.CONFIG3_BATCHES:
+        h, w, s = cs.config3_dims(bsz, dev)
+        out.append((f"B{bsz}-r4", frame((bsz, hb, wb, 3)), h, w, s, 4, False))
+    h, w, _ = cs.config3_dims(1, dev)
+    x = frame((1, hb, wb, 3))
+    out.append(("B1-r64", x, h, w, torch.full((1,), 20.0, device=dev), 64, False))
+    out.append(("B1-sigma0", x, h, w, torch.full((1,), 0.0, device=dev), 4, False))
+    xu = frame((1, hb, wb, 4), True)
+    s12 = torch.full((1,), 1.2, device=dev)
+    out.append(("B1-u8-in-C4", xu, h, w, s12, 4, False))
+    out.append(("B1-u8-in-out-C4", xu, h, w, s12, 4, True))
+    for case, c, u8 in cs.BLUR_SEAM_CASES:
+        shape, hh, ww, sig, r = cs.blur_seam_inputs(case, c)
+        out.append((f"{case}-C{c}" + ("-u8" if u8 else ""), frame(shape, u8), i32(*hh),
+                    i32(*ww), torch.tensor(sig, device=dev), r, u8))
+    return out
+
+
+def unpack_cases(dev, gen):
+    """(case, x, h, w, hb, wb): K2 at config 1's and /rotate's shapes on
+    seeded planes, then the seams (chip_smoke's YUV_SEAM_CASES)."""
+    import torch
+
+    out = []
+    for case, bsz, (hb, wb), (h, w) in (("B1", 1, (320, 512), (270, 480)),
+                                        ("B16", 16, (320, 512), (270, 480)),
+                                        ("B32-rotate", 32, cs.ROTATE_IN_BUCKET, (1080, 1920))):
+        x = torch.randint(0, 256, (bsz, hb + hb // 2, wb, 1), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        out.append((case, x, torch.full((bsz,), h, dtype=torch.int32, device=dev),
+                    torch.full((bsz,), w, dtype=torch.int32, device=dev), hb, wb))
+    for case, (hb, wb), hw in cs.YUV_SEAM_CASES:
+        bsz = len(hw)
+        x = torch.randint(0, 256, (bsz, hb + hb // 2, wb, 1), generator=gen, device=dev,
+                          dtype=torch.uint8)
+        out.append((case, x, torch.tensor([a for a, _ in hw], dtype=torch.int32, device=dev),
+                    torch.tensor([b for _, b in hw], dtype=torch.int32, device=dev), hb, wb))
+    return out
+
+
+def turns(fa, fb) -> tuple:
+    """Device ms of fa and fb in turns a, b, b, a: (a's two, b's two)."""
+    a1 = cs.device_ms(fa)
+    b1 = cs.device_ms(fb)
+    b2 = cs.device_ms(fb)
+    a2 = cs.device_ms(fa)
+    return [a1, a2], [b1, b2]
+
+
+def diff(a, b) -> tuple:
+    import torch
+
+    return cs.max_err(a, b), bool(torch.equal(a, b))
+
+
+def main() -> int:
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", required=True)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch.cuda.is_available() is False", file=sys.stderr)
+        return 2
+    smi = cs.smi_line()
+    cs.log(smi)
+    old = load_tree_kernels(os.path.abspath(args.parent))
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    built = kernels.load_all()
+    for name in ("blur", "yuv420_unpack"):
+        cs.log(f"  {name}: built\n{built[name]['log']}")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
+    rows = []
+
+    def emit(row):
+        rows.append(row)
+        cs.log(json.dumps(row))
+
+    for case, x, h, w, s, r, u8 in blur_cases(dev, gen):
+        got = kernels.blur(x, h, w, s, r, u8)
+        err = cs.max_err(got, reference.blur(x, h, w, s, r, u8))
+        tol = cs.U8_TOL if u8 else cs.F32_TOL
+        if not err <= tol:
+            raise AssertionError(f"blur [{case}]: max |err| {err} > {tol}")
+        d, eq = diff(got, old.blur(x, h, w, s, r, u8))
+        ta, tb = turns(lambda: old.blur(x, h, w, s, r, u8),
+                       lambda: kernels.blur(x, h, w, s, r, u8))
+        emit({"kernel": "blur", "case": case, "shape": list(x.shape), "r": r,
+              "strip": kernels.blur_strip(x.shape[3], r),
+              "err_vs_plain": err, "diff_vs_parent": d, "bit_equal": eq,
+              "parent_ms": ta, "ms": tb})
+    for case, x, h, w, hb, wb in unpack_cases(dev, gen):
+        got = kernels.yuv420_to_rgb(x, h, w, hb, wb)
+        err = cs.max_err(got, reference.yuv420_to_rgb(x, h, w, hb, wb))
+        if not err <= cs.F32_TOL:
+            raise AssertionError(f"yuv420_unpack [{case}]: max |err| {err} > {cs.F32_TOL}")
+        d, eq = diff(got, old.yuv420_to_rgb(x, h, w, hb, wb))
+        ta, tb = turns(lambda: old.yuv420_to_rgb(x, h, w, hb, wb),
+                       lambda: kernels.yuv420_to_rgb(x, h, w, hb, wb))
+        emit({"kernel": "yuv420_unpack", "case": case, "shape": list(x.shape),
+              "err_vs_plain": err, "diff_vs_parent": d, "bit_equal": eq,
+              "parent_ms": ta, "ms": tb})
+    os.makedirs(cs.OUT_DIR, exist_ok=True)
+    with open(os.path.join(cs.OUT_DIR, "kernel_ab.json"), "w") as f:
+        json.dump({"smi": smi, "rows": rows}, f, indent=1)
+    cs.log(smi)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

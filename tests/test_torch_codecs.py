@@ -7,6 +7,13 @@ trip exactly, WEBP within a PSNR bound. The backend is picked by format,
 never by failure: a bad JPEG stays a native-codec error, HEIF/AVIF/SVG/PDF
 answer 501, and the decompression-bomb gate refuses an over-cap PNG before
 decoding it.
+
+The reference answers through whichever backend `imaginary_tpu.codecs`
+picked first in the process (its native extension where it loads, else
+cv2, else Pillow; the module global `_BACKEND`), and those backends
+disagree on some headers (a gray PNG's channels). So the parity tests
+ask the reference's Pillow backend, the one the port mirrors for these
+formats, directly, and never go through that choice.
 """
 
 from __future__ import annotations
@@ -19,6 +26,9 @@ import torch
 from PIL import Image
 
 from imaginary_tpu import codecs as jcodecs
+from imaginary_tpu.codecs import native_backend as jnative
+from imaginary_tpu.codecs import pil_backend as jpil
+from imaginary_tpu.imgtype import determine_image_type
 from imaginary_tpu_torch import codecs as pcodecs
 from imaginary_tpu_torch.codecs import EncodeOptions, pil_backend
 from imaginary_tpu_torch.errors import ImageError
@@ -64,10 +74,31 @@ def _sources() -> dict:
 SOURCES = sorted(_sources())
 
 
+def _probe_fields(meta) -> tuple:
+    return meta.width, meta.height, meta.type, meta.has_alpha, meta.channels
+
+
+def _reference_probe(buf: bytes) -> tuple:
+    """The reference's hot-path probe answer, fixed: dims, type and alpha
+    from its Pillow header parse, and the channel count as its native
+    header probe reports it, the decoded one (decode gives RGB or RGBA;
+    Pillow's probe reports the file's bands, 1 for a gray PNG). Where the
+    native extension loads, its own `probe_fast` must give the same; where
+    it does not, the channel count follows the native convention by
+    construction, not by a native answer."""
+    t = determine_image_type(buf)
+    meta = jpil.probe(buf, t)
+    want = (meta.width, meta.height, meta.type, meta.has_alpha,
+            jpil.decode(buf, t).array.shape[2])
+    if jnative.available():
+        assert _probe_fields(jnative.probe_fast(buf, t)) == want
+    return want
+
+
 @pytest.mark.parametrize("name", SOURCES)
 def test_decode_equals_reference(name):
     buf = _sources()[name]
-    want = jcodecs.decode(buf)
+    want = jpil.decode(buf, determine_image_type(buf))
     got = pcodecs.decode(buf)
     assert got.array.dtype == np.uint8 and got.array.shape == want.array.shape
     assert np.array_equal(got.array, want.array)
@@ -78,10 +109,29 @@ def test_decode_equals_reference(name):
 @pytest.mark.parametrize("name", SOURCES)
 def test_probe_fast_equals_reference_dims(name):
     buf = _sources()[name]
-    want = jcodecs.probe_fast(buf)
-    got = pcodecs.probe_fast(buf)
-    assert (got.width, got.height, got.type, got.has_alpha, got.channels) == \
-        (want.width, want.height, want.type, want.has_alpha, want.channels)
+    assert _probe_fields(pcodecs.probe_fast(buf)) == _reference_probe(buf)
+
+
+@pytest.mark.parametrize("backend", ["native", "cv2", "pil"])
+def test_parity_holds_whatever_backend_the_reference_picked(backend, monkeypatch):
+    """Both parity tests give the same result whichever backend the
+    reference's `_BACKEND` holds (set here to each in turn, whether or not
+    its extension loads in this process, and restored by monkeypatch),
+    because they never ask the reference's choice: `_backend()` fails
+    here if anything calls it. The source is the gray PNG, on which cv2's
+    probe disagrees with the others."""
+    import importlib
+
+    module = importlib.import_module(f"imaginary_tpu.codecs.{backend}_backend")
+    monkeypatch.setattr(jcodecs, "_BACKEND", module)
+
+    def chosen():
+        raise AssertionError("a parity test asked the reference's backend choice")
+
+    monkeypatch.setattr(jcodecs, "_backend", chosen)
+    test_decode_equals_reference("png-gray")
+    test_probe_fast_equals_reference_dims("png-gray")
+    assert jcodecs._BACKEND is module
 
 
 @pytest.mark.parametrize("c", [3, 4])

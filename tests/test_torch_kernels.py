@@ -128,6 +128,14 @@ def test_sample_matrix_is_the_reference_matrix():
 @pytest.mark.parametrize("hb,wb,hw", [
     (32, 48, ((32, 48), (27, 41))),  # full bucket, and odd valid dims
     (320, 512, ((270, 480), (269, 479))),  # the main path's bucket
+    # K2's row design: a 1x1 image (every chroma index clamps to 0), a
+    # bucket with wb % 4 == 2 (unaligned rows, a ragged end) holding a full
+    # image (chroma clamped at the bucket edge) and an odd one
+    (16, 16, ((1, 1), (16, 16))),
+    (18, 54, ((18, 54), (17, 53))),
+    (34, 1922, ((33, 1921), (34, 1922))),
+    (2, 2, ((1, 1), (2, 2))),  # the smallest bucket: one chroma sample
+    (66, 98, ((65, 97), (2, 3))),  # wb % 4 == 2 again, a 2x3 image
 ])
 def test_yuv420_unpack_matches_from_yuv420_spec(hb, wb, hw):
     rng = np.random.default_rng(9)
@@ -253,36 +261,55 @@ def test_orient_rejects_an_unknown_mode():
         kernels.orient(x, i, i, "rotate")
 
 
-# K6: (radius, sigma) with sigma 0 (the delta), small, near the radius and
-# far beyond it (the taps flatten into a box)
-BLUR_CASES = [(r, s) for r in (2, 4, 64) for s in (0.0, 0.7, 3.0, 40.0)]
+# K6: (radius, sigma, C, geometry). "base": sigma 0 (the delta), small,
+# near the radius and far beyond it (the taps flatten into a box) at C = 1
+# to 4; then the seams of the kernel's strips of
+# `blur_strip(c, r)` columns and groups of BLUR_ROW_GROUP rows, images
+# smaller than r = 64, and sigma 0 beside sigma > 0 in one batch
+BLUR_CASES = ([(r, s, c, "base") for r in (2, 4, 64) for s in (0.0, 0.7, 3.0, 40.0)
+               for c in (3, 4, 1, 2)]
+              + [(4, 1.2, c, "strip") for c in (1, 2, 3, 4)]
+              + [(64, 20.0, 3, "under-r"), (4, 1.5, 3, "sigma0-beside")])
+BLUR_IDS = [f"r{r}-s{s:g}-{c}" + ("" if g == "base" else f"-{g}") for r, s, c, g in BLUR_CASES]
 
 
-def _blur_inputs(rng, c, sigma):
-    """Three images of different valid dims in a 40x56 bucket, none a
-    multiple of 8, one with a single valid column; per-image sigma."""
+def _blur_inputs(rng, c, sigma, geometry="base"):
+    """Images of different valid dims in one bucket, per-image sigma.
+    "base": a 40x56 bucket, none a multiple of 8, one image a single valid
+    column; "strip": valid widths one column inside and past a strip and
+    valid heights one row inside and past a row group; "under-r": images
+    narrower and shorter than r = 64; "sigma0-beside": the delta beside a
+    Gaussian."""
+    if geometry == "strip":
+        strip, rows = kernels.blur_strip(c, 4), kernels.BLUR_ROW_GROUP
+        x = _img(rng, 4, 10 * rows, 2 * strip + 6, c)
+        h = _i32(2 * rows - 1, 2 * rows + 1, 10 * rows, 1)
+        w = _i32(strip - 1, strip + 1, 2 * strip + 6, 2 * strip + 5)
+        return x, h, w, _f32(sigma, sigma * 0.5, sigma * 1.5, sigma * 2.0)
     x = _img(rng, 3, 40, 56, c)
+    if geometry == "under-r":
+        return x, _i32(5, 40, 1), _i32(3, 56, 2), _f32(sigma, sigma * 0.15, 0.5)
     h, w = _i32(40, 33, 17), _i32(56, 41, 1)
-    sig = _f32(sigma, sigma * 0.5, sigma * 1.5)
-    return x, h, w, sig
+    if geometry == "sigma0-beside":
+        return x, h, w, _f32(0.0, sigma, 0.0)
+    return x, h, w, _f32(sigma, sigma * 0.5, sigma * 1.5)
 
 
-@pytest.mark.parametrize("c", [3, 4])
-@pytest.mark.parametrize("radius,sigma", BLUR_CASES,
-                         ids=[f"r{r}-s{s:g}" for r, s in BLUR_CASES])
-def test_blur_matches_reference(radius, sigma, c):
+@pytest.mark.parametrize("radius,sigma,c,geometry", BLUR_CASES, ids=BLUR_IDS)
+def test_blur_matches_reference(radius, sigma, c, geometry):
     rng = np.random.default_rng(radius * 100 + int(sigma * 10) + c)
-    x, h, w, sig = _blur_inputs(rng, c, sigma)
+    x, h, w, sig = _blur_inputs(rng, c, sigma, geometry)
     want, wh, ww = _japply(jst.BlurSpec(radius), x, h, w, {"sigma": sig})
     got, gh, gw = pst.BlurSpec(radius).apply(_t(x), _t(h), _t(w), {"sigma": _t(sig)})
     assert got.dtype == torch.float32 and tuple(got.shape) == x.shape
     assert np.abs(got.numpy() - np.asarray(want)).max() <= F32_TOL
     assert np.array_equal(gh.numpy(), np.asarray(wh)) and np.array_equal(gw.numpy(), np.asarray(ww))
     # zero outside each image's valid region, padding included
-    assert not got.numpy()[1, 33:].any() and not got.numpy()[2, :, 1:].any()
+    for i, (hi, wi) in enumerate(zip(h, w)):
+        assert not got.numpy()[i, hi:].any() and not got.numpy()[i, :, wi:].any()
 
 
-@pytest.mark.parametrize("c", [3, 4])
+@pytest.mark.parametrize("c", [1, 2, 3, 4])
 def test_blur_uint8_in_and_out_match_cast_and_epilogue(c):
     """/blur on a PNG starts its chain with the blur (uint8 in), and a blur
     may end a chain (the epilogue fused)."""
@@ -297,6 +324,15 @@ def test_blur_uint8_in_and_out_match_cast_and_epilogue(c):
     assert got_u8.dtype == torch.uint8
     diff = np.abs(got_u8.numpy().astype(int) - _jax_epilogue(want).astype(int))
     assert diff.max() <= U8_TOL
+
+
+def test_blur_strip_leaves_room_for_the_halo_at_every_radius():
+    """K6's strip: its shared rows hold two to four elements per thread,
+    and even at r = 64 the strip is wider than both halos together."""
+    assert kernels.blur_strip(3, 4) == 248
+    for c in (1, 2, 3, 4):
+        assert kernels.blur_strip(c, kernels.MAX_BLUR_RADIUS) >= 2 * kernels.MAX_BLUR_RADIUS
+        assert 512 <= kernels.BLUR_EXT[c] <= 1024 and kernels.BLUR_EXT[c] % c == 0
 
 
 def test_blur_rejects_a_radius_beyond_64():
