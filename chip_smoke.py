@@ -25,13 +25,17 @@ Phases, in order; any failure raises and exits non-zero:
    per-image offsets at B=32; K6 with valid dims one pixel inside and past
    its strips and row runs, at C = 1 to 4, uint8 in and out, an image
    smaller than r = 64 and sigma 0 beside sigma > 0; K2 at odd dims, 1x1, a
-   full bucket and buckets with wb % 4 == 2, then a line with each
+   full bucket and buckets with wb % 4 == 2; K11 and K12 at the seams of
+   their tiles (DCT_SEAM_CASES: odd valid dims inside larger buckets, B=3
+   batches of different dims, buckets 8 rows short of a tile and one tile
+   wide, every layout at k = 8, the three-plane layouts at k = 1, 2, 4, K12
+   at the /resize?width=1600 bucket); then a line with each
    redesigned kernel's largest error); config 4's saliency (K9) and window argmax (K10)
    at f32 [8, 320, 640, 3] and [1, 320, 640, 3] with mixed valid dims; the
    IDCT (K11) on large.jpg's packed coefficients at 1080p 4:2:0 (k = 8)
    and at the main path's shrink 4 (k = 2), and once each on 4:2:2,
-   4:4:4 and gray; the forward DCT (K12) at the 208x304 /resize output
-   and a 1088x1920 output; each with the stated tolerance (f32 outputs
+   4:4:4 and gray; the forward DCT (K12) at the two /resize outputs of
+   phase 9 (208x304, 928x1600) and a 1088x1920 output; each with the stated tolerance (f32 outputs
    1e-3 absolute on the 0-255 scale, uint8 outputs 1 LSB, the
    orientation kernel exact, K9's integral image 1e-5 relative, K10's
    offsets exact on K9's own integral image, K12's int16 within 1 with
@@ -89,7 +93,8 @@ Phases, in order; any failure raises and exits non-zero:
 9. the DCT transport: a server with --transport-dct
    --transport-dct-egress serving /resize?width=300&height=200 (shrink
    4, k = 2) and /resize?width=1600 (shrink 1, k = 8) on large.jpg, with
-   the launches held equal to the plans', the native entropy arm and no
+   the launches held equal to the plans' (one K11 and one K12 a
+   request), the native entropy arm and no
    request refused by the codec's scope gate; each served JPEG's
    quantized coefficients within 1 (at most 0.1 % differing) of the same
    request on the CPU, its pixels within 1 LSB wherever an MCU's
@@ -776,6 +781,100 @@ YUV_SEAM_CASES = (
 )
 
 
+# K11 and K12 at the seams of their tiles (a K11 block makes 16 output
+# rows by 128 columns of one image, a K12 block a band of 16 rows by 128
+# columns): odd valid dims inside a larger bucket (4:2:0's and 4:2:2's
+# chroma columns then clamp inside the bucket, not at its edge), B=3
+# batches whose images differ, buckets 8 rows short of a tile and only
+# one tile wide, a valid width ending inside a later column tile, every
+# layout at k = 8, the three-plane layouts at k = 1, 2 and 4, and K12 at
+# the /resize?width=1600 output bucket.
+# (kernel, case, layout, k, bucket, valid (h, w) per image)
+DCT_SEAM_CASES = (
+    ("from_dct", "odd-hw-420", "420", 8, (48, 80), ((45, 77), (33, 51))),
+    ("from_dct", "odd-hw-422", "422", 8, (40, 80), ((37, 75), (40, 79))),
+    ("from_dct", "odd-hw-444", "444", 8, (40, 72), ((39, 71), (40, 72))),
+    ("from_dct", "odd-hw-gray", "gray", 8, (24, 40), ((23, 37), (24, 40))),
+    ("from_dct", "B3-420", "420", 8, (64, 272), ((64, 272), (61, 257), (17, 129))),
+    ("from_dct", "B3-422", "422", 8, (24, 272), ((24, 272), (23, 257), (9, 129))),
+    ("from_dct", "odd-w-mid-tile-420", "420", 8, (32, 400), ((31, 385), (32, 399))),
+) + tuple(("from_dct", f"{lay}-k{k}", lay, k, (40, 144), ((37, 139), (40, 144), (19, 65)))
+          for lay in ("420", "422", "444") for k in (1, 2, 4)) + (
+    ("to_dct", "odd-hw", None, None, (48, 80), ((45, 77), (33, 51))),
+    ("to_dct", "B3", None, None, (64, 272), ((64, 272), (61, 257), (17, 129))),
+    ("to_dct", "one-mcu", None, None, (16, 16), ((1, 1), (16, 16))),
+    ("to_dct", "resize-1600-bucket", None, None, (928, 1600), ((900, 1600),)),
+)
+
+
+def dct_seam_inputs(kernel: str, layout, k, bucket: tuple, bsz: int, rng):
+    """Seeded numpy input of a DCT_SEAM_CASES case. K11: int16
+    coefficients in FromDctSpec's packed layout, each block's term (u, v)
+    uniform in +-600 / (1 + u + v), so the samples span and overshoot
+    0-255. K12: f32 RGB uniform in [-20, 275] (the clip is part of it)."""
+    import numpy as np
+
+    from imaginary_tpu_torch import kernels
+
+    hb, wb = bucket
+    if kernel == "to_dct":
+        return rng.uniform(-20.0, 275.0, (bsz, hb, wb, 3)).astype(np.float32)
+    rows, cols, c = kernels.dct_in_shape(layout, k, hb, wb)
+    x = np.zeros((bsz, rows, cols, c), np.int16)
+    for r0, nr, c0, nc, ch, kv, kh in kernels.dct_regions(layout, k, hb, wb):
+        amp = 600.0 / (1 + (np.arange(nr) % kv)[:, None] + (np.arange(nc) % kh)[None, :])
+        x[:, r0:r0 + nr, c0:c0 + nc, ch] = np.rint(rng.uniform(-1.0, 1.0, (bsz, nr, nc)) * amp)
+    return x
+
+
+def check_coef(name, got, want, results, case):
+    """K12's int16 coefficients: within COEF_TOL, at most COEF_SHARE of
+    them differing (rounding ties)."""
+    d = (got.int() - want.int()).abs()
+    share = float((d > 0).float().mean())
+    err = int(d.max())
+    if err > COEF_TOL or share > COEF_SHARE:
+        raise AssertionError(f"{name} [{case}]: max {err}, {share:.2e} of the "
+                             f"coefficients differ (bounds {COEF_TOL}, {COEF_SHARE})")
+    results.setdefault(name, {})[case] = {"max_abs_err": float(err), "differing_share": share}
+    return err
+
+
+def dct_seams(res: dict) -> None:
+    """K11 (within F32_TOL) and K12 (check_coef) on DCT_SEAM_CASES against
+    their plain versions; case names start with "seam-"."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.codecs import jpeg_dct
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 8)
+    qy, qc = jpeg_dct.quality_tables(80)
+    for kernel, case, layout, k, (hb, wb), hw in DCT_SEAM_CASES:
+        bsz = len(hw)
+        x = torch.from_numpy(dct_seam_inputs(kernel, layout, k, (hb, wb), bsz, rng)).to(dev)
+        h = torch.tensor([a for a, _ in hw], dtype=torch.int32, device=dev)
+        w = torch.tensor([b for _, b in hw], dtype=torch.int32, device=dev)
+        if kernel == "from_dct":
+            args = (x, h, w, hb, wb, k, layout)
+            check("from_dct", kernels.from_dct(*args), reference.from_dct(*args), res,
+                  "seam-" + case, F32_TOL)
+        else:
+            q_y = torch.tensor(np.stack([qy] * bsz), dtype=torch.float32, device=dev)
+            q_c = torch.tensor(np.stack([qc] * bsz), dtype=torch.float32, device=dev)
+            args = (x, h, w, q_y, q_c, hb, wb)
+            check_coef("to_dct", kernels.to_dct(*args), reference.to_dct(*args), res,
+                       "seam-" + case)
+    for name in DCT_KERNELS:
+        seams = {c: v for c, v in res[name].items() if c.startswith("seam-")}
+        worst = max(seams.items(), key=lambda kv: kv[1]["max_abs_err"])
+        log(f"  {name} (redesigned): max |err| against the plain version over "
+            f"{len(seams)} seam cases {worst[1]['max_abs_err']!r} ({worst[0][5:]})")
+
+
 def blur_seam_inputs(case: str, c: int) -> tuple:
     """(shape, h, w, sigma, radius) of a K6 seam case: "strip-edges" has
     valid widths one column inside and one past a strip of
@@ -794,7 +893,7 @@ def blur_seam_inputs(case: str, c: int) -> tuple:
 
 
 def seams_phase(res: dict) -> None:
-    """K1, K4, K6 and K2 at the seams of their designs, against their
+    """K1, K4, K6, K2, K11 and K12 at the seams of their designs, against their
     plain versions (K1, K6 and K2 within F32_TOL, or U8_TOL on uint8
     output; K4 exact): K1 at output dims that are not multiples of its
     16 x 32 tile, on a batch whose images have different scales (one of
@@ -805,7 +904,7 @@ def seams_phase(res: dict) -> None:
     mirror and fill modes with per-image offsets and sizes at B=32; K6's
     BLUR_SEAM_CASES; K2's
     YUV_SEAM_CASES (rows whose output or luma start is unaligned, ragged
-    row ends)."""
+    row ends); K11's and K12's DCT_SEAM_CASES (`dct_seams`)."""
     import torch
 
     from imaginary_tpu_torch import kernels
@@ -889,6 +988,7 @@ def seams_phase(res: dict) -> None:
         worst = max(res[name].items(), key=lambda kv: kv[1]["max_abs_err"])
         log(f"  {name} (redesigned): max |err| against the plain version over "
             f"{len(res[name])} cases {worst[1]['max_abs_err']!r} ({worst[0]})")
+    dct_seams(res)
 
 
 def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
@@ -1360,7 +1460,7 @@ SPEC_LAUNCHES = {
     "ToYuv420Spec": {"yuv420_pack": 1}, "FlipSpec": {"orient": 1},
     "FlopSpec": {"orient": 1}, "TransposeSpec": {"orient": 1},
     "SmartExtractSpec": {"saliency": 2, "window_argmax": 1, "gather": 1},
-    "FromDctSpec": {"from_dct": 2}, "ToDctSpec": {"to_dct": 1},
+    "FromDctSpec": {"from_dct": 1}, "ToDctSpec": {"to_dct": 1},
 }
 
 
@@ -1720,24 +1820,20 @@ def idct_flops(layout: str, k: int, hb: int, wb: int) -> float:
     return total + 20.0 * hb * wb
 
 
-def dct_kernel_phase(res: dict) -> None:
-    """K11 on real packed coefficients (large.jpg, and its 4:2:2, 4:4:4 and
-    gray re-encodes) and K12 on the card's own RGB at the /resize output
-    bucket and at 1088x1920. No single PyTorch call computes either (the
-    IDCT with the chroma upsample and color convert; the color convert,
-    2x2 mean, FDCT and quantize), so library_ms is null."""
+def from_dct_cases(dev) -> list:
+    """K11's inputs at the main paths' shapes, (case, x, h, w, hb, wb, k,
+    layout): large.jpg's packed coefficients at 1080p 4:2:0 (k = 8) and
+    at the main path's shrink 4 (k = 2), and its 4:2:2, 4:4:4 and gray
+    re-encodes at k = 8."""
     import numpy as np
     import torch
 
-    from imaginary_tpu_torch import kernels
     from imaginary_tpu_torch.codecs import jpeg_dct
-    from imaginary_tpu_torch.kernels import reference
     from imaginary_tpu_torch.ops.buckets import dct_packed_geometry
 
-    dev = torch.device(DEVICE)
     with open(LARGE_JPG, "rb") as f:
         large = f.read()
-    rgb_1080 = None
+    out = []
     for case, buf, shrink in (("1080p-420-k8", large, 1), ("main-420-k2", large, 4),
                               ("1080p-422-k8", jpeg_of_large("422"), 1),
                               ("1080p-444-k8", jpeg_of_large("444"), 1),
@@ -1747,6 +1843,43 @@ def dct_kernel_phase(res: dict) -> None:
         x = torch.from_numpy(np.ascontiguousarray(packed))[None].to(dev)
         h = torch.tensor([h2], dtype=torch.int32, device=dev)
         w = torch.tensor([w2], dtype=torch.int32, device=dev)
+        out.append((case, x, h, w, hb, wb, k, layout))
+    return out
+
+
+def to_dct_cases(dev, rgb_1080) -> list:
+    """K12's inputs, (case, x, h, w): phase 9's two /resize outputs (the
+    chains' own RGB before their ToDctSpec, planned as the server plans
+    them) and rgb_1080, K11's 1080p output cut to 1088x1920."""
+    import torch
+
+    with open(LARGE_JPG, "rb") as f:
+        large = f.read()
+    out = []
+    for query in ({"width": "300", "height": "200"}, {"width": "1600"}):
+        wrapped, packed, _ = dct_request_plan(large, "resize", query)
+        x, h, w, _ = run_stages_until(packed, wrapped, "ToDctSpec", DEVICE)
+        out.append((f"resize-{x.shape[1]}x{x.shape[2]}", x, h, w))
+    out.append(("1088x1920", rgb_1080, torch.tensor([1080], dtype=torch.int32, device=dev),
+                torch.tensor([1920], dtype=torch.int32, device=dev)))
+    return out
+
+
+def dct_kernel_phase(res: dict) -> None:
+    """K11 on `from_dct_cases` and K12 on `to_dct_cases`. No single
+    PyTorch call computes either (the IDCT with the chroma upsample and
+    color convert; the color convert, 2x2 mean, FDCT and quantize), so
+    library_ms is null."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.codecs import jpeg_dct
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    rgb_1080 = None
+    for case, x, h, w, hb, wb, k, layout in from_dct_cases(dev):
         got = kernels.from_dct(x, h, w, hb, wb, k, layout)
         check("from_dct", got, reference.from_dct(x, h, w, hb, wb, k, layout), res, case,
               F32_TOL)
@@ -1761,28 +1894,15 @@ def dct_kernel_phase(res: dict) -> None:
         del x, got
     log("  from_dct and to_dct: no single-call library equivalent (IDCT + chroma "
         "upsample + BT.601; BT.601 + 2x2 mean + FDCT + quantize): library_ms null")
-    # K12 at the /resize?width=300&height=200 output: the chain's own RGB
-    # before its ToDctSpec, and at 1088x1920 on K11's 1080p output
-    wrapped, packed, _ = dct_request_plan(large, "resize", {"width": "300", "height": "200"})
-    x300, h300, w300, _ = run_stages_until(packed, wrapped, "ToDctSpec", DEVICE)
     qy, qc = jpeg_dct.quality_tables(80)
-    for case, x, h, w in (
-            ("resize-208x304", x300, h300, w300),
-            ("1088x1920", rgb_1080, torch.tensor([1080], dtype=torch.int32, device=dev),
-             torch.tensor([1920], dtype=torch.int32, device=dev))):
+    for case, x, h, w in to_dct_cases(dev, rgb_1080):
         bsz, hb, wb, _ = x.shape
         q_y = torch.tensor(np.stack([qy] * bsz), dtype=torch.float32, device=dev)
         q_c = torch.tensor(np.stack([qc] * bsz), dtype=torch.float32, device=dev)
         got = kernels.to_dct(x, h, w, q_y, q_c, hb, wb)
-        want = reference.to_dct(x, h, w, q_y, q_c, hb, wb)
-        d = (got.int() - want.int()).abs()
-        share = float((d > 0).float().mean())
-        err = int(d.max())
-        if err > COEF_TOL or share > COEF_SHARE:
-            raise AssertionError(f"to_dct [{case}]: max {err}, {share:.2e} of the "
-                                 f"coefficients differ (bounds {COEF_TOL}, {COEF_SHARE})")
-        res.setdefault("to_dct", {})[case] = {"max_abs_err": float(err), "differing_share": share}
-        log(f"  to_dct {case}: max |diff| {err}, differing share {share:.3e}")
+        err = check_coef("to_dct", got, reference.to_dct(x, h, w, q_y, q_c, hb, wb), res, case)
+        log(f"  to_dct {case}: max |diff| {err}, differing share "
+            f"{res['to_dct'][case]['differing_share']:.3e}")
         # per pixel ~16 for the color convert and mean, per coefficient
         # 32 for the separable FDCT and 2 for the quantize
         flops = 16.0 * x.numel() / 3 + 34.0 * 1.5 * hb * wb * bsz

@@ -66,7 +66,7 @@ _SIGNATURES = {
     "window_argmax": ("saliency", "itpu_window_argmax",
                       [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "from_dct": ("from_dct", "itpu_from_dct",
-                 [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]),
+                 [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "to_dct": ("to_dct", "itpu_to_dct", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "blur_halo_v": ("blur_halo", "itpu_blur_halo_v",
                     [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
@@ -76,8 +76,8 @@ _SIGNATURES = {
 # C functions counted under another kernel's name (K13's two passes).
 _COUNTED_AS = {"blur_halo_v": "blur_halo", "blur_halo_h": "blur_halo"}
 
-# Kernel launches since the last reset, per kernel (saliency, from_dct
-# and blur_halo count their two passes as two launches).
+# Kernel launches since the last reset, per kernel (saliency and
+# blur_halo count their two passes as two launches).
 # Written under _COUNT_LOCK only.
 LAUNCHES = {_COUNTED_AS.get(name, name): 0 for name in _SIGNATURES}
 
@@ -452,8 +452,8 @@ def from_dct(x, h, w, hb: int, wb: int, k: int, layout: str):
     """K11: int16 packed, dequantized and folded coefficients (the shape
     `dct_in_shape` gives) -> f32 RGB [B, hb, wb, 3]: the k-point IDCT of
     every plane, then the 4:2:0 / 4:2:2 chroma upsample at k = 8, and
-    BT.601 (gray: luma broadcast). Two launches: the IDCT into an f32
-    plane array, then the color pass."""
+    BT.601 (gray: luma broadcast). One launch; the IDCT's samples stay in
+    shared memory."""
     if layout not in reference.DCT_LAYOUTS or k not in (1, 2, 4, 8):
         raise ValueError(f"unsupported dct layout {layout!r} / k {k}")
     if x.device.type == "cpu":
@@ -468,16 +468,15 @@ def from_dct(x, h, w, hb: int, wb: int, k: int, layout: str):
     for r0, nr, c0, nc, _, kv, kh in regions:
         if nr % kv or nc % kh or c0 % kh:
             raise ValueError(f"bucket ({hb}, {wb}) does not tile into {kv}x{kh} blocks")
-    planes = torch.empty((bsz, rows, cols, c), dtype=torch.float32, device=dev)
+    if wb % 8:  # the kernel reads 8-coefficient runs (every ladder bucket is)
+        raise ValueError(f"K11 needs a bucket width that is a multiple of 8, got {wb}")
     out = torch.empty((bsz, hb, wb, 3), dtype=torch.float32, device=dev)
-    flat = [v for reg in regions for v in reg]
-    regs = (ctypes.c_int * len(flat))(*flat)
     mode = 3 if layout == "gray" else (
         0 if (k, layout) == (8, "420") else 1 if (k, layout) == (8, "422") else 2)
-    # the IDCT and the color pass, both launched by the one call
-    _launch("from_dct", dev, x.data_ptr(), planes.data_ptr(), out.data_ptr(),
-            h.data_ptr(), w.data_ptr(), ctypes.addressof(regs), len(regions), mode,
-            bsz, rows, cols, c, hb, wb, passes=2)
+    # the chroma planes' blocks (mode 2; the other modes take k only)
+    kcv, kch = regions[-1][5:]
+    _launch("from_dct", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(), w.data_ptr(),
+            mode, k, kcv, kch, bsz, hb, wb)
     return out
 
 

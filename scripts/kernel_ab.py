@@ -1,5 +1,6 @@
-"""Hold the port's K6 (blur) and K2 (yuv420_unpack) against an earlier
-tree's on one card: outputs bit for bit, and device times in turns.
+"""Hold the port's K6 (blur), K2 (yuv420_unpack), K11 (from_dct) and K12
+(to_dct) against an earlier tree's on one card: outputs bit for bit, and
+device times in turns.
 
 Run from the repository root on a machine with the card:
 
@@ -8,13 +9,15 @@ Run from the repository root on a machine with the card:
 DIR is a checkout of the earlier tree. Its own `imaginary_tpu_torch.kernels`
 is imported first (its libraries built by its own `load_all` into DIR's
 `_build/`) and then taken out of `sys.modules`, so this tree's package
-imports as usual and the earlier module keeps its own globals: its `blur`
-and `yuv420_to_rgb` wrappers launch its kernels through its own ABI,
-whatever that is. For each case at the main paths' shapes and at the seams
-of the new designs, the script checks this tree's kernel against its plain
-version (`F32_TOL`, or `U8_TOL` on uint8 output), compares it with the
-earlier kernel (max |diff| and whether the two are bit-equal), and times
-both with `chip_smoke.device_ms` in turns (earlier, this, this, earlier).
+imports as usual and the earlier module keeps its own globals: its `blur`,
+`yuv420_to_rgb`, `from_dct` and `to_dct` wrappers launch its kernels
+through its own ABI, whatever that is. For each case at the main paths'
+shapes and at the seams of the new designs, the script checks this tree's
+kernel against its plain version (`F32_TOL`, or `U8_TOL` on uint8 output;
+K12's coefficients within `COEF_TOL`, at most `COEF_SHARE` of them
+differing), compares it with the earlier kernel (max |diff| and whether
+the two are bit-equal), and times both with `chip_smoke.device_ms` in
+turns (earlier, this, this, earlier).
 One JSON line per case on stdout; all of them in
 chip_smoke_out/kernel_ab.json.
 """
@@ -27,12 +30,15 @@ import json
 import os
 import sys
 
+import numpy as np
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 import chip_smoke as cs  # noqa: E402
 
 PKG = "imaginary_tpu_torch"
+AB_KERNELS = ("blur", "yuv420_unpack", "from_dct", "to_dct")
 
 
 def _package_modules() -> dict:
@@ -57,7 +63,7 @@ def load_tree_kernels(tree: str):
         for k in _package_modules():
             del sys.modules[k]
         sys.modules.update(saved)
-    for name in ("blur", "yuv420_unpack"):
+    for name in AB_KERNELS:
         cs.log(f"  earlier {name}: built\n{built.get(name, {}).get('log', '')}")
     return mod
 
@@ -117,6 +123,51 @@ def unpack_cases(dev, gen):
     return out
 
 
+def from_dct_cases(dev):
+    """(case, x, h, w, hb, wb, k, layout): chip_smoke's dct_kernel_phase
+    cases, 1080p 4:2:0 at B=4, then the seams (DCT_SEAM_CASES)."""
+    import torch
+
+    out = cs.from_dct_cases(dev)
+    _, x, h, w, hb, wb, k, lay = out[0]
+    out.append(("1080p-420-k8-B4", x.repeat(4, 1, 1, 1), h.repeat(4), w.repeat(4), hb, wb,
+                k, lay))
+    rng = np.random.default_rng(cs.SEED + 9)
+    for kernel, case, lay, k, (hb, wb), hw in cs.DCT_SEAM_CASES:
+        if kernel == "from_dct":
+            x = cs.dct_seam_inputs(kernel, lay, k, (hb, wb), len(hw), rng)
+            out.append(("seam-" + case, torch.from_numpy(x).to(dev),
+                        torch.tensor([a for a, _ in hw], dtype=torch.int32, device=dev),
+                        torch.tensor([b for _, b in hw], dtype=torch.int32, device=dev),
+                        hb, wb, k, lay))
+    return out
+
+
+def to_dct_cases(dev, rgb_1080):
+    """(case, x, h, w, qy, qc): chip_smoke's dct_kernel_phase cases (208x304,
+    the /resize?width=1600 bucket, 1088x1920), then the seams."""
+    import torch
+
+    from imaginary_tpu_torch.codecs import jpeg_dct
+
+    qy, qc = jpeg_dct.quality_tables(80)
+    rng = np.random.default_rng(cs.SEED + 10)
+    out = cs.to_dct_cases(dev, rgb_1080)
+    for kernel, case, _, _, bucket, hw in cs.DCT_SEAM_CASES:
+        if kernel == "to_dct":
+            x = cs.dct_seam_inputs(kernel, None, None, bucket, len(hw), rng)
+            out.append(("seam-" + case, torch.from_numpy(x).to(dev),
+                        torch.tensor([a for a, _ in hw], dtype=torch.int32, device=dev),
+                        torch.tensor([b for _, b in hw], dtype=torch.int32, device=dev)))
+    tables = []
+    for case, x, h, w in out:
+        bsz = x.shape[0]
+        tables.append((case, x, h, w,
+                       torch.tensor(np.stack([qy] * bsz), dtype=torch.float32, device=dev),
+                       torch.tensor(np.stack([qc] * bsz), dtype=torch.float32, device=dev)))
+    return tables
+
+
 def turns(fa, fb) -> tuple:
     """Device ms of fa and fb in turns a, b, b, a: (a's two, b's two)."""
     a1 = cs.device_ms(fa)
@@ -148,9 +199,9 @@ def main() -> int:
     from imaginary_tpu_torch.kernels import reference
 
     built = kernels.load_all()
-    for name in ("blur", "yuv420_unpack"):
+    for name in AB_KERNELS:
         cs.log(f"  {name}: built\n{built[name]['log']}")
-    dev = torch.device("cuda")
+    dev = torch.device(cs.DEVICE)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
     rows = []
 
@@ -182,6 +233,31 @@ def main() -> int:
         emit({"kernel": "yuv420_unpack", "case": case, "shape": list(x.shape),
               "err_vs_plain": err, "diff_vs_parent": d, "bit_equal": eq,
               "parent_ms": ta, "ms": tb})
+    rgb_1080 = None
+    for case, x, h, w, hb, wb, k, lay in from_dct_cases(dev):
+        args = (x, h, w, hb, wb, k, lay)
+        got = kernels.from_dct(*args)
+        err = cs.max_err(got, reference.from_dct(*args))
+        if not err <= cs.F32_TOL:
+            raise AssertionError(f"from_dct [{case}]: max |err| {err} > {cs.F32_TOL}")
+        d, eq = diff(got, old.from_dct(*args))
+        ta, tb = turns(lambda: old.from_dct(*args), lambda: kernels.from_dct(*args))
+        emit({"kernel": "from_dct", "case": case, "shape": list(x.shape), "layout": lay,
+              "k": k, "err_vs_plain": err, "diff_vs_parent": d, "bit_equal": eq,
+              "parent_ms": ta, "ms": tb})
+        if case == "1080p-420-k8":
+            rgb_1080 = got[:, :1088, :1920].contiguous()
+    for case, x, h, w, qy, qc in to_dct_cases(dev, rgb_1080):
+        hb, wb = x.shape[1:3]
+        args = (x, h, w, qy, qc, hb, wb)
+        got = kernels.to_dct(*args)
+        scratch = {}
+        err = cs.check_coef("to_dct", got, reference.to_dct(*args), scratch, case)
+        d, eq = diff(got, old.to_dct(*args))
+        ta, tb = turns(lambda: old.to_dct(*args), lambda: kernels.to_dct(*args))
+        emit({"kernel": "to_dct", "case": case, "shape": list(x.shape), "err_vs_plain": err,
+              "differing_share": scratch["to_dct"][case]["differing_share"],
+              "diff_vs_parent": d, "bit_equal": eq, "parent_ms": ta, "ms": tb})
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     with open(os.path.join(cs.OUT_DIR, "kernel_ab.json"), "w") as f:
         json.dump({"smi": smi, "rows": rows}, f, indent=1)
