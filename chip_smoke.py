@@ -29,9 +29,16 @@ Phases, in order; any failure raises and exits non-zero:
    their tiles (DCT_SEAM_CASES: odd valid dims inside larger buckets, B=3
    batches of different dims, buckets 8 rows short of a tile and one tile
    wide, every layout at k = 8, the three-plane layouts at k = 1, 2, 4, K12
-   at the /resize?width=1600 bucket); then a line with each
-   redesigned kernel's largest error); config 4's saliency (K9) and window argmax (K10)
-   at f32 [8, 320, 640, 3] and [1, 320, 640, 3] with mixed valid dims; the
+   at the /resize?width=1600 bucket; K9 and K10 at the seams of theirs,
+   SAL_SEAM_CASES: buckets from 8x8 to 64x8192 and a 2160x3840 frame,
+   heights that leave row chunks empty, widths under and just over 256,
+   short, one-row, one-column and mixed valid dims, windows equal to the
+   valid dims, larger and 1x1, uint8 and f32, C = 3 and 4, and a flat
+   image whose windows all tie; then a line with each redesigned kernel's
+   largest error); config 4's saliency (K9) and window argmax (K10)
+   at f32 [8, 320, 640, 3] and [1, 320, 640, 3] with mixed valid dims,
+   with torch.profiler counting the device kernels of one call of each
+   (K9 two, its row and column passes; K10 one cluster launch); the
    IDCT (K11) on large.jpg's packed coefficients at 1080p 4:2:0 (k = 8)
    and at the main path's shrink 4 (k = 2), and once each on 4:2:2,
    4:4:4 and gray; the forward DCT (K12) at the two /resize outputs of
@@ -893,7 +900,7 @@ def blur_seam_inputs(case: str, c: int) -> tuple:
 
 
 def seams_phase(res: dict) -> None:
-    """K1, K4, K6, K2, K11 and K12 at the seams of their designs, against their
+    """K1, K4, K6, K2, K11, K12, K9 and K10 at the seams of their designs, against their
     plain versions (K1, K6 and K2 within F32_TOL, or U8_TOL on uint8
     output; K4 exact): K1 at output dims that are not multiples of its
     16 x 32 tile, on a batch whose images have different scales (one of
@@ -904,7 +911,8 @@ def seams_phase(res: dict) -> None:
     mirror and fill modes with per-image offsets and sizes at B=32; K6's
     BLUR_SEAM_CASES; K2's
     YUV_SEAM_CASES (rows whose output or luma start is unaligned, ragged
-    row ends); K11's and K12's DCT_SEAM_CASES (`dct_seams`)."""
+    row ends); K11's and K12's DCT_SEAM_CASES (`dct_seams`); K9's and
+    K10's SAL_SEAM_CASES (`sal_seams`)."""
     import torch
 
     from imaginary_tpu_torch import kernels
@@ -989,6 +997,7 @@ def seams_phase(res: dict) -> None:
         log(f"  {name} (redesigned): max |err| against the plain version over "
             f"{len(res[name])} cases {worst[1]['max_abs_err']!r} ({worst[0]})")
     dct_seams(res)
+    sal_seams(res)
 
 
 def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
@@ -1725,6 +1734,111 @@ CONFIG4_FRAME = (320, 640)  # large.jpg's /smartcrop input bucket (300x533 valid
 CONFIG4_BATCHES = (1, 8)
 CONFIG4_WINDOW = 300
 
+# K9 and K10 at the seams of their designs (a K9 block scans a band of
+# rows, each row by 256 threads in segments of ceil(Wb / 256) columns, and
+# each column in 16 chunks of ceil(Hb / 16) rows; a K10 cluster scores only
+# the windows inside the valid region and adds the first masked one):
+# buckets narrower than 256 (empty segments), 257 wide (short last
+# segments), heights of 8, 15 and 17 (empty chunks, chunks past the
+# bucket), config 4's bucket, a 8192-wide bucket (one row a band) and a
+# 2160x3840 frame; valid dims short of the bucket, one valid row, one
+# valid column and a B=3 batch of mixed dims; windows equal to the valid
+# dims (a single candidate), larger than them (all masked: (0, 0)) and
+# 1x1; uint8 and f32, C = 3 and 4; and a flat red image, whose saliency
+# is exactly 1 a valid pixel, so every window ties exactly and the first
+# must win.
+# (case, bucket, valid (h, w) per image, window (h, w) per image, C, uint8, flat)
+SAL_SEAM_CASES = (
+    ("8x8", (8, 8), ((8, 8),), ((3, 5),), 3, False, False),
+    ("17x40", (17, 40), ((17, 40), (9, 33)), ((5, 12), (9, 7)), 3, False, False),
+    ("15x257", (15, 257), ((15, 257), (14, 250)), ((6, 100), (14, 1)), 3, False, False),
+    ("33x255-u8-C4", (33, 255), ((33, 255), (20, 129)), ((10, 255), (7, 64)), 4, True,
+     False),
+    ("320x640", (320, 640), ((300, 533), (320, 640)), ((300, 300), (1, 1)), 3, False,
+     False),
+    ("64x8192", (64, 8192), ((64, 8192), (37, 6001)), ((64, 300), (20, 5000)), 3, False,
+     False),
+    ("2160x3840", (2160, 3840), ((2160, 3840),), ((2160, 2160),), 3, False, False),
+    ("short-dims-u8", (48, 64), ((45, 61), (31, 17)), ((20, 30), (31, 17)), 3, True,
+     False),
+    ("one-row", (24, 40), ((1, 40),), ((1, 10),), 3, False, False),
+    ("one-col", (24, 40), ((24, 1),), ((7, 1),), 3, False, False),
+    ("B3-mixed", (48, 64), ((45, 61), (48, 64), (1, 1)), ((20, 30), (48, 64), (1, 1)), 3,
+     False, False),
+    ("win-equal", (32, 48), ((29, 41), (32, 48)), ((29, 41), (32, 48)), 3, False, False),
+    ("win-larger", (32, 48), ((29, 41), (32, 48)), ((30, 20), (10, 49)), 3, False, False),
+    ("win-1x1-C4", (32, 48), ((29, 41), (32, 48)), ((1, 1), (1, 1)), 4, False, False),
+    ("flat", (24, 40), ((24, 40), (17, 29)), ((8, 8), (17, 5)), 3, False, True),
+)
+
+
+def sal_seam_inputs(bucket: tuple, bsz: int, c: int, u8: bool, flat: bool, rng):
+    """Seeded numpy input of a SAL_SEAM_CASES case: [B, hb, wb, c] noise
+    uniform over 0-255 (uint8 or f32), or flat red (255, 0, 0), alpha 255."""
+    import numpy as np
+
+    hb, wb = bucket
+    if flat:
+        x = np.zeros((bsz, hb, wb, c), np.float32)
+        x[..., 0] = 255.0
+        if c == 4:
+            x[..., 3] = 255.0
+    else:
+        x = rng.uniform(0.0, 255.0, (bsz, hb, wb, c))
+    return x.astype(np.uint8) if u8 else x.astype(np.float32)
+
+
+def sal_seam_tensors(case: tuple, rng, dev) -> tuple:
+    """(x, h, w, win_h, win_w) of a SAL_SEAM_CASES case on dev."""
+    import torch
+
+    _, bucket, dims, wins, c, u8, flat = case
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    x = torch.from_numpy(sal_seam_inputs(bucket, len(dims), c, u8, flat, rng)).to(dev)
+    return (x, i32([a for a, _ in dims]), i32([b for _, b in dims]),
+            i32([a for a, _ in wins]), i32([b for _, b in wins]))
+
+
+def sal_seams(res: dict) -> None:
+    """K9 (within II_RTOL) and K10 (offsets equal, on K9's own integral
+    image; (0, 0) on the flat image) on SAL_SEAM_CASES against their plain
+    versions; case names start with "seam-"."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(SEED + 11)
+    for case in SAL_SEAM_CASES:
+        name, flat = "seam-" + case[0], case[6]
+        x, h, w, wh, ww = sal_seam_tensors(case, rng, dev)
+        ii = kernels.saliency_ii(x, h, w)
+        check_rel("saliency", ii, reference.saliency_ii(x, h, w), res, name, II_RTOL)
+        top, left = kernels.window_argmax(ii, h, w, wh, ww)
+        rt, rl = reference.window_argmax(ii, h, w, wh, ww)
+        if not (torch.equal(top, rt) and torch.equal(left, rl)):
+            raise AssertionError(f"window_argmax [{name}]: {top.tolist()} {left.tolist()} "
+                                 f"against the plain {rt.tolist()} {rl.tolist()}")
+        if flat and (top.any() or left.any()):
+            raise AssertionError(f"window_argmax [{name}]: every window ties, yet "
+                                 f"{top.tolist()} {left.tolist()}, not the first")
+        res.setdefault("window_argmax", {})[name] = {
+            "max_abs_err": 0.0, "top": top.tolist(), "left": left.tolist()}
+        err = res["saliency"][name]
+        log(f"  K9/K10 seam {case[0]}: ii max |err| {err['max_abs_err']!r} (relative "
+            f"{err['max_rel_err']!r}); offsets {top.tolist()} {left.tolist()}, as the plain")
+        del x, ii
+    seams = {c: v for c, v in res["saliency"].items() if c.startswith("seam-")}
+    worst = max(seams.items(), key=lambda kv: kv[1]["max_rel_err"])
+    log(f"  saliency (redesigned): max relative err against the plain version over "
+        f"{len(seams)} seam cases {worst[1]['max_rel_err']!r} ({worst[0][5:]}); "
+        f"window_argmax: offsets equal on all {len(seams)}")
+
 
 def check_rel(name, got, want, results, case, rtol):
     """Relative check per entry, |got - want| <= rtol |want|; records the
@@ -1737,11 +1851,60 @@ def check_rel(name, got, want, results, case, rtol):
     return rel
 
 
+def config4_inputs(bsz: int, dev, gen) -> tuple:
+    """(x, h, w): config 4's f32 [B, 320, 640, 3] input to SmartExtractSpec
+    (large.jpg's bucket, 300x533 valid) as seeded noise with per-image
+    valid dims and a bright disc each."""
+    import torch
+
+    hb, wb = CONFIG4_FRAME
+    x = torch.rand((bsz, hb, wb, 3), generator=gen, device=dev) * 255.0
+    i = torch.arange(bsz, dtype=torch.int32, device=dev)
+    h = (300 + 2 * i).to(torch.int32)
+    w = (533 - 29 * i).to(torch.int32)
+    yy = torch.arange(hb, device=dev)[None, :, None]
+    xx = torch.arange(wb, device=dev)[None, None, :]
+    cy, cx = (60 + 20 * i)[:, None, None], (120 + 37 * i)[:, None, None]
+    disc = ((yy - cy) ** 2 + (xx - cx) ** 2) <= 40 ** 2
+    x = torch.where(disc[..., None], torch.tensor([230.0, 40.0, 40.0], device=dev), x)
+    return x.contiguous(), h, w
+
+
+def device_kernels(fn) -> list:
+    """(name, us) of each device activity (kernel, copy, fill) that one
+    call of fn puts on the card, from torch.profiler. A kernel launched as
+    a programmatic dependent of the one before it counts the time it
+    waited for that kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def kernel_name(event: str) -> str:
+    """A profiler kernel name without its namespace and arguments."""
+    import re
+
+    m = re.search(r"(\w+(?:<[^>]*>)?)\(", event)
+    return m.group(1) if m else event
+
+
+# the device kernels of one call of each wrapper: K9 its row pass and its
+# column pass, K10 one cluster launch (no fill of a scratch before it)
+CALL_KERNELS = {"saliency": 2, "window_argmax": 1}
+
+
 def config4_kernel_phase(res: dict) -> None:
     """K9 and K10 at config 4's /smartcrop shape: the window chosen over
-    f32 [B, 320, 640, 3] (large.jpg's input to SmartExtractSpec, 300x533
-    valid) with per-image valid dims and a bright disc each. K10's offsets
-    must equal the plain version's on K9's own integral image exactly. No
+    f32 [B, 320, 640, 3] (`config4_inputs`). K10's offsets must equal the
+    plain version's on K9's own integral image exactly. torch.profiler
+    counts the device kernels of one call of each (CALL_KERNELS). No
     single PyTorch call computes either (the saliency terms and two
     prefix sums; a masked argmax over every window), so library_ms is
     null."""
@@ -1754,16 +1917,7 @@ def config4_kernel_phase(res: dict) -> None:
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     hb, wb = CONFIG4_FRAME
     for bsz in CONFIG4_BATCHES:
-        x = torch.rand((bsz, hb, wb, 3), generator=gen, device=dev) * 255.0
-        i = torch.arange(bsz, dtype=torch.int32, device=dev)
-        h = (300 + 2 * i).to(torch.int32)
-        w = (533 - 29 * i).to(torch.int32)
-        yy = torch.arange(hb, device=dev)[None, :, None]
-        xx = torch.arange(wb, device=dev)[None, None, :]
-        cy, cx = (60 + 20 * i)[:, None, None], (120 + 37 * i)[:, None, None]
-        disc = ((yy - cy) ** 2 + (xx - cx) ** 2) <= 40 ** 2
-        x = torch.where(disc[..., None], torch.tensor([230.0, 40.0, 40.0], device=dev), x)
-        x = x.contiguous()
+        x, h, w = config4_inputs(bsz, dev, gen)
         case = f"B{bsz}"
         ii = kernels.saliency_ii(x, h, w)
         check_rel("saliency", ii, reference.saliency_ii(x, h, w), res, case, II_RTOL)
@@ -1784,10 +1938,22 @@ def config4_kernel_phase(res: dict) -> None:
                lambda ii=ii, h=h, w=w, win=win: kernels.window_argmax(ii, h, w, win, win),
                lambda ii=ii, h=h, w=w, win=win: reference.window_argmax(ii, h, w, win, win),
                None, ii.numel() * 4 + bsz * 8, 4.0 * bsz * hb * wb)
+        for name, call in (("saliency", lambda: kernels.saliency_ii(x, h, w)),
+                           ("window_argmax", lambda: kernels.window_argmax(ii, h, w, win, win))):
+            kern = device_kernels(call)
+            if len(kern) != CALL_KERNELS[name]:
+                raise AssertionError(f"one {name} call [{case}] put {len(kern)} kernels on "
+                                     f"the card ({kern}), not {CALL_KERNELS[name]}")
+            res[name][case]["call_kernels"] = kern
+            log(f"  one {name} call [{case}]: " + ", ".join(
+                f"{kernel_name(n)} {us:.2f} us" for n, us in kern))
         xu = x.to(torch.uint8)
         check_rel("saliency", kernels.saliency_ii(xu, h, w), reference.saliency_ii(xu, h, w),
                   res, case + "-u8", II_RTOL)
         del x, xu, ii
+    log(f"  one call's device kernels (torch.profiler): saliency "
+        f"{len(res['saliency']['B1']['call_kernels'])}, window_argmax "
+        f"{len(res['window_argmax']['B1']['call_kernels'])}")
     log("  saliency and window_argmax: no single-call library equivalent (saliency "
         "terms + two prefix sums; a masked argmax over every window): library_ms null")
 

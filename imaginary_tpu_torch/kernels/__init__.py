@@ -64,7 +64,7 @@ _SIGNATURES = {
     "saliency": ("saliency", "itpu_saliency_ii",
                  [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P]),
     "window_argmax": ("saliency", "itpu_window_argmax",
-                      [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
+                      [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "from_dct": ("from_dct", "itpu_from_dct",
                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "to_dct": ("to_dct", "itpu_to_dct", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
@@ -386,7 +386,7 @@ def saliency_ii(x, h, w):
     """K9: f32 [B, Hb + 1, Wb + 1] integral image of the smartcrop saliency
     of x [B, Hb, Wb, C] (uint8 or f32, C 3 or 4), zero outside each
     image's valid h, w (int32 [B]). Two launches: the rows (saliency and
-    row prefix sums), then the columns."""
+    row prefix sums, a band of rows a block), then the columns."""
     if x.device.type == "cpu":
         return reference.saliency_ii(x, h, w)
     dev = x.device
@@ -406,7 +406,9 @@ def saliency_ii(x, h, w):
 def window_argmax(ii, h, w, win_h, win_w):
     """K10: the best (top, left), int32 [B] each on ii's device, of a
     (win_h, win_w) window over the integral image ii f32
-    [B, Hb + 1, Wb + 1], for images of valid h, w (all int32 [B])."""
+    [B, Hb + 1, Wb + 1], for images of valid h, w (all int32 [B]). One
+    launch: a thread-block cluster per image, reduced in distributed
+    shared memory; it raises when a cluster cannot be resident."""
     if ii.device.type == "cpu":
         return reference.window_argmax(ii, h, w, win_h, win_w)
     dev = ii.device
@@ -416,12 +418,11 @@ def window_argmax(ii, h, w, win_h, win_w):
     _require(ii, "ii", _F32, (bsz, hb1, wb1), dev)
     for t, n in ((h, "h"), (w, "w"), (win_h, "win_h"), (win_w, "win_w")):
         _require(t, n, _I32, (bsz,), dev)
-    scratch = torch.zeros((2 * bsz,), dtype=torch.int64, device=dev)
     top = torch.empty((bsz,), dtype=torch.int32, device=dev)
     left = torch.empty((bsz,), dtype=torch.int32, device=dev)
     _launch("window_argmax", dev, ii.data_ptr(), h.data_ptr(), w.data_ptr(),
-            win_h.data_ptr(), win_w.data_ptr(), scratch.data_ptr(),
-            top.data_ptr(), left.data_ptr(), bsz, hb1 - 1, wb1 - 1)
+            win_h.data_ptr(), win_w.data_ptr(), top.data_ptr(), left.data_ptr(),
+            bsz, hb1 - 1, wb1 - 1)
     return top, left
 
 

@@ -1,6 +1,6 @@
-"""Hold the port's K6 (blur), K2 (yuv420_unpack), K11 (from_dct) and K12
-(to_dct) against an earlier tree's on one card: outputs bit for bit, and
-device times in turns.
+"""Hold the port's K6 (blur), K2 (yuv420_unpack), K11 (from_dct), K12
+(to_dct), K9 (saliency) and K10 (window_argmax) against an earlier tree's
+on one card: outputs bit for bit, and device times in turns.
 
 Run from the repository root on a machine with the card:
 
@@ -10,14 +10,16 @@ DIR is a checkout of the earlier tree. Its own `imaginary_tpu_torch.kernels`
 is imported first (its libraries built by its own `load_all` into DIR's
 `_build/`) and then taken out of `sys.modules`, so this tree's package
 imports as usual and the earlier module keeps its own globals: its `blur`,
-`yuv420_to_rgb`, `from_dct` and `to_dct` wrappers launch its kernels
-through its own ABI, whatever that is. For each case at the main paths'
-shapes and at the seams of the new designs, the script checks this tree's
-kernel against its plain version (`F32_TOL`, or `U8_TOL` on uint8 output;
-K12's coefficients within `COEF_TOL`, at most `COEF_SHARE` of them
-differing), compares it with the earlier kernel (max |diff| and whether
-the two are bit-equal), and times both with `chip_smoke.device_ms` in
-turns (earlier, this, this, earlier).
+`yuv420_to_rgb`, `from_dct`, `to_dct`, `saliency_ii` and `window_argmax`
+wrappers launch its kernels through its own ABI, whatever that is. For
+each case at the main paths' shapes and at the seams of the new designs,
+the script checks this tree's kernel against its plain version
+(`F32_TOL`, or `U8_TOL` on uint8 output; K12's coefficients within
+`COEF_TOL`, at most `COEF_SHARE` of them differing; K9's integral image
+within `II_RTOL`; K10's offsets equal), compares it with the earlier
+kernel (max |diff| and whether the two are bit-equal; K10 is fed this
+tree's K9 output on both sides), and times both with
+`chip_smoke.device_ms` in turns (earlier, this, this, earlier).
 One JSON line per case on stdout; all of them in
 chip_smoke_out/kernel_ab.json.
 """
@@ -38,7 +40,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 PKG = "imaginary_tpu_torch"
-AB_KERNELS = ("blur", "yuv420_unpack", "from_dct", "to_dct")
+AB_KERNELS = ("blur", "yuv420_unpack", "from_dct", "to_dct", "saliency", "window_argmax")
 
 
 def _package_modules() -> dict:
@@ -63,9 +65,14 @@ def load_tree_kernels(tree: str):
         for k in _package_modules():
             del sys.modules[k]
         sys.modules.update(saved)
-    for name in AB_KERNELS:
-        cs.log(f"  earlier {name}: built\n{built.get(name, {}).get('log', '')}")
+    for src in ab_sources(mod):
+        cs.log(f"  earlier {src}: built\n{built.get(src, {}).get('log', '')}")
     return mod
+
+
+def ab_sources(mod) -> list:
+    """The CUDA sources that hold AB_KERNELS in module `mod`."""
+    return sorted({mod._SIGNATURES[name][0] for name in AB_KERNELS})
 
 
 def blur_cases(dev, gen):
@@ -168,6 +175,24 @@ def to_dct_cases(dev, rgb_1080):
     return tables
 
 
+def saliency_cases(dev, gen):
+    """(case, x, h, w, win_h, win_w): config 4's f32 input at B=1 and B=8
+    (chip_smoke's `config4_inputs`, windows 300x300), the same in uint8,
+    then the seams (chip_smoke's SAL_SEAM_CASES)."""
+    import torch
+
+    out = []
+    for bsz in cs.CONFIG4_BATCHES:
+        x, h, w = cs.config4_inputs(bsz, dev, gen)
+        win = torch.full((bsz,), cs.CONFIG4_WINDOW, dtype=torch.int32, device=dev)
+        out.append((f"B{bsz}", x, h, w, win, win))
+        out.append((f"B{bsz}-u8", x.to(torch.uint8), h, w, win, win))
+    rng = np.random.default_rng(cs.SEED + 12)
+    for case in cs.SAL_SEAM_CASES:
+        out.append(("seam-" + case[0], *cs.sal_seam_tensors(case, rng, dev)))
+    return out
+
+
 def turns(fa, fb) -> tuple:
     """Device ms of fa and fb in turns a, b, b, a: (a's two, b's two)."""
     a1 = cs.device_ms(fa)
@@ -199,8 +224,8 @@ def main() -> int:
     from imaginary_tpu_torch.kernels import reference
 
     built = kernels.load_all()
-    for name in AB_KERNELS:
-        cs.log(f"  {name}: built\n{built[name]['log']}")
+    for src in ab_sources(kernels):
+        cs.log(f"  {src}: built\n{built[src]['log']}")
     dev = torch.device(cs.DEVICE)
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 7)
     rows = []
@@ -258,6 +283,31 @@ def main() -> int:
         emit({"kernel": "to_dct", "case": case, "shape": list(x.shape), "err_vs_plain": err,
               "differing_share": scratch["to_dct"][case]["differing_share"],
               "diff_vs_parent": d, "bit_equal": eq, "parent_ms": ta, "ms": tb})
+    for case, x, h, w, wh, ww in saliency_cases(dev, gen):
+        got = kernels.saliency_ii(x, h, w)
+        err = cs.check_rel("saliency", got, reference.saliency_ii(x, h, w), {}, case,
+                           cs.II_RTOL)
+        d, eq = diff(got, old.saliency_ii(x, h, w))
+        ta, tb = turns(lambda: old.saliency_ii(x, h, w), lambda: kernels.saliency_ii(x, h, w))
+        emit({"kernel": "saliency", "case": case, "shape": list(x.shape),
+              "dtype": str(x.dtype), "err_vs_plain": err, "diff_vs_parent": d,
+              "bit_equal": eq, "parent_ms": ta, "ms": tb})
+        top, left = kernels.window_argmax(got, h, w, wh, ww)
+        rt, rl = reference.window_argmax(got, h, w, wh, ww)
+        if not (torch.equal(top, rt) and torch.equal(left, rl)):
+            raise AssertionError(f"window_argmax [{case}]: {top.tolist()} {left.tolist()} "
+                                 f"against the plain {rt.tolist()} {rl.tolist()}")
+        ot, ol = old.window_argmax(got, h, w, wh, ww)
+        ta, tb = turns(lambda: old.window_argmax(got, h, w, wh, ww),
+                       lambda: kernels.window_argmax(got, h, w, wh, ww))
+        emit({"kernel": "window_argmax", "case": case, "shape": list(got.shape),
+              "top": top.tolist(), "left": left.tolist(),
+              "bit_equal": bool(torch.equal(top, ot) and torch.equal(left, ol)),
+              "parent_ms": ta, "ms": tb})
+    # the device time of one small PyTorch launch: the fill the earlier
+    # window_argmax put before its kernel
+    emit({"kernel": "floor", "case": "torch.zeros((16,), int64)",
+          "ms": cs.device_ms(lambda: torch.zeros((16,), dtype=torch.int64, device=dev))})
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     with open(os.path.join(cs.OUT_DIR, "kernel_ab.json"), "w") as f:
         json.dump({"smi": smi, "rows": rows}, f, indent=1)
