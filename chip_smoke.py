@@ -15,7 +15,10 @@ Phases, in order; any failure raises and exits non-zero:
    the main paths' shapes (config 1: B=1 and B=16; config 2's orientation
    kernel: the /rotate chain's 1080p buckets at B=1 and B=32, and uint8
    input; K1, K2 and K3 at config 2's B=32 shapes; config 3's K1 on the
-   4K PNG's uint8 [1, 2560, 4096, 3] bucket, the blur (K6) at
+   4K PNG's uint8 [1, 2560, 4096, 3] bucket, and in its W-shard form over
+   four shards (each shard's input window alone, bit-equal to the whole
+   launch's columns; also to width 800, whose 200-column shards end
+   inside a 32-column tile), the blur (K6) at
    [B, 736, 1280, 3] for B=1 and 8 and at r=64, sigma=0 and uint8 input,
    the composite (K7) in both modes at C=3 and 4, the gray (K8) at C=3 and
    4) and at full 1080p; K1 and K4 at the seams of their designs (K1 at
@@ -112,11 +115,11 @@ Phases, in order; any failure raises and exits non-zero:
    2160x1920, ending at a seam) at r = 8 (sigma 3) and r = 64 (sigma 20)
    on meshes (1, 4) and (2, 2) over four entries of card 0 (and over the
    real cards when there are several): the counted run (one call per
-   mesh at r = 8, launches reset just before and read just after, equal
-   to 2 per shard, no other kernel), K13's passes against their plain
-   versions at every shard, the whole call against K6 and its plain
-   version within 1e-3, a uint8 frame, and the times of each pass, the
-   exchange, the whole call and K6 on the same image; (b) the server
+   mesh at r = 8, launches reset just before and read just after, one K13
+   launch per shard, no other kernel), K13 against its plain version at
+   every shard, the whole call against K6 bit for bit and against its
+   plain version within 1e-3, a uint8 frame, and the times of the shards'
+   K13 launches, the exchange, the whole call and K6 on the same image; (b) the server
    started from the command line with `--mesh-policy lanes` (one lane per
    card) under phase 6's mix from 32 clients in three windows, every
    answer byte-equal to the `--mesh-policy off` server's, /health showing
@@ -127,7 +130,23 @@ Phases, in order; any failure raises and exits non-zero:
    `device.chip_error[1]` with a breaker threshold of 1 quarantines lane
    1 while every answer stays byte-equal and the mesh generation rises
    by 1. The off server serves the same mix before and after them in the
-   same call. Requests per second and p50/p99 are printed as findings.
+   same call. Requests per second and p50/p99 are printed as findings;
+   (d) the spatial route: config 3's /pipeline and the dry run's chain
+   (/resize?width=1920&sigma=2&colorspace=bw, as JPEG) on phase 7's 4K
+   PNG. First each chain launched W-sharded over four entries of card 0
+   (`chain.launch_spatial`), every shard's K1, K13, K7 or K8 launch held
+   against its plain version on the same inputs (K13 after the halo
+   exchange, K7 with its shifted `left`), the output bit-equal to the
+   unsharded chain's, and config 3's K13 shards timed beside K6 on the
+   same columns (K13's row in the kernels line). Then five requests of
+   each chain one at a time, from the off server, from a
+   `--mesh-policy lanes` server over four entries of card 0 with
+   `--spatial 4` and the default bar, and from the off server again:
+   every answer byte-equal to the off server's, /health's
+   spatial_batches rising by the requests and spatial_gathers empty, the
+   launches of the counted run 4 K1 + 4 K13 + 4 K7 (or K8) a request,
+   the p50 of each server and the card's busy time of a config 3
+   request on each as findings.
 
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
@@ -616,6 +635,7 @@ CONFIG3_SRC = (2160, 3840)  # the 4K PNG, in its [2560, 4096] bucket
 CONFIG3_SRC_BUCKET = (2560, 4096)
 CONFIG3_BLOCK = (24, 48)  # the "bench" text watermark's block bucket
 BW_FRAME = (368, 640)  # the colorspace=bw /resize: K8 after K1 at 1/2 decode
+K1_NARROW = (450, 800)  # /resize?width=800 of the 4K PNG: a [464, 800] bucket
 
 
 def blur_flops(h, w, r: int, c: int) -> float:
@@ -660,6 +680,8 @@ def config3_kernel_phase(res: dict) -> None:
 
     from imaginary_tpu_torch import kernels
     from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops.plan import plan_operation
+    from imaginary_tpu_torch.params import build_params_from_query
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -769,6 +791,59 @@ def config3_kernel_phase(res: dict) -> None:
            lambda: kernels.resample(xs, sh, sw, dst_h, dst_w, hb, wb, "lanczos3"),
            lambda: reference.resample(xs, sh, sw, dst_h, dst_w, hb, wb, "lanczos3"),
            lib4k, xs.numel() + out.numel() * 4, flops)
+    # K1's W-shard form (the spatial route's first stage) on the same
+    # frame over SPATIAL_SHARDS: each shard's input window alone, against
+    # the shard form's plain version and, bit for bit, the whole launch
+    n = SPATIAL_SHARDS
+    lw = wb // n
+    windows = [kernels.resample_window("lanczos3", CONFIG3_SRC[1], float(CONFIG3_VALID[1]),
+                                       swb, wb, j * lw, (j + 1) * lw) for j in range(n)]
+    parts = [xs[:, :, k0:k1].contiguous() for k0, k1 in windows]
+
+    def shard_k1(fn):
+        return [fn(parts[j], sh, sw, dst_h, dst_w, hb, wb, "lanczos3",
+                   cols=(j * lw, (j + 1) * lw), in_col0=windows[j][0], in_wb=swb)[0]
+                for j in range(n)]
+
+    got = shard_k1(kernels.resample)
+    case = f"config3-4K-u8-{n}shards"
+    check_all("resample", list(zip(got, shard_k1(reference.resample))), res, case, F32_TOL)
+    if not all(torch.equal(g, out[:, :, j * lw:(j + 1) * lw]) for j, g in enumerate(got)):
+        raise AssertionError("K1's shard form differs from the whole launch")
+    timing(res, "resample", case, lambda: shard_k1(kernels.resample),
+           lambda: shard_k1(reference.resample), None,
+           sum(p.numel() for p in parts) + out.numel() * 4, flops)
+    log(f"  K1 shard form: {n} shards of {lw} columns, input windows {windows}, "
+        f"each bit-equal to the whole launch's columns")
+    # the same frame to K1_NARROW's width, whose shards are not a whole
+    # number of 32-column tiles: a shard's last tile overhangs its columns
+    # (which take no taps, so it reads only the staged window)
+    k1 = plan_operation("resize", build_params_from_query({"width": str(K1_NARROW[1])}),
+                        *CONFIG3_SRC, 1, 3).spec_key()[0]
+    nhb, nwb = k1.out_hb, k1.out_wb
+    nlw = nwb // n
+    if nwb % n or nlw % 32 == 0:
+        raise AssertionError(f"K1_NARROW's bucket width {nwb} must split into "
+                             f"{n} shards of a width that 32 does not divide")
+    ndh = torch.full((1,), float(K1_NARROW[0]), device=dev)
+    ndw = torch.full((1,), float(K1_NARROW[1]), device=dev)
+    whole, _, _ = kernels.resample(xs, sh, sw, ndh, ndw, nhb, nwb, "lanczos3")
+    nwin = [kernels.resample_window("lanczos3", CONFIG3_SRC[1], float(K1_NARROW[1]), swb,
+                                    nwb, j * nlw, (j + 1) * nlw) for j in range(n)]
+    nparts = [xs[:, :, k0:k1].contiguous() for k0, k1 in nwin]
+
+    def narrow_k1(fn):
+        return [fn(nparts[j], sh, sw, ndh, ndw, nhb, nwb, "lanczos3",
+                   cols=(j * nlw, (j + 1) * nlw), in_col0=nwin[j][0], in_wb=swb)[0]
+                for j in range(n)]
+
+    got = narrow_k1(kernels.resample)
+    case = f"4K-to-{K1_NARROW[1]}-u8-{n}shards"
+    check_all("resample", list(zip(got, narrow_k1(reference.resample))), res, case, F32_TOL)
+    if not all(torch.equal(g, whole[:, :, j * nlw:(j + 1) * nlw]) for j, g in enumerate(got)):
+        raise AssertionError(f"K1's shard form [{case}] differs from the whole launch")
+    log(f"  K1 shard form: {n} shards of {nlw} columns ({nlw % 32} past a whole tile), "
+        f"input windows {nwin}, each bit-equal to the whole launch's columns")
     log("  blur and composite: no single-call library equivalent (per-image "
         "masked taps; per-image tiling and blend): library_ms null")
 
@@ -1870,21 +1945,38 @@ def config4_inputs(bsz: int, dev, gen) -> tuple:
     return x.contiguous(), h, w
 
 
-def device_kernels(fn) -> list:
+# Windows taken for one call before device_kernels gives up on a trace
+# with no device activity in it
+PROFILE_TRIES = 5
+
+
+def device_kernels(fn, want: int) -> list:
     """(name, us) of each device activity (kernel, copy, fill) that one
     call of fn puts on the card, from torch.profiler. A kernel launched as
     a programmatic dependent of the one before it counts the time it
-    waited for that kernel."""
+    waited for that kernel. torch.profiler now and then drops all or part
+    of a window's device events when it runs many times in one process,
+    and never adds one: a window that recorded fewer than `want`
+    activities is taken again, up to PROFILE_TRIES windows, and the
+    fullest window comes back (so a call that really launches fewer or
+    more than `want` still shows it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
+    best: list = []
+    for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        got = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+        if len(got) > len(best):
+            best = got
+        if len(best) >= want:
+            break
+    return best
 
 
 def kernel_name(event: str) -> str:
@@ -1940,7 +2032,7 @@ def config4_kernel_phase(res: dict) -> None:
                None, ii.numel() * 4 + bsz * 8, 4.0 * bsz * hb * wb)
         for name, call in (("saliency", lambda: kernels.saliency_ii(x, h, w)),
                            ("window_argmax", lambda: kernels.window_argmax(ii, h, w, win, win))):
-            kern = device_kernels(call)
+            kern = device_kernels(call, CALL_KERNELS[name])
             if len(kern) != CALL_KERNELS[name]:
                 raise AssertionError(f"one {name} call [{case}] put {len(kern)} kernels on "
                                      f"the card ({kern}), not {CALL_KERNELS[name]}")
@@ -2498,6 +2590,9 @@ SHARDED_VALID = ((2100, 3800), (2160, 1920))
 SHARDED_CASES = ((8, 3.0), (64, 20.0))  # (radius, sigma)
 SHARDED_MESHES = ((1, 4), (2, 2))  # over four entries of one card
 SHARDED_U8 = (1, 2160, 3840, 3)
+# The spatial route's row: four entries of card 0 (phase 10(d)), and the
+# shards of phase 3's K1 shard-form check
+SPATIAL_SHARDS = 4
 LANE_ENTRIES = 4
 LANE_SHARD_MIN = 4
 
@@ -2511,12 +2606,13 @@ def shard_count(mesh, bsz: int) -> int:
 
 
 def sharded_blur_phase(res: dict) -> dict:
-    """Phase 10(a): K13 (both passes) against its plain version at every
-    shard of the path's shapes, the exchange, and sharded_blur against K6
-    (kernel and plain) on the unsharded image, on meshes (1, 4) and (2, 2)
-    over four entries of one card (and over real cards when there are
-    several). The counted run: one sharded_blur call per mesh at r = 8,
-    launches reset just before and read just after."""
+    """Phase 10(a): K13 (one fused launch a shard) against its plain
+    version at every shard of the path's shapes and sharded_blur against
+    K6 on the unsharded image (kernel, bit for bit, and plain), on meshes
+    (1, 4) and (2, 2) over four entries of one card (and over real cards
+    when there are several), at r = 8 and r = 64. The counted run: one
+    sharded_blur call per mesh at r = 8, launches reset just before and
+    read just after: one K13 launch a shard, no other kernel."""
     import torch
 
     from imaginary_tpu_torch import kernels
@@ -2549,10 +2645,10 @@ def sharded_blur_phase(res: dict) -> dict:
     counted = {name: spatial.sharded_blur(x, h, w, s0, r0, mesh) for name, mesh in meshes}
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
-    expected = sum(2 * shard_count(mesh, bsz) for _, mesh in meshes)
+    expected = sum(shard_count(mesh, bsz) for _, mesh in meshes)
     if launches["blur_halo"] != expected:
         raise AssertionError(f"blur_halo launched {launches['blur_halo']} times in "
-                             f"the counted run, expected {expected}")
+                             f"the counted run, expected {expected} (one a shard)")
     if any(n for k, n in launches.items() if k != "blur_halo"):
         raise AssertionError(f"sharded_blur launched other kernels: {launches}")
     out["launches"] = launches
@@ -2568,36 +2664,30 @@ def sharded_blur_phase(res: dict) -> dict:
             got = counted[name] if r == r0 else spatial.sharded_blur(x, h, w, s, r, mesh)
             err = check("blur_halo", got, k6, res, case + "-vs-K6", F32_TOL)
             check("blur_halo", got, plain6, res, case + "-vs-plain-K6", F32_TOL)
-            log(f"  K13 vs K6 [{case}]: max |diff| {err!r}, bit-equal "
-                f"{bool(torch.equal(got, k6))}")
-            # each pass against its plain version, shard by shard, on
-            # every device's current stream
+            if not torch.equal(got, k6):
+                raise AssertionError(f"K13 [{case}] is not bit-equal to K6 "
+                                     f"(max |diff| {err})")
+            log(f"  K13 vs K6 [{case}]: max |diff| {err!r}, bit-equal True")
+            # the kernel against its plain version, shard by shard, after
+            # the exchange, on every device's current stream
             grid = spatial.shard_inputs(
                 x, h, w, s, mesh, [torch.cuda.current_stream(d) if d.type == "cuda"
                                    else None for d in mesh.flat])
             shards = [sh for row in grid for sh in row]
-            spatial.blur_v(grid, r)
-            check_all("blur_halo", [
-                (sh.buf, reference.blur_halo_v(sh.x, sh.h, sh.w, sh.sigma, r, sh.col0))
-                for sh in shards], res, case + "-pass-v", F32_TOL)
             spatial.exchange_halos(grid, r)
-            check_all("blur_halo", [
-                (kernels.blur_halo_h(sh.buf, sh.h, sh.w, sh.sigma, r, sh.col0, wb),
-                 reference.blur_halo_h(sh.buf, sh.h, sh.w, sh.sigma, r, sh.col0, wb))
-                for sh in shards], res, case + "-pass-h", F32_TOL)
+
+            def k13(fn, shards=shards, r=r):
+                return [fn(sh.x, sh.left, sh.right, sh.h, sh.w, sh.sigma, r, sh.col0, wb)
+                        for sh in shards]
+
+            check_all("blur_halo", list(zip(k13(kernels.blur_halo),
+                                            k13(reference.blur_halo))),
+                      res, case + "-shards", F32_TOL)
             if name.startswith("cards"):
                 continue
-            ms_v = device_ms(lambda: [kernels.blur_halo_v(sh.x, sh.h, sh.w, sh.sigma, r,
-                                                          sh.col0) for sh in shards])
-            ms_h = device_ms(lambda: [kernels.blur_halo_h(sh.buf, sh.h, sh.w, sh.sigma, r,
-                                                          sh.col0, wb) for sh in shards])
+            ms = device_ms(lambda: k13(kernels.blur_halo))
             ms_x = device_ms(lambda: spatial.exchange_halos(grid, r))
-            plain_v = device_ms(lambda: [reference.blur_halo_v(sh.x, sh.h, sh.w, sh.sigma,
-                                                               r, sh.col0) for sh in shards],
-                                calls=3, reps=3)
-            plain_h = device_ms(lambda: [reference.blur_halo_h(sh.buf, sh.h, sh.w, sh.sigma,
-                                                               r, sh.col0, wb) for sh in shards],
-                                calls=3, reps=3)
+            plain = device_ms(lambda: k13(reference.blur_halo), calls=3, reps=3)
             whole = device_ms(lambda: spatial.sharded_blur(x, h, w, s, r, mesh))
             whole_call = call_ms(lambda: spatial.sharded_blur(x, h, w, s, r, mesh))
             k6_ms = device_ms(lambda: kernels.blur(x, h, w, s, r))
@@ -2607,27 +2697,28 @@ def sharded_blur_phase(res: dict) -> dict:
             b, by = bound_ms(nbytes, blur_flops(h, w, r, c))
             bx, _ = bound_ms(x_bytes, 0.0)
             res["blur_halo"][case + "-vs-K6"].update({
-                "ms": ms_v + ms_h, "pass_v_ms": ms_v, "pass_h_ms": ms_h,
-                "exchange_ms": ms_x, "exchange_bytes": x_bytes, "exchange_bound_ms": bx,
-                "sharded_blur_ms": whole, "sharded_blur_call_ms": whole_call,
-                "k6_ms": k6_ms, "plain_ms": plain_v + plain_h, "plain_v_ms": plain_v,
-                "plain_h_ms": plain_h, "bound_ms": b, "bound_by": by, "library_ms": None,
+                "ms": ms, "exchange_ms": ms_x, "exchange_bytes": x_bytes,
+                "exchange_bound_ms": bx, "sharded_blur_ms": whole,
+                "sharded_blur_call_ms": whole_call, "k6_ms": k6_ms, "ms_over_k6": ms / k6_ms,
+                "plain_ms": plain, "bound_ms": b, "bound_by": by, "library_ms": None,
                 "bytes": nbytes, "shards": len(shards)})
             log(f"  blur_halo {case:8s} err {res['blur_halo'][case + '-vs-K6']['max_abs_err']:.3g}"
-                f"  pass V {ms_v:.4f} ms + pass H {ms_h:.4f} ms (all {len(shards)} shards, "
-                f"one stream)  exchange {ms_x:.4f} ms ({x_bytes / 1e6:.2f} MB, bound "
-                f"{bx:.4f})  sharded_blur {whole:.4f} ms device, {whole_call:.4f} ms call  "
-                f"K6 {k6_ms:.4f} ms  plain {plain_v + plain_h:.4f} ms  bound {b:.4f} ms ({by})")
+                f"  K13 {ms:.4f} ms (all {len(shards)} shard launches, one stream; "
+                f"{ms / k6_ms:.2f}x K6)  exchange {ms_x:.4f} ms ({x_bytes / 1e6:.2f} MB, "
+                f"bound {bx:.4f})  sharded_blur {whole:.4f} ms device, {whole_call:.4f} ms "
+                f"call  K6 {k6_ms:.4f} ms  plain {plain:.4f} ms  bound {b:.4f} ms ({by})")
             del grid, shards
         del k6, plain6
     xu = torch.randint(0, 256, SHARDED_U8, generator=gen, device=dev, dtype=torch.uint8)
     n = SHARDED_U8[0]
     su = torch.full((n,), SHARDED_CASES[0][1], device=dev)
     got = spatial.sharded_blur(xu, h[:n], w[:n], su, r0, meshes[0][1])
-    check("blur_halo", got, kernels.blur(xu, h[:n], w[:n], su, r0), res,
-          f"{meshes[0][0]}-u8-vs-K6", F32_TOL)
+    k6u = kernels.blur(xu, h[:n], w[:n], su, r0)
+    check("blur_halo", got, k6u, res, f"{meshes[0][0]}-u8-vs-K6", F32_TOL)
     check("blur_halo", got, reference.blur(xu, h[:n], w[:n], su, r0), res,
           f"{meshes[0][0]}-u8-vs-plain-K6", F32_TOL)
+    if not torch.equal(got, k6u):
+        raise AssertionError("K13 on a uint8 frame is not bit-equal to K6")
     log("  blur_halo: no single-call library equivalent (per-image masked taps "
         "over W-shards with halos): library_ms null")
     torch.cuda.synchronize()
@@ -2843,6 +2934,257 @@ def mesh_lanes_phase() -> dict:
     return out
 
 
+# Phase 10(d): the dry run's chain on the 4K PNG (resize + blur + bw),
+# served as JPEG; requests of each chain one at a time on each server
+SPATIAL_BW_QUERY = {"width": "1920", "sigma": "2", "colorspace": "bw", "type": "jpeg"}
+SPATIAL_SERIAL = 5
+SPATIAL_PROFILED = 2
+# (name, path, MIME type, decoded (h, w), its plan as (op, query) or ops)
+SPATIAL_REQUESTS = (
+    ("config3", "/pipeline?operations=" + urllib.parse.quote(json.dumps(CONFIG3_OPS)),
+     "image/webp", (720, 1280)),
+    ("bw", "/resize?" + urllib.parse.urlencode(SPATIAL_BW_QUERY), "image/jpeg",
+     (1080, 1920)),
+)
+
+
+def spatial_expected(plan, arr, n: int) -> dict:
+    """One request's launches on the spatial route over n shards: n of
+    each W-sharded stage's kernels, one of each stage after a gather."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.ops import chain
+    from imaginary_tpu_torch.ops.buckets import bucket_shape
+
+    specs = plan.spec_key()
+    hb, wb = bucket_shape(*arr.shape[:2])
+    sharded, gather_at = chain.spatial_split(specs, hb, wb, n)
+    live = chain.live_stages(specs, hb, wb)
+    out = dict.fromkeys(kernels.LAUNCHES, 0)
+    for i in live:
+        name = "blur_halo" if type(specs[i]).__name__ == "BlurSpec" and i in sharded else None
+        for k, v in SPEC_LAUNCHES[type(specs[i]).__name__].items():
+            out[name or k] += v * (n if i in sharded else 1)
+    return out
+
+
+# each W-shard form's kernel (launch_spatial's trace names the spec)
+SHARD_KERNELS = {"SampleSpec": "resample", "BlurSpec": "blur_halo",
+                 "CompositeSpec": "composite", "GraySpec": "gray"}
+
+
+def spatial_shard_check(plans: dict, res: dict, entry, n: int) -> dict:
+    """Phase 10(d)'s kernels at the route's own shapes, before the counted
+    run: each plan launched W-sharded over n entries of one card
+    (`chain.launch_spatial`) and every shard's launch of every sharded
+    stage (K1's window, K13 after the halo exchange, K7 with its shifted
+    `left`, K8) held against its plain version on the same inputs (F32_TOL;
+    U8_TOL for the last stage, which writes uint8), and the assembled
+    output bit-equal to the unsharded chain's. Then config 3's K13 shard
+    launches timed (K13's row in the kernels line) beside K6 on the same
+    columns unsharded."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops import chain
+
+    streams = [torch.cuda.Stream(entry) for _ in range(n)] if entry.type == "cuda" else None
+    traces = {}
+    for name, (arr, p) in plans.items():
+        trace = []
+        got = chain.fetch_batch(chain.launch_spatial(arr, p, [entry] * n, streams, trace),
+                                [arr], [p])[0]
+        torch.cuda.synchronize()
+        want = chain.run_single(arr, p, device=entry)
+        if not np.array_equal(got, want):
+            raise AssertionError(f"spatial {name}: the W-sharded chain differs from the "
+                                 f"unsharded one")
+        for i, j, spec, args, out in trace:
+            kname = SHARD_KERNELS[type(spec).__name__]
+            plain = spec.apply_shard(*args, impl=reference)[0]
+            check(kname, out, plain, res, f"spatial-{name}-stage{i}-shard{j}",
+                  U8_TOL if args[-1] else F32_TOL)
+        stages = sorted({(i, SHARD_KERNELS[type(sp).__name__], tuple(o.shape), str(o.dtype))
+                         for i, _, sp, _, o in trace})
+        log(f"  spatial {name}: {len(trace)} shard launches each within tolerance of "
+            f"its plain version; stages {stages}; output bit-equal to the unsharded chain")
+        traces[name] = trace
+    # K13 at config 3's shard shapes: one launch a shard, on one stream
+    k13 = [(sp, args) for _, _, sp, args, _ in traces["config3"]
+           if SHARD_KERNELS[type(sp).__name__] == "blur_halo"]
+    sp, a0 = k13[0]
+    x_full = torch.cat([a[0] for _, a in k13], dim=2)
+    h, w, sigma = a0[3], a0[4], a0[5]["sigma"]
+    r, c = sp.radius, x_full.shape[3]
+
+    def shards(impl=kernels):
+        return [s.apply_shard(*a, impl=impl) for s, a in k13]
+
+    ms = device_ms(shards)
+    plain = device_ms(lambda: shards(reference), calls=3, reps=3)
+    k6_ms = device_ms(lambda: kernels.blur(x_full, h, w, sigma, r))
+    if not torch.equal(torch.cat([o for o, _, _ in shards()], dim=2),
+                       kernels.blur(x_full, h, w, sigma, r)):
+        raise AssertionError("config 3's K13 shards are not bit-equal to K6 on their columns")
+    nbytes = sum(t.numel() * t.element_size() for _, a in k13
+                 for t in (a[0], a[1], a[2]) if t is not None)
+    nbytes += x_full.numel() * 4  # f32 out
+    b, by = bound_ms(nbytes, blur_flops(h, w, r, c))
+    case = "spatial-config3"
+    res["blur_halo"][case] = {
+        "max_abs_err": max(v["max_abs_err"] for k, v in res["blur_halo"].items()
+                           if k.startswith("spatial-config3-")),
+        "ms": ms, "plain_ms": plain, "k6_ms": k6_ms, "ms_over_k6": ms / k6_ms,
+        "bound_ms": b, "bound_by": by, "library_ms": None, "bytes": nbytes,
+        "shape": list(x_full.shape), "shards": len(k13), "radius": r}
+    log(f"  blur_halo {case}: {len(k13)} shards of {list(a0[0].shape)} (r={r}) "
+        f"{ms:.4f} ms, K6 on the same {list(x_full.shape)} {k6_ms:.4f} ms "
+        f"({ms / k6_ms:.2f}x), plain {plain:.4f} ms, bound {b:.4f} ms ({by}); "
+        f"bit-equal to K6")
+    torch.cuda.synchronize()
+    return {"shard_launches": {k: len(t) for k, t in traces.items()},
+            "k13_config3": res["blur_halo"][case]}
+
+
+def spatial_route_phase(png: bytes, res: dict) -> dict:
+    """Phase 10(d): config 3's /pipeline and the dry run's bw chain on the
+    4K PNG, one request at a time, from the off server, then a lanes server
+    over SPATIAL_SHARDS entries of card 0 with --spatial SPATIAL_SHARDS and
+    the default bar (its input bucket, 2560x4096, crosses 3840x2160), then
+    the off server again. The spatial server's counted run (launches reset
+    just before, read just after): every answer byte-equal to the off
+    server's, /health's spatial_batches rising by the requests served and
+    spatial_gathers empty, each request's launches those of
+    `spatial_expected` (n K1 + n K13 + n K7 or K8). p50 by server, and the
+    card's busy time of a request on each."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from imaginary_tpu_torch import codecs, kernels
+    from imaginary_tpu_torch.ops import chain
+    from imaginary_tpu_torch.web.app import make_server
+
+    n = SPATIAL_SHARDS
+    plans = {"config3": pipeline_request(png, CONFIG3_OPS, "rgb"),
+             "bw": request_plan(png, "resize", SPATIAL_BW_QUERY)}
+    per_request = {name: spatial_expected(p, arr, n) for name, (arr, p) in plans.items()}
+    want_k = {"config3": {"resample": n, "blur_halo": n, "composite": n},
+              "bw": {"resample": n, "blur_halo": n, "gray": n}}
+    for name, got in per_request.items():
+        if {k: v for k, v in got.items() if v} != want_k[name]:
+            raise AssertionError(f"spatial {name}: the plan launches {got}")
+    expected = dict.fromkeys(kernels.LAUNCHES, 0)
+    for launches in per_request.values():
+        for k, v in launches.items():
+            expected[k] += SPATIAL_SERIAL * v
+
+    def health(port) -> dict:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+            return json.loads(r.read())["executor"]
+
+    def run(srv) -> dict:
+        port = srv.server_address[1]
+        for _, path, _, _ in SPATIAL_REQUESTS:  # one untimed each
+            http(port, path, png)
+        before = health(port)
+        kernels.reset_launches()
+        lat, bodies = {}, {}
+        for name, path, mime, dims in SPATIAL_REQUESTS:
+            lat[name], bodies[name] = [], set()
+            for _ in range(SPATIAL_SERIAL):
+                t0 = time.perf_counter()
+                status, ctype, body = http(port, path, png)
+                lat[name].append((time.perf_counter() - t0) * 1e3)
+                if (status, ctype) != (200, mime):
+                    raise AssertionError(f"spatial phase {name}: {status} {ctype}")
+                bodies[name].add(body)
+            if codecs.decode(body).array.shape[:2] != dims:
+                raise AssertionError(f"spatial phase {name}: output is not {dims}")
+        launches = kernels.launch_counts()
+        after = health(port)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPATIAL_PROFILED):
+                http(port, SPATIAL_REQUESTS[0][1], png)
+        busy, summed, by_name = busy_union_us(prof)
+        # a window in which the profiler recorded no device event measured
+        # nothing (it happens to a later profiler in one process)
+        seen = summed > 0
+        return {"lat": lat, "bodies": bodies, "launches": launches, "before": before,
+                "after": after, "busy_us": busy / SPATIAL_PROFILED if seen else None,
+                "summed_us": summed / SPATIAL_PROFILED if seen else None,
+                "by_name_us": {k: v / SPATIAL_PROFILED for k, v in by_name.items()}}
+
+    entry = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
+    shard_check = spatial_shard_check(plans, res, entry, n)
+    runs = {"off_before": serving(make_server("127.0.0.1", 0, device=DEVICE), run)}
+    runs["spatial"] = serving(make_server("127.0.0.1", 0, device=DEVICE, mesh_policy="lanes",
+                                          devices=[entry] * n, spatial=n), run)
+    runs["off_after"] = serving(make_server("127.0.0.1", 0, device=DEVICE), run)
+    sp = runs["spatial"]
+    for name, _, _, _ in SPATIAL_REQUESTS:
+        want = runs["off_before"]["bodies"][name]
+        if len(want) != 1 or runs["off_after"]["bodies"][name] != want:
+            raise AssertionError(f"the off server's {name} answers differ among themselves")
+        if sp["bodies"][name] != want:
+            raise AssertionError(f"spatial {name}: an answer differs from the off server's")
+    served = SPATIAL_SERIAL * len(SPATIAL_REQUESTS)
+    rise = sp["after"]["spatial_batches"] - sp["before"]["spatial_batches"]
+    if rise != served or sp["after"]["spatial_batches"] != served + len(SPATIAL_REQUESTS):
+        raise AssertionError(f"spatial_batches rose by {rise} for {served} requests "
+                             f"({sp['after']['spatial_batches']} in all)")
+    if sp["after"]["spatial_gathers"]:
+        raise AssertionError(f"the spatial route gathered: {sp['after']['spatial_gathers']}")
+    if sp["launches"] != expected:
+        raise AssertionError(f"spatial route launches {sp['launches']}, the plans say "
+                             f"{expected}")
+    # the chain of one config 3 request on the host clock, unsharded and
+    # spatial: staging and launch, then the fetch (median of 5 each)
+    arr, p = plans["config3"]
+    streams = [torch.cuda.Stream(entry) for _ in range(n)] if DEVICE == "cuda" else None
+
+    def split(launch) -> dict:
+        ts = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            y = launch()
+            t1 = time.perf_counter()
+            chain.fetch_batch(y, [arr], [p])
+            ts.append((t1 - t0, time.perf_counter() - t1))
+        ts = ts[1:]
+        return {"launch_ms": statistics.median(a for a, _ in ts) * 1e3,
+                "fetch_ms": statistics.median(b for _, b in ts) * 1e3}
+
+    host = {"unsharded": split(lambda: chain.launch_batch([arr], [p], device=entry)),
+            "spatial": split(lambda: chain.launch_spatial(arr, p, [entry] * n, streams))}
+    out = {"shards": n, "serial": SPATIAL_SERIAL, "launches": sp["launches"],
+           "per_request": per_request, "spatial_batches": sp["after"]["spatial_batches"],
+           "spatial_gathers": sp["after"]["spatial_gathers"], "chain_host_ms": host,
+           "shard_check": shard_check}
+    log("  config 3's chain on the host clock (median of 5): " + "; ".join(
+        f"{k} launch {v['launch_ms']:.2f} ms + fetch {v['fetch_ms']:.2f} ms"
+        for k, v in host.items()))
+    for key, r in runs.items():
+        out[key] = {"p50_ms": {k: float(np.percentile(v, 50)) for k, v in r["lat"].items()},
+                    "lat_ms": r["lat"], "busy_us_config3": r["busy_us"],
+                    "summed_us_config3": r["summed_us"], "by_name_us": r["by_name_us"]}
+        busy = ("not measured (the profiler recorded no device event)"
+                if r["busy_us"] is None else
+                f"{r['busy_us']:.1f} us a config 3 request (summed {r['summed_us']:.1f} us)")
+        log(f"  {key}: p50 " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                           out[key]["p50_ms"].items())
+            + f"; card busy {busy}")
+    log(f"  spatial route over {n} entries of one card: {served} requests byte-equal to "
+        f"the off server's, spatial_batches +{rise}, no gather; launches "
+        f"{ {k: v for k, v in sp['launches'].items() if v} } "
+        f"({n} K1 + {n} K13 + {n} K7 or K8 a request)")
+    for name, us in sorted(sp["by_name_us"].items(), key=lambda kv: -kv[1])[:8]:
+        log(f"    {us:9.2f} us/request  {name[:90]}")
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2930,6 +3272,9 @@ def main() -> int:
     log("== phase 10b/c: multi-GPU lanes (--mesh-policy lanes; four lanes on one "
         "card, lanes and sharded; chip_error[1] failover)")
     report["mesh_lanes"] = mesh_lanes_phase()
+    log(f"== phase 10d: the spatial route (config 3's /pipeline and the bw chain on the "
+        f"4K PNG, W-sharded over {SPATIAL_SHARDS} entries of one card)")
+    report["spatial"] = spatial_route_phase(png, report["kernels"])
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -2940,13 +3285,13 @@ def main() -> int:
                      "composite": "B1-replicate-C3", "gray": "bw-route",
                      "saliency": "B1", "window_argmax": "B1",
                      "from_dct": "main-420-k2", "to_dct": "resize-208x304",
-                     "blur_halo": "1x4-r8-vs-K6"}[name]
+                     "blur_halo": "spatial-config3"}[name]
         m = per_case[main_case]
         # each kernel's launches come from the run of the path it serves
         path = {"blur": "config3", "composite": "config3", "gray": "config3",
                 "saliency": "config4", "window_argmax": "config4",
                 "from_dct": "dct", "to_dct": "dct",
-                "blur_halo": "sharded_blur"}.get(name, "config2")
+                "blur_halo": "spatial"}.get(name, "config2")
         rows.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": report[path]["launches"][name],
@@ -2957,6 +3302,7 @@ def main() -> int:
             "launches_config4": report["config4"]["launches"][name],
             "launches_dct": report["dct"]["launches"][name],
             "launches_sharded_blur": report["sharded_blur"]["launches"][name],
+            "launches_spatial": report["spatial"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

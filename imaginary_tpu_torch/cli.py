@@ -47,6 +47,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "'sharded'/'auto' also split big chunks over the "
                          "healthy cards; 'off' (default) is one "
                          "collector/fetcher pair on --device")
+    ap.add_argument("--spatial", type=int, default=1,
+                    help="spatial axis of the lanes' mesh: a single image "
+                         "whose input bucket crosses the bar is W-sharded "
+                         "over that many entries (1 = off)")
+    ap.add_argument("--spatial-threshold-px", type=int, default=3840 * 2160,
+                    help="input-bucket pixel count at which a single image "
+                         "W-shards over the spatial axis")
+    ap.add_argument("--spatial-mpix", type=float, default=0.0,
+                    help="the same bar in megapixels (maps onto "
+                         "--spatial-threshold-px; 0 keeps the pixel knob)")
     ap.add_argument("--lane-form-ms", type=float, default=-1.0,
                     help="per-lane batch-formation cap in ms (negative = "
                          "inherit --batch-form-ms)")
@@ -70,7 +80,10 @@ def make_server_from_args(args: argparse.Namespace):
                        transport_dct_egress=args.transport_dct_egress,
                        mesh_policy=args.mesh_policy, n_devices=args.devices,
                        lane_form_ms=args.lane_form_ms if args.lane_form_ms >= 0 else None,
-                       lane_inflight=args.lane_inflight)
+                       lane_inflight=args.lane_inflight,
+                       spatial=max(1, args.spatial),
+                       spatial_threshold_px=max(1, args.spatial_threshold_px),
+                       spatial_mpix=max(0.0, args.spatial_mpix))
 
 
 def main(argv=None) -> None:

@@ -34,8 +34,20 @@ fall through to the global collector, which launches on `device`: host
 spill is not ported, so that is the end of the ladder. "off" builds no
 lane object and serves exactly as the single pair does.
 
-Not ported yet: host spill, hedging, the watchdog, OOM bisection, the
-oversize-single spatial route, `use_mesh` batch sharding, multi-host,
+The oversize-single spatial route (the reference's executor.py:1660-1671
+and :1882-1897): with `spatial` > 1 the lanes' mesh has a spatial axis
+of that many entries, and a single-item lane chunk that is not
+batch-sharded and whose input bucket crosses `spatial_threshold_px`
+(with a width that splits over the axis) runs W-sharded over the row of
+the mesh that holds its lane (`ops/chain.launch_spatial`), on those
+entries' lane streams. It is counted in `spatial_batches`; a stage
+without a W-sharded form gathers the shards explicitly and is counted in
+`spatial_gathers` by spec name. Any quarantine turns the route off until
+the full mesh is re-admitted. The reference pads the single image to the
+mesh's batch axis; the port launches only the row that serves it.
+
+Not ported yet: host spill, hedging, the watchdog, OOM bisection,
+`use_mesh` batch sharding, multi-host,
 qos, memory pressure, integrity checks, devhealth's fail-slow and
 corruption branches, the convoy policy and placement notes. A failed
 launch or fetch on the global pair fails the futures of its own chunk and
@@ -99,6 +111,12 @@ class ExecutorConfig:
     # failures, probe for re-admission after breaker_cooldown_s.
     breaker_threshold: int = 3
     breaker_cooldown_s: float = 30.0
+    # The oversize-single spatial route (module docstring): the mesh's
+    # spatial axis, and the input-bucket pixel bar at which a single item
+    # W-shards over it; spatial_mpix > 0 sets the bar in megapixels.
+    spatial: int = 1
+    spatial_threshold_px: int = 3840 * 2160
+    spatial_mpix: float = 0.0
 
 
 @dataclasses.dataclass
@@ -115,6 +133,10 @@ class ExecutorStats:
     lanes_snapshot: Optional[object] = None
     mesh_generation: int = 0
     sharded_batches: int = 0  # lane chunks split over the mesh
+    spatial_batches: int = 0  # single items W-sharded over a spatial row
+    # spec name -> spatial launches gathered at that stage; None while the
+    # spatial route is not armed (to_dict then shows neither key)
+    spatial_gathers: Optional[dict] = None
 
     def to_dict(self) -> dict:
         snap = TIMES.snapshot()
@@ -141,6 +163,9 @@ class ExecutorStats:
             if lanes:
                 out["lanes"] = lanes
                 out["mesh_generation"] = self.mesh_generation
+        if self.spatial_gathers is not None:
+            out["spatial_batches"] = self.spatial_batches
+            out["spatial_gathers"] = dict(self.spatial_gathers)
         return out
 
 
@@ -180,6 +205,11 @@ class Executor:
         self.config = config or ExecutorConfig()
         if self.config.max_batch < 1:
             raise ValueError("max_batch must be at least 1")
+        if self.config.spatial_mpix > 0.0:
+            # the megapixel knob maps onto the pixel bar: one bar for both
+            self.config = dataclasses.replace(
+                self.config,
+                spatial_threshold_px=int(self.config.spatial_mpix * 1e6))
         self._mesh_policy = (self.config.mesh_policy or "off").lower()
         if self._mesh_policy not in MESH_POLICIES:
             raise ValueError(f"unknown mesh policy {self.config.mesh_policy!r} "
@@ -191,6 +221,8 @@ class Executor:
         self._mesh = None
         self._lane_mesh = None  # the healthy mesh sharded dispatch uses
         self._lane_streams = None  # its entries' lane streams
+        self._spatial = 1  # the full mesh's spatial axis (lanes only)
+        self._spatial_on = False  # the route is armed and the mesh whole
         self._lane_lock = threading.Lock()  # serialises topology refreshes
         self._lanes_devhealth_gen = 0
         self._mesh_generation = 0
@@ -399,7 +431,7 @@ class Executor:
         for as long as the executor does. The global pair stays up as the
         tier items fall to when every lane is quarantined."""
         cfg = self.config
-        mesh = get_mesh(cfg.n_devices or None,
+        mesh = get_mesh(cfg.n_devices or None, max(1, cfg.spatial),
                         devices=cfg.devices if cfg.devices else cfg.device)
         for dev in mesh.flat:
             if dev.type == "cuda" and not torch.cuda.is_available():
@@ -416,6 +448,10 @@ class Executor:
         self._lanes = lanes_mod.LaneScheduler(lanes)
         if self._mesh_policy in ("sharded", "auto"):
             self._set_lane_mesh(range(len(devs)))
+        self._spatial = mesh.shape[1]
+        if self._spatial > 1:
+            self._spatial_on = True
+            self.stats.spatial_gathers = {}
         self._lanes_devhealth_gen = self.devhealth.generation
         self.devhealth.set_lane_stats_provider(self._lanes.snapshot)
         self.stats.lanes_snapshot = self._lanes.snapshot
@@ -451,6 +487,17 @@ class Executor:
             return self.config.shard_min_items
         mesh = self._lane_mesh
         return max(2, 2 * (mesh.shape[0] if mesh is not None else 1))
+
+    def _spatial_route(self, key) -> bool:
+        """The oversize-single route decision (the reference's
+        `_spatial_route`): the route is armed on a whole mesh, the input
+        bucket crosses the pixel bar, and its width splits evenly over the
+        spatial axis."""
+        if not self._spatial_on:
+            return False
+        _, hb, wb, _c = key
+        return (hb * wb >= self.config.spatial_threshold_px
+                and wb % self._spatial == 0)
 
     def _lane_collect(self, lane) -> None:
         """One lane's collector: the continuous policy on one entry. Its
@@ -516,9 +563,10 @@ class Executor:
 
     def _lane_dispatch(self, lane, items: list) -> None:
         """Launch one lane chunk: split over the healthy mesh when it
-        reaches the sharded threshold, else on this lane's device and
-        stream. A failure strikes this lane's fault domain and the chunk
-        moves to the other lanes."""
+        reaches the sharded threshold; a single oversize item W-sharded
+        over the spatial row of this lane's entry; else on this lane's
+        device and stream. A failure strikes this lane's fault domain and
+        the chunk moves to the other lanes."""
         now = time.monotonic()
         for it in items:
             bf_ms = (it.t_close - it.t) * 1000.0
@@ -530,12 +578,20 @@ class Executor:
             LANE_TIMES.record(lane.idx, "dispatch_wait", dw_ms)
         mesh, streams = self._lane_mesh, self._lane_streams
         sharded = mesh is not None and len(items) >= self._shard_min()
+        spatial = (not sharded and len(items) == 1
+                   and self._spatial_route(items[0].key))
         arrs = [it.arr for it in items]
         plans = [it.plan for it in items]
         try:
             failpoints.hit("device.chip_error", key=lane.idx)
             if sharded:
                 launched = chain_mod.launch_sharded(arrs, plans, mesh, streams)
+            elif spatial:
+                row = lane.idx // self._spatial
+                entries = range(row * self._spatial, (row + 1) * self._spatial)
+                launched = chain_mod.launch_spatial(
+                    arrs[0], plans[0], self._mesh.devices[row],
+                    [self._lanes.lane(i).stream for i in entries])
             else:
                 launched = chain_mod.launch_batch(arrs, plans, device=lane.device,
                                                   stream=lane.stream)
@@ -549,6 +605,13 @@ class Executor:
             self.stats.groups += 1
             self.stats.batches += 1
             self.stats.sharded_batches += int(sharded)
+            if spatial:
+                self.stats.spatial_batches += 1
+                if launched is not None and launched.gathered is not None:
+                    # a new dict, so to_dict's copy never sees one change
+                    g = self.stats.spatial_gathers
+                    self.stats.spatial_gathers = {
+                        **g, launched.gathered: g.get(launched.gathered, 0) + 1}
             self.stats.max_group_seen = max(self.stats.max_group_seen, len(items))
         lane.dispatches += 1
         # a full in-flight window blocks here: the lane's backpressure,
@@ -625,6 +688,10 @@ class Executor:
                 ln.active = ln.idx in avail
             if self._mesh_policy in ("sharded", "auto"):
                 self._set_lane_mesh(avail)
+            # W-sharding needs the whole grid: any quarantine turns the
+            # spatial route off until the full mesh is re-admitted
+            self._spatial_on = (self._spatial > 1
+                                and len(avail) == len(self._lanes.lanes))
             self._mesh_generation += 1
             self.stats.mesh_generation = self._mesh_generation
 
@@ -668,6 +735,8 @@ class Executor:
                 "shard_min_items": (self._shard_min()
                                     if self._lane_mesh is not None else 0),
                 "sharded_batches": self.stats.sharded_batches,
+                "spatial": self._spatial,
+                "spatial_on": self._spatial_on,
                 "lanes": self._lanes.snapshot(),
                 "stage_times": LANE_TIMES.snapshot(),
             }

@@ -14,7 +14,7 @@
 | window_argmax   | csrc/saliency.cu       | ops/saliency.py:55-69 smart_offsets' argmax      |
 | from_dct        | csrc/from_dct.cu       | ops/stages.py:425-518 FromDctSpec (+ int16 cast) |
 | to_dct          | csrc/to_dct.cu         | ops/stages.py:555-622 ToDctSpec + int16 drain    |
-| blur_halo       | csrc/blur_halo.cu      | parallel/spatial.py:56-124 sharded_blur's passes |
+| blur_halo       | csrc/blur_halo.cu      | parallel/spatial.py:56-124 sharded_blur (K6 on a W-shard) |
 
 Each wrapper below takes tensors on one device. On a CPU tensor it runs
 the kernel's plain version (`reference.py`). On a CUDA tensor it checks
@@ -34,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import threading
 
+import numpy as np
 import torch
 
 from imaginary_tpu_torch.kernels import reference
@@ -45,7 +46,7 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "resample": ("resample", "itpu_resample",
                  [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                  _I, _P]),
+                  _I, _I, _I, _I, _I, _P]),
     "yuv420_unpack": ("yuv420_unpack", "itpu_yuv420_to_rgb",
                       [_P, _P, _P, _P, _I, _I, _I, _P]),
     "yuv420_pack": ("yuv420_pack", "itpu_rgb_to_yuv420",
@@ -68,18 +69,14 @@ _SIGNATURES = {
     "from_dct": ("from_dct", "itpu_from_dct",
                  [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "to_dct": ("to_dct", "itpu_to_dct", [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
-    "blur_halo_v": ("blur_halo", "itpu_blur_halo_v",
-                    [_P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    "blur_halo_h": ("blur_halo", "itpu_blur_halo_h",
-                    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "blur_halo": ("blur_halo", "itpu_blur_halo",
+                  [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _P]),
 }
-# C functions counted under another kernel's name (K13's two passes).
-_COUNTED_AS = {"blur_halo_v": "blur_halo", "blur_halo_h": "blur_halo"}
 
-# Kernel launches since the last reset, per kernel (saliency and
-# blur_halo count their two passes as two launches).
-# Written under _COUNT_LOCK only.
-LAUNCHES = {_COUNTED_AS.get(name, name): 0 for name in _SIGNATURES}
+# Kernel launches since the last reset, per kernel (saliency counts its
+# two passes as two launches). Written under _COUNT_LOCK only.
+LAUNCHES = {name: 0 for name in _SIGNATURES}
 
 _FNS: dict = {}
 _LOCK = threading.Lock()  # the build and load
@@ -139,7 +136,7 @@ def _launch(name: str, device: torch.device, *args, passes: int = 1) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    _count(_COUNTED_AS.get(name, name), passes)
+    _count(name, passes)
 
 
 def _ptr(t):
@@ -164,16 +161,30 @@ _F32 = (torch.float32,)
 
 
 def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
-             out_u8: bool = False):
+             out_u8: bool = False, cols=None, in_col0: int = 0, in_wb=None):
     """K1: separable resample of x [B, Hb, Wb, C] (uint8 or f32, C 1 to 4)
     to [B, out_hb, out_wb, C] (f32, or uint8 with the epilogue), both axes
     in one launch.
 
     h, w: int32 [B] valid input dims; dst_h, dst_w: f32 [B] target dims.
-    Returns (out, int32 dst_h, int32 dst_w)."""
+    Returns (out, int32 dst_h, int32 dst_w).
+
+    W-shard form: with `cols` = (c0, c1) the output holds only columns
+    [c0, c1) of the out_wb-wide bucket, and x holds only input columns
+    [in_col0, in_col0 + x.shape[2]) of an input bucket `in_wb` wide. The
+    caller makes those cover `resample_window`'s columns of every image
+    (the kernel reads them unchecked). The shard's columns equal the
+    whole image's."""
+    in_wb = x.shape[2] if in_wb is None else in_wb
+    c0, c1 = (0, out_wb) if cols is None else cols
+    if not (0 <= c0 < c1 <= out_wb and 0 <= in_col0
+            and in_col0 + x.shape[2] <= in_wb):
+        raise ValueError(f"shard columns [{c0}, {c1}) of {out_wb} from input "
+                         f"columns [{in_col0}, {in_col0 + x.shape[2]}) of {in_wb}")
     if x.device.type == "cpu":
         return reference.resample(x, h, w, dst_h, dst_w, out_hb, out_wb,
-                                  kind, out_u8)
+                                  kind, out_u8, cols=(c0, c1), in_col0=in_col0,
+                                  in_wb=in_wb)
     if kind not in _RESAMPLE_KIND:
         raise ValueError(f"unknown kernel {kind!r}")
     dev = x.device
@@ -184,15 +195,50 @@ def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
     for t, n, dts in ((h, "h", _I32), (w, "w", _I32), (dst_h, "dst_h", _F32),
                       (dst_w, "dst_w", _F32)):
         _require(t, n, dts, (bsz,), dev)
-    out = torch.empty((bsz, out_hb, out_wb, c),
+    out = torch.empty((bsz, out_hb, c1 - c0, c),
                       dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
     h_out = torch.empty((bsz,), dtype=torch.int32, device=dev)
     w_out = torch.empty((bsz,), dtype=torch.int32, device=dev)
     _launch("resample", dev, x.data_ptr(), int(x.dtype == torch.uint8),
             out.data_ptr(), int(out_u8), h.data_ptr(), w.data_ptr(),
             dst_h.data_ptr(), dst_w.data_ptr(), h_out.data_ptr(), w_out.data_ptr(),
-            bsz, in_h, in_w, out_hb, out_wb, c, _RESAMPLE_KIND[kind])
+            bsz, in_h, in_w, out_hb, c1 - c0, c, _RESAMPLE_KIND[kind], in_col0,
+            in_wb, c0, out_wb)
     return out, h_out, w_out
+
+
+# Columns of margin `resample_window` adds on each side: the kernel's
+# f32 tap ranges may round one column wider than numpy's (contracted
+# multiply-adds).
+RESAMPLE_WINDOW_MARGIN = 2
+_SUPPORT = {"lanczos3": 3.0, "lanczos2": 2.0, "cubic": 2.0, "linear": 1.0,
+            "nearest": 0.5}
+
+
+def resample_window(kind: str, src: int, dst: float, in_b: int, out_b: int,
+                    c0: int, c1: int) -> tuple:
+    """The input columns [k0, k1) that K1 reads for output columns [c0, c1)
+    of an image `src` columns wide (bucket in_b) resampled to `dst` columns
+    (bucket out_b): the union of those columns' tap ranges, in the kernel's
+    f32 arithmetic (csrc/resample.cu `axis_taps`), widened by
+    RESAMPLE_WINDOW_MARGIN and clipped to the bucket. At least one column."""
+    f32 = np.float32
+    srcf = f32(max(src, 1))
+    dstf = f32(max(dst, 1.0))
+    scale = dstf / srcf
+    stretch = max(f32(1.0), f32(1.0) / scale)
+    reach = f32(_SUPPORT[kind]) * stretch
+    last = min(in_b, int(srcf)) - 1
+    o = np.arange(c0, c1)
+    o = o[(o.astype(f32) < dstf) & (o < out_b)]
+    if o.size == 0 or last < 0:
+        return 0, 1
+    centre = (o.astype(f32) + f32(0.5)) / scale - f32(0.5)
+    lo = max(int(np.floor(centre[0] - reach)) - 1, 0)
+    hi = min(int(np.ceil(centre[-1] + reach)) + 1, last)
+    k0 = max(lo - RESAMPLE_WINDOW_MARGIN, 0)
+    k1 = min(max(hi, lo) + 1 + RESAMPLE_WINDOW_MARGIN, in_b)
+    return k0, max(k1, k0 + 1)
 
 
 def yuv420_to_rgb(x, h, w, hb: int, wb: int):
@@ -502,57 +548,45 @@ def to_dct(x, h, w, qy, qc, hb: int, wb: int):
     return out
 
 
-def _halo_args(h, w, sigma, bsz: int, dev) -> None:
-    _require(h, "h", _I32, (bsz,), dev)
-    _require(w, "w", _I32, (bsz,), dev)
-    _require(sigma, "sigma", _F32, (bsz,), dev)
-
-
-def blur_halo_v(x, h, w, sigma, radius: int, col0: int):
-    """K13, pass V: the shard x [B, Hb, lw, C] (uint8 or f32, C 1 to 4)
-    holding global columns [col0, col0 + lw) -> f32 [B, Hb, lw + 2 * radius,
-    C]: conv_v(x * mask) on the valid rows in the core columns [radius,
-    radius + lw), 0 elsewhere and in both halos. h, w: int32 [B] valid
-    dims of the whole image; sigma: f32 [B]; radius 0 to 64."""
+def blur_halo(x, left, right, h, w, sigma, radius: int, col0: int, wb: int,
+              out_u8: bool = False):
+    """K13: K6 on one W-shard in one launch. x [B, Hb, lw, C] (uint8 or
+    f32, C 1 to 4) holds global columns [col0, col0 + lw) of a bucket wb
+    wide; left and right [B, Hb, radius, C] (x's dtype) hold the
+    neighbouring columns [col0 - radius, col0) and [col0 + lw, col0 + lw +
+    radius), copied from the neighbouring shards. A halo that lies outside
+    the bucket (the first shard's left, the last shard's right) may be
+    None; it is never read. h, w: int32 [B] valid dims of the whole image;
+    sigma f32 [B]. Returns f32 [B, Hb, lw, C] (uint8 with the epilogue),
+    equal to K6's output at those columns."""
     if not 0 <= radius <= MAX_BLUR_RADIUS:
         raise ValueError(f"blur radius {radius} outside 0..{MAX_BLUR_RADIUS}")
-    if x.device.type == "cpu":
-        return reference.blur_halo_v(x, h, w, sigma, radius, col0)
-    dev = x.device
     if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
         raise ValueError(f"x must be [B, H, W, C] with C 1 to 4, got {tuple(x.shape)}")
     bsz, hb, lw, c = x.shape
-    _require(x, "x", _IMG, (bsz, hb, lw, c), dev)
-    _halo_args(h, w, sigma, bsz, dev)
-    if col0 < 0:
-        raise ValueError(f"col0 {col0} < 0")
-    buf = torch.empty((bsz, hb, lw + 2 * radius, c), dtype=torch.float32, device=dev)
-    _launch("blur_halo_v", dev, x.data_ptr(), int(x.dtype == torch.uint8),
-            buf.data_ptr(), h.data_ptr(), w.data_ptr(), sigma.data_ptr(), radius,
-            bsz, hb, lw, c, col0)
-    return buf
-
-
-def blur_halo_h(buf, h, w, sigma, radius: int, col0: int, wb: int):
-    """K13, pass H: buf f32 [B, Hb, lw + 2 * radius, C] from pass V with
-    its halos filled by the exchange -> f32 [B, Hb, lw, C], normalised by
-    the masked tap sums over the valid rows and the valid global columns
-    of the wb-wide bucket, 0 outside the valid region."""
-    if not 0 <= radius <= MAX_BLUR_RADIUS:
-        raise ValueError(f"blur radius {radius} outside 0..{MAX_BLUR_RADIUS}")
-    if buf.dim() != 4 or not 1 <= buf.shape[3] <= 4:
-        raise ValueError(f"buf must be [B, H, W, C] with C 1 to 4, got {tuple(buf.shape)}")
-    lw = buf.shape[2] - 2 * radius
     if lw < 1 or col0 < 0 or col0 + lw > wb:
         raise ValueError(f"shard columns [{col0}, {col0 + lw}) outside the bucket "
                          f"width {wb}")
-    if buf.device.type == "cpu":
-        return reference.blur_halo_h(buf, h, w, sigma, radius, col0, wb)
-    dev = buf.device
-    bsz, hb, _, c = buf.shape
-    _require(buf, "buf", _F32, tuple(buf.shape), dev)
-    _halo_args(h, w, sigma, bsz, dev)
-    out = torch.empty((bsz, hb, lw, c), dtype=torch.float32, device=dev)
-    _launch("blur_halo_h", dev, buf.data_ptr(), out.data_ptr(), h.data_ptr(),
-            w.data_ptr(), sigma.data_ptr(), radius, bsz, hb, lw, c, col0, wb)
+    for halo, name, needed in ((left, "left", col0 > 0),
+                               (right, "right", col0 + lw < wb)):
+        if halo is None and needed and radius > 0:
+            raise ValueError(f"the {name} halo of columns [{col0}, {col0 + lw}) "
+                             f"lies inside the bucket and is missing")
+    if x.device.type == "cpu":
+        return reference.blur_halo(x, left, right, h, w, sigma, radius, col0, wb,
+                                   out_u8)
+    dev = x.device
+    _require(x, "x", _IMG, (bsz, hb, lw, c), dev)
+    for halo, name in ((left, "left"), (right, "right")):
+        if halo is not None:
+            _require(halo, name, (x.dtype,), (bsz, hb, radius, c), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    _require(sigma, "sigma", _F32, (bsz,), dev)
+    out = torch.empty((bsz, hb, lw, c),
+                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    _launch("blur_halo", dev, x.data_ptr(), _ptr(left), _ptr(right),
+            int(x.dtype == torch.uint8), out.data_ptr(), int(out_u8), h.data_ptr(),
+            w.data_ptr(), sigma.data_ptr(), radius, bsz, hb, lw, c, col0, wb,
+            blur_strip(c, radius))
     return out

@@ -2,7 +2,8 @@
 
 Each `csrc/<name>.cu` compiles on its own with nvcc for `sm_90a` into
 `imaginary_tpu_torch/_build/k_<name>-<digest>.so`, where the digest covers
-the source and the flags, so a changed source never loads a stale build.
+the source, the headers beside it (`csrc/*.cuh`) and the flags, so a
+changed source or header never loads a stale build.
 All sources build at once, one nvcc process each. The build is atomic
 under concurrency (several test workers or server processes may race to
 it): a file lock serialises builders, each library is written under a
@@ -56,9 +57,11 @@ def _digest(*parts: bytes) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, name + ".cu"), "rb") as f:
-        src = f.read()
-    tag = _digest(src, " ".join(NVCC_FLAGS).encode())
+    parts = []
+    for fname in [name + ".cu"] + sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            parts.append(f.read())
+    tag = _digest(*parts, " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"k_{name}-{tag}.so")
 
 

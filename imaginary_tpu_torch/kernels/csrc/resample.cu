@@ -52,6 +52,15 @@
 //    epilogue is fused into the store; the tile at the origin of each
 //    image writes int32(dst_h) and int32(dst_w) as the stage's output
 //    dims.
+//  - W-shard form (the spatial route, ops/chain.py `launch_spatial`): the
+//    output may be columns [out_x0, out_x0 + out_wb) of an output bucket
+//    out_wg wide, and the input columns [in_x0, in_x0 + in_w) of an input
+//    bucket in_wg wide (the union of those columns' taps, staged alone).
+//    Taps, weights and sums are computed on global columns exactly as
+//    for the whole image, and each output's sums run over ascending k, so
+//    a shard's columns equal the unsharded kernel's bit for bit. A tile
+//    that overhangs the shard's last column gives the overhang no taps,
+//    so no tile reads input past the window.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -236,7 +245,7 @@ resample_tiles(const TIn* __restrict__ in, TOut* __restrict__ out,
                const float* __restrict__ dst_h, const float* __restrict__ dst_w,
                int32_t* __restrict__ h_out, int32_t* __restrict__ w_out,
                int B, int in_h, int in_w, int out_hb, int out_wb, int C, int kind,
-               int tiles_y, int n_tiles) {
+               int tiles_y, int n_tiles, int in_x0, int in_wg, int out_x0) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int SZ = (int)sizeof(TIn);
   const int KWC = KW * C, MS = KWC + 1, WS = KW + 1;
@@ -295,7 +304,9 @@ resample_tiles(const TIn* __restrict__ in, TOut* __restrict__ out,
       wy_kept = false;
     }
     if (new_cols) {
-      stx = axis_taps<TW>(cols, tabX, x0, sw, dw, in_w, out_wb, kind);
+      // columns past the shard's end take no taps, so the band stays
+      // inside the staged input window
+      stx = axis_taps<TW>(cols, tabX, out_x0 + x0, sw, dw, in_wg, out_x0 + out_wb, kind);
       key_cx = cx; key_sw = sw; key_dw = dw;
       wx_kept = false;
     }
@@ -342,7 +353,7 @@ resample_tiles(const TIn* __restrict__ in, TOut* __restrict__ out,
       const int nbytes = nc * C * SZ;
       unsigned char* buf = stage + (c & 1) * SBUF;
       for (int r = warp; r < nr; r += NT / 32) {
-        const TIn* p = in + (((size_t)b * in_h + ky0 + r) * in_w + kx0) * C;
+        const TIn* p = in + (((size_t)b * in_h + ky0 + r) * in_w + kx0 - in_x0) * C;
         const uintptr_t pa = reinterpret_cast<uintptr_t>(p);
         const int lead = (int)(pa & 15u);
         const unsigned char* a0 = reinterpret_cast<const unsigned char*>(pa - lead);
@@ -399,7 +410,8 @@ resample_tiles(const TIn* __restrict__ in, TOut* __restrict__ out,
       // H contraction: the chunk's rows that reach group g, ascending k
       const unsigned char* buf = stage + (c & 1) * SBUF;
       const int lead0 = (int)(reinterpret_cast<uintptr_t>(
-                                  in + (((size_t)b * in_h + ky0) * in_w + kx0) * C) & 15u);
+                                  in + (((size_t)b * in_h + ky0) * in_w + kx0 - in_x0) * C) &
+                                  15u);
       const int r0 = max(glo, ky0) - ky0, r1 = min(ghi, ky0 + nr - 1) - ky0;
 #pragma unroll 2
       for (int r = r0; r <= r1; r++) {
@@ -479,7 +491,8 @@ template <typename TIn, typename TOut>
 int launch(const void* in, void* out, const int32_t* src_h,
            const int32_t* src_w, const float* dst_h, const float* dst_w,
            int32_t* h_out, int32_t* w_out, int B, int in_h, int in_w,
-           int out_hb, int out_wb, int C, int kind, cudaStream_t stream) {
+           int out_hb, int out_wb, int C, int kind, int in_x0, int in_wg,
+           int out_x0, cudaStream_t stream) {
   // whether this instance's shared-memory ceiling is raised on each device
   static std::atomic<bool> smem_set[MAXDEV];
   const int tiles_x = (out_wb + TW - 1) / TW, tiles_y = (out_hb + TH - 1) / TH;
@@ -509,7 +522,8 @@ int launch(const void* in, void* out, const int32_t* src_h,
   fn<<<grid, NT, smem, stream>>>(static_cast<const TIn*>(in),
                                  static_cast<TOut*>(out), src_h, src_w, dst_h,
                                  dst_w, h_out, w_out, B, in_h, in_w, out_hb,
-                                 out_wb, C, kind, tiles_y, (int)n_tiles);
+                                 out_wb, C, kind, tiles_y, (int)n_tiles, in_x0,
+                                 in_wg, out_x0);
   return (int)cudaGetLastError();
 }
 
@@ -518,29 +532,37 @@ int launch(const void* in, void* out, const int32_t* src_h,
 // in [B, in_h, in_w, C] (uint8 if in_u8 else f32), out [B, out_hb,
 // out_wb, C] (uint8 with the epilogue if out_u8 else f32), C 1 to 4.
 // src_h, src_w: int32 [B] valid input dims; dst_h, dst_w: f32 [B] target
-// dims; h_out, w_out: int32 [B] receiving int(dst). Returns the CUDA error
-// code of the launch (0 = launched).
+// dims; h_out, w_out: int32 [B] receiving int(dst). W-shard form: `in`
+// holds input columns [in_x0, in_x0 + in_w) of a bucket in_wg wide and
+// `out` output columns [out_x0, out_x0 + out_wb) of a bucket out_wg wide
+// (the whole image: 0, in_w, 0, out_wb); the caller makes the input
+// columns cover every tap of those outputs. Returns the CUDA error code
+// of the launch (0 = launched).
 extern "C" int itpu_resample(const void* in, int in_u8, void* out, int out_u8,
                              const int32_t* src_h, const int32_t* src_w,
                              const float* dst_h, const float* dst_w,
                              int32_t* h_out, int32_t* w_out, int B, int in_h,
                              int in_w, int out_hb, int out_wb, int C, int kind,
+                             int in_x0, int in_wg, int out_x0, int out_wg,
                              void* stream) {
   if (B <= 0 || in_h <= 0 || in_w <= 0 || out_hb <= 0 || out_wb <= 0) return 0;
-  if (C < 1 || C > MAXC) return (int)cudaErrorInvalidValue;
+  if (C < 1 || C > MAXC || in_x0 < 0 || in_x0 + in_w > in_wg || out_x0 < 0 ||
+      out_x0 + out_wb > out_wg)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_u8 && out_u8)
     return launch<uint8_t, uint8_t>(in, out, src_h, src_w, dst_h, dst_w, h_out,
                                     w_out, B, in_h, in_w, out_hb, out_wb, C,
-                                    kind, s);
+                                    kind, in_x0, in_wg, out_x0, s);
   if (in_u8)
     return launch<uint8_t, float>(in, out, src_h, src_w, dst_h, dst_w, h_out,
                                   w_out, B, in_h, in_w, out_hb, out_wb, C, kind,
-                                  s);
+                                  in_x0, in_wg, out_x0, s);
   if (out_u8)
     return launch<float, uint8_t>(in, out, src_h, src_w, dst_h, dst_w, h_out,
                                   w_out, B, in_h, in_w, out_hb, out_wb, C, kind,
-                                  s);
+                                  in_x0, in_wg, out_x0, s);
   return launch<float, float>(in, out, src_h, src_w, dst_h, dst_w, h_out, w_out,
-                              B, in_h, in_w, out_hb, out_wb, C, kind, s);
+                              B, in_h, in_w, out_hb, out_wb, C, kind, in_x0,
+                              in_wg, out_x0, s);
 }

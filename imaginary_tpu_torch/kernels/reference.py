@@ -77,15 +77,32 @@ def sample_matrix(out_b: int, in_b: int, src: torch.Tensor, dst: torch.Tensor,
 
 
 def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
-             out_u8: bool = False):
+             out_u8: bool = False, cols=None, in_col0: int = 0, in_wb=None):
     """K1's function: separable resample of [B, Hb, Wb, C] to
-    [B, out_hb, out_wb, C]. Returns (out, int32 dst_h, int32 dst_w)."""
+    [B, out_hb, out_wb, C]. Returns (out, int32 dst_h, int32 dst_w).
+
+    W-shard form (the kernel's `cols`, `in_col0`, `in_wb`): x holds input
+    columns [in_col0, in_col0 + x.shape[2]) of an in_wb-wide bucket; it is
+    placed at those columns of a zero bucket, resampled whole, and output
+    columns [c0, c1) are returned. The shapes are the whole image's, so
+    every output takes the same sums; columns outside x weigh 0 in them
+    when x covers the outputs' taps, which makes the shard equal the
+    whole image's columns bit for bit."""
     xf = x.float()
-    wy = sample_matrix(out_hb, x.shape[1], h, dst_h, kind)
+    in_wb = x.shape[2] if in_wb is None else in_wb
+    if xf.shape[2] != in_wb:
+        full = torch.zeros(xf.shape[:2] + (in_wb, xf.shape[3]), dtype=xf.dtype,
+                           device=xf.device)
+        full[:, :, in_col0:in_col0 + xf.shape[2]] = xf
+        xf = full
+    wy = sample_matrix(out_hb, xf.shape[1], h, dst_h, kind)
     t = torch.einsum("byk,bkwc->bywc", wy, xf)
-    wx = sample_matrix(out_wb, x.shape[2], w, dst_w, kind)
-    out = torch.einsum("bxw,bywc->byxc", wx, t).contiguous()
-    return _finish(out, out_u8), dst_h.to(torch.int32), dst_w.to(torch.int32)
+    wx = sample_matrix(out_wb, xf.shape[2], w, dst_w, kind)
+    out = torch.einsum("bxw,bywc->byxc", wx, t)
+    if cols is not None and tuple(cols) != (0, out_wb):
+        out = out[:, :, cols[0]:cols[1]]
+    return (_finish(out.contiguous(), out_u8), dst_h.to(torch.int32),
+            dst_w.to(torch.int32))
 
 
 def _chroma_up_indices(out_n: int, cn: torch.Tensor, chroma_b: int):
@@ -231,75 +248,65 @@ def blur_taps(sigma: torch.Tensor, radius: int) -> torch.Tensor:
     return torch.where(sigma[:, None] > 0, kern, delta)
 
 
-def _correlate(img: torch.Tensor, k: torch.Tensor, axis: int) -> torch.Tensor:
-    """Per-image 2r+1-tap correlation of img [B, H, W, C] along axis 1 or
-    2, zero-padded beyond the bucket ("SAME")."""
+def _correlate_rows(img: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Per-image 2r+1-tap correlation of img [B, H, W, C] along H,
+    zero-padded beyond the bucket ("SAME")."""
     r = (k.shape[1] - 1) // 2
-    n = img.shape[axis]
-    pad = (0, 0, 0, 0, r, r) if axis == 1 else (0, 0, r, r)
-    padded = torch.nn.functional.pad(img, pad)
+    n = img.shape[1]
+    padded = torch.nn.functional.pad(img, (0, 0, 0, 0, r, r))
     out = torch.zeros_like(img)
     for i in range(2 * r + 1):
         tap = k[:, i][:, None, None, None]
-        out = out + tap * padded.narrow(axis, i, n)
+        out = out + tap * padded.narrow(1, i, n)
     return out
 
 
 def blur(x: torch.Tensor, h, w, sigma, radius: int, out_u8: bool = False) -> torch.Tensor:
     """K6's function (stages.py:BlurSpec): separable Gaussian, vertical then
     horizontal, normalised against the valid mask, zero outside each
-    image's valid (h, w)."""
+    image's valid (h, w). The whole image is K13's one shard, with no
+    halos."""
+    return blur_halo(x, None, None, h, w, sigma, radius, 0, x.shape[2], out_u8)
+
+
+def blur_halo(x: torch.Tensor, left, right, h, w, sigma, radius: int, col0: int,
+              wb: int, out_u8: bool = False) -> torch.Tensor:
+    """K13's function: the masked Gaussian of the whole image (K6's) at one
+    W-shard's columns. x [B, Hb, lw, C] holds global columns [col0, col0 +
+    lw) of a bucket wb wide, left and right [B, Hb, radius, C] the
+    neighbouring columns (None: outside the bucket, read as 0). The shard
+    and its halos are laid side by side; conv_v(x * m) and conv_v(m) run
+    over them, then the horizontal taps over the shard's columns, each as
+    shifted sums in ascending tap order on global columns, so every
+    output takes the same operations in the same order whatever the
+    shards: the shards equal the whole image bit for bit."""
     xf = x.float()
-    _, hb, wb, _ = xf.shape
+    bsz, hb, lw, c = xf.shape
+    dev = x.device
+
+    def halo(t):
+        if t is None:
+            return torch.zeros((bsz, hb, radius, c), dtype=torch.float32, device=dev)
+        return t.float()
+
+    ext = torch.cat([halo(left), xf, halo(right)], dim=2)
     k = blur_taps(sigma, radius)
-    iy = torch.arange(hb, dtype=torch.int32, device=x.device)[None, :, None]
-    ix = torch.arange(wb, dtype=torch.int32, device=x.device)[None, None, :]
-    m = ((iy < h[:, None, None]) & (ix < w[:, None, None])).float()[..., None]
-    num = _correlate(_correlate(xf * m, k, 1), k, 2)
-    den = _correlate(_correlate(m, k, 1), k, 2)
-    out = num / torch.clamp(den, min=_EPS)
-    return _finish(torch.where(m > 0, out, 0.0), out_u8)
-
-
-def blur_halo_v(x: torch.Tensor, h, w, sigma, radius: int, col0: int) -> torch.Tensor:
-    """K13's vertical pass (spatial.py:sharded_blur's shard-local conv_v):
-    the shard x [B, Hb, lw, C] holding global columns [col0, col0 + lw) ->
-    f32 [B, Hb, lw + 2r, C], conv_v(x * m) on the valid rows in the core
-    columns [r, r + lw), 0 elsewhere, halos included."""
-    xf = x.float()
-    _, hb, lw, _ = xf.shape
-    k = blur_taps(sigma, radius)
-    iy = torch.arange(hb, dtype=torch.int32, device=x.device)[None, :, None]
-    ix = col0 + torch.arange(lw, dtype=torch.int32, device=x.device)[None, None, :]
-    rows = (iy < h[:, None, None])[..., None]
-    m = (rows & (ix < w[:, None, None])[..., None]).float()
-    core = torch.where(rows, _correlate(xf * m, k, 1), 0.0)
-    return torch.nn.functional.pad(core, (0, 0, radius, radius))
-
-
-def blur_halo_h(buf: torch.Tensor, h, w, sigma, radius: int, col0: int,
-                wb: int) -> torch.Tensor:
-    """K13's horizontal pass: buf f32 [B, Hb, lw + 2r, C] with its halos
-    filled -> f32 [B, Hb, lw, C], the taps over the halo-padded row divided
-    by rowden[y] * colden[col0 + x] (the masked tap sums over the valid
-    rows and the valid GLOBAL columns of a bucket wb wide), 0 outside the
-    valid region."""
-    bsz, hb, lw2, _ = buf.shape
-    lw = lw2 - 2 * radius
-    dev = buf.device
-    k = blur_taps(sigma, radius)
-    num = torch.zeros((bsz, hb, lw, buf.shape[3]), dtype=torch.float32, device=dev)
+    iy = torch.arange(hb, dtype=torch.int32, device=dev)[None, :, None]
+    ix = col0 - radius + torch.arange(lw + 2 * radius, dtype=torch.int32,
+                                      device=dev)[None, None, :]
+    m = ((iy < h[:, None, None]) & (ix >= 0) & (ix < wb)
+         & (ix < w[:, None, None])).float()[..., None]
+    v = _correlate_rows(ext * m, k)
+    vm = _correlate_rows(m, k)
+    num = torch.zeros_like(xf)
+    den = torch.zeros((bsz, hb, lw, 1), dtype=torch.float32, device=dev)
     for i in range(2 * radius + 1):
-        num = num + k[:, i][:, None, None, None] * buf[:, :, i:i + lw]
-    iy = torch.arange(hb, dtype=torch.int32, device=dev)[None, :, None, None]
-    ix = torch.arange(wb, dtype=torch.int32, device=dev)[None, None, :, None]
-    rows = (iy < h[:, None, None, None]).float()
-    cols = (ix < w[:, None, None, None]).float()
-    rowden = _correlate(rows, k, 1)
-    colden = _correlate(cols, k, 2)[:, :, col0:col0 + lw]
-    m = (rows > 0) & (cols[:, :, col0:col0 + lw] > 0)
-    out = num / torch.clamp(rowden * colden, min=_EPS)
-    return torch.where(m, out, 0.0)
+        tap = k[:, i][:, None, None, None]
+        num = num + tap * v[:, :, i:i + lw]
+        den = den + tap * vm[:, :, i:i + lw]
+    out = num / torch.clamp(den, min=_EPS)
+    core = m[:, :, radius:radius + lw]
+    return _finish(torch.where(core > 0, out, 0.0), out_u8)
 
 
 def composite(x: torch.Tensor, overlay, top, left, opacity, block_h, block_w,

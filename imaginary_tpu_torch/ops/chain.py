@@ -19,7 +19,9 @@ tensor of a launch is allocated under its stream, so the caching
 allocator reuses its memory only for work queued later on that stream.
 `launch_sharded` splits one chunk contiguously over a mesh's batch axis,
 one sub-launch per device on that device's stream, each with its own
-pinned buffers and event.
+pinned buffers and event. `launch_spatial` runs one image's chain split
+on W over one row of a mesh's spatial axis (the reference's chain under
+`PartitionSpec("batch", None, "spatial", None)`); see its docstring.
 On the CPU the chain runs at once and the fetch has nothing to wait for.
 A ShrinkBucketSpec that would copy its input unchanged launches nothing
 (`live_stages`). The chain's uint8 -> f32 cast (int16 -> f32 for the DCT
@@ -53,6 +55,7 @@ from imaginary_tpu_torch.ops.stages import (
     ToYuv420Spec,
     TransposeSpec,
 )
+from imaginary_tpu_torch.parallel import spatial
 from imaginary_tpu_torch.parallel.mesh import Mesh, split_batch
 
 DEFAULT_DEVICE = "cuda"
@@ -173,7 +176,8 @@ def _stage(arrays: list, device: torch.device) -> tuple:
     hv = host.numpy()
     for parts, _, _, off, _ in metas:
         for p in parts:
-            hv[off:off + p.nbytes] = np.ascontiguousarray(p).reshape(-1).view(np.uint8)
+            # one pass, also for a strided part (a shard's column window)
+            hv[off:off + p.nbytes].view(p.dtype).reshape(p.shape)[...] = p
             off += p.nbytes
     dev = host.to(device, non_blocking=True) if pinned else host
     views = [dev[off:off + n].view(_TORCH_DTYPES[dt]).view(shape)
@@ -279,6 +283,180 @@ def launch_sharded(arrs: list, plans: list, mesh: Mesh, streams=None):
     return ShardedLaunch(parts)
 
 
+def spatial_split(specs, hb: int, wb: int, n: int) -> tuple:
+    """How `launch_spatial` runs a chain on an input bucket (hb, wb) over n
+    W-shards: (sharded, gather_at), the live stages that run W-sharded (a
+    prefix of `live_stages`) and the first live stage that does not (None
+    when every one does). From gather_at on, the chain runs on the row's
+    first entry after an explicit gather of the shards.
+
+    A stage runs W-sharded when it has a W-shard form (`shard_ok`, see
+    `stages._ShardForm`: K1 as the first sharded stage, K13 with a radius
+    below the local width, K7, K8) and its output width splits evenly
+    over n."""
+    sharded = []
+    for i in live_stages(specs, hb, wb):
+        spec = specs[i]
+        out_hb, out_wb = _bucket_after(spec, hb, wb)
+        ok = (hasattr(spec, "shard_ok") and out_wb % n == 0
+              and spec.shard_ok(out_wb // n, not sharded))
+        if not ok:
+            return sharded, i
+        sharded.append(i)
+        hb, wb = out_hb, out_wb
+    return sharded, None
+
+
+class SpatialLaunch:
+    """One image launched by `launch_spatial`: `host` is [n, 1, Hb, lw, C]
+    when `shards` = n > 0 (each shard's columns, copied back on its own
+    stream), else the gathered [1, Hb, Wb, C]; valid once every event in
+    `events` has completed. `gathered` names the spec class at which the
+    shards were gathered (None: nowhere). The staged host buffers are kept
+    alive until the fetch."""
+
+    __slots__ = ("host", "events", "staged", "shards", "gathered")
+
+    def __init__(self, host, events, staged, shards: int, gathered):
+        self.host = host
+        self.events = events
+        self.staged = staged
+        self.shards = shards
+        self.gathered = gathered
+
+    def to_host(self) -> np.ndarray:
+        """Wait for every shard's event and assemble the batch array."""
+        for ev in self.events:
+            if ev is not None:
+                ev.synchronize()
+        self.staged = None
+        if not self.shards:
+            return self.host.numpy()
+        n, bsz, hb, lw, c = self.host.shape
+        return self.host.permute(1, 2, 0, 3, 4).reshape(bsz, hb, n * lw, c).numpy()
+
+
+def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=None):
+    """Stage + launch ONE image's chain split on W over the devices of
+    `row` (one row of a mesh's spatial axis, n entries; streams[j] is
+    entry j's stream, None: each device's side stream), without waiting.
+    Returns a `SpatialLaunch`, or None for an identity chain.
+
+    The live stages `spatial_split` admits run W-sharded: shard j owns
+    output columns [j lw, (j + 1) lw) of each stage. The first sharded
+    stage's input comes from the host in each shard's own H2D (its
+    `shard_input`: K1's input window, else the shard's columns and, for
+    K13, its halos). A later stage with a halo (K13) gets it from the
+    neighbouring shards (`parallel/spatial.exchange_halos`); each stage
+    runs on a shard through its `apply_shard`, with its `shard_dyn` (K7:
+    `left` less the shard's first column). A stage without
+    a W-sharded form gathers the shards onto the row's first entry by an
+    explicit copy (`SpatialLaunch.gathered` names it) and the rest of the
+    chain runs there. The last stage writes uint8 (epilogue fused); each
+    shard copies its columns back on its own stream into one pinned host
+    buffer and records its own event.
+
+    trace: None, or a list that gets (stage index, shard index, spec,
+    apply_shard's arguments, its output) for every sharded stage of every
+    shard, to hold each launch against its plain version."""
+    specs = plan.spec_key()
+    if not specs:
+        return None
+    devices = [torch.device(d) for d in row]
+    n = len(devices)
+    if streams is None:
+        streams = [_stream(d) if d.type == "cuda" else None for d in devices]
+    if plan.in_bucket is not None:
+        hb, wb = plan.in_bucket
+    else:
+        hb, wb = bucket_shape(arr.shape[0], arr.shape[1])
+    sharded, gather_at = spatial_split(specs, hb, wb, n)
+    if not sharded:  # the first live stage has no W-sharded form
+        one = launch_batch([arr], [plan], device=devices[0], stream=streams[0])
+        return SpatialLaunch(one.host, [one.event], [one.staged], 0,
+                             type(specs[gather_at]).__name__)
+    batch = pad_to_bucket(arr)
+    h = np.array([arr.shape[0]], dtype=np.int32)
+    w = np.array([arr.shape[1]], dtype=np.int32)
+    host_dyns = _stack_dyns([plan])
+    # each sharded stage's input bucket width and output bucket
+    in_wb, dims, cur = {}, {}, (hb, wb)
+    for i in sharded:
+        in_wb[i] = cur[1]
+        cur = dims[i] = _bucket_after(specs[i], *cur)
+    first = specs[sharded[0]]
+    lw0 = dims[sharded[0]][1] // n
+    inputs = [first.shard_input(batch, j * lw0, (j + 1) * lw0, arr.shape[1],
+                                host_dyns[sharded[0]]) for j in range(n)]
+    last = sharded[-1] if gather_at is None else None
+    with _LOCK:
+        _SIGNATURES.add((specs, (1,) + batch.shape, "spatial", n, str(devices[0])))
+    shards, dyns, staged = [], [], []
+    for j, (dev, stream) in enumerate(zip(devices, streams)):
+        x, left, right, _ = inputs[j]
+        hd = [specs[i].shard_dyn(d, j * (dims[i][1] // n)) if i in dims else d
+              for i, d in enumerate(host_dyns)]
+        flat = [[x], h, w] + [v for d in hd for v in d.values()]
+        flat += [[p] for p in (left, right) if p is not None]
+        sh = spatial.Shard(dev, stream, 0, 1, j * lw0)
+        with spatial.on(stream):
+            views, buf = _stage(flat, dev)
+            it = iter(views)
+            sh.x, sh.h, sh.w = next(it), next(it), next(it)
+            dyns.append([{k: next(it) for k in d} for d in hd])
+            sh.left = next(it) if left is not None else None
+            sh.right = next(it) if right is not None else None
+            sh.ready = spatial.record(stream)
+        shards.append(sh)
+        staged.append(buf)
+    for i in sharded:
+        spec, lw = specs[i], dims[i][1] // n
+        if spec.shard_halo and i != sharded[0]:
+            spatial.exchange_halos([shards], spec.shard_halo)
+        for j, sh in enumerate(shards):
+            in_col0 = inputs[j][3] if i == sharded[0] else sh.col0
+            sh.col0 = j * lw
+            args = (sh.x, sh.left, sh.right, sh.h, sh.w, dyns[j][i], sh.col0, lw,
+                    in_col0, in_wb[i], i == last)
+            with spatial.on(sh.stream):
+                out = spec.apply_shard(*args)
+                sh.x, sh.h, sh.w = out
+                sh.ready = spatial.record(sh.stream)
+            if trace is not None:
+                trace.append((i, j, spec, args, out[0]))
+    if gather_at is None:
+        first_x = shards[0].x
+        host = torch.empty((n,) + tuple(first_x.shape), dtype=first_x.dtype,
+                           pin_memory=devices[0].type == "cuda")
+        events = []
+        for j, sh in enumerate(shards):
+            with spatial.on(sh.stream):
+                host[j].copy_(sh.x, non_blocking=sh.stream is not None)
+                events.append(spatial.record(sh.stream))
+        return SpatialLaunch(host, events, staged, n, None)
+    # the gather: every shard's columns into one buffer on the row's first
+    # entry, then the rest of the chain there
+    s0, dev0 = streams[0], devices[0]
+    ghb, gwb = dims[sharded[-1]]
+    lw = gwb // n
+    with spatial.on(s0):
+        x = torch.empty((1, ghb, gwb, shards[0].x.shape[3]), dtype=shards[0].x.dtype,
+                        device=dev0)
+    for sh in shards:
+        spatial.wait(s0, sh.ready)
+        spatial.copy_into(x[:, :, sh.col0:sh.col0 + lw], s0, sh.x, sh.stream)
+    live = live_stages(specs, hb, wb)
+    rest = live[live.index(gather_at):]
+    hh, ww = shards[0].h, shards[0].w
+    with spatial.on(s0):
+        for i in rest:
+            x, hh, ww = specs[i].apply(x, hh, ww, dyns[0][i], out_u8=(i == rest[-1]))
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=dev0.type == "cuda")
+        host.copy_(x, non_blocking=s0 is not None)
+        event = spatial.record(s0)
+    return SpatialLaunch(host, [event], staged, 0, type(specs[gather_at]).__name__)
+
+
 def _run_staged(specs, views: list, host_dyns: list) -> torch.Tensor:
     staged = iter(views)
     x, ht, wt = next(staged), next(staged), next(staged)
@@ -323,14 +501,16 @@ def finish_batch(host_y, arrs: list, plans: list) -> list:
 
 
 def fetch_batch(y, arrs: list, plans: list) -> list:
-    """Wait for a launch_batch or launch_sharded result (a `Launched`, a
-    `ShardedLaunch`, or None for an identity chain) and slice out
-    per-image outputs, in order."""
+    """Wait for a launch_batch, launch_sharded or launch_spatial result (a
+    `Launched`, a `ShardedLaunch`, a `SpatialLaunch`, or None for an
+    identity chain) and slice out per-image outputs, in order."""
     if y is None:
         return [np.asarray(a) for a in arrs]
     if isinstance(y, ShardedLaunch):
         return [out for a, b, sub in y.parts
                 for out in fetch_batch(sub, arrs[a:b], plans[a:b])]
+    if isinstance(y, SpatialLaunch):
+        return finish_batch(y.to_host(), arrs, plans)
     return finish_batch(_to_host(y), arrs, plans)
 
 

@@ -13,18 +13,63 @@ is the chain's last and also applies the uint8 epilogue (ToDctSpec, whose
 `out_dtype` is "int16", drains rounded int16 coefficients instead). Every
 stage runs one or more of the port's CUDA kernels on a CUDA tensor and
 their plain versions on a CPU tensor (`kernels/`).
+
+The stages with a W-shard form (K1, K13, K7, K8) also carry the spatial
+route's side of it (`_ShardForm`); `ops/chain.launch_spatial` drives them
+through that alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
+
 from imaginary_tpu_torch import kernels
 from imaginary_tpu_torch.options import Extend
 
 
+class _ShardForm:
+    """A stage's W-shard form (the spatial route): shard j of n runs the
+    stage on its own columns [col0, col0 + lw) of the stage's output
+    bucket. These defaults are a column-local stage's (output column x
+    reads input column x only)."""
+
+    # input columns a shard reads past each of its edges, from its
+    # neighbours (the exchange fills `left` and `right` that wide)
+    shard_halo = 0
+
+    def shard_ok(self, lw: int, first: bool) -> bool:
+        """Whether the stage runs W-sharded at local output width lw;
+        `first`: it would be the first sharded stage, whose input is
+        staged from the host."""
+        return True
+
+    def shard_input(self, img: np.ndarray, c0: int, c1: int, w: int, dyn: dict) -> tuple:
+        """The first sharded stage's host input for output columns [c0,
+        c1) of the bucket-padded HWC image `img` (valid width w, host
+        params dyn): (x, left, right, in_col0), x's first column in the
+        bucket and the halos (None where there are none)."""
+        wb, r = img.shape[1], self.shard_halo
+        left = img[:, c0 - r:c0] if r and c0 > 0 else None
+        right = img[:, c1:c1 + r] if r and c1 < wb else None
+        return img[:, c0:c1], left, right, c0
+
+    def shard_dyn(self, dyn: dict, col0: int) -> dict:
+        """The host params of the shard whose output starts at col0."""
+        return dyn
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0: int, lw: int,
+                    in_col0: int, in_wb: int, out_u8: bool, impl=kernels):
+        """`apply` on one shard: x holds input columns [in_col0, ...) of a
+        bucket in_wb wide, the output columns [col0, col0 + lw). impl is
+        `kernels`, or `kernels.reference` for the plain version. Returns
+        (x, h, w) as `apply` does."""
+        raise NotImplementedError
+
+
 @dataclasses.dataclass(frozen=True)
-class SampleSpec:
+class SampleSpec(_ShardForm):
     """Separable resample to (dst_h, dst_w) inside an (out_hb, out_wb) bucket
     (kernel K1). dyn: dst_h, dst_w (f32 [B])."""
 
@@ -35,6 +80,21 @@ class SampleSpec:
     def apply(self, x, h, w, dyn, out_u8: bool = False):
         return kernels.resample(x, h, w, dyn["dst_h"], dyn["dst_w"],
                                 self.out_hb, self.out_wb, self.kernel, out_u8)
+
+    def shard_ok(self, lw: int, first: bool) -> bool:
+        # a shard's input window is staged from the host
+        return first
+
+    def shard_input(self, img, c0, c1, w, dyn):
+        k0, k1 = kernels.resample_window(self.kernel, w, float(dyn["dst_w"][0]),
+                                         img.shape[1], self.out_wb, c0, c1)
+        return img[:, k0:k1], None, None, k0
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        return impl.resample(x, h, w, dyn["dst_h"], dyn["dst_w"], self.out_hb,
+                             self.out_wb, self.kernel, out_u8, cols=(col0, col0 + lw),
+                             in_col0=in_col0, in_wb=in_wb)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,7 +162,7 @@ class TransposeSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class BlurSpec:
+class BlurSpec(_ShardForm):
     """Separable gaussian blur, radius static, sigma dynamic, normalised
     against the valid mask and zero outside it (kernel K6). dyn: sigma
     (f32 [B])."""
@@ -112,9 +172,22 @@ class BlurSpec:
     def apply(self, x, h, w, dyn, out_u8: bool = False):
         return kernels.blur(x, h, w, dyn["sigma"], self.radius, out_u8), h, w
 
+    @property
+    def shard_halo(self) -> int:
+        return self.radius
+
+    def shard_ok(self, lw: int, first: bool) -> bool:
+        # a halo never reaches past the neighbouring shard (K13)
+        return self.radius < lw
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        return impl.blur_halo(x, left, right, h, w, dyn["sigma"], self.radius, col0,
+                              in_wb, out_u8), h, w
+
 
 @dataclasses.dataclass(frozen=True)
-class CompositeSpec:
+class CompositeSpec(_ShardForm):
     """Alpha-blend an RGBA overlay block (watermark), tiled when
     `replicate`, over the whole bucket (kernel K7).
     dyn: overlay (f32 [B, block_hb, block_wb, 4]), top, left, block_h,
@@ -128,6 +201,17 @@ class CompositeSpec:
         out = kernels.composite(x, dyn["overlay"], dyn["top"], dyn["left"],
                                 dyn["opacity"], dyn["block_h"],
                                 dyn["block_w"], self.replicate, out_u8)
+        return out, h, w
+
+    def shard_dyn(self, dyn, col0):
+        # the overlay's left edge in the shard's columns (K7 floors the
+        # remainder, so a tiled or placed overlay stays exact across seams)
+        return dict(dyn, left=dyn["left"] - np.int32(col0))
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        out = impl.composite(x, dyn["overlay"], dyn["top"], dyn["left"], dyn["opacity"],
+                             dyn["block_h"], dyn["block_w"], self.replicate, out_u8)
         return out, h, w
 
 
@@ -210,11 +294,15 @@ class ToDctSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class GraySpec:
+class GraySpec(_ShardForm):
     """Rec.709 luma broadcast over RGB, alpha kept (kernel K8)."""
 
     def apply(self, x, h, w, dyn, out_u8: bool = False):
         return kernels.gray(x, out_u8), h, w
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        return impl.gray(x, out_u8), h, w
 
 
 @dataclasses.dataclass(frozen=True)

@@ -125,7 +125,9 @@ def make_server(host: str = "0.0.0.0", port: int = 9000, device="cuda",
                 n_devices: int = 0, devices=None, lane_form_ms=None,
                 lane_inflight: int = 2, shard_min_items: int = 0,
                 breaker_threshold: int = 3,
-                breaker_cooldown_s: float = 30.0) -> ThreadingHTTPServer:
+                breaker_cooldown_s: float = 30.0, spatial: int = 1,
+                spatial_threshold_px: int = 3840 * 2160,
+                spatial_mpix: float = 0.0) -> ThreadingHTTPServer:
     """Bind (not start) the server; `serve_forever()` runs it and
     `shutdown()` + `server_close()` stop it (and its executor)."""
     srv = _Server((host, port), _Handler)
@@ -140,7 +142,10 @@ def make_server(host: str = "0.0.0.0", port: int = 9000, device="cuda",
                                    lane_inflight=lane_inflight,
                                    shard_min_items=shard_min_items,
                                    breaker_threshold=breaker_threshold,
-                                   breaker_cooldown_s=breaker_cooldown_s)
+                                   breaker_cooldown_s=breaker_cooldown_s,
+                                   spatial=spatial,
+                                   spatial_threshold_px=spatial_threshold_px,
+                                   spatial_mpix=spatial_mpix)
     except BaseException:
         srv.server_close()
         raise

@@ -121,7 +121,9 @@ class ImageService:
                  transport_dct: bool = False, transport_dct_egress: bool = False,
                  mesh_policy: str = "off", n_devices: int = 0, devices=None,
                  lane_form_ms=None, lane_inflight: int = 2, shard_min_items: int = 0,
-                 breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0):
+                 breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0,
+                 spatial: int = 1, spatial_threshold_px: int = 3840 * 2160,
+                 spatial_mpix: float = 0.0):
         if transport_dct_egress and not transport_dct:
             raise ValueError("the dct egress requires the dct transport")
         self.device = torch.device(device)
@@ -136,7 +138,8 @@ class ImageService:
             mesh_policy=mesh_policy, n_devices=n_devices, devices=devices,
             lane_form_ms=lane_form_ms, lane_inflight=max(1, lane_inflight),
             shard_min_items=shard_min_items, breaker_threshold=breaker_threshold,
-            breaker_cooldown_s=breaker_cooldown_s))
+            breaker_cooldown_s=breaker_cooldown_s, spatial=spatial,
+            spatial_threshold_px=spatial_threshold_px, spatial_mpix=spatial_mpix))
         pipeline.set_transport_dct(transport_dct)
         pipeline.set_transport_dct_egress(transport_dct_egress)
 

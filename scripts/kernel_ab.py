@@ -1,6 +1,7 @@
 """Hold the port's K6 (blur), K2 (yuv420_unpack), K11 (from_dct), K12
-(to_dct), K9 (saliency) and K10 (window_argmax) against an earlier tree's
-on one card: outputs bit for bit, and device times in turns.
+(to_dct), K9 (saliency), K10 (window_argmax), K1 (resample) and K13
+(blur_halo) against an earlier tree's on one card: outputs bit for bit,
+and device times in turns.
 
 Run from the repository root on a machine with the card:
 
@@ -10,15 +11,18 @@ DIR is a checkout of the earlier tree. Its own `imaginary_tpu_torch.kernels`
 is imported first (its libraries built by its own `load_all` into DIR's
 `_build/`) and then taken out of `sys.modules`, so this tree's package
 imports as usual and the earlier module keeps its own globals: its `blur`,
-`yuv420_to_rgb`, `from_dct`, `to_dct`, `saliency_ii` and `window_argmax`
-wrappers launch its kernels through its own ABI, whatever that is. For
+`yuv420_to_rgb`, `from_dct`, `to_dct`, `saliency_ii`, `window_argmax` and
+`resample` wrappers, and its `parallel.spatial` (K13's shards, exchange
+and passes), launch its kernels through its own ABI, whatever that is. For
 each case at the main paths' shapes and at the seams of the new designs,
 the script checks this tree's kernel against its plain version
 (`F32_TOL`, or `U8_TOL` on uint8 output; K12's coefficients within
 `COEF_TOL`, at most `COEF_SHARE` of them differing; K9's integral image
 within `II_RTOL`; K10's offsets equal), compares it with the earlier
 kernel (max |diff| and whether the two are bit-equal; K10 is fed this
-tree's K9 output on both sides), and times both with
+tree's K9 output on both sides; K13 on chip_smoke's phase 10(a) frames
+and meshes, the shards' K13 launches of either tree after its own
+exchange, with K6 on the whole frames), and times both with
 `chip_smoke.device_ms` in turns (earlier, this, this, earlier).
 One JSON line per case on stdout; all of them in
 chip_smoke_out/kernel_ab.json.
@@ -40,7 +44,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 
 PKG = "imaginary_tpu_torch"
-AB_KERNELS = ("blur", "yuv420_unpack", "from_dct", "to_dct", "saliency", "window_argmax")
+# the CUDA sources whose build logs are printed
+AB_SOURCES = ("blur", "yuv420_unpack", "from_dct", "to_dct", "saliency", "resample",
+              "blur_halo")
 
 
 def _package_modules() -> dict:
@@ -48,14 +54,16 @@ def _package_modules() -> dict:
 
 
 def load_tree_kernels(tree: str):
-    """TREE's `imaginary_tpu_torch.kernels` module, its libraries built and
-    loaded; sys.modules and sys.path are left as they were."""
+    """TREE's `imaginary_tpu_torch.kernels` and `parallel.spatial` modules,
+    its libraries built and loaded; sys.modules and sys.path are left as
+    they were."""
     saved = _package_modules()
     for k in saved:
         del sys.modules[k]
     sys.path.insert(0, tree)
     try:
         mod = importlib.import_module(PKG + ".kernels")
+        spatial = importlib.import_module(PKG + ".parallel.spatial")
         where = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(mod.__file__))))
         if where != tree:
             raise RuntimeError(f"imported {mod.__file__}, not the package under {tree}")
@@ -67,12 +75,47 @@ def load_tree_kernels(tree: str):
         sys.modules.update(saved)
     for src in ab_sources(mod):
         cs.log(f"  earlier {src}: built\n{built.get(src, {}).get('log', '')}")
-    return mod
+    return mod, spatial
 
 
 def ab_sources(mod) -> list:
-    """The CUDA sources that hold AB_KERNELS in module `mod`."""
-    return sorted({mod._SIGNATURES[name][0] for name in AB_KERNELS})
+    """The AB_SOURCES that module `mod` builds."""
+    return sorted({src for src, _, _ in mod._SIGNATURES.values()} & set(AB_SOURCES))
+
+
+def resample_cases(dev, gen):
+    """(case, x, h, w, dst_h, dst_w, out_hb, out_wb): config 3's 4K uint8
+    frame to 720x1280, and the 6.4x f32 downscale of 1080p at B=8."""
+    import torch
+
+    shb, swb = cs.CONFIG3_SRC_BUCKET
+    xs = torch.zeros((1, shb, swb, 3), dtype=torch.uint8, device=dev)
+    xs[:, :cs.CONFIG3_SRC[0], :cs.CONFIG3_SRC[1]] = torch.randint(
+        0, 256, (1, *cs.CONFIG3_SRC, 3), generator=gen, device=dev, dtype=torch.uint8)
+    one = torch.ones((1,), device=dev)
+    x8 = torch.rand((8, 1088, 1920, 3), generator=gen, device=dev) * 255.0
+    i8 = torch.ones((8,), dtype=torch.int32, device=dev)
+    return [("config3-4K-u8", xs, (one * cs.CONFIG3_SRC[0]).int(),
+             (one * cs.CONFIG3_SRC[1]).int(), one * cs.CONFIG3_VALID[0],
+             one * cs.CONFIG3_VALID[1], *cs.CONFIG3_FRAME),
+            ("1080p-B8-6.4x", x8, i8 * 1080, i8 * 1920, i8.float() * 169.0,
+             i8.float() * 300.0, 176, 304)]
+
+
+def parent_k13(old, old_spatial, grid, r: int, wb: int):
+    """The earlier tree's K13 launches over its own shards after its own
+    exchange: the fused kernel, or its two passes."""
+    shards = [sh for row in grid for sh in row]
+    if hasattr(old, "blur_halo"):
+        old_spatial.exchange_halos(grid, r)
+        return lambda: [old.blur_halo(sh.x, sh.left, sh.right, sh.h, sh.w, sh.sigma, r,
+                                      sh.col0, wb) for sh in shards]
+    old_spatial.blur_v(grid, r)
+    old_spatial.exchange_halos(grid, r)
+    # pass V, then pass H on the exchanged buffer, shard by shard
+    return lambda: [(old.blur_halo_v(sh.x, sh.h, sh.w, sh.sigma, r, sh.col0),
+                     old.blur_halo_h(sh.buf, sh.h, sh.w, sh.sigma, r, sh.col0, wb))
+                    for sh in shards]
 
 
 def blur_cases(dev, gen):
@@ -219,9 +262,10 @@ def main() -> int:
         return 2
     smi = cs.smi_line()
     cs.log(smi)
-    old = load_tree_kernels(os.path.abspath(args.parent))
+    old, old_spatial = load_tree_kernels(os.path.abspath(args.parent))
     from imaginary_tpu_torch import kernels
     from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.parallel import get_mesh, spatial
 
     built = kernels.load_all()
     for src in ab_sources(kernels):
@@ -304,6 +348,50 @@ def main() -> int:
               "top": top.tolist(), "left": left.tolist(),
               "bit_equal": bool(torch.equal(top, ot) and torch.equal(left, ol)),
               "parent_ms": ta, "ms": tb})
+    for case, x, h, w, dh, dw, ohb, owb in resample_cases(dev, gen):
+        got, _, _ = kernels.resample(x, h, w, dh, dw, ohb, owb, "lanczos3")
+        err = cs.max_err(got, reference.resample(x, h, w, dh, dw, ohb, owb, "lanczos3")[0])
+        if not err <= cs.F32_TOL:
+            raise AssertionError(f"resample [{case}]: max |err| {err} > {cs.F32_TOL}")
+        d, eq = diff(got, old.resample(x, h, w, dh, dw, ohb, owb, "lanczos3")[0])
+        ta, tb = turns(lambda: old.resample(x, h, w, dh, dw, ohb, owb, "lanczos3"),
+                       lambda: kernels.resample(x, h, w, dh, dw, ohb, owb, "lanczos3"))
+        emit({"kernel": "resample", "case": case, "shape": list(x.shape),
+              "err_vs_plain": err, "diff_vs_parent": d, "bit_equal": eq,
+              "parent_ms": ta, "ms": tb})
+        del got
+    bsz, hb, wb, c = cs.SHARDED_X
+    x = torch.rand(cs.SHARDED_X, generator=gen, device=dev) * 255.0
+    h = torch.tensor([v[0] for v in cs.SHARDED_VALID[:bsz]], dtype=torch.int32, device=dev)
+    w = torch.tensor([v[1] for v in cs.SHARDED_VALID[:bsz]], dtype=torch.int32, device=dev)
+    for r, sig in cs.SHARDED_CASES:
+        s = torch.full((bsz,), sig, device=dev)
+        k6 = kernels.blur(x, h, w, s, r)
+        for b, sp in cs.SHARDED_MESHES:
+            mesh = get_mesh(devices=[dev] * (b * sp), spatial=sp)
+            case = f"{b}x{sp}-r{r}"
+            got = spatial.sharded_blur(x, h, w, s, r, mesh)
+            if not torch.equal(got, k6):
+                raise AssertionError(f"blur_halo [{case}]: not bit-equal to K6")
+            d, eq = diff(got, old_spatial.sharded_blur(x, h, w, s, r, mesh))
+            cur = [torch.cuda.current_stream(e) for e in mesh.flat]
+            grid = spatial.shard_inputs(x, h, w, s, mesh, cur)
+            spatial.exchange_halos(grid, r)
+            shards = [sh for row in grid for sh in row]
+            ograd = old_spatial.shard_inputs(x, h, w, s, mesh, cur)
+            ta, tb = turns(parent_k13(old, old_spatial, ograd, r, wb),
+                           lambda: [kernels.blur_halo(sh.x, sh.left, sh.right, sh.h, sh.w,
+                                                      sh.sigma, r, sh.col0, wb)
+                                    for sh in shards])
+            k6_ms = cs.device_ms(lambda: kernels.blur(x, h, w, s, r))
+            wa, wb_ = turns(lambda: old_spatial.sharded_blur(x, h, w, s, r, mesh),
+                            lambda: spatial.sharded_blur(x, h, w, s, r, mesh))
+            emit({"kernel": "blur_halo", "case": case, "shape": list(x.shape), "r": r,
+                  "shards": len(shards), "bit_equal_k6": True, "diff_vs_parent": d,
+                  "bit_equal": eq, "parent_ms": ta, "ms": tb, "k6_ms": k6_ms,
+                  "parent_sharded_blur_ms": wa, "sharded_blur_ms": wb_})
+            del grid, ograd, shards, got
+        del k6
     # the device time of one small PyTorch launch: the fill the earlier
     # window_argmax put before its kernel
     emit({"kernel": "floor", "case": "torch.zeros((16,), int64)",

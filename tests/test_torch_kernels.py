@@ -433,8 +433,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.window_argmax(ii, i, i, i, i)
     kernels.from_dct(torch.zeros((1, 24, 16, 1), dtype=torch.int16), i, i, 16, 16, 8, "420")
     kernels.to_dct(x, i, i, torch.ones((1, 8, 8)), torch.ones((1, 8, 8)), 16, 16)
-    buf = kernels.blur_halo_v(x, i, i, f, 2, 0)
-    kernels.blur_halo_h(buf, i, i, f, 2, 0, 16)
+    kernels.blur_halo(x, None, None, i, i, f, 2, 0, 16)
     assert set(kernels.LAUNCHES) == {"resample", "yuv420_unpack", "yuv420_pack",
                                      "gather", "orient", "blur", "composite", "gray",
                                      "saliency", "window_argmax", "from_dct", "to_dct",

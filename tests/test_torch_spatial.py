@@ -1,7 +1,7 @@
 """The port's multi-GPU layer on the CPU: the device mesh
 (`imaginary_tpu_torch/parallel/mesh.py`) and the W-sharded blur with its
-halo exchange (`parallel/spatial.py`, through K13's plain version in
-`kernels/reference.py`).
+input-halo exchange (`parallel/spatial.py`, through K13's plain version
+in `kernels/reference.py`).
 
 The same seeded numpy inputs go through JAX `sharded_blur` on the
 conftest's eight virtual devices and through the port's `sharded_blur` on
@@ -9,9 +9,10 @@ a mesh of `cpu` entries of the same shape, (4, 2) and (2, 4), at radii 1,
 8 and the largest the guard admits (local width - 1). Both are held
 within 1e-3 absolute on the 0-255 scale (f32 sums in other orders), and
 also against JAX `BlurSpec(radius).apply` and the port's own K6 plain
-version on the unsharded image. Valid widths end mid-shard, exactly at a
-seam and one column past one; sigma 0 (the delta) and uint8 input are
-covered, and both ValueError guards.
+version on the unsharded image, which the sharded blur equals bit for
+bit. Valid widths end mid-shard, exactly at a seam and one column past
+one; sigma 0 (the delta) and uint8 input are covered, and the ValueError
+guards of the call and of K13's wrapper.
 """
 
 from __future__ import annotations
@@ -107,7 +108,7 @@ def test_sharded_blur_matches_jax_sharded_blur_and_blur_spec(shape, radius):
     assert np.abs(got - np.asarray(local)).max() <= F32_TOL
     k6 = reference.blur(torch.from_numpy(x), torch.from_numpy(h),
                         torch.from_numpy(w), torch.from_numpy(s), radius)
-    assert np.abs(got - k6.numpy()).max() <= F32_TOL
+    assert np.array_equal(got, k6.numpy())
     # zero outside every image's valid region, bucket padding included
     for i in range(x.shape[0]):
         assert not got[i, h[i]:].any() and not got[i, :, w[i]:].any()
@@ -147,22 +148,29 @@ def test_uneven_width_is_refused():
 
 
 def test_halo_passes_leave_the_halos_to_the_exchange():
-    """K13's pass V writes zeros into both halos and conv_v(x * mask) on
-    the valid rows into the core; pass H over a buffer with zero halos
-    equals K6 on an image that is this shard alone."""
+    """K13 reads the columns past its shard from the halos the exchange
+    fills: a shard with its neighbours' columns as halos equals K6 on the
+    whole image at its columns, bit for bit, in f32 and with the uint8
+    epilogue; an outer halo may be None, an inner one may not; the
+    shard must lie inside the bucket."""
     rng = np.random.default_rng(5)
-    x = torch.from_numpy(rng.integers(0, 256, (2, 20, 16, 3)).astype(np.float32))
+    x = torch.from_numpy(rng.integers(0, 256, (2, 20, 48, 3)).astype(np.float32))
     h = torch.tensor([20, 13], dtype=torch.int32)
-    w = torch.tensor([16, 11], dtype=torch.int32)
+    w = torch.tensor([48, 29], dtype=torch.int32)
     s = torch.tensor([2.0, 0.0])
-    buf = kernels.blur_halo_v(x, h, w, s, 4, 0)
-    assert tuple(buf.shape) == (2, 20, 24, 3)
-    assert not buf[:, :, :4].any() and not buf[:, :, 20:].any()
-    assert not buf[1, 13:].any() and not buf[1, :, 4 + 11:].any()
-    out = kernels.blur_halo_h(buf, h, w, s, 4, 0, 16)
-    assert np.abs(out.numpy() - reference.blur(x, h, w, s, 4).numpy()).max() <= F32_TOL
+    r = 4
+    for out_u8 in (False, True):
+        whole = reference.blur(x, h, w, s, r, out_u8)
+        for c0, c1 in ((0, 16), (16, 32), (32, 48)):
+            left = x[:, :, c0 - r:c0] if c0 else None
+            right = x[:, :, c1:c1 + r] if c1 < 48 else None
+            got = kernels.blur_halo(x[:, :, c0:c1], left, right, h, w, s, r, c0, 48,
+                                    out_u8)
+            assert torch.equal(got, whole[:, :, c0:c1])
+    with pytest.raises(ValueError, match="halo"):
+        kernels.blur_halo(x[:, :, 16:32], None, x[:, :, 32:36], h, w, s, r, 16, 48)
     with pytest.raises(ValueError, match="outside the bucket"):
-        kernels.blur_halo_h(buf, h, w, s, 4, 8, 16)
+        kernels.blur_halo(x[:, :, :16], None, None, h, w, s, r, 40, 48)
 
 
 # -- the mesh -------------------------------------------------------------------
