@@ -28,7 +28,14 @@ Phases, in order; any failure raises and exits non-zero:
    per-image offsets at B=32; K6 with valid dims one pixel inside and past
    its strips and row runs, at C = 1 to 4, uint8 in and out, an image
    smaller than r = 64 and sigma 0 beside sigma > 0; K2 at odd dims, 1x1, a
-   full bucket and buckets with wb % 4 == 2; K11 and K12 at the seams of
+   full bucket and buckets with wb % 4 == 2; K3 at the seams of its row
+   pairs and 128-column chunks (PACK_SEAM_CASES: odd dims, valid edges on
+   and past a chunk, 1x1 and empty images, wb % 4 == 2, an unaligned
+   input), plain and with its luma; K8 in each dtype pair at C = 3 and 4,
+   with scalar tails and on unaligned W-shard views (GRAY_CASES); K3's
+   fused luma form at the bw /resize's [1, 368, 640, 3] against K8's and
+   K3's plain versions one after the other, bit-equal to the two kernels
+   launched in turn and timed beside them; K11 and K12 at the seams of
    their tiles (DCT_SEAM_CASES: odd valid dims inside larger buckets, B=3
    batches of different dims, buckets 8 rows short of a tile and one tile
    wide, every layout at k = 8, the three-plane layouts at k = 1, 2, 4, K12
@@ -57,9 +64,12 @@ Phases, in order; any failure raises and exits non-zero:
 4. config 1's path: the port's HTTP server in-process on 127.0.0.1
    serving POST /resize and /crop?width=300&height=200 on
    tests/testdata/large.jpg three times each on `cuda`, with every
-   kernel's launch counter set to 0 just before and read just after; the
+   kernel's launch counter set to 0 just before and read just after (one
+   launch each of K2, K1, K4 and K3 a request, and nothing else); the
    server's packed output planes for the same plan on cuda and on cpu
-   agree to 1 LSB (also for config 2's /thumbnail and /rotate plans);
+   agree to 1 LSB (also for config 2's /thumbnail and /rotate plans and
+   the colorspace=bw /resize, whose K8 folds into K3 on the yuv420
+   transport);
 5. batch: `run_batch` cuda against cpu, to 1 LSB, at B=16 on config 1's
    plan, at B=32 on config 2's /thumbnail, /crop, /rotate?rotate=90 and
    EXIF-6 /resize plans, and at B=1 and B=8 on config 3's /pipeline chain
@@ -84,7 +94,10 @@ Phases, in order; any failure raises and exits non-zero:
    one request at a time with the launch counters set to 0 just before
    and read just after (each kernel launched exactly as often as the
    plans say, identity ShrinkBucketSpecs dropped by the chain, so config
-   3 launches no K4); every answer 200 with the right MIME type and size; the
+   3 launches no K4, and the bw /resize's K8 folded into its K3: 0 gray
+   and 1 yuv420_pack a request, re-derived from the specs here); the
+   card's busy time and kernels of a bw /resize request over a profiled
+   window; every answer 200 with the right MIME type and size; the
    WEBP within a PSNR bound of the same chain's array on the CPU; p50/p99
    of one client, then requests per second, p50/p99 and the busy share
    from 8 client threads in three windows; and the host's Pillow PNG
@@ -209,8 +222,9 @@ KERNEL_ROWS = {
 # The kernels each main path runs.
 CONFIG1_KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "gather")
 CONFIG2_KERNELS = CONFIG1_KERNELS + ("orient",)
-# config 3's K4 stages are identity shrinks, which the chain drops
-CONFIG3_KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "blur", "composite", "gray")
+# config 3's K4 stages are identity shrinks, which the chain drops; the bw
+# /resize's K8 folds into its K3 (K8 runs on the spatial route's bw chain)
+CONFIG3_KERNELS = ("resample", "yuv420_unpack", "yuv420_pack", "blur", "composite")
 CONFIG4_KERNELS = ("resample", "gather", "saliency", "window_argmax")
 DCT_KERNELS = ("from_dct", "to_dct")
 
@@ -635,6 +649,7 @@ CONFIG3_SRC = (2160, 3840)  # the 4K PNG, in its [2560, 4096] bucket
 CONFIG3_SRC_BUCKET = (2560, 4096)
 CONFIG3_BLOCK = (24, 48)  # the "bench" text watermark's block bucket
 BW_FRAME = (368, 640)  # the colorspace=bw /resize: K8 after K1 at 1/2 decode
+BW_VALID = (360, 640)
 K1_NARROW = (450, 800)  # /resize?width=800 of the 4K PNG: a [464, 800] bucket
 
 
@@ -848,6 +863,91 @@ def config3_kernel_phase(res: dict) -> None:
         "masked taps; per-image tiling and blend): library_ms null")
 
 
+def offset_view(shape, dtype, offset: int, fill):
+    """A contiguous tensor of `shape` whose data starts `offset` elements
+    past a 16-byte boundary (a view into a larger buffer), filled by
+    fill(n) -> a flat tensor of n elements."""
+    import math
+
+    import torch
+
+    n = math.prod(shape)
+    flat = torch.empty((n + offset,), dtype=dtype, device=DEVICE)
+    flat[offset:] = fill(n)
+    out = flat[offset:].view(shape)
+    align = out.data_ptr() % 16
+    if (align == 0) != (offset == 0):
+        raise AssertionError(f"view at offset {offset} is {align} bytes off 16")
+    return out
+
+
+def pack_gray_phase(res: dict) -> None:
+    """K3 and K8 at the seams of their designs, and K3's fused luma form,
+    against their plain versions: K3 (U8_TOL) on PACK_SEAM_CASES (odd
+    valid dims, valid edges on and past a 128-column chunk, 1x1 and empty
+    images, a one-chunk tall bucket, wb % 4 == 2, an unaligned input); K8
+    (F32_TOL, or U8_TOL on uint8 output) on GRAY_CASES (each dtype pair at
+    C = 3 and 4, scalar tails, unaligned W-shard views); the fused form
+    (`rgb_to_yuv420(..., luma=True)`, one launch) at the bw /resize's
+    [1, 368, 640, 3] against `reference.gray` then
+    `reference.rgb_to_yuv420`, bit for bit against the two kernels
+    launched one after the other, and timed beside that pair."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 13)
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    def rand_f32(n):
+        return torch.rand((n,), generator=gen, device=dev) * 295.0 - 20.0
+
+    def rand_u8(n):
+        return torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8)
+
+    for case, (hb, wb), hw, off in PACK_SEAM_CASES:
+        x = offset_view((len(hw), hb, wb, 3), torch.float32, off, rand_f32)
+        h, w = i32([a for a, _ in hw]), i32([b for _, b in hw])
+        for luma in (False, True):
+            check("yuv420_pack", kernels.rgb_to_yuv420(x, h, w, hb, wb, luma),
+                  reference.rgb_to_yuv420(x, h, w, hb, wb, luma), res,
+                  case + ("-luma" if luma else ""), U8_TOL)
+    for case, shape, u8_in, u8_out, off in GRAY_CASES:
+        x = offset_view(shape, torch.uint8 if u8_in else torch.float32, off,
+                        rand_u8 if u8_in else rand_f32)
+        check("gray", kernels.gray(x, u8_out), reference.gray(x, u8_out), res, case,
+              U8_TOL if u8_out else F32_TOL)
+    # the fused form on the bw /resize's frame
+    hb, wb = BW_FRAME
+    x = torch.rand((1, hb, wb, 3), generator=gen, device=dev) * 255.0
+    h, w = i32([BW_VALID[0]]), i32([BW_VALID[1]])
+    got = kernels.rgb_to_yuv420(x, h, w, hb, wb, luma=True)
+    check("yuv420_pack", got,
+          reference.rgb_to_yuv420(reference.gray(x), h, w, hb, wb), res, "bw-fused",
+          U8_TOL)
+
+    def pair():
+        return kernels.rgb_to_yuv420(kernels.gray(x), h, w, hb, wb)
+
+    if not torch.equal(got, pair()):
+        raise AssertionError("K3's luma form differs from K8 then K3")
+    timing(res, "yuv420_pack", "bw-fused",
+           lambda: kernels.rgb_to_yuv420(x, h, w, hb, wb, luma=True),
+           lambda: reference.rgb_to_yuv420(x, h, w, hb, wb, luma=True), None,
+           x.numel() * 4 + got.numel(), 25.0 * x.numel() / 3)
+    res["yuv420_pack"]["bw-fused"]["pair_ms"] = pair_ms = device_ms(pair)
+    log(f"  K8 then K3 on the same frame, two launches: {pair_ms:.4f} ms; the fused "
+        f"launch bit-equal to them")
+    for name in ("yuv420_pack", "gray"):
+        worst = max(res[name].items(), key=lambda kv: kv[1]["max_abs_err"])
+        log(f"  {name} (redesigned): max |err| against the plain version over "
+            f"{len(res[name])} cases {worst[1]['max_abs_err']!r} ({worst[0]})")
+
+
 # K6 at the seams of its design (a block walks a run of rows of one strip
 # of columns): (case, C, uint8 in and out)
 BLUR_SEAM_CASES = (("strip-edges", 1, False), ("strip-edges", 2, False),
@@ -860,6 +960,32 @@ YUV_SEAM_CASES = (
     ("full-bucket", (32, 48), ((32, 48), (32, 48))),  # chroma clamped at its edge
     ("wb-mod4-2", (18, 54), ((18, 54), (17, 53), (1, 3))),
     ("wb-mod4-2-wide", (64, 1922), ((64, 1922), (63, 1921))),
+)
+
+# K3 at the seams of its design (a block takes row pairs of one image over
+# a chunk of 128 columns, four columns a lane; a bucket with wb % 4 == 2
+# takes its scalar path): (case, bucket, valid (h, w) per image, offset
+# of the input in floats past a 16-byte boundary)
+PACK_SEAM_CASES = (
+    ("odd-hw", (32, 48), ((31, 45), (27, 41)), 0),
+    ("chunk-edges", (64, 384), ((63, 128), (64, 129), (2, 383)), 0),
+    ("1x1-and-empty", (16, 16), ((1, 1), (0, 0)), 0),
+    ("one-chunk-tall", (1088, 16), ((1081, 15),), 0),
+    ("wb-mod4-2", (18, 258), ((17, 257), (18, 258)), 0),
+    ("unaligned-input", (32, 48), ((31, 45),), 1),
+)
+# K8's vector groups and its scalar tail and unaligned form: (case,
+# shape, uint8 in, uint8 out, offset of the input in elements past a
+# 16-byte boundary). "shard" cases take a spatial W-shard's width
+# (640 / 4 columns) from a buffer at an offset no vector load can start at.
+GRAY_CASES = (
+    ("C3-f32-tail", (1, 7, 9, 3), False, False, 0),
+    ("C4-f32", (1, 368, 640, 4), False, False, 0),
+    ("C3-u8-in", (1, 368, 640, 3), True, False, 0),
+    ("C3-u8-out", (1, 368, 640, 3), False, True, 0),
+    ("C4-u8-tail", (2, 37, 53, 4), True, True, 0),
+    ("shard-unaligned-C3", (1, 368, 160, 3), False, False, 1),
+    ("shard-unaligned-C4-u8", (1, 368, 160, 4), True, True, 3),
 )
 
 
@@ -1139,9 +1265,10 @@ def main_path_phase() -> dict:
         srv.shutdown()
         srv.server_close()
         th.join(timeout=10)
-    for name in CONFIG1_KERNELS:
-        if launches[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched on config 1's path")
+    # one launch of each of K2, K1, K4 and K3 a request, nothing else
+    want = {k: (6 if k in CONFIG1_KERNELS else 0) for k in launches}
+    if launches != want:
+        raise AssertionError(f"config 1's six requests launched {launches}, not {want}")
     for op, ts in lat.items():
         log(f"  /{op}: {', '.join(f'{t:.2f}' for t in ts)} ms")
     log(f"  launches: {launches}")
@@ -1214,15 +1341,16 @@ def parity_phase(rng, png: bytes) -> dict:
     from imaginary_tpu_torch.ops import chain
 
     out = {}
+    # the bw /resize: K8 folded into K3 on the yuv420 transport, K8 alone on rgb
     for op, query in (("resize", None), ("crop", None), ("thumbnail", None),
-                      ("rotate", {"rotate": "90"})):
+                      ("rotate", {"rotate": "90"}), ("resize", BW_QUERY)):
         for transport in ("yuv420", "rgb"):
             arr, p = main_plan(op, transport, query)
             err = planes_err(chain.run_single(arr, p, device=DEVICE),
                              chain.run_single(arr, p, device="cpu"))
             if err > U8_TOL:
                 raise AssertionError(f"{op}/{transport}: cuda vs cpu {err} LSB")
-            out[f"{op}-{transport}"] = err
+            out[f"{op}{'-bw' if query == BW_QUERY else ''}-{transport}"] = err
     log(f"  run_single cuda vs cpu, max LSB: {out}")
     # phase 5: B=16 on config 1's plan, and config 2's chains at the
     # batch its server forms (B=32), each image with its own noise
@@ -1573,14 +1701,20 @@ NOT_LAST_SPECS = ("FromYuv420Spec", "FromDctSpec")
 # identity shrink, /rotate?rotate=90's shrink changes the bucket
 CONFIG3_GATHERS = 0
 ROTATE_GATHERS = 1
+# The bw /resize's K8 and K3 launches of one request: one fused K3
+BW_GRAY = 0
+BW_PACK = 1
+BW_PROFILED = 6  # bw requests in phase 7's profiled window
 
 
 def expected_launches(plan, arr) -> dict:
     """The launches of `plan` on input `arr` (a packed buffer, or an HWC
     frame padded to its bucket): every stage's, but the identity
     ShrinkBucketSpecs, whose output dims equal the bucket the stage before
-    left. Worked out here from the specs' own dims, apart from the chain
-    runner's `live_stages`, so that the card's counts check the runner."""
+    left, and a GraySpec right before a ToYuv420Spec, which that stage's
+    K3 applies itself. Worked out here from the specs' own dims, apart
+    from the chain runner's `live_stages` and `launch_steps`, so that the
+    card's counts check the runner."""
     from imaginary_tpu_torch import kernels
     from imaginary_tpu_torch.ops.buckets import bucket_shape
 
@@ -1604,11 +1738,28 @@ def expected_launches(plan, arr) -> dict:
                 continue
         live.append(i)
         hb, wb = out
-    out = dict.fromkeys(kernels.LAUNCHES, 0)
+    # a GraySpec right before a ToYuv420Spec launches nothing: that K3
+    # applies the luma itself (one yuv420_pack launch for the pair)
+    steps = []
     for i in live:
+        if steps and names[i] == "ToYuv420Spec" and names[steps[-1]] == "GraySpec":
+            steps[-1] = i
+        else:
+            steps.append(i)
+    out = dict.fromkeys(kernels.LAUNCHES, 0)
+    for i in steps:
         for name, n in SPEC_LAUNCHES[names[i]].items():
             out[name] += n
     return out
+
+
+def check_bw_pins(bw_plan, bw_arr) -> None:
+    """Hold expected_launches to the bw /resize's pinned launches: its K8
+    folded into its K3."""
+    got = expected_launches(bw_plan, bw_arr)
+    if (got["gray"], got["yuv420_pack"]) != (BW_GRAY, BW_PACK):
+        raise AssertionError(f"bw /resize plan: {got['gray']} gray and {got['yuv420_pack']} "
+                             f"yuv420_pack launches, pinned {BW_GRAY} and {BW_PACK}")
 
 
 def check_gather_pins(config3_plan, config3_arr) -> None:
@@ -1639,6 +1790,52 @@ def host_ms(fn, n: int = 5) -> float:
     return statistics.median(ts)
 
 
+def bw_profile(port: int, buf: bytes, want: int) -> dict:
+    """The card's time and kernels a colorspace=bw /resize request: each of
+    BW_PROFILED requests one at a time in its own torch.profiler window,
+    the union of the card's busy intervals and the kernels (not the
+    copies) by name. torch.profiler drops part of a window's device
+    events now and then (see device_kernels): a window with fewer than
+    `want` kernels (the plan's launches) is taken again, up to
+    PROFILE_TRIES times, and the fullest one counts. Medians over the
+    requests."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    path = "/resize?" + urllib.parse.urlencode(BW_QUERY)
+    windows = []
+    for _ in range(BW_PROFILED):
+        best = None
+        for _ in range(PROFILE_TRIES):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                status, ctype, _ = http(port, path, buf)
+            if (status, ctype) != (200, "image/jpeg"):
+                raise AssertionError(f"bw /resize: {status} {ctype}")
+            busy, _, by_name = busy_union_us(prof)
+            names = collections.Counter(
+                kernel_name(e.name) for e in prof.events()
+                if e.device_type == DeviceType.CUDA and "memcpy" not in e.name.lower()
+                and "memset" not in e.name.lower())
+            got = (sum(names.values()), busy, names, by_name)
+            if best is None or got[0] > best[0]:
+                best = got
+            if best[0] >= want:
+                break
+        windows.append(best)
+    full = [w for w in windows if w[0] >= want] or windows
+    by_name: dict = collections.defaultdict(list)
+    for _, _, _, names_us in full:
+        for k, v in names_us.items():
+            by_name[kernel_name(k)].append(v)
+    return {"requests": BW_PROFILED, "full_windows": len([w for w in windows if w[0] >= want]),
+            "busy_us_per_request": statistics.median(w[1] for w in full),
+            "kernels_per_request": statistics.median(w[0] for w in windows),
+            "kernels": dict(sum((w[2] for w in full), collections.Counter())),
+            "by_name_us": {k: statistics.median(v) for k, v in by_name.items()}}
+
+
 def config3_phase(png: bytes) -> dict:
     import io
 
@@ -1666,6 +1863,7 @@ def config3_phase(png: bytes) -> dict:
         "bw-resize": main_plan("resize", "yuv420", BW_QUERY),
     }
     check_gather_pins(plans["config3"][1], plans["config3"][0])
+    check_bw_pins(plans["bw-resize"][1], plans["bw-resize"][0])
     expected = dict.fromkeys(kernels.LAUNCHES, 0)
     for name, _, _, _, _, n in CONFIG3_REQUESTS:
         for k, v in expected_launches(plans[name][1], plans[name][0]).items():
@@ -1694,6 +1892,9 @@ def config3_phase(png: bytes) -> dict:
                     raise AssertionError(f"{name}: output is not {dims}")
             last[name] = body
         launches = kernels.launch_counts()
+        bw = bw_profile(port, bodies["jpg"],
+                        sum(expected_launches(plans["bw-resize"][1], plans["bw-resize"][0])
+                            .values()))
         reqs = [(CONFIG3_REQUESTS[0][1], png)]
         items0, batches0 = ex.stats.items, ex.stats.batches
         walls, results = [], []
@@ -1771,6 +1972,7 @@ def config3_phase(png: bytes) -> dict:
                      "wall_us": prof_wall_us, "device_busy_us": busy,
                      "device_summed_us": summed, "busy_share": busy / prof_wall_us,
                      "by_name_us": by_name},
+        "bw_profiled": bw,
         "font": font,
     }
     for name, ts in lat.items():
@@ -1779,6 +1981,11 @@ def config3_phase(png: bytes) -> dict:
     log(f"  config 3 one client: p50 {out['p50_ms_one_client']:.2f} ms, "
         f"p99 {out['p99_ms_one_client']:.2f} ms over {len(one)} requests")
     log(f"  launches: {launches} (as the plans say)")
+    log(f"  bw /resize, {BW_PROFILED} requests profiled one at a time "
+        f"({bw['full_windows']} windows with every kernel): card busy "
+        f"{bw['busy_us_per_request']:.2f} us a request (median), "
+        f"{bw['kernels_per_request']} kernels a request; median us a request: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in bw["by_name_us"].items()))
     log(f"  WEBP vs the CPU array's WEBP: PSNR {db_webp:.2f} dB (bytes identical: "
         f"{out['webp_identical_to_cpu_webp']}); vs the CPU array: PSNR {db:.2f} dB, "
         f"max {out['webp_max_abs_vs_cpu']} LSB")
@@ -3245,6 +3452,7 @@ def main() -> int:
     orient_phase(report["kernels"])
     config2_kernel_phase(rng, report["kernels"])
     config3_kernel_phase(report["kernels"])
+    pack_gray_phase(report["kernels"])
     seams_phase(report["kernels"])
     config4_kernel_phase(report["kernels"])
     dct_kernel_phase(report["kernels"])
@@ -3288,7 +3496,7 @@ def main() -> int:
                      "blur_halo": "spatial-config3"}[name]
         m = per_case[main_case]
         # each kernel's launches come from the run of the path it serves
-        path = {"blur": "config3", "composite": "config3", "gray": "config3",
+        path = {"blur": "config3", "composite": "config3", "gray": "spatial",
                 "saliency": "config4", "window_argmax": "config4",
                 "from_dct": "dct", "to_dct": "dct",
                 "blur_halo": "spatial"}.get(name, "config2")

@@ -6,7 +6,8 @@ slices use. The backend is chosen by format, never by failure: JPEG goes
 to the native extension (`native_backend`, libjpeg, also the packed-YUV
 transport), PNG, WEBP, GIF and TIFF to Pillow (`pil_backend`); a native
 JPEG error never retries in Pillow. HEIF, AVIF, SVG and PDF answer 501
-until their slice lands. Decoding is RAW: EXIF rotation is *not* applied
+until their slice lands, but for PDF and SVG targets, which the reference
+cannot encode either: 400. Decoding is RAW: EXIF rotation is *not* applied
 here — orientation is reported and the planner decides.
 """
 
@@ -104,6 +105,20 @@ def unpack_planes(packed: np.ndarray, h: int, w: int, hb: int, wb: int) -> YuvPl
         u=np.ascontiguousarray(a[hb : hb + ch, :cw]),
         v=np.ascontiguousarray(a[hb : hb + ch, wb // 2 : wb // 2 + cw]),
     )
+
+
+def yuv_planes_to_rgb(p: YuvPlanes) -> np.ndarray:
+    """BT.601 full-range planes -> HWC uint8 RGB (nearest chroma upsample):
+    the pixels of planes whose raw JPEG encode failed (ref:
+    codecs/__init__.py:135-148)."""
+    h, w = p.y.shape
+    yf = p.y.astype(np.float32)
+    u = p.u.astype(np.float32).repeat(2, 0)[:h].repeat(2, 1)[:, :w] - 128.0
+    v = p.v.astype(np.float32).repeat(2, 0)[:h].repeat(2, 1)[:, :w] - 128.0
+    r = yf + 1.402 * v
+    g = yf - 0.344136 * u - 0.714136 * v
+    b = yf + 1.772 * u
+    return np.clip(np.stack([r, g, b], axis=-1) + 0.5, 0, 255).astype(np.uint8)
 
 
 # --- JPEG metadata carry-through (ref: options.go:139 StripMetadata) ---------
@@ -235,8 +250,13 @@ def _native():
     return native_backend
 
 
+# Formats that no backend of the reference can write (native_backend.py:117-122)
+NEVER_ENCODED = (ImageType.PDF, ImageType.SVG)
+
+
 def _backend(t: ImageType, what: str):
-    """The backend of format t; formats without one answer 501."""
+    """The backend of format t; formats without one answer 501, and PDF
+    and SVG targets the reference's 400."""
     route = ROUTES.get(t)
     if route == "native":
         return _native()
@@ -244,6 +264,8 @@ def _backend(t: ImageType, what: str):
         from imaginary_tpu_torch.codecs import pil_backend
 
         return pil_backend
+    if what == "encoding" and t in NEVER_ENCODED:
+        raise CodecError(f"Cannot encode image: unsupported format {t.value}", 400)
     raise CodecError(f"{what} {t.value} is not ported to the PyTorch/CUDA package yet", 501)
 
 

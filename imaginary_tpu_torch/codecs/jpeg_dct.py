@@ -2,7 +2,8 @@
 
 The port's copy of `imaginary_tpu/codecs/jpeg_dct.py`, trimmed to what the
 DCT transport of the port calls (`decode_packed` on ingest,
-`unpack_dct_egress` + `encode_quantized` on egress).
+`unpack_dct_egress` + `encode_quantized` on egress, and `blocks_to_planes`
+when that encode fails).
 
 The dct transport (ops/plan.wrap_plan_dct) splits JPEG decode across the
 link: the host does only the serial, un-vectorizable part — Huffman entropy
@@ -906,6 +907,32 @@ class QuantizedBlocks:
     y: np.ndarray
     u: np.ndarray
     v: np.ndarray
+
+
+def _dct_basis8() -> np.ndarray:
+    """Orthonormal 8-point DCT-II basis, b[u, x] = a(u) cos((2x+1)u pi/16)."""
+    x = np.arange(8)
+    b = np.cos((2 * x[None, :] + 1) * np.arange(8)[:, None] * np.pi / 16)
+    b *= 0.5
+    b[0] *= np.sqrt(0.5)
+    return b
+
+
+def blocks_to_planes(qb: QuantizedBlocks) -> tuple:
+    """The pixels of an egress buffer whose entropy encode failed: (y, u, v)
+    uint8 planes at (h, w) and (ceil(h/2), ceil(w/2)), dequantized and
+    inverse-transformed exactly in f64 (ref: jpeg_dct.py:1252-1275)."""
+    qy, qc = quality_tables(qb.quality)
+    b = _dct_basis8()
+
+    def pix(blocks, q, vh, vw):
+        deq = blocks.astype(np.float64) * q.astype(np.float64)[None, None]
+        img = np.einsum("abuv,ux,vz->abxz", deq, b, b) + 128.0
+        out = img.transpose(0, 2, 1, 3).reshape(blocks.shape[0] * 8, blocks.shape[1] * 8)
+        return np.clip(np.rint(out[:vh, :vw]), 0, 255).astype(np.uint8)
+
+    ch, cw = -(-qb.h // 2), -(-qb.w // 2)
+    return (pix(qb.y, qy, qb.h, qb.w), pix(qb.u, qc, ch, cw), pix(qb.v, qc, ch, cw))
 
 
 def unpack_dct_egress(packed: np.ndarray, h: int, w: int, hb: int, wb: int,

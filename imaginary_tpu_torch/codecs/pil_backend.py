@@ -39,16 +39,55 @@ def _has_alpha(im: Image.Image) -> bool:
     return im.mode in ("RGBA", "LA", "PA") or (im.mode == "P" and "transparency" in im.info)
 
 
+# Pillow's 16- and 32-bit gray modes, whose `convert` clips to 255
+_WIDE_GRAY = ("I;16", "I;16B", "I;16L", "I")
+
+
+def _to_u8(samples: np.ndarray) -> np.ndarray:
+    """16-bit samples -> uint8 by the reference's cv2 backend's rule
+    (cv2_backend.py:69-70): v / 257 + 0.5, truncated. Within 1 LSB of
+    libvips's 16 -> 8 shift."""
+    return (np.clip(samples, 0, 65535).astype(np.float32) / 257.0 + 0.5).astype(np.uint8)
+
+
+def _png16_rgb(buf: bytes) -> np.ndarray:
+    """The samples of a 16-bit PNG as uint8 RGB or RGBA, scaled by `_to_u8`.
+    Pillow keeps 16 bits only for gray (RGB, RGBA and gray + alpha come
+    back as their high bytes), so these are read with cv2, as the
+    reference's cv2 backend reads them."""
+    import cv2
+
+    arr = cv2.imdecode(np.frombuffer(buf, np.uint8),
+                       cv2.IMREAD_UNCHANGED | cv2.IMREAD_IGNORE_ORIENTATION)
+    if arr is None:
+        raise CodecError("Cannot decode image: corrupt 16-bit PNG", 400)
+    if arr.ndim == 2:
+        arr = cv2.cvtColor(arr, cv2.COLOR_GRAY2RGB)
+    else:
+        arr = cv2.cvtColor(arr, cv2.COLOR_BGRA2RGBA if arr.shape[2] == 4 else cv2.COLOR_BGR2RGB)
+    return np.ascontiguousarray(_to_u8(arr))
+
+
 def decode(buf: bytes, t: ImageType, shrink: int = 1) -> DecodedImage:
     """Full-size decode to RGB, or RGBA where the source has alpha
-    (shrink-on-load is a JPEG feature; other formats ignore it)."""
+    (shrink-on-load is a JPEG feature; other formats ignore it). 16-bit
+    samples are scaled to 8 bits (`_to_u8`), never clipped."""
     try:
         im = Image.open(io.BytesIO(buf))
+        if t is ImageType.PNG and buf[24:25] == b"\x10":  # IHDR bit depth 16
+            arr = _png16_rgb(buf)
+            return DecodedImage(array=arr, type=t, orientation=_orientation(im),
+                                has_alpha=arr.shape[2] == 4)
         im.load()
+    except CodecError:
+        raise
     except Exception as e:
         raise CodecError(f"Cannot decode image: {e}", 400) from None
     orientation = _orientation(im)
     has_alpha = _has_alpha(im)
+    if im.mode in _WIDE_GRAY:
+        arr = np.repeat(_to_u8(np.asarray(im))[..., None], 3, axis=2)
+        return DecodedImage(array=arr, type=t, orientation=orientation, has_alpha=False)
     target = "RGBA" if has_alpha else "RGB"
     if im.mode != target:
         im = im.convert(target)

@@ -4,7 +4,7 @@
 | --------------- | ---------------------- | ------------------------------------------------ |
 | resample        | csrc/resample.cu       | ops/stages.py:46-116 sample_matrix + SampleSpec  |
 | yuv420_unpack   | csrc/yuv420_unpack.cu  | ops/stages.py:344-423 FromYuv420Spec (+ cast)    |
-| yuv420_pack     | csrc/yuv420_pack.cu    | ops/stages.py:521-552 ToYuv420Spec + epilogue    |
+| yuv420_pack     | csrc/yuv420_pack.cu    | ops/stages.py:521-552 ToYuv420Spec + epilogue, + GraySpec |
 | gather          | csrc/gather.cu         | ops/stages.py:119-198, 330-341 Extract/Embed/Shrink |
 | orient          | csrc/orient.cu         | ops/stages.py:201-234 Flip/Flop/Transpose        |
 | blur            | csrc/blur.cu           | ops/stages.py:237-280 BlurSpec                   |
@@ -50,7 +50,7 @@ _SIGNATURES = {
     "yuv420_unpack": ("yuv420_unpack", "itpu_yuv420_to_rgb",
                       [_P, _P, _P, _P, _I, _I, _I, _P]),
     "yuv420_pack": ("yuv420_pack", "itpu_rgb_to_yuv420",
-                    [_P, _P, _P, _P, _I, _I, _I, _P]),
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
     "gather": ("gather", "itpu_gather",
                [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 _I, _P]),
@@ -258,11 +258,13 @@ def yuv420_to_rgb(x, h, w, hb: int, wb: int):
     return out
 
 
-def rgb_to_yuv420(x, h, w, hb: int, wb: int):
+def rgb_to_yuv420(x, h, w, hb: int, wb: int, luma: bool = False):
     """K3: f32 RGB [B, hb, wb, 3] -> uint8 packed planes [B, hb + hb/2, wb, 1]
-    (chroma pooled over valid pixels; epilogue fused)."""
+    (chroma pooled over valid pixels; epilogue fused). With `luma`, K8's
+    luma is applied to each pixel as it is loaded: one launch, equal to
+    `gray` then `rgb_to_yuv420`, counted as one `yuv420_pack`."""
     if x.device.type == "cpu":
-        return reference.rgb_to_yuv420(x, h, w, hb, wb)
+        return reference.rgb_to_yuv420(x, h, w, hb, wb, luma)
     dev = x.device
     bsz = x.shape[0]
     if hb % 2 or wb % 2:
@@ -272,7 +274,7 @@ def rgb_to_yuv420(x, h, w, hb: int, wb: int):
     _require(w, "w", _I32, (bsz,), dev)
     out = torch.empty((bsz, hb + hb // 2, wb, 1), dtype=torch.uint8, device=dev)
     _launch("yuv420_pack", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(),
-            w.data_ptr(), bsz, hb, wb)
+            w.data_ptr(), bsz, hb, wb, int(bool(luma)))
     return out
 
 
@@ -413,7 +415,9 @@ def composite(x, overlay, top, left, opacity, block_h, block_w,
 
 def gray(x, out_u8: bool = False):
     """K8: Rec.709 luma of x [B, Hb, Wb, C] (uint8 or f32, C 3 or 4)
-    broadcast over RGB, alpha kept; f32 out, or uint8 with the epilogue."""
+    broadcast over RGB, alpha kept; f32 out, or uint8 with the epilogue.
+    16-byte vector loads and stores where x starts on a 16-byte boundary,
+    the scalar form where it does not (a view into a larger buffer)."""
     if x.device.type == "cpu":
         return reference.gray(x, out_u8)
     dev = x.device

@@ -161,9 +161,12 @@ def yuv420_to_rgb(x: torch.Tensor, h, w, hb: int, wb: int) -> torch.Tensor:
                                  xf[:, hb:, wb // 2:], h, w, hb, wb)
 
 
-def rgb_to_yuv420(x: torch.Tensor, h, w, hb: int, wb: int) -> torch.Tensor:
+def rgb_to_yuv420(x: torch.Tensor, h, w, hb: int, wb: int, luma: bool = False) -> torch.Tensor:
     """K3's function: f32 [B, hb, wb, 3] RGB -> uint8 [B, hb + hb/2, wb, 1]
-    packed planes (stages.py:ToYuv420Spec with the chain's uint8 epilogue)."""
+    packed planes (stages.py:ToYuv420Spec with the chain's uint8 epilogue).
+    With `luma`, of `gray(x)`: K8 then K3, which the kernel fuses."""
+    if luma:
+        x = gray(x)
     x = torch.clamp(x.float(), 0.0, 255.0)
     r, g, b = x[..., 0], x[..., 1], x[..., 2]
     y = 0.299 * r + 0.587 * g + 0.114 * b

@@ -24,7 +24,9 @@ on W over one row of a mesh's spatial axis (the reference's chain under
 `PartitionSpec("batch", None, "spatial", None)`); see its docstring.
 On the CPU the chain runs at once and the fetch has nothing to wait for.
 A ShrinkBucketSpec that would copy its input unchanged launches nothing
-(`live_stages`). The chain's uint8 -> f32 cast (int16 -> f32 for the DCT
+(`live_stages`), and a GraySpec right before a ToYuv420Spec folds into
+that stage's launch (`launch_steps`). The chain's uint8 -> f32 cast
+(int16 -> f32 for the DCT
 transport's coefficients, staged as int16 in the same one H2D) and its
 uint8 epilogue are fused into the first and last stages' kernels. A chain
 whose last spec has `out_dtype` "int16" (ToDctSpec) drains rounded,
@@ -50,6 +52,7 @@ from imaginary_tpu_torch.ops.plan import ImagePlan
 from imaginary_tpu_torch.ops.stages import (
     FromDctSpec,
     FromYuv420Spec,
+    GraySpec,
     ShrinkBucketSpec,
     ToDctSpec,
     ToYuv420Spec,
@@ -126,13 +129,38 @@ def live_stages(specs, hb: int, wb: int) -> list:
     return live
 
 
+def launch_steps(specs, run: list) -> list:
+    """The launches of `run`, live stages that run one after another on
+    one device: (stage index, luma) pairs. A GraySpec whose next stage in
+    the run is ToYuv420Spec launches nothing: that K3 applies K8's luma to
+    each pixel as it loads it (`luma` True), one launch for the pair and
+    bit-equal to it. A GraySpec before a ToDctSpec keeps its launch. The
+    spatial route passes the stages after its gather as their own run, so
+    a stage split by it never fuses across the gather."""
+    steps = []
+    for i in run:
+        if (steps and isinstance(specs[i], ToYuv420Spec)
+                and isinstance(specs[steps[-1][0]], GraySpec)):
+            steps[-1] = (i, True)
+        else:
+            steps.append((i, False))
+    return steps
+
+
+def _run_steps(specs, steps: list, x, h, w, dyns):
+    """Launch `steps` (`launch_steps`); the last one writes uint8 (epilogue
+    fused). No steps return the input as it is."""
+    for i, luma in steps:
+        fused = {"luma": True} if luma else {}
+        x, h, w = specs[i].apply(x, h, w, dyns[i], out_u8=(i == steps[-1][0]), **fused)
+    return x, h, w
+
+
 def _run_chain(specs, x, h, w, dyns):
     """Run every live stage; the last one writes uint8 (epilogue fused).
     A chain of identity shrinks alone returns its uint8 input."""
-    live = live_stages(specs, x.shape[1], x.shape[2])
-    for i in live:
-        x, h, w = specs[i].apply(x, h, w, dyns[i], out_u8=(i == live[-1]))
-    return x, h, w
+    steps = launch_steps(specs, live_stages(specs, x.shape[1], x.shape[2]))
+    return _run_steps(specs, steps, x, h, w, dyns)
 
 
 def pad_to_bucket(arr: np.ndarray) -> np.ndarray:
@@ -446,11 +474,9 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
         spatial.wait(s0, sh.ready)
         spatial.copy_into(x[:, :, sh.col0:sh.col0 + lw], s0, sh.x, sh.stream)
     live = live_stages(specs, hb, wb)
-    rest = live[live.index(gather_at):]
-    hh, ww = shards[0].h, shards[0].w
+    rest = launch_steps(specs, live[live.index(gather_at):])
     with spatial.on(s0):
-        for i in rest:
-            x, hh, ww = specs[i].apply(x, hh, ww, dyns[0][i], out_u8=(i == rest[-1]))
+        x, _, _ = _run_steps(specs, rest, x, shards[0].h, shards[0].w, dyns[0])
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=dev0.type == "cuda")
         host.copy_(x, non_blocking=s0 is not None)
         event = spatial.record(s0)

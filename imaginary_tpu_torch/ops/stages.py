@@ -269,10 +269,12 @@ class ToYuv420Spec:
     hb: int
     wb: int
 
-    def apply(self, x, h, w, dyn, out_u8: bool = True):
+    def apply(self, x, h, w, dyn, out_u8: bool = True, luma: bool = False):
+        """`luma`: a GraySpec before this stage folded into it (the chain
+        runner's `launch_steps`), applied to each pixel as K3 loads it."""
         if not out_u8:
             raise ValueError("ToYuv420Spec must end its chain")
-        return kernels.rgb_to_yuv420(x, h, w, self.hb, self.wb), h, w
+        return kernels.rgb_to_yuv420(x, h, w, self.hb, self.wb, luma), h, w
 
 
 @dataclasses.dataclass(frozen=True)

@@ -130,14 +130,21 @@ def _encode_type(o: ImageOptions, source: ImageType) -> ImageType:
     return source if source in ENCODABLE else ImageType.JPEG
 
 
+# Targets whose failed encode the reference retries as JPEG (image.go:99-103)
+_JPEG_FALLBACK = (ImageType.WEBP, ImageType.HEIF, ImageType.AVIF)
+
+
 def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
     """Encode an HWC uint8 array, YuvPlanes from the packed transports
     (raw-plane JPEG path, no host color math), or QuantizedBlocks from the
     dct egress (entropy-coded as they are: `_pick_egress` chose the egress
-    only for a baseline JPEG target)."""
-    if isinstance(arr, jpeg_dct.QuantizedBlocks):
-        return ProcessedImage(body=jpeg_dct.encode_quantized(arr),
-                              mime=get_image_mime_type(target))
+    only for a baseline JPEG target).
+
+    The reference's fallbacks (pipeline.py:159-192): blocks whose entropy
+    encode fails are rebuilt into planes, planes whose raw encode fails
+    into RGB, and a WEBP, HEIF or AVIF encode that fails is retried as
+    JPEG and reported so. A format the port cannot encode yet keeps its
+    501."""
     opts = EncodeOptions(
         type=target,
         quality=o.quality,
@@ -147,11 +154,30 @@ def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
         speed=o.speed,
         strip_metadata=o.strip_metadata,
     )
+    if isinstance(arr, jpeg_dct.QuantizedBlocks):
+        if target is ImageType.JPEG and not o.interlace:
+            try:
+                return ProcessedImage(body=jpeg_dct.encode_quantized(arr),
+                                      mime=get_image_mime_type(target))
+            except ImageError:
+                pass
+        arr = YuvPlanes(*jpeg_dct.blocks_to_planes(arr))
     if isinstance(arr, YuvPlanes):
-        body = codecs.encode_yuv(arr, opts)
-    else:
-        body = codecs.encode(arr, opts)
-    return ProcessedImage(body=body, mime=get_image_mime_type(target))
+        if target is ImageType.JPEG:
+            try:
+                return ProcessedImage(body=codecs.encode_yuv(arr, opts),
+                                      mime=get_image_mime_type(target))
+            except ImageError:
+                pass
+        arr = codecs.yuv_planes_to_rgb(arr)
+    try:
+        body, actual = codecs.encode(arr, opts), target
+    except ImageError as e:
+        if target not in _JPEG_FALLBACK or e.code == 501:
+            raise
+        opts.type = ImageType.JPEG
+        body, actual = codecs.encode(arr, opts), ImageType.JPEG
+    return ProcessedImage(body=body, mime=get_image_mime_type(actual))
 
 
 def _carry_metadata(src_buf: bytes, strip: bool, out: ProcessedImage,

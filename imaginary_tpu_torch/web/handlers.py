@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import logging
 import os
 import threading
 import time
@@ -40,7 +41,6 @@ from imaginary_tpu_torch.errors import (
     ErrInvalidFilePath,
     ErrMethodNotAllowed,
     ErrMissingParamFile,
-    ErrNotFound,
     ErrNotImplemented,
     ErrOutputFormat,
     ErrResolutionTooBig,
@@ -74,6 +74,8 @@ REFERENCE_OPERATIONS = (
 
 _ACCEPT_TO_TYPE = {"image/webp": "webp", "image/png": "png", "image/jpeg": "jpeg"}
 
+_LOG = logging.getLogger(__name__)
+
 
 @dataclasses.dataclass
 class Response:
@@ -81,6 +83,14 @@ class Response:
     content_type: str
     body: bytes
     headers: dict = dataclasses.field(default_factory=dict)
+
+
+# The reference's router and server answer these two themselves (aiohttp's
+# plain-text pages): a path no route matches, and an exception raised
+# outside the image handler's processing.
+NOT_FOUND = Response(404, "text/plain; charset=utf-8", b"404: Not Found")
+INTERNAL_ERROR = Response(500, "text/plain; charset=utf-8",
+                          b"500 Internal Server Error\n\nServer got itself in trouble")
 
 
 def error_response(err: ImageError) -> Response:
@@ -159,15 +169,24 @@ class ImageService:
                 return self._json(self.health())
             name = path.lstrip("/").lower()
             if name not in REFERENCE_OPERATIONS or "/" in name:
-                raise ErrNotFound
+                return NOT_FOUND
             if name not in SERVED_OPERATIONS:
                 raise ErrNotImplemented
             buf = self._source(method, query, headers, body)
-            return self._process(name, buf, query, headers)
+            try:
+                return self._process(name, buf, query, headers)
+            except (ImageError, ParamError):
+                raise
+            except Exception as e:
+                # ref: handlers.py:787-790, any other failure of the work
+                raise new_error("Error processing image: " + str(e), 400) from None
         except ImageError as e:
             return error_response(e)
         except ParamError as e:
             return error_response(new_error(str(e), 400))
+        except Exception:
+            _LOG.exception("error handling %s %s", method, path)
+            return INTERNAL_ERROR
 
     def versions(self) -> dict:
         return {"imaginary_tpu_torch": Version, "torch": torch.__version__,
@@ -216,14 +235,15 @@ class ImageService:
         else:
             if not self.mount:
                 raise ErrGetMethodNotAllowed
-            buf = self._read_file(query.get("file", ""))
+            if not query.get("file"):
+                # no source matches (ref: sources.py:454-457)
+                raise new_error("missing image source", 400)
+            buf = self._read_file(query["file"])
         if not buf:
             raise ErrEmptyBody
         return buf
 
     def _read_file(self, raw: str) -> bytes:
-        if not raw:
-            raise ErrMissingParamFile
         name = urllib.parse.unquote(raw)
         path = os.path.normpath(os.path.join(self.mount, name.lstrip("/")))
         if not (path == self.mount or path.startswith(self.mount + os.sep)):

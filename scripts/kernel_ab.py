@@ -1,7 +1,8 @@
 """Hold the port's K6 (blur), K2 (yuv420_unpack), K11 (from_dct), K12
-(to_dct), K9 (saliency), K10 (window_argmax), K1 (resample) and K13
-(blur_halo) against an earlier tree's on one card: outputs bit for bit,
-and device times in turns.
+(to_dct), K9 (saliency), K10 (window_argmax), K1 (resample), K13
+(blur_halo), K3 (yuv420_pack) and K8 (gray) against an earlier tree's on
+one card: outputs bit for bit, and device times in turns; and two chains
+of kernels launched back to back as the chain runner launches them.
 
 Run from the repository root on a machine with the card:
 
@@ -23,7 +24,18 @@ kernel (max |diff| and whether the two are bit-equal; K10 is fed this
 tree's K9 output on both sides; K13 on chip_smoke's phase 10(a) frames
 and meshes, the shards' K13 launches of either tree after its own
 exchange, with K6 on the whole frames), and times both with
-`chip_smoke.device_ms` in turns (earlier, this, this, earlier).
+`chip_smoke.device_ms` in turns (earlier, this, this, earlier). K3 runs at
+config 1's [1, 208, 304, 3], /rotate's [32, 1920, 1088, 3], the bw
+/resize's [1, 368, 640, 3] and chip_smoke's PACK_SEAM_CASES; K8 at the bw
+frame, config 3's uint8 C = 4 frame and chip_smoke's GRAY_CASES (W-shard
+views at an unaligned offset among them); K3's fused luma form against
+the earlier K8 then K3. The chain rows run this tree's chain runner
+(`ops/chain._run_steps`) on config 1's plan (K2 -> K1 -> K4 -> K3) and
+the colorspace=bw /resize's (K2 -> K1 -> K8 -> K3) staged on the card,
+the earlier tree's kernels under its stages with every live stage its
+own launch, this tree's with its `launch_steps` (the bw chain then
+K2 -> K1 -> fused K3): what programmatic dependent launch and the fusion
+save on the card between launches, which single-kernel times cannot see.
 One JSON line per case on stdout; all of them in
 chip_smoke_out/kernel_ab.json.
 """
@@ -46,7 +58,7 @@ import chip_smoke as cs  # noqa: E402
 PKG = "imaginary_tpu_torch"
 # the CUDA sources whose build logs are printed
 AB_SOURCES = ("blur", "yuv420_unpack", "from_dct", "to_dct", "saliency", "resample",
-              "blur_halo")
+              "blur_halo", "yuv420_pack", "gray")
 
 
 def _package_modules() -> dict:
@@ -236,6 +248,154 @@ def saliency_cases(dev, gen):
     return out
 
 
+def pack_cases(dev, gen):
+    """(case, x, h, w, hb, wb): K3 at config 1's output bucket (B=1),
+    /rotate's at B=32, the bw /resize's frame, then chip_smoke's
+    PACK_SEAM_CASES."""
+    import torch
+
+    def i32(*v):
+        return torch.tensor(v, dtype=torch.int32, device=dev)
+
+    out = [("config1-B1", torch.rand((1, 208, 304, 3), generator=gen, device=dev) * 255.0,
+            i32(200), i32(300), 208, 304),
+           ("rotate-B32", torch.rand((32, 1920, 1088, 3), generator=gen, device=dev) * 255.0,
+            i32(*[1920] * 32), i32(*[1080] * 32), 1920, 1088),
+           ("bw-frame", torch.rand((1, *cs.BW_FRAME, 3), generator=gen, device=dev) * 255.0,
+            i32(cs.BW_VALID[0]), i32(cs.BW_VALID[1]), *cs.BW_FRAME)]
+    for case, (hb, wb), hw, off in cs.PACK_SEAM_CASES:
+        x = cs.offset_view((len(hw), hb, wb, 3), torch.float32, off,
+                           lambda n: torch.rand((n,), generator=gen, device=dev) * 295.0 - 20.0)
+        out.append(("seam-" + case, x, i32(*[a for a, _ in hw]), i32(*[b for _, b in hw]),
+                    hb, wb))
+    return out
+
+
+def gray_cases(dev, gen):
+    """(case, x, out_u8): K8 at the bw /resize's f32 frame, config 3's
+    uint8 C = 4 frame in and out, then chip_smoke's GRAY_CASES."""
+    import torch
+
+    def fill_u8(n):
+        return torch.randint(0, 256, (n,), generator=gen, device=dev, dtype=torch.uint8)
+
+    def fill_f32(n):
+        return torch.rand((n,), generator=gen, device=dev) * 255.0
+
+    out = [("bw-frame", fill_f32(cs.BW_FRAME[0] * cs.BW_FRAME[1] * 3).view(1, *cs.BW_FRAME, 3),
+            False),
+           ("config3-u8-C4", fill_u8(cs.CONFIG3_FRAME[0] * cs.CONFIG3_FRAME[1] * 4).view(
+               1, *cs.CONFIG3_FRAME, 4), True)]
+    for case, shape, u8_in, u8_out, off in cs.GRAY_CASES:
+        x = cs.offset_view(shape, torch.uint8 if u8_in else torch.float32, off,
+                           fill_u8 if u8_in else fill_f32)
+        out.append((case, x, u8_out))
+    return out
+
+
+class EarlierUnderThisChain:
+    """The earlier tree's kernel wrappers, as this tree's stages call them
+    (its K3 takes no `luma`: the earlier chain never fused)."""
+
+    def __init__(self, mod):
+        self._mod = mod
+
+    def __getattr__(self, name):
+        return getattr(self._mod, name)
+
+    def rgb_to_yuv420(self, x, h, w, hb, wb, luma=False):
+        if luma:
+            raise ValueError("the earlier tree has no fused K3")
+        return self._mod.rgb_to_yuv420(x, h, w, hb, wb)
+
+
+def chain_inputs(dev, op: str, query):
+    """(specs, live stages, x, h, w, dyns) of chip_smoke's plan for `op` on
+    large.jpg over the yuv420 transport, staged on the card (B=1)."""
+    import torch
+
+    from imaginary_tpu_torch.ops import chain
+
+    arr, plan = cs.main_plan(op, "yuv420", query)
+    specs = plan.spec_key()
+    dyns = [{k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+            for d in chain._stack_dyns([plan])]
+    x = torch.from_numpy(np.array(arr[None])).to(dev)
+    h = torch.tensor([plan.in_h], dtype=torch.int32, device=dev)
+    w = torch.tensor([plan.in_w], dtype=torch.int32, device=dev)
+    return specs, chain.live_stages(specs, *arr.shape[:2]), x, h, w, dyns
+
+
+def run_chain_with(mod, specs, steps, x, h, w, dyns):
+    """This tree's chain runner over `steps` with the stages launching
+    through kernels module `mod`."""
+    from imaginary_tpu_torch.ops import chain, stages
+
+    saved = stages.kernels
+    stages.kernels = mod
+    try:
+        return chain._run_steps(specs, steps, x, h, w, dyns)[0]
+    finally:
+        stages.kernels = saved
+
+
+def pack_gray_rows(old, dev, gen, emit) -> None:
+    """K3's and K8's rows (`pack_cases`, `gray_cases`, K3's fused form) and
+    the two chain rows, against the earlier tree's kernels module `old`."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops import chain
+
+    for case, x, h, w, hb, wb in pack_cases(dev, gen):
+        got = kernels.rgb_to_yuv420(x, h, w, hb, wb)
+        err = cs.max_err(got, reference.rgb_to_yuv420(x, h, w, hb, wb))
+        if not err <= cs.U8_TOL:
+            raise AssertionError(f"yuv420_pack [{case}]: max |err| {err} > {cs.U8_TOL}")
+        d, eq = diff(got, old.rgb_to_yuv420(x, h, w, hb, wb))
+        ta, tb = turns(lambda: old.rgb_to_yuv420(x, h, w, hb, wb),
+                       lambda: kernels.rgb_to_yuv420(x, h, w, hb, wb))
+        emit({"kernel": "yuv420_pack", "case": case, "shape": list(x.shape),
+              "aligned": x.data_ptr() % 16 == 0, "err_vs_plain": err, "diff_vs_parent": d,
+              "bit_equal": eq, "parent_ms": ta, "ms": tb})
+        if case == "bw-frame":  # the fused form against the earlier K8 then K3
+            got = kernels.rgb_to_yuv420(x, h, w, hb, wb, luma=True)
+            err = cs.max_err(got, reference.rgb_to_yuv420(x, h, w, hb, wb, luma=True))
+            if not err <= cs.U8_TOL:
+                raise AssertionError(f"yuv420_pack [bw-fused]: max |err| {err} > {cs.U8_TOL}")
+            d, eq = diff(got, old.rgb_to_yuv420(old.gray(x), h, w, hb, wb))
+            ta, tb = turns(lambda: old.rgb_to_yuv420(old.gray(x), h, w, hb, wb),
+                           lambda: kernels.rgb_to_yuv420(x, h, w, hb, wb, luma=True))
+            emit({"kernel": "yuv420_pack", "case": "bw-fused", "shape": list(x.shape),
+                  "parent": "gray then yuv420_pack", "err_vs_plain": err,
+                  "diff_vs_parent": d, "bit_equal": eq, "parent_ms": ta, "ms": tb})
+        del got
+    for case, x, u8 in gray_cases(dev, gen):
+        got = kernels.gray(x, u8)
+        err = cs.max_err(got, reference.gray(x, u8))
+        tol = cs.U8_TOL if u8 else cs.F32_TOL
+        if not err <= tol:
+            raise AssertionError(f"gray [{case}]: max |err| {err} > {tol}")
+        d, eq = diff(got, old.gray(x, u8))
+        ta, tb = turns(lambda: old.gray(x, u8), lambda: kernels.gray(x, u8))
+        emit({"kernel": "gray", "case": case, "shape": list(x.shape), "dtype": str(x.dtype),
+              "out_u8": u8, "aligned": x.data_ptr() % 16 == 0, "err_vs_plain": err,
+              "diff_vs_parent": d, "bit_equal": eq, "parent_ms": ta, "ms": tb})
+    earlier = EarlierUnderThisChain(old)
+    for case, op, query in (("config1-K2-K1-K4-K3", "resize", None),
+                            ("bw-K2-K1-K8-K3", "resize", cs.BW_QUERY)):
+        specs, live, x, h, w, dyns = chain_inputs(dev, op, query)
+        steps = chain.launch_steps(specs, live)
+        unfused = [(i, False) for i in live]
+        got = run_chain_with(kernels, specs, steps, x, h, w, dyns)
+        d, eq = diff(got, run_chain_with(earlier, specs, unfused, x, h, w, dyns))
+        ta, tb = turns(lambda: run_chain_with(earlier, specs, unfused, x, h, w, dyns),
+                       lambda: run_chain_with(kernels, specs, steps, x, h, w, dyns))
+        emit({"kernel": "chain", "case": case,
+              "stages": [type(specs[i]).__name__ for i in live],
+              "parent_launches": len(unfused), "launches": len(steps),
+              "diff_vs_parent": d, "bit_equal": eq, "parent_ms": ta, "ms": tb})
+
+
 def turns(fa, fb) -> tuple:
     """Device ms of fa and fb in turns a, b, b, a: (a's two, b's two)."""
     a1 = cs.device_ms(fa)
@@ -392,6 +552,7 @@ def main() -> int:
                   "parent_sharded_blur_ms": wa, "sharded_blur_ms": wb_})
             del grid, ograd, shards, got
         del k6
+    pack_gray_rows(old, dev, gen, emit)
     # the device time of one small PyTorch launch: the fill the earlier
     # window_argmax put before its kernel
     emit({"kernel": "floor", "case": "torch.zeros((16,), int64)",

@@ -5,8 +5,11 @@ must give the reference's `codecs.decode` arrays exactly (the formats are
 lossless, or decode deterministically); PNG, TIFF and GIF encodes round
 trip exactly, WEBP within a PSNR bound. The backend is picked by format,
 never by failure: a bad JPEG stays a native-codec error, HEIF/AVIF/SVG/PDF
-answer 501, and the decompression-bomb gate refuses an over-cap PNG before
-decoding it.
+answer 501 (but PDF and SVG targets the reference's 400), and the
+decompression-bomb gate refuses an over-cap PNG before decoding it.
+16-bit PNGs (gray, gray + alpha, RGB, RGBA) and 16-bit gray TIFFs decode
+by the reference's cv2 backend's rule, v / 257 + 0.5 truncated, within
+1 LSB of `imaginary_tpu.codecs.cv2_backend.decode`.
 
 The reference answers through whichever backend `imaginary_tpu.codecs`
 picked first in the process (its native extension where it loads, else
@@ -197,3 +200,73 @@ def test_bomb_gate_refuses_an_over_cap_png_before_decoding(monkeypatch):
         assert pcodecs.decode(buf).array.shape == (512, 512, 3)
     finally:
         pcodecs._DECODE_PIXEL_CAP.reset(token)
+
+
+@pytest.mark.parametrize("fmt", ["pdf", "svg"])
+def test_pdf_and_svg_targets_answer_the_references_400(fmt):
+    """No backend of the reference can write these: 400 "Cannot encode
+    image: unsupported format ..." (native_backend.py:117-122), not 501."""
+    from imaginary_tpu.codecs import native_backend as jnb
+    from imaginary_tpu.codecs import EncodeOptions as JOpts
+    from imaginary_tpu.imgtype import ImageType as JType
+
+    arr = np.zeros((4, 4, 3), np.uint8)
+    with pytest.raises(ImageError) as e:
+        pcodecs.encode(arr, EncodeOptions(type=ImageType(fmt)))
+    with pytest.raises(Exception) as want:
+        jnb.encode(arr, JOpts(type=JType(fmt)))
+    assert (e.value.code, e.value.message) == (want.value.code, want.value.message) == \
+        (400, f"Cannot encode image: unsupported format {fmt}")
+
+
+def png16(a: np.ndarray) -> bytes:
+    """A non-interlaced 16-bit PNG of uint16 a [H, W] or [H, W, C] (C = 2
+    gray + alpha, 3 RGB, 4 RGBA), written here: Pillow writes 16 bits
+    only for gray."""
+    import struct
+    import zlib
+
+    if a.ndim == 2:
+        a = a[..., None]
+    h, w, c = a.shape
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[c]
+    raw = b"".join(b"\x00" + a[y].astype(">u2").tobytes() for y in range(h))
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, color, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("c", [1, 2, 3, 4], ids=["gray", "gray-alpha", "rgb", "rgba"])
+def test_16bit_png_scales_like_the_references_cv2_backend(c):
+    """Uniform 16-bit noise (mean >> 8 about 127.5) decodes within 1 LSB of
+    the reference's cv2 backend, never clipped to white: the parent's gray
+    decode averaged 254.5."""
+    from imaginary_tpu.codecs import cv2_backend
+
+    rng = np.random.default_rng(16 + c)
+    a = rng.integers(0, 65536, (48, 64, c) if c > 1 else (48, 64), dtype=np.uint16)
+    buf = png16(a)
+    want = cv2_backend.decode(buf, determine_image_type(buf))
+    got = pcodecs.decode(buf)
+    assert got.array.dtype == np.uint8 and got.array.shape == want.array.shape
+    assert int(np.abs(got.array.astype(int) - want.array.astype(int)).max()) <= 1
+    assert got.has_alpha == want.has_alpha == (c in (2, 4))
+    assert abs(float(got.array[..., :3].mean()) - 127.5) < 4.0
+    assert pcodecs.probe_fast(buf).channels == got.array.shape[2]
+
+
+def test_16bit_gray_tiff_scales_by_the_same_rule():
+    """Pillow's 16-bit gray modes from any format take the same rule."""
+    rng = np.random.default_rng(21)
+    a = rng.integers(0, 65536, (20, 30), dtype=np.uint16)
+    out = io.BytesIO()
+    Image.fromarray(a).save(out, "TIFF")
+    got = pcodecs.decode(out.getvalue()).array
+    want = (a.astype(np.float32) / 257.0 + 0.5).astype(np.uint8)
+    assert got.shape == (20, 30, 3)
+    assert all(np.array_equal(got[..., k], want) for k in range(3))

@@ -4,7 +4,8 @@ The same seeded numpy inputs go through each JAX stage `apply` (what XLA
 runs for the TPU) and through the port's kernel wrapper on a CPU tensor,
 which runs the kernel's plain PyTorch version (the CUDA kernels themselves
 run only on the card: chip_smoke.py holds them against these same plain
-versions there). Tolerances: f32 outputs 1e-3 absolute on the 0-255
+versions there). K3's `luma` form (K8 folded into K3) is held against the
+JAX GraySpec followed by ToYuv420Spec. Tolerances: f32 outputs 1e-3 absolute on the 0-255
 scale (summation order differs); uint8 outputs at most 1 LSB (the
 truncating epilogue can flip at an exact .5 after such a difference);
 the orientation kernel (K5) moves data only, so it must be exact. The
@@ -162,6 +163,45 @@ def test_yuv420_pack_matches_to_yuv420_spec_and_epilogue(hb, wb, hw):
     diff = np.abs(got.numpy().astype(int) - _jax_epilogue(want).astype(int))
     assert diff.max() <= U8_TOL
     assert (diff == 0).mean() > 0.999
+
+
+# K3's luma form (K8 folded into K3 on a colorspace=bw chain to JPEG):
+# odd valid dims, a valid edge on a chunk edge (128 columns), the main
+# path's and the bw /resize's buckets, a bucket with wb % 4 == 2, and
+# empty and single-pixel images
+PACK_LUMA_CASES = [
+    (32, 48, ((32, 48), (27, 41))),
+    (208, 304, ((200, 300), (199, 301))),
+    (18, 258, ((17, 257), (18, 128))),
+    (368, 640, ((360, 640), (359, 639))),
+    (16, 16, ((0, 0), (1, 1))),
+]
+
+
+@pytest.mark.parametrize("hb,wb,hw", PACK_LUMA_CASES,
+                         ids=[f"{c[0]}x{c[1]}" for c in PACK_LUMA_CASES])
+def test_yuv420_pack_luma_matches_gray_then_to_yuv420_spec(hb, wb, hw):
+    """The plain `luma` form is `gray` then K3 exactly, and within 1 LSB of
+    the JAX GraySpec, then ToYuv420Spec and the uint8 epilogue."""
+    rng = np.random.default_rng(11)
+    x = rng.uniform(-20.0, 275.0, size=(2, hb, wb, 3)).astype(np.float32)
+    h, w = _i32(*(a for a, _ in hw)), _i32(*(b for _, b in hw))
+    g, _, _ = _japply(jst.GraySpec(), x, h, w, {})
+    want, _, _ = _japply(jst.ToYuv420Spec(hb, wb), g, h, w, {})
+    got = kernels.rgb_to_yuv420(_t(x), _t(h), _t(w), hb, wb, luma=True)
+    assert got.dtype == torch.uint8 and tuple(got.shape) == (2, hb + hb // 2, wb, 1)
+    diff = np.abs(got.numpy().astype(int) - _jax_epilogue(want).astype(int))
+    assert diff.max() <= U8_TOL
+    pair = reference.rgb_to_yuv420(reference.gray(_t(x)), _t(h), _t(w), hb, wb)
+    assert torch.equal(got, pair)
+    # a gray image packs to chroma 128 wherever a block has a valid pixel
+    bottom = got.numpy()[:, hb:, :, 0]
+    for b, (vh, vw) in enumerate(hw):
+        ch, cw = -(-vh // 2), -(-vw // 2)
+        if not ch * cw:
+            continue
+        assert np.abs(bottom[b, :ch, :cw].astype(int) - 128).max() <= 1
+        assert np.abs(bottom[b, :ch, wb // 2:wb // 2 + cw].astype(int) - 128).max() <= 1
 
 
 EMBED_MODES = [
@@ -423,6 +463,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     kernels.resample(x, i, i, f, f, 8, 8, "lanczos3")
     kernels.gather(x, 8, 8)
     kernels.rgb_to_yuv420(x, i, i, 16, 16)
+    kernels.rgb_to_yuv420(x, i, i, 16, 16, luma=True)
     kernels.yuv420_to_rgb(torch.zeros((1, 24, 16, 1), dtype=torch.uint8), i, i, 16, 16)
     for mode in ("flip", "flop", "transpose"):
         kernels.orient(x, i, i, mode)

@@ -13,7 +13,12 @@
   /blur, /watermark, /convert, colorspace=bw, /fit, /enlarge, /extract and
   /zoom through `process_operation`: each package's chain output (the
   array it encodes) within 1 LSB of the other's, same dims and MIME type;
-  the lossy WEBP at PSNR >= 30 dB against that array.
+  the lossy WEBP at PSNR >= 30 dB against that array;
+- `_encode`'s three fallbacks, as the reference's (pipeline.py:159-192):
+  a WEBP target over WEBP's size limit answers JPEG, planes whose raw
+  encode fails are encoded from `yuv_planes_to_rgb`, and egress blocks
+  whose entropy encode fails from `blocks_to_planes`; the port's copies
+  of those two give the reference's arrays bit for bit.
 """
 
 from __future__ import annotations
@@ -407,3 +412,102 @@ def test_route_matrix_matches_reference(large, op, query, src):
     _assert_same_result(want, got, jseen, pseen)
     if got.mime in ("image/png", "image/jpeg") and src != "jpg":
         assert psnr(_pixels(got.body), _pixels(want.body)) >= 45.0
+
+
+def _wide_png() -> bytes:
+    rng = np.random.default_rng(11)
+    out = io.BytesIO()
+    Image.fromarray(rng.integers(0, 256, (64, 17000, 3), dtype=np.uint8)).save(out, "PNG")
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("how", ["convert", "pipeline"])
+def test_failed_webp_encode_falls_back_to_jpeg_like_reference(how):
+    """17000 columns pass WEBP's 16383-pixel limit: the reference re-encodes
+    as JPEG and reports image/jpeg (pipeline.py:183-192)."""
+    import json
+
+    buf = _wide_png()
+    if how == "convert":
+        out = ppipeline.process_operation("convert", buf, pquery({"type": "webp"}),
+                                          device="cpu")
+        want = jpipeline.process_operation("convert", buf, jquery({"type": "webp"}))
+    else:
+        q = {"operations": json.dumps([{"operation": "convert", "params": {"type": "webp"}}])}
+        out = ppipeline.process_operation("pipeline", buf, pquery(q), device="cpu")
+        want = jpipeline.process_operation("pipeline", buf, jquery(q))
+    assert out.mime == want.mime == "image/jpeg"
+    got = pcodecs.decode(out.body).array
+    ref = jcodecs.decode(want.body).array
+    assert got.shape == ref.shape == (64, 17000, 3)
+    assert psnr(got, ref) >= 30.0
+
+
+def _planes(seed: int, h: int = 37, w: int = 53) -> tuple:
+    """Smooth 4:2:0 planes with seeded noise of +-3 (JPEG keeps them)."""
+    rng = np.random.default_rng(seed)
+    ch, cw = -(-h // 2), -(-w // 2)
+
+    def plane(rows, cols, lo, hi):
+        yy, xx = np.mgrid[0:rows, 0:cols]
+        ramp = lo + (hi - lo) * (yy + xx) / (rows + cols)
+        return np.clip(ramp + rng.integers(-3, 4, (rows, cols)), 0, 255).astype(np.uint8)
+
+    return plane(h, w, 30, 220), plane(ch, cw, 90, 160), plane(ch, cw, 160, 100)
+
+
+def test_failed_raw_plane_encode_falls_back_to_rgb_like_reference(monkeypatch):
+    """A raw-plane JPEG encode that fails is retried from RGB pixels:
+    `yuv_planes_to_rgb`, equal to the reference's bit for bit, then the
+    RGB encoder (the parent raised the raw encoder's error)."""
+    y, u, v = _planes(3)
+    planes = pcodecs.YuvPlanes(y=y, u=u, v=v)
+    rgb = pcodecs.yuv_planes_to_rgb(planes)
+    assert np.array_equal(rgb, jcodecs.yuv_planes_to_rgb(jcodecs.YuvPlanes(y=y, u=u, v=v)))
+
+    def fail(*a, **k):
+        raise pcodecs.CodecError("Cannot encode image: raw path refused", 400)
+
+    monkeypatch.setattr(pcodecs, "encode_yuv", fail)
+    out = ppipeline._encode(planes, pquery({}), ppipeline.ImageType.JPEG)
+    assert out.mime == "image/jpeg"
+    back = pcodecs.decode(out.body).array
+    assert back.shape == rgb.shape and psnr(back, rgb) >= 30.0
+
+
+def test_failed_encode_quantized_falls_back_to_planes_like_reference(monkeypatch):
+    """Egress blocks whose entropy encode fails are rebuilt into planes by
+    `blocks_to_planes` (equal to the reference's bit for bit) and take the
+    raw-plane encoder (the parent raised the entropy encoder's error)."""
+    from imaginary_tpu.codecs import jpeg_dct as jdct
+    from imaginary_tpu_torch.codecs import jpeg_dct as pdct
+
+    h, w = 37, 53
+    rng = np.random.default_rng(5)
+    my, mx = -(-h // 16), -(-w // 16)
+
+    def blocks(rows, cols):
+        # a DC ramp over the blocks and the lowest AC terms at +-1
+        b = np.zeros((rows, cols, 8, 8), np.int16)
+        rr, cc = np.mgrid[0:rows, 0:cols]
+        b[..., 0, 0] = 2 * (rr + cc) - 8
+        b[..., 0, 1] = rng.integers(-1, 2, (rows, cols))
+        b[..., 1, 0] = rng.integers(-1, 2, (rows, cols))
+        return b
+
+    parts = dict(y=blocks(2 * my, 2 * mx), u=blocks(my, mx), v=blocks(my, mx))
+    qb = pdct.QuantizedBlocks(h=h, w=w, quality=80, **parts)
+    got = pdct.blocks_to_planes(qb)
+    want = jdct.blocks_to_planes(jdct.QuantizedBlocks(h=h, w=w, quality=80, **parts))
+    assert all(np.array_equal(g, r) for g, r in zip(got, want))
+    assert [p.shape for p in got] == [(h, w), (19, 27), (19, 27)]
+
+    def fail(*a, **k):
+        raise pcodecs.CodecError("Cannot encode image: entropy coder refused", 400)
+
+    monkeypatch.setattr(pdct, "encode_quantized", fail)
+    out = ppipeline._encode(qb, pquery({}), ppipeline.ImageType.JPEG)
+    assert out.mime == "image/jpeg"
+    rgb = pcodecs.yuv_planes_to_rgb(pcodecs.YuvPlanes(*got))
+    back = pcodecs.decode(out.body).array
+    assert back.shape == rgb.shape and psnr(back, rgb) >= 30.0

@@ -10,6 +10,11 @@ paths, 405 for GET without a mount and for every method other than GET
 and POST (HEAD without a body), 406 for non-images, 501 for routes
 and formats not ported yet; type=auto answers Vary: Accept, chunked
 bodies read like plain ones, and /health has the reference's keys.
+Where the reference answers otherwise than with its error JSON (an
+exception raised while an image is processed, a PDF or SVG target, an
+unknown path, a GET that no source matches, a wide PNG to WEBP), the
+port's status, content type and body are held against the reference's
+aiohttp app serving the same request.
 Concurrent requests
 get the bodies they get alone. The port must import neither `jax` nor
 `imaginary_tpu` (checked in a fresh interpreter and by a scan of its
@@ -110,7 +115,7 @@ ERRORS = [
     ("/resize?width=abc", "large.jpg", 400, None),
     ("/crop?width=300&type=bogus", "large.jpg", 400, "Unsupported output image format"),
     ("/resize?width=300", "1024bytes", 406, "Unsupported media type"),
-    ("/nope?width=300", "large.jpg", 404, "Not found"),
+    ("/nope?width=300", "large.jpg", 404, None),
     ("/watermarkimage?image=http://example.invalid/m.png", "large.jpg", 501,
      "Not implemented endpoint"),
     ("/info", "large.jpg", 501, "Not implemented endpoint"),
@@ -126,6 +131,11 @@ ERRORS = [
                          ids=[f"{e[2]}-{e[0]}" for e in ERRORS])
 def test_error_statuses_and_json(server, path, fixture, code, message):
     status, ctype, body = _req(server, path, fixture_bytes(fixture))
+    if code == 404:
+        # no route matches: the reference's router answers aiohttp's page
+        assert (status, ctype, body) == (404, "text/plain; charset=utf-8",
+                                         b"404: Not Found")
+        return
     assert status == code and ctype == "application/json"
     err = json.loads(body)
     assert err["status"] == code
@@ -475,3 +485,177 @@ def test_multi_gpu_modules_import_without_jax_or_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == ""
+
+
+# --- the port against the reference's aiohttp app on the same requests ----
+
+def _png(arr: np.ndarray) -> bytes:
+    import io
+
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.fromarray(arr).save(out, "PNG")
+    return out.getvalue()
+
+
+def _wide_png() -> bytes:
+    """17000x64: under the 18 Mpix gate, wider than the planner's 8192
+    buckets and WEBP's 16383-pixel limit."""
+    rng = np.random.default_rng(11)
+    return _png(rng.integers(0, 256, (64, 17000, 3), dtype=np.uint8))
+
+
+_PIPELINE_WEBP = "/pipeline?operations=" + urllib.parse.quote(
+    '[{"operation": "convert", "params": {"type": "webp"}}]')
+# (id, method, path, source): the requests on which the parent port's
+# answer differed from the reference's
+REFERENCE_CASES = [
+    ("resize-wide", "POST", "/resize?width=300", "wide"),
+    ("rotate-wide", "POST", "/rotate?rotate=90", "wide"),
+    ("thumbnail-wide", "POST", "/thumbnail?width=100&height=100", "wide"),
+    ("blur-wide", "POST", "/blur?sigma=2", "wide"),
+    ("flip-wide", "POST", "/flip", "wide"),
+    ("watermark-wide", "POST", "/watermark?text=hi", "wide"),
+    ("pipeline-wide", "POST", "/pipeline?operations=" + urllib.parse.quote(
+        '[{"operation": "resize", "params": {"width": 300}}]'), "wide"),
+    ("convert-pdf", "POST", "/convert?type=pdf", "large.jpg"),
+    ("convert-svg", "POST", "/convert?type=svg", "large.jpg"),
+    ("get-unknown-path", "GET", "/nope?width=300", None),
+    ("post-unknown-path", "POST", "/nope?width=300", "large.jpg"),
+    ("get-nested-path", "GET", "/resize/x?width=300", None),
+    ("get-no-source", "GET", "/resize?width=300", None),
+    ("get-empty-file", "GET", "/resize?width=300&file=", None),
+]
+# the WEBP targets that the reference re-encodes as JPEG: held by status,
+# content type and decoded dims (the two JPEG encoders differ)
+JPEG_FALLBACK_CASES = [
+    ("convert-webp-wide", "POST", "/convert?type=webp", "wide"),
+    ("pipeline-webp-wide", "POST", _PIPELINE_WEBP, "wide"),
+]
+
+
+def _case_body(src):
+    if src is None:
+        return None
+    return _wide_png() if src == "wide" else fixture_bytes(src)
+
+
+@pytest.fixture(scope="module")
+def reference_answers():
+    """{case id: (status, content type, body)} from the reference's aiohttp
+    app (`create_app`, mounted on the fixtures) on every case, one app run."""
+    import asyncio
+    import io
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from imaginary_tpu.web.app import create_app
+    from imaginary_tpu.web.config import ServerOptions
+
+    async def run():
+        app = create_app(ServerOptions(mount=FIXTURES), log_stream=io.StringIO())
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        out = {}
+        try:
+            for cid, method, path, src in REFERENCE_CASES + JPEG_FALLBACK_CASES:
+                body = _case_body(src)
+                headers = {"Content-Type": "image/png"} if body is not None else {}
+                r = await client.request(method, path, data=body, headers=headers)
+                out[cid] = (r.status, r.headers.get("Content-Type"), await r.read())
+        finally:
+            await client.close()
+        return out
+
+    return asyncio.run(run())
+
+
+def _port_answer(port, method, path, body):
+    headers = {"Content-Type": "image/png"} if body is not None else {}
+    status, got, data = _raw(port, method, path, body, headers)
+    return status, got["Content-Type"], data
+
+
+@pytest.mark.parametrize("cid,method,path,src", REFERENCE_CASES,
+                         ids=[c[0] for c in REFERENCE_CASES])
+def test_answers_equal_the_reference_apps(server, reference_answers, cid, method, path,
+                                          src):
+    """Status, content type and body equal the reference's: 400 "Error
+    processing image: ..." for any exception raised while the image is
+    processed (here the planner's ValueError on a 17000-wide PNG; the
+    parent dropped the connection), 400 "Cannot encode image:
+    unsupported format pdf|svg" (the parent answered 501), aiohttp's
+    plain-text 404 for an unknown path (the parent: a 404 JSON), and 400
+    "missing image source" for a GET that no source matches (the parent:
+    "Missing required param: file")."""
+    got = _port_answer(server, method, path, _case_body(src))
+    assert got == reference_answers[cid]
+
+
+@pytest.mark.parametrize("cid,method,path,src", JPEG_FALLBACK_CASES,
+                         ids=[c[0] for c in JPEG_FALLBACK_CASES])
+def test_failed_webp_encode_answers_jpeg_like_the_reference(server, reference_answers,
+                                                             cid, method, path, src):
+    """A WEBP encode over WEBP's 16383-pixel limit is retried as JPEG and
+    answered as image/jpeg, as the reference does (the parent answered 400)."""
+    status, ctype, body = _port_answer(server, method, path, _case_body(src))
+    want = reference_answers[cid]
+    assert (status, ctype) == want[:2] == (200, "image/jpeg")
+    assert _dims(body) == _dims(want[2]) == (64, 17000)
+
+
+def test_a_fault_outside_processing_answers_like_aiohttp(server, monkeypatch):
+    """An exception raised outside an image's processing (here in /health)
+    gets the answer aiohttp gives the reference for it, a 500 page, and
+    never a dropped connection; the server serves on afterwards."""
+    import asyncio
+
+    from aiohttp import web
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from imaginary_tpu_torch.web.handlers import ImageService
+
+    async def boom(request):
+        raise RuntimeError("boom")
+
+    async def aiohttp_answer():
+        app = web.Application()
+        app.router.add_get("/health", boom)
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            r = await client.get("/health")
+            return r.status, r.headers.get("Content-Type"), await r.read()
+        finally:
+            await client.close()
+
+    want = asyncio.run(aiohttp_answer())
+
+    def health(self):
+        raise RuntimeError("boom")
+
+    monkeypatch.setattr(ImageService, "health", health)
+    assert _port_answer(server, "GET", "/health", None) == want
+    monkeypatch.undo()
+    assert _req(server, "/health")[0] == 200
+
+
+def test_a_device_error_while_processing_is_a_400_and_not_retried(server, monkeypatch):
+    """A RuntimeError from the card's side of a request (here the chain's
+    launch) answers the reference's 400 and is not retried on the CPU or
+    through a plain version: the chain ran once."""
+    from imaginary_tpu_torch.ops import chain
+
+    calls = []
+
+    def launch(*a, **k):
+        calls.append(1)
+        raise RuntimeError("gray kernel launch failed: CUDA error 700")
+
+    monkeypatch.setattr(chain, "launch_batch", launch)
+    status, ctype, body = _req(server, "/resize?width=300&height=200",
+                               fixture_bytes("large.jpg"))
+    assert (status, ctype) == (400, "application/json")
+    assert "CUDA error 700" in json.loads(body)["message"]
+    assert calls == [1]
