@@ -61,8 +61,10 @@ Phases, in order; any failure raises and exits non-zero:
    time, the least time the card could take (bytes over 3.35 TB/s or FLOPs
    over 67 TFLOP/s f32, whichever is larger) and, where one PyTorch call
    computes the same function, that call's time;
-4. config 1's path: the port's HTTP server in-process on 127.0.0.1
-   serving POST /resize and /crop?width=300&height=200 on
+4. config 1's path: the port's HTTP server (the aiohttp app of
+   `create_app`, run by `make_server`; phases 6-10 serve through it too)
+   in-process on 127.0.0.1 serving POST /resize and
+   /crop?width=300&height=200 on
    tests/testdata/large.jpg three times each on `cuda`, with every
    kernel's launch counter set to 0 just before and read just after (one
    launch each of K2, K1, K4 and K3 a request, and nothing else); the
@@ -143,7 +145,10 @@ Phases, in order; any failure raises and exits non-zero:
    `device.chip_error[1]` with a breaker threshold of 1 quarantines lane
    1 while every answer stays byte-equal and the mesh generation rises
    by 1. The off server serves the same mix before and after them in the
-   same call. Requests per second and p50/p99 are printed as findings;
+   same call. Every server of (b) and (c) runs one host-pool worker per
+   client thread (--cpus 32), so each of four lanes forms chunks of the
+   sharded threshold. Requests per second and p50/p99 are printed as
+   findings;
    (d) the spatial route: config 3's /pipeline and the dry run's chain
    (/resize?width=1920&sigma=2&colorspace=bw, as JPEG) on phase 7's 4K
    PNG. First each chain launched W-sharded over four entries of card 0
@@ -159,7 +164,25 @@ Phases, in order; any failure raises and exits non-zero:
    spatial_batches rising by the requests and spatial_gathers empty, the
    launches of the counted run 4 K1 + 4 K13 + 4 K7 (or K8) a request,
    the p50 of each server and the card's busy time of a config 3
-   request on each as findings.
+   request on each as findings;
+11. the HTTP layer on the card: config 1 (GET
+   /img/resize?width=300&height=200&file=large.jpg) through a server
+   started from the command line with --key, --path-prefix /img,
+   --mount tests/testdata, --enable-placeholder, --return-size,
+   --http-cache-ttl 60 and --concurrency 20 --burst 5, requests paced
+   under the throttle's rate, with the launch counters set to 0 just
+   before and read just after (one launch each of K2, K1, K4 and K3 a
+   request, and nothing else): every answer 200 image/jpeg of 300x200
+   with the request's X-Request-ID echoed, X-Imaginary-Backend: device,
+   Image-Width/Height, the TTL's Cache-Control and a Server-Timing that
+   carries the executor's batch_form, dispatch_wait and drain;
+   /img/info answers large.jpg's JSON; /img/metrics counts every request
+   sent to /img/resize; a failing /img/resize?width=300&height=200 (bytes
+   that are no image) answers the original 406 with a 300x200
+   placeholder JPEG and its Error header, made by kernel launches on the
+   card (counted from 0 as above); a request without the key 401; and a
+   burst of BURST_REQUESTS at once past the throttle gets 429s with
+   Retry-After.
 
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
@@ -176,6 +199,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.parse
 import urllib.request
 
@@ -3071,7 +3095,11 @@ def mesh_lanes_phase() -> dict:
     for _, src, _ in CONFIG2_REQUESTS:
         with open(src, "rb") as f:
             bodies[src] = f.read()
-    off_kw = dict(device=DEVICE, max_batch=CONFIG2_MAX_BATCH, batch_form_ms=CONFIG2_FORM_MS)
+    # one host-pool worker per client thread (--cpus): each lane of the
+    # four then forms chunks of the sharded threshold, as the thread per
+    # connection of the earlier server did; phase 6 measures the default
+    off_kw = dict(device=DEVICE, max_batch=CONFIG2_MAX_BATCH, batch_form_ms=CONFIG2_FORM_MS,
+                  cpus=CLIENTS)
     out: dict = {}
     box: dict = {}
 
@@ -3091,9 +3119,10 @@ def mesh_lanes_phase() -> dict:
             got["health"] = _json.loads(r.read())
         return got
 
-    args = cli.parse_args(["--host", "127.0.0.1", "--port", "0", "--device", DEVICE,
+    args = cli.parse_args(["--addr", "127.0.0.1", "--port", "0", "--device", DEVICE,
                            "--mesh-policy", "lanes", "--max-batch", str(CONFIG2_MAX_BATCH),
-                           "--batch-form-ms", str(CONFIG2_FORM_MS)])
+                           "--batch-form-ms", str(CONFIG2_FORM_MS), "--log-level", "error",
+                           "--cpus", str(CLIENTS)])
     got = serving(cli.make_server_from_args(args), cli_run)
     health = got.pop("health")
     ex = health["executor"]
@@ -3392,6 +3421,164 @@ def spatial_route_phase(png: bytes, res: dict) -> dict:
     return out
 
 
+# --- phase 11: the HTTP layer on the card ------------------------------------
+
+HTTP_KEY = "chip-smoke-key"
+HTTP_PREFIX = "/img"
+HTTP_SERIAL = 5
+# the throttle's rate and burst; requests of the counted run are paced
+# under the rate, and a burst of BURST_REQUESTS at once must pass the burst
+HTTP_RATE, HTTP_BURST = 20, 5
+BURST_REQUESTS = 16
+CONFIG1_GET = "/resize?width=300&height=200&file=large.jpg"
+EXECUTOR_SPANS = ("batch_form", "dispatch_wait", "drain")
+
+
+def http_get(port: int, path: str, headers=None, method: str = "GET", body=None):
+    """(status, headers, body) of one request, whatever its status."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
+                                 headers=headers or {}, method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def http_layer_phase() -> dict:
+    """Phase 11 (see the module docstring): config 1 through the
+    command line's server with the HTTP layer's options on, its headers,
+    /info, /metrics, a placeholder made on the card, and the throttle."""
+    import re
+
+    import torch
+
+    from imaginary_tpu_torch import cli, codecs, kernels
+
+    args = cli.parse_args([
+        "--addr", "127.0.0.1", "--port", "0", "--device", DEVICE,
+        "--key", HTTP_KEY, "--path-prefix", HTTP_PREFIX,
+        "--mount", os.path.join(ROOT, "tests", "testdata"),
+        "--enable-placeholder", "--return-size", "--http-cache-ttl", "60",
+        "--concurrency", str(HTTP_RATE), "--burst", str(HTTP_BURST),
+        "--log-level", "error"])
+    key = {"API-Key": HTTP_KEY}
+    pace = 2.0 / HTTP_RATE  # half the throttle's rate
+
+    def run(srv):
+        port = srv.server_address[1]
+        out: dict = {}
+        # one untimed request first (the first CUDA use of this process's
+        # server loads nothing new, but the route's buckets warm)
+        status, _, _ = http_get(port, HTTP_PREFIX + CONFIG1_GET, key)
+        if status != 200:
+            raise AssertionError(f"config 1 through the HTTP layer: {status}")
+        time.sleep(pace)
+        kernels.reset_launches()
+        answers, lat = [], []
+        for i in range(HTTP_SERIAL):
+            t0 = time.perf_counter()
+            got = http_get(port, HTTP_PREFIX + CONFIG1_GET,
+                           {**key, "X-Request-ID": f"chip-smoke-{i}"})
+            lat.append((time.perf_counter() - t0) * 1e3)
+            answers.append((i, got))
+            time.sleep(pace)
+        out["launches"] = kernels.launch_counts()
+        out["latency_ms"] = lat
+        for i, (status, hdrs, body) in answers:
+            names = [p.split(";")[0] for p in hdrs.get("Server-Timing", "").split(", ")]
+            checks = {
+                "status": (status, hdrs.get("Content-Type")) == (200, "image/jpeg"),
+                "dims": codecs.decode(body).array.shape[:2] == (200, 300),
+                "request id": hdrs.get("X-Request-ID") == f"chip-smoke-{i}",
+                "server": hdrs.get("Server", "").startswith("imaginary-tpu"),
+                "backend": hdrs.get("X-Imaginary-Backend") == "device",
+                "return size": (hdrs.get("Image-Width"), hdrs.get("Image-Height"))
+                == ("300", "200"),
+                "cache": hdrs.get("Cache-Control")
+                == "public, s-maxage=60, max-age=60, no-transform",
+                "server timing": all(n in names for n in EXECUTOR_SPANS + ("execute",)),
+            }
+            bad = [k for k, ok in checks.items() if not ok]
+            if bad:
+                raise AssertionError(f"config 1 answer {i}: {bad} ({status}, {hdrs})")
+        out["server_timing"] = answers[-1][1][1]["Server-Timing"]
+        status, hdrs, body = http_get(port, HTTP_PREFIX + "/info?file=large.jpg", key)
+        info = json.loads(body) if status == 200 else {}
+        if (info.get("width"), info.get("height"), info.get("type")) != (1920, 1080, "jpeg"):
+            raise AssertionError(f"/info answered {status} {body[:200]!r}")
+        time.sleep(pace)
+        status, _, body = http_get(port, HTTP_PREFIX + "/metrics", key)
+        m = re.search(r'^imaginary_tpu_requests_total\{route="%s/resize",code="2xx"\} (\d+)$'
+                      % HTTP_PREFIX, body.decode(), re.M)
+        counted = int(m.group(1)) if m else -1
+        if status != 200 or counted != HTTP_SERIAL + 1:
+            raise AssertionError(f"/metrics counted {counted} /resize answers, "
+                                 f"not {HTTP_SERIAL + 1}")
+        out["metrics_resize_2xx"] = counted
+        time.sleep(pace)
+        # a failing request: its placeholder is resized on the card
+        kernels.reset_launches()
+        status, hdrs, body = http_get(port, HTTP_PREFIX + "/resize?width=300&height=200",
+                                      {**key, "Content-Type": "image/jpeg"}, "POST",
+                                      b"these bytes are no image")
+        ph_launches = kernels.launch_counts()
+        if (status, hdrs.get("Content-Type")) != (406, "image/jpeg") or "Error" not in hdrs:
+            raise AssertionError(f"placeholder: {status} {hdrs}")
+        if codecs.decode(body).array.shape[:2] != (200, 300):
+            raise AssertionError("the placeholder is not 300x200")
+        on_card = {k: v for k, v in ph_launches.items() if v}
+        if not all(ph_launches[k] >= 1 for k in ("yuv420_unpack", "resample", "yuv420_pack")):
+            raise AssertionError(f"the placeholder was not made on the card: {ph_launches}")
+        out["placeholder_launches"] = on_card
+        time.sleep(pace)
+        # after the placeholder check: this error's placeholder (the same
+        # shape) comes from the service's placeholder cache
+        status, _, _ = http_get(port, HTTP_PREFIX + CONFIG1_GET)
+        if status != 401:
+            raise AssertionError(f"a request without the key answered {status}")
+        time.sleep(1.0)  # the throttle's burst refills
+        # a burst at once past the throttle's burst
+        got: list = [None] * BURST_REQUESTS
+        start = threading.Barrier(BURST_REQUESTS)
+
+        def one(i):
+            start.wait()
+            got[i] = http_get(port, HTTP_PREFIX + CONFIG1_GET, key)
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(BURST_REQUESTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        codes = sorted(g[0] for g in got)
+        limited = [g for g in got if g[0] == 429]
+        if not limited or any("Retry-After" not in g[1] for g in limited):
+            raise AssertionError(f"a burst of {BURST_REQUESTS} past the throttle: {codes}")
+        if set(codes) - {200, 429}:
+            raise AssertionError(f"the burst answered {codes}")
+        out["burst_codes"] = {c: codes.count(c) for c in sorted(set(codes))}
+        return out
+
+    out = serving(cli.make_server_from_args(args), run)
+    want = {k: (HTTP_SERIAL if k in CONFIG1_KERNELS else 0) for k in out["launches"]}
+    if out["launches"] != want:
+        raise AssertionError(f"config 1's {HTTP_SERIAL} requests through the HTTP layer "
+                             f"launched {out['launches']}, not {want}")
+    lat = out["latency_ms"]
+    log(f"  config 1 through --key, --path-prefix {HTTP_PREFIX}, --return-size, "
+        f"--http-cache-ttl 60, --concurrency {HTTP_RATE} --burst {HTTP_BURST}: "
+        f"{HTTP_SERIAL} answers, {', '.join(f'{t:.2f}' for t in lat)} ms; launches "
+        f"{ {k: v for k, v in out['launches'].items() if v} }")
+    log(f"  Server-Timing: {out['server_timing']}")
+    log(f"  401 without the key; /info 1920x1080 jpeg; /metrics counted "
+        f"{out['metrics_resize_2xx']} /resize answers")
+    log(f"  placeholder (406, 300x200 JPEG) made on the card: {out['placeholder_launches']}")
+    log(f"  burst of {BURST_REQUESTS} at once: {out['burst_codes']}")
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3483,6 +3670,9 @@ def main() -> int:
     log(f"== phase 10d: the spatial route (config 3's /pipeline and the bw chain on the "
         f"4K PNG, W-sharded over {SPATIAL_SHARDS} entries of one card)")
     report["spatial"] = spatial_route_phase(png, report["kernels"])
+    log("== phase 11: the HTTP layer on the card (config 1 with the reference's "
+        "middleware chain, /info, /metrics, a placeholder, the throttle)")
+    report["http"] = http_layer_phase()
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -3511,6 +3701,7 @@ def main() -> int:
             "launches_dct": report["dct"]["launches"][name],
             "launches_sharded_blur": report["sharded_blur"]["launches"][name],
             "launches_spatial": report["spatial"]["launches"][name],
+            "launches_http": report["http"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -1,99 +1,307 @@
-"""Command line of the port: `python -m imaginary_tpu_torch --port 9000`."""
+"""Command line of the port (the port's copy of `imaginary_tpu/cli.py`;
+ref: imaginary.go:20-229): `python -m imaginary_tpu_torch --port 9000`.
+
+The reference's flags for every subsystem the port has, with the
+reference's defaults. Every flag reads its default from
+`IMAGINARY_TPU_<FLAG>` (dashes as underscores), and the historical names
+PORT, URL_SIGNATURE_KEY and LOG_LEVEL still win, as in the reference.
+`--device` is the port's own: the torch device of the kernels. The
+server runs on the card: without CUDA it refuses to start unless
+`--device cpu` asks for the CPU, and `--require-device` refuses anything
+but a CUDA device.
+"""
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import os
+import sys
 
-from imaginary_tpu_torch.engine import MAX_BATCH
+from imaginary_tpu_torch import Version
+from imaginary_tpu_torch.engine.executor import MAX_BATCH, MESH_POLICIES
+from imaginary_tpu_torch.web.config import ServerOptions, parse_endpoints
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def _env_bool(name: str) -> bool:
+    return os.environ.get(name, "").lower() in ("1", "true", "on", "yes")
+
+
+def _env_str(name: str, default: str) -> str:
+    return os.environ.get(name, "") or default
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="imaginary_tpu_torch",
+        description="imaginary-tpu on PyTorch/CUDA: the HTTP image service "
+                    "with its device work in hand-written Hopper kernels",
+    )
+    # the reference's flags (imaginary.go:20-55)
+    p.add_argument("-p", "--port", type=int,
+                   default=_env_int("IMAGINARY_TPU_PORT", 9000), help="TCP port")
+    p.add_argument("-a", "--addr", default=_env_str("IMAGINARY_TPU_ADDR", ""),
+                   help="bind address")
+    p.add_argument("--path-prefix",
+                   default=_env_str("IMAGINARY_TPU_PATH_PREFIX", "/"),
+                   help="URL path prefix")
+    p.add_argument("--cors", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_CORS"), help="enable CORS")
+    p.add_argument("--gzip", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_GZIP"),
+                   help="deprecated no-op (parity)")
+    p.add_argument("--key", default=_env_str("IMAGINARY_TPU_KEY", ""),
+                   help="API key for authorization")
+    p.add_argument("--mount", default=_env_str("IMAGINARY_TPU_MOUNT", ""),
+                   help="local directory to serve images from")
+    p.add_argument("--http-cache-ttl", type=int,
+                   default=_env_int("IMAGINARY_TPU_HTTP_CACHE_TTL", -1),
+                   help="cache TTL seconds (0=no-cache)")
+    p.add_argument("--http-read-timeout", type=int,
+                   default=_env_int("IMAGINARY_TPU_HTTP_READ_TIMEOUT", 60))
+    p.add_argument("--http-write-timeout", type=int,
+                   default=_env_int("IMAGINARY_TPU_HTTP_WRITE_TIMEOUT", 60))
+    p.add_argument("--enable-placeholder", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_ENABLE_PLACEHOLDER"),
+                   help="placeholder on errors")
+    p.add_argument("--enable-url-signature", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_ENABLE_URL_SIGNATURE"))
+    p.add_argument("--url-signature-key",
+                   default=_env_str("IMAGINARY_TPU_URL_SIGNATURE_KEY", ""))
+    p.add_argument("--max-allowed-size", type=int,
+                   default=_env_int("IMAGINARY_TPU_MAX_ALLOWED_SIZE", 0),
+                   help="max source bytes of a URL fetch (URL sources are "
+                        "not ported yet)")
+    p.add_argument("--max-allowed-resolution", type=float,
+                   default=_env_float("IMAGINARY_TPU_MAX_ALLOWED_RESOLUTION", 18.0),
+                   help="max megapixels")
+    p.add_argument("--certfile", default=_env_str("IMAGINARY_TPU_CERTFILE", ""))
+    p.add_argument("--keyfile", default=_env_str("IMAGINARY_TPU_KEYFILE", ""))
+    p.add_argument("--require-device", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_REQUIRE_DEVICE"),
+                   help="refuse to start unless the kernels run on a CUDA device")
+    p.add_argument("--placeholder",
+                   default=_env_str("IMAGINARY_TPU_PLACEHOLDER", ""),
+                   help="placeholder image path")
+    p.add_argument("--placeholder-status", type=int,
+                   default=_env_int("IMAGINARY_TPU_PLACEHOLDER_STATUS", 0))
+    p.add_argument("--concurrency", type=int,
+                   default=_env_int("IMAGINARY_TPU_CONCURRENCY", 0),
+                   help="rate limit (req/sec)")
+    p.add_argument("--burst", type=int,
+                   default=_env_int("IMAGINARY_TPU_BURST", 100),
+                   help="rate limit burst")
+    p.add_argument("--mrelease", type=int,
+                   default=_env_int("IMAGINARY_TPU_MRELEASE", 30),
+                   help="memory release interval seconds")
+    p.add_argument("--cpus", type=int,
+                   default=_env_int("IMAGINARY_TPU_CPUS", 0),
+                   help="worker thread cap (0=auto)")
+    p.add_argument("--log-level",
+                   default=_env_str("IMAGINARY_TPU_LOG_LEVEL", "info"),
+                   choices=["debug", "info", "warning", "error"])
+    p.add_argument("--return-size", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_RETURN_SIZE"),
+                   help="Image-Width/Height headers")
+    p.add_argument("--disable-endpoints",
+                   default=_env_str("IMAGINARY_TPU_DISABLE_ENDPOINTS", ""),
+                   help="CSV of endpoints to disable")
+    p.add_argument("--version", action="store_true")
+    p.add_argument("--disable-tracing", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_DISABLE_TRACING"),
+                   help="disable per-request span tracing and Server-Timing "
+                        "(X-Request-ID is still assigned)")
+    # the executor (engine/executor.py)
+    p.add_argument("--max-batch", type=int,
+                   default=_env_int("IMAGINARY_TPU_MAX_BATCH", MAX_BATCH),
+                   help="micro-batch size cap")
+    p.add_argument("--batch-form-ms", type=float,
+                   default=_env_float("IMAGINARY_TPU_BATCH_FORM_MS", 5.0),
+                   help="max milliseconds an item may wait for its chunk to "
+                        "close (the batch-formation latency cap)")
+    p.add_argument("--max-inflight", type=int,
+                   default=_env_int("IMAGINARY_TPU_MAX_INFLIGHT", 4),
+                   help="device chunks launched but not yet fetched")
+    # multi-GPU serving (engine/lanes.py) and the spatial route
+    p.add_argument("--devices", type=int,
+                   default=_env_int("IMAGINARY_TPU_DEVICES", 0),
+                   help="device count of the lanes' mesh (0 = all visible "
+                        "cards; with --device cpu, that many cpu entries)")
+    p.add_argument("--spatial", type=int,
+                   default=_env_int("IMAGINARY_TPU_SPATIAL", 1),
+                   help="spatial axis of the lanes' mesh: a single image "
+                        "whose input bucket crosses the bar is W-sharded "
+                        "over that many entries (1 = off)")
+    p.add_argument("--spatial-threshold-px", type=int,
+                   default=_env_int("IMAGINARY_TPU_SPATIAL_THRESHOLD_PX", 3840 * 2160),
+                   help="input-bucket pixel count at which a single image "
+                        "W-shards over the spatial axis")
+    p.add_argument("--mesh-policy",
+                   default=_env_str("IMAGINARY_TPU_MESH_POLICY", "off"),
+                   choices=list(MESH_POLICIES),
+                   help="multi-GPU serving: 'lanes' gives every card its own "
+                        "continuous-batching lane (own stream, formation "
+                        "cap, in-flight window and fault domain); "
+                        "'sharded'/'auto' also split big chunks over the "
+                        "healthy cards; 'off' (default) is one "
+                        "collector/fetcher pair on --device")
+    p.add_argument("--spatial-mpix", type=float,
+                   default=_env_float("IMAGINARY_TPU_SPATIAL_MPIX", 0.0),
+                   help="the spatial bar in megapixels (maps onto "
+                        "--spatial-threshold-px; 0 keeps the pixel knob)")
+    p.add_argument("--lane-form-ms", type=float,
+                   default=_env_float("IMAGINARY_TPU_LANE_FORM_MS", -1.0),
+                   help="per-lane batch-formation cap in ms (negative = "
+                        "inherit --batch-form-ms)")
+    p.add_argument("--lane-inflight", type=int,
+                   default=_env_int("IMAGINARY_TPU_LANE_INFLIGHT", 2),
+                   help="per-lane chunks launched but not yet fetched "
+                        "(the lane's only backpressure)")
+    # the compressed-domain transport (pipeline.py)
+    p.add_argument("--transport-dct", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_TRANSPORT_DCT"),
+                   help="serve baseline JPEG requests (4:2:0/4:2:2/4:4:4/"
+                        "grayscale) over the compressed-domain transport: "
+                        "host entropy decode ships DCT coefficients, the "
+                        "device runs the IDCT, and shrink-on-load folds in "
+                        "the DCT domain")
+    p.add_argument("--transport-dct-egress", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_TRANSPORT_DCT_EGRESS"),
+                   help="drain JPEG-bound dct-transport responses as "
+                        "quantized DCT coefficients: the device runs the "
+                        "forward DCT + quantization and the host only "
+                        "entropy-codes (requires --transport-dct)")
+    # the port's own
+    p.add_argument("--device", default=_env_str("IMAGINARY_TPU_DEVICE", "cuda"),
+                   help="torch device to run the kernels on (cuda, cuda:N, or cpu)")
+    return p
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    ap = argparse.ArgumentParser(
-        prog="imaginary_tpu_torch",
-        description="imaginary-tpu on PyTorch/CUDA: the image routes and "
-                    "/pipeline on JPEG, PNG, WEBP, GIF and TIFF")
-    ap.add_argument("--host", default="0.0.0.0", help="bind address")
-    ap.add_argument("--port", type=int, default=9000, help="TCP port")
-    ap.add_argument("--device", default="cuda",
-                    help="torch device to run the kernels on (cuda, cuda:N, or cpu)")
-    ap.add_argument("--mount", default="",
-                    help="directory served to GET ?file= requests")
-    ap.add_argument("--max-batch", type=int, default=MAX_BATCH,
-                    help="micro-batch size cap")
-    ap.add_argument("--batch-form-ms", type=float, default=5.0,
-                    help="max milliseconds an item may wait for its chunk "
-                         "to close (the batch-formation latency cap)")
-    ap.add_argument("--max-inflight", type=int, default=4,
-                    help="device chunks launched but not yet fetched")
-    ap.add_argument("--transport-dct", action="store_true",
-                    help="serve baseline JPEG requests (4:2:0/4:2:2/4:4:4/"
-                         "grayscale) over the compressed-domain transport: "
-                         "host entropy decode ships DCT coefficients, the "
-                         "device runs the IDCT, and shrink-on-load folds in "
-                         "the DCT domain")
-    ap.add_argument("--transport-dct-egress", action="store_true",
-                    help="drain JPEG-bound dct-transport responses as "
-                         "quantized DCT coefficients: the device runs the "
-                         "forward DCT + quantization and the host only "
-                         "entropy-codes (requires --transport-dct)")
-    ap.add_argument("--devices", type=int, default=0,
-                    help="device count of the lanes' mesh (0 = all visible "
-                         "cards; with --device cpu, that many cpu entries)")
-    ap.add_argument("--mesh-policy", default="off",
-                    choices=["off", "lanes", "sharded", "auto"],
-                    help="multi-GPU serving: 'lanes' gives every card its own "
-                         "continuous-batching lane (own stream, formation "
-                         "cap, in-flight window and fault domain); "
-                         "'sharded'/'auto' also split big chunks over the "
-                         "healthy cards; 'off' (default) is one "
-                         "collector/fetcher pair on --device")
-    ap.add_argument("--spatial", type=int, default=1,
-                    help="spatial axis of the lanes' mesh: a single image "
-                         "whose input bucket crosses the bar is W-sharded "
-                         "over that many entries (1 = off)")
-    ap.add_argument("--spatial-threshold-px", type=int, default=3840 * 2160,
-                    help="input-bucket pixel count at which a single image "
-                         "W-shards over the spatial axis")
-    ap.add_argument("--spatial-mpix", type=float, default=0.0,
-                    help="the same bar in megapixels (maps onto "
-                         "--spatial-threshold-px; 0 keeps the pixel knob)")
-    ap.add_argument("--lane-form-ms", type=float, default=-1.0,
-                    help="per-lane batch-formation cap in ms (negative = "
-                         "inherit --batch-form-ms)")
-    ap.add_argument("--lane-inflight", type=int, default=2,
-                    help="per-lane chunks launched but not yet fetched "
-                         "(the lane's only backpressure)")
-    args = ap.parse_args(argv)
+    p = build_parser()
+    args = p.parse_args(argv)
     if args.transport_dct_egress and not args.transport_dct:
-        ap.error("--transport-dct-egress requires --transport-dct")
+        p.error("--transport-dct-egress requires --transport-dct")
     return args
+
+
+def options_from_args(args: argparse.Namespace) -> ServerOptions:
+    """ServerOptions from the parsed flags, with the reference's boot
+    checks (imaginary.go:196-229); a failed check exits."""
+    port = args.port
+    if os.environ.get("PORT"):
+        try:
+            port = int(os.environ["PORT"])
+        except ValueError:
+            pass
+    signature_key = args.url_signature_key or os.environ.get("URL_SIGNATURE_KEY", "")
+    log_level = os.environ.get("LOG_LEVEL", args.log_level)
+    placeholder_image = b""
+    if args.placeholder:
+        with open(args.placeholder, "rb") as f:
+            placeholder_image = f.read()
+        from imaginary_tpu_torch.imgtype import ImageType, determine_image_type
+
+        if determine_image_type(placeholder_image) is ImageType.UNKNOWN:
+            raise SystemExit("placeholder image is not a valid image")
+    if args.enable_url_signature and len(signature_key) < 32:
+        raise SystemExit("URL signature key must be at least 32 characters long")
+    if args.mount and not os.path.isdir(args.mount):
+        raise SystemExit(f"mount directory does not exist: {args.mount}")
+    if args.http_cache_ttl < -1 or args.http_cache_ttl > 31556926:
+        raise SystemExit("The -http-cache-ttl flag only accepts a value from 0 to 31556926")
+    return ServerOptions(
+        port=port,
+        address=args.addr,
+        path_prefix=args.path_prefix,
+        cors=args.cors,
+        api_key=args.key,
+        mount=args.mount,
+        http_cache_ttl=args.http_cache_ttl,
+        enable_placeholder=args.enable_placeholder,
+        enable_url_signature=args.enable_url_signature,
+        url_signature_key=signature_key,
+        max_allowed_size=args.max_allowed_size,
+        max_allowed_pixels=args.max_allowed_resolution,
+        cert_file=args.certfile,
+        key_file=args.keyfile,
+        placeholder=args.placeholder,
+        placeholder_image=placeholder_image,
+        placeholder_status=args.placeholder_status,
+        concurrency=args.concurrency,
+        burst=args.burst,
+        log_level=log_level,
+        return_size=args.return_size,
+        cpus=args.cpus,
+        endpoints=parse_endpoints(args.disable_endpoints),
+        trace_enabled=not args.disable_tracing,
+        device=args.device,
+        max_batch=args.max_batch,
+        batch_form_ms=max(0.0, args.batch_form_ms),
+        max_inflight=max(1, args.max_inflight),
+        mesh_policy=args.mesh_policy,
+        n_devices=max(0, args.devices),
+        lane_form_ms=args.lane_form_ms if args.lane_form_ms >= 0 else None,
+        lane_inflight=max(1, args.lane_inflight),
+        spatial=max(1, args.spatial),
+        spatial_threshold_px=max(1, args.spatial_threshold_px),
+        spatial_mpix=max(0.0, args.spatial_mpix),
+        transport_dct=args.transport_dct,
+        transport_dct_egress=args.transport_dct_egress,
+    )
+
+
+def device_refusal(args: argparse.Namespace) -> str:
+    """Why the server must not start on this machine ("" when it may):
+    the kernels run on the card, and nothing falls back to the CPU unless
+    --device cpu asked for it; --require-device accepts only CUDA."""
+    import torch
+
+    cuda = torch.device(args.device).type == "cuda"
+    if args.require_device and not cuda:
+        return f"--require-device is set and --device is {args.device}"
+    if cuda and not torch.cuda.is_available():
+        return "CUDA is not available; pass --device cpu to serve on the CPU"
+    return ""
 
 
 def make_server_from_args(args: argparse.Namespace):
     """Bind (not start) the server the parsed command line describes."""
-    from imaginary_tpu_torch.web.app import make_server
+    from imaginary_tpu_torch.web.app import AppServer
 
-    return make_server(args.host, args.port, device=args.device, mount=args.mount,
-                       max_batch=args.max_batch, batch_form_ms=args.batch_form_ms,
-                       max_inflight=args.max_inflight,
-                       transport_dct=args.transport_dct,
-                       transport_dct_egress=args.transport_dct_egress,
-                       mesh_policy=args.mesh_policy, n_devices=args.devices,
-                       lane_form_ms=args.lane_form_ms if args.lane_form_ms >= 0 else None,
-                       lane_inflight=args.lane_inflight,
-                       spatial=max(1, args.spatial),
-                       spatial_threshold_px=max(1, args.spatial_threshold_px),
-                       spatial_mpix=max(0.0, args.spatial_mpix))
+    return AppServer(options_from_args(args))
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> int:
     args = parse_args(argv)
-    srv = make_server_from_args(args)
-    print(f"imaginary_tpu_torch listening on {args.host}:{args.port} "
-          f"(device {srv.service.device})", flush=True)
+    if args.version:
+        print(Version)
+        return 0
+    o = options_from_args(args)
+    if args.gzip:  # ref: imaginary.go:168-171
+        print("warning: -gzip flag is deprecated and will not have effect")
+    why = device_refusal(args)
+    if why:
+        print(f"imaginary_tpu_torch: refusing to start: {why}", file=sys.stderr)
+        return 2
+    from imaginary_tpu_torch.web.app import serve
+
     try:
-        srv.serve_forever()
+        asyncio.run(serve(o, mrelease=args.mrelease))
     except KeyboardInterrupt:
         pass
-    finally:
-        srv.server_close()
+    return 0

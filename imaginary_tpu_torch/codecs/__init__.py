@@ -57,6 +57,19 @@ class ImageMetadata:
     orientation: int
     subsampling: str = ""
 
+    def to_dict(self) -> dict:
+        """The /info JSON (subsampling stays internal)."""
+        return {
+            "width": self.width,
+            "height": self.height,
+            "type": self.type,
+            "space": self.space,
+            "hasAlpha": self.has_alpha,
+            "hasProfile": self.has_profile,
+            "channels": self.channels,
+            "orientation": self.orientation,
+        }
+
 
 @dataclasses.dataclass
 class EncodeOptions:
@@ -338,6 +351,25 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
     if arr.dtype != np.uint8:
         raise CodecError(f"cannot encode dtype {arr.dtype}", 500)
     return _backend(opts.type, "encoding").encode(arr, opts)
+
+
+def probe(buf: bytes) -> ImageMetadata:
+    """The rich header metadata /info reports (colour space, ICC flag and
+    the decoded channel count), from Pillow's header parse as the
+    reference takes it (native_backend.py:137-149); a JPEG Pillow cannot
+    open falls back to the native header parser. Nothing loads pixels."""
+    if not buf:
+        raise CodecError("Cannot retrieve image metadata: empty buffer", 400)
+    t = determine_image_type(buf)
+    _backend(t, "probing")  # formats without a backend answer 501
+    from imaginary_tpu_torch.codecs import pil_backend
+
+    try:
+        return pil_backend.metadata(buf, t)
+    except CodecError:
+        if ROUTES.get(t) != "native":
+            raise
+    return _native().probe_fast(buf, t)
 
 
 def probe_fast(buf: bytes) -> ImageMetadata:

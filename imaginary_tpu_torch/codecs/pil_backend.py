@@ -141,6 +141,30 @@ def probe(buf: bytes, t: ImageType) -> ImageMetadata:
     )
 
 
+def metadata(buf: bytes, t: ImageType) -> ImageMetadata:
+    """/info's metadata from the header (ref: pil_backend.probe): the
+    band count as Pillow opens the image, a palette counting as the RGB(A)
+    it decodes to."""
+    try:
+        im = Image.open(io.BytesIO(buf))
+    except Exception as e:
+        raise CodecError(f"Cannot decode image: {e}", 400) from None
+    has_alpha = _has_alpha(im)
+    channels = len(im.getbands())
+    if im.mode == "P":
+        channels = 4 if has_alpha else 3
+    return ImageMetadata(
+        width=im.width,
+        height=im.height,
+        type=t.value if t is not ImageType.UNKNOWN else (im.format or "unknown").lower(),
+        space=_MODE_SPACE.get(im.mode, "srgb"),
+        has_alpha=has_alpha,
+        has_profile="icc_profile" in im.info,
+        channels=channels,
+        orientation=_orientation(im),
+    )
+
+
 def _orientation(im: Image.Image) -> int:
     try:
         val = im.getexif().get(274, 0)  # 274 = Orientation

@@ -70,7 +70,7 @@ import torch
 from imaginary_tpu_torch import failpoints, kernels
 from imaginary_tpu_torch.engine import lanes as lanes_mod
 from imaginary_tpu_torch.engine.devhealth import DeviceHealthRegistry
-from imaginary_tpu_torch.engine.timing import LANE_TIMES, TIMES
+from imaginary_tpu_torch.engine.timing import LANE_TIMES, TIMES, attribute
 from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.ops.buckets import bucket_shape, tight_dim
 from imaginary_tpu_torch.ops.plan import ImagePlan
@@ -171,7 +171,7 @@ class ExecutorStats:
 
 class _Item:
     __slots__ = ("arr", "plan", "future", "key", "t", "t_close", "wire_mb",
-                 "lane", "hops")
+                 "lane", "hops", "stage_ms")
 
     def __init__(self, arr: np.ndarray, plan: ImagePlan):
         self.arr = arr
@@ -195,6 +195,10 @@ class _Item:
         self.t_close = self.t
         self.lane = None  # the lane that owes this item (lanes._lane_owe)
         self.hops = 0  # lane re-placements so far
+        # batch_form, dispatch_wait and drain of this item, in ms: they
+        # ride back on the future (`stage_ms`) to the submitting thread,
+        # which adds them to its request's trace
+        self.stage_ms: dict = {}
 
 
 class Executor:
@@ -231,6 +235,9 @@ class Executor:
             maxsize=max(1, self.config.max_inflight))
         self._lock = threading.Lock()  # guards _closed and the shared stats
         self._closed = False
+        # drain ms per wire MB (EWMA over drained chunks): prices the owed
+        # ledger for estimated_wait_ms; None until the first drain
+        self._ms_per_mb: Optional[float] = None
         if self._mesh_policy != "off":
             self._init_lanes()  # may refuse the mesh before any thread starts
         self._thread = threading.Thread(target=self._collect_continuous,
@@ -266,8 +273,20 @@ class Executor:
         return item.future
 
     def process(self, arr: np.ndarray, plan: ImagePlan, timeout: float = 120.0):
-        """Blocking convenience wrapper."""
-        return self.submit(arr, plan).result(timeout=timeout)
+        """Blocking submit: the output, with the item's stage times added
+        to the calling thread's request trace."""
+        fut = self.submit(arr, plan)
+        out = fut.result(timeout=timeout)
+        attribute(getattr(fut, "stage_ms", None))
+        return out
+
+    def estimated_wait_ms(self) -> float:
+        """Estimated device-path queueing delay for a new arrival: the
+        wire MB submitted and not yet drained, priced at the measured
+        drain ms per MB (the reference's owed-work ledger, kept per MB)."""
+        with self._lock:
+            rate = self._ms_per_mb
+            return self.stats.device_owed_mb * rate if rate else 0.0
 
     def shutdown(self) -> None:
         """Stop taking items, launch and resolve every item already
@@ -360,9 +379,13 @@ class Executor:
         """Launch one chunk and hand it to the fetcher."""
         now = time.monotonic()
         for it in items:
+            bf_ms = (it.t_close - it.t) * 1000.0
+            dw_ms = (now - it.t_close) * 1000.0
             TIMES.record("queue_wait", (now - it.t) * 1000.0)
-            TIMES.record("batch_form", (it.t_close - it.t) * 1000.0)
-            TIMES.record("dispatch_wait", (now - it.t_close) * 1000.0)
+            TIMES.record("batch_form", bf_ms)
+            TIMES.record("dispatch_wait", dw_ms)
+            it.stage_ms["batch_form"] = bf_ms
+            it.stage_ms["dispatch_wait"] = dw_ms
         try:
             chunk = self._launch_chunk(items)
         except Exception as e:
@@ -404,10 +427,12 @@ class Executor:
             except Exception as e:
                 self._fail(items, e)
                 continue
-            TIMES.record("drain", (time.monotonic() - t0) * 1000.0 / len(items))
+            drain_ms = (time.monotonic() - t0) * 1000.0
+            TIMES.record("drain", drain_ms / len(items))
+            self._note_drain(items, drain_ms)
             self._release(items)
             for it, out in zip(items, outs):
-                _resolve(it.future, result=out)
+                _resolve(it.future, result=out, stage_ms=it.stage_ms)
 
     def _fail(self, items: list, e: Exception) -> None:
         """Fail one chunk's futures."""
@@ -421,6 +446,19 @@ class Executor:
         with self._lock:
             self.stats.device_owed_mb = max(
                 0.0, self.stats.device_owed_mb - sum(it.wire_mb for it in items))
+
+    def _note_drain(self, items: list, drain_ms: float) -> None:
+        """Each item's share of a drained chunk, and the chunk's drain ms
+        per wire MB folded into the EWMA that estimated_wait_ms prices."""
+        share = drain_ms / len(items)
+        for it in items:
+            it.stage_ms["drain"] = share
+        mb = sum(it.wire_mb for it in items)
+        if mb > 0:
+            rate = drain_ms / mb
+            with self._lock:
+                prev = self._ms_per_mb
+                self._ms_per_mb = rate if prev is None else 0.8 * prev + 0.2 * rate
 
 
     # -- lane tier (engine/lanes.py; mesh_policy != "off") ---------------------
@@ -576,6 +614,8 @@ class Executor:
             TIMES.record("dispatch_wait", dw_ms)
             LANE_TIMES.record(lane.idx, "batch_form", bf_ms)
             LANE_TIMES.record(lane.idx, "dispatch_wait", dw_ms)
+            it.stage_ms["batch_form"] = bf_ms
+            it.stage_ms["dispatch_wait"] = dw_ms
         mesh, streams = self._lane_mesh, self._lane_streams
         sharded = mesh is not None and len(items) >= self._shard_min()
         spatial = (not sharded and len(items) == 1
@@ -647,9 +687,10 @@ class Executor:
             lane.note_service(drain_ms / n, n)
             LANE_TIMES.record(lane.idx, "drain", drain_ms / n)
             TIMES.record("drain", drain_ms / n)
+            self._note_drain(items, drain_ms)
             self._release(items)
             for it, out in zip(items, outs):
-                _resolve(it.future, result=out)
+                _resolve(it.future, result=out, stage_ms=it.stage_ms)
 
     def _replace_lane_items(self, items: list, exclude=()) -> None:
         """Move still-unresolved items to the surviving lanes. An item past
@@ -743,8 +784,12 @@ class Executor:
         return snap
 
 
-def _resolve(fut: Future, result=None, error: Optional[Exception] = None) -> None:
-    """Set a future's outcome unless its caller already cancelled it."""
+def _resolve(fut: Future, result=None, error: Optional[Exception] = None,
+             stage_ms: Optional[dict] = None) -> None:
+    """Set a future's outcome unless its caller already cancelled it; an
+    item's stage times ride along as the future's `stage_ms`."""
+    if stage_ms is not None:
+        fut.stage_ms = stage_ms
     try:
         if error is not None:
             fut.set_exception(error)

@@ -3,8 +3,11 @@
 `LaneStageTimes`/`LANE_TIMES`).
 
 Each stage records into a bounded ring, so /health can report count,
-mean, p50 and p99 without unbounded memory. The stages are the ones the
-executor records, all in milliseconds per item:
+mean, p50 and p99 without unbounded memory, and into the stage
+histogram that /metrics renders (obs/histogram.py). The pipeline records
+probe, decode, encode and total on the request's host-pool thread, where
+each sample also becomes a span of the request's trace (obs/trace.py).
+The executor records the rest, all in milliseconds per item:
 
 - queue_wait: submit -> launch issued (batch_form + dispatch_wait);
 - batch_form: submit -> chunk close (bounded by the formation cap);
@@ -22,9 +25,16 @@ import threading
 
 import numpy as np
 
+from imaginary_tpu_torch.obs import histogram as _obs_hist
+from imaginary_tpu_torch.obs import trace as _obs_trace
+
 _RING = 2048  # samples kept per stage for percentile estimates
 
-STAGES = ("queue_wait", "batch_form", "dispatch_wait", "launch", "drain")
+STAGES = ("probe", "decode", "queue_wait", "batch_form", "dispatch_wait",
+          "launch", "drain", "encode", "total")
+
+# the per-stage histogram children, resolved once (record is the hot path)
+_STAGE_HISTS = {s: _obs_hist.STAGE_SECONDS.labels(s) for s in STAGES}
 
 
 class StageTimes:
@@ -43,6 +53,13 @@ class StageTimes:
             self._count[stage] += 1
             self._ring[stage][self._pos[stage]] = ms
             self._pos[stage] = (self._pos[stage] + 1) % _RING
+        # outside the lock: the histogram, and the sample as a span of the
+        # request whose context the recording thread runs in (pool threads
+        # do; the executor's collector and fetcher threads do not)
+        _STAGE_HISTS[stage].observe(ms / 1000.0)
+        tr = _obs_trace.current()
+        if tr is not None:
+            tr.add_span(stage, ms)
 
     def snapshot(self) -> dict:
         out = {}
@@ -71,6 +88,17 @@ class StageTimes:
 
 # Process-wide registry: the executor and /health share it.
 TIMES = StageTimes()
+
+
+def attribute(stage_ms) -> None:
+    """Add an executor item's stage times ({stage: ms}, carried back on
+    its future) to the current request's trace, on the thread that
+    waited for the result."""
+    tr = _obs_trace.current()
+    if tr is None or not stage_ms:
+        return
+    for stage, ms in stage_ms.items():
+        tr.add_span(stage, ms)
 
 
 class LaneStageTimes:

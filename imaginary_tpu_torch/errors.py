@@ -1,7 +1,7 @@
 """Typed HTTP errors (behavioral contract from error.go:12-67).
 
 The port's own copy of `imaginary_tpu/errors.py`, trimmed to what the
-/resize and /crop slice raises. `ImageError` carries a message and HTTP
+port raises. `ImageError` carries a message and HTTP
 status; it renders as `{"message": ..., "status": ...}` and clamps
 out-of-range codes to 503.
 """
@@ -43,6 +43,7 @@ def new_error(message: str, code: int, headers: dict = None) -> ImageError:
 
 # Predefined errors (ref: error.go:12-28)
 ErrNotFound = ImageError("Not found", 404)
+ErrInvalidAPIKey = ImageError("Invalid or missing API key", 401)
 ErrMethodNotAllowed = ImageError(
     "HTTP method not allowed. Try with a POST or GET method (-enable-url-source flag must be defined)", 405
 )
@@ -56,5 +57,7 @@ ErrMissingParamFile = ImageError("Missing required param: file", 400)
 ErrInvalidFilePath = ImageError("Invalid file path", 400)
 ErrMissingImageSource = ImageError("Cannot process the image due to missing or invalid params", 400)
 ErrNotImplemented = ImageError("Not implemented endpoint", 501)
+ErrInvalidURLSignature = ImageError("Invalid URL signature", 400)
+ErrURLSignatureMismatch = ImageError("URL signature mismatch", 403)
 ErrResolutionTooBig = ImageError("Image resolution is too big", 422)
 ErrEntityTooLarge = ImageError("Entity is too large", 413)

@@ -15,20 +15,27 @@ stream outside the entropy codec's scope (progressive and the like)
 takes the yuv420/rgb path, counted in `dct_counts()`. A /pipeline fuses
 every stage of every op into one chain: decode once, encode once.
 
-`info`, URL sources (so `watermarkImage`, which answers 501), the frame
-cache, the TIMES/COPIES ledgers and failpoints wait for later slices.
+`info` answers the /info JSON from a header probe. Each request's probe,
+decode, encode and total times go to the TIMES ledger (engine/timing.py),
+and with it to the request's trace; the device run is its "execute" span.
+URL sources (so `watermarkImage`, which answers 501), the frame cache, the
+COPIES ledger and failpoints wait for later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
+import time
 from typing import Optional
 
 from imaginary_tpu_torch import codecs
 from imaginary_tpu_torch.codecs import EncodeOptions, YuvPlanes, jpeg_dct
+from imaginary_tpu_torch.engine.timing import TIMES
 from imaginary_tpu_torch.errors import ImageError, new_error
 from imaginary_tpu_torch.imgtype import ENCODABLE, ImageType, determine_image_type, get_image_mime_type, image_type
+from imaginary_tpu_torch.obs import trace as obs_trace
 from imaginary_tpu_torch.options import ImageOptions
 from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.ops.buckets import bucket_shape
@@ -154,19 +161,22 @@ def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
         speed=o.speed,
         strip_metadata=o.strip_metadata,
     )
+    t0 = time.monotonic()
     if isinstance(arr, jpeg_dct.QuantizedBlocks):
         if target is ImageType.JPEG and not o.interlace:
             try:
-                return ProcessedImage(body=jpeg_dct.encode_quantized(arr),
-                                      mime=get_image_mime_type(target))
+                body = jpeg_dct.encode_quantized(arr)
+                TIMES.record("encode", (time.monotonic() - t0) * 1000.0)
+                return ProcessedImage(body=body, mime=get_image_mime_type(target))
             except ImageError:
                 pass
         arr = YuvPlanes(*jpeg_dct.blocks_to_planes(arr))
     if isinstance(arr, YuvPlanes):
         if target is ImageType.JPEG:
             try:
-                return ProcessedImage(body=codecs.encode_yuv(arr, opts),
-                                      mime=get_image_mime_type(target))
+                body = codecs.encode_yuv(arr, opts)
+                TIMES.record("encode", (time.monotonic() - t0) * 1000.0)
+                return ProcessedImage(body=body, mime=get_image_mime_type(target))
             except ImageError:
                 pass
         arr = codecs.yuv_planes_to_rgb(arr)
@@ -177,6 +187,7 @@ def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
             raise
         opts.type = ImageType.JPEG
         body, actual = codecs.encode(arr, opts), ImageType.JPEG
+    TIMES.record("encode", (time.monotonic() - t0) * 1000.0)
     return ProcessedImage(body=body, mime=get_image_mime_type(actual))
 
 
@@ -217,11 +228,24 @@ def _run_stages(arr, plan: ImagePlan, device, runner=None):
     if not plan.stages:
         return arr
     try:
-        if runner is None:
-            return chain_mod.run_single(arr, plan, device=device)
-        return runner(arr, plan)
+        # the "execute" span covers submit -> result: the executor's
+        # queue, launch and drain
+        with obs_trace.span("execute"):
+            if runner is None:
+                return chain_mod.run_single(arr, plan, device=device)
+            return runner(arr, plan)
     except (RuntimeError, ValueError, TypeError) as e:
         raise new_error(f"image processing error: {e}", 400) from None
+
+
+def info(buf: bytes, o: ImageOptions) -> ProcessedImage:
+    """The /info JSON from a header probe (ref: Info, image.go:56-79)."""
+    try:
+        meta = codecs.probe(buf)
+    except ImageError as e:
+        raise new_error("Cannot retrieve image metadata: " + e.message, 400) from None
+    return ProcessedImage(body=json.dumps(meta.to_dict()).encode(),
+                          mime="application/json")
 
 
 def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
@@ -230,10 +254,13 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
 
     meta: an ImageMetadata the caller already probed, so the hot path
     parses headers once. runner: see `_run_stages`."""
+    if name == "info":
+        return info(buf, o)
     if name == "pipeline":
         return process_pipeline(buf, o, device=device, meta=meta, runner=runner)
     if name not in OPERATION_NAMES:
         raise new_error(f"Unsupported operation: {name}", 400)
+    t_start = time.monotonic()
     _fetch_watermark(name, o)
     src_type = determine_image_type(buf)
     if meta is None and src_type is ImageType.JPEG:
@@ -242,24 +269,37 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
         except ImageError:
             meta = None  # the decode below raises the user-facing error
     shrink = _pick_shrink(name, src_type, o, meta)
+    TIMES.record("probe", (time.monotonic() - t_start) * 1000.0)
 
     if _dct_eligible(src_type, meta, o):
         out = _process_dct(name, buf, o, meta, shrink, device, runner)
         if out is not None:
+            TIMES.record("total", (time.monotonic() - t_start) * 1000.0)
             return out
 
     if _yuv_eligible(src_type, meta, o):
         out = _process_yuv420(name, buf, o, meta, shrink, device, runner)
         if out is not None:
+            TIMES.record("total", (time.monotonic() - t_start) * 1000.0)
             return out
 
-    d = codecs.decode(buf, shrink)
+    d = _decode(buf, shrink)
     plan = plan_operation(name, o, d.array.shape[0], d.array.shape[1], d.orientation,
                           d.array.shape[2])
     arr = _run_stages(d.array, plan, device, runner)
     out = _encode(arr, o, _encode_type(o, d.type))
-    return _carry_metadata(buf, o.strip_metadata, out, not o.no_rotation,
-                           plan.out_w, plan.out_h)
+    out = _carry_metadata(buf, o.strip_metadata, out, not o.no_rotation,
+                          plan.out_w, plan.out_h)
+    TIMES.record("total", (time.monotonic() - t_start) * 1000.0)
+    return out
+
+
+def _decode(buf: bytes, shrink: int):
+    """The rgb transport's host decode, timed into TIMES."""
+    t0 = time.monotonic()
+    d = codecs.decode(buf, shrink)
+    TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
+    return d
 
 
 def _dct_eligible(src_type, meta, o: ImageOptions) -> bool:
@@ -280,10 +320,12 @@ def _decode_dct_packed(buf, shrink, sh, sw):
     card's IDCT. Returns (packed, layout), or None (counted) when the
     stream is outside the codec's scope or its frame dims disagree with
     the probe's: the request then takes the yuv420/rgb path."""
+    t0 = time.monotonic()
     got = jpeg_dct.decode_packed(buf, shrink)
     if got is None or (got[1], got[2]) != (sh, sw):
         _count_dct("out_of_scope")
         return None
+    TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
     return got[0], got[3]
 
 
@@ -328,12 +370,14 @@ def _decode_yuv_packed(buf, shrink, sh, sw):
     (non-420 surprise or probe/decode disagreement — the RGB decode then
     raises any user-facing error itself)."""
     hb, wb = bucket_shape(sh, sw)
+    t0 = time.monotonic()
     try:
         packed, h, w, _orient = codecs.decode_yuv420(buf, shrink, hb, wb)
     except ImageError:
         return None
     if (h, w) != (sh, sw):
         return None
+    TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
     return packed, hb, wb
 
 
@@ -442,7 +486,7 @@ def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
                 out = _encode(_run_stages(packed, wrapped, device, runner), final_o, target)
             return _carry_metadata(buf, strip, out, rotated, combined.out_w, combined.out_h)
 
-    d = codecs.decode(buf, shrink)
+    d = _decode(buf, shrink)
     combined, final_o, target, rotated, strip = _build_pipeline_plan(
         o, d.array.shape[0], d.array.shape[1], d.orientation, d.array.shape[2], d.type)
     arr = _run_stages(d.array, combined, device, runner)

@@ -1,1 +1,1 @@
-"""HTTP layer of the port (standard-library server)."""
+"""HTTP layer of the port: the reference's aiohttp application."""

@@ -1,152 +1,255 @@
-"""The port's HTTP server: `ImageService` behind `http.server`.
+"""Application assembly and server lifecycle (the port's copy of
+`imaginary_tpu/web/app.py`; ref: server.go:69-174).
 
-`make_server` binds a `ThreadingHTTPServer`; each connection gets a thread,
-on which `ImageService` decodes, plans and encodes, while its executor
-batches the device work of concurrent requests. Closing the server shuts
-the executor down. The aiohttp layer of the reference (middleware, h2,
-workers) is a later slice.
+`create_app` builds the reference's aiohttp application: the trace
+middleware outermost, the access log inside it, then the middleware
+chain, and the route table under --path-prefix (`/`, `/form`, `/health`,
+`/metrics` and the 18 image routes). `serve` runs it until SIGINT or
+SIGTERM, with TLS when a cert and key are given (HTTP/1.1; h2 is a later
+slice), a periodic memory release, and a 5 s graceful drain.
+`make_server` is the programmatic runner of the same application: it
+binds at once and serves on the thread that calls `serve_forever`.
 """
 
 from __future__ import annotations
 
-import re
-import urllib.parse
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+import asyncio
+import gc
+import socket
+import ssl
+import threading
+from functools import partial
+from typing import Optional
 
-from imaginary_tpu_torch.engine import MAX_BATCH
-from imaginary_tpu_torch.errors import ErrEntityTooLarge, new_error
+from aiohttp import web
+
+from imaginary_tpu_torch.ops.plan import OPERATION_NAMES
+from imaginary_tpu_torch.web.accesslog import access_log_middleware
+from imaginary_tpu_torch.web.config import ServerOptions
 from imaginary_tpu_torch.web.handlers import (
-    MAX_BODY_SIZE,
     ImageService,
-    Response,
-    error_response,
-    parse_query,
+    form_controller,
+    health_controller,
+    index_controller,
 )
+from imaginary_tpu_torch.web.metrics import render_metrics
+from imaginary_tpu_torch.web.middleware import build_middlewares, trace_middleware
 
-# a chunk-size line: hex digits only, so no sign, prefix or underscore
-_HEX = re.compile(rb"[0-9A-Fa-f]+")
+ALL_OPERATIONS = OPERATION_NAMES + ("info", "pipeline")
+
+CLIENT_MAX_SIZE = 1 << 26  # 64 MB body cap (ref: source_body.go:13)
 
 
-class _Handler(BaseHTTPRequestHandler):
-    protocol_version = "HTTP/1.1"
-    server_version = "imaginary-tpu-torch"
+def tune_gc_for_serving() -> None:
+    """Raise CPython's GC thresholds for the serving process: image
+    serving churns large short-lived buffers that refcounting frees, and
+    the default gen0 threshold fires collections constantly. Called from
+    `serve`, the process owner, not from building an app."""
+    gc.set_threshold(50_000, 50, 100)
 
-    def do_GET(self):
-        self._dispatch("GET")
 
-    def do_POST(self):
-        self._dispatch("POST")
+def create_app(o: ServerOptions, log_stream=None) -> web.Application:
+    # the trace middleware is outermost: it assigns the request identity
+    # and installs the contextvar trace before the access log (which
+    # reads the id) and everything inside it runs
+    app = web.Application(
+        middlewares=[trace_middleware(o), access_log_middleware(o.log_level, log_stream)]
+        + build_middlewares(o),
+        client_max_size=CLIENT_MAX_SIZE,
+    )
+    service = ImageService(o)
+    app["service"] = service
+    app["options"] = o
 
-    def __getattr__(self, name: str):
-        # every other method (PUT, DELETE, PATCH, HEAD, OPTIONS, ...) reaches
-        # the service too, which answers the reference's 405, instead of
-        # http.server's 501 page
-        if name.startswith("do_"):
-            return lambda: self._dispatch(name[3:])
-        raise AttributeError(name)
+    async def on_cleanup(app):
+        service.close()
 
-    def _dispatch(self, method: str) -> None:
-        url = urllib.parse.urlsplit(self.path)
-        try:
-            body = self._read_body()
-        except ValueError:
-            self.close_connection = True
-            self._send(error_response(new_error("Malformed request body", 400)))
-            return
-        if body is None:
-            self.close_connection = True  # the rest of the body stays unread
-            self._send(error_response(ErrEntityTooLarge))
-            return
-        service: ImageService = self.server.service
-        self._send(service.handle(method, url.path, parse_query(url.query),
-                                  self.headers, body))
+    app.on_cleanup.append(on_cleanup)
+    prefix = o.path_prefix.rstrip("/")
 
-    def _read_body(self):
-        """The request body: Content-Length bytes, or the chunks of a
-        `Transfer-Encoding: chunked` body joined. None once it passes
-        MAX_BODY_SIZE; ValueError on a malformed length or chunk size."""
-        if "chunked" not in (self.headers.get("Transfer-Encoding") or "").lower():
-            length = int(self.headers.get("Content-Length") or 0)
-            if length > MAX_BODY_SIZE:
-                return None
-            return self.rfile.read(length) if length > 0 else b""
-        parts, total = [], 0
-        while True:
-            line = self.rfile.readline(1 << 16).split(b";", 1)[0].strip()
-            if not _HEX.fullmatch(line):
-                raise ValueError(f"chunk size {line[:32]!r}")
-            size = int(line, 16)
-            if size == 0:
-                while self.rfile.readline(1 << 16) not in (b"\r\n", b"\n", b""):
-                    pass  # trailer fields, unused
-                return b"".join(parts)
-            total += size
-            if total > MAX_BODY_SIZE:
-                return None
-            chunk = self.rfile.read(size)
-            if len(chunk) != size:
-                raise ValueError("chunk cut short")
-            parts.append(chunk)
-            if self.rfile.readline(1 << 16) not in (b"\r\n", b"\n"):
-                raise ValueError("no CRLF after a chunk")
+    def add(path, handler, methods=("GET", "POST")):
+        for m in methods:
+            app.router.add_route(m, path, handler)
 
-    def _send(self, resp: Response) -> None:
-        self.send_response(resp.status)
-        self.send_header("Content-Type", resp.content_type)
-        self.send_header("Content-Length", str(len(resp.body)))
-        for k, v in resp.headers.items():
-            self.send_header(k, v)
-        self.end_headers()
-        if self.command != "HEAD":
-            self.wfile.write(resp.body)
+    add(prefix + "/" if prefix else "/", partial(_index, o, service))
+    add(prefix + "/form", partial(_form, o), methods=("GET",))
+    add(prefix + "/health", partial(_health, service), methods=("GET",))
+    add(prefix + "/metrics", partial(_metrics, service), methods=("GET",))
+    for name in ALL_OPERATIONS:
+        route = "/" + name.lower()  # /watermarkimage
+        add(prefix + route, partial(_image, service, name))
+    return app
 
-    def log_message(self, fmt, *args):  # access logging is a later slice
+
+async def _index(o, service, request):
+    return await index_controller(request, o, service)
+
+
+async def _form(o, request):
+    return await form_controller(request, o)
+
+
+async def _health(service, request):
+    return await health_controller(request, service)
+
+
+async def _metrics(service, request):
+    # the numbers of /health in the Prometheus exposition format;
+    # ?exemplars=1 adds OpenMetrics exemplar clauses to the histograms
+    exemplars = request.query.get("exemplars", "") in ("1", "true")
+    return web.Response(text=render_metrics(service.health(), exemplars=exemplars),
+                        content_type="text/plain", charset="utf-8")
+
+
+async def _image(service, name, request):
+    return await service.handle(request, name)
+
+
+def _pin_groups(ctx) -> bool:
+    """Pin the reference's curve preferences (X25519, P-256, P-384 —
+    server.go:116-120) where ssl has set_groups (Python >= 3.13); before
+    that the default order, which already leads with X25519, stays.
+    Returns whether the pin was applied."""
+    if hasattr(ctx, "set_groups"):
+        ctx.set_groups("x25519:prime256v1:secp384r1")
+        return True
+    return False
+
+
+def make_ssl_context(o: ServerOptions) -> Optional[ssl.SSLContext]:
+    if not (o.cert_file and o.key_file):
+        return None
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    ctx.minimum_version = ssl.TLSVersion.TLSv1_2  # ref: server.go:115
+    # the reference's cipher suites (server.go:114-131): ECDHE with
+    # AES-GCM or ChaCha20-Poly1305 only; TLS 1.3 suites stay default-on
+    ctx.set_ciphers(
+        "ECDHE-ECDSA-AES256-GCM-SHA384:ECDHE-RSA-AES256-GCM-SHA384:"
+        "ECDHE-ECDSA-AES128-GCM-SHA256:ECDHE-RSA-AES128-GCM-SHA256:"
+        "ECDHE-ECDSA-CHACHA20-POLY1305:ECDHE-RSA-CHACHA20-POLY1305"
+    )
+    _pin_groups(ctx)
+    # HTTP/1.1 only: ALPN never selects a protocol this server cannot speak
+    ctx.set_alpn_protocols(["http/1.1"])
+    ctx.load_cert_chain(o.cert_file, o.key_file)
+    return ctx
+
+
+def release_memory() -> None:
+    """Collect, then hand freed heap pages back to the kernel where glibc
+    allows it (role of the reference's FreeOSMemory ticker)."""
+    gc.collect()
+    try:
+        import ctypes
+
+        ctypes.CDLL("libc.so.6").malloc_trim(0)
+    except (OSError, AttributeError):
         pass
 
 
-class _Server(ThreadingHTTPServer):
-    daemon_threads = True
-    # concurrent clients connect at once; the default backlog of 5 would
-    # make the kernel drop their SYNs and the clients retry a second later
-    request_queue_size = 128
+async def serve(o: ServerOptions, mrelease: int = 30) -> None:
+    """Run until SIGINT/SIGTERM; graceful 5 s drain (ref: server.go:144-165)."""
+    import signal
+
+    tune_gc_for_serving()
+    app = create_app(o)
+    runner = web.AppRunner(app, access_log=None)
+    await runner.setup()
+    site = web.TCPSite(runner, o.address or None, o.port, ssl_context=make_ssl_context(o))
+    await site.start()
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGINT, signal.SIGTERM):
+        loop.add_signal_handler(sig, stop.set)
+
+    async def memory_release():
+        while not stop.is_set():
+            await asyncio.sleep(max(mrelease, 1))
+            release_memory()
+
+    ticker = asyncio.create_task(memory_release()) if mrelease > 0 else None
+    scheme = "https" if o.cert_file and o.key_file else "http"
+    print(f"imaginary-tpu-torch server listening on "
+          f"{scheme}://{o.address or '0.0.0.0'}:{o.port} "
+          f"(device {app['service'].device})", flush=True)
+    await stop.wait()
+    print("shutting down server", flush=True)
+    if ticker:
+        ticker.cancel()
+    await asyncio.wait_for(runner.cleanup(), timeout=5)
+
+
+class _Discard:
+    """A log stream that drops what it is given."""
+
+    def write(self, _s: str) -> None:
+        pass
+
+
+class AppServer:
+    """The aiohttp application of `create_app` on a socket bound at
+    construction, served on the thread that calls `serve_forever` (its own
+    event loop), with the lifecycle of the standard library's servers:
+    `server_address`, `serve_forever`, `shutdown` (from another thread;
+    returns once in-flight requests have drained) and `server_close`
+    (closes the socket and the service's executor)."""
+
+    def __init__(self, o: ServerOptions, log_stream=None):
+        self.app = create_app(o, log_stream=log_stream)
+        self.service: ImageService = self.app["service"]
+        try:
+            self._ssl = make_ssl_context(o)
+            self.socket = socket.create_server((o.address or "0.0.0.0", o.port),
+                                               backlog=128)
+        except BaseException:
+            self.service.close()
+            raise
+        self.server_address = self.socket.getsockname()[:2]
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._stop: Optional[asyncio.Event] = None
+        self._ready = threading.Event()
+        self._done = threading.Event()
+
+    def serve_forever(self) -> None:
+        loop = asyncio.new_event_loop()
+        asyncio.set_event_loop(loop)
+        runner = web.AppRunner(self.app, access_log=None, handle_signals=False)
+        try:
+            loop.run_until_complete(runner.setup())
+            loop.run_until_complete(
+                web.SockSite(runner, self.socket, ssl_context=self._ssl).start())
+            self._stop = asyncio.Event()
+            self._loop = loop
+            self._ready.set()
+            loop.run_until_complete(self._stop.wait())
+            loop.run_until_complete(asyncio.wait_for(runner.cleanup(), timeout=5))
+        finally:
+            self._ready.set()
+            loop.close()
+            self._done.set()
+
+    def shutdown(self) -> None:
+        """Stop serve_forever (called from another thread) and wait for it
+        to return."""
+        self._ready.wait()
+        loop = self._loop
+        if loop is not None and not self._done.is_set():
+            loop.call_soon_threadsafe(self._stop.set)
+            self._done.wait()
 
     def server_close(self) -> None:
-        super().server_close()
-        service = getattr(self, "service", None)
-        if service is not None:
-            service.close()
+        self.socket.close()
+        self.service.close()
 
 
 def make_server(host: str = "0.0.0.0", port: int = 9000, device="cuda",
-                mount: str = "", max_batch: int = MAX_BATCH,
-                batch_form_ms: float = 5.0, max_inflight: int = 4,
-                transport_dct: bool = False,
-                transport_dct_egress: bool = False, mesh_policy: str = "off",
-                n_devices: int = 0, devices=None, lane_form_ms=None,
-                lane_inflight: int = 2, shard_min_items: int = 0,
-                breaker_threshold: int = 3,
-                breaker_cooldown_s: float = 30.0, spatial: int = 1,
-                spatial_threshold_px: int = 3840 * 2160,
-                spatial_mpix: float = 0.0) -> ThreadingHTTPServer:
+                mount: str = "", log_stream=None, **options) -> AppServer:
     """Bind (not start) the server; `serve_forever()` runs it and
-    `shutdown()` + `server_close()` stop it (and its executor)."""
-    srv = _Server((host, port), _Handler)
-    try:
-        srv.service = ImageService(device=device, mount=mount, max_batch=max_batch,
-                                   batch_form_ms=batch_form_ms,
-                                   max_inflight=max_inflight,
-                                   transport_dct=transport_dct,
-                                   transport_dct_egress=transport_dct_egress,
-                                   mesh_policy=mesh_policy, n_devices=n_devices,
-                                   devices=devices, lane_form_ms=lane_form_ms,
-                                   lane_inflight=lane_inflight,
-                                   shard_min_items=shard_min_items,
-                                   breaker_threshold=breaker_threshold,
-                                   breaker_cooldown_s=breaker_cooldown_s,
-                                   spatial=spatial,
-                                   spatial_threshold_px=spatial_threshold_px,
-                                   spatial_mpix=spatial_mpix)
-    except BaseException:
-        srv.server_close()
-        raise
-    return srv
+    `shutdown()` + `server_close()` stop it (and its executor). Keyword
+    arguments set the fields of ServerOptions (max_batch, batch_form_ms,
+    max_inflight, transport_dct, mesh_policy, n_devices, devices, spatial,
+    api_key, enable_placeholder, ...). The access log is dropped unless
+    `log_stream` is given."""
+    o = ServerOptions(address=host, port=port, device=str(device), mount=mount,
+                      **options)
+    return AppServer(o, log_stream=log_stream if log_stream is not None else _Discard())

@@ -1,46 +1,45 @@
-"""HTTP handlers of the port: sources, params, errors and the image routes.
+"""Controllers and the image handler (the port's copy of
+`imaginary_tpu/web/handlers.py`, trimmed to the subsystems the port has).
 
-The port's counterpart of `imaginary_tpu/web/{sources,handlers}.py` for
-this slice, free of any HTTP framework: `ImageService.handle` takes the
-method, path, query, headers and body and returns a `Response`, and
-`web/app.py` binds it to the standard library's HTTP server. It keeps the
-reference's param parsing, error JSON and status codes.
+`ImageService` owns the micro-batching executor and the host thread pool.
+Its `handle` coroutine is the image routes' controller: the URL
+signature and GET-source checks and the source fetch, then the
+framework-free core, `ImageService.process`, on the pool (`--cpus`
+workers, or max(4, usable CPUs)) under the request's context, so its
+spans land in the request's trace. The core runs the reference's handler
+semantics (controllers.go:79-156): media-type sniffing, param parsing,
+`type=auto` Accept negotiation with `Vary: Accept`, output-format
+validation, the --max-allowed-resolution guard, the pipeline, and
+--return-size's headers. The device work of concurrent requests batches
+in the executor, on the service's device. Every processed image answers
+`X-Imaginary-Backend: device`: nothing runs on a host path.
 
-Served: `/`, `/health`, `/resize`, `/fit`, `/enlarge`, `/extract`,
-`/crop`, `/smartcrop`, `/thumbnail`, `/zoom`, `/rotate`, `/autorotate`,
-`/flip`, `/flop`, `/convert`, `/blur`, `/watermark` and `/pipeline`, on
-JPEG (the native codec) and PNG, WEBP, GIF and TIFF (Pillow) sources and
-targets; with the dct transport switched on, JPEG in and out rides the
-compressed domain. The reference's other routes (`/watermarkimage`,
-`/info`) answer 501 until their slice lands. Requests run concurrently on
-the server's threads: decode and encode on the request's own thread, the
-device work through one micro-batching `Executor` per service, which
-groups concurrent requests that share a chain into one launch.
+Served: `/`, `/form`, `/health`, `/metrics`, `/info` and the image
+routes on JPEG (the native codec) and PNG, WEBP, GIF and TIFF (Pillow).
+`/watermarkimage` and `watermarkImage` in a pipeline answer 501 until URL
+sources land.
 """
 
 from __future__ import annotations
 
+import asyncio
+import collections
+import contextvars
 import dataclasses
-import gc
-import json
-import logging
 import os
 import threading
 import time
-import urllib.parse
-from email.parser import BytesParser
-from email.policy import HTTP
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional
 
 import torch
+from aiohttp import web
 
-from imaginary_tpu_torch import Version, codecs, kernels, pipeline
-from imaginary_tpu_torch.engine import MAX_BATCH, Executor, ExecutorConfig
+from imaginary_tpu_torch import Version, codecs, pipeline
+from imaginary_tpu_torch.engine import Executor, ExecutorConfig
 from imaginary_tpu_torch.errors import (
     ErrEmptyBody,
-    ErrGetMethodNotAllowed,
-    ErrInvalidFilePath,
-    ErrMethodNotAllowed,
-    ErrMissingParamFile,
+    ErrNotFound,
     ErrNotImplemented,
     ErrOutputFormat,
     ErrResolutionTooBig,
@@ -55,52 +54,41 @@ from imaginary_tpu_torch.imgtype import (
     image_type,
     is_image_mime_type_supported,
 )
+from imaginary_tpu_torch.obs import trace as obs_trace
+from imaginary_tpu_torch.options import ImageOptions
 from imaginary_tpu_torch.params import ParamError, build_params_from_query
-
-MAX_BODY_SIZE = 1 << 26  # 64 MB (ref: source_body.go:13)
-FORM_FIELD = "file"  # ref: source_body.go:12
-MAX_ALLOWED_MPIX = 18.0  # ref: imaginary.go:36
-
-SERVED_OPERATIONS = ("resize", "fit", "enlarge", "extract", "crop",
-                     "smartcrop", "thumbnail", "zoom", "rotate", "autorotate",
-                     "flip", "flop", "convert", "blur", "watermark", "pipeline")
-# The reference's image routes (ref: OperationsMap, image.go:15-32, plus
-# /info and /pipeline): known here so they answer 501, not 404.
-REFERENCE_OPERATIONS = (
-    "resize", "fit", "enlarge", "extract", "crop", "smartcrop", "rotate",
-    "autorotate", "flip", "flop", "thumbnail", "zoom", "convert", "blur",
-    "watermark", "watermarkimage", "info", "pipeline",
+from imaginary_tpu_torch.web.config import ServerOptions
+from imaginary_tpu_torch.web.health import get_health_stats
+from imaginary_tpu_torch.web.middleware import (
+    check_url_signature,
+    error_response,
+    validate_image_request,
 )
+from imaginary_tpu_torch.web.sources import SourceRegistry
+
+# routes whose subsystem is not ported yet (URL sources): 501
+NOT_PORTED = ("watermarkImage",)
 
 _ACCEPT_TO_TYPE = {"image/webp": "webp", "image/png": "png", "image/jpeg": "jpeg"}
 
-_LOG = logging.getLogger(__name__)
+# resized placeholders kept per service: an error storm asks for the same
+# few shapes again and again (ref: placeholder.py:37-47)
+_PLACEHOLDER_CACHE = 64
 
 
 @dataclasses.dataclass
 class Response:
+    """An image route's answer, free of any HTTP framework."""
+
     status: int
     content_type: str
     body: bytes
     headers: dict = dataclasses.field(default_factory=dict)
 
 
-# The reference's router and server answer these two themselves (aiohttp's
-# plain-text pages): a path no route matches, and an exception raised
-# outside the image handler's processing.
-NOT_FOUND = Response(404, "text/plain; charset=utf-8", b"404: Not Found")
-INTERNAL_ERROR = Response(500, "text/plain; charset=utf-8",
-                          b"500 Internal Server Error\n\nServer got itself in trouble")
-
-
-def error_response(err: ImageError) -> Response:
-    """ErrorReply equivalent (error.go:58-67): the JSON error body."""
-    return Response(err.http_code(), "application/json", err.json_bytes(),
-                    dict(err.headers))
-
-
 def determine_accept_mime_type(accept: str) -> str:
-    """Preferred output format from the Accept header (ref: controllers.go:63-76)."""
+    """Preferred output format from the Accept header
+    (ref: controllers.go:63-76)."""
     for part in accept.split(","):
         media = part.split(";", 1)[0].strip().lower()
         if media in _ACCEPT_TO_TYPE:
@@ -108,197 +96,271 @@ def determine_accept_mime_type(accept: str) -> str:
     return ""
 
 
-def _read_form(body: bytes, ctype: str, field: str) -> bytes:
-    """The multipart part named `field` (ref: source_body.go:30-100)."""
-    msg = BytesParser(policy=HTTP).parsebytes(
-        b"Content-Type: " + ctype.encode("latin-1") + b"\r\n\r\n" + body)
-    if msg.is_multipart():
-        for part in msg.iter_parts():
-            if part.get_param("name", header="content-disposition") == field:
-                return part.get_payload(decode=True) or b""
-    raise ErrMissingParamFile
+def available_cpus() -> int:
+    """CPUs this process may run on (the affinity mask, not the host's
+    core count)."""
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except AttributeError:  # not Linux
+        return os.cpu_count() or 1
 
 
 class ImageService:
-    """Serves the slice's routes on `device`, or with a `mesh_policy` on
-    one executor lane per mesh entry; `handle` may run on many threads at
-    once. `close()` shuts the executor down. The dct transport
-    switches are process-wide (`pipeline.set_transport_dct`), set here
-    from the server's options as the reference's server sets them."""
+    """Owns the micro-batch executor (on `o.device`, or one lane per mesh
+    entry with a `mesh_policy`), the host thread pool and the sources.
+    Keyword arguments override fields of `o` (ServerOptions() when None).
+    The dct transport switches are process-wide
+    (`pipeline.set_transport_dct`), set here from the options as the
+    reference's service sets them. `close()` shuts the executor and the
+    pool down."""
 
-    def __init__(self, device="cuda", mount: str = "", max_batch: int = MAX_BATCH,
-                 batch_form_ms: float = 5.0, max_inflight: int = 4,
-                 transport_dct: bool = False, transport_dct_egress: bool = False,
-                 mesh_policy: str = "off", n_devices: int = 0, devices=None,
-                 lane_form_ms=None, lane_inflight: int = 2, shard_min_items: int = 0,
-                 breaker_threshold: int = 3, breaker_cooldown_s: float = 30.0,
-                 spatial: int = 1, spatial_threshold_px: int = 3840 * 2160,
-                 spatial_mpix: float = 0.0):
-        if transport_dct_egress and not transport_dct:
+    def __init__(self, o: Optional[ServerOptions] = None, **overrides):
+        o = dataclasses.replace(o or ServerOptions(), **overrides)
+        if o.transport_dct_egress and not o.transport_dct:
             raise ValueError("the dct egress requires the dct transport")
-        self.device = torch.device(device)
+        self.options = o
+        self.device = torch.device(o.device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "CUDA is not available; pass --device cpu to serve on the CPU")
-        self.mount = os.path.abspath(mount) if mount else ""
-        self._started = time.time()
+        self.started = time.time()
+        self.registry = SourceRegistry(o.mount)
         self.executor = Executor(ExecutorConfig(
-            max_batch=max_batch, max_form_ms=batch_form_ms,
-            max_inflight=max(1, max_inflight), device=str(self.device),
-            mesh_policy=mesh_policy, n_devices=n_devices, devices=devices,
-            lane_form_ms=lane_form_ms, lane_inflight=max(1, lane_inflight),
-            shard_min_items=shard_min_items, breaker_threshold=breaker_threshold,
-            breaker_cooldown_s=breaker_cooldown_s, spatial=spatial,
-            spatial_threshold_px=spatial_threshold_px, spatial_mpix=spatial_mpix))
-        pipeline.set_transport_dct(transport_dct)
-        pipeline.set_transport_dct_egress(transport_dct_egress)
+            max_batch=o.max_batch, max_form_ms=o.batch_form_ms,
+            max_inflight=max(1, o.max_inflight), device=str(self.device),
+            mesh_policy=o.mesh_policy, n_devices=o.n_devices, devices=o.devices,
+            lane_form_ms=o.lane_form_ms, lane_inflight=max(1, o.lane_inflight),
+            shard_min_items=o.shard_min_items,
+            breaker_threshold=o.breaker_threshold,
+            breaker_cooldown_s=o.breaker_cooldown_s, spatial=o.spatial,
+            spatial_threshold_px=o.spatial_threshold_px,
+            spatial_mpix=o.spatial_mpix))
+        pipeline.set_transport_dct(o.transport_dct)
+        pipeline.set_transport_dct_egress(o.transport_dct_egress)
+        workers = o.cpus if o.cpus > 0 else max(4, available_cpus())
+        self.pool = ThreadPoolExecutor(max_workers=workers,
+                                       thread_name_prefix="itpu-host")
+        self.pool_workers = workers
+        # host tasks submitted and not finished, and an EWMA of their
+        # service time: the host side of estimated_queue_ms
+        self._inflight = 0
+        self._service_ewma_ms = 20.0
+        self._inflight_lock = threading.Lock()
+        self._placeholders: collections.OrderedDict = collections.OrderedDict()
+        self._placeholder_lock = threading.Lock()
+        self._closed = False
 
     def close(self) -> None:
+        if self._closed:
+            return
+        self._closed = True
         self.executor.shutdown()
-
-    def handle(self, method: str, path: str, query: dict, headers,
-               body: bytes) -> Response:
-        """Route one request. `query` maps key -> first value."""
-        try:
-            # GET and POST only, on every path (ref: middleware.go:179-187)
-            if method not in ("GET", "POST"):
-                raise ErrMethodNotAllowed
-            if path == "/":
-                return self._json(self.versions())
-            if path == "/health":
-                return self._json(self.health())
-            name = path.lstrip("/").lower()
-            if name not in REFERENCE_OPERATIONS or "/" in name:
-                return NOT_FOUND
-            if name not in SERVED_OPERATIONS:
-                raise ErrNotImplemented
-            buf = self._source(method, query, headers, body)
-            try:
-                return self._process(name, buf, query, headers)
-            except (ImageError, ParamError):
-                raise
-            except Exception as e:
-                # ref: handlers.py:787-790, any other failure of the work
-                raise new_error("Error processing image: " + str(e), 400) from None
-        except ImageError as e:
-            return error_response(e)
-        except ParamError as e:
-            return error_response(new_error(str(e), 400))
-        except Exception:
-            _LOG.exception("error handling %s %s", method, path)
-            return INTERNAL_ERROR
+        self.pool.shutdown(wait=False)
 
     def versions(self) -> dict:
+        """`/`'s JSON: the port's version, the torch stack and the device
+        type, in the place of the reference's {imaginary_tpu, jax, backend}."""
         return {"imaginary_tpu_torch": Version, "torch": torch.__version__,
                 "backend": self.device.type}
 
     def health(self) -> dict:
-        cuda = self.device.type == "cuda"
-        stats = {
-            "uptime": round(time.time() - self._started, 2),
-            "allocatedMemoryMb": _rss_mb(),
-            "threads": threading.active_count(),
-            "cpus": os.cpu_count() or 1,
-            "gcCollections": sum(s["collections"] for s in gc.get_stats()),
-            "pid": os.getpid(),
-            "devices": torch.cuda.device_count() if cuda else 1,
-            "backend": self.device.type,
-            "device": str(self.device),
-            "kernelLaunches": kernels.launch_counts(),
-            "codecs": codecs.routes(),
-            "dctTransport": {"ingress": pipeline.transport_dct_enabled(),
-                             "egress": pipeline.transport_dct_egress_enabled(),
-                             **pipeline.dct_counts()},
-            "executor": self.executor.stats.to_dict(),
-        }
-        if self.executor.devhealth is not None:  # the lane tier's fault domains
-            stats["deviceHealth"] = self.executor.devhealth.snapshot()
-        if cuda:
-            stats["deviceName"] = torch.cuda.get_device_name(self.device)
-            stats["allocatedDeviceMb"] = round(
-                torch.cuda.memory_allocated(self.device) / (1 << 20), 2)
-        return stats
+        """The one stats assembly that /health and /metrics both serve."""
+        return get_health_stats(self)
 
-    @staticmethod
-    def _json(obj: dict) -> Response:
-        return Response(200, "application/json", json.dumps(obj).encode())
+    def estimated_queue_ms(self) -> float:
+        """Expected queueing delay for a new request: the host-pool backlog
+        (tasks beyond the worker count, at the measured service time) plus
+        the executor's owed device work."""
+        backlog = max(0, self._inflight - self.pool_workers)
+        host_wait = backlog * self._service_ewma_ms / max(1, self.pool_workers)
+        return host_wait + self.executor.estimated_wait_ms()
 
-    def _source(self, method: str, query: dict, headers, body: bytes) -> bytes:
-        """POST: multipart field or raw body; GET: ?file= under the mount
-        (ref: source_body.go, source_fs.go)."""
-        if method == "POST":
-            ctype = headers.get("Content-Type", "") or ""
-            if ctype.startswith("multipart/"):
-                buf = _read_form(body, ctype, query.get("field") or FORM_FIELD)
-            else:
-                buf = body
-        else:
-            if not self.mount:
-                raise ErrGetMethodNotAllowed
-            if not query.get("file"):
-                # no source matches (ref: sources.py:454-457)
-                raise new_error("missing image source", 400)
-            buf = self._read_file(query["file"])
-        if not buf:
-            raise ErrEmptyBody
-        return buf
+    # -- the image route handler ----------------------------------------------
 
-    def _read_file(self, raw: str) -> bytes:
-        name = urllib.parse.unquote(raw)
-        path = os.path.normpath(os.path.join(self.mount, name.lstrip("/")))
-        if not (path == self.mount or path.startswith(self.mount + os.sep)):
-            raise ErrInvalidFilePath
+    async def handle(self, request: web.Request, op_name: str) -> web.StreamResponse:
+        o = self.options
         try:
-            with open(path, "rb") as f:
-                return f.read()
-        except (FileNotFoundError, IsADirectoryError):
-            raise ErrInvalidFilePath from None
+            if op_name in NOT_PORTED:
+                raise ErrNotImplemented
+            if o.enable_url_signature:
+                check_url_signature(request, o)
+            validate_image_request(request, o)
+            with obs_trace.span("fetch"):
+                buf = await self._get_source_image(request)
+            if not buf:
+                raise ErrEmptyBody
+            return await self._process_and_respond(request, op_name, buf)
+        except ImageError as e:
+            return error_response(request, e, o)
 
-    def _process(self, name: str, buf: bytes, query: dict, headers) -> Response:
+    async def _get_source_image(self, request: web.Request) -> bytes:
+        try:
+            return await self.registry.get_image(request)
+        except ImageError:
+            raise
+        except Exception as e:
+            raise new_error("Error getting image: " + str(e), 400) from None
+
+    async def _process_and_respond(self, request, op_name, buf) -> web.Response:
+        """Run the core on the host pool under the request's context (so
+        its spans land in this request's trace). The inflight ledger
+        decrements in the pool thread; a task cancelled while still queued
+        never runs, and the done-callback balances it."""
+        with self._inflight_lock:
+            self._inflight += 1
+        ctx = contextvars.copy_context()
+        fut = self.pool.submit(ctx.run, self._process_counted, op_name, bytes(buf),
+                               dict(request.query), request.headers)
+        fut.add_done_callback(self._release_if_cancelled)
+        got = await asyncio.wrap_future(fut)
+        return web.Response(body=got.body, status=got.status,
+                            content_type=got.content_type, headers=got.headers)
+
+    def _release_if_cancelled(self, fut) -> None:
+        if fut.cancelled():
+            with self._inflight_lock:
+                self._inflight -= 1
+
+    def _process_counted(self, op_name, buf, query, headers) -> Response:
+        t0 = time.monotonic()
+        try:
+            return self.process(op_name, buf, query, headers)
+        finally:
+            dt_ms = (time.monotonic() - t0) * 1000.0
+            with self._inflight_lock:
+                self._inflight -= 1
+                self._service_ewma_ms += 0.1 * (dt_ms - self._service_ewma_ms)
+
+    def process(self, op_name: str, buf: bytes, query: dict, headers=None) -> Response:
+        """The framework-free core of an image route: `buf` under the
+        operation `op_name` with the request's query ({key: first value})
+        and headers. Raises ImageError for the error reply."""
+        o = self.options
+        # media-type sniff (ref: imageHandler controllers.go:80-84)
         sniffed = determine_image_type(buf)
         if sniffed is ImageType.UNKNOWN or not is_image_mime_type_supported(
-                get_image_mime_type(sniffed)):
+            get_image_mime_type(sniffed)
+        ):
             raise ErrUnsupportedMedia
         try:
             opts = build_params_from_query(query)
         except ParamError as e:
             raise new_error("Error while processing parameters: " + str(e), 400) from None
-        vary = {}
+        # type=auto Accept negotiation (ref: controllers.go:89-99)
+        vary = ""
         if opts.type == "auto":
-            opts.type = determine_accept_mime_type(headers.get("Accept", "") or "")
-            vary = {"Vary": "Accept"}
+            opts.type = determine_accept_mime_type((headers or {}).get("Accept", ""))
+            vary = "Accept"
         elif opts.type and image_type(opts.type) is ImageType.UNKNOWN:
             raise ErrOutputFormat
+        # resolution guard (ref: controllers.go:101-110); the header probe's
+        # metadata is reused downstream, so the path parses headers once
         meta = None
+        if o.max_allowed_pixels > 0:
+            try:
+                meta = codecs.probe_fast(buf)
+                if meta.width * meta.height / 1_000_000.0 > o.max_allowed_pixels:
+                    raise ErrResolutionTooBig
+            except ImageError as e:
+                if e is ErrResolutionTooBig or e.code == 501:
+                    raise
+                meta = None  # probe failure falls through; the decode raises
         try:
-            meta = codecs.probe_fast(buf)
-        except ImageError as e:
-            if e.code == 501:
-                raise
-            # probe failure falls through; the decode produces the error
-        if meta is not None and meta.width * meta.height / 1e6 > MAX_ALLOWED_MPIX:
-            raise ErrResolutionTooBig
-        out = pipeline.process_operation(name, buf, opts, device=self.device,
-                                         meta=meta, runner=self.executor.process)
-        return Response(200, out.mime, out.body, vary)
+            out = pipeline.process_operation(op_name, buf, opts, device=self.device,
+                                             meta=meta, runner=self.executor.process)
+        except ImageError:
+            raise
+        except Exception as e:
+            # ref: handlers.py:787-790, any other failure of the work
+            raise new_error("Error processing image: " + str(e), 400) from None
+        return self._build_response(out, op_name, vary)
+
+    def _build_response(self, out, op_name, vary) -> Response:
+        headers = {}
+        if op_name != "info":  # /info produces no pixels
+            headers["X-Imaginary-Backend"] = "device"
+        if vary:
+            headers["Vary"] = vary
+        # every image the pipeline answers carries its output geometry
+        if self.options.return_size and out.mime != "application/json":
+            headers["Image-Width"] = str(out.width)
+            headers["Image-Height"] = str(out.height)
+        return Response(200, out.mime, out.body, headers)
+
+    # -- placeholders -----------------------------------------------------------
+
+    def placeholder(self, buf: bytes, width: int, height: int,
+                    type_name: str) -> tuple:
+        """(body, mime) of `buf` resized to width x height: one resize
+        through this service's executor on its device, cached per
+        (source, width, height, type). A failed resize is not cached."""
+        key = (buf, width, height, type_name)
+        with self._placeholder_lock:
+            hit = self._placeholders.get(key)
+            if hit is not None:
+                self._placeholders.move_to_end(key)
+                return hit
+        opts = ImageOptions(width=width, height=height, force=True, type=type_name)
+        out = pipeline.process_operation("resize", buf, opts, device=self.device,
+                                         runner=self.executor.process)
+        got = (out.body, out.mime)
+        with self._placeholder_lock:
+            self._placeholders[key] = got
+            while len(self._placeholders) > _PLACEHOLDER_CACHE:
+                self._placeholders.popitem(last=False)
+        return got
 
 
-def _rss_mb() -> float:
-    """The process's resident set in MB, from /proc (0.0 where there is none)."""
-    try:
-        with open("/proc/self/status") as f:
-            for line in f:
-                if line.startswith("VmRSS:"):
-                    return round(int(line.split()[1]) / 1024.0, 2)
-    except OSError:
-        pass
-    return 0.0
+# --- simple controllers -------------------------------------------------------
+
+async def index_controller(request: web.Request, o: ServerOptions,
+                           service: ImageService) -> web.Response:
+    """Version JSON (ref: controllers.go:17-26)."""
+    prefix = o.path_prefix.rstrip("/") or ""
+    if request.path not in (prefix + "/", prefix or "/"):
+        return error_response(request, ErrNotFound, o)
+    return web.json_response(service.versions())
 
 
-def parse_query(qs: str) -> dict:
-    """Query string -> {key: first value} (Go's url.Values.Get)."""
-    out: dict = {}
-    for k, v in urllib.parse.parse_qsl(qs, keep_blank_values=True):
-        out.setdefault(k, v)
-    return out
+async def health_controller(request: web.Request,
+                            service: ImageService) -> web.Response:
+    return web.json_response(service.health())
 
+
+async def form_controller(request: web.Request, o: ServerOptions) -> web.Response:
+    """HTML playground (ref: controllers.go:159-194)."""
+    prefix = o.path_prefix.rstrip("/")
+    demos = [
+        ("Resize", "resize", "width=300&height=200&type=jpeg"),
+        ("Force resize", "resize", "width=300&height=200&force=true"),
+        ("Crop", "crop", "width=300&quality=95"),
+        ("SmartCrop", "crop", "width=300&height=260&quality=95&gravity=smart"),
+        ("Extract", "extract", "top=100&left=100&areawidth=300&areaheight=150"),
+        ("Enlarge", "enlarge", "width=1440&height=900&quality=95"),
+        ("Rotate", "rotate", "rotate=180"),
+        ("AutoRotate", "autorotate", "quality=90"),
+        ("Flip", "flip", ""),
+        ("Flop", "flop", ""),
+        ("Thumbnail", "thumbnail", "width=100"),
+        ("Zoom", "zoom", "factor=2&areawidth=300&top=80&left=80"),
+        ("Color space (black&white)", "resize", "width=400&height=300&colorspace=bw"),
+        ("Add watermark", "watermark", "textwidth=100&text=Hello&font=sans%2012&opacity=0.5&color=255,200,50"),
+        ("Convert format", "convert", "type=png"),
+        ("Image metadata", "info", ""),
+        ("Gaussian blur", "blur", "sigma=15.0&minampl=0.2"),
+        ("Pipeline", "pipeline",
+         "operations=%5B%7B%22operation%22:%20%22crop%22,%20%22params%22:%20%7B%22width%22:%20300,"
+         "%20%22height%22:%20260%7D%7D,%20%7B%22operation%22:%20%22convert%22,%20%22params%22:"
+         "%20%7B%22type%22:%20%22webp%22%7D%7D%5D"),
+    ]
+    parts = ["<html><body>"]
+    for title, op, args in demos:
+        action = f"{prefix}/{op}" + (f"?{args}" if args else "")
+        parts.append(
+            f'<h1>{title}</h1>'
+            f'<form method="POST" action="{action}" enctype="multipart/form-data">'
+            f'<input type="file" name="file" /><input type="submit" value="Upload" />'
+            f"</form>"
+        )
+    parts.append("</body></html>")
+    return web.Response(text="".join(parts), content_type="text/html")

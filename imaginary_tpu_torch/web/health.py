@@ -1,0 +1,74 @@
+"""`/health` stats (the port's copy of `imaginary_tpu/web/health.py`;
+ref: health.go:17-63).
+
+The reference's keys for what the port has: process RSS, threads, GC
+collections, the serving process (`worker` and `epoch`: a single process
+is worker 0 of epoch 0), the device inventory, the executor's block, the
+lane tier's fault domains, the stage times and the estimated queueing
+delay. Beside them, the port's own: the device, each kernel's launch
+count, the codec route of each format and the dct transport's switches.
+The reference's `cache`, `arena` and `eventLoop` blocks wait for their
+modules.
+"""
+
+from __future__ import annotations
+
+import gc
+import os
+import threading
+import time
+
+import torch
+
+from imaginary_tpu_torch import codecs, kernels, pipeline
+from imaginary_tpu_torch.engine.timing import TIMES
+
+
+def _rss_mb() -> float:
+    """The process's resident set in MB, from /proc (0.0 where there is none)."""
+    try:
+        with open("/proc/self/status") as f:
+            for line in f:
+                if line.startswith("VmRSS:"):
+                    return round(int(line.split()[1]) / 1024.0, 2)
+    except OSError:
+        pass
+    return 0.0
+
+
+def get_health_stats(service) -> dict:
+    device = service.device
+    cuda = device.type == "cuda"
+    executor = service.executor
+    stats = {
+        "uptime": round(time.time() - service.started, 2),
+        "allocatedMemoryMb": _rss_mb(),
+        "threads": threading.active_count(),
+        "cpus": os.cpu_count() or 1,
+        "gcCollections": sum(s["collections"] for s in gc.get_stats()),
+        "pid": os.getpid(),
+        "worker": 0,
+        "epoch": 0,
+        "devices": torch.cuda.device_count() if cuda else 1,
+        "backend": device.type,
+        "device": str(device),
+        "kernelLaunches": kernels.launch_counts(),
+        "codecs": codecs.routes(),
+        "dctTransport": {"ingress": pipeline.transport_dct_enabled(),
+                         "egress": pipeline.transport_dct_egress_enabled(),
+                         **pipeline.dct_counts()},
+        "executor": executor.stats.to_dict(),
+    }
+    if executor.devhealth is not None:  # the lane tier's fault domains
+        stats["deviceHealth"] = executor.devhealth.snapshot()
+    if cuda:
+        stats["deviceName"] = torch.cuda.get_device_name(device)
+        stats["allocatedDeviceMb"] = round(
+            torch.cuda.memory_allocated(device) / (1 << 20), 2)
+    stage_times = TIMES.snapshot()
+    if stage_times:
+        stats["stageTimesMs"] = stage_times
+    # the queueing delay a new request would meet: host-pool backlog plus
+    # the executor's owed device work
+    stats["estimatedQueueMs"] = round(service.estimated_queue_ms(), 2)
+    return stats

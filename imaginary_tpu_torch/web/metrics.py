@@ -1,0 +1,147 @@
+"""Prometheus text-format /metrics endpoint (the port's copy of
+`imaginary_tpu/web/metrics.py`).
+
+Two layers of exposition, both format-0.0.4-strict (`# HELP`/`# TYPE`
+per family, label values escaped, families grouped):
+
+  1. The /health mirror: the same numbers /health serves, as gauges and
+     counters under the `imaginary_tpu_` namespace (executor counters,
+     per-lane families, the fault domains, per-stage latency percentile
+     gauges).
+  2. The obs registry (obs/histogram.py): fixed-bucket cumulative
+     histograms (`imaginary_tpu_request_duration_seconds`,
+     `imaginary_tpu_stage_duration_seconds{stage=}`) and the RED counters
+     per route x status class.
+
+Families of subsystems the port has not ported (caches, qos, pressure,
+integrity, fleet, slo, cost, the event loop probe) are absent, as the
+reference leaves them out when the subsystem is off.
+"""
+
+from __future__ import annotations
+
+import re
+
+from imaginary_tpu_torch.obs.histogram import REGISTRY, escape_label_value
+
+# Occupancy/level metrics mirrored from /health; everything else in the
+# executor block is a monotonically-increasing counter.
+_EXEC_GAUGES = {
+    "avg_batch", "avg_group", "max_group", "queue_depth",
+    "compile_cache_size", "device_owed_mb",
+    "batch_form_p50_ms", "batch_form_p99_ms",
+    "dispatch_wait_p50_ms", "dispatch_wait_p99_ms", "mesh_generation",
+}
+
+
+def _snake(name: str) -> str:
+    return re.sub(r"(?<=[a-z0-9])([A-Z])", r"_\1", name).lower()
+
+
+class _Exposition:
+    """Line accumulator that emits each family's `# HELP`/`# TYPE` header
+    exactly once, before its first sample."""
+
+    def __init__(self):
+        self.lines: list = []
+        self._seen: set = set()
+
+    def emit(self, name: str, value, labels: str = "",
+             mtype: str = "gauge", help_text: str = "") -> None:
+        if isinstance(value, bool):
+            value = int(value)
+        if not isinstance(value, (int, float)):
+            return
+        if name not in self._seen:
+            self._seen.add(name)
+            if help_text:
+                self.lines.append(f"# HELP {name} {help_text}")
+            self.lines.append(f"# TYPE {name} {mtype}")
+        self.lines.append(
+            f"{name}{{{labels}}} {value}" if labels else f"{name} {value}"
+        )
+
+
+def render_metrics(stats: dict, exemplars: bool = False) -> str:
+    """Health-stats dict + obs registry -> Prometheus exposition text.
+
+    exemplars=True (the /metrics?exemplars=1 opt-in) appends
+    OpenMetrics-style ` # {trace_id=,request_id=} value` clauses to the
+    latency histogram buckets."""
+    x = _Exposition()
+    # deferred so each family's samples stay contiguous
+    stage_ms: list = []
+    stage_total: list = []
+    lanes_list: list = []
+    device_health: dict = {}
+    for key, value in stats.items():
+        if key == "executor" and isinstance(value, dict):
+            for k, v in value.items():
+                if k == "lanes" and isinstance(v, list):
+                    lanes_list = v
+                    continue
+                mtype = "gauge" if k in _EXEC_GAUGES else "counter"
+                x.emit(f"imaginary_tpu_executor_{_snake(k)}", v, mtype=mtype,
+                       help_text=f"Executor {k.replace('_', ' ')} (see /health).")
+        elif key == "deviceHealth" and isinstance(value, dict):
+            device_health = value
+        elif key == "stageTimesMs" and isinstance(value, dict):
+            for stage, pcts in value.items():
+                lab = escape_label_value(stage)
+                for q, v in pcts.items():
+                    if q == "count":
+                        stage_total.append((f'stage="{lab}"', v))
+                    else:
+                        qlab = escape_label_value(
+                            _snake(q).replace("_ms", ""))
+                        stage_ms.append(
+                            (f'stage="{lab}",q="{qlab}"', v))
+        elif key == "backend":
+            x.emit("imaginary_tpu_backend_info", 1,
+                   f'backend="{escape_label_value(value)}"',
+                   help_text="Active torch device type (value is always 1).")
+        else:
+            x.emit(f"imaginary_tpu_{_snake(key)}", value,
+                   help_text=f"{key} (see /health).")
+    # per-lane families, one loop per family so each family's samples
+    # stay contiguous
+    for s in lanes_list:
+        x.emit("imaginary_tpu_lane_queued", s.get("queued", 0),
+               f'lane="{s.get("lane", 0)}"', mtype="gauge",
+               help_text="Items placed on this device's lane and not yet "
+                         "inside a drain (engine/lanes.py).")
+    for s in lanes_list:
+        x.emit("imaginary_tpu_lane_inflight", s.get("inflight", 0),
+               f'lane="{s.get("lane", 0)}"', mtype="gauge",
+               help_text="Items inside the drain this lane's fetcher is "
+                         "blocked on right now.")
+    for s in lanes_list:
+        x.emit("imaginary_tpu_lane_dispatches_total", s.get("dispatches", 0),
+               f'lane="{s.get("lane", 0)}"', mtype="counter",
+               help_text="Device calls launched on this device's lane.")
+    if device_health:
+        x.emit("imaginary_tpu_devices_healthy", device_health.get("healthy", 0),
+               help_text="Dispatchable devices in the healthy state.")
+        x.emit("imaginary_tpu_devices_quarantined",
+               device_health.get("quarantined", 0),
+               help_text="Devices removed from the dispatchable set by "
+                         "their per-device breaker.")
+        for d in device_health.get("per_device", ()):
+            x.emit(
+                "imaginary_tpu_device_state", 1,
+                f'device="{d.get("device", "")}",'
+                f'state="{escape_label_value(str(d.get("state", "")))}"',
+                help_text="Per-device fault-domain state "
+                          "(healthy|quarantined|half_open); value is "
+                          "always 1.")
+    for labels, v in stage_total:
+        x.emit("imaginary_tpu_stage_total", v, labels, mtype="counter",
+               help_text="Samples recorded per pipeline stage.")
+    for labels, v in stage_ms:
+        x.emit("imaginary_tpu_stage_ms", v, labels,
+               help_text="Per-stage latency percentile gauges (single-"
+                         "process window; use the _duration_seconds "
+                         "histograms for fleet aggregation).")
+    # layer 2: request/stage duration histograms + RED counters
+    x.lines.extend(REGISTRY.render_lines(exemplars=exemplars))
+    return "\n".join(x.lines) + "\n"

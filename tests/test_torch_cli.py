@@ -1,0 +1,167 @@
+"""The port's command line against the reference's (`imaginary_tpu/cli.py`).
+
+Every flag the port takes parses from argv and from its
+`IMAGINARY_TPU_<FLAG>` variable, and its default equals the reference
+parser's default. `--device` is the port's own flag (the torch device of
+the kernels) and has no counterpart. The historical variables PORT,
+URL_SIGNATURE_KEY and LOG_LEVEL still win, as in the reference.
+"""
+
+from __future__ import annotations
+
+import os
+
+import pytest
+
+from imaginary_tpu_torch import cli
+
+# (option, dest, kind, a value other than the default)
+FLAGS = [
+    ("--port", "port", int, 9123),
+    ("--addr", "addr", str, "127.0.0.2"),
+    ("--path-prefix", "path_prefix", str, "/img"),
+    ("--cors", "cors", bool, True),
+    ("--gzip", "gzip", bool, True),
+    ("--key", "key", str, "s3cret"),
+    ("--mount", "mount", str, "/srv/images"),
+    ("--http-cache-ttl", "http_cache_ttl", int, 60),
+    ("--http-read-timeout", "http_read_timeout", int, 30),
+    ("--http-write-timeout", "http_write_timeout", int, 45),
+    ("--enable-placeholder", "enable_placeholder", bool, True),
+    ("--enable-url-signature", "enable_url_signature", bool, True),
+    ("--url-signature-key", "url_signature_key", str, "k" * 32),
+    ("--max-allowed-size", "max_allowed_size", int, 1023),
+    ("--max-allowed-resolution", "max_allowed_resolution", float, 2.5),
+    ("--certfile", "certfile", str, "/tmp/c.crt"),
+    ("--keyfile", "keyfile", str, "/tmp/c.key"),
+    ("--require-device", "require_device", bool, True),
+    ("--placeholder", "placeholder", str, "/tmp/p.jpg"),
+    ("--placeholder-status", "placeholder_status", int, 202),
+    ("--concurrency", "concurrency", int, 20),
+    ("--burst", "burst", int, 5),
+    ("--mrelease", "mrelease", int, 10),
+    ("--cpus", "cpus", int, 3),
+    ("--log-level", "log_level", str, "warning"),
+    ("--return-size", "return_size", bool, True),
+    ("--disable-endpoints", "disable_endpoints", str, "blur,crop"),
+    ("--disable-tracing", "disable_tracing", bool, True),
+    ("--max-batch", "max_batch", int, 32),
+    ("--batch-form-ms", "batch_form_ms", float, 2.5),
+    ("--max-inflight", "max_inflight", int, 8),
+    ("--devices", "devices", int, 2),
+    ("--spatial", "spatial", int, 4),
+    ("--spatial-threshold-px", "spatial_threshold_px", int, 1000),
+    ("--mesh-policy", "mesh_policy", str, "lanes"),
+    ("--spatial-mpix", "spatial_mpix", float, 8.3),
+    ("--lane-form-ms", "lane_form_ms", float, 2.0),
+    ("--lane-inflight", "lane_inflight", int, 3),
+    ("--transport-dct", "transport_dct", bool, True),
+    ("--transport-dct-egress", "transport_dct_egress", bool, True),
+]
+IDS = [f[0].lstrip("-") for f in FLAGS]
+# the egress rides on the ingress: set with it in argv and the environment
+NEEDS = {"transport_dct_egress": ("--transport-dct", "IMAGINARY_TPU_TRANSPORT_DCT")}
+
+
+@pytest.fixture(autouse=True)
+def _clean_env(monkeypatch):
+    """No IMAGINARY_TPU_* variable (or historical name) from the caller."""
+    for name in list(os.environ):
+        if name.startswith("IMAGINARY_TPU_") or name in ("PORT", "URL_SIGNATURE_KEY",
+                                                         "LOG_LEVEL"):
+            monkeypatch.delenv(name)
+
+
+def _env_name(option: str) -> str:
+    return "IMAGINARY_TPU_" + option.lstrip("-").replace("-", "_").upper()
+
+
+@pytest.mark.parametrize("option,dest,kind,value", FLAGS, ids=IDS)
+def test_default_equals_the_reference_parsers(option, dest, kind, value):
+    from imaginary_tpu.cli import build_parser as reference_parser
+
+    want = reference_parser().parse_args([])
+    got = cli.parse_args([])
+    assert getattr(got, dest) == getattr(want, dest)
+    assert getattr(got, dest) != value
+
+
+@pytest.mark.parametrize("option,dest,kind,value", FLAGS, ids=IDS)
+def test_flag_parses_from_argv(option, dest, kind, value):
+    argv = [option] if kind is bool else [option, str(value)]
+    if dest in NEEDS:
+        argv.append(NEEDS[dest][0])
+    assert getattr(cli.parse_args(argv), dest) == value
+
+
+@pytest.mark.parametrize("option,dest,kind,value", FLAGS, ids=IDS)
+def test_flag_reads_its_environment_variable(monkeypatch, option, dest, kind, value):
+    monkeypatch.setenv(_env_name(option), "1" if kind is bool else str(value))
+    if dest in NEEDS:
+        monkeypatch.setenv(NEEDS[dest][1], "1")
+    assert getattr(cli.parse_args([]), dest) == value
+
+
+def test_every_flag_is_the_reference_flag_of_its_name():
+    """The port adds no flag the reference lacks, but its own --device;
+    the short forms -p and -a are the reference's."""
+    from imaginary_tpu.cli import build_parser as reference_parser
+
+    def options(parser):
+        return {s for a in parser._actions for s in a.option_strings}
+
+    ours = options(cli.build_parser()) - {"--device"}
+    assert ours <= options(reference_parser())
+    assert {"-p", "-a", "--version"} <= ours
+    assert {f[0] for f in FLAGS} <= ours
+
+
+def test_device_reads_its_environment_variable(monkeypatch):
+    assert cli.parse_args([]).device == "cuda"
+    monkeypatch.setenv("IMAGINARY_TPU_DEVICE", "cpu")
+    assert cli.parse_args([]).device == "cpu"
+
+
+def test_short_forms():
+    args = cli.parse_args(["-p", "9001", "-a", "127.0.0.1"])
+    assert (args.port, args.addr) == (9001, "127.0.0.1")
+
+
+def test_historical_variables_win(monkeypatch):
+    """ref: options_from_args, cli.py:633-640."""
+    monkeypatch.setenv("PORT", "9555")
+    monkeypatch.setenv("URL_SIGNATURE_KEY", "u" * 32)
+    monkeypatch.setenv("LOG_LEVEL", "error")
+    o = cli.options_from_args(cli.parse_args(["--port", "9001"]))
+    assert (o.port, o.url_signature_key, o.log_level) == (9555, "u" * 32, "error")
+
+
+def test_options_carry_every_flag(tmp_path):
+    """options_from_args maps the flags onto ServerOptions as the
+    reference's does (endpoints parsed, tracing inverted, the lane cap
+    negative as None)."""
+    args = cli.parse_args(["--disable-endpoints", "Blur, crop", "--disable-tracing",
+                           "--max-allowed-resolution", "2.5", "--key", "k",
+                           "--mount", str(tmp_path), "--device", "cpu",
+                           "--devices", "2", "--lane-form-ms", "-1"])
+    o = cli.options_from_args(args)
+    assert o.endpoints == ("blur", "crop") and not o.trace_enabled
+    assert (o.max_allowed_pixels, o.api_key, o.mount) == (2.5, "k", str(tmp_path))
+    assert (o.device, o.n_devices, o.lane_form_ms) == ("cpu", 2, None)
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--enable-url-signature", "--url-signature-key", "short"], "at least 32"),
+    (["--mount", "/nonexistent/dir"], "mount directory does not exist"),
+    (["--http-cache-ttl", "-5"], "31556926"),
+], ids=["short-signature-key", "missing-mount", "bad-ttl"])
+def test_boot_checks_refuse_like_the_reference(argv, message):
+    with pytest.raises(SystemExit, match=message):
+        cli.options_from_args(cli.parse_args(argv))
+
+
+def test_version_prints_and_exits(capsys):
+    from imaginary_tpu_torch import Version
+
+    assert cli.main(["--version"]) == 0
+    assert capsys.readouterr().out.strip() == Version

@@ -459,8 +459,8 @@ def test_health_reports_the_dct_transport():
 
     svc = ImageService(device="cpu", transport_dct=True, transport_dct_egress=True)
     try:
-        resp = svc.handle("POST", "/resize", {"width": "300", "height": "200"}, {},
-                          fixture_bytes("large.jpg"))
+        resp = svc.process("resize", fixture_bytes("large.jpg"),
+                           {"width": "300", "height": "200"})
         assert (resp.status, resp.content_type) == (200, "image/jpeg")
         assert _pixels(resp.body).shape[:2] == (200, 300)
         health = svc.health()["dctTransport"]

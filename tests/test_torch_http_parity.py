@@ -1,0 +1,322 @@
+"""The port's HTTP layer held against the reference's, request by request.
+
+The same requests go to the reference's `create_app` (the JAX package,
+on the CPU) and to the port's (`device="cpu"`), each app built from the
+same ServerOptions fields, and the answers are compared:
+
+- status and content type: equal;
+- body: byte-equal for JSON and HTML, and for images at most 1 LSB apart
+  after decoding (the bound of ROADMAP.md's ground rules);
+- the set of header names: equal, and the metric names of Server-Timing
+  equal in order.
+
+What may differ, and why:
+- the values of `Date`, `X-Request-ID` and `Server`, and the durations
+  in Server-Timing (each server's own clock and name);
+- `/`'s body: the reference reports {imaginary_tpu, jax, backend}, the
+  port {imaginary_tpu_torch, torch, backend} (each names its own stack;
+  the keys' count and `backend` agree);
+- `/health`'s body: live runtime values. The port's keys hold every key
+  of the reference's but the blocks of modules not ported yet (`cache`,
+  `arena`, `eventLoop`) and the off policy's `deviceHealth`, which the
+  port has only with a mesh policy (ROADMAP.md queue 3, "Recorded
+  differences");
+- `/metrics`'s body: live values. Every family the reference renders for
+  a subsystem the port has is in the port's exposition, with the same
+  type;
+- `/watermarkimage` is not sent: it fetches a URL, and URL sources are
+  not ported (the port answers 501);
+- a placeholder answer's Server-Timing: the port resizes the placeholder
+  through its executor (on the card in production), so it also carries
+  the executor's batch_form, dispatch_wait and drain, where the
+  reference calls its chain directly; the other names agree in order.
+
+The reference app runs with `host_spill=False`: the port has no host
+path, and a reference request that spilled to the host would carry
+host_gate/host_spill spans and `X-Imaginary-Backend: host`. /flop and
+/zoom ask for PNG: a JPEG /flop's planes, 1 LSB apart before the encode,
+come back up to 5 LSB apart through the encoder's quantization (the
+chain's planes are held at 1 LSB in tests/test_torch_pipeline.py), and a
+GIF's palette differs by design (ROADMAP.md queue 3, "Palette output").
+"""
+
+from __future__ import annotations
+
+import asyncio
+import dataclasses
+import io
+import json
+import socket
+import urllib.parse
+
+import numpy as np
+import pytest
+from aiohttp import FormData
+from aiohttp.test_utils import TestClient, TestServer
+from PIL import Image
+
+from tests.conftest import FIXTURES, fixture_bytes
+
+LARGE = "large.jpg"
+PNG = "test.png"
+_OPS = urllib.parse.quote(json.dumps([
+    {"operation": "crop", "params": {"width": 300, "height": 260}},
+    {"operation": "convert", "params": {"type": "webp"}},
+]))
+
+# (id, method, path, source, headers): source is a fixture name (raw
+# POST body), "form:<name>" (multipart `file` field), bytes, or None
+ROUTES = [
+    ("resize", "POST", "/resize?width=300&height=200", LARGE, {}),
+    ("fit", "POST", "/fit?width=300&height=300", LARGE, {}),
+    ("enlarge", "POST", "/enlarge?width=2400&height=1400", LARGE, {}),
+    ("extract", "POST", "/extract?top=10&left=20&areawidth=300&areaheight=200", LARGE, {}),
+    ("crop", "POST", "/crop?width=300&height=200", LARGE, {}),
+    ("smartcrop", "POST", "/smartcrop?width=300&height=200", LARGE, {}),
+    ("rotate", "POST", "/rotate?rotate=90", "exif-orient-6.jpg", {}),
+    ("autorotate", "POST", "/autorotate", "exif-orient-6.jpg", {}),
+    ("flip", "POST", "/flip", "exif-orient-6.jpg", {}),
+    ("flop", "POST", "/flop?type=png", "exif-orient-6.jpg", {}),
+    ("thumbnail", "POST", "/thumbnail?width=300&height=200", LARGE, {}),
+    ("zoom", "POST", "/zoom?factor=2&type=png", "test.gif", {}),
+    ("convert", "POST", "/convert?type=png", "imaginary.jpg", {}),
+    ("blur", "POST", "/blur?sigma=2", PNG, {}),
+    ("watermark", "POST", "/watermark?text=port&opacity=0.5", "test.webp", {}),
+    ("info", "GET", "/info?file=large.jpg", None, {}),
+    ("pipeline", "POST", "/pipeline?operations=" + _OPS, "form:imaginary.jpg", {}),
+    ("get-mounted", "GET", "/resize?width=300&height=200&file=large.jpg", None, {}),
+    ("type-auto", "POST", "/resize?width=100&type=auto", LARGE,
+     {"Accept": "image/webp,*/*"}),
+    ("bw", "POST", "/resize?width=300&colorspace=bw", LARGE, {}),
+]
+PUBLIC = [
+    ("index", "GET", "/", None, {}),
+    ("form", "GET", "/form", None, {}),
+    ("health", "GET", "/health", None, {}),
+    ("metrics", "GET", "/metrics", None, {}),
+]
+ERRORS = [
+    ("405-delete", "DELETE", "/resize?width=300", None, {}),
+    ("405-put-index", "PUT", "/", None, {}),
+    ("404-unknown", "GET", "/nope", None, {}),
+    ("404-nested", "GET", "/resize/x?width=300", None, {}),
+    ("400-bad-param", "POST", "/resize?width=bogus", LARGE, {}),
+    ("400-missing-param", "POST", "/resize", LARGE, {}),
+    ("400-bad-type", "POST", "/resize?width=300&type=bogus", LARGE, {}),
+    ("400-empty-body", "POST", "/resize?width=300", b"", {}),
+    ("400-bad-file", "GET", "/resize?width=300&file=../../etc/passwd", None, {}),
+    ("400-no-source", "GET", "/resize?width=300", None, {}),
+    ("400-wrong-field", "POST", "/resize?width=100", "form-photo:imaginary.jpg", {}),
+    ("406-not-an-image", "POST", "/resize?width=300", b"clearly not an image", {}),
+    ("400-pipeline-empty", "POST", "/pipeline", PNG, {}),
+]
+# (group, ServerOptions fields, cases)
+GROUPS = {
+    "mount": ({"mount": FIXTURES}, ROUTES + PUBLIC + ERRORS),
+    "guard": ({"max_allowed_pixels": 0.1}, [
+        ("422-resolution", "POST", "/resize?width=100", LARGE, {})]),
+    "no-mount": ({}, [("405-get-without-mount", "GET", "/resize?width=300&file=large.jpg",
+                       None, {})]),
+    "key": ({"api_key": "s3cret"}, [
+        ("401-no-key", "POST", "/resize?width=100", LARGE, {}),
+        ("401-metrics", "GET", "/metrics", None, {}),
+        ("200-key-header", "POST", "/resize?width=100", LARGE, {"API-Key": "s3cret"}),
+        ("200-key-query", "POST", "/resize?width=100&key=s3cret", LARGE, {})]),
+    "signature": ({"enable_url_signature": True, "url_signature_key": "x" * 32}, [
+        ("400-bad-signature", "POST", "/crop?width=100&sign=invalid!!", LARGE, {}),
+        ("403-signature-mismatch", "POST",
+         "/crop?width=100&sign=Xl8cFe7ybcjOpCdxcGVo6SuNg1bVR1H1dwTiFPJZmRw", LARGE, {})]),
+    "throttle": ({"concurrency": 1, "burst": 0}, [
+        ("200-first", "GET", "/health", None, {}),
+        ("429-second", "GET", "/health", None, {})]),
+    "placeholder": ({"enable_placeholder": True}, [
+        ("placeholder-406", "POST", "/resize?width=300&height=200", b"not an image", {}),
+        ("placeholder-400", "POST", "/resize?width=120&height=90&type=png", b"", {})]),
+    "placeholder-status": ({"enable_placeholder": True, "placeholder_status": 202}, [
+        ("placeholder-202", "POST", "/resize?width=60&height=60", b"junk", {})]),
+    "prefix": ({"path_prefix": "/img", "mount": FIXTURES}, [
+        ("prefix-resize", "POST", "/img/resize?width=300&height=200", LARGE, {}),
+        ("prefix-index", "GET", "/img/", None, {}),
+        ("prefix-health", "GET", "/img/health", None, {}),
+        ("prefix-form", "GET", "/img/form", None, {}),
+        ("prefix-unprefixed-404", "POST", "/resize?width=300", LARGE, {})]),
+    "extras": ({"cors": True, "http_cache_ttl": 60, "return_size": True,
+                "endpoints": ("blur",), "mount": FIXTURES}, [
+        ("extras-get", "GET", "/resize?width=300&height=200&file=large.jpg", None, {}),
+        ("extras-post", "POST", "/crop?width=120&height=90", LARGE, {}),
+        ("extras-options", "OPTIONS", "/crop", None, {}),
+        ("extras-501-disabled", "POST", "/blur?sigma=2", LARGE, {})]),
+}
+CASES = [(g, *c) for g, (_, cases) in GROUPS.items() for c in cases]
+
+
+def _request_args(src, headers):
+    if src is None:
+        return None, dict(headers)
+    if isinstance(src, bytes):
+        return src, {"Content-Type": "image/jpeg", **headers}
+    if src.startswith("form"):
+        field = "photo" if src.startswith("form-photo:") else "file"
+        form = FormData()
+        form.add_field(field, fixture_bytes(src.split(":", 1)[1]),
+                       filename="x.jpg", content_type="image/jpeg")
+        return form, dict(headers)
+    return fixture_bytes(src), {"Content-Type": "image/jpeg", **headers}
+
+
+def _raw_oversize(port: int) -> tuple:
+    """A POST that declares a body past the 64 MB cap and sends none of
+    it: (status, content type, body)."""
+    with socket.create_connection(("127.0.0.1", port), timeout=30) as s:
+        s.sendall(b"POST /resize?width=300 HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+                  b"Content-Type: image/jpeg\r\nContent-Length: 67108865\r\n\r\n")
+        got = b""
+        while data := s.recv(65536):
+            got += data
+    head, _, body = got.partition(b"\r\n\r\n")
+    lines = head.split(b"\r\n")
+    fields = dict(ln.split(b": ", 1) for ln in lines[1:] if b": " in ln)
+    return int(lines[0].split(b" ", 2)[1]), fields.get(b"Content-Type"), body
+
+
+async def _serve(create_app, options_cls, fields, cases, **extra):
+    app = create_app(options_cls(**fields, **extra), log_stream=io.StringIO())
+    client = TestClient(TestServer(app))
+    await client.start_server()
+    out = {}
+    try:
+        for cid, method, path, src, headers in cases:
+            data, hdrs = _request_args(src, headers)
+            r = await client.request(method, path, data=data, headers=hdrs)
+            out[cid] = (r.status, dict(r.headers), await r.read())
+        if cases is GROUPS["mount"][1]:
+            out["413-oversize"] = await asyncio.to_thread(_raw_oversize, client.port)
+    finally:
+        await client.close()
+    return out
+
+
+@pytest.fixture(scope="module")
+def answers(testdata):
+    """{group: ({case: reference answer}, {case: port answer})}."""
+    from imaginary_tpu.web.app import create_app as ref_app
+    from imaginary_tpu.web.config import ServerOptions as RefOptions
+    from imaginary_tpu_torch.web.app import create_app as port_app
+    from imaginary_tpu_torch.web.config import ServerOptions as PortOptions
+
+    async def run():
+        out = {}
+        for group, (fields, cases) in GROUPS.items():
+            ref = await _serve(ref_app, RefOptions, fields, cases, host_spill=False)
+            got = await _serve(port_app, PortOptions, fields, cases, device="cpu")
+            out[group] = (ref, got)
+        return out
+
+    return asyncio.run(run())
+
+
+def _decoded(body: bytes) -> np.ndarray:
+    im = Image.open(io.BytesIO(body))
+    return np.asarray(im.convert("RGBA" if "A" in im.getbands() else "RGB"), dtype=np.int16)
+
+
+def _timing_names(headers: dict) -> list:
+    value = headers.get("Server-Timing", "")
+    return [p.split(";")[0] for p in value.split(", ")] if value else []
+
+
+EXECUTOR_SPANS = ("batch_form", "dispatch_wait", "drain")
+UNPORTED_HEALTH_KEYS = {"cache", "arena", "eventLoop", "deviceHealth"}
+
+
+def _check_body(cid: str, ctype: str, want: bytes, got: bytes) -> None:
+    if cid in ("index", "prefix-index"):
+        w, g = json.loads(want), json.loads(got)
+        assert len(g) == len(w) and g["backend"] == w["backend"]
+    elif cid in ("health", "prefix-health", "200-first"):
+        w, g = json.loads(want), json.loads(got)
+        assert set(w) - UNPORTED_HEALTH_KEYS <= set(g)
+    elif cid in ("metrics",):
+        _check_metrics(want.decode(), got.decode())
+    elif ctype.startswith("image/"):
+        a, b = _decoded(want), _decoded(got)
+        assert a.shape == b.shape
+        assert int(np.abs(a - b).max()) <= 1
+    else:
+        assert got == want
+
+
+def _families(text: str) -> dict:
+    return dict(ln.split()[2:4] for ln in text.splitlines() if ln.startswith("# TYPE "))
+
+
+def _check_metrics(want: str, got: str) -> None:
+    """Every family the reference renders for a subsystem the port has is
+    in the port's exposition, with the same type."""
+    w, g = _families(want), _families(got)
+    shared = {"imaginary_tpu_uptime", "imaginary_tpu_allocated_memory_mb",
+              "imaginary_tpu_threads", "imaginary_tpu_cpus",
+              "imaginary_tpu_gc_collections", "imaginary_tpu_pid",
+              "imaginary_tpu_worker", "imaginary_tpu_epoch", "imaginary_tpu_devices",
+              "imaginary_tpu_backend_info", "imaginary_tpu_estimated_queue_ms",
+              "imaginary_tpu_executor_items", "imaginary_tpu_executor_batches",
+              "imaginary_tpu_executor_groups", "imaginary_tpu_executor_avg_batch",
+              "imaginary_tpu_executor_max_group", "imaginary_tpu_executor_queue_depth",
+              "imaginary_tpu_executor_device_failures",
+              "imaginary_tpu_executor_device_owed_mb",
+              "imaginary_tpu_executor_batch_form_p99_ms",
+              "imaginary_tpu_executor_dispatch_wait_p99_ms",
+              "imaginary_tpu_stage_total", "imaginary_tpu_stage_ms",
+              "imaginary_tpu_request_duration_seconds",
+              "imaginary_tpu_stage_duration_seconds", "imaginary_tpu_requests_total"}
+    for name in shared:
+        assert name in w, name
+        assert g.get(name) == w[name], name
+
+
+@pytest.mark.parametrize("group,cid,method,path,src,headers", CASES,
+                         ids=[f"{c[0]}-{c[1]}" for c in CASES])
+def test_answer_equals_the_reference_apps(answers, group, cid, method, path, src,
+                                          headers):
+    ref, port = answers[group]
+    (ws, wh, wb), (gs, gh, gb) = ref[cid], port[cid]
+    assert gs == ws
+    assert gh.get("Content-Type") == wh.get("Content-Type")
+    assert set(gh) == set(wh)
+    got_names = _timing_names(gh)
+    if cid.startswith("placeholder"):
+        got_names = [n for n in got_names if n not in EXECUTOR_SPANS]
+    assert got_names == _timing_names(wh)
+    _check_body(cid, wh.get("Content-Type", ""), wb, gb)
+
+
+def test_oversize_body_is_413_like_the_reference(answers):
+    ref, port = answers["mount"]
+    assert ref["413-oversize"][0] == 413
+    assert port["413-oversize"] == ref["413-oversize"]
+
+
+def test_the_matrix_covers_every_route_but_watermarkimage():
+    from imaginary_tpu.pipeline import ALL_OPERATIONS
+
+    from imaginary_tpu_torch.web.app import ALL_OPERATIONS as PORT_OPERATIONS
+
+    assert PORT_OPERATIONS == ALL_OPERATIONS
+    sent = {path.split("?")[0].strip("/") for _, _, _, path, _, _ in CASES}
+    assert {n.lower() for n in ALL_OPERATIONS} - sent == {"watermarkimage"}
+    assert {"", "form", "health", "metrics"} <= sent
+    statuses = {tok for c in CASES for tok in c[1].split("-") if tok.isdigit()}
+    assert {"405", "404", "400", "401", "403", "422", "429", "406", "501"} <= statuses
+
+
+def test_options_of_both_apps_share_their_field_names():
+    """Every field the port's ServerOptions has, but the port's device
+    and its executor knobs without a reference field, is a field of the
+    reference's ServerOptions (the groups above build both from one dict)."""
+    from imaginary_tpu.web.config import ServerOptions as RefOptions
+    from imaginary_tpu_torch.web.config import ServerOptions as PortOptions
+
+    ours = {f.name for f in dataclasses.fields(PortOptions)}
+    theirs = {f.name for f in dataclasses.fields(RefOptions)}
+    assert ours - theirs == {"device", "devices", "shard_min_items",
+                             "breaker_threshold", "breaker_cooldown_s"}

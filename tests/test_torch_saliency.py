@@ -25,6 +25,7 @@ from __future__ import annotations
 import io
 import json
 import os
+import urllib.parse
 
 import jax.numpy as jnp
 import numpy as np
@@ -314,8 +315,7 @@ def service():
 ])
 def test_smartcrop_route_serves_jpeg(service, path, dims):
     url, _, qs = path.partition("?")
-    from imaginary_tpu_torch.web.handlers import parse_query
-
-    resp = service.handle("POST", url, parse_query(qs), {}, fixture_bytes("smart-crop.jpg"))
+    resp = service.process(url.lstrip("/"), fixture_bytes("smart-crop.jpg"),
+                           dict(urllib.parse.parse_qsl(qs)))
     assert (resp.status, resp.content_type) == (200, "image/jpeg")
     assert _pixels(resp.body).shape[:2] == dims

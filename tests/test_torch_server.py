@@ -1,15 +1,18 @@
-"""The port's standard-library HTTP server on the CPU, and its isolation
-from the JAX package.
+"""The port's aiohttp server (`make_server`, the runner of `create_app`)
+on the CPU, and its isolation from the JAX package.
 
 The server answers the reference's status codes and error JSON: 200 for
 /resize, /crop, /smartcrop, /thumbnail, /rotate, /autorotate, /flip,
-/flop, /fit, /enlarge, /extract, /zoom, /convert, /blur, /watermark and
-/pipeline (raw body, multipart `file` field, or ?file= under --mount;
-JPEG, PNG, WEBP and GIF in and out), 400 for bad params, 404 for unknown
-paths, 405 for GET without a mount and for every method other than GET
-and POST (HEAD without a body), 406 for non-images, 501 for routes
-and formats not ported yet; type=auto answers Vary: Accept, chunked
-bodies read like plain ones, and /health has the reference's keys.
+/flop, /fit, /enlarge, /extract, /zoom, /convert, /blur, /watermark,
+/pipeline and /info (raw body, multipart `file` field, or ?file= under
+--mount; JPEG, PNG, WEBP and GIF in and out), 400 for bad params, 404
+for unknown paths, 405 for GET without a mount and for every method
+other than GET and POST (HEAD without a body), 406 for non-images, 501
+for routes and formats not ported yet; type=auto answers Vary: Accept,
+chunked bodies read like plain ones, and /health has the reference's
+keys. A chunked body, one past the size limit, malformed chunked bodies
+sent as raw bytes, and a fault raised outside processing get the answers
+the reference app gives the same bytes.
 Where the reference answers otherwise than with its error JSON (an
 exception raised while an image is processed, a PDF or SVG target, an
 unknown path, a GET that no source matches, a wide PNG to WEBP), the
@@ -72,6 +75,44 @@ def server():
         assert not th.is_alive()
 
 
+@pytest.fixture(scope="module")
+def reference_server():
+    """The reference's aiohttp app (mounted on the fixtures) on a thread of
+    its own, for raw requests; yields its port."""
+    import asyncio
+    import io
+
+    from aiohttp import web
+
+    from imaginary_tpu.web.app import create_app
+    from imaginary_tpu.web.config import ServerOptions
+
+    loop = asyncio.new_event_loop()
+    ready = threading.Event()
+    box: dict = {}
+
+    def run():
+        asyncio.set_event_loop(loop)
+        app = create_app(ServerOptions(mount=FIXTURES), log_stream=io.StringIO())
+        runner = web.AppRunner(app, access_log=None, handle_signals=False)
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", 0).start())
+        box["port"] = runner.addresses[0][1]
+        ready.set()
+        loop.run_forever()
+        loop.run_until_complete(runner.cleanup())
+        loop.close()
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    assert ready.wait(120)
+    try:
+        yield box["port"]
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(timeout=30)
+
+
 def _req(port, path, body=None, ctype="image/jpeg"):
     headers = {"Content-Type": ctype} if body is not None else {}
     r = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
@@ -118,7 +159,7 @@ ERRORS = [
     ("/nope?width=300", "large.jpg", 404, None),
     ("/watermarkimage?image=http://example.invalid/m.png", "large.jpg", 501,
      "Not implemented endpoint"),
-    ("/info", "large.jpg", 501, "Not implemented endpoint"),
+    ("/info", "1024bytes", 406, "Unsupported media type"),
     ("/pipeline?operations=" + urllib.parse.quote(
         '[{"operation": "watermarkImage", "params": {"image": "http://example.invalid/m.png"}}]'),
      "large.jpg", 501, None),
@@ -248,7 +289,7 @@ def test_get_without_mount_is_405():
 
 def test_index_and_health(server):
     status, ctype, body = _req(server, "/")
-    assert status == 200 and ctype == "application/json"
+    assert status == 200 and ctype == "application/json; charset=utf-8"  # the reference's
     assert json.loads(body)["backend"] == "cpu"
     status, _, body = _req(server, "/health")
     stats = json.loads(body)
@@ -325,50 +366,92 @@ def test_methods_other_than_get_and_post_get_the_405_json(server, method, path):
     assert err["status"] == 405 and err["message"].startswith("HTTP method not allowed")
 
 
-def test_chunked_post_is_answered_like_the_plain_one(server):
+def test_chunked_post_is_answered_like_the_plain_one(server, reference_server):
+    """A chunked body is read like the plain one, and the reference app
+    answers the same chunked bytes with the same status, content type and
+    pixels (within 1 LSB)."""
     buf = fixture_bytes("large.jpg")
     path = "/resize?width=300&height=200"
     plain = _raw(server, "POST", path, buf, {"Content-Type": "image/jpeg"})
-    chunks = (buf[i:i + 7919] for i in range(0, len(buf), 7919))
-    chunked = _raw(server, "POST", path, chunks,
-                   {"Content-Type": "image/jpeg", "Transfer-Encoding": "chunked"})
-    assert plain[0] == chunked[0] == 200
-    assert chunked[1]["Content-Type"] == "image/jpeg"
+
+    def chunked_to(port):
+        chunks = (buf[i:i + 7919] for i in range(0, len(buf), 7919))
+        return _raw(port, "POST", path, chunks,
+                    {"Content-Type": "image/jpeg", "Transfer-Encoding": "chunked"})
+
+    chunked = chunked_to(server)
+    want = chunked_to(reference_server)
+    assert plain[0] == chunked[0] == want[0] == 200
+    assert chunked[1]["Content-Type"] == want[1]["Content-Type"] == "image/jpeg"
     assert chunked[2] == plain[2] and _dims(chunked[2]) == (200, 300)
+    got_px = pcodecs.decode(chunked[2]).array.astype(int)
+    want_px = pcodecs.decode(want[2]).array.astype(int)
+    assert got_px.shape == want_px.shape and np.abs(got_px - want_px).max() <= 1
 
 
-def test_chunked_body_over_the_limit_is_413(server, monkeypatch):
-    from imaginary_tpu_torch.web import app
+def test_chunked_body_over_the_limit_is_413(server, reference_server, monkeypatch):
+    """A chunked body past the limit answers what the reference app
+    answers for the same bytes under the same limit: the 413 JSON."""
+    from imaginary_tpu.web import sources as reference_sources
 
-    monkeypatch.setattr(app, "MAX_BODY_SIZE", 1000)
-    chunks = iter([b"x" * 600, b"y" * 600])
-    status, headers, body = _raw(server, "POST", "/resize?width=300", chunks,
-                                 {"Content-Type": "image/jpeg",
-                                  "Transfer-Encoding": "chunked"})
-    assert status == 413 and json.loads(body)["status"] == 413
+    from imaginary_tpu_torch.web import sources
+
+    monkeypatch.setattr(sources, "MAX_BODY_SIZE", 1000)
+    monkeypatch.setattr(reference_sources, "MAX_BODY_SIZE", 1000)
+
+    def over_to(port):
+        status, headers, body = _raw(port, "POST", "/resize?width=300",
+                                     iter([b"x" * 600, b"y" * 600]),
+                                     {"Content-Type": "image/jpeg",
+                                      "Transfer-Encoding": "chunked"})
+        return status, headers["Content-Type"], body
+
+    got = over_to(server)
+    assert got == over_to(reference_server)
+    assert got[0] == 413 and json.loads(got[2])["status"] == 413
 
 
-@pytest.mark.parametrize("chunks", [
+MALFORMED_CHUNKS = [
     b"-1\r\nabc\r\n0\r\n\r\n", b"0x3\r\nabc\r\n0\r\n\r\n", b"1_0\r\nabc\r\n0\r\n\r\n",
     b"zz\r\n0\r\n\r\n", b"3\r\nabcd\r\n0\r\n\r\n", b"a\r\nabc",
-], ids=["negative", "prefix", "underscore", "not-hex", "no-crlf", "cut-short"])
-def test_malformed_chunked_body_is_400(server, chunks):
-    """A chunk size that is not plain hex (a negative one would read on
-    with no limit), or a chunk that does not end where its size says, is
-    refused at once. The connection stays open for writing, so a server
-    that read on would leave the client waiting; only the cut-short body
-    ends the stream."""
-    with socket.create_connection(("127.0.0.1", server), timeout=20) as s:
-        s.sendall(b"POST /resize?width=300 HTTP/1.1\r\nHost: x\r\n"
+]
+MALFORMED_IDS = ["negative", "prefix", "underscore", "not-hex", "no-crlf", "cut-short"]
+
+
+def _raw_chunked(port: int, chunks: bytes) -> tuple:
+    """(status, content type, body) of a chunked POST sent as raw bytes;
+    (None, None, b"") when the server closes without an answer. The
+    connection stays open for writing, so a server that read on would
+    leave the client waiting; only the cut-short body ends the stream."""
+    with socket.create_connection(("127.0.0.1", port), timeout=20) as s:
+        s.sendall(b"POST /resize?width=300 HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
                   b"Content-Type: image/jpeg\r\nTransfer-Encoding: chunked\r\n\r\n" + chunks)
         if chunks.endswith(b"abc"):
             s.shutdown(socket.SHUT_WR)
         got = b""
         while data := s.recv(65536):
             got += data
+    if not got:
+        return None, None, b""
     head, _, body = got.partition(b"\r\n\r\n")
-    assert head.split(b" ", 2)[1] == b"400"
-    assert json.loads(body)["message"] == "Malformed request body"
+    lines = head.split(b"\r\n")
+    fields = dict(ln.split(b": ", 1) for ln in lines[1:] if b": " in ln)
+    return int(lines[0].split(b" ", 2)[1]), fields.get(b"Content-Type"), body
+
+
+@pytest.mark.parametrize("chunks", MALFORMED_CHUNKS, ids=MALFORMED_IDS)
+def test_malformed_chunked_body_is_400(server, reference_server, chunks):
+    """A chunk size that is not plain hex (a negative one would read on
+    with no limit), or a chunk that does not end where its size says, is
+    refused with aiohttp's plain-text 400; a body cut short before the
+    client's half-close gets no answer. In every case the port's status,
+    content type and body are the reference app's for the same raw
+    bytes, and no case hangs."""
+    cid = MALFORMED_IDS[MALFORMED_CHUNKS.index(chunks)]
+    got = _raw_chunked(server, chunks)
+    want = _raw_chunked(reference_server, chunks)
+    assert want[0] == (None if cid == "cut-short" else 400)
+    assert got == want
 
 
 def test_cuda_device_without_cuda_raises():
@@ -443,7 +526,7 @@ def test_mesh_policy_lanes_serves_the_off_bytes_with_one_lane_per_device():
     buf = fixture_bytes("large.jpg")
     bodies, healths = {}, {}
     for policy in ("off", "lanes"):
-        args = cli.parse_args(["--port", "0", "--host", "127.0.0.1", "--device", "cpu",
+        args = cli.parse_args(["--port", "0", "--addr", "127.0.0.1", "--device", "cpu",
                                "--mesh-policy", policy, "--devices", "2"])
         srv = cli.make_server_from_args(args)
         th = threading.Thread(target=srv.serve_forever, daemon=True)
@@ -605,37 +688,23 @@ def test_failed_webp_encode_answers_jpeg_like_the_reference(server, reference_an
     assert _dims(body) == _dims(want[2]) == (64, 17000)
 
 
-def test_a_fault_outside_processing_answers_like_aiohttp(server, monkeypatch):
+def test_a_fault_outside_processing_answers_like_aiohttp(server, reference_server,
+                                                          monkeypatch):
     """An exception raised outside an image's processing (here in /health)
-    gets the answer aiohttp gives the reference for it, a 500 page, and
-    never a dropped connection; the server serves on afterwards."""
-    import asyncio
-
-    from aiohttp import web
-    from aiohttp.test_utils import TestClient, TestServer
+    gets the answer the reference app gives for the same fault, aiohttp's
+    500 page, and never a dropped connection; the server serves on
+    afterwards."""
+    from imaginary_tpu.web import handlers as reference_handlers
 
     from imaginary_tpu_torch.web.handlers import ImageService
 
-    async def boom(request):
+    def boom(*_a, **_k):
         raise RuntimeError("boom")
 
-    async def aiohttp_answer():
-        app = web.Application()
-        app.router.add_get("/health", boom)
-        client = TestClient(TestServer(app))
-        await client.start_server()
-        try:
-            r = await client.get("/health")
-            return r.status, r.headers.get("Content-Type"), await r.read()
-        finally:
-            await client.close()
-
-    want = asyncio.run(aiohttp_answer())
-
-    def health(self):
-        raise RuntimeError("boom")
-
-    monkeypatch.setattr(ImageService, "health", health)
+    monkeypatch.setattr(reference_handlers, "collect_health_stats", boom)
+    monkeypatch.setattr(ImageService, "health", boom)
+    want = _port_answer(reference_server, "GET", "/health", None)
+    assert want[0] == 500
     assert _port_answer(server, "GET", "/health", None) == want
     monkeypatch.undo()
     assert _req(server, "/health")[0] == 200
