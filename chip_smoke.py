@@ -151,20 +151,38 @@ Phases, in order; any failure raises and exits non-zero:
    findings;
    (d) the spatial route: config 3's /pipeline and the dry run's chain
    (/resize?width=1920&sigma=2&colorspace=bw, as JPEG) on phase 7's 4K
-   PNG. First each chain launched W-sharded over four entries of card 0
-   (`chain.launch_spatial`), every shard's K1, K13, K7 or K8 launch held
-   against its plain version on the same inputs (K13 after the halo
-   exchange, K7 with its shifted `left`), the output bit-equal to the
-   unsharded chain's, and config 3's K13 shards timed beside K6 on the
-   same columns (K13's row in the kernels line). Then five requests of
-   each chain one at a time, from the off server, from a
-   `--mesh-policy lanes` server over four entries of card 0 with
+   PNG, and /resize?width=1920, /blur?sigma=2, /flip and the dry run's
+   chain on the same frame encoded by Pillow as a 4:2:0 JPEG (quality 90,
+   subsampling=2), which run on the yuv420 transport. First K2's and K3's
+   W-shard forms at the seams of their designs (SHARD_SEAM_CASES: odd
+   widths, the valid chroma edge in a shard's halo, shards wholly past
+   the valid width, a 6144-wide bucket holding 4100 columns, the edge on
+   a seam), each shard bit-equal to the whole image's kernel at its
+   columns and within tolerance of its plain version, K3 with and
+   without K8's luma. Then each chain launched W-sharded over four
+   entries of card 0 (`chain.launch_spatial`), plus large.jpg's /blur,
+   whose plan holds a bucket shrink: every shard's K2, K1, K13, K7, K8,
+   K4 shrink, K5 flip or K3 launch held against its plain version on the
+   same inputs (K2 with its chroma halos, K1 and the shrink on windows
+   from the window exchange, K13 after the halo exchange, K7 with its
+   shifted `left`, K3 with K8's luma folded in), no gather, the output
+   bit-equal to the unsharded chain's; config 3's K13 shards timed beside
+   K6 on the same columns (K13's row in the kernels line), the 4K JPEG's
+   four K2 shards beside K2 on the whole packed frame, its four K3 shards
+   (4K /blur and 1080p /resize) beside K3 on the same columns, its four
+   K5 flip shards beside K5 on the frame, the shrink plan's four K4
+   shards beside K4 on the same columns, and the window exchange ahead
+   of the /resize's K1 (its bytes and time). Then
+   five requests of each chain one at a time, from the off server, from
+   a `--mesh-policy lanes` server over four entries of card 0 with
    `--spatial 4` and the default bar, and from the off server again:
    every answer byte-equal to the off server's, /health's
    spatial_batches rising by the requests and spatial_gathers empty, the
-   launches of the counted run 4 K1 + 4 K13 + 4 K7 (or K8) a request,
-   the p50 of each server and the card's busy time of a config 3
-   request on each as findings;
+   launches of the counted run 4 of each sharded stage's kernel a request
+   (K1 + K13 + K7 or K8 on the PNG; K2 + K1, K13 or K5 + K3 on the JPEG,
+   and no K8 beside a K3), the p50 of each chain on each server and the
+   card's busy time a request of each chain on each (one profiled window
+   a server, split by the requests' windows) as findings;
 11. the HTTP layer on the card: config 1 (GET
    /img/resize?width=300&height=200&file=large.jpg) through a server
    started from the command line with --key, --path-prefix /img,
@@ -3170,70 +3188,254 @@ def mesh_lanes_phase() -> dict:
     return out
 
 
-# Phase 10(d): the dry run's chain on the 4K PNG (resize + blur + bw),
-# served as JPEG; requests of each chain one at a time on each server
+# Phase 10(d): config 3's /pipeline and the dry run's chain on the 4K PNG
+# (served as JPEG), and four chains on the same frame as a 4:2:0 JPEG on the
+# yuv420 transport; requests of each chain one at a time on each server
 SPATIAL_BW_QUERY = {"width": "1920", "sigma": "2", "colorspace": "bw", "type": "jpeg"}
+SPATIAL_JPEG_QUALITY = 90
 SPATIAL_SERIAL = 5
 SPATIAL_PROFILED = 2
-# (name, path, MIME type, decoded (h, w), its plan as (op, query) or ops)
+# (name, source, path, MIME type, decoded (h, w), plan: (op, query) or
+# the /pipeline's ops)
 SPATIAL_REQUESTS = (
-    ("config3", "/pipeline?operations=" + urllib.parse.quote(json.dumps(CONFIG3_OPS)),
-     "image/webp", (720, 1280)),
-    ("bw", "/resize?" + urllib.parse.urlencode(SPATIAL_BW_QUERY), "image/jpeg",
-     (1080, 1920)),
+    ("config3", "png", "/pipeline?operations=" + urllib.parse.quote(json.dumps(CONFIG3_OPS)),
+     "image/webp", (720, 1280), CONFIG3_OPS),
+    ("bw", "png", "/resize?" + urllib.parse.urlencode(SPATIAL_BW_QUERY), "image/jpeg",
+     (1080, 1920), ("resize", SPATIAL_BW_QUERY)),
+    ("jpeg-resize", "jpeg", "/resize?width=1920", "image/jpeg", (1080, 1920),
+     ("resize", {"width": "1920"})),
+    ("jpeg-blur", "jpeg", "/blur?sigma=2", "image/jpeg", (2160, 3840),
+     ("blur", {"sigma": "2"})),
+    ("jpeg-flip", "jpeg", "/flip", "image/jpeg", (2160, 3840), ("flip", {})),
+    ("jpeg-bw", "jpeg", "/resize?" + urllib.parse.urlencode(SPATIAL_BW_QUERY), "image/jpeg",
+     (1080, 1920), ("resize", SPATIAL_BW_QUERY)),
 )
+# each chain's launches a request on the route over n shards, as kernel ->
+# shards (n of each W-sharded stage's kernel, no K8 beside a K3)
+SPATIAL_KERNELS = {
+    "config3": ("resample", "blur_halo", "composite"),
+    "bw": ("resample", "blur_halo", "gray"),
+    "jpeg-resize": ("yuv420_unpack", "resample", "yuv420_pack"),
+    "jpeg-blur": ("yuv420_unpack", "blur_halo", "yuv420_pack"),
+    "jpeg-flip": ("yuv420_unpack", "orient", "yuv420_pack"),
+    "jpeg-bw": ("yuv420_unpack", "resample", "blur_halo", "yuv420_pack"),
+}
+# a plan with a bucket shrink (K4) on the route: large.jpg's /blur, whose
+# 1920 columns sit in a 2048-wide bucket, shrunk to 1920 before K3
+SPATIAL_SHRINK_PLAN = ("blur", {"sigma": "2"})
+
+
+def make_4k_jpeg(png: bytes) -> bytes:
+    """The phase's 4K PNG as a 4:2:0 JPEG (Pillow, subsampling=2)."""
+    import io
+
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.open(io.BytesIO(png)).convert("RGB").save(out, "JPEG", quality=SPATIAL_JPEG_QUALITY,
+                                                    subsampling=2)
+    return out.getvalue()
+
+
+def spatial_plans(png: bytes, jpeg: bytes) -> dict:
+    """name -> (input array, plan) of each SPATIAL_REQUESTS chain."""
+    out = {}
+    for name, src, _, _, _, plan in SPATIAL_REQUESTS:
+        if src == "png" and isinstance(plan, list):
+            out[name] = pipeline_request(png, plan, "rgb")
+        else:
+            out[name] = request_plan(png if src == "png" else jpeg, *plan)
+    return out
 
 
 def spatial_expected(plan, arr, n: int) -> dict:
     """One request's launches on the spatial route over n shards: n of
-    each W-sharded stage's kernels, one of each stage after a gather."""
+    each W-sharded stage's kernels, one of each stage after a gather; a
+    GraySpec right before a ToYuv420Spec on the same side of the gather
+    launches nothing (its K3 applies the luma). Worked out here from the
+    specs apart from the runner's `launch_steps`."""
     from imaginary_tpu_torch import kernels
     from imaginary_tpu_torch.ops import chain
     from imaginary_tpu_torch.ops.buckets import bucket_shape
 
     specs = plan.spec_key()
-    hb, wb = bucket_shape(*arr.shape[:2])
+    hb, wb = plan.in_bucket if plan.in_bucket is not None else bucket_shape(*arr.shape[:2])
     sharded, gather_at = chain.spatial_split(specs, hb, wb, n)
     live = chain.live_stages(specs, hb, wb)
+    names = [type(specs[i]).__name__ for i in live]
     out = dict.fromkeys(kernels.LAUNCHES, 0)
-    for i in live:
-        name = "blur_halo" if type(specs[i]).__name__ == "BlurSpec" and i in sharded else None
-        for k, v in SPEC_LAUNCHES[type(specs[i]).__name__].items():
-            out[name or k] += v * (n if i in sharded else 1)
+    for k, i in enumerate(live):
+        if (names[k] == "GraySpec" and k + 1 < len(live) and names[k + 1] == "ToYuv420Spec"
+                and (i in sharded) == (live[k + 1] in sharded)):
+            continue
+        name = "blur_halo" if names[k] == "BlurSpec" and i in sharded else None
+        for kname, v in SPEC_LAUNCHES[names[k]].items():
+            out[name or kname] += v * (n if i in sharded else 1)
     return out
 
 
 # each W-shard form's kernel (launch_spatial's trace names the spec)
 SHARD_KERNELS = {"SampleSpec": "resample", "BlurSpec": "blur_halo",
-                 "CompositeSpec": "composite", "GraySpec": "gray"}
+                 "CompositeSpec": "composite", "GraySpec": "gray",
+                 "FromYuv420Spec": "yuv420_unpack", "ToYuv420Spec": "yuv420_pack",
+                 "ShrinkBucketSpec": "gather", "FlipSpec": "orient"}
+
+
+def same_output(a, b) -> bool:
+    """Two fetched outputs (arrays, or YuvPlanes) equal bit for bit."""
+    import numpy as np
+
+    if isinstance(a, np.ndarray):
+        return isinstance(b, np.ndarray) and np.array_equal(a, b)
+    return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in ("y", "u", "v"))
+
+
+def shard_timing(res, name: str, case: str, launches: list, whole, nbytes: int,
+                 flops: float, whole_name: str) -> dict:
+    """Time `launches` ((spec, apply_shard args) of one stage's shards, one
+    after another on the current stream) beside `whole`, the unsharded
+    kernel on the same columns, and their plain versions; the row goes to
+    res[name][case] beside the shards' largest error."""
+    from imaginary_tpu_torch.kernels import reference
+
+    def shards(impl=None):
+        return [sp.apply_shard(*a, impl=impl) if impl else sp.apply_shard(*a)
+                for sp, a in launches]
+
+    ms = device_ms(shards)
+    plain = device_ms(lambda: shards(reference), calls=3, reps=3)
+    whole_ms = device_ms(whole)
+    b, by = bound_ms(nbytes, flops)
+    prefix = case + "-stage"
+    res[name][case] = {
+        "max_abs_err": max(v["max_abs_err"] for k, v in res[name].items()
+                           if k.startswith(prefix)),
+        "ms": ms, "plain_ms": plain, whole_name + "_ms": whole_ms,
+        "ms_over_whole": ms / whole_ms, "bound_ms": b, "bound_by": by,
+        "library_ms": None, "bytes": nbytes, "shards": len(launches),
+        "shard_shape": list(launches[0][1][0].shape)}
+    log(f"  {name} {case}: {len(launches)} shards of {list(launches[0][1][0].shape)} "
+        f"{ms:.4f} ms, {whole_name} on the same columns {whole_ms:.4f} ms "
+        f"({ms / whole_ms:.2f}x), plain {plain:.4f} ms, bound {b:.4f} ms ({by})")
+    return res[name][case]
+
+
+# K2's and K3's W-shard forms at the seams of their designs, as (case, h,
+# w, bucket hb, bucket wb, shards): an odd width whose last 2x2 block is
+# split by the valid edge; the valid chroma edge in a shard's left halo (hi
+# 31: shard 2 of [64, 96) is wholly past w = 63) and in its right halo (hi
+# 48); a shard wholly past the valid width; a width that the ladder
+# buckets to 6144, whose last shard's chroma [2304, 3072) lies past hi =
+# 2049; and the valid edge on a seam.
+SHARD_SEAM_CASES = (
+    ("odd-w", 37, 101, 48, 128, 4),
+    ("edge-in-left-halo", 21, 63, 32, 128, 4),
+    ("edge-in-right-halo", 20, 97, 32, 128, 4),
+    ("past-valid", 21, 130, 32, 192, 4),
+    ("w4100", 64, 4100, 64, 6144, 4),
+    ("edge-on-seam", 19, 64, 32, 128, 2),
+)
+
+
+def shard_seam_inputs(case: tuple, rng) -> tuple:
+    """(packed uint8 [hb + hb/2, wb, 1], rgb f32 [1, hb, wb, 3]) of random
+    content, bucket padding included, for a SHARD_SEAM_CASES case."""
+    import numpy as np
+
+    _, h, w, hb, wb, _ = case
+    packed = rng.integers(0, 256, (hb + hb // 2, wb, 1), dtype=np.uint8)
+    rgb = rng.uniform(-8.0, 263.0, (1, hb, wb, 3)).astype(np.float32)
+    return packed, rgb
+
+
+def shard_seams(res: dict, entry) -> None:
+    """K2's and K3's W-shard forms on SHARD_SEAM_CASES on the card: every
+    shard's output equal to the whole image's kernel at its columns bit for
+    bit (K2 padding included; K3 with and without K8's luma, its planes
+    placed by `shard_assemble`), and within tolerance of its plain
+    version."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops.stages import FromYuv420Spec, ToYuv420Spec
+
+    rng = np.random.default_rng(SEED + 13)
+    for case in SHARD_SEAM_CASES:
+        name, h, w, hb, wb, n = case
+        packed, rgb = shard_seam_inputs(case, rng)
+        ht = torch.tensor([h], dtype=torch.int32, device=entry)
+        wt = torch.tensor([w], dtype=torch.int32, device=entry)
+        k2, k3 = FromYuv420Spec(hb, wb), ToYuv420Spec(hb, wb)
+        whole = kernels.yuv420_to_rgb(torch.from_numpy(packed)[None].to(entry), ht, wt, hb, wb)
+        x3 = torch.from_numpy(rgb).to(entry)
+        lw = wb // n
+        for j in range(n):
+            c0, c1 = j * lw, (j + 1) * lw
+            x, left, right, _ = k2.shard_input(packed, c0, c1, w, {})
+            args = [torch.from_numpy(np.ascontiguousarray(a))[None].to(entry)
+                    for a in (x, left, right)]
+            got = kernels.yuv420_to_rgb_shard(*args, ht, wt, hb, lw)
+            if not torch.equal(got, whole[:, :, c0:c1]):
+                raise AssertionError(f"K2 shard {j} of {name}: not K2's columns")
+            check("yuv420_unpack", got,
+                  reference.yuv420_to_rgb_shard(*args, ht, wt, hb, lw), res,
+                  f"shard-seam-{name}-{j}", F32_TOL)
+        for luma in (False, True):
+            whole3 = kernels.rgb_to_yuv420(x3, ht, wt, hb, wb, luma)
+            parts = []
+            for j in range(n):
+                xs = x3[:, :, j * lw:(j + 1) * lw].contiguous()
+                got = kernels.rgb_to_yuv420_shard(xs, ht, wt, hb, lw, j * lw, luma)
+                check("yuv420_pack", got,
+                      reference.rgb_to_yuv420_shard(xs, ht, wt, hb, lw, j * lw, luma), res,
+                      f"shard-seam-{name}-{j}-luma{int(luma)}", U8_TOL)
+                parts.append(got)
+            assembled = k3.shard_assemble(torch.stack(parts).cpu())
+            if not np.array_equal(assembled, whole3.cpu().numpy()):
+                raise AssertionError(f"K3 shards of {name} (luma {luma}): not K3's planes")
+        log(f"  K2 and K3 W-shard forms at {name} ({h}x{w} in {hb}x{wb}, {n} shards): "
+            f"bit-equal to the whole image's kernels, within tolerance of the plain versions")
+    torch.cuda.synchronize()
 
 
 def spatial_shard_check(plans: dict, res: dict, entry, n: int) -> dict:
     """Phase 10(d)'s kernels at the route's own shapes, before the counted
     run: each plan launched W-sharded over n entries of one card
     (`chain.launch_spatial`) and every shard's launch of every sharded
-    stage (K1's window, K13 after the halo exchange, K7 with its shifted
-    `left`, K8) held against its plain version on the same inputs (F32_TOL;
-    U8_TOL for the last stage, which writes uint8), and the assembled
-    output bit-equal to the unsharded chain's. Then config 3's K13 shard
-    launches timed (K13's row in the kernels line) beside K6 on the same
-    columns unsharded."""
+    stage (K2's packed columns with their chroma halos, K1's window from
+    the host or from the window exchange, K13 after the halo exchange, K7
+    with its shifted `left`, K8, K4's bucket shrink, K5's flip, K3 with
+    the global valid mask and K8's luma folded in) held against its plain
+    version on the same inputs (F32_TOL; U8_TOL for the last stage, which
+    writes uint8), and the assembled output bit-equal to the unsharded
+    chain's. Then config 3's K13 shard launches, the 4K JPEG's K2, K3 and
+    K5 flip shard launches, the shrink plan's K4 shard launches and the
+    4K JPEG's window exchange timed, each beside the unsharded kernel on
+    the same columns."""
     import numpy as np
     import torch
 
     from imaginary_tpu_torch import kernels
     from imaginary_tpu_torch.kernels import reference
     from imaginary_tpu_torch.ops import chain
+    from imaginary_tpu_torch.parallel import spatial
+
+    shard_seams(res, entry)
 
     streams = [torch.cuda.Stream(entry) for _ in range(n)] if entry.type == "cuda" else None
-    traces = {}
+    timed = {}  # the traces and launches kept for the timings below
+    counts = {}
     for name, (arr, p) in plans.items():
         trace = []
-        got = chain.fetch_batch(chain.launch_spatial(arr, p, [entry] * n, streams, trace),
-                                [arr], [p])[0]
+        launch = chain.launch_spatial(arr, p, [entry] * n, streams, trace)
+        got = chain.fetch_batch(launch, [arr], [p])[0]
         torch.cuda.synchronize()
+        if launch.gathered is not None:
+            raise AssertionError(f"spatial {name}: gathered at {launch.gathered}")
         want = chain.run_single(arr, p, device=entry)
-        if not np.array_equal(got, want):
+        if not same_output(got, want):
             raise AssertionError(f"spatial {name}: the W-sharded chain differs from the "
                                  f"unsharded one")
         for i, j, spec, args, out in trace:
@@ -3243,78 +3445,196 @@ def spatial_shard_check(plans: dict, res: dict, entry, n: int) -> dict:
                   U8_TOL if args[-1] else F32_TOL)
         stages = sorted({(i, SHARD_KERNELS[type(sp).__name__], tuple(o.shape), str(o.dtype))
                          for i, _, sp, _, o in trace})
+        wins = {i: [(k0, k1, [s for s, _, _ in parts]) for k0, k1, parts in v]
+                for i, v in launch.windows.items()}
         log(f"  spatial {name}: {len(trace)} shard launches each within tolerance of "
-            f"its plain version; stages {stages}; output bit-equal to the unsharded chain")
-        traces[name] = trace
+            f"its plain version; stages {stages}; windows {wins}; output bit-equal to "
+            f"the unsharded chain")
+        counts[name] = len(trace)
+        if name in ("config3", "jpeg-resize", "jpeg-blur", "jpeg-flip", "shrink"):
+            timed[name] = (arr, p, trace, launch.windows)
+    out = {"shard_launches": counts}
+
+    def stage_launches(name, kname):
+        return [(sp, a) for _, _, sp, a, _ in timed[name][2]
+                if SHARD_KERNELS[type(sp).__name__] == kname]
+
     # K13 at config 3's shard shapes: one launch a shard, on one stream
-    k13 = [(sp, args) for _, _, sp, args, _ in traces["config3"]
-           if SHARD_KERNELS[type(sp).__name__] == "blur_halo"]
+    k13 = stage_launches("config3", "blur_halo")
     sp, a0 = k13[0]
     x_full = torch.cat([a[0] for _, a in k13], dim=2)
     h, w, sigma = a0[3], a0[4], a0[5]["sigma"]
     r, c = sp.radius, x_full.shape[3]
-
-    def shards(impl=kernels):
-        return [s.apply_shard(*a, impl=impl) for s, a in k13]
-
-    ms = device_ms(shards)
-    plain = device_ms(lambda: shards(reference), calls=3, reps=3)
-    k6_ms = device_ms(lambda: kernels.blur(x_full, h, w, sigma, r))
-    if not torch.equal(torch.cat([o for o, _, _ in shards()], dim=2),
-                       kernels.blur(x_full, h, w, sigma, r)):
-        raise AssertionError("config 3's K13 shards are not bit-equal to K6 on their columns")
     nbytes = sum(t.numel() * t.element_size() for _, a in k13
                  for t in (a[0], a[1], a[2]) if t is not None)
     nbytes += x_full.numel() * 4  # f32 out
-    b, by = bound_ms(nbytes, blur_flops(h, w, r, c))
-    case = "spatial-config3"
-    res["blur_halo"][case] = {
-        "max_abs_err": max(v["max_abs_err"] for k, v in res["blur_halo"].items()
-                           if k.startswith("spatial-config3-")),
-        "ms": ms, "plain_ms": plain, "k6_ms": k6_ms, "ms_over_k6": ms / k6_ms,
-        "bound_ms": b, "bound_by": by, "library_ms": None, "bytes": nbytes,
-        "shape": list(x_full.shape), "shards": len(k13), "radius": r}
-    log(f"  blur_halo {case}: {len(k13)} shards of {list(a0[0].shape)} (r={r}) "
-        f"{ms:.4f} ms, K6 on the same {list(x_full.shape)} {k6_ms:.4f} ms "
-        f"({ms / k6_ms:.2f}x), plain {plain:.4f} ms, bound {b:.4f} ms ({by}); "
-        f"bit-equal to K6")
+    if not torch.equal(torch.cat([s.apply_shard(*a)[0] for s, a in k13], dim=2),
+                       kernels.blur(x_full, h, w, sigma, r)):
+        raise AssertionError("config 3's K13 shards are not bit-equal to K6 on their columns")
+    row = shard_timing(res, "blur_halo", "spatial-config3", k13,
+                       lambda: kernels.blur(x_full, h, w, sigma, r), nbytes,
+                       blur_flops(h, w, r, c), "k6")
+    row["radius"] = r
+    out["k13_config3"] = row
+    # K2 at the 4K JPEG's shards (the /resize chain; every 4K JPEG chain
+    # starts with it) against K2 on the whole packed frame
+    arr, p, trace, windows = timed["jpeg-resize"]
+    k2 = stage_launches("jpeg-resize", "yuv420_unpack")
+    spec2 = k2[0][0]
+    packed = torch.from_numpy(np.array(arr))[None].to(entry)
+    h, w = k2[0][1][3], k2[0][1][4]
+    whole = kernels.yuv420_to_rgb(packed, h, w, spec2.hb, spec2.wb)
+    if not torch.equal(torch.cat([s.apply_shard(*a)[0] for s, a in k2], dim=2), whole):
+        raise AssertionError("the 4K JPEG's K2 shards are not bit-equal to K2 on the frame")
+    nbytes = sum(t.numel() for _, a in k2 for t in (a[0], a[1], a[2]))
+    nbytes += whole.numel() * 4
+    out["k2_jpeg"] = shard_timing(
+        res, "yuv420_unpack", "spatial-jpeg-resize", k2,
+        lambda: kernels.yuv420_to_rgb(packed, h, w, spec2.hb, spec2.wb), nbytes,
+        30.0 * spec2.hb * spec2.wb, "k2")
+    # K3 at the 4K JPEG's /blur shards and the /resize's 1080p ones, each
+    # against K3 on the whole frame of the same columns
+    for name in ("jpeg-blur", "jpeg-resize"):
+        k3 = stage_launches(name, "yuv420_pack")
+        spec3, a0 = k3[0]
+        x_full = torch.cat([a[0] for _, a in k3], dim=2)
+        h, w = a0[3], a0[4]
+        whole = kernels.rgb_to_yuv420(x_full, h, w, spec3.hb, spec3.wb)
+        assembled = spec3.shard_assemble(torch.stack([s.apply_shard(*a)[0] for s, a in k3])
+                                         .cpu())
+        if not (assembled == whole.cpu().numpy()).all():
+            raise AssertionError(f"{name}'s K3 shards are not bit-equal to K3 on the frame")
+        nbytes = x_full.numel() * 4 + whole.numel()
+        out["k3_" + name] = shard_timing(
+            res, "yuv420_pack", "spatial-" + name, k3,
+            lambda x_full=x_full, h=h, w=w, spec3=spec3:
+                kernels.rgb_to_yuv420(x_full, h, w, spec3.hb, spec3.wb),
+            nbytes, 20.0 * x_full.shape[1] * x_full.shape[2], "k3")
+    # K5's flip at the 4K JPEG's shards and K4's bucket shrink at the
+    # shrink plan's, each against the kernel on the whole frame of the
+    # same columns
+    k5 = stage_launches("jpeg-flip", "orient")
+    a0 = k5[0][1]
+    x_full = torch.cat([a[0] for _, a in k5], dim=2)
+    h, w = a0[3], a0[4]
+    whole = kernels.orient(x_full, h, w, "flip")
+    if not torch.equal(torch.cat([s.apply_shard(*a)[0] for s, a in k5], dim=2), whole):
+        raise AssertionError("the 4K JPEG's K5 flip shards are not bit-equal to K5 on the frame")
+    out["k5_jpeg-flip"] = shard_timing(
+        res, "orient", "spatial-jpeg-flip", k5,
+        lambda: kernels.orient(x_full, h, w, "flip"), x_full.numel() * 8, 0.0, "k5")
+    k4 = stage_launches("shrink", "gather")
+    spec4, a0 = k4[0]
+    x_in = torch.cat([a[0] for _, a in k4], dim=2)
+    whole = kernels.gather(x_in, spec4.out_hb, spec4.out_wb, mode="window")
+    if not torch.equal(torch.cat([s.apply_shard(*a)[0] for s, a in k4], dim=2), whole):
+        raise AssertionError("the shrink plan's K4 shards are not bit-equal to K4 on the frame")
+    out["k4_shrink"] = shard_timing(
+        res, "gather", "spatial-shrink", k4,
+        lambda: kernels.gather(x_in, spec4.out_hb, spec4.out_wb, mode="window"),
+        2 * whole.numel() * 4, 0.0, "k4")
+    # the window exchange ahead of the /resize's K1: each shard's window
+    # of K2's output copied from the shards that hold it
+    k1_stage = min(windows)
+    prev = [o for i, _, _, _, o in trace if i == k1_stage - 1]
+    wins = [(k0, k1) for k0, k1, _ in windows[k1_stage]]
+    lw = prev[0].shape[2]
+
+    def exchange():
+        # every copy on the current stream, so that device_ms times them
+        row = []
+        for j, x in enumerate(prev):
+            sh = spatial.Shard(entry, None, 0, 1, j * lw)
+            sh.x = x
+            row.append(sh)
+        spatial.exchange_window(row, wins)
+        return row
+
+    got = exchange()
+    for j, (k0, k1) in enumerate(wins):
+        torch.cuda.synchronize()
+        if not torch.equal(got[j].x, torch.cat(prev, dim=2)[:, :, k0:k1]):
+            raise AssertionError(f"exchange_window: shard {j}'s window differs")
+    ex_ms = device_ms(exchange)
+    per_col = prev[0].shape[1] * prev[0].shape[3] * prev[0].element_size()
+    copied = sum(k1 - k0 for k0, k1, parts in windows[k1_stage]) * per_col
+    b, by = bound_ms(2 * copied, 0.0)
+    out["exchange"] = {"ms": ex_ms, "bytes_copied": copied, "bound_ms": b,
+                       "windows": windows[k1_stage], "streams": n}
+    log(f"  exchange_window ahead of the 4K JPEG /resize's K1: {copied} bytes copied "
+        f"({copied / 1e6:.1f} MB, {n} windows of {[k1 - k0 for k0, k1 in wins]} columns) "
+        f"in {ex_ms:.4f} ms, bound {b:.4f} ms (read and write once)")
     torch.cuda.synchronize()
-    return {"shard_launches": {k: len(t) for k, t in traces.items()},
-            "k13_config3": res["blur_halo"][case]}
+    return out
+
+
+def spatial_busy(prof, labels: list) -> dict:
+    """label -> (busy us, summed us) of the card's activity inside each
+    `record_function(label)` window of the client thread in one profiler
+    window: each device interval counts for the window its start falls in
+    (the requests run one at a time and each ends after its device work)."""
+    from torch.autograd import DeviceType
+
+    spans, windows = [], {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+        elif e.name in labels:
+            windows.setdefault(e.name, []).append((e.time_range.start, e.time_range.end))
+    out = {}
+    for label, wins in windows.items():
+        mine = sorted(sp for sp in spans if any(a <= sp[0] < b for a, b in wins))
+        busy, end = 0.0, None
+        for a, b in mine:
+            if end is None or a > end:
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        out[label] = (busy, sum(b - a for a, b in mine))
+    return out
 
 
 def spatial_route_phase(png: bytes, res: dict) -> dict:
-    """Phase 10(d): config 3's /pipeline and the dry run's bw chain on the
-    4K PNG, one request at a time, from the off server, then a lanes server
-    over SPATIAL_SHARDS entries of card 0 with --spatial SPATIAL_SHARDS and
-    the default bar (its input bucket, 2560x4096, crosses 3840x2160), then
-    the off server again. The spatial server's counted run (launches reset
-    just before, read just after): every answer byte-equal to the off
-    server's, /health's spatial_batches rising by the requests served and
-    spatial_gathers empty, each request's launches those of
-    `spatial_expected` (n K1 + n K13 + n K7 or K8). p50 by server, and the
-    card's busy time of a request on each."""
+    """Phase 10(d): the SPATIAL_REQUESTS chains (config 3's /pipeline and
+    the dry run's bw chain on the 4K PNG; /resize, /blur, /flip and the bw
+    chain on the same frame as a 4:2:0 JPEG), one request at a time, from
+    the off server, then a lanes server over SPATIAL_SHARDS entries of
+    card 0 with --spatial SPATIAL_SHARDS and the default bar (the PNG's
+    input bucket 2560x4096 and the JPEG's packed 3840x4096 cross
+    3840x2160), then the off server again. The spatial server's counted
+    run (launches reset just before, read just after): every answer
+    byte-equal to the off server's, /health's spatial_batches rising by
+    the requests served and spatial_gathers empty, each request's
+    launches those of `spatial_expected` (n of each sharded stage's
+    kernel; no K8 on the JPEG bw chain, folded into its K3). p50 by
+    server, and the card's busy time a request of each chain on each."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from imaginary_tpu_torch import codecs, kernels
     from imaginary_tpu_torch.ops import chain
     from imaginary_tpu_torch.web.app import make_server
 
     n = SPATIAL_SHARDS
-    plans = {"config3": pipeline_request(png, CONFIG3_OPS, "rgb"),
-             "bw": request_plan(png, "resize", SPATIAL_BW_QUERY)}
+    t0 = time.perf_counter()
+    jpeg = make_4k_jpeg(png)
+    log(f"  the 4K frame as a 4:2:0 JPEG: {len(jpeg)} bytes (q {SPATIAL_JPEG_QUALITY}), "
+        f"made in {time.perf_counter() - t0:.2f} s")
+    srcs = {"png": png, "jpeg": jpeg}
+    plans = spatial_plans(png, jpeg)
     per_request = {name: spatial_expected(p, arr, n) for name, (arr, p) in plans.items()}
-    want_k = {"config3": {"resample": n, "blur_halo": n, "composite": n},
-              "bw": {"resample": n, "blur_halo": n, "gray": n}}
     for name, got in per_request.items():
-        if {k: v for k, v in got.items() if v} != want_k[name]:
-            raise AssertionError(f"spatial {name}: the plan launches {got}")
+        want_k = dict.fromkeys(SPATIAL_KERNELS[name], n)
+        if {k: v for k, v in got.items() if v} != want_k:
+            raise AssertionError(f"spatial {name}: the plan launches {got}, not {want_k}")
     expected = dict.fromkeys(kernels.LAUNCHES, 0)
     for launches in per_request.values():
         for k, v in launches.items():
             expected[k] += SPATIAL_SERIAL * v
+    labels = [f"spatial-request:{name}" for name, *_ in SPATIAL_REQUESTS]
 
     def health(port) -> dict:
         with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
@@ -3322,16 +3642,16 @@ def spatial_route_phase(png: bytes, res: dict) -> dict:
 
     def run(srv) -> dict:
         port = srv.server_address[1]
-        for _, path, _, _ in SPATIAL_REQUESTS:  # one untimed each
-            http(port, path, png)
+        for _, src, path, _, _, _ in SPATIAL_REQUESTS:  # one untimed each
+            http(port, path, srcs[src])
         before = health(port)
         kernels.reset_launches()
         lat, bodies = {}, {}
-        for name, path, mime, dims in SPATIAL_REQUESTS:
+        for name, src, path, mime, dims, _ in SPATIAL_REQUESTS:
             lat[name], bodies[name] = [], set()
             for _ in range(SPATIAL_SERIAL):
                 t0 = time.perf_counter()
-                status, ctype, body = http(port, path, png)
+                status, ctype, body = http(port, path, srcs[src])
                 lat[name].append((time.perf_counter() - t0) * 1e3)
                 if (status, ctype) != (200, mime):
                     raise AssertionError(f"spatial phase {name}: {status} {ctype}")
@@ -3341,25 +3661,33 @@ def spatial_route_phase(png: bytes, res: dict) -> dict:
         launches = kernels.launch_counts()
         after = health(port)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(SPATIAL_PROFILED):
-                http(port, SPATIAL_REQUESTS[0][1], png)
-        busy, summed, by_name = busy_union_us(prof)
+            for label, (_, src, path, *_rest) in zip(labels, SPATIAL_REQUESTS):
+                with record_function(label):
+                    for _ in range(SPATIAL_PROFILED):
+                        http(port, path, srcs[src])
+        busy = spatial_busy(prof, labels)
         # a window in which the profiler recorded no device event measured
         # nothing (it happens to a later profiler in one process)
-        seen = summed > 0
         return {"lat": lat, "bodies": bodies, "launches": launches, "before": before,
-                "after": after, "busy_us": busy / SPATIAL_PROFILED if seen else None,
-                "summed_us": summed / SPATIAL_PROFILED if seen else None,
-                "by_name_us": {k: v / SPATIAL_PROFILED for k, v in by_name.items()}}
+                "after": after,
+                "busy_us": {label.split(":", 1)[1]: (b / SPATIAL_PROFILED if sm > 0 else None)
+                            for label, (b, sm) in busy.items()},
+                "summed_us": {label.split(":", 1)[1]: sm / SPATIAL_PROFILED
+                              for label, (_, sm) in busy.items()}}
 
     entry = torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)
-    shard_check = spatial_shard_check(plans, res, entry, n)
+    check_plans = dict(plans)
+    with open(LARGE_JPG, "rb") as f:
+        check_plans["shrink"] = request_plan(f.read(), *SPATIAL_SHRINK_PLAN)
+    if "ShrinkBucketSpec" not in {type(s).__name__ for s in check_plans["shrink"][1].spec_key()}:
+        raise AssertionError("the shrink plan holds no ShrinkBucketSpec")
+    shard_check = spatial_shard_check(check_plans, res, entry, n)
     runs = {"off_before": serving(make_server("127.0.0.1", 0, device=DEVICE), run)}
     runs["spatial"] = serving(make_server("127.0.0.1", 0, device=DEVICE, mesh_policy="lanes",
                                           devices=[entry] * n, spatial=n), run)
     runs["off_after"] = serving(make_server("127.0.0.1", 0, device=DEVICE), run)
     sp = runs["spatial"]
-    for name, _, _, _ in SPATIAL_REQUESTS:
+    for name, *_ in SPATIAL_REQUESTS:
         want = runs["off_before"]["bodies"][name]
         if len(want) != 1 or runs["off_after"]["bodies"][name] != want:
             raise AssertionError(f"the off server's {name} answers differ among themselves")
@@ -3375,12 +3703,12 @@ def spatial_route_phase(png: bytes, res: dict) -> dict:
     if sp["launches"] != expected:
         raise AssertionError(f"spatial route launches {sp['launches']}, the plans say "
                              f"{expected}")
-    # the chain of one config 3 request on the host clock, unsharded and
-    # spatial: staging and launch, then the fetch (median of 5 each)
-    arr, p = plans["config3"]
+    # the chain of one config 3 and one 4K JPEG /resize request on the host
+    # clock, unsharded and spatial: staging and launch, then the fetch
+    # (median of 5 each)
     streams = [torch.cuda.Stream(entry) for _ in range(n)] if DEVICE == "cuda" else None
 
-    def split(launch) -> dict:
+    def split(launch, arr, p) -> dict:
         ts = []
         for _ in range(6):
             t0 = time.perf_counter()
@@ -3392,31 +3720,35 @@ def spatial_route_phase(png: bytes, res: dict) -> dict:
         return {"launch_ms": statistics.median(a for a, _ in ts) * 1e3,
                 "fetch_ms": statistics.median(b for _, b in ts) * 1e3}
 
-    host = {"unsharded": split(lambda: chain.launch_batch([arr], [p], device=entry)),
-            "spatial": split(lambda: chain.launch_spatial(arr, p, [entry] * n, streams))}
+    host = {}
+    for name in ("config3", "jpeg-resize"):
+        arr, p = plans[name]
+        host[name] = {
+            "unsharded": split(lambda: chain.launch_batch([arr], [p], device=entry), arr, p),
+            "spatial": split(lambda: chain.launch_spatial(arr, p, [entry] * n, streams),
+                             arr, p)}
     out = {"shards": n, "serial": SPATIAL_SERIAL, "launches": sp["launches"],
            "per_request": per_request, "spatial_batches": sp["after"]["spatial_batches"],
            "spatial_gathers": sp["after"]["spatial_gathers"], "chain_host_ms": host,
-           "shard_check": shard_check}
-    log("  config 3's chain on the host clock (median of 5): " + "; ".join(
-        f"{k} launch {v['launch_ms']:.2f} ms + fetch {v['fetch_ms']:.2f} ms"
-        for k, v in host.items()))
+           "shard_check": shard_check, "jpeg_bytes": len(jpeg)}
+    for name, sides in host.items():
+        log(f"  {name}'s chain on the host clock (median of 5): " + "; ".join(
+            f"{k} launch {v['launch_ms']:.2f} ms + fetch {v['fetch_ms']:.2f} ms"
+            for k, v in sides.items()))
     for key, r in runs.items():
         out[key] = {"p50_ms": {k: float(np.percentile(v, 50)) for k, v in r["lat"].items()},
-                    "lat_ms": r["lat"], "busy_us_config3": r["busy_us"],
-                    "summed_us_config3": r["summed_us"], "by_name_us": r["by_name_us"]}
-        busy = ("not measured (the profiler recorded no device event)"
-                if r["busy_us"] is None else
-                f"{r['busy_us']:.1f} us a config 3 request (summed {r['summed_us']:.1f} us)")
+                    "lat_ms": r["lat"], "busy_us": r["busy_us"], "summed_us": r["summed_us"]}
         log(f"  {key}: p50 " + ", ".join(f"{k} {v:.2f} ms" for k, v in
-                                           out[key]["p50_ms"].items())
-            + f"; card busy {busy}")
+                                           out[key]["p50_ms"].items()))
+        log(f"  {key}: card busy a request " + ", ".join(
+            f"{k} {'not measured' if v is None else f'{v:.1f} us'}"
+            for k, v in r["busy_us"].items()))
     log(f"  spatial route over {n} entries of one card: {served} requests byte-equal to "
         f"the off server's, spatial_batches +{rise}, no gather; launches "
         f"{ {k: v for k, v in sp['launches'].items() if v} } "
-        f"({n} K1 + {n} K13 + {n} K7 or K8 a request)")
-    for name, us in sorted(sp["by_name_us"].items(), key=lambda kv: -kv[1])[:8]:
-        log(f"    {us:9.2f} us/request  {name[:90]}")
+        f"({SPATIAL_SERIAL} of each chain: " + "; ".join(
+            f"{name} {'+'.join(SPATIAL_KERNELS[name])} x{n}" for name, *_ in SPATIAL_REQUESTS)
+        + ")")
     torch.cuda.synchronize()
     return out
 
@@ -3668,7 +4000,8 @@ def main() -> int:
         "card, lanes and sharded; chip_error[1] failover)")
     report["mesh_lanes"] = mesh_lanes_phase()
     log(f"== phase 10d: the spatial route (config 3's /pipeline and the bw chain on the "
-        f"4K PNG, W-sharded over {SPATIAL_SHARDS} entries of one card)")
+        f"4K PNG; /resize, /blur, /flip and the bw chain on it as a 4:2:0 JPEG; "
+        f"W-sharded over {SPATIAL_SHARDS} entries of one card)")
     report["spatial"] = spatial_route_phase(png, report["kernels"])
     log("== phase 11: the HTTP layer on the card (config 1 with the reference's "
         "middleware chain, /info, /metrics, a placeholder, the throttle)")

@@ -48,9 +48,9 @@ _SIGNATURES = {
                  [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _I, _I, _I, _I, _I, _P]),
     "yuv420_unpack": ("yuv420_unpack", "itpu_yuv420_to_rgb",
-                      [_P, _P, _P, _P, _I, _I, _I, _P]),
+                      [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "yuv420_pack": ("yuv420_pack", "itpu_rgb_to_yuv420",
-                    [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "gather": ("gather", "itpu_gather",
                [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 _I, _P]),
@@ -253,8 +253,33 @@ def yuv420_to_rgb(x, h, w, hb: int, wb: int):
     _require(h, "h", _I32, (bsz,), dev)
     _require(w, "w", _I32, (bsz,), dev)
     out = torch.empty((bsz, hb, wb, 3), dtype=torch.float32, device=dev)
-    _launch("yuv420_unpack", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(),
+    _launch("yuv420_unpack", dev, x.data_ptr(), None, None, out.data_ptr(), h.data_ptr(),
             w.data_ptr(), bsz, hb, wb)
+    return out
+
+
+def yuv420_to_rgb_shard(x, left, right, h, w, hb: int, lw: int):
+    """K2's W-shard form: one shard's packed buffer uint8 [B, hb + hb/2, lw,
+    1] (its Y columns [col0, col0 + lw), col0 even, then lw/2 chroma
+    columns of U and of V) and its chroma halos `left` and `right` uint8
+    [B, hb/2, 2, 1] (U then V a row), every chroma column taken by the
+    clamped index the whole image's pixels read (`stages.FromYuv420Spec.
+    shard_input`) -> f32 RGB [B, hb, lw, 3], equal to the whole image's
+    K2 at those columns. h, w: int32 [B], the whole image's valid dims."""
+    if x.device.type == "cpu":
+        return reference.yuv420_to_rgb_shard(x, left, right, h, w, hb, lw)
+    dev = x.device
+    bsz = x.shape[0]
+    if hb % 2 or lw % 2:
+        raise ValueError(f"shard ({hb}, {lw}) must be even")
+    _require(x, "x", (torch.uint8,), (bsz, hb + hb // 2, lw, 1), dev)
+    _require(left, "left", (torch.uint8,), (bsz, hb // 2, 2, 1), dev)
+    _require(right, "right", (torch.uint8,), (bsz, hb // 2, 2, 1), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    out = torch.empty((bsz, hb, lw, 3), dtype=torch.float32, device=dev)
+    _launch("yuv420_unpack", dev, x.data_ptr(), left.data_ptr(), right.data_ptr(),
+            out.data_ptr(), h.data_ptr(), w.data_ptr(), bsz, hb, lw)
     return out
 
 
@@ -263,8 +288,24 @@ def rgb_to_yuv420(x, h, w, hb: int, wb: int, luma: bool = False):
     (chroma pooled over valid pixels; epilogue fused). With `luma`, K8's
     luma is applied to each pixel as it is loaded: one launch, equal to
     `gray` then `rgb_to_yuv420`, counted as one `yuv420_pack`."""
+    return _rgb_to_yuv420(x, h, w, hb, wb, luma, 0)
+
+
+def rgb_to_yuv420_shard(x, h, w, hb: int, lw: int, col0: int, luma: bool = False):
+    """K3's W-shard form: x f32 [B, hb, lw, 3] holds the image's columns
+    [col0, col0 + lw) (col0 and lw even) -> the shard's own packed planes
+    uint8 [B, hb + hb/2, lw, 1]: Y over lw columns, then U and V over lw/2
+    each, equal to the whole image's K3 at those columns (the valid mask
+    on global columns). h, w: int32 [B], the whole image's valid dims;
+    `luma` as in `rgb_to_yuv420`."""
+    if col0 % 2 or col0 < 0:
+        raise ValueError(f"shard column {col0} must be even and >= 0")
+    return _rgb_to_yuv420(x, h, w, hb, lw, luma, col0)
+
+
+def _rgb_to_yuv420(x, h, w, hb: int, wb: int, luma: bool, col0: int):
     if x.device.type == "cpu":
-        return reference.rgb_to_yuv420(x, h, w, hb, wb, luma)
+        return reference.rgb_to_yuv420(x, h, w, hb, wb, luma, col0)
     dev = x.device
     bsz = x.shape[0]
     if hb % 2 or wb % 2:
@@ -274,7 +315,7 @@ def rgb_to_yuv420(x, h, w, hb: int, wb: int, luma: bool = False):
     _require(w, "w", _I32, (bsz,), dev)
     out = torch.empty((bsz, hb + hb // 2, wb, 1), dtype=torch.uint8, device=dev)
     _launch("yuv420_pack", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(),
-            w.data_ptr(), bsz, hb, wb, int(bool(luma)))
+            w.data_ptr(), bsz, hb, wb, int(bool(luma)), col0)
     return out
 
 

@@ -26,6 +26,14 @@
 // of 4, or an input that is not 16-byte aligned, takes the same path with
 // scalar loads and byte stores. The launch is a programmatic dependent
 // of the kernel before it in the stream (launch.cuh).
+//
+// W-shard form (the spatial route): `in` holds one shard's columns
+// [col0, col0 + wb) of the image (col0 even, wb the local width) and the
+// output is the shard's own packed buffer at that width, Y over wb
+// columns and U and V over wb/2 each; only the valid mask reads col0, so
+// every 2x2 block pools exactly as in the whole image (one past the valid
+// width pools to 128) and the host places the shard's planes at their
+// global columns.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -94,7 +102,7 @@ template <bool LUMA, bool VEC>
 __global__ void __launch_bounds__(32 * kMaxBand)
     rgb_to_yuv420(const float* __restrict__ in, uint8_t* __restrict__ out,
                   const int32_t* __restrict__ h, const int32_t* __restrict__ w, int hb,
-                  int wb, int band) {
+                  int wb, int col0, int band) {
   extern __shared__ float4 smem[];
   __shared__ int dims[2];
   // a lane's share of its warp's two chunk rows: at most 3 float4 (or 12
@@ -155,8 +163,8 @@ __global__ void __launch_bounds__(32 * kMaxBand)
   for (int k = 0; k < 2; k++) {
     if (k < nblk) {
       uint8_t yb[2][2];
-      pack_block<LUMA>(px[0] + 6 * k, px[1] + 6 * k, 2 * i, c0 + cl + 2 * k, hv, wv, yb,
-                       u[k], v[k]);
+      pack_block<LUMA>(px[0] + 6 * k, px[1] + 6 * k, 2 * i, col0 + c0 + cl + 2 * k, hv, wv,
+                       yb, u[k], v[k]);
       y[0][2 * k] = yb[0][0];
       y[0][2 * k + 1] = yb[0][1];
       y[1][2 * k] = yb[1][0];
@@ -189,26 +197,28 @@ __global__ void __launch_bounds__(32 * kMaxBand)
 
 template <bool LUMA>
 cudaError_t launch(bool vec, dim3 grid, int band, cudaStream_t s, const float* in,
-                   uint8_t* out, const int32_t* h, const int32_t* w, int hb, int wb) {
+                   uint8_t* out, const int32_t* h, const int32_t* w, int hb, int wb,
+                   int col0) {
   const size_t smem = (size_t)band * 2 * kRowFloats * sizeof(float);
   if (vec)
     return launch_pdl(rgb_to_yuv420<LUMA, true>, grid, dim3(32 * band), smem, s, in, out, h,
-                      w, hb, wb, band);
+                      w, hb, wb, col0, band);
   return launch_pdl(rgb_to_yuv420<LUMA, false>, grid, dim3(32 * band), smem, s, in, out, h, w,
-                    hb, wb, band);
+                    hb, wb, col0, band);
 }
 
 }  // namespace
 
 // in: f32 [B, hb, wb, 3]; out: uint8 [B, hb + hb/2, wb] packed planes;
-// h, w: int32 [B] valid dims; luma: apply K8's luma to each pixel first.
-// hb and wb even. Returns the launch's CUDA error code.
+// h, w: int32 [B] valid dims; luma: apply K8's luma to each pixel first;
+// col0: the global column of `in`'s first (a W-shard's, even; 0 for a
+// whole image). hb and wb even. Returns the launch's CUDA error code.
 extern "C" int itpu_rgb_to_yuv420(const float* in, uint8_t* out, const int32_t* h,
                                   const int32_t* w, int B, int hb, int wb, int luma,
-                                  void* stream) {
+                                  int col0, void* stream) {
   const int hc = hb / 2;
   if (B <= 0 || hc <= 0 || wb <= 0) return 0;
-  if (hb % 2 || wb % 2) return (int)cudaErrorInvalidValue;
+  if (hb % 2 || wb % 2 || col0 % 2 || col0 < 0) return (int)cudaErrorInvalidValue;
   const bool vec = wb % 4 == 0 && reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(out) % 4 == 0;
   const int chunks = (wb + kChunk - 1) / kChunk;
@@ -223,7 +233,7 @@ extern "C" int itpu_rgb_to_yuv420(const float* in, uint8_t* out, const int32_t* 
   }
   const dim3 grid(chunks, (hc + band - 1) / band, B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t e = luma ? launch<true>(vec, grid, band, s, in, out, h, w, hb, wb)
-                             : launch<false>(vec, grid, band, s, in, out, h, w, hb, wb);
+  const cudaError_t e = luma ? launch<true>(vec, grid, band, s, in, out, h, w, hb, wb, col0)
+                             : launch<false>(vec, grid, band, s, in, out, h, w, hb, wb, col0);
   return (int)e;
 }

@@ -26,6 +26,19 @@
 // (possible where wb % 4 == 2) makes its first two pixels and its last
 // ragged ones one at a time, and reads luma a byte at a time where the
 // 4-byte load would be unaligned.
+//
+// W-shard form (the spatial route, SHARD = true): the input is one
+// shard's own packed buffer at its local width lw (its Y columns
+// [col0, col0 + lw), col0 even, and lw/2 chroma columns of U and of V),
+// with a one-column chroma halo on each side in `left` and `right`
+// ([B, hb/2, 2]: U then V a row). The host fills every chroma column of
+// the shard and its halos by the clamped index the whole image's pixels
+// read, so the shard's window column k (0 the left halo) holds chroma
+// column clamp(col0/2 - 1 + k, 0, hi) and pixel x reads window columns
+// ((x - 1) >> 1) + 1 and the one after, unclamped: the same bytes, the
+// same expressions, so the shard equals the whole image's columns bit for
+// bit, bucket padding included, even where the clamp reaches past the
+// shard.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -37,6 +50,11 @@ constexpr int kSlot = 96;  // float4s of a warp's staged output: 32 x 48 bytes
 
 // The clamped chroma index of `_chroma_up_indices`: into [0, hi].
 __device__ __forceinline__ int clampc(int j, int hi) { return min(max(j, 0), hi); }
+
+// One chroma column blended over the row's two chroma rows.
+__device__ __forceinline__ float blend(uint8_t p0, uint8_t p1, float t) {
+  return (float)p0 * (1.0f - t) + (float)p1 * t;
+}
 
 // BT.601 full range and the clip of one pixel, from its luma and the
 // column blend of the row-blended chroma (rows first, then columns:
@@ -54,45 +72,73 @@ __device__ __forceinline__ void ycc(float y, float u0, float u1, float v0,
 }
 
 // Pixel x's column taps: floor(x / 2 - 1/4) is (x - 1) >> 1, and s is
-// 3/4 at even x and 1/4 at odd x.
+// 3/4 at even x and 1/4 at odd x; jofs is 1 on a W-shard, whose shared
+// columns start at its left halo.
 __device__ __forceinline__ void pixel(float y, const float* ru, const float* rv,
-                                      int x, int hi, float* o) {
-  const int j0 = clampc((x - 1) >> 1, hi);
-  const int j1 = clampc(((x - 1) >> 1) + 1, hi);
+                                      int x, int jofs, int hi, float* o) {
+  const int j0 = clampc(((x - 1) >> 1) + jofs, hi);
+  const int j1 = clampc(((x - 1) >> 1) + jofs + 1, hi);
   ycc(y, ru[j0], ru[j1], rv[j0], rv[j1], (x & 1) ? 0.25f : 0.75f, o);
 }
 
-// grid: x = hb, y = B; block: kThreads; shared: wb floats.
+// grid: x = hb, y = B; block: kThreads; shared: wb floats (wb + 4 on a
+// W-shard, whose wb is its local width).
+template <bool SHARD>
 __global__ void __launch_bounds__(kThreads)
-    yuv420_to_rgb(const uint8_t* __restrict__ in, float* __restrict__ out,
+    yuv420_to_rgb(const uint8_t* __restrict__ in, const uint8_t* __restrict__ left,
+                  const uint8_t* __restrict__ right, float* __restrict__ out,
                   const int32_t* __restrict__ h, const int32_t* __restrict__ w,
                   int hb, int wb) {
-  extern __shared__ float rb[];  // U then V, wb / 2 columns each
+  extern __shared__ float rb[];  // U then V, ncs columns each
   const int r = blockIdx.x;
   const int b = blockIdx.y;
   const int cwb = wb / 2;
+  const int ncs = SHARD ? cwb + 2 : cwb;
+  const int jofs = SHARD ? 1 : 0;
   const uint8_t* img = in + (size_t)b * (hb + hb / 2) * wb;
   const uint8_t* uplane = img + (size_t)hb * wb;
   const uint8_t* vplane = uplane + cwb;
 
   // the row's taps: floor(r / 2 - 1/4) is (r - 1) >> 1, t 3/4 or 1/4; the
-  // clamps keep every index inside the chroma buffer
+  // clamps keep every index inside the chroma buffer (a shard's columns
+  // were clamped on the host: all ncs of them are read)
   const int chi = min(max((h[b] + 1) / 2 - 1, 0), hb / 2 - 1);
-  const int hi = min(max((w[b] + 1) / 2 - 1, 0), cwb - 1);
+  const int hi = SHARD ? ncs - 1 : min(max((w[b] + 1) / 2 - 1, 0), cwb - 1);
   const int ibase = (r - 1) >> 1;
   const int i0 = clampc(ibase, chi);
   const int i1 = clampc(ibase + 1, chi);
   const float t = (r & 1) ? 0.25f : 0.75f;
   float* ru = rb;
-  float* rv = rb + cwb;
+  float* rv = rb + ncs;
   const uint8_t* u0 = uplane + (size_t)i0 * wb;
   const uint8_t* u1 = uplane + (size_t)i1 * wb;
   const uint8_t* v0 = vplane + (size_t)i0 * wb;
   const uint8_t* v1 = vplane + (size_t)i1 * wb;
   const int ncol = hi + 1;  // the chroma columns any pixel reads
-  for (int j = threadIdx.x; j < ncol; j += kThreads) {
-    ru[j] = (float)u0[j] * (1.0f - t) + (float)u1[j] * t;
-    rv[j] = (float)v0[j] * (1.0f - t) + (float)v1[j] * t;
+  if (SHARD) {
+    // window column 0 is the left halo, ncol - 1 the right one
+    const size_t hrow = (size_t)b * (hb / 2);
+    const uint8_t* l0 = left + (hrow + i0) * 2;
+    const uint8_t* l1 = left + (hrow + i1) * 2;
+    const uint8_t* r0 = right + (hrow + i0) * 2;
+    const uint8_t* r1 = right + (hrow + i1) * 2;
+    for (int j = threadIdx.x; j < ncol; j += kThreads) {
+      if (j == 0) {
+        ru[j] = blend(l0[0], l1[0], t);
+        rv[j] = blend(l0[1], l1[1], t);
+      } else if (j == ncol - 1) {
+        ru[j] = blend(r0[0], r1[0], t);
+        rv[j] = blend(r0[1], r1[1], t);
+      } else {
+        ru[j] = blend(u0[j - 1], u1[j - 1], t);
+        rv[j] = blend(v0[j - 1], v1[j - 1], t);
+      }
+    }
+  } else {
+    for (int j = threadIdx.x; j < ncol; j += kThreads) {
+      ru[j] = blend(u0[j], u1[j], t);
+      rv[j] = blend(v0[j], v1[j], t);
+    }
   }
   __syncthreads();
 
@@ -126,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
       }
       // x is even: pixels x .. x + 3 blend chroma columns (x - 2) / 2 + m,
       // m = (0, 1), (1, 2), (1, 2), (2, 3), at s = 3/4, 1/4, 3/4, 1/4
-      const int jb = (x - 1) >> 1;
+      const int jb = ((x - 1) >> 1) + jofs;
       float cu[4], cv[4];
 #pragma unroll
       for (int m = 0; m < 4; ++m) {
@@ -156,29 +202,39 @@ __global__ void __launch_bounds__(kThreads)
   const int nrest = head + (wb - tail0);
   for (int k = threadIdx.x; k < nrest; k += kThreads) {
     const int x = k < head ? k : tail0 + (k - head);
-    pixel((float)luma[x], ru, rv, x, hi, orow + (size_t)x * 3);
+    pixel((float)luma[x], ru, rv, x, jofs, hi, orow + (size_t)x * 3);
   }
+}
+
+template <bool SHARD>
+int launch(const uint8_t* in, const uint8_t* left, const uint8_t* right, float* out,
+           const int32_t* h, const int32_t* w, int B, int hb, int wb, void* stream) {
+  if (hb % 2 || wb % 2 || B > 65535) return (int)cudaErrorInvalidValue;
+  if ((size_t)B * hb * wb == 0) return 0;
+  // dynamic: the blended chroma rows; static: the warps' output slots
+  const size_t smem = sizeof(float) * (size_t)(SHARD ? wb + 4 : wb);
+  const size_t stage = sizeof(float4) * (kThreads / 32) * kSlot;
+  if (smem + stage > 48 * 1024) {  // buckets over 9216 wide
+    const cudaError_t e = cudaFuncSetAttribute(
+        yuv420_to_rgb<SHARD>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  yuv420_to_rgb<SHARD><<<dim3(hb, B), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      in, left, right, out, h, w, hb, wb);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // in: uint8 [B, hb + hb/2, wb] packed planes; out: f32 [B, hb, wb, 3];
-// h, w: int32 [B] valid luma dims; hb and wb even. Returns the launch's
-// CUDA error code.
-extern "C" int itpu_yuv420_to_rgb(const uint8_t* in, float* out,
-                                  const int32_t* h, const int32_t* w, int B,
-                                  int hb, int wb, void* stream) {
-  if (hb % 2 || wb % 2 || B > 65535) return (int)cudaErrorInvalidValue;
-  if ((size_t)B * hb * wb == 0) return 0;
-  // dynamic: the blended chroma rows; static: the warps' output slots
-  const size_t smem = sizeof(float) * (size_t)wb;
-  const size_t stage = sizeof(float4) * (kThreads / 32) * kSlot;
-  if (smem + stage > 48 * 1024) {  // buckets over 9216 wide
-    const cudaError_t e = cudaFuncSetAttribute(
-        yuv420_to_rgb, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  yuv420_to_rgb<<<dim3(hb, B), kThreads, smem,
-                  static_cast<cudaStream_t>(stream)>>>(in, out, h, w, hb, wb);
-  return (int)cudaGetLastError();
+// h, w: int32 [B] valid luma dims; hb and wb even. With `left` and `right`
+// (uint8 [B, hb/2, 2] each) `in` is one W-shard's packed buffer at its
+// local width wb and they are its chroma halos (the W-shard form above);
+// both null for a whole image. Returns the launch's CUDA error code.
+extern "C" int itpu_yuv420_to_rgb(const uint8_t* in, const uint8_t* left,
+                                  const uint8_t* right, float* out, const int32_t* h,
+                                  const int32_t* w, int B, int hb, int wb, void* stream) {
+  if ((left == nullptr) != (right == nullptr)) return (int)cudaErrorInvalidValue;
+  if (left != nullptr) return launch<true>(in, left, right, out, h, w, B, hb, wb, stream);
+  return launch<false>(in, left, right, out, h, w, B, hb, wb, stream);
 }

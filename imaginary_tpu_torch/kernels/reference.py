@@ -161,10 +161,36 @@ def yuv420_to_rgb(x: torch.Tensor, h, w, hb: int, wb: int) -> torch.Tensor:
                                  xf[:, hb:, wb // 2:], h, w, hb, wb)
 
 
-def rgb_to_yuv420(x: torch.Tensor, h, w, hb: int, wb: int, luma: bool = False) -> torch.Tensor:
+def yuv420_to_rgb_shard(x: torch.Tensor, left, right, h, w, hb: int,
+                        lw: int) -> torch.Tensor:
+    """K2's W-shard form: one shard's packed buffer [B, hb + hb/2, lw, 1]
+    and its chroma halos [B, hb/2, 2, 1] (U, V), every chroma column
+    already taken by the whole image's clamped index, -> f32 RGB [B, hb,
+    lw, 3]. The window [left, shard, right] of each plane is upsampled
+    with the whole image's row taps and column taps ((x - 1) >> 1) + 1 and
+    the one after, so each pixel blends the same chroma values as in the
+    whole image."""
+    xf = x[..., 0].float()
+    lf, rf = left[..., 0].float(), right[..., 0].float()
+    cw = lw // 2
+    u = torch.cat([lf[..., 0:1], xf[:, hb:, :cw], rf[..., 0:1]], dim=2)
+    v = torch.cat([lf[..., 1:2], xf[:, hb:, cw:], rf[..., 1:2]], dim=2)
+    i0, i1, t = _chroma_up_indices(hb, (h.long() + 1) // 2, hb // 2)
+    pos = torch.arange(lw, dtype=torch.float32, device=x.device) * 0.5 - 0.25
+    jf = torch.floor(pos)
+    s = pos - jf
+    j0 = (jf.to(torch.int64) + 1)[None, :].expand(x.shape[0], lw)
+    return _ycc_to_rgb(xf[:, :hb], _up2(u, i0, i1, t, j0, j0 + 1, s) - 128.0,
+                       _up2(v, i0, i1, t, j0, j0 + 1, s) - 128.0)
+
+
+def rgb_to_yuv420(x: torch.Tensor, h, w, hb: int, wb: int, luma: bool = False,
+                  col0: int = 0) -> torch.Tensor:
     """K3's function: f32 [B, hb, wb, 3] RGB -> uint8 [B, hb + hb/2, wb, 1]
     packed planes (stages.py:ToYuv420Spec with the chain's uint8 epilogue).
-    With `luma`, of `gray(x)`: K8 then K3, which the kernel fuses."""
+    With `luma`, of `gray(x)`: K8 then K3, which the kernel fuses. W-shard
+    form: x holds the image's columns [col0, col0 + wb) (col0 even) and
+    the valid mask reads global columns."""
     if luma:
         x = gray(x)
     x = torch.clamp(x.float(), 0.0, 255.0)
@@ -174,7 +200,7 @@ def rgb_to_yuv420(x: torch.Tensor, h, w, hb: int, wb: int, luma: bool = False) -
     cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
     dev = x.device
     iy = torch.arange(hb, dtype=torch.int32, device=dev)[None, :, None]
-    ix = torch.arange(wb, dtype=torch.int32, device=dev)[None, None, :]
+    ix = col0 + torch.arange(wb, dtype=torch.int32, device=dev)[None, None, :]
     m = ((iy < h[:, None, None]) & (ix < w[:, None, None])).float()
 
     def pool(c):
@@ -185,6 +211,13 @@ def rgb_to_yuv420(x: torch.Tensor, h, w, hb: int, wb: int, luma: bool = False) -
     bottom = torch.cat([pool(cb), pool(cr)], dim=2)
     packed = torch.cat([y, bottom], dim=1)[..., None]
     return epilogue_u8(packed)
+
+
+def rgb_to_yuv420_shard(x: torch.Tensor, h, w, hb: int, lw: int, col0: int,
+                        luma: bool = False) -> torch.Tensor:
+    """K3's W-shard form: the shard's columns [col0, col0 + lw) -> its own
+    packed planes [B, hb + hb/2, lw, 1], the valid mask on global columns."""
+    return rgb_to_yuv420(x, h, w, hb, lw, luma, col0)
 
 
 def _axis_index(out_b: int, in_b: int, off, size, mode: str):

@@ -319,9 +319,10 @@ def spatial_split(specs, hb: int, wb: int, n: int) -> tuple:
     first entry after an explicit gather of the shards.
 
     A stage runs W-sharded when it has a W-shard form (`shard_ok`, see
-    `stages._ShardForm`: K1 as the first sharded stage, K13 with a radius
-    below the local width, K7, K8) and its output width splits evenly
-    over n."""
+    `stages._ShardForm`: K2 as the first sharded stage and K3 on shards of
+    even width, K1, K13 with a radius below the local width, K7, K8, the
+    bucket shrink and the flip) and its output width splits evenly over
+    n."""
     sharded = []
     for i in live_stages(specs, hb, wb):
         spec = specs[i]
@@ -336,21 +337,27 @@ def spatial_split(specs, hb: int, wb: int, n: int) -> tuple:
 
 
 class SpatialLaunch:
-    """One image launched by `launch_spatial`: `host` is [n, 1, Hb, lw, C]
-    when `shards` = n > 0 (each shard's columns, copied back on its own
-    stream), else the gathered [1, Hb, Wb, C]; valid once every event in
-    `events` has completed. `gathered` names the spec class at which the
-    shards were gathered (None: nowhere). The staged host buffers are kept
-    alive until the fetch."""
+    """One image launched by `launch_spatial`: `host` is [n, 1, R, lw, C]
+    when `shards` = n > 0 (each shard's output, copied back on its own
+    stream, put together by `assemble`, the last stage's
+    `shard_assemble`), else the gathered [1, R, Wb, C]; valid once every
+    event in `events` has completed. `gathered` names the spec class at
+    which the shards were gathered (None: nowhere). `windows` maps each
+    stage that took an exchanged input window to its shards' windows, (k0,
+    k1, parts) with parts `exchange_window`'s (source shard, g0, g1). The
+    staged host buffers are kept alive until the fetch."""
 
-    __slots__ = ("host", "events", "staged", "shards", "gathered")
+    __slots__ = ("host", "events", "staged", "shards", "gathered", "windows", "assemble")
 
-    def __init__(self, host, events, staged, shards: int, gathered):
+    def __init__(self, host, events, staged, shards: int, gathered, windows=None,
+                 assemble=None):
         self.host = host
         self.events = events
         self.staged = staged
         self.shards = shards
         self.gathered = gathered
+        self.windows = windows or {}
+        self.assemble = assemble
 
     def to_host(self) -> np.ndarray:
         """Wait for every shard's event and assemble the batch array."""
@@ -360,8 +367,7 @@ class SpatialLaunch:
         self.staged = None
         if not self.shards:
             return self.host.numpy()
-        n, bsz, hb, lw, c = self.host.shape
-        return self.host.permute(1, 2, 0, 3, 4).reshape(bsz, hb, n * lw, c).numpy()
+        return self.assemble(self.host)
 
 
 def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=None):
@@ -373,19 +379,26 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
     The live stages `spatial_split` admits run W-sharded: shard j owns
     output columns [j lw, (j + 1) lw) of each stage. The first sharded
     stage's input comes from the host in each shard's own H2D (its
-    `shard_input`: K1's input window, else the shard's columns and, for
-    K13, its halos). A later stage with a halo (K13) gets it from the
-    neighbouring shards (`parallel/spatial.exchange_halos`); each stage
-    runs on a shard through its `apply_shard`, with its `shard_dyn` (K7:
-    `left` less the shard's first column). A stage without
-    a W-sharded form gathers the shards onto the row's first entry by an
-    explicit copy (`SpatialLaunch.gathered` names it) and the rest of the
-    chain runs there. The last stage writes uint8 (epilogue fused); each
-    shard copies its columns back on its own stream into one pinned host
-    buffer and records its own event.
+    `shard_input`: K2's packed columns with their chroma halos, K1's input
+    window, else the shard's columns and, for K13, its halos). A later
+    stage that reads other columns than its own gets them from the shards
+    that hold them: a window (`shard_window`: K1's taps, the bucket
+    shrink's columns of a wider bucket) through
+    `parallel/spatial.exchange_window`, a halo (K13) through
+    `exchange_halos`. The host follows each stage's input valid width
+    (`shard_valid_w`). Each stage runs on a shard through its
+    `apply_shard`, with its `shard_dyn` (K7: `left` less the shard's first
+    column); a GraySpec right before the ToYuv420Spec folds into that
+    stage's launch on each shard (`launch_steps`; its dyn carries `luma`).
+    A stage without a W-sharded form gathers the shards onto the row's
+    first entry by an explicit copy (`SpatialLaunch.gathered` names it)
+    and the rest of the chain runs there. The last stage writes uint8
+    (epilogue fused); each shard copies its output back on its own stream
+    into one pinned host buffer and records its own event, and the last
+    stage's `shard_assemble` puts the shards together on the fetch.
 
     trace: None, or a list that gets (stage index, shard index, spec,
-    apply_shard's arguments, its output) for every sharded stage of every
+    apply_shard's arguments, its output) for every sharded launch of every
     shard, to hold each launch against its plain version."""
     specs = plan.spec_key()
     if not specs:
@@ -394,7 +407,8 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
     n = len(devices)
     if streams is None:
         streams = [_stream(d) if d.type == "cuda" else None for d in devices]
-    if plan.in_bucket is not None:
+    packed = plan.in_bucket is not None
+    if packed:
         hb, wb = plan.in_bucket
     else:
         hb, wb = bucket_shape(arr.shape[0], arr.shape[1])
@@ -403,18 +417,21 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
         one = launch_batch([arr], [plan], device=devices[0], stream=streams[0])
         return SpatialLaunch(one.host, [one.event], [one.staged], 0,
                              type(specs[gather_at]).__name__)
-    batch = pad_to_bucket(arr)
-    h = np.array([arr.shape[0]], dtype=np.int32)
-    w = np.array([arr.shape[1]], dtype=np.int32)
+    batch = arr if packed else pad_to_bucket(arr)
+    img_h, img_w = (plan.in_h, plan.in_w) if packed else arr.shape[:2]
+    h = np.array([img_h], dtype=np.int32)
+    w = np.array([img_w], dtype=np.int32)
     host_dyns = _stack_dyns([plan])
-    # each sharded stage's input bucket width and output bucket
-    in_wb, dims, cur = {}, {}, (hb, wb)
+    # each sharded stage's input bucket width, input valid width and output
+    # bucket
+    in_wb, in_w, dims, cur, vw = {}, {}, {}, (hb, wb), img_w
     for i in sharded:
-        in_wb[i] = cur[1]
+        in_wb[i], in_w[i] = cur[1], vw
         cur = dims[i] = _bucket_after(specs[i], *cur)
+        vw = specs[i].shard_valid_w(vw, host_dyns[i])
     first = specs[sharded[0]]
     lw0 = dims[sharded[0]][1] // n
-    inputs = [first.shard_input(batch, j * lw0, (j + 1) * lw0, arr.shape[1],
+    inputs = [first.shard_input(batch, j * lw0, (j + 1) * lw0, img_w,
                                 host_dyns[sharded[0]]) for j in range(n)]
     last = sharded[-1] if gather_at is None else None
     with _LOCK:
@@ -437,15 +454,29 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
             sh.ready = spatial.record(stream)
         shards.append(sh)
         staged.append(buf)
-    for i in sharded:
+    windows = {}
+    for i, luma in launch_steps(specs, sharded):
         spec, lw = specs[i], dims[i][1] // n
-        if spec.shard_halo and i != sharded[0]:
-            spatial.exchange_halos([shards], spec.shard_halo)
+        if i == sharded[0]:
+            in_col0 = [inp[3] for inp in inputs]
+        else:
+            for sh in shards:
+                sh.left = sh.right = None
+            wins = [spec.shard_window(j * lw, (j + 1) * lw, in_w[i], in_wb[i], host_dyns[i])
+                    for j in range(n)]
+            if wins[0] is not None:
+                parts = spatial.exchange_window(shards, wins)
+                windows[i] = [(k0, k1, p) for (k0, k1), p in zip(wins, parts)]
+                in_col0 = [k0 for k0, _ in wins]
+            else:
+                if spec.shard_halo:
+                    spatial.exchange_halos([shards], spec.shard_halo)
+                in_col0 = [sh.col0 for sh in shards]
         for j, sh in enumerate(shards):
-            in_col0 = inputs[j][3] if i == sharded[0] else sh.col0
             sh.col0 = j * lw
-            args = (sh.x, sh.left, sh.right, sh.h, sh.w, dyns[j][i], sh.col0, lw,
-                    in_col0, in_wb[i], i == last)
+            dyn = dict(dyns[j][i], luma=True) if luma else dyns[j][i]
+            args = (sh.x, sh.left, sh.right, sh.h, sh.w, dyn, sh.col0, lw,
+                    in_col0[j], in_wb[i], i == last)
             with spatial.on(sh.stream):
                 out = spec.apply_shard(*args)
                 sh.x, sh.h, sh.w = out
@@ -461,7 +492,8 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
             with spatial.on(sh.stream):
                 host[j].copy_(sh.x, non_blocking=sh.stream is not None)
                 events.append(spatial.record(sh.stream))
-        return SpatialLaunch(host, events, staged, n, None)
+        return SpatialLaunch(host, events, staged, n, None, windows,
+                             specs[last].shard_assemble)
     # the gather: every shard's columns into one buffer on the row's first
     # entry, then the rest of the chain there
     s0, dev0 = streams[0], devices[0]
@@ -480,7 +512,8 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=dev0.type == "cuda")
         host.copy_(x, non_blocking=s0 is not None)
         event = spatial.record(s0)
-    return SpatialLaunch(host, [event], staged, 0, type(specs[gather_at]).__name__)
+    return SpatialLaunch(host, [event], staged, 0, type(specs[gather_at]).__name__,
+                         windows)
 
 
 def _run_staged(specs, views: list, host_dyns: list) -> torch.Tensor:

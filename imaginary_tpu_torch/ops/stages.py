@@ -14,9 +14,10 @@ is the chain's last and also applies the uint8 epilogue (ToDctSpec, whose
 stage runs one or more of the port's CUDA kernels on a CUDA tensor and
 their plain versions on a CPU tensor (`kernels/`).
 
-The stages with a W-shard form (K1, K13, K7, K8) also carry the spatial
-route's side of it (`_ShardForm`); `ops/chain.launch_spatial` drives them
-through that alone.
+The stages with a W-shard form (K2, K1, K13, K7, K8, K4's bucket shrink,
+K5's flip and K3) also carry the spatial route's side of it
+(`_ShardForm`); `ops/chain.launch_spatial` drives them through that
+alone.
 """
 
 from __future__ import annotations
@@ -45,11 +46,22 @@ class _ShardForm:
         staged from the host."""
         return True
 
+    def shard_window(self, c0: int, c1: int, in_w: int, in_wb: int, dyn: dict):
+        """The input columns (k0, k1) the stage reads for output columns
+        [c0, c1), of an input bucket in_wb wide whose valid width is in_w
+        (host params dyn); None: its own columns. A later sharded stage
+        with a window gets it from the shards that hold those columns
+        (`parallel/spatial.exchange_window`)."""
+        return None
+
     def shard_input(self, img: np.ndarray, c0: int, c1: int, w: int, dyn: dict) -> tuple:
         """The first sharded stage's host input for output columns [c0,
         c1) of the bucket-padded HWC image `img` (valid width w, host
         params dyn): (x, left, right, in_col0), x's first column in the
         bucket and the halos (None where there are none)."""
+        win = self.shard_window(c0, c1, w, img.shape[1], dyn)
+        if win is not None:
+            return img[:, win[0]:win[1]], None, None, win[0]
         wb, r = img.shape[1], self.shard_halo
         left = img[:, c0 - r:c0] if r and c0 > 0 else None
         right = img[:, c1:c1 + r] if r and c1 < wb else None
@@ -58,6 +70,18 @@ class _ShardForm:
     def shard_dyn(self, dyn: dict, col0: int) -> dict:
         """The host params of the shard whose output starts at col0."""
         return dyn
+
+    def shard_valid_w(self, w: int, dyn: dict) -> int:
+        """The valid width the stage leaves, from its input's (the host's
+        copy of what the kernels carry on the device)."""
+        return w
+
+    def shard_assemble(self, host):
+        """The chain's output as a host array [B, R, n * lw, C] from the
+        last sharded stage's shards, host [n, B, R, lw, C]: the shards'
+        columns side by side."""
+        n, bsz, rows, lw, c = host.shape
+        return host.permute(1, 2, 0, 3, 4).reshape(bsz, rows, n * lw, c).numpy()
 
     def apply_shard(self, x, left, right, h, w, dyn, col0: int, lw: int,
                     in_col0: int, in_wb: int, out_u8: bool, impl=kernels):
@@ -81,14 +105,13 @@ class SampleSpec(_ShardForm):
         return kernels.resample(x, h, w, dyn["dst_h"], dyn["dst_w"],
                                 self.out_hb, self.out_wb, self.kernel, out_u8)
 
-    def shard_ok(self, lw: int, first: bool) -> bool:
-        # a shard's input window is staged from the host
-        return first
+    def shard_window(self, c0, c1, in_w, in_wb, dyn):
+        # the union of the output columns' tap ranges
+        return kernels.resample_window(self.kernel, in_w, float(dyn["dst_w"][0]),
+                                       in_wb, self.out_wb, c0, c1)
 
-    def shard_input(self, img, c0, c1, w, dyn):
-        k0, k1 = kernels.resample_window(self.kernel, w, float(dyn["dst_w"][0]),
-                                         img.shape[1], self.out_wb, c0, c1)
-        return img[:, k0:k1], None, None, k0
+    def shard_valid_w(self, w, dyn):
+        return int(dyn["dst_w"][0])
 
     def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
                     out_u8, impl=kernels):
@@ -135,12 +158,17 @@ class EmbedSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class FlipSpec:
+class FlipSpec(_ShardForm):
     """Vertical flip of the valid region; padding rows stay as they are
     (kernel K5, flip)."""
 
     def apply(self, x, h, w, dyn, out_u8: bool = False):
         return kernels.orient(x, h, w, "flip", out_u8), h, w
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        # column-local: each column mirrors its own rows inside the valid h
+        return impl.orient(x, h, w, "flip", out_u8), h, w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -216,7 +244,7 @@ class CompositeSpec(_ShardForm):
 
 
 @dataclasses.dataclass(frozen=True)
-class ShrinkBucketSpec:
+class ShrinkBucketSpec(_ShardForm):
     """Static slice of the padded buffer down to a snugger bucket, valid dims
     unchanged (kernel K4, identity window)."""
 
@@ -228,9 +256,18 @@ class ShrinkBucketSpec:
                              out_u8=out_u8)
         return out, h, w
 
+    def shard_window(self, c0, c1, in_w, in_wb, dyn):
+        # output column x reads input column x, but the input bucket is
+        # wider, so its shards split elsewhere
+        return c0, c1
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        return impl.gather(x, self.out_hb, lw, mode="window", out_u8=out_u8), h, w
+
 
 @dataclasses.dataclass(frozen=True)
-class FromYuv420Spec:
+class FromYuv420Spec(_ShardForm):
     """Unpack the packed YUV420 transport buffer [B, hb + hb/2, wb, 1] into
     RGB: centred 2x chroma upsample, BT.601 full range (kernel K2)."""
 
@@ -241,6 +278,45 @@ class FromYuv420Spec:
         if out_u8:
             raise ValueError("FromYuv420Spec cannot end a chain")
         return kernels.yuv420_to_rgb(x, h, w, self.hb, self.wb), h, w
+
+    def shard_ok(self, lw, first):
+        # it reads the packed host buffer; a chroma column covers two pixels
+        return first and lw % 2 == 0
+
+    def shard_input(self, img, c0, c1, w, dyn):
+        """The shard's packed buffer [hb + hb/2, lw, 1] (its Y columns,
+        then chroma columns c0/2 + k of U and of V) and its one-column
+        chroma halos [hb/2, 2, 1] (U, V) on each side, every chroma column
+        taken by the clamped index K2 reads for the whole image, so a
+        shard past the valid width gets the columns the clamp reaches."""
+        hb, cwb, lw = self.hb, self.wb // 2, c1 - c0
+        hi = min(max((w + 1) // 2 - 1, 0), cwb - 1)
+        # window column k holds chroma column clamp(c0/2 - 1 + k, 0, hi):
+        # column 0 left of 0, the columns themselves, column hi past hi
+        g0, g1 = c0 // 2 - 1, c1 // 2 + 1
+        n = g1 - g0
+        below = min(max(-g0, 0), n)  # window columns left of column 0
+        s0, s1 = max(g0, 0), min(g1, hi + 1)  # the columns inside [0, hi]
+        above = min(max(hi + 1 - g0, 0), n)  # the first past column hi
+        win = np.empty((hb // 2, 2, n), dtype=img.dtype)
+        img = img[..., 0]  # row copies of a 2-D view run as block copies
+        for p, base in enumerate((0, cwb)):
+            plane = img[hb:, base:base + hi + 1]
+            win[:, p, :below] = plane[:, :1]
+            if s1 > s0:
+                win[:, p, s0 - g0:s1 - g0] = plane[:, s0:s1]
+            win[:, p, above:] = plane[:, hi:]
+        x = np.empty((hb + hb // 2, lw), dtype=img.dtype)
+        x[:hb] = img[:hb, c0:c1]
+        x[hb:, :lw // 2] = win[:, 0, 1:-1]
+        x[hb:, lw // 2:] = win[:, 1, 1:-1]
+        return x[..., None], win[:, :, :1], win[:, :, -1:], c0
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        if out_u8:
+            raise ValueError("FromYuv420Spec cannot end a chain")
+        return impl.yuv420_to_rgb_shard(x, left, right, h, w, self.hb, lw), h, w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -262,7 +338,7 @@ class FromDctSpec:
 
 
 @dataclasses.dataclass(frozen=True)
-class ToYuv420Spec:
+class ToYuv420Spec(_ShardForm):
     """Pack RGB into the YUV420 transport layout, chroma pooled over valid
     pixels, with the uint8 epilogue fused (kernel K3)."""
 
@@ -275,6 +351,31 @@ class ToYuv420Spec:
         if not out_u8:
             raise ValueError("ToYuv420Spec must end its chain")
         return kernels.rgb_to_yuv420(x, h, w, self.hb, self.wb, luma), h, w
+
+    def shard_ok(self, lw, first):
+        # a 2x2 chroma block never straddles two shards
+        return lw % 2 == 0
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        """dyn["luma"] True: the folded GraySpec (`apply`'s `luma`)."""
+        if not out_u8:
+            raise ValueError("ToYuv420Spec must end its chain")
+        return impl.rgb_to_yuv420_shard(x, h, w, self.hb, lw, col0,
+                                        dyn.get("luma", False)), h, w
+
+    def shard_assemble(self, host):
+        """Each shard's packed planes at their global columns: its Y at
+        [col0, col0 + lw), its U and V halves at col0/2 of each plane."""
+        parts = host.numpy()[..., 0]  # C is 1: block copies of 2-D rows
+        n, bsz, rows, lw = parts.shape
+        hb, cw, half = self.hb, lw // 2, n * lw // 2
+        out = np.empty((bsz, rows, n * lw), dtype=parts.dtype)
+        for j, part in enumerate(parts):
+            out[:, :hb, j * lw:(j + 1) * lw] = part[:, :hb]
+            out[:, hb:, j * cw:(j + 1) * cw] = part[:, hb:, :cw]
+            out[:, hb:, half + j * cw:half + (j + 1) * cw] = part[:, hb:, cw:]
+        return out[..., None]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,7 +26,10 @@ sums of its halo columns itself and normalises by rowden[y] *
 colden[col0 + x] over global columns, so the gathered shards equal K6's
 output on the whole image bit for bit. The chain's spatial route
 (`ops/chain.launch_spatial`) runs its blur stage through the same
-exchange and kernel.
+exchange and kernel, and fills a later stage's input window (K1's taps,
+the bucket shrink's columns) from the shards that hold it with
+`exchange_window`: today a copy of the whole window a shard, local on
+one card.
 
 Nothing waits on the host (no `synchronize()`): the call returns with the
 work queued on the caller's current stream. On a mesh of `cpu` entries
@@ -153,6 +156,42 @@ def exchange_halos(grid: list, radius: int) -> None:
                     halo = torch.empty(part.shape, dtype=part.dtype, device=dst.device)
                 copy_into(halo, dst.stream, part, src.stream)
                 setattr(dst, side, halo)
+
+
+def exchange_window(row: list, windows: list) -> list:
+    """Each shard's `x` <- columns [k0, k1) = windows[j] of the row's
+    current output, whose shards hold contiguous columns [col0, col0 + lw)
+    side by side (a later sharded stage's input window,
+    `stages._ShardForm.shard_window`). Each part is copied from the shard
+    that holds it after the destination's stream waited on the source's
+    `ready`; a window equal to the shard's own columns stays as it is.
+    Returns, for each shard, the parts it took as (source shard, first
+    global column, end column)."""
+    wins, sources = [], []
+    for j, (dst, (k0, k1)) in enumerate(zip(row, windows)):
+        if (k0, k1) == (dst.col0, dst.col0 + dst.x.shape[2]):
+            wins.append(dst.x)
+            sources.append([(j, k0, k1)])
+            continue
+        shape = dst.x.shape[:2] + (k1 - k0,) + dst.x.shape[3:]
+        with on(dst.stream):
+            win = torch.empty(shape, dtype=dst.x.dtype, device=dst.device)
+        parts = []
+        for s, src in enumerate(row):
+            a, b = max(k0, src.col0), min(k1, src.col0 + src.x.shape[2])
+            if a >= b:
+                continue
+            wait(dst.stream, src.ready)
+            copy_into(win[:, :, a - k0:b - k0], dst.stream,
+                      src.x[:, :, a - src.col0:b - src.col0], src.stream)
+            parts.append((s, a, b))
+        if sum(b - a for _, a, b in parts) != k1 - k0:
+            raise ValueError(f"window [{k0}, {k1}) is not covered by the row's shards")
+        wins.append(win)
+        sources.append(parts)
+    for sh, win in zip(row, wins):
+        sh.x = win
+    return sources
 
 
 def blur_shards(grid: list, radius: int, wb: int, out_u8: bool = False) -> None:

@@ -274,25 +274,26 @@ def test_gray_before_the_dct_egress_keeps_its_launch(monkeypatch):
 
 
 def test_a_fusion_never_crosses_the_spatial_gather(monkeypatch):
-    """On the spatial route K1 and K8 run W-sharded and K3, which has no
-    W-shard form, runs after the gather as a run of its own: the four
-    shards' K8 launches stay and K3 launches plain. The output equals the
-    unsharded chain's, where K8 folds into K3."""
+    """On the spatial route K1 and K8 run W-sharded and K3, which shards
+    only at an even local width (3 columns a shard here), runs after the
+    gather as a run of its own: the eight shards' K8 launches stay and K3
+    launches plain. The output equals the unsharded chain's, where K8
+    folds into K3."""
     from imaginary_tpu_torch.ops.plan import ImagePlan, StageInstance
 
-    specs = (S.SampleSpec(32, 64), S.GraySpec(), S.ToYuv420Spec(32, 64))
+    specs = (S.SampleSpec(32, 24), S.GraySpec(), S.ToYuv420Spec(32, 24))
     assert pchain.launch_steps(specs, [2]) == [(2, False)]
     assert pchain.launch_steps(specs, [1, 2]) == [(2, True)]
-    dyn = {"dst_h": np.float32(30), "dst_w": np.float32(61)}
+    dyn = {"dst_h": np.float32(30), "dst_w": np.float32(23)}
     plan = ImagePlan(stages=[StageInstance(specs[0], dyn), StageInstance(specs[1], {}),
-                             StageInstance(specs[2], {})], out_h=30, out_w=61)
-    arr = np.random.default_rng(14).integers(0, 256, size=(60, 122, 3), dtype=np.uint8)
-    assert pchain.spatial_split(specs, *bucket_shape(60, 122), 4) == ([0, 1], 2)
+                             StageInstance(specs[2], {})], out_h=30, out_w=23)
+    arr = np.random.default_rng(14).integers(0, 256, size=(60, 46, 3), dtype=np.uint8)
+    assert pchain.spatial_split(specs, *bucket_shape(60, 46), 8) == ([0, 1], 2)
     calls = _recording(monkeypatch)
-    y = pchain.launch_spatial(arr, plan, ["cpu"] * 4)
+    y = pchain.launch_spatial(arr, plan, ["cpu"] * 8)
     got = pchain.fetch_batch(y, [arr], [plan])[0]
     assert y.gathered == "ToYuv420Spec"
-    assert calls == [("gray", None)] * 4 + [("yuv420_pack", False)]
+    assert calls == [("gray", None)] * 8 + [("yuv420_pack", False)]
     calls.clear()
     want = pchain.run_batch([arr], [plan], device="cpu")[0]
     assert calls == [("yuv420_pack", True)]

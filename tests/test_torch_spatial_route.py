@@ -180,11 +180,12 @@ class TestSpatialServedRequest:
 # -- bit-equal to the unsharded chain, and counted gathers ---------------------
 
 # (name, options, the stage gathered at): /blur keeps the image's size and
-# ends in a bucket shrink (K4), which has no W-sharded form yet
+# ends in a bucket shrink (K4), whose W-shard form reads its columns of the
+# wider input bucket through the window exchange
 CHAINS = [
     ("resize-blur", dict(width=160, sigma=1.2), None),
     ("resize-blur-bw", dict(width=160, sigma=2.0, colorspace="bw"), None),
-    ("blur", dict(sigma=1.5), "ShrinkBucketSpec"),
+    ("blur", dict(sigma=1.5), None),
 ]
 
 
@@ -221,7 +222,7 @@ def test_executor_route_counts_batches_and_matches(make_ex):
                               _unsharded(arr, plan))
     d = ex.stats.to_dict()
     assert d["spatial_batches"] == len(CHAINS)
-    assert d["spatial_gathers"] == {"ShrinkBucketSpec": 1}
+    assert d["spatial_gathers"] == {}
     assert ex.debug_snapshot()["lanes"]["spatial"] == 4
 
 
@@ -434,9 +435,12 @@ def test_split_is_planned_per_stage():
     # an output width that does not split evenly gathers at that stage
     odd = (SampleSpec(64, 72),) + specs[1:]
     assert chain.spatial_split(odd, 256, 512, 16) == ([], 0)
-    # K1 has a sharded form only as the first live stage
+    # K1 as a later stage shards too (its window comes through the
+    # exchange); one whose output width does not split gathers there
     twice = specs + (dataclasses.replace(specs[0], out_hb=368, out_wb=640),)
-    assert chain.spatial_split(twice, 2560, 4096, 4) == ([0, 1], 2)
+    assert chain.spatial_split(twice, 2560, 4096, 4) == ([0, 1, 2], None)
+    odd_later = specs + (dataclasses.replace(specs[0], out_hb=368, out_wb=648),)
+    assert chain.spatial_split(odd_later, 2560, 4096, 16) == ([0, 1], 2)
 
 
 @pytest.mark.parametrize("chain_kind", ["resize-blur-watermark", "resize-blur-bw"])
