@@ -200,7 +200,38 @@ Phases, in order; any failure raises and exits non-zero:
    placeholder JPEG and its Error header, made by kernel launches on the
    card (counted from 0 as above); a request without the key 401; and a
    burst of BURST_REQUESTS at once past the throttle gets 429s with
-   Retry-After.
+   Retry-After;
+12. URL sources and watermarkImage on the card: a local aiohttp origin on
+   127.0.0.1 (large.jpg, imaginary.jpg, a seeded 240x96 RGBA PNG mark
+   with an alpha ramp, phase 7's 4K PNG, phase 8's stream, a 404, a route
+   answering 503 with Retry-After: 0 once and 200 after, and a body one
+   byte over the cap; it counts GETs and HEADs and keeps the headers it
+   saw), and servers from the command line with --enable-url-source,
+   --allowed-origins (the origin), --max-allowed-size URL_CAP,
+   --enable-auth-forwarding, --forward-headers X-Chip-Smoke and
+   --source-retries 2 on cuda, on cpu, and on cuda with --mount: (a)
+   config 1 as GET /resize?width=300&height=200&url=.../large.jpg,
+   byte-equal to ?file=large.jpg on the mounted server, one launch each
+   of K2, K1, K4 and K3 (the wrapper counts, and torch.profiler's kernels
+   in a window of one request), its card busy time beside ?file='s in
+   turns; (b) /watermarkimage?url=.../large.jpg&image=.../mark.png
+   &top=40&left=1500&opacity=0.6 (the planner clamps the mark to the
+   right edge; K2 -> K7 -> K4's bucket shrink -> K3) and a /pipeline
+   [resize 1280,
+   watermarkImage] on ?url= of the 4K PNG (K1 -> K7): one K7 launch each,
+   placed (replicate=0, by the plan and by the wrapper's argument), the
+   chain's planes on cuda within 1 LSB of its plain versions, the PNG
+   answer within 1 LSB of the cpu server's and the JPEG answer by phase
+   9's rule (coefficients within 1, pixels within 1 LSB wherever an MCU's
+   coefficients agree); (c) the origin's 404 as 502 with status=404,
+   ?url=not-a-url 400, an origin off the allow-list 400, the oversize
+   body 413, with the reference's JSON messages, the 503-then-200 route
+   200 after exactly two GETs, and the origin seeing Authorization from
+   X-Forward-Authorization, X-Chip-Smoke and a traceparent; (d) config
+   5's stream (phase 8's 24 images) as /resize?width=300&type=jpeg over
+   ?url= and as POSTed bodies in turns, one at a time and from 16 clients
+   for one window: p50/p99 and req/s beside the card's name and power
+   limit.
 
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
@@ -799,6 +830,9 @@ def config3_kernel_phase(res: dict) -> None:
                            x.numel() * 4 + ovl.numel() * 4 + got.numel() * 4,
                            12.0 * bsz * hb * wb)
                 del x, got
+    # K7's placed form at phase 12(b)'s /watermarkimage: K2's f32 1080p
+    # frame, the 240x96 mark placed once (clamped to the right edge)
+    composite_placed_case(res, gen)
 
     # K8: uint8 in and out at config 3's frame (C = 3 and 4), and f32 at
     # the colorspace=bw /resize's shape, where one matmul by the luma
@@ -903,6 +937,40 @@ def config3_kernel_phase(res: dict) -> None:
         f"input windows {nwin}, each bit-equal to the whole launch's columns")
     log("  blur and composite: no single-call library equivalent (per-image "
         "masked taps; per-image tiling and blend): library_ms null")
+
+
+MARK_DIMS = (96, 240)  # phase 12's watermark image
+MARK_AT = (40, 1500)  # its (top, left) on the 1080p frame; left clamps to 1680
+MARK_OPACITY = 0.6
+
+
+def composite_placed_case(res: dict, gen) -> None:
+    """K7's placed form (replicate=0) at B=1 on K2's [1, 1152, 2048, 3]
+    f32 output of large.jpg under a [1, 96, 240, 4] mark, as phase
+    12(b)'s /watermarkimage launches it, with its time: the frame read
+    and written once and the mark read once bound it; 12 flops a blended
+    pixel."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops.buckets import bucket_dim, bucket_shape
+
+    dev = torch.device(DEVICE)
+    hb, wb = bucket_shape(1080, 1920)
+    bh, bw = MARK_DIMS
+    x = torch.rand((1, hb, wb, 3), generator=gen, device=dev) * 255.0
+    ovl = torch.rand((1, bucket_dim(bh), bucket_dim(bw), 4), generator=gen, device=dev) * 255.0
+    i32 = {"dtype": torch.int32, "device": dev}
+    args = (x, ovl, torch.tensor([MARK_AT[0]], **i32), torch.tensor([1920 - bw], **i32),
+            torch.tensor([MARK_OPACITY], device=dev), torch.tensor([bh], **i32),
+            torch.tensor([bw], **i32), False)
+    case = "B1-placed-1080p"
+    got = kernels.composite(*args)
+    check("composite", got, reference.composite(*args), res, case, F32_TOL)
+    timing(res, "composite", case, lambda: kernels.composite(*args),
+           lambda: reference.composite(*args), None,
+           x.numel() * 4 + ovl.numel() * 4 + got.numel() * 4, 12.0 * bh * bw)
 
 
 def offset_view(shape, dtype, offset: int, fill):
@@ -1263,10 +1331,14 @@ def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
 
 # --- phase 4: the main path through the server ------------------------------
 
-def http(port: int, path: str, body: bytes):
-    ctype = "image/png" if body[:4] == b"\x89PNG" else "image/jpeg"
+def http(port: int, path: str, body):
+    """(status, content type, body) of a POST of `body`, or of a GET when
+    body is None."""
+    headers = {}
+    if body is not None:
+        headers["Content-Type"] = "image/png" if body[:4] == b"\x89PNG" else "image/jpeg"
     req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body,
-                                 headers={"Content-Type": ctype})
+                                 headers=headers)
     with urllib.request.urlopen(req, timeout=120) as r:
         return r.status, r.headers["Content-Type"], r.read()
 
@@ -2699,11 +2771,13 @@ DCT_REQUESTS = (
 )
 
 
-def coefficient_parity(card: bytes, cpu: bytes, dims: tuple) -> dict:
+def coefficient_parity(card: bytes, cpu: bytes, dims: tuple, margin: int = 0) -> dict:
     """Two egress JPEGs of one request: their quantized coefficients
     (entropy-decoded back) within COEF_TOL with at most COEF_SHARE
     differing, and their decoded pixels within 1 LSB wherever a 16x16
-    MCU's coefficients agree."""
+    MCU's coefficients agree, and those of the `margin` rings of MCUs
+    around it (the decoder's fancy chroma upsampling reads the next
+    MCU's chroma at an MCU's edge)."""
     import io
 
     import numpy as np
@@ -2726,6 +2800,11 @@ def coefficient_parity(card: bytes, cpu: bytes, dims: tuple) -> dict:
             same = same[0::2, 0::2] & same[1::2, 0::2] & same[0::2, 1::2] & same[1::2, 1::2]
         eq = same if eq is None else eq & same
     share = n_diff / n_all
+    for _ in range(margin):
+        pad = np.pad(eq, 1, constant_values=True)
+        eq = np.logical_and.reduce([pad[1 + dy: pad.shape[0] - 1 + dy,
+                                        1 + dx: pad.shape[1] - 1 + dx]
+                                    for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
     if worst > COEF_TOL or share > COEF_SHARE:
         raise AssertionError(f"egress coefficients: max {worst}, {share:.2e} differ")
     pa = np.asarray(Image.open(io.BytesIO(card)).convert("RGB")).astype(np.int32)
@@ -2974,16 +3053,27 @@ def sharded_blur_phase(res: dict) -> dict:
     return out
 
 
-def serving(srv, fn):
-    """fn(srv) with srv serving on a thread; the server is closed after."""
+def start(srv):
+    """srv serving on a thread; returns the function that stops and
+    closes it."""
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
-    try:
-        return fn(srv)
-    finally:
+
+    def stop():
         srv.shutdown()
         srv.server_close()
         th.join(timeout=10)
+
+    return stop
+
+
+def serving(srv, fn):
+    """fn(srv) with srv serving on a thread; the server is closed after."""
+    stop = start(srv)
+    try:
+        return fn(srv)
+    finally:
+        stop()
 
 
 def alone_bodies(srv, bodies: dict) -> list:
@@ -3911,6 +4001,410 @@ def http_layer_phase() -> dict:
     return out
 
 
+# --- phase 12: URL sources and watermarkImage on the card --------------------
+
+URL_CAP = 16_000_000  # --max-allowed-size: above phase 7's 13.3 MB 4K PNG
+URL_RETRIES = 2
+URL_PROFILED = 3  # profiled requests of (a), each source in turns
+URL_FORWARD = "X-Chip-Smoke"
+URL_AUTH = "Bearer chip-smoke"
+URL_PIPELINE_OPS = [{"operation": "resize", "params": {"width": 1280}},
+                    {"operation": "watermarkImage",
+                     "params": {"image": "{origin}/mark.png", "top": 10, "left": 10}}]
+URL_STREAM_PATH = "/resize?width=300&type=jpeg"
+# the hand-written kernels by their device function names
+DEVICE_KERNELS = {"yuv420_to_rgb": "yuv420_unpack", "resample_tiles": "resample",
+                  "gather_rows": "gather", "rgb_to_yuv420": "yuv420_pack",
+                  "composite": "composite"}
+
+
+def make_mark() -> bytes:
+    """A seeded 240x96 RGBA PNG whose alpha ramps from 0 to 255 across it."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(SEED + 12)
+    h, w = MARK_DIMS
+    rgb = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    alpha = np.tile(np.linspace(0, 255, w).astype(np.uint8), (h, 1))[..., None]
+    out = io.BytesIO()
+    Image.fromarray(np.concatenate([rgb, alpha], axis=2), "RGBA").save(out, "PNG")
+    return out.getvalue()
+
+
+class Origin:
+    """A local aiohttp origin on 127.0.0.1, on an event loop of its own
+    thread: `bodies` by path, a 404 elsewhere, /flaky.jpg answering 503
+    with Retry-After: 0 to its first GET and large.jpg after, and
+    /big.jpg one byte over URL_CAP. It counts GETs and HEADs by path and
+    keeps each GET's headers."""
+
+    def __init__(self, bodies: dict):
+        import asyncio
+
+        from aiohttp import web
+
+        self.bodies = bodies
+        self.counts: dict = {}
+        self.seen: list = []
+        self._lock = threading.Lock()
+        app = web.Application()
+        app.router.add_route("*", "/{tail:.*}", self._handle)
+        self._loop = asyncio.new_event_loop()
+        ready = threading.Event()
+        box: dict = {}
+
+        def run():
+            asyncio.set_event_loop(self._loop)
+            runner = web.AppRunner(app, access_log=None, handle_signals=False)
+            self._loop.run_until_complete(runner.setup())
+            self._loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", 0).start())
+            box["port"] = runner.addresses[0][1]
+            ready.set()
+            self._loop.run_forever()
+            self._loop.run_until_complete(runner.cleanup())
+            self._loop.close()
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+        if not ready.wait(60):
+            raise AssertionError("the local origin did not start")
+        self.url = f"http://127.0.0.1:{box['port']}"
+        self.port = box["port"]
+
+    async def _handle(self, request):
+        from aiohttp import web
+
+        path = request.path
+        with self._lock:
+            c = self.counts.setdefault(path, {"GET": 0, "HEAD": 0})
+            c[request.method] = c.get(request.method, 0) + 1
+            gets = c["GET"]
+            if request.method == "GET":
+                self.seen.append((path, dict(request.headers)))
+        if path == "/flaky.jpg":
+            if request.method == "GET" and gets == 1:
+                return web.Response(status=503, headers={"Retry-After": "0"})
+            return web.Response(body=self.bodies["/large.jpg"], content_type="image/jpeg")
+        if path == "/big.jpg":
+            return web.Response(body=b"\xff\xd8" + bytes(URL_CAP - 1),
+                                content_type="image/jpeg")
+        if path in self.bodies:
+            return web.Response(body=self.bodies[path])
+        return web.Response(status=404, text="not here")
+
+    def gets(self, path: str) -> int:
+        with self._lock:
+            return self.counts.get(path, {}).get("GET", 0)
+
+    def close(self) -> None:
+        self._loop.call_soon_threadsafe(self._loop.stop)
+        self._thread.join(timeout=30)
+
+
+def url_server_args(origin: Origin, device: str, mount: bool = False) -> list:
+    args = ["--addr", "127.0.0.1", "--port", "0", "--device", device,
+            "--enable-url-source", "--allowed-origins", origin.url,
+            "--max-allowed-size", str(URL_CAP), "--enable-auth-forwarding",
+            "--forward-headers", URL_FORWARD, "--source-retries", str(URL_RETRIES),
+            "--log-level", "error"]
+    return args + (["--mount", os.path.join(ROOT, "tests", "testdata")] if mount else [])
+
+
+def profiled_request(fn, want: dict) -> tuple:
+    """(hand-written kernel launches by wrapper name, other device kernels,
+    card busy us) of one call of fn, from torch.profiler (every kernel
+    but copies and fills). A window that recorded fewer kernels than
+    `want` sums to is taken again, up to PROFILE_TRIES windows (see
+    device_kernels), and the fullest one comes back."""
+    import collections
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    best = None
+    for _ in range(PROFILE_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = collections.Counter(
+            kernel_name(e.name).split("<")[0] for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "memcpy" not in e.name.lower()
+            and "memset" not in e.name.lower())
+        ours = {DEVICE_KERNELS[n]: c for n, c in names.items() if n in DEVICE_KERNELS}
+        other = {n: c for n, c in names.items() if n not in DEVICE_KERNELS}
+        got = (ours, other, busy_union_us(prof)[0])
+        if best is None or sum(ours.values()) > sum(best[0].values()):
+            best = got
+        if sum(best[0].values()) >= sum(want.values()):
+            break
+    return best
+
+
+def marked_runs(buf: bytes, op: str, query: dict, mark) -> list:
+    """[(input, plan)] the pipeline runs for `op` on buf with the RGBA
+    mark, as the server plans it (on the CPU; each chain's output is its
+    plain version's)."""
+    from imaginary_tpu_torch import pipeline
+    from imaginary_tpu_torch.ops import chain
+    from imaginary_tpu_torch.params import build_params_from_query
+
+    seen = []
+
+    def rec(arr, plan):
+        seen.append((arr, plan))
+        return chain.run_single(arr, plan, device="cpu")
+
+    pipeline.process_operation(op, buf, build_params_from_query(query), device="cpu",
+                               runner=rec, watermark_rgba=mark)
+    return seen
+
+
+def stream_runs(port: int, reqs: list) -> dict:
+    """The config 5 stream one request at a time, then from
+    CONFIG4_CLIENTS clients for one window: p50/p99 and req/s."""
+    import numpy as np
+
+    lat = []
+    for path, body in reqs:
+        t0 = time.perf_counter()
+        status, ctype, out = http(port, path, body)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if (status, ctype) != (200, "image/jpeg"):
+            raise AssertionError(f"config 5 stream {path[:80]}: {status} {ctype}")
+    wall, got = load_window(port, reqs, CONFIG4_CLIENTS, CONFIG4_PER_CLIENT)
+    bad = [g for g in got if (g[2], g[3]) != (200, "image/jpeg")]
+    if bad:
+        raise AssertionError(f"{len(bad)} config 5 answers under load failed: {bad[0][2]}")
+    load = [g[1] for g in got]
+    return {"one_p50_ms": float(np.percentile(lat, 50)),
+            "one_p99_ms": float(np.percentile(lat, 99)),
+            "load_p50_ms": float(np.percentile(load, 50)),
+            "load_p99_ms": float(np.percentile(load, 99)),
+            "load_rps": len(got) / wall, "requests": len(lat) + len(got)}
+
+
+def url_source_phase(png: bytes, stream: list) -> dict:
+    """Phase 12 (see the module docstring): config 1 over ?url=, the
+    placed K7 behind /watermarkimage and a /pipeline watermarkImage, the
+    source's error statuses and forwarded headers, and config 5's stream
+    over ?url=."""
+    import contextlib
+    import re
+
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch import cli, codecs, kernels
+    from imaginary_tpu_torch.ops import chain
+
+    with open(LARGE_JPG, "rb") as f:
+        large = f.read()
+    mark_png = make_mark()
+    mark = codecs.decode(mark_png).array
+    bodies = {"/large.jpg": large, "/mark.png": mark_png, "/4k.png": png}
+    with open(os.path.join(ROOT, "tests", "testdata", "imaginary.jpg"), "rb") as f:
+        bodies["/imaginary.jpg"] = f.read()
+    for i, (buf, _, _) in enumerate(stream):
+        bodies[f"/c5/{i}"] = buf
+    out: dict = {}
+    with contextlib.ExitStack() as stack:
+        origin = Origin(bodies)
+        stack.callback(origin.close)
+        o = origin.url
+        card = cli.make_server_from_args(cli.parse_args(url_server_args(origin, DEVICE)))
+        stack.callback(start(card))
+        cpu = cli.make_server_from_args(cli.parse_args(url_server_args(origin, "cpu")))
+        stack.callback(start(cpu))
+        mounted = cli.make_server_from_args(
+            cli.parse_args(url_server_args(origin, DEVICE, mount=True)))
+        stack.callback(start(mounted))
+        port, cpu_port, mount_port = (srv.server_address[1] for srv in (card, cpu, mounted))
+        fwd = {"X-Forward-Authorization": URL_AUTH, URL_FORWARD: "phase-12",
+               "X-Request-ID": "chip-smoke-url"}
+        url_get = f"/resize?width=300&height=200&url={o}/large.jpg"
+        wm_get = (f"/watermarkimage?url={o}/large.jpg&image={o}/mark.png&top={MARK_AT[0]}"
+                  f"&left={MARK_AT[1]}&opacity={MARK_OPACITY}")
+        ops = json.dumps(URL_PIPELINE_OPS).replace("{origin}", o)
+        pipe_get = f"/pipeline?url={o}/4k.png&operations={urllib.parse.quote(ops)}"
+        # the plans: config 1's K2 -> K1 -> K4 -> K3, /watermarkimage's
+        # K2 -> K7 -> K4 (the bucket shrink to 1088x1920) -> K3, the 4K
+        # PNG /pipeline's K1 -> K7, each K7 placed
+        runs = {"url": marked_runs(large, "resize", {"width": "300", "height": "200"}, None),
+                "watermarkimage": marked_runs(
+                    large, "watermarkImage",
+                    {"image": "m", "top": str(MARK_AT[0]), "left": str(MARK_AT[1]),
+                     "opacity": str(MARK_OPACITY)}, mark),
+                "pipeline": marked_runs(png, "pipeline", {"operations": ops}, mark)}
+        want = {}
+        for name, seen in runs.items():
+            if len(seen) != 1:
+                raise AssertionError(f"{name}: {len(seen)} chain runs, not 1")
+            arr, plan = seen[0]
+            want[name] = {k: v for k, v in expected_launches(plan, arr).items() if v}
+            k7 = [s.replicate for s in plan.spec_key() if type(s).__name__ == "CompositeSpec"]
+            if k7 != ([] if name == "url" else [False]):
+                raise AssertionError(f"{name}: the plan's K7 modes are {k7}")
+            err = planes_err(chain.run_single(arr, plan, device=DEVICE),
+                             chain.run_single(arr, plan, device="cpu"))
+            if err > U8_TOL:
+                raise AssertionError(f"{name}: the chain's planes cuda vs cpu {err} LSB")
+            out.setdefault("planes_lsb", {})[name] = err
+        if want["url"] != {k: 1 for k in CONFIG1_KERNELS}:
+            raise AssertionError(f"config 1's plan launches {want['url']}")
+        if want["watermarkimage"] != {"yuv420_unpack": 1, "composite": 1, "gather": 1,
+                                      "yuv420_pack": 1}:
+            raise AssertionError(f"/watermarkimage's plan launches {want['watermarkimage']}")
+
+        # one untimed request of each first
+        for p_, h_ in ((url_get, fwd), (wm_get, {}), (pipe_get, {})):
+            status, _, _ = http_get(port, p_, h_)
+            if status != 200:
+                raise AssertionError(f"{p_[:60]}: {status}")
+        http_get(mount_port, CONFIG1_GET)
+        # the counted run: (a), then (b)'s two requests, K7's mode spied
+        modes: list = []
+        composite = kernels.composite
+
+        def spy(*a, **k):
+            modes.append(bool(a[7] if len(a) > 7 else k["replicate"]))
+            return composite(*a, **k)
+
+        kernels.composite = spy
+        try:
+            kernels.reset_launches()
+            got = {"url": http_get(port, url_get, fwd), "watermarkimage": http_get(port, wm_get),
+                   "pipeline": http_get(port, pipe_get)}
+            out["launches"] = kernels.launch_counts()
+        finally:
+            kernels.composite = composite
+        total = {}
+        for w in want.values():
+            for k, v in w.items():
+                total[k] = total.get(k, 0) + v
+        if {k: v for k, v in out["launches"].items() if v} != total:
+            raise AssertionError(f"phase 12's counted run launched {out['launches']}, "
+                                 f"the plans say {total}")
+        if modes != [False, False]:
+            raise AssertionError(f"K7 launched with replicate {modes}, not placed twice")
+        # (a) byte-equal to ?file= on the --mount server
+        status, hdrs, body = got["url"]
+        f_status, _, f_body = http_get(mount_port, CONFIG1_GET)
+        if (status, hdrs.get("Content-Type"), f_status) != (200, "image/jpeg", 200):
+            raise AssertionError(f"(a): {status} {hdrs.get('Content-Type')}, ?file= {f_status}")
+        if body != f_body:
+            raise AssertionError("(a): ?url= answered other bytes than ?file=")
+        seen = [h for p_, h in origin.seen if p_ == "/large.jpg"
+                and h.get("X-Request-ID") == "chip-smoke-url"]
+        if not seen:
+            raise AssertionError("the origin saw no GET of the counted ?url= request")
+        h = seen[-1]
+        hdr_checks = {"authorization": h.get("Authorization") == URL_AUTH,
+                      "forwarded": h.get(URL_FORWARD) == "phase-12",
+                      "traceparent": bool(re.match(r"^00-[0-9a-f]{32}-[0-9a-f]{16}-[0-9a-f]{2}$",
+                                                   h.get("traceparent", "")))}
+        if not all(hdr_checks.values()):
+            raise AssertionError(f"the origin saw {h}: {hdr_checks}")
+        out["origin_headers"] = {k: h.get(k) for k in ("Authorization", URL_FORWARD,
+                                                       "traceparent", "X-Request-ID")}
+        # the launches of (a) and (b) by torch.profiler, and (a)'s card
+        # time beside ?file='s, in turns
+        prof: dict = {"url": [], "file": []}
+        for _ in range(URL_PROFILED):
+            prof["url"].append(profiled_request(lambda: http_get(port, url_get, fwd),
+                                                want["url"]))
+            prof["file"].append(profiled_request(lambda: http_get(mount_port, CONFIG1_GET),
+                                                 want["url"]))
+        for name, path in (("watermarkimage", wm_get), ("pipeline", pipe_get)):
+            prof[name] = [profiled_request(lambda p_=path: http_get(port, p_), want[name])]
+        for name, windows in prof.items():
+            w = want["url" if name == "file" else name]
+            full = [p_ for p_ in windows if p_[0] == w and not p_[1]]
+            if not full:
+                raise AssertionError(f"{name}: torch.profiler saw {windows[0][0]} and "
+                                     f"{windows[0][1]}, the plan says {w}")
+            out.setdefault("profiled", {})[name] = {
+                "kernels": full[0][0], "busy_us": [p_[2] for p_ in windows]}
+        # (b) against the CPU server
+        for name, path in (("watermarkimage", wm_get), ("pipeline", pipe_get)):
+            status, hdrs, body = got[name]
+            c_status, c_hdrs, c_body = http_get(cpu_port, path)
+            ctype = hdrs.get("Content-Type")
+            want_ctype = "image/jpeg" if name == "watermarkimage" else "image/png"
+            if (status, ctype, c_status, c_hdrs.get("Content-Type")) != (
+                    200, want_ctype, 200, want_ctype):
+                raise AssertionError(f"(b) {name}: card {status} {ctype}, cpu {c_status}")
+            a = codecs.decode(body).array.astype(np.int32)
+            b = codecs.decode(c_body).array.astype(np.int32)
+            if a.shape != b.shape:
+                raise AssertionError(f"(b) {name}: {a.shape} against the CPU's {b.shape}")
+            entry = {"dims": a.shape[:2], "max_lsb": int(np.abs(a - b).max()),
+                     "bytes_identical": body == c_body}
+            if name == "watermarkimage":
+                # JPEG answers of planes up to 1 LSB apart: phase 9's rule
+                # (coefficients within 1; pixels within 1 LSB in every MCU
+                # whose coefficients, and its neighbours', agree)
+                entry.update(coefficient_parity(body, c_body, a.shape[:2], margin=1))
+            elif entry["max_lsb"] > U8_TOL:
+                raise AssertionError(f"(b) {name}: {entry['max_lsb']} LSB from the CPU's")
+            out.setdefault("marked", {})[name] = entry
+        # (c) the source's error statuses
+        errors = (
+            (f"/resize?width=300&url={o}/gone.jpg", 502,
+             f"error fetching remote http image: origin answered status=404 "
+             f"(url={o}/gone.jpg)"),
+            ("/resize?width=300&url=not-a-url", 400, "Invalid image URL"),
+            (f"/resize?width=300&url=http://localhost:{origin.port}/large.jpg", 400,
+             f"not allowed remote URL origin: localhost:{origin.port}/large.jpg"),
+            (f"/resize?width=300&url={o}/big.jpg", 413,
+             f"content length {URL_CAP + 1} exceeds maximum allowed {URL_CAP} bytes"))
+        for path, code, message in errors:
+            status, hdrs, body = http_get(port, path)
+            msg = json.loads(body).get("message") if status == code else None
+            if (status, hdrs.get("Content-Type"), msg) != (code, "application/json", message):
+                raise AssertionError(f"{path}: {status} {body[:200]!r}, not {code} {message}")
+        status, _, _ = http_get(port, f"/resize?width=300&url={o}/flaky.jpg")
+        if (status, origin.gets("/flaky.jpg")) != (200, 2):
+            raise AssertionError(f"503 then 200: {status} after "
+                                 f"{origin.gets('/flaky.jpg')} GETs, not 200 after 2")
+        out["errors"] = {p_: c for p_, c, _ in errors}
+        out["retried_gets"] = origin.gets("/flaky.jpg")
+        # (d) config 5's stream: ?url= and the same bytes as bodies, in turns
+        url_reqs = [(f"{URL_STREAM_PATH}&url={o}/c5/{i}", None) for i in range(len(stream))]
+        body_reqs = [(URL_STREAM_PATH, buf) for buf, _, _ in stream]
+        out["config5"] = {"url": stream_runs(port, url_reqs),
+                          "body": stream_runs(port, body_reqs)}
+    a_busy = out["profiled"]
+    log(f"  (a) config 1 over ?url=: byte-equal to ?file=; launches "
+        f"{a_busy['url']['kernels']} (torch.profiler), card busy us a request "
+        f"?url= {', '.join(f'{v:.1f}' for v in a_busy['url']['busy_us'])} / ?file= "
+        f"{', '.join(f'{v:.1f}' for v in a_busy['file']['busy_us'])} (in turns)")
+    log(f"  origin saw {out['origin_headers']}")
+    for name in ("watermarkimage", "pipeline"):
+        m = out["marked"][name]
+        log(f"  (b) {name}: {m['dims']}, kernels {a_busy[name]['kernels']} (K7 placed), "
+            f"card busy {a_busy[name]['busy_us'][0]:.1f} us; against the CPU server "
+            f"max {m['max_lsb']} LSB"
+            + (f" (coefficients max {m['max_coef_diff']}, {m['differing_share']:.2e} "
+               f"differ, {m['mcus_equal_share']:.4f} of the MCUs and their neighbours "
+               f"equal, {m['max_lsb_where_equal']} LSB there)"
+               if name == "watermarkimage" else "")
+            + f"; chain planes cuda vs cpu {out['planes_lsb'][name]} LSB")
+    log(f"  (c) {out['errors']}; 503 then 200 after {out['retried_gets']} GETs")
+    smi = smi_line()
+    for src, r in out["config5"].items():
+        log(f"  (d) config 5 stream ({len(stream)} images) as {src}: one at a time p50 "
+            f"{r['one_p50_ms']:.2f} ms, p99 {r['one_p99_ms']:.2f} ms; {CONFIG4_CLIENTS} "
+            f"clients p50 {r['load_p50_ms']:.2f} ms, p99 {r['load_p99_ms']:.2f} ms, "
+            f"{r['load_rps']:.1f} req/s [{smi}]")
+    torch.cuda.synchronize()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4006,6 +4500,9 @@ def main() -> int:
     log("== phase 11: the HTTP layer on the card (config 1 with the reference's "
         "middleware chain, /info, /metrics, a placeholder, the throttle)")
     report["http"] = http_layer_phase()
+    log("== phase 12: URL sources and watermarkImage on the card (config 1 over ?url=, "
+        "the placed K7, the source's statuses, config 5's stream over ?url=)")
+    report["url"] = url_source_phase(png, stream)
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -4035,6 +4532,7 @@ def main() -> int:
             "launches_sharded_blur": report["sharded_blur"]["launches"][name],
             "launches_spatial": report["spatial"]["launches"][name],
             "launches_http": report["http"]["launches"][name],
+            "launches_url": report["url"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -20,7 +20,12 @@ import sys
 
 from imaginary_tpu_torch import Version
 from imaginary_tpu_torch.engine.executor import MAX_BATCH, MESH_POLICIES
-from imaginary_tpu_torch.web.config import ServerOptions, parse_endpoints
+from imaginary_tpu_torch.web.config import (
+    ServerOptions,
+    parse_endpoints,
+    parse_forward_headers,
+    parse_origins,
+)
 
 
 def _env_float(name: str, default: float) -> float:
@@ -75,17 +80,24 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env_int("IMAGINARY_TPU_HTTP_READ_TIMEOUT", 60))
     p.add_argument("--http-write-timeout", type=int,
                    default=_env_int("IMAGINARY_TPU_HTTP_WRITE_TIMEOUT", 60))
+    p.add_argument("--enable-url-source", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_ENABLE_URL_SOURCE"),
+                   help="allow GET ?url= fetches")
     p.add_argument("--enable-placeholder", action="store_true",
                    default=_env_bool("IMAGINARY_TPU_ENABLE_PLACEHOLDER"),
                    help="placeholder on errors")
+    p.add_argument("--enable-auth-forwarding", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_ENABLE_AUTH_FORWARDING"))
     p.add_argument("--enable-url-signature", action="store_true",
                    default=_env_bool("IMAGINARY_TPU_ENABLE_URL_SIGNATURE"))
     p.add_argument("--url-signature-key",
                    default=_env_str("IMAGINARY_TPU_URL_SIGNATURE_KEY", ""))
+    p.add_argument("--allowed-origins",
+                   default=_env_str("IMAGINARY_TPU_ALLOWED_ORIGINS", ""),
+                   help="CSV of allowed origin URLs")
     p.add_argument("--max-allowed-size", type=int,
                    default=_env_int("IMAGINARY_TPU_MAX_ALLOWED_SIZE", 0),
-                   help="max source bytes of a URL fetch (URL sources are "
-                        "not ported yet)")
+                   help="max source bytes")
     p.add_argument("--max-allowed-resolution", type=float,
                    default=_env_float("IMAGINARY_TPU_MAX_ALLOWED_RESOLUTION", 18.0),
                    help="max megapixels")
@@ -94,6 +106,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--require-device", action="store_true",
                    default=_env_bool("IMAGINARY_TPU_REQUIRE_DEVICE"),
                    help="refuse to start unless the kernels run on a CUDA device")
+    p.add_argument("--authorization",
+                   default=_env_str("IMAGINARY_TPU_AUTHORIZATION", ""),
+                   help="fixed Authorization header for origins")
+    p.add_argument("--forward-headers",
+                   default=_env_str("IMAGINARY_TPU_FORWARD_HEADERS", ""),
+                   help="CSV of headers to forward")
     p.add_argument("--placeholder",
                    default=_env_str("IMAGINARY_TPU_PLACEHOLDER", ""),
                    help="placeholder image path")
@@ -125,6 +143,18 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env_bool("IMAGINARY_TPU_DISABLE_TRACING"),
                    help="disable per-request span tracing and Server-Timing "
                         "(X-Request-ID is still assigned)")
+    # the retry policy of remote sources (web/sources.py)
+    p.add_argument("--source-retries", type=int,
+                   default=_env_int("IMAGINARY_TPU_SOURCE_RETRIES", 2),
+                   help="retry budget for remote ?url=/watermark fetches "
+                        "(connect errors, timeouts, 5xx, 429; exponential "
+                        "backoff + full jitter, honors Retry-After)")
+    p.add_argument("--source-connect-timeout", type=float,
+                   default=_env_float("IMAGINARY_TPU_SOURCE_CONNECT_TIMEOUT", 5.0),
+                   help="per-attempt origin connect timeout in seconds")
+    p.add_argument("--source-read-timeout", type=float,
+                   default=_env_float("IMAGINARY_TPU_SOURCE_READ_TIMEOUT", 30.0),
+                   help="per-attempt origin total read timeout in seconds")
     # the executor (engine/executor.py)
     p.add_argument("--max-batch", type=int,
                    default=_env_int("IMAGINARY_TPU_MAX_BATCH", MAX_BATCH),
@@ -232,13 +262,18 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         api_key=args.key,
         mount=args.mount,
         http_cache_ttl=args.http_cache_ttl,
+        enable_url_source=args.enable_url_source,
         enable_placeholder=args.enable_placeholder,
+        auth_forwarding=args.enable_auth_forwarding,
         enable_url_signature=args.enable_url_signature,
         url_signature_key=signature_key,
+        allowed_origins=parse_origins(args.allowed_origins),
         max_allowed_size=args.max_allowed_size,
         max_allowed_pixels=args.max_allowed_resolution,
         cert_file=args.certfile,
         key_file=args.keyfile,
+        authorization=args.authorization,
+        forward_headers=parse_forward_headers(args.forward_headers),
         placeholder=args.placeholder,
         placeholder_image=placeholder_image,
         placeholder_status=args.placeholder_status,
@@ -249,6 +284,9 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         cpus=args.cpus,
         endpoints=parse_endpoints(args.disable_endpoints),
         trace_enabled=not args.disable_tracing,
+        source_retries=max(0, args.source_retries),
+        source_connect_timeout_s=max(0.001, args.source_connect_timeout),
+        source_read_timeout_s=max(0.001, args.source_read_timeout),
         device=args.device,
         max_batch=args.max_batch,
         batch_form_ms=max(0.0, args.batch_form_ms),

@@ -61,3 +61,4 @@ ErrInvalidURLSignature = ImageError("Invalid URL signature", 400)
 ErrURLSignatureMismatch = ImageError("URL signature mismatch", 403)
 ErrResolutionTooBig = ImageError("Image resolution is too big", 422)
 ErrEntityTooLarge = ImageError("Entity is too large", 413)
+ErrInvalidImageURL = ImageError("Invalid image URL", 400)

@@ -1,49 +1,100 @@
 """Fault injection for the port (a trimmed copy of
-`imaginary_tpu/failpoints.py:244-355`).
+`imaginary_tpu/failpoints.py`).
 
-One site is ported, the one the lane tier and its fault domains drive:
+Three sites are ported:
 
+  source.fetch       one remote ?url= or watermark GET attempt
+                     (web/sources.py);
+  source.head        the HEAD size pre-check (web/sources.py);
   device.chip_error  one chunk launch on one mesh entry, and that
                      entry's re-admission probe (engine/executor.py);
                      keyable by the entry's flat index:
                      `device.chip_error[1]=error` fails entry 1 alone.
 
 Spec grammar: `site=action` clauses joined by `;`, where action is
-`error` or `error(p)` (fire with probability p). A bare site matches
-every key. `hit()` is one falsy check while nothing is armed.
+
+  error["(" P ")"]           raise FailpointError, with probability P
+                             (default 1);
+  timeout["(" DURATION ")"]  sleep DURATION (default 60s), then raise
+                             TimeoutError (asyncio.TimeoutError at an
+                             async site, so the caller's timeout mapping
+                             fires);
+  once "(" ACTION ")"        fire the wrapped action exactly once;
+
+and DURATION is a number with `ms` or `s` (200ms, 1.5s). A bare site
+matches every key. `hit()` and `ahit()` are one falsy check while
+nothing is armed. `snapshot()` reports each armed site's hits and
+firings, spent `once` sites included.
 """
 
 from __future__ import annotations
 
+import asyncio
 import random
 import re
 import threading
+import time
 from typing import Optional
 
-SITES = ("device.chip_error",)
+SITES = ("source.fetch", "source.head", "device.chip_error")
 
 _KEYED_SITE_RE = re.compile(r"^([\w.]+)\[(\w+)\]$")
+_DURATION_RE = re.compile(r"^(\d+(?:\.\d+)?)(ms|s)$")
+_DEFAULT_TIMEOUT_S = 60.0
 
 
 class FailpointError(RuntimeError):
     """An injected fault. It surfaces through the same exception paths a
-    real device failure takes."""
+    real failure takes."""
 
 
-def _parse_action(text: str) -> float:
-    """The firing probability of an `error` / `error(p)` action."""
-    m = re.match(r"^error(?:\((.*)\))?$", text.strip())
+class _Spec:
+    __slots__ = ("kind", "p", "duration_s", "once", "raw")
+
+    def __init__(self, kind: str, p: float = 1.0, duration_s: float = 0.0,
+                 once: bool = False, raw: str = ""):
+        self.kind = kind  # error | timeout
+        self.p = p
+        self.duration_s = duration_s
+        self.once = once
+        self.raw = raw
+
+
+def _parse_duration(text: str) -> float:
+    m = _DURATION_RE.match(text.strip())
     if not m:
-        raise ValueError(f"bad action {text!r} (want error or error(p))")
-    p = float(m.group(1)) if m.group(1) else 1.0
-    if not 0.0 <= p <= 1.0:
-        raise ValueError(f"error probability {p} outside [0, 1]")
-    return p
+        raise ValueError(f"bad duration {text!r} (want e.g. 200ms or 1.5s)")
+    v = float(m.group(1))
+    return v / 1000.0 if m.group(2) == "ms" else v
+
+
+def _parse_action(text: str) -> _Spec:
+    text = text.strip()
+    m = re.match(r"^(\w+)(?:\((.*)\))?$", text)
+    if not m:
+        raise ValueError(f"bad action {text!r}")
+    name, arg = m.group(1), m.group(2)
+    if name == "once":
+        if not arg:
+            raise ValueError("once needs a wrapped action, e.g. once(error)")
+        inner = _parse_action(arg)
+        inner.once = True
+        inner.raw = text
+        return inner
+    if name == "error":
+        p = float(arg) if arg else 1.0
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"error probability {p} outside [0, 1]")
+        return _Spec("error", p=p, raw=text)
+    if name == "timeout":
+        dur = _parse_duration(arg) if arg else _DEFAULT_TIMEOUT_S
+        return _Spec("timeout", duration_s=dur, raw=text)
+    raise ValueError(f"unknown failpoint action {name!r} (want error, timeout or once)")
 
 
 def parse(spec: str) -> dict:
-    """Parse a spec into {site: probability}; raises ValueError on an
-    unknown site or a malformed clause."""
+    """Parse a spec into {site: _Spec}; raises ValueError on an unknown
+    site or a malformed clause."""
     out: dict = {}
     for part in (spec or "").split(";"):
         part = part.strip()
@@ -62,16 +113,20 @@ def parse(spec: str) -> dict:
 
 
 # Swapped whole on (de)activation, so hit() reads it without a lock.
+# _counts ({site: [hits, fired]}) outlives deactivation until the next
+# activate, so a finished run can still be read.
 _active: dict = {}
+_counts: dict = {}
 _lock = threading.Lock()
 
 
 def activate(spec: str) -> None:
     """Arm the failpoints described by `spec`; an empty spec disarms."""
-    global _active
+    global _active, _counts
     parsed = parse(spec)
     with _lock:
         _active = parsed
+        _counts = {site: [0, 0] for site in parsed}
 
 
 def deactivate() -> None:
@@ -80,15 +135,59 @@ def deactivate() -> None:
         _active = {}
 
 
-def hit(site: str, key=None) -> None:
-    """Raise FailpointError when `site` (or its `site[key]` spelling) is
-    armed and fires; a no-op otherwise."""
+def snapshot() -> dict:
+    """{"enabled", "sites": {site: {"action", "hits", "fired"}}}."""
+    with _lock:
+        sites = {site: {"action": sp.raw, "hits": _counts.get(site, [0, 0])[0],
+                        "fired": _counts.get(site, [0, 0])[1]}
+                 for site, sp in _active.items()}
+        for site, c in _counts.items():
+            sites.setdefault(site, {"action": "(spent)", "hits": c[0], "fired": c[1]})
+    return {"enabled": bool(_active), "sites": sites}
+
+
+def _decide(site: str, key=None) -> Optional[_Spec]:
     active = _active
     if not active:
+        return None
+    name, sp = site, None
+    if key is not None:
+        name = f"{site}[{key}]"
+        sp = active.get(name)
+    if sp is None:
+        name, sp = site, active.get(site)
+    if sp is None:
+        return None
+    with _lock:
+        c = _counts.setdefault(name, [0, 0])
+        c[0] += 1
+        if sp.p < 1.0 and random.random() >= sp.p:
+            return None
+        c[1] += 1
+        if sp.once:
+            active.pop(name, None)
+    return sp
+
+
+def hit(site: str, key=None) -> None:
+    """Synchronous site: raise when `site` (or its `site[key]` spelling)
+    is armed and fires; a no-op otherwise."""
+    sp = _decide(site, key)
+    if sp is None:
         return
-    p: Optional[float] = active.get(f"{site}[{key}]") if key is not None else None
-    if p is None:
-        p = active.get(site)
-    if p is None or (p < 1.0 and random.random() >= p):
+    if sp.kind == "timeout":
+        time.sleep(sp.duration_s)
+        raise TimeoutError(f"failpoint {site}: injected timeout")
+    raise FailpointError(f"failpoint {site}: injected error")
+
+
+async def ahit(site: str, key=None) -> None:
+    """Async site (event-loop paths): a `timeout` raises
+    asyncio.TimeoutError, as a real stall does."""
+    sp = _decide(site, key)
+    if sp is None:
         return
+    if sp.kind == "timeout":
+        await asyncio.sleep(sp.duration_s)
+        raise asyncio.TimeoutError(f"failpoint {site}: injected timeout")
     raise FailpointError(f"failpoint {site}: injected error")

@@ -100,6 +100,11 @@ class RequestTrace:
         """This request's own span context."""
         return f"00-{self.trace_id}-{self.span_id}-{self.flags}"
 
+    def outbound_traceparent(self) -> str:
+        """A fresh child span id for each outbound hop (each ?url= or
+        watermark fetch is its own child of this request's span)."""
+        return f"00-{self.trace_id}-{secrets.token_hex(8)}-{self.flags}"
+
     def exemplar(self) -> tuple:
         """(request_id, trace_id): the identity pair the latency
         histograms attach to their buckets."""

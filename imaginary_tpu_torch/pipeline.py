@@ -18,8 +18,13 @@ every stage of every op into one chain: decode once, encode once.
 `info` answers the /info JSON from a header probe. Each request's probe,
 decode, encode and total times go to the TIMES ledger (engine/timing.py),
 and with it to the request's trace; the device run is its "execute" span.
-URL sources (so `watermarkImage`, which answers 501), the frame cache, the
-COPIES ledger and failpoints wait for later slices.
+A `watermarkImage` takes its mark as a decoded RGBA array
+(`watermark_rgba`): the web layer fetches and decodes the URL before the
+pool dispatch, as the reference's handler does, so this module holds no
+fetcher. The same mark serves every `watermarkImage` op of a pipeline,
+and an op without it answers the reference's 400 "Unable to retrieve
+watermark image: <url>" from the planner. The frame cache, the COPIES
+ledger and the codec failpoints wait for later slices.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import json
 import threading
 import time
 from typing import Optional
+
+import numpy as np
 
 from imaginary_tpu_torch import codecs
 from imaginary_tpu_torch.codecs import EncodeOptions, YuvPlanes, jpeg_dct
@@ -249,19 +256,22 @@ def info(buf: bytes, o: ImageOptions) -> ProcessedImage:
 
 
 def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
-                      meta=None, runner=None) -> ProcessedImage:
+                      meta=None, runner=None,
+                      watermark_rgba: Optional[np.ndarray] = None) -> ProcessedImage:
     """Run one named operation end to end (decode -> device -> encode).
 
     meta: an ImageMetadata the caller already probed, so the hot path
-    parses headers once. runner: see `_run_stages`."""
+    parses headers once. runner: see `_run_stages`. watermark_rgba: the
+    HxWx4 uint8 mark of `watermarkImage` (and of every `watermarkImage`
+    op of a pipeline)."""
     if name == "info":
         return info(buf, o)
     if name == "pipeline":
-        return process_pipeline(buf, o, device=device, meta=meta, runner=runner)
+        return process_pipeline(buf, o, device=device, meta=meta, runner=runner,
+                                watermark_rgba=watermark_rgba)
     if name not in OPERATION_NAMES:
         raise new_error(f"Unsupported operation: {name}", 400)
     t_start = time.monotonic()
-    _fetch_watermark(name, o)
     src_type = determine_image_type(buf)
     if meta is None and src_type is ImageType.JPEG:
         try:
@@ -272,20 +282,20 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
     TIMES.record("probe", (time.monotonic() - t_start) * 1000.0)
 
     if _dct_eligible(src_type, meta, o):
-        out = _process_dct(name, buf, o, meta, shrink, device, runner)
+        out = _process_dct(name, buf, o, meta, shrink, device, runner, watermark_rgba)
         if out is not None:
             TIMES.record("total", (time.monotonic() - t_start) * 1000.0)
             return out
 
     if _yuv_eligible(src_type, meta, o):
-        out = _process_yuv420(name, buf, o, meta, shrink, device, runner)
+        out = _process_yuv420(name, buf, o, meta, shrink, device, runner, watermark_rgba)
         if out is not None:
             TIMES.record("total", (time.monotonic() - t_start) * 1000.0)
             return out
 
     d = _decode(buf, shrink)
     plan = plan_operation(name, o, d.array.shape[0], d.array.shape[1], d.orientation,
-                          d.array.shape[2])
+                          d.array.shape[2], watermark_rgba=watermark_rgba)
     arr = _run_stages(d.array, plan, device, runner)
     out = _encode(arr, o, _encode_type(o, d.type))
     out = _carry_metadata(buf, o.strip_metadata, out, not o.no_rotation,
@@ -329,8 +339,8 @@ def _decode_dct_packed(buf, shrink, sh, sw):
     return got[0], got[3]
 
 
-def _process_dct(name, buf, o, meta, shrink, device,
-                 runner) -> Optional[ProcessedImage]:
+def _process_dct(name, buf, o, meta, shrink, device, runner,
+                 watermark_rgba) -> Optional[ProcessedImage]:
     """Serve a JPEG->JPEG request over the compressed-domain transport;
     None hands it to the yuv420/rgb paths: an identity chain (which the
     yuv420 path serves from raw planes with no device work, so it is
@@ -338,7 +348,8 @@ def _process_dct(name, buf, o, meta, shrink, device,
     Parameter errors raise exactly as the other paths would."""
     sh = -(-meta.height // shrink)
     sw = -(-meta.width // shrink)
-    plan = plan_operation(name, o, sh, sw, meta.orientation, 3)
+    plan = plan_operation(name, o, sh, sw, meta.orientation, 3,
+                          watermark_rgba=watermark_rgba)
     if not plan.stages:
         return None
     got = _decode_dct_packed(buf, shrink, sh, sw)
@@ -381,8 +392,8 @@ def _decode_yuv_packed(buf, shrink, sh, sw):
     return packed, hb, wb
 
 
-def _process_yuv420(name, buf, o, meta, shrink, device,
-                    runner) -> Optional[ProcessedImage]:
+def _process_yuv420(name, buf, o, meta, shrink, device, runner,
+                    watermark_rgba) -> Optional[ProcessedImage]:
     """Serve a JPEG->JPEG request over the packed-plane transport; None
     falls back to the RGB path. Parameter errors raise exactly as the RGB
     path would, since the plan math is identical."""
@@ -392,7 +403,8 @@ def _process_yuv420(name, buf, o, meta, shrink, device,
     if got is None:
         return None
     packed, hb, wb = got
-    plan = plan_operation(name, o, sh, sw, meta.orientation, 3)
+    plan = plan_operation(name, o, sh, sw, meta.orientation, 3,
+                          watermark_rgba=watermark_rgba)
     target = _encode_type(o, ImageType.JPEG)
     if not plan.stages:
         # identity chain: planes go straight back to the raw encoder
@@ -419,7 +431,8 @@ def _pick_shrink(name: str, src_type: ImageType, o: ImageOptions, meta) -> int:
 
 
 def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
-                     runner=None) -> ProcessedImage:
+                     runner=None,
+                     watermark_rgba: Optional[np.ndarray] = None) -> ProcessedImage:
     """Fused multi-op pipeline (ref: Pipeline, image.go:379-410).
 
     All ops' stages concatenate into ONE chain; `ignore_failure` skips an
@@ -456,7 +469,7 @@ def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
         sh = -(-meta.height // shrink)
         sw = -(-meta.width // shrink)
         combined, final_o, target, rotated, strip = _build_pipeline_plan(
-            o, sh, sw, meta.orientation, 3, ImageType.JPEG)
+            o, sh, sw, meta.orientation, 3, ImageType.JPEG, watermark_rgba)
         # identity chains go on to the yuv path, which serves them
         # straight from raw planes with no device round trip at all
         got = _decode_dct_packed(buf, shrink, sh, sw) if combined.stages else None
@@ -477,7 +490,7 @@ def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
         if got is not None:
             packed, hb, wb = got
             combined, final_o, target, rotated, strip = _build_pipeline_plan(
-                o, sh, sw, meta.orientation, 3, ImageType.JPEG)
+                o, sh, sw, meta.orientation, 3, ImageType.JPEG, watermark_rgba)
             if not combined.stages:
                 planes = codecs.unpack_planes(packed, sh, sw, hb, wb)
                 out = _encode(planes, final_o, target)
@@ -488,15 +501,18 @@ def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
 
     d = _decode(buf, shrink)
     combined, final_o, target, rotated, strip = _build_pipeline_plan(
-        o, d.array.shape[0], d.array.shape[1], d.orientation, d.array.shape[2], d.type)
+        o, d.array.shape[0], d.array.shape[1], d.orientation, d.array.shape[2], d.type,
+        watermark_rgba)
     arr = _run_stages(d.array, combined, device, runner)
     out = _encode(arr, final_o, target)
     return _carry_metadata(buf, strip, out, rotated, combined.out_w, combined.out_h)
 
 
-def _build_pipeline_plan(o, cur_h, cur_w, orientation, channels, src_type):
+def _build_pipeline_plan(o, cur_h, cur_w, orientation, channels, src_type,
+                         watermark_rgba=None):
     """Concatenate every op's stages into one combined plan (host math
-    only, so both transports share it). Returns (plan, the last op's
+    only, so both transports share it); every `watermarkImage` op takes
+    `watermark_rgba`. Returns (plan, the last op's
     options, the output type, whether the EXIF rotation was applied, and
     whether any op strips metadata)."""
     src_h0, src_w0 = cur_h, cur_w
@@ -515,8 +531,8 @@ def _build_pipeline_plan(o, cur_h, cur_w, orientation, channels, src_type):
         except ParamError as e:
             raise new_error(f"pipeline operation {i+1} failed: {e}", 400) from None
         try:
-            _fetch_watermark(op.name, op_opts)
-            plan = plan_operation(op.name, op_opts, cur_h, cur_w, orientation, channels)
+            plan = plan_operation(op.name, op_opts, cur_h, cur_w, orientation, channels,
+                                  watermark_rgba=watermark_rgba)
         except ImageError:
             if op.ignore_failure:
                 continue
@@ -534,10 +550,3 @@ def _build_pipeline_plan(o, cur_h, cur_w, orientation, channels, src_type):
     return (ImagePlan(stages=stages, out_h=cur_h, out_w=cur_w), final_o,
             target, orientation_applied, strip)
 
-
-def _fetch_watermark(name: str, o: ImageOptions) -> None:
-    """watermarkImage needs its image fetched from a URL, and URL sources
-    are not ported yet: 501 (an empty `image` is the planner's 400)."""
-    if name == "watermarkImage" and o.image:
-        raise new_error("watermarkImage (URL sources) is not ported to the "
-                        "PyTorch/CUDA package yet", 501)

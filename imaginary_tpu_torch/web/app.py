@@ -62,7 +62,7 @@ def create_app(o: ServerOptions, log_stream=None) -> web.Application:
     app["options"] = o
 
     async def on_cleanup(app):
-        service.close()
+        await service.aclose()
 
     app.on_cleanup.append(on_cleanup)
     prefix = o.path_prefix.rstrip("/")

@@ -2,8 +2,9 @@
 ref: ServerOptions, server.go:20-51).
 
 Immutable after startup and threaded through every constructor. Trimmed
-to the fields the port's HTTP layer reads, plus the executor, lane,
-spatial and transport knobs the port serves with and its own `device`.
+to the fields the port's HTTP layer and its URL sources read, plus the
+executor, lane, spatial and transport knobs the port serves with and its
+own `device`.
 The reference's --gzip, --http-read-timeout and --http-write-timeout
 parse (cli.py) but set nothing, as in the reference.
 """
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+from urllib.parse import urlparse
 
 from imaginary_tpu_torch.engine.executor import MAX_BATCH
 
@@ -24,9 +26,11 @@ class ServerOptions:
     burst: int = 100
     concurrency: int = 0
     http_cache_ttl: int = -1
-    max_allowed_size: int = 0  # bytes of a fetched URL source (URL sources: not ported)
+    max_allowed_size: int = 0  # bytes of a fetched URL source, 0 = no cap
     max_allowed_pixels: float = 18.0  # megapixels (ref: imaginary.go:36)
     cors: bool = False
+    auth_forwarding: bool = False
+    enable_url_source: bool = False
     enable_placeholder: bool = False
     enable_url_signature: bool = False
     url_signature_key: str = ""
@@ -34,16 +38,26 @@ class ServerOptions:
     mount: str = ""
     cert_file: str = ""
     key_file: str = ""
+    authorization: str = ""
     placeholder: str = ""
     placeholder_status: int = 0
+    forward_headers: tuple = ()
     placeholder_image: bytes = b""
     endpoints: tuple = ()  # disabled endpoint names (ref: Endpoints)
+    allowed_origins: tuple = ()  # (host, path prefix) pairs of parse_origins
     log_level: str = "info"
     return_size: bool = False
     cpus: int = 0  # host worker-thread cap, 0 = auto
     # Per-request span tracing: X-Request-ID is always assigned and
     # echoed; this gates span accumulation and Server-Timing.
     trace_enabled: bool = True
+    # ?url= and watermark origin fetches (web/sources.py): bounded retries
+    # with full-jitter backoff on connect errors, timeouts, 5xx and 429
+    # (Retry-After honoured, other 4xx never retried), and per-attempt
+    # connect and read timeouts under the 60 s ceiling
+    source_retries: int = 2
+    source_connect_timeout_s: float = 5.0
+    source_read_timeout_s: float = 30.0
     # --- the device and the executor (engine/executor.py) -------------------
     device: str = "cuda"  # torch device of the kernels: cuda, cuda:N or cpu
     max_batch: int = MAX_BATCH
@@ -74,3 +88,39 @@ class ServerOptions:
 def parse_endpoints(value: str) -> tuple:
     """CSV of endpoint names to disable (ref: imaginary.go:328-337)."""
     return tuple(e.strip().lower() for e in value.split(",") if e.strip())
+
+
+def parse_origins(value: str) -> tuple:
+    """CSV of allowed origin URLs as (host, path prefix) pairs
+    (ref: imaginary.go:303-326).
+
+    An origin given without a scheme parses host-less with `*.example.com`
+    in its path; the wildcard moves back into the host, as the
+    reference's documented examples need."""
+    origins = []
+    for raw in value.split(","):
+        raw = raw.strip()
+        if not raw:
+            continue
+        u = urlparse(raw if "//" in raw else "//" + raw)
+        host, path = u.netloc, u.path or ""
+        if host == "" and path.startswith("*."):
+            parts = path.split("/", 1)
+            host = parts[0]
+            path = "/" + parts[1] if len(parts) > 1 else ""
+        if path:
+            # ref: imaginary.go:314-321: a trailing "*" makes the path a
+            # raw prefix ("/bucket*" matches "/bucket-a/..."); any other
+            # path gets a trailing "/", so "/assets" never admits
+            # "/assetsevil/..."
+            if path.endswith("*"):
+                path = path[:-1]
+            elif not path.endswith("/"):
+                path += "/"
+        origins.append((host, path))
+    return tuple(origins)
+
+
+def parse_forward_headers(value: str) -> tuple:
+    """CSV of header names forwarded to origins (ref: imaginary.go:289-301)."""
+    return tuple(h.strip() for h in value.split(",") if h.strip())

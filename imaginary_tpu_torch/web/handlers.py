@@ -1,23 +1,25 @@
 """Controllers and the image handler (the port's copy of
 `imaginary_tpu/web/handlers.py`, trimmed to the subsystems the port has).
 
-`ImageService` owns the micro-batching executor and the host thread pool.
-Its `handle` coroutine is the image routes' controller: the URL
-signature and GET-source checks and the source fetch, then the
-framework-free core, `ImageService.process`, on the pool (`--cpus`
-workers, or max(4, usable CPUs)) under the request's context, so its
-spans land in the request's trace. The core runs the reference's handler
-semantics (controllers.go:79-156): media-type sniffing, param parsing,
-`type=auto` Accept negotiation with `Vary: Accept`, output-format
-validation, the --max-allowed-resolution guard, the pipeline, and
---return-size's headers. The device work of concurrent requests batches
+`ImageService` owns the micro-batching executor, the host thread pool
+and the sources. Its `handle` coroutine is the image routes' controller:
+the URL signature and GET-source checks and the source fetch (a remote
+GET for `?url=`, inside the `fetch` span), then the framework-free core,
+`ImageService.process`, on the pool (`--cpus` workers, or max(4, usable
+CPUs)) under the request's context, so its spans land in the request's
+trace. The core runs the reference's handler semantics
+(controllers.go:79-156): media-type sniffing, param parsing, `type=auto`
+Accept negotiation with `Vary: Accept`, output-format validation, the
+--max-allowed-resolution guard, the pipeline, and --return-size's
+headers. For `/watermarkimage` and `/pipeline` those checks run on the
+event loop, and then the watermark image's URL is fetched and decoded
+there too (`_prefetch_watermark`), before the pool dispatch, as the
+reference's handler does. The device work of concurrent requests batches
 in the executor, on the service's device. Every processed image answers
 `X-Imaginary-Backend: device`: nothing runs on a host path.
 
-Served: `/`, `/form`, `/health`, `/metrics`, `/info` and the image
-routes on JPEG (the native codec) and PNG, WEBP, GIF and TIFF (Pillow).
-`/watermarkimage` and `watermarkImage` in a pipeline answer 501 until URL
-sources land.
+Served: `/`, `/form`, `/health`, `/metrics`, `/info` and every image
+route on JPEG (the native codec) and PNG, WEBP, GIF and TIFF (Pillow).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
+import numpy as np
 import torch
 from aiohttp import web
 
@@ -40,7 +43,6 @@ from imaginary_tpu_torch.engine import Executor, ExecutorConfig
 from imaginary_tpu_torch.errors import (
     ErrEmptyBody,
     ErrNotFound,
-    ErrNotImplemented,
     ErrOutputFormat,
     ErrResolutionTooBig,
     ErrUnsupportedMedia,
@@ -66,14 +68,24 @@ from imaginary_tpu_torch.web.middleware import (
 )
 from imaginary_tpu_torch.web.sources import SourceRegistry
 
-# routes whose subsystem is not ported yet (URL sources): 501
-NOT_PORTED = ("watermarkImage",)
+# routes whose options may name a watermark image to fetch
+_MARKED_ROUTES = ("watermarkImage", "pipeline")
 
 _ACCEPT_TO_TYPE = {"image/webp": "webp", "image/png": "png", "image/jpeg": "jpeg"}
 
 # resized placeholders kept per service: an error storm asks for the same
 # few shapes again and again (ref: placeholder.py:37-47)
 _PLACEHOLDER_CACHE = 64
+
+
+@dataclasses.dataclass
+class Prepared:
+    """A request past the core's checks: its options, the Vary header of
+    its Accept negotiation, and the header probe the guard made."""
+
+    opts: ImageOptions
+    vary: str
+    meta: object = None
 
 
 @dataclasses.dataclass
@@ -124,7 +136,7 @@ class ImageService:
             raise RuntimeError(
                 "CUDA is not available; pass --device cpu to serve on the CPU")
         self.started = time.time()
-        self.registry = SourceRegistry(o.mount)
+        self.registry = SourceRegistry(o)
         self.executor = Executor(ExecutorConfig(
             max_batch=o.max_batch, max_form_ms=o.batch_form_ms,
             max_inflight=max(1, o.max_inflight), device=str(self.device),
@@ -151,11 +163,17 @@ class ImageService:
         self._closed = False
 
     def close(self) -> None:
+        """Shut the executor and the pool down; `aclose()` also closes the
+        sources' client sessions."""
         if self._closed:
             return
         self._closed = True
         self.executor.shutdown()
         self.pool.shutdown(wait=False)
+
+    async def aclose(self) -> None:
+        await self.registry.close()
+        self.close()
 
     def versions(self) -> dict:
         """`/`'s JSON: the port's version, the torch stack and the device
@@ -180,8 +198,6 @@ class ImageService:
     async def handle(self, request: web.Request, op_name: str) -> web.StreamResponse:
         o = self.options
         try:
-            if op_name in NOT_PORTED:
-                raise ErrNotImplemented
             if o.enable_url_signature:
                 check_url_signature(request, o)
             validate_image_request(request, o)
@@ -203,14 +219,27 @@ class ImageService:
 
     async def _process_and_respond(self, request, op_name, buf) -> web.Response:
         """Run the core on the host pool under the request's context (so
-        its spans land in this request's trace). The inflight ledger
-        decrements in the pool thread; a task cancelled while still queued
-        never runs, and the done-callback balances it."""
+        its spans land in this request's trace). On the routes that may
+        name a watermark image, the core's checks run here first and the
+        mark is fetched on the event loop. The inflight ledger decrements
+        in the pool thread; a task cancelled while still queued never
+        runs, and the done-callback balances it."""
+        query = dict(request.query)
+        prepared = watermark = None
+        if op_name in _MARKED_ROUTES:
+            prepared = self.prepare(buf, query, request.headers)
+            try:
+                watermark = await self._prefetch_watermark(op_name, prepared.opts)
+            except ImageError:
+                raise
+            except Exception as e:
+                # ref: handlers.py:787-790, as a failure of the work
+                raise new_error("Error processing image: " + str(e), 400) from None
         with self._inflight_lock:
             self._inflight += 1
         ctx = contextvars.copy_context()
         fut = self.pool.submit(ctx.run, self._process_counted, op_name, bytes(buf),
-                               dict(request.query), request.headers)
+                               query, request.headers, prepared, watermark)
         fut.add_done_callback(self._release_if_cancelled)
         got = await asyncio.wrap_future(fut)
         return web.Response(body=got.body, status=got.status,
@@ -221,10 +250,39 @@ class ImageService:
             with self._inflight_lock:
                 self._inflight -= 1
 
-    def _process_counted(self, op_name, buf, query, headers) -> Response:
+    async def _prefetch_watermark(self, op_name: str,
+                                  opts: ImageOptions) -> Optional[np.ndarray]:
+        """The RGBA watermark of `watermarkImage`, or of the first
+        `watermarkImage` op of a pipeline (ref: handlers.py:962-983):
+        fetched through the registry (origin-checked, 1 MB cap), decoded,
+        and given an opaque alpha plane when it has none. None when no
+        mark is named."""
+        url = ""
+        if op_name == "watermarkImage":
+            url = opts.image
+        elif op_name == "pipeline":
+            for op in opts.operations:
+                if op.name == "watermarkImage":
+                    url = str(op.params.get("image", ""))
+                    break
+        if not url:
+            return None
+        raw = await self.registry.fetch_watermark(url)
+        if not raw:
+            raise new_error("Unable to read watermark image", 400)
+        arr = codecs.decode(raw).array
+        if arr.shape[2] == 3:
+            alpha = np.full(arr.shape[:2] + (1,), 255, dtype=np.uint8)
+            arr = np.concatenate([arr, alpha], axis=2)
+        return arr
+
+    def _process_counted(self, op_name, buf, query, headers, prepared,
+                         watermark) -> Response:
         t0 = time.monotonic()
         try:
-            return self.process(op_name, buf, query, headers)
+            if prepared is None:
+                prepared = self.prepare(buf, query, headers)
+            return self.run(op_name, buf, prepared, watermark)
         finally:
             dt_ms = (time.monotonic() - t0) * 1000.0
             with self._inflight_lock:
@@ -235,6 +293,11 @@ class ImageService:
         """The framework-free core of an image route: `buf` under the
         operation `op_name` with the request's query ({key: first value})
         and headers. Raises ImageError for the error reply."""
+        return self.run(op_name, buf, self.prepare(buf, query, headers))
+
+    def prepare(self, buf: bytes, query: dict, headers=None) -> Prepared:
+        """The core's checks, in the reference's order: the media-type
+        sniff, the params, the output type and the resolution guard."""
         o = self.options
         # media-type sniff (ref: imageHandler controllers.go:80-84)
         sniffed = determine_image_type(buf)
@@ -265,15 +328,22 @@ class ImageService:
                 if e is ErrResolutionTooBig or e.code == 501:
                     raise
                 meta = None  # probe failure falls through; the decode raises
+        return Prepared(opts, vary, meta)
+
+    def run(self, op_name: str, buf: bytes, prepared: Prepared,
+            watermark_rgba: Optional[np.ndarray] = None) -> Response:
+        """The pipeline on a prepared request, and its response."""
         try:
-            out = pipeline.process_operation(op_name, buf, opts, device=self.device,
-                                             meta=meta, runner=self.executor.process)
+            out = pipeline.process_operation(op_name, buf, prepared.opts,
+                                             device=self.device, meta=prepared.meta,
+                                             runner=self.executor.process,
+                                             watermark_rgba=watermark_rgba)
         except ImageError:
             raise
         except Exception as e:
             # ref: handlers.py:787-790, any other failure of the work
             raise new_error("Error processing image: " + str(e), 400) from None
-        return self._build_response(out, op_name, vary)
+        return self._build_response(out, op_name, prepared.vary)
 
     def _build_response(self, out, op_name, vary) -> Response:
         headers = {}

@@ -302,10 +302,10 @@ def check_url_signature(request: web.Request, o: ServerOptions):
 
 
 def validate_image_request(request: web.Request, o: ServerOptions):
-    """GET image requests need -mount (URL sources are not ported;
-    ref: middleware.go:189-203)."""
+    """GET image requests need -mount or -enable-url-source
+    (ref: middleware.go:189-203)."""
     if request.method == "GET" and not is_public_path(o, request.path):
-        if not o.mount:
+        if not o.mount and not o.enable_url_source:
             raise ErrGetMethodNotAllowed
 
 

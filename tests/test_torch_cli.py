@@ -57,6 +57,14 @@ FLAGS = [
     ("--lane-inflight", "lane_inflight", int, 3),
     ("--transport-dct", "transport_dct", bool, True),
     ("--transport-dct-egress", "transport_dct_egress", bool, True),
+    ("--enable-url-source", "enable_url_source", bool, True),
+    ("--allowed-origins", "allowed_origins", str, "http://127.0.0.1:8001"),
+    ("--enable-auth-forwarding", "enable_auth_forwarding", bool, True),
+    ("--authorization", "authorization", str, "Bearer origin-token"),
+    ("--forward-headers", "forward_headers", str, "X-Custom,X-Other"),
+    ("--source-retries", "source_retries", int, 5),
+    ("--source-connect-timeout", "source_connect_timeout", float, 1.5),
+    ("--source-read-timeout", "source_read_timeout", float, 7.5),
 ]
 IDS = [f[0].lstrip("-") for f in FLAGS]
 # the egress rides on the ingress: set with it in argv and the environment
@@ -148,6 +156,37 @@ def test_options_carry_every_flag(tmp_path):
     assert o.endpoints == ("blur", "crop") and not o.trace_enabled
     assert (o.max_allowed_pixels, o.api_key, o.mount) == (2.5, "k", str(tmp_path))
     assert (o.device, o.n_devices, o.lane_form_ms) == ("cpu", 2, None)
+
+
+URL_SOURCE_FIELDS = ("enable_url_source", "allowed_origins", "auth_forwarding",
+                     "authorization", "forward_headers", "source_retries",
+                     "source_connect_timeout_s", "source_read_timeout_s",
+                     "max_allowed_size")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--enable-url-source", "--allowed-origins",
+     "http://127.0.0.1:8001, https://*.example.org/assets,s3.example.com/bucket*",
+     "--enable-auth-forwarding", "--authorization", "Bearer origin-token",
+     "--forward-headers", "X-Custom, X-Other", "--source-retries", "5",
+     "--source-connect-timeout", "1.5", "--source-read-timeout", "7.5",
+     "--max-allowed-size", "4000000"],
+    ["--source-retries", "-3", "--source-connect-timeout", "0",
+     "--source-read-timeout", "-1"],
+], ids=["defaults", "every-flag", "clamped"])
+def test_url_source_options_equal_the_references(argv):
+    """The eight URL-source flags and --max-allowed-size map onto
+    ServerOptions as the reference's options_from_args maps them (origins
+    parsed into (host, path prefix) pairs, headers split, the retry
+    budget and timeouts clamped)."""
+    from imaginary_tpu.cli import build_parser as reference_parser
+    from imaginary_tpu.cli import options_from_args as reference_options
+
+    want = reference_options(reference_parser().parse_args(argv))
+    got = cli.options_from_args(cli.parse_args(argv))
+    for field in URL_SOURCE_FIELDS:
+        assert getattr(got, field) == getattr(want, field), field
 
 
 @pytest.mark.parametrize("argv,message", [

@@ -7,12 +7,13 @@ on the port. Where the reference's test reaches a subsystem the port has
 not ported, the port's case says what the port answers instead:
 `/` names the torch stack where the reference names jax; the host-spill
 flag of TestBackendHeader gives way to the error answers' missing
-backend header; TestMaxAllowedSize (URL sources in the reference) holds
-that the flag caps no body or file source, as in the reference; and
-TestBootLivenessGate becomes TestDeviceGate: the port refuses to start
-without a CUDA device, and never falls back to the CPU. Not copied, each
-waiting for its module: TestURLSource and TestShouldRestrictOriginMatrix
-(URL sources), TestQueueDepthAdmission and
+backend header; TestMaxAllowedSize holds here that the flag caps no body
+or file source, as in the reference (its URL-source cases are in
+tests/test_torch_url_source.py, with TestURLSource and
+TestShouldRestrictOriginMatrix); and TestBootLivenessGate becomes
+TestDeviceGate: the port refuses to start without a CUDA device, and
+never falls back to the CPU. Not copied, each waiting for its module:
+TestQueueDepthAdmission and
 TestInflightLedgerOnCancellation (admission control), and
 TestSpatialServedRequest (tests/test_torch_spatial_route.py serves it).
 """
@@ -786,9 +787,9 @@ class TestAccessLogContract:
 
 class TestMaxAllowedSize:
     """The reference's --max-allowed-size caps only what a URL source
-    fetches (sources.py:327-391), and URL sources are not ported: the flag
-    parses, and a body or file source larger than the cap is served, as
-    the reference serves it."""
+    fetches (sources.py:327-391; tests/test_torch_url_source.py): a body
+    or file source larger than the cap is served, as the reference serves
+    it."""
 
     def test_body_larger_than_the_cap_is_served(self):
         async def fn(client):

@@ -24,8 +24,11 @@ What may differ, and why:
 - `/metrics`'s body: live values. Every family the reference renders for
   a subsystem the port has is in the port's exposition, with the same
   type;
-- `/watermarkimage` is not sent: it fetches a URL, and URL sources are
-  not ported (the port answers 501);
+- nothing: `/watermarkimage` and the `?url=` source are sent too, both
+  apps with `enable_url_source` fetching from one shared local origin on
+  127.0.0.1 (the `url` group), whose 404, an invalid URL, an origin off
+  the allow-list and a body past --max-allowed-size get the reference's
+  statuses and JSON messages;
 - a placeholder answer's Server-Timing: the port resizes the placeholder
   through its executor (on the card in production), so it also carries
   the executor's batch_form, dispatch_wait and drain, where the
@@ -33,11 +36,12 @@ What may differ, and why:
 
 The reference app runs with `host_spill=False`: the port has no host
 path, and a reference request that spilled to the host would carry
-host_gate/host_spill spans and `X-Imaginary-Backend: host`. /flop and
-/zoom ask for PNG: a JPEG /flop's planes, 1 LSB apart before the encode,
-come back up to 5 LSB apart through the encoder's quantization (the
-chain's planes are held at 1 LSB in tests/test_torch_pipeline.py), and a
-GIF's palette differs by design (ROADMAP.md queue 3, "Palette output").
+host_gate/host_spill spans and `X-Imaginary-Backend: host`. /flop,
+/zoom and the watermark image on a JPEG ask for PNG: a JPEG /flop's or
+watermark's planes, 1 LSB apart before the encode, come back up to 5 LSB
+apart through the encoder's quantization (the chain's planes are held at
+1 LSB in tests/test_torch_pipeline.py), and a GIF's palette differs by
+design (ROADMAP.md queue 3, "Palette output").
 """
 
 from __future__ import annotations
@@ -58,6 +62,10 @@ from PIL import Image
 from tests.conftest import FIXTURES, fixture_bytes
 
 LARGE = "large.jpg"
+# the `url` group's origin: "{origin}" in a path is its base URL and
+# "{other}" the same origin by another host name, off the allow-list
+URL_CAP = 2_000_000  # --max-allowed-size of the url group
+MARK_SEED = 14
 PNG = "test.png"
 _OPS = urllib.parse.quote(json.dumps([
     {"operation": "crop", "params": {"width": 300, "height": 260}},
@@ -147,7 +155,71 @@ GROUPS = {
         ("extras-options", "OPTIONS", "/crop", None, {}),
         ("extras-501-disabled", "POST", "/blur?sigma=2", LARGE, {})]),
 }
+
+def _url_ops(*ops) -> str:
+    return urllib.parse.quote(json.dumps(list(ops)))
+
+
+_RESIZE_1280 = {"operation": "resize", "params": {"width": 1280}}
+_MARK_OP = {"operation": "watermarkImage",
+            "params": {"image": "{origin}/mark.png", "top": 10, "left": 10}}
+GROUPS["url"] = ({"enable_url_source": True, "allowed_origins": "{origin}",
+                  "max_allowed_size": URL_CAP}, [
+    ("ok", "GET", "/resize?width=300&height=200&url={origin}/large.jpg", None, {}),
+    ("502-origin-404", "GET", "/resize?width=300&url={origin}/gone.jpg", None, {}),
+    ("400-bad-url", "GET", "/resize?width=300&url=not-a-url", None, {}),
+    ("400-restricted", "GET", "/resize?width=300&url={other}/large.jpg", None, {}),
+    ("413-oversize", "GET", "/resize?width=300&url={origin}/big.jpg", None, {}),
+    ("watermarkimage", "GET", "/watermarkimage?url={origin}/large.jpg"
+     "&image={origin}/mark.png&top=40&left=1500&opacity=0.6&type=png", None, {}),
+    ("watermarkimage-post", "POST", "/watermarkimage?image={origin}/mark.png"
+     "&top=10&left=10&type=png", "imaginary.jpg", {}),
+    ("400-watermark-restricted", "POST", "/watermarkimage?image={other}/mark.png",
+     "imaginary.jpg", {}),
+    ("pipeline-watermark-jpeg", "GET", "/pipeline?url={origin}/large.jpg&operations="
+     + _url_ops(_RESIZE_1280, {**_MARK_OP, "params": {**_MARK_OP["params"], "type": "png"}}),
+     None, {}),
+    ("pipeline-watermark-png", "GET", "/pipeline?url={origin}/test.png&operations="
+     + _url_ops({"operation": "resize", "params": {"width": 200}}, _MARK_OP), None, {}),
+])
 CASES = [(g, *c) for g, (_, cases) in GROUPS.items() for c in cases]
+
+
+def make_mark() -> bytes:
+    """A seeded 240x96 RGBA PNG with a real alpha ramp."""
+    rng = np.random.default_rng(MARK_SEED)
+    rgb = rng.integers(0, 256, size=(96, 240, 3), dtype=np.uint8)
+    alpha = np.tile(np.linspace(0, 255, 240).astype(np.uint8), (96, 1))[..., None]
+    out = io.BytesIO()
+    Image.fromarray(np.concatenate([rgb, alpha], axis=2), "RGBA").save(out, "PNG")
+    return out.getvalue()
+
+
+async def _start_origin():
+    """The url group's origin: fixtures by name, the mark, a 404 and a
+    body one byte over the cap."""
+    from aiohttp import web
+
+    mark = make_mark()
+
+    async def handler(request):
+        name = request.path.lstrip("/")
+        if name == "mark.png":
+            return web.Response(body=mark, content_type="image/png")
+        if name == "big.jpg":
+            return web.Response(body=b"\xff\xd8" + b"\0" * (URL_CAP - 1),
+                                content_type="image/jpeg")
+        if name in ("large.jpg", "imaginary.jpg"):
+            return web.Response(body=fixture_bytes(name), content_type="image/jpeg")
+        if name == "test.png":
+            return web.Response(body=fixture_bytes(name), content_type="image/png")
+        return web.Response(status=404, text="not here")
+
+    oapp = web.Application()
+    oapp.router.add_route("*", "/{tail:.*}", handler)
+    origin = TestServer(oapp, host="127.0.0.1")
+    await origin.start_server()
+    return origin
 
 
 def _request_args(src, headers):
@@ -179,7 +251,18 @@ def _raw_oversize(port: int) -> tuple:
     return int(lines[0].split(b" ", 2)[1]), fields.get(b"Content-Type"), body
 
 
-async def _serve(create_app, options_cls, fields, cases, **extra):
+def _at(text: str, port: int) -> str:
+    """`text` with its placeholders, plain or URL-quoted, filled in."""
+    for name, url in (("{origin}", f"http://127.0.0.1:{port}"),
+                      ("{other}", f"http://localhost:{port}")):
+        text = text.replace(name, url).replace(urllib.parse.quote(name),
+                                               urllib.parse.quote(url))
+    return text
+
+
+async def _serve(create_app, options_cls, fields, cases, origin_port, **extra):
+    if fields.get("allowed_origins") == "{origin}":
+        fields = {**fields, "allowed_origins": ((f"127.0.0.1:{origin_port}", ""),)}
     app = create_app(options_cls(**fields, **extra), log_stream=io.StringIO())
     client = TestClient(TestServer(app))
     await client.start_server()
@@ -187,7 +270,8 @@ async def _serve(create_app, options_cls, fields, cases, **extra):
     try:
         for cid, method, path, src, headers in cases:
             data, hdrs = _request_args(src, headers)
-            r = await client.request(method, path, data=data, headers=hdrs)
+            r = await client.request(method, _at(path, origin_port), data=data,
+                                     headers=hdrs)
             out[cid] = (r.status, dict(r.headers), await r.read())
         if cases is GROUPS["mount"][1]:
             out["413-oversize"] = await asyncio.to_thread(_raw_oversize, client.port)
@@ -206,10 +290,16 @@ def answers(testdata):
 
     async def run():
         out = {}
-        for group, (fields, cases) in GROUPS.items():
-            ref = await _serve(ref_app, RefOptions, fields, cases, host_spill=False)
-            got = await _serve(port_app, PortOptions, fields, cases, device="cpu")
-            out[group] = (ref, got)
+        origin = await _start_origin()
+        try:
+            for group, (fields, cases) in GROUPS.items():
+                ref = await _serve(ref_app, RefOptions, fields, cases, origin.port,
+                                   host_spill=False)
+                got = await _serve(port_app, PortOptions, fields, cases, origin.port,
+                                   device="cpu")
+                out[group] = (ref, got)
+        finally:
+            await origin.close()
         return out
 
     return asyncio.run(run())
@@ -296,17 +386,19 @@ def test_oversize_body_is_413_like_the_reference(answers):
     assert port["413-oversize"] == ref["413-oversize"]
 
 
-def test_the_matrix_covers_every_route_but_watermarkimage():
+def test_the_matrix_covers_every_route():
     from imaginary_tpu.pipeline import ALL_OPERATIONS
 
     from imaginary_tpu_torch.web.app import ALL_OPERATIONS as PORT_OPERATIONS
 
     assert PORT_OPERATIONS == ALL_OPERATIONS
     sent = {path.split("?")[0].strip("/") for _, _, _, path, _, _ in CASES}
-    assert {n.lower() for n in ALL_OPERATIONS} - sent == {"watermarkimage"}
+    assert {n.lower() for n in ALL_OPERATIONS} <= sent
     assert {"", "form", "health", "metrics"} <= sent
     statuses = {tok for c in CASES for tok in c[1].split("-") if tok.isdigit()}
-    assert {"405", "404", "400", "401", "403", "422", "429", "406", "501"} <= statuses
+    assert {"405", "404", "400", "401", "403", "413", "422", "429", "406", "501",
+            "502"} <= statuses
+    assert any("url=" in c[3] for c in CASES)
 
 
 def test_options_of_both_apps_share_their_field_names():

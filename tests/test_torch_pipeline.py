@@ -270,10 +270,11 @@ def _ops(*ops) -> dict:
     return {"operations": json.dumps(list(ops))}
 
 
-def _both(name, buf, query):
+def _both(name, buf, query, mark=None):
     """(reference result, port result, reference pre-encode arrays, port
     pre-encode arrays): each package's process_operation with a runner
-    that records what its chain returned."""
+    that records what its chain returned, and the RGBA `mark` of a
+    watermarkImage (the reference's fetcher returns it for any URL)."""
     jseen, pseen = [], []
 
     def jrun(arr, plan):
@@ -284,8 +285,11 @@ def _both(name, buf, query):
         pseen.append(pchain.run_single(arr, plan, device="cpu"))
         return pseen[-1]
 
-    want = jpipeline.process_operation(name, buf, jquery(query), runner=jrun)
-    got = ppipeline.process_operation(name, buf, pquery(query), device="cpu", runner=prun)
+    fetcher = (lambda url: mark) if mark is not None else None
+    want = jpipeline.process_operation(name, buf, jquery(query), runner=jrun,
+                                       watermark_fetcher=fetcher)
+    got = ppipeline.process_operation(name, buf, pquery(query), device="cpu", runner=prun,
+                                      watermark_rgba=mark)
     return want, got, jseen, pseen
 
 
@@ -371,17 +375,57 @@ def test_pipeline_of_ten_operations_is_served():
     _assert_same_result(*_both("pipeline", _png(7), _ops(*ops)))
 
 
+def _mark(h: int = 60, w: int = 150) -> np.ndarray:
+    """A seeded RGBA mark with an alpha ramp across it."""
+    rng = np.random.default_rng(14)
+    rgb = rng.integers(0, 256, size=(h, w, 3), dtype=np.uint8)
+    alpha = np.tile(np.linspace(0, 255, w).astype(np.uint8), (h, 1))[..., None]
+    return np.concatenate([rgb, alpha], axis=2)
+
+
+def _watermark_query(where, **params):
+    q = {"image": "http://example.invalid/mark.png", **params}
+    if where == "alone":
+        return "watermarkImage", q
+    return "pipeline", _ops({"operation": "resize", "params": {"width": 100}},
+                            {"operation": "watermarkImage", "params": q})
+
+
 @pytest.mark.parametrize("where", ["alone", "in-pipeline"])
 def test_watermark_image_answers_501(where):
+    """Named for the 501 these requests answered before the watermark
+    image was served: the port's process_operation, given the RGBA mark,
+    holds the reference's (whose fetcher returns the same array) within 1
+    LSB, placed past the right edge so the planner clamps it."""
+    name, query = _watermark_query(where, top=12, left=470, opacity=0.7)
+    want, got, jseen, pseen = _both(name, _png(8), query, mark=_mark())
+    _assert_same_result(want, got, jseen, pseen)
+    assert len(pseen) == 1 and got.mime == "image/png"
+
+
+@pytest.mark.parametrize("where", ["alone", "in-pipeline"])
+def test_watermark_image_on_the_yuv_transport_matches_reference(large, where):
+    """A 4:2:0 JPEG in and out: K2 -> K7 (placed) -> K3, the planes within
+    1 LSB of the reference's."""
+    name, query = _watermark_query(where, top=40, left=1500, opacity=0.6)
+    want, got, jseen, pseen = _both(name, large, query, mark=_mark(96, 240))
+    _assert_same_result(want, got, jseen, pseen)
+    assert hasattr(pseen[0], "y") and got.mime == "image/jpeg"
+
+
+@pytest.mark.parametrize("where", ["alone", "in-pipeline"])
+def test_watermark_image_without_its_mark_answers_like_reference(where):
+    from imaginary_tpu.errors import ImageError as JImageError
     from imaginary_tpu_torch.errors import ImageError
 
-    q = {"image": "http://example.invalid/mark.png"}
-    name, query = ("watermarkImage", q) if where == "alone" else \
-        ("pipeline", _ops({"operation": "resize", "params": {"width": 100}},
-                          {"operation": "watermarkImage", "params": q}))
-    with pytest.raises(ImageError) as e:
+    name, query = _watermark_query(where)
+    with pytest.raises(JImageError) as je:
+        jpipeline.process_operation(name, _png(8), jquery(query))
+    with pytest.raises(ImageError) as pe:
         ppipeline.process_operation(name, _png(8), pquery(query), device="cpu")
-    assert e.value.code == 501
+    assert (pe.value.code, pe.value.message) == (je.value.code, je.value.message)
+    assert pe.value.message == "Unable to retrieve watermark image: " + query.get(
+        "image", "http://example.invalid/mark.png")
 
 
 # (operation, query, source): the slice's routes, colorspace=bw through

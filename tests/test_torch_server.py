@@ -8,7 +8,9 @@ The server answers the reference's status codes and error JSON: 200 for
 --mount; JPEG, PNG, WEBP and GIF in and out), 400 for bad params, 404
 for unknown paths, 405 for GET without a mount and for every method
 other than GET and POST (HEAD without a body), 406 for non-images, 501
-for routes and formats not ported yet; type=auto answers Vary: Accept,
+for formats not ported yet; a watermark image outside the allow-list
+or missing at its origin gets the reference app's 400 or 502, and one at
+the local origin is composited; type=auto answers Vary: Accept,
 chunked bodies read like plain ones, and /health has the reference's
 keys. A chunked body, one past the size limit, malformed chunked bodies
 sent as raw bytes, and a fault raised outside processing get the answers
@@ -60,32 +62,12 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-@pytest.fixture(scope="module")
-def server():
-    fixture_bytes("large.jpg")  # make sure the fixture directory exists
-    srv = make_server("127.0.0.1", 0, device="cpu", mount=FIXTURES)
-    th = threading.Thread(target=srv.serve_forever, daemon=True)
-    th.start()
-    try:
-        yield srv.server_address[1]
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        th.join(timeout=10)
-        assert not th.is_alive()
-
-
-@pytest.fixture(scope="module")
-def reference_server():
-    """The reference's aiohttp app (mounted on the fixtures) on a thread of
-    its own, for raw requests; yields its port."""
+def _serve_on_a_thread(app) -> tuple:
+    """Run an aiohttp app on an event loop of its own thread: (port,
+    stop), where stop() ends the loop and joins the thread."""
     import asyncio
-    import io
 
     from aiohttp import web
-
-    from imaginary_tpu.web.app import create_app
-    from imaginary_tpu.web.config import ServerOptions
 
     loop = asyncio.new_event_loop()
     ready = threading.Event()
@@ -93,7 +75,6 @@ def reference_server():
 
     def run():
         asyncio.set_event_loop(loop)
-        app = create_app(ServerOptions(mount=FIXTURES), log_stream=io.StringIO())
         runner = web.AppRunner(app, access_log=None, handle_signals=False)
         loop.run_until_complete(runner.setup())
         loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", 0).start())
@@ -106,11 +87,70 @@ def reference_server():
     th = threading.Thread(target=run, daemon=True)
     th.start()
     assert ready.wait(120)
-    try:
-        yield box["port"]
-    finally:
+
+    def stop():
         loop.call_soon_threadsafe(loop.stop)
         th.join(timeout=30)
+
+    return box["port"], stop
+
+
+@pytest.fixture(scope="module")
+def origin():
+    """A local origin on 127.0.0.1 serving /mark.png (404 elsewhere);
+    yields its base URL. The servers below allow this origin alone, so a
+    watermark URL on any other host is refused before any lookup."""
+    from aiohttp import web
+
+    async def handler(request):
+        if request.path == "/mark.png":
+            return web.Response(body=fixture_bytes("test.png"), content_type="image/png")
+        return web.Response(status=404, text="not here")
+
+    app = web.Application()
+    app.router.add_route("*", "/{tail:.*}", handler)
+    port, stop = _serve_on_a_thread(app)
+    try:
+        yield f"http://127.0.0.1:{port}"
+    finally:
+        stop()
+
+
+@pytest.fixture(scope="module")
+def server(origin):
+    from imaginary_tpu_torch.web.config import parse_origins
+
+    fixture_bytes("large.jpg")  # make sure the fixture directory exists
+    srv = make_server("127.0.0.1", 0, device="cpu", mount=FIXTURES,
+                      allowed_origins=parse_origins(origin))
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        yield srv.server_address[1]
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=10)
+        assert not th.is_alive()
+
+
+@pytest.fixture(scope="module")
+def reference_server(origin):
+    """The reference's aiohttp app (mounted on the fixtures, allowing the
+    local origin alone, as `server`) on a thread of its own, for raw
+    requests; yields its port."""
+    import io
+
+    from imaginary_tpu.web.app import create_app
+    from imaginary_tpu.web.config import ServerOptions, parse_origins
+
+    app = create_app(ServerOptions(mount=FIXTURES, allowed_origins=parse_origins(origin)),
+                     log_stream=io.StringIO())
+    port, stop = _serve_on_a_thread(app)
+    try:
+        yield port
+    finally:
+        stop()
 
 
 def _req(port, path, body=None, ctype="image/jpeg"):
@@ -157,12 +197,12 @@ ERRORS = [
     ("/crop?width=300&type=bogus", "large.jpg", 400, "Unsupported output image format"),
     ("/resize?width=300", "1024bytes", 406, "Unsupported media type"),
     ("/nope?width=300", "large.jpg", 404, None),
-    ("/watermarkimage?image=http://example.invalid/m.png", "large.jpg", 501,
-     "Not implemented endpoint"),
+    ("/watermarkimage?image=http://example.invalid/m.png", "large.jpg", 400,
+     "Unable to retrieve watermark image: http://example.invalid/m.png"),
     ("/info", "1024bytes", 406, "Unsupported media type"),
     ("/pipeline?operations=" + urllib.parse.quote(
-        '[{"operation": "watermarkImage", "params": {"image": "http://example.invalid/m.png"}}]'),
-     "large.jpg", 501, None),
+        '[{"operation": "watermarkImage", "params": {"image": "{origin}/gone.png"}}]'),
+     "large.jpg", 502, None),
     ("/resize?width=300", "button.svg", 501, None),
     ("/pipeline", "test.png", 400, "Missing pipeline operations"),
 ]
@@ -170,7 +210,8 @@ ERRORS = [
 
 @pytest.mark.parametrize("path,fixture,code,message", ERRORS,
                          ids=[f"{e[2]}-{e[0]}" for e in ERRORS])
-def test_error_statuses_and_json(server, path, fixture, code, message):
+def test_error_statuses_and_json(server, origin, path, fixture, code, message):
+    path = path.replace(urllib.parse.quote("{origin}"), urllib.parse.quote(origin))
     status, ctype, body = _req(server, path, fixture_bytes(fixture))
     if code == 404:
         # no route matches: the reference's router answers aiohttp's page
@@ -182,6 +223,32 @@ def test_error_statuses_and_json(server, path, fixture, code, message):
     assert err["status"] == code
     if message is not None:
         assert err["message"] == message
+
+
+WATERMARK_ERRORS = [e for e in ERRORS if "watermark" in e[0]]
+
+
+@pytest.mark.parametrize("path,fixture,code,message", WATERMARK_ERRORS,
+                         ids=[f"{e[2]}-{e[0].split('?')[0]}" for e in WATERMARK_ERRORS])
+def test_watermark_errors_equal_the_reference_apps(server, reference_server, origin,
+                                                   path, fixture, code, message):
+    """The statuses and JSON above are the reference app's own answers to
+    the same requests: an origin off the allow-list, and a mark the local
+    origin does not have (502 with its status=404)."""
+    path = path.replace(urllib.parse.quote("{origin}"), urllib.parse.quote(origin))
+    got = _req(server, path, fixture_bytes(fixture))
+    want = _req(reference_server, path, fixture_bytes(fixture))
+    assert got[:2] == want[:2] == (code, "application/json")
+    assert json.loads(got[2]) == json.loads(want[2])
+    if code == 502:
+        assert "status=404" in json.loads(got[2])["message"]
+
+
+def test_watermark_image_from_the_local_origin(server, origin):
+    status, ctype, body = _req(server, f"/watermarkimage?image={origin}/mark.png"
+                                       "&top=20&left=20&opacity=0.5", fixture_bytes("large.jpg"))
+    assert (status, ctype) == (200, "image/jpeg")
+    assert _dims(body) == (1080, 1920)
 
 
 # (path, fixture, decoded output (h, w)); exif-orient-6.jpg is 400x300
