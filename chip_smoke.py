@@ -233,6 +233,32 @@ Phases, in order; any failure raises and exits non-zero:
    for one window: p50/p99 and req/s beside the card's name and power
    limit.
 
+13. the prewarm, the deadline and the goldens on the card: (a) `python -m
+   imaginary_tpu_torch --prewarm --mount tests/testdata` as a fresh
+   process: its prewarm line (programs warmed, 0 failed, seconds) and
+   boot time, its /health's kernel launches (the prewarm's own: K1-K4
+   at least) and compile_misses 0 before any request, then each prewarm
+   `_COMMON` route as a GET on large.jpg or imaginary.jpg (740x550) three
+   times one at a time and from PREWARM_CLIENTS clients at once (chunks
+   of several B), compile_misses still 0; then the same requests to a
+   fresh process without --prewarm, which counts compile misses; both
+   servers' first-request latency and p50s on the host clock beside the
+   card's name and power limit; then a third with --prewarm
+   --transport-dct --transport-dct-egress, whose prewarm launches K11
+   and K12 and whose routes ride the DCT transport with no miss; (b) a server with --request-timeout 0.15
+   (`make_server`): device.execute=delay(200ms) answers 504 at the
+   reference's stage, X-Request-Timeout: 0.001 with
+   codec.decode=delay(50ms) a 504, a host-pool backlog past the budget a
+   503 with Retry-After, and with the failpoints cleared a 200 with the
+   executor's device_owed_mb back to 0; (c) every MATRIX, PIPELINES and
+   SMARTCROP case of tests/gen_goldens.py through the port's
+   process_operation on the card: exact dims, the pipelines' SampleSpec
+   counts, PSNR >= 45 dB against tests/goldens/, and K10's smartcrop
+   window equal to tests/goldens/smartcrop_window.json; (d) config 3's
+   chain (K1 -> K6 -> K7) whole on one staged input, by the kernels and
+   by their plain versions, timed, within 1 LSB; then the bounds of the
+   kernel_ab.py cases PERF.md lists (LISTED_BOUNDS).
+
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -4405,6 +4431,530 @@ def url_source_phase(png: bytes, stream: list) -> dict:
     return out
 
 
+# --- phase 13: --prewarm and cold launches, the deadline, the golden matrix --
+
+PREWARM_CLIENTS = 8
+PREWARM_PER_CLIENT = 6
+PREWARM_BOOT_S = 240  # a server's boot, its prewarm included
+TESTDATA = os.path.join(ROOT, "tests", "testdata")
+# each _COMMON row's source dims (h, w) -> the committed JPEG of those dims
+COMMON_SOURCES = {(1080, 1920): "large.jpg", (740, 550): "imaginary.jpg"}
+# the stage the reference's app answers a 200 ms device delay against a
+# 150 ms budget with (tests/test_torch_deadline.py holds both apps to it)
+DEVICE_DELAY_STAGE = "queue"
+DEADLINE_BUDGET_S = 0.15
+GOLDEN_PSNR_DB = 45.0  # tests/test_golden.py's floor
+
+
+def common_routes() -> list:
+    """(path, fixture) of each prewarm `_COMMON` row as a GET on its
+    source: /resize?width=300&file=large.jpg and the like."""
+    from imaginary_tpu_torch import prewarm
+
+    out = []
+    for op, q, dims in prewarm.COMMON_QUERIES:
+        name = COMMON_SOURCES[dims]
+        out.append((f"/{op}?{urllib.parse.urlencode({**q, 'file': name})}", name))
+    return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class ServerProcess:
+    """`python -m imaginary_tpu_torch` as a fresh process on 127.0.0.1,
+    its output in chip_smoke_out/<name>.out and .err; `boot_s` is the
+    time from spawn to its listening line (the prewarm inside it)."""
+
+    def __init__(self, name: str, args: list):
+        self.port = free_port()
+        os.makedirs(OUT_DIR, exist_ok=True)
+        self.out_path = os.path.join(OUT_DIR, f"{name}.out")
+        self.err_path = os.path.join(OUT_DIR, f"{name}.err")
+        self._out = open(self.out_path, "w")
+        self._err = open(self.err_path, "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "imaginary_tpu_torch", "--addr", "127.0.0.1",
+             "--port", str(self.port), "--device", DEVICE, "--log-level", "error",
+             "--mount", TESTDATA] + args,
+            cwd=ROOT, stdout=self._out, stderr=self._err)
+        try:
+            if not wait_for(lambda: "listening on" in self.stdout()
+                            or self.proc.poll() is not None, PREWARM_BOOT_S):
+                raise AssertionError(f"{name}: no listening line in {PREWARM_BOOT_S} s")
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{name} exited {self.proc.returncode}: "
+                                     f"{self.stderr()[-2000:]}")
+        except BaseException:
+            self.stop()
+            raise
+        self.boot_s = time.perf_counter() - t0
+
+    def stdout(self) -> str:
+        with open(self.out_path) as f:
+            return f.read()
+
+    def stderr(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()
+
+    def health(self) -> dict:
+        return json.loads(http_get(self.port, "/health")[2])
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        self._out.close()
+        self._err.close()
+
+
+def drive_common(srv: ServerProcess, routes: list) -> dict:
+    """Every route three times one at a time (the server's first request
+    first), then PREWARM_PER_CLIENT rounds in which PREWARM_CLIENTS
+    clients send one route at once, so chunks of several B form; each
+    answer 200 image/jpeg. Host-clock latencies."""
+    from imaginary_tpu_torch import codecs
+
+    def get(path):
+        t0 = time.perf_counter()
+        status, hdrs, body = http_get(srv.port, path)
+        ms = (time.perf_counter() - t0) * 1e3
+        if (status, hdrs.get("Content-Type")) != (200, "image/jpeg"):
+            raise AssertionError(f"{path}: {status} {body[:200]!r}")
+        return ms, body
+
+    first_ms, body = get(routes[0][0])
+    codecs.decode(body)
+    serial = [get(path)[0] for path, _ in routes for _ in range(3)]
+    lat: list = []
+    errors: list = []
+    lock = threading.Lock()
+
+    # each round, every client sends the same route at once, so its
+    # items meet in one chunk
+    rounds = threading.Barrier(PREWARM_CLIENTS)
+
+    def client(i):
+        try:
+            for j in range(PREWARM_PER_CLIENT):
+                rounds.wait(timeout=120)
+                ms, _ = get(routes[j % len(routes)][0])
+                with lock:
+                    lat.append(ms)
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+            rounds.abort()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(PREWARM_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    ex = srv.health()["executor"]
+    return {"first_ms": first_ms, "serial_p50_ms": statistics.median(serial),
+            "serial_ms": serial, "concurrent_p50_ms": statistics.median(lat),
+            "concurrent_ms": lat, "max_group": ex["max_group"],
+            "compile_misses": ex["compile_misses"], "items": ex["items"],
+            "batches": ex["batches"]}
+
+
+PREWARM_LINE = r"prewarmed (\d+) op-chain programs \((\d+) failed\) in ([\d.]+)s"
+
+
+def prewarm_phase(smi: str) -> dict:
+    """Phase 13(a): a fresh server with --prewarm, then a fresh one
+    without, on the same requests."""
+    import re
+
+    routes = common_routes()
+    out: dict = {"routes": [p for p, _ in routes]}
+    srv = ServerProcess("prewarm", ["--prewarm"])
+    try:
+        m = re.search(PREWARM_LINE, srv.stdout())
+        if not m:
+            raise AssertionError(f"no prewarm line: {srv.stdout()[-1000:]!r}")
+        warmed, failed, secs = int(m.group(1)), int(m.group(2)), float(m.group(3))
+        if failed or not warmed:
+            raise AssertionError(f"prewarm warmed {warmed}, failed {failed}: "
+                                 f"{srv.stderr()[-3000:]}")
+        health = srv.health()
+        out["launches"] = health["kernelLaunches"]
+        ex0 = health["executor"]
+        if (ex0["compile_misses"], ex0["items"]) != (0, 0):
+            raise AssertionError(f"the prewarmed server before any request: {ex0}")
+        # (a CPU rehearsal's plain versions count no launch)
+        missing = [k for k in CONFIG1_KERNELS if not out["launches"][k]]
+        if missing and DEVICE != "cpu":
+            raise AssertionError(f"prewarm launched none of {missing}: {out['launches']}")
+        out["warm"] = drive_common(srv, routes)
+        out["warm"].update(boot_s=srv.boot_s, warmed=warmed, failed=failed,
+                           prewarm_s=secs, line=m.group(0))
+    finally:
+        srv.stop()
+    warm = out["warm"]
+    if warm["compile_misses"] != 0:
+        raise AssertionError(f"the prewarmed server counted {warm['compile_misses']} "
+                             "compile misses")
+    if warm["max_group"] < 2:
+        raise AssertionError(f"no chunk of several B formed: max_group {warm['max_group']}")
+    srv = ServerProcess("cold", [])
+    try:
+        out["cold"] = drive_common(srv, routes)
+        out["cold"]["boot_s"] = srv.boot_s
+    finally:
+        srv.stop()
+    cold = out["cold"]
+    if cold["compile_misses"] <= 0:
+        raise AssertionError("the server without --prewarm counted no compile miss")
+    log(f"  prewarm: {warm['line']}; boot {warm['boot_s']:.2f} s to the listening "
+        f"line; launches {  {k: v for k, v in out['launches'].items() if v} }")
+    for label, got in (("--prewarm", warm), ("cold", cold)):
+        log(f"  {label}: first request {got['first_ms']:.2f} ms, serial p50 "
+            f"{got['serial_p50_ms']:.2f} ms, {PREWARM_CLIENTS} clients p50 "
+            f"{got['concurrent_p50_ms']:.2f} ms, max_group {got['max_group']}, "
+            f"compile_misses {got['compile_misses']}, boot {got['boot_s']:.2f} s ({smi})")
+    out["dct"] = prewarm_dct(routes)
+    return out
+
+
+def prewarm_dct(routes: list) -> dict:
+    """Phase 13(a)'s third server: --prewarm with --transport-dct
+    --transport-dct-egress launches K11 and K12 on every DCT chain, and
+    each route, one at a time, rides the DCT transport both ways with no
+    compile miss."""
+    import re
+
+    srv = ServerProcess("prewarm-dct", ["--prewarm", "--transport-dct",
+                                        "--transport-dct-egress"])
+    try:
+        m = re.search(PREWARM_LINE, srv.stdout())
+        if not m or int(m.group(2)) or not int(m.group(1)):
+            raise AssertionError(f"the DCT prewarm: {srv.stdout()[-500:]!r} "
+                                 f"{srv.stderr()[-2000:]}")
+        launches = srv.health()["kernelLaunches"]
+        if DEVICE != "cpu" and not all(launches[k] for k in DCT_KERNELS):
+            raise AssertionError(f"the DCT prewarm launched {launches}")
+        for path, _ in routes:
+            status, _, body = http_get(srv.port, path)
+            if status != 200:
+                raise AssertionError(f"{path} over the DCT transport: {status} {body[:200]!r}")
+        health = srv.health()
+    finally:
+        srv.stop()
+    ex, dct = health["executor"], health["dctTransport"]
+    if ex["compile_misses"] != 0 or dct["served"] != len(routes):
+        raise AssertionError(f"the DCT server: compile_misses {ex['compile_misses']}, "
+                             f"served {dct['served']} of {len(routes)}")
+    log(f"  --prewarm --transport-dct --transport-dct-egress: {m.group(0)}, boot "
+        f"{srv.boot_s:.2f} s; launches "
+        f"{ {k: v for k, v in launches.items() if v} }; {len(routes)} routes over the "
+        f"DCT transport, compile_misses 0")
+    return {"line": m.group(0), "boot_s": srv.boot_s, "launches": launches,
+            "served": dct["served"], "compile_misses": ex["compile_misses"]}
+
+
+def deadline_phase(smi: str) -> dict:
+    """Phase 13(b): --request-timeout 0.15 on the card: the device delay's
+    504, the header's 504, the admission 503, then 200 with the owed MB
+    back to 0."""
+    from imaginary_tpu_torch import failpoints
+    from imaginary_tpu_torch.web.app import make_server
+
+    body = open(os.path.join(TESTDATA, "imaginary.jpg"), "rb").read()
+    jpeg = {"Content-Type": "image/jpeg"}
+    out: dict = {}
+
+    def run(srv):
+        port = srv.server_address[1]
+        svc = srv.service
+        # the route's first launch outside any deadline: in a process whose
+        # first CUDA use this is, it creates the context (over a second)
+        svc.process("resize", body, {"width": "100"})
+        status, _, _ = http_get(port, "/resize?width=100", jpeg, "POST", body)
+        if status != 200:
+            raise AssertionError(f"the deadline server's first request: {status}")
+        cases = (("device", "device.execute=delay(200ms)", {}),
+                 ("header", "codec.decode=delay(50ms)", {"X-Request-Timeout": "0.001"}))
+        for name, spec, hdrs in cases:
+            failpoints.activate(spec)
+            t0 = time.perf_counter()
+            try:
+                status, _, got = http_get(port, "/resize?width=100", {**jpeg, **hdrs},
+                                          "POST", body)
+            finally:
+                failpoints.deactivate()
+            ms = (time.perf_counter() - t0) * 1e3
+            err = json.loads(got) if status == 504 else {}
+            out[name] = {"status": status, "ms": ms, **err}
+            if status != 504 or "stage" not in err:
+                raise AssertionError(f"{name}: {status} {got[:300]!r}")
+        if out["device"]["stage"] != DEVICE_DELAY_STAGE:
+            raise AssertionError(f"the device delay's 504 at {out['device']['stage']}, "
+                                 f"not the reference's {DEVICE_DELAY_STAGE}")
+        # the host pool's backlog past the budget, set as the reference's
+        # own test sets it
+        with svc._inflight_lock:
+            svc._service_ewma_ms, svc._inflight = 10_000.0, svc.pool_workers + 50
+        try:
+            status, hdrs, got = http_get(port, "/resize?width=100", jpeg, "POST", body)
+        finally:
+            with svc._inflight_lock:
+                svc._service_ewma_ms, svc._inflight = 20.0, 0
+        out["shed"] = {"status": status, "retry_after": hdrs.get("Retry-After"),
+                       "message": json.loads(got).get("message") if status == 503 else ""}
+        if status != 503 or not hdrs.get("Retry-After"):
+            raise AssertionError(f"the backlog past the budget answered {status} {hdrs}")
+        ex = svc.executor
+        if not wait_for(lambda: ex.stats.device_owed_mb == 0.0, 10.0):
+            raise AssertionError(f"owed MB left charged: {ex.stats.device_owed_mb}")
+        status, _, got = http_get(port, "/resize?width=100", jpeg, "POST", body)
+        if status != 200:
+            raise AssertionError(f"after the failpoints were cleared: {status} {got[:200]!r}")
+        wait_for(lambda: ex.stats.device_owed_mb == 0.0, 10.0)
+        out["after"] = {"status": status, "device_owed_mb": ex.stats.device_owed_mb}
+        if ex.stats.device_owed_mb != 0.0:
+            raise AssertionError(f"owed MB after the 200: {ex.stats.device_owed_mb}")
+        return out
+
+    serving(make_server("127.0.0.1", 0, device=DEVICE,
+                        request_timeout_s=DEADLINE_BUDGET_S), run)
+    log(f"  --request-timeout {DEADLINE_BUDGET_S}: device.execute=delay(200ms) -> "
+        f"{out['device']['status']} at {out['device']['stage']} in "
+        f"{out['device']['ms']:.1f} ms; X-Request-Timeout 0.001 + codec.decode="
+        f"delay(50ms) -> {out['header']['status']} at {out['header']['stage']} "
+        f"(budget {out['header']['budget_ms']} ms); backlog -> {out['shed']['status']} "
+        f"Retry-After {out['shed']['retry_after']}; then {out['after']['status']} "
+        f"with device_owed_mb {out['after']['device_owed_mb']} ({smi})")
+    return out
+
+
+def golden_cases() -> tuple:
+    """(MATRIX, PIPELINES, SMARTCROP) of tests/gen_goldens.py, loaded from
+    its file (a machine may have another top-level `tests` package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_gen_goldens", os.path.join(ROOT, "tests", "gen_goldens.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.MATRIX, mod.PIPELINES, mod.SMARTCROP
+
+
+def golden_options(kw: dict, **extra):
+    """tests/gen_goldens.py's options: the case's fields, each marked
+    defined as a query would mark it."""
+    from imaginary_tpu_torch.options import ImageOptions
+
+    o = ImageOptions(**extra, **kw)
+    for k in kw:
+        o.mark_defined(k)
+    return o
+
+
+def golden_pixels(body: bytes):
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(body)).convert("RGB"))
+
+
+def golden_case(buf: bytes, op: str, kw: dict, device: str):
+    """A MATRIX or SMARTCROP case through the port's process_operation,
+    PNG out (tests/gen_goldens.py's _run_case)."""
+    from imaginary_tpu_torch import pipeline
+
+    out = pipeline.process_operation(op, buf, golden_options(kw, type="png"),
+                                     device=device)
+    return golden_pixels(out.body)
+
+
+def golden_pipeline(buf: bytes, ops: list, device: str) -> tuple:
+    """A PIPELINES case through the port's process_pipeline: (pixels, the
+    combined plan's SampleSpec count)."""
+    from imaginary_tpu_torch import pipeline
+    from imaginary_tpu_torch.ops.stages import SampleSpec
+    from imaginary_tpu_torch.options import ImageOptions
+    from imaginary_tpu_torch.params import parse_json_operations
+
+    o = ImageOptions(operations=parse_json_operations(json.dumps(ops)))
+    plan, *_ = pipeline._build_pipeline_plan(o, 740, 550, 0, 3, None)
+    samples = sum(isinstance(st.spec, SampleSpec) for st in plan.stages)
+    o = ImageOptions(operations=parse_json_operations(json.dumps(ops)))
+    return golden_pixels(pipeline.process_pipeline(buf, o, device=device).body), samples
+
+
+def golden_window(buf: bytes, kw: dict, device: str) -> tuple:
+    """The smartcrop case's pixels and the window K10 chose, read off the
+    window_argmax wrapper: {top, left, new_h, new_w}."""
+    from imaginary_tpu_torch import kernels
+
+    seen = []
+    real = kernels.window_argmax
+
+    def spy(ii, h, w, win_h, win_w):
+        top, left = real(ii, h, w, win_h, win_w)
+        seen.append({"top": int(top[0]), "left": int(left[0]),
+                     "new_h": int(win_h[0]), "new_w": int(win_w[0])})
+        return top, left
+
+    kernels.window_argmax = spy
+    try:
+        arr = golden_case(buf, "smartcrop", kw, device)
+    finally:
+        kernels.window_argmax = real
+    if len(seen) != 1:
+        raise AssertionError(f"smartcrop chose {len(seen)} windows")
+    return arr, seen[0]
+
+
+def golden_grade(name: str, arr, want_wh: tuple) -> float:
+    """Exact dims and PSNR >= GOLDEN_PSNR_DB against the committed golden;
+    returns the PSNR."""
+    import numpy as np
+
+    with open(os.path.join(ROOT, "tests", "goldens", f"{name}.png"), "rb") as f:
+        gold = golden_pixels(f.read())
+    if (arr.shape[1], arr.shape[0]) != tuple(want_wh) or arr.shape != gold.shape:
+        raise AssertionError(f"golden {name}: {arr.shape[1]}x{arr.shape[0]}, "
+                             f"want {want_wh}")
+    mse = float(np.mean((arr.astype(np.float64) - gold.astype(np.float64)) ** 2))
+    db = float("inf") if mse == 0 else 10.0 * np.log10(255.0 ** 2 / mse)
+    if db < GOLDEN_PSNR_DB:
+        raise AssertionError(f"golden {name}: PSNR {db:.2f} dB < {GOLDEN_PSNR_DB}")
+    return db
+
+
+def golden_phase() -> dict:
+    """Phase 13(c): every golden case of tests/gen_goldens.py through the
+    port on the card."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+
+    MATRIX, PIPELINES, SMARTCROP = golden_cases()
+
+    def fixture(name):
+        with open(os.path.join(TESTDATA, name), "rb") as f:
+            return f.read()
+
+    jpg, smart = fixture("imaginary.jpg"), fixture("smart-crop.jpg")
+    out: dict = {"psnr_db": {}}
+    kernels.reset_launches()
+    for name, op, kw, want in MATRIX:
+        out["psnr_db"][name] = golden_grade(name, golden_case(jpg, op, kw, DEVICE), want)
+    for name, ops, want, n_samples in PIPELINES:
+        arr, samples = golden_pipeline(jpg, ops, DEVICE)
+        if samples != n_samples:
+            raise AssertionError(f"golden {name}: {samples} samples, not {n_samples}")
+        out["psnr_db"][name] = golden_grade(name, arr, want)
+    name, _op, kw, want = SMARTCROP
+    arr, window = golden_window(smart, kw, DEVICE)
+    out["psnr_db"][name] = golden_grade(name, arr, want)
+    torch.cuda.synchronize()
+    out["launches"] = kernels.launch_counts()
+    with open(os.path.join(ROOT, "tests", "goldens", "smartcrop_window.json")) as f:
+        want_window = json.load(f)
+    if window != want_window:
+        raise AssertionError(f"the smartcrop window {window} != {want_window}")
+    out["window"] = window
+    worst = min(out["psnr_db"].items(), key=lambda kv: kv[1])
+    log(f"  {len(out['psnr_db'])} golden cases on the card: dims exact, lowest PSNR "
+        f"{worst[1]:.2f} dB ({worst[0]}); smartcrop window {window}; launches "
+        f"{ {k: v for k, v in out['launches'].items() if v} }")
+    return out
+
+
+# bounds of PERF.md §6 cases timed by scripts/kernel_ab.py, which reports
+# no bound: (kernel, case, bytes each input read and output written once,
+# operations this case's data needs)
+LISTED_BOUNDS = (
+    # K8: 5 operations a pixel (3 multiplies, 2 adds), in and out same shape
+    ("gray", "config3-u8-C4 [1, 736, 1280, 4] uint8 in and out",
+     2 * 736 * 1280 * 4, 5.0 * 736 * 1280),
+    ("gray", "shard-unaligned-C3 [1, 368, 160, 3] f32", 2 * 368 * 160 * 3 * 4,
+     5.0 * 368 * 160),
+    ("gray", "shard-unaligned-C4-u8 [1, 368, 160, 4] uint8", 2 * 368 * 160 * 4,
+     5.0 * 368 * 160),
+    # K9: config4_kernel_phase's 47 operations a pixel; the integral image
+    # [B, Hb + 1, Wb + 1] f32 out
+    ("saliency", "uint8 B=1 [1, 320, 640, 3]", 320 * 640 * 3 + 321 * 641 * 4,
+     47.0 * 320 * 640),
+    ("saliency", "2160x3840 f32 B=1", 2160 * 3840 * 3 * 4 + 2161 * 3841 * 4,
+     47.0 * 2160 * 3840),
+    # K10 on SAL_SEAM_CASES' 320x640 (B=2): the integral image read once, two
+    # offsets out; 4 operations a candidate window, (300, 300) over 300x533
+    # valid and (1, 1) over 320x640
+    ("window_argmax", "320x640, windows 300x300 and 1x1", 2 * 321 * 641 * 4 + 2 * 8,
+     4.0 * ((300 - 300 + 1) * (533 - 300 + 1) + 320 * 640)),
+)
+
+
+def listed_bounds() -> list:
+    rows = []
+    for name, case, nbytes, flops in LISTED_BOUNDS:
+        b, by = bound_ms(nbytes, flops)
+        rows.append({"name": name, "case": case, "bytes": nbytes, "flops": flops,
+                     "bound_ms": b, "bound_by": by})
+        log(f"  bound {name} [{case}]: {b:.6f} ms by {by} ({nbytes} bytes, "
+            f"{flops:.0f} operations)")
+    return rows
+
+
+def chain_plain_phase(png: bytes) -> dict:
+    """Phase 13(d): config 3's chain (K1 -> K6 -> K7, the spatial route's
+    chain row) on the card, whole, launched by the kernels and by their
+    plain versions (the stages run over `kernels.reference`), on one
+    staged input: device time of each and their largest difference."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops import chain, stages
+
+    arr, plan = pipeline_request(png, CONFIG3_OPS, "rgb")
+    specs = plan.spec_key()
+    batch = chain.pad_to_bucket(arr)
+    host_dyns = chain._stack_dyns([plan])
+    flat = [[batch], np.array([arr.shape[0]], np.int32), np.array([arr.shape[1]], np.int32)]
+    flat += [v for d in host_dyns for v in d.values()]
+    views, _host = chain._stage(flat, torch.device(DEVICE))
+
+    def run():
+        return chain._run_staged(specs, views, host_dyns)
+
+    real = stages.kernels
+    got = run()
+    ms = device_ms(run)
+    try:
+        stages.kernels = reference
+        want = run()
+        plain = device_ms(run)
+    finally:
+        stages.kernels = real
+    err = max_err(got, want)
+    if err > U8_TOL:
+        raise AssertionError(f"config 3's chain against its plain version: {err} LSB")
+    names = " -> ".join(type(s).__name__ for s in specs)
+    log(f"  config 3's chain ({names}) on [1, {batch.shape[0]}, {batch.shape[1]}, 3]: "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, max |diff| {err}")
+    return {"ms": ms, "plain_ms": plain, "max_abs_err": err, "specs": names}
+
+
 def main() -> int:
     import torch
 
@@ -4503,6 +5053,13 @@ def main() -> int:
     log("== phase 12: URL sources and watermarkImage on the card (config 1 over ?url=, "
         "the placed K7, the source's statuses, config 5's stream over ?url=)")
     report["url"] = url_source_phase(png, stream)
+    log("== phase 13: --prewarm and the cold server's compile misses, the request "
+        "deadline on the card, the golden matrix on the card")
+    report["prewarm"] = prewarm_phase(smi)
+    report["deadline"] = deadline_phase(smi)
+    report["golden"] = golden_phase()
+    report["chain_plain"] = chain_plain_phase(png)
+    report["listed_bounds"] = listed_bounds()
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -4533,6 +5090,9 @@ def main() -> int:
             "launches_spatial": report["spatial"]["launches"][name],
             "launches_http": report["http"]["launches"][name],
             "launches_url": report["url"]["launches"][name],
+            "launches_prewarm": report["prewarm"]["launches"][name],
+            "launches_prewarm_dct": report["prewarm"]["dct"]["launches"][name],
+            "launches_golden": report["golden"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

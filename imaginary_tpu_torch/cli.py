@@ -143,6 +143,13 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env_bool("IMAGINARY_TPU_DISABLE_TRACING"),
                    help="disable per-request span tracing and Server-Timing "
                         "(X-Request-ID is still assigned)")
+    # the request deadline (deadline.py); off by default
+    p.add_argument("--request-timeout", type=float,
+                   default=_env_float("IMAGINARY_TPU_REQUEST_TIMEOUT", 0.0),
+                   help="end-to-end per-request deadline in seconds, "
+                        "enforced at every hop (admission, fetch, queue, "
+                        "execute, encode); also the clamp ceiling for the "
+                        "X-Request-Timeout header; 0 disables")
     # the retry policy of remote sources (web/sources.py)
     p.add_argument("--source-retries", type=int,
                    default=_env_int("IMAGINARY_TPU_SOURCE_RETRIES", 2),
@@ -201,6 +208,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env_int("IMAGINARY_TPU_LANE_INFLIGHT", 2),
                    help="per-lane chunks launched but not yet fetched "
                         "(the lane's only backpressure)")
+    p.add_argument("--prewarm", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_PREWARM"),
+                   help="launch the common op chains at every batch size "
+                        "on the card before the server binds")
     # the compressed-domain transport (pipeline.py)
     p.add_argument("--transport-dct", action="store_true",
                    default=_env_bool("IMAGINARY_TPU_TRANSPORT_DCT"),
@@ -287,6 +298,8 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         source_retries=max(0, args.source_retries),
         source_connect_timeout_s=max(0.001, args.source_connect_timeout),
         source_read_timeout_s=max(0.001, args.source_read_timeout),
+        request_timeout_s=max(0.0, args.request_timeout),
+        prewarm=args.prewarm,
         device=args.device,
         max_batch=args.max_batch,
         batch_form_ms=max(0.0, args.batch_form_ms),

@@ -46,6 +46,19 @@ without a W-sharded form gathers the shards explicitly and is counted in
 the full mesh is re-admitted. The reference pads the single image to the
 mesh's batch axis; the port launches only the row that serves it.
 
+Every launch that meets a (chain, input shape with B, device) signature
+this process has not launched before (`chain_mod.cache_size()` grows)
+counts one `compile_misses`, on the global, lane, sharded and spatial
+dispatches alike: with `--prewarm` (prewarm.py) covering the common
+chains at every B of `batch_ladder`, it stays 0. Nothing compiles per
+signature here, so the count keeps the reference's meaning of a cold
+launch: the first blocks of the caching allocator and of the pinned host
+pool for that shape. A future cancelled while it waits (the request's
+deadline passed) is dropped before its chunk launches and its owed MB
+released. The failpoint sites `executor.submit` (submit) and
+`device.execute` (the global dispatch, before the launch; an error
+there counts one device failure and fails the chunk) are ported.
+
 Not ported yet: host spill, hedging, the watchdog, OOM bisection,
 `use_mesh` batch sharding, multi-host,
 qos, memory pressure, integrity checks, devhealth's fail-slow and
@@ -70,7 +83,7 @@ import torch
 from imaginary_tpu_torch import failpoints, kernels
 from imaginary_tpu_torch.engine import lanes as lanes_mod
 from imaginary_tpu_torch.engine.devhealth import DeviceHealthRegistry
-from imaginary_tpu_torch.engine.timing import LANE_TIMES, TIMES, attribute
+from imaginary_tpu_torch.engine.timing import COPIES, LANE_TIMES, TIMES, attribute
 from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.ops.buckets import bucket_shape, tight_dim
 from imaginary_tpu_torch.ops.plan import ImagePlan
@@ -78,6 +91,16 @@ from imaginary_tpu_torch.parallel.mesh import get_mesh, healthy_mesh
 
 # The micro-batch chunk cap: the CLI default derives from it.
 MAX_BATCH = 16
+
+
+def batch_ladder(max_batch: int = MAX_BATCH) -> tuple:
+    """Every chunk size the executor can launch: 1..max_batch.
+
+    The reference pads a chunk to the next power of two, so its ladder is
+    the powers of two up to max_batch. The port launches a chunk at its
+    own size (`_launch_chunk`), so each B is a signature of its own and
+    prewarm must visit all of them."""
+    return tuple(range(1, max(1, int(max_batch)) + 1))
 
 MESH_POLICIES = ("off", "lanes", "sharded", "auto")
 
@@ -137,6 +160,9 @@ class ExecutorStats:
     # spec name -> spatial launches gathered at that stage; None while the
     # spatial route is not armed (to_dict then shows neither key)
     spatial_gathers: Optional[dict] = None
+    # launches that met a signature this process had not launched before
+    # (module docstring); 0 after a prewarm that covered the traffic
+    compile_misses: int = 0
 
     def to_dict(self) -> dict:
         snap = TIMES.snapshot()
@@ -151,6 +177,7 @@ class ExecutorStats:
             "max_group": self.max_group_seen,
             "queue_depth": self.queue_depth,
             "compile_cache_size": chain_mod.cache_size(),
+            "compile_misses": self.compile_misses,
             "batch_form_p50_ms": form_times["p50_ms"] if form_times else 0.0,
             "batch_form_p99_ms": form_times["p99_ms"] if form_times else 0.0,
             "dispatch_wait_p50_ms": disp_times["p50_ms"] if disp_times else 0.0,
@@ -158,6 +185,10 @@ class ExecutorStats:
             "device_failures": self.device_failures,
             "device_owed_mb": round(self.device_owed_mb, 3),
         }
+        # the byte-touch ledger by stage (engine/timing.COPIES)
+        copies = COPIES.snapshot()
+        out["copied_bytes"] = copies["bytes"]
+        out["copy_events"] = copies["copies"]
         if self.lanes_snapshot is not None:
             lanes = self.lanes_snapshot()
             if lanes:
@@ -167,6 +198,23 @@ class ExecutorStats:
             out["spatial_batches"] = self.spatial_batches
             out["spatial_gathers"] = dict(self.spatial_gathers)
         return out
+
+
+# The measured link seed, installed by prewarm (prewarm.py): (ms per wire
+# MB, fixed floor ms). A new executor prices its owed ledger at the seed
+# instead of leaving the link unpriced until its first drain; the EWMA
+# refines it from real drains at once. The port keeps the floor beside
+# the rate, as the reference does, but prices by the rate alone.
+_LINK_SEED: Optional[tuple] = None
+
+
+def seed_link_rate(ms_per_mb: float, floor_ms: float) -> None:
+    global _LINK_SEED
+    _LINK_SEED = (max(float(ms_per_mb), 0.0), max(float(floor_ms), 0.0))
+
+
+def link_seed() -> Optional[tuple]:
+    return _LINK_SEED
 
 
 class _Item:
@@ -236,8 +284,10 @@ class Executor:
         self._lock = threading.Lock()  # guards _closed and the shared stats
         self._closed = False
         # drain ms per wire MB (EWMA over drained chunks): prices the owed
-        # ledger for estimated_wait_ms; None until the first drain
+        # ledger for estimated_wait_ms; the prewarm's seed, else None until
+        # the first drain (a zero seed leaves the link unpriced, never free)
         self._ms_per_mb: Optional[float] = None
+        self.adopt_link_seed()
         if self._mesh_policy != "off":
             self._init_lanes()  # may refuse the mesh before any thread starts
         self._thread = threading.Thread(target=self._collect_continuous,
@@ -252,6 +302,7 @@ class Executor:
         array, YuvPlanes on the packed transports, or QuantizedBlocks with
         the dct egress). Identity chains
         resolve at once, with no device work."""
+        failpoints.hit("executor.submit")
         item = _Item(arr, plan)
         if not plan.stages:
             item.future.set_result(arr)
@@ -287,6 +338,15 @@ class Executor:
         with self._lock:
             rate = self._ms_per_mb
             return self.stats.device_owed_mb * rate if rate else 0.0
+
+    def adopt_link_seed(self) -> None:
+        """Price the owed ledger at the installed link seed unless a drain
+        has priced it already (a boot prewarm seeds after the executor is
+        built)."""
+        seed = _LINK_SEED
+        with self._lock:
+            if self._ms_per_mb is None and seed is not None and seed[0] > 0.0:
+                self._ms_per_mb = seed[0]
 
     def shutdown(self) -> None:
         """Stop taking items, launch and resolve every item already
@@ -387,10 +447,22 @@ class Executor:
             it.stage_ms["batch_form"] = bf_ms
             it.stage_ms["dispatch_wait"] = dw_ms
         try:
+            # delay() models a slow device or link, error() a failed
+            # dispatch
+            failpoints.hit("device.execute")
+        except Exception as e:
+            self._fail(items, e)
+            return
+        items = self._drop_cancelled(items)
+        if not items:
+            return
+        before = chain_mod.cache_size()
+        try:
             chunk = self._launch_chunk(items)
         except Exception as e:
             self._fail(items, e)
             return
+        self._note_cold(before)
         TIMES.record("launch", (time.monotonic() - now) * 1000.0 / len(items))
         self.stats.items += len(items)
         self.stats.groups += 1
@@ -441,6 +513,24 @@ class Executor:
         self._release(items)
         for it in items:
             _resolve(it.future, error=e)
+
+    def _drop_cancelled(self, items: list) -> list:
+        """The items still wanted: a future cancelled while it waited (its
+        request's deadline passed) is not launched, and its owed MB is
+        released here."""
+        live, dropped = [], []
+        for it in items:
+            (dropped if it.future.cancelled() else live).append(it)
+        if dropped:
+            self._release(dropped)
+        return live
+
+    def _note_cold(self, cache_before: int) -> None:
+        """One compile miss when the launch just made grew the signature
+        set."""
+        if chain_mod.cache_size() > cache_before:
+            with self._lock:
+                self.stats.compile_misses += 1
 
     def _release(self, items: list) -> None:
         with self._lock:
@@ -616,12 +706,16 @@ class Executor:
             LANE_TIMES.record(lane.idx, "dispatch_wait", dw_ms)
             it.stage_ms["batch_form"] = bf_ms
             it.stage_ms["dispatch_wait"] = dw_ms
+        items = self._drop_cancelled(items)
+        if not items:
+            return
         mesh, streams = self._lane_mesh, self._lane_streams
         sharded = mesh is not None and len(items) >= self._shard_min()
         spatial = (not sharded and len(items) == 1
                    and self._spatial_route(items[0].key))
         arrs = [it.arr for it in items]
         plans = [it.plan for it in items]
+        before = chain_mod.cache_size()
         try:
             failpoints.hit("device.chip_error", key=lane.idx)
             if sharded:
@@ -639,6 +733,7 @@ class Executor:
             self._note_device_failure(lane.idx, e)
             self._replace_lane_items(items, exclude={lane.idx})
             return
+        self._note_cold(before)
         TIMES.record("launch", (time.monotonic() - now) * 1000.0 / len(items))
         with self._lock:
             self.stats.items += len(items)

@@ -1,6 +1,8 @@
 """Per-stage timing of the executor (the port's trimmed copy of
-`imaginary_tpu/engine/timing.py`: `StageTimes`/`TIMES` and the lanes'
-`LaneStageTimes`/`LANE_TIMES`).
+`imaginary_tpu/engine/timing.py`: `StageTimes`/`TIMES`, the lanes'
+`LaneStageTimes`/`LANE_TIMES` and the byte-touch ledger
+`CopyLedger`/`COPIES`, without its cost-plane stamp, whose module is not
+ported).
 
 Each stage records into a bounded ring, so /health can report count,
 mean, p50 and p99 without unbounded memory, and into the stage
@@ -99,6 +101,39 @@ def attribute(stage_ms) -> None:
         return
     for stage, ms in stage_ms.items():
         tr.add_span(stage, ms)
+
+
+class CopyLedger:
+    """Host bytes copied per stage of a request's journey, with the count
+    of copy events beside them, so copies per request stay derivable. The
+    port books "decode" (the codec's pixels, packed planes or
+    coefficients), "transform" (the chain's frame drained to host memory)
+    and "encode" (the body, again when metadata is spliced into it).
+    Monotonic totals, process-wide; /metrics shows them as
+    imaginary_tpu_bytes_copied_total{stage=} and
+    imaginary_tpu_copy_events_total{stage=}."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._bytes: dict = {}
+        self._copies: dict = {}
+
+    def add(self, stage: str, nbytes: int, copies: int = 1) -> None:
+        with self._lock:
+            self._bytes[stage] = self._bytes.get(stage, 0) + int(nbytes)
+            self._copies[stage] = self._copies.get(stage, 0) + int(copies)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {"bytes": dict(self._bytes), "copies": dict(self._copies)}
+
+    def reset(self) -> None:
+        with self._lock:
+            self._bytes = {}
+            self._copies = {}
+
+
+COPIES = CopyLedger()
 
 
 class LaneStageTimes:

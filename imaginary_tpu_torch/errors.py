@@ -14,13 +14,16 @@ import json
 class ImageError(Exception):
     """ref: error.go:30-56 (message newlines stripped, code clamped).
 
-    `headers` ride onto the HTTP error response."""
+    `headers` ride onto the HTTP error response; `extra` adds keys to
+    the JSON body (the deadline's stage and times)."""
 
-    def __init__(self, message: str, code: int, headers: dict = None):
+    def __init__(self, message: str, code: int, headers: dict = None,
+                 extra: dict = None):
         super().__init__(message)
         self.message = message.replace("\n", "")
         self.code = code
         self.headers = dict(headers) if headers else {}
+        self.extra = dict(extra) if extra else {}
 
     def http_code(self) -> int:
         if 400 <= self.code <= 511:
@@ -31,6 +34,8 @@ class ImageError(Exception):
         body: dict = {"status": self.code}
         if self.message:
             body = {"message": self.message, "status": self.code}
+        if self.extra:
+            body.update(self.extra)
         return json.dumps(body).encode()
 
     def __repr__(self) -> str:  # pragma: no cover
@@ -39,6 +44,25 @@ class ImageError(Exception):
 
 def new_error(message: str, code: int, headers: dict = None) -> ImageError:
     return ImageError(message, code, headers=headers)
+
+
+class DeadlineExceeded(ImageError):
+    """The request's deadline expired after admission: a 504 whose body
+    carries the stage, the elapsed time and the budget (deadline.py
+    raises it at every hop it guards)."""
+
+    def __init__(self, stage: str, elapsed_ms: float, budget_ms: float):
+        super().__init__(
+            f"request deadline exceeded at {stage}: elapsed "
+            f"{elapsed_ms:.0f}ms of {budget_ms:.0f}ms budget",
+            504,
+            extra={
+                "stage": stage,
+                "elapsed_ms": round(elapsed_ms, 1),
+                "budget_ms": round(budget_ms, 1),
+            },
+        )
+        self.stage = stage
 
 
 # Predefined errors (ref: error.go:12-28)

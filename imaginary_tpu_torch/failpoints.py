@@ -1,11 +1,20 @@
 """Fault injection for the port (a trimmed copy of
 `imaginary_tpu/failpoints.py`).
 
-Three sites are ported:
+Seven sites are ported:
 
   source.fetch       one remote ?url= or watermark GET attempt
                      (web/sources.py);
   source.head        the HEAD size pre-check (web/sources.py);
+  codec.decode       the host decode of each transport (pipeline.py,
+                     pool thread);
+  codec.encode       the host encode (pipeline.py, pool thread);
+  executor.submit    the micro-batch executor's entry
+                     (engine/executor.py);
+  device.execute     the global collector's dispatch, before the launch
+                     (engine/executor.py): delay() models a slow device
+                     or link, error() a failed dispatch (one device
+                     failure, the chunk's futures fail);
   device.chip_error  one chunk launch on one mesh entry, and that
                      entry's re-admission probe (engine/executor.py);
                      keyable by the entry's flat index:
@@ -15,6 +24,7 @@ Spec grammar: `site=action` clauses joined by `;`, where action is
 
   error["(" P ")"]           raise FailpointError, with probability P
                              (default 1);
+  delay "(" DURATION ")"     sleep DURATION, then go on normally;
   timeout["(" DURATION ")"]  sleep DURATION (default 60s), then raise
                              TimeoutError (asyncio.TimeoutError at an
                              async site, so the caller's timeout mapping
@@ -36,7 +46,8 @@ import threading
 import time
 from typing import Optional
 
-SITES = ("source.fetch", "source.head", "device.chip_error")
+SITES = ("source.fetch", "source.head", "codec.decode", "codec.encode",
+         "executor.submit", "device.execute", "device.chip_error")
 
 _KEYED_SITE_RE = re.compile(r"^([\w.]+)\[(\w+)\]$")
 _DURATION_RE = re.compile(r"^(\d+(?:\.\d+)?)(ms|s)$")
@@ -53,7 +64,7 @@ class _Spec:
 
     def __init__(self, kind: str, p: float = 1.0, duration_s: float = 0.0,
                  once: bool = False, raw: str = ""):
-        self.kind = kind  # error | timeout
+        self.kind = kind  # error | delay | timeout
         self.p = p
         self.duration_s = duration_s
         self.once = once
@@ -86,10 +97,15 @@ def _parse_action(text: str) -> _Spec:
         if not 0.0 <= p <= 1.0:
             raise ValueError(f"error probability {p} outside [0, 1]")
         return _Spec("error", p=p, raw=text)
+    if name == "delay":
+        if not arg:
+            raise ValueError("delay needs a duration, e.g. delay(200ms)")
+        return _Spec("delay", duration_s=_parse_duration(arg), raw=text)
     if name == "timeout":
         dur = _parse_duration(arg) if arg else _DEFAULT_TIMEOUT_S
         return _Spec("timeout", duration_s=dur, raw=text)
-    raise ValueError(f"unknown failpoint action {name!r} (want error, timeout or once)")
+    raise ValueError(f"unknown failpoint action {name!r} "
+                     "(want error, delay, timeout or once)")
 
 
 def parse(spec: str) -> dict:
@@ -175,6 +191,9 @@ def hit(site: str, key=None) -> None:
     sp = _decide(site, key)
     if sp is None:
         return
+    if sp.kind == "delay":
+        time.sleep(sp.duration_s)
+        return
     if sp.kind == "timeout":
         time.sleep(sp.duration_s)
         raise TimeoutError(f"failpoint {site}: injected timeout")
@@ -186,6 +205,9 @@ async def ahit(site: str, key=None) -> None:
     asyncio.TimeoutError, as a real stall does."""
     sp = _decide(site, key)
     if sp is None:
+        return
+    if sp.kind == "delay":
+        await asyncio.sleep(sp.duration_s)
         return
     if sp.kind == "timeout":
         await asyncio.sleep(sp.duration_s)

@@ -1,6 +1,6 @@
 """Per-request trace identity and span accumulation (the port's copy of
-`imaginary_tpu/obs/trace.py`, without the deadline and tenant slots,
-whose subsystems are not ported).
+`imaginary_tpu/obs/trace.py`, without the tenant slot, whose subsystem is
+not ported).
 
 One RequestTrace per HTTP request, carried by a contextvar: the web
 middleware creates and activates it, and `contextvars.copy_context()`
@@ -10,6 +10,11 @@ right request. The executor's collector and fetcher threads carry no
 trace: the stage times they measure for an item (batch_form,
 dispatch_wait, drain) travel back with its result and are added on the
 thread that submitted it (`engine/timing.attribute`).
+
+The trace also carries the request's deadline (deadline.py), so
+`copy_context()` takes one vehicle into the pool threads, and its
+wide-event fields (`annotate`), where the middleware writes the
+deadline's budget, remaining time and stage checkpoints.
 
 Identity follows W3C Trace Context: an inbound `traceparent` header is
 honored (same trace-id continues, this request's span becomes a child).
@@ -63,7 +68,8 @@ class RequestTrace:
     """One request's identity and span timeline."""
 
     __slots__ = ("request_id", "trace_id", "parent_span_id", "span_id",
-                 "flags", "enabled", "t0", "spans", "_lock")
+                 "flags", "enabled", "t0", "spans", "fields", "deadline",
+                 "_lock")
 
     def __init__(self, request_id: str, traceparent: str = "",
                  enabled: bool = True):
@@ -84,6 +90,11 @@ class RequestTrace:
         self.enabled = enabled
         self.t0 = time.monotonic()
         self.spans: list = []
+        self.fields: dict = {}
+        # The request's Deadline (deadline.py), set by the web middleware
+        # when --request-timeout is on. Enforcement works with tracing off:
+        # `enabled` gates spans and fields, not the deadline.
+        self.deadline = None
         self._lock = threading.Lock()
 
     def add_span(self, name: str, dur_ms: float,
@@ -95,6 +106,12 @@ class RequestTrace:
         with self._lock:
             if len(self.spans) < _MAX_SPANS:
                 self.spans.append(Span(name, start_ms, dur_ms))
+
+    def annotate(self, **fields) -> None:
+        if not self.enabled:
+            return
+        with self._lock:
+            self.fields.update(fields)
 
     def traceparent(self) -> str:
         """This request's own span context."""

@@ -23,8 +23,11 @@ A `watermarkImage` takes its mark as a decoded RGBA array
 pool dispatch, as the reference's handler does, so this module holds no
 fetcher. The same mark serves every `watermarkImage` op of a pipeline,
 and an op without it answers the reference's 400 "Unable to retrieve
-watermark image: <url>" from the planner. The frame cache, the COPIES
-ledger and the codec failpoints wait for later slices.
+watermark image: <url>" from the planner. Each decode, drained frame
+and encoded body books its bytes in the COPIES ledger
+(engine/timing.py), each decode and encode is a failpoint site
+(`codec.decode`, `codec.encode`), and the encode checks the request's
+deadline first (deadline.py). The frame cache waits for a later slice.
 """
 
 from __future__ import annotations
@@ -37,9 +40,10 @@ from typing import Optional
 
 import numpy as np
 
-from imaginary_tpu_torch import codecs
+from imaginary_tpu_torch import codecs, failpoints
+from imaginary_tpu_torch import deadline as deadline_mod
 from imaginary_tpu_torch.codecs import EncodeOptions, YuvPlanes, jpeg_dct
-from imaginary_tpu_torch.engine.timing import TIMES
+from imaginary_tpu_torch.engine.timing import COPIES, TIMES
 from imaginary_tpu_torch.errors import ImageError, new_error
 from imaginary_tpu_torch.imgtype import ENCODABLE, ImageType, determine_image_type, get_image_mime_type, image_type
 from imaginary_tpu_torch.obs import trace as obs_trace
@@ -159,6 +163,10 @@ def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
     into RGB, and a WEBP, HEIF or AVIF encode that fails is retried as
     JPEG and reported so. A format the port cannot encode yet keeps its
     501."""
+    # the last stage boundary: a request whose budget expired on the
+    # device pays for no encode
+    deadline_mod.check("encode")
+    failpoints.hit("codec.encode")
     opts = EncodeOptions(
         type=target,
         quality=o.quality,
@@ -174,6 +182,7 @@ def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
             try:
                 body = jpeg_dct.encode_quantized(arr)
                 TIMES.record("encode", (time.monotonic() - t0) * 1000.0)
+                COPIES.add("encode", len(body))
                 return ProcessedImage(body=body, mime=get_image_mime_type(target))
             except ImageError:
                 pass
@@ -183,6 +192,7 @@ def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
             try:
                 body = codecs.encode_yuv(arr, opts)
                 TIMES.record("encode", (time.monotonic() - t0) * 1000.0)
+                COPIES.add("encode", len(body))
                 return ProcessedImage(body=body, mime=get_image_mime_type(target))
             except ImageError:
                 pass
@@ -195,6 +205,7 @@ def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
         opts.type = ImageType.JPEG
         body, actual = codecs.encode(arr, opts), ImageType.JPEG
     TIMES.record("encode", (time.monotonic() - t0) * 1000.0)
+    COPIES.add("encode", len(body))
     return ProcessedImage(body=body, mime=get_image_mime_type(actual))
 
 
@@ -222,6 +233,7 @@ def _carry_metadata(src_buf: bytes, strip: bool, out: ProcessedImage,
         for s in segs
     ]
     body = codecs.insert_jpeg_segments(out.body, segs)
+    COPIES.add("encode", len(body))  # the splice copies the body again
     return ProcessedImage(body=body, mime=out.mime, width=out_w, height=out_h)
 
 
@@ -239,8 +251,15 @@ def _run_stages(arr, plan: ImagePlan, device, runner=None):
         # queue, launch and drain
         with obs_trace.span("execute"):
             if runner is None:
-                return chain_mod.run_single(arr, plan, device=device)
-            return runner(arr, plan)
+                out = chain_mod.run_single(arr, plan, device=device)
+            else:
+                out = runner(arr, plan)
+            # the drained frame; YuvPlanes and QuantizedBlocks book at
+            # their encode instead
+            nb = getattr(out, "nbytes", 0)
+            if nb:
+                COPIES.add("transform", int(nb))
+            return out
     except (RuntimeError, ValueError, TypeError) as e:
         raise new_error(f"image processing error: {e}", 400) from None
 
@@ -307,7 +326,9 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
 def _decode(buf: bytes, shrink: int):
     """The rgb transport's host decode, timed into TIMES."""
     t0 = time.monotonic()
+    failpoints.hit("codec.decode")
     d = codecs.decode(buf, shrink)
+    COPIES.add("decode", d.array.nbytes)
     TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
     return d
 
@@ -331,11 +352,13 @@ def _decode_dct_packed(buf, shrink, sh, sw):
     stream is outside the codec's scope or its frame dims disagree with
     the probe's: the request then takes the yuv420/rgb path."""
     t0 = time.monotonic()
+    failpoints.hit("codec.decode")
     got = jpeg_dct.decode_packed(buf, shrink)
     if got is None or (got[1], got[2]) != (sh, sw):
         _count_dct("out_of_scope")
         return None
     TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
+    COPIES.add("decode", got[0].nbytes)
     return got[0], got[3]
 
 
@@ -382,6 +405,7 @@ def _decode_yuv_packed(buf, shrink, sh, sw):
     raises any user-facing error itself)."""
     hb, wb = bucket_shape(sh, sw)
     t0 = time.monotonic()
+    failpoints.hit("codec.decode")
     try:
         packed, h, w, _orient = codecs.decode_yuv420(buf, shrink, hb, wb)
     except ImageError:
@@ -389,6 +413,7 @@ def _decode_yuv_packed(buf, shrink, sh, sw):
     if (h, w) != (sh, sw):
         return None
     TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
+    COPIES.add("decode", packed.nbytes)
     return packed, hb, wb
 
 

@@ -4,7 +4,9 @@
 `create_app` builds the reference's aiohttp application: the trace
 middleware outermost, the access log inside it, then the middleware
 chain, and the route table under --path-prefix (`/`, `/form`, `/health`,
-`/metrics` and the 18 image routes). `serve` runs it until SIGINT or
+`/metrics` and the 18 image routes), and with --prewarm launches the
+common chains on the service's device before it returns, so before any
+server binds (prewarm.py). `serve` runs it until SIGINT or
 SIGTERM, with TLS when a cert and key are given (HTTP/1.1; h2 is a later
 slice), a periodic memory release, and a 5 s graceful drain.
 `make_server` is the programmatic runner of the same application: it
@@ -60,6 +62,13 @@ def create_app(o: ServerOptions, log_stream=None) -> web.Application:
     service = ImageService(o)
     app["service"] = service
     app["options"] = o
+    if o.prewarm:
+        # after the executor is built, before any server binds
+        try:
+            service.prewarm()
+        except BaseException:
+            service.close()
+            raise
 
     async def on_cleanup(app):
         await service.aclose()

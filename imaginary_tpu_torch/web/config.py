@@ -58,6 +58,12 @@ class ServerOptions:
     source_retries: int = 2
     source_connect_timeout_s: float = 5.0
     source_read_timeout_s: float = 30.0
+    # End-to-end per-request deadline in seconds (deadline.py), also the
+    # ceiling of the X-Request-Timeout header; 0 = off, the default
+    request_timeout_s: float = 0.0
+    # warm the common chains on the card before the server binds
+    # (prewarm.py)
+    prewarm: bool = False
     # --- the device and the executor (engine/executor.py) -------------------
     device: str = "cuda"  # torch device of the kernels: cuda, cuda:N or cpu
     max_batch: int = MAX_BATCH

@@ -18,6 +18,15 @@ reference's handler does. The device work of concurrent requests batches
 in the executor, on the service's device. Every processed image answers
 `X-Imaginary-Backend: device`: nothing runs on a host path.
 
+With `--request-timeout` set, the request's deadline (deadline.py) is
+enforced at each hop here: admission sheds a 503 with Retry-After when
+the estimated queue delay already exceeds the remaining budget (a 504
+when it is spent), the wait for the pool is bounded by the budget (a 504
+at stage `queue`), a pool worker checks it before decoding a byte
+(`host_pool`), and the wait for the executor's result is bounded too (a
+504 at stage `device_execute`, the item cancelled so the executor drops
+it before launch and releases its owed MB).
+
 Served: `/`, `/form`, `/health`, `/metrics`, `/info` and every image
 route on JPEG (the native codec) and PNG, WEBP, GIF and TIFF (Pillow).
 """
@@ -32,6 +41,7 @@ import os
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import TimeoutError as FuturesTimeout
 from typing import Optional
 
 import numpy as np
@@ -39,7 +49,9 @@ import torch
 from aiohttp import web
 
 from imaginary_tpu_torch import Version, codecs, pipeline
+from imaginary_tpu_torch import deadline as deadline_mod
 from imaginary_tpu_torch.engine import Executor, ExecutorConfig
+from imaginary_tpu_torch.engine.timing import attribute
 from imaginary_tpu_torch.errors import (
     ErrEmptyBody,
     ErrNotFound,
@@ -108,6 +120,12 @@ def determine_accept_mime_type(accept: str) -> str:
     return ""
 
 
+def _retry_after_s(est_ms: Optional[float]) -> str:
+    """Retry-After seconds of a shed 503, from the queue estimate (floor
+    1 s)."""
+    return str(max(1, int((est_ms or 0.0) / 1000.0 + 0.5)))
+
+
 def available_cpus() -> int:
     """CPUs this process may run on (the affinity mask, not the host's
     core count)."""
@@ -162,6 +180,19 @@ class ImageService:
         self._placeholder_lock = threading.Lock()
         self._closed = False
 
+    def prewarm(self) -> dict:
+        """--prewarm (prewarm.py): the common chains on this service's
+        device at every B up to its max_batch, and the lane tier's
+        signatures with a mesh policy, before the server binds. Returns
+        the prewarm's report ({"warmed", "failed", "seconds", "seed"})."""
+        from imaginary_tpu_torch import prewarm
+
+        report: dict = {}
+        prewarm.prewarm_common_chains(device=self.executor.config.device,
+                                      max_batch=self.options.max_batch,
+                                      executor=self.executor, report=report)
+        return report
+
     def close(self) -> None:
         """Shut the executor and the pool down; `aclose()` also closes the
         sources' client sessions."""
@@ -201,6 +232,9 @@ class ImageService:
             if o.enable_url_signature:
                 check_url_signature(request, o)
             validate_image_request(request, o)
+            dl = deadline_mod.current()
+            if dl is not None:
+                self._admit(dl)
             with obs_trace.span("fetch"):
                 buf = await self._get_source_image(request)
             if not buf:
@@ -208,6 +242,19 @@ class ImageService:
             return await self._process_and_respond(request, op_name, buf)
         except ImageError as e:
             return error_response(request, e, o)
+
+    def _admit(self, dl) -> None:
+        """Deadline admission, before any work: a 504 when the budget is
+        already spent, and a 503 with Retry-After when the estimated
+        queue delay exceeds what is left of it (a 503 now beats a sure
+        504 later)."""
+        est_ms = self.estimated_queue_ms()
+        rem = dl.note("admission")
+        if rem <= 0.0:
+            raise dl.error("admission")
+        if est_ms > rem * 1000.0:
+            raise new_error("Server queue exceeds request deadline, retry later",
+                            503, headers={"Retry-After": _retry_after_s(est_ms)})
 
     async def _get_source_image(self, request: web.Request) -> bytes:
         try:
@@ -225,23 +272,42 @@ class ImageService:
         in the pool thread; a task cancelled while still queued never
         runs, and the done-callback balances it."""
         query = dict(request.query)
-        prepared = watermark = None
+        prepared = None
         if op_name in _MARKED_ROUTES:
             prepared = self.prepare(buf, query, request.headers)
+
+        async def work() -> Response:
+            watermark = None
+            if prepared is not None:
+                try:
+                    watermark = await self._prefetch_watermark(op_name, prepared.opts)
+                except ImageError:
+                    raise
+                except Exception as e:
+                    # ref: handlers.py:787-790, as a failure of the work
+                    raise new_error("Error processing image: " + str(e), 400) from None
+            with self._inflight_lock:
+                self._inflight += 1
+            ctx = contextvars.copy_context()
+            fut = self.pool.submit(ctx.run, self._process_counted, op_name, bytes(buf),
+                                   query, request.headers, prepared, watermark)
+            fut.add_done_callback(self._release_if_cancelled)
+            return await asyncio.wrap_future(fut)
+
+        dl = deadline_mod.current()
+        if dl is None:
+            got = await work()
+        else:
+            # the one await-side bound: the watermark fetch, the pool's
+            # queue and the work itself. A pool future still queued is
+            # cancelled and never runs; _release_if_cancelled balances it
+            rem = dl.note("queue")
+            if rem <= 0.0:
+                raise dl.error("queue")
             try:
-                watermark = await self._prefetch_watermark(op_name, prepared.opts)
-            except ImageError:
-                raise
-            except Exception as e:
-                # ref: handlers.py:787-790, as a failure of the work
-                raise new_error("Error processing image: " + str(e), 400) from None
-        with self._inflight_lock:
-            self._inflight += 1
-        ctx = contextvars.copy_context()
-        fut = self.pool.submit(ctx.run, self._process_counted, op_name, bytes(buf),
-                               query, request.headers, prepared, watermark)
-        fut.add_done_callback(self._release_if_cancelled)
-        got = await asyncio.wrap_future(fut)
+                got = await asyncio.wait_for(work(), rem)
+            except asyncio.TimeoutError:
+                raise dl.error("queue") from None
         return web.Response(body=got.body, status=got.status,
                             content_type=got.content_type, headers=got.headers)
 
@@ -280,6 +346,8 @@ class ImageService:
                          watermark) -> Response:
         t0 = time.monotonic()
         try:
+            # a request that expired while queued costs no decoded byte
+            deadline_mod.check("host_pool")
             if prepared is None:
                 prepared = self.prepare(buf, query, headers)
             return self.run(op_name, buf, prepared, watermark)
@@ -336,7 +404,7 @@ class ImageService:
         try:
             out = pipeline.process_operation(op_name, buf, prepared.opts,
                                              device=self.device, meta=prepared.meta,
-                                             runner=self.executor.process,
+                                             runner=self._execute_within_deadline,
                                              watermark_rgba=watermark_rgba)
         except ImageError:
             raise
@@ -344,6 +412,26 @@ class ImageService:
             # ref: handlers.py:787-790, any other failure of the work
             raise new_error("Error processing image: " + str(e), 400) from None
         return self._build_response(out, op_name, prepared.vary)
+
+    def _execute_within_deadline(self, arr, plan):
+        """Executor.process with the wait for the result bounded by the
+        request's remaining budget: on expiry the item is cancelled (the
+        executor drops it before launch and releases its owed MB; a
+        launched one's result is dropped) and the request answers 504."""
+        dl = deadline_mod.current()
+        if dl is None:
+            return self.executor.process(arr, plan)
+        rem = dl.note("device_queue")
+        if rem <= 0.0:
+            raise dl.error("device_queue")
+        fut = self.executor.submit(arr, plan)
+        try:
+            out = fut.result(timeout=rem)
+        except FuturesTimeout:
+            fut.cancel()
+            raise dl.error("device_execute") from None
+        attribute(getattr(fut, "stage_ms", None))
+        return out
 
     def _build_response(self, out, op_name, vary) -> Response:
         headers = {}

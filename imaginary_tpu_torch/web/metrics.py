@@ -6,8 +6,8 @@ per family, label values escaped, families grouped):
 
   1. The /health mirror: the same numbers /health serves, as gauges and
      counters under the `imaginary_tpu_` namespace (executor counters,
-     per-lane families, the fault domains, per-stage latency percentile
-     gauges).
+     per-lane families, the fault domains, the byte-touch ledger by
+     stage, per-stage latency percentile gauges).
   2. The obs registry (obs/histogram.py): fixed-bucket cumulative
      histograms (`imaginary_tpu_request_duration_seconds`,
      `imaginary_tpu_stage_duration_seconds{stage=}`) and the RED counters
@@ -73,12 +73,17 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
     stage_ms: list = []
     stage_total: list = []
     lanes_list: list = []
+    copies: dict = {}
     device_health: dict = {}
     for key, value in stats.items():
         if key == "executor" and isinstance(value, dict):
             for k, v in value.items():
                 if k == "lanes" and isinstance(v, list):
                     lanes_list = v
+                    continue
+                if k in ("copied_bytes", "copy_events") and isinstance(v, dict):
+                    # stage-labeled families, below
+                    copies[k] = v
                     continue
                 mtype = "gauge" if k in _EXEC_GAUGES else "counter"
                 x.emit(f"imaginary_tpu_executor_{_snake(k)}", v, mtype=mtype,
@@ -119,6 +124,17 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
         x.emit("imaginary_tpu_lane_dispatches_total", s.get("dispatches", 0),
                f'lane="{s.get("lane", 0)}"', mtype="counter",
                help_text="Device calls launched on this device's lane.")
+    for stage, v in sorted(copies.get("copied_bytes", {}).items()):
+        x.emit("imaginary_tpu_bytes_copied_total", v,
+               f'stage="{escape_label_value(stage)}"', mtype="counter",
+               help_text="Host bytes actually copied per stage of the "
+                         "request journey (decode/transform/encode): the "
+                         "byte-touch ledger.")
+    for stage, v in sorted(copies.get("copy_events", {}).items()):
+        x.emit("imaginary_tpu_copy_events_total", v,
+               f'stage="{escape_label_value(stage)}"', mtype="counter",
+               help_text="Copy events booked per stage (copies per request "
+                         "derive as events over requests).")
     if device_health:
         x.emit("imaginary_tpu_devices_healthy", device_health.get("healthy", 0),
                help_text="Dispatchable devices in the healthy state.")

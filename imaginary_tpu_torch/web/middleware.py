@@ -23,6 +23,7 @@ from urllib.parse import urlencode
 from aiohttp import web
 
 from imaginary_tpu_torch import Version
+from imaginary_tpu_torch import deadline as deadline_mod
 from imaginary_tpu_torch.errors import (
     ErrGetMethodNotAllowed,
     ErrInvalidAPIKey,
@@ -120,10 +121,12 @@ def trace_middleware(o: ServerOptions):
 
     Assigns or propagates X-Request-ID and W3C traceparent and installs
     the contextvar-carried RequestTrace that every inner layer records
-    spans into (the access log runs inside it and reads the id). On the
-    way out it echoes X-Request-ID, emits Server-Timing and observes the
+    spans into (the access log runs inside it and reads the id), with the
+    request's deadline when --request-timeout is set. On the way out it
+    echoes X-Request-ID, emits Server-Timing, observes the
     request-duration histogram (with the request's identity as a bucket
-    exemplar when tracing is on) and the RED counters."""
+    exemplar when tracing is on) and the RED counters, and writes the
+    deadline's budget, remaining ms and stages into the trace's fields."""
 
     @web.middleware
     async def mw(request: web.Request, handler):
@@ -135,6 +138,12 @@ def trace_middleware(o: ServerOptions):
             traceparent=request.headers.get("traceparent", ""),
             enabled=o.trace_enabled,
         )
+        # the end-to-end deadline, minted next to the request id: the
+        # server default, lowered (never raised) by X-Request-Timeout
+        budget = deadline_mod.resolve_budget(
+            o.request_timeout_s, request.headers.get("X-Request-Timeout", ""))
+        if budget > 0.0:
+            tr.deadline = deadline_mod.Deadline(budget)
         token = obs_trace.activate(tr)
         t0 = time.monotonic()
         status = 500  # a non-HTTP exception books as a 500
@@ -160,6 +169,15 @@ def trace_middleware(o: ServerOptions):
                     st = tr.server_timing()
                     if st:
                         resp.headers["Server-Timing"] = st
+            if tr.enabled and tr.deadline is not None:
+                # the budget, what was left at the end, and the remaining
+                # ms at each stage the hops noted
+                dl = tr.deadline
+                tr.annotate(
+                    deadline_budget_ms=round(dl.budget_s * 1000.0, 1),
+                    deadline_remaining_ms=round(dl.remaining_s() * 1000.0, 1),
+                    deadline_stages=dl.stages_dict(),
+                )
 
     return mw
 

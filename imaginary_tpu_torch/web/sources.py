@@ -15,10 +15,12 @@ timeouts, 5xx and 429, never on another 4xx. An origin timeout answers
 and any other fetch failure 502. With --max-allowed-size an advisory
 HEAD pre-check refuses a declared oversize body with 413, and the GET's
 streaming cap refuses one that lied. The origin allow-list applies to
-the watermark image too. Two branches of the reference's fetch come with
-later modules: the TTL'd source cache (`cache.py`, keyed by URL and the
-headers the origin sees) and the request deadline (`deadline.py`, which
-clips each attempt's timeout and the backoff to the request's budget).
+the watermark image too. With a request deadline (`deadline.py`) each
+attempt notes the `fetch` stage and answers 504 once the budget is
+spent, its timeouts are clipped to what is left, and a backoff the
+budget cannot absorb answers the origin's failure at once. The TTL'd
+source cache of the reference's fetch (`cache.py`, keyed by URL and the
+headers the origin sees) comes with a later module.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import aiohttp
 from aiohttp import web
 
 from imaginary_tpu_torch import Version, failpoints
+from imaginary_tpu_torch import deadline as deadline_mod
 from imaginary_tpu_torch.errors import (
     ErrEntityTooLarge,
     ErrInvalidFilePath,
@@ -220,10 +223,17 @@ class HTTPImageSource:
         return await self.fetch(raw, request)
 
     def _attempt_timeout(self) -> aiohttp.ClientTimeout:
-        """One attempt's budget: connect and total, under HTTP_TIMEOUT."""
+        """One attempt's budget: connect and total, under HTTP_TIMEOUT,
+        both clipped to the request deadline's remaining budget, so an
+        attempt never outlives the request that wants its bytes."""
         o = self.options
         total = min(float(HTTP_TIMEOUT), max(o.source_read_timeout_s, 0.001))
         connect = max(min(o.source_connect_timeout_s, total), 0.001)
+        dl = deadline_mod.current()
+        if dl is not None:
+            rem = max(dl.remaining_s(), 0.001)
+            total = min(total, rem)
+            connect = min(connect, rem)
         return aiohttp.ClientTimeout(total=total, sock_connect=connect)
 
     async def _fetch_once(self, sess, url: str, headers: dict, max_size: int) -> bytes:
@@ -258,8 +268,11 @@ class HTTPImageSource:
         if self.options.max_allowed_size > 0 and limit is None:
             await self._check_size(sess, url, headers)
         retries = max(0, self.options.source_retries)
+        dl = deadline_mod.current()
         attempt = 0
         while True:
+            if dl is not None and dl.note("fetch") <= 0.0:
+                raise dl.error("fetch")
             try:
                 return await self._fetch_once(sess, url, headers, max_size)
             except ImageError:
@@ -277,10 +290,14 @@ class HTTPImageSource:
                 if attempt >= retries:
                     raise _map_fetch_error(e, url) from None
                 # full jitter, floored by the origin's Retry-After
-                delay = random.uniform(
-                    0.0, min(RETRY_BACKOFF_BASE_S * (2 ** attempt), RETRY_BACKOFF_CAP_S))
+                delay = max(retry_after, random.uniform(
+                    0.0, min(RETRY_BACKOFF_BASE_S * (2 ** attempt), RETRY_BACKOFF_CAP_S)))
+                if dl is not None and delay >= dl.remaining_s():
+                    # the budget cannot absorb the wait: the origin's
+                    # failure answers now
+                    raise _map_fetch_error(e, url) from None
                 attempt += 1
-                await asyncio.sleep(max(delay, retry_after))
+                await asyncio.sleep(delay)
 
     async def _check_size(self, sess, url: str, headers: dict) -> None:
         """HEAD pre-check (ref: source_http.go:105-124, 200-206 accepted).

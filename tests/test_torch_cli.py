@@ -65,6 +65,8 @@ FLAGS = [
     ("--source-retries", "source_retries", int, 5),
     ("--source-connect-timeout", "source_connect_timeout", float, 1.5),
     ("--source-read-timeout", "source_read_timeout", float, 7.5),
+    ("--request-timeout", "request_timeout", float, 0.25),
+    ("--prewarm", "prewarm", bool, True),
 ]
 IDS = [f[0].lstrip("-") for f in FLAGS]
 # the egress rides on the ingress: set with it in argv and the environment

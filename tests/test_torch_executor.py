@@ -183,7 +183,7 @@ def test_stats_dict(make_ex):
         "items", "batches", "groups", "avg_batch", "avg_group", "max_group",
         "queue_depth", "compile_cache_size", "batch_form_p50_ms", "batch_form_p99_ms",
         "dispatch_wait_p50_ms", "dispatch_wait_p99_ms", "device_failures",
-        "device_owed_mb",
+        "device_owed_mb", "compile_misses", "copied_bytes", "copy_events",
     }
     assert d["items"] == 1 and d["batches"] == 1 and d["groups"] == 1
     assert d["compile_cache_size"] >= 1 and d["device_owed_mb"] == 0.0

@@ -48,7 +48,8 @@ WAIT_S = 60
 OFF_KEYS = {"items", "batches", "groups", "avg_batch", "avg_group", "max_group",
             "queue_depth", "compile_cache_size", "batch_form_p50_ms",
             "batch_form_p99_ms", "dispatch_wait_p50_ms", "dispatch_wait_p99_ms",
-            "device_failures", "device_owed_mb"}
+            "device_failures", "device_owed_mb", "compile_misses", "copied_bytes",
+            "copy_events"}
 
 
 @pytest.fixture(autouse=True, scope="module")
