@@ -259,6 +259,40 @@ Phases, in order; any failure raises and exits non-zero:
    by their plain versions, timed, within 1 LSB; then the bounds of the
    kernel_ab.py cases PERF.md lists (LISTED_BOUNDS).
 
+14. the fault domain and the host placement: first every server of
+   phases 4-13 (each in-process server's /health block read as it
+   closed, each server process's /health before its stop) shows spilled
+   0, breaker_host_served 0 and hedges launched 0; then (a) config 1 as
+   GET on large.jpg through a server with --integrity --integrity-sample
+   1.0 --failslow-ratio 3 --host-spill on (breaker cooldown 2 s; host
+   placement on, for the outage's host serving): 20 answers on the card,
+   byte-equal to phase 4's, checks equal to chunks and 0 mismatches, the
+   golden probe's warm ms and the card's golden output's max and mean
+   |d| against the host's golden; then device.corrupt: every answer
+   re-served from the host's verified copy (`X-Imaginary-Backend: host`),
+   mismatches and corruption strikes counted, the card quarantined and
+   breaker_host_served counting; the failpoint cleared, the golden probe
+   re-admits the card after its clean probes and the answers (and K2's
+   and K3's launches) are back on the card; (b) device.oom on a B=8 chunk
+   of phase 6's /thumbnail (oom_events and oom_splits counted, every
+   answer 200 on the card and byte-equal to the unsplit burst), then a
+   real torch.cuda.OutOfMemoryError: an in-process executor under
+   torch.cuda.set_per_process_memory_fraction, the cap set from the
+   allocator's measured need of a B=2 chunk of 4K frames so that B=16
+   cannot be allocated, the B=16 chunk bisected and served on the card
+   bit-equal to the uncapped run, the fraction restored after; (c) with
+   drain_watchdog_s 2, a drain that hangs (a fetch that blocks, as the
+   reference's tests of its watchdog make it) fails its future with the
+   reference's error, device_owed_mb returns to 0 and the next request is
+   served on the card; (d) --hedge-threshold-ms 50 with
+   device.slow=delay(300ms): the host twin wins (hedges_won, `host`), 20
+   calm requests launch 0 hedges, and an X-Request-Timeout of 40 ms
+   launches none; (e) four lanes on card 0 with fail-slow armed and
+   device.slow[1]=delay(30ms): lane 1 is demoted and leaves the rotation,
+   16 requests go to the others, and it is re-admitted once the failpoint
+   is cleared; (f) --force-host on config 1: `host`, spilled 1, no kernel
+   launched, within the integrity bars (96, 16) of the card's answer.
+
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -267,6 +301,7 @@ Details go to chip_smoke_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import statistics
@@ -1382,6 +1417,7 @@ def main_path_phase() -> dict:
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
     lat: dict = {}
+    answers: dict = {}
     try:
         # one untimed request per route first: the first CUDA use loads the
         # kernel libraries and the caching allocator's first blocks
@@ -1399,6 +1435,7 @@ def main_path_phase() -> dict:
                 d = codecs.decode(body)
                 if d.array.shape[:2] != (200, 300):
                     raise AssertionError(f"/{op}: output {d.array.shape}")
+                answers[op] = body
         launches = kernels.launch_counts()
         prof = profile_requests(port, buf)
     finally:
@@ -1417,7 +1454,10 @@ def main_path_phase() -> dict:
     for name, us in sorted(prof["by_name_us"].items(), key=lambda kv: -kv[1]):
         log(f"    {us / prof['requests']:9.2f} us/request  {name[:90]}")
     torch.cuda.synchronize()
-    return {"latency_ms": lat, "launches": launches, "profile": prof}
+    # phase 14 holds its config 1 answers byte-equal to this server's
+    PHASE4_ANSWERS.update(answers)
+    return {"latency_ms": lat, "launches": launches, "profile": prof,
+            "resize_sha256": hashlib.sha256(answers["resize"]).hexdigest()}
 
 
 def profile_requests(port: int, buf: bytes, rounds: int = 3) -> dict:
@@ -4472,6 +4512,7 @@ class ServerProcess:
     time from spawn to its listening line (the prewarm inside it)."""
 
     def __init__(self, name: str, args: list):
+        self.name = name
         self.port = free_port()
         os.makedirs(OUT_DIR, exist_ok=True)
         self.out_path = os.path.join(OUT_DIR, f"{name}.out")
@@ -4509,6 +4550,11 @@ class ServerProcess:
 
     def stop(self) -> None:
         if self.proc.poll() is None:
+            try:
+                note_host_placements(self.name, self.health())
+            except (OSError, ValueError) as e:
+                log(f"  {self.name}: /health before stop failed: {e}")
+                note_host_placements(self.name, None)
             self.proc.terminate()
             try:
                 self.proc.wait(timeout=30)
@@ -4955,6 +5001,509 @@ def chain_plain_phase(png: bytes) -> dict:
     return {"ms": ms, "plain_ms": plain, "max_abs_err": err, "specs": names}
 
 
+# -- phase 14: the card's fault domain and the host placement ------------------
+
+# Config 1's answers of phase 4's server, held byte-equal in phase 14.
+PHASE4_ANSWERS: dict = {}
+# (server, spilled, breaker_host_served, hedges launched) of every server
+# of phases 4-13, read from its /health before it closed (None: unread).
+HOST_PLACEMENTS: list = []
+CONFIG1_GET = "/resize?width=300&height=200&file=large.jpg"
+FAULT_REQUESTS = 20
+FAULT_CLEAN_PROBES = 3
+FAULT_COOLDOWN_S = 2.0
+OOM_BURST = 8
+OOM_FRAMES = 16
+OOM_FIT = 2  # the chunk size the memory cap must still admit
+WATCHDOG_S = 2.0
+HEDGE_MS = 50.0
+HEDGE_DELAY = "300ms"
+HEDGE_CALM = 20
+HEDGE_SETTLE_S = 1.0
+FAILSLOW_DELAY = "30ms"
+FAILSLOW_LANE = 1
+INTEGRITY_TOL, INTEGRITY_MEAN = 96, 16.0  # engine/integrity.py's bars
+
+
+def note_host_placements(name: str, health) -> None:
+    if health is None:
+        HOST_PLACEMENTS.append((name, None, None, None))
+        return
+    ex = health["executor"]
+    HOST_PLACEMENTS.append((name, ex["spilled"], ex["breaker_host_served"],
+                            ex["hedges"]["launched"]))
+
+
+def watch_servers():
+    """Every in-process server reads its /health block (the service's
+    `health()`, the one assembly /health serves) into HOST_PLACEMENTS as
+    it closes; returns the function that stops watching."""
+    from imaginary_tpu_torch.web import app as app_mod
+
+    real = app_mod.AppServer.server_close
+
+    def server_close(self):
+        try:
+            note_host_placements(f"{self.service.device}:{self.server_address[1]}",
+                                 self.service.health())
+        finally:
+            real(self)
+
+    app_mod.AppServer.server_close = server_close
+
+    def restore():
+        app_mod.AppServer.server_close = real
+
+    return restore
+
+
+def host_placement_check() -> dict:
+    """Phases 4-13 served every request on the card: no spill, no host
+    serving for an outage, no hedge, on any of their servers."""
+    bad = [h for h in HOST_PLACEMENTS if h[1:] != (0, 0, 0)]
+    if not HOST_PLACEMENTS or bad:
+        raise AssertionError(f"servers of phases 4-13 placed work on the host: {bad} "
+                             f"(of {len(HOST_PLACEMENTS)})")
+    log(f"  phases 4-13: {len(HOST_PLACEMENTS)} servers, each spilled 0, "
+        f"breaker_host_served 0, hedges_launched 0 (/health)")
+    return {"servers": len(HOST_PLACEMENTS)}
+
+
+def backend(headers: dict) -> str:
+    return headers.get("X-Imaginary-Backend", "")
+
+
+def per_device(health: dict, idx: int = 0) -> dict:
+    return health["deviceHealth"]["per_device"][idx]
+
+
+def integrity_case(smi: str) -> dict:
+    """(a): config 1 with --integrity --integrity-sample 1.0
+    --failslow-ratio 3 --host-spill on: every chunk verified on the card,
+    then device.corrupt (the outage served by the host), then the golden
+    probe's re-admission."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch import failpoints, kernels
+    from imaginary_tpu_torch.engine import integrity as integrity_mod
+    from imaginary_tpu_torch.ops import chain as chain_mod
+    from imaginary_tpu_torch.web.app import make_server
+
+    want = PHASE4_ANSWERS["resize"]
+    srv = make_server("127.0.0.1", 0, device=DEVICE, mount=TESTDATA, integrity=True,
+                      integrity_sample=1.0, integrity_clean_probes=FAULT_CLEAN_PROBES,
+                      failslow_ratio=3.0, breaker_cooldown_s=FAULT_COOLDOWN_S,
+                      host_spill=True)
+    stop = start(srv)
+    port = srv.server_address[1]
+    svc = srv.service
+    ex = svc.executor
+    out: dict = {}
+    try:
+        http_get(port, CONFIG1_GET)  # warm
+        c0, b0 = svc.integrity.checks, ex.stats.batches
+        for _ in range(FAULT_REQUESTS):
+            status, headers, body = http_get(port, CONFIG1_GET)
+            if (status, backend(headers)) != (200, "device") or body != want:
+                raise AssertionError(f"(a) clean: {status} {backend(headers)}, "
+                                     f"byte-equal {body == want}")
+        checks, chunks = svc.integrity.checks - c0, ex.stats.batches - b0
+        if checks != chunks or svc.integrity.mismatches != 0 or ex.stats.spilled != 0:
+            raise AssertionError(f"(a) {checks} checks for {chunks} chunks, "
+                                 f"{svc.integrity.mismatches} mismatches, "
+                                 f"{ex.stats.spilled} spilled")
+        if not wait_for(lambda: per_device(svc.health())["probe_latency_samples"] >= 1, 10):
+            raise AssertionError("(a) the golden probe never ran")
+        probe_ewma = per_device(svc.health())["probe_latency_ewma_ms"]
+        warm_ms = [ex._probe_device(0) for _ in range(5)]
+        arr, plan, ref = integrity_mod.golden()
+        card = chain_mod.run_batch([arr], [plan], device=DEVICE)[0]
+        d = np.abs(card.astype(np.int16) - ref.astype(np.int16))
+        out["clean"] = {"requests": FAULT_REQUESTS, "checks": checks, "chunks": chunks,
+                        "golden_probe_ms": sorted(warm_ms)[2],
+                        "golden_probe_ewma_ms": probe_ewma,
+                        "golden_max_abs_diff": int(d.max()),
+                        "golden_mean_abs_diff": float(d.mean())}
+        log(f"  (a) {FAULT_REQUESTS} GETs on the card, byte-equal to phase 4's, {checks} "
+            f"checks = {chunks} chunks, 0 mismatches; golden probe warm "
+            f"{sorted(warm_ms)[2]:.3f} ms (EWMA {probe_ewma:.3f} ms), the card's golden "
+            f"output max |d| {int(d.max())} mean |d| {float(d.mean()):.3f} against the "
+            f"host's  [{smi}]")
+        failpoints.activate("device.corrupt=error")
+        try:
+            heads = []
+            for _ in range(3):
+                status, headers, _ = http_get(port, CONFIG1_GET)
+                heads.append((status, backend(headers)))
+            h = svc.health()
+        finally:
+            failpoints.deactivate()
+        integ, dh = h["integrity"], per_device(h)
+        if heads != [(200, "host")] * 3 or integ["mismatches"] < 1 \
+                or integ["reserved"] < 1 or dh["corruptions"] < 1 \
+                or h["executor"]["breaker_host_served"] < 1 or dh["state"] == "healthy":
+            raise AssertionError(f"(a) device.corrupt: answers {heads}, integrity {integ}, "
+                                 f"device {dh}, executor {h['executor']}")
+        out["corrupt"] = {"answers": heads, "mismatches": integ["mismatches"],
+                          "reserved": integ["reserved"], "corruptions": dh["corruptions"],
+                          "breaker_host_served": h["executor"]["breaker_host_served"]}
+        log(f"  (a) device.corrupt: 3 answers 200 host, {integ['mismatches']} mismatches, "
+            f"{integ['reserved']} re-served, {dh['corruptions']} corruption strikes, "
+            f"quarantined, breaker_host_served {h['executor']['breaker_host_served']}")
+        t0 = time.perf_counter()
+        if not wait_for(lambda: per_device(svc.health())["state"] == "healthy", 30):
+            raise AssertionError(f"(a) not re-admitted: {per_device(svc.health())}")
+        dh = per_device(svc.health())
+        if dh["readmissions"] < 1 or dh["clean_probes_needed"] != 0:
+            raise AssertionError(f"(a) re-admission: {dh}")
+        kernels.reset_launches()
+        for _ in range(3):
+            status, headers, body = http_get(port, CONFIG1_GET)
+            if (status, backend(headers), body == want) != (200, "device", True):
+                raise AssertionError(f"(a) after re-admission: {status} {backend(headers)}")
+        launches = kernels.launch_counts()
+        if launches["yuv420_unpack"] != 3 or launches["yuv420_pack"] != 3:
+            raise AssertionError(f"(a) after re-admission the requests launched {launches}")
+        out["readmitted"] = {"seconds": time.perf_counter() - t0, "probes": dh["probes"],
+                             "readmissions": dh["readmissions"]}
+        log(f"  (a) failpoint cleared: re-admitted by the golden probe after "
+            f"{time.perf_counter() - t0:.2f} s ({dh['probes']} probes, clean-probe debt "
+            f"{FAULT_CLEAN_PROBES}); 3 answers on the card again, K2 and K3 launched 3 "
+            f"times each")
+    finally:
+        failpoints.deactivate()
+        stop()
+    torch.cuda.synchronize()
+    return out
+
+
+def burst(port: int, path: str, n: int, body=None) -> list:
+    """n requests of `path` started together, POSTs of `body` when one is
+    given: [(status, headers, body)]."""
+    got: list = [None] * n
+    gate = threading.Barrier(n)
+    headers = {"Content-Type": "image/jpeg"} if body is not None else None
+
+    def one(i):
+        gate.wait()
+        got[i] = http_get(port, path, headers=headers,
+                          method="POST" if body is not None else "GET", body=body)
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    return got
+
+
+def oom_case(smi: str) -> dict:
+    """(b): device.oom on a B=8 chunk of phase 6's /thumbnail through the
+    server, then a real torch.cuda.OutOfMemoryError under a per-process
+    memory cap on an in-process executor."""
+    from imaginary_tpu_torch import failpoints
+    from imaginary_tpu_torch.web.app import make_server
+
+    with open(LARGE_JPG, "rb") as f:
+        buf = f.read()
+    path = CONFIG2_REQUESTS[0][0]
+    out: dict = {}
+    srv = make_server("127.0.0.1", 0, device=DEVICE, max_batch=OOM_BURST,
+                      batch_form_ms=500.0, cpus=2 * OOM_BURST)
+    stop = start(srv)
+    ex = srv.service.executor
+    try:
+        port = srv.server_address[1]
+        http_get(port, path, headers={"Content-Type": "image/jpeg"}, method="POST", body=buf)
+        plain = burst(port, path, OOM_BURST, buf)
+        failpoints.activate("device.oom=once(error)")
+        got = burst(port, path, OOM_BURST, buf)
+        failpoints.deactivate()
+        st = ex.stats
+        want = {p[2] for p in plain}
+        if len(want) != 1 or any(g[0] != 200 or g[2] not in want or backend(g[1]) != "device"
+                                 for g in got) or st.oom_events < 1 or st.oom_splits < 1:
+            raise AssertionError(f"(b) device.oom: statuses {[g[0] for g in got]}, "
+                                 f"oom_events {st.oom_events}, oom_splits {st.oom_splits}, "
+                                 f"byte-equal {[g[2] in want for g in got]}")
+        out["failpoint"] = {"answers": len(got), "oom_events": st.oom_events,
+                            "oom_splits": st.oom_splits, "max_group": st.max_group_seen}
+        log(f"  (b) device.oom on a B={st.max_group_seen} /thumbnail chunk: "
+            f"{len(got)} answers 200 on the card, byte-equal to the unsplit run; "
+            f"oom_events {st.oom_events}, oom_splits {st.oom_splits}")
+    finally:
+        failpoints.deactivate()
+        stop()
+    out["real"] = real_oom_case()
+    return out
+
+
+def real_oom_case() -> dict:
+    """(b), second half: a real torch.cuda.OutOfMemoryError. An in-process
+    executor under torch.cuda.set_per_process_memory_fraction, the cap
+    chosen from the allocator's measured need for a B=2 chunk of 4K frames
+    (and torch.cuda.mem_get_info's total) so that B=2 fits and B=4 and
+    up do not; the B=16 chunk is bisected and served on the card."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch.engine import Executor, ExecutorConfig
+    from imaginary_tpu_torch.ops import chain as chain_mod
+    from imaginary_tpu_torch.ops.plan import plan_operation
+    from imaginary_tpu_torch.options import ImageOptions
+
+    rng = np.random.default_rng(SEED)
+    base = rng.integers(0, 256, (2160 // 8, 3840 // 8, 3), dtype=np.uint8)
+    frame = np.kron(base, np.ones((8, 8, 1), np.uint8))
+    frames = [np.ascontiguousarray(frame ^ np.uint8(i)) for i in range(OOM_FRAMES)]
+    plan = plan_operation("resize", ImageOptions(width=1920), 2160, 3840, 0, 3)
+    plans = [plan] * OOM_FRAMES
+    want = chain_mod.run_batch(frames, plans, device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base_mb = torch.cuda.memory_reserved() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    chain_mod.run_batch(frames[:OOM_FIT], plans[:OOM_FIT], device=DEVICE)
+    need_fit = torch.cuda.max_memory_reserved() / 2**20 - base_mb
+    torch.cuda.empty_cache()
+    _, total = torch.cuda.mem_get_info()
+    cap_mb = torch.cuda.memory_reserved() / 2**20 + 1.5 * need_fit
+    fraction = cap_mb * 2**20 / total
+    ex = Executor(ExecutorConfig(device=DEVICE, max_batch=OOM_FRAMES, max_form_ms=500.0))
+    torch.cuda.set_per_process_memory_fraction(fraction)
+    try:
+        futs = [ex.submit(f, plan) for f in frames]
+        got = [f.result(timeout=120) for f in futs]
+        placed = [getattr(f, "_hedge_placement", None) for f in futs]
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+        ex.shutdown()
+    st = ex.stats
+    last = ex.devhealth.record(0).last_error
+    equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+    if not equal or st.oom_events != 1 or st.oom_splits < 1 or st.oom_host_routed \
+            or any(placed) or "out of memory" not in last.lower():
+        raise AssertionError(f"(b) real OOM: bit-equal {equal}, oom_events {st.oom_events}, "
+                             f"oom_splits {st.oom_splits}, host-routed {st.oom_host_routed}, "
+                             f"last error {last!r}")
+    out = {"frames": OOM_FRAMES, "cap_mb": cap_mb, "b2_need_mb": need_fit,
+           "total_mb": total / 2**20, "oom_events": st.oom_events,
+           "oom_splits": st.oom_splits, "error": last[:160]}
+    log(f"  (b) real OOM: B={OOM_FRAMES} 4K frames under a {cap_mb:.0f} MB cap (B={OOM_FIT} "
+        f"needs {need_fit:.0f} MB more than the {base_mb:.0f} MB reserved): "
+        f"{last.splitlines()[0][:80]!r}; bisected ({st.oom_splits} splits) and served on "
+        f"the card, bit-equal to the uncapped run")
+    return out
+
+
+def watchdog_case() -> dict:
+    """(c): a drain that hangs (the reference's own test of its watchdog,
+    a fetch that blocks) is abandoned after WATCHDOG_S."""
+    import numpy as np
+    import torch
+
+    from imaginary_tpu_torch.engine import Executor, ExecutorConfig
+    from imaginary_tpu_torch.engine import executor as ex_mod
+    from imaginary_tpu_torch.ops import chain as chain_mod
+    from imaginary_tpu_torch.ops.plan import plan_operation
+    from imaginary_tpu_torch.options import ImageOptions
+
+    release = threading.Event()
+    real = chain_mod.fetch_batch
+    calls = {"n": 0}
+
+    def hang_once(y, arrs, plans):
+        calls["n"] += 1
+        if calls["n"] == 1:
+            release.wait(timeout=60)
+        return real(y, arrs, plans)
+
+    arr = np.random.default_rng(SEED).integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    plan = plan_operation("resize", ImageOptions(width=300, height=200), 1080, 1920, 0, 3)
+    ex = Executor(ExecutorConfig(device=DEVICE, drain_watchdog_s=WATCHDOG_S,
+                                 breaker_cooldown_s=1.0))
+    chain_mod.fetch_batch = hang_once
+    try:
+        t0 = time.perf_counter()
+        fut = ex.submit(arr, plan)
+        try:
+            fut.result(timeout=30)
+            raise AssertionError("(c) the hung drain answered")
+        except RuntimeError as e:
+            if "watchdog" not in str(e):
+                raise
+            err = str(e)
+        failed_s = time.perf_counter() - t0
+        release.set()
+        if not wait_for(lambda: ex.stats.device_owed_mb == 0.0, 10):
+            raise AssertionError(f"(c) owed MB {ex.stats.device_owed_mb}")
+        if not wait_for(lambda: not ex._breaker_is_open(), 10):
+            raise AssertionError("(c) the breaker stayed open")
+        ex_mod.reset_placement()
+        again = ex.process(arr, plan, timeout=60)
+        placed = ex_mod.last_placement()
+    finally:
+        chain_mod.fetch_batch = real
+        release.set()
+        ex.shutdown()
+    if placed != "device" or again.shape != (200, 300, 3) or ex.stats.breaker_opens != 1:
+        raise AssertionError(f"(c) after the watchdog: {placed}, {again.shape}, "
+                             f"breaker_opens {ex.stats.breaker_opens}")
+    torch.cuda.synchronize()
+    log(f"  (c) drain watchdog {WATCHDOG_S:.0f} s: the hung chunk failed after "
+        f"{failed_s:.2f} s with {err!r}, owed MB back to 0, the breaker opened once, "
+        f"the next request served on the card")
+    return {"failed_after_s": failed_s, "error": err}
+
+
+def hedge_case() -> dict:
+    """(d): --hedge-threshold-ms 50 with device.slow delaying the card."""
+    from imaginary_tpu_torch import failpoints
+    from imaginary_tpu_torch.web.app import make_server
+
+    srv = make_server("127.0.0.1", 0, device=DEVICE, mount=TESTDATA,
+                      hedge_threshold_ms=HEDGE_MS, request_timeout_s=30.0)
+    stop = start(srv)
+    ex = srv.service.executor
+    port = srv.server_address[1]
+    try:
+        http_get(port, CONFIG1_GET)
+        failpoints.activate(f"device.slow=delay({HEDGE_DELAY})")
+        slow = [http_get(port, CONFIG1_GET) for _ in range(3)]
+        failpoints.deactivate()
+        # the cancelled device items' delayed launches end before the calm
+        # requests start
+        time.sleep(HEDGE_SETTLE_S)
+        won = ex.stats.hedges_won
+        if [(s, backend(h)) for s, h, _ in slow] != [(200, "host")] * 3 or won < 3:
+            raise AssertionError(f"(d) slow card: {[(s, backend(h)) for s, h, _ in slow]}, "
+                                 f"hedges_won {won}")
+        launched = ex.stats.hedges_launched
+        calm = [http_get(port, CONFIG1_GET) for _ in range(HEDGE_CALM)]
+        if ex.stats.hedges_launched != launched or any(
+                (s, backend(h)) != (200, "device") for s, h, _ in calm):
+            raise AssertionError(f"(d) calm card launched "
+                                 f"{ex.stats.hedges_launched - launched} hedges")
+        failpoints.activate(f"device.slow=delay({HEDGE_DELAY})")
+        short = http_get(port, CONFIG1_GET, headers={"X-Request-Timeout": "0.04"})
+        failpoints.deactivate()
+        time.sleep(HEDGE_SETTLE_S)  # past the delayed launch
+        if ex.stats.hedges_launched != launched or short[0] not in (503, 504):
+            raise AssertionError(f"(d) a 40 ms deadline: {short[0]}, "
+                                 f"{ex.stats.hedges_launched - launched} hedges")
+    finally:
+        failpoints.deactivate()
+        stop()
+    log(f"  (d) hedging at {HEDGE_MS:.0f} ms: device.slow {HEDGE_DELAY} -> 3 answers from "
+        f"the host twin (hedges_won {won}); {HEDGE_CALM} calm requests launched 0 hedges; "
+        f"a 40 ms X-Request-Timeout launched none ({short[0]})")
+    return {"hedges_won": won, "calm_requests": HEDGE_CALM, "short_deadline_status": short[0]}
+
+
+def failslow_case() -> dict:
+    """(e): four lanes on card 0 (phase 10's layout), device.slow keyed to
+    one lane: demoted, its work moves, re-admitted once cleared."""
+    from imaginary_tpu_torch import failpoints
+    from imaginary_tpu_torch.web.app import make_server
+
+    entries = [f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE] * LANE_ENTRIES
+    srv = make_server("127.0.0.1", 0, device=DEVICE, mount=TESTDATA, mesh_policy="lanes",
+                      devices=entries, failslow_ratio=3.0, failslow_min_samples=4,
+                      breaker_cooldown_s=0.25, cpus=8)
+    stop = start(srv)
+    ex = srv.service.executor
+    port = srv.server_address[1]
+    lane = ex._lanes.lane(FAILSLOW_LANE)
+
+    def traffic(n=16):
+        got = burst(port, CONFIG1_GET, n)
+        if any((s, backend(h)) != (200, "device") for s, h, _ in got):
+            raise AssertionError(f"(e) answers {[(s, backend(h)) for s, h, _ in got]}")
+
+    try:
+        traffic()
+        failpoints.activate(f"device.slow[{FAILSLOW_LANE}]=delay({FAILSLOW_DELAY})")
+        t0 = time.perf_counter()
+        if not wait_for(lambda: not lane.active, 30):
+            raise AssertionError(f"(e) lane {FAILSLOW_LANE} stayed in the rotation: "
+                                 f"{per_device(srv.service.health(), FAILSLOW_LANE)}")
+        demoted_s = time.perf_counter() - t0
+        d0 = lane.dispatches
+        traffic()
+        moved = lane.dispatches == d0
+        rec = per_device(srv.service.health(), FAILSLOW_LANE)
+        failpoints.deactivate()
+        t0 = time.perf_counter()
+        if not wait_for(lambda: lane.active and per_device(
+                srv.service.health(), FAILSLOW_LANE)["state"] == "healthy", 60):
+            raise AssertionError(f"(e) lane {FAILSLOW_LANE} not re-admitted: "
+                                 f"{per_device(srv.service.health(), FAILSLOW_LANE)}")
+        back_s = time.perf_counter() - t0
+        traffic()
+    finally:
+        failpoints.deactivate()
+        stop()
+    if not moved or rec["demotions"] < 1:
+        raise AssertionError(f"(e) demotions {rec['demotions']}, work moved {moved}")
+    log(f"  (e) device.slow[{FAILSLOW_LANE}] {FAILSLOW_DELAY} on lane {FAILSLOW_LANE} of "
+        f"{LANE_ENTRIES}: demoted after {demoted_s:.2f} s (probe EWMA "
+        f"{rec['probe_latency_ewma_ms']:.2f} ms, state {rec['state']}), 16 requests moved "
+        f"off it; re-admitted {back_s:.2f} s after the failpoint cleared")
+    return {"demoted_after_s": demoted_s, "readmitted_after_s": back_s,
+            "probe_ewma_ms": rec["probe_latency_ewma_ms"], "state": rec["state"]}
+
+
+def force_host_case(smi: str) -> dict:
+    """(f): --force-host on config 1: the host answers, counted, no kernel
+    launched, within the integrity bars of the card's answer."""
+    import numpy as np
+
+    from imaginary_tpu_torch import codecs, kernels
+    from imaginary_tpu_torch.web.app import make_server
+
+    srv = make_server("127.0.0.1", 0, device=DEVICE, mount=TESTDATA, force_host=True)
+    stop = start(srv)
+    try:
+        port = srv.server_address[1]
+        kernels.reset_launches()
+        status, headers, body = http_get(port, CONFIG1_GET)
+        launches = kernels.launch_counts()
+        spilled = srv.service.executor.stats.spilled
+    finally:
+        stop()
+    if (status, backend(headers), spilled) != (200, "host", 1) or any(launches.values()):
+        raise AssertionError(f"(f) --force-host: {status} {backend(headers)}, spilled "
+                             f"{spilled}, launches {launches}")
+    host = codecs.decode(body).array.astype(np.int16)
+    card = codecs.decode(PHASE4_ANSWERS["resize"]).array.astype(np.int16)
+    d = np.abs(host - card)
+    if host.shape != card.shape or d.max() > INTEGRITY_TOL or d.mean() > INTEGRITY_MEAN:
+        raise AssertionError(f"(f) host answer max |d| {d.max()} mean {d.mean():.2f}")
+    log(f"  (f) --force-host: 200 host, spilled 1, no kernel launched; against the "
+        f"card's answer max |d| {int(d.max())} mean |d| {float(d.mean()):.3f} "
+        f"(bars {INTEGRITY_TOL}, {INTEGRITY_MEAN})  [{smi}]")
+    return {"max_abs_diff": int(d.max()), "mean_abs_diff": float(d.mean())}
+
+
+def fault_domain_phase(smi: str) -> dict:
+    t0 = time.perf_counter()
+    out = {"phases_4_13": host_placement_check()}
+    cases = (("integrity", lambda: integrity_case(smi)), ("oom", lambda: oom_case(smi)),
+             ("watchdog", watchdog_case), ("hedging", hedge_case),
+             ("failslow", failslow_case), ("force_host", lambda: force_host_case(smi)))
+    seconds = {}
+    for name, case in cases:
+        t = time.perf_counter()
+        out[name] = case()
+        seconds[name] = time.perf_counter() - t
+    out["seconds"] = {"total": time.perf_counter() - t0, **seconds}
+    log(f"  phase 14: {out['seconds']['total']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5020,6 +5569,7 @@ def main() -> int:
     config4_kernel_phase(report["kernels"])
     dct_kernel_phase(report["kernels"])
     log("== phase 4: main path through the server")
+    unwatch = watch_servers()
     report["main_path"] = main_path_phase()
     t0 = time.perf_counter()
     png = make_4k_png()
@@ -5060,6 +5610,10 @@ def main() -> int:
     report["golden"] = golden_phase()
     report["chain_plain"] = chain_plain_phase(png)
     report["listed_bounds"] = listed_bounds()
+    unwatch()
+    log("== phase 14: the fault domain and the host placement (integrity, OOM, the "
+        "drain watchdog, hedging, fail-slow, --force-host)")
+    report["fault_domain"] = fault_domain_phase(smi)
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():

@@ -5,7 +5,9 @@ The reference's flags for every subsystem the port has, with the
 reference's defaults. Every flag reads its default from
 `IMAGINARY_TPU_<FLAG>` (dashes as underscores), and the historical names
 PORT, URL_SIGNATURE_KEY and LOG_LEVEL still win, as in the reference.
-`--device` is the port's own: the torch device of the kernels. The
+`--device` is the port's own: the torch device of the kernels, and
+`--host-spill` defaults to off where the reference's defaults to auto
+(the card serves every request unless asked otherwise). The
 server runs on the card: without CUDA it refuses to start unless
 `--device cpu` asks for the CPU, and `--require-device` refuses anything
 but a CUDA device.
@@ -226,6 +228,69 @@ def build_parser() -> argparse.ArgumentParser:
                         "quantized DCT coefficients: the device runs the "
                         "forward DCT + quantization and the host only "
                         "entropy-codes (requires --transport-dct)")
+    # placement and the card's fault domain (engine/executor.py)
+    p.add_argument("--host-spill",
+                   default=_env_str("IMAGINARY_TPU_HOST_SPILL", "off"),
+                   choices=["auto", "on", "off"],
+                   help="spill to the host interpreter when the device "
+                        "backlog outprices it, and serve host-executable "
+                        "work on the host during an outage or when an item "
+                        "does not fit the device alone (auto/on: the "
+                        "measured cost model decides the spill; host answers "
+                        "carry X-Imaginary-Backend: host). off by default: "
+                        "the card serves every request or answers its error")
+    p.add_argument("--force-host", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_FORCE_HOST"),
+                   help="pin every host-executable plan to the host "
+                        "interpreter (a measurement override; device-only "
+                        "plans still ride the card)")
+    p.add_argument("--host-dct-spill",
+                   default=_env_str("IMAGINARY_TPU_HOST_DCT_SPILL", "on"),
+                   choices=["on", "off"],
+                   help="DCT-domain shrink-on-load for dct-transport plans "
+                        "placed on the host (off: such plans never run "
+                        "on the host)")
+    p.add_argument("--hedge-threshold-ms", type=float,
+                   default=_env_float("IMAGINARY_TPU_HEDGE_THRESHOLD_MS", 0.0),
+                   help="launch a host twin for a device request pending "
+                        "this long (floored at 50 ms and at 4x its "
+                        "estimated service); first answer wins; 0 disables")
+    p.add_argument("--hedge-budget", type=float,
+                   default=_env_float("IMAGINARY_TPU_HEDGE_BUDGET", 0.05),
+                   help="max concurrent hedges as a fraction of in-flight "
+                        "device items (floor 1)")
+    p.add_argument("--integrity", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_INTEGRITY"),
+                   help="arm output integrity: the golden probe, sampled "
+                        "verification of device chunks (a mismatch is a "
+                        "corruption strike and the answer is re-served "
+                        "from the verified copy) and poison isolation")
+    p.add_argument("--integrity-sample", type=float,
+                   default=_env_float("IMAGINARY_TPU_INTEGRITY_SAMPLE", 1.0 / 256.0),
+                   help="fraction of device chunks recomputed and compared "
+                        "before release (1.0 verifies every chunk)")
+    p.add_argument("--integrity-clean-probes", type=int,
+                   default=_env_int("IMAGINARY_TPU_INTEGRITY_CLEAN_PROBES", 3),
+                   help="consecutive clean golden probes a corruption-"
+                        "struck device needs to be re-admitted")
+    p.add_argument("--integrity-poison-ttl", type=float,
+                   default=_env_float("IMAGINARY_TPU_INTEGRITY_POISON_TTL", 300.0),
+                   help="seconds a convicted input stays in the poison list")
+    p.add_argument("--integrity-poison-cap", type=int,
+                   default=_env_int("IMAGINARY_TPU_INTEGRITY_POISON_CAP", 256),
+                   help="max poison-list entries (oldest evicted)")
+    p.add_argument("--failslow-ratio", type=float,
+                   default=_env_float("IMAGINARY_TPU_FAILSLOW_RATIO", 0.0),
+                   help="demote a device whose golden-probe latency EWMA "
+                        "exceeds this ratio x its peers' median; 0 disables")
+    p.add_argument("--failslow-min-samples", type=int,
+                   default=_env_int("IMAGINARY_TPU_FAILSLOW_MIN_SAMPLES", 8),
+                   help="probe samples a device and its peers each need "
+                        "before fail-slow demotion may trigger")
+    p.add_argument("--failslow-share", type=float,
+                   default=_env_float("IMAGINARY_TPU_FAILSLOW_SHARE", 0.0),
+                   help="share of its rotation a demoted device keeps "
+                        "(0 = full shed)")
     # the port's own
     p.add_argument("--device", default=_env_str("IMAGINARY_TPU_DEVICE", "cuda"),
                    help="torch device to run the kernels on (cuda, cuda:N, or cpu)")
@@ -313,6 +378,19 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         spatial_mpix=max(0.0, args.spatial_mpix),
         transport_dct=args.transport_dct,
         transport_dct_egress=args.transport_dct_egress,
+        host_spill={"auto": None, "on": True, "off": False}[args.host_spill],
+        force_host=args.force_host,
+        host_dct_spill=args.host_dct_spill != "off",
+        hedge_threshold_ms=max(0.0, args.hedge_threshold_ms),
+        hedge_budget=min(1.0, max(0.0, args.hedge_budget)),
+        integrity=args.integrity,
+        integrity_sample=min(1.0, max(0.0, args.integrity_sample)),
+        integrity_clean_probes=max(1, args.integrity_clean_probes),
+        integrity_poison_ttl=max(0.0, args.integrity_poison_ttl),
+        integrity_poison_cap=max(1, args.integrity_poison_cap),
+        failslow_ratio=max(0.0, args.failslow_ratio),
+        failslow_min_samples=max(1, args.failslow_min_samples),
+        failslow_share=min(1.0, max(0.0, args.failslow_share)),
     )
 
 

@@ -22,6 +22,9 @@ NAME = "native"
 
 _EXT = None
 _LOCK = threading.Lock()
+# the host resampler's module (native/resample.cpp): None = not yet
+# loaded, False = its build failed here
+_RESAMPLE = None
 
 
 def extension():
@@ -40,6 +43,51 @@ def extension():
                 loader.exec_module(mod)
                 _EXT = mod
     return _EXT
+
+
+def _load(name: str, path: str):
+    loader = importlib.machinery.ExtensionFileLoader(name, path)
+    spec = importlib.util.spec_from_file_location(name, path, loader=loader)
+    mod = importlib.util.module_from_spec(spec)
+    loader.exec_module(mod)
+    return mod
+
+
+def _resample_ext():
+    """The host resampler module, built on first call; None where g++
+    cannot build it (the host interpreter then takes its numpy taps)."""
+    global _RESAMPLE
+    if _RESAMPLE is None:
+        with _LOCK:
+            if _RESAMPLE is None:
+                from imaginary_tpu_torch.native import build
+
+                try:
+                    path, _ = build.build_resample()
+                    _RESAMPLE = _load(build.RESAMPLE_MODULE, path)
+                except (RuntimeError, OSError, ImportError):
+                    _RESAMPLE = False
+    return _RESAMPLE or None
+
+
+def resample_available() -> bool:
+    """True when the host resampler module is built and loaded."""
+    return _resample_ext() is not None
+
+
+def resize_separable(arr: np.ndarray, dst_h: int, dst_w: int,
+                     kernel: str) -> np.ndarray:
+    """Separable precomputed-tap resize of an HWC uint8 array, GIL
+    released (the reference's native_backend.resize_separable): the
+    device sampling matrix's kernel semantics, per-axis stretch,
+    edge-clamp renormalisation, round half up to uint8."""
+    ext = _resample_ext()
+    if ext is None:
+        raise CodecError("native resampler not built", 500)
+    h, w, c = arr.shape
+    out = ext.resize_separable(np.ascontiguousarray(arr), h, w, c,
+                               dst_h, dst_w, kernel)
+    return np.frombuffer(out, dtype=np.uint8).reshape(dst_h, dst_w, c)
 
 
 def decode(buf: bytes, t: ImageType, shrink: int = 1) -> DecodedImage:

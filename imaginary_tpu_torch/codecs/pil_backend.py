@@ -109,7 +109,7 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
         elif t == ImageType.TIFF:
             im.save(out, "TIFF")
         elif t == ImageType.GIF:
-            im.save(out, "GIF")
+            _save_gif(im, arr, out)
         else:
             raise CodecError(f"Unsupported output image format: {t.value}", 400)
     except CodecError:
@@ -117,6 +117,41 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
     except Exception as e:
         raise CodecError(f"Cannot encode image: {e}", 400) from None
     return out.getvalue()
+
+
+def _save_gif(im: Image.Image, arr: np.ndarray, out: io.BytesIO) -> None:
+    """A GIF with Pillow's palette (the one `im.save(out, "GIF")` makes)
+    and, when the frame has alpha, the reference's native rule for it
+    (imaginary_tpu/native/codecs.cpp:1224-1241): every pixel with alpha
+    below 128 takes one reserved, transparent index. The reserved index
+    is a new palette entry, else an entry that no opaque pixel uses;
+    opaque pixels keep their colour either way, but for a 256-colour
+    palette that every opaque pixel index uses, where the rarest colour
+    moves to its nearest other entry to free its index."""
+    if arr.shape[2] != 4 or not (arr[:, :, 3] < 128).any():
+        im.save(out, "GIF")
+        return
+    pim = im.convert("P", palette=Image.Palette.ADAPTIVE)
+    idx = np.array(pim, dtype=np.uint8)
+    pal = np.asarray(pim.getpalette("RGB") or [], dtype=np.int32).reshape(-1, 3)
+    clear = arr[:, :, 3] < 128
+    used = np.bincount(idx[~clear].ravel(), minlength=256)
+    n = int(idx.max()) + 1
+    if n < 256:
+        tidx = n
+    elif (used[:256] == 0).any():
+        tidx = int(np.flatnonzero(used[:256] == 0)[0])
+    else:
+        tidx = int(np.argmin(used[:256]))
+        d = ((pal[:256] - pal[tidx]) ** 2).sum(axis=1)
+        d[tidx] = np.iinfo(np.int32).max
+        idx[(idx == tidx) & ~clear] = int(np.argmin(d))
+    pal = np.concatenate([pal, np.zeros((max(0, tidx + 1 - len(pal)), 3), np.int32)])
+    pal[tidx] = 0
+    idx[clear] = tidx
+    gif = Image.fromarray(idx, mode="P")
+    gif.putpalette(pal[:256].astype(np.uint8).ravel().tolist())
+    gif.save(out, "GIF", transparency=tidx)
 
 
 def probe(buf: bytes, t: ImageType) -> ImageMetadata:

@@ -27,12 +27,14 @@ formed chunk of at least `shard_min_items` over the healthy mesh, one
 sub-chunk per entry on that entry's lane stream. A failed launch or drain
 strikes the lane's device; at `breaker_threshold` consecutive strikes the
 device is quarantined and its lane's items move to the surviving lanes;
-after `breaker_cooldown_s` a probe (a tiny K4 launch checked against its
-known answer) re-admits it. Every quarantine and re-admission is one
-topology epoch (`_mesh_generation`). With every lane quarantined, items
-fall through to the global collector, which launches on `device`: host
-spill is not ported, so that is the end of the ladder. "off" builds no
-lane object and serves exactly as the single pair does.
+after `breaker_cooldown_s` a probe re-admits it. Every quarantine and
+re-admission is one topology epoch (`_mesh_generation`). With every lane
+quarantined, items fall through to the global collector's ladder over the
+same entries (with `host_spill` on, host-executable ones are served by
+the host interpreter instead: the breaker's outage, below). "off" builds no lane object
+and serves with the single pair, on `device`, its own fault domain (with
+`n_devices` > 1 or a `devices` list, on the first of them, the rest the
+ladder's failover targets).
 
 The oversize-single spatial route (the reference's executor.py:1660-1671
 and :1882-1897): with `spatial` > 1 the lanes' mesh has a spatial axis
@@ -54,23 +56,68 @@ chains at every B of `batch_ladder`, it stays 0. Nothing compiles per
 signature here, so the count keeps the reference's meaning of a cold
 launch: the first blocks of the caching allocator and of the pinned host
 pool for that shape. A future cancelled while it waits (the request's
-deadline passed) is dropped before its chunk launches and its owed MB
-released. The failpoint sites `executor.submit` (submit) and
-`device.execute` (the global dispatch, before the launch; an error
-there counts one device failure and fails the chunk) are ported.
+deadline passed, or a hedge's host twin won) is dropped before its chunk
+launches, and the done-callback releases its owed MB.
 
-Not ported yet: host spill, hedging, the watchdog, OOM bisection,
-`use_mesh` batch sharding, multi-host,
-qos, memory pressure, integrity checks, devhealth's fail-slow and
-corruption branches, the convoy policy and placement notes. A failed
-launch or fetch on the global pair fails the futures of its own chunk and
-counts one device failure; nothing falls back to the CPU.
+Placement and the card's fault domain (the reference's executor.py:
+819-1450 and 2134-2692):
+
+  * `submit` places each item: the poison list's convicts (integrity)
+    run on the host interpreter (engine/host_exec.py), as do
+    `--force-host` and, with `host_spill` on, the cost model's spill
+    (`_should_spill`, with its shadow probes that refresh the device's
+    price) and every host-executable item while no device is
+    dispatchable (the breaker's outage). The port's `host_spill` defaults
+    to off, where the reference's is auto: the card is the path under
+    measurement, and a struck card answers its own error rather than
+    send work to the host. Every host answer is counted (`spilled`,
+    `breaker_host_served`, `hedges_won`, `oom_host_routed`, integrity's
+    `reserved`) and marked for `X-Imaginary-Backend: host`
+    (`last_placement`, sticky for the rest of the request, or the
+    future's `_hedge_placement`).
+  * The global ladder (`_launch_with_failover`) launches on the device
+    devhealth's sticky `pick` names and fails over to the next.
+  * A capacity error (`chain.is_oom_error`: `torch.cuda.OutOfMemoryError`
+    or the `device.oom` failpoint) bisects the chunk on the same device,
+    down `oom_split_depth` levels; an item that still does not fit alone
+    runs on the host with `host_spill` on, else fails with the device's
+    error. A failed kernel launch is a crash strike instead.
+  * With `integrity` armed, a sampled share of chunks is recomputed on
+    the host (or another entry) before release; a mismatch is a
+    corruption strike and the answer is re-served from the verified copy.
+    A non-capacity launch failure of a chunk of several items is bisected
+    to convict poison inputs. The probe that re-admits an entry runs the
+    golden chain through the ported kernels when integrity or fail-slow is
+    armed (then also with one device), else a K4 transfer probe.
+  * Hedging (`hedge_threshold_ms` > 0) launches a host twin for an item
+    still pending after the threshold, never past its deadline; the
+    first answer wins.
+  * The drain watchdog abandons a global drain stuck past
+    `drain_watchdog_s`: it fails that chunk's futures and everything
+    queued behind it, strikes the devices outright, and hands the queue
+    to a fresh fetcher of the next generation.
+  * Fail-slow (`failslow_ratio` > 0) demotes an entry whose golden-probe
+    latency exceeds the ratio x its peers' median; with the lane tier a
+    demoted lane leaves the rotation (at `failslow_share` 0) until its
+    probes recover.
+
+The failpoint sites `executor.submit` (submit), `device.execute` (the
+global dispatch), `device.chip_error`, `device.oom` and `device.slow`
+(each launch, keyed by the device's index, and the probe), `device.corrupt`
+(each drained chunk and the golden probe) and `host.spill` (the spill
+branch) are ported.
+
+Not ported yet: the pressure governor's branch of `submit` and its
+batch byte cap, qos, the convoy policy, `use_mesh` batch sharding,
+multi-host, and the per-key refinement of the device price (the port
+prices the owed ledger by one measured rate).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import queue as queue_mod
 import threading
 import time
@@ -81,9 +128,15 @@ import numpy as np
 import torch
 
 from imaginary_tpu_torch import failpoints, kernels
+from imaginary_tpu_torch.engine import host_exec
 from imaginary_tpu_torch.engine import lanes as lanes_mod
-from imaginary_tpu_torch.engine.devhealth import DeviceHealthRegistry
+from imaginary_tpu_torch.engine.devhealth import (
+    STATE_DEGRADED,
+    CorruptionError,
+    DeviceHealthRegistry,
+)
 from imaginary_tpu_torch.engine.timing import COPIES, LANE_TIMES, TIMES, attribute
+from imaginary_tpu_torch.obs import trace as obs_trace
 from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.ops.buckets import bucket_shape, tight_dim
 from imaginary_tpu_torch.ops.plan import ImagePlan
@@ -140,6 +193,45 @@ class ExecutorConfig:
     spatial: int = 1
     spatial_threshold_px: int = 3840 * 2160
     spatial_mpix: float = 0.0
+    # Cost-model placement (the reference's): an item spills to the host
+    # interpreter when its estimated device wait ((owed MB + its MB) x the
+    # measured ms per MB, plus the smallest drain seen) exceeds
+    # spill_factor x its estimated host cost plus the host pool's backlog.
+    # Every probe_interval-th spill-eligible item also rides the device as
+    # a discarded shadow, at most one per probe_min_interval_s and within
+    # probe_budget_ms, to refresh the price. The same switch lets the
+    # host serve host-executable items during the breaker's outage and an
+    # item that runs out of device memory alone. False (the port's
+    # default: the card is the path under measurement) places nothing on
+    # the host this way; None is the reference's "auto" (enabled, the
+    # spill governed by the cost model).
+    host_spill: Optional[bool] = False
+    # Every host-executable plan on the host interpreter, whatever the
+    # cost model says (a measurement override; device-only plans still
+    # ride the card).
+    force_host: bool = False
+    spill_factor: float = 6.0
+    probe_interval: int = 64
+    probe_min_interval_s: float = 10.0
+    probe_budget_ms: float = 250.0
+    # Hedging: an item still pending after max(hedge_threshold_ms, 50 ms,
+    # 4x its estimated service) gets a host twin, the first answer wins;
+    # at most hedge_budget x the in-flight device items (floor 1) at once.
+    # 0 is off. Never past the request's deadline.
+    hedge_threshold_ms: float = 0.0
+    hedge_budget: float = 0.05
+    # A global drain stuck this long is abandoned (module docstring); 0
+    # disables the watchdog.
+    drain_watchdog_s: float = 20.0
+    # Levels of OOM bisection; items that still do not fit alone run on
+    # the host (3 levels turn a 16-item chunk into singles).
+    oom_split_depth: int = 3
+    # Output integrity (engine/integrity.IntegrityState), None: off.
+    integrity: Optional[object] = None
+    # Fail-slow demotion (devhealth.configure_failslow), 0: off.
+    failslow_ratio: float = 0.0
+    failslow_min_samples: int = 8
+    failslow_share: float = 0.0
 
 
 @dataclasses.dataclass
@@ -163,11 +255,31 @@ class ExecutorStats:
     # launches that met a signature this process had not launched before
     # (module docstring); 0 after a prewarm that covered the traffic
     compile_misses: int = 0
+    # placement and the fault domain (module docstring)
+    spilled: int = 0  # items the spill branch (or --force-host) served
+    spill_errors: int = 0  # spills that fell back to the device
+    breaker_opens: int = 0  # trips that left no device dispatchable
+    breaker_host_served: int = 0  # items the host served during an outage
+    shadow_probes: int = 0  # discarded device rides that price the link
+    hedges_launched: int = 0
+    hedges_won: int = 0  # the host twin answered first
+    hedges_lost: int = 0  # the device answered first
+    hedges_failed: int = 0  # the twin raised
+    hedges_skipped: int = 0  # eligible, but over the hedge budget
+    oom_events: int = 0  # capacity errors that entered bisection
+    oom_splits: int = 0  # bisections performed
+    oom_host_routed: int = 0  # items that did not fit alone, host-served
+    oom_failed: int = 0  # items bisection could not serve anywhere
+    device_ms_per_mb: float = 0.0  # the measured device price
+    host_ms_per_mpix: float = 0.0  # the measured host price
+    host_inflight: int = 0  # items on the host interpreter right now
+    host_owed_mpix: float = 0.0  # their source megapixels
 
     def to_dict(self) -> dict:
         snap = TIMES.snapshot()
         form_times = snap.get("batch_form")
         disp_times = snap.get("dispatch_wait")
+        spill_times = snap.get("host_spill")
         out = {
             "items": self.items,
             "batches": self.batches,
@@ -182,8 +294,31 @@ class ExecutorStats:
             "batch_form_p99_ms": form_times["p99_ms"] if form_times else 0.0,
             "dispatch_wait_p50_ms": disp_times["p50_ms"] if disp_times else 0.0,
             "dispatch_wait_p99_ms": disp_times["p99_ms"] if disp_times else 0.0,
+            "spilled": self.spilled,
+            "spill_errors": self.spill_errors,
             "device_failures": self.device_failures,
+            "breaker_opens": self.breaker_opens,
+            "breaker_host_served": self.breaker_host_served,
+            "shadow_probes": self.shadow_probes,
+            # nested, so /metrics renders one labelled family
+            "hedges": {
+                "launched": self.hedges_launched,
+                "won": self.hedges_won,
+                "lost": self.hedges_lost,
+                "failed": self.hedges_failed,
+                "skipped_budget": self.hedges_skipped,
+            },
+            "oom_events": self.oom_events,
+            "oom_splits": self.oom_splits,
+            "oom_host_routed": self.oom_host_routed,
+            "oom_failed": self.oom_failed,
             "device_owed_mb": round(self.device_owed_mb, 3),
+            "device_ms_per_mb": round(self.device_ms_per_mb, 3),
+            "host_ms_per_mpix": round(self.host_ms_per_mpix, 3),
+            "host_inflight": self.host_inflight,
+            "host_owed_mpix": round(self.host_owed_mpix, 3),
+            "host_spill_p50_ms": spill_times["p50_ms"] if spill_times else 0.0,
+            "host_spill_p99_ms": spill_times["p99_ms"] if spill_times else 0.0,
         }
         # the byte-touch ledger by stage (engine/timing.COPIES)
         copies = COPIES.snapshot()
@@ -203,8 +338,7 @@ class ExecutorStats:
 # The measured link seed, installed by prewarm (prewarm.py): (ms per wire
 # MB, fixed floor ms). A new executor prices its owed ledger at the seed
 # instead of leaving the link unpriced until its first drain; the EWMA
-# refines it from real drains at once. The port keeps the floor beside
-# the rate, as the reference does, but prices by the rate alone.
+# refines it from real drains at once.
 _LINK_SEED: Optional[tuple] = None
 
 
@@ -217,9 +351,37 @@ def link_seed() -> Optional[tuple]:
     return _LINK_SEED
 
 
+# Where the last submit() on this thread computed its pixels ("device" or
+# "host"). A request runs on one pool thread (handler -> pipeline ->
+# Executor.process), so the handler reads it after processing to answer
+# X-Imaginary-Backend.
+_PLACEMENT = threading.local()
+
+
+def reset_placement() -> None:
+    _PLACEMENT.value = None
+
+
+def note_placement(value: str) -> None:
+    """Record placement for work that never reaches submit() (identity
+    chains), and a hedge winner's or a host-served chunk's "host"."""
+    _PLACEMENT.value = value
+
+
+def last_placement() -> Optional[str]:
+    return getattr(_PLACEMENT, "value", None)
+
+
+def _available_cpus() -> int:
+    try:
+        return len(os.sched_getaffinity(0)) or 1
+    except AttributeError:  # not Linux
+        return os.cpu_count() or 1
+
+
 class _Item:
     __slots__ = ("arr", "plan", "future", "key", "t", "t_close", "wire_mb",
-                 "lane", "hops", "stage_ms")
+                 "mpix", "trace", "lane", "hops", "stage_ms")
 
     def __init__(self, arr: np.ndarray, plan: ImagePlan):
         self.arr = arr
@@ -227,8 +389,10 @@ class _Item:
         self.future: Future = Future()
         if plan.in_bucket is not None:  # packed transport: pre-padded array
             hb, wb = plan.in_bucket
+            in_h, in_w = plan.in_h, plan.in_w
         else:
             hb, wb = bucket_shape(arr.shape[0], arr.shape[1])
+            in_h, in_w = arr.shape[0], arr.shape[1]
         self.key = (plan.spec_key(), hb, wb, arr.shape[2])
         # the link charges for the PADDED input and output buffers
         if plan.out_bucket is not None:  # packed yuv output: bucket * 1.5
@@ -237,10 +401,14 @@ class _Item:
         else:
             out_bytes = tight_dim(plan.out_h) * tight_dim(plan.out_w) * arr.shape[2]
         self.wire_mb = (hb * wb * arr.shape[2] * arr.dtype.itemsize + out_bytes) / 1e6
+        self.mpix = in_h * in_w / 1e6  # the host's cost unit
         self.t = time.monotonic()
         # Stamped by the collector when this item's chunk closes; the
         # batch_form / dispatch_wait split reads it (_dispatch).
         self.t_close = self.t
+        # the submitting request's trace: the executor's threads carry no
+        # contextvar, so the placement ladder is stamped through it
+        self.trace = None
         self.lane = None  # the lane that owes this item (lanes._lane_owe)
         self.hops = 0  # lane re-placements so far
         # batch_form, dispatch_wait and drain of this item, in ms: they
@@ -257,6 +425,8 @@ class Executor:
         self.config = config or ExecutorConfig()
         if self.config.max_batch < 1:
             raise ValueError("max_batch must be at least 1")
+        if self.config.host_spill is None:  # "auto": the cost model decides
+            self.config = dataclasses.replace(self.config, host_spill=True)
         if self.config.spatial_mpix > 0.0:
             # the megapixel knob maps onto the pixel bar: one bar for both
             self.config = dataclasses.replace(
@@ -269,7 +439,6 @@ class Executor:
         self.stats = ExecutorStats()
         # The lane tier's state; all None / 0 with mesh_policy "off".
         self._lanes: Optional[lanes_mod.LaneScheduler] = None
-        self.devhealth: Optional[DeviceHealthRegistry] = None
         self._mesh = None
         self._lane_mesh = None  # the healthy mesh sharded dispatch uses
         self._lane_streams = None  # its entries' lane streams
@@ -281,36 +450,145 @@ class Executor:
         self._queue: queue_mod.Queue = queue_mod.Queue()
         self._fetch_queue: queue_mod.Queue = queue_mod.Queue(
             maxsize=max(1, self.config.max_inflight))
-        self._lock = threading.Lock()  # guards _closed and the shared stats
+        self._lock = threading.Lock()  # guards _closed, the ledgers and the stats
         self._closed = False
+        self._stop = threading.Event()  # ends the watchdog
         # drain ms per wire MB (EWMA over drained chunks): prices the owed
-        # ledger for estimated_wait_ms; the prewarm's seed, else None until
-        # the first drain (a zero seed leaves the link unpriced, never free)
+        # ledger for estimated_wait_ms and the spill test; the prewarm's
+        # seed, else None until the first drain (a zero seed leaves the
+        # link unpriced, never free)
         self._ms_per_mb: Optional[float] = None
+        self._drain_floor_ms: Optional[float] = None  # smallest drain seen
         self.adopt_link_seed()
+        # the host side of placement: its measured price (bootstrap 15 ms
+        # a megapixel, the reference's), its backlog, and a gate of one
+        # permit a usable CPU so waiting happens before the run
+        self._host_ms_per_mpix = 15.0
+        self._host_owed_mpix = 0.0
+        self._host_inflight = 0
+        self._ncpus = _available_cpus()
+        self._host_gate = threading.BoundedSemaphore(max(1, self._ncpus))
+        self._spill_seen = 0
+        self._probe_slots_skipped = 0
+        self._last_shadow_t = float("-inf")
+        # in-flight device items and live hedges (the hedge budget)
+        self._device_items = 0
+        self._hedges_inflight = 0
+        # the drain watchdog: (start, chunk, generation) while a global
+        # drain is in flight; a fetcher whose generation is no longer
+        # current is the zombie of an abandoned drain
+        self._drain_state = None
+        self._fetch_gen = 0
+        self.integrity = self.config.integrity
+        self._devices: list = [torch.device(self.config.device)]
         if self._mesh_policy != "off":
-            self._init_lanes()  # may refuse the mesh before any thread starts
+            # may refuse the mesh before any thread starts; replaces
+            # _devices with the mesh's entries
+            self._init_lanes()
+        else:
+            cfg = self.config
+            if cfg.devices or cfg.n_devices > 1:
+                # the global ladder's fault domains: the first is the
+                # primary, the rest are failover targets (sticky `pick`)
+                self._devices = list(get_mesh(cfg.n_devices or None, 1,
+                                              devices=cfg.devices or cfg.device).flat)
+            self.devhealth = self._new_devhealth(len(self._devices))
+            if len(self._devices) > 1 or self._golden_probe_armed():
+                # one device probes only for the golden probe: its next
+                # request is its re-admission probe otherwise
+                self.devhealth.start_probing(self._probe_device,
+                                             timeout_s=PROBE_TIMEOUT_S)
         self._thread = threading.Thread(target=self._collect_continuous,
                                         name="itpu-collector", daemon=True)
-        self._fetcher = threading.Thread(target=self._fetch_loop,
+        self._fetcher = threading.Thread(target=self._fetch_loop, args=(0,),
                                          name="itpu-fetcher", daemon=True)
         self._thread.start()
         self._fetcher.start()
+        self._watchdog = None
+        if self.config.drain_watchdog_s > 0:
+            self._watchdog = threading.Thread(target=self._watchdog_loop,
+                                              name="itpu-watchdog", daemon=True)
+            self._watchdog.start()
+
+    def _new_devhealth(self, n: int) -> DeviceHealthRegistry:
+        cfg = self.config
+        reg = DeviceHealthRegistry(n, threshold=cfg.breaker_threshold,
+                                   cooldown_s=cfg.breaker_cooldown_s)
+        if self.integrity is not None:
+            reg.corruption_clean_probes = self.integrity.config.clean_probes
+        if cfg.failslow_ratio > 0.0:
+            reg.configure_failslow(cfg.failslow_ratio,
+                                   min_samples=cfg.failslow_min_samples,
+                                   share=cfg.failslow_share)
+        return reg
+
+    # -- placement -------------------------------------------------------------
 
     def submit(self, arr: np.ndarray, plan: ImagePlan) -> Future:
         """Enqueue one image; resolves to the chain's output (an HWC uint8
         array, YuvPlanes on the packed transports, or QuantizedBlocks with
-        the dct egress). Identity chains
-        resolve at once, with no device work."""
+        the dct egress). Identity chains resolve at once, with no device
+        work; the placement rungs (module docstring) may serve the item on
+        the host before it queues."""
         failpoints.hit("executor.submit")
         item = _Item(arr, plan)
+        item.trace = obs_trace.current()
+        if last_placement() != "host":  # a request's host answer stays marked
+            _PLACEMENT.value = "device"
         if not plan.stages:
             item.future.set_result(arr)
             return item.future
+        integ = self.integrity
+        if integ is not None and integ.enabled and integ.poison_active():
+            from imaginary_tpu_torch.engine import integrity as integrity_mod
+
+            if integ.poison_hit(integrity_mod.item_digest(arr, item.key)):
+                # an input the bisection convicted alone: the host, else 422
+                if host_exec.can_execute(plan, for_spill=False):
+                    try:
+                        out = host_exec.run(arr, plan)
+                    except Exception:  # noqa: BLE001 - the 422 below answers
+                        pass
+                    else:
+                        _PLACEMENT.value = "host"
+                        self._stamp_attempts([item], ["poison_quarantine",
+                                                      "host_fallback"])
+                        item.future.set_result(out)
+                        return item.future
+                from imaginary_tpu_torch.errors import new_error
+
+                self._stamp_attempts([item], ["poison_quarantine"])
+                item.future.set_exception(new_error(
+                    "Input is quarantined: it repeatedly failed device "
+                    "execution in isolation", 422))
+                return item.future
+        if self.config.host_spill and self._breaker_is_open() \
+                and host_exec.can_execute(plan, for_spill=False):
+            # no device is dispatchable and host placement is on: every
+            # host-executable item is served by the host for the outage;
+            # the rest (everything, with host_spill off) still go to the
+            # device and surface its error
+            try:
+                out = host_exec.run(arr, plan)
+            except Exception:  # noqa: BLE001 - the device path reports the real error
+                pass
+            else:
+                with self._lock:
+                    self.stats.breaker_host_served += 1
+                _PLACEMENT.value = "host"
+                self._stamp_attempts([item], ["device:quarantined", "host_fallback"])
+                item.future.set_result(out)
+                return item.future
+        forced = self.config.force_host and host_exec.can_execute(plan, for_spill=False)
+        if forced or (self.config.host_spill and self._should_spill(item)):
+            out = self._spill(item)
+            if out is not None:
+                item.future.set_result(out)
+                return item.future
         with self._lock:
             if self._closed:
                 raise RuntimeError("executor is shut down")
-            self.stats.device_owed_mb += item.wire_mb
+            self._charge_owed(item)
             lane = self._lanes.place(item) if self._lanes is not None else None
             if lane is None:
                 self._queue.put(item)
@@ -321,14 +599,260 @@ class Executor:
                 except Exception:
                     item.future.cancel()
                     raise
+        if self.config.hedge_threshold_ms > 0:
+            outer = self._arm_hedge(item)
+            if outer is not None:
+                return outer
         return item.future
+
+    def _spill(self, item: "_Item"):
+        """The spill branch: run the item on the host interpreter behind
+        the host gate, counted in `spilled`; None when the host failed
+        (counted in `spill_errors`), and the item goes to the device."""
+        self._host_charge(item.mpix)
+        tg = time.monotonic()
+        self._host_gate.acquire()
+        t0 = time.monotonic()
+        TIMES.record("host_gate", (t0 - tg) * 1000.0)
+        c0 = time.thread_time()
+        try:
+            failpoints.hit("host.spill")
+            out = host_exec.run(item.arr, item.plan)
+        except Exception:  # noqa: BLE001 - the device path can still serve it
+            with self._lock:
+                self.stats.spill_errors += 1
+            return None
+        else:
+            TIMES.record("host_spill", (time.monotonic() - t0) * 1000.0)
+            # the marginal host cost: thread CPU time a source megapixel,
+            # clamped like the device price
+            per_mpix = (time.thread_time() - c0) * 1000.0 / max(item.mpix, 1e-3)
+            with self._lock:
+                per_mpix = min(per_mpix, 4.0 * self._host_ms_per_mpix)
+                self._host_ms_per_mpix = 0.8 * self._host_ms_per_mpix + 0.2 * per_mpix
+                self.stats.host_ms_per_mpix = self._host_ms_per_mpix
+                self.stats.spilled += 1
+            _PLACEMENT.value = "host"
+            self._stamp_attempts([item], ["host_spill"])
+            return out
+        finally:
+            self._host_release(item.mpix)
+            self._host_gate.release()
+
+    def _host_charge(self, mpix: float) -> None:
+        with self._lock:
+            self._host_inflight += 1
+            self._host_owed_mpix += mpix
+            self.stats.host_inflight = self._host_inflight
+            self.stats.host_owed_mpix = self._host_owed_mpix
+
+    def _host_release(self, mpix: float) -> None:
+        with self._lock:
+            self._host_inflight -= 1
+            self._host_owed_mpix = max(0.0, self._host_owed_mpix - mpix)
+            self.stats.host_inflight = self._host_inflight
+            self.stats.host_owed_mpix = self._host_owed_mpix
+
+    def _charge_owed(self, item: "_Item") -> None:
+        """Book the item's wire MB against the device (call under _lock);
+        its future's done-callback releases exactly that, however it ends."""
+        self.stats.device_owed_mb += item.wire_mb
+        self._device_items += 1
+        mb = item.wire_mb
+        item.future.add_done_callback(lambda _f: self._on_done(mb))
+
+    def _on_done(self, wire_mb: float) -> None:
+        with self._lock:
+            self._device_items -= 1
+            self.stats.device_owed_mb = max(0.0, self.stats.device_owed_mb - wire_mb)
+
+    def _should_spill(self, item: "_Item") -> bool:
+        """The reference's cost model: spill when the device wait (owed MB
+        and this item's, at the measured price, plus the smallest drain)
+        exceeds spill_factor x the host cost, with the host pool's backlog
+        outside the factor on the host side (it cancels when the device is
+        the CPU itself)."""
+        rate = self._ms_per_mb
+        if rate is None:
+            return False  # the device's cost is unknown: it is the primary path
+        with self._lock:
+            owed_mb = self.stats.device_owed_mb
+            host_rate = self._host_ms_per_mpix
+            host_owed = self._host_owed_mpix
+        wait_ms = (owed_mb + item.wire_mb) * rate + (self._drain_floor_ms or 0.0)
+        shares_cpu = self._devices[0].type == "cpu"
+        host_queue_ms = 0.0 if shares_cpu else host_owed / self._ncpus * host_rate
+        host_ms = max(item.mpix, 1e-3) * host_rate
+        if wait_ms <= self.config.spill_factor * host_ms + host_queue_ms:
+            return False
+        if not host_exec.can_execute(item.plan):
+            return False
+        with self._lock:
+            self._spill_seen += 1
+            seen = self._spill_seen
+        if seen % self.config.probe_interval == 0:
+            # a probe slot: a shadow rides the device to re-price it, when
+            # cheap and not too soon, or ungated after 16 skipped slots
+            cheap = item.wire_mb * rate <= self.config.probe_budget_ms
+            now = time.monotonic()
+            with self._lock:
+                fresh = now - self._last_shadow_t >= self.config.probe_min_interval_s
+                if not cheap:
+                    self._probe_slots_skipped += 1
+                ship = (cheap and fresh) or self._probe_slots_skipped >= 16
+                if ship:
+                    self._probe_slots_skipped = 0
+                    self._last_shadow_t = now
+            if ship:
+                self._enqueue_shadow(item)
+        return True
+
+    def _enqueue_shadow(self, item: "_Item") -> None:
+        """A copy of the item on the device queue, only to refresh the
+        price; its result is discarded (the request is served by the
+        host)."""
+        shadow = _Item(item.arr, item.plan)
+        shadow.future.add_done_callback(lambda f: f.exception())  # swallow
+        with self._lock:
+            if self._closed:
+                return
+            self._charge_owed(shadow)
+            self.stats.shadow_probes += 1
+            self._queue.put(shadow)
+
+    @staticmethod
+    def _stamp_attempts(items: list, attempts: list) -> None:
+        """The placement ladder an item walked, on its request's trace."""
+        for it in items:
+            if it.trace is not None:
+                it.trace.annotate(placement_attempts=list(attempts))
+
+    # -- hedging ---------------------------------------------------------------
+
+    def _hedge_threshold_ms_for(self, item: "_Item") -> float:
+        """The operator's threshold, floored at 50 ms and at 4x the item's
+        own estimated device service time."""
+        est = (self._drain_floor_ms or 0.0) + item.wire_mb * (self._ms_per_mb or 0.0)
+        return max(self.config.hedge_threshold_ms, 50.0, 4.0 * est)
+
+    def _arm_hedge(self, item: "_Item") -> Optional[Future]:
+        """Wrap a queued device item in an outer future that a host twin
+        may answer once the threshold passes. None (the caller returns the
+        plain future) for a host-inexecutable plan, or when the request's
+        deadline comes before the threshold."""
+        if not host_exec.can_execute(item.plan, for_spill=False):
+            return None
+        threshold_ms = self._hedge_threshold_ms_for(item)
+        dl = item.trace.deadline if item.trace is not None else None
+        if dl is not None and dl.remaining_s() * 1000.0 <= threshold_ms:
+            return None  # the deadline fires first: no hedge
+        outer: Future = Future()
+        lock = threading.Lock()
+        state = {"exc": None, "running": False}
+        timer = threading.Timer(threshold_ms / 1000.0, self._fire_hedge,
+                                args=(item, outer, lock, state))
+        timer.daemon = True
+
+        def on_primary(f: Future) -> None:
+            timer.cancel()
+            with lock:
+                if outer.done():
+                    return  # the twin won (and cancelled this future)
+                if f.cancelled():
+                    outer.cancel()
+                    return
+                exc = f.exception()
+                if exc is None:
+                    outer.stage_ms = getattr(f, "stage_ms", None)
+                    # a verified copy or an OOM host route marks the inner
+                    # future; the caller reads the outer one
+                    hp = getattr(f, "_hedge_placement", None)
+                    if hp:
+                        outer._hedge_placement = hp
+                    with contextlib.suppress(InvalidStateError):
+                        outer.set_result(f.result())
+                    return
+                if state["running"]:
+                    state["exc"] = exc  # the twin may still answer
+                    return
+                with contextlib.suppress(InvalidStateError):
+                    outer.set_exception(exc)
+
+        def on_outer(f: Future) -> None:
+            # a deadline cancels the outer future: the device item too
+            if f.cancelled():
+                timer.cancel()
+                item.future.cancel()
+
+        item.future.add_done_callback(on_primary)
+        outer.add_done_callback(on_outer)
+        timer.start()
+        return outer
+
+    def _fire_hedge(self, item: "_Item", outer: Future, lock, state) -> None:
+        """The timer: launch the host twin while the device item is still
+        pending, within the budget."""
+        with lock:
+            if outer.done() or item.future.done():
+                return
+            dl = item.trace.deadline if item.trace is not None else None
+            if dl is not None and dl.remaining_s() <= 0.0:
+                return  # never a hedge past the deadline
+            with self._lock:
+                allowed = max(1, int(self.config.hedge_budget * max(1, self._device_items)))
+                if self._hedges_inflight >= allowed:
+                    self.stats.hedges_skipped += 1
+                    return
+                self._hedges_inflight += 1
+                self.stats.hedges_launched += 1
+            state["running"] = True
+        won = False
+        try:
+            out = host_exec.run(item.arr, item.plan)
+        except Exception:  # noqa: BLE001 - the device path still owns the request
+            with lock:
+                state["running"] = False
+                with self._lock:
+                    self.stats.hedges_failed += 1
+                exc = state["exc"]
+                if exc is not None and not outer.done():
+                    with contextlib.suppress(InvalidStateError):
+                        outer.set_exception(exc)
+        else:
+            with lock:
+                state["running"] = False
+                if not outer.done():
+                    outer._hedge_placement = "host"
+                    try:
+                        outer.set_result(out)
+                        won = True
+                    except InvalidStateError:
+                        won = False
+                with self._lock:
+                    if won:
+                        self.stats.hedges_won += 1
+                    else:
+                        self.stats.hedges_lost += 1
+            if won:
+                # the loser: dropped before launch if still queued, its
+                # result discarded if launched; its owed MB is released
+                item.future.cancel()
+            if item.trace is not None:
+                item.trace.annotate(hedge="won" if won else "lost")
+        finally:
+            with self._lock:
+                self._hedges_inflight -= 1
 
     def process(self, arr: np.ndarray, plan: ImagePlan, timeout: float = 120.0):
         """Blocking submit: the output, with the item's stage times added
-        to the calling thread's request trace."""
+        to the calling thread's request trace and a host answer noted for
+        X-Imaginary-Backend."""
         fut = self.submit(arr, plan)
         out = fut.result(timeout=timeout)
         attribute(getattr(fut, "stage_ms", None))
+        hp = getattr(fut, "_hedge_placement", None)
+        if hp:
+            _PLACEMENT.value = hp
         return out
 
     def estimated_wait_ms(self) -> float:
@@ -347,6 +871,9 @@ class Executor:
         with self._lock:
             if self._ms_per_mb is None and seed is not None and seed[0] > 0.0:
                 self._ms_per_mb = seed[0]
+                self.stats.device_ms_per_mb = seed[0]
+                if seed[1] > 0.0 and self._drain_floor_ms is None:
+                    self._drain_floor_ms = seed[1]
 
     def shutdown(self) -> None:
         """Stop taking items, launch and resolve every item already
@@ -362,8 +889,8 @@ class Executor:
             else:
                 for ln in self._lanes.lanes:
                     ln.queue.put(None)
+        self.devhealth.close()
         if self._lanes is not None:
-            self.devhealth.close()
             for ln in self._lanes.lanes:
                 ln.collector.join(timeout=30)
             # each lane collector enqueues its fetcher's sentinel itself
@@ -374,6 +901,9 @@ class Executor:
         # the collector enqueues the fetcher's sentinel itself, after its
         # final launches, so the sentinel cannot overtake them
         self._fetcher.join(timeout=30)
+        self._stop.set()
+        if self._watchdog is not None:
+            self._watchdog.join(timeout=5)
 
     # -- collector -------------------------------------------------------------
 
@@ -435,45 +965,53 @@ class Executor:
         else:
             self._lane_dispatch(lane, items)
 
-    def _dispatch(self, items: list) -> None:
-        """Launch one chunk and hand it to the fetcher."""
-        now = time.monotonic()
+    def _stamp_stages(self, items: list, now: float, lane=None) -> None:
         for it in items:
             bf_ms = (it.t_close - it.t) * 1000.0
             dw_ms = (now - it.t_close) * 1000.0
             TIMES.record("queue_wait", (now - it.t) * 1000.0)
             TIMES.record("batch_form", bf_ms)
             TIMES.record("dispatch_wait", dw_ms)
+            if lane is not None:
+                LANE_TIMES.record(lane.idx, "batch_form", bf_ms)
+                LANE_TIMES.record(lane.idx, "dispatch_wait", dw_ms)
             it.stage_ms["batch_form"] = bf_ms
             it.stage_ms["dispatch_wait"] = dw_ms
+
+    def _dispatch(self, items: list) -> None:
+        """Launch one chunk through the failover ladder and hand it to the
+        fetcher."""
+        now = time.monotonic()
+        self._stamp_stages(items, now)
         try:
             # delay() models a slow device or link, error() a failed
-            # dispatch
+            # dispatch, with no device to blame: every domain is struck
             failpoints.hit("device.execute")
         except Exception as e:
+            self._note_link_failure(e)
+            self._stamp_attempts(items, ["device:link:error"])
             self._fail(items, e)
             return
         items = self._drop_cancelled(items)
         if not items:
             return
         before = chain_mod.cache_size()
-        try:
-            chunk = self._launch_chunk(items)
-        except Exception as e:
-            self._fail(items, e)
-            return
-        self._note_cold(before)
+        chunk = self._launch_with_failover(items)
+        if chunk is None:
+            return  # the chunk's futures are resolved already
+        cold = self._note_cold(before)
         TIMES.record("launch", (time.monotonic() - now) * 1000.0 / len(items))
-        self.stats.items += len(items)
-        self.stats.groups += 1
-        self.stats.batches += 1
-        self.stats.max_group_seen = max(self.stats.max_group_seen, len(items))
+        with self._lock:
+            self.stats.items += len(items)
+            self.stats.groups += 1
+            self.stats.batches += 1
+            self.stats.max_group_seen = max(self.stats.max_group_seen, len(items))
         # blocks when max_inflight chunks wait for the fetcher: backpressure
-        self._fetch_queue.put((chunk, items))
+        self._fetch_queue.put((chunk, cold))
 
-    def _launch_chunk(self, items: list):
-        """Launch one device call of <= max_batch items; returns
-        (launched, arrs, plans) or raises.
+    def _launch_chunk(self, items: list, device=None):
+        """Launch one device call of <= max_batch items on `device` (the
+        config's by default); returns (launched, arrs, plans) or raises.
 
         No power-of-two padding: the reference pads a chunk so that XLA
         compiles one program per padded size. Eager PyTorch compiles
@@ -481,75 +1019,504 @@ class Executor:
         and link bytes."""
         arrs = [it.arr for it in items]
         plans = [it.plan for it in items]
-        return chain_mod.launch_batch(arrs, plans, device=self.config.device), arrs, plans
+        dev = self.config.device if device is None else device
+        return chain_mod.launch_batch(arrs, plans, device=dev), arrs, plans
+
+    def _launch_with_failover(self, sub: list):
+        """The dispatch half of the placement ladder: launch on the device
+        devhealth's sticky `pick` names; a failed launch strikes that
+        device and the chunk moves to the next one. A capacity error
+        bisects on the same device instead (no strike, no failover). With
+        integrity armed, a failed launch of several items is bisected to
+        convict poison inputs first. Returns (launched, arrs, plans, sub,
+        idx, t_launch), or None with the futures resolved."""
+        tried: set = set()
+        attempts: list = []
+        err: Optional[Exception] = None
+        while True:
+            idx = self.devhealth.pick(exclude=tried)
+            if idx is None:
+                if tried:
+                    break
+                # every domain is quarantined: try the primary anyway, so
+                # device-only plans surface the real device error
+                idx = 0
+            tried.add(idx)
+            dev = self._devices[idx]
+            t_launch = time.monotonic()
+            try:
+                # keyed by the device's index: chip_error[k] fails device k,
+                # oom[k] its allocator at the ceiling, slow[k] (a delay) a
+                # limping device
+                failpoints.hit("device.chip_error", key=idx)
+                failpoints.hit("device.oom", key=idx)
+                failpoints.hit("device.slow", key=idx)
+                launched, arrs, plans = self._launch_chunk(sub, device=dev)
+            except Exception as e:
+                if chain_mod.is_oom_error(e):
+                    self._bisect_chunk(sub, dev, idx, e)
+                    return None
+                integ = self.integrity
+                if (integ is not None and integ.enabled and len(sub) > 1
+                        and self._poison_bisect(sub, dev, idx, e)):
+                    return None
+                err = e
+                self._note_device_failure(idx, e)
+                attempts.append(f"device:{idx}:error")
+                continue
+            attempts.append(f"device:{idx}")
+            self._stamp_attempts(sub, attempts)
+            return (launched, arrs, plans, sub, idx, t_launch)
+        self._stamp_attempts(sub, attempts)
+        e = err if err is not None else RuntimeError(
+            "no dispatchable device (all fault domains quarantined)")
+        integ = self.integrity
+        if integ is not None and integ.enabled and \
+                sum(1 for a in attempts if a.endswith(":error")) >= 2:
+            # two or more independent devices refused these inputs: the
+            # signature of poison, recorded so a retry goes to host/422
+            from imaginary_tpu_torch.engine import integrity as integrity_mod
+
+            for it in sub:
+                if not it.future.done():
+                    integ.poison_add(integrity_mod.item_digest(it.arr, it.key))
+        for it in sub:
+            _resolve(it.future, error=e)
+        return None
 
     # -- fetcher ---------------------------------------------------------------
 
-    def _fetch_loop(self) -> None:
+    def _fetch_loop(self, gen: int) -> None:
         """Wait for each launched chunk's event in launch order, slice its
-        outputs and resolve its futures."""
+        outputs, verify a sampled share and resolve its futures. A fetcher
+        whose generation the watchdog has moved past hands what it holds
+        back and exits."""
         while True:
             got = self._fetch_queue.get()
             if got is None:
                 break
-            (launched, arrs, plans), items = got
+            with self._lock:
+                stale = self._fetch_gen != gen
+            if stale:
+                self._fetch_queue.put(got)
+                return
+            chunk, cold = got
+            launched, arrs, plans, items, idx, t_launch = chunk
             t0 = time.monotonic()
+            with self._lock:
+                self._drain_state = (t0, chunk, gen)
             try:
                 outs = chain_mod.fetch_batch(launched, arrs, plans)
             except Exception as e:
-                self._fail(items, e)
+                with self._lock:
+                    live = self._fetch_gen == gen
+                    if live:
+                        self._drain_state = None
+                if not live:
+                    return  # the watchdog failed these futures already
+                if chain_mod.is_oom_error(e):
+                    self._bisect_chunk(items, self._devices[idx], idx, e)
+                else:
+                    self._note_device_failure(idx, e)
+                    self._fail(items, e)
                 continue
-            drain_ms = (time.monotonic() - t0) * 1000.0
+            with self._lock:
+                live = self._fetch_gen == gen
+                if live:
+                    self._drain_state = None
+            if not live:
+                # abandoned while blocked: discard what the call produced
+                return
+            now = time.monotonic()
+            drain_ms = (now - t0) * 1000.0
+            self.devhealth.note_ok(idx, latency_ms=(now - t_launch) * 1000.0)
             TIMES.record("drain", drain_ms / len(items))
-            self._note_drain(items, drain_ms)
-            self._release(items)
-            for it, out in zip(items, outs):
-                _resolve(it.future, result=out, stage_ms=it.stage_ms)
+            self._note_drain(items, drain_ms, cold)
+            self._finish(items, outs, idx)
 
-    def _fail(self, items: list, e: Exception) -> None:
-        """Fail one chunk's futures."""
-        with self._lock:
-            self.stats.device_failures += 1
-        self._release(items)
+    def _finish(self, items: list, outs: list, idx) -> None:
+        """Resolve a drained chunk: the `device.corrupt` failpoint (the
+        corruption model, before verification, so the defence is tested
+        end to end), sampled verification, then the futures; an answer
+        re-served from the host's verified copy is marked for
+        X-Imaginary-Backend: host."""
+        try:
+            failpoints.hit("device.corrupt", key=idx if idx is not None else 0)
+        except failpoints.FailpointError:
+            from imaginary_tpu_torch.engine import integrity as integrity_mod
+
+            outs = [integrity_mod.corrupt_copy(o) for o in outs]
+        reserved = self._verify_chunk(items, outs, idx)
+        for i, (it, out) in enumerate(zip(items, outs)):
+            if i in reserved:
+                it.future._hedge_placement = "host"
+            _resolve(it.future, result=out, stage_ms=it.stage_ms)
+
+    @staticmethod
+    def _fail(items: list, e: Exception) -> None:
+        """Fail one chunk's futures (the caller books the failure)."""
         for it in items:
             _resolve(it.future, error=e)
 
-    def _drop_cancelled(self, items: list) -> list:
-        """The items still wanted: a future cancelled while it waited (its
-        request's deadline passed) is not launched, and its owed MB is
-        released here."""
-        live, dropped = [], []
-        for it in items:
-            (dropped if it.future.cancelled() else live).append(it)
-        if dropped:
-            self._release(dropped)
-        return live
+    @staticmethod
+    def _drop_cancelled(items: list) -> list:
+        """The items still wanted: a future done while it waited (its
+        request's deadline passed, or a hedge won) is not launched; its
+        done-callback released its owed MB."""
+        return [it for it in items if not it.future.done()]
 
-    def _note_cold(self, cache_before: int) -> None:
+    def _note_cold(self, cache_before: int) -> bool:
         """One compile miss when the launch just made grew the signature
         set."""
         if chain_mod.cache_size() > cache_before:
             with self._lock:
                 self.stats.compile_misses += 1
+            return True
+        return False
 
-    def _release(self, items: list) -> None:
-        with self._lock:
-            self.stats.device_owed_mb = max(
-                0.0, self.stats.device_owed_mb - sum(it.wire_mb for it in items))
-
-    def _note_drain(self, items: list, drain_ms: float) -> None:
-        """Each item's share of a drained chunk, and the chunk's drain ms
-        per wire MB folded into the EWMA that estimated_wait_ms prices."""
+    def _note_drain(self, items: list, drain_ms: float, cold: bool = False) -> None:
+        """Each item's share of a drained chunk, the smallest drain, and
+        the chunk's drain ms per wire MB folded into the EWMA that
+        estimated_wait_ms and the spill test price. A cold chunk's drain
+        (its launch met a new signature) is no price sample."""
         share = drain_ms / len(items)
         for it in items:
             it.stage_ms["drain"] = share
+        if cold:
+            return
         mb = sum(it.wire_mb for it in items)
-        if mb > 0:
-            rate = drain_ms / mb
-            with self._lock:
+        with self._lock:
+            if self._drain_floor_ms is None or drain_ms < self._drain_floor_ms:
+                self._drain_floor_ms = drain_ms
+            if mb > 0:
+                rate = drain_ms / mb
                 prev = self._ms_per_mb
                 self._ms_per_mb = rate if prev is None else 0.8 * prev + 0.2 * rate
+                self.stats.device_ms_per_mb = self._ms_per_mb
 
+    # -- the drain watchdog ----------------------------------------------------
+
+    def _watchdog_loop(self) -> None:
+        """Abandon a global drain stuck past drain_watchdog_s: fail its
+        futures and those of every chunk queued behind it with the
+        reference's error, strike every dispatchable device outright (a
+        hang is unambiguous), and hand the queue to a fresh fetcher of
+        the next generation. Every transition happens under _lock, so
+        the stuck fetcher sees exactly one outcome when its call returns."""
+        budget = self.config.drain_watchdog_s
+        while not self._stop.wait(min(1.0, budget / 4)):
+            with self._lock:
+                state = self._drain_state
+                if (state is None or state[2] != self._fetch_gen
+                        or time.monotonic() - state[0] < budget):
+                    continue
+                chunk = state[1]
+                self._drain_state = None
+                self._fetch_gen += 1
+                gen = self._fetch_gen
+            err = RuntimeError(f"device drain exceeded {budget:.0f}s watchdog; "
+                               "link presumed hung")
+            for it in chunk[3]:
+                _resolve(it.future, error=err)
+            for idx in (self.devhealth.available_indices() or [0]):
+                self.devhealth.set_consecutive(idx, self.config.breaker_threshold - 1)
+                self._note_device_failure(idx, err)
+            # chunks queued behind the hung drain fail now
+            while True:
+                try:
+                    got = self._fetch_queue.get_nowait()
+                except queue_mod.Empty:
+                    break
+                if got is None:
+                    self._fetch_queue.put(None)
+                    break
+                for it in got[0][3]:
+                    _resolve(it.future, error=err)
+            self._fetcher = threading.Thread(target=self._fetch_loop, args=(gen,),
+                                             name="itpu-fetcher", daemon=True)
+            self._fetcher.start()
+
+    # -- bisection: capacity (OOM) and poison inputs ---------------------------
+
+    def _recover_oom_chunk(self, items: list, device, idx, err, depth: int = 0) -> None:
+        """The reference's name for the OOM mode of the bisection."""
+        self._bisect_chunk(items, device, idx, err, depth)
+
+    def _bisect_chunk(self, items: list, device, idx, err, depth: int = 0) -> None:
+        """A chunk that ran out of device memory: split it in half and
+        relaunch each half synchronously on the same device (capacity is
+        not a fault: no strike, no failover), recursing on halves that
+        still do not fit, at most oom_split_depth levels; an item that
+        does not fit alone runs on the host interpreter, else it fails
+        with the device's error. The device's record books one capacity
+        event."""
+        didx = idx if idx is not None else 0
+        if depth == 0:
+            with self._lock:
+                self.stats.oom_events += 1
+            self.devhealth.note_capacity(didx, err)
+        live = [it for it in items if not it.future.done()]
+        if not live:
+            return
+        if len(live) > 1 and depth < self.config.oom_split_depth:
+            with self._lock:
+                self.stats.oom_splits += 1
+            mid = (len(live) + 1) // 2
+            for half in (live[:mid], live[mid:]):
+                try:
+                    # the failpoint fires on every level, as a device at
+                    # its ceiling would
+                    failpoints.hit("device.oom", key=didx)
+                    outs = chain_mod.run_batch([it.arr for it in half],
+                                               [it.plan for it in half],
+                                               device=device)
+                except Exception as e:
+                    if chain_mod.is_oom_error(e):
+                        self._bisect_chunk(half, device, idx, e, depth + 1)
+                    else:
+                        for it in half:
+                            _resolve(it.future, error=e)
+                    continue
+                self._stamp_attempts(half, [f"device:{didx}:oom",
+                                            f"device:{didx}:oom_split"])
+                for it, out in zip(half, outs):
+                    _resolve(it.future, result=out, stage_ms=it.stage_ms)
+            return
+        for it in live:
+            if self.config.host_spill and host_exec.can_execute(it.plan, for_spill=False):
+                try:
+                    out = host_exec.run(it.arr, it.plan)
+                except Exception:  # noqa: BLE001 - the device's OOM is reported below
+                    pass
+                else:
+                    with self._lock:
+                        self.stats.oom_host_routed += 1
+                    self._stamp_attempts([it], [f"device:{didx}:oom", "host_spill"])
+                    it.future._hedge_placement = "host"
+                    _resolve(it.future, result=out, stage_ms=it.stage_ms)
+                    continue
+            with self._lock:
+                self.stats.oom_failed += 1
+            _resolve(it.future, error=err if isinstance(err, Exception)
+                     else RuntimeError("device out of memory"))
+
+    def _poison_bisect(self, items: list, device, idx, err) -> bool:
+        """A chunk's launch failed with a non-capacity error (integrity
+        armed): re-run its halves on the same device down to singles.
+        True when some item succeeded alone: the failure follows inputs,
+        so the survivors are resolved, each convict's digest enters the
+        poison list and the convict is host-served where it can be, and no
+        device is struck. False, every future untouched, when nothing
+        succeeded: the caller's ladder strikes as before."""
+        didx = idx if idx is not None else 0
+        oks, bads = [], []
+        mid = (len(items) + 1) // 2
+        for half in (items[:mid], items[mid:]):
+            if half:
+                o, b = self._poison_probe(half, device, didx)
+                oks.extend(o)
+                bads.extend(b)
+        if not oks:
+            return False
+        from imaginary_tpu_torch.engine import integrity as integrity_mod
+
+        integ = self.integrity
+        for it, out in oks:
+            self._stamp_attempts([it], [f"device:{didx}:poison_bisect", f"device:{didx}"])
+            _resolve(it.future, result=out, stage_ms=it.stage_ms)
+        for it, e in bads:
+            integ.poison_add(integrity_mod.item_digest(it.arr, it.key))
+            if host_exec.can_execute(it.plan, for_spill=False):
+                try:
+                    out = host_exec.run(it.arr, it.plan)
+                except Exception:  # noqa: BLE001 - the device error is reported below
+                    pass
+                else:
+                    self._stamp_attempts([it], [f"device:{didx}:poison_bisect",
+                                                "poison_quarantine", "host_fallback"])
+                    it.future._hedge_placement = "host"
+                    _resolve(it.future, result=out, stage_ms=it.stage_ms)
+                    continue
+            self._stamp_attempts([it], [f"device:{didx}:poison_bisect",
+                                        "poison_quarantine"])
+            _resolve(it.future, error=e)
+        return True
+
+    def _poison_probe(self, items: list, device, didx: int) -> tuple:
+        """The recursive half of _poison_bisect: ([(item, output)],
+        [(item, error)]), no future touched. The keyed chip_error
+        failpoint fires on every level, so an injected device fault never
+        convicts an input."""
+        try:
+            failpoints.hit("device.chip_error", key=didx)
+            outs = chain_mod.run_batch([it.arr for it in items],
+                                       [it.plan for it in items], device=device)
+        except Exception as e:
+            if len(items) == 1:
+                return [], [(items[0], e)]
+            mid = (len(items) + 1) // 2
+            ok1, bad1 = self._poison_probe(items[:mid], device, didx)
+            ok2, bad2 = self._poison_probe(items[mid:], device, didx)
+            return ok1 + ok2, bad1 + bad2
+        return list(zip(items, outs)), []
+
+    # -- sampled verification --------------------------------------------------
+
+    def _note_corruption(self, idx, err) -> None:
+        """A corruption strike against device `idx` (every dispatchable
+        one when the chunk has no single device)."""
+        idxs = [idx] if idx is not None else (self.devhealth.available_indices() or [0])
+        clean = self.integrity.config.clean_probes if self.integrity is not None else 3
+        for didx in idxs:
+            tripped = self.devhealth.note_corruption(didx, err, clean_probes=clean)
+            with self._lock:
+                self.stats.device_failures += 1
+                if tripped and not self.devhealth.any_available():
+                    self.stats.breaker_opens += 1
+
+    def _verify_reference(self, it: "_Item", idx) -> tuple:
+        """One item recomputed independently: (reference, exact). The host
+        interpreter first (compared within the bars), else another
+        dispatchable entry running the same kernels (compared exactly);
+        (None, False) when neither can."""
+        if host_exec.can_execute(it.plan, for_spill=False):
+            try:
+                return host_exec.run(it.arr, it.plan), False
+            except Exception:  # noqa: BLE001 - a failed recompute counts as a skip
+                pass
+        if len(self._devices) > 1:
+            other = self.devhealth.pick(exclude={idx} if idx is not None else set())
+            if other is not None and other != idx:
+                try:
+                    return chain_mod.run_batch([it.arr], [it.plan],
+                                               device=self._devices[other])[0], True
+                except Exception:  # noqa: BLE001 - a failed recompute counts as a skip
+                    pass
+        return None, False
+
+    def _verify_chunk(self, sub: list, outs: list, idx) -> set:
+        """When this chunk draws the sample (integrity.should_sample),
+        recompute each live item and compare before release. A mismatch
+        strikes the device, and the item is re-served from the verified
+        copy (`outs` patched in place); returns the indices whose copy
+        came from the host."""
+        integ = self.integrity
+        if integ is None or not integ.enabled or not integ.should_sample():
+            return set()
+        from imaginary_tpu_torch.engine import integrity as integrity_mod
+
+        host_served: set = set()
+        mismatched = False
+        for i, (it, out) in enumerate(zip(sub, outs)):
+            if it.future.done():
+                continue  # cancelled: nothing is released
+            ref, exact = self._verify_reference(it, idx)
+            if ref is None:
+                integ.note_skipped()
+                continue
+            integ.note_check()
+            if integrity_mod.outputs_match(out, ref, exact=exact,
+                                           tol=integ.config.tolerance,
+                                           mean_tol=integ.config.mean_tolerance):
+                continue
+            mismatched = True
+            integ.note_mismatch()
+            outs[i] = ref
+            integ.note_reserved()
+            if not exact:
+                host_served.add(i)
+        if mismatched:
+            self._note_corruption(idx, CorruptionError(
+                "sampled cross-verification mismatch "
+                f"(device {idx if idx is not None else 'mesh'})"))
+        return host_served
+
+    # -- the fault domains -----------------------------------------------------
+
+    def _breaker_is_open(self) -> bool:
+        """No device is dispatchable (for one device: its breaker is
+        open)."""
+        return not self.devhealth.any_available()
+
+    def _note_device_failure(self, idx: int, err: object = None) -> None:
+        """One failed launch or drain, struck against device `idx`; a trip
+        that leaves no device dispatchable counts in breaker_opens."""
+        tripped = self.devhealth.note_failure(idx, err)
+        with self._lock:
+            self.stats.device_failures += 1
+            if tripped and not self.devhealth.any_available():
+                self.stats.breaker_opens += 1
+
+    def _note_link_failure(self, err: object = None) -> None:
+        """A failure with no device to blame (the device.execute site):
+        every dispatchable domain takes it."""
+        for idx in (self.devhealth.available_indices() or [0]):
+            self._note_device_failure(idx, err)
+
+    def _golden_probe_armed(self) -> bool:
+        """The golden probe replaces the transfer probe when integrity or
+        fail-slow is armed."""
+        if self.integrity is not None and self.integrity.enabled:
+            return True
+        return self.config.failslow_ratio > 0.0
+
+    def _probe_device(self, idx: int):
+        """The re-admission (and, with fail-slow, periodic) probe of entry
+        `idx`, raising on failure. Armed: the golden chain
+        (prewarm.golden_case, K1 with the K4 its plan carries) through the
+        ported kernels on the entry's device and lane stream, compared with
+        the host's reference; wrong bytes raise CorruptionError. A cold
+        first run (the signature set grew) is re-timed warm, and the warm
+        ms is returned for the fail-slow signal. The chip_error, slow and
+        corrupt failpoints fire here too. Not armed: a K4 window gather of
+        a 4x4 ramp at offset (1, 2), held against its known answer."""
+        failpoints.hit("device.chip_error", key=idx)
+        dev = self._devices[idx]
+        lane = self._lanes.lane(idx) if self._lanes is not None else None
+        stream = lane.stream if lane is not None else None
+        if self._golden_probe_armed():
+            from imaginary_tpu_torch.engine import integrity as integrity_mod
+
+            arr, plan, ref = integrity_mod.golden()
+
+            def run():
+                t0 = time.monotonic()
+                failpoints.hit("device.slow", key=idx)
+                launched = chain_mod.launch_batch([arr], [plan], device=dev,
+                                                  stream=stream)
+                out = chain_mod.fetch_batch(launched, [arr], [plan])[0]
+                return out, (time.monotonic() - t0) * 1000.0
+
+            before = chain_mod.cache_size()
+            out, ms = run()
+            if chain_mod.cache_size() > before:
+                out, ms = run()  # price the device, not its cold blocks
+            try:
+                failpoints.hit("device.corrupt", key=idx)
+            except failpoints.FailpointError:
+                out = integrity_mod.corrupt_copy(out)
+            integ = self.integrity
+            tol = integ.config.tolerance if integ is not None else 96
+            mean_tol = integ.config.mean_tolerance if integ is not None else 16.0
+            if not integrity_mod.outputs_match(out, ref, exact=False, tol=tol,
+                                               mean_tol=mean_tol):
+                raise CorruptionError(
+                    f"golden probe mismatch on device {idx}: checksum "
+                    f"{chain_mod.output_checksum(out):#010x} vs reference "
+                    f"{chain_mod.output_checksum(ref):#010x}")
+            return ms
+        ctx = (torch.cuda.stream(stream) if stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            x = torch.arange(16, dtype=torch.float32, device=dev).reshape(1, 4, 4, 1)
+            off = torch.tensor([1], dtype=torch.int32, device=dev)
+            off_x = torch.tensor([2], dtype=torch.int32, device=dev)
+            got = kernels.gather(x, 2, 2, off, off_x).cpu()
+        want = torch.tensor([[6.0, 7.0], [10.0, 11.0]]).reshape(1, 2, 2, 1)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"probe of device {idx} ({dev}) computed "
+                               f"{got.flatten().tolist()}")
+        return None
 
     # -- lane tier (engine/lanes.py; mesh_policy != "off") ---------------------
 
@@ -566,9 +1533,8 @@ class Executor:
                 raise RuntimeError("CUDA is not available for the lanes' mesh")
         self._mesh = mesh
         devs = mesh.flat
-        self.devhealth = DeviceHealthRegistry(
-            len(devs), threshold=cfg.breaker_threshold,
-            cooldown_s=cfg.breaker_cooldown_s)
+        self._devices = list(devs)
+        self.devhealth = self._new_devhealth(len(devs))
         lanes = [lanes_mod.Lane(i, dev, max_inflight=cfg.lane_inflight,
                                 stream=torch.cuda.Stream(dev)
                                 if dev.type == "cuda" else None)
@@ -693,19 +1659,12 @@ class Executor:
         """Launch one lane chunk: split over the healthy mesh when it
         reaches the sharded threshold; a single oversize item W-sharded
         over the spatial row of this lane's entry; else on this lane's
-        device and stream. A failure strikes this lane's fault domain and
-        the chunk moves to the other lanes."""
+        device and stream. A capacity error bisects on this lane's device;
+        with integrity armed a failed launch of several items is bisected
+        for poison inputs; any other failure strikes this lane's fault
+        domain and the chunk moves to the other lanes."""
         now = time.monotonic()
-        for it in items:
-            bf_ms = (it.t_close - it.t) * 1000.0
-            dw_ms = (now - it.t_close) * 1000.0
-            TIMES.record("queue_wait", (now - it.t) * 1000.0)
-            TIMES.record("batch_form", bf_ms)
-            TIMES.record("dispatch_wait", dw_ms)
-            LANE_TIMES.record(lane.idx, "batch_form", bf_ms)
-            LANE_TIMES.record(lane.idx, "dispatch_wait", dw_ms)
-            it.stage_ms["batch_form"] = bf_ms
-            it.stage_ms["dispatch_wait"] = dw_ms
+        self._stamp_stages(items, now, lane)
         items = self._drop_cancelled(items)
         if not items:
             return
@@ -718,6 +1677,8 @@ class Executor:
         before = chain_mod.cache_size()
         try:
             failpoints.hit("device.chip_error", key=lane.idx)
+            failpoints.hit("device.oom", key=lane.idx)
+            failpoints.hit("device.slow", key=lane.idx)
             if sharded:
                 launched = chain_mod.launch_sharded(arrs, plans, mesh, streams)
             elif spatial:
@@ -730,7 +1691,17 @@ class Executor:
                 launched = chain_mod.launch_batch(arrs, plans, device=lane.device,
                                                   stream=lane.stream)
         except Exception as e:
+            if chain_mod.is_oom_error(e):
+                # capacity, not a fault: bisect on this lane's device
+                self._bisect_chunk(items, lane.device, lane.idx, e)
+                return
+            integ = self.integrity
+            if (not sharded and not spatial and integ is not None
+                    and integ.enabled and len(items) > 1
+                    and self._poison_bisect(items, lane.device, lane.idx, e)):
+                return
             self._note_device_failure(lane.idx, e)
+            self._stamp_attempts(items, [f"device:{lane.idx}:error"])
             self._replace_lane_items(items, exclude={lane.idx})
             return
         self._note_cold(before)
@@ -749,14 +1720,18 @@ class Executor:
                         **g, launched.gathered: g.get(launched.gathered, 0) + 1}
             self.stats.max_group_seen = max(self.stats.max_group_seen, len(items))
         lane.dispatches += 1
+        self._stamp_attempts(items, ["device:mesh:lane" if (sharded or spatial)
+                                     else f"device:{lane.idx}:lane"])
         # a full in-flight window blocks here: the lane's backpressure,
         # which shows as a growing placement score
         lane.fetch_queue.put((launched, arrs, plans, items))
 
     def _lane_fetch(self, lane) -> None:
         """One lane's fetcher: wait for each launched chunk in launch
-        order and resolve it. A failed drain strikes this lane's fault
-        domain and moves the unresolved items to the other lanes."""
+        order, verify a sampled share and resolve it. A capacity error
+        bisects on the lane's device; another failed drain strikes this
+        lane's fault domain and moves the unresolved items to the other
+        lanes."""
         while True:
             got = lane.fetch_queue.get()
             if got is None:
@@ -773,6 +1748,9 @@ class Executor:
             finally:
                 lanes_mod._lane_release(lane, n)
             if err is not None:
+                if chain_mod.is_oom_error(err):
+                    self._recover_oom_chunk(items, lane.device, lane.idx, err)
+                    continue
                 self._note_device_failure(lane.idx, err)
                 self._replace_lane_items([it for it in items if not it.future.done()],
                                          exclude={lane.idx})
@@ -783,9 +1761,7 @@ class Executor:
             LANE_TIMES.record(lane.idx, "drain", drain_ms / n)
             TIMES.record("drain", drain_ms / n)
             self._note_drain(items, drain_ms)
-            self._release(items)
-            for it, out in zip(items, outs):
-                _resolve(it.future, result=out, stage_ms=it.stage_ms)
+            self._finish(items, outs, lane.idx)
 
     def _replace_lane_items(self, items: list, exclude=()) -> None:
         """Move still-unresolved items to the surviving lanes. An item past
@@ -819,7 +1795,7 @@ class Executor:
             if gen == self._lanes_devhealth_gen:
                 return
             self._lanes_devhealth_gen = gen
-            avail = set(self.devhealth.available_indices())
+            avail = self._rotation()
             for ln in self._lanes.lanes:
                 ln.active = ln.idx in avail
             if self._mesh_policy in ("sharded", "auto"):
@@ -831,39 +1807,45 @@ class Executor:
             self._mesh_generation += 1
             self.stats.mesh_generation = self._mesh_generation
 
-    def _note_device_failure(self, idx: int, err: object = None) -> None:
-        """One failed launch or drain, struck against entry `idx`."""
-        self.devhealth.note_failure(idx, err)
-        with self._lock:
-            self.stats.device_failures += 1
-
-    def _probe_device(self, idx: int) -> None:
-        """Half-open re-admission probe of entry `idx`, raising on failure:
-        a K4 window gather of a 4x4 ramp at offset (1, 2) on the entry's
-        device and lane stream, held against its known answer."""
-        failpoints.hit("device.chip_error", key=idx)
-        lane = self._lanes.lane(idx)
-        dev = lane.device
-        ctx = (torch.cuda.stream(lane.stream) if lane.stream is not None
-               else contextlib.nullcontext())
-        with ctx:
-            x = torch.arange(16, dtype=torch.float32, device=dev).reshape(1, 4, 4, 1)
-            off = torch.tensor([1], dtype=torch.int32, device=dev)
-            off_x = torch.tensor([2], dtype=torch.int32, device=dev)
-            got = kernels.gather(x, 2, 2, off, off_x).cpu()
-        want = torch.tensor([[6.0, 7.0], [10.0, 11.0]]).reshape(1, 2, 2, 1)
-        if not torch.equal(got, want):
-            raise RuntimeError(f"probe of device {idx} ({dev}) computed "
-                               f"{got.flatten().tolist()}")
+    def _rotation(self) -> set:
+        """The entries the lanes serve on: the dispatchable ones, less a
+        fail-slow-demoted entry while a healthy peer remains and its share
+        is 0 (its traffic moves, as `pick` sheds it on the global ladder;
+        its probes go on, and a recovered entry rejoins)."""
+        avail = set(self.devhealth.available_indices())
+        if self.config.failslow_ratio <= 0.0 or self.config.failslow_share > 0.0:
+            return avail
+        now = time.monotonic()
+        degraded = {i for i in avail
+                    if self.devhealth.record(i).state(now) == STATE_DEGRADED}
+        return avail - degraded if avail - degraded else avail
 
     def debug_snapshot(self) -> dict:
         """The executor's live view; with lanes, a "lanes" block with the
         reference's keys."""
-        snap = {
-            "queue_depth": self.stats.queue_depth,
-            "inflight_chunks": self._fetch_queue.qsize(),
-            "device_owed_mb": round(self.stats.device_owed_mb, 3),
-        }
+        now = time.monotonic()
+        with self._lock:
+            ds = self._drain_state
+            snap = {
+                "queue_depth": self.stats.queue_depth,
+                "inflight_chunks": self._fetch_queue.qsize(),
+                "device_owed_mb": round(self.stats.device_owed_mb, 3),
+                "drain_in_flight_age_s": round(now - ds[0], 3) if ds else None,
+                "fetcher_generation": self._fetch_gen,
+                "hedges_inflight": self._hedges_inflight,
+                "device_items_inflight": self._device_items,
+                "device_ms_per_mb": round(self._ms_per_mb or 0.0, 3),
+                "drain_floor_ms": round(self._drain_floor_ms or 0.0, 3),
+                "host_ms_per_mpix": round(self._host_ms_per_mpix, 3),
+                "host_inflight": self._host_inflight,
+                "host_owed_mpix": round(self._host_owed_mpix, 3),
+            }
+        snap["breaker_open"] = self._breaker_is_open()
+        # the fault domains and their quarantine-grade events, oldest first
+        snap["devices"] = self.devhealth.snapshot()
+        snap["strike_history"] = self.devhealth.strike_history()
+        if self.integrity is not None:
+            snap["integrity"] = self.integrity.snapshot()
         if self._lanes is not None:
             snap["lanes"] = {
                 "policy": self._mesh_policy,

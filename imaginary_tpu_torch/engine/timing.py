@@ -33,7 +33,7 @@ from imaginary_tpu_torch.obs import trace as _obs_trace
 _RING = 2048  # samples kept per stage for percentile estimates
 
 STAGES = ("probe", "decode", "queue_wait", "batch_form", "dispatch_wait",
-          "launch", "drain", "encode", "total")
+          "launch", "drain", "host_gate", "host_spill", "encode", "total")
 
 # the per-stage histogram children, resolved once (record is the hot path)
 _STAGE_HISTS = {s: _obs_hist.STAGE_SECONDS.labels(s) for s in STAGES}

@@ -1,7 +1,7 @@
 """Fault injection for the port (a trimmed copy of
 `imaginary_tpu/failpoints.py`).
 
-Seven sites are ported:
+Eleven sites are ported:
 
   source.fetch       one remote ?url= or watermark GET attempt
                      (web/sources.py);
@@ -15,10 +15,25 @@ Seven sites are ported:
                      (engine/executor.py): delay() models a slow device
                      or link, error() a failed dispatch (one device
                      failure, the chunk's futures fail);
-  device.chip_error  one chunk launch on one mesh entry, and that
-                     entry's re-admission probe (engine/executor.py);
-                     keyable by the entry's flat index:
-                     `device.chip_error[1]=error` fails entry 1 alone.
+  device.chip_error  one chunk launch on one device (the global ladder's
+                     pick or a lane's mesh entry), and that device's
+                     probe (engine/executor.py); keyable by the device's
+                     index: `device.chip_error[1]=error` fails entry 1
+                     alone;
+  device.oom         one chunk launch and each bisection retry on one
+                     device, keyable: an injected error reads as a
+                     capacity error (chain.is_oom_error) and takes the
+                     bisection, never the breaker;
+  device.corrupt     one drained chunk's outputs and the golden probe's,
+                     keyable: an armed error() makes the executor flip
+                     the high bit of a quarter of each output's bytes
+                     (integrity.corrupt_copy), before verification;
+  device.slow        one device's chunk launches and golden probes,
+                     keyable: delay() makes that device limp, the shape
+                     fail-slow demotion exists for;
+  host.spill         the host interpreter's run in the spill branch
+                     (engine/executor.py): an error falls back to the
+                     device, counted in spill_errors.
 
 Spec grammar: `site=action` clauses joined by `;`, where action is
 
@@ -47,7 +62,8 @@ import time
 from typing import Optional
 
 SITES = ("source.fetch", "source.head", "codec.decode", "codec.encode",
-         "executor.submit", "device.execute", "device.chip_error")
+         "executor.submit", "device.execute", "device.chip_error", "host.spill",
+         "device.oom", "device.corrupt", "device.slow")
 
 _KEYED_SITE_RE = re.compile(r"^([\w.]+)\[(\w+)\]$")
 _DURATION_RE = re.compile(r"^(\d+(?:\.\d+)?)(ms|s)$")

@@ -17,8 +17,9 @@
 //     row (one 16-byte load) or, in the three-plane layouts, 8 pixels of
 //     all three channels (three 16-byte loads, split by channel). 8 holds
 //     whole blocks of every plane at every k. The loads are issued before
-//     the block builds the kv- and kh-point bases (cosf in f32, the
-//     reference's formula) and waits at its first barrier.
+//     the block copies the kv- and kh-point bases (the reference's f32
+//     words, dct_basis.cuh) into shared memory and waits at its first
+//     barrier.
 //   - IDCT: the horizontal pass runs in registers on those 8 values and
 //     writes 8 sums to shared memory; the vertical pass runs down one
 //     column of shared memory a thread, in place, + 128. IEEE f32 with
@@ -41,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dct_basis.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -52,21 +55,6 @@ constexpr int kRuns = kCols / 8;
 constexpr int kCRows = 24;
 constexpr int kCBlocks = 10;
 constexpr int kCCols = 8 * kCBlocks;
-constexpr float kPi = 3.14159265358979f;
-
-
-// stages.py:_idct_basis(k)[u, x] in f32.
-__device__ __forceinline__ float basis(int k, int u, int x) {
-  const float kf = (float)k;
-  const float beta = u == 0 ? sqrtf(__fdiv_rn(1.0f, kf))
-                            : sqrtf(__fdiv_rn(2.0f, kf));
-  const float arg = __fdiv_rn(
-      __fmul_rn(__fmul_rn(__fadd_rn(__fmul_rn(2.0f, (float)x), 1.0f),
-                          (float)u),
-                kPi),
-      __fmul_rn(2.0f, kf));
-  return __fmul_rn(__fmul_rn(beta, cosf(arg)), sqrtf(__fdiv_rn(kf, 8.0f)));
-}
 
 // (i0, i1, t) of `_chroma_up_indices` for luma position r (K2's taps).
 __device__ __forceinline__ void up_taps(int r, int cn, int chroma_b, int* i0,
@@ -256,7 +244,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   {
     const int li = tid >> 6, u = (tid >> 3) & 7, x = tid & 7;
     const int n = 1 << li;
-    if (u < n && x < n) bas[li][u][x] = basis(n, u, x);
+    if (u < n && x < n) bas[li][u][x] = idct_basis(li, u, x);
   }
   __syncthreads();
 

@@ -20,7 +20,7 @@
 //     after replication (not masked, unlike K3's pool), then - 128 like Y.
 //   - Row pass: a thread takes one 8-sample row of an 8x8 block (two
 //     16-byte shared loads) and makes 4 of its 8 sums, sum over z of
-//     blk[x][z] * bs[v][z] (the basis of `_idct_basis(8)`, cosf in f32).
+//     blk[x][z] * bs[v][z] (`_idct_basis(8)`'s f32 words, dct_basis.cuh).
 //   - Column pass: a thread takes one output row u of a block: it reads
 //     the block's 64 row sums (the 8 threads of a block as broadcasts) and
 //     makes coef[u][v] = sum over x of bs[u][x] * t[x][v] for v = 0..7,
@@ -38,6 +38,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dct_basis.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -46,20 +48,7 @@ constexpr int kMcus = 2;                      // MCUs a band
 constexpr int kCols = 16 * kMcus;             // its columns
 constexpr int kBlk = kCols / 8;               // 8-column blocks of a Y row
 constexpr int kItems = 3 * kRows * kBlk / 2;  // 8-sample rows of the band
-constexpr float kPi = 3.14159265358979f;
 static_assert(kThreads == kRows / 2 * kCols / 2, "a thread a 2x2 pixel block");
-
-// stages.py:_idct_basis(8)[u, x] in f32 (its sqrt(8/8) factor is 1).
-__device__ __forceinline__ float basis8(int u, int x) {
-  const float beta = u == 0 ? sqrtf(__fdiv_rn(1.0f, 8.0f))
-                            : sqrtf(__fdiv_rn(2.0f, 8.0f));
-  const float arg = __fdiv_rn(
-      __fmul_rn(__fmul_rn(__fadd_rn(__fmul_rn(2.0f, (float)x), 1.0f),
-                          (float)u),
-                kPi),
-      16.0f);
-  return __fmul_rn(__fmul_rn(beta, cosf(arg)), sqrtf(__fdiv_rn(8.0f, 8.0f)));
-}
 
 __device__ __forceinline__ float clip255(float v) {
   return fminf(fmaxf(v, 0.0f), 255.0f);
@@ -116,7 +105,7 @@ __global__ void __launch_bounds__(kThreads)
     load2(img + min(R0 + 2 * rp, ymax) * wb * 3, X0 + 2 * g, xmax, a0);
     load2(img + min(R0 + 2 * rp + 1, ymax) * wb * 3, X0 + 2 * g, xmax, a1);
   }
-  if (tid < 64) bs[tid >> 3][tid & 7] = basis8(tid >> 3, tid & 7);
+  if (tid < 64) bs[tid >> 3][tid & 7] = idct_basis(3, tid >> 3, tid & 7);
   qs[tid >> 6][tid & 63] = (tid < 64 ? qy : qc)[b * 64 + (tid & 63)];
 
   if (has) {

@@ -14,8 +14,9 @@ integer dyn params are int32 [B]; uint8 inputs are cast on entry, and
 
 from __future__ import annotations
 
-import math
+import functools
 
+import numpy as np
 import torch
 
 from imaginary_tpu_torch.ops import saliency as _saliency
@@ -405,15 +406,44 @@ def window_argmax(ii: torch.Tensor, h, w, win_h, win_w) -> tuple:
     return _saliency.window_argmax(ii, h, w, win_h, win_w)
 
 
+# stages.py:_idct_basis(k) for k = 1, 2, 4, 8, bit for bit: the f32 words
+# XLA's cos and sqrt give it (torch's f32 cos differs in one entry of k = 8),
+# row-major C[u, x]; kernels/csrc/dct_basis.cuh holds the same words
+_IDCT_BASIS_BITS = {
+    1: (
+        0x3eb504f3,
+    ),
+    2: (
+        0x3eb504f3, 0x3eb504f3, 0x3eb504f3, 0xbeb504f3,
+    ),
+    4: (
+        0x3eb504f3, 0x3eb504f3, 0x3eb504f3, 0x3eb504f3, 0x3eec835d, 0x3e43ef15,
+        0xbe43ef18, 0xbeec835f, 0x3eb504f2, 0xbeb504f2, 0xbeb504f1, 0x3eb504f7,
+        0x3e43ef15, 0xbeec835d, 0x3eec835f, 0xbe43ef25,
+    ),
+    8: (
+        0x3eb504f3, 0x3eb504f3, 0x3eb504f3, 0x3eb504f3, 0x3eb504f3, 0x3eb504f3,
+        0x3eb504f3, 0x3eb504f3, 0x3efb14be, 0x3ed4db31, 0x3e8e39d9, 0x3dc7c5bc,
+        0xbdc7c5c2, 0xbe8e39dc, 0xbed4db32, 0xbefb14bf, 0x3eec835e, 0x3e43ef15,
+        0xbe43ef18, 0xbeec8360, 0xbeec835e, 0xbe43ef0b, 0x3e43ef1b, 0x3eec835f,
+        0x3ed4db31, 0xbdc7c5c2, 0xbefb14bf, 0xbe8e39d6, 0x3e8e39dd, 0x3efb14be,
+        0x3dc7c5b1, 0xbed4db34, 0x3eb504f3, 0xbeb504f3, 0xbeb504f1, 0x3eb504f7,
+        0x3eb504f3, 0xbeb504fb, 0xbeb504ef, 0x3eb504f4, 0x3e8e39d9, 0xbefb14bf,
+        0x3dc7c5c8, 0x3ed4db2d, 0xbed4db34, 0xbdc7c5bb, 0x3efb14bf, 0xbe8e39e4,
+        0x3e43ef15, 0xbeec835e, 0x3eec835f, 0xbe43ef25, 0xbe43ef06, 0x3eec835b,
+        0xbeec8362, 0x3e43ef25, 0x3dc7c5bc, 0xbe8e39d6, 0x3ed4db2d, 0xbefb14bd,
+        0x3efb14c1, 0xbed4db31, 0x3e8e39e9, 0xbdc7c614,
+    ),
+}
+
+
+@functools.lru_cache(maxsize=None)
 def idct_basis(k: int, device=None) -> torch.Tensor:
-    """stages.py:_idct_basis in f32: C[u, x] = beta_u cos((2x+1) u pi / 2k)
-    times sqrt(k/8)."""
-    u = torch.arange(k, dtype=torch.float32, device=device)[:, None]
-    x = torch.arange(k, dtype=torch.float32, device=device)[None, :]
-    one = torch.ones((), dtype=torch.float32, device=device)
-    beta = torch.where(u == 0, torch.sqrt(one / k), torch.sqrt(one * 2.0 / k))
-    basis = beta * torch.cos((2.0 * x + 1.0) * u * math.pi / (2.0 * k))
-    return basis * torch.sqrt(one * k / 8.0)
+    """stages.py:_idct_basis(k), C[u, x] = beta_u cos((2x+1) u pi / 2k)
+    times sqrt(k/8), as the reference's f32 words (`_IDCT_BASIS_BITS`),
+    made once a device (callers never write to it)."""
+    words = np.array(_IDCT_BASIS_BITS[k], dtype=np.uint32).view(np.float32)
+    return torch.from_numpy(words.reshape(k, k)).to(device)
 
 
 def _idct(plane: torch.Tensor, kv: int, kh: int) -> torch.Tensor:

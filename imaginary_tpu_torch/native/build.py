@@ -26,7 +26,10 @@ links, the build raises with the compiler's output.
 `build_entropy()` compiles `entropy.cpp` (the DCT transport's Huffman
 scan decode and encode; CPython's C API only, no libraries) into
 `_build/_itpu_torch_entropy-<digest>.so` the same way;
-`python -m imaginary_tpu_torch.native.build` builds both.
+`build_resample()` compiles `resample.cpp` (the host interpreter's
+separable resampler, a copy of the reference's; no libraries) into
+`_build/_itpu_torch_resample-<digest>.so`;
+`python -m imaginary_tpu_torch.native.build` builds all three.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from imaginary_tpu_torch.kernels.build import BUILD_DIR, build_lock
 HERE = os.path.dirname(os.path.abspath(__file__))
 MODULE = "_itpu_torch_codecs"
 ENTROPY_MODULE = "_itpu_torch_entropy"
+RESAMPLE_MODULE = "_itpu_torch_resample"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 VENDORED_HEADERS = os.path.join(HERE, "libjpeg")
 
@@ -122,37 +126,52 @@ def build() -> tuple:
                        f"({len(routes)} found):\n" + "\n".join(errors))
 
 
-def entropy_path() -> str:
-    with open(os.path.join(HERE, "entropy.cpp"), "rb") as f:
+def _plain_path(source: str, module: str) -> str:
+    with open(os.path.join(HERE, source), "rb") as f:
         src = f.read()
     tag = hashlib.sha256(src + " ".join(CXX_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"{ENTROPY_MODULE}-{tag}.so")
+    return os.path.join(BUILD_DIR, f"{module}-{tag}.so")
 
 
-def build_entropy() -> tuple:
-    """Build the entropy codec extension unless present.
+def _build_plain(source: str, module: str, what: str) -> tuple:
+    """Build a library-free extension from `source` unless present.
 
     Returns (path, seconds spent); raises RuntimeError with the compiler's
     output when the build fails."""
-    out = entropy_path()
+    out = _plain_path(source, module)
     t0 = time.monotonic()
     with build_lock():
         if os.path.exists(out):
             return out, 0.0
         tmp = f"{out}.tmp{os.getpid()}"
         cmd = ["g++", *CXX_FLAGS, f"-I{sysconfig.get_path('include')}",
-               os.path.join(HERE, "entropy.cpp"), "-o", tmp]
+               os.path.join(HERE, source), "-o", tmp]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             with contextlib.suppress(FileNotFoundError):
                 os.remove(tmp)
-            raise RuntimeError(f"entropy codec build failed:\n{proc.stderr}")
+            raise RuntimeError(f"{what} build failed:\n{proc.stderr}")
         os.replace(tmp, out)
         return out, time.monotonic() - t0
+
+
+def entropy_path() -> str:
+    return _plain_path("entropy.cpp", ENTROPY_MODULE)
+
+
+def build_entropy() -> tuple:
+    """Build the entropy codec extension unless present: (path, seconds)."""
+    return _build_plain("entropy.cpp", ENTROPY_MODULE, "entropy codec")
+
+
+def build_resample() -> tuple:
+    """Build the host resampler extension unless present: (path, seconds)."""
+    return _build_plain("resample.cpp", RESAMPLE_MODULE, "host resampler")
 
 
 if __name__ == "__main__":
     path, secs, route = build()
     print(f"built {path} ({secs:.1f} s) against {route or 'an earlier build'}")
-    path, secs = build_entropy()
-    print(f"built {path} ({secs:.1f} s)")
+    for fn in (build_entropy, build_resample):
+        path, secs = fn()
+        print(f"built {path} ({secs:.1f} s)")

@@ -583,13 +583,19 @@ def run_single(arr: np.ndarray, plan: ImagePlan, device=DEFAULT_DEVICE):
     return run_batch([arr], [plan], device=device)[0]
 
 
-_OOM_MARKERS = ("out of memory", "failed to allocate", "resource exhausted")
+_OOM_MARKERS = ("out of memory", "failed to allocate", "resource exhausted",
+                "device.oom")
 
 
 def is_oom_error(e: BaseException) -> bool:
     """True when an exception reads as memory exhaustion rather than a
-    device fault (the executor bisects such batches instead of blaming
-    the card)."""
+    device fault: the executor bisects such chunks (a capacity event)
+    instead of striking the card (a fault). The line: the caching
+    allocator's `torch.cuda.OutOfMemoryError` ("CUDA out of memory"), a
+    host MemoryError and the `device.oom` failpoint's injected error are
+    capacity; a hand-written kernel's failed launch ("<kernel> kernel
+    launch failed: CUDA error N", kernels._launch) is a crash strike,
+    whatever N, and so is any other CUDA error."""
     if isinstance(e, (MemoryError, torch.cuda.OutOfMemoryError)):
         return True
     s = str(e).lower()

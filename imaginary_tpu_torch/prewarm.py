@@ -22,13 +22,14 @@ the summary line beside the number warmed. Nothing falls back to the
 CPU: the warms run on `device`, the card unless the caller asks for the
 CPU.
 
-Left out of the reference's module:
-- `enable_persistent_cache`, the XLA compilation cache. Nothing is
-  compiled per chain here; the kernels' counterpart, the nvcc build
-  directory `imaginary_tpu_torch/_build/`, already persists.
-- `golden_input` and `golden_case`, the integrity canary: they need the
-  host interpreter and the integrity module, which come with a later
-  slice.
+`golden_input` and `golden_case` build the integrity canary
+(engine/integrity.py): a 96x128 smooth gradient, its 48x36 /resize plan
+and that plan's output from the host interpreter (engine/host_exec.py).
+
+Left out of the reference's module: `enable_persistent_cache`, the XLA
+compilation cache. Nothing is compiled per chain here; the kernels'
+counterpart, the nvcc build directory `imaginary_tpu_torch/_build/`,
+already persists.
 """
 
 from __future__ import annotations
@@ -58,6 +59,37 @@ COMMON_QUERIES = [
     ("resize", {"width": "300"}, (740, 550)),
     ("fit", {"width": "300", "height": "300"}, (740, 550)),
 ]
+
+# The golden-probe canary (engine/integrity.py): a fixed synthetic input
+# and a real resize chain (K1, with the K4 its plan carries), whose
+# reference output the host interpreter computes once, at first use. Small
+# on purpose (96x128 -> 48x36): the probe runs at cooldown cadence.
+_GOLDEN_H, _GOLDEN_W = 96, 128
+_GOLDEN_OUT_W, _GOLDEN_OUT_H = 48, 36
+
+
+def golden_input() -> np.ndarray:
+    """A deterministic smooth gradient: host and card resamplers diverge
+    most at hard edges, and the golden comparison's bars must stay far
+    above honest kernel rounding and far below a corrupted byte."""
+    yy, xx = np.mgrid[0:_GOLDEN_H, 0:_GOLDEN_W]
+    r = (xx * 255) // max(1, _GOLDEN_W - 1)
+    g = (yy * 255) // max(1, _GOLDEN_H - 1)
+    b = ((xx + yy) * 255) // max(1, _GOLDEN_H + _GOLDEN_W - 2)
+    return np.stack([r, g, b], axis=-1).astype(np.uint8)
+
+
+def golden_case() -> tuple:
+    """(input, plan, host_reference): the canary, its output computed on
+    the host, which never transits the card under suspicion."""
+    from imaginary_tpu_torch.engine import host_exec
+
+    arr = golden_input()
+    plan = plan_operation(
+        "resize", ImageOptions(width=_GOLDEN_OUT_W, height=_GOLDEN_OUT_H),
+        _GOLDEN_H, _GOLDEN_W, 0, 3)
+    return arr, plan, host_exec.run(arr, plan)
+
 
 # (operation, options, source dims): each row's options as the request
 # parser builds them from its query, so a warmed chain is the one that

@@ -84,6 +84,27 @@ class ServerOptions:
     # compressed-domain transport both ways (pipeline.py)
     transport_dct: bool = False
     transport_dct_egress: bool = False
+    # --- placement and the card's fault domain (engine/executor.py) --------
+    # Host placement: the cost model's spill to the host interpreter, the
+    # breaker outage's host serving and the host route of an item that
+    # runs out of device memory alone. False (the port's default,
+    # --host-spill off), True (on) or None (auto, the reference's
+    # default: enabled, the spill governed by the measured costs).
+    host_spill: Optional[bool] = False
+    force_host: bool = False  # every host-executable plan on the host
+    host_dct_spill: bool = True  # the host's DCT-domain shrink-on-load
+    hedge_threshold_ms: float = 0.0  # 0 = no hedging
+    hedge_budget: float = 0.05
+    # output integrity (engine/integrity.py); off builds no state
+    integrity: bool = False
+    integrity_sample: float = 1.0 / 256.0
+    integrity_clean_probes: int = 3
+    integrity_poison_ttl: float = 300.0
+    integrity_poison_cap: int = 256
+    # fail-slow demotion (engine/devhealth.py); 0 = off
+    failslow_ratio: float = 0.0
+    failslow_min_samples: int = 8
+    failslow_share: float = 0.0
 
     def is_endpoint_enabled(self, path: str) -> bool:
         """Endpoint disabling by last path segment (ref: server.go:57-66)."""

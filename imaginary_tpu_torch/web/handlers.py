@@ -16,7 +16,11 @@ event loop, and then the watermark image's URL is fetched and decoded
 there too (`_prefetch_watermark`), before the pool dispatch, as the
 reference's handler does. The device work of concurrent requests batches
 in the executor, on the service's device. Every processed image answers
-`X-Imaginary-Backend: device`: nothing runs on a host path.
+`X-Imaginary-Backend` with where its pixels were computed: `device`, or
+`host` for the executor's counted host placements (engine/executor.py:
+--force-host, the spill, the breaker's outage, a hedge's twin, an OOM
+bisection's item, integrity's verified copy); the value rides on the
+request's trace as `placement`.
 
 With `--request-timeout` set, the request's deadline (deadline.py) is
 enforced at each hop here: admission sheds a 503 with Retry-After when
@@ -50,7 +54,9 @@ from aiohttp import web
 
 from imaginary_tpu_torch import Version, codecs, pipeline
 from imaginary_tpu_torch import deadline as deadline_mod
-from imaginary_tpu_torch.engine import Executor, ExecutorConfig
+from imaginary_tpu_torch.engine import Executor, ExecutorConfig, host_exec
+from imaginary_tpu_torch.engine import executor as executor_mod
+from imaginary_tpu_torch.engine import integrity as integrity_mod
 from imaginary_tpu_torch.engine.timing import attribute
 from imaginary_tpu_torch.errors import (
     ErrEmptyBody,
@@ -155,6 +161,12 @@ class ImageService:
                 "CUDA is not available; pass --device cpu to serve on the CPU")
         self.started = time.time()
         self.registry = SourceRegistry(o)
+        # output integrity (None when --integrity is off); the golden
+        # triple is built at boot when its probe is armed
+        self.integrity = integrity_mod.from_options(o)
+        if self.integrity is not None or o.failslow_ratio > 0.0:
+            integrity_mod.golden()
+        host_exec.set_dct_spill(o.host_dct_spill)
         self.executor = Executor(ExecutorConfig(
             max_batch=o.max_batch, max_form_ms=o.batch_form_ms,
             max_inflight=max(1, o.max_inflight), device=str(self.device),
@@ -164,7 +176,11 @@ class ImageService:
             breaker_threshold=o.breaker_threshold,
             breaker_cooldown_s=o.breaker_cooldown_s, spatial=o.spatial,
             spatial_threshold_px=o.spatial_threshold_px,
-            spatial_mpix=o.spatial_mpix))
+            spatial_mpix=o.spatial_mpix, host_spill=o.host_spill,
+            force_host=o.force_host, hedge_threshold_ms=o.hedge_threshold_ms,
+            hedge_budget=o.hedge_budget, integrity=self.integrity, failslow_ratio=o.failslow_ratio,
+            failslow_min_samples=o.failslow_min_samples,
+            failslow_share=o.failslow_share))
         pipeline.set_transport_dct(o.transport_dct)
         pipeline.set_transport_dct_egress(o.transport_dct_egress)
         workers = o.cpus if o.cpus > 0 else max(4, available_cpus())
@@ -400,7 +416,9 @@ class ImageService:
 
     def run(self, op_name: str, buf: bytes, prepared: Prepared,
             watermark_rgba: Optional[np.ndarray] = None) -> Response:
-        """The pipeline on a prepared request, and its response."""
+        """The pipeline on a prepared request, and its response, with
+        X-Imaginary-Backend from where the executor computed it."""
+        executor_mod.reset_placement()
         try:
             out = pipeline.process_operation(op_name, buf, prepared.opts,
                                              device=self.device, meta=prepared.meta,
@@ -411,7 +429,8 @@ class ImageService:
         except Exception as e:
             # ref: handlers.py:787-790, any other failure of the work
             raise new_error("Error processing image: " + str(e), 400) from None
-        return self._build_response(out, op_name, prepared.vary)
+        return self._build_response(out, op_name, prepared.vary,
+                                    executor_mod.last_placement())
 
     def _execute_within_deadline(self, arr, plan):
         """Executor.process with the wait for the result bounded by the
@@ -431,12 +450,19 @@ class ImageService:
             fut.cancel()
             raise dl.error("device_execute") from None
         attribute(getattr(fut, "stage_ms", None))
+        hp = getattr(fut, "_hedge_placement", None)
+        if hp:  # a host twin, an OOM bisection's item or a verified copy
+            executor_mod.note_placement(hp)
         return out
 
-    def _build_response(self, out, op_name, vary) -> Response:
+    def _build_response(self, out, op_name, vary, placement=None) -> Response:
         headers = {}
         if op_name != "info":  # /info produces no pixels
-            headers["X-Imaginary-Backend"] = "device"
+            placement = placement or "device"
+            headers["X-Imaginary-Backend"] = placement
+            tr = obs_trace.current()
+            if tr is not None:
+                tr.annotate(placement=placement)
         if vary:
             headers["Vary"] = vary
         # every image the pipeline answers carries its output geometry

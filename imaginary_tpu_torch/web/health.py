@@ -4,9 +4,10 @@ ref: health.go:17-63).
 The reference's keys for what the port has: process RSS, threads, GC
 collections, the serving process (`worker` and `epoch`: a single process
 is worker 0 of epoch 0), the device inventory, the executor's block, the
-lane tier's fault domains, the stage times and the estimated queueing
-delay. Beside them, the port's own: the device, each kernel's launch
-count, the codec route of each format and the dct transport's switches.
+fault domains (`deviceHealth`), integrity's counters with `--integrity`,
+the stage times and the estimated queueing delay. Beside them, the
+port's own: the device, each kernel's launch count, the codec route of
+each format and the dct transport's switches.
 The reference's `cache`, `arena` and `eventLoop` blocks wait for their
 modules.
 """
@@ -58,9 +59,11 @@ def get_health_stats(service) -> dict:
                          "egress": pipeline.transport_dct_egress_enabled(),
                          **pipeline.dct_counts()},
         "executor": executor.stats.to_dict(),
+        # the fault domains: state, strikes, fail-slow and probe latency
+        "deviceHealth": executor.devhealth.snapshot(),
     }
-    if executor.devhealth is not None:  # the lane tier's fault domains
-        stats["deviceHealth"] = executor.devhealth.snapshot()
+    if executor.integrity is not None:  # --integrity's counters
+        stats["integrity"] = executor.integrity.snapshot()
     if cuda:
         stats["deviceName"] = torch.cuda.get_device_name(device)
         stats["allocatedDeviceMb"] = round(

@@ -28,7 +28,9 @@ from imaginary_tpu_torch.obs.histogram import REGISTRY, escape_label_value
 # executor block is a monotonically-increasing counter.
 _EXEC_GAUGES = {
     "avg_batch", "avg_group", "max_group", "queue_depth",
-    "compile_cache_size", "device_owed_mb",
+    "compile_cache_size", "device_owed_mb", "device_ms_per_mb",
+    "host_ms_per_mpix", "host_inflight", "host_owed_mpix",
+    "host_spill_p50_ms", "host_spill_p99_ms",
     "batch_form_p50_ms", "batch_form_p99_ms",
     "dispatch_wait_p50_ms", "dispatch_wait_p99_ms", "mesh_generation",
 }
@@ -75,11 +77,17 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
     lanes_list: list = []
     copies: dict = {}
     device_health: dict = {}
+    hedge_outcomes: dict = {}
+    integrity: dict = {}
     for key, value in stats.items():
         if key == "executor" and isinstance(value, dict):
             for k, v in value.items():
                 if k == "lanes" and isinstance(v, list):
                     lanes_list = v
+                    continue
+                if k == "hedges" and isinstance(v, dict):
+                    # one labelled family (imaginary_tpu_hedges_total)
+                    hedge_outcomes = v
                     continue
                 if k in ("copied_bytes", "copy_events") and isinstance(v, dict):
                     # stage-labeled families, below
@@ -90,6 +98,8 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
                        help_text=f"Executor {k.replace('_', ' ')} (see /health).")
         elif key == "deviceHealth" and isinstance(value, dict):
             device_health = value
+        elif key == "integrity" and isinstance(value, dict):
+            integrity = value
         elif key == "stageTimesMs" and isinstance(value, dict):
             for stage, pcts in value.items():
                 lab = escape_label_value(stage)
@@ -135,6 +145,19 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
                f'stage="{escape_label_value(stage)}"', mtype="counter",
                help_text="Copy events booked per stage (copies per request "
                          "derive as events over requests).")
+    # launched outside the outcome family, so sum(rate()) over the
+    # outcomes does not count it twice
+    if "launched" in hedge_outcomes:
+        x.emit("imaginary_tpu_hedges_launched_total",
+               hedge_outcomes["launched"], mtype="counter",
+               help_text="Speculative host-path hedge twins started.")
+    for outcome, v in sorted(hedge_outcomes.items()):
+        if outcome == "launched":
+            continue
+        x.emit("imaginary_tpu_hedges_total", v,
+               f'outcome="{escape_label_value(outcome)}"', mtype="counter",
+               help_text="Hedged failover dispatches by outcome "
+                         "(won|lost|failed|skipped_budget).")
     if device_health:
         x.emit("imaginary_tpu_devices_healthy", device_health.get("healthy", 0),
                help_text="Dispatchable devices in the healthy state.")
@@ -142,14 +165,36 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
                device_health.get("quarantined", 0),
                help_text="Devices removed from the dispatchable set by "
                          "their per-device breaker.")
+        x.emit("imaginary_tpu_devices_degraded",
+               device_health.get("degraded", 0),
+               help_text="Devices demoted by fail-slow detection (probe "
+                         "latency EWMA above the peers' median ratio).")
+        x.emit("imaginary_tpu_corruption_strikes_total",
+               device_health.get("corruptions", 0), mtype="counter",
+               help_text="Corruption strikes booked (golden-probe "
+                         "mismatches and failed sampled verifications).")
         for d in device_health.get("per_device", ()):
             x.emit(
                 "imaginary_tpu_device_state", 1,
                 f'device="{d.get("device", "")}",'
                 f'state="{escape_label_value(str(d.get("state", "")))}"',
                 help_text="Per-device fault-domain state "
-                          "(healthy|quarantined|half_open); value is "
-                          "always 1.")
+                          "(healthy|degraded|quarantined|half_open); "
+                          "value is always 1.")
+    if integrity:
+        for k, kind, text in (
+                ("checks", "counter", "Sampled verification comparisons made "
+                                      "before release."),
+                ("mismatches", "counter", "Verification comparisons that failed."),
+                ("reserved", "counter", "Answers re-served from the verified copy."),
+                ("skipped", "counter", "Sampled items with no independent "
+                                       "recompute."),
+                ("poison_entries", "gauge", "Inputs in the poison list."),
+                ("poison_hits", "counter", "Submits sent to host/422 by the "
+                                           "poison list."),
+                ("poison_isolated", "counter", "Inputs the bisection convicted.")):
+            x.emit(f"imaginary_tpu_integrity_{k}" + ("_total" if kind == "counter" else ""),
+                   integrity.get(k, 0), mtype=kind, help_text=text)
     for labels, v in stage_total:
         x.emit("imaginary_tpu_stage_total", v, labels, mtype="counter",
                help_text="Samples recorded per pipeline stage.")

@@ -4,7 +4,7 @@ and print what each run measured.
 
 Run from the repository root on a machine with the card:
 
-    python3 scripts/http_ab.py --parent DIR [--pairs 2] [--serial N]
+    python3 scripts/http_ab.py --parent DIR [--pairs 2] [--serial N] [--config3]
 
 DIR is a checkout of the earlier tree. Each run is its own process,
 started in its tree with that tree's `chip_smoke.py` and
@@ -21,7 +21,10 @@ into its `_build/`). A run:
   clock;
 - runs `chip_smoke.config2_phase()` (phase 6: 32 clients, three timed
   windows and a profiled fourth): req/s (median of the windows), p50,
-  p99, mean and largest batch, and the card's busy share.
+  p99, mean and largest batch, and the card's busy share;
+- with `--config3`, runs `chip_smoke.config3_phase()` on the seeded 4K
+  PNG (phase 7: one client, then 8 clients in three windows): the one
+  client's p50, req/s (median of the windows), p50 and p99 under load.
 
 Each run prints one JSON line; all of them are also written to
 chip_smoke_out/http_ab.json. The card's name and power limit lead the
@@ -40,7 +43,7 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def child(tree: str, serial: int) -> dict:
+def child(tree: str, serial: int, config3: bool = False) -> dict:
     """One run in `tree` (this process's cwd and first sys.path entry)."""
     import threading
     import urllib.request
@@ -78,6 +81,13 @@ def child(tree: str, serial: int) -> dict:
         srv.server_close()
         th.join(timeout=10)
     phase6 = cs.config2_phase()
+    extra = {}
+    if config3:
+        p7 = cs.config3_phase(cs.make_4k_png())
+        extra["phase7"] = {"p50_ms_one_client": p7["p50_ms_one_client"],
+                           "rps": p7["load"]["rps"],
+                           "rps_by_window": p7["load"]["rps_by_window"],
+                           "p50_ms": p7["load"]["p50_ms"], "p99_ms": p7["load"]["p99_ms"]}
     return {
         "tree": tree, "build_s": build_s,
         "config1_serial": {"n": serial, "p50_ms": float(np.percentile(lat, 50)),
@@ -91,6 +101,7 @@ def child(tree: str, serial: int) -> dict:
                    "max_group_seen": phase6["max_group_seen"],
                    "busy_share": phase6["profiled"]["busy_share"],
                    "profiled_rps": phase6["profiled"]["rps"]},
+        **extra,
     }
 
 
@@ -101,13 +112,15 @@ def main() -> int:
                     help="config 1 requests served one at a time per run")
     ap.add_argument("--pairs", type=int, default=2,
                     help="pairs of runs, the earlier tree first in the even ones")
+    ap.add_argument("--config3", action="store_true",
+                    help="also run phase 7 (config 3 on the seeded 4K PNG)")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         tree = os.path.abspath(args.child)
         os.chdir(tree)
         sys.path.insert(0, tree)
-        out = child(tree, args.serial)
+        out = child(tree, args.serial, args.config3)
         print("HTTP_AB " + json.dumps(out), flush=True)
         return 0
     if not args.parent:
@@ -124,7 +137,8 @@ def main() -> int:
         order += pair if i % 2 == 0 else pair[::-1]
     for label, tree in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", tree,
-                               "--serial", str(args.serial)],
+                               "--serial", str(args.serial)]
+                              + (["--config3"] if args.config3 else []),
                               capture_output=True, text=True, cwd=tree)
         lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("HTTP_AB ")]
         if proc.returncode != 0 or not lines:

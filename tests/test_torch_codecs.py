@@ -270,3 +270,67 @@ def test_16bit_gray_tiff_scales_by_the_same_rule():
     want = (a.astype(np.float32) / 257.0 + 0.5).astype(np.uint8)
     assert got.shape == (20, 30, 3)
     assert all(np.array_equal(got[..., k], want) for k in range(3))
+
+
+def _alpha_ramp_png(h: int = 240, w: int = 320) -> bytes:
+    """An RGBA PNG: smooth colour, alpha rising from 0 to 255 across."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    rgb = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 255 // (w + h)], -1)
+    alpha = xx * 255 // (w - 1)
+    return _png(np.dstack([rgb, alpha]).astype(np.uint8))
+
+
+def test_rgba_gif_keeps_the_references_alpha_mask(monkeypatch):
+    """/resize?width=160&type=gif on an RGBA PNG with an alpha ramp: the
+    port's alpha mask equals the reference app's (its native encoder's
+    rule, alpha < 128 transparent), and every opaque pixel has the colour
+    the reference's Pillow backend gives the same frame."""
+    from imaginary_tpu import pipeline as jpipeline
+    from imaginary_tpu.params import build_params_from_query as jquery
+    from imaginary_tpu_torch import pipeline as ppipeline
+    from imaginary_tpu_torch.params import build_params_from_query as pquery
+
+    frames = []
+    real = pil_backend.encode
+
+    def encode(arr, opts):
+        frames.append(arr)
+        return real(arr, opts)
+
+    monkeypatch.setattr(pil_backend, "encode", encode)
+    buf = _alpha_ramp_png()
+    query = {"width": "160", "type": "gif"}
+    got = ppipeline.process_operation("resize", buf, pquery(query), device="cpu")
+    want = jpipeline.process_operation("resize", buf, jquery(query))
+    assert got.mime == want.mime == "image/gif"
+    g = np.asarray(Image.open(io.BytesIO(got.body)).convert("RGBA"))
+    w = np.asarray(Image.open(io.BytesIO(want.body)).convert("RGBA"))
+    assert g.shape == w.shape == (120, 160, 4)
+    assert set(np.unique(w[..., 3]).tolist()) == {0, 255}
+    assert np.array_equal(g[..., 3], w[..., 3])
+    (frame,) = frames
+    assert frame.shape == (120, 160, 4)
+    pil = np.asarray(Image.open(io.BytesIO(
+        jpil.encode(frame, jcodecs.EncodeOptions(type=determine_image_type(got.body))))
+    ).convert("RGBA"))
+    opaque = g[..., 3] == 255
+    assert opaque.any() and (~opaque).any()
+    assert np.array_equal(g[..., :3][opaque], pil[..., :3][opaque])
+
+
+def test_opaque_gif_and_palette_png_are_unchanged():
+    """Frames without a pixel under alpha 128 encode exactly as Pillow
+    saves them, and palette PNGs keep their alpha."""
+    rng = np.random.default_rng(11)
+    rgb = rng.integers(0, 256, (24, 40, 3), dtype=np.uint8)
+    rgba = np.dstack([rgb, np.full((24, 40), 200, np.uint8)])
+    for arr in (rgb, rgba):
+        want = io.BytesIO()
+        Image.fromarray(arr).save(want, "GIF")
+        assert pil_backend.encode(arr, EncodeOptions(type=ImageType.GIF)) == want.getvalue()
+    ramp = np.dstack([rgb, np.tile(np.arange(40, dtype=np.uint8) * 6, (24, 1))])
+    want = io.BytesIO()
+    Image.fromarray(ramp).convert("P", palette=Image.Palette.ADAPTIVE).save(
+        want, "PNG", compress_level=6)
+    got = pil_backend.encode(ramp, EncodeOptions(type=ImageType.PNG, palette=True))
+    assert got == want.getvalue()

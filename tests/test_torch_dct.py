@@ -337,6 +337,101 @@ def test_process_operation_on_the_dct_transport_matches_reference(monkeypatch, o
         assert got.body == want.body
 
 
+@pytest.mark.parametrize("k", [1, 2, 4, 8])
+def test_idct_basis_bits_equal_the_references(k):
+    """K11's and K12's basis is `_idct_basis(k)` word for word (torch's f32
+    cos differed from XLA's in one entry of k = 8)."""
+    got = kernels.reference.idct_basis(k).numpy()
+    want = np.asarray(jst._idct_basis(k))
+    assert got.dtype == want.dtype == np.float32
+    assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def test_the_kernels_basis_table_holds_the_plain_versions_words():
+    """csrc/dct_basis.cuh, which K11 and K12 read, holds the words of the
+    plain versions' table."""
+    import os
+    import re
+
+    path = os.path.join(os.path.dirname(kernels.__file__), "csrc", "dct_basis.cuh")
+    with open(path) as f:
+        text = f.read()
+    rows = re.findall(r"\{([^{}]*)\}", text.split("kIdctBasisBits[4][64] =", 1)[1])
+    for k, row in zip((1, 2, 4, 8), rows):
+        words = tuple(int(w, 16) for w in re.findall(r"0x([0-9a-f]{8})u", row))
+        assert words == kernels.reference._IDCT_BASIS_BITS[k], k
+
+
+# Blocks that stay 8x8-aligned through the chain (/flip, /rotate) of a
+# quality-90 source re-quantized at the egress's default quality 80, whose
+# luma steps are twice the source's: about a fifth of the luma
+# coefficients land exactly on a .5 tie, and the f32 rounding of the IDCT
+# and the FDCT decides each. The basis is the reference's word for word,
+# but its sums come from XLA's CPU matrix products, which split the 8-term
+# sums into blocks that depend on the tensor's size; neither the plain
+# versions nor K11/K12 follow that (ROADMAP.md queue 3, fault 1). So these cases hold what is exact: every
+# luma coefficient where the packages differ lies on a tie (within 1e-3
+# of k + 0.5 in the port's f64 recomputation) and differs by one step,
+# and chroma meets the existing bound.
+TIE_SOURCES = [("444", (480, 640)), ("gray", (360, 480))]
+TIE_QUERIES = [("flip", {}), ("rotate", {"rotate": "90"})]
+TIE_EPS = 1e-3
+
+
+def _unrounded_luma(x, h, w, qy, hb: int, wb: int) -> np.ndarray:
+    """K12's luma coefficients / step before rounding, in f64, from K12's
+    input: [rows, cols, 8, 8] as QuantizedBlocks lays them out."""
+    x = x[0].double().numpy()
+    iy = np.minimum(np.arange(hb), max(int(h[0]) - 1, 0))
+    ix = np.minimum(np.arange(wb), max(int(w[0]) - 1, 0))
+    x = np.clip(x[iy][:, ix], 0.0, 255.0)
+    y = 0.299 * x[..., 0] + 0.587 * x[..., 1] + 0.114 * x[..., 2] - 128.0
+    u = np.arange(8)[:, None]
+    xs = np.arange(8)[None, :]
+    basis = np.where(u == 0, np.sqrt(1.0 / 8), np.sqrt(2.0 / 8)) * np.cos(
+        (2 * xs + 1) * u * np.pi / 16)
+    blk = y.reshape(hb // 8, 8, wb // 8, 8)
+    coef = np.einsum("rxcz,ux,vz->rcuv", blk, basis, basis)
+    return coef / qy[0].double().numpy()[None, None]
+
+
+@pytest.mark.parametrize("op,query", TIE_QUERIES, ids=[q[0] for q in TIE_QUERIES])
+@pytest.mark.parametrize("layout,dims", TIE_SOURCES, ids=[s[0] for s in TIE_SOURCES])
+def test_egress_on_block_aligned_chains_differs_only_at_ties(monkeypatch, layout, dims,
+                                                             op, query):
+    seen = _capture(monkeypatch)
+    k12_inputs = []
+    real_to_dct = kernels.to_dct
+
+    def to_dct(x, h, w, qy, qc, hb, wb):
+        k12_inputs.append((x.clone(), h.clone(), w.clone(), qy.clone(), hb, wb))
+        return real_to_dct(x, h, w, qy, qc, hb, wb)
+
+    monkeypatch.setattr(kernels, "to_dct", to_dct)
+    for mod in (ppipeline, jpipeline):
+        mod.set_transport_dct(True)
+        mod.set_transport_dct_egress(True)
+    buf = _jpeg(layout, *dims, quality=90)
+    got = ppipeline.process_operation(op, buf, pquery(query), device="cpu")
+    want = jpipeline.process_operation(op, buf, jquery(query))
+    (pp, pout), = seen["port"]
+    (jp, jout), = seen["jax"]
+    assert pp.egress == jp.egress == "dct" and (got.width, got.height) == (
+        want.width, want.height)
+    for k in ("u", "v"):
+        worst, share = _coef_diff(getattr(pout, k), getattr(jout, k))
+        assert worst <= COEF_TOL and share <= COEF_SHARE, k
+    worst, share = _coef_diff(pout.y, jout.y)
+    assert worst <= COEF_TOL
+    (x, h, w, qy, hb, wb), = k12_inputs
+    ideal = _unrounded_luma(x, h, w, qy, hb, wb)[: pout.y.shape[0], : pout.y.shape[1]]
+    ties = np.abs(np.abs(ideal - np.floor(ideal)) - 0.5) < TIE_EPS
+    differ = pout.y != jout.y
+    assert differ.any() and ties.mean() > 0.05
+    assert not (differ & ~ties).any()
+    assert share <= ties.mean()
+
+
 def test_pipeline_endpoint_rides_the_dct_transport(monkeypatch):
     seen = _capture(monkeypatch)
     for mod in (ppipeline, jpipeline):

@@ -184,6 +184,11 @@ def test_stats_dict(make_ex):
         "queue_depth", "compile_cache_size", "batch_form_p50_ms", "batch_form_p99_ms",
         "dispatch_wait_p50_ms", "dispatch_wait_p99_ms", "device_failures",
         "device_owed_mb", "compile_misses", "copied_bytes", "copy_events",
+        # placement and the fault domain
+        "spilled", "spill_errors", "breaker_opens", "breaker_host_served",
+        "shadow_probes", "hedges", "oom_events", "oom_splits", "oom_host_routed",
+        "oom_failed", "device_ms_per_mb", "host_ms_per_mpix", "host_inflight",
+        "host_owed_mpix", "host_spill_p50_ms", "host_spill_p99_ms",
     }
     assert d["items"] == 1 and d["batches"] == 1 and d["groups"] == 1
     assert d["compile_cache_size"] >= 1 and d["device_owed_mb"] == 0.0

@@ -18,9 +18,7 @@ What may differ, and why:
   the keys' count and `backend` agree);
 - `/health`'s body: live runtime values. The port's keys hold every key
   of the reference's but the blocks of modules not ported yet (`cache`,
-  `arena`, `eventLoop`) and the off policy's `deviceHealth`, which the
-  port has only with a mesh policy (ROADMAP.md queue 3, "Recorded
-  differences");
+  `arena`, `eventLoop`);
 - `/metrics`'s body: live values. Every family the reference renders for
   a subsystem the port has is in the port's exposition, with the same
   type;
@@ -34,9 +32,10 @@ What may differ, and why:
   the executor's batch_form, dispatch_wait and drain, where the
   reference calls its chain directly; the other names agree in order.
 
-The reference app runs with `host_spill=False`: the port has no host
-path, and a reference request that spilled to the host would carry
-host_gate/host_spill spans and `X-Imaginary-Backend: host`. /flop,
+The reference app runs with `host_spill=False`, the port's default (its
+`--host-spill` is off where the reference's is auto): a reference
+request that spilled to the host would carry host_gate/host_spill spans
+and `X-Imaginary-Backend: host`. /flop,
 /zoom and the watermark image on a JPEG ask for PNG: a JPEG /flop's or
 watermark's planes, 1 LSB apart before the encode, come back up to 5 LSB
 apart through the encoder's quantization (the chain's planes are held at
@@ -316,7 +315,7 @@ def _timing_names(headers: dict) -> list:
 
 
 EXECUTOR_SPANS = ("batch_form", "dispatch_wait", "drain")
-UNPORTED_HEALTH_KEYS = {"cache", "arena", "eventLoop", "deviceHealth"}
+UNPORTED_HEALTH_KEYS = {"cache", "arena", "eventLoop"}
 
 
 def _check_body(cid: str, ctype: str, want: bytes, got: bytes) -> None:

@@ -49,7 +49,11 @@ OFF_KEYS = {"items", "batches", "groups", "avg_batch", "avg_group", "max_group",
             "queue_depth", "compile_cache_size", "batch_form_p50_ms",
             "batch_form_p99_ms", "dispatch_wait_p50_ms", "dispatch_wait_p99_ms",
             "device_failures", "device_owed_mb", "compile_misses", "copied_bytes",
-            "copy_events"}
+            "copy_events", "spilled", "spill_errors", "breaker_opens",
+            "breaker_host_served", "shadow_probes", "hedges", "oom_events",
+            "oom_splits", "oom_host_routed", "oom_failed", "device_ms_per_mb",
+            "host_ms_per_mpix", "host_inflight", "host_owed_mpix",
+            "host_spill_p50_ms", "host_spill_p99_ms"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -207,7 +211,8 @@ class TestPolicyOffParity:
     def test_off_builds_no_lanes_and_serves_identical_bytes(self, make_ex):
         arr, plan = _img(96, 96, seed=3), _resize_plan(96, 96)
         ex = make_ex(max_form_ms=1.0)
-        assert ex._lanes is None and ex.devhealth is None
+        # no lane object; the device is one fault domain of its own
+        assert ex._lanes is None and len(ex.devhealth) == 1
         out = ex.submit(arr, plan).result(timeout=WAIT_S)
         np.testing.assert_array_equal(out, _direct(arr, plan))
         assert set(ex.stats.to_dict()) == OFF_KEYS
@@ -355,17 +360,67 @@ class TestDegradedMesh:
         assert ex._mesh_generation - gen0 == 2
         assert ex.devhealth.record(0).readmissions == 1
 
+    def _quarantine_every_lane(self, ex, arr, plan):
+        """An error storm on every entry: each answer is either the
+        failpoint's error or the direct chain's bytes; every lane ends
+        quarantined."""
+        failpoints.activate("device.chip_error=error")
+        try:
+            futs = [ex.submit(arr, plan) for _ in range(6)]
+            for f in futs:
+                exc = f.exception(timeout=WAIT_S)
+                if exc is None:
+                    np.testing.assert_array_equal(f.result(), _direct(arr, plan))
+                else:
+                    assert isinstance(exc, failpoints.FailpointError)
+            assert _wait_for(lambda: not any(ln.active for ln in ex._lanes.lanes))
+        finally:
+            failpoints.deactivate()
+
     def test_every_lane_quarantined_falls_through_to_the_global_pair(self, make_ex):
+        """With every lane quarantined and host placement off (the port's
+        default), work falls through to the global pair's ladder, which
+        still launches on the primary entry: the direct chain's bytes, on
+        the device, and no lane dispatches."""
+        from imaginary_tpu_torch.engine import executor as ex_mod
+
         ex = make_ex(mesh_policy="lanes", n_devices=2, max_form_ms=1.0,
                      breaker_threshold=1, breaker_cooldown_s=300.0)
         arr, plan = _img(96, 96), _resize_plan(96, 96)
-        failpoints.activate("device.chip_error=error")
-        futs = [ex.submit(arr, plan) for _ in range(6)]
-        outs = [f.result(timeout=WAIT_S) for f in futs]
-        assert all(np.array_equal(o, _direct(arr, plan)) for o in outs)
-        assert _wait_for(lambda: not any(ln.active for ln in ex._lanes.lanes))
-        out = ex.submit(arr, plan).result(timeout=WAIT_S)
+        self._quarantine_every_lane(ex, arr, plan)
+        ex_mod.reset_placement()
+        out = ex.process(arr, plan, timeout=WAIT_S)
         np.testing.assert_array_equal(out, _direct(arr, plan))
+        assert ex_mod.last_placement() == "device"
+        assert ex.stats.breaker_host_served == 0 and ex.stats.spilled == 0
+        assert all(ln.dispatches == 0 for ln in ex._lanes.lanes)
+
+    def test_every_lane_quarantined_with_host_spill_serves_host_work_on_the_host(
+            self, make_ex, monkeypatch):
+        """With host placement on (the reference's auto), host-executable
+        work is served by the host for the outage, counted in
+        breaker_host_served and within integrity's bars (max 96, mean 16)
+        of the direct chain; a device-only plan still falls through to the
+        global pair, bit-equal, and no lane dispatches."""
+        from imaginary_tpu_torch.engine import executor as ex_mod
+        from imaginary_tpu_torch.engine import host_exec
+
+        ex = make_ex(mesh_policy="lanes", n_devices=2, max_form_ms=1.0,
+                     breaker_threshold=1, breaker_cooldown_s=300.0, host_spill=True)
+        arr, plan = _img(96, 96), _resize_plan(96, 96)
+        self._quarantine_every_lane(ex, arr, plan)
+        served = ex.stats.breaker_host_served
+        ex_mod.reset_placement()
+        out = ex.process(arr, plan, timeout=WAIT_S)
+        assert ex_mod.last_placement() == "host"
+        assert ex.stats.breaker_host_served == served + 1
+        want = _direct(arr, plan)
+        assert out.shape == want.shape
+        d = np.abs(out.astype(np.int16) - want.astype(np.int16))
+        assert d.max() <= 96 and d.mean() <= 16
+        monkeypatch.setattr(host_exec, "can_execute", lambda plan, for_spill=True: False)
+        out = ex.submit(arr, plan).result(timeout=WAIT_S)
+        np.testing.assert_array_equal(out, want)
         assert all(ln.dispatches == 0 for ln in ex._lanes.lanes)
 
 

@@ -610,7 +610,9 @@ def test_mesh_policy_lanes_serves_the_off_bytes_with_one_lane_per_device():
     assert all(b[0] == 200 for b in bodies["off"])
     assert bodies["lanes"] == bodies["off"]
     assert "lanes" not in healths["off"]["executor"]
-    assert "deviceHealth" not in healths["off"]
+    # the off policy's global ladder: one fault domain a device, no lanes
+    assert healths["off"]["deviceHealth"]["count"] == 2
+    assert "lanes" not in healths["off"]["deviceHealth"]
     ex = healths["lanes"]["executor"]
     assert [ln["lane"] for ln in ex["lanes"]] == [0, 1]
     assert sum(ln["dispatches"] for ln in ex["lanes"]) == ex["batches"] >= 1
