@@ -52,7 +52,11 @@ Phases, in order; any failure raises and exits non-zero:
    IDCT (K11) on large.jpg's packed coefficients at 1080p 4:2:0 (k = 8)
    and at the main path's shrink 4 (k = 2), and once each on 4:2:2,
    4:4:4 and gray; the forward DCT (K12) at the two /resize outputs of
-   phase 9 (208x304, 928x1600) and a 1088x1920 output; each with the stated tolerance (f32 outputs
+   phase 9 (208x304, 928x1600) and a 1088x1920 output; the chain-ending
+   wrappers' `out=` (buffer donation): an out of the wrong shape, dtype or
+   layout refused, K3 at config 1's B=16 and K7 at config 3's B=8 written
+   into a donor region (offset 0 of the staged input's size) equal to
+   their plain versions and to themselves undonated; each with the stated tolerance (f32 outputs
    1e-3 absolute on the 0-255 scale, uint8 outputs 1 LSB, the
    orientation kernel exact, K9's integral image 1e-5 relative, K10's
    offsets exact on K9's own integral image, K12's int16 within 1 with
@@ -292,6 +296,39 @@ Phases, in order; any failure raises and exits non-zero:
    16 requests go to the others, and it is re-admitted once the failpoint
    is cleared; (f) --force-host on config 1: `host`, spilled 1, no kernel
    launched, within the integrity bars (96, 16) of the card's answer.
+
+15. the executor's admission half on the card, every server from the
+   port's command line with --prewarm, the launches of the paths each
+   case drives summed in the kernels line's `launches_admission`: (a)
+   phase 6's mix (32 clients x 8, three windows) on `--batch-policy
+   convoy --batch-window-ms 3` and on the default continuous policy (both
+   --max-batch 4 --cpus 32): every convoy answer byte-equal to the
+   continuous server's answer to the same request alone, groups below
+   batches under convoy, compile_misses 0 on the prewarmed `_COMMON`
+   routes (the mix's /rotate and EXIF /resize chains are not prewarmed:
+   their misses are printed), req/s, p50/p99, avg_batch, avg_group and
+   batch_form/dispatch_wait p50/p99 of each; (b) the memory governor
+   (--pressure-rss-mb) held by the memory.rss failpoint at its critical
+   rung, --pressure-batch-mb from config 1's wire MB so that the rung's
+   cap (half of it) is 2.5 items wide: 16 config 1 requests at once, then
+   8 of config 3, each launch within the cap (config 3 one item a launch),
+   pressure_capped_batches counted, every answer byte-equal to the
+   ungoverned server's, no compile miss; a 16.3 MP source 413 with
+   Retry-After 2 (the clamp at a quarter of --max-allowed-resolution 60),
+   /flip of a 13.2 MP source forced to the host (pressure_host_forced,
+   `X-Imaginary-Backend: host`, no kernel); (c) --qos-config with an
+   interactive and a batch key splitting phase 6's mix, --max-queue-ms 20,
+   --cpus 32 --max-inflight 1: per-class p50/p99, dispatched, shed and
+   share-cap 503s, device_owed_mb and host_inflight 0 at rest, and at the
+   critical rung the batch tenant's 503 with Retry-After 2; (d) config 1
+   and config 3 through servers with --donation on and off, bit-equal,
+   and each chunk (config 1 B=16, config 3 B=8) launched both ways:
+   torch.cuda.max_memory_allocated above the start and K3's and K7's
+   times writing fresh and donated; (e) five config 1 requests at B=1:
+   wire_bytes h2d and d2h equal five times the staged and fetched bytes
+   the plan gives, and with --arena-mb 64 the codec arena's reuses; (f) a
+   ServerProcess SIGTERMed under 8 keep-alive clients: in-flight 200s,
+   then 503s with Retry-After, /health 200 until the process exits 0.
 
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
@@ -1117,6 +1154,77 @@ def pack_gray_phase(res: dict) -> None:
         worst = max(res[name].items(), key=lambda kv: kv[1]["max_abs_err"])
         log(f"  {name} (redesigned): max |err| against the plain version over "
             f"{len(res[name])} cases {worst[1]['max_abs_err']!r} ({worst[0]})")
+
+
+def out_param_phase(res: dict) -> None:
+    """The chain-ending wrappers' `out=` (buffer donation, ops/chain.py):
+    an `out` of the wrong shape, dtype or layout raises before any launch,
+    and K3 and K7 writing into a donor region (offset 0 of a larger uint8
+    buffer, as the chain's staged batch region is) match their plain
+    versions (U8_TOL) and their own undonated output bit for bit."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+
+    def i32(v, b):
+        return torch.full((b,), v, dtype=torch.int32, device=dev)
+
+    bsz, hb, wb = 16, 208, 304
+    x = torch.rand((bsz, hb, wb, 3), generator=gen, device=dev) * 255.0
+    h, w = i32(200, bsz), i32(300, bsz)
+    shape = (bsz, hb + hb // 2, wb, 1)
+    for bad, err in ((torch.empty((bsz, hb, wb, 1), dtype=torch.uint8, device=dev), ValueError),
+                     (torch.empty(shape, dtype=torch.float32, device=dev), TypeError),
+                     (torch.empty((bsz, hb + hb // 2, 2 * wb, 1), dtype=torch.uint8,
+                                  device=dev)[:, :, :wb], ValueError)):
+        try:
+            kernels.rgb_to_yuv420(x, h, w, hb, wb, out=bad)
+        except err:
+            continue
+        raise AssertionError(f"K3 took an out= of {tuple(bad.shape)} {bad.dtype} "
+                             f"contiguous={bad.is_contiguous()}")
+    # the donor: config 1's staged batch region at B=16 (its 320x512 packed
+    # input), holding the 208x304 packed output at offset 0
+    donor = torch.empty(bsz * 480 * 512, dtype=torch.uint8, device=dev)
+    n = bsz * (hb + hb // 2) * wb
+    got = kernels.rgb_to_yuv420(x, h, w, hb, wb, out=donor[:n].view(shape))
+    if got.data_ptr() != donor.data_ptr():
+        raise AssertionError("K3 did not write into its out=")
+    check("yuv420_pack", got, reference.rgb_to_yuv420(x, h, w, hb, wb), res, "donated-B16",
+          U8_TOL)
+    if not torch.equal(got, kernels.rgb_to_yuv420(x, h, w, hb, wb)):
+        raise AssertionError("K3 into a donated region differs from K3 undonated")
+    # K7 on config 3's frame at B=8 into the 4K input's region
+    bsz, hb, wb = 8, CONFIG3_FRAME[0], CONFIG3_FRAME[1]
+    x = torch.rand((bsz, hb, wb, 3), generator=gen, device=dev) * 255.0
+    overlay = torch.rand((bsz, 24, 48, 4), generator=gen, device=dev) * 255.0
+    args = (overlay, i32(4, bsz), i32(8, bsz), torch.full((bsz,), 0.5, device=dev),
+            i32(20, bsz), i32(40, bsz), True)
+    try:
+        kernels.composite(x, *args, out_u8=True,
+                          out=torch.empty((bsz, hb, wb, 3), dtype=torch.float32,
+                                          device=dev))
+    except TypeError:
+        pass
+    else:
+        raise AssertionError("K7 took an f32 out= for a uint8 epilogue")
+    donor = torch.empty(bsz * CONFIG3_SRC_BUCKET[0] * CONFIG3_SRC_BUCKET[1] * 3,
+                        dtype=torch.uint8, device=dev)
+    n = bsz * hb * wb * 3
+    got = kernels.composite(x, *args, out_u8=True, out=donor[:n].view(bsz, hb, wb, 3))
+    if got.data_ptr() != donor.data_ptr():
+        raise AssertionError("K7 did not write into its out=")
+    check("composite", got, reference.composite(x, *args, True), res, "donated-B8",
+          U8_TOL)
+    if not torch.equal(got, kernels.composite(x, *args, out_u8=True)):
+        raise AssertionError("K7 into a donated region differs from K7 undonated")
+    log("  out=: wrong shape, dtype and layout refused; K3 (config 1 B=16) and K7 "
+        "(config 3 B=8) into a donor region equal to their plain versions within "
+        f"{U8_TOL} LSB and to themselves undonated bit for bit")
 
 
 # K6 at the seams of its design (a block walks a run of rows of one strip
@@ -5504,6 +5612,680 @@ def fault_domain_phase(smi: str) -> dict:
     return out
 
 
+# --- phase 15: the executor's admission half on the card --------------------
+
+# (a)'s servers: one host-pool worker per client (so a key's items meet in
+# the executor, as in phase 10(b)/(c)) and chunks of at most 4, so a
+# convoy group of a key's 8 items takes 2 launches
+ADMISSION_BATCHING = ["--max-batch", "4", "--cpus", "32"]
+ADMISSION_WINDOW_MS = 3.0  # --batch-window-ms of (a)'s convoy server
+ADMISSION_COMMON_CLIENTS = 8
+# (b): the byte cap's width in config 1 items at the rung the memory.rss
+# failpoint holds (it reads as RSS at the ceiling: the critical rung,
+# whose cap is half of --pressure-batch-mb); the governed server's
+# --max-allowed-resolution (its critical clamp is a quarter: 15 MP) and
+# --pressure-oversize-mpix, so config 3's 8.3 MP frame stays on the card,
+# a 13 MP source is forced to the host and a 16 MP source clamped
+PRESSURE_CAP_ITEMS = 2.5
+GOVERNED_MAX_RES = 60.0
+GOVERNED_OVERSIZE_MPIX = 12.0
+OVERSIZE_SRC = (3000, 4400)  # 13.2 MP
+CLAMPED_SRC = (3400, 4800)  # 16.3 MP
+PRESSURE_BURST = (16, 8)  # config 1 requests, then config 3's
+SAMPLE_WAIT_S = 0.3  # past the governor's 0.25 s sample interval
+# (c): an interactive and a batch tenant splitting phase 6's mix; the
+# batch tenant's queue share is one item of a 16-item intake queue
+ADMISSION_QOS = {
+    "default": {"class": "standard"}, "queue_cap": 16,
+    "tenants": [{"name": "gold", "class": "interactive", "api_keys": ["chip-gold"]},
+                {"name": "bulk", "class": "batch", "api_keys": ["chip-bulk"],
+                 "max_share": 0.0625}]}
+QOS_KEYS = ("chip-gold", "chip-bulk")
+ADMISSION_MAX_QUEUE_MS = 20.0
+# one host-pool worker per client, and one group in flight: items wait in
+# the intake queue while the collector is held by the drain, where the
+# share cap and the queue estimate act
+ADMISSION_QOS_LOAD = ["--cpus", "32", "--max-inflight", "1"]
+# (d) and (e)
+DONATION_BATCHES = {"config1": 16, "config3": 8}
+WIRE_REQUESTS = 5
+ARENA_MB = 64.0
+DRAIN_CLIENTS = 8
+DRAIN_LOAD_S = 1.0
+
+
+def admission_server(args: list):
+    """The port's server from its command line (`cli.parse_args`) with
+    --prewarm on DEVICE, mounted on tests/testdata, its access log dropped
+    (the shed 503s would flood the output), serving on a thread: (server,
+    stop)."""
+    from imaginary_tpu_torch import cli
+    from imaginary_tpu_torch.web import app as app_mod
+
+    o = cli.options_from_args(cli.parse_args(
+        ["--addr", "127.0.0.1", "--port", "0", "--device", DEVICE, "--log-level", "error",
+         "--mount", TESTDATA, "--prewarm"] + list(args)))
+    srv = app_mod.AppServer(o, log_stream=app_mod._Discard())
+    return srv, start(srv)
+
+
+def tolerant_load(port: int, reqs: list, clients: int, per_client: int) -> tuple:
+    """load_window whose answers may be errors: reqs are (path, body,
+    headers); (wall seconds, [(request index, client, ms, status, headers,
+    body)])."""
+    n_req = clients * per_client
+    results: list = [None] * n_req
+    errors: list = []
+    begin = threading.Barrier(clients + 1)
+
+    def client(t: int) -> None:
+        begin.wait()
+        try:
+            for i in range(per_client):
+                n = t * per_client + i
+                k = n % len(reqs)
+                path, body, headers = reqs[k]
+                t0 = time.perf_counter()
+                status, hdrs, out = http_get(
+                    port, path, headers(t) if callable(headers) else headers,
+                    "POST" if body is not None else "GET", body)
+                results[n] = (k, t, (time.perf_counter() - t0) * 1e3, status, hdrs, out)
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(t,)) for t in range(clients)]
+    for th in threads:
+        th.start()
+    begin.wait()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    return time.perf_counter() - t0, results
+
+
+def add_launches(total: dict, got: dict) -> None:
+    for k, v in got.items():
+        total[k] = total.get(k, 0) + v
+
+
+def common_pass(srv) -> int:
+    """Each prewarm `_COMMON` route from ADMISSION_COMMON_CLIENTS clients at
+    once (chunks of several B); every answer 200. Returns the server's
+    compile_misses after."""
+    port = srv.server_address[1]
+    for path, _ in common_routes():
+        _, got = tolerant_load(port, [(path, None, {})], ADMISSION_COMMON_CLIENTS, 1)
+        bad = [r[3] for r in got if r[3] != 200]
+        if bad:
+            raise AssertionError(f"{path}: {bad}")
+    return srv.service.executor.stats.compile_misses
+
+
+def mix_window_stats(srv, results, walls, before: dict) -> dict:
+    import numpy as np
+
+    from imaginary_tpu_torch.engine.timing import TIMES
+
+    st = srv.service.executor.stats
+    items, batches = st.items - before["items"], st.batches - before["batches"]
+    groups = st.groups - before["groups"]
+    snap = TIMES.snapshot()
+    lat = [r[2] for r in results]
+    return {"requests": len(results),
+            "rps": statistics.median([CLIENTS * PER_CLIENT / wl for wl in walls]),
+            "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
+            "items": items, "batches": batches, "groups": groups,
+            "avg_batch": items / max(1, batches), "avg_group": items / max(1, groups),
+            "batch_form_p50_ms": snap["batch_form"]["p50_ms"],
+            "batch_form_p99_ms": snap["batch_form"]["p99_ms"],
+            "dispatch_wait_p50_ms": snap["dispatch_wait"]["p50_ms"],
+            "dispatch_wait_p99_ms": snap["dispatch_wait"]["p99_ms"],
+            "compile_misses": st.compile_misses - before["compile_misses"]}
+
+
+def convoy_case(smi: str, bodies: dict, cont, launches: dict) -> dict:
+    """(a) phase 6's mix on --batch-policy convoy and on the default
+    continuous policy (`cont`, kept open for (b)): every convoy answer
+    byte-equal to the continuous server's answer to the same request,
+    groups < batches under convoy, compile_misses 0 on both after the
+    prewarmed `_COMMON` routes."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.engine.timing import TIMES
+
+    reqs = [(path, bodies[src], {}) for path, src, _ in CONFIG2_REQUESTS]
+    convoy, stop_convoy = admission_server(
+        ["--batch-policy", "convoy", "--batch-window-ms", str(ADMISSION_WINDOW_MS)]
+        + ADMISSION_BATCHING)
+    out: dict = {}
+    try:
+        want = None
+        for label, srv in (("continuous", cont[0]), ("convoy", convoy)):
+            port = srv.server_address[1]
+            misses = common_pass(srv)
+            if misses:
+                raise AssertionError(f"(a) {label}: {misses} compile misses on the "
+                                     "prewarmed routes")
+            alone = []
+            for path, body, _ in reqs:  # each route alone, after one warm request
+                http(port, path, body)
+                alone.append(http(port, path, body)[2])
+            if want is None:
+                want = alone
+            ex = srv.service.executor
+            before = {"items": ex.stats.items, "batches": ex.stats.batches,
+                      "groups": ex.stats.groups, "compile_misses": ex.stats.compile_misses}
+            kernels.reset_launches()
+            TIMES.reset()
+            walls, results = [], []
+            for _ in range(WINDOWS):
+                wall, got = tolerant_load(port, reqs, CLIENTS, PER_CLIENT)
+                walls.append(wall)
+                results.extend(got)
+            add_launches(launches, kernels.launch_counts())
+            bad = [r for r in results if (r[3], r[5]) != (200, want[r[0]])]
+            if bad:
+                raise AssertionError(f"(a) {label}: {len(bad)} of {len(results)} answers "
+                                     f"differ from the continuous server's alone answers "
+                                     f"(first {CONFIG2_REQUESTS[bad[0][0]][0]}, {bad[0][3]})")
+            got = out[label] = mix_window_stats(srv, results, walls, before)
+            got["common_compile_misses"] = misses
+            log(f"  (a) {label:10s}: {got['rps']:.1f} req/s, p50 {got['p50_ms']:.2f} ms, "
+                f"p99 {got['p99_ms']:.2f} ms, avg_batch {got['avg_batch']:.2f}, "
+                f"avg_group {got['avg_group']:.2f} ({got['groups']} groups, "
+                f"{got['batches']} batches), batch_form p50/p99 "
+                f"{got['batch_form_p50_ms']:.2f}/{got['batch_form_p99_ms']:.2f} ms, "
+                f"dispatch_wait p50/p99 {got['dispatch_wait_p50_ms']:.2f}/"
+                f"{got['dispatch_wait_p99_ms']:.2f} ms, compile_misses 0 on the prewarmed "
+                f"routes, {got['compile_misses']} under the mix  [{smi}]")
+    finally:
+        stop_convoy()
+    if not out["convoy"]["groups"] < out["convoy"]["batches"]:
+        raise AssertionError(f"(a) convoy: groups {out['convoy']['groups']} not below "
+                             f"batches {out['convoy']['batches']}")
+    out["byte_equal"] = CLIENTS * PER_CLIENT * WINDOWS
+    return out
+
+
+def big_jpeg(hw: tuple) -> bytes:
+    """A smooth seeded RGB gradient of (h, w) as a JPEG (Pillow)."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    arr = np.stack([(xx * 255 // max(1, w - 1)), (yy * 255 // max(1, h - 1)),
+                    ((xx + yy) * 255 // max(1, h + w - 2))], axis=-1).astype(np.uint8)
+    out = io.BytesIO()
+    Image.fromarray(arr).save(out, "JPEG", quality=85)
+    return out.getvalue()
+
+
+def arm_level(srv, spec: str) -> None:
+    """Arm (or, with "", clear) the memory.rss failpoint and wait until the
+    server's governor has sampled it (it re-samples every 0.25 s)."""
+    from imaginary_tpu_torch import failpoints
+
+    if spec:
+        failpoints.activate(spec)
+    else:
+        failpoints.deactivate()
+    time.sleep(SAMPLE_WAIT_S)
+    srv.service.pressure.level()
+
+
+def pressure_case(smi: str, png: bytes, cont, launches: dict) -> dict:
+    """(b) the governor's byte cap on the card, at the rung the memory.rss
+    failpoint holds: a burst of config 1 then config 3 requests, each
+    launch within the cap (floor one item), pressure_capped_batches
+    counted, every answer byte-equal to the ungoverned server's (`cont`),
+    no compile miss; then a 16 MP source clamped 413 and a 13 MP source
+    forced to the host, counted and marked."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.engine import executor as executor_mod
+    from imaginary_tpu_torch.ops import chain as chain_mod
+
+    c1_arr, c1_plan = main_plan("resize", "yuv420")
+    w1 = executor_mod._Item(c1_arr, c1_plan).wire_mb
+    c3_arr, c3_plan = pipeline_request(png, CONFIG3_OPS, "rgb")
+    w3 = executor_mod._Item(c3_arr, c3_plan).wire_mb
+    batch_mb = 2.0 * PRESSURE_CAP_ITEMS * w1  # the critical rung caps at half
+    cap_mb = batch_mb / 2.0
+    config3_path = CONFIG3_REQUESTS[0][1]
+    cont_port = cont[0].server_address[1]
+    want1 = http_get(cont_port, CONFIG1_GET)[2]
+    want3 = http(cont_port, config3_path, png)[2]
+    srv, stop = admission_server([
+        "--pressure-rss-mb", "1000000", "--pressure-batch-mb", f"{batch_mb:.6f}",
+        "--pressure-oversize-mpix", str(GOVERNED_OVERSIZE_MPIX),
+        "--max-allowed-resolution", str(GOVERNED_MAX_RES)])
+    out: dict = {"wire_mb": {"config1": w1, "config3": w3}, "batch_mb": batch_mb,
+                 "cap_mb": cap_mb}
+    launched: list = []
+    real_launch = chain_mod.launch_batch
+
+    def spy(arrs, plans, *a, **k):
+        launched.append((plans[0].spec_key() == c1_plan.spec_key(), len(arrs)))
+        return real_launch(arrs, plans, *a, **k)
+
+    try:
+        port = srv.server_address[1]
+        ex = srv.service.executor
+        http(port, config3_path, png)  # config 3's B=1 signature, at level ok
+        arm_level(srv, "memory.rss=error")
+        level = srv.service.pressure.snapshot()["level"]
+        st0 = ex.stats.to_dict()
+        kernels.reset_launches()
+        chain_mod.launch_batch = spy
+        try:
+            _, got1 = tolerant_load(port, [(CONFIG1_GET, None, {})], PRESSURE_BURST[0], 1)
+            _, got3 = tolerant_load(port, [(config3_path, png, {})], PRESSURE_BURST[1], 1)
+        finally:
+            chain_mod.launch_batch = real_launch
+        add_launches(launches, kernels.launch_counts())
+        st1 = ex.stats.to_dict()
+        bad = [r[3] for r in got1 if (r[3], r[5]) != (200, want1)]
+        bad += [r[3] for r in got3 if (r[3], r[5]) != (200, want3)]
+        if bad:
+            raise AssertionError(f"(b) {len(bad)} answers under the cap differ from the "
+                                 f"ungoverned server's: {bad[:4]}")
+        c1_sizes = [n for is1, n in launched if is1]
+        c3_sizes = [n for is1, n in launched if not is1]
+        out.update(level=level, launches=len(launched), config1_chunks=c1_sizes,
+                   config3_chunks=c3_sizes,
+                   capped=st1["pressure_capped_batches"] - st0["pressure_capped_batches"],
+                   misses=st1["compile_misses"] - st0["compile_misses"])
+        if level != "critical" or out["capped"] <= 0:
+            raise AssertionError(f"(b) level {level}, pressure_capped_batches "
+                                 f"{out['capped']}")
+        if max(c1_sizes) * w1 > cap_mb or max(c3_sizes) != 1:
+            raise AssertionError(f"(b) a launch past the cap: config 1 {c1_sizes}, "
+                                 f"config 3 {c3_sizes} (cap {cap_mb:.3f} MB)")
+        if out["misses"]:
+            raise AssertionError(f"(b) {out['misses']} compile misses under the cap")
+        # the clamp and the oversize rung
+        clamped = http_get(port, "/resize?width=300", {"Content-Type": "image/jpeg"},
+                           "POST", big_jpeg(CLAMPED_SRC))
+        forced0 = ex.stats.pressure_host_forced
+        spilled0 = ex.stats.spilled
+        kernels.reset_launches()
+        # /flip decodes the whole frame (no shrink-on-load): its item is
+        # the source's 13.2 MP
+        forced = http_get(port, "/flip", {"Content-Type": "image/jpeg"}, "POST",
+                          big_jpeg(OVERSIZE_SRC))
+        forced_launches = kernels.launch_counts()
+        out["clamp"] = (clamped[0], clamped[1].get("Retry-After"))
+        out["forced"] = (forced[0], backend(forced[1]), ex.stats.pressure_host_forced - forced0,
+                         ex.stats.spilled - spilled0)
+        snap = srv.service.pressure.snapshot()
+    finally:
+        arm_level(srv, "")
+        stop()
+    if out["clamp"] != (413, "2") or snap["pixel_clamps"] < 1:
+        raise AssertionError(f"(b) a {CLAMPED_SRC} source at critical: {out['clamp']}")
+    if out["forced"] != (200, "host", 1, 1) or any(forced_launches.values()):
+        raise AssertionError(f"(b) a {OVERSIZE_SRC} source: {out['forced']}, launches "
+                             f"{forced_launches}")
+    log(f"  (b) --pressure-batch-mb {batch_mb:.4f} (config 1 {w1:.4f} wire MB an item, "
+        f"config 3 {w3:.3f}), held at {out['level']} by memory.rss: cap {cap_mb:.4f} MB; "
+        f"{sum(PRESSURE_BURST)} requests in {out['launches']} launches (config 1 chunks "
+        f"{sorted(set(c1_sizes))}, config 3 {sorted(set(c3_sizes))}), "
+        f"pressure_capped_batches {out['capped']}, compile_misses 0, every answer "
+        f"byte-equal to the ungoverned server's; a {CLAMPED_SRC[1]}x{CLAMPED_SRC[0]} "
+        f"source 413 Retry-After 2; /flip of a {OVERSIZE_SRC[1]}x{OVERSIZE_SRC[0]} source "
+        f"200 on the host, pressure_host_forced 1, no kernel launched  [{smi}]")
+    return out
+
+
+def qos_case(smi: str, bodies: dict, launches: dict) -> dict:
+    """(c) --qos-config with an interactive and a batch key splitting phase
+    6's mix (even clients interactive, odd batch) and --max-queue-ms set
+    to trip under that load: per-class p50/p99, dispatched and shed, the
+    share cap's 503s, nothing owed at rest; then the critical rung sheds
+    the batch tenant 503 with Retry-After 2."""
+    import numpy as np
+
+    from imaginary_tpu_torch import kernels
+
+    srv, stop = admission_server([
+        "--qos-config", json.dumps(ADMISSION_QOS),
+        "--max-queue-ms", str(ADMISSION_MAX_QUEUE_MS), "--pressure-rss-mb", "1000000"]
+        + ADMISSION_QOS_LOAD)
+    out: dict = {}
+    try:
+        port = srv.server_address[1]
+        ex = srv.service.executor
+        for path, src, _ in CONFIG2_REQUESTS:  # warm each route
+            http(port, path, bodies[src])
+        reqs = [(path, bodies[src], lambda t: {"API-Key": QOS_KEYS[t % 2]})
+                for path, src, _ in CONFIG2_REQUESTS]
+        kernels.reset_launches()
+        results = []
+        for _ in range(WINDOWS):
+            results.extend(tolerant_load(port, reqs, CLIENTS, PER_CLIENT)[1])
+        add_launches(launches, kernels.launch_counts())
+        by_class: dict = {"interactive": [], "batch": []}
+        sheds: dict = {}
+        for _, t, ms, status, hdrs, body in results:
+            cls = "interactive" if t % 2 == 0 else "batch"
+            if status == 200:
+                by_class[cls].append(ms)
+                continue
+            msg = json.loads(body).get("message", "")
+            if status != 503 or not hdrs.get("Retry-After"):
+                raise AssertionError(f"(c) {cls}: {status} {msg}")
+            sheds[(cls, msg)] = sheds.get((cls, msg), 0) + 1
+        ok = wait_for(lambda: ex.stats.device_owed_mb < 1e-6 and ex.stats.host_inflight == 0,
+                      10.0)
+        classes = srv.service.qos.stats.to_dict()["classes"]
+        out["classes"] = classes
+        out["latency"] = {c: {"served": len(v),
+                              "p50_ms": float(np.percentile(v, 50)) if v else None,
+                              "p99_ms": float(np.percentile(v, 99)) if v else None}
+                          for c, v in by_class.items()}
+        out["sheds"] = {f"{c}: {m}": n for (c, m), n in sheds.items()}
+        out["at_rest"] = (ex.stats.device_owed_mb, ex.stats.host_inflight)
+        # the critical rung: the batch tenant shed, the interactive one served
+        arm_level(srv, "memory.rss=error")
+        try:
+            shed = http_get(port, CONFIG1_GET, {"API-Key": QOS_KEYS[1]})
+            served = http_get(port, CONFIG1_GET, {"API-Key": QOS_KEYS[0]})
+        finally:
+            arm_level(srv, "")
+        out["critical"] = (shed[0], shed[1].get("Retry-After"),
+                           json.loads(shed[2])["message"], served[0])
+    finally:
+        stop()
+    if not ok:
+        raise AssertionError(f"(c) not at rest: owed {out['at_rest']}")
+    share = sum(classes[c]["share_rejected"] for c in classes)
+    shed_n = sum(classes[c]["shed"] for c in classes)
+    if not share or not shed_n:
+        raise AssertionError(f"(c) share_rejected {share}, shed {shed_n}: {classes}")
+    if out["critical"][:2] != (503, "2") or out["critical"][3] != 200 or \
+            "memory pressure" not in out["critical"][2]:
+        raise AssertionError(f"(c) critical: {out['critical']}")
+    for cls in ("interactive", "batch"):
+        lat, c = out["latency"][cls], classes[cls]
+        p50 = f"{lat['p50_ms']:.2f}" if lat["p50_ms"] is not None else "-"
+        p99 = f"{lat['p99_ms']:.2f}" if lat["p99_ms"] is not None else "-"
+        log(f"  (c) {cls:11s}: {lat['served']} served, p50 {p50} ms, p99 {p99} ms; "
+            f"admitted {c['admitted']}, dispatched {c['dispatched']}, shed {c['shed']}, "
+            f"share_rejected {c['share_rejected']}  [{smi}]")
+    log(f"  (c) 503s by class and message: {out['sheds']}; at rest device_owed_mb "
+        f"{out['at_rest'][0]}, host_inflight {out['at_rest'][1]}; at critical the batch "
+        f"tenant 503 Retry-After 2, the interactive 200")
+    return out
+
+
+def chunk_peak_mb(arrs, plans, donate: bool) -> tuple:
+    """(peak MB the caching allocator held above its start during one
+    chunk's launch and drain, its outputs)."""
+    import torch
+
+    from imaginary_tpu_torch.ops import chain
+
+    if DEVICE == "cpu":
+        outs = chain.fetch_batch(chain.launch_batch(arrs, plans, device=DEVICE,
+                                                    donate=donate), arrs, plans)
+        return 0.0, outs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = chain.fetch_batch(chain.launch_batch(arrs, plans, device=DEVICE, donate=donate),
+                             arrs, plans)
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20, outs
+
+
+def last_stage_ms(arr, plan, spec_name: str, bsz: int, region: int) -> dict:
+    """Device time of the chain's last kernel at B=bsz (its input from the
+    chain's own earlier stages at B=1, repeated), writing a fresh output
+    and writing into a donor region of `region` bytes a chunk."""
+    import torch
+
+    x, h, w, dyn = run_stages_until(arr, plan, spec_name, DEVICE)
+    spec = next(st.spec for st in plan.stages if type(st.spec).__name__ == spec_name)
+    rep = (bsz,) + (1,) * (x.dim() - 1)
+    x, h, w = x.repeat(*rep), h.repeat(bsz), w.repeat(bsz)
+    dyn = {k: v.repeat((bsz,) + (1,) * (v.dim() - 1)) for k, v in dyn.items()}
+    fresh, _, _ = spec.apply(x, h, w, dyn, out_u8=True)
+    donor = torch.empty(bsz * region, dtype=torch.uint8, device=x.device)
+    view = donor[:fresh.numel() * fresh.element_size()].view(fresh.dtype).view(fresh.shape)
+    donated, _, _ = spec.apply(x, h, w, dyn, out_u8=True, out=view)
+    if not torch.equal(fresh, donated):
+        raise AssertionError(f"{spec_name} into its donor region differs")
+    if DEVICE == "cpu":
+        return {"fresh_ms": None, "donated_ms": None}
+    return {"fresh_ms": device_ms(lambda: spec.apply(x, h, w, dyn, out_u8=True)),
+            "donated_ms": device_ms(lambda: spec.apply(x, h, w, dyn, out_u8=True, out=view))}
+
+
+def donation_case(smi: str, png: bytes, launches: dict) -> dict:
+    """(d) config 1 and config 3 through servers with --donation on and
+    off: the answers bit-equal, the on server's launches donating; each
+    route's chunk (config 1 at B=16, config 3 at B=8) launched both ways
+    in-process: torch.cuda.max_memory_allocated above the start, outputs
+    bit-equal; K3's and K7's device times writing fresh and donated."""
+    import numpy as np
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.ops import chain as chain_mod
+
+    config3_path = CONFIG3_REQUESTS[0][1]
+    answers: dict = {}
+    donated: dict = {}
+    for mode in ("on", "off"):
+        srv, stop = admission_server(["--donation", mode])
+        try:
+            port = srv.server_address[1]
+            d0 = chain_mod.donation_stats()["donated"]
+            kernels.reset_launches()
+            answers[mode] = [http_get(port, CONFIG1_GET)[2] for _ in range(3)]
+            answers[mode] += [http(port, config3_path, png)[2] for _ in range(2)]
+            add_launches(launches, kernels.launch_counts())
+            donated[mode] = chain_mod.donation_stats()["donated"] - d0
+            enabled = srv.service.health()["executor"]["donation_enabled"]
+        finally:
+            stop()
+        if enabled != (mode == "on"):
+            raise AssertionError(f"(d) --donation {mode}: donation_enabled {enabled}")
+    if answers["on"] != answers["off"]:
+        raise AssertionError("(d) --donation on and off answer differently")
+    if donated["on"] < 5 or donated["off"] != 0:
+        raise AssertionError(f"(d) donated launches: {donated}")
+    chain_mod.set_donation(True)
+    rng = np.random.default_rng(SEED + 16)
+    c1 = main_plan("resize", "yuv420")
+    c3 = pipeline_request(png, CONFIG3_OPS, "rgb")
+    out: dict = {"donated_launches": donated}
+    for name, (arr, plan), spec, region in (
+            ("config1", c1, "ToYuv420Spec", c1[0].nbytes),
+            ("config3", c3, "CompositeSpec",
+             CONFIG3_SRC_BUCKET[0] * CONFIG3_SRC_BUCKET[1] * c3[0].shape[2])):
+        bsz = DONATION_BATCHES[name]
+        arrs = [np.clip(arr.astype(np.int16) + rng.integers(-2, 3, arr.shape), 0,
+                        255).astype(np.uint8) for _ in range(bsz)]
+        plans = [plan] * bsz
+        chunk_peak_mb(arrs, plans, False)  # the allocator's blocks for this shape
+        off_mb, off = chunk_peak_mb(arrs, plans, False)
+        on_mb, on = chunk_peak_mb(arrs, plans, True)
+        if not all(planes_err(a, b) == 0 for a, b in zip(on, off)):
+            raise AssertionError(f"(d) {name}: the donated chunk differs")
+        out[name] = {"batch": bsz, "peak_mb_undonated": off_mb, "peak_mb_donated": on_mb,
+                     **last_stage_ms(arr, plan, spec, bsz, region)}
+        r = out[name]
+        times = ("" if r["fresh_ms"] is None else
+                 f"; its {spec} {r['fresh_ms']:.4f} ms fresh, {r['donated_ms']:.4f} ms "
+                 "into the donor region")
+        log(f"  (d) {name} B={bsz}: peak above start {off_mb:.2f} MB undonated, "
+            f"{on_mb:.2f} MB donated, outputs bit-equal{times}  [{smi}]")
+    log(f"  (d) servers: --donation on donated {donated['on']} launches, off "
+        f"{donated['off']}; config 1 x3 and config 3 x2 answers bit-equal")
+    return out
+
+
+def wire_arena_case(smi: str, launches: dict) -> dict:
+    """(e) WIRE_REQUESTS config 1 requests one at a time (B=1) on a server
+    with --arena-mb: wire_bytes h2d and d2h rise by that many times the
+    staged and the fetched bytes the plan gives, one transfer each way a
+    request; the codec arena reuses its slots under the cap."""
+    import numpy as np
+
+    from imaginary_tpu_torch import kernels
+
+    arr, plan = main_plan("resize", "yuv420")
+
+    def aligned(n: int) -> int:
+        return (n + 15) // 16 * 16
+
+    staged = aligned(arr.nbytes) + 2 * aligned(4) + sum(
+        aligned(np.asarray(v).nbytes) for st in plan.stages for v in st.dyn.values())
+    ohb, owb = plan.out_bucket
+    fetched = (ohb + ohb // 2) * owb
+    srv, stop = admission_server(["--arena-mb", str(ARENA_MB)])
+    try:
+        port = srv.server_address[1]
+        http_get(port, CONFIG1_GET)
+        h0 = srv.service.health()
+        kernels.reset_launches()
+        for _ in range(WIRE_REQUESTS):
+            if http_get(port, CONFIG1_GET)[0] != 200:
+                raise AssertionError("(e) config 1 failed")
+        add_launches(launches, kernels.launch_counts())
+        h1 = srv.service.health()
+    finally:
+        stop()
+    e0, e1 = h0["executor"], h1["executor"]
+    got = {d: e1["wire_bytes"][d] - e0["wire_bytes"][d] for d in ("h2d", "d2h")}
+    n = {d: e1["wire_transfers"][d] - e0["wire_transfers"][d] for d in ("h2d", "d2h")}
+    want = {"h2d": WIRE_REQUESTS * staged, "d2h": WIRE_REQUESTS * fetched}
+    if got != want or n != {"h2d": WIRE_REQUESTS, "d2h": WIRE_REQUESTS}:
+        raise AssertionError(f"(e) wire bytes {got} ({n} transfers), the plan's {want}")
+    a0, a1 = h0["arena"], h1["arena"]
+    reuses = a1["reuses"] - a0["reuses"]
+    if reuses <= 0 or a1["cap_bytes"] != int(ARENA_MB * 2**20):
+        raise AssertionError(f"(e) arena {a0} -> {a1}")
+    log(f"  (e) {WIRE_REQUESTS} config 1 requests at B=1: wire h2d {got['h2d']} B "
+        f"({staged} staged a request), d2h {got['d2h']} B ({fetched} fetched), one "
+        f"transfer each way a request; arena reuses +{reuses}, misses "
+        f"+{a1['misses'] - a0['misses']}, {a1['bytes']} B held, cap {a1['cap_bytes']} B  "
+        f"[{smi}]")
+    return {"staged": staged, "fetched": fetched, "wire_bytes": got, "transfers": n,
+            "arena": a1, "arena_reuses": reuses}
+
+
+def drain_case(smi: str) -> dict:
+    """(f) SIGTERM a ServerProcess (--prewarm) under DRAIN_CLIENTS keep-alive
+    clients of config 1 and one /health poller: after the signal, every
+    answer an in-flight 200 or a 503 with Retry-After, at least one 503,
+    /health 200 on every answer until the process exits 0."""
+    import http.client
+    import signal
+
+    srv = ServerProcess("drain", ["--prewarm"])
+    port = srv.port
+    stop = threading.Event()
+    lock = threading.Lock()
+    answers: list = []
+    health: list = []
+
+    def conn():
+        return http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+
+    def loop(path: str, sink: list, pause: float):
+        c = conn()
+        while not stop.is_set():
+            try:
+                c.request("GET", path)
+                r = c.getresponse()
+                r.read()
+                with lock:
+                    sink.append((time.monotonic(), r.status, r.getheader("Retry-After")))
+            except (OSError, http.client.HTTPException) as e:
+                with lock:
+                    sink.append((time.monotonic(), type(e).__name__, None))
+                c.close()
+                if isinstance(e, ConnectionRefusedError):
+                    return
+                c = conn()
+            time.sleep(pause)
+
+    threads = [threading.Thread(target=loop, args=(CONFIG1_GET, answers, 0.0))
+               for _ in range(DRAIN_CLIENTS)]
+    threads.append(threading.Thread(target=loop, args=("/health", health, 0.02)))
+    try:
+        for th in threads:
+            th.start()
+        time.sleep(DRAIN_LOAD_S)
+        t_sig = time.monotonic()
+        srv.proc.send_signal(signal.SIGTERM)
+        srv.proc.wait(timeout=30)
+        t_exit = time.monotonic()
+        time.sleep(0.3)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(timeout=60)
+        srv.stop()
+    before = [a for a in answers if a[0] < t_sig]
+    after = [a for a in answers if t_sig <= a[0] <= t_exit]
+    shed = [a for a in after if a[1] == 503]
+    bad = [a for a in before if a[1] != 200]
+    bad += [a for a in after if not (a[1] == 200 or (a[1] == 503 and a[2]))
+            and not isinstance(a[1], str)]
+    health_alive = [h for h in health if h[0] <= t_exit and not isinstance(h[1], str)]
+    if bad or not shed or any(h[1] != 200 for h in health_alive) or srv.proc.returncode != 0:
+        raise AssertionError(f"(f) drain: {len(bad)} bad answers {bad[:3]}, {len(shed)} "
+                             f"503s, /health {set(h[1] for h in health_alive)}, exit "
+                             f"{srv.proc.returncode}")
+    retry = sorted({a[2] for a in shed})
+    log(f"  (f) SIGTERM under {DRAIN_CLIENTS} clients: {len(before)} answers 200 before; "
+        f"{len(after)} in the {t_exit - t_sig:.2f} s to exit: "
+        f"{sum(1 for a in after if a[1] == 200)} in-flight 200, {len(shed)} 503 "
+        f"Retry-After {retry}; /health 200 on all {len(health_alive)} polls until exit; "
+        f"exit 0  [{smi}]")
+    return {"before": len(before), "after": len(after), "shed": len(shed),
+            "health_polls": len(health_alive), "exit_s": t_exit - t_sig,
+            "retry_after": retry}
+
+
+def admission_phase(smi: str, png: bytes) -> dict:
+    """Phase 15 (see the module docstring): (a)-(f), each server from the
+    port's command line with --prewarm; `launches` sums the kernel
+    launches of the paths each case drives."""
+    with open(LARGE_JPG, "rb") as f, open(EXIF6_JPG, "rb") as g:
+        bodies = {LARGE_JPG: f.read(), EXIF6_JPG: g.read()}
+    t0 = time.perf_counter()
+    launches: dict = {}
+    out: dict = {}
+    seconds: dict = {}
+    cont = admission_server(ADMISSION_BATCHING)
+    try:
+        for name, case in (("convoy", lambda: convoy_case(smi, bodies, cont, launches)),
+                           ("pressure", lambda: pressure_case(smi, png, cont, launches))):
+            t = time.perf_counter()
+            out[name] = case()
+            seconds[name] = time.perf_counter() - t
+    finally:
+        cont[1]()
+    for name, case in (("qos", lambda: qos_case(smi, bodies, launches)),
+                       ("donation", lambda: donation_case(smi, png, launches)),
+                       ("wire_arena", lambda: wire_arena_case(smi, launches)),
+                       ("drain", lambda: drain_case(smi))):
+        t = time.perf_counter()
+        out[name] = case()
+        seconds[name] = time.perf_counter() - t
+    out["launches"] = {k: launches.get(k, 0) for k in KERNEL_ROWS}
+    out["seconds"] = {"total": time.perf_counter() - t0, **seconds}
+    log(f"  phase 15: {out['seconds']['total']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5565,6 +6347,7 @@ def main() -> int:
     config2_kernel_phase(rng, report["kernels"])
     config3_kernel_phase(report["kernels"])
     pack_gray_phase(report["kernels"])
+    out_param_phase(report["kernels"])
     seams_phase(report["kernels"])
     config4_kernel_phase(report["kernels"])
     dct_kernel_phase(report["kernels"])
@@ -5614,6 +6397,9 @@ def main() -> int:
     log("== phase 14: the fault domain and the host placement (integrity, OOM, the "
         "drain watchdog, hedging, fail-slow, --force-host)")
     report["fault_domain"] = fault_domain_phase(smi)
+    log("== phase 15: the executor's admission half (convoy, the governor's byte cap, "
+        "qos, donation, WIRE and the arena, the drain)")
+    report["admission"] = admission_phase(smi, png)
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -5647,6 +6433,7 @@ def main() -> int:
             "launches_prewarm": report["prewarm"]["launches"][name],
             "launches_prewarm_dct": report["prewarm"]["dct"]["launches"][name],
             "launches_golden": report["golden"]["launches"][name],
+            "launches_admission": report["admission"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -7,7 +7,9 @@ reference's defaults. Every flag reads its default from
 PORT, URL_SIGNATURE_KEY and LOG_LEVEL still win, as in the reference.
 `--device` is the port's own: the torch device of the kernels, and
 `--host-spill` defaults to off where the reference's defaults to auto
-(the card serves every request unless asked otherwise). The
+(the card serves every request unless asked otherwise). `--dct-native`
+offers the port's two arms (native, python) and auto; the reference's
+numpy arm is not ported. The
 server runs on the card: without CUDA it refuses to start unless
 `--device cpu` asks for the CPU, and `--require-device` refuses anything
 but a CUDA device.
@@ -152,6 +154,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "enforced at every hop (admission, fetch, queue, "
                         "execute, encode); also the clamp ceiling for the "
                         "X-Request-Timeout header; 0 disables")
+    # admission (web/handlers.py): the depth gate, graded per qos class
+    p.add_argument("--max-queue-ms", type=float,
+                   default=_env_float("IMAGINARY_TPU_MAX_QUEUE_MS", 0.0),
+                   help="shed load (503) when estimated queueing delay "
+                        "exceeds this; 0 disables")
     # the retry policy of remote sources (web/sources.py)
     p.add_argument("--source-retries", type=int,
                    default=_env_int("IMAGINARY_TPU_SOURCE_RETRIES", 2),
@@ -164,17 +171,83 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--source-read-timeout", type=float,
                    default=_env_float("IMAGINARY_TPU_SOURCE_READ_TIMEOUT", 30.0),
                    help="per-attempt origin total read timeout in seconds")
+    # the memory-pressure governor (engine/pressure.py); off by default
+    p.add_argument("--pressure-rss-mb", type=float,
+                   default=_env_float("IMAGINARY_TPU_PRESSURE_RSS_MB", 0.0),
+                   help="RSS ceiling in MB for the memory-pressure "
+                        "governor: elevated at 75%%, critical at 90%% "
+                        "(see --pressure-*-frac); drives the brownout "
+                        "ladder (oversize-to-host, batch byte cap, batch "
+                        "shed, pixel clamp); 0 disables the subsystem")
+    p.add_argument("--pressure-hbm-mb", type=float,
+                   default=_env_float("IMAGINARY_TPU_PRESSURE_HBM_MB", 0.0),
+                   help="estimated device-memory budget in MB (fed by the "
+                        "executor's owed wire-byte ledger); 0 skips the "
+                        "device signal")
+    p.add_argument("--pressure-elevated-frac", type=float,
+                   default=_env_float("IMAGINARY_TPU_PRESSURE_ELEVATED_FRAC", 0.75),
+                   help="fraction of a limit at which pressure reads "
+                        "'elevated'")
+    p.add_argument("--pressure-critical-frac", type=float,
+                   default=_env_float("IMAGINARY_TPU_PRESSURE_CRITICAL_FRAC", 0.90),
+                   help="fraction of a limit at which pressure reads "
+                        "'critical'")
+    p.add_argument("--pressure-batch-mb", type=float,
+                   default=_env_float("IMAGINARY_TPU_PRESSURE_BATCH_MB", 32.0),
+                   help="admitted device-batch wire-MB cap under pressure "
+                        "(halved at critical); 0 never caps")
+    p.add_argument("--pressure-oversize-mpix", type=float,
+                   default=_env_float("IMAGINARY_TPU_PRESSURE_OVERSIZE_MPIX", 4.0),
+                   help="source megapixels at which batch-class work is "
+                        "forced to the host interpreter under elevated "
+                        "pressure")
+    p.add_argument("--pressure-pixel-frac", type=float,
+                   default=_env_float("IMAGINARY_TPU_PRESSURE_PIXEL_FRAC", 0.25),
+                   help="fraction of --max-allowed-resolution the critical "
+                        "rung's pixel-admission clamp allows (source and "
+                        "requested output dims)")
+    # multi-tenant qos (qos/); off by default
+    p.add_argument("--qos-config",
+                   default=os.environ.get("IMAGINARY_TPU_QOS_CONFIG", ""),
+                   help="multi-tenant QoS policy: inline JSON (starts "
+                        "with '{') or a file path; tenants carry a class "
+                        "(interactive|standard|batch), rate/burst "
+                        "overrides, and a max queue share; empty disables "
+                        "qos")
     # the executor (engine/executor.py)
+    p.add_argument("--batch-window-ms", type=float,
+                   default=_env_float("IMAGINARY_TPU_BATCH_WINDOW_MS", 3.0),
+                   help="micro-batch window (convoy policy only)")
     p.add_argument("--max-batch", type=int,
                    default=_env_int("IMAGINARY_TPU_MAX_BATCH", MAX_BATCH),
                    help="micro-batch size cap")
+    p.add_argument("--batch-policy",
+                   default=_env_str("IMAGINARY_TPU_BATCH_POLICY", "continuous"),
+                   choices=["continuous", "convoy"],
+                   help="batch formation policy: continuous admits "
+                        "arrivals into the next in-flight chunk "
+                        "(formation capped at --batch-form-ms); convoy is "
+                        "the legacy accumulate-until-the-link-idles policy")
     p.add_argument("--batch-form-ms", type=float,
                    default=_env_float("IMAGINARY_TPU_BATCH_FORM_MS", 5.0),
                    help="max milliseconds an item may wait for its chunk to "
                         "close (the batch-formation latency cap)")
     p.add_argument("--max-inflight", type=int,
                    default=_env_int("IMAGINARY_TPU_MAX_INFLIGHT", 4),
-                   help="device chunks launched but not yet fetched")
+                   help="device groups launched but not yet fetched")
+    p.add_argument("--donation",
+                   default=_env_str("IMAGINARY_TPU_DONATION", "on"),
+                   choices=["on", "off"],
+                   help="write each chunk's last kernel output into its "
+                        "staged input buffer on the card when it fits "
+                        "(ops/chain.py); off always allocates the output")
+    p.add_argument("--arena-mb", type=float,
+                   default=_env_float("IMAGINARY_TPU_ARENA_MB", 0.0),
+                   help="per-thread native codec scratch-arena budget in "
+                        "MB: worker threads reuse decode/resize/encode "
+                        "scratch at its high-water size, an over-budget "
+                        "thread drops its arena after the call (0 = "
+                        "unlimited)")
     # multi-GPU serving (engine/lanes.py) and the spatial route
     p.add_argument("--devices", type=int,
                    default=_env_int("IMAGINARY_TPU_DEVICES", 0),
@@ -228,6 +301,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "quantized DCT coefficients: the device runs the "
                         "forward DCT + quantization and the host only "
                         "entropy-codes (requires --transport-dct)")
+    p.add_argument("--dct-native", choices=("auto", "native", "python"),
+                   default=os.environ.get("IMAGINARY_TPU_DCT_NATIVE", "auto"),
+                   help="entropy-decoder arm for the dct transport: the "
+                        "native C kernel, the pure-python oracle, or auto "
+                        "(native if built, else python)")
     # placement and the card's fault domain (engine/executor.py)
     p.add_argument("--host-spill",
                    default=_env_str("IMAGINARY_TPU_HOST_SPILL", "off"),
@@ -330,6 +408,14 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         raise SystemExit(f"mount directory does not exist: {args.mount}")
     if args.http_cache_ttl < -1 or args.http_cache_ttl > 31556926:
         raise SystemExit("The -http-cache-ttl flag only accepts a value from 0 to 31556926")
+    if args.qos_config:
+        # a malformed policy fails the boot loudly, never serves unisolated
+        from imaginary_tpu_torch.qos.tenancy import load_policy
+
+        try:
+            load_policy(args.qos_config)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     return ServerOptions(
         port=port,
         address=args.addr,
@@ -365,10 +451,23 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         source_read_timeout_s=max(0.001, args.source_read_timeout),
         request_timeout_s=max(0.0, args.request_timeout),
         prewarm=args.prewarm,
+        max_queue_ms=max(0.0, args.max_queue_ms),
+        qos_config=args.qos_config,
+        pressure_rss_mb=max(0.0, args.pressure_rss_mb),
+        pressure_hbm_mb=max(0.0, args.pressure_hbm_mb),
+        pressure_elevated_frac=min(1.0, max(0.01, args.pressure_elevated_frac)),
+        pressure_critical_frac=min(1.0, max(0.01, args.pressure_critical_frac)),
+        pressure_batch_mb=max(0.0, args.pressure_batch_mb),
+        pressure_oversize_mpix=max(0.0, args.pressure_oversize_mpix),
+        pressure_pixel_frac=min(1.0, max(0.01, args.pressure_pixel_frac)),
         device=args.device,
+        batch_window_ms=args.batch_window_ms,
         max_batch=args.max_batch,
+        batch_policy=args.batch_policy,
         batch_form_ms=max(0.0, args.batch_form_ms),
         max_inflight=max(1, args.max_inflight),
+        donation=args.donation != "off",
+        arena_mb=max(0.0, args.arena_mb),
         mesh_policy=args.mesh_policy,
         n_devices=max(0, args.devices),
         lane_form_ms=args.lane_form_ms if args.lane_form_ms >= 0 else None,
@@ -378,6 +477,7 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         spatial_mpix=max(0.0, args.spatial_mpix),
         transport_dct=args.transport_dct,
         transport_dct_egress=args.transport_dct_egress,
+        dct_native=args.dct_native,
         host_spill={"auto": None, "on": True, "off": False}[args.host_spill],
         force_host=args.force_host,
         host_dct_spill=args.host_dct_spill != "off",

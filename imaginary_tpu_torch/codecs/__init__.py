@@ -296,14 +296,31 @@ def set_decode_pixel_cap(mpix: float):
 def _bomb_gate(buf: bytes, t: ImageType) -> None:
     """Reject a decode whose DECLARED dimensions exceed the armed cap,
     before any frame is allocated (413: the payload demands more memory
-    than this server will commit)."""
+    than this server will commit). The `codec.bomb` failpoint rejects
+    the decode the same way."""
+    from imaginary_tpu_torch import failpoints
+
+    try:
+        failpoints.hit("codec.bomb")
+    except Exception as e:  # noqa: BLE001 - any injected fault is the 413
+        raise CodecError(f"image rejected by decode bomb guard: {e}", 413) from None
+    bomb_gate_prefix(buf)
+
+
+def bomb_gate_prefix(buf) -> None:
+    """The dimension check alone, on a whole body or a streamed body's
+    header prefix (the reference's codecs.bomb_gate_prefix): web/sources.py
+    runs it as soon as the first 64 KB land, so an over-cap upload is
+    refused 413 while its body is still on the wire. A no-op while the cap
+    is disarmed or the header does not parse (the decoder then raises the
+    user-facing error)."""
     cap = _DECODE_PIXEL_CAP.get()
     if cap <= 0.0:
         return
     try:
-        m = probe_fast(buf)
+        m = probe_fast(buf if isinstance(buf, bytes) else bytes(buf))
     except ImageError:
-        return  # unparseable header: the decoder raises the user-facing error
+        return
     if m.width * m.height / 1_000_000.0 > cap:
         raise CodecError(
             f"image dimensions {m.width}x{m.height} exceed the "

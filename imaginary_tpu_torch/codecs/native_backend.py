@@ -25,6 +25,9 @@ _LOCK = threading.Lock()
 # the host resampler's module (native/resample.cpp): None = not yet
 # loaded, False = its build failed here
 _RESAMPLE = None
+# the per-thread scratch-arena cap in MB (--arena-mb), applied to each
+# module as it loads
+_ARENA_CAP_MB = 0.0
 
 
 def extension():
@@ -36,11 +39,9 @@ def extension():
                 from imaginary_tpu_torch.native import build
 
                 path, _, _ = build.build()
-                name = build.MODULE
-                loader = importlib.machinery.ExtensionFileLoader(name, path)
-                spec = importlib.util.spec_from_file_location(name, path, loader=loader)
-                mod = importlib.util.module_from_spec(spec)
-                loader.exec_module(mod)
+                mod = _load(build.MODULE, path)
+                if _ARENA_CAP_MB:
+                    mod.set_arena_cap(_ARENA_CAP_MB)
                 _EXT = mod
     return _EXT
 
@@ -64,10 +65,44 @@ def _resample_ext():
 
                 try:
                     path, _ = build.build_resample()
-                    _RESAMPLE = _load(build.RESAMPLE_MODULE, path)
+                    mod = _load(build.RESAMPLE_MODULE, path)
                 except (RuntimeError, OSError, ImportError):
                     _RESAMPLE = False
+                else:
+                    if _ARENA_CAP_MB:
+                        mod.set_arena_cap(_ARENA_CAP_MB)
+                    _RESAMPLE = mod
     return _RESAMPLE or None
+
+
+def arena_stats():
+    """The scratch-arena counters (reuses, misses, evictions, bytes,
+    cap_bytes) of the codec module (loaded here, as the reference's is at
+    import) and, once it is loaded, the host resampler's, summed: each
+    module keeps its own thread-local arenas. None when the codec module
+    cannot be built."""
+    try:
+        mods = [extension()]
+    except (RuntimeError, OSError, ImportError):
+        return None
+    if _RESAMPLE:
+        mods.append(_RESAMPLE)
+    out: dict = {}
+    for mod in mods:
+        for k, v in mod.arena_stats().items():
+            out[k] = v if k == "cap_bytes" else out.get(k, 0) + v
+    return out
+
+
+def set_arena_cap(mb: float) -> bool:
+    """Set the per-thread scratch-arena cap in MB (0 = unlimited) on every
+    native module, now and as each loads. True once it is recorded."""
+    global _ARENA_CAP_MB
+    _ARENA_CAP_MB = max(0.0, float(mb))
+    for mod in (_EXT, _RESAMPLE):
+        if mod:
+            mod.set_arena_cap(_ARENA_CAP_MB)
+    return True
 
 
 def resample_available() -> bool:

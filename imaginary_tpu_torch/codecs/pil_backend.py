@@ -9,6 +9,7 @@ failure). Decoding is RAW: EXIF orientation is reported, not applied.
 from __future__ import annotations
 
 import io
+import struct
 
 import numpy as np
 from PIL import Image, ImageFile
@@ -154,13 +155,32 @@ def _save_gif(im: Image.Image, arr: np.ndarray, out: io.BytesIO) -> None:
     gif.save(out, "GIF", transparency=tidx)
 
 
+def _declared_dims(buf: bytes, t: ImageType):
+    """(width, height) a PNG's IHDR or a GIF's logical screen declares,
+    or None: what a header-only probe reads where Pillow refuses to open
+    the image (its own bomb limit, or a stream with no frame)."""
+    if t is ImageType.PNG and len(buf) >= 24 and buf[12:16] == b"IHDR":
+        return struct.unpack(">II", buf[16:24])
+    if t is ImageType.GIF and len(buf) >= 10:
+        return struct.unpack("<HH", buf[6:10])
+    return None
+
+
 def probe(buf: bytes, t: ImageType) -> ImageMetadata:
     """Dims, alpha and orientation from the header: Image.open parses
-    metadata lazily and nothing here loads pixels."""
+    metadata lazily and nothing here loads pixels. A PNG or GIF that
+    Pillow will not open still reports the dims its header declares, as
+    the reference's header probe does (a decompression bomb is then
+    refused by the resolution guard, not by a decode error)."""
     try:
         im = Image.open(io.BytesIO(buf))
     except Exception as e:
-        raise CodecError(f"Cannot retrieve image metadata: {e}", 400) from None
+        dims = _declared_dims(buf, t)
+        if dims is None:
+            raise CodecError(f"Cannot retrieve image metadata: {e}", 400) from None
+        return ImageMetadata(width=dims[0], height=dims[1], type=t.value, space="srgb",
+                             has_alpha=False, has_profile=False, channels=3,
+                             orientation=0)
     has_alpha = _has_alpha(im)
     return ImageMetadata(
         width=im.width,

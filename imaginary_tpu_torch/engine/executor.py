@@ -8,14 +8,45 @@ channels) and launches each group as one batched chain on the device
 thread waits for each launched chunk's copy back to host memory, slices
 the per-image outputs and resolves the futures.
 
-Batch formation is the reference's "continuous" policy: a chunk closes
-the moment it holds `max_batch` items or its oldest item has waited the
-formation cap (`max_form_ms`), and launches at once. Items that arrive
-meanwhile form the next chunk, which is launched while earlier chunks
-still compute and copy back. The bounded fetch queue
-(`max_inflight`) is the only backpressure. Each item's wait splits into
-`batch_form` (submit -> chunk close) and `dispatch_wait` (chunk close ->
-launch); `queue_wait` is their sum (`engine/timing.py`).
+Batch formation follows the reference's two policies, `batch_policy`:
+
+  * "continuous" (the default): a chunk closes the moment it holds
+    `max_batch` items or its oldest item has waited the formation cap
+    (`max_form_ms`; None derives it from `window_ms`), and launches at
+    once. Items that arrive meanwhile form the next chunk, which is
+    launched while earlier chunks still compute and copy back. The
+    bounded fetch queue (`max_inflight`) is the only backpressure.
+  * "convoy" (the reference's legacy policy, kept for A/B runs): a group
+    of up to `max_group` items dispatches when its oldest item has
+    waited `window_ms` and the link is idle (no launched group whose
+    chunks have not all drained: `_inflight`, counted from the fetch
+    queue's put to the end of the group's drain, so a chunk whose CUDA
+    event has not completed keeps the link busy), or at `max_hold_ms`.
+    Its formation cap is infinite: the whole wait is batch_form.
+
+A group is launched as chunks of at most `max_batch` items (and, under
+memory pressure, at most the governor's batch byte cap: `_chunk_for_launch`,
+counted in `pressure_capped_batches`), all drained by one fetch, so
+`groups` < `batches` under convoy or the cap. The lanes keep the
+continuous policy and never apply the byte cap, as in the reference.
+Each item's wait splits into `batch_form` (submit -> chunk close) and
+`dispatch_wait` (chunk close -> launch); `queue_wait` is their sum
+(`engine/timing.py`).
+
+Admission (the reference's executor.py:535-541, :830-913, :985-995):
+with a qos policy (`qos`, qos/tenancy.QosPolicy) the FIFO intake queue is
+the class-aware `qos/sched.FairScheduler` (strict priority with aging, EDF
+within a class on the request's deadline, per-tenant share caps), each
+item stamped in `submit` with `request_qos`; a share cap's rejection
+cancels the item (refunding its owed MB) and raises the 503. With a
+memory-pressure governor (`pressure`, engine/pressure.MemoryGovernor), a
+batch-class (or, with qos off, any) item of at least `oversize_mpix`
+source megapixels is forced to the host interpreter at elevated pressure
+or worse, through the spill branch, counted in `pressure_host_forced`
+and marked `X-Imaginary-Backend: host` (asked for by --pressure-rss-mb,
+so it holds whatever `host_spill` says); the governor reads the
+executor's host and device ledgers (`bind_sources`). Batch-class items
+are never hedged.
 
 Multi-GPU serving (`mesh_policy` other than "off"; the reference's lane
 tier, executor.py:1702-2060): every entry of the device mesh gets a lane
@@ -107,10 +138,9 @@ global dispatch), `device.chip_error`, `device.oom` and `device.slow`
 (each drained chunk and the golden probe) and `host.spill` (the spill
 branch) are ported.
 
-Not ported yet: the pressure governor's branch of `submit` and its
-batch byte cap, qos, the convoy policy, `use_mesh` batch sharding,
-multi-host, and the per-key refinement of the device price (the port
-prices the owed ledger by one measured rate).
+Not ported yet: `use_mesh` batch sharding, multi-host, and the per-key
+refinement of the device price (the port prices the owed ledger by one
+measured rate).
 """
 
 from __future__ import annotations
@@ -135,7 +165,7 @@ from imaginary_tpu_torch.engine.devhealth import (
     CorruptionError,
     DeviceHealthRegistry,
 )
-from imaginary_tpu_torch.engine.timing import COPIES, LANE_TIMES, TIMES, attribute
+from imaginary_tpu_torch.engine.timing import COPIES, LANE_TIMES, TIMES, WIRE, attribute
 from imaginary_tpu_torch.obs import trace as obs_trace
 from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.ops.buckets import bucket_shape, tight_dim
@@ -144,6 +174,13 @@ from imaginary_tpu_torch.parallel.mesh import get_mesh, healthy_mesh
 
 # The micro-batch chunk cap: the CLI default derives from it.
 MAX_BATCH = 16
+
+# qos.CLASS_INDEX["batch"]: batch-class work is never hedged and is the
+# class the pressure rung forces to the host (kept literal, as in the
+# reference, so this module does not import qos)
+_BATCH_CLASS = 2
+
+BATCH_POLICIES = ("continuous", "convoy")
 
 
 def batch_ladder(max_batch: int = MAX_BATCH) -> tuple:
@@ -164,9 +201,16 @@ PROBE_TIMEOUT_S = 30.0
 
 @dataclasses.dataclass
 class ExecutorConfig:
+    window_ms: float = 3.0  # convoy window; the formation cap when max_form_ms is None
     max_batch: int = MAX_BATCH  # items per device launch
-    max_inflight: int = 4  # chunks launched but not yet fetched
-    max_form_ms: float = 5.0  # formation cap (--batch-form-ms)
+    max_group: int = 64  # convoy: one fetch drains up to this many items
+    max_hold_ms: float = 250.0  # convoy: age cap even while the link is busy
+    max_inflight: int = 4  # groups launched but not yet fetched
+    # "continuous" or "convoy" (module docstring)
+    batch_policy: str = "continuous"
+    # continuous formation cap (--batch-form-ms); None derives it from
+    # window_ms, as in the reference
+    max_form_ms: Optional[float] = None
     device: str = "cuda"
     # Multi-GPU serving (module docstring): "off" (the default, one
     # collector/fetcher pair on `device`), "lanes" (one lane per mesh
@@ -232,6 +276,12 @@ class ExecutorConfig:
     failslow_ratio: float = 0.0
     failslow_min_samples: int = 8
     failslow_share: float = 0.0
+    # Multi-tenant qos (qos/tenancy.QosPolicy): the fair-scheduler intake;
+    # None keeps the plain FIFO queue.
+    qos: Optional[object] = None
+    # Memory-pressure governor (engine/pressure.MemoryGovernor): the batch
+    # byte cap and the oversize-to-host rung; None runs no pressure check.
+    pressure: Optional[object] = None
 
 
 @dataclasses.dataclass
@@ -270,6 +320,8 @@ class ExecutorStats:
     oom_splits: int = 0  # bisections performed
     oom_host_routed: int = 0  # items that did not fit alone, host-served
     oom_failed: int = 0  # items bisection could not serve anywhere
+    pressure_host_forced: int = 0  # oversize items forced to the host (elevated rung)
+    pressure_capped_batches: int = 0  # launches added by the batch byte cap
     device_ms_per_mb: float = 0.0  # the measured device price
     host_ms_per_mpix: float = 0.0  # the measured host price
     host_inflight: int = 0  # items on the host interpreter right now
@@ -280,6 +332,8 @@ class ExecutorStats:
         form_times = snap.get("batch_form")
         disp_times = snap.get("dispatch_wait")
         spill_times = snap.get("host_spill")
+        wire = WIRE.snapshot()
+        donation = chain_mod.donation_stats()
         out = {
             "items": self.items,
             "batches": self.batches,
@@ -294,6 +348,8 @@ class ExecutorStats:
             "batch_form_p99_ms": form_times["p99_ms"] if form_times else 0.0,
             "dispatch_wait_p50_ms": disp_times["p50_ms"] if disp_times else 0.0,
             "dispatch_wait_p99_ms": disp_times["p99_ms"] if disp_times else 0.0,
+            "donation_enabled": donation["enabled"],
+            "donation_rejected": donation["rejected"],
             "spilled": self.spilled,
             "spill_errors": self.spill_errors,
             "device_failures": self.device_failures,
@@ -312,6 +368,8 @@ class ExecutorStats:
             "oom_splits": self.oom_splits,
             "oom_host_routed": self.oom_host_routed,
             "oom_failed": self.oom_failed,
+            "pressure_host_forced": self.pressure_host_forced,
+            "pressure_capped_batches": self.pressure_capped_batches,
             "device_owed_mb": round(self.device_owed_mb, 3),
             "device_ms_per_mb": round(self.device_ms_per_mb, 3),
             "host_ms_per_mpix": round(self.host_ms_per_mpix, 3),
@@ -319,7 +377,14 @@ class ExecutorStats:
             "host_owed_mpix": round(self.host_owed_mpix, 3),
             "host_spill_p50_ms": spill_times["p50_ms"] if spill_times else 0.0,
             "host_spill_p99_ms": spill_times["p99_ms"] if spill_times else 0.0,
+            # the link ledger (engine/timing.WIRE), nested so /metrics
+            # renders imaginary_tpu_wire_bytes_total{direction=}
+            "wire_bytes": {"h2d": wire["h2d"], "d2h": wire["d2h"]},
+            "wire_transfers": {"h2d": wire["h2d_transfers"],
+                               "d2h": wire["d2h_transfers"]},
         }
+        if "by_device" in wire:
+            out["wire_bytes_by_device"] = wire["by_device"]
         # the byte-touch ledger by stage (engine/timing.COPIES)
         copies = COPIES.snapshot()
         out["copied_bytes"] = copies["bytes"]
@@ -381,12 +446,15 @@ def _available_cpus() -> int:
 
 class _Item:
     __slots__ = ("arr", "plan", "future", "key", "t", "t_close", "wire_mb",
-                 "mpix", "trace", "lane", "hops", "stage_ms")
+                 "mpix", "qos", "trace", "lane", "hops", "stage_ms")
 
     def __init__(self, arr: np.ndarray, plan: ImagePlan):
         self.arr = arr
         self.plan = plan
         self.future: Future = Future()
+        # (tenant, class index, max_share, deadline_t), stamped by submit()
+        # with a qos policy; None rides the FIFO path
+        self.qos = None
         if plan.in_bucket is not None:  # packed transport: pre-padded array
             hb, wb = plan.in_bucket
             in_h, in_w = plan.in_h, plan.in_w
@@ -425,6 +493,9 @@ class Executor:
         self.config = config or ExecutorConfig()
         if self.config.max_batch < 1:
             raise ValueError("max_batch must be at least 1")
+        if self.config.batch_policy not in BATCH_POLICIES:
+            raise ValueError(f"unknown batch policy {self.config.batch_policy!r} "
+                             f"(one of {', '.join(BATCH_POLICIES)})")
         if self.config.host_spill is None:  # "auto": the cost model decides
             self.config = dataclasses.replace(self.config, host_spill=True)
         if self.config.spatial_mpix > 0.0:
@@ -447,11 +518,22 @@ class Executor:
         self._lane_lock = threading.Lock()  # serialises topology refreshes
         self._lanes_devhealth_gen = 0
         self._mesh_generation = 0
-        self._queue: queue_mod.Queue = queue_mod.Queue()
+        if self.config.qos is not None:
+            # the class-aware intake: queue.Queue's surface, so the
+            # collectors are policy-agnostic
+            from imaginary_tpu_torch.qos.sched import FairScheduler
+
+            self._queue = FairScheduler(self.config.qos)
+        else:
+            self._queue = queue_mod.Queue()
         self._fetch_queue: queue_mod.Queue = queue_mod.Queue(
             maxsize=max(1, self.config.max_inflight))
         self._lock = threading.Lock()  # guards _closed, the ledgers and the stats
         self._closed = False
+        # groups launched on the global pair whose chunks have not all
+        # drained (their CUDA events not all completed): the convoy's
+        # link-idle test reads it
+        self._inflight = 0
         self._stop = threading.Event()  # ends the watchdog
         # drain ms per wire MB (EWMA over drained chunks): prices the owed
         # ledger for estimated_wait_ms and the spill test; the prewarm's
@@ -480,6 +562,14 @@ class Executor:
         self._drain_state = None
         self._fetch_gen = 0
         self.integrity = self.config.integrity
+        if self.config.pressure is not None:
+            # the governor was built before this executor: hand it the
+            # occupancy signals it samples (host megapixels at ~12 B/px of
+            # f32 RGB scratch, device wire MB at ~4x for the f32
+            # intermediates), as the reference's executor does
+            self.config.pressure.bind_sources(
+                host_mb_fn=lambda: self.stats.host_owed_mpix * 12.0,
+                device_mb_fn=lambda: self.stats.device_owed_mb * 4.0)
         self._devices: list = [torch.device(self.config.device)]
         if self._mesh_policy != "off":
             # may refuse the mesh before any thread starts; replaces
@@ -498,8 +588,10 @@ class Executor:
                 # request is its re-admission probe otherwise
                 self.devhealth.start_probing(self._probe_device,
                                              timeout_s=PROBE_TIMEOUT_S)
-        self._thread = threading.Thread(target=self._collect_continuous,
-                                        name="itpu-collector", daemon=True)
+        collect = (self._collect_convoy if self.config.batch_policy == "convoy"
+                   else self._collect_continuous)
+        self._thread = threading.Thread(target=collect, name="itpu-collector",
+                                        daemon=True)
         self._fetcher = threading.Thread(target=self._fetch_loop, args=(0,),
                                          name="itpu-fetcher", daemon=True)
         self._thread.start()
@@ -532,6 +624,13 @@ class Executor:
         the host before it queues."""
         failpoints.hit("executor.submit")
         item = _Item(arr, plan)
+        if self.config.qos is not None:
+            # tenant, class and deadline from the request's trace (the
+            # pool thread's copied context), before the spill branch so a
+            # shadow probe inherits them
+            from imaginary_tpu_torch.qos.tenancy import request_qos
+
+            item.qos = request_qos(self.config.qos)
         item.trace = obs_trace.current()
         if last_placement() != "host":  # a request's host answer stays marked
             _PLACEMENT.value = "device"
@@ -580,25 +679,45 @@ class Executor:
                 item.future.set_result(out)
                 return item.future
         forced = self.config.force_host and host_exec.can_execute(plan, for_spill=False)
+        gov = self.config.pressure
+        if (not forced and gov is not None
+                and item.mpix >= gov.config.oversize_mpix
+                # batch-class work, or everything with qos off (untyped
+                # traffic has no latency contract to protect)
+                and (item.qos is None or item.qos[1] == _BATCH_CLASS)
+                and gov.level() >= 1  # elevated or critical
+                and host_exec.can_execute(plan, for_spill=False)):
+            # the elevated rung: oversize frames stop transiting the
+            # device; they ride the spill branch (its gate, its ledger,
+            # its placement mark)
+            forced = True
+            with self._lock:
+                self.stats.pressure_host_forced += 1
         if forced or (self.config.host_spill and self._should_spill(item)):
             out = self._spill(item)
             if out is not None:
                 item.future.set_result(out)
                 return item.future
+        err = None
         with self._lock:
             if self._closed:
                 raise RuntimeError("executor is shut down")
             self._charge_owed(item)
             lane = self._lanes.place(item) if self._lanes is not None else None
-            if lane is None:
-                self._queue.put(item)
-            else:
-                lanes_mod._lane_owe(lane, item)
-                try:
+            try:
+                if lane is None:
+                    self._queue.put(item)
+                else:
+                    lanes_mod._lane_owe(lane, item)
                     lane.put(item)
-                except Exception:
-                    item.future.cancel()
-                    raise
+            except Exception as e:
+                err = e
+        if err is not None:
+            # the qos share cap (TenantShareExceeded, a 503): cancelling
+            # the never-queued future fires its done-callback, which
+            # refunds the owed charge (outside _lock, which it takes)
+            item.future.cancel()
+            raise err
         if self.config.hedge_threshold_ms > 0:
             outer = self._arm_hedge(item)
             if outer is not None:
@@ -712,13 +831,23 @@ class Executor:
         price; its result is discarded (the request is served by the
         host)."""
         shadow = _Item(item.arr, item.plan)
-        shadow.future.add_done_callback(lambda f: f.exception())  # swallow
+        shadow.qos = item.qos
+        shadow.future.add_done_callback(
+            lambda f: None if f.cancelled() else f.exception())  # swallow
+        rejected = False
         with self._lock:
             if self._closed:
                 return
             self._charge_owed(shadow)
-            self.stats.shadow_probes += 1
-            self._queue.put(shadow)
+            try:
+                self._queue.put(shadow)
+            except Exception:  # noqa: BLE001 - a share cap drops the shadow
+                rejected = True
+            else:
+                self.stats.shadow_probes += 1
+        if rejected:
+            # outside _lock: the done-callback refunds the charge under it
+            shadow.future.cancel()
 
     @staticmethod
     def _stamp_attempts(items: list, attempts: list) -> None:
@@ -738,8 +867,10 @@ class Executor:
     def _arm_hedge(self, item: "_Item") -> Optional[Future]:
         """Wrap a queued device item in an outer future that a host twin
         may answer once the threshold passes. None (the caller returns the
-        plain future) for a host-inexecutable plan, or when the request's
-        deadline comes before the threshold."""
+        plain future) for batch-class qos work, a host-inexecutable plan,
+        or when the request's deadline comes before the threshold."""
+        if item.qos is not None and item.qos[1] == _BATCH_CLASS:
+            return None  # batch work never amplifies into host capacity
         if not host_exec.can_execute(item.plan, for_spill=False):
             return None
         threshold_ms = self._hedge_threshold_ms_for(item)
@@ -907,13 +1038,21 @@ class Executor:
 
     # -- collector -------------------------------------------------------------
 
+    def _form_cap_s(self) -> float:
+        """The continuous policy's formation cap in seconds: max_form_ms,
+        else window_ms."""
+        ms = self.config.max_form_ms
+        if ms is None:
+            ms = self.config.window_ms
+        return max(ms, 0.0) / 1000.0
+
     def _collect_continuous(self):
         """A chunk closes at max_batch items or at the formation cap,
         whichever first, and launches at once. Time the collector spends
         blocked on the bounded fetch queue books as dispatch_wait for the
         items it delays, not as formation. Runs until the shutdown
         sentinel, then launches whatever is still pending."""
-        form = max(self.config.max_form_ms, 0.0) / 1000.0
+        form = self._form_cap_s()
         cap = self.config.max_batch
         pending: dict = {}  # key -> list[_Item]
         running = True
@@ -952,6 +1091,58 @@ class Executor:
         self.stats.queue_depth = 0
         self._fetch_queue.put(None)
 
+    def _collect_convoy(self):
+        """The reference's legacy accumulate-launch-drain policy. A group
+        dispatches when it holds max_group items, or its oldest item has
+        waited the window and the link is idle (`_inflight` 0: every
+        launched group drained), or its oldest item is older than
+        max_hold_ms. A group stays open until dispatch, so its whole wait
+        books as batch_form (an infinite formation cap). Runs until the
+        shutdown sentinel, then dispatches whatever is still pending."""
+        window = self.config.window_ms / 1000.0
+        hold = self.config.max_hold_ms / 1000.0
+        group = max(1, self.config.max_group)
+        pending: dict = {}  # key -> list[_Item]
+        running = True
+        while running:
+            timeout = None
+            if pending:
+                oldest = min(items[0].t for items in pending.values())
+                now = time.monotonic()
+                # past the window the link may still be busy: poll briefly
+                timeout = 0.002 if now - oldest >= window else oldest + window - now
+            try:
+                got = self._queue.get(timeout=timeout)
+            except queue_mod.Empty:
+                got = False
+            while got is not False:
+                if got is None:
+                    running = False
+                    break
+                pending.setdefault(got.key, []).append(got)
+                try:
+                    got = self._queue.get_nowait()
+                except queue_mod.Empty:
+                    got = False
+            now = time.monotonic()
+            with self._lock:
+                link_idle = self._inflight == 0
+            due = [k for k, items in pending.items()
+                   if len(items) >= group
+                   or (now - items[0].t >= window and link_idle)
+                   or now - items[0].t >= hold]
+            for k in due:
+                items = pending.pop(k)
+                for start in range(0, len(items), group):
+                    self._close_chunk(items[start:start + group], float("inf"))
+            self.stats.queue_depth = self._queue.qsize() + sum(
+                len(v) for v in pending.values())
+        for items in pending.values():
+            for start in range(0, len(items), group):
+                self._close_chunk(items[start:start + group], float("inf"))
+        self.stats.queue_depth = 0
+        self._fetch_queue.put(None)
+
     def _close_chunk(self, items: list, form_cap_s: float, lane=None) -> None:
         """Stamp the formation/dispatch boundary and launch, on `lane` when
         one is given. A chunk closes no later than its oldest item's
@@ -979,8 +1170,9 @@ class Executor:
             it.stage_ms["dispatch_wait"] = dw_ms
 
     def _dispatch(self, items: list) -> None:
-        """Launch one chunk through the failover ladder and hand it to the
-        fetcher."""
+        """Launch one group as chunk-sized device calls
+        (`_chunk_for_launch`) through the failover ladder and hand the
+        fetcher ONE entry covering them all."""
         now = time.monotonic()
         self._stamp_stages(items, now)
         try:
@@ -996,18 +1188,54 @@ class Executor:
         if not items:
             return
         before = chain_mod.cache_size()
-        chunk = self._launch_with_failover(items)
-        if chunk is None:
-            return  # the chunk's futures are resolved already
+        chunks = []
+        for sub in self._chunk_for_launch(items):
+            chunk = self._launch_with_failover(sub)
+            if chunk is not None:  # else its futures are resolved already
+                chunks.append(chunk)
+        if not chunks:
+            return
         cold = self._note_cold(before)
-        TIMES.record("launch", (time.monotonic() - now) * 1000.0 / len(items))
+        launched = sum(len(c[3]) for c in chunks)
+        TIMES.record("launch", (time.monotonic() - now) * 1000.0 / launched)
         with self._lock:
-            self.stats.items += len(items)
+            self.stats.items += launched
             self.stats.groups += 1
-            self.stats.batches += 1
-            self.stats.max_group_seen = max(self.stats.max_group_seen, len(items))
-        # blocks when max_inflight chunks wait for the fetcher: backpressure
-        self._fetch_queue.put((chunk, cold))
+            self.stats.batches += len(chunks)
+            self.stats.max_group_seen = max(self.stats.max_group_seen, launched)
+            self._inflight += 1
+        # blocks when max_inflight groups wait for the fetcher: backpressure
+        self._fetch_queue.put((chunks, cold))
+
+    def _chunk_for_launch(self, items: list) -> list:
+        """Slice a group into device calls of at most max_batch items and,
+        under memory pressure, at most the governor's batch byte cap in
+        wire MB (floor one item), so a tight card sees small launches up
+        front instead of bisecting big ones. Each launch the cap adds is
+        counted in pressure_capped_batches."""
+        cap = self.config.max_batch
+        cap_mb = 0.0
+        gov = self.config.pressure
+        if gov is not None:
+            cap_mb = gov.batch_cap_mb()
+        if cap_mb <= 0.0:
+            return [items[s:s + cap] for s in range(0, len(items), cap)]
+        subs: list = []
+        cur: list = []
+        cur_mb = 0.0
+        for it in items:
+            if cur and (len(cur) >= cap or cur_mb + it.wire_mb > cap_mb):
+                subs.append(cur)
+                cur, cur_mb = [], 0.0
+            cur.append(it)
+            cur_mb += it.wire_mb
+        if cur:
+            subs.append(cur)
+        base = -(-len(items) // cap)  # the uncapped launch count
+        if len(subs) > base:
+            with self._lock:
+                self.stats.pressure_capped_batches += len(subs) - base
+        return subs
 
     def _launch_chunk(self, items: list, device=None):
         """Launch one device call of <= max_batch items on `device` (the
@@ -1087,10 +1315,11 @@ class Executor:
     # -- fetcher ---------------------------------------------------------------
 
     def _fetch_loop(self, gen: int) -> None:
-        """Wait for each launched chunk's event in launch order, slice its
-        outputs, verify a sampled share and resolve its futures. A fetcher
-        whose generation the watchdog has moved past hands what it holds
-        back and exits."""
+        """Drain each launched group: wait for each of its chunks' events
+        in launch order, slice its outputs, verify a sampled share and
+        resolve its futures; the group leaves `_inflight` once all its
+        chunks drained. A fetcher whose generation the watchdog has moved
+        past hands what it holds back and exits."""
         while True:
             got = self._fetch_queue.get()
             if got is None:
@@ -1100,39 +1329,53 @@ class Executor:
             if stale:
                 self._fetch_queue.put(got)
                 return
-            chunk, cold = got
-            launched, arrs, plans, items, idx, t_launch = chunk
-            t0 = time.monotonic()
+            chunks, cold = got
+            for k in range(len(chunks)):
+                if not self._drain_chunk(chunks, k, cold, gen):
+                    return  # abandoned by the watchdog
             with self._lock:
-                self._drain_state = (t0, chunk, gen)
-            try:
-                outs = chain_mod.fetch_batch(launched, arrs, plans)
-            except Exception as e:
-                with self._lock:
-                    live = self._fetch_gen == gen
-                    if live:
-                        self._drain_state = None
-                if not live:
-                    return  # the watchdog failed these futures already
-                if chain_mod.is_oom_error(e):
-                    self._bisect_chunk(items, self._devices[idx], idx, e)
-                else:
-                    self._note_device_failure(idx, e)
-                    self._fail(items, e)
-                continue
+                if self._fetch_gen != gen:
+                    return
+                self._inflight -= 1
+
+    def _drain_chunk(self, chunks: list, k: int, cold: bool, gen: int) -> bool:
+        """Drain chunk k of a group and resolve it; False when the
+        watchdog abandoned the drain (it failed the group's futures)."""
+        launched, arrs, plans, items, idx, t_launch = chunks[k]
+        t0 = time.monotonic()
+        with self._lock:
+            # what the watchdog fails if this drain hangs: this chunk and
+            # the rest of its group
+            self._drain_state = (t0, chunks[k:], gen)
+        try:
+            outs = chain_mod.fetch_batch(launched, arrs, plans)
+        except Exception as e:
             with self._lock:
                 live = self._fetch_gen == gen
                 if live:
                     self._drain_state = None
             if not live:
-                # abandoned while blocked: discard what the call produced
-                return
-            now = time.monotonic()
-            drain_ms = (now - t0) * 1000.0
-            self.devhealth.note_ok(idx, latency_ms=(now - t_launch) * 1000.0)
-            TIMES.record("drain", drain_ms / len(items))
-            self._note_drain(items, drain_ms, cold)
-            self._finish(items, outs, idx)
+                return False  # the watchdog failed these futures already
+            if chain_mod.is_oom_error(e):
+                self._bisect_chunk(items, self._devices[idx], idx, e)
+            else:
+                self._note_device_failure(idx, e)
+                self._fail(items, e)
+            return True
+        with self._lock:
+            live = self._fetch_gen == gen
+            if live:
+                self._drain_state = None
+        if not live:
+            # abandoned while blocked: discard what the call produced
+            return False
+        now = time.monotonic()
+        drain_ms = (now - t0) * 1000.0
+        self.devhealth.note_ok(idx, latency_ms=(now - t_launch) * 1000.0)
+        TIMES.record("drain", drain_ms / len(items))
+        self._note_drain(items, drain_ms, cold)
+        self._finish(items, outs, idx)
+        return True
 
     def _finish(self, items: list, outs: list, idx) -> None:
         """Resolve a drained chunk: the `device.corrupt` failpoint (the
@@ -1198,9 +1441,9 @@ class Executor:
 
     def _watchdog_loop(self) -> None:
         """Abandon a global drain stuck past drain_watchdog_s: fail its
-        futures and those of every chunk queued behind it with the
-        reference's error, strike every dispatchable device outright (a
-        hang is unambiguous), and hand the queue to a fresh fetcher of
+        group's futures and those of every group queued behind it with
+        the reference's error, strike every dispatchable device outright
+        (a hang is unambiguous), and hand the queue to a fresh fetcher of
         the next generation. Every transition happens under _lock, so
         the stuck fetcher sees exactly one outcome when its call returns."""
         budget = self.config.drain_watchdog_s
@@ -1210,14 +1453,16 @@ class Executor:
                 if (state is None or state[2] != self._fetch_gen
                         or time.monotonic() - state[0] < budget):
                     continue
-                chunk = state[1]
+                chunks = state[1]
                 self._drain_state = None
                 self._fetch_gen += 1
                 gen = self._fetch_gen
+                self._inflight -= 1
             err = RuntimeError(f"device drain exceeded {budget:.0f}s watchdog; "
                                "link presumed hung")
-            for it in chunk[3]:
-                _resolve(it.future, error=err)
+            for c in chunks:
+                for it in c[3]:
+                    _resolve(it.future, error=err)
             for idx in (self.devhealth.available_indices() or [0]):
                 self.devhealth.set_consecutive(idx, self.config.breaker_threshold - 1)
                 self._note_device_failure(idx, err)
@@ -1230,11 +1475,17 @@ class Executor:
                 if got is None:
                     self._fetch_queue.put(None)
                     break
-                for it in got[0][3]:
-                    _resolve(it.future, error=err)
-            self._fetcher = threading.Thread(target=self._fetch_loop, args=(gen,),
-                                             name="itpu-fetcher", daemon=True)
-            self._fetcher.start()
+                for c in got[0]:
+                    for it in c[3]:
+                        _resolve(it.future, error=err)
+                with self._lock:
+                    self._inflight -= 1
+            # started before it is published: shutdown may join whichever
+            # fetcher it reads, and a thread not yet started cannot be joined
+            fetcher = threading.Thread(target=self._fetch_loop, args=(gen,),
+                                       name="itpu-fetcher", daemon=True)
+            fetcher.start()
+            self._fetcher = fetcher
 
     # -- bisection: capacity (OOM) and poison inputs ---------------------------
 
@@ -1571,7 +1822,7 @@ class Executor:
     def _lane_form_s(self) -> float:
         ms = self.config.lane_form_ms
         if ms is None:
-            ms = self.config.max_form_ms
+            return self._form_cap_s()
         return max(ms, 0.0) / 1000.0
 
     def _shard_min(self) -> int:
@@ -1828,6 +2079,9 @@ class Executor:
             ds = self._drain_state
             snap = {
                 "queue_depth": self.stats.queue_depth,
+                "batch_policy": self.config.batch_policy,
+                "batch_form_cap_ms": round(self._form_cap_s() * 1000.0, 3),
+                "inflight_groups": self._inflight,
                 "inflight_chunks": self._fetch_queue.qsize(),
                 "device_owed_mb": round(self.stats.device_owed_mb, 3),
                 "drain_in_flight_age_s": round(now - ds[0], 3) if ds else None,
@@ -1844,6 +2098,8 @@ class Executor:
         # the fault domains and their quarantine-grade events, oldest first
         snap["devices"] = self.devhealth.snapshot()
         snap["strike_history"] = self.devhealth.strike_history()
+        if self.config.qos is not None:
+            snap["qos_queued"] = self._queue.depths()  # the fair scheduler's view
         if self.integrity is not None:
             snap["integrity"] = self.integrity.snapshot()
         if self._lanes is not None:

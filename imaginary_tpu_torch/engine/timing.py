@@ -1,8 +1,8 @@
 """Per-stage timing of the executor (the port's trimmed copy of
 `imaginary_tpu/engine/timing.py`: `StageTimes`/`TIMES`, the lanes'
-`LaneStageTimes`/`LANE_TIMES` and the byte-touch ledger
-`CopyLedger`/`COPIES`, without its cost-plane stamp, whose module is not
-ported).
+`LaneStageTimes`/`LANE_TIMES`, the link ledger `WireLedger`/`WIRE` and
+the byte-touch ledger `CopyLedger`/`COPIES`, without its cost-plane
+stamp, whose module is not ported).
 
 Each stage records into a bounded ring, so /health can report count,
 mean, p50 and p99 without unbounded memory, and into the stage
@@ -101,6 +101,59 @@ def attribute(stage_ms) -> None:
         return
     for stage, ms in stage_ms.items():
         tr.add_span(stage, ms)
+
+
+class WireLedger:
+    """Bytes that actually cross the host<->device link, booked where the
+    chain runner moves them (ops/chain.py): each launch's one staged H2D
+    buffer (the batch, its valid dims and its per-image params, at their
+    16-byte offsets), and each copy of an output into host memory (D2H).
+    The sharded and spatial launches book under their device's label too
+    (`by_device`). Device-to-device copies (the spatial route's window and
+    halo exchange, its gather) never touch the link and are not booked.
+    Monotonic totals with the transfer counts beside them, process-wide
+    like TIMES; /metrics shows them as
+    imaginary_tpu_wire_bytes_total{direction=}."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._bytes = {"h2d": 0, "d2h": 0}
+        self._transfers = {"h2d": 0, "d2h": 0}
+        # direction -> device label -> bytes, only for callers that name a
+        # device (the sharded and spatial launches)
+        self._by_device: dict = {"h2d": {}, "d2h": {}}
+
+    def add(self, direction: str, nbytes: int, device=None) -> None:
+        with self._lock:
+            self._bytes[direction] += int(nbytes)
+            self._transfers[direction] += 1
+            if device is not None:
+                dd = self._by_device[direction]
+                dd[str(device)] = dd.get(str(device), 0) + int(nbytes)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out = {
+                "h2d": self._bytes["h2d"],
+                "d2h": self._bytes["d2h"],
+                "h2d_transfers": self._transfers["h2d"],
+                "d2h_transfers": self._transfers["d2h"],
+            }
+            if self._by_device["h2d"] or self._by_device["d2h"]:
+                out["by_device"] = {
+                    "h2d": dict(self._by_device["h2d"]),
+                    "d2h": dict(self._by_device["d2h"]),
+                }
+            return out
+
+    def reset(self) -> None:
+        with self._lock:
+            self._bytes = {"h2d": 0, "d2h": 0}
+            self._transfers = {"h2d": 0, "d2h": 0}
+            self._by_device = {"h2d": {}, "d2h": {}}
+
+
+WIRE = WireLedger()
 
 
 class CopyLedger:

@@ -1,14 +1,24 @@
 """Fault injection for the port (a trimmed copy of
 `imaginary_tpu/failpoints.py`).
 
-Eleven sites are ported:
+Fourteen sites are ported:
 
   source.fetch       one remote ?url= or watermark GET attempt
                      (web/sources.py);
   source.head        the HEAD size pre-check (web/sources.py);
+  qos.admit          the admission gate (web/handlers.py): an injected
+                     error sheds the request (503 + Retry-After, the
+                     overload contract), with qos on or off;
   codec.decode       the host decode of each transport (pipeline.py,
                      pool thread);
   codec.encode       the host encode (pipeline.py, pool thread);
+  codec.bomb         the pre-decode dimension gate (codecs/__init__.py):
+                     an injected error rejects the decode 413, as a
+                     header-dimension bomb is;
+  memory.rss         the pressure governor's RSS sample
+                     (engine/pressure.py): an injected error reads as RSS
+                     at the ceiling, driving the brownout ladder without
+                     exhausting the host;
   executor.submit    the micro-batch executor's entry
                      (engine/executor.py);
   device.execute     the global collector's dispatch, before the launch
@@ -61,9 +71,10 @@ import threading
 import time
 from typing import Optional
 
-SITES = ("source.fetch", "source.head", "codec.decode", "codec.encode",
-         "executor.submit", "device.execute", "device.chip_error", "host.spill",
-         "device.oom", "device.corrupt", "device.slow")
+SITES = ("source.fetch", "source.head", "qos.admit", "codec.decode", "codec.encode",
+         "codec.bomb", "memory.rss", "executor.submit", "device.execute",
+         "device.chip_error", "host.spill", "device.oom", "device.corrupt",
+         "device.slow")
 
 _KEYED_SITE_RE = re.compile(r"^([\w.]+)\[(\w+)\]$")
 _DURATION_RE = re.compile(r"^(\d+(?:\.\d+)?)(ms|s)$")

@@ -18,7 +18,11 @@
 
 Each wrapper below takes tensors on one device. On a CPU tensor it runs
 the kernel's plain version (`reference.py`). On a CUDA tensor it checks
-dtype, shape and contiguity, allocates outputs with `torch.empty`,
+dtype, shape and contiguity, allocates outputs with `torch.empty` (the
+wrappers of the stages that can end a chain, K1, K3, K4, K5, K6, K7, K8
+and K12, take an optional `out=` instead, checked the same way: the
+chain runner's buffer donation, ops/chain.py; on the CPU the plain
+version's result is copied into it),
 launches on the calling thread's current stream of that device, raises
 if the launch reports a CUDA error, and adds one to `LAUNCHES[name]` per
 kernel launch. There is no fallback from CUDA to the plain version. The
@@ -155,13 +159,33 @@ def _require(t: torch.Tensor, what: str, dtypes: tuple, shape: tuple,
         raise ValueError(f"{what} must be contiguous")
 
 
+def _out(out, shape: tuple, dtype, device: torch.device):
+    """A chain-ending kernel's output: `out` checked against the dtype,
+    shape, contiguity and device the kernel writes, else a new tensor."""
+    if out is None:
+        return torch.empty(shape, dtype=dtype, device=device)
+    _require(out, "out", (dtype,), shape, device)
+    return out
+
+
+def _into(out, res: torch.Tensor) -> torch.Tensor:
+    """The plain version's result `res`, copied into `out` once `out`
+    passes the same checks (the CPU side of `out=`)."""
+    if out is None:
+        return res
+    _require(out, "out", (res.dtype,), tuple(res.shape), res.device)
+    out.copy_(res)
+    return out
+
+
 _IMG = (torch.uint8, torch.float32)
 _I32 = (torch.int32,)
 _F32 = (torch.float32,)
 
 
 def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
-             out_u8: bool = False, cols=None, in_col0: int = 0, in_wb=None):
+             out_u8: bool = False, cols=None, in_col0: int = 0, in_wb=None,
+             out=None):
     """K1: separable resample of x [B, Hb, Wb, C] (uint8 or f32, C 1 to 4)
     to [B, out_hb, out_wb, C] (f32, or uint8 with the epilogue), both axes
     in one launch.
@@ -182,9 +206,10 @@ def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
         raise ValueError(f"shard columns [{c0}, {c1}) of {out_wb} from input "
                          f"columns [{in_col0}, {in_col0 + x.shape[2]}) of {in_wb}")
     if x.device.type == "cpu":
-        return reference.resample(x, h, w, dst_h, dst_w, out_hb, out_wb,
-                                  kind, out_u8, cols=(c0, c1), in_col0=in_col0,
-                                  in_wb=in_wb)
+        res, h_out, w_out = reference.resample(x, h, w, dst_h, dst_w, out_hb, out_wb,
+                                               kind, out_u8, cols=(c0, c1),
+                                               in_col0=in_col0, in_wb=in_wb)
+        return _into(out, res), h_out, w_out
     if kind not in _RESAMPLE_KIND:
         raise ValueError(f"unknown kernel {kind!r}")
     dev = x.device
@@ -195,8 +220,8 @@ def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
     for t, n, dts in ((h, "h", _I32), (w, "w", _I32), (dst_h, "dst_h", _F32),
                       (dst_w, "dst_w", _F32)):
         _require(t, n, dts, (bsz,), dev)
-    out = torch.empty((bsz, out_hb, c1 - c0, c),
-                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    out = _out(out, (bsz, out_hb, c1 - c0, c),
+               torch.uint8 if out_u8 else torch.float32, dev)
     h_out = torch.empty((bsz,), dtype=torch.int32, device=dev)
     w_out = torch.empty((bsz,), dtype=torch.int32, device=dev)
     _launch("resample", dev, x.data_ptr(), int(x.dtype == torch.uint8),
@@ -283,12 +308,12 @@ def yuv420_to_rgb_shard(x, left, right, h, w, hb: int, lw: int):
     return out
 
 
-def rgb_to_yuv420(x, h, w, hb: int, wb: int, luma: bool = False):
+def rgb_to_yuv420(x, h, w, hb: int, wb: int, luma: bool = False, out=None):
     """K3: f32 RGB [B, hb, wb, 3] -> uint8 packed planes [B, hb + hb/2, wb, 1]
     (chroma pooled over valid pixels; epilogue fused). With `luma`, K8's
     luma is applied to each pixel as it is loaded: one launch, equal to
     `gray` then `rgb_to_yuv420`, counted as one `yuv420_pack`."""
-    return _rgb_to_yuv420(x, h, w, hb, wb, luma, 0)
+    return _rgb_to_yuv420(x, h, w, hb, wb, luma, 0, out)
 
 
 def rgb_to_yuv420_shard(x, h, w, hb: int, lw: int, col0: int, luma: bool = False):
@@ -303,9 +328,9 @@ def rgb_to_yuv420_shard(x, h, w, hb: int, lw: int, col0: int, luma: bool = False
     return _rgb_to_yuv420(x, h, w, hb, lw, luma, col0)
 
 
-def _rgb_to_yuv420(x, h, w, hb: int, wb: int, luma: bool, col0: int):
+def _rgb_to_yuv420(x, h, w, hb: int, wb: int, luma: bool, col0: int, out=None):
     if x.device.type == "cpu":
-        return reference.rgb_to_yuv420(x, h, w, hb, wb, luma, col0)
+        return _into(out, reference.rgb_to_yuv420(x, h, w, hb, wb, luma, col0))
     dev = x.device
     bsz = x.shape[0]
     if hb % 2 or wb % 2:
@@ -313,14 +338,15 @@ def _rgb_to_yuv420(x, h, w, hb: int, wb: int, luma: bool, col0: int):
     _require(x, "x", _F32, (bsz, hb, wb, 3), dev)
     _require(h, "h", _I32, (bsz,), dev)
     _require(w, "w", _I32, (bsz,), dev)
-    out = torch.empty((bsz, hb + hb // 2, wb, 1), dtype=torch.uint8, device=dev)
+    out = _out(out, (bsz, hb + hb // 2, wb, 1), torch.uint8, dev)
     _launch("yuv420_pack", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(),
             w.data_ptr(), bsz, hb, wb, int(bool(luma)), col0)
     return out
 
 
 def gather(x, out_hb: int, out_wb: int, off_y=None, off_x=None, size_h=None,
-           size_w=None, mode: str = "window", fill=None, out_u8: bool = False):
+           size_w=None, mode: str = "window", fill=None, out_u8: bool = False,
+           out=None):
     """K4: index-map gather of x [B, Hb, Wb, C] (uint8 or f32) into
     [B, out_hb, out_wb, C] (f32, or uint8 with the epilogue).
 
@@ -334,8 +360,8 @@ def gather(x, out_hb: int, out_wb: int, off_y=None, off_x=None, size_h=None,
                              or off_x is None):
         raise ValueError(f"gather mode {mode!r} needs offsets and sizes")
     if x.device.type == "cpu":
-        return reference.gather(x, out_hb, out_wb, off_y, off_x, size_h,
-                                size_w, mode, fill, out_u8)
+        return _into(out, reference.gather(x, out_hb, out_wb, off_y, off_x, size_h,
+                                           size_w, mode, fill, out_u8))
     dev = x.device
     if x.dim() != 4:
         raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
@@ -347,8 +373,8 @@ def gather(x, out_hb: int, out_wb: int, off_y=None, off_x=None, size_h=None,
             _require(t, n, _I32, (bsz,), dev)
     if fill is not None:
         _require(fill, "fill", _F32, (bsz, c), dev)
-    out = torch.empty((bsz, out_hb, out_wb, c),
-                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    out = _out(out, (bsz, out_hb, out_wb, c),
+               torch.uint8 if out_u8 else torch.float32, dev)
     _launch("gather", dev, x.data_ptr(), int(x.dtype == torch.uint8),
             out.data_ptr(), int(out_u8), _ptr(off_y), _ptr(off_x), _ptr(size_h),
             _ptr(size_w), _ptr(fill), _GATHER_MODE[mode], bsz, in_hb, in_wb, c,
@@ -356,7 +382,7 @@ def gather(x, out_hb: int, out_wb: int, off_y=None, off_x=None, size_h=None,
     return out
 
 
-def orient(x, h, w, mode: str, out_u8: bool = False):
+def orient(x, h, w, mode: str, out_u8: bool = False, out=None):
     """K5: "flip" or "flop" x [B, Hb, Wb, C] (uint8 or f32, C 1 to 4)
     inside each image's valid h or w (padding copied as it is), or
     "transpose" it to [B, Wb, Hb, C]; f32 out, or uint8 with the epilogue.
@@ -366,7 +392,7 @@ def orient(x, h, w, mode: str, out_u8: bool = False):
     if mode not in _ORIENT_MODE:
         raise ValueError(f"unknown orient mode {mode!r}")
     if x.device.type == "cpu":
-        return reference.orient(x, h, w, mode, out_u8)
+        return _into(out, reference.orient(x, h, w, mode, out_u8))
     dev = x.device
     if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
         raise ValueError(f"x must be [B, H, W, C] with C 1 to 4, got {tuple(x.shape)}")
@@ -375,8 +401,7 @@ def orient(x, h, w, mode: str, out_u8: bool = False):
     _require(h, "h", _I32, (bsz,), dev)
     _require(w, "w", _I32, (bsz,), dev)
     shape = (bsz, wb, hb, c) if mode == "transpose" else (bsz, hb, wb, c)
-    out = torch.empty(shape, dtype=torch.uint8 if out_u8 else torch.float32,
-                      device=dev)
+    out = _out(out, shape, torch.uint8 if out_u8 else torch.float32, dev)
     _launch("orient", dev, x.data_ptr(), int(x.dtype == torch.uint8),
             out.data_ptr(), int(out_u8), h.data_ptr(), w.data_ptr(),
             _ORIENT_MODE[mode], bsz, hb, wb, c)
@@ -396,7 +421,7 @@ def blur_strip(c: int, radius: int) -> int:
     return BLUR_EXT[c] // c - 2 * radius
 
 
-def blur(x, h, w, sigma, radius: int, out_u8: bool = False):
+def blur(x, h, w, sigma, radius: int, out_u8: bool = False, out=None):
     """K6: separable Gaussian of x [B, Hb, Wb, C] (uint8 or f32, C 1 to 4)
     with a static radius (0 to 64) and per-image sigma (f32 [B]),
     normalised against the valid mask and zero outside each image's valid
@@ -405,7 +430,7 @@ def blur(x, h, w, sigma, radius: int, out_u8: bool = False):
     if not 0 <= radius <= MAX_BLUR_RADIUS:
         raise ValueError(f"blur radius {radius} outside 0..{MAX_BLUR_RADIUS}")
     if x.device.type == "cpu":
-        return reference.blur(x, h, w, sigma, radius, out_u8)
+        return _into(out, reference.blur(x, h, w, sigma, radius, out_u8))
     dev = x.device
     if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
         raise ValueError(f"x must be [B, H, W, C] with C 1 to 4, got {tuple(x.shape)}")
@@ -414,8 +439,7 @@ def blur(x, h, w, sigma, radius: int, out_u8: bool = False):
     _require(h, "h", _I32, (bsz,), dev)
     _require(w, "w", _I32, (bsz,), dev)
     _require(sigma, "sigma", _F32, (bsz,), dev)
-    out = torch.empty((bsz, hb, wb, c),
-                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    out = _out(out, (bsz, hb, wb, c), torch.uint8 if out_u8 else torch.float32, dev)
     _launch("blur", dev, x.data_ptr(), int(x.dtype == torch.uint8), out.data_ptr(),
             int(out_u8), h.data_ptr(), w.data_ptr(), sigma.data_ptr(), radius, bsz,
             hb, wb, c, blur_strip(c, radius))
@@ -423,15 +447,15 @@ def blur(x, h, w, sigma, radius: int, out_u8: bool = False):
 
 
 def composite(x, overlay, top, left, opacity, block_h, block_w,
-              replicate: bool, out_u8: bool = False):
+              replicate: bool, out_u8: bool = False, out=None):
     """K7: alpha-blend the RGBA overlay f32 [B, BHb, BWb, 4] over every
     pixel of x [B, Hb, Wb, C] (uint8 or f32, C 3 or 4), tiled from
     (top, left) when `replicate`, else placed once there; top, left,
     block_h, block_w int32 [B], opacity f32 [B]. f32 out, or uint8 with
     the epilogue."""
     if x.device.type == "cpu":
-        return reference.composite(x, overlay, top, left, opacity, block_h,
-                                   block_w, replicate, out_u8)
+        return _into(out, reference.composite(x, overlay, top, left, opacity, block_h,
+                                              block_w, replicate, out_u8))
     dev = x.device
     if x.dim() != 4 or x.shape[3] not in (3, 4):
         raise ValueError(f"x must be [B, H, W, C] with C 3 or 4, got {tuple(x.shape)}")
@@ -445,8 +469,7 @@ def composite(x, overlay, top, left, opacity, block_h, block_w,
                  (block_w, "block_w")):
         _require(t, n, _I32, (bsz,), dev)
     _require(opacity, "opacity", _F32, (bsz,), dev)
-    out = torch.empty((bsz, hb, wb, c),
-                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    out = _out(out, (bsz, hb, wb, c), torch.uint8 if out_u8 else torch.float32, dev)
     _launch("composite", dev, x.data_ptr(), int(x.dtype == torch.uint8),
             out.data_ptr(), int(out_u8), overlay.data_ptr(), top.data_ptr(),
             left.data_ptr(), opacity.data_ptr(), block_h.data_ptr(),
@@ -454,20 +477,19 @@ def composite(x, overlay, top, left, opacity, block_h, block_w,
     return out
 
 
-def gray(x, out_u8: bool = False):
+def gray(x, out_u8: bool = False, out=None):
     """K8: Rec.709 luma of x [B, Hb, Wb, C] (uint8 or f32, C 3 or 4)
     broadcast over RGB, alpha kept; f32 out, or uint8 with the epilogue.
     16-byte vector loads and stores where x starts on a 16-byte boundary,
     the scalar form where it does not (a view into a larger buffer)."""
     if x.device.type == "cpu":
-        return reference.gray(x, out_u8)
+        return _into(out, reference.gray(x, out_u8))
     dev = x.device
     if x.dim() != 4 or x.shape[3] not in (3, 4):
         raise ValueError(f"x must be [B, H, W, C] with C 3 or 4, got {tuple(x.shape)}")
     bsz, hb, wb, c = x.shape
     _require(x, "x", _IMG, (bsz, hb, wb, c), dev)
-    out = torch.empty((bsz, hb, wb, c),
-                      dtype=torch.uint8 if out_u8 else torch.float32, device=dev)
+    out = _out(out, (bsz, hb, wb, c), torch.uint8 if out_u8 else torch.float32, dev)
     _launch("gray", dev, x.data_ptr(), int(x.dtype == torch.uint8),
             out.data_ptr(), int(out_u8), bsz * hb * wb, c)
     return out
@@ -572,14 +594,14 @@ def from_dct(x, h, w, hb: int, wb: int, k: int, layout: str):
     return out
 
 
-def to_dct(x, h, w, qy, qc, hb: int, wb: int):
+def to_dct(x, h, w, qy, qc, hb: int, wb: int, out=None):
     """K12: f32 RGB [B, hb, wb, 3] (hb, wb multiples of 16) -> int16
     [B, hb + hb/2, wb, 1] quantized coefficients, with qy, qc f32
     [B, 8, 8] per-image steps and valid h, w (int32 [B])."""
     if hb % 16 or wb % 16:
         raise ValueError(f"ToDctSpec bucket ({hb}, {wb}) must be multiples of 16")
     if x.device.type == "cpu":
-        return reference.to_dct(x, h, w, qy, qc, hb, wb)
+        return _into(out, reference.to_dct(x, h, w, qy, qc, hb, wb))
     dev = x.device
     bsz = x.shape[0]
     _require(x, "x", _F32, (bsz, hb, wb, 3), dev)
@@ -587,7 +609,7 @@ def to_dct(x, h, w, qy, qc, hb: int, wb: int):
     _require(w, "w", _I32, (bsz,), dev)
     _require(qy, "qy", _F32, (bsz, 8, 8), dev)
     _require(qc, "qc", _F32, (bsz, 8, 8), dev)
-    out = torch.empty((bsz, hb + hb // 2, wb, 1), dtype=torch.int16, device=dev)
+    out = _out(out, (bsz, hb + hb // 2, wb, 1), torch.int16, dev)
     _launch("to_dct", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(), w.data_ptr(),
             qy.data_ptr(), qc.data_ptr(), bsz, hb, wb)
     return out

@@ -13,6 +13,8 @@
 //   probe(bytes, fmt: str)   -> (w, h, c, has_alpha, orientation, subsampling)
 //   decode_yuv420(bytes, scale_denom, hb, wb) -> (packed, h, w, orientation)
 //   encode_yuv420(y, u, v, h, w, quality, progressive) -> bytes
+//   arena_stats() -> {reuses, misses, evictions, bytes, cap_bytes}
+//   set_arena_cap(mb)        per-thread scratch budget, 0 = unlimited
 // The Python shim (codecs/native_backend.py) wraps pixels in numpy arrays.
 //
 // The YUV420 entry points are the wire format of the device transport
@@ -39,19 +41,63 @@
 
 namespace {
 
-// Thread-local get-or-grow staging planes for libjpeg's raw-data mode
-// (shared by decode and encode, which never interleave within one call):
-// after the first few requests a thread's buffers sit at their high-water
-// size and later calls just reuse them.
-struct RawStage {
+// ------------------------------------------------ codec scratch arena -------
+//
+// The reference's codec arena (imaginary_tpu/native/codecs.cpp), kept to
+// libjpeg's raw-mode staging planes (shared by decode and encode, which
+// never interleave within one call). Each worker thread serves one image at
+// a time, so one arena per thread with one slot per purpose: after the
+// first few requests a thread's buffers sit at their high-water size and
+// later calls reuse them. The counters are process-wide (relaxed atomics:
+// monotone telemetry, not synchronization); the cap is per thread, checked
+// after each top-level call: an over-cap arena drops all its capacity (an
+// eviction) and the next call rebuilds only what it touches. Cap 0 =
+// unlimited.
+
+std::atomic<uint64_t> g_arena_reuses{0};
+std::atomic<uint64_t> g_arena_misses{0};
+std::atomic<uint64_t> g_arena_evictions{0};
+std::atomic<uint64_t> g_arena_bytes{0};  // live capacity, summed over threads
+std::atomic<uint64_t> g_arena_cap{0};    // per-thread byte budget, 0 = off
+
+struct CodecArena {
   std::vector<uint8_t> ystage, ustage, vstage;
+
+  size_t footprint() const {
+    return ystage.capacity() + ustage.capacity() + vstage.capacity();
+  }
+  ~CodecArena() {
+    g_arena_bytes.fetch_sub(footprint(), std::memory_order_relaxed);
+  }
 };
 
-thread_local RawStage t_arena;
+thread_local CodecArena t_arena;
 
+// Size a slot for this call. Capacity (not size) decides reuse vs miss: a
+// smaller request that fits the existing allocation is a reuse.
 std::vector<uint8_t>& arena_slot(std::vector<uint8_t>& slot, size_t n) {
+  const size_t before = slot.capacity();
+  if (before >= n)
+    g_arena_reuses.fetch_add(1, std::memory_order_relaxed);
+  else
+    g_arena_misses.fetch_add(1, std::memory_order_relaxed);
   slot.resize(n);
+  const size_t after = slot.capacity();
+  if (after > before)
+    g_arena_bytes.fetch_add(after - before, std::memory_order_relaxed);
   return slot;
+}
+
+void arena_trim() {
+  const uint64_t cap = g_arena_cap.load(std::memory_order_relaxed);
+  if (cap == 0) return;
+  const size_t fp = t_arena.footprint();
+  if ((uint64_t)fp <= cap) return;
+  std::vector<uint8_t>().swap(t_arena.ystage);
+  std::vector<uint8_t>().swap(t_arena.ustage);
+  std::vector<uint8_t>().swap(t_arena.vstage);
+  g_arena_bytes.fetch_sub(fp, std::memory_order_relaxed);
+  g_arena_evictions.fetch_add(1, std::memory_order_relaxed);
 }
 
 // ---------------------------------------------------------------- EXIF ------
@@ -559,6 +605,7 @@ PyObject* py_decode_yuv420(PyObject*, PyObject* args) {
   Py_BEGIN_ALLOW_THREADS
   ok = jpeg_decode_yuv420(buf, len, scale_denom, hb, wb, &packed, &h, &w, &err);
   if (ok) orientation = exif_orientation(buf, len);
+  arena_trim();
   Py_END_ALLOW_THREADS
   PyBuffer_Release(&view);
   if (!ok) {
@@ -595,6 +642,7 @@ PyObject* py_encode_yuv420(PyObject*, PyObject* args) {
                           static_cast<const uint8_t*>(uv.buf),
                           static_cast<const uint8_t*>(vv.buf), h, w, quality,
                           progressive != 0, &out, &err);
+  arena_trim();
   Py_END_ALLOW_THREADS
   PyBuffer_Release(&yv);
   PyBuffer_Release(&uv);
@@ -605,6 +653,24 @@ PyObject* py_encode_yuv420(PyObject*, PyObject* args) {
   }
   return PyBytes_FromStringAndSize(reinterpret_cast<const char*>(out.data()),
                                    (Py_ssize_t)out.size());
+}
+
+PyObject* py_arena_stats(PyObject*, PyObject*) {
+  return Py_BuildValue(
+      "{s:K,s:K,s:K,s:K,s:K}",
+      "reuses", (unsigned long long)g_arena_reuses.load(std::memory_order_relaxed),
+      "misses", (unsigned long long)g_arena_misses.load(std::memory_order_relaxed),
+      "evictions", (unsigned long long)g_arena_evictions.load(std::memory_order_relaxed),
+      "bytes", (unsigned long long)g_arena_bytes.load(std::memory_order_relaxed),
+      "cap_bytes", (unsigned long long)g_arena_cap.load(std::memory_order_relaxed));
+}
+
+PyObject* py_set_arena_cap(PyObject*, PyObject* args) {
+  double mb;
+  if (!PyArg_ParseTuple(args, "d", &mb)) return nullptr;
+  if (mb < 0.0) mb = 0.0;
+  g_arena_cap.store((uint64_t)(mb * 1024.0 * 1024.0), std::memory_order_relaxed);
+  Py_RETURN_NONE;
 }
 
 PyMethodDef methods[] = {
@@ -618,6 +684,10 @@ PyMethodDef methods[] = {
      "decode_yuv420(bytes, scale_denom, hb, wb) -> (packed, h, w, orientation)"},
     {"encode_yuv420", py_encode_yuv420, METH_VARARGS,
      "encode_yuv420(y, u, v, h, w, quality, progressive) -> bytes"},
+    {"arena_stats", py_arena_stats, METH_NOARGS,
+     "arena_stats() -> {reuses, misses, evictions, bytes, cap_bytes}"},
+    {"set_arena_cap", py_set_arena_cap, METH_VARARGS,
+     "set_arena_cap(mb): per-thread scratch-arena budget (0 = unlimited)"},
     {nullptr, nullptr, 0, nullptr},
 };
 

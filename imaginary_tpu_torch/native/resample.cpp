@@ -7,11 +7,14 @@
 //
 // Interface:
 //   resize_separable(buf, h, w, c, dst_h, dst_w, kernel) -> bytes
+//   arena_stats() -> {reuses, misses, evictions, bytes, cap_bytes}
+//   set_arena_cap(mb)        per-thread scratch budget, 0 = unlimited
 // The Python shim (codecs/native_backend.py) wraps the bytes in numpy.
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
@@ -21,24 +24,67 @@
 
 namespace {
 
-// Thread-local get-or-grow scratch (the reference's codec arena, kept to
-// the resampler's slots and without its byte cap): each worker thread
-// resizes one image at a time, so its buffers settle at their high-water
-// size.
+// ------------------------------------------------ codec scratch arena -------
+//
+// The reference's codec arena (imaginary_tpu/native/codecs.cpp), kept to
+// the resampler's slots: each worker thread resizes one image at a time,
+// so its buffers settle at their high-water size and later calls reuse
+// them. The counters are this module's, process-wide (relaxed atomics);
+// the cap is per thread, checked after each call: an over-cap arena drops
+// all its capacity (an eviction). Cap 0 = unlimited.
+
+std::atomic<uint64_t> g_arena_reuses{0};
+std::atomic<uint64_t> g_arena_misses{0};
+std::atomic<uint64_t> g_arena_evictions{0};
+std::atomic<uint64_t> g_arena_bytes{0};  // live capacity, summed over threads
+std::atomic<uint64_t> g_arena_cap{0};    // per-thread byte budget, 0 = off
+
 struct CodecArena {
   std::vector<float> mid, wpair, wT;
   std::vector<uint8_t> rgba, plane, oplane;
+
+  size_t footprint() const {
+    return (mid.capacity() + wpair.capacity() + wT.capacity()) * sizeof(float)
+         + rgba.capacity() + plane.capacity() + oplane.capacity();
+  }
+  ~CodecArena() {
+    g_arena_bytes.fetch_sub(footprint(), std::memory_order_relaxed);
+  }
 };
 
 thread_local CodecArena t_arena;
 
+// Size a slot for this call. Capacity (not size) decides reuse vs miss.
+// resize() value-initialises growth only: callers that depend on zeroed
+// regions (the pad margins) clear them explicitly.
 template <typename T>
 std::vector<T>& arena_slot(std::vector<T>& slot, size_t n) {
+  const size_t before = slot.capacity() * sizeof(T);
+  if (before >= n * sizeof(T))
+    g_arena_reuses.fetch_add(1, std::memory_order_relaxed);
+  else
+    g_arena_misses.fetch_add(1, std::memory_order_relaxed);
   slot.resize(n);
+  const size_t after = slot.capacity() * sizeof(T);
+  if (after > before)
+    g_arena_bytes.fetch_add(after - before, std::memory_order_relaxed);
   return slot;
 }
 
-void arena_trim() {}
+void arena_trim() {
+  const uint64_t cap = g_arena_cap.load(std::memory_order_relaxed);
+  if (cap == 0) return;
+  const size_t fp = t_arena.footprint();
+  if ((uint64_t)fp <= cap) return;
+  std::vector<float>().swap(t_arena.mid);
+  std::vector<float>().swap(t_arena.wpair);
+  std::vector<float>().swap(t_arena.wT);
+  std::vector<uint8_t>().swap(t_arena.rgba);
+  std::vector<uint8_t>().swap(t_arena.plane);
+  std::vector<uint8_t>().swap(t_arena.oplane);
+  g_arena_bytes.fetch_sub(fp, std::memory_order_relaxed);
+  g_arena_evictions.fetch_add(1, std::memory_order_relaxed);
+}
 
 // ---------------------------------------------- separable resampler ---------
 //
@@ -522,9 +568,31 @@ PyObject* py_resize_separable(PyObject*, PyObject* args) {
   return out;
 }
 
+PyObject* py_arena_stats(PyObject*, PyObject*) {
+  return Py_BuildValue(
+      "{s:K,s:K,s:K,s:K,s:K}",
+      "reuses", (unsigned long long)g_arena_reuses.load(std::memory_order_relaxed),
+      "misses", (unsigned long long)g_arena_misses.load(std::memory_order_relaxed),
+      "evictions", (unsigned long long)g_arena_evictions.load(std::memory_order_relaxed),
+      "bytes", (unsigned long long)g_arena_bytes.load(std::memory_order_relaxed),
+      "cap_bytes", (unsigned long long)g_arena_cap.load(std::memory_order_relaxed));
+}
+
+PyObject* py_set_arena_cap(PyObject*, PyObject* args) {
+  double mb;
+  if (!PyArg_ParseTuple(args, "d", &mb)) return nullptr;
+  if (mb < 0.0) mb = 0.0;
+  g_arena_cap.store((uint64_t)(mb * 1024.0 * 1024.0), std::memory_order_relaxed);
+  Py_RETURN_NONE;
+}
+
 PyMethodDef resample_methods[] = {
     {"resize_separable", py_resize_separable, METH_VARARGS,
      "resize_separable(buf, h, w, c, dst_h, dst_w, kernel) -> bytes"},
+    {"arena_stats", py_arena_stats, METH_NOARGS,
+     "arena_stats() -> {reuses, misses, evictions, bytes, cap_bytes}"},
+    {"set_arena_cap", py_set_arena_cap, METH_VARARGS,
+     "set_arena_cap(mb): per-thread scratch-arena budget (0 = unlimited)"},
     {nullptr, nullptr, 0, nullptr},
 };
 

@@ -1,6 +1,5 @@
 """Per-request trace identity and span accumulation (the port's copy of
-`imaginary_tpu/obs/trace.py`, without the tenant slot, whose subsystem is
-not ported).
+`imaginary_tpu/obs/trace.py`).
 
 One RequestTrace per HTTP request, carried by a contextvar: the web
 middleware creates and activates it, and `contextvars.copy_context()`
@@ -11,8 +10,10 @@ trace: the stage times they measure for an item (batch_form,
 dispatch_wait, drain) travel back with its result and are added on the
 thread that submitted it (`engine/timing.attribute`).
 
-The trace also carries the request's deadline (deadline.py), so
-`copy_context()` takes one vehicle into the pool threads, and its
+The trace also carries the request's deadline (deadline.py) and, with a
+qos policy, its tenant (qos/tenancy.TenantSpec, resolved by the trace
+middleware), so `copy_context()` takes one vehicle into the pool
+threads, and its
 wide-event fields (`annotate`), where the middleware writes the
 deadline's budget, remaining time and stage checkpoints.
 
@@ -69,7 +70,7 @@ class RequestTrace:
 
     __slots__ = ("request_id", "trace_id", "parent_span_id", "span_id",
                  "flags", "enabled", "t0", "spans", "fields", "deadline",
-                 "_lock")
+                 "tenant", "_lock")
 
     def __init__(self, request_id: str, traceparent: str = "",
                  enabled: bool = True):
@@ -95,6 +96,9 @@ class RequestTrace:
         # when --request-timeout is on. Enforcement works with tracing off:
         # `enabled` gates spans and fields, not the deadline.
         self.deadline = None
+        # The request's qos TenantSpec (qos/tenancy.py), set by the web
+        # middleware when a policy is armed; None with qos off.
+        self.tenant = None
         self._lock = threading.Lock()
 
     def add_span(self, name: str, dur_ms: float,

@@ -34,9 +34,23 @@ clamped int16 coefficients, written by that kernel itself, and
 `finish_batch` re-blocks them into `QuantizedBlocks` for the host
 entropy encoder.
 
-Buffer donation has no torch meaning (the kernels allocate their outputs
-and the caching allocator recycles freed buffers); `donation_stats`
-reports it off.
+Buffer donation (`set_donation`, on by default as in the reference): the
+port's counterpart of XLA donating the batch operand. With donation on,
+`launch_batch` writes the chain's last launch's output into the batch
+region (offset 0) of the fresh staged device buffer, through that
+kernel's `out=`, when two shape rules hold: the region holds at least
+the output's bytes, and the chain has at least two launches, so the
+first kernel has consumed the region before the last one writes it (in
+stream order). Otherwise the chunk runs undonated. The staged buffer is
+always a fresh copy, so neither the caller's array nor its pinned host
+buffer is ever written; the sharded and spatial launches never donate.
+Nothing on the card refuses aliasing, so `donation_stats`' "rejected"
+(a backend's refusal, which latches the reference's donation off) stays
+0; its "donated" counts the launches that donated.
+
+Link bytes are booked in `engine/timing.WIRE`: each staged H2D buffer in
+`_stage`, and each copy of an output into host memory (`_book_d2h`),
+under the device's label for the sharded and spatial launches.
 """
 
 from __future__ import annotations
@@ -47,6 +61,7 @@ import zlib
 import numpy as np
 import torch
 
+from imaginary_tpu_torch.engine.timing import WIRE
 from imaginary_tpu_torch.ops.buckets import bucket_shape
 from imaginary_tpu_torch.ops.plan import ImagePlan
 from imaginary_tpu_torch.ops.stages import (
@@ -76,8 +91,28 @@ _ALIGN = 16
 _STREAMS: dict = {}
 
 
+# Buffer donation (module docstring): process-wide, like the reference's
+# switch, which --donation sets; launches that donated.
+_DONATE = True
+_DONATED = 0
+
+
+def set_donation(enabled: bool) -> None:
+    """The boot switch (--donation on|off)."""
+    global _DONATE
+    with _LOCK:
+        _DONATE = bool(enabled)
+
+
+def donation_enabled() -> bool:
+    return _DONATE
+
+
 def donation_stats() -> dict:
-    return {"enabled": False, "rejected": 0}
+    """{"enabled", "rejected", "donated"}: "rejected" keeps the reference's
+    meaning (a backend's refusal) and is 0, as nothing on the card refuses
+    aliasing."""
+    return {"enabled": _DONATE, "rejected": 0, "donated": _DONATED}
 
 
 def cache_size() -> int:
@@ -147,20 +182,54 @@ def launch_steps(specs, run: list) -> list:
     return steps
 
 
-def _run_steps(specs, steps: list, x, h, w, dyns):
+def _out_layout(spec, shape) -> tuple:
+    """(shape, dtype) of `spec`'s chain-ending output on an input [B, Hb,
+    Wb, C] of `shape`: uint8 pixels, or the packed planes of ToYuv420Spec
+    (uint8) and ToDctSpec (int16)."""
+    bsz, hb, wb, c = shape
+    if isinstance(spec, (ToYuv420Spec, ToDctSpec)):
+        dtype = torch.int16 if isinstance(spec, ToDctSpec) else torch.uint8
+        return (bsz, spec.hb + spec.hb // 2, spec.wb, 1), dtype
+    return (bsz,) + _bucket_after(spec, hb, wb) + (c,), torch.uint8
+
+
+def _donated_out(spec, shape, donor):
+    """The view of the batch region `donor` (flat uint8) that the last
+    launch writes into, or None when its output does not fit there or
+    its stage has no `out=` form (`donates`)."""
+    if not getattr(spec, "donates", False):
+        return None
+    oshape, dtype = _out_layout(spec, tuple(shape))
+    nbytes = int(np.prod(oshape)) * dtype.itemsize
+    if nbytes > donor.numel():
+        return None
+    return donor[:nbytes].view(dtype).view(oshape)
+
+
+def _run_steps(specs, steps: list, x, h, w, dyns, donor=None):
     """Launch `steps` (`launch_steps`); the last one writes uint8 (epilogue
-    fused). No steps return the input as it is."""
+    fused). No steps return the input as it is. `donor`: the staged batch
+    region (flat uint8) that the last launch of two or more may write its
+    output into (module docstring)."""
+    global _DONATED
     for i, luma in steps:
-        fused = {"luma": True} if luma else {}
-        x, h, w = specs[i].apply(x, h, w, dyns[i], out_u8=(i == steps[-1][0]), **fused)
+        kw = {"luma": True} if luma else {}
+        last = i == steps[-1][0]
+        if last and donor is not None and len(steps) >= 2:
+            out = _donated_out(specs[i], x.shape, donor)
+            if out is not None:
+                kw["out"] = out
+                with _LOCK:
+                    _DONATED += 1
+        x, h, w = specs[i].apply(x, h, w, dyns[i], out_u8=last, **kw)
     return x, h, w
 
 
-def _run_chain(specs, x, h, w, dyns):
+def _run_chain(specs, x, h, w, dyns, donor=None):
     """Run every live stage; the last one writes uint8 (epilogue fused).
     A chain of identity shrinks alone returns its uint8 input."""
     steps = launch_steps(specs, live_stages(specs, x.shape[1], x.shape[2]))
-    return _run_steps(specs, steps, x, h, w, dyns)
+    return _run_steps(specs, steps, x, h, w, dyns, donor)
 
 
 def pad_to_bucket(arr: np.ndarray) -> np.ndarray:
@@ -182,9 +251,10 @@ _TORCH_DTYPES = {
 }
 
 
-def _stage(arrays: list, device: torch.device) -> tuple:
+def _stage(arrays: list, device: torch.device, label=None) -> tuple:
     """Copy host arrays to `device` as ONE transfer on the current stream;
-    returns (typed device views, the host buffer).
+    returns (typed device views, the host buffer). The transfer is booked
+    in WIRE (h2d), under `label` when one is given.
 
     Each entry is an array, or a list of same-shaped arrays that lands as
     their stack (the batch, written straight into the buffer). The entries
@@ -208,6 +278,7 @@ def _stage(arrays: list, device: torch.device) -> tuple:
             hv[off:off + p.nbytes].view(p.dtype).reshape(p.shape)[...] = p
             off += p.nbytes
     dev = host.to(device, non_blocking=True) if pinned else host
+    WIRE.add("h2d", host.numel(), device=label)
     views = [dev[off:off + n].view(_TORCH_DTYPES[dt]).view(shape)
              for _, shape, dt, off, n in metas]
     return views, host
@@ -220,6 +291,11 @@ def _stack_dyns(plans: list) -> list:
         out.append({k: np.stack([np.asarray(p.stages[i].dyn[k]) for p in plans])
                     for k in st.dyn})
     return out
+
+
+def _book_d2h(host: torch.Tensor, label=None) -> None:
+    """Book one output's copy into host memory in WIRE (d2h)."""
+    WIRE.add("d2h", host.numel() * host.element_size(), device=label)
 
 
 class Launched:
@@ -243,15 +319,18 @@ def _stream(device: torch.device):
         return stream
 
 
-def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE, stream=None):
+def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE, stream=None,
+                 label=None, donate=None):
     """Stage + launch one batched chain WITHOUT waiting for it.
 
     arrs: HWC uint8 arrays, all with the same bucket shape and C (packed
     transports: the pre-padded packed buffers, with the image dims on the
     plan). plans: matching ImagePlans with identical spec_key(). stream:
     the CUDA stream of `device` to launch on (None: the device's side
-    stream). Returns a `Launched` (on a card, possibly still computing),
-    or None for an identity chain."""
+    stream). label: the device label its WIRE bytes are booked under
+    (None: unlabelled). donate: None follows `set_donation`; the sharded
+    and spatial launches pass False. Returns a `Launched` (on a card,
+    possibly still computing), or None for an identity chain."""
     specs = plans[0].spec_key()
     if not specs:
         return None
@@ -266,17 +345,21 @@ def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE, stream=None):
         w = np.array([a.shape[1] for a in arrs], dtype=np.int32)
     host_dyns = _stack_dyns(plans)
     flat = [batch, h, w] + [v for d in host_dyns for v in d.values()]
+    donate = _DONATE if donate is None else donate
     with _LOCK:
         _SIGNATURES.add((specs, (len(batch),) + batch[0].shape, str(device)))
     if device.type != "cuda":
-        return Launched(_run_staged(specs, _stage(flat, device)[0], host_dyns))
+        y = _run_staged(specs, _stage(flat, device, label)[0], host_dyns, donate)
+        _book_d2h(y, label)
+        return Launched(y)
     if stream is None:
         stream = _stream(device)
     with torch.cuda.stream(stream):
-        views, staged = _stage(flat, device)
-        y = _run_staged(specs, views, host_dyns)
+        views, staged = _stage(flat, device, label)
+        y = _run_staged(specs, views, host_dyns, donate)
         host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
         host.copy_(y, non_blocking=True)
+        _book_d2h(host, label)
         event = torch.cuda.Event(blocking=True)
         event.record(stream)
     return Launched(host, event, staged)
@@ -305,9 +388,10 @@ def launch_sharded(arrs: list, plans: list, mesh: Mesh, streams=None):
         if a == b:
             continue
         stream = streams[row] if streams is not None else None
-        parts.append((a, b, launch_batch(arrs[a:b], plans[a:b],
-                                         device=mesh.devices[row][0],
-                                         stream=stream)))
+        dev = mesh.devices[row][0]
+        parts.append((a, b, launch_batch(arrs[a:b], plans[a:b], device=dev,
+                                         stream=stream, label=str(dev),
+                                         donate=False)))
     return ShardedLaunch(parts)
 
 
@@ -414,7 +498,8 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
         hb, wb = bucket_shape(arr.shape[0], arr.shape[1])
     sharded, gather_at = spatial_split(specs, hb, wb, n)
     if not sharded:  # the first live stage has no W-sharded form
-        one = launch_batch([arr], [plan], device=devices[0], stream=streams[0])
+        one = launch_batch([arr], [plan], device=devices[0], stream=streams[0],
+                           label=str(devices[0]), donate=False)
         return SpatialLaunch(one.host, [one.event], [one.staged], 0,
                              type(specs[gather_at]).__name__)
     batch = arr if packed else pad_to_bucket(arr)
@@ -445,7 +530,7 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
         flat += [[p] for p in (left, right) if p is not None]
         sh = spatial.Shard(dev, stream, 0, 1, j * lw0)
         with spatial.on(stream):
-            views, buf = _stage(flat, dev)
+            views, buf = _stage(flat, dev, str(dev))
             it = iter(views)
             sh.x, sh.h, sh.w = next(it), next(it), next(it)
             dyns.append([{k: next(it) for k in d} for d in hd])
@@ -491,6 +576,7 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
         for j, sh in enumerate(shards):
             with spatial.on(sh.stream):
                 host[j].copy_(sh.x, non_blocking=sh.stream is not None)
+                _book_d2h(host[j], str(sh.device))
                 events.append(spatial.record(sh.stream))
         return SpatialLaunch(host, events, staged, n, None, windows,
                              specs[last].shard_assemble)
@@ -511,16 +597,19 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
         x, _, _ = _run_steps(specs, rest, x, shards[0].h, shards[0].w, dyns[0])
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=dev0.type == "cuda")
         host.copy_(x, non_blocking=s0 is not None)
+        _book_d2h(host, str(dev0))
         event = spatial.record(s0)
     return SpatialLaunch(host, [event], staged, 0, type(specs[gather_at]).__name__,
                          windows)
 
 
-def _run_staged(specs, views: list, host_dyns: list) -> torch.Tensor:
+def _run_staged(specs, views: list, host_dyns: list, donate: bool = False) -> torch.Tensor:
     staged = iter(views)
     x, ht, wt = next(staged), next(staged), next(staged)
     dyns = [{k: next(staged) for k in d} for d in host_dyns]
-    y, _, _ = _run_chain(specs, x, ht, wt, dyns)
+    # the batch region as flat bytes: the donated output's home
+    donor = x.reshape(-1).view(torch.uint8) if donate else None
+    y, _, _ = _run_chain(specs, x, ht, wt, dyns, donor)
     return y
 
 

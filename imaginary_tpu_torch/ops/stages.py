@@ -10,7 +10,9 @@ otherwise), padded to bucket dims; h and w are int32 [B] valid dims; dyn
 holds the stage's per-image params as tensors on the same device.
 `apply(x, h, w, dyn, out_u8)` returns (x, h, w); with `out_u8` the stage
 is the chain's last and also applies the uint8 epilogue (ToDctSpec, whose
-`out_dtype` is "int16", drains rounded int16 coefficients instead). Every
+`out_dtype` is "int16", drains rounded int16 coefficients instead). A
+stage that can end a chain (`donates`) also takes `out=`, the tensor its
+last kernel writes into (the chain runner's buffer donation). Every
 stage runs one or more of the port's CUDA kernels on a CUDA tensor and
 their plain versions on a CPU tensor (`kernels/`).
 
@@ -28,6 +30,13 @@ import numpy as np
 
 from imaginary_tpu_torch import kernels
 from imaginary_tpu_torch.options import Extend
+
+
+def _out_kw(out) -> dict:
+    """`out=` for a chain-ending kernel when the chain donates its staged
+    buffer (ops/chain.py); nothing otherwise, so the stages also run over
+    the plain versions (`kernels.reference`), which take no `out`."""
+    return {} if out is None else {"out": out}
 
 
 class _ShardForm:
@@ -101,9 +110,11 @@ class SampleSpec(_ShardForm):
     out_wb: int
     kernel: str = "lanczos3"
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
-        return kernels.resample(x, h, w, dyn["dst_h"], dyn["dst_w"],
-                                self.out_hb, self.out_wb, self.kernel, out_u8)
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
+        return kernels.resample(x, h, w, dyn["dst_h"], dyn["dst_w"], self.out_hb,
+                                self.out_wb, self.kernel, out_u8, **_out_kw(out))
 
     def shard_window(self, c0, c1, in_w, in_wb, dyn):
         # the union of the output columns' tap ranges
@@ -129,9 +140,11 @@ class ExtractSpec:
     out_hb: int
     out_wb: int
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
         out = kernels.gather(x, self.out_hb, self.out_wb, dyn["top"],
-                             dyn["left"], mode="window", out_u8=out_u8)
+                             dyn["left"], mode="window", out_u8=out_u8, **_out_kw(out))
         return out, dyn["new_h"], dyn["new_w"]
 
 
@@ -148,12 +161,14 @@ class EmbedSpec:
     out_wb: int
     mode: Extend = Extend.MIRROR
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
         mode = "mirror" if self.mode is Extend.MIRROR else "clamp"
         fill = dyn["fill"] if self.mode in _FILL_MODES else None
         out = kernels.gather(x, self.out_hb, self.out_wb, dyn["off_y"],
                              dyn["off_x"], h, w, mode=mode, fill=fill,
-                             out_u8=out_u8)
+                             out_u8=out_u8, **_out_kw(out))
         return out, dyn["canvas_h"], dyn["canvas_w"]
 
 
@@ -162,8 +177,10 @@ class FlipSpec(_ShardForm):
     """Vertical flip of the valid region; padding rows stay as they are
     (kernel K5, flip)."""
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
-        return kernels.orient(x, h, w, "flip", out_u8), h, w
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
+        return kernels.orient(x, h, w, "flip", out_u8, **_out_kw(out)), h, w
 
     def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
                     out_u8, impl=kernels):
@@ -176,8 +193,10 @@ class FlopSpec:
     """Horizontal flip of the valid region; padding columns stay as they
     are (kernel K5, flop)."""
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
-        return kernels.orient(x, h, w, "flop", out_u8), h, w
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
+        return kernels.orient(x, h, w, "flop", out_u8, **_out_kw(out)), h, w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,8 +204,10 @@ class TransposeSpec:
     """Swap H and W of the whole bucket, valid dims swapped with it
     (kernel K5, transpose)."""
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
-        return kernels.orient(x, h, w, "transpose", out_u8), w, h
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
+        return kernels.orient(x, h, w, "transpose", out_u8, **_out_kw(out)), w, h
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,8 +218,11 @@ class BlurSpec(_ShardForm):
 
     radius: int
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
-        return kernels.blur(x, h, w, dyn["sigma"], self.radius, out_u8), h, w
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
+        out = kernels.blur(x, h, w, dyn["sigma"], self.radius, out_u8, **_out_kw(out))
+        return out, h, w
 
     @property
     def shard_halo(self) -> int:
@@ -225,10 +249,12 @@ class CompositeSpec(_ShardForm):
     block_wb: int
     replicate: bool = False
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
         out = kernels.composite(x, dyn["overlay"], dyn["top"], dyn["left"],
                                 dyn["opacity"], dyn["block_h"],
-                                dyn["block_w"], self.replicate, out_u8)
+                                dyn["block_w"], self.replicate, out_u8, **_out_kw(out))
         return out, h, w
 
     def shard_dyn(self, dyn, col0):
@@ -251,9 +277,11 @@ class ShrinkBucketSpec(_ShardForm):
     out_hb: int
     out_wb: int
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
         out = kernels.gather(x, self.out_hb, self.out_wb, mode="window",
-                             out_u8=out_u8)
+                             out_u8=out_u8, **_out_kw(out))
         return out, h, w
 
     def shard_window(self, c0, c1, in_w, in_wb, dyn):
@@ -345,12 +373,14 @@ class ToYuv420Spec(_ShardForm):
     hb: int
     wb: int
 
-    def apply(self, x, h, w, dyn, out_u8: bool = True, luma: bool = False):
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = True, luma: bool = False, out=None):
         """`luma`: a GraySpec before this stage folded into it (the chain
         runner's `launch_steps`), applied to each pixel as K3 loads it."""
         if not out_u8:
             raise ValueError("ToYuv420Spec must end its chain")
-        return kernels.rgb_to_yuv420(x, h, w, self.hb, self.wb, luma), h, w
+        return kernels.rgb_to_yuv420(x, h, w, self.hb, self.wb, luma, **_out_kw(out)), h, w
 
     def shard_ok(self, lw, first):
         # a 2x2 chroma block never straddles two shards
@@ -390,18 +420,23 @@ class ToDctSpec:
     # the chain drains int16 coefficients, not uint8 pixels
     out_dtype = "int16"
 
-    def apply(self, x, h, w, dyn, out_u8: bool = True):
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = True, out=None):
         if not out_u8:
             raise ValueError("ToDctSpec must end its chain")
-        return kernels.to_dct(x, h, w, dyn["qy"], dyn["qc"], self.hb, self.wb), h, w
+        return kernels.to_dct(x, h, w, dyn["qy"], dyn["qc"], self.hb, self.wb,
+                              **_out_kw(out)), h, w
 
 
 @dataclasses.dataclass(frozen=True)
 class GraySpec(_ShardForm):
     """Rec.709 luma broadcast over RGB, alpha kept (kernel K8)."""
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
-        return kernels.gray(x, out_u8), h, w
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
+        return kernels.gray(x, out_u8, **_out_kw(out)), h, w
 
     def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
                     out_u8, impl=kernels):
@@ -418,9 +453,11 @@ class SmartExtractSpec:
     out_hb: int
     out_wb: int
 
-    def apply(self, x, h, w, dyn, out_u8: bool = False):
+    donates = True
+
+    def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
         ii = kernels.saliency_ii(x, h, w)
         top, left = kernels.window_argmax(ii, h, w, dyn["new_h"], dyn["new_w"])
         out = kernels.gather(x, self.out_hb, self.out_wb, top, left,
-                             mode="window", out_u8=out_u8)
+                             mode="window", out_u8=out_u8, **_out_kw(out))
         return out, dyn["new_h"], dyn["new_w"]

@@ -1,14 +1,24 @@
 """Application assembly and server lifecycle (the port's copy of
 `imaginary_tpu/web/app.py`; ref: server.go:69-174).
 
-`create_app` builds the reference's aiohttp application: the trace
-middleware outermost, the access log inside it, then the middleware
-chain, and the route table under --path-prefix (`/`, `/form`, `/health`,
-`/metrics` and the 18 image routes), and with --prewarm launches the
-common chains on the service's device before it returns, so before any
-server binds (prewarm.py). `serve` runs it until SIGINT or
-SIGTERM, with TLS when a cert and key are given (HTTP/1.1; h2 is a later
-slice), a periodic memory release, and a 5 s graceful drain.
+`create_app` builds the reference's aiohttp application: the qos policy
+(--qos-config) and the memory-pressure governor (--pressure-rss-mb), each
+once and shared by the trace middleware, the throttle, the service and
+its executor; the trace middleware outermost, the access log inside it,
+then the middleware chain, and the route table under --path-prefix (`/`,
+`/form`, `/health`, `/metrics` and the 18 image routes), and with
+--prewarm launches the common chains on the service's device before it
+returns, so before any server binds (prewarm.py). `serve` runs it until
+SIGINT or SIGTERM, with TLS when a cert and key are given (HTTP/1.1; h2
+is a later slice), a periodic memory release (engine/pressure.
+release_memory: gc.collect, then malloc_trim), and a graceful drain: on
+the signal `app["draining"]` is set (the trace middleware then answers
+image routes 503 with Retry-After while /health keeps answering), the
+listener stays open for DRAIN_NOTICE_S so clients and balancers meet
+that answer, and in-flight requests then get the reference's 5 s. The
+notice is the port's own: the reference closes its listener and its
+idle keep-alive connections at once, so its drain answer is seldom
+seen.
 `make_server` is the programmatic runner of the same application: it
 binds at once and serves on the thread that calls `serve_forever`.
 """
@@ -25,7 +35,9 @@ from typing import Optional
 
 from aiohttp import web
 
+from imaginary_tpu_torch.engine import pressure as pressure_mod
 from imaginary_tpu_torch.ops.plan import OPERATION_NAMES
+from imaginary_tpu_torch.qos.tenancy import load_policy
 from imaginary_tpu_torch.web.accesslog import access_log_middleware
 from imaginary_tpu_torch.web.config import ServerOptions
 from imaginary_tpu_torch.web.handlers import (
@@ -40,6 +52,7 @@ from imaginary_tpu_torch.web.middleware import build_middlewares, trace_middlewa
 ALL_OPERATIONS = OPERATION_NAMES + ("info", "pipeline")
 
 CLIENT_MAX_SIZE = 1 << 26  # 64 MB body cap (ref: source_body.go:13)
+DRAIN_NOTICE_S = 0.5  # seconds the draining server keeps answering (serve)
 
 
 def tune_gc_for_serving() -> None:
@@ -51,15 +64,21 @@ def tune_gc_for_serving() -> None:
 
 
 def create_app(o: ServerOptions, log_stream=None) -> web.Application:
+    # the qos policy and the pressure governor, built once and handed to
+    # everyone who enforces a slice of them (None when their flags are
+    # off: every consumer takes its plain path)
+    qos = load_policy(o.qos_config)
+    governor = pressure_mod.from_options(o)
     # the trace middleware is outermost: it assigns the request identity
     # and installs the contextvar trace before the access log (which
     # reads the id) and everything inside it runs
     app = web.Application(
-        middlewares=[trace_middleware(o), access_log_middleware(o.log_level, log_stream)]
-        + build_middlewares(o),
+        middlewares=[trace_middleware(o, qos=qos, pressure=governor),
+                     access_log_middleware(o.log_level, log_stream)]
+        + build_middlewares(o, qos=qos),
         client_max_size=CLIENT_MAX_SIZE,
     )
-    service = ImageService(o)
+    service = ImageService(o, qos=qos, pressure=governor)
     app["service"] = service
     app["options"] = o
     if o.prewarm:
@@ -144,18 +163,6 @@ def make_ssl_context(o: ServerOptions) -> Optional[ssl.SSLContext]:
     return ctx
 
 
-def release_memory() -> None:
-    """Collect, then hand freed heap pages back to the kernel where glibc
-    allows it (role of the reference's FreeOSMemory ticker)."""
-    gc.collect()
-    try:
-        import ctypes
-
-        ctypes.CDLL("libc.so.6").malloc_trim(0)
-    except (OSError, AttributeError):
-        pass
-
-
 async def serve(o: ServerOptions, mrelease: int = 30) -> None:
     """Run until SIGINT/SIGTERM; graceful 5 s drain (ref: server.go:144-165)."""
     import signal
@@ -172,9 +179,10 @@ async def serve(o: ServerOptions, mrelease: int = 30) -> None:
         loop.add_signal_handler(sig, stop.set)
 
     async def memory_release():
+        # the reference's FreeOSMemory ticker, returning memory for real
         while not stop.is_set():
             await asyncio.sleep(max(mrelease, 1))
-            release_memory()
+            pressure_mod.release_memory()
 
     ticker = asyncio.create_task(memory_release()) if mrelease > 0 else None
     scheme = "https" if o.cert_file and o.key_file else "http"
@@ -183,8 +191,12 @@ async def serve(o: ServerOptions, mrelease: int = 30) -> None:
           f"(device {app['service'].device})", flush=True)
     await stop.wait()
     print("shutting down server", flush=True)
+    # the drain: image work arriving in the notice gets a fast 503 with
+    # Retry-After (trace middleware), not a reset connection
+    app["draining"] = True
     if ticker:
         ticker.cancel()
+    await asyncio.sleep(DRAIN_NOTICE_S)
     await asyncio.wait_for(runner.cleanup(), timeout=5)
 
 

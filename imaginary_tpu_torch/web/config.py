@@ -2,7 +2,8 @@
 ref: ServerOptions, server.go:20-51).
 
 Immutable after startup and threaded through every constructor. Trimmed
-to the fields the port's HTTP layer and its URL sources read, plus the
+to the fields the port's HTTP layer, its URL sources and its admission
+(qos, the memory-pressure governor, --max-queue-ms) read, plus the
 executor, lane, spatial and transport knobs the port serves with and its
 own `device`.
 The reference's --gzip, --http-read-timeout and --http-write-timeout
@@ -64,11 +65,29 @@ class ServerOptions:
     # warm the common chains on the card before the server binds
     # (prewarm.py)
     prewarm: bool = False
+    # --- admission (web/handlers.py, engine/pressure.py, qos/) -------------
+    # shed (503 + Retry-After) when the estimated queueing delay exceeds
+    # this many ms, graded per qos class; 0 = off
+    max_queue_ms: float = 0.0
+    # the memory-pressure governor; pressure_rss_mb 0 builds none
+    pressure_rss_mb: float = 0.0
+    pressure_hbm_mb: float = 0.0
+    pressure_elevated_frac: float = 0.75
+    pressure_critical_frac: float = 0.90
+    pressure_batch_mb: float = 32.0
+    pressure_oversize_mpix: float = 4.0
+    pressure_pixel_frac: float = 0.25
+    # the multi-tenant qos policy: inline JSON or a file path; "" = off
+    qos_config: str = ""
     # --- the device and the executor (engine/executor.py) -------------------
     device: str = "cuda"  # torch device of the kernels: cuda, cuda:N or cpu
+    batch_window_ms: float = 3.0  # the convoy policy's window
     max_batch: int = MAX_BATCH
+    batch_policy: str = "continuous"  # or "convoy"
     batch_form_ms: float = 5.0
     max_inflight: int = 4
+    donation: bool = True  # the chain's last launch into its staged buffer
+    arena_mb: float = 0.0  # per-thread native codec scratch cap, 0 = unlimited
     # Multi-GPU serving (engine/lanes.py): "off", "lanes", "sharded", "auto"
     mesh_policy: str = "off"
     n_devices: int = 0
@@ -84,6 +103,7 @@ class ServerOptions:
     # compressed-domain transport both ways (pipeline.py)
     transport_dct: bool = False
     transport_dct_egress: bool = False
+    dct_native: str = "auto"  # the entropy decoder arm (codecs/jpeg_dct.py)
     # --- placement and the card's fault domain (engine/executor.py) --------
     # Host placement: the cost model's spill to the host interpreter, the
     # breaker outage's host serving and the host route of an item that

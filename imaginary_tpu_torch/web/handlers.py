@@ -22,6 +22,21 @@ in the executor, on the service's device. Every processed image answers
 bisection's item, integrity's verified copy); the value rides on the
 request's trace as `placement`.
 
+Admission (`_admit`, the reference's handlers.py:352-470, in its
+order), before the source is fetched: the `qos.admit` failpoint (an
+injected shed, 503 + Retry-After 1); with a memory-pressure governor,
+the critical rung's shed of batch-class qos work (503 + Retry-After 2);
+`--max-queue-ms`, graded per qos class (qos/shed.py: batch sheds at half
+the budget, standard at three quarters), a 503 with Retry-After from the
+queue estimate; the request deadline's admission below; then the class's
+`admitted` count. With a governor, `prepare` arms the codec's pre-decode
+dimension gate at --max-allowed-resolution (an over-cap source is a 413,
+where the reference's plain guard answers 422), and at critical clamps
+both the source and the requested output to `pressure_pixel_frac` of it
+(413 + Retry-After 2). The governor's transition callback empties the
+placeholder cache on entering critical (the cache tiers' half waits for
+the port's cache). A tenant over its queue share gets the executor's 503.
+
 With `--request-timeout` set, the request's deadline (deadline.py) is
 enforced at each hop here: admission sheds a 503 with Retry-After when
 the estimated queue delay already exceeds the remaining budget (a 504
@@ -52,11 +67,13 @@ import numpy as np
 import torch
 from aiohttp import web
 
-from imaginary_tpu_torch import Version, codecs, pipeline
+from imaginary_tpu_torch import Version, codecs, failpoints, pipeline
 from imaginary_tpu_torch import deadline as deadline_mod
+from imaginary_tpu_torch.codecs import jpeg_dct, native_backend
 from imaginary_tpu_torch.engine import Executor, ExecutorConfig, host_exec
 from imaginary_tpu_torch.engine import executor as executor_mod
 from imaginary_tpu_torch.engine import integrity as integrity_mod
+from imaginary_tpu_torch.engine import pressure as pressure_mod
 from imaginary_tpu_torch.engine.timing import attribute
 from imaginary_tpu_torch.errors import (
     ErrEmptyBody,
@@ -75,8 +92,11 @@ from imaginary_tpu_torch.imgtype import (
     is_image_mime_type_supported,
 )
 from imaginary_tpu_torch.obs import trace as obs_trace
+from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.options import ImageOptions
 from imaginary_tpu_torch.params import ParamError, build_params_from_query
+from imaginary_tpu_torch.qos.shed import shed_for_pressure
+from imaginary_tpu_torch.qos.tenancy import load_policy
 from imaginary_tpu_torch.web.config import ServerOptions
 from imaginary_tpu_torch.web.health import get_health_stats
 from imaginary_tpu_torch.web.middleware import (
@@ -145,12 +165,15 @@ class ImageService:
     """Owns the micro-batch executor (on `o.device`, or one lane per mesh
     entry with a `mesh_policy`), the host thread pool and the sources.
     Keyword arguments override fields of `o` (ServerOptions() when None).
-    The dct transport switches are process-wide
-    (`pipeline.set_transport_dct`), set here from the options as the
+    `qos` and `pressure` are the app's policy and governor (create_app
+    builds each once); a service built alone derives them from `o`. The
+    dct transport switches, the dct decoder arm, donation and the codec
+    arena's cap are process-wide, set here from the options as the
     reference's service sets them. `close()` shuts the executor and the
     pool down."""
 
-    def __init__(self, o: Optional[ServerOptions] = None, **overrides):
+    def __init__(self, o: Optional[ServerOptions] = None, qos=None, pressure=None,
+                 **overrides):
         o = dataclasses.replace(o or ServerOptions(), **overrides)
         if o.transport_dct_egress and not o.transport_dct:
             raise ValueError("the dct egress requires the dct transport")
@@ -167,8 +190,19 @@ class ImageService:
         if self.integrity is not None or o.failslow_ratio > 0.0:
             integrity_mod.golden()
         host_exec.set_dct_spill(o.host_dct_spill)
+        self.qos = qos if qos is not None else load_policy(o.qos_config)
+        self.pressure = pressure if pressure is not None else pressure_mod.from_options(o)
+        if self.pressure is not None:
+            self.pressure.on_transition(self._apply_pressure)
+        jpeg_dct.set_decoder(o.dct_native)
+        if o.arena_mb > 0:
+            native_backend.set_arena_cap(o.arena_mb)
+        # before the executor exists, so its first launch serves as the
+        # server will
+        chain_mod.set_donation(o.donation)
         self.executor = Executor(ExecutorConfig(
-            max_batch=o.max_batch, max_form_ms=o.batch_form_ms,
+            window_ms=o.batch_window_ms, max_batch=o.max_batch,
+            batch_policy=o.batch_policy, max_form_ms=o.batch_form_ms,
             max_inflight=max(1, o.max_inflight), device=str(self.device),
             mesh_policy=o.mesh_policy, n_devices=o.n_devices, devices=o.devices,
             lane_form_ms=o.lane_form_ms, lane_inflight=max(1, o.lane_inflight),
@@ -180,7 +214,7 @@ class ImageService:
             force_host=o.force_host, hedge_threshold_ms=o.hedge_threshold_ms,
             hedge_budget=o.hedge_budget, integrity=self.integrity, failslow_ratio=o.failslow_ratio,
             failslow_min_samples=o.failslow_min_samples,
-            failslow_share=o.failslow_share))
+            failslow_share=o.failslow_share, qos=self.qos, pressure=self.pressure))
         pipeline.set_transport_dct(o.transport_dct)
         pipeline.set_transport_dct_egress(o.transport_dct_egress)
         workers = o.cpus if o.cpus > 0 else max(4, available_cpus())
@@ -195,6 +229,15 @@ class ImageService:
         self._placeholders: collections.OrderedDict = collections.OrderedDict()
         self._placeholder_lock = threading.Lock()
         self._closed = False
+
+    def _apply_pressure(self, _old: int, new: int) -> None:
+        """The governor's transition callback: entering critical empties
+        the placeholder cache, the port's one cache (the reference's
+        cache tiers shrink here too; their half waits for the port's
+        cache)."""
+        if new >= pressure_mod.LEVEL_CRITICAL:
+            with self._placeholder_lock:
+                self._placeholders.clear()
 
     def prewarm(self) -> dict:
         """--prewarm (prewarm.py): the common chains on this service's
@@ -248,9 +291,10 @@ class ImageService:
             if o.enable_url_signature:
                 check_url_signature(request, o)
             validate_image_request(request, o)
-            dl = deadline_mod.current()
-            if dl is not None:
-                self._admit(dl)
+            await self._admit()
+            if self.pressure is not None and o.max_allowed_pixels > 0:
+                # the pre-decode dimension gate, armed before the fetch
+                codecs.set_decode_pixel_cap(o.max_allowed_pixels)
             with obs_trace.span("fetch"):
                 buf = await self._get_source_image(request)
             if not buf:
@@ -259,18 +303,61 @@ class ImageService:
         except ImageError as e:
             return error_response(request, e, o)
 
-    def _admit(self, dl) -> None:
-        """Deadline admission, before any work: a 504 when the budget is
-        already spent, and a 503 with Retry-After when the estimated
-        queue delay exceeds what is left of it (a 503 now beats a sure
-        504 later)."""
-        est_ms = self.estimated_queue_ms()
-        rem = dl.note("admission")
-        if rem <= 0.0:
-            raise dl.error("admission")
-        if est_ms > rem * 1000.0:
-            raise new_error("Server queue exceeds request deadline, retry later",
-                            503, headers={"Retry-After": _retry_after_s(est_ms)})
+    async def _admit(self) -> None:
+        """Admission before any work (module docstring), in the
+        reference's order; raises the shed's ImageError. The deadline's
+        rung: a 504 when the budget is already spent, and a 503 with
+        Retry-After when the estimated queue delay exceeds what is left of
+        it (a 503 now beats a sure 504 later)."""
+        o = self.options
+        tr = obs_trace.current()
+        dl = deadline_mod.current()
+        qos = self.qos
+        kidx = 1  # qos.CLASSES' "standard" when qos is off
+        if qos is not None:
+            ten = getattr(tr, "tenant", None) if tr is not None else None
+            kidx = (ten or qos.default).class_index
+
+        def shed(message: str, retry_after: str) -> ImageError:
+            if qos is not None:
+                qos.stats.note_shed(kidx)
+            if tr is not None:
+                tr.annotate(placement_attempts=["shed_503"])
+            return new_error(message, 503, headers={"Retry-After": retry_after})
+
+        try:
+            # an injected error is a shed decision, with the overload's
+            # 503 contract
+            await failpoints.ahit("qos.admit")
+        except failpoints.FailpointError:
+            raise shed("Request shed by admission control, retry later", "1") from None
+        gov = self.pressure
+        if gov is not None:
+            plevel = gov.level()
+            if tr is not None and tr.enabled:
+                tr.annotate(pressure=pressure_mod.LEVEL_NAMES[plevel])
+            if qos is not None and shed_for_pressure(plevel, kidx):
+                gov.note_shed()
+                raise shed("Server under memory pressure, batch work shed, retry later",
+                           "2")
+        est_ms = None
+        if o.max_queue_ms > 0 or dl is not None:
+            est_ms = self.estimated_queue_ms()
+        limit_ms = o.max_queue_ms
+        if qos is not None and o.max_queue_ms > 0:
+            # the lowest class sheds first (qos/shed.py)
+            limit_ms = qos.shed_threshold_ms(kidx, o.max_queue_ms)
+        if o.max_queue_ms > 0 and est_ms > limit_ms:
+            raise shed("Server queue is full, retry later", _retry_after_s(est_ms))
+        if dl is not None:
+            rem = dl.note("admission")
+            if rem <= 0.0:
+                raise dl.error("admission")
+            if est_ms > rem * 1000.0:
+                raise shed("Server queue exceeds request deadline, retry later",
+                           _retry_after_s(est_ms))
+        if qos is not None:
+            qos.stats.note_admitted(kidx)
 
     async def _get_source_image(self, request: web.Request) -> bytes:
         try:
@@ -401,15 +488,40 @@ class ImageService:
         elif opts.type and image_type(opts.type) is ImageType.UNKNOWN:
             raise ErrOutputFormat
         # resolution guard (ref: controllers.go:101-110); the header probe's
-        # metadata is reused downstream, so the path parses headers once
+        # metadata is reused downstream, so the path parses headers once.
+        # With a governor (module docstring): the codec's pre-decode gate,
+        # a 413 past the cap, and at critical the pixel clamp on the
+        # source and on the requested output
+        gov = self.pressure
+        limit_mpix = o.max_allowed_pixels
+        clamp_mpix = 0.0
+        if gov is not None and limit_mpix > 0:
+            codecs.set_decode_pixel_cap(limit_mpix)
+            if gov.level() >= pressure_mod.LEVEL_CRITICAL:
+                clamp_mpix = limit_mpix * gov.config.pixel_frac
+        if clamp_mpix > 0.0:
+            out_w, out_h = opts.width or 0, opts.height or 0
+            if out_w > 0 and out_h > 0 and out_w * out_h / 1e6 > clamp_mpix:
+                gov.note_pixel_clamp()
+                raise new_error("Requested output resolution exceeds the memory-"
+                                "pressure admission clamp, retry later", 413,
+                                headers={"Retry-After": "2"})
         meta = None
-        if o.max_allowed_pixels > 0:
+        if limit_mpix > 0:
             try:
                 meta = codecs.probe_fast(buf)
-                if meta.width * meta.height / 1_000_000.0 > o.max_allowed_pixels:
+                src_mpix = meta.width * meta.height / 1_000_000.0
+                if clamp_mpix > 0.0 and src_mpix > clamp_mpix:
+                    gov.note_pixel_clamp()
+                    raise new_error("Image resolution exceeds the memory-pressure "
+                                    "admission clamp, retry later", 413,
+                                    headers={"Retry-After": "2"})
+                if src_mpix > limit_mpix:
+                    if gov is not None:
+                        raise new_error("Image resolution is too big", 413)
                     raise ErrResolutionTooBig
             except ImageError as e:
-                if e is ErrResolutionTooBig or e.code == 501:
+                if e is ErrResolutionTooBig or e.code in (413, 501):
                     raise
                 meta = None  # probe failure falls through; the decode raises
         return Prepared(opts, vary, meta)

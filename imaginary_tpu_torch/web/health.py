@@ -3,13 +3,15 @@ ref: health.go:17-63).
 
 The reference's keys for what the port has: process RSS, threads, GC
 collections, the serving process (`worker` and `epoch`: a single process
-is worker 0 of epoch 0), the device inventory, the executor's block, the
-fault domains (`deviceHealth`), integrity's counters with `--integrity`,
+is worker 0 of epoch 0), the device inventory, the executor's block (with
+the link ledger `wire_bytes`/`wire_transfers`, donation and the pressure
+rungs' counts), the fault domains (`deviceHealth`), integrity's counters
+with `--integrity`, the qos block with `--qos-config`, the pressure
+governor's with `--pressure-rss-mb`, the native codec's scratch `arena`,
 the stage times and the estimated queueing delay. Beside them, the
 port's own: the device, each kernel's launch count, the codec route of
 each format and the dct transport's switches.
-The reference's `cache`, `arena` and `eventLoop` blocks wait for their
-modules.
+The reference's `cache` and `eventLoop` blocks wait for their modules.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import time
 import torch
 
 from imaginary_tpu_torch import codecs, kernels, pipeline
+from imaginary_tpu_torch.codecs import native_backend
 from imaginary_tpu_torch.engine.timing import TIMES
 
 
@@ -64,6 +67,13 @@ def get_health_stats(service) -> dict:
     }
     if executor.integrity is not None:  # --integrity's counters
         stats["integrity"] = executor.integrity.snapshot()
+    if service.qos is not None:  # per-class counters and queue depths
+        stats["qos"] = service.qos.stats.to_dict()
+    if service.pressure is not None:  # the rung, its signals and its actions
+        stats["pressure"] = service.pressure.snapshot()
+    arena = native_backend.arena_stats()
+    if arena is not None:  # the native codec's scratch arenas
+        stats["arena"] = arena
     if cuda:
         stats["deviceName"] = torch.cuda.get_device_name(device)
         stats["allocatedDeviceMb"] = round(

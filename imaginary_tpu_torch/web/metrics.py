@@ -6,16 +6,17 @@ per family, label values escaped, families grouped):
 
   1. The /health mirror: the same numbers /health serves, as gauges and
      counters under the `imaginary_tpu_` namespace (executor counters,
-     per-lane families, the fault domains, the byte-touch ledger by
-     stage, per-stage latency percentile gauges).
+     per-lane families, the fault domains, the link ledger by direction,
+     the byte-touch ledger by stage, the qos classes, the pressure
+     governor, the codec arena, per-stage latency percentile gauges).
   2. The obs registry (obs/histogram.py): fixed-bucket cumulative
      histograms (`imaginary_tpu_request_duration_seconds`,
      `imaginary_tpu_stage_duration_seconds{stage=}`) and the RED counters
      per route x status class.
 
-Families of subsystems the port has not ported (caches, qos, pressure,
-integrity, fleet, slo, cost, the event loop probe) are absent, as the
-reference leaves them out when the subsystem is off.
+Families of subsystems the port has not ported (caches, fleet, slo,
+cost, the event loop probe) are absent, as the reference leaves them out
+when the subsystem is off.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ _EXEC_GAUGES = {
     "host_ms_per_mpix", "host_inflight", "host_owed_mpix",
     "host_spill_p50_ms", "host_spill_p99_ms",
     "batch_form_p50_ms", "batch_form_p99_ms",
-    "dispatch_wait_p50_ms", "dispatch_wait_p99_ms", "mesh_generation",
+    "dispatch_wait_p50_ms", "dispatch_wait_p99_ms", "donation_enabled",
+    "mesh_generation",
 }
 
 
@@ -79,8 +81,16 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
     device_health: dict = {}
     hedge_outcomes: dict = {}
     integrity: dict = {}
+    wire: dict = {}
+    wire_by_device: dict = {}
+    qos_classes: dict = {}
+    pressure: dict = {}
+    arena: dict = {}
+    oom_splits = None
     for key, value in stats.items():
         if key == "executor" and isinstance(value, dict):
+            # the headline counter also rides under its own name
+            oom_splits = value.get("oom_splits")
             for k, v in value.items():
                 if k == "lanes" and isinstance(v, list):
                     lanes_list = v
@@ -93,6 +103,13 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
                     # stage-labeled families, below
                     copies[k] = v
                     continue
+                if k in ("wire_bytes", "wire_transfers") and isinstance(v, dict):
+                    # direction-labeled families, below
+                    wire[k] = v
+                    continue
+                if k == "wire_bytes_by_device" and isinstance(v, dict):
+                    wire_by_device = v
+                    continue
                 mtype = "gauge" if k in _EXEC_GAUGES else "counter"
                 x.emit(f"imaginary_tpu_executor_{_snake(k)}", v, mtype=mtype,
                        help_text=f"Executor {k.replace('_', ' ')} (see /health).")
@@ -100,6 +117,12 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
             device_health = value
         elif key == "integrity" and isinstance(value, dict):
             integrity = value
+        elif key == "qos" and isinstance(value, dict):
+            qos_classes = value.get("classes", {})
+        elif key == "pressure" and isinstance(value, dict):
+            pressure = value
+        elif key == "arena" and isinstance(value, dict):
+            arena = value
         elif key == "stageTimesMs" and isinstance(value, dict):
             for stage, pcts in value.items():
                 lab = escape_label_value(stage)
@@ -118,6 +141,59 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
         else:
             x.emit(f"imaginary_tpu_{_snake(key)}", value,
                    help_text=f"{key} (see /health).")
+    _qos_help = {
+        "queued": "Requests waiting in the executor intake queue per class.",
+        "admitted": "Requests that passed the admission gate per class.",
+        "shed": "Requests shed 503 by overload/admission control per class.",
+        "share_rejected": "Queue puts rejected by a tenant share cap.",
+        "rate_limited": "Requests 429d by the per-tenant GCRA per class.",
+        "dispatched": "Items popped from the qos scheduler per class.",
+    }
+    for metric, help_text in _qos_help.items():
+        for cls, counters in qos_classes.items():
+            if metric not in counters:
+                continue
+            name = "imaginary_tpu_qos_" + (metric if metric == "queued"
+                                           else metric + "_total")
+            x.emit(name, counters[metric], f'class="{escape_label_value(cls)}"',
+                   mtype="gauge" if metric == "queued" else "counter",
+                   help_text=help_text)
+    for direction, v in sorted(wire.get("wire_bytes", {}).items()):
+        x.emit("imaginary_tpu_wire_bytes_total", v,
+               f'direction="{escape_label_value(direction)}"', mtype="counter",
+               help_text="Bytes actually staged across the device link "
+                         "(h2d = host-to-device batch stages, d2h = "
+                         "result drains).")
+    for direction, v in sorted(wire.get("wire_transfers", {}).items()):
+        x.emit("imaginary_tpu_wire_transfers_total", v,
+               f'direction="{escape_label_value(direction)}"', mtype="counter",
+               help_text="Device-link transfer operations by direction.")
+    for direction, per_dev in sorted(wire_by_device.items()):
+        for dev, v in sorted(per_dev.items()):
+            x.emit("imaginary_tpu_wire_device_bytes_total", v,
+                   f'direction="{escape_label_value(direction)}",'
+                   f'device="{escape_label_value(str(dev))}"', mtype="counter",
+                   help_text="Device-link bytes attributed to one device "
+                             "(the sharded and spatial launches).")
+    if arena:
+        for k, kind, text in (
+                ("reuses", "counter", "Native codec-scratch requests served from "
+                                      "the thread-local arena without allocating."),
+                ("misses", "counter", "Native codec-scratch requests that had to "
+                                      "grow an arena slot (cold thread or "
+                                      "high-water bump)."),
+                ("evictions", "counter", "Arena trims forced by the --arena-mb "
+                                         "per-thread cap (slots released back "
+                                         "to the allocator)."),
+                ("bytes", "gauge", "High-water bytes currently held by codec "
+                                   "scratch arenas across threads."),
+                ("cap_bytes", "gauge", "Configured per-thread arena cap in bytes "
+                                       "(0 = unlimited).")):
+            x.emit(f"imaginary_tpu_arena_{k}" + ("_total" if kind == "counter" else ""),
+                   arena.get(k, 0), mtype=kind, help_text=text)
+    if oom_splits is not None:
+        x.emit("imaginary_tpu_oom_splits_total", oom_splits, mtype="counter",
+               help_text="Chunk bisections performed by OOM recovery.")
     # per-lane families, one loop per family so each family's samples
     # stay contiguous
     for s in lanes_list:
@@ -195,6 +271,26 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
                 ("poison_isolated", "counter", "Inputs the bisection convicted.")):
             x.emit(f"imaginary_tpu_integrity_{k}" + ("_total" if kind == "counter" else ""),
                    integrity.get(k, 0), mtype=kind, help_text=text)
+    if pressure:
+        x.emit("imaginary_tpu_pressure_state", pressure.get("state", 0),
+               help_text="Memory-pressure rung (0=ok 1=elevated 2=critical).")
+        x.emit("imaginary_tpu_pressure_rss_mb", pressure.get("rss_mb", 0.0),
+               help_text="Sampled process RSS in MB (governor view).")
+        x.emit("imaginary_tpu_pressure_rss_limit_mb", pressure.get("rss_limit_mb", 0.0),
+               help_text="Configured RSS ceiling in MB.")
+        x.emit("imaginary_tpu_pressure_ratio", pressure.get("ratio", 0.0),
+               help_text="Worst-signal pressure ratio (used/limit).")
+        for rung, v in sorted((pressure.get("transitions") or {}).items()):
+            x.emit("imaginary_tpu_pressure_transitions_total", v,
+                   f'level="{escape_label_value(rung)}"', mtype="counter",
+                   help_text="Entries into each pressure rung.")
+        x.emit("imaginary_tpu_pressure_batch_sheds_total",
+               pressure.get("batch_sheds", 0), mtype="counter",
+               help_text="Batch-class requests shed 503 at critical pressure.")
+        x.emit("imaginary_tpu_pressure_pixel_clamps_total",
+               pressure.get("pixel_clamps", 0), mtype="counter",
+               help_text="Requests rejected 413 by the critical-rung "
+                         "pixel-admission clamp.")
     for labels, v in stage_total:
         x.emit("imaginary_tpu_stage_total", v, labels, mtype="counter",
                help_text="Samples recorded per pipeline stage.")

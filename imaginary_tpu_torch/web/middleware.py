@@ -1,11 +1,13 @@
 """Middleware chain (the port's copy of `imaginary_tpu/web/middleware.py`;
 ref: middleware.go:21-245).
 
-The outermost `trace_middleware` assigns the request identity and
-emits Server-Timing, the request-duration histogram and the RED
-counters. Inside it, `build_middlewares` composes in the reference's
-order: request validation -> default headers -> cache headers -> API
-key -> CORS -> throttle -> endpoint disabling. The HMAC URL signature
+The outermost `trace_middleware` assigns the request identity (and,
+with a qos policy, the tenant), stamps the memory-pressure rung, sheds
+image work with a 503 while the server drains for shutdown, and emits
+Server-Timing, the request-duration histogram and the RED counters.
+Inside it, `build_middlewares` composes in the reference's order:
+request validation -> default headers -> cache headers -> API key ->
+CORS -> throttle (keyed by tenant with qos) -> endpoint disabling. The HMAC URL signature
 check and the image-request validation apply to image routes
 (`web/handlers.py`).
 """
@@ -68,8 +70,12 @@ class GCRARateLimiter:
         self._tat: dict = {}
         self._lock = threading.Lock()
 
-    def allow(self, key: str):
-        """Returns (allowed, retry_after_seconds)."""
+    def allow(self, key: str, emission: float = None, tau: float = None):
+        """Returns (allowed, retry_after_seconds). emission/tau override
+        this limiter's own per call (the qos layer's per-tenant rates over
+        one shared store, qos/limiter.py)."""
+        emission = self.emission if emission is None else emission
+        tau = self.tau if tau is None else tau
         now = time.monotonic()
         with self._lock:
             if len(self._tat) >= self.MAX_KEYS and key not in self._tat:
@@ -79,9 +85,9 @@ class GCRARateLimiter:
                                   reverse=True)[: self.MAX_KEYS // 2]
                     self._tat = dict(keep)
             tat = max(self._tat.get(key, now), now)
-            if tat - now > self.tau:
-                return False, tat - self.tau - now
-            self._tat[key] = tat + self.emission
+            if tat - now > tau:
+                return False, tat - tau - now
+            self._tat[key] = tat + emission
             return True, 0.0
 
 
@@ -116,13 +122,19 @@ def _route_label(request: web.Request) -> str:
     return canonical or "unmatched"
 
 
-def trace_middleware(o: ServerOptions):
+def trace_middleware(o: ServerOptions, qos=None, pressure=None):
     """Outermost middleware: request identity and trace lifecycle.
 
     Assigns or propagates X-Request-ID and W3C traceparent and installs
     the contextvar-carried RequestTrace that every inner layer records
     spans into (the access log runs inside it and reads the id), with the
-    request's deadline when --request-timeout is set. On the way out it
+    request's deadline when --request-timeout is set. With a qos policy
+    the tenant is resolved here and rides the trace (the throttle, the
+    admission gate and the executor's scheduler read it); with a
+    pressure governor every traced request carries the rung it was
+    admitted under. While the server drains for shutdown
+    (`app["draining"]`), image routes answer 503 with Retry-After and the
+    public paths (/health) keep answering. On the way out it
     echoes X-Request-ID, emits Server-Timing, observes the
     request-duration histogram (with the request's identity as a bucket
     exemplar when tracing is on) and the RED counters, and writes the
@@ -138,6 +150,15 @@ def trace_middleware(o: ServerOptions):
             traceparent=request.headers.get("traceparent", ""),
             enabled=o.trace_enabled,
         )
+        if qos is not None:
+            ten = qos.resolve(request)
+            tr.tenant = ten
+            if tr.enabled:
+                tr.annotate(tenant=ten.name, qos_class=ten.klass)
+        if pressure is not None and tr.enabled:
+            # the rung this request was admitted under (the image handler
+            # re-stamps after its own sample)
+            tr.annotate(pressure=pressure.level_name())
         # the end-to-end deadline, minted next to the request id: the
         # server default, lowered (never raised) by X-Request-Timeout
         budget = deadline_mod.resolve_budget(
@@ -149,6 +170,18 @@ def trace_middleware(o: ServerOptions):
         status = 500  # a non-HTTP exception books as a 500
         resp = None
         try:
+            if request.app.get("draining") and not is_public_path(o, request.path):
+                # the shutdown drain: new image work is shed fast, with the
+                # Retry-After the other 503s carry (another instance takes
+                # the retry); /health stays live so a balancer sees the
+                # drain itself
+                from imaginary_tpu_torch.errors import new_error
+
+                resp = error_response(
+                    request, new_error("Server is shutting down, retry later", 503,
+                                       headers={"Retry-After": "2"}), o)
+                status = resp.status
+                return resp
             resp = await handler(request)
             status = resp.status
             return resp
@@ -182,7 +215,7 @@ def trace_middleware(o: ServerOptions):
     return mw
 
 
-def build_middlewares(o: ServerOptions) -> list:
+def build_middlewares(o: ServerOptions, qos=None) -> list:
     """The chain, outermost first."""
     mws = [_validate_request(o), _default_headers(o)]
     if o.http_cache_ttl >= 0:
@@ -191,8 +224,11 @@ def build_middlewares(o: ServerOptions) -> list:
         mws.append(_authorize(o))
     if o.cors:
         mws.append(_cors(o))
-    if o.concurrency > 0:
-        mws.append(_throttle(o))
+    # the throttle installs for the global --concurrency, and also when a
+    # qos tenant carries its own rate (its contract binds with no global
+    # ceiling)
+    if o.concurrency > 0 or (qos is not None and qos.any_rate()):
+        mws.append(_throttle(o, qos))
     if o.endpoints:
         mws.append(_endpoints_guard(o))
     return mws
@@ -270,15 +306,32 @@ def _cors(o: ServerOptions):
     return mw
 
 
-def _throttle(o: ServerOptions):
-    """The reference's method-keyed GCRA on the global --concurrency and
-    --burst. The 429 carries the JSON error body (or the placeholder, when
-    enabled) like every other terminal error."""
+def _throttle(o: ServerOptions, qos=None):
+    """Without qos: the reference's method-keyed GCRA on the global
+    --concurrency and --burst. With qos: keyed by the tenant the trace
+    middleware stamped, each tenant's rate and burst overriding the
+    global ones (qos/limiter.py), and counted per class. The 429 carries
+    the JSON error body (or the placeholder, when enabled) like every
+    other terminal error."""
     limiter = GCRARateLimiter(o.concurrency, o.burst)
+    tenant_limiter = None
+    if qos is not None:
+        from imaginary_tpu_torch.qos.limiter import TenantLimiter
+
+        tenant_limiter = TenantLimiter(o.concurrency, o.burst)
 
     @web.middleware
     async def mw(request, handler):
-        allowed, retry = limiter.allow(request.method)
+        if tenant_limiter is None:
+            allowed, retry = limiter.allow(request.method)
+        else:
+            tr = obs_trace.current()
+            ten = getattr(tr, "tenant", None) if tr is not None else None
+            if ten is None:
+                ten = qos.default
+            allowed, retry = tenant_limiter.allow(ten)
+            if not allowed:
+                qos.stats.note_rate_limited(ten.class_index)
         if not allowed:
             err = ImageError(
                 "Too Many Requests", 429,

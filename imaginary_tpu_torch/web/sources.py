@@ -34,7 +34,7 @@ from typing import Optional
 import aiohttp
 from aiohttp import web
 
-from imaginary_tpu_torch import Version, failpoints
+from imaginary_tpu_torch import Version, codecs, failpoints
 from imaginary_tpu_torch import deadline as deadline_mod
 from imaginary_tpu_torch.errors import (
     ErrEntityTooLarge,
@@ -48,6 +48,7 @@ from imaginary_tpu_torch.obs import trace as obs_trace
 from imaginary_tpu_torch.web.config import ServerOptions
 
 MAX_BODY_SIZE = 1 << 26  # 64 MB (ref: source_body.go:13)
+GATE_PREFIX = 1 << 16  # header bytes streamed before the early dimension gate runs
 FORM_FIELD = "file"  # ref: source_body.go:12
 HTTP_TIMEOUT = 60  # seconds: the per-attempt ceiling (ref: source_http.go:16)
 WATERMARK_MAX_BYTES = 1_000_000  # ref: image.go:352
@@ -59,8 +60,12 @@ RETRY_AFTER_CAP_S = 10.0  # a longer Retry-After is not waited for
 async def _stream_body(next_chunk) -> bytearray:
     """Read a body into one growable buffer, refusing it with 413 as soon
     as it passes MAX_BODY_SIZE (also for a request that lied about, or
-    omitted, its Content-Length)."""
+    omitted, its Content-Length). Once the header prefix (GATE_PREFIX
+    bytes) has landed, the codec's dimension gate runs on it: armed by
+    the memory-pressure governor, an over-cap image is refused 413 with
+    the rest of its body unread."""
     data = bytearray()
+    gated = False
     while True:
         try:
             chunk = await next_chunk()
@@ -71,6 +76,10 @@ async def _stream_body(next_chunk) -> bytearray:
         data.extend(chunk)
         if len(data) > MAX_BODY_SIZE:
             raise ErrEntityTooLarge
+        if not gated and len(data) >= GATE_PREFIX:
+            # shorter bodies skip this: the decode-time gate covers them
+            codecs.bomb_gate_prefix(memoryview(data)[:GATE_PREFIX])
+            gated = True
     return data
 
 

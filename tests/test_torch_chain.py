@@ -189,13 +189,13 @@ def _recording(monkeypatch) -> list:
     calls = []
     gray, pack = kernels.gray, kernels.rgb_to_yuv420
 
-    def rec_gray(x, out_u8=False):
+    def rec_gray(x, out_u8=False, **kw):
         calls.append(("gray", None))
-        return gray(x, out_u8)
+        return gray(x, out_u8, **kw)
 
-    def rec_pack(x, h, w, hb, wb, luma=False):
+    def rec_pack(x, h, w, hb, wb, luma=False, **kw):
         calls.append(("yuv420_pack", luma))
-        return pack(x, h, w, hb, wb, luma)
+        return pack(x, h, w, hb, wb, luma, **kw)
 
     monkeypatch.setattr(kernels, "gray", rec_gray)
     monkeypatch.setattr(kernels, "rgb_to_yuv420", rec_pack)

@@ -67,6 +67,22 @@ FLAGS = [
     ("--source-read-timeout", "source_read_timeout", float, 7.5),
     ("--request-timeout", "request_timeout", float, 0.25),
     ("--prewarm", "prewarm", bool, True),
+    # admission: the depth gate, the pressure governor, qos, the batch
+    # policy, donation, the codec arena and the dct decoder arm
+    ("--max-queue-ms", "max_queue_ms", float, 150.0),
+    ("--pressure-rss-mb", "pressure_rss_mb", float, 4096.0),
+    ("--pressure-hbm-mb", "pressure_hbm_mb", float, 60000.0),
+    ("--pressure-elevated-frac", "pressure_elevated_frac", float, 0.6),
+    ("--pressure-critical-frac", "pressure_critical_frac", float, 0.8),
+    ("--pressure-batch-mb", "pressure_batch_mb", float, 8.0),
+    ("--pressure-oversize-mpix", "pressure_oversize_mpix", float, 2.0),
+    ("--pressure-pixel-frac", "pressure_pixel_frac", float, 0.5),
+    ("--qos-config", "qos_config", str, '{"default": {"class": "batch"}}'),
+    ("--batch-policy", "batch_policy", str, "convoy"),
+    ("--batch-window-ms", "batch_window_ms", float, 7.5),
+    ("--donation", "donation", str, "off"),
+    ("--arena-mb", "arena_mb", float, 64.0),
+    ("--dct-native", "dct_native", str, "python"),
 ]
 IDS = [f[0].lstrip("-") for f in FLAGS]
 # the egress rides on the ingress: set with it in argv and the environment
@@ -189,6 +205,46 @@ def test_url_source_options_equal_the_references(argv):
     got = cli.options_from_args(cli.parse_args(argv))
     for field in URL_SOURCE_FIELDS:
         assert getattr(got, field) == getattr(want, field), field
+
+
+ADMISSION_FIELDS = ("max_queue_ms", "qos_config", "pressure_rss_mb", "pressure_hbm_mb",
+                    "pressure_elevated_frac", "pressure_critical_frac",
+                    "pressure_batch_mb", "pressure_oversize_mpix", "pressure_pixel_frac",
+                    "batch_policy", "batch_window_ms", "batch_form_ms", "max_inflight",
+                    "donation", "arena_mb", "dct_native")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--max-queue-ms", "150", "--qos-config", '{"default": {"class": "batch"}}',
+     "--pressure-rss-mb", "4096", "--pressure-hbm-mb", "60000",
+     "--pressure-elevated-frac", "0.6", "--pressure-critical-frac", "0.8",
+     "--pressure-batch-mb", "8", "--pressure-oversize-mpix", "2",
+     "--pressure-pixel-frac", "0.5", "--batch-policy", "convoy",
+     "--batch-window-ms", "7.5", "--donation", "off", "--arena-mb", "64",
+     "--dct-native", "native"],
+    ["--max-queue-ms", "-5", "--pressure-rss-mb", "-1", "--pressure-elevated-frac", "3",
+     "--pressure-critical-frac", "0", "--pressure-batch-mb", "-2",
+     "--pressure-oversize-mpix", "-1", "--pressure-pixel-frac", "0", "--arena-mb", "-8",
+     "--batch-form-ms", "-1", "--max-inflight", "0"],
+], ids=["defaults", "every-flag", "clamped"])
+def test_admission_options_equal_the_references(argv):
+    """The admission flags map onto ServerOptions as the reference's
+    options_from_args maps them (fractions and sizes clamped, donation
+    on/off as a bool)."""
+    from imaginary_tpu.cli import build_parser as reference_parser
+    from imaginary_tpu.cli import options_from_args as reference_options
+
+    want = reference_options(reference_parser().parse_args(argv))
+    got = cli.options_from_args(cli.parse_args(argv))
+    for field in ADMISSION_FIELDS:
+        assert getattr(got, field) == getattr(want, field), field
+
+
+def test_a_malformed_qos_config_refuses_the_boot():
+    with pytest.raises(SystemExit, match="unknown class"):
+        cli.options_from_args(cli.parse_args(["--qos-config",
+                                              '{"default": {"class": "gold"}}']))
 
 
 @pytest.mark.parametrize("argv,message", [

@@ -403,9 +403,9 @@ def test_egress_on_block_aligned_chains_differs_only_at_ties(monkeypatch, layout
     k12_inputs = []
     real_to_dct = kernels.to_dct
 
-    def to_dct(x, h, w, qy, qc, hb, wb):
+    def to_dct(x, h, w, qy, qc, hb, wb, **kw):
         k12_inputs.append((x.clone(), h.clone(), w.clone(), qy.clone(), hb, wb))
-        return real_to_dct(x, h, w, qy, qc, hb, wb)
+        return real_to_dct(x, h, w, qy, qc, hb, wb, **kw)
 
     monkeypatch.setattr(kernels, "to_dct", to_dct)
     for mod in (ppipeline, jpipeline):

@@ -20,7 +20,7 @@ from imaginary_tpu.engine import executor as jexecutor
 from imaginary_tpu.web import config as jconfig
 from imaginary_tpu_torch.engine import MAX_BATCH, Executor, ExecutorConfig
 from imaginary_tpu_torch.engine import executor as executor_mod
-from imaginary_tpu_torch.engine.timing import TIMES
+from imaginary_tpu_torch.engine.timing import TIMES, WIRE
 from imaginary_tpu_torch.ops import chain as pchain
 from imaginary_tpu_torch.ops.plan import plan_operation
 from imaginary_tpu_torch.options import ImageOptions
@@ -176,6 +176,7 @@ def test_concurrent_submitters(make_ex):
 
 
 def test_stats_dict(make_ex):
+    WIRE.reset()  # no labelled bytes from an earlier sharded launch
     ex = make_ex(max_form_ms=1)
     ex.process(_img(64, 64), _resize_plan(64, 64, 32), timeout=WAIT_S)
     d = ex.stats.to_dict()
@@ -189,6 +190,9 @@ def test_stats_dict(make_ex):
         "shadow_probes", "hedges", "oom_events", "oom_splits", "oom_host_routed",
         "oom_failed", "device_ms_per_mb", "host_ms_per_mpix", "host_inflight",
         "host_owed_mpix", "host_spill_p50_ms", "host_spill_p99_ms",
+        # admission: donation, the pressure rungs and the link ledger
+        "donation_enabled", "donation_rejected", "pressure_host_forced",
+        "pressure_capped_batches", "wire_bytes", "wire_transfers",
     }
     assert d["items"] == 1 and d["batches"] == 1 and d["groups"] == 1
     assert d["compile_cache_size"] >= 1 and d["device_owed_mb"] == 0.0
@@ -243,14 +247,17 @@ def test_shutdown_resolves_pending_items():
 
 def test_config_and_ladder_match_reference():
     """The chunk cap and the defaults are the reference's: MAX_BATCH and
-    max_inflight as in its ExecutorConfig, the formation cap as its
-    serving default (--batch-form-ms). The port launches every chunk at
-    its own size, so it has no batch ladder; its largest chunk is the
-    top of the reference's ladder."""
+    max_inflight as in its ExecutorConfig, and the formation cap as its
+    config derives it (max_form_ms None: the window_ms; the server passes
+    its --batch-form-ms). The port launches every chunk at its own size,
+    so it has no batch ladder; its largest chunk is the top of the
+    reference's ladder."""
     assert MAX_BATCH == jexecutor.MAX_BATCH == 16
     ref = jexecutor.ExecutorConfig()
     mine = ExecutorConfig()
     assert (mine.max_batch, mine.max_inflight) == (ref.max_batch, ref.max_inflight)
-    assert mine.max_form_ms == jconfig.ServerOptions().batch_form_ms == 5.0
+    assert mine.max_form_ms is ref.max_form_ms is None
+    assert mine.window_ms == ref.window_ms == 3.0
+    assert jconfig.ServerOptions().batch_form_ms == 5.0
     assert jexecutor.batch_ladder(mine.max_batch)[-1] == mine.max_batch
     assert mine.device == "cuda"

@@ -18,10 +18,13 @@ What may differ, and why:
   the keys' count and `backend` agree);
 - `/health`'s body: live runtime values. The port's keys hold every key
   of the reference's but the blocks of modules not ported yet (`cache`,
-  `arena`, `eventLoop`);
+  `eventLoop`); with `--qos-config` and `--pressure-rss-mb` armed (the
+  `admission` group) the `qos`, `pressure` and `arena` blocks have the
+  reference's keys and the executor's keys are a subset of its;
 - `/metrics`'s body: live values. Every family the reference renders for
   a subsystem the port has is in the port's exposition, with the same
-  type;
+  type (the `admission` group adds the qos, pressure, link and arena
+  families);
 - nothing: `/watermarkimage` and the `?url=` source are sent too, both
   apps with `enable_url_source` fetching from one shared local origin on
   127.0.0.1 (the `url` group), whose 404, an invalid URL, an origin off
@@ -136,6 +139,20 @@ GROUPS = {
     "throttle": ({"concurrency": 1, "burst": 0}, [
         ("200-first", "GET", "/health", None, {}),
         ("429-second", "GET", "/health", None, {})]),
+    "admission": ({"qos_config": json.dumps({
+        "default": {"class": "standard"},
+        "tenants": [{"name": "gold", "class": "interactive", "api_keys": ["gold-key"]},
+                    {"name": "lim", "class": "standard", "api_keys": ["lim-key"],
+                     "rate": 1, "burst": 0}]}),
+        "pressure_rss_mb": 1e6, "mount": FIXTURES}, [
+        ("admission-resize", "POST", "/resize?width=300&height=200", LARGE,
+         {"API-Key": "gold-key"}),
+        ("admission-lim-first", "GET", "/form", None, {"API-Key": "lim-key"}),
+        ("admission-429-lim", "GET", "/form", None, {"API-Key": "lim-key"}),
+        ("admission-health", "GET", "/health", None, {}),
+        ("admission-metrics", "GET", "/metrics", None, {})]),
+    "pressure-guard": ({"max_allowed_pixels": 0.1, "pressure_rss_mb": 1e6}, [
+        ("413-pressure-resolution", "POST", "/resize?width=100", LARGE, {})]),
     "placeholder": ({"enable_placeholder": True}, [
         ("placeholder-406", "POST", "/resize?width=300&height=200", b"not an image", {}),
         ("placeholder-400", "POST", "/resize?width=120&height=90&type=png", b"", {})]),
@@ -315,7 +332,7 @@ def _timing_names(headers: dict) -> list:
 
 
 EXECUTOR_SPANS = ("batch_form", "dispatch_wait", "drain")
-UNPORTED_HEALTH_KEYS = {"cache", "arena", "eventLoop"}
+UNPORTED_HEALTH_KEYS = {"cache", "eventLoop"}
 
 
 def _check_body(cid: str, ctype: str, want: bytes, got: bytes) -> None:
@@ -325,8 +342,31 @@ def _check_body(cid: str, ctype: str, want: bytes, got: bytes) -> None:
     elif cid in ("health", "prefix-health", "200-first"):
         w, g = json.loads(want), json.loads(got)
         assert set(w) - UNPORTED_HEALTH_KEYS <= set(g)
+    elif cid == "admission-health":
+        w, g = json.loads(want), json.loads(got)
+        assert set(w) - UNPORTED_HEALTH_KEYS <= set(g)
+        for block in ("pressure", "arena"):
+            assert set(g[block]) == set(w[block]), block
+        assert set(g["qos"]["classes"]) == set(w["qos"]["classes"])
+        for cls, counters in w["qos"]["classes"].items():
+            assert set(g["qos"]["classes"][cls]) == set(counters), cls
+        assert g["qos"]["classes"]["interactive"]["admitted"] == \
+            w["qos"]["classes"]["interactive"]["admitted"] == 1
+        assert set(g["executor"]) <= set(w["executor"])
+        for k in ("wire_bytes", "wire_transfers", "donation_enabled", "donation_rejected",
+                  "pressure_host_forced", "pressure_capped_batches"):
+            assert k in g["executor"], k
     elif cid in ("metrics",):
         _check_metrics(want.decode(), got.decode())
+    elif cid == "admission-metrics":
+        _check_metrics(want.decode(), got.decode())
+        w, g = _families(want.decode()), _families(got.decode())
+        armed = {n for n in w if n.startswith(("imaginary_tpu_qos_", "imaginary_tpu_pressure_",
+                                                "imaginary_tpu_wire_", "imaginary_tpu_arena_"))}
+        armed |= {"imaginary_tpu_oom_splits_total"}
+        assert {n for n in armed if n != "imaginary_tpu_wire_device_bytes_total"} <= set(g)
+        for name in armed & set(g):
+            assert g[name] == w[name], name
     elif ctype.startswith("image/"):
         a, b = _decoded(want), _decoded(got)
         assert a.shape == b.shape

@@ -37,6 +37,7 @@ from imaginary_tpu_torch import failpoints, kernels
 from imaginary_tpu_torch.engine import Executor, ExecutorConfig
 from imaginary_tpu_torch.engine import lanes as lanes_mod
 from imaginary_tpu_torch.engine.executor import _Item
+from imaginary_tpu_torch.engine.timing import WIRE
 from imaginary_tpu_torch.kernels import build as kbuild
 from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.ops.plan import plan_operation
@@ -53,7 +54,9 @@ OFF_KEYS = {"items", "batches", "groups", "avg_batch", "avg_group", "max_group",
             "breaker_host_served", "shadow_probes", "hedges", "oom_events",
             "oom_splits", "oom_host_routed", "oom_failed", "device_ms_per_mb",
             "host_ms_per_mpix", "host_inflight", "host_owed_mpix",
-            "host_spill_p50_ms", "host_spill_p99_ms"}
+            "host_spill_p50_ms", "host_spill_p99_ms", "donation_enabled",
+            "donation_rejected", "pressure_host_forced", "pressure_capped_batches",
+            "wire_bytes", "wire_transfers"}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -210,6 +213,7 @@ class TestLanePlacement:
 class TestPolicyOffParity:
     def test_off_builds_no_lanes_and_serves_identical_bytes(self, make_ex):
         arr, plan = _img(96, 96, seed=3), _resize_plan(96, 96)
+        WIRE.reset()  # no labelled bytes from an earlier sharded launch
         ex = make_ex(max_form_ms=1.0)
         # no lane object; the device is one fault domain of its own
         assert ex._lanes is None and len(ex.devhealth) == 1
@@ -257,12 +261,12 @@ class TestShardedRouting:
         real_batch, real_sharded = chain_mod.launch_batch, chain_mod.launch_sharded
         local = threading.local()
 
-        def batch(arrs, plans, device="cuda", stream=None):
+        def batch(arrs, plans, device="cuda", stream=None, **kw):
             calls["batch"].append({"n": len(arrs), "device": device})
             subs = getattr(local, "subs", None)
             if subs is not None:
                 subs.append(len(arrs))
-            return real_batch(arrs, plans, device=device, stream=stream)
+            return real_batch(arrs, plans, device=device, stream=stream, **kw)
 
         def sharded(arrs, plans, mesh, streams=None):
             local.subs = []
@@ -429,6 +433,7 @@ class TestDegradedMesh:
 
 class TestLaneObservability:
     def test_stats_and_debug_snapshots(self, make_ex):
+        WIRE.reset()  # no labelled bytes from an earlier sharded launch
         ex = make_ex(mesh_policy="lanes", n_devices=4, max_form_ms=1.0)
         arr, plan = _img(96, 96), _resize_plan(96, 96)
         futs = [ex.submit(arr, plan) for _ in range(8)]
