@@ -330,6 +330,36 @@ Phases, in order; any failure raises and exits non-zero:
    ServerProcess SIGTERMed under 8 keep-alive clients: in-flight 200s,
    then 503s with Retry-After, /health 200 until the process exits 0.
 
+16. the cache tiers on the card, every server from the port's command line
+   with --prewarm (--max-batch 4), the launches of the paths each case
+   drives summed in the kernels line's `launches_cache`: (a) eight config 1
+   GETs with --cache-result-mb 64: one miss, seven hits that launch no
+   kernel, every answer byte-equal to an uncached server's with one
+   ETag, If-None-Match 304 with the ETag (and Vary on a type=auto GET),
+   the hit p50 beside the miss on the host clock; (b) --cache-coalesce
+   --request-timeout 30: 32 identical config 1 GETs at once (the leader
+   held 100 ms on the card by device.slow): flight_executed 1-3, the rest
+   coalesced, K1-K4 launched at most once per executed group, every
+   answer byte-equal; then a follower with X-Request-Timeout 0.1 behind a
+   leader held 600 ms: 504 at stage queue, the others 200, nothing owed at
+   rest; (c) --cache-frame-mb 64: /resize then /crop on large.jpg, one
+   decode, both byte-equal; (d) --transport-dct --transport-dct-egress
+   --cache-frame-mb 64 --cache-device-mb 256 on phase 9's /resize of
+   large.jpg five times: h2d bytes a request fall from the staged frame
+   plus h, w and the dyns to those alone, device_hits grow, the resident
+   bytes a frame, every answer bit-equal to the tier-off server's; the
+   same on four lanes of card 0 with 16 clients over four sources
+   (affinity_hits, device hits, bit-equal); a budget of 2.5 4K frames at
+   k = 1 over three sources in turn (device_evictions, the budget held)
+   and torch.cuda.memory_allocated falling by the tier's bytes when it is
+   cleared; (e) memory.rss at critical on (d)'s server (with
+   --cache-source-ttl 60 --pressure-rss-mb): device and source budgets 0,
+   result and frame a quarter, pressure_shrinks 1, the resident frames
+   freed, budgets restored at ok and the tier refilled; (f) config 1 over
+   ?url= with --cache-source-ttl 60, five GETs: one origin GET carrying
+   the first request's X-Request-ID, source_hits 4; (g) phase 6's mix on
+   four lanes of card 0, every answer byte-equal to phase 6's.
+
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -1832,6 +1862,7 @@ def config2_phase() -> dict:
             if (status, ctype) != (200, "image/jpeg"):
                 raise AssertionError(f"{path} alone: {status} {ctype}")
             alone.append((body, decoded_planes(codecs, body, dims)))
+        PHASE6_ANSWERS[:] = [body for body, _ in alone]  # phase 16(g)'s reference
         items0, batches0 = ex.stats.items, ex.stats.batches
         reqs = [(path, bodies[src]) for path, src, _ in CONFIG2_REQUESTS]
         kernels.reset_launches()
@@ -6286,6 +6317,594 @@ def admission_phase(smi: str, png: bytes) -> dict:
     return out
 
 
+# --- phase 16: the cache tiers on the card -----------------------------------
+
+CACHE_SERIAL = 8  # (a): sequential config 1 requests a server
+CACHE_BATCHING = ["--max-batch", "4"]  # keeps each server's prewarm short
+COALESCE_CLIENTS = 32  # (b)
+COALESCE_HOLD = "100ms"  # (b): the leader held on the card while the 32 arrive
+COALESCE_SLOW = "600ms"  # (b): the leader held past the short follower's budget
+COALESCE_FOLLOWERS = 3
+SHORT_TIMEOUT_S = "0.1"
+DCT_PATH = "/resize?width=300&height=200"  # phase 9's /resize (k = 2 on large.jpg, k = 1 on 4K)
+DCT_QUERY = {"width": "300", "height": "200"}
+DEVICE_SERIAL = 5  # (d): the same request, one at a time
+DEVICE_CLIENTS = 16  # (d) on four lanes: clients x 4 requests over four sources
+DEVICE_SOURCES = (92, 87, 82, 77)  # JPEG qualities: four distinct 4:2:0 sources
+EVICT_SOURCES = (91, 86, 81)  # (d): three 4K sources in turn, twice
+EVICT_FRAMES = 2.5  # (d): the small budget in frames (two fit, three do not)
+SOURCE_SERIAL = 5  # (f)
+PHASE6_ANSWERS: list = []  # phase 6's answers alone, in CONFIG2_REQUESTS order
+
+
+def cache_server(args: list, devices=None):
+    """A phase 16 server from the port's command line (`cli.parse_args`)
+    with --prewarm on DEVICE, mounted on tests/testdata; `devices` puts its
+    lanes on the given entries (the command line names whole cards only):
+    (server, stop). The device frame tier is process-wide, so servers
+    that arm it run one at a time."""
+    import dataclasses
+
+    from imaginary_tpu_torch import cli
+    from imaginary_tpu_torch.web import app as app_mod
+
+    o = cli.options_from_args(cli.parse_args(
+        ["--addr", "127.0.0.1", "--port", "0", "--device", DEVICE, "--log-level", "error",
+         "--mount", TESTDATA, "--prewarm"] + CACHE_BATCHING + list(args)))
+    if devices is not None:
+        o = dataclasses.replace(o, devices=devices)
+    srv = app_mod.AppServer(o, log_stream=app_mod._Discard())
+    return srv, start(srv)
+
+
+def lane_entries() -> list:
+    return [f"{DEVICE}:0" if DEVICE == "cuda" else DEVICE] * LANE_ENTRIES
+
+
+def cache_block(srv) -> dict:
+    return srv.service.health()["cache"]
+
+
+def timed_get(port: int, path: str, headers=None, method: str = "GET", body=None):
+    t0 = time.perf_counter()
+    status, hdrs, out = http_get(port, path, headers, method, body)
+    return status, hdrs, out, (time.perf_counter() - t0) * 1e3
+
+
+def config1_launches_ok(launches: dict, n: int, what: str) -> None:
+    for k in CONFIG1_KERNELS:
+        if launches.get(k, 0) != n:
+            raise AssertionError(f"{what}: {k} launched {launches.get(k, 0)} times, "
+                                 f"expected {n}")
+
+
+def result_tier_case(smi: str, want: dict, launches: dict) -> dict:
+    """(a) CACHE_SERIAL config 1 GETs with --cache-result-mb 64: one miss,
+    then hits that launch nothing, every answer byte-equal to the uncached
+    server's with one ETag; If-None-Match answers 304 with ETag (and Vary
+    on the negotiated form) and no body."""
+    import numpy as np
+
+    from imaginary_tpu_torch import kernels
+
+    srv, stop = cache_server(["--cache-result-mb", "64"])
+    try:
+        port = srv.server_address[1]
+        ex = srv.service.executor
+        kernels.reset_launches()
+        items0 = ex.stats.items
+        answers, after_miss = [], None
+        for i in range(CACHE_SERIAL):
+            answers.append(timed_get(port, CONFIG1_GET))
+            if i == 0:
+                after_miss = (kernels.launch_counts(), ex.stats.items)
+        got = kernels.launch_counts()
+        items = ex.stats.items - items0
+        etag = answers[0][1].get("ETag")
+        bad = [i for i, (s, h, b, _) in enumerate(answers)
+               if (s, b, h.get("ETag")) != (200, want["resize"], etag)]
+        if bad or not etag:
+            raise AssertionError(f"(a) answers {bad} differ from the uncached server's "
+                                 f"(ETag {etag})")
+        if got != after_miss[0] or items != 1:
+            raise AssertionError(f"(a) hits launched: {after_miss[0]} -> {got}, "
+                                 f"{items} executor items")
+        config1_launches_ok(got, 1, "(a)")
+        st = cache_block(srv)
+        if (st["result_misses"], st["result_hits"]) != (1, CACHE_SERIAL - 1):
+            raise AssertionError(f"(a) result tier {st}")
+        s304, h304, b304 = http_get(port, CONFIG1_GET, {"If-None-Match": etag})
+        neg = CONFIG1_GET + "&type=auto"
+        sn, hn, bn = http_get(port, neg, {"Accept": "image/jpeg"})
+        sv, hv, bv = http_get(port, neg, {"Accept": "image/jpeg",
+                                          "If-None-Match": hn.get("ETag", "")})
+        if (s304, b304, h304.get("ETag")) != (304, b"", etag):
+            raise AssertionError(f"(a) conditional GET: {s304} {h304}")
+        if (sn, bn, hn.get("Vary")) != (200, want["resize"], "Accept") or \
+                (sv, bv, hv.get("ETag"), hv.get("Vary")) != (304, b"", hn["ETag"], "Accept"):
+            raise AssertionError(f"(a) negotiated form: {sn} {hn}, then {sv} {hv}")
+        add_launches(launches, kernels.launch_counts())
+        st = cache_block(srv)
+    finally:
+        stop()
+    miss_ms = answers[0][3]
+    hit_p50 = float(np.percentile([a[3] for a in answers[1:]], 50))
+    log(f"  (a) --cache-result-mb 64, {CACHE_SERIAL} config 1 GETs: 1 miss "
+        f"({miss_ms:.2f} ms; uncached server p50 {want['resize_p50_ms']:.2f} ms), "
+        f"{CACHE_SERIAL - 1} hits (p50 {hit_p50:.2f} ms, host clock), no launch after the "
+        f"miss ({got}); every answer byte-equal to the uncached server's, ETag {etag}; "
+        f"If-None-Match 304 (ETag; Vary: Accept on type=auto), etag_304 "
+        f"{st['etag_304']}  [{smi}]")
+    return {"miss_ms": miss_ms, "hit_p50_ms": hit_p50,
+            "uncached_p50_ms": want["resize_p50_ms"], "launches": got, "etag": etag,
+            "cache": st}
+
+
+def coalesce_case(smi: str, want: dict, launches: dict) -> dict:
+    """(b) --cache-coalesce: COALESCE_CLIENTS identical config 1 GETs at
+    once (the leader held COALESCE_HOLD on the card so that every arrival
+    lands inside its run): flight_executed 1-3, the rest coalesced, K1-K4
+    launched at most once per executed group and at least once, every
+    answer byte-equal. Then with --request-timeout 30 and the leader held
+    COALESCE_SLOW: a follower whose X-Request-Timeout is SHORT_TIMEOUT_S
+    answers 504 at stage queue, the others 200, and nothing stays owed."""
+    from imaginary_tpu_torch import failpoints, kernels
+
+    srv, stop = cache_server(["--cache-coalesce", "--request-timeout", "30",
+                              "--cpus", str(COALESCE_CLIENTS)])
+    try:
+        port = srv.server_address[1]
+        svc = srv.service
+        ex = svc.executor
+        http_get(port, CONFIG1_GET)  # the first request's card warm-up
+        st0 = cache_block(srv)
+        items0 = ex.stats.items
+        kernels.reset_launches()
+        failpoints.activate(f"device.slow=delay({COALESCE_HOLD})")
+        try:
+            wall, got = tolerant_load(port, [(CONFIG1_GET, None, {})], COALESCE_CLIENTS, 1)
+        finally:
+            failpoints.deactivate()
+        ran = kernels.launch_counts()
+        add_launches(launches, ran)
+        st = cache_block(srv)
+        executed = st["flight_executed"] - st0["flight_executed"]
+        coalesced = st["flight_coalesced"] - st0["flight_coalesced"]
+        items = ex.stats.items - items0
+        bad = [r for r in got if (r[3], r[5]) != (200, want["resize"])]
+        if bad:
+            raise AssertionError(f"(b) {len(bad)} answers differ from the uncached server's")
+        if not 1 <= executed <= 3 or executed + coalesced != COALESCE_CLIENTS \
+                or items != executed:
+            raise AssertionError(f"(b) executed {executed}, coalesced {coalesced}, "
+                                 f"{items} executor items")
+        for k in CONFIG1_KERNELS:
+            if not 1 <= ran[k] <= executed:
+                raise AssertionError(f"(b) {k} launched {ran[k]} times for {executed} "
+                                     f"executed groups")
+        # the deadline on the coalesce wait: the leader, then its
+        # followers, then one whose own budget ends in the wait
+        fine: list = []
+        threads = [threading.Thread(target=lambda: fine.append(http_get(port, CONFIG1_GET)))
+                   for _ in range(COALESCE_FOLLOWERS + 1)]
+        failpoints.activate(f"device.slow=delay({COALESCE_SLOW})")
+        try:
+            threads[0].start()
+            time.sleep(0.1)
+            for th in threads[1:]:
+                th.start()
+            time.sleep(0.05)
+            short = http_get(port, CONFIG1_GET, {"X-Request-Timeout": SHORT_TIMEOUT_S})
+            for th in threads:
+                th.join(timeout=60)
+        finally:
+            failpoints.deactivate()
+        body = json.loads(short[2])
+        timing = short[1].get("Server-Timing", "")
+        if (short[0], body.get("stage")) != (504, "queue") or "coalesce_wait" not in timing:
+            raise AssertionError(f"(b) the short follower answered {short[0]} {body}, "
+                                 f"Server-Timing {timing}")
+        if [a[0] for a in fine] != [200] * (COALESCE_FOLLOWERS + 1) \
+                or any(a[2] != want["resize"] for a in fine):
+            raise AssertionError(f"(b) the waiters answered {[a[0] for a in fine]}")
+        at_rest = wait_for(lambda: (ex.stats.device_owed_mb, ex.stats.host_inflight,
+                                    svc._inflight) == (0, 0, 0))
+        e = ex.stats.to_dict()
+        if not at_rest:
+            raise AssertionError(f"(b) owed {e['device_owed_mb']} MB, host_inflight "
+                                 f"{e['host_inflight']}, pool inflight {svc._inflight}")
+        st2 = cache_block(srv)
+    finally:
+        stop()
+    log(f"  (b) --cache-coalesce, {COALESCE_CLIENTS} identical config 1 GETs at once "
+        f"({wall * 1e3:.1f} ms wall, leader held {COALESCE_HOLD}): flight_executed "
+        f"{executed}, coalesced {coalesced}, {items} executor item(s), launches {ran}; "
+        f"every answer byte-equal; a follower at X-Request-Timeout {SHORT_TIMEOUT_S} s "
+        f"behind a leader held {COALESCE_SLOW}: 504 stage {body['stage']} "
+        f"(budget_ms {body.get('budget_ms')}, coalesce_wait in its Server-Timing), "
+        f"{len(fine)} others 200; device_owed_mb "
+        f"{e['device_owed_mb']}, host_inflight {e['host_inflight']} at rest  [{smi}]")
+    return {"executed": executed, "coalesced": coalesced, "items": items,
+            "launches": ran, "wall_ms": wall * 1e3, "short": {"status": short[0], **body},
+            "cache": st2}
+
+
+def frame_tier_case(smi: str, want: dict, launches: dict) -> dict:
+    """(c) --cache-frame-mb 64: /resize then /crop on large.jpg; the /crop
+    decodes nothing (one decode in stageTimesMs), both byte-equal to the
+    uncached server's."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.engine.timing import TIMES
+
+    srv, stop = cache_server(["--cache-frame-mb", "64"])
+    try:
+        port = srv.server_address[1]
+        TIMES.reset()
+        kernels.reset_launches()
+        r1 = http_get(port, CONFIG1_GET)
+        r2 = http_get(port, CROP_GET)
+        ran = kernels.launch_counts()
+        add_launches(launches, ran)
+        stages = srv.service.health().get("stageTimesMs", {})
+        st = cache_block(srv)
+    finally:
+        stop()
+    decodes = stages.get("decode", {}).get("count", 0)
+    if (r1[0], r1[2], r2[0], r2[2]) != (200, want["resize"], 200, want["crop"]):
+        raise AssertionError("(c) answers differ from the uncached server's")
+    if decodes != 1 or (st["frame_misses"], st["frame_hits"]) != (1, 1):
+        raise AssertionError(f"(c) {decodes} decodes, frame tier {st}")
+    config1_launches_ok(ran, 2, "(c)")
+    log(f"  (c) --cache-frame-mb 64: /resize then /crop on large.jpg: frame misses "
+        f"{st['frame_misses']}, hits {st['frame_hits']}, {decodes} decode in "
+        f"stageTimesMs, {st['frame_bytes']} B resident; both byte-equal to the uncached "
+        f"server's; launches {ran}  [{smi}]")
+    return {"decodes": decodes, "launches": ran, "cache": st}
+
+
+def reencoded(buf: bytes, quality: int) -> bytes:
+    """buf as a 4:2:0 baseline JPEG at `quality` (Pillow): another source
+    of the same geometry."""
+    import io
+
+    from PIL import Image
+
+    out = io.BytesIO()
+    Image.open(io.BytesIO(buf)).convert("RGB").save(out, "JPEG", quality=quality,
+                                                    subsampling=2)
+    return out.getvalue()
+
+
+def rest_bytes(plan) -> int:
+    """The bytes of a launch's h, w and dyns staged in its one H2D at B=1."""
+    import numpy as np
+
+    def aligned(n: int) -> int:
+        return (n + 15) // 16 * 16
+
+    return 2 * aligned(4) + sum(aligned(np.asarray(v).nbytes)
+                                for st in plan.stages for v in st.dyn.values())
+
+
+def post(port: int, path: str, body: bytes, headers=None):
+    return http_get(port, path, {"Content-Type": "image/jpeg", **(headers or {})},
+                    "POST", body)
+
+
+DCT_FLAGS = ["--transport-dct", "--transport-dct-egress"]
+DEVICE_TIER = ["--cache-frame-mb", "64", "--cache-device-mb", "256"]
+
+
+def device_tier_case(smi: str, png: bytes, launches: dict) -> dict:
+    """(d) and (e): the device frame tier on phase 9's /resize (see the
+    module docstring)."""
+    from imaginary_tpu_torch import kernels
+
+    with open(LARGE_JPG, "rb") as f:
+        large = f.read()
+    sources = [reencoded(large, q) for q in DEVICE_SOURCES]
+    jpeg_4k = make_4k_jpeg(png)
+    big = [reencoded(jpeg_4k, q) for q in EVICT_SOURCES]
+    wrapped, packed, _ = dct_request_plan(large, "resize", DCT_QUERY)
+    rest = rest_bytes(wrapped)
+    miss_h2d = (packed.nbytes + 15) // 16 * 16 + rest
+    big_plan, big_packed, big_shrink = dct_request_plan(big[0], "resize", DCT_QUERY)
+    # the tier-off answers
+    off, stop = cache_server(DCT_FLAGS)
+    try:
+        port = off.server_address[1]
+        want = {"large": post(port, DCT_PATH, large)[2]}
+        want.update({i: post(port, DCT_PATH, s)[2] for i, s in enumerate(sources)})
+        want.update({("4k", i): post(port, DCT_PATH, s)[2] for i, s in enumerate(big)})
+    finally:
+        stop()
+    out: dict = {"rest_bytes": rest, "miss_h2d": miss_h2d}
+    # (d) one at a time, then (e) the brownout on the same server
+    srv, stop = cache_server(DCT_FLAGS + DEVICE_TIER + [
+        "--cache-source-ttl", "60", "--pressure-rss-mb", "1000000"])
+    try:
+        port = srv.server_address[1]
+        kernels.reset_launches()
+        per: list = []
+        for _ in range(DEVICE_SERIAL):
+            w0 = srv.service.health()["executor"]["wire_bytes"]["h2d"]
+            s, _, b = post(port, DCT_PATH, large)
+            w1 = srv.service.health()["executor"]["wire_bytes"]["h2d"]
+            if (s, b) != (200, want["large"]):
+                raise AssertionError("(d) an answer differs from the tier-off server's")
+            per.append((w1 - w0, cache_block(srv)["device_hits"]))
+        ran = kernels.launch_counts()
+        add_launches(launches, ran)
+        st = cache_block(srv)
+        if [p[0] for p in per] != [miss_h2d] + [rest] * (DEVICE_SERIAL - 1) \
+                or [p[1] for p in per] != list(range(DEVICE_SERIAL)):
+            raise AssertionError(f"(d) h2d bytes and device_hits a request {per}; "
+                                 f"expected {miss_h2d} then {rest}")
+        for k in ("from_dct", "to_dct", "resample"):
+            if ran[k] != DEVICE_SERIAL:
+                raise AssertionError(f"(d) {k} launched {ran[k]} times")
+        frame_bytes = st["device_bytes"] // max(1, st["device_items"])
+        out["serial"] = {"h2d_by_request": [p[0] for p in per], "launches": ran,
+                         "device_bytes_a_frame": frame_bytes, "cache": st}
+        log(f"  (d) --cache-device-mb 256, phase 9's {DCT_PATH} on large.jpg x "
+            f"{DEVICE_SERIAL}: h2d {per[0][0]} B on the miss, then "
+            f"{', '.join(str(p[0]) for p in per[1:])} B (h, w and the dyns: {rest} B); "
+            f"device_hits {[p[1] for p in per]}; {frame_bytes} B resident a frame; every "
+            f"answer bit-equal to the tier-off server's; launches {ran}  [{smi}]")
+        out["brownout"] = brownout_case(smi, srv, large, want["large"], launches)
+    finally:
+        stop()
+    out["lanes"] = device_lanes_case(smi, sources, want, launches)
+    out["eviction"] = eviction_case(smi, big, want, big_packed.nbytes, launches)
+    return out
+
+
+def device_lanes_case(smi: str, sources: list, want: dict, launches: dict) -> dict:
+    """(d) on four lanes of card 0 (phase 10's layout), DEVICE_CLIENTS
+    concurrent clients over four sources: the lanes' affinity hits, the
+    tier's hits, every answer bit-equal (trap 1: a frame staged on one
+    lane's stream is read on another's)."""
+    from imaginary_tpu_torch import kernels
+
+    srv, stop = cache_server(DCT_FLAGS + DEVICE_TIER + ["--mesh-policy", "lanes",
+                                                        "--cpus", str(DEVICE_CLIENTS)],
+                             devices=lane_entries())
+    try:
+        port = srv.server_address[1]
+        reqs = [(DCT_PATH, s, {"Content-Type": "image/jpeg"}) for s in sources]
+        kernels.reset_launches()
+        wall, got = tolerant_load(port, reqs, DEVICE_CLIENTS, 4)
+        ran = kernels.launch_counts()
+        add_launches(launches, ran)
+        lanes = srv.service.executor.stats.to_dict()["lanes"]
+        st = cache_block(srv)
+    finally:
+        stop()
+    bad = [r for r in got if (r[3], r[5]) != (200, want[r[0]])]
+    aff = sum(ln["affinity_hits"] for ln in lanes)
+    if bad or aff <= 0 or st["device_hits"] <= 0:
+        raise AssertionError(f"(d) lanes: {len(bad)} answers differ, affinity_hits {aff}, "
+                             f"device_hits {st['device_hits']}")
+    log(f"  (d) four lanes of card 0, {DEVICE_CLIENTS} clients x 4 over "
+        f"{len(sources)} sources ({wall * 1e3:.1f} ms): affinity_hits "
+        f"{[ln['affinity_hits'] for ln in lanes]}, dispatches "
+        f"{[ln['dispatches'] for ln in lanes]}; device hits {st['device_hits']}, misses "
+        f"{st['device_misses']}; every answer bit-equal to the tier-off server's  [{smi}]")
+    return {"lanes": lanes, "launches": ran, "cache": st, "wall_ms": wall * 1e3}
+
+
+def eviction_case(smi: str, big: list, want: dict, frame_bytes: int, launches: dict) -> dict:
+    """(d) with a budget of EVICT_FRAMES 4K frames at k = 1, three sources
+    in turn, twice: device_evictions > 0 and device_bytes within the
+    budget; then the tier cleared and the card synchronised:
+    torch.cuda.memory_allocated falls by at least the tier's bytes."""
+    from imaginary_tpu_torch import kernels
+
+    budget_mb = EVICT_FRAMES * frame_bytes / 1e6
+    srv, stop = cache_server(DCT_FLAGS + ["--cache-frame-mb", "64",
+                                          "--cache-device-mb", f"{budget_mb:.6f}"])
+    try:
+        port = srv.server_address[1]
+        kernels.reset_launches()
+        peak = 0
+        for _ in range(2):
+            for i, s in enumerate(big):
+                st_, _, b = post(port, DCT_PATH, s)
+                if (st_, b) != (200, want[("4k", i)]):
+                    raise AssertionError("(d) a 4K answer differs from the tier-off server's")
+                peak = max(peak, cache_block(srv)["device_bytes"])
+        add_launches(launches, kernels.launch_counts())
+        st = cache_block(srv)
+        budget = srv.service.caches.device.budget
+        if st["device_evictions"] <= 0 or peak > budget:
+            raise AssertionError(f"(d) evictions {st['device_evictions']}, peak "
+                                 f"{peak} B over the {budget} B budget")
+        freed = tier_freed(srv)
+    finally:
+        stop()
+    log(f"  (d) a budget of {EVICT_FRAMES} 4K frames at k = 1 ({budget} B, "
+        f"{frame_bytes} B a frame), three sources in turn x 2: device_evictions "
+        f"{st['device_evictions']}, misses {st['device_misses']}, peak {peak} B resident; "
+        f"cleared: memory_allocated fell {freed['fell']} B for {freed['tier']} B "
+        f"resident  [{smi}]")
+    return {"budget": budget, "frame_bytes": frame_bytes, "peak": peak, "cache": st,
+            "freed": freed}
+
+
+def tier_freed(srv, clear=None) -> dict:
+    """Drop the device tier's frames (`clear`, else DeviceFrameCache.clear),
+    synchronise the card and read how far torch.cuda.memory_allocated
+    fell; it must fall by at least the tier's bytes."""
+    import torch
+
+    tier = srv.service.caches.device.bytes_used
+    sync = torch.cuda.synchronize if DEVICE == "cuda" else (lambda: None)
+    alloc = torch.cuda.memory_allocated if DEVICE == "cuda" else (lambda: tier)
+    sync()
+    before = alloc()
+    (clear or srv.service._device_frames.clear)()
+    sync()
+    fell = before - (alloc() if DEVICE == "cuda" else 0)
+    if tier <= 0 or fell < tier:
+        raise AssertionError(f"memory_allocated fell {fell} B for {tier} B resident")
+    return {"tier": tier, "fell": fell}
+
+
+def brownout_case(smi: str, srv, large: bytes, want: bytes, launches: dict) -> dict:
+    """(e) the memory.rss failpoint holds the governor at critical on (d)'s
+    server: device and source budgets 0, result and frame a quarter,
+    pressure_shrinks 1, the resident frames freed; back at ok the budgets
+    are restored and the tier refills."""
+    from imaginary_tpu_torch import kernels
+
+    port = srv.server_address[1]
+    caches = srv.service.caches
+    base = {k: getattr(caches, k).budget for k in ("result", "frames", "device", "source")}
+    kernels.reset_launches()
+    if post(port, DCT_PATH, large)[2] != want:
+        raise AssertionError("(e) the answer before the brownout differs")
+    try:
+        freed = tier_freed(srv, clear=lambda: arm_level(srv, "memory.rss=error"))
+        level = srv.service.pressure.level_name()
+        crit = {k: getattr(caches, k).budget for k in base}
+        st = cache_block(srv)
+        s, _, b = post(port, DCT_PATH, large)  # serves with the tier off
+    finally:
+        arm_level(srv, "")
+    back = {k: getattr(caches, k).budget for k in base}
+    refill = [post(port, DCT_PATH, large) for _ in range(2)]
+    add_launches(launches, kernels.launch_counts())
+    st2 = cache_block(srv)
+    expect = {"result": base["result"] // 4, "frames": base["frames"] // 4,
+              "device": 0, "source": 0}
+    if level != "critical" or crit != expect or st["pressure_shrinks"] != 1 \
+            or st["device_bytes"] != 0:
+        raise AssertionError(f"(e) level {level}, budgets {crit} (expected {expect}), "
+                             f"{st}")
+    if (s, b) != (200, want) or back != base or any(r[2] != want for r in refill) \
+            or st2["device_items"] != 1 or st2["device_hits"] <= st["device_hits"]:
+        raise AssertionError(f"(e) after the brownout: budgets {back}, {st2}")
+    log(f"  (e) memory.rss -> critical on (d)'s server: budgets {crit} (from {base}); "
+        f"pressure_shrinks {st['pressure_shrinks']}; memory_allocated fell "
+        f"{freed['fell']} B for {freed['tier']} B resident; served at critical with the "
+        f"tier off; back at ok: budgets restored, the tier refilled "
+        f"({st2['device_items']} frame, hits {st2['device_hits']})  [{smi}]")
+    return {"base": base, "critical": crit, "freed": freed, "cache": st, "after": st2}
+
+
+def source_tier_case(smi: str, want: dict, launches: dict) -> dict:
+    """(f) config 1 over ?url= from a local origin with --cache-source-ttl
+    60: SOURCE_SERIAL requests, each with its own X-Request-ID; the origin
+    sees one GET, carrying the first request's X-Request-ID; source_hits
+    SOURCE_SERIAL - 1; every answer byte-equal to the uncached server's."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.web import app as app_mod
+
+    with open(LARGE_JPG, "rb") as f:
+        origin = Origin({"/large.jpg": f.read()})
+    try:
+        from imaginary_tpu_torch import cli
+
+        o = cli.options_from_args(cli.parse_args(
+            url_server_args(origin, DEVICE) + ["--prewarm", "--cache-source-ttl", "60"]
+            + CACHE_BATCHING))
+        srv = app_mod.AppServer(o, log_stream=app_mod._Discard())
+        stop = start(srv)
+        try:
+            port = srv.server_address[1]
+            path = f"/resize?width=300&height=200&url={origin.url}/large.jpg"
+            kernels.reset_launches()
+            got = [http_get(port, path, {"X-Request-ID": f"chip-smoke-f-{i}"})
+                   for i in range(SOURCE_SERIAL)]
+            ran = kernels.launch_counts()
+            add_launches(launches, ran)
+            st = cache_block(srv)
+        finally:
+            stop()
+        gets = origin.gets("/large.jpg")
+        seen = [h.get("X-Request-ID") for p, h in origin.seen if p == "/large.jpg"]
+    finally:
+        origin.close()
+    if any((s, b) != (200, want["resize"]) for s, _, b in got):
+        raise AssertionError("(f) an answer differs from the uncached server's")
+    if gets != 1 or seen != ["chip-smoke-f-0"] or \
+            (st["source_misses"], st["source_hits"]) != (1, SOURCE_SERIAL - 1):
+        raise AssertionError(f"(f) origin GETs {gets} ({seen}), source tier {st}")
+    config1_launches_ok(ran, SOURCE_SERIAL, "(f)")
+    log(f"  (f) --cache-source-ttl 60, config 1 over ?url= x {SOURCE_SERIAL}: the origin "
+        f"saw {gets} GET (X-Request-ID {seen[0]}), source_hits {st['source_hits']}, "
+        f"{st['source_bytes']} B held; every answer byte-equal; launches {ran}  [{smi}]")
+    return {"origin_gets": gets, "launches": ran, "cache": st}
+
+
+def lanes_mix_case(smi: str, launches: dict) -> dict:
+    """(g) phase 6's mix on four lanes of card 0: each lane fetcher
+    resolves every chunk as its own event completes; every answer
+    byte-equal to phase 6's."""
+    bodies = {}
+    for _, src, _ in CONFIG2_REQUESTS:
+        with open(src, "rb") as f:
+            bodies[src] = f.read()
+    srv, stop = cache_server(["--mesh-policy", "lanes", "--cpus", str(CLIENTS)],
+                             devices=lane_entries())
+    try:
+        got = serve_mix(srv, bodies, PHASE6_ANSWERS, windows=1)
+    finally:
+        stop()
+    add_launches(launches, got["launches"])
+    log(f"  (g) phase 6's mix on four lanes of card 0: {got['requests']} answers "
+        f"byte-equal to phase 6's; {got['rps']:.1f} req/s, p99 {got['p99_ms']:.2f} ms  "
+        f"[{smi}]")
+    return {"rps": got["rps"], "p99_ms": got["p99_ms"], "launches": got["launches"]}
+
+
+CROP_GET = "/crop?width=300&height=200&file=large.jpg"
+
+
+def uncached_answers() -> dict:
+    """Config 1's answers (and /crop's, and the p50 of CACHE_SERIAL GETs)
+    from a server with every tier off."""
+    import numpy as np
+
+    srv, stop = cache_server([])
+    try:
+        port = srv.server_address[1]
+        got = [timed_get(port, CONFIG1_GET) for _ in range(CACHE_SERIAL)]
+        crop = http_get(port, CROP_GET)
+    finally:
+        stop()
+    bodies = {g[2] for g in got}
+    if len(bodies) != 1 or any(g[0] != 200 for g in got) or crop[0] != 200 \
+            or "ETag" in got[0][1]:
+        raise AssertionError("the uncached server's config 1 answers disagree")
+    return {"resize": got[0][2], "crop": crop[2],
+            "resize_p50_ms": float(np.percentile([g[3] for g in got], 50))}
+
+
+def cache_phase(smi: str, png: bytes) -> dict:
+    """Phase 16 (see the module docstring): (a)-(g); `launches` sums the
+    kernel launches of the paths each case drives."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    out: dict = {}
+    seconds: dict = {}
+    want = uncached_answers()
+    for name, case in (("result", lambda: result_tier_case(smi, want, launches)),
+                       ("coalesce", lambda: coalesce_case(smi, want, launches)),
+                       ("frame", lambda: frame_tier_case(smi, want, launches)),
+                       ("device", lambda: device_tier_case(smi, png, launches)),
+                       ("source", lambda: source_tier_case(smi, want, launches)),
+                       ("lanes", lambda: lanes_mix_case(smi, launches))):
+        t = time.perf_counter()
+        out[name] = case()
+        seconds[name] = time.perf_counter() - t
+    out["launches"] = {k: launches.get(k, 0) for k in KERNEL_ROWS}
+    out["seconds"] = {"total": time.perf_counter() - t0, **seconds}
+    log(f"  phase 16: {out['seconds']['total']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + ")")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -6400,6 +7019,10 @@ def main() -> int:
     log("== phase 15: the executor's admission half (convoy, the governor's byte cap, "
         "qos, donation, WIRE and the arena, the drain)")
     report["admission"] = admission_phase(smi, png)
+    log("== phase 16: the cache tiers (the result tier and 304, singleflight and the "
+        "coalesce wait's deadline, the frame tier, the device tier on one card and on "
+        "four lanes, the brownout, the source tier, phase 6's mix on lanes)")
+    report["cache"] = cache_phase(smi, png)
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -6434,6 +7057,7 @@ def main() -> int:
             "launches_prewarm_dct": report["prewarm"]["dct"]["launches"][name],
             "launches_golden": report["golden"]["launches"][name],
             "launches_admission": report["admission"]["launches"][name],
+            "launches_cache": report["cache"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

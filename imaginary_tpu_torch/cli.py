@@ -306,6 +306,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="entropy-decoder arm for the dct transport: the "
                         "native C kernel, the pure-python oracle, or auto "
                         "(native if built, else python)")
+    # content-addressed caching (cache.py); every knob also honors an
+    # IMAGINARY_TPU_CACHE_* env override and defaults OFF so the uncached
+    # serving path stays byte-identical
+    p.add_argument("--cache-result-mb", type=float,
+                   default=_env_float("IMAGINARY_TPU_CACHE_RESULT_MB", 0.0),
+                   help="encoded-result LRU byte budget in MB (0=off); "
+                        "enables strong ETag + If-None-Match 304")
+    p.add_argument("--cache-frame-mb", type=float,
+                   default=_env_float("IMAGINARY_TPU_CACHE_FRAME_MB", 0.0),
+                   help="decoded-frame LRU byte budget in MB (0=off)")
+    p.add_argument("--cache-device-mb", type=float,
+                   default=_env_float("IMAGINARY_TPU_CACHE_DEVICE_MB", 0.0),
+                   help="device-resident packed-frame cache byte budget in "
+                        "MB of HBM (0=off); hot sources skip the H2D "
+                        "transfer entirely on repeat requests")
+    p.add_argument("--cache-coalesce", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_CACHE_COALESCE"),
+                   help="coalesce concurrent identical requests onto one "
+                        "pipeline run")
+    p.add_argument("--cache-source-ttl", type=float,
+                   default=_env_float("IMAGINARY_TPU_CACHE_SOURCE_TTL", 0.0),
+                   help="TTL seconds for the remote ?url= source cache (0=off)")
+    p.add_argument("--cache-source-mb", type=float,
+                   default=_env_float("IMAGINARY_TPU_CACHE_SOURCE_MB", 32.0),
+                   help="remote-source cache byte budget in MB")
     # placement and the card's fault domain (engine/executor.py)
     p.add_argument("--host-spill",
                    default=_env_str("IMAGINARY_TPU_HOST_SPILL", "off"),
@@ -478,6 +503,12 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         transport_dct=args.transport_dct,
         transport_dct_egress=args.transport_dct_egress,
         dct_native=args.dct_native,
+        cache_result_mb=max(0.0, args.cache_result_mb),
+        cache_frame_mb=max(0.0, args.cache_frame_mb),
+        cache_device_mb=max(0.0, args.cache_device_mb),
+        cache_coalesce=args.cache_coalesce,
+        cache_source_ttl=max(0.0, args.cache_source_ttl),
+        cache_source_mb=max(0.0, args.cache_source_mb),
         host_spill={"auto": None, "on": True, "off": False}[args.host_spill],
         force_host=args.force_host,
         host_dct_spill=args.host_dct_spill != "off",

@@ -9,6 +9,9 @@ from one place:
 
   admission      a 503 when the estimated queue delay exceeds the budget
   source fetch   each attempt's origin timeout clipped to the budget
+  coalesce wait  a singleflight follower stops waiting when its own
+                 budget runs out (a 504 at stage `queue`); the leader's
+                 shared run is never cancelled
   executor queue a future whose deadline passed while queued is
                  cancelled, and the executor drops it before launch and
                  releases its owed MB

@@ -59,7 +59,11 @@ sub-chunk per entry on that entry's lane stream. A failed launch or drain
 strikes the lane's device; at `breaker_threshold` consecutive strikes the
 device is quarantined and its lane's items move to the surviving lanes;
 after `breaker_cooldown_s` a probe re-admits it. Every quarantine and
-re-admission is one topology epoch (`_mesh_generation`). With every lane
+re-admission is one topology epoch (`_mesh_generation`). A lane's
+fetcher resolves each chunk as its own event completes: every chunk's D2H
+is issued at its launch, so merging drains (the reference's lane drain
+coalescing, which amortises one `device_get`) would save no transfer and
+only hold a finished chunk behind a later one. With every lane
 quarantined, items fall through to the global collector's ladder over the
 same entries (with `host_spill` on, host-executable ones are served by
 the host interpreter instead: the breaker's outage, below). "off" builds no lane object
@@ -78,6 +82,12 @@ without a W-sharded form gathers the shards explicitly and is counted in
 `spatial_gathers` by spec name. Any quarantine turns the route off until
 the full mesh is re-admitted. The reference pads the single image to the
 mesh's batch axis; the port launches only the row that serves it.
+
+The device frame tier (ops/chain.py, --cache-device-mb): the global
+ladder's first rung and every lane launch may assemble a dct-transport
+batch from frames resident on their card; a launch the ladder pins to
+another entry, the sharded and spatial launches and the bisections'
+relaunches stage anew.
 
 Every launch that meets a (chain, input shape with B, device) signature
 this process has not launched before (`chain_mod.cache_size()` grows)
@@ -1237,9 +1247,11 @@ class Executor:
                 self.stats.pressure_capped_batches += len(subs) - base
         return subs
 
-    def _launch_chunk(self, items: list, device=None):
+    def _launch_chunk(self, items: list, device=None, device_cache: bool = False):
         """Launch one device call of <= max_batch items on `device` (the
         config's by default); returns (launched, arrs, plans) or raises.
+        device_cache: the ladder's first rung (the primary entry, the
+        reference's unpinned launch) uses the device frame tier.
 
         No power-of-two padding: the reference pads a chunk so that XLA
         compiles one program per padded size. Eager PyTorch compiles
@@ -1248,7 +1260,8 @@ class Executor:
         arrs = [it.arr for it in items]
         plans = [it.plan for it in items]
         dev = self.config.device if device is None else device
-        return chain_mod.launch_batch(arrs, plans, device=dev), arrs, plans
+        return (chain_mod.launch_batch(arrs, plans, device=dev, device_cache=device_cache),
+                arrs, plans)
 
     def _launch_with_failover(self, sub: list):
         """The dispatch half of the placement ladder: launch on the device
@@ -1279,7 +1292,8 @@ class Executor:
                 failpoints.hit("device.chip_error", key=idx)
                 failpoints.hit("device.oom", key=idx)
                 failpoints.hit("device.slow", key=idx)
-                launched, arrs, plans = self._launch_chunk(sub, device=dev)
+                launched, arrs, plans = self._launch_chunk(sub, device=dev,
+                                                           device_cache=idx == 0)
             except Exception as e:
                 if chain_mod.is_oom_error(e):
                     self._bisect_chunk(sub, dev, idx, e)
@@ -1940,7 +1954,7 @@ class Executor:
                     [self._lanes.lane(i).stream for i in entries])
             else:
                 launched = chain_mod.launch_batch(arrs, plans, device=lane.device,
-                                                  stream=lane.stream)
+                                                  stream=lane.stream, device_cache=True)
         except Exception as e:
             if chain_mod.is_oom_error(e):
                 # capacity, not a fault: bisect on this lane's device

@@ -1,7 +1,7 @@
 """Fault injection for the port (a trimmed copy of
 `imaginary_tpu/failpoints.py`).
 
-Fourteen sites are ported:
+Fifteen sites are ported:
 
   source.fetch       one remote ?url= or watermark GET attempt
                      (web/sources.py);
@@ -43,7 +43,9 @@ Fourteen sites are ported:
                      fail-slow demotion exists for;
   host.spill         the host interpreter's run in the spill branch
                      (engine/executor.py): an error falls back to the
-                     device, counted in spill_errors.
+                     device, counted in spill_errors;
+  cache.get          any cache tier's lookup (cache.py ByteBudgetLRU):
+                     every consumer reads an injected error as a miss.
 
 Spec grammar: `site=action` clauses joined by `;`, where action is
 
@@ -74,7 +76,7 @@ from typing import Optional
 SITES = ("source.fetch", "source.head", "qos.admit", "codec.decode", "codec.encode",
          "codec.bomb", "memory.rss", "executor.submit", "device.execute",
          "device.chip_error", "host.spill", "device.oom", "device.corrupt",
-         "device.slow")
+         "device.slow", "cache.get")
 
 _KEYED_SITE_RE = re.compile(r"^([\w.]+)\[(\w+)\]$")
 _DURATION_RE = re.compile(r"^(\d+(?:\.\d+)?)(ms|s)$")

@@ -51,6 +51,19 @@ Nothing on the card refuses aliasing, so `donation_stats`' "rejected"
 Link bytes are booked in `engine/timing.WIRE`: each staged H2D buffer in
 `_stage`, and each copy of an output into host memory (`_book_d2h`),
 under the device's label for the sharded and spatial launches.
+
+The device-resident frame tier (`set_device_frame_cache`, the web layer's
+--cache-device-mb): a dct-transport input whose plan carries a
+`frame_key` is staged on the card once and kept there, keyed by
+(frame_key, device), and later launches on that card assemble their batch
+from the resident frames on the device (`_device_cached_parts`), so a
+launch whose items all hit moves only h, w and the dyns over the link.
+The global dispatch on the executor's device, `run_single` and the
+lanes ask for it (`device_cache`); a launch the failover ladder pins to
+another entry, `launch_sharded`, `launch_spatial`, the executor's
+relaunches through `run_batch` (OOM bisection, poison bisection,
+verification) and a plan without a frame_key (prewarm's, the yuv420 and
+rgb transports') bypass it.
 """
 
 from __future__ import annotations
@@ -89,6 +102,27 @@ _ALIGN = 16
 
 # The side stream each device's launches run on (`_stream`).
 _STREAMS: dict = {}
+
+
+# The device-resident frame tier (cache.DeviceFrameCache, module
+# docstring), installed by the web layer when --cache-device-mb > 0.
+# Chain-level rather than executor-level, as in the reference: run_single
+# and every executor launch path stage through launch_batch.
+_DEVICE_FRAMES = None
+
+
+def set_device_frame_cache(cache) -> None:
+    global _DEVICE_FRAMES
+    _DEVICE_FRAMES = cache
+
+
+def device_frame_cache():
+    return _DEVICE_FRAMES
+
+
+def device_frame_cache_bytes() -> int:
+    dc = _DEVICE_FRAMES
+    return dc.bytes_used if dc is not None else 0
 
 
 # Buffer donation (module docstring): process-wide, like the reference's
@@ -300,7 +334,7 @@ def _book_d2h(host: torch.Tensor, label=None) -> None:
 
 class Launched:
     """A launched chunk: its output in host memory once `event` (None on
-    the CPU) has completed, and the staged input buffer kept alive until
+    the CPU) has completed, and the staged host buffers kept alive until
     then."""
 
     __slots__ = ("host", "event", "staged")
@@ -319,8 +353,69 @@ def _stream(device: torch.device):
         return stream
 
 
+def _device_key(device: torch.device) -> str:
+    """The device half of a frame-tier key: a card by its index ("cuda"
+    names the current one), so the global dispatch and the lanes of one
+    card share that card's entries."""
+    if device.type == "cuda" and device.index is None:
+        return f"cuda:{torch.cuda.current_device()}"
+    return str(device)
+
+
+def _device_cached_parts(arrs: list, plans: list, dc, device: torch.device,
+                         stream, label) -> tuple:
+    """Per-item resident tensors from the device frame tier, and the host
+    buffers of this launch's misses (kept until their copies are done).
+
+    A miss stages that one item on the launch's stream (`_stage`, booked
+    in WIRE under `label`), records an event after the copy and puts the
+    resident tensor in the tier, charged the host array's nbytes. A hit
+    stages nothing: the launch's stream waits on the entry's event (it may
+    have been staged on another lane's stream of the same card), and the
+    tensor is recorded on the stream (`record_stream`), so the caching
+    allocator keeps its block until this launch has read it, even once
+    the entry is evicted. Keys are (frame_key, device): a frame resident
+    on one card is of no use to another's launch."""
+    parts, staged = [], []
+    dkey = _device_key(device)
+    for a, p in zip(arrs, plans):
+        key = (p.frame_key, dkey)
+        got = dc.get(key)
+        if got is None:
+            (x,), host = _stage([a], device, label)
+            event = None
+            if stream is not None:
+                event = torch.cuda.Event()
+                event.record(stream)
+            staged.append(host)
+            dc.put(key, (x, event), a.nbytes)
+        else:
+            x, event = got
+            if event is not None:
+                stream.wait_event(event)
+                x.record_stream(stream)
+        parts.append(x)
+    return parts, staged
+
+
+def _stage_inputs(batch: list, plans: list, rest: list, device: torch.device,
+                  stream, label, dc) -> tuple:
+    """Stage a launch's inputs on the current stream: (views [x, h, w,
+    dyns...], the host buffers to keep until the copies are done). Without
+    the frame tier (`dc` None) the batch, h, w and the dyns go in ONE H2D;
+    with it the batch is a fresh device buffer stacked from the resident
+    frames (`_device_cached_parts`), so donating it never writes a
+    resident tensor, and h, w and the dyns go in one H2D."""
+    if dc is None:
+        views, host = _stage([batch] + rest, device, label)
+        return views, [host]
+    parts, staged = _device_cached_parts(batch, plans, dc, device, stream, label)
+    views, host = _stage(rest, device, label)
+    return [torch.stack(parts)] + views, staged + [host]
+
+
 def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE, stream=None,
-                 label=None, donate=None):
+                 label=None, donate=None, device_cache: bool = False):
     """Stage + launch one batched chain WITHOUT waiting for it.
 
     arrs: HWC uint8 arrays, all with the same bucket shape and C (packed
@@ -329,33 +424,41 @@ def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE, stream=None,
     the CUDA stream of `device` to launch on (None: the device's side
     stream). label: the device label its WIRE bytes are booked under
     (None: unlabelled). donate: None follows `set_donation`; the sharded
-    and spatial launches pass False. Returns a `Launched` (on a card,
+    and spatial launches pass False. device_cache: let the launch use the
+    device frame tier when one is armed and every plan carries a
+    frame_key (module docstring). Returns a `Launched` (on a card,
     possibly still computing), or None for an identity chain."""
     specs = plans[0].spec_key()
     if not specs:
         return None
     device = torch.device(device)
+    dc = None
     if plans[0].in_bucket is not None:
         batch = list(arrs)
         h = np.array([p.in_h for p in plans], dtype=np.int32)
         w = np.array([p.in_w for p in plans], dtype=np.int32)
+        frames = _DEVICE_FRAMES
+        if (device_cache and frames is not None and frames.enabled
+                and all(p.frame_key is not None for p in plans)):
+            dc = frames
     else:
         batch = [pad_to_bucket(a) for a in arrs]
         h = np.array([a.shape[0] for a in arrs], dtype=np.int32)
         w = np.array([a.shape[1] for a in arrs], dtype=np.int32)
     host_dyns = _stack_dyns(plans)
-    flat = [batch, h, w] + [v for d in host_dyns for v in d.values()]
+    rest = [h, w] + [v for d in host_dyns for v in d.values()]
     donate = _DONATE if donate is None else donate
     with _LOCK:
         _SIGNATURES.add((specs, (len(batch),) + batch[0].shape, str(device)))
     if device.type != "cuda":
-        y = _run_staged(specs, _stage(flat, device, label)[0], host_dyns, donate)
+        views, _ = _stage_inputs(batch, plans, rest, device, None, label, dc)
+        y = _run_staged(specs, views, host_dyns, donate)
         _book_d2h(y, label)
         return Launched(y)
     if stream is None:
         stream = _stream(device)
     with torch.cuda.stream(stream):
-        views, staged = _stage(flat, device, label)
+        views, staged = _stage_inputs(batch, plans, rest, device, stream, label, dc)
         y = _run_staged(specs, views, host_dyns, donate)
         host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
         host.copy_(y, non_blocking=True)
@@ -662,14 +765,17 @@ def fetch_batch(y, arrs: list, plans: list) -> list:
     return finish_batch(_to_host(y), arrs, plans)
 
 
-def run_batch(arrs: list, plans: list, device=DEFAULT_DEVICE) -> list:
+def run_batch(arrs: list, plans: list, device=DEFAULT_DEVICE,
+              device_cache: bool = False) -> list:
     """Synchronous convenience: launch + fetch in one call."""
-    return fetch_batch(launch_batch(arrs, plans, device=device), arrs, plans)
+    return fetch_batch(launch_batch(arrs, plans, device=device,
+                                    device_cache=device_cache), arrs, plans)
 
 
 def run_single(arr: np.ndarray, plan: ImagePlan, device=DEFAULT_DEVICE):
-    """Single-image convenience wrapper (the pipeline's default runner)."""
-    return run_batch([arr], [plan], device=device)[0]
+    """Single-image convenience wrapper (the pipeline's default runner,
+    with the device frame tier: the reference's unpinned launch)."""
+    return run_batch([arr], [plan], device=device, device_cache=True)[0]
 
 
 _OOM_MARKERS = ("out of memory", "failed to allocate", "resource exhausted",

@@ -149,6 +149,7 @@ def dct_in_bucket(shrink: int, hb: int, wb: int, layout: str) -> tuple:
 
 
 def wrap_plan_dct(plan: ImagePlan, src_h: int, src_w: int, shrink: int,
+                  frame_key: Optional[tuple] = None,
                   layout: str = "420", egress: str = "",
                   egress_quality: int = 75) -> ImagePlan:
     """Re-express an RGB plan (planned at the SHRUNK dims) as a
@@ -171,6 +172,10 @@ def wrap_plan_dct(plan: ImagePlan, src_h: int, src_w: int, shrink: int,
     ends with a device-side forward DCT + quantization at egress_quality
     (qy/qc ride as per-image dyn [8, 8] f32) and the readback is int16
     coefficients for the host entropy encoder.
+
+    frame_key: the packed buffer's identity (digest, shrink, "dct") from
+    the decoded-frame tier, under which ops/chain.py keeps the staged
+    device copy resident (`set_device_frame_cache`); None stages it anew.
     """
     if not plan.stages:
         return plan
@@ -200,6 +205,7 @@ def wrap_plan_dct(plan: ImagePlan, src_h: int, src_w: int, shrink: int,
         in_h=h2,
         in_w=w2,
         out_bucket=(out_hb, out_wb),
+        frame_key=frame_key,
         egress=egress,
         egress_quality=int(egress_quality),
     )

@@ -27,7 +27,16 @@ watermark image: <url>" from the planner. Each decode, drained frame
 and encoded body books its bytes in the COPIES ledger
 (engine/timing.py), each decode and encode is a failpoint site
 (`codec.decode`, `codec.encode`), and the encode checks the request's
-deadline first (deadline.py). The frame cache waits for a later slice.
+deadline first (deadline.py).
+
+The decoded-frame tier (cache.py, --cache-frame-mb): with a `frame_cache`
+and the source's `source_digest`, each transport's decode is looked up
+first, under (digest, shrink, "rgb"), (digest, shrink, "yuv", hb, wb) or
+(digest, shrink, "dct"); a stored array is marked read-only before it is
+shared. The dct key doubles as the plan's `frame_key`, under which
+ops/chain.py keeps the staged coefficients resident on the card
+(--cache-device-mb). As in the reference, the yuv420 transport's plan
+carries no frame_key, so only the dct transport reaches the device tier.
 """
 
 from __future__ import annotations
@@ -276,18 +285,21 @@ def info(buf: bytes, o: ImageOptions) -> ProcessedImage:
 
 def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
                       meta=None, runner=None,
-                      watermark_rgba: Optional[np.ndarray] = None) -> ProcessedImage:
+                      watermark_rgba: Optional[np.ndarray] = None,
+                      frame_cache=None, source_digest=None) -> ProcessedImage:
     """Run one named operation end to end (decode -> device -> encode).
 
     meta: an ImageMetadata the caller already probed, so the hot path
     parses headers once. runner: see `_run_stages`. watermark_rgba: the
     HxWx4 uint8 mark of `watermarkImage` (and of every `watermarkImage`
-    op of a pipeline)."""
+    op of a pipeline). frame_cache, source_digest: the decoded-frame tier
+    (cache.FrameCache) and the source's sha256 (module docstring)."""
     if name == "info":
         return info(buf, o)
     if name == "pipeline":
         return process_pipeline(buf, o, device=device, meta=meta, runner=runner,
-                                watermark_rgba=watermark_rgba)
+                                watermark_rgba=watermark_rgba,
+                                frame_cache=frame_cache, source_digest=source_digest)
     if name not in OPERATION_NAMES:
         raise new_error(f"Unsupported operation: {name}", 400)
     t_start = time.monotonic()
@@ -301,18 +313,20 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
     TIMES.record("probe", (time.monotonic() - t_start) * 1000.0)
 
     if _dct_eligible(src_type, meta, o):
-        out = _process_dct(name, buf, o, meta, shrink, device, runner, watermark_rgba)
+        out = _process_dct(name, buf, o, meta, shrink, device, runner, watermark_rgba,
+                           frame_cache, source_digest)
         if out is not None:
             TIMES.record("total", (time.monotonic() - t_start) * 1000.0)
             return out
 
     if _yuv_eligible(src_type, meta, o):
-        out = _process_yuv420(name, buf, o, meta, shrink, device, runner, watermark_rgba)
+        out = _process_yuv420(name, buf, o, meta, shrink, device, runner, watermark_rgba,
+                              frame_cache, source_digest)
         if out is not None:
             TIMES.record("total", (time.monotonic() - t_start) * 1000.0)
             return out
 
-    d = _decode(buf, shrink)
+    d = _decode_cached(buf, shrink, frame_cache, source_digest)
     plan = plan_operation(name, o, d.array.shape[0], d.array.shape[1], d.orientation,
                           d.array.shape[2], watermark_rgba=watermark_rgba)
     arr = _run_stages(d.array, plan, device, runner)
@@ -323,12 +337,25 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
     return out
 
 
-def _decode(buf: bytes, shrink: int):
-    """The rgb transport's host decode, timed into TIMES."""
+def _decode_cached(buf: bytes, shrink: int, frame_cache=None, digest=None):
+    """The rgb transport's host decode, fronted by the decoded-frame tier
+    and timed into TIMES. A stored array is marked read-only before it is
+    shared: every consumer (the launch's staging copy, the host
+    interpreter, the encoders) only reads its input."""
     t0 = time.monotonic()
+    key = None
+    if frame_cache is not None and digest is not None:
+        key = (digest, shrink, "rgb")
+        d = frame_cache.get(key)
+        if d is not None:
+            TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
+            return d
     failpoints.hit("codec.decode")
     d = codecs.decode(buf, shrink)
     COPIES.add("decode", d.array.nbytes)
+    if key is not None:
+        d.array.setflags(write=False)
+        frame_cache.put(key, d, d.array.nbytes)
     TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
     return d
 
@@ -346,11 +373,19 @@ def _dct_eligible(src_type, meta, o: ImageOptions) -> bool:
     return o.type in _JPEG_TYPE_NAMES
 
 
-def _decode_dct_packed(buf, shrink, sh, sw):
+def _decode_dct_packed(buf, shrink, sh, sw, frame_cache=None, digest=None):
     """Entropy-decode + dequantize + fold + pack the coefficients for the
-    card's IDCT. Returns (packed, layout), or None (counted) when the
-    stream is outside the codec's scope or its frame dims disagree with
-    the probe's: the request then takes the yuv420/rgb path."""
+    card's IDCT. Returns (packed, layout, frame_key), or None (counted)
+    when the stream is outside the codec's scope or its frame dims
+    disagree with the probe's: the request then takes the yuv420/rgb
+    path. The packed buffer caches under its own kind tag, and the same
+    key is the plan's frame_key for the device tier (None without a
+    digest)."""
+    fkey = (digest, shrink, "dct") if digest is not None else None
+    if frame_cache is not None and fkey is not None:
+        hit = frame_cache.get(fkey)
+        if hit is not None:
+            return hit + (fkey,)
     t0 = time.monotonic()
     failpoints.hit("codec.decode")
     got = jpeg_dct.decode_packed(buf, shrink)
@@ -358,12 +393,16 @@ def _decode_dct_packed(buf, shrink, sh, sw):
         _count_dct("out_of_scope")
         return None
     TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
-    COPIES.add("decode", got[0].nbytes)
-    return got[0], got[3]
+    packed, layout = got[0], got[3]
+    COPIES.add("decode", packed.nbytes)
+    if frame_cache is not None and fkey is not None:
+        packed.setflags(write=False)
+        frame_cache.put(fkey, (packed, layout), packed.nbytes)
+    return packed, layout, fkey
 
 
-def _process_dct(name, buf, o, meta, shrink, device, runner,
-                 watermark_rgba) -> Optional[ProcessedImage]:
+def _process_dct(name, buf, o, meta, shrink, device, runner, watermark_rgba,
+                 frame_cache=None, source_digest=None) -> Optional[ProcessedImage]:
     """Serve a JPEG->JPEG request over the compressed-domain transport;
     None hands it to the yuv420/rgb paths: an identity chain (which the
     yuv420 path serves from raw planes with no device work, so it is
@@ -375,13 +414,13 @@ def _process_dct(name, buf, o, meta, shrink, device, runner,
                           watermark_rgba=watermark_rgba)
     if not plan.stages:
         return None
-    got = _decode_dct_packed(buf, shrink, sh, sw)
+    got = _decode_dct_packed(buf, shrink, sh, sw, frame_cache, source_digest)
     if got is None:
         return None
-    packed, layout = got
+    packed, layout, fkey = got
     target = _encode_type(o, ImageType.JPEG)
-    wrapped = wrap_plan_dct(plan, meta.height, meta.width, shrink, layout=layout,
-                            egress=_pick_egress(o, target),
+    wrapped = wrap_plan_dct(plan, meta.height, meta.width, shrink, frame_key=fkey,
+                            layout=layout, egress=_pick_egress(o, target),
                             egress_quality=o.quality if o.quality > 0 else 80)
     out = _encode(_run_stages(packed, wrapped, device, runner), o, target)
     _count_dct("served")
@@ -399,11 +438,19 @@ def _yuv_eligible(src_type, meta, o: ImageOptions) -> bool:
     return o.type in _JPEG_TYPE_NAMES and codecs.yuv420_supported()
 
 
-def _decode_yuv_packed(buf, shrink, sh, sw):
+def _decode_yuv_packed(buf, shrink, sh, sw, frame_cache=None, digest=None):
     """Raw-decode into the packed layout; None means 'use the RGB path'
     (non-420 surprise or probe/decode disagreement — the RGB decode then
-    raises any user-facing error itself)."""
+    raises any user-facing error itself). The packed buffer caches under
+    its own kind tag: it is another pixel layout than the RGB decode of
+    the same digest."""
     hb, wb = bucket_shape(sh, sw)
+    key = None
+    if frame_cache is not None and digest is not None:
+        key = (digest, shrink, "yuv", hb, wb)
+        hit = frame_cache.get(key)
+        if hit is not None:
+            return hit
     t0 = time.monotonic()
     failpoints.hit("codec.decode")
     try:
@@ -414,17 +461,20 @@ def _decode_yuv_packed(buf, shrink, sh, sw):
         return None
     TIMES.record("decode", (time.monotonic() - t0) * 1000.0)
     COPIES.add("decode", packed.nbytes)
+    if key is not None:
+        packed.setflags(write=False)
+        frame_cache.put(key, (packed, hb, wb), packed.nbytes)
     return packed, hb, wb
 
 
-def _process_yuv420(name, buf, o, meta, shrink, device, runner,
-                    watermark_rgba) -> Optional[ProcessedImage]:
+def _process_yuv420(name, buf, o, meta, shrink, device, runner, watermark_rgba,
+                    frame_cache=None, source_digest=None) -> Optional[ProcessedImage]:
     """Serve a JPEG->JPEG request over the packed-plane transport; None
     falls back to the RGB path. Parameter errors raise exactly as the RGB
     path would, since the plan math is identical."""
     sh = -(-meta.height // shrink)
     sw = -(-meta.width // shrink)
-    got = _decode_yuv_packed(buf, shrink, sh, sw)
+    got = _decode_yuv_packed(buf, shrink, sh, sw, frame_cache, source_digest)
     if got is None:
         return None
     packed, hb, wb = got
@@ -457,7 +507,8 @@ def _pick_shrink(name: str, src_type: ImageType, o: ImageOptions, meta) -> int:
 
 def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
                      runner=None,
-                     watermark_rgba: Optional[np.ndarray] = None) -> ProcessedImage:
+                     watermark_rgba: Optional[np.ndarray] = None,
+                     frame_cache=None, source_digest=None) -> ProcessedImage:
     """Fused multi-op pipeline (ref: Pipeline, image.go:379-410).
 
     All ops' stages concatenate into ONE chain; `ignore_failure` skips an
@@ -497,12 +548,14 @@ def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
             o, sh, sw, meta.orientation, 3, ImageType.JPEG, watermark_rgba)
         # identity chains go on to the yuv path, which serves them
         # straight from raw planes with no device round trip at all
-        got = _decode_dct_packed(buf, shrink, sh, sw) if combined.stages else None
+        got = (_decode_dct_packed(buf, shrink, sh, sw, frame_cache, source_digest)
+               if combined.stages else None)
         if got is not None:
-            packed, layout = got
+            packed, layout, fkey = got
             q = final_o.quality if final_o.quality > 0 else 80
             wrapped = wrap_plan_dct(combined, meta.height, meta.width, shrink,
-                                    layout=layout, egress=_pick_egress(final_o, target),
+                                    frame_key=fkey, layout=layout,
+                                    egress=_pick_egress(final_o, target),
                                     egress_quality=q)
             out = _encode(_run_stages(packed, wrapped, device, runner), final_o, target)
             _count_dct("served")
@@ -511,7 +564,7 @@ def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
     if ops_keep_jpeg and _yuv_eligible(src_type, meta, o):
         sh = -(-meta.height // shrink)
         sw = -(-meta.width // shrink)
-        got = _decode_yuv_packed(buf, shrink, sh, sw)
+        got = _decode_yuv_packed(buf, shrink, sh, sw, frame_cache, source_digest)
         if got is not None:
             packed, hb, wb = got
             combined, final_o, target, rotated, strip = _build_pipeline_plan(
@@ -524,7 +577,7 @@ def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
                 out = _encode(_run_stages(packed, wrapped, device, runner), final_o, target)
             return _carry_metadata(buf, strip, out, rotated, combined.out_w, combined.out_h)
 
-    d = _decode(buf, shrink)
+    d = _decode_cached(buf, shrink, frame_cache, source_digest)
     combined, final_o, target, rotated, strip = _build_pipeline_plan(
         o, d.array.shape[0], d.array.shape[1], d.orientation, d.array.shape[2], d.type,
         watermark_rgba)

@@ -104,6 +104,27 @@ class ServerOptions:
     transport_dct: bool = False
     transport_dct_egress: bool = False
     dct_native: str = "auto"  # the entropy decoder arm (codecs/jpeg_dct.py)
+    # --- content-addressed caching (cache.py) --------------------------------
+    # All tiers default OFF: with every knob at 0/False the serving path is
+    # byte-identical to the uncached build.
+    # encoded-result LRU byte budget in MB (serves repeat requests without
+    # touching the executor; also enables strong ETag + If-None-Match 304)
+    cache_result_mb: float = 0.0
+    # decoded-frame LRU byte budget in MB (different ops on the same hot
+    # source skip decode)
+    cache_frame_mb: float = 0.0
+    # device-resident packed-frame tier byte budget in MB of device memory
+    # (ops/chain.py): a hot dct-transport source pays zero batch H2D bytes
+    # on repeat requests. Halved at elevated memory pressure, off at
+    # critical (cache.py apply_pressure).
+    cache_device_mb: float = 0.0
+    # singleflight: N concurrent identical (digest, plan) requests run the
+    # pipeline once and fan the result out
+    cache_coalesce: bool = False
+    # TTL'd remote-source cache for ?url= fetches: seconds (0 = off) and
+    # its own byte budget
+    cache_source_ttl: float = 0.0
+    cache_source_mb: float = 32.0
     # --- placement and the card's fault domain (engine/executor.py) --------
     # Host placement: the cost model's spill to the host interpreter, the
     # breaker outage's host serving and the host route of an item that

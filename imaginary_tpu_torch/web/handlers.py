@@ -33,9 +33,26 @@ queue estimate; the request deadline's admission below; then the class's
 dimension gate at --max-allowed-resolution (an over-cap source is a 413,
 where the reference's plain guard answers 422), and at critical clamps
 both the source and the requested output to `pressure_pixel_frac` of it
-(413 + Retry-After 2). The governor's transition callback empties the
-placeholder cache on entering critical (the cache tiers' half waits for
-the port's cache). A tenant over its queue share gets the executor's 503.
+(413 + Retry-After 2). The governor's transition callback is the cache
+tiers' brownout (`CacheSet.apply_pressure`: halved budgets at elevated;
+at critical a quarter, and the source and device tiers off). A tenant
+over its queue share gets the executor's 503.
+
+The cache tiers (cache.py, the reference's handlers.py:593-805), all off
+by default. With a keyed tier (--cache-result-mb or --cache-coalesce)
+the core's checks run on the event loop, and the request key (the
+source's sha256 x the operation's options after Accept negotiation)
+answers a matching If-None-Match with 304 (`ETag`, `Vary`, no body)
+before the pipeline, serves a stored result with its stored
+X-Imaginary-Backend, and with --cache-coalesce runs N concurrent
+identical requests as one pool dispatch (one `_inflight` unit); a
+successful result is stored and every answer of the result tier carries
+its strong `ETag`. Errors are never stored. Without a keyed tier the
+checks run in the pool, as they always have. --cache-frame-mb hands the
+decoded-frame tier and the digest to the pipeline, --cache-device-mb
+arms the device-resident frame tier (ops/chain.py) and
+--cache-source-ttl the sources' TTL cache. /health carries the tiers'
+counters (`cache`).
 
 With `--request-timeout` set, the request's deadline (deadline.py) is
 enforced at each hop here: admission sheds a 503 with Retry-After when
@@ -68,13 +85,14 @@ import torch
 from aiohttp import web
 
 from imaginary_tpu_torch import Version, codecs, failpoints, pipeline
+from imaginary_tpu_torch import cache as cache_mod
 from imaginary_tpu_torch import deadline as deadline_mod
 from imaginary_tpu_torch.codecs import jpeg_dct, native_backend
 from imaginary_tpu_torch.engine import Executor, ExecutorConfig, host_exec
 from imaginary_tpu_torch.engine import executor as executor_mod
 from imaginary_tpu_torch.engine import integrity as integrity_mod
 from imaginary_tpu_torch.engine import pressure as pressure_mod
-from imaginary_tpu_torch.engine.timing import attribute
+from imaginary_tpu_torch.engine.timing import COPIES, attribute
 from imaginary_tpu_torch.errors import (
     ErrEmptyBody,
     ErrNotFound,
@@ -169,8 +187,9 @@ class ImageService:
     builds each once); a service built alone derives them from `o`. The
     dct transport switches, the dct decoder arm, donation and the codec
     arena's cap are process-wide, set here from the options as the
-    reference's service sets them. `close()` shuts the executor and the
-    pool down."""
+    reference's service sets them, and so is the device frame tier
+    (`chain.set_device_frame_cache`, released again by `close()`).
+    `close()` shuts the executor and the pool down."""
 
     def __init__(self, o: Optional[ServerOptions] = None, qos=None, pressure=None,
                  **overrides):
@@ -183,7 +202,10 @@ class ImageService:
             raise RuntimeError(
                 "CUDA is not available; pass --device cpu to serve on the CPU")
         self.started = time.time()
-        self.registry = SourceRegistry(o)
+        # the content-addressed cache tiers (cache.py), all off by default
+        self.caches = cache_mod.CacheSet.from_options(o)
+        self.frame_cache = cache_mod.FrameCache(self.caches.frames, self.caches.stats)
+        self.registry = SourceRegistry(o, caches=self.caches)
         # output integrity (None when --integrity is off); the golden
         # triple is built at boot when its probe is armed
         self.integrity = integrity_mod.from_options(o)
@@ -193,13 +215,19 @@ class ImageService:
         self.qos = qos if qos is not None else load_policy(o.qos_config)
         self.pressure = pressure if pressure is not None else pressure_mod.from_options(o)
         if self.pressure is not None:
-            self.pressure.on_transition(self._apply_pressure)
+            # the tiers shrink and restore on the governor's transitions
+            self.pressure.on_transition(lambda _old, new: self.caches.apply_pressure(new))
         jpeg_dct.set_decoder(o.dct_native)
         if o.arena_mb > 0:
             native_backend.set_arena_cap(o.arena_mb)
         # before the executor exists, so its first launch serves as the
         # server will
         chain_mod.set_donation(o.donation)
+        self._device_frames = None
+        if o.cache_device_mb > 0:
+            self._device_frames = cache_mod.DeviceFrameCache(self.caches.device,
+                                                             self.caches.stats)
+        chain_mod.set_device_frame_cache(self._device_frames)
         self.executor = Executor(ExecutorConfig(
             window_ms=o.batch_window_ms, max_batch=o.max_batch,
             batch_policy=o.batch_policy, max_form_ms=o.batch_form_ms,
@@ -230,15 +258,6 @@ class ImageService:
         self._placeholder_lock = threading.Lock()
         self._closed = False
 
-    def _apply_pressure(self, _old: int, new: int) -> None:
-        """The governor's transition callback: entering critical empties
-        the placeholder cache, the port's one cache (the reference's
-        cache tiers shrink here too; their half waits for the port's
-        cache)."""
-        if new >= pressure_mod.LEVEL_CRITICAL:
-            with self._placeholder_lock:
-                self._placeholders.clear()
-
     def prewarm(self) -> dict:
         """--prewarm (prewarm.py): the common chains on this service's
         device at every B up to its max_batch, and the lane tier's
@@ -260,6 +279,11 @@ class ImageService:
         self._closed = True
         self.executor.shutdown()
         self.pool.shutdown(wait=False)
+        if (self._device_frames is not None
+                and chain_mod.device_frame_cache() is self._device_frames):
+            # the resident frames go back to the card with the service
+            chain_mod.set_device_frame_cache(None)
+            self._device_frames.clear()
 
     async def aclose(self) -> None:
         await self.registry.close()
@@ -369,17 +393,58 @@ class ImageService:
 
     async def _process_and_respond(self, request, op_name, buf) -> web.Response:
         """Run the core on the host pool under the request's context (so
-        its spans land in this request's trace). On the routes that may
-        name a watermark image, the core's checks run here first and the
-        mark is fetched on the event loop. The inflight ledger decrements
-        in the pool thread; a task cancelled while still queued never
-        runs, and the done-callback balances it."""
+        its spans land in this request's trace), behind the cache tiers
+        (module docstring). On the routes that may name a watermark image,
+        and whenever a keyed tier needs the options for its key, the
+        core's checks run here first; the mark is fetched on the event
+        loop. The inflight ledger decrements in the pool thread; a task
+        cancelled while still queued never runs, and the done-callback
+        balances it."""
         query = dict(request.query)
+        caches = self.caches
         prepared = None
-        if op_name in _MARKED_ROUTES:
+        if op_name in _MARKED_ROUTES or caches.keyed:
             prepared = self.prepare(buf, query, request.headers)
+        digest = key = etag = None
+        if caches.keyed:
+            # after Accept negotiation: a negotiated webp and jpeg never
+            # share an entry or an ETag
+            digest = cache_mod.source_digest(buf)
+            key = cache_mod.request_key(digest, op_name, prepared.opts)
+        tr = obs_trace.current()
+        if tr is not None and tr.enabled:
+            tr.annotate(cache="off")
+        if caches.result.enabled and key is not None:
+            with obs_trace.span("cache_lookup"):
+                etag = cache_mod.strong_etag(key)
+                if request.method == "GET" and cache_mod.etag_matches(
+                        request.headers.get("If-None-Match", ""), etag):
+                    # the conditional GET, answered before the pipeline
+                    caches.stats.etag_304 += 1
+                    if tr is not None:
+                        tr.annotate(cache="etag_304")
+                    headers = {"ETag": etag}
+                    if prepared.vary:
+                        headers["Vary"] = prepared.vary
+                    return web.Response(status=304, headers=headers)
+                try:
+                    hit = caches.result.get(key)
+                except Exception:  # noqa: BLE001 - a failing tier reads as a miss
+                    hit = None
+            if hit is not None:
+                caches.stats.result_hits += 1
+                if tr is not None:
+                    tr.annotate(cache="result_hit")
+                out, placement = hit
+                # the one read of the stored body a hit pays
+                COPIES.add("cache_hit", len(out.body))
+                return self._web_response(self._build_response(
+                    out, op_name, prepared.vary, placement, etag))
+            caches.stats.result_misses += 1
+            if tr is not None:
+                tr.annotate(cache="result_miss")
 
-        async def work() -> Response:
+        async def work() -> tuple:
             watermark = None
             if prepared is not None:
                 try:
@@ -393,24 +458,45 @@ class ImageService:
                 self._inflight += 1
             ctx = contextvars.copy_context()
             fut = self.pool.submit(ctx.run, self._process_counted, op_name, bytes(buf),
-                                   query, request.headers, prepared, watermark)
+                                   query, request.headers, prepared, watermark, digest)
             fut.add_done_callback(self._release_if_cancelled)
             return await asyncio.wrap_future(fut)
 
+        async def run_work() -> tuple:
+            if caches.coalesce and key is not None:
+                # singleflight: one pool dispatch (one _inflight unit) for
+                # every concurrent identical request; each waiter is
+                # shielded, so a waiter's cancellation (its deadline, a
+                # disconnect) never cancels the shared run
+                return await caches.flight.run(key, work)
+            return await work()
+
         dl = deadline_mod.current()
         if dl is None:
-            got = await work()
+            out, placement, vary = await run_work()
         else:
-            # the one await-side bound: the watermark fetch, the pool's
-            # queue and the work itself. A pool future still queued is
-            # cancelled and never runs; _release_if_cancelled balances it
+            # the one await-side bound: the coalesce wait, the watermark
+            # fetch, the pool's queue and the work itself. A pool future
+            # still queued is cancelled and never runs
+            # (_release_if_cancelled balances it); a coalesced follower
+            # detaches from the leader's run without cancelling it
             rem = dl.note("queue")
             if rem <= 0.0:
                 raise dl.error("queue")
             try:
-                got = await asyncio.wait_for(work(), rem)
+                out, placement, vary = await asyncio.wait_for(run_work(), rem)
             except asyncio.TimeoutError:
                 raise dl.error("queue") from None
+        if caches.result.enabled and key is not None:
+            # the placement rides along, so a replayed answer carries the
+            # X-Imaginary-Backend of the run that produced it
+            caches.result.put(key, (out, placement), len(out.body))
+        if prepared is not None:  # a coalesced waiter's own negotiation
+            vary = prepared.vary
+        return self._web_response(self._build_response(out, op_name, vary, placement, etag))
+
+    @staticmethod
+    def _web_response(got: "Response") -> web.Response:
         return web.Response(body=got.body, status=got.status,
                             content_type=got.content_type, headers=got.headers)
 
@@ -446,14 +532,16 @@ class ImageService:
         return arr
 
     def _process_counted(self, op_name, buf, query, headers, prepared,
-                         watermark) -> Response:
+                         watermark, digest=None) -> tuple:
+        """The pool's task: (out, placement, vary)."""
         t0 = time.monotonic()
         try:
             # a request that expired while queued costs no decoded byte
             deadline_mod.check("host_pool")
             if prepared is None:
                 prepared = self.prepare(buf, query, headers)
-            return self.run(op_name, buf, prepared, watermark)
+            out, placement = self.run(op_name, buf, prepared, watermark, digest)
+            return out, placement, prepared.vary
         finally:
             dt_ms = (time.monotonic() - t0) * 1000.0
             with self._inflight_lock:
@@ -464,7 +552,9 @@ class ImageService:
         """The framework-free core of an image route: `buf` under the
         operation `op_name` with the request's query ({key: first value})
         and headers. Raises ImageError for the error reply."""
-        return self.run(op_name, buf, self.prepare(buf, query, headers))
+        prepared = self.prepare(buf, query, headers)
+        out, placement = self.run(op_name, buf, prepared)
+        return self._build_response(out, op_name, prepared.vary, placement)
 
     def prepare(self, buf: bytes, query: dict, headers=None) -> Prepared:
         """The core's checks, in the reference's order: the media-type
@@ -527,22 +617,29 @@ class ImageService:
         return Prepared(opts, vary, meta)
 
     def run(self, op_name: str, buf: bytes, prepared: Prepared,
-            watermark_rgba: Optional[np.ndarray] = None) -> Response:
-        """The pipeline on a prepared request, and its response, with
-        X-Imaginary-Backend from where the executor computed it."""
+            watermark_rgba: Optional[np.ndarray] = None, digest=None) -> tuple:
+        """The pipeline on a prepared request: (out, placement), where the
+        executor computed it (None: the device). `digest`: the source's
+        sha256 when the handler took it; with the decoded-frame tier on
+        and none given, it is taken here."""
         executor_mod.reset_placement()
+        frames = None
+        if self.caches.frames.enabled:
+            frames = self.frame_cache
+            if digest is None:
+                digest = cache_mod.source_digest(buf)
         try:
             out = pipeline.process_operation(op_name, buf, prepared.opts,
                                              device=self.device, meta=prepared.meta,
                                              runner=self._execute_within_deadline,
-                                             watermark_rgba=watermark_rgba)
+                                             watermark_rgba=watermark_rgba,
+                                             frame_cache=frames, source_digest=digest)
         except ImageError:
             raise
         except Exception as e:
             # ref: handlers.py:787-790, any other failure of the work
             raise new_error("Error processing image: " + str(e), 400) from None
-        return self._build_response(out, op_name, prepared.vary,
-                                    executor_mod.last_placement())
+        return out, executor_mod.last_placement()
 
     def _execute_within_deadline(self, arr, plan):
         """Executor.process with the wait for the result bounded by the
@@ -567,7 +664,7 @@ class ImageService:
             executor_mod.note_placement(hp)
         return out
 
-    def _build_response(self, out, op_name, vary, placement=None) -> Response:
+    def _build_response(self, out, op_name, vary, placement=None, etag=None) -> Response:
         headers = {}
         if op_name != "info":  # /info produces no pixels
             placement = placement or "device"
@@ -577,6 +674,8 @@ class ImageService:
                 tr.annotate(placement=placement)
         if vary:
             headers["Vary"] = vary
+        if etag:
+            headers["ETag"] = etag
         # every image the pipeline answers carries its output geometry
         if self.options.return_size and out.mime != "application/json":
             headers["Image-Width"] = str(out.width)

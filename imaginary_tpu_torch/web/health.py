@@ -8,10 +8,11 @@ the link ledger `wire_bytes`/`wire_transfers`, donation and the pressure
 rungs' counts), the fault domains (`deviceHealth`), integrity's counters
 with `--integrity`, the qos block with `--qos-config`, the pressure
 governor's with `--pressure-rss-mb`, the native codec's scratch `arena`,
-the stage times and the estimated queueing delay. Beside them, the
-port's own: the device, each kernel's launch count, the codec route of
-each format and the dct transport's switches.
-The reference's `cache` and `eventLoop` blocks wait for their modules.
+the stage times, the estimated queueing delay and the cache tiers'
+counters (`cache`, always present, as in the reference). Beside them,
+the port's own: the device, each kernel's launch count, the codec route
+of each format and the dct transport's switches. The reference's
+`eventLoop` block waits for its module.
 """
 
 from __future__ import annotations
@@ -84,4 +85,6 @@ def get_health_stats(service) -> dict:
     # the queueing delay a new request would meet: host-pool backlog plus
     # the executor's owed device work
     stats["estimatedQueueMs"] = round(service.estimated_queue_ms(), 2)
+    # the cache tiers' hits, misses, evictions, occupancy and coalescing
+    stats["cache"] = service.caches.to_dict()
     return stats

@@ -8,15 +8,16 @@ per family, label values escaped, families grouped):
      counters under the `imaginary_tpu_` namespace (executor counters,
      per-lane families, the fault domains, the link ledger by direction,
      the byte-touch ledger by stage, the qos classes, the pressure
-     governor, the codec arena, per-stage latency percentile gauges).
+     governor, the codec arena, the cache tiers, per-stage latency
+     percentile gauges).
   2. The obs registry (obs/histogram.py): fixed-bucket cumulative
      histograms (`imaginary_tpu_request_duration_seconds`,
      `imaginary_tpu_stage_duration_seconds{stage=}`) and the RED counters
      per route x status class.
 
-Families of subsystems the port has not ported (caches, fleet, slo,
-cost, the event loop probe) are absent, as the reference leaves them out
-when the subsystem is off.
+Families of subsystems the port has not ported (fleet, slo, cost, the
+event loop probe) are absent, as the reference leaves them out when the
+subsystem is off.
 """
 
 from __future__ import annotations
@@ -35,6 +36,11 @@ _EXEC_GAUGES = {
     "batch_form_p50_ms", "batch_form_p99_ms",
     "dispatch_wait_p50_ms", "dispatch_wait_p99_ms", "donation_enabled",
     "mesh_generation",
+}
+# the cache block's occupancy; its other keys are counters
+_CACHE_GAUGES = {
+    "result_items", "result_bytes", "frame_items", "frame_bytes",
+    "source_items", "source_bytes", "device_items", "device_bytes",
 }
 
 
@@ -123,6 +129,13 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
             pressure = value
         elif key == "arena" and isinstance(value, dict):
             arena = value
+        elif key == "cache" and isinstance(value, dict):
+            # the cache tiers (cache.py): hit/miss/eviction per tier,
+            # singleflight coalescing and 304s
+            for k, v in value.items():
+                mtype = "gauge" if k in _CACHE_GAUGES else "counter"
+                x.emit(f"imaginary_tpu_cache_{_snake(k)}", v, mtype=mtype,
+                       help_text=f"Cache {k.replace('_', ' ')} (see /health).")
         elif key == "stageTimesMs" and isinstance(value, dict):
             for stage, pcts in value.items():
                 lab = escape_label_value(stage)

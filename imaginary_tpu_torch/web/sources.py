@@ -18,9 +18,12 @@ streaming cap refuses one that lied. The origin allow-list applies to
 the watermark image too. With a request deadline (`deadline.py`) each
 attempt notes the `fetch` stage and answers 504 once the budget is
 spent, its timeouts are clipped to what is left, and a backoff the
-budget cannot absorb answers the origin's failure at once. The TTL'd
-source cache of the reference's fetch (`cache.py`, keyed by URL and the
-headers the origin sees) comes with a later module.
+budget cannot absorb answers the origin's failure at once. With
+--cache-source-ttl a fetched body is kept for the TTL (`cache.py`'s
+source tier), keyed by the URL, the size limit and the headers the
+origin sees, taken before the trace headers go in (a per-request
+X-Request-ID in the key would make every fetch a miss); a failing tier
+reads as a miss.
 """
 
 from __future__ import annotations
@@ -202,8 +205,9 @@ class HTTPImageSource:
 
     name = "http"
 
-    def __init__(self, o: ServerOptions):
+    def __init__(self, o: ServerOptions, caches=None):
         self.options = o
+        self._caches = caches
         self._session: Optional[aiohttp.ClientSession] = None
 
     def matches(self, request: web.Request) -> bool:
@@ -268,9 +272,25 @@ class HTTPImageSource:
         --max-allowed-size, with the request's forwarded headers."""
         sess = self.session()
         headers = self._build_headers(request)
-        # trace propagation, injected after the headers are built
+        # the TTL'd source cache: keyed by the URL and the exact headers
+        # the origin would see (with auth forwarding two users may get
+        # different bytes for one URL); a failing tier reads as a miss
+        ckey = None
+        caches = self._caches
+        if caches is not None and caches.source.enabled:
+            ckey = (url, limit, tuple(sorted(headers.items())))
+            try:
+                hit = caches.source.get(ckey)
+            except Exception:  # noqa: BLE001 - the cache.get contract
+                hit = None
+            if hit is not None:
+                caches.stats.source_hits += 1
+                return hit
+            caches.stats.source_misses += 1
+        # trace propagation, injected after the cache key is taken
         tr = obs_trace.current()
         if tr is not None and tr.enabled:
+            headers = dict(headers)
             headers["traceparent"] = tr.outbound_traceparent()
             headers["X-Request-ID"] = tr.request_id
         max_size = limit or self.options.max_allowed_size
@@ -283,7 +303,7 @@ class HTTPImageSource:
             if dl is not None and dl.note("fetch") <= 0.0:
                 raise dl.error("fetch")
             try:
-                return await self._fetch_once(sess, url, headers, max_size)
+                body = await self._fetch_once(sess, url, headers, max_size)
             except ImageError:
                 raise  # the 413 cap: policy, never retried
             except (Exception, asyncio.TimeoutError) as e:
@@ -307,6 +327,10 @@ class HTTPImageSource:
                     raise _map_fetch_error(e, url) from None
                 attempt += 1
                 await asyncio.sleep(delay)
+                continue
+            if ckey is not None:
+                caches.source.put(ckey, body, len(body))
+            return body
 
     async def _check_size(self, sess, url: str, headers: dict) -> None:
         """HEAD pre-check (ref: source_http.go:105-124, 200-206 accepted).
@@ -375,9 +399,9 @@ class SourceRegistry:
     for matching on its first watermark fetch, after which a server
     without the flag serves ?url=)."""
 
-    def __init__(self, o: ServerOptions):
+    def __init__(self, o: ServerOptions, caches=None):
         self.options = o
-        self.http = HTTPImageSource(o)
+        self.http = HTTPImageSource(o, caches=caches)
         self.sources: list = [BodyImageSource()]
         if o.mount:
             self.sources.append(FileSystemImageSource(o.mount))

@@ -83,6 +83,13 @@ FLAGS = [
     ("--donation", "donation", str, "off"),
     ("--arena-mb", "arena_mb", float, 64.0),
     ("--dct-native", "dct_native", str, "python"),
+    # the cache tiers
+    ("--cache-result-mb", "cache_result_mb", float, 64.0),
+    ("--cache-frame-mb", "cache_frame_mb", float, 32.0),
+    ("--cache-device-mb", "cache_device_mb", float, 256.0),
+    ("--cache-coalesce", "cache_coalesce", bool, True),
+    ("--cache-source-ttl", "cache_source_ttl", float, 60.0),
+    ("--cache-source-mb", "cache_source_mb", float, 16.0),
 ]
 IDS = [f[0].lstrip("-") for f in FLAGS]
 # the egress rides on the ingress: set with it in argv and the environment
@@ -238,6 +245,29 @@ def test_admission_options_equal_the_references(argv):
     want = reference_options(reference_parser().parse_args(argv))
     got = cli.options_from_args(cli.parse_args(argv))
     for field in ADMISSION_FIELDS:
+        assert getattr(got, field) == getattr(want, field), field
+
+
+CACHE_FIELDS = ("cache_result_mb", "cache_frame_mb", "cache_device_mb", "cache_coalesce",
+                "cache_source_ttl", "cache_source_mb")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--cache-result-mb", "64", "--cache-frame-mb", "32", "--cache-device-mb", "256",
+     "--cache-coalesce", "--cache-source-ttl", "60", "--cache-source-mb", "16"],
+    ["--cache-result-mb", "-1", "--cache-frame-mb", "-2", "--cache-device-mb", "-3",
+     "--cache-source-ttl", "-4", "--cache-source-mb", "-5"],
+], ids=["defaults", "every-flag", "clamped"])
+def test_cache_options_equal_the_references(argv):
+    """The six cache flags map onto ServerOptions as the reference's
+    options_from_args maps them (each size and the TTL clamped at 0)."""
+    from imaginary_tpu.cli import build_parser as reference_parser
+    from imaginary_tpu.cli import options_from_args as reference_options
+
+    want = reference_options(reference_parser().parse_args(argv))
+    got = cli.options_from_args(cli.parse_args(argv))
+    for field in CACHE_FIELDS:
         assert getattr(got, field) == getattr(want, field), field
 
 

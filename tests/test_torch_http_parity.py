@@ -17,14 +17,17 @@ What may differ, and why:
   port {imaginary_tpu_torch, torch, backend} (each names its own stack;
   the keys' count and `backend` agree);
 - `/health`'s body: live runtime values. The port's keys hold every key
-  of the reference's but the blocks of modules not ported yet (`cache`,
-  `eventLoop`); with `--qos-config` and `--pressure-rss-mb` armed (the
+  of the reference's but the block of a module not ported yet
+  (`eventLoop`); with `--qos-config` and `--pressure-rss-mb` armed (the
   `admission` group) the `qos`, `pressure` and `arena` blocks have the
-  reference's keys and the executor's keys are a subset of its;
+  reference's keys and the executor's keys are a subset of its; with
+  every cache tier armed (the `cache` group) the `cache` block has the
+  reference's keys and its hit and miss counts;
 - `/metrics`'s body: live values. Every family the reference renders for
   a subsystem the port has is in the port's exposition, with the same
   type (the `admission` group adds the qos, pressure, link and arena
-  families);
+  families, the `cache` group the `imaginary_tpu_cache_*` families);
+- the cache group's `ETag` values are equal too (the same request key);
 - nothing: `/watermarkimage` and the `?url=` source are sent too, both
   apps with `enable_url_source` fetching from one shared local origin on
   127.0.0.1 (the `url` group), whose 404, an invalid URL, an origin off
@@ -151,6 +154,15 @@ GROUPS = {
         ("admission-429-lim", "GET", "/form", None, {"API-Key": "lim-key"}),
         ("admission-health", "GET", "/health", None, {}),
         ("admission-metrics", "GET", "/metrics", None, {})]),
+    "cache": ({"cache_result_mb": 8.0, "cache_frame_mb": 64.0, "cache_device_mb": 64.0,
+               "cache_coalesce": True, "cache_source_ttl": 60.0, "transport_dct": True,
+               "mount": FIXTURES}, [
+        ("cache-miss", "GET", "/resize?width=300&height=200&file=large.jpg", None, {}),
+        ("cache-hit", "GET", "/resize?width=300&height=200&file=large.jpg", None, {}),
+        ("cache-negotiated", "POST", "/resize?width=100&type=auto", LARGE,
+         {"Accept": "image/png"}),
+        ("cache-health", "GET", "/health", None, {}),
+        ("cache-metrics", "GET", "/metrics", None, {})]),
     "pressure-guard": ({"max_allowed_pixels": 0.1, "pressure_rss_mb": 1e6}, [
         ("413-pressure-resolution", "POST", "/resize?width=100", LARGE, {})]),
     "placeholder": ({"enable_placeholder": True}, [
@@ -332,7 +344,9 @@ def _timing_names(headers: dict) -> list:
 
 
 EXECUTOR_SPANS = ("batch_form", "dispatch_wait", "drain")
-UNPORTED_HEALTH_KEYS = {"cache", "eventLoop"}
+UNPORTED_HEALTH_KEYS = {"eventLoop"}
+CACHE_COUNTS = ("result_hits", "result_misses", "frame_hits", "frame_misses",
+                "device_hits", "device_misses", "flight_executed", "etag_304")
 
 
 def _check_body(cid: str, ctype: str, want: bytes, got: bytes) -> None:
@@ -356,6 +370,20 @@ def _check_body(cid: str, ctype: str, want: bytes, got: bytes) -> None:
         for k in ("wire_bytes", "wire_transfers", "donation_enabled", "donation_rejected",
                   "pressure_host_forced", "pressure_capped_batches"):
             assert k in g["executor"], k
+    elif cid == "cache-health":
+        w, g = json.loads(want), json.loads(got)
+        assert set(w) - UNPORTED_HEALTH_KEYS <= set(g)
+        assert set(g["cache"]) == set(w["cache"])
+        assert {k: g["cache"][k] for k in CACHE_COUNTS} == \
+            {k: w["cache"][k] for k in CACHE_COUNTS}
+        assert set(g["executor"]) <= set(w["executor"])
+    elif cid == "cache-metrics":
+        _check_metrics(want.decode(), got.decode())
+        w, g = _families(want.decode()), _families(got.decode())
+        armed = {n for n in w if n.startswith("imaginary_tpu_cache_")}
+        assert armed and armed <= set(g)
+        for name in armed:
+            assert g[name] == w[name], name
     elif cid in ("metrics",):
         _check_metrics(want.decode(), got.decode())
     elif cid == "admission-metrics":
@@ -412,6 +440,7 @@ def test_answer_equals_the_reference_apps(answers, group, cid, method, path, src
     assert gs == ws
     assert gh.get("Content-Type") == wh.get("Content-Type")
     assert set(gh) == set(wh)
+    assert gh.get("ETag") == wh.get("ETag")
     got_names = _timing_names(gh)
     if cid.startswith("placeholder"):
         got_names = [n for n in got_names if n not in EXECUTOR_SPANS]

@@ -5,16 +5,15 @@ The reference's `TestGovernor`, `TestBombGate`, `TestHttpLadder` and
 `TestMallocTrim` run against the port (its app on `device="cpu"`), with
 the two executor rungs of its `TestOomRecovery` (the batch byte cap and
 the oversize item forced to the host; the port's OOM bisection is held
-in tests/test_torch_placement.py). Beside them, one `rss_fn` sequence
+in tests/test_torch_placement.py) and `TestCacheBrownout` (the cache
+tiers' ladder, cache.py). Beside them, one `rss_fn` sequence
 gives the port's and the reference's governors the same levels,
 transitions and batch caps, and the ladder's HTTP answers equal the
 reference app's.
 
 What differs, and why: the port decodes no PDF, so
-`test_pdf_mini_inflate_budget_pin` has nothing to pin; its one cache is
-the placeholder LRU, so `test_critical_shrinks_cache_budgets` holds that
-the critical rung empties it (the reference's cache tiers wait for the
-port's cache); and it has no wide events, so
+`test_pdf_mini_inflate_budget_pin` has nothing to pin; and it has no
+wide events, so
 `test_wide_event_carries_pressure_level` reads the request trace's
 fields, which the reference's wide event is built from.
 """
@@ -281,6 +280,48 @@ class TestBombGate:
             failpoints.deactivate()
 
 
+class TestCacheBrownout:
+    def test_set_budget_evicts_down(self):
+        from imaginary_tpu_torch.cache import ByteBudgetLRU
+
+        evicted = []
+        lru = ByteBudgetLRU(1000, on_evict=lambda n: evicted.append(n))
+        for i in range(10):
+            lru.put(i, b"x", 100)
+        assert lru.bytes_used == 1000
+        lru.set_budget(300)
+        assert lru.bytes_used <= 300
+        assert sum(evicted) == 7
+        assert lru.get(9) is not None  # most-recent survives
+        assert lru.get(0) is None  # LRU went first
+
+    def test_apply_pressure_ladder(self):
+        from imaginary_tpu_torch.cache import CacheSet
+
+        cs = CacheSet(result_mb=1.0, frame_mb=1.0, coalesce=False,
+                      source_ttl_s=60.0, source_mb=1.0)
+        base = cs.result.budget
+        cs.apply_pressure(pm.LEVEL_ELEVATED)
+        assert cs.result.budget == base // 2
+        assert cs.source.budget > 0
+        cs.apply_pressure(pm.LEVEL_CRITICAL)
+        assert cs.result.budget == base // 4
+        assert cs.source.budget == 0 and not cs.source.enabled
+        cs.apply_pressure(pm.LEVEL_OK)
+        assert cs.result.budget == base and cs.source.enabled
+        assert cs.stats.pressure_shrinks == 2
+        assert cs.to_dict()["pressure_shrinks"] == 2
+
+    def test_critical_flushes_source_entries(self):
+        from imaginary_tpu_torch.cache import CacheSet
+
+        cs = CacheSet(source_ttl_s=60.0, source_mb=1.0)
+        cs.source.put("k", b"body", 4)
+        assert cs.source.get("k") == b"body"
+        cs.apply_pressure(pm.LEVEL_CRITICAL)
+        assert cs.source.get("k") is None  # evicted, not just disabled
+
+
 # --- HTTP: the brownout ladder end to end ------------------------------------
 
 QOS_CFG = json.dumps({
@@ -431,24 +472,27 @@ class TestHttpLadder:
         run(dict(**PRESSURE_OPTS), fn)
 
     def test_critical_shrinks_cache_budgets(self):
-        """The port's one cache, the placeholder LRU, empties as the
-        governor enters critical."""
+        """The reference's test: the critical rung quarters the result
+        tier and turns the source tier off; ok restores both."""
         async def fn(client, _):
             svc = client.server.app["service"]
-            res = await client.post("/resize?width=60&height=40", data=b"junk",
-                                    headers={"Content-Type": "image/jpeg"})
-            assert res.status == 406 and len(svc._placeholders) == 1
+            base = svc.caches.result.budget
+            assert base > 0 and svc.caches.source.enabled
             _arm_critical(client)
             try:
                 res = await client.get("/health")
                 assert (await res.json())["pressure"]["level"] == "critical"
-                assert len(svc._placeholders) == 0
+                assert svc.caches.result.budget == base // 4
+                assert not svc.caches.source.enabled
             finally:
                 failpoints.deactivate()
+            # recovery restores the configured budgets
             res = await client.get("/health")
             assert (await res.json())["pressure"]["level"] == "ok"
+            assert svc.caches.result.budget == base
+            assert svc.caches.source.enabled
 
-        run(dict(enable_placeholder=True, **PRESSURE_OPTS), fn)
+        run(dict(cache_result_mb=4.0, cache_source_ttl=60.0, **PRESSURE_OPTS), fn)
 
     def test_wide_event_carries_pressure_level(self):
         seen = {}
