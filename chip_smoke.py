@@ -360,6 +360,26 @@ Phases, in order; any failure raises and exits non-zero:
    the first request's X-Request-ID, source_hits 4; (g) phase 6's mix on
    four lanes of card 0, every answer byte-equal to phase 6's.
 
+17. the mesh: (a) config 5's stream (bench_firehose.py's `_gen_stream(32,
+   seed=23)`, JPEG, PNG and WEBP from OpenCV) as /resize?width=300 from 16
+   clients on three servers, unsharded, --use-mesh over four entries of
+   card 0 and --mesh-policy sharded over the same: req/s, the mean batch,
+   dispatches per entry and wire_bytes_by_device, every answer byte-equal
+   across the three (the launches of their windows in the kernels line's
+   `launches_mesh`); (b) `init_distributed` on the card with a world of
+   one (nccl) and one all_reduce of a CUDA tensor; (c) two `python -m
+   imaginary_tpu_torch --mesh-hosts 2` processes on card 0 (no collective:
+   NCCL takes one rank per card), each answering config 1 byte-equal to
+   the other and to phase 4.
+
+18. the vector and HEIF/AVIF codecs: the loaders the machine has
+   (librsvg, poppler-glib, libheif and its HEVC and AV1 encoders, Pillow's
+   AVIF), then /resize and /info on button.svg, page.pdf and test.avif,
+   type=avif and type=heif on large.jpg, a crafted inflate bomb and a
+   self-referencing /Length PDF, each answer held to the reference's rule
+   for the loaders found; K1's launches (`launches_vector`), the SVG's at
+   C = 4.
+
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -6905,6 +6925,382 @@ def cache_phase(smi: str, png: bytes) -> dict:
     return out
 
 
+# --- phase 17: the mesh: config 5 on the card, NCCL, two processes -----------
+
+CONFIG5_N = 32
+CONFIG5_SEED = 23
+CONFIG5_PATH = "/resize?width=300"
+CONFIG5_CLIENTS = 16
+CONFIG5_PER_CLIENT = 6
+CONFIG5_BATCHING = dict(max_batch=16, batch_form_ms=5.0, cpus=CONFIG5_CLIENTS)
+# K2 -> K1 -> K3 on the JPEGs (yuv420 transport), K1 on the PNGs and WEBPs
+CONFIG5_KERNELS = ("yuv420_unpack", "resample", "yuv420_pack")
+MESH_HOST_BOOT_S = 240
+CONFIG1_GET = "/resize?width=300&height=200&file=large.jpg"
+
+
+def make_config5_stream() -> list:
+    """bench_firehose.py:_gen_stream(32, seed=23), drawn and encoded with
+    OpenCV as it does: [(bytes, extension)], JPEG, PNG and WEBP in turn at
+    420-780 x 560-1100."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(CONFIG5_SEED)
+    out = []
+    for i in range(CONFIG5_N):
+        h = int(rng.integers(420, 780))
+        w = int(rng.integers(560, 1100))
+        yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+        base = np.stack([
+            128 + 90 * np.sin(xx / (23 + (i % 7))),
+            128 + 90 * np.cos(yy / (29 + (i % 5))),
+            (xx + yy) % 255,
+        ], axis=-1)
+        cy, cx = int(h * (0.3 + 0.4 * rng.random())), int(w * (0.3 + 0.4 * rng.random()))
+        r = int(min(h, w) * 0.12)
+        cv2.circle(base, (cx, cy), r, (255, 255, 255), -1)
+        cv2.circle(base, (cx, cy), r // 2, (0, 0, 0), -1)
+        noise = rng.normal(0, 6, (h, w, 3))
+        img = np.clip(base + noise, 0, 255).astype(np.uint8)
+        fmt = (".jpg", ".png", ".webp")[i % 3]
+        ok, buf = cv2.imencode(fmt, img)
+        if not ok:
+            raise AssertionError(f"cv2 could not encode {fmt}")
+        out.append((buf.tobytes(), fmt))
+    return out
+
+
+def config5_run(label: str, srv, reqs: list, want, launches: dict) -> tuple:
+    """Each request alone (the server's answers), then one window of
+    CONFIG5_CLIENTS clients x CONFIG5_PER_CLIENT: req/s, mean batch,
+    dispatches per entry, wire_bytes_by_device, every answer byte-equal to
+    `want` (None: this server's alone answers become it). Returns (its
+    numbers, the answers)."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.engine.timing import WIRE
+
+    port = srv.server_address[1]
+    alone = []
+    for path, body in reqs:
+        status, ctype, out = http(port, path, body)
+        if status != 200:
+            raise AssertionError(f"{label}: config 5 alone {status} {ctype}")
+        alone.append((ctype, out))
+    if want is not None and alone != want:
+        raise AssertionError(f"{label}: answers alone differ from the unsharded server's")
+    want = alone
+    ex = srv.service.executor
+    items0, batches0, sharded0 = ex.stats.items, ex.stats.batches, ex.stats.sharded_batches
+    lanes0 = [ln.dispatches for ln in ex._lanes.lanes] if ex._lanes is not None else None
+    mesh0 = list(ex.stats.mesh_dispatches or [])
+    kernels.reset_launches()
+    WIRE.reset()
+    wall, got = load_window(port, reqs, CONFIG5_CLIENTS, CONFIG5_PER_CLIENT)
+    counts = kernels.launch_counts()
+    wire = ex.stats.to_dict().get("wire_bytes_by_device")
+    add_launches(launches, counts)
+    for name in CONFIG5_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} was not launched on config 5")
+    bad = [g for g in got if (g[2], (g[3], g[4])) != (200, want[g[0]])]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} of {len(got)} answers differ "
+                             f"(first: request {bad[0][0]}, status {bad[0][2]})")
+    items, batches = ex.stats.items - items0, ex.stats.batches - batches0
+    if lanes0 is not None:
+        per_entry = [ln.dispatches - d for ln, d in zip(ex._lanes.lanes, lanes0)]
+    elif mesh0:
+        per_entry = [a - b for a, b in zip(ex.stats.mesh_dispatches, mesh0)]
+    else:
+        per_entry = [batches]
+    out = {"requests": len(got), "wall_s": wall, "rps": len(got) / wall, "items": items,
+           "batches": batches, "mean_batch": items / max(1, batches),
+           "dispatches_per_entry": per_entry,
+           "sharded_batches": ex.stats.sharded_batches - sharded0,
+           "wire_bytes_by_device": wire,
+           "launches": counts, "byte_equal": len(got)}
+    log(f"  {label}: {out['rps']:.1f} req/s ({len(got)} requests in {wall:.2f} s), "
+        f"{items} items in {batches} batches (mean {out['mean_batch']:.2f}), "
+        f"dispatches per entry {per_entry}, sharded {out['sharded_batches']}, "
+        f"wire_bytes_by_device {out['wire_bytes_by_device']}; byte-equal")
+    return out, want
+
+
+def nccl_case() -> dict:
+    """(b) init_distributed on cuda:0 with a world of one, then one
+    all_reduce of a CUDA tensor through `psum`."""
+    import torch
+
+    from imaginary_tpu_torch.parallel import mesh as mesh_mod
+
+    t0 = time.perf_counter()
+    backend = mesh_mod.init_distributed(coordinator_address=f"127.0.0.1:{free_port()}",
+                                        num_processes=1, process_id=0, device=DEVICE)
+    init_s = time.perf_counter() - t0
+    x = torch.arange(1, 9, dtype=torch.float32, device=DEVICE)
+    t0 = time.perf_counter()
+    y = mesh_mod.psum(x)
+    torch.cuda.synchronize()
+    reduce_s = time.perf_counter() - t0
+    if backend != ("nccl" if DEVICE == "cuda" else "gloo"):
+        raise AssertionError(f"init_distributed chose {backend}")
+    mesh_mod.shutdown_distributed()
+    if y.device != x.device or float(y.sum()) != 36.0 or not torch.equal(y, x):
+        raise AssertionError(f"all_reduce of 1..8 over one rank gave {y.tolist()}")
+    log(f"  NCCL, world 1: backend {backend}, init {init_s:.3f} s, all_reduce of "
+        f"1..8 on {y.device} sums to {float(y.sum()):.1f} ({reduce_s * 1e3:.2f} ms, "
+        f"the first collective builds the communicator)")
+    return {"backend": backend, "init_s": init_s, "first_all_reduce_s": reduce_s,
+            "sum": float(y.sum())}
+
+
+def mesh_hosts_case() -> dict:
+    """(c) Two `python -m imaginary_tpu_torch --mesh-hosts 2` processes on
+    card 0 meet at boot (no collective: NCCL refuses two ranks on one card
+    when it builds a communicator), then each answers config 1 byte-equal
+    to the other and to phase 4."""
+    coord = f"127.0.0.1:{free_port()}"
+    booted: dict = {}
+
+    def boot(pid: int) -> None:
+        # both at once: process 0's rendezvous waits for process 1
+        try:
+            booted[pid] = ServerProcess(f"mesh_host{pid}", [
+                "--mesh-hosts", "2", "--coordinator-address", coord,
+                "--process-id", str(pid)])
+        except Exception as e:  # re-raised below, in the main thread
+            booted[pid] = e
+
+    threads = [threading.Thread(target=boot, args=(pid,)) for pid in (0, 1)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    hosts = [h for h in booted.values() if isinstance(h, ServerProcess)]
+    out = {}
+    try:
+        for h in booted.values():
+            if isinstance(h, Exception):
+                raise h
+        hosts = [booted[0], booted[1]]
+        answers = []
+        for h in hosts:
+            status, ctype, body = http(h.port, CONFIG1_GET, None)
+            status, ctype, body = http(h.port, CONFIG1_GET, None)
+            if (status, ctype) != (200, "image/jpeg"):
+                raise AssertionError(f"{h.name}: config 1 {status} {ctype}")
+            answers.append(body)
+        if answers[0] != answers[1]:
+            raise AssertionError("the two mesh hosts' config 1 answers differ")
+        want = PHASE4_ANSWERS.get("resize")
+        if want is not None and answers[0] != want:
+            raise AssertionError("the mesh hosts' config 1 answer differs from phase 4's")
+        out = {"boot_s": [h.boot_s for h in hosts],
+               "sha256": hashlib.sha256(answers[0]).hexdigest(),
+               "equal_to_phase4": want is not None}
+    finally:
+        for h in hosts:
+            h.stop()
+    log(f"  --mesh-hosts 2 on card 0: boots {out['boot_s'][0]:.2f} s and "
+        f"{out['boot_s'][1]:.2f} s, config 1 byte-equal across both and to phase 4")
+    return out
+
+
+def mesh_phase() -> dict:
+    """Phase 17 (see the module docstring): (a) config 5 on three servers
+    (--use-mesh over four entries of card 0, --mesh-policy sharded over the
+    same, unsharded), `launches` summing their windows; (b) NCCL with a
+    world of one; (c) two --mesh-hosts processes."""
+    import torch
+
+    from imaginary_tpu_torch.web.app import make_server
+
+    t0 = time.perf_counter()
+    stream = make_config5_stream()
+    reqs = [(CONFIG5_PATH, body) for body, _ in stream]
+    log(f"  config 5's stream: {len(stream)} images, "
+        f"{sum(len(b) for b, _ in stream)} bytes, made in {time.perf_counter() - t0:.2f} s")
+    entries = [torch.device(DEVICE, 0) if DEVICE == "cuda" else torch.device(DEVICE)]
+    entries = entries * LANE_ENTRIES
+    launches: dict = {}
+    out: dict = {}
+    want = None
+    for label, kw in (("unsharded", {}),
+                      ("--use-mesh", dict(use_mesh=True, devices=entries)),
+                      ("--mesh-policy sharded", dict(mesh_policy="sharded", devices=entries,
+                                                     shard_min_items=LANE_SHARD_MIN))):
+        srv = make_server("127.0.0.1", 0, device=DEVICE, **CONFIG5_BATCHING, **kw)
+
+        def run(srv, label=label):
+            return config5_run(f"{label} ({LANE_ENTRIES if 'devices' in kw else 1} "
+                               f"entr{'ies' if 'devices' in kw else 'y'})",
+                               srv, reqs, want, launches)
+
+        out[label], want = serving(srv, run)
+    if out["--use-mesh"]["sharded_batches"] <= 0:
+        raise AssertionError("--use-mesh split no chunk over the mesh")
+    wire = out["--use-mesh"]["wire_bytes_by_device"] or {}
+    if DEVICE == "cuda" and set(wire.get("h2d", {})) != {"cuda:0"}:
+        raise AssertionError(f"--use-mesh on card 0 booked wire bytes under {wire}")
+    out["launches"] = launches
+    out["nccl"] = nccl_case()
+    out["mesh_hosts"] = mesh_hosts_case()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  phase 17: {out['seconds']:.1f} s; one card, so no cross-card copy ran")
+    return out
+
+
+# --- phase 18: SVG, PDF, HEIF and AVIF on the card ----------------------------
+
+VECTOR_BOMB_MB = 65  # past pdf_mini's 64 MB inflate budget
+
+
+def crafted_pdf(content: bytes, flate: bool = False, length=None) -> bytes:
+    """A classic-xref one-page PDF (240x160) around `content`; `length`
+    replaces the stream's /Length value."""
+    import zlib
+
+    data = zlib.compress(content) if flate else content
+    extra = b" /Filter /FlateDecode" if flate else b""
+    length = str(len(data)).encode() if length is None else length
+    objs = [b"<< /Type /Catalog /Pages 2 0 R >>",
+            b"<< /Type /Pages /Kids [3 0 R] /Count 1 >>",
+            b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 240 160] /Contents 4 0 R >>",
+            b"<< /Length " + length + extra + b" >>\nstream\n" + data + b"\nendstream"]
+    out = bytearray(b"%PDF-1.4\n")
+    offsets = []
+    for i, body in enumerate(objs, start=1):
+        offsets.append(len(out))
+        out += str(i).encode() + b" 0 obj\n" + body + b"\nendobj\n"
+    xref_at = len(out)
+    out += b"xref\n0 " + str(len(objs) + 1).encode() + b"\n0000000000 65535 f \n"
+    for off in offsets:
+        out += ("%010d 00000 n \n" % off).encode()
+    out += (b"trailer\n<< /Size " + str(len(objs) + 1).encode() + b" /Root 1 0 R >>\n"
+            b"startxref\n" + str(xref_at).encode() + b"\n%%EOF\n")
+    return bytes(out)
+
+
+def vector_loaders() -> dict:
+    from PIL import features
+
+    from imaginary_tpu_torch.codecs import vector_backend as vb
+
+    return {"librsvg": vb.svg_available(), "poppler": vb.pdf_available(),
+            "libheif": vb.heif_available(), "hevc_encoder": vb.heif_encode_available("hevc"),
+            "av1_encoder": vb.heif_encode_available("av1"),
+            "pillow_avif": bool(features.check("avif"))}
+
+
+def vector_rules(have: dict) -> list:
+    """(name, path, body, allowed answers): each answer the reference's rule
+    for the loaders found, as (status, content type, (w, h) or JSON dims or
+    None). A /resize wider than the source embeds (K4) and a narrower one
+    resamples (K1; the SVG renders into the 1/N box first). HEIF and AVIF
+    sources are refused by the handler's media gate (406, whatever the
+    loaders); a failed AVIF or HEIF encode answers JPEG."""
+    svg = have["librsvg"]
+    avif_enc = have["pillow_avif"] or have["av1_encoder"]
+    bomb = crafted_pdf(b" " * (VECTOR_BOMB_MB << 20), flate=True)
+    circular = crafted_pdf(b"0 0 1 rg 10 10 50 50 re f", length=b"4 0 R")
+    poppler = [(200, "image/jpeg", (100, 67))] if have["poppler"] else []
+    return [
+        ("svg", "/resize?width=300&file=button.svg", None,
+         [(200, "image/jpeg", (300, 160))] if svg else [(406, "application/json", None)]),
+        ("svg-down", "/resize?width=60&file=button.svg", None,
+         [(200, "image/jpeg", (60, 40))] if svg else [(406, "application/json", None)]),
+        ("svg-info", "/info?file=button.svg", None,
+         [(200, "application/json", (240, 160) if svg else (0, 0))]),
+        ("pdf", "/resize?width=300&file=page.pdf", None, [(200, "image/jpeg", (300, 160))]),
+        ("pdf-down", "/resize?width=120&file=page.pdf", None, [(200, "image/jpeg", (120, 80))]),
+        ("pdf-info", "/info?file=page.pdf", None, [(200, "application/json", (240, 160))]),
+        ("avif", "/resize?width=300&file=test.avif", None, [(406, "application/json", None)]),
+        ("avif-info", "/info?file=test.avif", None, [(406, "application/json", None)]),
+        ("to-avif", "/resize?width=300&type=avif&file=large.jpg", None,
+         [(200, "image/avif" if avif_enc else "image/jpeg", (300, 169))]),
+        ("to-heif", "/resize?width=300&type=heif&file=large.jpg", None,
+         [(200, "image/heif" if have["hevc_encoder"] else "image/jpeg", (300, 169))]),
+        ("pdf-bomb", "/resize?width=100", bomb,
+         poppler + [(400, "application/json", None)] if have["poppler"]
+         else [(406, "application/json", None)]),
+        ("pdf-circular", "/resize?width=100", circular,
+         poppler + [(400, "application/json", None)] if have["poppler"]
+         else [(406, "application/json", None)]),
+    ]
+
+
+def answer_dims(ctype: str, body: bytes):
+    import io
+
+    from PIL import Image
+
+    from imaginary_tpu_torch.codecs import vector_backend as vb
+
+    if ctype == "application/json":
+        got = json.loads(body)
+        return (got["width"], got["height"]) if "width" in got else None
+    if ctype == "image/heif":
+        w, h, _ = vb.heif_size(body)
+        return w, h
+    return Image.open(io.BytesIO(body)).size
+
+
+def vector_phase() -> dict:
+    """Phase 18 (see the module docstring): the loaders the machine has, then
+    each vector route against the reference's rule for them, K1's launches
+    (the SVG's RGBA frame takes its C = 4 form)."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.web.app import make_server
+
+    t0 = time.perf_counter()
+    have = vector_loaders()
+    log("  loaders: " + ", ".join(f"{k} {'yes' if v else 'no'}" for k, v in have.items()))
+    rules = vector_rules(have)
+    channels: list = []
+    resample = kernels.resample
+
+    def spy(x, *a, **k):
+        channels.append(int(x.shape[-1]))
+        return resample(x, *a, **k)
+
+    srv = make_server("127.0.0.1", 0, device=DEVICE, mount=TESTDATA)
+
+    def run(srv):
+        port = srv.server_address[1]
+        answers = {}
+        kernels.reset_launches()
+        kernels.resample = spy
+        try:
+            for name, path, body, allowed in rules:
+                channels.clear()
+                status, headers, out = http_get(
+                    port, path, body=body,
+                    headers={"Content-Type": "application/pdf"} if body else None,
+                    method="POST" if body else "GET")
+                ctype = headers.get("Content-Type")
+                dims = answer_dims(ctype, out) if status == 200 else None
+                if (status, ctype, dims) not in allowed:
+                    raise AssertionError(f"{name}: {status} {ctype} {dims}, the reference's "
+                                         f"rule allows {allowed}: {out[:200]!r}")
+                answers[name] = {"status": status, "type": ctype, "dims": dims,
+                                 "k1_channels": sorted(set(channels))}
+                log(f"  {name}: {status} {ctype} {dims}; K1 launches at C = "
+                    f"{answers[name]['k1_channels']}")
+        finally:
+            kernels.resample = resample
+        return answers, kernels.launch_counts()
+
+    answers, launches = serving(srv, run)
+    if have["librsvg"] and answers["svg-down"]["k1_channels"] != [4]:
+        raise AssertionError("the rasterized SVG's K1 launch was not the C = 4 form")
+    if launches["resample"] <= 0:
+        raise AssertionError("K1 was not launched on the vector routes")
+    seconds = time.perf_counter() - t0
+    log(f"  launches: {launches}; phase 18: {seconds:.1f} s")
+    return {"loaders": have, "answers": answers, "launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     import torch
 
@@ -7023,6 +7419,13 @@ def main() -> int:
         "coalesce wait's deadline, the frame tier, the device tier on one card and on "
         "four lanes, the brownout, the source tier, phase 6's mix on lanes)")
     report["cache"] = cache_phase(smi, png)
+    log("== phase 17: the mesh (config 5's stream under --use-mesh, sharded lanes and "
+        "unsharded on four entries of card 0; NCCL with a world of one; two "
+        "--mesh-hosts processes)")
+    report["mesh"] = mesh_phase()
+    log("== phase 18: the vector and HEIF/AVIF codecs (the loaders found, each route "
+        "against the reference's rule, K1's launches)")
+    report["vector"] = vector_phase()
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -7058,6 +7461,8 @@ def main() -> int:
             "launches_golden": report["golden"]["launches"][name],
             "launches_admission": report["admission"]["launches"][name],
             "launches_cache": report["cache"]["launches"][name],
+            "launches_mesh": report["mesh"]["launches"][name],
+            "launches_vector": report["vector"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -275,6 +275,32 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env_float("IMAGINARY_TPU_SPATIAL_MPIX", 0.0),
                    help="the spatial bar in megapixels (maps onto "
                         "--spatial-threshold-px; 0 keeps the pixel knob)")
+    p.add_argument("--use-mesh", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_USE_MESH"),
+                   help="shard batches over the device mesh (--devices, "
+                        "--spatial); --mesh-policy other than off "
+                        "supersedes it")
+    p.add_argument("--distributed", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_DISTRIBUTED"),
+                   help="join a multi-process fleet (torch.distributed "
+                        "init_process_group: nccl on the card, gloo with "
+                        "--device cpu) before the executor touches a device")
+    p.add_argument("--coordinator-address",
+                   default=_env_str("IMAGINARY_TPU_COORDINATOR_ADDRESS", ""),
+                   help="host:port of process 0 (empty: torchrun's "
+                        "environment, env://)")
+    p.add_argument("--num-processes", type=int,
+                   default=_env_int("IMAGINARY_TPU_NUM_PROCESSES", 0),
+                   help="total process count (0: from the environment)")
+    p.add_argument("--process-id", type=int,
+                   default=_env_int("IMAGINARY_TPU_PROCESS_ID", -1),
+                   help="this process's rank (-1: from the environment)")
+    p.add_argument("--mesh-hosts", type=int,
+                   default=_env_int("IMAGINARY_TPU_MESH_HOSTS", 0),
+                   help="join an N-process group at serving boot (requires "
+                        "--coordinator-address and --process-id); each "
+                        "process serves on its own devices with one worker "
+                        "(the port has no --workers); <=1 = off")
     p.add_argument("--lane-form-ms", type=float,
                    default=_env_float("IMAGINARY_TPU_LANE_FORM_MS", -1.0),
                    help="per-lane batch-formation cap in ms (negative = "
@@ -433,6 +459,14 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         raise SystemExit(f"mount directory does not exist: {args.mount}")
     if args.http_cache_ttl < -1 or args.http_cache_ttl > 31556926:
         raise SystemExit("The -http-cache-ttl flag only accepts a value from 0 to 31556926")
+    if args.mesh_hosts > 1:
+        # the reference's checks (cli.py:702-712) but --workers, which the
+        # port does not have: a mesh process is always one worker
+        if not args.coordinator_address:
+            raise SystemExit("--mesh-hosts requires --coordinator-address (process 0 of "
+                             "the mesh)")
+        if args.process_id < 0:
+            raise SystemExit("--mesh-hosts requires --process-id")
     if args.qos_config:
         # a malformed policy fails the boot loudly, never serves unisolated
         from imaginary_tpu_torch.qos.tenancy import load_policy
@@ -500,6 +534,12 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         spatial=max(1, args.spatial),
         spatial_threshold_px=max(1, args.spatial_threshold_px),
         spatial_mpix=max(0.0, args.spatial_mpix),
+        use_mesh=args.use_mesh,
+        distributed=args.distributed,
+        coordinator_address=args.coordinator_address,
+        num_processes=args.num_processes or None,
+        process_id=args.process_id if args.process_id >= 0 else None,
+        mesh_hosts=max(0, args.mesh_hosts),
         transport_dct=args.transport_dct,
         transport_dct_egress=args.transport_dct_egress,
         dct_native=args.dct_native,
@@ -539,6 +579,20 @@ def device_refusal(args: argparse.Namespace) -> str:
     return ""
 
 
+def join_fleet(o: ServerOptions) -> None:
+    """Join the process group before the executor touches a device, as the
+    reference's boot does (cli.py:930-952): --distributed with its
+    arguments, or --mesh-hosts N processes. The backend follows --device
+    (parallel/mesh.init_distributed)."""
+    if not (o.distributed or o.mesh_hosts > 1):
+        return
+    from imaginary_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(coordinator_address=o.coordinator_address or None,
+                     num_processes=o.num_processes if o.distributed else o.mesh_hosts,
+                     process_id=o.process_id, device=o.device)
+
+
 def make_server_from_args(args: argparse.Namespace):
     """Bind (not start) the server the parsed command line describes."""
     from imaginary_tpu_torch.web.app import AppServer
@@ -558,10 +612,14 @@ def main(argv=None) -> int:
     if why:
         print(f"imaginary_tpu_torch: refusing to start: {why}", file=sys.stderr)
         return 2
+    join_fleet(o)
+    from imaginary_tpu_torch.parallel.mesh import shutdown_distributed
     from imaginary_tpu_torch.web.app import serve
 
     try:
         asyncio.run(serve(o, mrelease=args.mrelease))
     except KeyboardInterrupt:
         pass
+    finally:
+        shutdown_distributed()
     return 0

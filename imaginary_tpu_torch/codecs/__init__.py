@@ -5,10 +5,13 @@ The port's own copy of the parts of `imaginary_tpu/codecs` that its
 slices use. The backend is chosen by format, never by failure: JPEG goes
 to the native extension (`native_backend`, libjpeg, also the packed-YUV
 transport), PNG, WEBP, GIF and TIFF to Pillow (`pil_backend`); a native
-JPEG error never retries in Pillow. HEIF, AVIF, SVG and PDF answer 501
-until their slice lands, but for PDF and SVG targets, which the reference
-cannot encode either: 400. Decoding is RAW: EXIF rotation is *not* applied
-here — orientation is reported and the planner decides.
+JPEG error never retries in Pillow. SVG, PDF, HEIF and AVIF go to the
+host's loaders (`vector_backend`: librsvg, poppler-glib, libheif) by the
+reference's routes, with only the reference's own second rungs (PDF:
+`pdf_mini` after poppler; AVIF: libheif after Pillow's plugin); a format
+whose loader is absent answers the reference's 406, a PDF or SVG target
+its 400. Decoding is RAW: EXIF rotation is *not* applied here —
+orientation is reported and the planner decides.
 """
 
 from __future__ import annotations
@@ -257,6 +260,10 @@ def routes() -> dict:
     return {t.value: r for t, r in ROUTES.items()}
 
 
+# Formats the host's loaders serve (vector_backend): never a raster backend
+SPECIAL_TYPES = frozenset({ImageType.SVG, ImageType.PDF, ImageType.HEIF, ImageType.AVIF})
+
+
 def _native():
     from imaginary_tpu_torch.codecs import native_backend
 
@@ -268,8 +275,8 @@ NEVER_ENCODED = (ImageType.PDF, ImageType.SVG)
 
 
 def _backend(t: ImageType, what: str):
-    """The backend of format t; formats without one answer 501, and PDF
-    and SVG targets the reference's 400."""
+    """The raster backend of format t; PDF and SVG targets answer the
+    reference's 400, a format no backend knows 501."""
     route = ROUTES.get(t)
     if route == "native":
         return _native()
@@ -356,9 +363,68 @@ def decode(buf: bytes, shrink: int = 1) -> DecodedImage:
     if not buf:
         raise CodecError("Empty or unreadable image", 400)
     t = determine_image_type(buf)
+    if t in SPECIAL_TYPES:
+        _bomb_gate(buf, t)
+        return _decode_special(buf, t, shrink)
     backend = _backend(t, "decoding")
     _bomb_gate(buf, t)
     return backend.decode(buf, t, shrink)
+
+
+def _pil_open_rgba(buf: bytes) -> tuple:
+    """(array, has_alpha) through Pillow: AVIF's first rung."""
+    from io import BytesIO
+
+    from PIL import Image
+
+    with Image.open(BytesIO(buf)) as im:
+        has_alpha = im.mode in ("RGBA", "LA", "PA")
+        arr = np.asarray(im.convert("RGBA" if has_alpha else "RGB"))
+    return arr, has_alpha
+
+
+def _decode_special(buf: bytes, t: ImageType, shrink: int = 1) -> DecodedImage:
+    """SVG, PDF, HEIF and AVIF through the host's loaders (the reference's
+    `_decode_special`, codecs/__init__.py:425-481): SVG rendered straight
+    into the 1/N box of shrink-on-load; PDF through poppler-glib, else the
+    vendored `pdf_mini` (a document beyond its subset falls to the 406);
+    AVIF through Pillow's plugin, else libheif; HEIF through libheif. A
+    loader the host lacks answers 406, as a libvips built without it."""
+    from imaginary_tpu_torch.codecs import vector_backend as vb
+
+    try:
+        if t is ImageType.SVG and vb.svg_available():
+            arr = vb.rasterize_svg(buf, shrink=shrink)
+            return DecodedImage(array=arr, type=t, orientation=0, has_alpha=True)
+        if t is ImageType.PDF:
+            if vb.pdf_available():
+                arr = vb.rasterize_pdf(buf)
+                return DecodedImage(array=arr, type=t, orientation=0, has_alpha=False)
+            from imaginary_tpu_torch.codecs import pdf_mini
+
+            try:
+                arr = pdf_mini.rasterize(buf)
+                return DecodedImage(array=arr, type=t, orientation=0, has_alpha=False)
+            except pdf_mini.UnsupportedPdf:
+                pass
+        if t is ImageType.AVIF:
+            try:
+                arr, has_alpha = _pil_open_rgba(buf)
+                return DecodedImage(array=arr, type=t, orientation=0, has_alpha=has_alpha)
+            except Exception:  # noqa: BLE001 - libheif is the reference's second rung
+                if vb.heif_available():
+                    arr, has_alpha = vb.decode_heif(buf)
+                    return DecodedImage(array=arr, type=t, orientation=0,
+                                        has_alpha=has_alpha)
+        if t is ImageType.HEIF and vb.heif_available():
+            arr, has_alpha = vb.decode_heif(buf)
+            return DecodedImage(array=arr, type=t, orientation=0, has_alpha=has_alpha)
+    except CodecError:
+        raise
+    except Exception as e:
+        raise CodecError(f"Error processing image: {e}", 400) from None
+    raise CodecError(
+        f"decoding {t.value} requires native loader support not present on this host", 406)
 
 
 def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
@@ -367,7 +433,43 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
         raise CodecError(f"cannot encode array of shape {arr.shape}", 500)
     if arr.dtype != np.uint8:
         raise CodecError(f"cannot encode dtype {arr.dtype}", 500)
+    if opts.type is ImageType.HEIF:
+        return _encode_heif(arr, opts)
+    if opts.type is ImageType.AVIF:
+        return _encode_avif(arr, opts)
     return _backend(opts.type, "encoding").encode(arr, opts)
+
+
+def _encode_heif(arr: np.ndarray, opts: EncodeOptions) -> bytes:
+    """HEIF through libheif's HEVC encoder (the reference's ladder,
+    codecs/__init__.py:502-517); without one a 400, which the pipeline
+    answers as JPEG (image.go:99-103)."""
+    from imaginary_tpu_torch.codecs import vector_backend as vb
+
+    if not vb.heif_encode_available("hevc"):
+        raise CodecError("HEIF encoding requires a libheif HEVC encoder", 400)
+    try:
+        return vb.encode_heif(arr, opts.effective_quality(), "hevc", speed=opts.speed)
+    except Exception as e:
+        raise CodecError(f"Cannot encode image: {e}", 400) from None
+
+
+def _encode_avif(arr: np.ndarray, opts: EncodeOptions) -> bytes:
+    """AVIF through Pillow's plugin, else libheif's AV1 encoder (the
+    reference's ladder, codecs/__init__.py:518-535)."""
+    from imaginary_tpu_torch.codecs import pil_backend
+
+    try:
+        return pil_backend.encode(arr, opts)
+    except ImageError:
+        from imaginary_tpu_torch.codecs import vector_backend as vb
+
+        if not vb.heif_encode_available("av1"):
+            raise
+        try:
+            return vb.encode_heif(arr, opts.effective_quality(), "av1", speed=opts.speed)
+        except Exception as e:
+            raise CodecError(f"Cannot encode image: {e}", 400) from None
 
 
 def probe(buf: bytes) -> ImageMetadata:
@@ -378,7 +480,9 @@ def probe(buf: bytes) -> ImageMetadata:
     if not buf:
         raise CodecError("Cannot retrieve image metadata: empty buffer", 400)
     t = determine_image_type(buf)
-    _backend(t, "probing")  # formats without a backend answer 501
+    if t in SPECIAL_TYPES:
+        return _probe_special(buf, t)
+    _backend(t, "probing")  # a format no backend knows answers 501
     from imaginary_tpu_torch.codecs import pil_backend
 
     try:
@@ -395,7 +499,56 @@ def probe_fast(buf: bytes) -> ImageMetadata:
     if not buf:
         raise CodecError("Cannot retrieve image metadata: empty buffer", 400)
     t = determine_image_type(buf)
+    if t in SPECIAL_TYPES:
+        return _probe_special(buf, t)
     backend = _backend(t, "probing")
     if backend is _native():
         return backend.probe_fast(buf, t)
     return backend.probe(buf, t)
+
+
+def _pil_header(buf: bytes, t: ImageType) -> ImageMetadata:
+    """A HEIF or AVIF header through Pillow, or Pillow's 400."""
+    from io import BytesIO
+
+    from PIL import Image
+
+    try:
+        with Image.open(BytesIO(buf)) as im:
+            has_alpha = im.mode in ("RGBA", "LA", "PA")
+            return ImageMetadata(im.width, im.height, t.value, "srgb", has_alpha, False,
+                                 4 if has_alpha else 3, 0)
+    except Exception as e:
+        raise CodecError(f"Cannot decode image: {e}", 400) from None
+
+
+def _probe_special(buf: bytes, t: ImageType) -> ImageMetadata:
+    """Dimensions of SVG, PDF, HEIF and AVIF by the reference's
+    `_probe_special` (codecs/__init__.py:560-600): librsvg's intrinsic
+    size, poppler's page size or the MediaBox, Pillow's header, else
+    libheif's handle. Where none answers, the reference falls to its
+    raster backend's probe: 0x0 for SVG, else Pillow's header or its
+    "Cannot decode image" 400."""
+    from imaginary_tpu_torch.codecs import vector_backend as vb
+
+    try:
+        if t is ImageType.SVG and vb.svg_available():
+            w, h = vb.svg_intrinsic_size(buf)
+            return ImageMetadata(w, h, "svg", "srgb", True, False, 4, 0)
+        if t is ImageType.PDF:
+            size = vb.pdf_page_size(buf)
+            if size:
+                return ImageMetadata(size[0], size[1], "pdf", "srgb", False, False, 3, 0)
+        if t in (ImageType.HEIF, ImageType.AVIF):
+            try:
+                return _pil_header(buf, t)
+            except CodecError:
+                if vb.heif_available():
+                    w, h, has_alpha = vb.heif_size(buf)
+                    return ImageMetadata(w, h, t.value, "srgb", has_alpha, False,
+                                         4 if has_alpha else 3, 0)
+    except Exception:  # noqa: BLE001 - an unidentified header falls to the rule below
+        pass
+    if t is ImageType.SVG:
+        return ImageMetadata(0, 0, "svg", "srgb", False, False, 3, 0)
+    return _pil_header(buf, t)

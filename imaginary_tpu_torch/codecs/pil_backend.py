@@ -1,4 +1,5 @@
-"""Pillow codec backend of the port: PNG, WEBP, GIF and TIFF.
+"""Pillow codec backend of the port: PNG, WEBP, GIF and TIFF, and AVIF's
+first encode rung.
 
 The port's copy of `imaginary_tpu/codecs/pil_backend.py`, trimmed to the
 formats the port routes here (JPEG stays on the native codec; the
@@ -111,6 +112,12 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
             im.save(out, "TIFF")
         elif t == ImageType.GIF:
             _save_gif(im, arr, out)
+        elif t == ImageType.AVIF:
+            # Pillow's plugin where Pillow has one; else this 400 sends the
+            # ladder on to libheif (codecs._encode_avif). speed 0 leaves the
+            # encoder default, as the reference's does
+            im.save(out, "AVIF", quality=opts.effective_quality(),
+                    speed=max(1, min(opts.speed, 10)) if opts.speed else 6)
         else:
             raise CodecError(f"Unsupported output image format: {t.value}", 400)
     except CodecError:

@@ -148,9 +148,27 @@ global dispatch), `device.chip_error`, `device.oom` and `device.slow`
 (each drained chunk and the golden probe) and `host.spill` (the spill
 branch) are ported.
 
-Not ported yet: `use_mesh` batch sharding, multi-host, and the per-key
-refinement of the device price (the port prices the owed ledger by one
-measured rate).
+Mesh batch sharding (`use_mesh`, the reference's executor.py:549-575,
+:1636-1700; armed only with `mesh_policy` "off": the lane tier supersedes
+it): the global collector splits every formed chunk over the batch axis
+of this process's mesh (`get_mesh(..., local=True)`), one sub-chunk per
+row on the row's first entry (`ops/chain.launch_sharded`), counted in
+`sharded_batches` and, per entry, in `mesh_dispatches`. With `spatial` >
+1 a chunk whose bucket crosses the spatial bar (`_spatial_route`) runs
+each item W-sharded over one row (`ops/chain.launch_spatial`, rows in
+turn). A mesh launch has no single device to blame: a failed one strikes
+every dispatchable domain, a capacity error bisects unsharded on the
+first entry. On a devhealth generation change `_refresh_mesh_sharding`
+re-forms the batch axis over the healthy entries and drops the spatial
+axis until the whole mesh is back. The reference pads a chunk to a power
+of two and then to a multiple of the batch axis, for XLA's compile cache;
+the port pads nothing (`_launch_chunk`).
+
+Multi-process serving: each process serves on its own devices; the
+process group (`parallel/mesh.init_distributed`, `--distributed`,
+`--mesh-hosts`) carries no serving collective, as the reference's does
+not. Not ported: the per-key refinement of the device price (the port
+prices the owed ledger by one measured rate).
 """
 
 from __future__ import annotations
@@ -180,7 +198,7 @@ from imaginary_tpu_torch.obs import trace as obs_trace
 from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.ops.buckets import bucket_shape, tight_dim
 from imaginary_tpu_torch.ops.plan import ImagePlan
-from imaginary_tpu_torch.parallel.mesh import get_mesh, healthy_mesh
+from imaginary_tpu_torch.parallel.mesh import get_mesh, healthy_mesh, split_batch
 
 # The micro-batch chunk cap: the CLI default derives from it.
 MAX_BATCH = 16
@@ -292,6 +310,10 @@ class ExecutorConfig:
     # Memory-pressure governor (engine/pressure.MemoryGovernor): the batch
     # byte cap and the oversize-to-host rung; None runs no pressure check.
     pressure: Optional[object] = None
+    # Mesh batch sharding of the global collector (module docstring), over
+    # the mesh of `devices` / `n_devices` with `spatial`; only with
+    # mesh_policy "off".
+    use_mesh: bool = False
 
 
 @dataclasses.dataclass
@@ -307,7 +329,9 @@ class ExecutorStats:
     # without lanes) and its topology epochs.
     lanes_snapshot: Optional[object] = None
     mesh_generation: int = 0
-    sharded_batches: int = 0  # lane chunks split over the mesh
+    sharded_batches: int = 0  # lane or use_mesh chunks split over the mesh
+    # use_mesh: sub-chunks launched on each flat mesh entry (None: unarmed)
+    mesh_dispatches: Optional[list] = None
     spatial_batches: int = 0  # single items W-sharded over a spatial row
     # spec name -> spatial launches gathered at that stage; None while the
     # spatial route is not armed (to_dict then shows neither key)
@@ -404,6 +428,9 @@ class ExecutorStats:
             if lanes:
                 out["lanes"] = lanes
                 out["mesh_generation"] = self.mesh_generation
+        if self.mesh_dispatches is not None:
+            out["sharded_batches"] = self.sharded_batches
+            out["mesh_dispatches"] = list(self.mesh_dispatches)
         if self.spatial_gathers is not None:
             out["spatial_batches"] = self.spatial_batches
             out["spatial_gathers"] = dict(self.spatial_gathers)
@@ -523,7 +550,13 @@ class Executor:
         self._mesh = None
         self._lane_mesh = None  # the healthy mesh sharded dispatch uses
         self._lane_streams = None  # its entries' lane streams
-        self._spatial = 1  # the full mesh's spatial axis (lanes only)
+        self._spatial = 1  # the full mesh's spatial axis (lanes or use_mesh)
+        # use_mesh: the batch view the global collector launches over (the
+        # healthy entries), the flat index of each of its rows' first entry
+        # and the devhealth generation it was built at; None when unarmed
+        self._batch_mesh = None
+        self._batch_rows: list = []
+        self._mesh_devhealth_gen = 0
         self._spatial_on = False  # the route is armed and the mesh whole
         self._lane_lock = threading.Lock()  # serialises topology refreshes
         self._lanes_devhealth_gen = 0
@@ -587,11 +620,14 @@ class Executor:
             self._init_lanes()
         else:
             cfg = self.config
-            if cfg.devices or cfg.n_devices > 1:
+            if cfg.use_mesh:
+                self._init_batch_mesh()
+            elif cfg.devices or cfg.n_devices > 1:
                 # the global ladder's fault domains: the first is the
                 # primary, the rest are failover targets (sticky `pick`)
                 self._devices = list(get_mesh(cfg.n_devices or None, 1,
-                                              devices=cfg.devices or cfg.device).flat)
+                                              devices=cfg.devices or cfg.device,
+                                              local=True).flat)
             self.devhealth = self._new_devhealth(len(self._devices))
             if len(self._devices) > 1 or self._golden_probe_armed():
                 # one device probes only for the golden probe: its next
@@ -1253,15 +1289,116 @@ class Executor:
         device_cache: the ladder's first rung (the primary entry, the
         reference's unpinned launch) uses the device frame tier.
 
-        No power-of-two padding: the reference pads a chunk so that XLA
-        compiles one program per padded size. Eager PyTorch compiles
-        nothing per batch size, so padding would only repeat device work
-        and link bytes."""
+        No power-of-two padding, and none to a multiple of the mesh's
+        batch axis: the reference pads a chunk so that XLA compiles one
+        program per padded size. Eager PyTorch compiles nothing per batch
+        size, so padding would only repeat device work and link bytes."""
         arrs = [it.arr for it in items]
         plans = [it.plan for it in items]
         dev = self.config.device if device is None else device
         return (chain_mod.launch_batch(arrs, plans, device=dev, device_cache=device_cache),
                 arrs, plans)
+
+    # -- mesh batch sharding (use_mesh; mesh_policy "off") ---------------------
+
+    def _init_batch_mesh(self) -> None:
+        """Arm use_mesh: this process's mesh (local=True, as the
+        reference's) over `devices` / `n_devices` with the spatial axis;
+        its entries become the fault domains."""
+        cfg = self.config
+        mesh = get_mesh(cfg.n_devices or None, max(1, cfg.spatial),
+                        devices=cfg.devices or cfg.device, local=True)
+        for dev in mesh.flat:
+            if dev.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("CUDA is not available for the executor's mesh")
+        self._mesh = mesh
+        self._devices = list(mesh.flat)
+        self._spatial = mesh.shape[1]
+        self._set_batch_mesh(mesh, range(0, len(self._devices), self._spatial))
+        self.stats.mesh_dispatches = [0] * len(self._devices)
+        if self._spatial > 1:
+            self.stats.spatial_gathers = {}
+
+    def _set_batch_mesh(self, mesh, rows) -> None:
+        self._batch_mesh = mesh
+        self._batch_rows = list(rows)
+        # W-sharding needs the whole grid
+        self._spatial_on = self._spatial > 1 and mesh is self._mesh
+
+    def _refresh_mesh_sharding(self) -> None:
+        """On a devhealth generation change (an entry quarantined or
+        re-admitted), re-form the batch axis over the available entries
+        (`healthy_mesh`, batch-only), or the whole mesh when all are back;
+        a degraded mesh drops the spatial axis. With nothing available the
+        mesh stays as it is: the launch fails and the breaker owns the
+        outage."""
+        gen = self.devhealth.generation
+        if gen == self._mesh_devhealth_gen:
+            return
+        self._mesh_devhealth_gen = gen
+        avail = sorted(self.devhealth.available_indices())
+        if len(avail) >= len(self._devices):
+            self._set_batch_mesh(self._mesh, range(0, len(self._devices), self._spatial))
+            return
+        mesh = healthy_mesh(self._mesh, avail)
+        if mesh is not None:
+            self._set_batch_mesh(mesh, avail)
+
+    def _launch_mesh_chunk(self, items: list) -> tuple:
+        """Launch one chunk over the batch mesh: split over its rows, or,
+        on the spatial route, each item W-sharded over one row, rows in
+        turn (one ShardedLaunch part an item). Returns (launched, arrs,
+        plans) or raises."""
+        arrs = [it.arr for it in items]
+        plans = [it.plan for it in items]
+        mesh, rows = self._batch_mesh, self._batch_rows
+        if self._spatial_route(items[0].key):
+            parts, gathered = [], {}
+            for j, (a, p) in enumerate(zip(arrs, plans)):
+                sl = chain_mod.launch_spatial(a, p, mesh.devices[j % mesh.shape[0]])
+                parts.append((j, j + 1, sl))
+                if sl is not None and sl.gathered is not None:
+                    gathered[sl.gathered] = gathered.get(sl.gathered, 0) + 1
+            with self._lock:
+                self.stats.spatial_batches += 1
+                g = self.stats.spatial_gathers
+                # a new dict, so to_dict's copy never sees one change
+                self.stats.spatial_gathers = {
+                    **g, **{k: g.get(k, 0) + v for k, v in gathered.items()}}
+                for j in range(len(items)):
+                    self.stats.mesh_dispatches[rows[j % mesh.shape[0]]] += 1
+            return chain_mod.ShardedLaunch(parts), arrs, plans
+        launched = chain_mod.launch_sharded(arrs, plans, mesh)
+        with self._lock:
+            self.stats.sharded_batches += 1
+            for row, (a, b) in enumerate(split_batch(len(items), mesh)):
+                if b > a:
+                    self.stats.mesh_dispatches[rows[row]] += 1
+        return launched, arrs, plans
+
+    def _launch_over_mesh(self, sub: list):
+        """use_mesh's dispatch: one launch over the batch mesh. A failure
+        cannot be blamed on one entry, so every dispatchable domain takes
+        the strike and the chunk fails; a capacity error bisects
+        unsharded on the first entry (re-sharding a launch that just
+        overflowed would overflow again). Returns the fetcher's chunk
+        tuple with no device index, or None with the futures resolved."""
+        self._refresh_mesh_sharding()
+        t_launch = time.monotonic()
+        try:
+            failpoints.hit("device.chip_error")
+            failpoints.hit("device.oom")
+            launched, arrs, plans = self._launch_mesh_chunk(sub)
+        except Exception as e:
+            if chain_mod.is_oom_error(e):
+                self._bisect_chunk(sub, self._devices[0], 0, e)
+                return None
+            self._note_link_failure(e)
+            self._stamp_attempts(sub, ["device:mesh:error"])
+            self._fail(sub, e)
+            return None
+        self._stamp_attempts(sub, ["device:mesh"])
+        return (launched, arrs, plans, sub, None, t_launch)
 
     def _launch_with_failover(self, sub: list):
         """The dispatch half of the placement ladder: launch on the device
@@ -1270,7 +1407,10 @@ class Executor:
         bisects on the same device instead (no strike, no failover). With
         integrity armed, a failed launch of several items is bisected to
         convict poison inputs first. Returns (launched, arrs, plans, sub,
-        idx, t_launch), or None with the futures resolved."""
+        idx, t_launch), or None with the futures resolved. With use_mesh
+        armed the chunk goes over the mesh instead (`_launch_over_mesh`)."""
+        if self._batch_mesh is not None:
+            return self._launch_over_mesh(sub)
         tried: set = set()
         attempts: list = []
         err: Optional[Exception] = None
@@ -1371,9 +1511,13 @@ class Executor:
             if not live:
                 return False  # the watchdog failed these futures already
             if chain_mod.is_oom_error(e):
-                self._bisect_chunk(items, self._devices[idx], idx, e)
+                didx = 0 if idx is None else idx
+                self._bisect_chunk(items, self._devices[didx], didx, e)
             else:
-                self._note_device_failure(idx, e)
+                if idx is None:  # a mesh chunk: no single device to blame
+                    self._note_link_failure(e)
+                else:
+                    self._note_device_failure(idx, e)
                 self._fail(items, e)
             return True
         with self._lock:
@@ -1385,7 +1529,11 @@ class Executor:
             return False
         now = time.monotonic()
         drain_ms = (now - t0) * 1000.0
-        self.devhealth.note_ok(idx, latency_ms=(now - t_launch) * 1000.0)
+        # a mesh chunk (idx None) books its latency on every dispatchable
+        # domain, as the reference's drain does
+        for didx in ([idx] if idx is not None
+                     else self.devhealth.available_indices() or [0]):
+            self.devhealth.note_ok(didx, latency_ms=(now - t_launch) * 1000.0)
         TIMES.record("drain", drain_ms / len(items))
         self._note_drain(items, drain_ms, cold)
         self._finish(items, outs, idx)
@@ -1792,7 +1940,7 @@ class Executor:
         tier items fall to when every lane is quarantined."""
         cfg = self.config
         mesh = get_mesh(cfg.n_devices or None, max(1, cfg.spatial),
-                        devices=cfg.devices if cfg.devices else cfg.device)
+                        devices=cfg.devices if cfg.devices else cfg.device, local=True)
         for dev in mesh.flat:
             if dev.type == "cuda" and not torch.cuda.is_available():
                 raise RuntimeError("CUDA is not available for the lanes' mesh")

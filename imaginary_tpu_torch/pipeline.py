@@ -170,8 +170,7 @@ def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
     The reference's fallbacks (pipeline.py:159-192): blocks whose entropy
     encode fails are rebuilt into planes, planes whose raw encode fails
     into RGB, and a WEBP, HEIF or AVIF encode that fails is retried as
-    JPEG and reported so. A format the port cannot encode yet keeps its
-    501."""
+    JPEG and reported so."""
     # the last stage boundary: a request whose budget expired on the
     # device pays for no encode
     deadline_mod.check("encode")
@@ -209,7 +208,7 @@ def _encode(arr, o: ImageOptions, target: ImageType) -> ProcessedImage:
     try:
         body, actual = codecs.encode(arr, opts), target
     except ImageError as e:
-        if target not in _JPEG_FALLBACK or e.code == 501:
+        if target not in _JPEG_FALLBACK:
             raise
         opts.type = ImageType.JPEG
         body, actual = codecs.encode(arr, opts), ImageType.JPEG
@@ -304,7 +303,7 @@ def process_operation(name: str, buf: bytes, o: ImageOptions, device="cuda",
         raise new_error(f"Unsupported operation: {name}", 400)
     t_start = time.monotonic()
     src_type = determine_image_type(buf)
-    if meta is None and src_type is ImageType.JPEG:
+    if meta is None and src_type in _SHRINK_TYPES:
         try:
             meta = codecs.probe_fast(buf)
         except ImageError:
@@ -491,11 +490,16 @@ def _process_yuv420(name, buf, o, meta, shrink, device, runner, watermark_rgba,
                            plan.out_w, plan.out_h)
 
 
+# Sources with shrink-on-load: JPEG (DCT scaling) and SVG (rendered
+# straight into the 1/N box), as the reference's `_pick_shrink`
+_SHRINK_TYPES = (ImageType.JPEG, ImageType.SVG)
+
+
 def _pick_shrink(name: str, src_type: ImageType, o: ImageOptions, meta) -> int:
-    """JPEG shrink-on-load denominator for this request (1 = full decode):
-    the planner proves by re-planning that decoding at 1/N preserves the
-    output."""
-    if src_type is not ImageType.JPEG or meta is None:
+    """Shrink-on-load denominator for this request (1 = full decode) of a
+    JPEG or SVG source: the planner proves by re-planning that decoding at
+    1/N preserves the output."""
+    if src_type not in _SHRINK_TYPES or meta is None:
         return 1
     try:
         return choose_decode_shrink(name, o, meta.height, meta.width,
@@ -519,7 +523,7 @@ def process_pipeline(buf: bytes, o: ImageOptions, device="cuda", meta=None,
     if len(o.operations) > MAX_PIPELINE_OPERATIONS:
         raise new_error(f"Maximum pipeline operations ({MAX_PIPELINE_OPERATIONS}) exceeded", 400)
     src_type = determine_image_type(buf)
-    if meta is None and src_type is ImageType.JPEG:
+    if meta is None and src_type in _SHRINK_TYPES:
         try:
             meta = codecs.probe_fast(buf)
         except ImageError:

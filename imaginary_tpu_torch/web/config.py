@@ -100,6 +100,15 @@ class ServerOptions:
     spatial: int = 1  # spatial mesh axis (W-sharding of oversize singles)
     spatial_threshold_px: int = 3840 * 2160
     spatial_mpix: float = 0.0
+    # the global collector's mesh batch sharding (mesh_policy "off" only)
+    use_mesh: bool = False
+    # multi-process fleet join (parallel/mesh.init_distributed) at boot:
+    # --distributed, or --mesh-hosts N with its coordinator and process id
+    distributed: bool = False
+    coordinator_address: str = ""
+    num_processes: Optional[int] = None
+    process_id: Optional[int] = None
+    mesh_hosts: int = 0
     # compressed-domain transport both ways (pipeline.py)
     transport_dct: bool = False
     transport_dct_egress: bool = False

@@ -236,7 +236,7 @@ class ImageService:
             lane_form_ms=o.lane_form_ms, lane_inflight=max(1, o.lane_inflight),
             shard_min_items=o.shard_min_items,
             breaker_threshold=o.breaker_threshold,
-            breaker_cooldown_s=o.breaker_cooldown_s, spatial=o.spatial,
+            breaker_cooldown_s=o.breaker_cooldown_s, spatial=o.spatial, use_mesh=o.use_mesh,
             spatial_threshold_px=o.spatial_threshold_px,
             spatial_mpix=o.spatial_mpix, host_spill=o.host_spill,
             force_host=o.force_host, hedge_threshold_ms=o.hedge_threshold_ms,

@@ -4,9 +4,10 @@ PNG, WEBP and GIF decode go through Pillow in the port (`pil_backend`) and
 must give the reference's `codecs.decode` arrays exactly (the formats are
 lossless, or decode deterministically); PNG, TIFF and GIF encodes round
 trip exactly, WEBP within a PSNR bound. The backend is picked by format,
-never by failure: a bad JPEG stays a native-codec error, HEIF/AVIF/SVG/PDF
-answer 501 (but PDF and SVG targets the reference's 400), and the
-decompression-bomb gate refuses an over-cap PNG before decoding it.
+never by failure: a bad JPEG stays a native-codec error, SVG, AVIF and PDF
+decode bit-equal to the reference through the host's loaders (and AVIF
+encodes through its ladder), PDF and SVG targets answer the reference's
+400, and the decompression-bomb gate refuses an over-cap PNG before decoding it.
 16-bit PNGs (gray, gray + alpha, RGB, RGBA) and 16-bit gray TIFFs decode
 by the reference's cv2 backend's rule, v / 257 + 0.5 truncated, within
 1 LSB of `imaginary_tpu.codecs.cv2_backend.decode`.
@@ -175,13 +176,20 @@ def test_a_bad_jpeg_never_retries_in_pillow(monkeypatch):
 
 
 @pytest.mark.parametrize("fixture", ["button.svg", "test.avif", "page.pdf"])
-def test_unported_formats_answer_501(fixture):
-    with pytest.raises(ImageError) as e:
-        pcodecs.decode(fixture_bytes(fixture))
-    assert e.value.code == 501 and "not ported" in e.value.message
-    with pytest.raises(ImageError) as e:
-        pcodecs.encode(np.zeros((4, 4, 3), np.uint8), EncodeOptions(type=ImageType.AVIF))
-    assert e.value.code == 501
+def test_vector_formats_answer_as_the_reference(fixture):
+    """SVG, AVIF and PDF decode bit-equal to the reference (the same host
+    loaders; tests/test_torch_vector_codecs.py has the rest), and an AVIF
+    target encodes through the reference's ladder instead of a 501."""
+    from imaginary_tpu.codecs import EncodeOptions as JOpts
+    from imaginary_tpu.imgtype import ImageType as JType
+
+    buf = fixture_bytes(fixture)
+    got, want = pcodecs.decode(buf), jcodecs.decode(buf)
+    assert np.array_equal(got.array, want.array) and got.has_alpha == want.has_alpha
+    arr = np.ascontiguousarray(got.array[..., :3])
+    body = pcodecs.encode(arr, EncodeOptions(type=ImageType.AVIF))
+    assert determine_image_type(body).value == "avif"
+    assert body == jcodecs.encode(arr, JOpts(type=JType.AVIF))
 
 
 def test_bomb_gate_refuses_an_over_cap_png_before_decoding(monkeypatch):

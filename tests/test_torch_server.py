@@ -7,8 +7,8 @@ The server answers the reference's status codes and error JSON: 200 for
 /pipeline and /info (raw body, multipart `file` field, or ?file= under
 --mount; JPEG, PNG, WEBP and GIF in and out), 400 for bad params, 404
 for unknown paths, 405 for GET without a mount and for every method
-other than GET and POST (HEAD without a body), 406 for non-images, 501
-for formats not ported yet; a watermark image outside the allow-list
+other than GET and POST (HEAD without a body), 406 for non-images, a
+POSTed SVG as the reference serves the file; a watermark image outside the allow-list
 or missing at its origin gets the reference app's 400 or 502, and one at
 the local origin is composited; type=auto answers Vary: Accept,
 chunked bodies read like plain ones, and /health has the reference's
@@ -203,7 +203,6 @@ ERRORS = [
     ("/pipeline?operations=" + urllib.parse.quote(
         '[{"operation": "watermarkImage", "params": {"image": "{origin}/gone.png"}}]'),
      "large.jpg", 502, None),
-    ("/resize?width=300", "button.svg", 501, None),
     ("/pipeline", "test.png", 400, "Missing pipeline operations"),
 ]
 
@@ -223,6 +222,17 @@ def test_error_statuses_and_json(server, origin, path, fixture, code, message):
     assert err["status"] == code
     if message is not None:
         assert err["message"] == message
+
+
+def test_svg_body_answers_as_the_reference_serves_the_file(server, reference_server):
+    """A POSTed button.svg is rasterized by librsvg and resized: the
+    reference's answer to the same file from its mount (its POSTed body
+    reaches librsvg as a bytearray, which its ctypes binding refuses;
+    tests/test_torch_vector_codecs.py)."""
+    status, ctype, body = _req(server, "/resize?width=300", fixture_bytes("button.svg"))
+    want = _req(reference_server, "/resize?width=300&file=button.svg")
+    assert (status, ctype) == want[:2] == (200, "image/jpeg")
+    assert _dims(body) == _dims(want[2])
 
 
 WATERMARK_ERRORS = [e for e in ERRORS if "watermark" in e[0]]

@@ -5,8 +5,9 @@ W-sharded over a row of the lanes' mesh (`ops/chain.launch_spatial`,
   * port copies of the reference's five spatial tests
     (tests/test_engine.py TestSpatialServing x3,
     tests/test_lanes.py::test_spatial_route_at_mpix_bar,
-    tests/test_server.py::TestSpatialServedRequest), on the lane tier:
-    the port's `use_mesh` collector is not ported;
+    tests/test_server.py::TestSpatialServedRequest), on the lane tier
+    (the `use_mesh` collector's spatial route is held in
+    tests/test_torch_use_mesh.py);
   * the spatial output bit-equal to the unsharded chain's, over 2 and 4
     shards, for every chain below;
   * the spatial output within 1 LSB of the JAX executor's spatial route
