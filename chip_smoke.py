@@ -380,6 +380,28 @@ Phases, in order; any failure raises and exits non-zero:
    for the loaders found; K1's launches (`launches_vector`), the SVG's at
    C = 4.
 
+19. the observability planes, on servers from the port's command line
+   with config 2's batching: (a) with --wide-events, --slo-config,
+   --enable-debug and --cost-attribution armed, 20 config 1 requests one
+   at a time and one window of phase 6's mix, every answer byte-equal to
+   phases 4 and 6, one wide event a request (placement device,
+   cost_device_ms > 0), /health's slo, capacity (chip_busy, lanes,
+   wait_split_ms, the bound_by verdict with device_ms_per_mb) and
+   eventLoop blocks, /topz and the new /metrics families; (b)
+   /debugz/profile?seconds=2 while config 1 runs: the exported trace's
+   kernel events by name with their summed card ms, each of K2, K1, K4
+   and K3 present by its symbol, a second capture meanwhile answering
+   409; (c) config 1's p50 and p99 on the armed server against a server
+   with none armed, in turns, and that server's /debugz and /topz 404;
+   (d) with TLS on a self-signed certificate, config 1 over h2 and over
+   HTTP/1.1 on one port, byte-equal (or why h2 was not driven: no
+   libnghttp2, no curl with HTTP/2, no openssl); (e) --read-timeout 1: a
+   stalled header read closed within 1-3 s and counted in /health's
+   ingress block, a trickled body served, config 1 still served. The
+   plane's per-request device ms (the drain's wall share) is printed
+   beside the profiler's card time a request. The launches of every
+   request of the phase are the kernels line's `launches_obs`.
+
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -4888,9 +4910,11 @@ def deadline_phase(smi: str) -> dict:
         # the route's first launch outside any deadline: in a process whose
         # first CUDA use this is, it creates the context (over a second)
         svc.process("resize", body, {"width": "100"})
-        status, _, _ = http_get(port, "/resize?width=100", jpeg, "POST", body)
+        t0 = time.perf_counter()
+        status, _, got = http_get(port, "/resize?width=100", jpeg, "POST", body)
         if status != 200:
-            raise AssertionError(f"the deadline server's first request: {status}")
+            raise AssertionError(f"the deadline server's first request: {status} after "
+                                 f"{(time.perf_counter() - t0) * 1e3:.1f} ms: {got[:300]!r}")
         cases = (("device", "device.execute=delay(200ms)", {}),
                  ("header", "codec.decode=delay(50ms)", {"X-Request-Timeout": "0.001"}))
         for name, spec, hdrs in cases:
@@ -7301,6 +7325,457 @@ def vector_phase() -> dict:
     return {"loaders": have, "answers": answers, "launches": launches, "seconds": seconds}
 
 
+# --- phase 19: the observability planes on the card -------------------------
+
+OBS_SLO = '{"*": {"latency_ms": 250, "latency_target": 0.99, "availability": 0.999}}'
+OBS_PLANES = ["--wide-events", "--wide-events-sample", "1.0", "--slo-config", OBS_SLO,
+              "--enable-debug", "--cost-attribution"]
+OBS_SERIAL = 20  # (a): config 1, one request at a time
+OBS_PROFILE_S = 2.0  # (b): the capture's seconds
+OBS_LATENCY_N = 50  # (c): requests a block; blocks armed, off, off, armed
+OBS_TRICKLE = 8  # (e): chunks of the flowing slow body, OBS_TRICKLE_GAP_S apart
+OBS_TRICKLE_GAP_S = 0.3
+CONFIG1_PATH = "/resize?width=300&height=200"
+# config 1's kernels by the symbol each source defines (kernels/csrc/*.cu)
+CONFIG1_SYMBOLS = {"yuv420_unpack": "yuv420_to_rgb", "resample": "resample_tiles",
+                   "gather": "gather_rows", "yuv420_pack": "rgb_to_yuv420"}
+OBS_FAMILIES = ("imaginary_tpu_slo_burn_rate", "imaginary_tpu_slo_error_budget_remaining",
+                "imaginary_tpu_cost_device_ms_total", "imaginary_tpu_cost_requests_total",
+                "imaginary_tpu_utilization_chip_busy", "imaginary_tpu_utilization_lane_busy",
+                "imaginary_tpu_utilization_wait_ms_total", "imaginary_tpu_event_loop_lag_seconds",
+                "imaginary_tpu_event_loop_lag_last_seconds")
+INFRA_ROUTES = ("/health", "/metrics", "/topz", "/debugz", "/debugz/profile")
+
+
+class LineSink:
+    """A thread-safe text stream: a server's access log and wide events."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._parts: list = []
+
+    def write(self, s: str) -> None:
+        with self._lock:
+            self._parts.append(s)
+
+    def events(self) -> list:
+        with self._lock:
+            text = "".join(self._parts)
+        return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def obs_server(args: list, log_stream=None):
+    """A phase 19 server from the port's command line on DEVICE, mounted on
+    tests/testdata, with config 2's batching: (server, stop)."""
+    from imaginary_tpu_torch import cli
+    from imaginary_tpu_torch.web import app as app_mod
+
+    o = cli.options_from_args(cli.parse_args(
+        ["--addr", "127.0.0.1", "--port", "0", "--device", DEVICE, "--log-level", "error",
+         "--mount", TESTDATA, "--max-batch", str(CONFIG2_MAX_BATCH),
+         "--batch-form-ms", str(CONFIG2_FORM_MS)] + list(args)))
+    srv = app_mod.AppServer(o, log_stream=log_stream if log_stream is not None
+                            else app_mod._Discard())
+    return srv, start(srv)
+
+
+def get_json(port: int, path: str) -> dict:
+    status, _, body = http_get(port, path)
+    if status != 200:
+        raise AssertionError(f"{path}: {status} {body[:200]!r}")
+    return json.loads(body)
+
+
+def config1_answer(port: int, buf: bytes, what: str) -> float:
+    """One config 1 request; its answer byte-equal to phase 4's. Returns ms."""
+    t0 = time.perf_counter()
+    status, ctype, body = http(port, CONFIG1_PATH, buf)
+    ms = (time.perf_counter() - t0) * 1e3
+    if (status, ctype) != (200, "image/jpeg") or body != PHASE4_ANSWERS["resize"]:
+        raise AssertionError(f"{what}: {status} {ctype}, {len(body)} B, not phase 4's answer")
+    return ms
+
+
+def obs_surfaces_case(srv, sink: LineSink, bodies: dict, launches: dict, smi: str) -> dict:
+    """(a) OBS_SERIAL config 1 requests one at a time, then one window of
+    phase 6's mix, on the armed server: every answer byte-equal to phases 4
+    and 6; one wide event a request, each placed on the device with a
+    device cost; /health's slo, capacity (its utilization over the mix's
+    window) and eventLoop; /topz; /metrics' new families."""
+    from imaginary_tpu_torch import kernels
+
+    port = srv.server_address[1]
+    buf = bodies[LARGE_JPG]
+    config1_answer(port, buf, "(a) warm")
+    kernels.reset_launches()
+    for i in range(OBS_SERIAL):
+        config1_answer(port, buf, f"(a) config 1 #{i}")
+    ran = kernels.launch_counts()
+    config1_launches_ok(ran, OBS_SERIAL, "(a)")
+    add_launches(launches, ran)
+    reqs = [(path, bodies[src]) for path, src, _ in CONFIG2_REQUESTS]
+    for path, body in reqs:  # warm each route
+        http(port, path, body)
+    get_json(port, "/health")  # opens the utilization window over the mix
+    kernels.reset_launches()
+    wall, results = load_window(port, reqs, CLIENTS, PER_CLIENT)
+    ran = kernels.launch_counts()
+    add_launches(launches, ran)
+    health = get_json(port, "/health")
+    wrong = [r for r in results if (r[2], r[3], r[4]) != (200, "image/jpeg", PHASE6_ANSWERS[r[0]])]
+    if wrong:
+        raise AssertionError(f"(a) {len(wrong)} of {len(results)} mix answers differ from "
+                             f"phase 6's (first {CONFIG2_REQUESTS[wrong[0][0]][0]})")
+    for name in CONFIG2_KERNELS:
+        if ran[name] <= 0:
+            raise AssertionError(f"(a) kernel {name} was not launched by the mix")
+    mix = {"requests": len(results), "rps": len(results) / wall,
+           "p50_ms": statistics.median(r[1] for r in results),
+           "p99_ms": sorted(r[1] for r in results)[int(0.99 * (len(results) - 1))]}
+    for block in ("slo", "capacity", "eventLoop"):
+        if block not in health:
+            raise AssertionError(f"(a) /health has no {block} block")
+    cap = health["capacity"]
+    util, advice = cap["utilization"], cap["bound_by"]
+    for key in ("chip_busy", "lanes", "wait_split_ms"):
+        if key not in util:
+            raise AssertionError(f"(a) capacity.utilization has no {key}: {util}")
+    if "device_ms_per_mb" not in advice or advice["verdict"] == "unknown":
+        raise AssertionError(f"(a) the advisor read no EWMA or no traffic: {advice}")
+    topz = get_json(port, "/topz")
+    status, _, text = http_get(port, "/metrics")
+    families = {ln.split()[2] for ln in text.decode().splitlines() if ln.startswith("# TYPE ")}
+    missing = [f for f in OBS_FAMILIES if f not in families]
+    if status != 200 or missing:
+        raise AssertionError(f"(a) /metrics {status}, missing {missing}")
+    sent = 1 + OBS_SERIAL + len(CONFIG2_REQUESTS) + CLIENTS * PER_CLIENT
+    image = [e for e in sink.events() if e["route"] not in INFRA_ROUTES]
+    if len(image) != sent:
+        raise AssertionError(f"(a) {len(image)} wide events for {sent} image requests")
+    bad = [e for e in image if e["status"] != 200 or e.get("placement") != "device"
+           or not e.get("cost_device_ms", 0.0) > 0.0]
+    if bad:
+        raise AssertionError(f"(a) {len(bad)} events off the device or without a device "
+                             f"cost, first {json.dumps(bad[0])[:400]}")
+    serial = [e for e in image if e["path"] == CONFIG1_PATH][1:1 + OBS_SERIAL]
+    plane_ms = statistics.mean(e["cost_device_ms"] for e in serial)
+    log(f"  (a) config 1 x {OBS_SERIAL} and phase 6's mix ({mix['requests']} answers, "
+        f"{mix['rps']:.1f} req/s): every answer byte-equal to phases 4 and 6; {len(image)} "
+        f"wide events, all placement device with cost_device_ms > 0")
+    log(f"      config 1's cost_device_ms (the drain's wall share): mean {plane_ms:.4f} ms "
+        f"over {len(serial)} serial requests")
+    log(f"      capacity: chip_busy {util['chip_busy']}, lanes {util['lanes']}, link "
+        f"{util.get('link')}, wait_split_ms {util['wait_split_ms']}")
+    log(f"      bound_by {advice['verdict']}: " + ", ".join(
+        f"{k} {advice[k]}" for k in ("device_ms_per_mb", "drain_floor_ms", "device_ms_per_req",
+                                     "host_ms_per_req", "wire_mb_per_req", "host_workers",
+                                     "link_rate", "chip_rate", "host_codecs_rate")
+        if k in advice) + f"  [{smi}]")
+    log(f"      slo routes {sorted(health['slo']['routes'])}, eventLoop {health['eventLoop']}, "
+        f"/topz windows {sorted(topz['windows'])}")
+    return {"events": len(image), "config1_cost_device_ms": plane_ms, "mix": {
+        k: mix[k] for k in ("requests", "rps", "p50_ms", "p99_ms")},
+        "utilization": util, "bound_by": advice, "slo": health["slo"],
+        "eventLoop": health["eventLoop"], "topz_5m": topz["windows"].get("5m")}
+
+
+def trace_device_time(path: str) -> tuple:
+    """({kernel name: summed device ms}, copy and memset ms) of an exported
+    Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels_ms: dict = {}
+    copies_ms = 0.0
+    for e in events:
+        cat = e.get("cat", "")
+        if cat == "kernel":
+            kernels_ms[e["name"]] = kernels_ms.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+        elif cat in ("gpu_memcpy", "gpu_memset"):
+            copies_ms += e.get("dur", 0.0) / 1e3
+    return kernels_ms, copies_ms
+
+
+def obs_profile_case(srv, buf: bytes, launches: dict, smi: str) -> dict:
+    """(b) /debugz/profile?seconds=OBS_PROFILE_S on the live armed server
+    while config 1 runs one request at a time: the trace holds a kernel
+    event for each of K2, K1, K4 and K3, by the symbols their sources
+    define; a second capture meanwhile answers 409."""
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.engine import timing
+
+    port = srv.server_address[1]
+    trace_dir = os.path.join(OUT_DIR, "obs_profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    stop_load = threading.Event()
+    done: list = []
+    errors: list = []
+
+    def load():
+        try:
+            while not stop_load.is_set():
+                t0 = time.perf_counter()
+                config1_answer(port, buf, "(b) config 1 under the capture")
+                done.append((t0, time.perf_counter()))
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    kernels.reset_launches()
+    loader = threading.Thread(target=load)
+    loader.start()
+    first: dict = {}
+    query = urllib.parse.urlencode({"seconds": OBS_PROFILE_S, "dir": trace_dir})
+    capture = threading.Thread(target=lambda: first.update(
+        answer=http_get(port, f"/debugz/profile?{query}")))
+    try:
+        time.sleep(0.2)
+        capture.start()
+        t_end = time.perf_counter() + 10.0
+        while not timing.profiler_active() and time.perf_counter() < t_end:
+            time.sleep(0.005)
+        t_active = time.perf_counter()
+        second = http_get(port, "/debugz/profile?" + urllib.parse.urlencode(
+            {"seconds": 0.05, "dir": trace_dir + "-second"}))
+        capture.join()
+    finally:
+        stop_load.set()
+        loader.join()
+    add_launches(launches, kernels.launch_counts())
+    if errors:
+        raise errors[0]
+    if second[0] != 409:
+        raise AssertionError(f"(b) a second capture answered {second[0]}, not 409")
+    status, _, body = first["answer"]
+    if status != 200:
+        raise AssertionError(f"(b) /debugz/profile answered {status}: {body[:300]!r}")
+    got = json.loads(body)
+    if got.get("activities") != (["cpu", "cuda"] if DEVICE.startswith("cuda") else ["cpu"]):
+        raise AssertionError(f"(b) the capture did not record the card: {got}")
+    size = os.path.getsize(got["trace_file"])
+    by_name, copies_ms = trace_device_time(got["trace_file"])
+    os.remove(got["trace_file"])  # megabytes; the summary is kept
+    found = {k: sum(ms for name, ms in by_name.items() if sym in name)
+             for k, sym in CONFIG1_SYMBOLS.items()}
+    missing = [k for k, ms in found.items() if ms <= 0.0]
+    if missing:
+        raise AssertionError(f"(b) no kernel event of {missing} in the trace; kernels "
+                             f"seen: {sorted(by_name)[:20]}")
+    window = [d for d in done if d[0] >= t_active and d[1] <= t_active + OBS_PROFILE_S]
+    card_ms = sum(by_name.values()) + copies_ms
+    per_req = card_ms / max(1, len(window))
+    log(f"  (b) /debugz/profile?seconds={OBS_PROFILE_S}: 200, a {size} B Chrome trace with "
+        f"{got['device_events']} card events; a second capture meanwhile: 409")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1]):
+        log(f"      {ms:9.3f} ms  {name[:100]}")
+    log(f"      copies and memsets {copies_ms:.3f} ms; {len(window)} config 1 requests wholly "
+        f"inside the window: {per_req:.4f} ms of card time a request (profiler)  [{smi}]")
+    return {"trace_bytes": size, "device_events": got["device_events"],
+            "kernel_ms": by_name, "copies_ms": copies_ms, "config1_found_ms": found,
+            "requests_in_window": len(window), "card_ms_per_request": per_req}
+
+
+def obs_latency_case(armed, off, buf: bytes, launches: dict, smi: str) -> dict:
+    """(c) config 1's latency with every plane armed against a server with
+    none, in turns (armed, off, off, armed), OBS_LATENCY_N serial requests
+    a block; then the gates of the off server answer 404."""
+    import numpy as np
+
+    from imaginary_tpu_torch import kernels
+
+    a_port, o_port = armed.server_address[1], off.server_address[1]
+    for _ in range(3):
+        config1_answer(o_port, buf, "(c) warm off")
+    kernels.reset_launches()
+    lat: dict = {"armed": [], "off": []}
+    for name, port in (("armed", a_port), ("off", o_port), ("off", o_port),
+                       ("armed", a_port)):
+        for _ in range(OBS_LATENCY_N):
+            lat[name].append(config1_answer(port, buf, f"(c) {name}"))
+    ran = kernels.launch_counts()
+    config1_launches_ok(ran, 4 * OBS_LATENCY_N, "(c)")
+    add_launches(launches, ran)
+    gates = {path: http_get(o_port, path)[0] for path in
+             ("/debugz", "/debugz/profile?seconds=1", "/debugz/failpoints", "/topz")}
+    if set(gates.values()) != {404}:
+        raise AssertionError(f"(c) the off server's gates answered {gates}")
+    out = {k: {"p50_ms": float(np.percentile(v, 50)), "p99_ms": float(np.percentile(v, 99)),
+               "n": len(v)} for k, v in lat.items()}
+    ratio = out["armed"]["p50_ms"] / out["off"]["p50_ms"]
+    log(f"  (c) config 1, {2 * OBS_LATENCY_N} requests a server in turns: armed p50 "
+        f"{out['armed']['p50_ms']:.3f} ms p99 {out['armed']['p99_ms']:.3f} ms; off p50 "
+        f"{out['off']['p50_ms']:.3f} ms p99 {out['off']['p99_ms']:.3f} ms; p50 ratio "
+        f"{ratio:.4f}  [{smi}]")
+    log("      the off server's /debugz, /debugz/profile, /debugz/failpoints and /topz: 404")
+    out["p50_ratio"] = ratio
+    return out
+
+
+def obs_h2_case(buf: bytes, launches: dict, smi: str) -> dict:
+    """(d) TLS on a self-signed certificate: whether libnghttp2 loads; with
+    it, curl with HTTP/2 and openssl, config 1 over h2 and over HTTP/1.1 on
+    the same port, both byte-equal to phase 4's answer."""
+    import shutil
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.web.http2 import load_nghttp2
+
+    lib = load_nghttp2()
+    curl = shutil.which("curl")
+    curl_h2 = bool(curl) and any(
+        t in subprocess.run([curl, "-V"], capture_output=True).stdout
+        for t in (b"HTTP2", b"nghttp2"))
+    openssl = shutil.which("openssl")
+    why = [w for w, ok in (("libnghttp2 does not load", lib is not None),
+                           ("no curl with HTTP/2", curl_h2),
+                           ("no openssl for the certificate", bool(openssl))) if not ok]
+    if why:
+        log(f"  (d) h2 not driven: {'; '.join(why)} (ALPN offers http/1.1 alone without "
+            f"the library)")
+        return {"libnghttp2": lib is not None, "curl_h2": curl_h2, "driven": False, "why": why}
+    tls = os.path.join(OUT_DIR, "obs_tls")
+    os.makedirs(tls, exist_ok=True)
+    cert, key = os.path.join(tls, "cert.pem"), os.path.join(tls, "key.pem")
+    subprocess.run([openssl, "req", "-x509", "-newkey", "rsa:2048", "-keyout", key, "-out",
+                    cert, "-days", "1", "-nodes", "-subj", "/CN=localhost"],
+                   check=True, capture_output=True)
+    srv, stop = obs_server(["--certfile", cert, "--keyfile", key])
+    kernels.reset_launches()
+    got = {}
+    try:
+        srv._ready.wait(30)
+        if srv.listener is None or srv.listener.h2_server is None:
+            raise AssertionError("(d) the TLS server runs no h2 terminator")
+        url = f"https://127.0.0.1:{srv.server_address[1]}{CONFIG1_PATH}"
+        for flag, want in (("--http1.1", "1.1"), ("--http2", "2")):
+            out = os.path.join(tls, f"answer-{want}.jpg")
+            r = subprocess.run([curl, "-sk", flag, "-o", out, "-w",
+                                "%{http_version} %{http_code}", "-H",
+                                "Content-Type: image/jpeg", "--data-binary",
+                                f"@{LARGE_JPG}", url], capture_output=True, timeout=60)
+            with open(out, "rb") as f:
+                got[want] = (r.stdout.decode().split(), f.read())
+    finally:
+        stop()
+    add_launches(launches, kernels.launch_counts())
+    for want, (line, body) in got.items():
+        if line != [want, "200"] or body != PHASE4_ANSWERS["resize"]:
+            raise AssertionError(f"(d) HTTP/{want}: {line}, {len(body)} B, not phase 4's answer")
+    log("  (d) libnghttp2 loads; config 1 over h2 and over HTTP/1.1 on one TLS port: both "
+        "200, byte-equal to each other and to phase 4's answer")
+    return {"libnghttp2": True, "curl_h2": True, "driven": True}
+
+
+def read_response(sock) -> tuple:
+    """(status, body) of an HTTP/1.1 response with Content-Length."""
+    data = b""
+    while b"\r\n\r\n" not in data:
+        chunk = sock.recv(65536)
+        if not chunk:
+            raise AssertionError(f"connection closed mid-response: {data[:200]!r}")
+        data += chunk
+    head, _, body = data.partition(b"\r\n\r\n")
+    lines = head.split(b"\r\n")
+    length = next(int(ln.split(b":", 1)[1]) for ln in lines[1:]
+                  if ln.lower().startswith(b"content-length:"))
+    while len(body) < length:
+        chunk = sock.recv(65536)
+        if not chunk:
+            break
+        body += chunk
+    return int(lines[0].split()[1]), body
+
+
+def obs_ingress_case(buf: bytes, launches: dict, smi: str) -> dict:
+    """(e) --read-timeout 1: a connection stalled mid-header is closed
+    within 1-3 s and counted in /health's ingress block; a body trickled in
+    OBS_TRICKLE chunks (past the timeout in all, each gap under it) is
+    served byte-equal to phase 4's; config 1 is still served."""
+    import socket
+
+    from imaginary_tpu_torch import kernels
+
+    srv, stop = obs_server(["--read-timeout", "1"])
+    port = srv.server_address[1]
+    kernels.reset_launches()
+    try:
+        before = get_json(port, "/health")["ingress"]
+        sl = socket.create_connection(("127.0.0.1", port), 5)
+        sl.sendall(b"POST " + CONFIG1_PATH.encode() + b" HTTP/1.1\r\nHost: x\r\n")
+        sl.settimeout(10.0)
+        t0 = time.perf_counter()
+        got = sl.recv(4096)
+        closed_s = time.perf_counter() - t0
+        sl.close()
+        if got != b"" or not 0.9 <= closed_s <= 3.0:
+            raise AssertionError(f"(e) the stalled read got {got[:100]!r} after "
+                                 f"{closed_s:.2f} s")
+        slow = socket.create_connection(("127.0.0.1", port), 5)
+        slow.sendall(b"POST " + CONFIG1_PATH.encode() + b" HTTP/1.1\r\nHost: x\r\n"
+                     b"Content-Type: image/jpeg\r\nConnection: close\r\n"
+                     b"Content-Length: " + str(len(buf)).encode() + b"\r\n\r\n")
+        step = -(-len(buf) // OBS_TRICKLE)
+        t1 = time.perf_counter()
+        for i in range(0, len(buf), step):
+            time.sleep(OBS_TRICKLE_GAP_S)
+            slow.sendall(buf[i:i + step])
+        slow.settimeout(60.0)
+        status, body = read_response(slow)
+        trickle_s = time.perf_counter() - t1
+        slow.close()
+        if status != 200 or body != PHASE4_ANSWERS["resize"]:
+            raise AssertionError(f"(e) the trickled body: {status}, {len(body)} B")
+        config1_answer(port, buf, "(e) after the slowloris")
+        after = get_json(port, "/health")["ingress"]
+    finally:
+        stop()
+    add_launches(launches, kernels.launch_counts())
+    if after["read_timeouts"] != before["read_timeouts"] + 1:
+        raise AssertionError(f"(e) read_timeouts {before} -> {after}")
+    log(f"  (e) --read-timeout 1: the stalled header read closed after {closed_s:.3f} s and "
+        f"counted (ingress {after}); a body trickled over {trickle_s:.2f} s served "
+        f"byte-equal; config 1 still served  [{smi}]")
+    return {"closed_after_s": closed_s, "trickle_s": trickle_s, "ingress": after}
+
+
+def obs_phase(smi: str) -> dict:
+    """Phase 19 (see the module docstring): the port's server with every
+    observability plane armed, on the card."""
+    from imaginary_tpu_torch import kernels
+
+    t0 = time.perf_counter()
+    bodies = {}
+    for _, src, _ in CONFIG2_REQUESTS:
+        with open(src, "rb") as f:
+            bodies[src] = f.read()
+    buf = bodies[LARGE_JPG]
+    kernels.reset_launches()
+    launches = dict(kernels.launch_counts())
+    sink = LineSink()
+    armed, stop_armed = obs_server(OBS_PLANES, log_stream=sink)
+    off, stop_off = obs_server([])
+    try:
+        out = {"surfaces": obs_surfaces_case(armed, sink, bodies, launches, smi),
+               "profile": obs_profile_case(armed, buf, launches, smi),
+               "latency": obs_latency_case(armed, off, buf, launches, smi)}
+    finally:
+        stop_armed()
+        stop_off()
+    out["h2"] = obs_h2_case(buf, launches, smi)
+    out["ingress"] = obs_ingress_case(buf, launches, smi)
+    for name in CONFIG2_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched in phase 19")
+    out["plane_vs_profiler_ms"] = {
+        "cost_device_ms_per_request": out["surfaces"]["config1_cost_device_ms"],
+        "card_ms_per_request": out["profile"]["card_ms_per_request"]}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  config 1 a request: the plane books {out['surfaces']['config1_cost_device_ms']:.4f} "
+        f"ms (drain wall), the profiler saw {out['profile']['card_ms_per_request']:.4f} ms of "
+        f"card time  [{smi}]")
+    log(f"  launches: {launches}; phase 19: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7426,6 +7901,9 @@ def main() -> int:
     log("== phase 18: the vector and HEIF/AVIF codecs (the loaders found, each route "
         "against the reference's rule, K1's launches)")
     report["vector"] = vector_phase()
+    log("== phase 19: the observability planes on the card (wide events, the SLO engine, "
+        "the cost and capacity plane, /debugz/profile, the armed latency, h2, --read-timeout)")
+    report["obs"] = obs_phase(smi)
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -7463,6 +7941,7 @@ def main() -> int:
             "launches_cache": report["cache"]["launches"][name],
             "launches_mesh": report["mesh"]["launches"][name],
             "launches_vector": report["vector"]["launches"][name],
+            "launches_obs": report["obs"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -9,7 +9,9 @@ PORT, URL_SIGNATURE_KEY and LOG_LEVEL still win, as in the reference.
 `--host-spill` defaults to off where the reference's defaults to auto
 (the card serves every request unless asked otherwise). `--dct-native`
 offers the port's two arms (native, python) and auto; the reference's
-numpy arm is not ported. The
+numpy arm is not ported. IMAGINARY_TPU_PROFILE_DIR captures a
+torch.profiler trace of the whole serving run, of the card's activity
+too on a CUDA device, exported there at exit. The
 server runs on the card: without CUDA it refuses to start unless
 `--device cpu` asks for the CPU, and `--require-device` refuses anything
 but a CUDA device.
@@ -110,6 +112,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--require-device", action="store_true",
                    default=_env_bool("IMAGINARY_TPU_REQUIRE_DEVICE"),
                    help="refuse to start unless the kernels run on a CUDA device")
+    p.add_argument("--disable-http2", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_DISABLE_HTTP2"),
+                   help="serve http/1.1 only over TLS (h2 is on by default, like "
+                        "the reference)")
     p.add_argument("--authorization",
                    default=_env_str("IMAGINARY_TPU_AUTHORIZATION", ""),
                    help="fixed Authorization header for origins")
@@ -147,6 +153,48 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env_bool("IMAGINARY_TPU_DISABLE_TRACING"),
                    help="disable per-request span tracing and Server-Timing "
                         "(X-Request-ID is still assigned)")
+    # the observability planes (obs/); all off by default
+    p.add_argument("--wide-events", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_WIDE_EVENTS"),
+                   help="emit one structured JSON line per request "
+                        "(op, plan digest, cache outcome, placement, spans)")
+    p.add_argument("--wide-events-sample", type=float,
+                   default=_env_float("IMAGINARY_TPU_WIDE_EVENTS_SAMPLE", 1.0),
+                   help="tail-based sampling probability for boring wide "
+                        "events; errors, sheds, 504s, hedges, placement "
+                        "trouble and slow requests are always emitted")
+    p.add_argument("--slo-config",
+                   default=os.environ.get("IMAGINARY_TPU_SLO_CONFIG", ""),
+                   help="per-route SLO objectives: inline JSON (starting "
+                        "with '{') or a file path mapping route -> "
+                        "{latency_ms, latency_target, availability} with '*' "
+                        "as catch-all; burn rates over 5m/1h windows in "
+                        "/health, /metrics and /debugz; empty disables")
+    p.add_argument("--enable-debug", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_ENABLE_DEBUG")
+                   or _env_bool("IMAGINARY_TPU_DEBUG"),
+                   help="serve /debugz runtime introspection (task dump, "
+                        "executor and cache snapshots, slow-request "
+                        "exemplars, a torch.profiler capture, failpoints)")
+    p.add_argument("--cost-attribution", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_COST_ATTRIBUTION"),
+                   help="per-tenant cost attribution and the capacity plane: "
+                        "cost vectors per tenant x qos_class x route x op, a "
+                        "capacity block in /health, /topz, the live bound_by "
+                        "advisor, imaginary_tpu_cost_*/_utilization_* metrics")
+    p.add_argument("--cost-topk", type=int,
+                   default=_env_int("IMAGINARY_TPU_COST_TOPK", 20),
+                   help="cost-attribution sketch width: at most K distinct "
+                        "tenant/op label values; the rest fold into 'other'")
+    p.add_argument("--cost-windows",
+                   default=_env_str("IMAGINARY_TPU_COST_WINDOWS", "10s,1m,5m"),
+                   help="cost rollup windows over the 1s ring: ascending CSV "
+                        "of <n>s/<n>m spans (max 6, each <= 1h)")
+    p.add_argument("--read-timeout", type=float,
+                   default=_env_float("IMAGINARY_TPU_READ_TIMEOUT", 0.0),
+                   help="close a connection whose request read (headers or "
+                        "body) goes this many seconds without a byte "
+                        "(slowloris hardening); 0 disables")
     # the request deadline (deadline.py); off by default
     p.add_argument("--request-timeout", type=float,
                    default=_env_float("IMAGINARY_TPU_REQUEST_TIMEOUT", 0.0),
@@ -475,6 +523,22 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
             load_policy(args.qos_config)
         except ValueError as e:
             raise SystemExit(str(e)) from None
+    if args.slo_config:
+        # a typo'd objective table refuses to start, never tracks nothing
+        from imaginary_tpu_torch.obs.slo import load_config as load_slo_config
+
+        try:
+            load_slo_config(args.slo_config)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
+    if args.cost_attribution:
+        # a malformed window spec refuses to start
+        from imaginary_tpu_torch.obs.cost import parse_windows
+
+        try:
+            parse_windows(args.cost_windows)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     return ServerOptions(
         port=port,
         address=args.addr,
@@ -493,6 +557,8 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         max_allowed_pixels=args.max_allowed_resolution,
         cert_file=args.certfile,
         key_file=args.keyfile,
+        http2=not args.disable_http2,
+        read_timeout_s=max(0.0, args.read_timeout),
         authorization=args.authorization,
         forward_headers=parse_forward_headers(args.forward_headers),
         placeholder=args.placeholder,
@@ -505,6 +571,13 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         cpus=args.cpus,
         endpoints=parse_endpoints(args.disable_endpoints),
         trace_enabled=not args.disable_tracing,
+        wide_events=args.wide_events,
+        wide_events_sample=min(1.0, max(0.0, args.wide_events_sample)),
+        slo_config=args.slo_config,
+        enable_debug=args.enable_debug,
+        cost_attribution=args.cost_attribution,
+        cost_topk=max(1, args.cost_topk),
+        cost_windows=args.cost_windows,
         source_retries=max(0, args.source_retries),
         source_connect_timeout_s=max(0.001, args.source_connect_timeout),
         source_read_timeout_s=max(0.001, args.source_read_timeout),
@@ -613,6 +686,14 @@ def main(argv=None) -> int:
         print(f"imaginary_tpu_torch: refusing to start: {why}", file=sys.stderr)
         return 2
     join_fleet(o)
+    # IMAGINARY_TPU_PROFILE_DIR=<dir>: a torch.profiler capture of the whole
+    # serving run, exported into <dir> at exit (engine/timing.py)
+    from imaginary_tpu_torch.engine.timing import maybe_start_profiler, stop_profiler
+
+    if maybe_start_profiler(o.device):
+        import atexit
+
+        atexit.register(stop_profiler)
     from imaginary_tpu_torch.parallel.mesh import shutdown_distributed
     from imaginary_tpu_torch.web.app import serve
 

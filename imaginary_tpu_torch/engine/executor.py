@@ -169,6 +169,15 @@ process group (`parallel/mesh.init_distributed`, `--distributed`,
 `--mesh-hosts`) carries no serving collective, as the reference's does
 not. Not ported: the per-key refinement of the device price (the port
 prices the owed ledger by one measured rate).
+
+Cost attribution (obs/cost.py, the reference's executor.py:2087-2103,
+:2832-2846): with `cost_armed` (set by the service that binds a cost
+plane) each drain books its wall ms as its lane's `drain_busy` (-1 on
+the global path) and stamps each item's share and wire bytes on its
+request's trace (`cost_device_ms`, `cost_wire_bytes`), and each launch
+records a second event before its copy to the host, which splits the
+drain into `device_wait` and `d2h` (`_book_device_wait`). Without it
+none of these is booked and no event is added.
 """
 
 from __future__ import annotations
@@ -573,6 +582,13 @@ class Executor:
             maxsize=max(1, self.config.max_inflight))
         self._lock = threading.Lock()  # guards _closed, the ledgers and the stats
         self._closed = False
+        # set by the service that binds a cost plane to this executor
+        # (obs/cost.py): each drain then books its lane's busy time and
+        # each item's share on its request's trace, and each launch records
+        # its kernels event for the device_wait split. The executor's own
+        # flag, not the process's plane, so an armed server and one with
+        # no plane in one process never arm each other.
+        self.cost_armed = False
         # groups launched on the global pair whose chunks have not all
         # drained (their CUDA events not all completed): the convoy's
         # link-idle test reads it
@@ -1212,6 +1228,8 @@ class Executor:
             if lane is not None:
                 LANE_TIMES.record(lane.idx, "batch_form", bf_ms)
                 LANE_TIMES.record(lane.idx, "dispatch_wait", dw_ms)
+                if it.trace is not None:
+                    it.trace.annotate(lane=lane.idx)
             it.stage_ms["batch_form"] = bf_ms
             it.stage_ms["dispatch_wait"] = dw_ms
 
@@ -1296,7 +1314,8 @@ class Executor:
         arrs = [it.arr for it in items]
         plans = [it.plan for it in items]
         dev = self.config.device if device is None else device
-        return (chain_mod.launch_batch(arrs, plans, device=dev, device_cache=device_cache),
+        return (chain_mod.launch_batch(arrs, plans, device=dev, device_cache=device_cache,
+                                       split=self.cost_armed),
                 arrs, plans)
 
     # -- mesh batch sharding (use_mesh; mesh_policy "off") ---------------------
@@ -1535,6 +1554,12 @@ class Executor:
                      else self.devhealth.available_indices() or [0]):
             self.devhealth.note_ok(didx, latency_ms=(now - t_launch) * 1000.0)
         TIMES.record("drain", drain_ms / len(items))
+        if not cold:
+            _book_device_wait(launched, t0, now, len(items))
+        if idx is not None:
+            for it in items:
+                if it.trace is not None:
+                    it.trace.annotate(device=idx)
         self._note_drain(items, drain_ms, cold)
         self._finish(items, outs, idx)
         return True
@@ -1579,14 +1604,25 @@ class Executor:
             return True
         return False
 
-    def _note_drain(self, items: list, drain_ms: float, cold: bool = False) -> None:
+    def _note_drain(self, items: list, drain_ms: float, cold: bool = False,
+                    lane: int = -1) -> None:
         """Each item's share of a drained chunk, the smallest drain, and
         the chunk's drain ms per wire MB folded into the EWMA that
         estimated_wait_ms and the spill test price. A cold chunk's drain
-        (its launch met a new signature) is no price sample."""
+        (its launch met a new signature) is no price sample, but its
+        requests still pay it. With a cost plane bound (`cost_armed`), the
+        drain's wall ms is the busy time of its lane (-1: the global path)
+        and each item's share and wire bytes stamp its request's cost
+        vector."""
         share = drain_ms / len(items)
         for it in items:
             it.stage_ms["drain"] = share
+        if self.cost_armed:
+            LANE_TIMES.record(lane, "drain_busy", drain_ms)
+            for it in items:
+                if it.trace is not None:
+                    it.trace.accumulate("cost_device_ms", share)
+                    it.trace.accumulate("cost_wire_bytes", it.wire_mb * 1e6)
         if cold:
             return
         mb = sum(it.wire_mb for it in items)
@@ -2102,7 +2138,8 @@ class Executor:
                     [self._lanes.lane(i).stream for i in entries])
             else:
                 launched = chain_mod.launch_batch(arrs, plans, device=lane.device,
-                                                  stream=lane.stream, device_cache=True)
+                                                  stream=lane.stream, device_cache=True,
+                                                  split=self.cost_armed)
         except Exception as e:
             if chain_mod.is_oom_error(e):
                 # capacity, not a fault: bisect on this lane's device
@@ -2173,7 +2210,8 @@ class Executor:
             lane.note_service(drain_ms / n, n)
             LANE_TIMES.record(lane.idx, "drain", drain_ms / n)
             TIMES.record("drain", drain_ms / n)
-            self._note_drain(items, drain_ms)
+            _book_device_wait(launched, t0, t0 + drain_ms / 1000.0, n)
+            self._note_drain(items, drain_ms, lane=lane.idx)
             self._finish(items, outs, lane.idx)
 
     def _replace_lane_items(self, items: list, exclude=()) -> None:
@@ -2277,6 +2315,17 @@ class Executor:
                 "stage_times": LANE_TIMES.snapshot(),
             }
         return snap
+
+
+def _book_device_wait(launched, t0: float, t_done: float, n: int) -> None:
+    """A drain split at its launch's kernels event (chain.Launched.ready,
+    recorded only with a cost plane bound): the wait for the kernels
+    (`device_wait`) and the copy to the host after them (`d2h`), per item."""
+    t_ready = getattr(launched, "t_ready", None)
+    if t_ready is None:
+        return
+    TIMES.record("device_wait", max(0.0, t_ready - t0) * 1000.0 / n)
+    TIMES.record("d2h", max(0.0, t_done - t_ready) * 1000.0 / n)
 
 
 def _resolve(fut: Future, result=None, error: Optional[Exception] = None,

@@ -1,8 +1,7 @@
-"""Per-stage timing of the executor (the port's trimmed copy of
+"""Per-stage timing of the executor (the port's copy of
 `imaginary_tpu/engine/timing.py`: `StageTimes`/`TIMES`, the lanes'
-`LaneStageTimes`/`LANE_TIMES`, the link ledger `WireLedger`/`WIRE` and
-the byte-touch ledger `CopyLedger`/`COPIES`, without its cost-plane
-stamp, whose module is not ported).
+`LaneStageTimes`/`LANE_TIMES`, the link ledger `WireLedger`/`WIRE`, the
+byte-touch ledger `CopyLedger`/`COPIES` and the profiler capture).
 
 Each stage records into a bounded ring, so /health can report count,
 mean, p50 and p99 without unbounded memory, and into the stage
@@ -18,12 +17,25 @@ The executor records the rest, all in milliseconds per item:
 - launch: the collector's host time to stage and enqueue a chunk
   (H2D, kernels, D2H), shared over its items;
 - drain: fetch start -> host bytes landed (the wait on the chunk's
-  event), shared over its items.
+  event), shared over its items;
+- device_wait and d2h, only with a cost plane bound (obs/cost.py): the
+  drain split at a second event recorded after the chunk's kernels and
+  before its copy back to the host (ops/chain.py): fetch start -> the
+  kernels done, then the copy.
+
+The profiler capture (`start_profiler`, `stop_profiler`): a
+torch.profiler session over the whole process, of the host and, on a
+CUDA server, of the card (CUPTI records every kernel and copy whatever
+thread launched it), exported as a Chrome trace. /debugz/profile takes
+one from a live server (obs/debugz.py); IMAGINARY_TPU_PROFILE_DIR takes
+one of the whole serving run from boot to exit (cli.py).
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 
 import numpy as np
 
@@ -33,7 +45,8 @@ from imaginary_tpu_torch.obs import trace as _obs_trace
 _RING = 2048  # samples kept per stage for percentile estimates
 
 STAGES = ("probe", "decode", "queue_wait", "batch_form", "dispatch_wait",
-          "launch", "drain", "host_gate", "host_spill", "encode", "total")
+          "launch", "drain", "device_wait", "d2h", "host_gate", "host_spill",
+          "encode", "total")
 
 # the per-stage histogram children, resolved once (record is the hot path)
 _STAGE_HISTS = {s: _obs_hist.STAGE_SECONDS.labels(s) for s in STAGES}
@@ -79,6 +92,12 @@ class StageTimes:
                     "p99_ms": round(float(window[int(0.99 * (n - 1))]), 3),
                 }
         return out
+
+    def totals(self) -> dict:
+        """{stage: (count, cumulative ms)}: the monotonic view the capacity
+        plane's utilization sampler diffs between snapshots."""
+        with self._lock:
+            return {s: (self._count[s], self._sum[s]) for s in STAGES if self._count[s]}
 
     def reset(self) -> None:
         with self._lock:
@@ -164,7 +183,10 @@ class CopyLedger:
     and "encode" (the body, again when metadata is spliced into it).
     Monotonic totals, process-wide; /metrics shows them as
     imaginary_tpu_bytes_copied_total{stage=} and
-    imaginary_tpu_copy_events_total{stage=}."""
+    imaginary_tpu_copy_events_total{stage=}. The bytes booked on a thread
+    that carries the trace of a request a cost plane books (the handler
+    and the pool's threads do; `RequestTrace.cost`) are that request's
+    `cost_copied_bytes`, and a cache hit's also its `cost_cache_bytes`."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -175,6 +197,11 @@ class CopyLedger:
         with self._lock:
             self._bytes[stage] = self._bytes.get(stage, 0) + int(nbytes)
             self._copies[stage] = self._copies.get(stage, 0) + int(copies)
+        tr = _obs_trace.current()
+        if tr is not None and tr.cost is not None:
+            tr.accumulate("cost_copied_bytes", int(nbytes))
+            if stage == "cache_hit":
+                tr.accumulate("cost_cache_bytes", int(nbytes))
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -219,5 +246,88 @@ class LaneStageTimes:
                     "total_ms": round(total, 3)}
             return out
 
+    def totals(self) -> dict:
+        """{(lane, stage): cumulative ms}, for the utilization deltas."""
+        with self._lock:
+            return {k: cell[2] for k, cell in self._cells.items()}
+
 
 LANE_TIMES = LaneStageTimes()
+
+# the active capture: (torch.profiler.profile, trace dir, records the card)
+_profiler = None
+_profiler_lock = threading.Lock()
+
+
+def start_profiler(trace_dir: str, device="cpu") -> bool:
+    """Start a torch.profiler capture that stop_profiler exports into
+    `trace_dir`: the host's activity, and on a CUDA `device` the card's
+    too. False when a capture is already active (one at a time, as the
+    reference's). On the card a marker op runs right after the start, so
+    a capture that recorded no card activity at all is a profiler that
+    cannot see the card, never an idle one (stop_profiler refuses it)."""
+    global _profiler
+    with _profiler_lock:
+        if _profiler is not None:
+            return False
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        dev = torch.device(device)
+        cuda = dev.type == "cuda"
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+        prof = profile(activities=activities)
+        prof.start()
+        if cuda:
+            torch.ones(1, device=dev).add_(1)
+            torch.cuda.synchronize(dev)
+        _profiler = (prof, trace_dir, cuda)
+        return True
+
+
+def profiler_active() -> bool:
+    with _profiler_lock:
+        return _profiler is not None
+
+
+def maybe_start_profiler(device="cpu") -> bool:
+    """Start a capture of the whole serving run when
+    IMAGINARY_TPU_PROFILE_DIR is set; stop_profiler (at exit) exports it.
+    Returns True if one started."""
+    trace_dir = os.environ.get("IMAGINARY_TPU_PROFILE_DIR")
+    if not trace_dir:
+        return False
+    return start_profiler(trace_dir, device)
+
+
+def stop_profiler() -> dict:
+    """Stop the active capture and export it as a Chrome trace into its
+    directory: {"trace_file", "activities", "device_events"} ({} when
+    none was active). Raises RuntimeError, exporting nothing, when a
+    capture of the card recorded no card activity."""
+    global _profiler
+    with _profiler_lock:
+        state = _profiler
+        if state is None:
+            return {}
+        prof, trace_dir, cuda = state
+        try:
+            prof.stop()
+            device_events = 0
+            if cuda:
+                from torch.autograd import DeviceType
+
+                device_events = sum(1 for e in prof.events()
+                                    if e.device_type == DeviceType.CUDA)
+                if device_events == 0:
+                    raise RuntimeError(
+                        "the profiler recorded no CUDA activity (CUPTI sees no "
+                        "kernel on this card); no trace was written")
+            os.makedirs(trace_dir, exist_ok=True)
+            path = os.path.join(trace_dir, f"imaginary_tpu_torch-{os.getpid()}-"
+                                           f"{time.time_ns()}.pt.trace.json")
+            prof.export_chrome_trace(path)
+        finally:
+            _profiler = None
+    return {"trace_file": path, "activities": ["cpu", "cuda"] if cuda else ["cpu"],
+            "device_events": device_events}

@@ -10,12 +10,18 @@ trace: the stage times they measure for an item (batch_form,
 dispatch_wait, drain) travel back with its result and are added on the
 thread that submitted it (`engine/timing.attribute`).
 
+The one exception is an executor item: it holds its request's trace
+(`item.trace`), so the collector and fetcher stamp the placement ladder,
+the hedge's outcome and, with a cost plane armed (obs/cost.py), the
+item's share of its drain (`accumulate`) onto the right request from
+their own threads; the trace's lock makes that safe.
+
 The trace also carries the request's deadline (deadline.py) and, with a
 qos policy, its tenant (qos/tenancy.TenantSpec, resolved by the trace
 middleware), so `copy_context()` takes one vehicle into the pool
-threads, and its
-wide-event fields (`annotate`), where the middleware writes the
-deadline's budget, remaining time and stage checkpoints.
+threads, and its wide-event fields (`annotate`, `accumulate`), which the
+trace middleware turns into the request's wide event (`to_event`,
+obs/events.py) and the slow ring's entry (obs/debugz.py).
 
 Identity follows W3C Trace Context: an inbound `traceparent` header is
 honored (same trace-id continues, this request's span becomes a child).
@@ -64,13 +70,20 @@ class Span:
         self.start_ms = start_ms
         self.dur_ms = dur_ms
 
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "start_ms": round(self.start_ms, 3),
+            "dur_ms": round(self.dur_ms, 3),
+        }
+
 
 class RequestTrace:
-    """One request's identity and span timeline."""
+    """One request's identity, span timeline and wide-event fields."""
 
     __slots__ = ("request_id", "trace_id", "parent_span_id", "span_id",
                  "flags", "enabled", "t0", "spans", "fields", "deadline",
-                 "tenant", "_lock")
+                 "tenant", "cost", "_lock")
 
     def __init__(self, request_id: str, traceparent: str = "",
                  enabled: bool = True):
@@ -99,6 +112,10 @@ class RequestTrace:
         # The request's qos TenantSpec (qos/tenancy.py), set by the web
         # middleware when a policy is armed; None with qos off.
         self.tenant = None
+        # The cost plane (obs/cost.py) that books this request, set by the
+        # trace middleware when --cost-attribution is armed; the byte-touch
+        # ledger stamps the request's copied bytes only then.
+        self.cost = None
         self._lock = threading.Lock()
 
     def add_span(self, name: str, dur_ms: float,
@@ -116,6 +133,29 @@ class RequestTrace:
             return
         with self._lock:
             self.fields.update(fields)
+
+    def accumulate(self, key: str, delta: float) -> None:
+        """A thread-safe additive field: the cost stamps (cost_device_ms,
+        cost_wire_bytes, ...) sum contributions from the executor's and
+        the ledgers' threads here. Not gated on `enabled`: cost booking
+        works with tracing off, and the fields reach a wide event only
+        through `to_event`, which a request without tracing never builds."""
+        with self._lock:
+            self.fields[key] = self.fields.get(key, 0.0) + delta
+
+    def field(self, key: str, default=None):
+        with self._lock:
+            return self.fields.get(key, default)
+
+    def span_sum(self, names) -> float:
+        """The summed duration of every span whose name is in `names`
+        (the middleware's host-pool ms of a request, from its probe,
+        decode, encode and host_spill spans)."""
+        with self._lock:
+            return sum(s.dur_ms for s in self.spans if s.name in names)
+
+    def duration_ms(self) -> float:
+        return (time.monotonic() - self.t0) * 1000.0
 
     def traceparent(self) -> str:
         """This request's own span context."""
@@ -143,6 +183,22 @@ class RequestTrace:
             for name, dur in list(agg.items())[:limit]
         ]
         return ", ".join(parts)
+
+    def to_event(self, **extra) -> dict:
+        """The wide-event dict: identity, the extra keys (route, method,
+        status, ...), the annotations and the full span timeline."""
+        with self._lock:
+            fields = dict(self.fields)
+            spans = [s.to_dict() for s in self.spans]
+        event = {
+            "request_id": self.request_id,
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+        }
+        event.update(extra)
+        event.update(fields)
+        event["spans"] = spans
+        return event
 
 
 _current: contextvars.ContextVar = contextvars.ContextVar(

@@ -48,6 +48,13 @@ Nothing on the card refuses aliasing, so `donation_stats`' "rejected"
 (a backend's refusal, which latches the reference's donation off) stays
 0; its "donated" counts the launches that donated.
 
+With `split` (an executor bound to a cost plane, obs/cost.py),
+`launch_batch` records a second event on the card, after the chain's
+kernels and before the copy back to the host (`Launched.ready`), and
+`_to_host` notes when it completed (`Launched.t_ready`): the executor
+books the fetch's wait up to it as the `device_wait` stage, the capacity
+plane's link stall. Without it no second event is recorded.
+
 Link bytes are booked in `engine/timing.WIRE`: each staged H2D buffer in
 `_stage`, and each copy of an output into host memory (`_book_d2h`),
 under the device's label for the sharded and spatial launches.
@@ -69,6 +76,7 @@ rgb transports') bypass it.
 from __future__ import annotations
 
 import threading
+import time
 import zlib
 
 import numpy as np
@@ -332,17 +340,32 @@ def _book_d2h(host: torch.Tensor, label=None) -> None:
     WIRE.add("d2h", host.numel() * host.element_size(), device=label)
 
 
+class _Done:
+    """The kernels event of a launch that ran synchronously (the CPU)."""
+
+    @staticmethod
+    def synchronize() -> None:
+        pass
+
+
+_DONE = _Done()
+
+
 class Launched:
     """A launched chunk: its output in host memory once `event` (None on
     the CPU) has completed, and the staged host buffers kept alive until
-    then."""
+    then. `ready`: with `split`, the event recorded after the
+    chunk's kernels, before its copy to the host; `t_ready`: the
+    monotonic time the fetch saw it complete."""
 
-    __slots__ = ("host", "event", "staged")
+    __slots__ = ("host", "event", "staged", "ready", "t_ready")
 
-    def __init__(self, host: torch.Tensor, event=None, staged=None):
+    def __init__(self, host: torch.Tensor, event=None, staged=None, ready=None):
         self.host = host
         self.event = event
         self.staged = staged
+        self.ready = ready
+        self.t_ready = None
 
 
 def _stream(device: torch.device):
@@ -415,7 +438,7 @@ def _stage_inputs(batch: list, plans: list, rest: list, device: torch.device,
 
 
 def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE, stream=None,
-                 label=None, donate=None, device_cache: bool = False):
+                 label=None, donate=None, device_cache: bool = False, split: bool = False):
     """Stage + launch one batched chain WITHOUT waiting for it.
 
     arrs: HWC uint8 arrays, all with the same bucket shape and C (packed
@@ -426,7 +449,8 @@ def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE, stream=None,
     (None: unlabelled). donate: None follows `set_donation`; the sharded
     and spatial launches pass False. device_cache: let the launch use the
     device frame tier when one is armed and every plan carries a
-    frame_key (module docstring). Returns a `Launched` (on a card,
+    frame_key (module docstring). split: record the kernels event of the
+    device_wait split (module docstring). Returns a `Launched` (on a card,
     possibly still computing), or None for an identity chain."""
     specs = plans[0].spec_key()
     if not specs:
@@ -454,18 +478,23 @@ def launch_batch(arrs: list, plans: list, device=DEFAULT_DEVICE, stream=None,
         views, _ = _stage_inputs(batch, plans, rest, device, None, label, dc)
         y = _run_staged(specs, views, host_dyns, donate)
         _book_d2h(y, label)
-        return Launched(y)
+        # on the CPU the chain has run by now: its kernels are done
+        return Launched(y, ready=_DONE if split else None)
     if stream is None:
         stream = _stream(device)
     with torch.cuda.stream(stream):
         views, staged = _stage_inputs(batch, plans, rest, device, stream, label, dc)
         y = _run_staged(specs, views, host_dyns, donate)
+        ready = None
+        if split:
+            ready = torch.cuda.Event(blocking=True)
+            ready.record(stream)
         host = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
         host.copy_(y, non_blocking=True)
         _book_d2h(host, label)
         event = torch.cuda.Event(blocking=True)
         event.record(stream)
-    return Launched(host, event, staged)
+    return Launched(host, event, staged, ready)
 
 
 class ShardedLaunch:
@@ -717,7 +746,11 @@ def _run_staged(specs, views: list, host_dyns: list, donate: bool = False) -> to
 
 
 def _to_host(launched: Launched) -> np.ndarray:
-    """Wait for the launch's copy back to host memory (its event only)."""
+    """Wait for the launch's copy back to host memory (its event only;
+    first its kernels' event, when it has one)."""
+    if launched.ready is not None:
+        launched.ready.synchronize()
+        launched.t_ready = time.monotonic()
     if launched.event is not None:
         launched.event.synchronize()
         launched.staged = None

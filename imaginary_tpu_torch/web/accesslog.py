@@ -5,7 +5,9 @@ Apache-combined-ish line per request with latency in seconds (4
 decimals), level-gated: info logs everything, warning logs status >= 400,
 error logs status >= 500 (ref: log.go:88-99). The timestamp carries the
 numeric timezone offset, and every line ends with the request's
-X-Request-ID.
+X-Request-ID. A request forwarded by the HTTP/2 terminator (web/http2.py)
+logs the client's address and HTTP/2.0 from its X-Forwarded-* headers,
+trusted only when it carries the process's hop token.
 """
 
 from __future__ import annotations
@@ -18,6 +20,16 @@ from aiohttp import web
 from imaginary_tpu_torch.obs import trace as obs_trace
 
 _LEVELS = {"debug": 0, "info": 0, "warning": 400, "error": 500}
+
+# Set by serve() when the HTTP/2 terminator runs: a random per-process
+# token the terminator attaches as X-Internal-Hop. X-Forwarded-* is
+# trusted only on requests carrying it; a loopback peer is not enough.
+_TRUSTED_HOP_TOKEN: str = ""
+
+
+def set_trusted_hop_token(token: str) -> None:
+    global _TRUSTED_HOP_TOKEN
+    _TRUSTED_HOP_TOKEN = token
 
 
 def _apache_timestamp() -> str:
@@ -50,9 +62,14 @@ def access_log_middleware(level: str = "info", out=None):
                 elapsed = time.monotonic() - start
                 tr = obs_trace.current()
                 rid = tr.request_id if tr is not None else "-"
+                peer = request.remote or "-"
                 httpv = f"{request.version.major}.{request.version.minor}"
+                if (_TRUSTED_HOP_TOKEN
+                        and request.headers.get("X-Internal-Hop") == _TRUSTED_HOP_TOKEN):
+                    peer = request.headers.get("X-Forwarded-For", peer)
+                    httpv = request.headers.get("X-Forwarded-HTTP-Version", httpv)
                 stream.write(
-                    f'{request.remote or "-"} - - [{_apache_timestamp()}] '
+                    f'{peer} - - [{_apache_timestamp()}] '
                     f'"{request.method} {request.path_qs} HTTP/{httpv}" '
                     f"{status} {length} {elapsed:.4f} {rid}\n"
                 )

@@ -2,10 +2,11 @@
 ref: ServerOptions, server.go:20-51).
 
 Immutable after startup and threaded through every constructor. Trimmed
-to the fields the port's HTTP layer, its URL sources and its admission
-(qos, the memory-pressure governor, --max-queue-ms) read, plus the
-executor, lane, spatial and transport knobs the port serves with and its
-own `device`.
+to the fields the port's HTTP layer, its URL sources, its admission
+(qos, the memory-pressure governor, --max-queue-ms) and its
+observability planes (wide events, /debugz, the SLO engine, the cost
+plane) read, plus the executor, lane, spatial and transport knobs the
+port serves with and its own `device`.
 The reference's --gzip, --http-read-timeout and --http-write-timeout
 parse (cli.py) but set nothing, as in the reference.
 """
@@ -39,6 +40,9 @@ class ServerOptions:
     mount: str = ""
     cert_file: str = ""
     key_file: str = ""
+    # HTTP/2 over TLS (ALPN h2), served by the nghttp2 terminator in
+    # web/http2.py; http/1.1 only when libnghttp2 is absent
+    http2: bool = True
     authorization: str = ""
     placeholder: str = ""
     placeholder_status: int = 0
@@ -49,9 +53,30 @@ class ServerOptions:
     log_level: str = "info"
     return_size: bool = False
     cpus: int = 0  # host worker-thread cap, 0 = auto
+    # Ingress slow-client guard (web/ingress.py): close a connection whose
+    # request read (headers or body) goes this many seconds without a
+    # byte; 0 = off
+    read_timeout_s: float = 0.0
+    # --- observability (obs/) ------------------------------------------------
     # Per-request span tracing: X-Request-ID is always assigned and
-    # echoed; this gates span accumulation and Server-Timing.
+    # echoed; this gates span accumulation, Server-Timing, wide events and
+    # the slow-request ring.
     trace_enabled: bool = True
+    # one JSON wide event per request (obs/events.py) on the access log's
+    # stream, tail-sampled: the interesting tail always, the boring rest
+    # with this probability
+    wide_events: bool = False
+    wide_events_sample: float = 1.0
+    # per-route SLO objectives (obs/slo.py): inline JSON or a file path;
+    # "" = off
+    slo_config: str = ""
+    # /debugz, /debugz/profile and /debugz/failpoints (obs/debugz.py)
+    enable_debug: bool = False
+    # per-tenant cost attribution and the capacity plane (obs/cost.py):
+    # the top-K sketch's width and the rollup windows
+    cost_attribution: bool = False
+    cost_topk: int = 20
+    cost_windows: str = "10s,1m,5m"
     # ?url= and watermark origin fetches (web/sources.py): bounded retries
     # with full-jitter backoff on connect errors, timeouts, 5xx and 429
     # (Retry-After honoured, other 4xx never retried), and per-attempt

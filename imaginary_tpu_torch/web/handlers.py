@@ -20,7 +20,9 @@ in the executor, on the service's device. Every processed image answers
 `host` for the executor's counted host placements (engine/executor.py:
 --force-host, the spill, the breaker's outage, a hedge's twin, an OOM
 bisection's item, integrity's verified copy); the value rides on the
-request's trace as `placement`.
+request's trace as `placement`, beside the other wide-event fields the
+handler stamps (obs/events.py): `op`, `bytes_in`, and once the request
+is past the core's checks its `plan` digest and `cache` outcome.
 
 Admission (`_admit`, the reference's handlers.py:352-470, in its
 order), before the source is fetched: the `qos.admit` failpoint (an
@@ -73,6 +75,7 @@ import asyncio
 import collections
 import contextvars
 import dataclasses
+import hashlib
 import os
 import threading
 import time
@@ -109,6 +112,8 @@ from imaginary_tpu_torch.imgtype import (
     image_type,
     is_image_mime_type_supported,
 )
+from imaginary_tpu_torch.obs import cost as cost_mod
+from imaginary_tpu_torch.obs import slo as slo_mod
 from imaginary_tpu_torch.obs import trace as obs_trace
 from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.options import ImageOptions
@@ -183,8 +188,11 @@ class ImageService:
     """Owns the micro-batch executor (on `o.device`, or one lane per mesh
     entry with a `mesh_policy`), the host thread pool and the sources.
     Keyword arguments override fields of `o` (ServerOptions() when None).
-    `qos` and `pressure` are the app's policy and governor (create_app
-    builds each once); a service built alone derives them from `o`. The
+    `qos`, `pressure`, `slo` and `cost` are the app's policy, governor,
+    SLO engine and cost plane (create_app builds each once); a service
+    built alone derives them from `o`. The cost plane is bound to the
+    executor (its drain floor and ms/MB EWMA) and to the host pool's
+    occupancy. The
     dct transport switches, the dct decoder arm, donation and the codec
     arena's cap are process-wide, set here from the options as the
     reference's service sets them, and so is the device frame tier
@@ -192,7 +200,7 @@ class ImageService:
     `close()` shuts the executor and the pool down."""
 
     def __init__(self, o: Optional[ServerOptions] = None, qos=None, pressure=None,
-                 **overrides):
+                 slo=None, cost=None, **overrides):
         o = dataclasses.replace(o or ServerOptions(), **overrides)
         if o.transport_dct_egress and not o.transport_dct:
             raise ValueError("the dct egress requires the dct transport")
@@ -217,6 +225,13 @@ class ImageService:
         if self.pressure is not None:
             # the tiers shrink and restore on the governor's transitions
             self.pressure.on_transition(lambda _old, new: self.caches.apply_pressure(new))
+        # None when their flags are off: no slo or capacity block anywhere
+        self.slo = slo if slo is not None else slo_mod.from_options(o)
+        if cost is None and o.cost_attribution:
+            cost = cost_mod.from_options(o)
+            if self.qos is not None:
+                cost.seed_tenants(self.qos.tenant_names())
+        self.cost = cost
         jpeg_dct.set_decoder(o.dct_native)
         if o.arena_mb > 0:
             native_backend.set_arena_cap(o.arena_mb)
@@ -249,6 +264,10 @@ class ImageService:
         self.pool = ThreadPoolExecutor(max_workers=workers,
                                        thread_name_prefix="itpu-host")
         self.pool_workers = workers
+        if self.cost is not None:
+            self.cost.bind(executor=self.executor,
+                           host_view=lambda: (self.pool_workers, self._inflight))
+            self.executor.cost_armed = True
         # host tasks submitted and not finished, and an EWMA of their
         # service time: the host side of estimated_queue_ms
         self._inflight = 0
@@ -311,6 +330,9 @@ class ImageService:
 
     async def handle(self, request: web.Request, op_name: str) -> web.StreamResponse:
         o = self.options
+        tr = obs_trace.current()
+        if tr is not None:
+            tr.annotate(op=op_name)
         try:
             if o.enable_url_signature:
                 check_url_signature(request, o)
@@ -323,6 +345,8 @@ class ImageService:
                 buf = await self._get_source_image(request)
             if not buf:
                 raise ErrEmptyBody
+            if tr is not None:
+                tr.annotate(bytes_in=len(buf))
             return await self._process_and_respond(request, op_name, buf)
         except ImageError as e:
             return error_response(request, e, o)
@@ -412,8 +436,8 @@ class ImageService:
             digest = cache_mod.source_digest(buf)
             key = cache_mod.request_key(digest, op_name, prepared.opts)
         tr = obs_trace.current()
-        if tr is not None and tr.enabled:
-            tr.annotate(cache="off")
+        if tr is not None and tr.enabled and prepared is not None:
+            _annotate_plan(tr, op_name, prepared.opts, query)
         if caches.result.enabled and key is not None:
             with obs_trace.span("cache_lookup"):
                 etag = cache_mod.strong_etag(key)
@@ -540,6 +564,9 @@ class ImageService:
             deadline_mod.check("host_pool")
             if prepared is None:
                 prepared = self.prepare(buf, query, headers)
+                tr = obs_trace.current()
+                if tr is not None and tr.enabled:
+                    _annotate_plan(tr, op_name, prepared.opts, query)
             out, placement = self.run(op_name, buf, prepared, watermark, digest)
             return out, placement, prepared.vary
         finally:
@@ -704,6 +731,17 @@ class ImageService:
             while len(self._placeholders) > _PLACEHOLDER_CACHE:
                 self._placeholders.popitem(last=False)
         return got
+
+
+def _annotate_plan(tr, op_name: str, opts: ImageOptions, query: dict) -> None:
+    """The wide event's plan digest (the operation, the negotiated output
+    type and the sorted query without the source-naming params: a
+    grouping key, "which transformation shape was slow") and the cache
+    outcome so far, once the request is past the core's checks, as the
+    reference stamps them."""
+    qs = tuple(sorted((k, v) for k, v in query.items() if k not in ("url", "file", "sign")))
+    tr.annotate(plan=hashlib.sha256(repr((op_name, opts.type, qs)).encode()).hexdigest()[:16],
+                cache="off")
 
 
 # --- simple controllers -------------------------------------------------------

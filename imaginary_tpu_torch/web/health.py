@@ -7,12 +7,17 @@ is worker 0 of epoch 0), the device inventory, the executor's block (with
 the link ledger `wire_bytes`/`wire_transfers`, donation and the pressure
 rungs' counts), the fault domains (`deviceHealth`), integrity's counters
 with `--integrity`, the qos block with `--qos-config`, the pressure
-governor's with `--pressure-rss-mb`, the native codec's scratch `arena`,
-the stage times, the estimated queueing delay and the cache tiers'
-counters (`cache`, always present, as in the reference). Beside them,
-the port's own: the device, each kernel's launch count, the codec route
-of each format and the dct transport's switches. The reference's
-`eventLoop` block waits for its module.
+governor's with `--pressure-rss-mb`, the SLO burn rates with
+`--slo-config` (`slo`, obs/slo.py), the cost and capacity plane with
+`--cost-attribution` (`capacity`, obs/cost.py), the native codec's
+scratch `arena`, the stage times, the estimated queueing delay, the
+cache tiers' counters (`cache`, always present, as in the reference),
+the read guard's counters with `--read-timeout` (`ingress`,
+web/ingress.py) and the event-loop lag probe's last sample (`eventLoop`,
+obs/looplag.py, once it has taken one). Beside them, the port's own: the
+device, each kernel's launch count, the codec route of each format and
+the dct transport's switches. Each optional block's presence is its
+plane's armed signal.
 """
 
 from __future__ import annotations
@@ -27,6 +32,8 @@ import torch
 from imaginary_tpu_torch import codecs, kernels, pipeline
 from imaginary_tpu_torch.codecs import native_backend
 from imaginary_tpu_torch.engine.timing import TIMES
+from imaginary_tpu_torch.obs import looplag
+from imaginary_tpu_torch.web.ingress import STATS as INGRESS_STATS
 
 
 def _rss_mb() -> float:
@@ -72,6 +79,10 @@ def get_health_stats(service) -> dict:
         stats["qos"] = service.qos.stats.to_dict()
     if service.pressure is not None:  # the rung, its signals and its actions
         stats["pressure"] = service.pressure.snapshot()
+    if service.slo is not None:  # burn rates per route and window
+        stats["slo"] = service.slo.snapshot()
+    if service.cost is not None:  # cost windows, utilization, bound_by
+        stats["capacity"] = service.cost.snapshot()
     arena = native_backend.arena_stats()
     if arena is not None:  # the native codec's scratch arenas
         stats["arena"] = arena
@@ -87,4 +98,9 @@ def get_health_stats(service) -> dict:
     stats["estimatedQueueMs"] = round(service.estimated_queue_ms(), 2)
     # the cache tiers' hits, misses, evictions, occupancy and coalescing
     stats["cache"] = service.caches.to_dict()
+    if service.options.read_timeout_s > 0:  # the read guard's counters
+        stats["ingress"] = INGRESS_STATS.to_dict()
+    loop_lag = looplag.snapshot()
+    if loop_lag is not None:
+        stats["eventLoop"] = loop_lag
     return stats

@@ -9,21 +9,25 @@ per family, label values escaped, families grouped):
      per-lane families, the fault domains, the link ledger by direction,
      the byte-touch ledger by stage, the qos classes, the pressure
      governor, the codec arena, the cache tiers, per-stage latency
-     percentile gauges).
+     percentile gauges, and with their planes armed the SLO burn rates,
+     the cost and utilization families, the read guard's counters; the
+     event-loop lag gauges once the probe has sampled).
   2. The obs registry (obs/histogram.py): fixed-bucket cumulative
      histograms (`imaginary_tpu_request_duration_seconds`,
-     `imaginary_tpu_stage_duration_seconds{stage=}`) and the RED counters
-     per route x status class.
+     `imaginary_tpu_stage_duration_seconds{stage=}`,
+     `imaginary_tpu_event_loop_lag_seconds`) and the RED counters per
+     route x status class.
 
-Families of subsystems the port has not ported (fleet, slo, cost, the
-event loop probe) are absent, as the reference leaves them out when the
-subsystem is off.
+The fleet families belong to the --workers supervisor, which the port
+does not have yet; they are absent, as the reference leaves them out
+when the fleet is off.
 """
 
 from __future__ import annotations
 
 import re
 
+from imaginary_tpu_torch.obs.cost import normalize_label
 from imaginary_tpu_torch.obs.histogram import REGISTRY, escape_label_value
 
 # Occupancy/level metrics mirrored from /health; everything else in the
@@ -92,6 +96,10 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
     qos_classes: dict = {}
     pressure: dict = {}
     arena: dict = {}
+    ingress: dict = {}
+    slo: dict = {}
+    capacity: dict = {}
+    event_loop: dict = {}
     oom_splits = None
     for key, value in stats.items():
         if key == "executor" and isinstance(value, dict):
@@ -129,6 +137,14 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
             pressure = value
         elif key == "arena" and isinstance(value, dict):
             arena = value
+        elif key == "ingress" and isinstance(value, dict):
+            ingress = value
+        elif key == "slo" and isinstance(value, dict):
+            slo = value
+        elif key == "capacity" and isinstance(value, dict):
+            capacity = value
+        elif key == "eventLoop" and isinstance(value, dict):
+            event_loop = value
         elif key == "cache" and isinstance(value, dict):
             # the cache tiers (cache.py): hit/miss/eviction per tier,
             # singleflight coalescing and 304s
@@ -304,6 +320,24 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
                pressure.get("pixel_clamps", 0), mtype="counter",
                help_text="Requests rejected 413 by the critical-rung "
                          "pixel-admission clamp.")
+    if ingress:
+        x.emit("imaginary_tpu_ingress_read_timeouts_total",
+               ingress.get("read_timeouts", 0), mtype="counter",
+               help_text="Connections closed by the --read-timeout guard: a "
+                         "request read stalled past the inactivity window.")
+        x.emit("imaginary_tpu_ingress_guarded_connections_total",
+               ingress.get("guarded_connections", 0), mtype="counter",
+               help_text="Connections accepted under the read-timeout guard.")
+    _render_slo(x, slo)
+    if capacity:
+        _render_capacity(x, capacity)
+    if event_loop:
+        x.emit("imaginary_tpu_event_loop_lag_last_seconds",
+               float(event_loop.get("lagMsLast", 0.0)) / 1000.0,
+               help_text="Most recent event-loop lag probe sample.")
+        x.emit("imaginary_tpu_event_loop_lag_max_seconds",
+               float(event_loop.get("lagMsMax", 0.0)) / 1000.0,
+               help_text="Max event-loop lag observed since start.")
     for labels, v in stage_total:
         x.emit("imaginary_tpu_stage_total", v, labels, mtype="counter",
                help_text="Samples recorded per pipeline stage.")
@@ -315,3 +349,78 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
     # layer 2: request/stage duration histograms + RED counters
     x.lines.extend(REGISTRY.render_lines(exemplars=exemplars))
     return "\n".join(x.lines) + "\n"
+
+
+def _render_slo(x: _Exposition, slo: dict) -> None:
+    """The SLO engine's burn rates and remaining budgets (obs/slo.py),
+    one family at a time so each family's samples stay contiguous."""
+    burn: list = []
+    budget: list = []
+    for route, entry in sorted((slo.get("routes") or {}).items()):
+        rlab = escape_label_value(normalize_label("route", route))
+        for kind in ("availability", "latency"):
+            block = entry.get(kind) or {}
+            for window in ("5m", "1h"):
+                v = block.get(f"burn_{window}")
+                if v is not None:
+                    burn.append((f'route="{rlab}",slo="{kind}",window="{window}"', v))
+            if "budget_remaining" in block:
+                budget.append((f'route="{rlab}",slo="{kind}"', block["budget_remaining"]))
+    for labels, v in burn:
+        x.emit("imaginary_tpu_slo_burn_rate", v, labels,
+               help_text="Error-budget burn rate per route/objective/window "
+                         "(1.0 = spending exactly the budget).")
+    for labels, v in budget:
+        x.emit("imaginary_tpu_slo_error_budget_remaining", v, labels,
+               help_text="Fraction of the error budget left this hour per "
+                         "route/objective (hour-as-period proxy).")
+
+
+_COST_HELP = {
+    "device_ms": "Device milliseconds (each item's share of its measured "
+                 "drain) booked per tenant.",
+    "host_ms": "Host-pool codec milliseconds (probe/decode/encode/host_spill "
+               "spans) booked per tenant.",
+    "wire_bytes": "Device-link bytes (H2D + D2H) booked per tenant.",
+    "copied_bytes": "Host bytes copied (byte-touch ledger) booked per tenant.",
+    "cache_bytes": "Response bytes served from cache hits booked per tenant.",
+    "requests": "Requests booked into the cost ledger per tenant.",
+}
+
+
+def _render_capacity(x: _Exposition, capacity: dict) -> None:
+    """The cost plane's per-tenant counters and the utilization gauges
+    (obs/cost.py); tenant values pass the cardinality normalizer."""
+    tenants = sorted((capacity.get("tenants") or {}).items())
+    for field, help_text in _COST_HELP.items():
+        for tenant, vec in tenants:
+            tlab = escape_label_value(normalize_label("tenant", tenant))
+            x.emit(f"imaginary_tpu_cost_{field}_total", vec.get(field, 0),
+                   f'tenant="{tlab}"', mtype="counter", help_text=help_text)
+    x.emit("imaginary_tpu_cost_folds_total", capacity.get("folds", 0), mtype="counter",
+           help_text="Attribution series folded into the `other` label by the "
+                     "top-K cardinality sketch.")
+    x.emit("imaginary_tpu_cost_booked_total", capacity.get("booked", 0), mtype="counter",
+           help_text="Requests booked into the cost attribution ring.")
+    util = capacity.get("utilization") or {}
+    for kind, v in sorted((util.get("wait_cum_ms") or {}).items()):
+        x.emit("imaginary_tpu_utilization_wait_ms_total", v,
+               f'kind="{escape_label_value(kind)}"', mtype="counter",
+               help_text="Cumulative idle-gap attribution per kind (batch_form|"
+                         "dispatch_wait|link_stall|drain) in milliseconds.")
+    for lane, v in sorted((util.get("lanes") or {}).items()):
+        x.emit("imaginary_tpu_utilization_lane_busy", v,
+               f'lane="{escape_label_value(lane)}"',
+               help_text="Per-lane drain busy fraction over the last scrape "
+                         "delta window.")
+    if "chip_busy" in util:
+        x.emit("imaginary_tpu_utilization_chip_busy", util["chip_busy"],
+               help_text="Mean chip busy fraction (drain wall time) over the "
+                         "last scrape delta window.")
+    if "host_pool" in util:
+        x.emit("imaginary_tpu_utilization_host_pool", util["host_pool"],
+               help_text="Host codec pool occupancy (inflight/workers), instant.")
+    if "link" in util:
+        x.emit("imaginary_tpu_utilization_link", util["link"],
+               help_text="Device-link occupancy over the last scrape delta window "
+                         "(wire MB priced at the live ms/MB EWMA).")

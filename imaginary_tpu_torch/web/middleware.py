@@ -4,7 +4,10 @@ ref: middleware.go:21-245).
 The outermost `trace_middleware` assigns the request identity (and,
 with a qos policy, the tenant), stamps the memory-pressure rung, sheds
 image work with a 503 while the server drains for shutdown, and emits
-Server-Timing, the request-duration histogram and the RED counters.
+Server-Timing, the request-duration histogram and the RED counters; with
+their planes armed it feeds the SLO engine, books the request's cost
+vector, and writes the wide event, which the slow-request ring notes
+whenever tracing is on.
 Inside it, `build_middlewares` composes in the reference's order:
 request validation -> default headers -> cache headers -> API key ->
 CORS -> throttle (keyed by tenant with qos) -> endpoint disabling. The HMAC URL signature
@@ -35,8 +38,12 @@ from imaginary_tpu_torch.errors import (
     ErrURLSignatureMismatch,
     ImageError,
 )
+from imaginary_tpu_torch.obs import cost as obs_cost
+from imaginary_tpu_torch.obs import events as obs_events
 from imaginary_tpu_torch.obs import histogram as obs_hist
+from imaginary_tpu_torch.obs import looplag as obs_looplag
 from imaginary_tpu_torch.obs import trace as obs_trace
+from imaginary_tpu_torch.obs.debugz import SLOW as obs_slow
 from imaginary_tpu_torch.web.config import ServerOptions
 
 # ref: middleware.go:231-238; /metrics is public like /health
@@ -122,7 +129,8 @@ def _route_label(request: web.Request) -> str:
     return canonical or "unmatched"
 
 
-def trace_middleware(o: ServerOptions, qos=None, pressure=None):
+def trace_middleware(o: ServerOptions, qos=None, pressure=None, slo=None, cost=None,
+                     events_out=None):
     """Outermost middleware: request identity and trace lifecycle.
 
     Assigns or propagates X-Request-ID and W3C traceparent and installs
@@ -137,8 +145,14 @@ def trace_middleware(o: ServerOptions, qos=None, pressure=None):
     public paths (/health) keep answering. On the way out it
     echoes X-Request-ID, emits Server-Timing, observes the
     request-duration histogram (with the request's identity as a bucket
-    exemplar when tracing is on) and the RED counters, and writes the
-    deadline's budget, remaining ms and stages into the trace's fields."""
+    exemplar when tracing is on) and the RED counters, feeds the SLO
+    engine (`slo`), books the request's cost vector into the cost plane
+    (`cost`; with tracing off too), stamps the event loop's lag when it
+    passed the threshold, writes the deadline's budget, remaining ms and
+    stages into the trace's fields, and with tracing on builds the wide
+    event: tail-sampled (obs/events.classify), noted in the slow ring
+    with its verdict, and with --wide-events written to `events_out`
+    unless it lost the roll."""
 
     @web.middleware
     async def mw(request: web.Request, handler):
@@ -165,6 +179,7 @@ def trace_middleware(o: ServerOptions, qos=None, pressure=None):
             o.request_timeout_s, request.headers.get("X-Request-Timeout", ""))
         if budget > 0.0:
             tr.deadline = deadline_mod.Deadline(budget)
+        tr.cost = cost
         token = obs_trace.activate(tr)
         t0 = time.monotonic()
         status = 500  # a non-HTTP exception books as a 500
@@ -192,10 +207,36 @@ def trace_middleware(o: ServerOptions, qos=None, pressure=None):
         finally:
             obs_trace.deactivate(token)
             elapsed = time.monotonic() - t0
+            route = _route_label(request)
             obs_hist.REQUEST_SECONDS.observe(
                 elapsed, exemplar=tr.exemplar() if tr.enabled else None
             )
-            obs_hist.REQUESTS_TOTAL.inc((_route_label(request), f"{status // 100}xx"))
+            obs_hist.REQUESTS_TOTAL.inc((route, f"{status // 100}xx"))
+            if slo is not None:
+                slo.observe(route, status, elapsed)
+            if cost is not None and cost.should_book(route):
+                # the executor's and the ledgers' stamps plus the host-pool
+                # ms of the host-stage spans, booked with tracing off too
+                host_ms = tr.span_sum(obs_cost.HOST_STAGES)
+                if host_ms and tr.enabled:
+                    tr.accumulate("cost_host_ms", host_ms)
+                ten = tr.tenant
+                cost.book(
+                    tenant=ten.name if ten is not None else "default",
+                    qos_class=ten.klass if ten is not None else "-",
+                    route=route,
+                    op=route.strip("/").split("/")[-1] or "-",
+                    device_ms=tr.field("cost_device_ms", 0.0),
+                    host_ms=host_ms,
+                    wire_bytes=tr.field("cost_wire_bytes", 0.0),
+                    copied_bytes=tr.field("cost_copied_bytes", 0.0),
+                    cache_bytes=tr.field("cost_cache_bytes", 0.0),
+                )
+            if tr.enabled:
+                # a slow request during a lag spike carries the evidence
+                lag_ms = obs_looplag.last_ms()
+                if lag_ms >= obs_looplag.WIDE_EVENT_THRESHOLD_MS:
+                    tr.annotate(loop_lag_ms=round(lag_ms, 3))
             if resp is not None:
                 resp.headers["X-Request-ID"] = tr.request_id
                 if tr.enabled:
@@ -211,6 +252,22 @@ def trace_middleware(o: ServerOptions, qos=None, pressure=None):
                     deadline_remaining_ms=round(dl.remaining_s() * 1000.0, 1),
                     deadline_stages=dl.stages_dict(),
                 )
+            if tr.enabled:
+                event = tr.to_event(
+                    method=request.method,
+                    route=route,
+                    path=request.path_qs,
+                    status=status,
+                    remote=request.remote or "-",
+                    duration_ms=round(elapsed * 1000.0, 3),
+                    bytes_out=(resp.content_length or 0) if resp is not None else 0,
+                )
+                # classified before the slow ring notes it, so /debugz shows
+                # the verdict the emitted line carries
+                event["sampled_reason"] = obs_events.classify(event, o.wide_events_sample)
+                obs_slow.note(event)
+                if o.wide_events and event["sampled_reason"] != "unsampled":
+                    obs_events.emit(event, events_out)
 
     return mw
 
@@ -238,9 +295,14 @@ def _validate_request(o: ServerOptions):
     @web.middleware
     async def mw(request, handler):
         # GET/POST only (ref: middleware.go:179-187); OPTIONS passes only
-        # for CORS preflight
+        # for CORS preflight, PUT only for the gated failpoint control
+        # (/debugz/failpoints)
         if request.method not in ("GET", "POST") and not (
             request.method == "OPTIONS" and o.cors
+        ) and not (
+            request.method == "PUT"
+            and o.enable_debug
+            and request.path.endswith("/debugz/failpoints")
         ):
             return error_response(request, ErrMethodNotAllowed, o)
         return await handler(request)

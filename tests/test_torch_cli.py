@@ -90,6 +90,16 @@ FLAGS = [
     ("--cache-coalesce", "cache_coalesce", bool, True),
     ("--cache-source-ttl", "cache_source_ttl", float, 60.0),
     ("--cache-source-mb", "cache_source_mb", float, 16.0),
+    # the observability planes, the h2 switch and the read guard
+    ("--wide-events", "wide_events", bool, True),
+    ("--wide-events-sample", "wide_events_sample", float, 0.25),
+    ("--slo-config", "slo_config", str, '{"*": {"latency_ms": 250}}'),
+    ("--enable-debug", "enable_debug", bool, True),
+    ("--cost-attribution", "cost_attribution", bool, True),
+    ("--cost-topk", "cost_topk", int, 7),
+    ("--cost-windows", "cost_windows", str, "30s,5m"),
+    ("--disable-http2", "disable_http2", bool, True),
+    ("--read-timeout", "read_timeout", float, 1.5),
 ]
 IDS = [f[0].lstrip("-") for f in FLAGS]
 # the egress rides on the ingress: set with it in argv and the environment
@@ -269,6 +279,54 @@ def test_cache_options_equal_the_references(argv):
     got = cli.options_from_args(cli.parse_args(argv))
     for field in CACHE_FIELDS:
         assert getattr(got, field) == getattr(want, field), field
+
+
+OBS_FIELDS = ("wide_events", "wide_events_sample", "slo_config", "enable_debug",
+              "cost_attribution", "cost_topk", "cost_windows", "http2", "read_timeout_s")
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["--wide-events", "--wide-events-sample", "0.25", "--slo-config",
+     '{"*": {"latency_ms": 250}}', "--enable-debug", "--cost-attribution",
+     "--cost-topk", "7", "--cost-windows", "30s,5m", "--disable-http2",
+     "--read-timeout", "1.5"],
+    ["--wide-events-sample", "3", "--cost-topk", "0", "--read-timeout", "-2"],
+    ["--wide-events-sample", "-1"],
+], ids=["defaults", "every-flag", "clamped", "clamped-low"])
+def test_observability_options_equal_the_references(argv):
+    """The nine flags map onto ServerOptions as the reference's
+    options_from_args maps them (the sample clamped to [0, 1], the sketch
+    width to >= 1, the read timeout to >= 0, --disable-http2 inverted)."""
+    from imaginary_tpu.cli import build_parser as reference_parser
+    from imaginary_tpu.cli import options_from_args as reference_options
+
+    want = reference_options(reference_parser().parse_args(argv))
+    got = cli.options_from_args(cli.parse_args(argv))
+    for field in OBS_FIELDS:
+        assert getattr(got, field) == getattr(want, field), field
+
+
+def test_enable_debug_reads_the_short_variable(monkeypatch):
+    """IMAGINARY_TPU_DEBUG arms --enable-debug too, as in the reference."""
+    monkeypatch.setenv("IMAGINARY_TPU_DEBUG", "1")
+    assert cli.parse_args([]).enable_debug is True
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--slo-config", "{nope"], "not valid JSON"),
+    (["--slo-config", '{"*": {"latency_target": 1.5}}'], "latency_target"),
+    (["--cost-attribution", "--cost-windows", "10x"], "bad window"),
+    (["--cost-attribution", "--cost-windows", "1m,10s"], "not ascending"),
+], ids=["slo-json", "slo-target", "cost-window", "cost-order"])
+def test_malformed_planes_refuse_the_boot_like_the_reference(argv, message):
+    from imaginary_tpu.cli import build_parser as reference_parser
+    from imaginary_tpu.cli import options_from_args as reference_options
+
+    with pytest.raises(SystemExit, match=message):
+        cli.options_from_args(cli.parse_args(argv))
+    with pytest.raises(SystemExit, match=message):
+        reference_options(reference_parser().parse_args(argv))
 
 
 def test_a_malformed_qos_config_refuses_the_boot():

@@ -498,8 +498,9 @@ def _self_signed(tmp_path):
 class TestTLSConfig:
     """The TLS context pins the reference's config (server.go:114-131):
     TLS >= 1.2, the ECDHE + AES-GCM/ChaCha20 cipher list and, where ssl
-    has set_groups, the X25519/P-256/P-384 curve list; ALPN offers
-    HTTP/1.1 only (h2 is a later slice)."""
+    has set_groups, the X25519/P-256/P-384 curve list; ALPN offers h2
+    beside HTTP/1.1 exactly when the h2 terminator can run (libnghttp2
+    loads and --disable-http2 is off), as the reference's does."""
 
     def test_ssl_context_pins_reference_ciphers(self, tmp_path):
         import ssl
@@ -517,6 +518,41 @@ class TestTLSConfig:
             "ECDHE-ECDSA-AES128-GCM-SHA256", "ECDHE-RSA-AES128-GCM-SHA256",
             "ECDHE-ECDSA-CHACHA20-POLY1305", "ECDHE-RSA-CHACHA20-POLY1305",
         }
+
+    def test_alpn_follows_h2_active(self, tmp_path, monkeypatch):
+        import socket
+        import ssl
+        import threading
+
+        from imaginary_tpu_torch.web import http2
+        from imaginary_tpu_torch.web.app import _h2_active, make_ssl_context
+
+        crt, key = _self_signed(tmp_path)
+
+        def negotiated(o) -> str:
+            client = ssl.SSLContext(ssl.PROTOCOL_TLS_CLIENT)
+            client.check_hostname = False
+            client.verify_mode = ssl.CERT_NONE
+            client.set_alpn_protocols(["h2", "http/1.1"])
+            left, right = socket.socketpair()
+            server = threading.Thread(target=lambda: make_ssl_context(o).wrap_socket(
+                left, server_side=True).close())
+            server.start()
+            try:
+                with client.wrap_socket(right) as c:
+                    return c.selected_alpn_protocol()
+            finally:
+                server.join(timeout=10)
+                left.close()
+                right.close()
+
+        for http2_on in (True, False):
+            o = opts(cert_file=str(crt), key_file=str(key), http2=http2_on)
+            want = "h2" if _h2_active(o) else "http/1.1"
+            assert negotiated(o) == want
+        monkeypatch.setattr(http2, "load_nghttp2", lambda: None)
+        o = opts(cert_file=str(crt), key_file=str(key))
+        assert not _h2_active(o) and negotiated(o) == "http/1.1"
 
     def test_no_tls_without_both_files(self):
         from imaginary_tpu_torch.web.app import make_ssl_context
@@ -545,7 +581,8 @@ class TestTLSConfig:
         assert _pin_groups(ctx) is (sys.version_info >= (3, 13))
 
     def test_make_server_serves_https(self, tmp_path):
-        """The runner serves the same app over TLS (HTTP/1.1 by ALPN)."""
+        """The runner serves the same app over TLS (HTTP/1.1 to a client
+        that offers no h2)."""
         import ssl
         import threading
         import urllib.request

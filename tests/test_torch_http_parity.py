@@ -17,8 +17,8 @@ What may differ, and why:
   port {imaginary_tpu_torch, torch, backend} (each names its own stack;
   the keys' count and `backend` agree);
 - `/health`'s body: live runtime values. The port's keys hold every key
-  of the reference's but the block of a module not ported yet
-  (`eventLoop`); with `--qos-config` and `--pressure-rss-mb` armed (the
+  of the reference's (`eventLoop` too, once each app's loop-lag probe has
+  sampled); with `--qos-config` and `--pressure-rss-mb` armed (the
   `admission` group) the `qos`, `pressure` and `arena` blocks have the
   reference's keys and the executor's keys are a subset of its; with
   every cache tier armed (the `cache` group) the `cache` block has the
@@ -344,7 +344,7 @@ def _timing_names(headers: dict) -> list:
 
 
 EXECUTOR_SPANS = ("batch_form", "dispatch_wait", "drain")
-UNPORTED_HEALTH_KEYS = {"eventLoop"}
+UNPORTED_HEALTH_KEYS: set = set()
 CACHE_COUNTS = ("result_hits", "result_misses", "frame_hits", "frame_misses",
                 "device_hits", "device_misses", "flight_executed", "etag_304")
 

@@ -548,6 +548,10 @@ def test_import_leaves_jax_and_the_reference_out():
         "import imaginary_tpu_torch.web.app, imaginary_tpu_torch.kernels\n"
         "import imaginary_tpu_torch.cli, imaginary_tpu_torch.ops.chain\n"
         "import imaginary_tpu_torch.engine.executor\n"
+        "import imaginary_tpu_torch.obs.events, imaginary_tpu_torch.obs.debugz\n"
+        "import imaginary_tpu_torch.obs.slo, imaginary_tpu_torch.obs.cost\n"
+        "import imaginary_tpu_torch.obs.looplag, imaginary_tpu_torch.web.http2\n"
+        "import imaginary_tpu_torch.web.ingress\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'imaginary_tpu' or m.startswith('imaginary_tpu.'))\n"
         "print(','.join(bad))\n"
