@@ -402,6 +402,30 @@ Phases, in order; any failure raises and exits non-zero:
    beside the profiler's card time a request. The launches of every
    request of the phase are the kernels line's `launches_obs`.
 
+20. the single-host fleet: `python -m imaginary_tpu_torch.cli --workers 2
+   --device cuda:0`, every worker a process with its own CUDA context on
+   the card: (a) one process (`ServerProcess`) and then the two-worker
+   fleet each take config 1 (20 one at a time on the fleet, one window of
+   16 clients on each; req/s printed, no claim), every answer byte-equal
+   to phase 4's; both workers' /health show cuda:0, K1-K4 launched and
+   no host placement; nvidia-smi lists two contexts more than before the
+   fleet (checked by pid where it names this namespace's pids), each
+   worker maps the card and the supervisor neither maps it nor holds
+   /dev/nvidia-uvm (it counts the cards through NVML); the card's used memory
+   (cudaMemGetInfo) over this process's gives what a worker costs, and
+   what --workers 0 would hold; (b) SIGHUP rolls both workers while
+   config 1 runs one request at a time: every answer 200 and byte-equal,
+   both epochs advanced; (c) a SIGKILLed worker comes back at a new
+   epoch and answers byte-equal; (d) with --fleet-cache-mb 64
+   --fleet-coherence --fleet-qos --fleet-admin-port, both workers warmed
+   on other digests (a cold owner's first launch outlasts the hop's
+   250 ms, and its sibling then runs locally): config 1 x 12
+   launches K1-K4 once fleet-wide while both workers serve shm hits, 16
+   digests move the forward hop's and the claims' counters, and /fleetz
+   and the merged /metrics list both workers. The workers count their
+   own launches: the kernels line's `launches_fleet` sums each worker
+   incarnation's kernelLaunches as its /health last read them.
+
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -7776,6 +7800,508 @@ def obs_phase(smi: str) -> dict:
     return out
 
 
+# -- phase 20: the single-host fleet ------------------------------------------
+
+FLEET_SERIAL = 20  # (a): config 1, one request at a time
+FLEET_CLIENTS, FLEET_PER_CLIENT = 16, 8  # (a): one window a server
+FLEET_BOOT_S = 180  # every worker of a fleet answering /health
+FLEET_ROLL_S = 180  # (b): both replacements answering at their new epochs
+FLEET_ROLL_GRACE = "1"  # (b): --fleet-roll-grace
+FLEET_ROLL_TAIL_S = 3.0  # (b): serial requests after the roll's last epoch
+FLEET_RESPAWN_S = 120  # (c): the killed index answering at a new epoch
+FLEET_FORWARD_WIDTHS = range(301, 317)  # (d): sixteen digests for the forward hop
+FLEET_SHM_REQUESTS = 12  # (d): config 1 on the shm tier
+
+
+def compute_apps():
+    """[(pid, used MiB)] of the card's compute processes, one a CUDA
+    context, from nvidia-smi; None where nvidia-smi is absent."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=30).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    apps = []
+    for line in out.splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit():
+            try:
+                apps.append((int(parts[0]), float(parts[1])))
+            except ValueError:
+                apps.append((int(parts[0]), None))
+    return apps
+
+
+def device_used_mib():
+    """The card's used memory in MiB, every process's (cudaMemGetInfo from
+    this process); None on the CPU."""
+    if DEVICE == "cpu":
+        return None
+    import torch
+
+    free, total = torch.cuda.mem_get_info(0)
+    return (total - free) / 2**20
+
+
+def maps_card(pid: int) -> bool:
+    """Whether process `pid` maps the card's device files, as a process
+    with a CUDA context does (importing torch maps libcuda, and counting
+    the cards opens the device files, but neither maps them)."""
+    with open(f"/proc/{pid}/maps") as f:
+        return any("/dev/nvidia" in line for line in f)
+
+
+def opens_uvm(pid: int) -> bool:
+    """Whether process `pid` holds /dev/nvidia-uvm open, as a process
+    that initialised the CUDA driver does."""
+    for fd in os.listdir(f"/proc/{pid}/fd"):
+        try:
+            if os.readlink(f"/proc/{pid}/fd/{fd}") == "/dev/nvidia-uvm":
+                return True
+        except OSError:
+            continue
+    return False
+
+
+def fleet_device() -> str:
+    return "cuda:0" if DEVICE == "cuda" else DEVICE
+
+
+class FleetProcess:
+    """`python -m imaginary_tpu_torch.cli --workers N` on 127.0.0.1: the
+    supervisor and its workers, their output in chip_smoke_out/<name>.out
+    and .err. `latest` keeps each worker incarnation's (index, epoch) last
+    /health read, whose kernelLaunches are that process's launches."""
+
+    def __init__(self, name: str, workers: int, args: list):
+        self.name = name
+        self.workers = workers
+        self.port = free_port()
+        self.latest: dict = {}
+        os.makedirs(OUT_DIR, exist_ok=True)
+        self.out_path = os.path.join(OUT_DIR, f"{name}.out")
+        self.err_path = os.path.join(OUT_DIR, f"{name}.err")
+        self._out = open(self.out_path, "w")
+        self._err = open(self.err_path, "w")
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "imaginary_tpu_torch.cli", "--workers", str(workers),
+             "--addr", "127.0.0.1", "--port", str(self.port), "--device", fleet_device(),
+             "--log-level", "error", "--mount", TESTDATA] + args,
+            cwd=ROOT, stdout=self._out, stderr=self._err)
+        try:
+            self.boot = self.wait_workers(FLEET_BOOT_S)
+        except BaseException:
+            self.stop()
+            raise
+        self.boot_s = time.perf_counter() - t0
+
+    def health(self) -> dict:
+        h = json.loads(http_get(self.port, "/health")[2])
+        self.latest[(h["worker"], h["epoch"])] = h
+        return h
+
+    def wait_workers(self, seconds: float, newer_than=None) -> dict:
+        """{index: /health} once every worker index has answered (each at
+        an epoch above newer_than[index] where given)."""
+        seen: dict = {}
+        deadline = time.monotonic() + seconds
+        while time.monotonic() < deadline:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{self.name}: the supervisor exited "
+                                     f"{self.proc.returncode}: {self.stderr()[-2000:]}")
+            try:
+                h = self.health()
+            except (OSError, ValueError):
+                time.sleep(0.1)
+                continue
+            w = h["worker"]
+            if newer_than is None or h["epoch"] > newer_than.get(w, 0):
+                seen[w] = h
+            if len(seen) == self.workers:
+                return seen
+        raise AssertionError(f"{self.name}: workers {sorted(seen)} of {self.workers} "
+                             f"answered in {seconds} s")
+
+    def stderr(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()
+
+    def launches(self) -> dict:
+        import collections
+
+        total: collections.Counter = collections.Counter()
+        for h in self.latest.values():
+            total.update(h["kernelLaunches"])
+        return dict(total)
+
+    def stop(self) -> None:
+        import signal
+
+        if self.proc.poll() is None:
+            try:  # each worker's last launches, before the drain
+                self.wait_workers(10)
+            except (AssertionError, OSError):
+                pass
+        pids = {h["pid"] for h in self.latest.values()}
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(timeout=40)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=30)
+        for pid in pids:  # no worker outlives the phase
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        self._out.close()
+        self._err.close()
+
+
+def fleet_window(port: int, buf: bytes, want: bytes) -> float:
+    """req/s of FLEET_CLIENTS clients x FLEET_PER_CLIENT config 1 requests,
+    each answer byte-equal to `want`."""
+    errors: list = []
+
+    def client():
+        try:
+            for _ in range(FLEET_PER_CLIENT):
+                status, ctype, body = http(port, CONFIG1_PATH, buf)
+                if (status, ctype, body) != (200, "image/jpeg", want):
+                    raise AssertionError(f"config 1 answered {status} {ctype}, "
+                                         f"byte-equal {body == want}")
+        except Exception as e:  # re-raised below, in the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=client) for _ in range(FLEET_CLIENTS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    return FLEET_CLIENTS * FLEET_PER_CLIENT / wall
+
+
+def fleet_serial(port: int, buf: bytes, want: bytes, n: int) -> list:
+    lat = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        status, ctype, body = http(port, CONFIG1_PATH, buf)
+        lat.append((time.perf_counter() - t0) * 1e3)
+        if (status, ctype, body) != (200, "image/jpeg", want):
+            raise AssertionError(f"config 1 answered {status} {ctype}, "
+                                 f"byte-equal {body == want}")
+    return lat
+
+
+def host_placements(h: dict) -> int:
+    ex = h["executor"]
+    return (ex["spilled"] + ex["breaker_host_served"] + ex["hedges"]["launched"]
+            + ex.get("pressure_host_forced", 0))
+
+
+def fleet_two_case(fleet: FleetProcess, single: dict, buf: bytes, want: bytes,
+                   smi: str, base_mib, base_apps) -> dict:
+    """(a): the two-worker fleet against one process on config 1."""
+    serial = fleet_serial(fleet.port, buf, want, FLEET_SERIAL)
+    rps = fleet_window(fleet.port, buf, want)
+    seen = fleet.wait_workers(30)
+    workers = {}
+    for w, h in sorted(seen.items()):
+        launched = {k: h["kernelLaunches"][k] for k in CONFIG1_KERNELS}
+        if h["device"] != fleet_device():
+            raise AssertionError(f"worker {w} serves on {h['device']}")
+        if DEVICE != "cpu" and min(launched.values()) <= 0:
+            raise AssertionError(f"worker {w} launched {launched}")
+        if host_placements(h):
+            raise AssertionError(f"worker {w} placed work on the host: {h['executor']}")
+        workers[w] = {"pid": h["pid"], "epoch": h["epoch"], "device": h["device"],
+                      "launches": launched, "items": h["executor"]["items"],
+                      "allocated_device_mb": h.get("allocatedDeviceMb")}
+    apps = compute_apps()
+    used = device_used_mib()
+    memory = {"compute_apps": apps, "base_apps": base_apps, "device_used_mib": used,
+              "base_mib": base_mib}
+    if DEVICE != "cpu":
+        if apps is None:
+            raise AssertionError("nvidia-smi's compute apps are unreadable")
+        # nvidia-smi names processes by the pids of its own namespace;
+        # where they are not this one's, the count of contexts over this
+        # process's own, and each process's mappings of the card, tell who
+        # holds a context, and the card's used memory what the two
+        # workers hold between them
+        pids = {pid for pid, _ in apps}
+        memory["pid_namespace_matches"] = os.getpid() in pids
+        for w, rec in workers.items():
+            if memory["pid_namespace_matches"]:
+                rec["used_mib"] = dict(apps).get(rec["pid"])
+                if not rec["used_mib"]:
+                    raise AssertionError(f"worker {w} (pid {rec['pid']}) is not a compute "
+                                         f"app with device memory: {apps}")
+            if not maps_card(rec["pid"]):
+                raise AssertionError(f"worker {w} (pid {rec['pid']}) maps no card")
+        sup = fleet.proc.pid
+        if (memory["pid_namespace_matches"] and sup in pids) or maps_card(sup) \
+                or opens_uvm(sup):
+            raise AssertionError(f"the supervisor (pid {sup}) initialised CUDA: {apps}")
+        if len(apps) != len(base_apps) + 2:
+            raise AssertionError(f"{len(apps)} contexts on the card with the fleet up, "
+                                 f"{len(base_apps)} before it: {apps}")
+        memory["per_worker_mib"] = (used - base_mib) / 2
+        memory["workers_0_contexts"] = os.cpu_count() or 1
+        memory["workers_0_mib"] = (os.cpu_count() or 1) * memory["per_worker_mib"]
+    out = {"serial_ms": serial, "serial_p50_ms": statistics.median(serial), "rps": rps,
+           "single_rps": single["rps"], "workers": workers, "memory": memory,
+           "boot_s": fleet.boot_s}
+    log(f"  (a) 2 workers: config 1 x {FLEET_SERIAL} p50 {out['serial_p50_ms']:.2f} ms, "
+        f"{FLEET_CLIENTS} clients {rps:.1f} req/s; one process {single['rps']:.1f} req/s "
+        f"(one window each, no claim)  [{smi}]")
+    for w, rec in workers.items():
+        log(f"      worker {w}: pid {rec['pid']} epoch {rec['epoch']} on {rec['device']}, "
+            f"launches {rec['launches']}, items {rec['items']}, "
+            f"device memory {rec.get('used_mib')} MiB")
+    if "per_worker_mib" in memory:
+        log(f"      the supervisor holds no context; the card's used memory rose "
+            f"{used - base_mib:.0f} MiB for the two loaded workers, "
+            f"{memory['per_worker_mib']:.0f} MiB a worker; --workers 0 here would be "
+            f"{memory['workers_0_contexts']} contexts, ~{memory['workers_0_mib']:.0f} MiB; "
+            f"nvidia-smi's compute apps {apps} (before the fleet: {base_apps})")
+    return out
+
+
+def fleet_roll_case(fleet: FleetProcess, buf: bytes, want: bytes) -> dict:
+    """(b): SIGHUP rolls both workers while config 1 runs one request at a
+    time; every answer is 200 and byte-equal, and both epochs advance."""
+    import signal
+
+    before = {w: h["epoch"] for w, h in fleet.wait_workers(30).items()}
+    stop = threading.Event()
+    answers: list = []
+
+    def serial():
+        while not stop.is_set():
+            try:
+                status, _, body = http_get(fleet.port, CONFIG1_PATH,
+                                           {"Content-Type": "image/jpeg"}, "POST", buf)
+                answers.append((status, body == want))
+            except OSError as e:
+                answers.append((repr(e), False))
+
+    th = threading.Thread(target=serial)
+    th.start()
+    t0 = time.perf_counter()
+    try:
+        time.sleep(0.5)
+        fleet.proc.send_signal(signal.SIGHUP)
+        after = fleet.wait_workers(FLEET_ROLL_S, newer_than=before)
+        roll_s = time.perf_counter() - t0
+        time.sleep(FLEET_ROLL_TAIL_S)
+    finally:
+        stop.set()
+        th.join(timeout=130)
+    bad = [a for a in answers if a != (200, True)]
+    epochs = {w: h["epoch"] for w, h in after.items()}
+    out = {"before": before, "after": epochs, "answers": len(answers), "bad": bad[:10],
+           "roll_s": roll_s}
+    log(f"  (b) SIGHUP: epochs {before} -> {epochs} in {roll_s:.1f} s; {len(answers)} serial "
+        f"answers, {len(bad)} not 200 and byte-equal")
+    if bad:
+        raise AssertionError(f"the roll answered {bad[:10]}")
+    if not all(epochs[w] > before[w] for w in before):
+        raise AssertionError(f"the epochs did not advance: {before} -> {epochs}")
+    return out
+
+
+def fleet_respawn_case(fleet: FleetProcess, buf: bytes, want: bytes) -> dict:
+    """(c): SIGKILL one worker; its index answers again at a new epoch,
+    launches its own kernels and answers byte-equal."""
+    import signal
+
+    victim = fleet.health()
+    idx, pid, epoch = victim["worker"], victim["pid"], victim["epoch"]
+    t0 = time.perf_counter()
+    os.kill(pid, signal.SIGKILL)
+    back = fleet.wait_workers(FLEET_RESPAWN_S, newer_than={idx: epoch, 1 - idx: -1})[idx]
+    respawn_s = time.perf_counter() - t0
+    deadline = time.monotonic() + 60
+    served = 0
+    while True:
+        fleet_serial(fleet.port, buf, want, 2)
+        served += 2
+        h = fleet.health()
+        if h["worker"] == idx and h["epoch"] == back["epoch"] and (
+                DEVICE == "cpu" or h["kernelLaunches"]["resample"] > 0):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError(f"worker {idx} at epoch {back['epoch']} never served config 1")
+    out = {"index": idx, "old_pid": pid, "old_epoch": epoch, "pid": back["pid"],
+           "epoch": back["epoch"], "respawn_s": respawn_s, "requests": served}
+    log(f"  (c) SIGKILL worker {idx} (pid {pid}, epoch {epoch}): back as pid {back['pid']} at "
+        f"epoch {back['epoch']} in {respawn_s:.1f} s, {served} answers byte-equal")
+    return out
+
+
+def fleet_planes_case(fleet: FleetProcess, admin_port: int, buf: bytes, want: bytes) -> dict:
+    """(d): the shm tier, the forward hop, the claims and the admin plane."""
+    from imaginary_tpu_torch import codecs
+
+    def workers_now():
+        return fleet.wait_workers(30)
+
+    # each worker's first launch loads its kernels and its allocator's
+    # first blocks, longer than the hop's budget: a cold owner makes its
+    # siblings fall back to a local run. Warm both on other digests first
+    deadline = time.monotonic() + 60
+    warm = 0
+    while True:
+        start = workers_now()
+        if DEVICE == "cpu" or min(h["kernelLaunches"]["resample"] for h in start.values()):
+            break
+        if time.monotonic() > deadline:
+            raise AssertionError("a worker of the planes fleet never launched")
+        http(fleet.port, f"/resize?width={280 + warm % 16}&height=200", buf)
+        warm += 1
+    base = {w: dict(h["kernelLaunches"]) for w, h in start.items()}
+    fleet_serial(fleet.port, buf, want, FLEET_SHM_REQUESTS)
+    mid = workers_now()
+    computed = {w: {k: mid[w]["kernelLaunches"][k] - base[w][k] for k in CONFIG1_KERNELS}
+                for w in mid}
+    hits = {w: mid[w]["fleet"]["hits"] for w in mid}
+    total = {k: sum(c[k] for c in computed.values()) for k in CONFIG1_KERNELS}
+    if DEVICE != "cpu" and total != {k: 1 for k in CONFIG1_KERNELS}:
+        raise AssertionError(f"config 1 x {FLEET_SHM_REQUESTS} launched {computed}, not once")
+    if min(hits.values()) < 1:
+        raise AssertionError(f"not every worker served from the shm tier: {hits}")
+    for width in FLEET_FORWARD_WIDTHS:
+        status, ctype, body = http(fleet.port, f"/resize?width={width}&height=200", buf)
+        if status != 200 or codecs.decode(body).array.shape[:2] != (200, width):
+            raise AssertionError(f"/resize?width={width}: {status} {ctype}")
+    end = workers_now()
+    coh = {w: h["fleet"]["coherence"] for w, h in end.items()}
+    claims = {w: h["fleet"]["claims_won"] for w, h in end.items()}
+    forwards = sum(c["forwards"] for c in coh.values())
+    served = sum(c["serve_forwarded"] for c in coh.values())
+    if forwards < 1 or served < 1 or sum(claims.values()) < 1:
+        raise AssertionError(f"the hop or the claims did not move: {coh}, claims {claims}")
+    owners = {c["device_owner"] for c in coh.values()}
+    fleetz = json.loads(http_get(admin_port, "/fleetz")[2])
+    listed = {w for w, rec in fleetz["workers"].items()
+              if rec.get("health") is not None and not rec["stale"]}
+    metrics = http_get(admin_port, "/metrics?per_worker=1")[2].decode()
+    labelled = {w for w in ("0", "1") if f'worker="{w}"' in metrics}
+    if listed != {"0", "1"} or labelled != {"0", "1"}:
+        raise AssertionError(f"/fleetz lists {listed}, the merged /metrics {labelled}")
+    merged = http_get(admin_port, "/metrics")[2].decode()
+    out = {"warm_requests": warm, "computed": computed, "shm_hits": hits, "coherence": coh,
+           "claims_won": claims,
+           "device_owner": sorted(owners), "fleetz_workers": sorted(listed),
+           "metrics_workers": sorted(labelled),
+           "merged_families": sum(1 for ln in merged.splitlines() if ln.startswith("# TYPE"))}
+    log(f"  (d) after {warm} warming requests, config 1 x {FLEET_SHM_REQUESTS}: launches by "
+        f"worker {computed}, shm hits "
+        f"{hits}; {len(FLEET_FORWARD_WIDTHS)} digests: forwards {forwards}, served for a "
+        f"sibling {served}, claims won {claims}; device owner {sorted(owners)}; /fleetz and "
+        f"the merged /metrics list workers {sorted(listed)}")
+    return out
+
+
+def booting(make):
+    """Run make() on a thread; the returned join() gives its result, or
+    raises its error."""
+    box: dict = {}
+
+    def run():
+        try:
+            box["value"] = make()
+        except BaseException as e:  # re-raised by join, in the caller's thread
+            box["error"] = e
+
+    th = threading.Thread(target=run)
+    th.start()
+
+    def join():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["value"]
+
+    return join
+
+
+def fleet_phase(smi: str) -> dict:
+    """Phase 20 (see the module docstring): the --workers supervisor and
+    the single-host fleet on the card. Each fleet boots while the work
+    before it runs: the two-worker fleet beside the one process, the
+    planes' fleet during (c)."""
+    import collections
+
+    t0 = time.perf_counter()
+    with open(LARGE_JPG, "rb") as f:
+        buf = f.read()
+    want = PHASE4_ANSWERS.get("resize")
+    if want is None:
+        raise AssertionError("phase 4's config 1 answer is missing")
+    launches: collections.Counter = collections.Counter()
+    out = {}
+    if DEVICE != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # this process's share stays put from here
+    base_mib, base_apps = device_used_mib(), compute_apps()
+    admin = free_port()
+    # boots in flight; each is popped before it is joined (a boot that
+    # fails stops its own processes)
+    pending = {"two": booting(lambda: FleetProcess("fleet_two", 2, [
+        "--fleet-roll-grace", FLEET_ROLL_GRACE]))}
+    fleet = planes = None
+    try:
+        single = ServerProcess("fleet_single", [])
+        try:
+            fleet_serial(single.port, buf, want, 2)
+            rec = {"rps": fleet_window(single.port, buf, want), "pid": single.proc.pid}
+            launches.update(single.health()["kernelLaunches"])
+        finally:
+            single.stop()
+        fleet = pending.pop("two")()
+        out["two"] = fleet_two_case(fleet, rec, buf, want, smi, base_mib, base_apps)
+        out["roll"] = fleet_roll_case(fleet, buf, want)
+        pending["planes"] = booting(lambda: FleetProcess("fleet_planes", 2, [
+            "--fleet-cache-mb", "64", "--fleet-coherence", "--fleet-qos",
+            "--fleet-admin-port", str(admin)]))
+        out["respawn"] = fleet_respawn_case(fleet, buf, want)
+        fleet.stop()
+        launches.update(fleet.launches())
+        fleet = None
+        planes = pending.pop("planes")()
+        out["planes"] = fleet_planes_case(planes, admin, buf, want)
+    finally:
+        for join in pending.values():  # a boot still running when a step failed
+            try:
+                join().stop()
+            except Exception as e:  # the step's own error is the one raised
+                log(f"  a fleet's boot failed too: {e}")
+        for proc in (fleet, planes):
+            if proc is not None:
+                proc.stop()
+                launches.update(proc.launches())
+    out["launches"] = {k: launches.get(k, 0) for k in KERNEL_ROWS}
+    if DEVICE != "cpu":
+        for name in CONFIG1_KERNELS:
+            if out["launches"][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched in phase 20")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  launches (every worker's /health): {out['launches']}; phase 20: "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7904,6 +8430,10 @@ def main() -> int:
     log("== phase 19: the observability planes on the card (wide events, the SLO engine, "
         "the cost and capacity plane, /debugz/profile, the armed latency, h2, --read-timeout)")
     report["obs"] = obs_phase(smi)
+    log("== phase 20: the single-host fleet on the card (--workers 2 against one process, "
+        "a SIGHUP roll, a SIGKILLed worker, the shm tier, the forward hop, the claims and "
+        "the admin plane)")
+    report["fleet"] = fleet_phase(smi)
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -7942,6 +8472,7 @@ def main() -> int:
             "launches_mesh": report["mesh"]["launches"][name],
             "launches_vector": report["vector"]["launches"][name],
             "launches_obs": report["obs"]["launches"][name],
+            "launches_fleet": report["fleet"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

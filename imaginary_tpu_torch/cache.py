@@ -30,8 +30,10 @@ handler's `Vary: Accept` promises). Any byte change in the source changes
 the digest and therefore misses — there is no invalidation protocol to get
 wrong.
 
-The reference's fleet shm tier (`attach_shm`, `shm_lookup`, `shm_store`)
-is not ported: `CacheSet.shm` stays None.
+The fleet shm tier (`attach_shm`, `shm_lookup`, `shm_store`, over
+fleet/shmcache.py) sits behind the local result LRU: every worker of a
+`--workers N` server spells a request's slot key the same way
+(`shared_key`), so a result one worker computed serves its siblings.
 """
 
 from __future__ import annotations
@@ -293,8 +295,7 @@ class CacheSet:
             ttl_s=source_ttl_s, on_evict=_ev("source_evictions"))
         self.coalesce = bool(coalesce)
         self.flight = Singleflight(stats=s)
-        # the fleet shm tier (the reference's fleet/shmcache.py) is not
-        # ported: None keeps `keyed` the reference's formula
+        # the fleet shm tier (fleet/shmcache.py), None until attach_shm
         self.shm = None
         # pristine budgets, restored when pressure recedes (the brownout
         # ladder below mutates the live ones)
@@ -348,10 +349,56 @@ class CacheSet:
             device_mb=getattr(o, "cache_device_mb", 0.0),
         )
 
+    def attach_shm(self, shm) -> None:
+        self.shm = shm
+
     @property
     def keyed(self) -> bool:
         """Whether any tier needs the content-addressed request key."""
         return self.result.enabled or self.coalesce or self.shm is not None
+
+    # -- fleet shm tier (local LRU -> shm tiered result lookup) ----------
+
+    def shm_lookup(self, key: tuple):
+        """(ProcessedImage, placement) from the fleet tier, or None.
+        Checksum-verified by the tier itself; any failure (a corrupt
+        entry, unparseable meta, a tier error) degrades to a miss, never
+        to a failed request (the cache.get failpoint contract)."""
+        if self.shm is None:
+            return None
+        try:
+            got = self.shm.get(shared_key(key))
+        except Exception:
+            got = None  # a failing tier reads as a miss (see ByteBudgetLRU.get)
+        if got is None:
+            return None
+        meta, body = got
+        try:
+            mime, _, placement = meta.decode("utf-8").partition("\n")
+        except UnicodeDecodeError:
+            return None
+        from imaginary_tpu_torch.pipeline import ProcessedImage
+
+        return ProcessedImage(body=body, mime=mime), placement
+
+    def shm_store(self, key: tuple, out, placement: str) -> None:
+        """Best-effort deposit: a refused publish (fenced, oversize,
+        contended, injected fault) costs a future miss, nothing else."""
+        if self.shm is None:
+            return
+        meta = (out.mime + "\n" + (placement or "")).encode("utf-8")
+        try:
+            if not self.shm.put(shared_key(key), meta, out.body) and self.shm.fenced():
+                # a deposed worker still serving: stamp the trace, so the
+                # wide event is kept ("fenced", obs/events.classify) and
+                # the zombie window is attributable per request
+                tr = obs_trace.current()
+                if tr is not None:
+                    tr.annotate(fenced_publish=True)
+        except Exception:
+            # the deposit is advisory: the answer was already produced and
+            # ships regardless (an injected fleet.write timeout lands here)
+            self.shm.stats.publish_contended += 1
 
     def to_dict(self) -> dict:
         """Executor.stats()-style reporting for /health and /metrics."""

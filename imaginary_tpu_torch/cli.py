@@ -14,7 +14,8 @@ torch.profiler trace of the whole serving run, of the card's activity
 too on a CUDA device, exported there at exit. The
 server runs on the card: without CUDA it refuses to start unless
 `--device cpu` asks for the CPU, and `--require-device` refuses anything
-but a CUDA device.
+but a CUDA device. `--workers N` makes this process the supervisor of N
+serving processes on one port (web/workers.py), each on the same device.
 """
 
 from __future__ import annotations
@@ -190,6 +191,51 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env_str("IMAGINARY_TPU_COST_WINDOWS", "10s,1m,5m"),
                    help="cost rollup windows over the 1s ring: ascending CSV "
                         "of <n>s/<n>m spans (max 6, each <= 1h)")
+    p.add_argument("--workers", type=int,
+                   default=_env_int("IMAGINARY_TPU_WORKERS", 1),
+                   help="serving processes on one port through SO_REUSEPORT "
+                        "under a supervisor (0 = one per CPU core); every "
+                        "worker serves on --device with its own CUDA "
+                        "context, and --require-device holds for each")
+    p.add_argument("--fleet-cache-mb", type=float,
+                   default=_env_float("IMAGINARY_TPU_FLEET_CACHE_MB", 0.0),
+                   help="byte budget in MB for the crash-safe mmap result "
+                        "cache shared by all local workers (sealed "
+                        "checksummed entries, torn-write detection, "
+                        "worker fencing by epochs); 0 disables the fleet "
+                        "data plane")
+    p.add_argument("--fleet-roll-grace", type=float,
+                   default=_env_float("IMAGINARY_TPU_FLEET_ROLL_GRACE", 5.0),
+                   help="SIGHUP rolling restart: seconds an old worker keeps "
+                        "finishing in-flight work after its replacement "
+                        "answers and it stops accepting, before SIGTERM "
+                        "starts its drain")
+    p.add_argument("--fleet-coherence", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_FLEET_COHERENCE"),
+                   help="rendezvous digest ownership with a local forward "
+                        "hop, fleet-wide singleflight through the shm claim "
+                        "table, and the device-owner rule (the lanes, the "
+                        "mesh and the device frame tier on one worker); "
+                        "requires --fleet-cache-mb > 0; every fault of the "
+                        "owner path falls back to local work")
+    p.add_argument("--fleet-hop-ms", type=float,
+                   default=_env_float("IMAGINARY_TPU_FLEET_HOP_MS", 250.0),
+                   help="the forward hop's budget in ms (clamped by the "
+                        "request deadline) before a non-owner runs the "
+                        "request itself")
+    p.add_argument("--fleet-qos", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_FLEET_QOS"),
+                   help="enforce per-tenant GCRA rates and queue-share caps "
+                        "across the fleet through the shm qos table; "
+                        "requires --fleet-cache-mb > 0; a shared-table "
+                        "fault falls back to each worker's own limits")
+    p.add_argument("--fleet-admin-port", type=int,
+                   default=_env_int("IMAGINARY_TPU_FLEET_ADMIN_PORT", 0),
+                   help="the supervisor's admin plane on 127.0.0.1: /metrics "
+                        "(the fleet's merged exposition, counters monotonic "
+                        "across respawns) and /fleetz (each worker's epoch, "
+                        "restarts, liveness and /health); 0 disables; "
+                        "meaningful only with --workers > 1")
     p.add_argument("--read-timeout", type=float,
                    default=_env_float("IMAGINARY_TPU_READ_TIMEOUT", 0.0),
                    help="close a connection whose request read (headers or "
@@ -230,7 +276,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--pressure-hbm-mb", type=float,
                    default=_env_float("IMAGINARY_TPU_PRESSURE_HBM_MB", 0.0),
                    help="estimated device-memory budget in MB (fed by the "
-                        "executor's owed wire-byte ledger); 0 skips the "
+                        "executor's owed wire-byte ledger); per process: "
+                        "under --workers each worker reads its own ledger, "
+                        "while the card's memory is shared; 0 skips the "
                         "device signal")
     p.add_argument("--pressure-elevated-frac", type=float,
                    default=_env_float("IMAGINARY_TPU_PRESSURE_ELEVATED_FRAC", 0.75),
@@ -346,9 +394,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh-hosts", type=int,
                    default=_env_int("IMAGINARY_TPU_MESH_HOSTS", 0),
                    help="join an N-process group at serving boot (requires "
-                        "--coordinator-address and --process-id); each "
-                        "process serves on its own devices with one worker "
-                        "(the port has no --workers); <=1 = off")
+                        "--coordinator-address, --process-id and --workers "
+                        "1); each process serves on its own devices; "
+                        "<=1 = off")
     p.add_argument("--lane-form-ms", type=float,
                    default=_env_float("IMAGINARY_TPU_LANE_FORM_MS", -1.0),
                    help="per-lane batch-formation cap in ms (negative = "
@@ -482,6 +530,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     return args
 
 
+def _resolve_workers(n: int) -> int:
+    if n == 0:  # one per core
+        return max(1, os.cpu_count() or 1)
+    return max(1, n)
+
+
 def options_from_args(args: argparse.Namespace) -> ServerOptions:
     """ServerOptions from the parsed flags, with the reference's boot
     checks (imaginary.go:196-229); a failed check exits."""
@@ -507,14 +561,21 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         raise SystemExit(f"mount directory does not exist: {args.mount}")
     if args.http_cache_ttl < -1 or args.http_cache_ttl > 31556926:
         raise SystemExit("The -http-cache-ttl flag only accepts a value from 0 to 31556926")
+    if (args.fleet_coherence or args.fleet_qos) and args.fleet_cache_mb <= 0:
+        # the claim and qos tables live in the shared cache file
+        raise SystemExit(
+            "--fleet-coherence/--fleet-qos require --fleet-cache-mb > 0 "
+            "(the ownership/claim/qos tables live in the shared cache file)")
     if args.mesh_hosts > 1:
-        # the reference's checks (cli.py:702-712) but --workers, which the
-        # port does not have: a mesh process is always one worker
         if not args.coordinator_address:
             raise SystemExit("--mesh-hosts requires --coordinator-address (process 0 of "
                              "the mesh)")
         if args.process_id < 0:
             raise SystemExit("--mesh-hosts requires --process-id")
+        if _resolve_workers(args.workers) != 1:
+            # a mesh process owns its devices outright; a local worker
+            # fleet would fight the mesh for them
+            raise SystemExit("--mesh-hosts requires --workers 1")
     if args.qos_config:
         # a malformed policy fails the boot loudly, never serves unisolated
         from imaginary_tpu_torch.qos.tenancy import load_policy
@@ -559,6 +620,13 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         key_file=args.keyfile,
         http2=not args.disable_http2,
         read_timeout_s=max(0.0, args.read_timeout),
+        workers=_resolve_workers(args.workers),
+        fleet_cache_mb=max(0.0, args.fleet_cache_mb),
+        fleet_roll_grace_s=max(0.0, args.fleet_roll_grace),
+        fleet_coherence=args.fleet_coherence,
+        fleet_hop_ms=max(1.0, args.fleet_hop_ms),
+        fleet_qos=args.fleet_qos,
+        fleet_admin_port=max(0, args.fleet_admin_port),
         authorization=args.authorization,
         forward_headers=parse_forward_headers(args.forward_headers),
         placeholder=args.placeholder,
@@ -638,16 +706,37 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
     )
 
 
-def device_refusal(args: argparse.Namespace) -> str:
+def nvml_device_count() -> int:
+    """The cards NVML sees, or -1 where NVML is absent: a count that
+    neither initialises the CUDA driver nor creates a context."""
+    import ctypes
+
+    try:
+        nvml = ctypes.CDLL("libnvidia-ml.so.1")
+    except OSError:
+        return -1
+    if nvml.nvmlInit_v2() != 0:
+        return -1
+    try:
+        n = ctypes.c_uint(0)
+        return n.value if nvml.nvmlDeviceGetCount_v2(ctypes.byref(n)) == 0 else -1
+    finally:
+        nvml.nvmlShutdown()
+
+
+def device_refusal(args: argparse.Namespace, nvml: bool = False) -> str:
     """Why the server must not start on this machine ("" when it may):
     the kernels run on the card, and nothing falls back to the CPU unless
-    --device cpu asked for it; --require-device accepts only CUDA."""
+    --device cpu asked for it; --require-device accepts only CUDA. With
+    `nvml` the card is counted through NVML (`nvml_device_count`), so the
+    asking process (the supervisor) never initialises CUDA; without NVML
+    the check is left to the workers."""
     import torch
 
     cuda = torch.device(args.device).type == "cuda"
     if args.require_device and not cuda:
         return f"--require-device is set and --device is {args.device}"
-    if cuda and not torch.cuda.is_available():
+    if cuda and (nvml_device_count() == 0 if nvml else not torch.cuda.is_available()):
         return "CUDA is not available; pass --device cpu to serve on the CPU"
     return ""
 
@@ -681,6 +770,10 @@ def main(argv=None) -> int:
     o = options_from_args(args)
     if args.gzip:  # ref: imaginary.go:168-171
         print("warning: -gzip flag is deprecated and will not have effect")
+    from imaginary_tpu_torch.web.workers import WORKER_ENV
+
+    if o.workers > 1 and WORKER_ENV not in os.environ:
+        return _supervise(args, o, argv)
     why = device_refusal(args)
     if why:
         print(f"imaginary_tpu_torch: refusing to start: {why}", file=sys.stderr)
@@ -704,3 +797,42 @@ def main(argv=None) -> int:
     finally:
         shutdown_distributed()
     return 0
+
+
+def _supervise(args: argparse.Namespace, o: ServerOptions, argv) -> int:
+    """The parent of a --workers fleet becomes its supervisor
+    (web/workers.py): the device check (through NVML, never a CUDA
+    context), the kernels built before the first spawn, the shared cache
+    file created once for every worker, then the workers, each a fresh
+    `python -m imaginary_tpu_torch.cli` with the same arguments."""
+    from imaginary_tpu_torch.web import workers
+
+    # refuse loudly before any worker pays its boot
+    workers.check_reuseport()
+    why = device_refusal(args, nvml=True)
+    if why:
+        print(f"imaginary_tpu_torch: refusing to start: {why}", file=sys.stderr)
+        return 2
+    workers.prepare_kernels(o.device)
+    # the liveness probe's target (/health needs no key); a TLS fleet is
+    # probed without verification, over loopback
+    scheme = "https" if o.cert_file and o.key_file else "http"
+    health_url = f"{scheme}://127.0.0.1:{o.port}{o.path_prefix.rstrip('/')}/health"
+    fleet = None
+    if o.fleet_cache_mb > 0:
+        from imaginary_tpu_torch.fleet import shmcache
+
+        fleet = shmcache.ShmCache.create_for_fleet(o.fleet_cache_mb)
+        os.environ[shmcache.PATH_ENV] = fleet.path
+    try:
+        return workers.run_supervisor(
+            list(argv) if argv is not None else sys.argv[1:], o.workers,
+            health_url=health_url, fleet=fleet, roll_grace_s=o.fleet_roll_grace_s,
+            admin_port=o.fleet_admin_port)
+    finally:
+        if fleet is not None:
+            fleet.close()
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -547,7 +547,7 @@ def _probe_special(buf: bytes, t: ImageType) -> ImageMetadata:
                     w, h, has_alpha = vb.heif_size(buf)
                     return ImageMetadata(w, h, t.value, "srgb", has_alpha, False,
                                          4 if has_alpha else 3, 0)
-    except Exception:  # noqa: BLE001 - an unidentified header falls to the rule below
+    except Exception:  # itpu: allow[ITPU004] an unidentified header falls to the rule below
         pass
     if t is ImageType.SVG:
         return ImageMetadata(0, 0, "svg", "srgb", False, False, 3, 0)

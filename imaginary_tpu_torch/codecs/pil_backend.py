@@ -15,7 +15,7 @@ import struct
 import numpy as np
 from PIL import Image, ImageFile
 
-from imaginary_tpu_torch.codecs import CodecError, DecodedImage, EncodeOptions, ImageMetadata
+from imaginary_tpu_torch.codecs import CodecError, DecodedImage, EncodeOptions, ImageMetadata, png_writer
 from imaginary_tpu_torch.imgtype import ImageType
 
 NAME = "pil"
@@ -103,13 +103,12 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
     out = io.BytesIO()
     try:
         if t == ImageType.PNG:
-            if opts.palette:
-                im = im.convert("P", palette=Image.Palette.ADAPTIVE)
-            im.save(out, "PNG", compress_level=opts.effective_compression())
+            return _encode_png(im, arr, opts)
         elif t == ImageType.WEBP:
             im.save(out, "WEBP", quality=opts.effective_quality())
         elif t == ImageType.TIFF:
-            im.save(out, "TIFF")
+            # LZW, as the reference's native writer (codecs.cpp:1991)
+            im.save(out, "TIFF", compression="tiff_lzw")
         elif t == ImageType.GIF:
             _save_gif(im, arr, out)
         elif t == ImageType.AVIF:
@@ -127,18 +126,62 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
     return out.getvalue()
 
 
+# zlib's default level: libpng's simplified writer, which the reference
+# takes for a plain PNG, never reads `compression` (codecs.cpp:1067, :2096)
+_PLAIN_PNG_LEVEL = 6
+
+
+def _encode_png(im: Image.Image, arr: np.ndarray, opts: EncodeOptions) -> bytes:
+    """The reference's two PNG paths (codecs.cpp:2091-2096). With
+    `interlace`, `palette` or `speed`, its libpng writer: the zlib level
+    of `compression`, the filters of `speed`, Adam7 under `interlace`,
+    and for a colour frame under `palette` Pillow's palette with one
+    reserved, transparent index for every pixel of alpha below 128 (the
+    GIF rule, `_reserved_palette`; a frame with none is opaque). Else
+    libpng's simplified writer, which is Pillow's at zlib's default
+    level whatever `compression` says."""
+    if not (opts.interlace or opts.palette or opts.speed > 0):
+        out = io.BytesIO()
+        im.save(out, "PNG", compress_level=_PLAIN_PNG_LEVEL)
+        return out.getvalue()
+    kw = dict(level=opts.effective_compression(), interlace=opts.interlace,
+              speed=max(0, opts.speed))
+    if not opts.palette or arr.shape[2] < 3:
+        return png_writer.encode(arr, **kw)
+    if arr.shape[2] == 4 and (arr[:, :, 3] < 128).any():
+        idx, pal, tidx = _reserved_palette(im, arr)
+        trns = np.full(tidx + 1, 255, np.uint8)
+        trns[tidx] = 0
+        return png_writer.encode(idx, palette=pal, transparent=trns, **kw)
+    pim = Image.fromarray(np.ascontiguousarray(arr[:, :, :3])).convert(
+        "P", palette=Image.Palette.ADAPTIVE)
+    idx = np.array(pim, dtype=np.uint8)
+    pal = np.asarray(pim.getpalette("RGB") or [], np.uint8).reshape(-1, 3)
+    return png_writer.encode(idx, palette=pal[:int(idx.max()) + 1], **kw)
+
+
 def _save_gif(im: Image.Image, arr: np.ndarray, out: io.BytesIO) -> None:
     """A GIF with Pillow's palette (the one `im.save(out, "GIF")` makes)
     and, when the frame has alpha, the reference's native rule for it
     (imaginary_tpu/native/codecs.cpp:1224-1241): every pixel with alpha
-    below 128 takes one reserved, transparent index. The reserved index
-    is a new palette entry, else an entry that no opaque pixel uses;
-    opaque pixels keep their colour either way, but for a 256-colour
-    palette that every opaque pixel index uses, where the rarest colour
-    moves to its nearest other entry to free its index."""
+    below 128 takes one reserved, transparent index (`_reserved_palette`)."""
     if arr.shape[2] != 4 or not (arr[:, :, 3] < 128).any():
         im.save(out, "GIF")
         return
+    idx, pal, tidx = _reserved_palette(im, arr)
+    gif = Image.fromarray(idx, mode="P")
+    gif.putpalette(pal.ravel().tolist())
+    gif.save(out, "GIF", transparency=tidx)
+
+
+def _reserved_palette(im: Image.Image, arr: np.ndarray):
+    """(indices, [N, 3] uint8 palette, reserved index) of an RGBA frame
+    with some alpha below 128: Pillow's palette, and every such pixel on
+    one reserved index of colour 0. The reserved index is a new palette
+    entry, else an entry that no opaque pixel uses; opaque pixels keep
+    their colour either way, but for a 256-colour palette that every
+    opaque pixel index uses, where the rarest colour moves to its nearest
+    other entry to free its index."""
     pim = im.convert("P", palette=Image.Palette.ADAPTIVE)
     idx = np.array(pim, dtype=np.uint8)
     pal = np.asarray(pim.getpalette("RGB") or [], dtype=np.int32).reshape(-1, 3)
@@ -157,9 +200,7 @@ def _save_gif(im: Image.Image, arr: np.ndarray, out: io.BytesIO) -> None:
     pal = np.concatenate([pal, np.zeros((max(0, tidx + 1 - len(pal)), 3), np.int32)])
     pal[tidx] = 0
     idx[clear] = tidx
-    gif = Image.fromarray(idx, mode="P")
-    gif.putpalette(pal[:256].astype(np.uint8).ravel().tolist())
-    gif.save(out, "GIF", transparency=tidx)
+    return idx, pal[:256].astype(np.uint8), tidx
 
 
 def _declared_dims(buf: bytes, t: ImageType):

@@ -323,6 +323,11 @@ class ExecutorConfig:
     # the mesh of `devices` / `n_devices` with `spatial`; only with
     # mesh_policy "off".
     use_mesh: bool = False
+    # Fleet coherence (fleet/ownership.py): False on a worker that does
+    # not own the card's shared state. It still launches its kernels on
+    # its device, but stands up no lanes and no mesh (mesh_policy is
+    # forced "off", use_mesh ignored), so those live in one process.
+    device_owner: bool = True
 
 
 @dataclasses.dataclass
@@ -553,6 +558,9 @@ class Executor:
         if self._mesh_policy not in MESH_POLICIES:
             raise ValueError(f"unknown mesh policy {self.config.mesh_policy!r} "
                              f"(one of {', '.join(MESH_POLICIES)})")
+        if not self.config.device_owner:
+            # the card's lanes and mesh live once, on the device owner
+            self._mesh_policy = "off"
         self.stats = ExecutorStats()
         # The lane tier's state; all None / 0 with mesh_policy "off".
         self._lanes: Optional[lanes_mod.LaneScheduler] = None
@@ -636,7 +644,7 @@ class Executor:
             self._init_lanes()
         else:
             cfg = self.config
-            if cfg.use_mesh:
+            if cfg.use_mesh and cfg.device_owner:
                 self._init_batch_mesh()
             elif cfg.devices or cfg.n_devices > 1:
                 # the global ladder's fault domains: the first is the
@@ -697,7 +705,8 @@ class Executor:
         if last_placement() != "host":  # a request's host answer stays marked
             _PLACEMENT.value = "device"
         if not plan.stages:
-            item.future.set_result(arr)
+            if not item.future.done():
+                item.future.set_result(arr)
             return item.future
         integ = self.integrity
         if integ is not None and integ.enabled and integ.poison_active():
@@ -708,20 +717,22 @@ class Executor:
                 if host_exec.can_execute(plan, for_spill=False):
                     try:
                         out = host_exec.run(arr, plan)
-                    except Exception:  # noqa: BLE001 - the 422 below answers
+                    except Exception:  # itpu: allow[ITPU004] the 422 below answers
                         pass
                     else:
                         _PLACEMENT.value = "host"
                         self._stamp_attempts([item], ["poison_quarantine",
                                                       "host_fallback"])
-                        item.future.set_result(out)
+                        if not item.future.done():
+                            item.future.set_result(out)
                         return item.future
                 from imaginary_tpu_torch.errors import new_error
 
                 self._stamp_attempts([item], ["poison_quarantine"])
-                item.future.set_exception(new_error(
-                    "Input is quarantined: it repeatedly failed device "
-                    "execution in isolation", 422))
+                if not item.future.done():
+                    item.future.set_exception(new_error(
+                        "Input is quarantined: it repeatedly failed device "
+                        "execution in isolation", 422))
                 return item.future
         if self.config.host_spill and self._breaker_is_open() \
                 and host_exec.can_execute(plan, for_spill=False):
@@ -731,14 +742,15 @@ class Executor:
             # device and surface its error
             try:
                 out = host_exec.run(arr, plan)
-            except Exception:  # noqa: BLE001 - the device path reports the real error
+            except Exception:  # itpu: allow[ITPU004] the device path reports the real error
                 pass
             else:
                 with self._lock:
                     self.stats.breaker_host_served += 1
                 _PLACEMENT.value = "host"
                 self._stamp_attempts([item], ["device:quarantined", "host_fallback"])
-                item.future.set_result(out)
+                if not item.future.done():
+                    item.future.set_result(out)
                 return item.future
         forced = self.config.force_host and host_exec.can_execute(plan, for_spill=False)
         gov = self.config.pressure
@@ -758,28 +770,28 @@ class Executor:
         if forced or (self.config.host_spill and self._should_spill(item)):
             out = self._spill(item)
             if out is not None:
-                item.future.set_result(out)
+                if not item.future.done():
+                    item.future.set_result(out)
                 return item.future
-        err = None
-        with self._lock:
-            if self._closed:
-                raise RuntimeError("executor is shut down")
-            self._charge_owed(item)
-            lane = self._lanes.place(item) if self._lanes is not None else None
-            try:
+        try:
+            # the put stays under _lock, so shutdown's sentinel follows
+            # every item it admitted
+            with self._lock:
+                if self._closed:
+                    raise RuntimeError("executor is shut down")
+                self._charge_owed(item)
+                lane = self._lanes.place(item) if self._lanes is not None else None
                 if lane is None:
                     self._queue.put(item)
                 else:
                     lanes_mod._lane_owe(lane, item)
                     lane.put(item)
-            except Exception as e:
-                err = e
-        if err is not None:
+        except Exception:
             # the qos share cap (TenantShareExceeded, a 503): cancelling
             # the never-queued future fires its done-callback, which
-            # refunds the owed charge (outside _lock, which it takes)
+            # refunds the owed charge (here, after _lock, which it takes)
             item.future.cancel()
-            raise err
+            raise
         if self.config.hedge_threshold_ms > 0:
             outer = self._arm_hedge(item)
             if outer is not None:
@@ -896,19 +908,16 @@ class Executor:
         shadow.qos = item.qos
         shadow.future.add_done_callback(
             lambda f: None if f.cancelled() else f.exception())  # swallow
-        rejected = False
-        with self._lock:
-            if self._closed:
-                return
-            self._charge_owed(shadow)
-            try:
+        try:
+            with self._lock:
+                if self._closed:
+                    return
+                self._charge_owed(shadow)
                 self._queue.put(shadow)
-            except Exception:  # noqa: BLE001 - a share cap drops the shadow
-                rejected = True
-            else:
                 self.stats.shadow_probes += 1
-        if rejected:
-            # outside _lock: the done-callback refunds the charge under it
+        except Exception:
+            # a share cap drops the shadow; after _lock, since the
+            # done-callback refunds the charge under it
             shadow.future.cancel()
 
     @staticmethod
@@ -962,14 +971,18 @@ class Executor:
                     hp = getattr(f, "_hedge_placement", None)
                     if hp:
                         outer._hedge_placement = hp
-                    with contextlib.suppress(InvalidStateError):
+                    try:
                         outer.set_result(f.result())
+                    except InvalidStateError:  # a racing cancel: the result stands down
+                        pass
                     return
                 if state["running"]:
                     state["exc"] = exc  # the twin may still answer
                     return
-                with contextlib.suppress(InvalidStateError):
+                try:
                     outer.set_exception(exc)
+                except InvalidStateError:  # a racing cancel
+                    pass
 
         def on_outer(f: Future) -> None:
             # a deadline cancels the outer future: the device item too
@@ -1735,7 +1748,7 @@ class Executor:
             if self.config.host_spill and host_exec.can_execute(it.plan, for_spill=False):
                 try:
                     out = host_exec.run(it.arr, it.plan)
-                except Exception:  # noqa: BLE001 - the device's OOM is reported below
+                except Exception:  # itpu: allow[ITPU004] the device's OOM is reported below
                     pass
                 else:
                     with self._lock:
@@ -1778,7 +1791,7 @@ class Executor:
             if host_exec.can_execute(it.plan, for_spill=False):
                 try:
                     out = host_exec.run(it.arr, it.plan)
-                except Exception:  # noqa: BLE001 - the device error is reported below
+                except Exception:  # itpu: allow[ITPU004] the device error is reported below
                     pass
                 else:
                     self._stamp_attempts([it], [f"device:{didx}:poison_bisect",
@@ -1831,7 +1844,7 @@ class Executor:
         if host_exec.can_execute(it.plan, for_spill=False):
             try:
                 return host_exec.run(it.arr, it.plan), False
-            except Exception:  # noqa: BLE001 - a failed recompute counts as a skip
+            except Exception:  # itpu: allow[ITPU004] a failed recompute counts as a skip
                 pass
         if len(self._devices) > 1:
             other = self.devhealth.pick(exclude={idx} if idx is not None else set())
@@ -1839,7 +1852,7 @@ class Executor:
                 try:
                     return chain_mod.run_batch([it.arr], [it.plan],
                                                device=self._devices[other])[0], True
-                except Exception:  # noqa: BLE001 - a failed recompute counts as a skip
+                except Exception:  # itpu: allow[ITPU004] a failed recompute counts as a skip
                     pass
         return None, False
 

@@ -224,7 +224,7 @@ class MemoryGovernor:
         for cb in cbs:
             try:
                 cb(old, new)
-            except Exception:  # noqa: BLE001 - a broken listener must not break sampling
+            except Exception:  # itpu: allow[ITPU004] a broken listener must not break sampling
                 pass
         if changed and new == LEVEL_CRITICAL:
             # entering critical: aggressively hand freed pages back to

@@ -1,7 +1,7 @@
 """Fault injection for the port (a trimmed copy of
 `imaginary_tpu/failpoints.py`).
 
-Fifteen sites are ported:
+Nineteen sites are ported:
 
   source.fetch       one remote ?url= or watermark GET attempt
                      (web/sources.py);
@@ -45,7 +45,22 @@ Fifteen sites are ported:
                      (engine/executor.py): an error falls back to the
                      device, counted in spill_errors;
   cache.get          any cache tier's lookup (cache.py ByteBudgetLRU):
-                     every consumer reads an injected error as a miss.
+                     every consumer reads an injected error as a miss;
+  fleet.write        inside a shared-cache slot deposit, between acquire
+                     and seal (fleet/shmcache.py), keyable by worker
+                     index: delay() with a SIGKILL leaves a real torn
+                     slot, error() abandons the deposit cleanly;
+  worker.zombie      the shared-cache publish gate (fleet/shmcache.py),
+                     keyable by worker index: an injected error makes the
+                     worker behave as a deposed zombie (publish refused,
+                     counted as fenced);
+  fleet.claim        the fleet-singleflight claim acquire
+                     (fleet/shmcache.py), keyable by worker index: an
+                     error() fails open to an uncoordinated local run;
+  fleet.forward      the ownership forward hop, client side, before the
+                     dial (fleet/ownership.py), keyable by the owner's
+                     worker index: an error() forces the local fallback,
+                     a delay() burns the hop budget.
 
 Spec grammar: `site=action` clauses joined by `;`, where action is
 
@@ -76,7 +91,8 @@ from typing import Optional
 SITES = ("source.fetch", "source.head", "qos.admit", "codec.decode", "codec.encode",
          "codec.bomb", "memory.rss", "executor.submit", "device.execute",
          "device.chip_error", "host.spill", "device.oom", "device.corrupt",
-         "device.slow", "cache.get")
+         "device.slow", "cache.get", "fleet.write", "worker.zombie", "fleet.claim",
+         "fleet.forward")
 
 _KEYED_SITE_RE = re.compile(r"^([\w.]+)\[(\w+)\]$")
 _DURATION_RE = re.compile(r"^(\d+(?:\.\d+)?)(ms|s)$")

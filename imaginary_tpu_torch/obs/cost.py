@@ -441,7 +441,7 @@ class CostPlane:
                 workers, inflight = host_view()
                 out["host_pool"] = round(
                     min(1.0, inflight / max(1, workers)), 4)
-            except Exception:  # noqa: BLE001 - a torn view must not fail a scrape
+            except Exception:  # itpu: allow[ITPU004] a torn view must not fail a scrape
                 pass
         if prev is None:
             return out
@@ -536,7 +536,7 @@ class CostPlane:
             if host_view is not None:
                 try:
                     workers = max(1, int(host_view()[0]))
-                except Exception:  # noqa: BLE001 - a torn view counts one worker
+                except Exception:  # itpu: allow[ITPU004] a torn view counts one worker
                     pass
             out["host_workers"] = workers
             rates["host-codecs"] = workers * 1000.0 / host_ms

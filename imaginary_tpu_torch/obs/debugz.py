@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import asyncio
 import contextlib
+import contextvars
 import os
 import threading
 from collections import deque
@@ -63,7 +64,7 @@ def task_dump(limit: int = 200) -> list:
         try:
             for f in t.get_stack(limit=3):
                 frames.append(f"{f.f_code.co_filename}:{f.f_lineno} {f.f_code.co_name}")
-        except Exception:  # noqa: BLE001 - a task finishing mid-walk may refuse get_stack
+        except Exception:  # itpu: allow[ITPU004] a task finishing mid-walk may refuse get_stack
             pass
         out.append({"name": t.get_name(), "done": t.done(), "stack": frames})
     return out
@@ -101,6 +102,9 @@ def debug_payload(service) -> dict:
             "estimated_queue_ms": round(service.estimated_queue_ms(), 3),
         }
         payload["cache"] = service.caches.to_dict()
+        if service.caches.shm is not None:
+            # the fleet shm tier with its file and the whole epoch table
+            payload["fleet"] = service.caches.shm.debug_snapshot()
         governor = service.pressure
         if governor is not None:
             # the rung, its signals and the whole transition history
@@ -141,8 +145,9 @@ async def profile_capture(query, device: str = "cpu") -> tuple:
 
     loop = asyncio.get_running_loop()
     try:
-        started = await loop.run_in_executor(_profiler_thread(), timing.start_profiler,
-                                             trace_dir, device)
+        started = await loop.run_in_executor(
+            _profiler_thread(), contextvars.copy_context().run, timing.start_profiler,
+            trace_dir, device)
     except Exception as e:  # noqa: BLE001 - the profiler's own error is the answer
         return {"error": f"the profiler did not start: {e}"}, 500
     if not started:
@@ -155,10 +160,12 @@ async def profile_capture(query, device: str = "cpu") -> tuple:
         await asyncio.sleep(seconds)
     except BaseException:
         with contextlib.suppress(Exception):
-            await loop.run_in_executor(_profiler_thread(), timing.stop_profiler)
+            await loop.run_in_executor(_profiler_thread(), contextvars.copy_context().run,
+                                       timing.stop_profiler)
         raise
     try:
-        got = await loop.run_in_executor(_profiler_thread(), timing.stop_profiler)
+        got = await loop.run_in_executor(_profiler_thread(), contextvars.copy_context().run,
+                                         timing.stop_profiler)
     except Exception as e:  # noqa: BLE001 - the profiler's own error is the answer
         return {"error": f"the profiler failed: {e}"}, 500
     return {"profile_dir": trace_dir, "seconds": seconds, **got}, 200

@@ -39,9 +39,8 @@ port's against the reference's):
   deadline_budget_ms / deadline_remaining_ms / deadline_stages
                 the request deadline's state (--request-timeout)
   sampled_reason  why the event survived tail sampling (SAMPLED_REASONS)
-
-The reference's `worker` and `epoch` stamps belong to its --workers
-supervisor, which the port does not have yet.
+  worker / epoch  the serving process's index and fencing generation
+                (web/workers.py; 0 and 0 outside a --workers fleet)
 
 Tail sampling (--wide-events-sample): the interesting tail (errors,
 sheds, deadline 504s, hedges, placement-ladder trouble, fenced publishes,

@@ -104,7 +104,7 @@ def _load_font(spec: str, dpi: int):
     if path:
         try:
             return ImageFont.truetype(path, px)
-        # any TTF load failure (corrupt font, old FreeType) falls back to PIL's default font
+        # itpu: allow[ITPU004] any TTF load failure (corrupt font, old FreeType) falls back to PIL's default font
         except Exception:
             pass
     try:

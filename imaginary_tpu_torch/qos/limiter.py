@@ -14,9 +14,12 @@ exists the tenant is unlimited and the call is free of limiter state
 entirely (no key is minted — an unlimited anonymous flood must not churn
 the tat store other tenants' throttle state lives in).
 
-The port's copy of `imaginary_tpu/qos/limiter.py`, without the fleet's
-shared table (`--fleet-qos` waits for the fleet's port): the decision
-runs against this process's store.
+Fleet coherence (--fleet-qos): when fleet/ownership.py registered a
+FleetQos handle, the GCRA decision runs against the SHARED tat in the
+shm qos table first, so a tenant spraying connections across N
+SO_REUSEPORT workers meets one budget instead of N. Any shared-table
+fault answers None and the call falls through to the process-local
+store (fail-open). The port's copy of `imaginary_tpu/qos/limiter.py`.
 """
 
 from __future__ import annotations
@@ -46,5 +49,13 @@ class TenantLimiter:
         burst = tenant.burst if tenant.burst >= 0 else self._global_burst
         emission = 1.0 / rate
         tau = emission * max(burst, 0)
+        from imaginary_tpu_torch.fleet import ownership
+
+        fq = ownership.fleet_qos()
+        if fq is not None:
+            got = fq.gcra_allow(tenant.name, emission, tau)
+            if got is not None:
+                return got
+            # shared table unavailable: fall through to the local store
         return self._gcra.allow("tenant:" + tenant.name, emission=emission,
                                 tau=tau)

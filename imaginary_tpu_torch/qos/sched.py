@@ -1,6 +1,5 @@
 """Class-aware fair scheduler: the executor's qos intake queue (the port's
-copy of `imaginary_tpu/qos/sched.py`, without the fleet's shared share
-table).
+copy of `imaginary_tpu/qos/sched.py`).
 
 Drop-in replacement for the micro-batch executor's FIFO `queue.Queue`
 (same put/get/get_nowait/qsize surface, None as the shutdown sentinel) —
@@ -32,6 +31,12 @@ one lock:
      the intake queue; the N+1th put raises TenantShareExceeded (503 +
      Retry-After via shed.py) back through Executor.submit — one hog
      cannot occupy the whole queue no matter how fast it submits.
+     With --fleet-qos armed the same cap is ALSO charged against the
+     shm share table (fleet/ownership.py FleetQos), so the bound holds
+     across every SO_REUSEPORT worker's queue, not per process; the
+     charge is taken before any local mutation and released in
+     _pop_locked, and any shared-table fault degrades to the local cap
+     alone (fail-open).
 
 Thread model: puts arrive from many pool threads, gets from the single
 collector thread; one Condition guards everything (critical sections are
@@ -48,6 +53,7 @@ import threading
 import time
 from typing import Optional
 
+from imaginary_tpu_torch.fleet import ownership
 from imaginary_tpu_torch.qos import CLASSES
 from imaginary_tpu_torch.qos.shed import TenantShareExceeded
 from imaginary_tpu_torch.qos.tenancy import QosPolicy
@@ -83,17 +89,28 @@ class FairScheduler:
                 ten.name, ten.class_index, ten.max_share, None)
         else:
             name, kidx, max_share, deadline_t = qos
+        charged = False
         with self._cv:
             if max_share < 1.0:
                 cap = max(1, int(self.policy.queue_cap * max_share))
                 if self._tenant_counts.get(name, 0) >= cap:
                     self.policy.stats.note_share_rejected(kidx)
                     raise TenantShareExceeded(name)
+                fq = ownership.fleet_qos()
+                if fq is not None:
+                    # fleet-wide cap: same absolute bound, charged
+                    # against the shm share table so a tenant spread
+                    # over N workers' queues still holds <= cap items
+                    got = fq.share_charge(name, cap)
+                    if got is False:
+                        self.policy.stats.note_share_rejected(kidx)
+                        raise TenantShareExceeded(name)
+                    charged = got is True
             self._seq += 1
             heapq.heappush(
                 self._heaps[kidx],
                 (deadline_t if deadline_t is not None else math.inf,
-                 self._seq, name, item))
+                 self._seq, name, charged, item))
             self._tenant_counts[name] = self._tenant_counts.get(name, 0) + 1
             self._size += 1
             self._cv.notify()
@@ -154,8 +171,12 @@ class FairScheduler:
 
     def _pop_locked(self):
         i = self._select_locked()
-        _, _, name, item = heapq.heappop(self._heaps[i])
+        _, _, name, charged, item = heapq.heappop(self._heaps[i])
         self._size -= 1
+        if charged:
+            fq = ownership.fleet_qos()
+            if fq is not None:
+                fq.share_release(name)
         left = self._tenant_counts.get(name, 1) - 1
         if left <= 0:
             self._tenant_counts.pop(name, None)

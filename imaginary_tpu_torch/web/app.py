@@ -117,6 +117,9 @@ def create_app(o: ServerOptions, log_stream=None) -> web.Application:
         # the event-loop lag probe: the one host signal no stage ledger
         # covers, on while the server runs
         app["_looplag_task"] = looplag.start()
+        # the fleet's forward-hop server needs the running loop; a no-op
+        # unless --fleet-coherence
+        await service.start_coherence()
 
     async def on_cleanup(app):
         looplag.stop(app.get("_looplag_task"))
@@ -265,8 +268,12 @@ class _Listener:
 
     async def start(self, runner, o: ServerOptions, ssl_ctx, sock=None) -> None:
         loop = asyncio.get_running_loop()
+        # a --workers fleet shares the port through SO_REUSEPORT, on every
+        # listener form
+        reuse = o.workers > 1 or None
         where = {"sock": sock} if sock is not None else {"host": o.address or None,
-                                                         "port": o.port}
+                                                         "port": o.port,
+                                                         "reuse_port": reuse}
         if ssl_ctx is not None and _h2_active(o):
             import os
             import secrets
@@ -308,8 +315,21 @@ class _Listener:
             self.site = web.SockSite(runner, sock, ssl_context=ssl_ctx)
             await self.site.start()
         else:
-            self.site = web.TCPSite(runner, o.address or None, o.port, ssl_context=ssl_ctx)
+            self.site = web.TCPSite(runner, o.address or None, o.port, ssl_context=ssl_ctx,
+                                    reuse_port=reuse)
             await self.site.start()
+
+    async def stop_accepting(self) -> None:
+        """Close the listening socket only (the rolling restart's SIGUSR1):
+        SO_REUSEPORT sends new connections to the replacement worker,
+        while in-flight and keep-alive requests here run to completion."""
+        if self.h2_server is not None:
+            self.h2_server.close()
+        elif self.server is not None:
+            self.server.close()
+        elif self.site is not None:
+            await self.site.stop()
+            self.site = None
 
     def drain(self) -> None:
         """New h2 streams get the drain's 503 from now on."""
@@ -357,11 +377,30 @@ async def serve(o: ServerOptions, mrelease: int = 30) -> None:
         for sig in (signal.SIGINT, signal.SIGTERM):
             loop.add_signal_handler(sig, stop.set)
 
+        def stop_accepting():
+            print("imaginary-tpu-torch: SIGUSR1, listener closed, draining in-flight "
+                  "work", flush=True)
+            asyncio.ensure_future(listener.stop_accepting())
+
+        loop.add_signal_handler(signal.SIGUSR1, stop_accepting)
+        # SIGHUP is the supervisor's roll trigger, and often reaches the
+        # whole process group: a serving process ignores it rather than die
+        loop.add_signal_handler(
+            signal.SIGHUP, lambda: print("imaginary-tpu-torch: SIGHUP ignored (rolling "
+                                         "restarts are the supervisor's)", flush=True))
+
         async def memory_release():
             # the reference's FreeOSMemory ticker, returning memory for real
             while not stop.is_set():
                 await asyncio.sleep(max(mrelease, 1))
                 pressure_mod.release_memory()
+                shm = app["service"].caches.shm
+                if shm is not None:
+                    # the fleet's sweepers: slots whose writer died
+                    # mid-deposit, and claims whose holder died or was
+                    # deposed
+                    shm.sweep()
+                    shm.claim_sweep()
 
         ticker = asyncio.create_task(memory_release()) if mrelease > 0 else None
         scheme = "https" if o.cert_file and o.key_file else "http"

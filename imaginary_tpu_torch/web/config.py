@@ -57,6 +57,25 @@ class ServerOptions:
     # request read (headers or body) goes this many seconds without a
     # byte; 0 = off
     read_timeout_s: float = 0.0
+    # --- the single-host fleet (web/workers.py, fleet/) ----------------------
+    # serving processes sharing the port through SO_REUSEPORT, each with
+    # its own CUDA context on the operator's --device
+    workers: int = 1
+    # the crash-safe mmap result cache shared by every local worker
+    # (fleet/shmcache.py); 0 = no fleet data plane
+    fleet_cache_mb: float = 0.0
+    # SIGHUP's rolling restart: seconds an old worker finishes in-flight
+    # work after its replacement answers, before its SIGTERM drain
+    fleet_roll_grace_s: float = 5.0
+    # rendezvous digest ownership with a local forward hop, fleet
+    # singleflight and the device-owner rule (fleet/ownership.py)
+    fleet_coherence: bool = False
+    # the forward hop's budget in ms, clamped by the request deadline
+    fleet_hop_ms: float = 250.0
+    # per-tenant GCRA and queue-share caps enforced across the fleet
+    fleet_qos: bool = False
+    # the supervisor's admin plane on 127.0.0.1 (obs/aggregate.py)
+    fleet_admin_port: int = 0
     # --- observability (obs/) ------------------------------------------------
     # Per-request span tracing: X-Request-ID is always assigned and
     # echoed; this gates span accumulation, Server-Timing, wide events and

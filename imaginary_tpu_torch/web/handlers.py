@@ -134,6 +134,9 @@ _MARKED_ROUTES = ("watermarkImage", "pipeline")
 
 _ACCEPT_TO_TYPE = {"image/webp": "webp", "image/png": "png", "image/jpeg": "jpeg"}
 
+# the header bytes a --return-size probe of a fleet tier entry reads
+_PROBE_PREFIX = 64 * 1024
+
 # resized placeholders kept per service: an error storm asks for the same
 # few shapes again and again (ref: placeholder.py:37-47)
 _PLACEHOLDER_CACHE = 64
@@ -212,6 +215,29 @@ class ImageService:
         self.started = time.time()
         # the content-addressed cache tiers (cache.py), all off by default
         self.caches = cache_mod.CacheSet.from_options(o)
+        # the fleet data plane (fleet/), off unless --fleet-cache-mb: the
+        # shm result tier behind the local one (under a supervisor its
+        # file rides in through IMAGINARY_TPU_FLEET_PATH, this worker's
+        # index and fencing epoch through the environment); with
+        # --fleet-coherence the ownership ring, the forward hop and fleet
+        # singleflight; with --fleet-qos the shared GCRA and share tables
+        # the qos layer reads (unregistered again by close())
+        self.coherence = None
+        self._forward_server = None
+        self._armed_fleet_qos = False
+        if o.fleet_cache_mb > 0:
+            from imaginary_tpu_torch.fleet import ownership
+            from imaginary_tpu_torch.fleet.shmcache import ShmCache
+            from imaginary_tpu_torch.web.workers import worker_epoch, worker_index
+
+            self.caches.attach_shm(ShmCache.from_options(
+                o, worker=worker_index(), epoch=worker_epoch()))
+            if o.fleet_coherence:
+                self.coherence = ownership.FleetCoherence(
+                    self.caches.shm, worker=worker_index(), hop_s=o.fleet_hop_ms / 1000.0)
+            if o.fleet_qos:
+                ownership.set_fleet_qos(ownership.FleetQos(self.caches.shm))
+                self._armed_fleet_qos = True
         self.frame_cache = cache_mod.FrameCache(self.caches.frames, self.caches.stats)
         self.registry = SourceRegistry(o, caches=self.caches)
         # output integrity (None when --integrity is off); the golden
@@ -239,7 +265,11 @@ class ImageService:
         # server will
         chain_mod.set_donation(o.donation)
         self._device_frames = None
-        if o.cache_device_mb > 0:
+        # with coherence the card's shared state (the device frame tier,
+        # the lanes, the mesh) lives on the device owner alone; every
+        # worker still launches its own kernels on its device
+        is_dev_owner = self.coherence is None or self.coherence.is_device_owner()
+        if o.cache_device_mb > 0 and is_dev_owner:
             self._device_frames = cache_mod.DeviceFrameCache(self.caches.device,
                                                              self.caches.stats)
         chain_mod.set_device_frame_cache(self._device_frames)
@@ -257,7 +287,8 @@ class ImageService:
             force_host=o.force_host, hedge_threshold_ms=o.hedge_threshold_ms,
             hedge_budget=o.hedge_budget, integrity=self.integrity, failslow_ratio=o.failslow_ratio,
             failslow_min_samples=o.failslow_min_samples,
-            failslow_share=o.failslow_share, qos=self.qos, pressure=self.pressure))
+            failslow_share=o.failslow_share, qos=self.qos, pressure=self.pressure,
+            device_owner=is_dev_owner))
         pipeline.set_transport_dct(o.transport_dct)
         pipeline.set_transport_dct_egress(o.transport_dct_egress)
         workers = o.cpus if o.cpus > 0 else max(4, available_cpus())
@@ -296,6 +327,13 @@ class ImageService:
         if self._closed:
             return
         self._closed = True
+        if self._armed_fleet_qos:
+            # this service's handle only: a later app must not read a
+            # closed mapping
+            from imaginary_tpu_torch.fleet import ownership
+
+            ownership.set_fleet_qos(None)
+            self._armed_fleet_qos = False
         self.executor.shutdown()
         self.pool.shutdown(wait=False)
         if (self._device_frames is not None
@@ -303,10 +341,103 @@ class ImageService:
             # the resident frames go back to the card with the service
             chain_mod.set_device_frame_cache(None)
             self._device_frames.clear()
+        if self.caches.shm is not None:
+            self.caches.shm.close()
 
     async def aclose(self) -> None:
+        await self.stop_coherence()
         await self.registry.close()
         self.close()
+
+    # -- fleet coherence: the forward hop's server ----------------------------
+
+    async def start_coherence(self) -> None:
+        """Bind this worker's forward socket (fleet/ipc.py), from the app's
+        startup hook (the server needs the running loop). A no-op without
+        coherence. A failed bind leaves this worker forwarding out and
+        claiming; siblings forwarding here fall back to local work."""
+        if self.coherence is None or self._forward_server is not None:
+            return
+        from imaginary_tpu_torch.fleet import ipc
+
+        srv = ipc.ForwardServer(ipc.socket_path(self.caches.shm.path, self.coherence.worker),
+                                self._handle_forward)
+        try:
+            await srv.start()
+        except OSError:
+            return
+        self._forward_server = srv
+
+    async def stop_coherence(self) -> None:
+        if self._forward_server is not None:
+            await self._forward_server.stop()
+            self._forward_server = None
+
+    async def _handle_forward(self, header: dict, body: bytes):
+        """The owner's side of the forward hop: answer a sibling's request
+        for a digest this worker owns, from its caches or by running it.
+        The sibling already ran the ingress checks and the Accept
+        negotiation, so the header's query holds the resolved type and
+        both sides derive the same key. The run carries the hop's budget
+        as its deadline. A fenced worker refuses: a deposed zombie must
+        not compute for the fleet."""
+        flc = self.coherence
+        shm = self.caches.shm
+        if flc is None or shm is None or shm.fenced():
+            if flc is not None:
+                flc.stats.serve_refused += 1
+            return {"status": "fenced"}, b""
+        op_name = str(header.get("op", ""))
+        query = {str(k): str(v) for k, v in dict(header.get("query") or {}).items()}
+        try:
+            prepared = self.prepare(body, query)
+        except ImageError:
+            return {"status": "error", "error": "request"}, b""
+        caches = self.caches
+        digest = cache_mod.source_digest(body)
+        key = cache_mod.request_key(digest, op_name, prepared.opts)
+        tr = obs_trace.RequestTrace(request_id="fleet-forward", enabled=False)
+        budget_ms = float(header.get("budget_ms") or 0)
+        if budget_ms > 0:
+            tr.deadline = deadline_mod.Deadline(budget_ms / 1000.0)
+        token = obs_trace.activate(tr)
+        try:
+            hit = None
+            if caches.result.enabled:
+                try:
+                    hit = caches.result.get(key)
+                except Exception:  # itpu: allow[ITPU004] a failing tier reads as a miss
+                    hit = None
+                if hit is not None:
+                    caches.stats.result_hits += 1
+            if hit is None:
+                hit = caches.shm_lookup(key)
+            if hit is None:
+                async def produce() -> tuple:
+                    watermark = await self._prefetch_watermark(op_name, prepared.opts)
+                    out, placement, _vary = await self._dispatch(
+                        op_name, body, query, None, prepared, digest, watermark)
+                    return out, placement
+
+                async def claimed() -> tuple:
+                    # the flight outside the claim, as on the request path,
+                    # so a local leader and a forwarded request for one
+                    # key never wait on each other
+                    return await flc.run_claimed(key, cache_mod.shared_key(key), produce,
+                                                 caches)
+
+                if caches.coalesce:
+                    hit = await caches.flight.run(key, claimed)
+                else:
+                    hit = await claimed()
+                if caches.result.enabled:
+                    caches.result.put(key, hit, len(hit[0].body))
+            out, placement = hit
+            flc.stats.serve_forwarded += 1
+            return ({"status": "ok", "mime": out.mime, "placement": placement or ""},
+                    bytes(out.body))
+        finally:
+            obs_trace.deactivate(token)
 
     def versions(self) -> dict:
         """`/`'s JSON: the port's version, the torch stack and the device
@@ -438,7 +569,7 @@ class ImageService:
         tr = obs_trace.current()
         if tr is not None and tr.enabled and prepared is not None:
             _annotate_plan(tr, op_name, prepared.opts, query)
-        if caches.result.enabled and key is not None:
+        if (caches.result.enabled or caches.shm is not None) and key is not None:
             with obs_trace.span("cache_lookup"):
                 etag = cache_mod.strong_etag(key)
                 if request.method == "GET" and cache_mod.etag_matches(
@@ -451,10 +582,12 @@ class ImageService:
                     if prepared.vary:
                         headers["Vary"] = prepared.vary
                     return web.Response(status=304, headers=headers)
-                try:
-                    hit = caches.result.get(key)
-                except Exception:  # noqa: BLE001 - a failing tier reads as a miss
-                    hit = None
+                hit = None
+                if caches.result.enabled:
+                    try:
+                        hit = caches.result.get(key)
+                    except Exception:  # itpu: allow[ITPU004] a failing tier reads as a miss
+                        hit = None
             if hit is not None:
                 caches.stats.result_hits += 1
                 if tr is not None:
@@ -464,9 +597,45 @@ class ImageService:
                 COPIES.add("cache_hit", len(out.body))
                 return self._web_response(self._build_response(
                     out, op_name, prepared.vary, placement, etag))
-            caches.stats.result_misses += 1
+            if caches.result.enabled:
+                caches.stats.result_misses += 1
+            # the fleet tier next: a sibling worker may hold this answer
+            # (checksum-verified; a corrupt or torn entry reads as a miss)
+            shm_hit = caches.shm_lookup(key)
+            if shm_hit is not None:
+                out, placement = shm_hit
+                # the shm tier's one snapshot of the mapping is the copy a
+                # fleet hit pays
+                COPIES.add("cache_hit", len(out.body))
+                if caches.result.enabled:
+                    # the next local occurrence skips the mapping
+                    caches.result.put(key, shm_hit, len(out.body))
+                if tr is not None:
+                    tr.annotate(cache="shm_hit")
+                return self._web_response(self._build_response(
+                    out, op_name, prepared.vary, placement, etag))
             if tr is not None:
                 tr.annotate(cache="result_miss")
+
+        # fleet coherence: the digest's owner answers over the forward hop;
+        # any fault of the hop falls through to the local run below
+        flc = self.coherence
+        skey = None
+        if flc is not None and key is not None:
+            skey = cache_mod.shared_key(key)
+            fwd_query = dict(query)
+            if fwd_query.get("type") == "auto":
+                # the negotiated type: the owner has no Accept header
+                fwd_query["type"] = prepared.opts.type
+            fwd = await flc.try_forward(op_name, fwd_query, buf, skey)
+            if fwd is not None:
+                out, placement = fwd
+                if caches.result.enabled:
+                    caches.result.put(key, (out, placement), len(out.body))
+                if tr is not None:
+                    tr.annotate(cache="fleet_forward", placement=placement)
+                return self._web_response(self._build_response(
+                    out, op_name, prepared.vary, placement, etag))
 
         async def work() -> tuple:
             watermark = None
@@ -478,22 +647,32 @@ class ImageService:
                 except Exception as e:
                     # ref: handlers.py:787-790, as a failure of the work
                     raise new_error("Error processing image: " + str(e), 400) from None
-            with self._inflight_lock:
-                self._inflight += 1
-            ctx = contextvars.copy_context()
-            fut = self.pool.submit(ctx.run, self._process_counted, op_name, bytes(buf),
-                                   query, request.headers, prepared, watermark, digest)
-            fut.add_done_callback(self._release_if_cancelled)
-            return await asyncio.wrap_future(fut)
+            return await self._dispatch(op_name, buf, query, request.headers, prepared,
+                                        digest, watermark)
 
         async def run_work() -> tuple:
+            body_fn = work
+            if flc is not None and key is not None:
+                # fleet singleflight: N workers x one digest run the
+                # pipeline once fleet-wide; the claim runner deposits in
+                # the shm tier before its claim drops, and every failure
+                # runs locally
+                async def produce() -> tuple:
+                    out, placement, _vary = await work()
+                    return out, placement
+
+                async def claimed() -> tuple:
+                    out, placement = await flc.run_claimed(key, skey, produce, caches)
+                    return out, placement, prepared.vary
+
+                body_fn = claimed
             if caches.coalesce and key is not None:
                 # singleflight: one pool dispatch (one _inflight unit) for
                 # every concurrent identical request; each waiter is
                 # shielded, so a waiter's cancellation (its deadline, a
                 # disconnect) never cancels the shared run
-                return await caches.flight.run(key, work)
-            return await work()
+                return await caches.flight.run(key, body_fn)
+            return await body_fn()
 
         dl = deadline_mod.current()
         if dl is None:
@@ -515,9 +694,28 @@ class ImageService:
             # the placement rides along, so a replayed answer carries the
             # X-Imaginary-Backend of the run that produced it
             caches.result.put(key, (out, placement), len(out.body))
+        if key is not None and flc is None:
+            # the fleet deposit (a no-op without the shm tier), refused
+            # when this worker is fenced; with coherence the claim runner
+            # has deposited already
+            caches.shm_store(key, out, placement)
         if prepared is not None:  # a coalesced waiter's own negotiation
             vary = prepared.vary
         return self._web_response(self._build_response(out, op_name, vary, placement, etag))
+
+    async def _dispatch(self, op_name, buf, query, headers, prepared, digest,
+                        watermark=None) -> tuple:
+        """One run of the core on the host pool under the caller's context:
+        (out, placement, vary). The inflight ledger decrements in the pool
+        thread; a task cancelled while still queued never runs, and the
+        done-callback balances it."""
+        with self._inflight_lock:
+            self._inflight += 1
+        ctx = contextvars.copy_context()
+        fut = self.pool.submit(ctx.run, self._process_counted, op_name, bytes(buf),
+                               query, headers, prepared, watermark, digest)
+        fut.add_done_callback(self._release_if_cancelled)
+        return await asyncio.wrap_future(fut)
 
     @staticmethod
     def _web_response(got: "Response") -> web.Response:
@@ -703,10 +901,18 @@ class ImageService:
             headers["Vary"] = vary
         if etag:
             headers["ETag"] = etag
-        # every image the pipeline answers carries its output geometry
+        # every image the pipeline answers carries its output geometry; a
+        # fleet tier entry carries none, and its header is probed
         if self.options.return_size and out.mime != "application/json":
-            headers["Image-Width"] = str(out.width)
-            headers["Image-Height"] = str(out.height)
+            w, h = out.width, out.height
+            if not (w and h):
+                try:
+                    m = codecs.probe(bytes(memoryview(out.body)[:_PROBE_PREFIX]))
+                    w, h = m.width, m.height
+                except ImageError:
+                    w = h = 0
+            headers["Image-Width"] = str(w)
+            headers["Image-Height"] = str(h)
         return Response(200, out.mime, out.body, headers)
 
     # -- placeholders -----------------------------------------------------------

@@ -2,8 +2,9 @@
 ref: health.go:17-63).
 
 The reference's keys for what the port has: process RSS, threads, GC
-collections, the serving process (`worker` and `epoch`: a single process
-is worker 0 of epoch 0), the device inventory, the executor's block (with
+collections, the serving process (`worker` and `epoch`, the supervisor's
+stamps from the environment, web/workers.py: a process that no
+supervisor spawned is worker 0 of epoch 0), the device inventory, the executor's block (with
 the link ledger `wire_bytes`/`wire_transfers`, donation and the pressure
 rungs' counts), the fault domains (`deviceHealth`), integrity's counters
 with `--integrity`, the qos block with `--qos-config`, the pressure
@@ -12,7 +13,9 @@ governor's with `--pressure-rss-mb`, the SLO burn rates with
 `--cost-attribution` (`capacity`, obs/cost.py), the native codec's
 scratch `arena`, the stage times, the estimated queueing delay, the
 cache tiers' counters (`cache`, always present, as in the reference),
-the read guard's counters with `--read-timeout` (`ingress`,
+the fleet shm tier's block with `--fleet-cache-mb` (`fleet`, with the
+ownership plane's `coherence` under `--fleet-coherence`), the read
+guard's counters with `--read-timeout` (`ingress`,
 web/ingress.py) and the event-loop lag probe's last sample (`eventLoop`,
 obs/looplag.py, once it has taken one). Beside them, the port's own: the
 device, each kernel's launch count, the codec route of each format and
@@ -34,6 +37,7 @@ from imaginary_tpu_torch.codecs import native_backend
 from imaginary_tpu_torch.engine.timing import TIMES
 from imaginary_tpu_torch.obs import looplag
 from imaginary_tpu_torch.web.ingress import STATS as INGRESS_STATS
+from imaginary_tpu_torch.web.workers import worker_epoch, worker_index
 
 
 def _rss_mb() -> float:
@@ -59,8 +63,10 @@ def get_health_stats(service) -> dict:
         "cpus": os.cpu_count() or 1,
         "gcCollections": sum(s["collections"] for s in gc.get_stats()),
         "pid": os.getpid(),
-        "worker": 0,
-        "epoch": 0,
+        # which serving process answered, and the supervisor's fencing
+        # generation for it: the roll's ready gate matches on both
+        "worker": worker_index(),
+        "epoch": worker_epoch(),
         "devices": torch.cuda.device_count() if cuda else 1,
         "backend": device.type,
         "device": str(device),
@@ -98,6 +104,11 @@ def get_health_stats(service) -> dict:
     stats["estimatedQueueMs"] = round(service.estimated_queue_ms(), 2)
     # the cache tiers' hits, misses, evictions, occupancy and coalescing
     stats["cache"] = service.caches.to_dict()
+    shm = service.caches.shm
+    if shm is not None:  # this worker's fence state, the slot scan, its counters
+        stats["fleet"] = shm.snapshot()
+        if service.coherence is not None:  # the ring and the hop's outcomes
+            stats["fleet"]["coherence"] = service.coherence.snapshot()
     if service.options.read_timeout_s > 0:  # the read guard's counters
         stats["ingress"] = INGRESS_STATS.to_dict()
     loop_lag = looplag.snapshot()

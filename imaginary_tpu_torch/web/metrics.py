@@ -18,9 +18,10 @@ per family, label values escaped, families grouped):
      `imaginary_tpu_event_loop_lag_seconds`) and the RED counters per
      route x status class.
 
-The fleet families belong to the --workers supervisor, which the port
-does not have yet; they are absent, as the reference leaves them out
-when the fleet is off.
+With --fleet-cache-mb, the fleet shm tier's families
+(`imaginary_tpu_fleet_*`: this worker's epoch and fence, the shared slot
+scan and its counters); absent when the tier is off, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -97,6 +98,7 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
     pressure: dict = {}
     arena: dict = {}
     ingress: dict = {}
+    fleet: dict = {}
     slo: dict = {}
     capacity: dict = {}
     event_loop: dict = {}
@@ -139,6 +141,8 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
             arena = value
         elif key == "ingress" and isinstance(value, dict):
             ingress = value
+        elif key == "fleet" and isinstance(value, dict):
+            fleet = value
         elif key == "slo" and isinstance(value, dict):
             slo = value
         elif key == "capacity" and isinstance(value, dict):
@@ -320,6 +324,71 @@ def render_metrics(stats: dict, exemplars: bool = False) -> str:
                pressure.get("pixel_clamps", 0), mtype="counter",
                help_text="Requests rejected 413 by the critical-rung "
                          "pixel-admission clamp.")
+    if fleet:
+        x.emit("imaginary_tpu_fleet_epoch", fleet.get("epoch", 0),
+               help_text="This worker's supervisor-stamped fencing "
+                         "generation (monotonic across the fleet).")
+        x.emit("imaginary_tpu_fleet_fenced", fleet.get("fenced", False),
+               help_text="1 when a successor epoch has been stamped for "
+                         "this worker index: reads allowed, publishes "
+                         "refused (deposed zombie).")
+        x.emit("imaginary_tpu_fleet_slots", fleet.get("slots", 0),
+               help_text="Total slots in the shared mmap result cache.")
+        x.emit("imaginary_tpu_fleet_slots_sealed", fleet.get("sealed", 0),
+               help_text="Slots holding a published, checksummed entry.")
+        x.emit("imaginary_tpu_fleet_slots_writing", fleet.get("writing", 0),
+               help_text="Slots mid-deposit (or torn by a dead writer, "
+                         "until the sweeper reclaims them).")
+        x.emit("imaginary_tpu_fleet_slots_free", fleet.get("free", 0),
+               help_text="Unoccupied shared-cache slots.")
+        x.emit("imaginary_tpu_fleet_sealed_bytes",
+               fleet.get("sealed_bytes", 0),
+               help_text="Payload bytes held by sealed shared-cache "
+                         "entries.")
+        x.emit("imaginary_tpu_fleet_cache_hits_total", fleet.get("hits", 0),
+               mtype="counter",
+               help_text="Shared-cache lookups served from a verified "
+                         "sealed entry (this worker's view).")
+        x.emit("imaginary_tpu_fleet_cache_misses_total",
+               fleet.get("misses", 0), mtype="counter",
+               help_text="Shared-cache lookups that found no usable "
+                         "entry (this worker's view).")
+        x.emit("imaginary_tpu_fleet_cache_publishes_total",
+               fleet.get("publishes", 0), mtype="counter",
+               help_text="Entries this worker sealed into the shared "
+                         "cache (two-phase write-then-publish).")
+        x.emit("imaginary_tpu_fleet_cache_fenced_publishes_total",
+               fleet.get("fenced_publishes", 0), mtype="counter",
+               help_text="Publishes refused because this worker's epoch "
+                         "is deposed (zombie-writer fence).")
+        x.emit("imaginary_tpu_fleet_cache_torn_reclaimed_total",
+               fleet.get("torn_reclaimed", 0), mtype="counter",
+               help_text="Slots abandoned by a writer that died "
+                         "mid-deposit, reclaimed by this worker or its "
+                         "sweeper.")
+        x.emit("imaginary_tpu_fleet_cache_corrupt_total",
+               fleet.get("corrupt", 0), mtype="counter",
+               help_text="Sealed entries whose blake2b checksum failed "
+                         "verification: counted, reclaimed, degraded to "
+                         "a miss.")
+        x.emit("imaginary_tpu_fleet_cache_corrupt_served_total",
+               fleet.get("corrupt_served", 0), mtype="counter",
+               help_text="Responses served from an entry that failed "
+                         "verification — the tripwire the chaos harness "
+                         "pins to zero.")
+        x.emit("imaginary_tpu_fleet_cache_evictions_total",
+               fleet.get("evictions", 0), mtype="counter",
+               help_text="Sealed entries overwritten by a colliding "
+                         "deposit (oldest-recency victim).")
+        x.emit("imaginary_tpu_fleet_cache_publish_oversize_total",
+               fleet.get("publish_oversize", 0), mtype="counter",
+               help_text="Deposits refused because the payload exceeds "
+                         "one slot (entry stays local-tier-only).")
+        x.emit("imaginary_tpu_fleet_cache_publish_contended_total",
+               fleet.get("publish_contended", 0), mtype="counter",
+               help_text="Deposits skipped because every candidate slot "
+                         "was held by a live writer (or the deposit "
+                         "errored mid-write).")
     if ingress:
         x.emit("imaginary_tpu_ingress_read_timeouts_total",
                ingress.get("read_timeouts", 0), mtype="counter",

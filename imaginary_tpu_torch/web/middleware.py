@@ -154,6 +154,12 @@ def trace_middleware(o: ServerOptions, qos=None, pressure=None, slo=None, cost=N
     with its verdict, and with --wide-events written to `events_out`
     unless it lost the roll."""
 
+    from imaginary_tpu_torch.web.workers import worker_epoch, worker_index
+
+    # fixed for the life of a serving process: the supervisor stamps both
+    # into its environment before the exec
+    widx, wepoch = worker_index(), worker_epoch()
+
     @web.middleware
     async def mw(request: web.Request, handler):
         rid = obs_trace.sanitize_request_id(
@@ -261,6 +267,10 @@ def trace_middleware(o: ServerOptions, qos=None, pressure=None, slo=None, cost=N
                     remote=request.remote or "-",
                     duration_ms=round(elapsed * 1000.0, 3),
                     bytes_out=(resp.content_length or 0) if resp is not None else 0,
+                    # a fleet's merged streams name the process and its
+                    # fencing generation
+                    worker=widx,
+                    epoch=wepoch,
                 )
                 # classified before the slow ring notes it, so /debugz shows
                 # the verdict the emitted line carries

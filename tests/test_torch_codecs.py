@@ -328,7 +328,9 @@ def test_rgba_gif_keeps_the_references_alpha_mask(monkeypatch):
 
 def test_opaque_gif_and_palette_png_are_unchanged():
     """Frames without a pixel under alpha 128 encode exactly as Pillow
-    saves them, and palette PNGs keep their alpha."""
+    saves them as GIF, and as a palette PNG with Pillow's palette colours
+    and no transparency; a palette PNG with such pixels takes the GIF's
+    rule (alpha 0 below 128, else 255; the reference's native rule)."""
     rng = np.random.default_rng(11)
     rgb = rng.integers(0, 256, (24, 40, 3), dtype=np.uint8)
     rgba = np.dstack([rgb, np.full((24, 40), 200, np.uint8)])
@@ -336,9 +338,120 @@ def test_opaque_gif_and_palette_png_are_unchanged():
         want = io.BytesIO()
         Image.fromarray(arr).save(want, "GIF")
         assert pil_backend.encode(arr, EncodeOptions(type=ImageType.GIF)) == want.getvalue()
+        got = Image.open(io.BytesIO(
+            pil_backend.encode(arr, EncodeOptions(type=ImageType.PNG, palette=True))))
+        assert got.mode == "P" and "transparency" not in got.info
+        pillow = Image.fromarray(rgb).convert("P", palette=Image.Palette.ADAPTIVE)
+        assert np.array_equal(np.asarray(got.convert("RGB")), np.asarray(pillow.convert("RGB")))
     ramp = np.dstack([rgb, np.tile(np.arange(40, dtype=np.uint8) * 6, (24, 1))])
-    want = io.BytesIO()
-    Image.fromarray(ramp).convert("P", palette=Image.Palette.ADAPTIVE).save(
-        want, "PNG", compress_level=6)
-    got = pil_backend.encode(ramp, EncodeOptions(type=ImageType.PNG, palette=True))
-    assert got == want.getvalue()
+    got = np.asarray(Image.open(io.BytesIO(
+        pil_backend.encode(ramp, EncodeOptions(type=ImageType.PNG, palette=True)))).convert("RGBA"))
+    assert np.array_equal(got[..., 3], np.where(ramp[..., 3] < 128, 0, 255))
+
+
+def _reference_and_port(op: str, buf: bytes, query: dict):
+    """The answers of the reference's pipeline (its app's processing, on
+    its native codec) and the port's to one request."""
+    from imaginary_tpu import pipeline as jpipeline
+    from imaginary_tpu.params import build_params_from_query as jquery
+    from imaginary_tpu_torch import pipeline as ppipeline
+    from imaginary_tpu_torch.params import build_params_from_query as pquery
+
+    assert jnative.available(), "the reference's native codec sets the rules held here"
+    want = jpipeline.process_operation(op, buf, jquery(dict(query)))
+    got = ppipeline.process_operation(op, buf, pquery(dict(query)), device="cpu")
+    assert got.mime == want.mime
+    return got.body, want.body
+
+
+@pytest.mark.parametrize("op,query", [
+    ("resize", {"width": "64", "type": "png", "palette": "true"}),
+    ("convert", {"type": "png", "palette": "true"}),
+])
+def test_palette_png_keeps_the_references_alpha_mask(op, query):
+    """`palette=true` PNG of an RGBA source: the alpha mask equals the
+    reference app's (two values, 0 below alpha 128)."""
+    got, want = _reference_and_port(op, _alpha_ramp_png(), query)
+    g = np.asarray(Image.open(io.BytesIO(got)).convert("RGBA"))
+    w = np.asarray(Image.open(io.BytesIO(want)).convert("RGBA"))
+    assert g.shape == w.shape
+    assert set(np.unique(w[..., 3]).tolist()) == {0, 255}
+    assert np.array_equal(g[..., 3], w[..., 3])
+
+
+def test_interlaced_png_is_adam7_with_the_references_pixels():
+    """/resize?width=100&interlace=true&type=png on large.jpg: IHDR's
+    interlace byte is 1 in both answers, and the pixels agree within
+    1 LSB."""
+    got, want = _reference_and_port(
+        "resize", fixture_bytes("large.jpg"),
+        {"width": "100", "interlace": "true", "type": "png"})
+    assert got[28] == want[28] == 1
+    g = np.asarray(Image.open(io.BytesIO(got)).convert("RGB")).astype(int)
+    w = np.asarray(Image.open(io.BytesIO(want)).convert("RGB")).astype(int)
+    assert g.shape == w.shape and np.abs(g - w).max() <= 1
+
+
+def _tiff_compression(body: bytes) -> int:
+    return Image.open(io.BytesIO(body)).tag_v2[259]
+
+
+def test_tiff_out_is_lzw_like_the_reference():
+    got, want = _reference_and_port("resize", fixture_bytes("large.jpg"),
+                                    {"width": "100", "type": "tiff"})
+    assert _tiff_compression(got) == _tiff_compression(want) == 5
+    g = np.asarray(Image.open(io.BytesIO(got)).convert("RGB")).astype(int)
+    w = np.asarray(Image.open(io.BytesIO(want)).convert("RGB")).astype(int)
+    assert g.shape == w.shape and np.abs(g - w).max() <= 1
+
+
+def test_plain_png_ignores_compression_as_the_reference_does():
+    """Without interlace, palette or speed the reference's PNG writer is
+    libpng's simplified one, which never reads `compression`: both
+    answers are the same bytes at levels 1 and 9. With `speed` the
+    level is read again."""
+    buf = fixture_bytes("large.jpg")
+    bodies = {}
+    for level in ("1", "9"):
+        bodies[level] = _reference_and_port(
+            "resize", buf, {"width": "100", "type": "png", "compression": level})
+    assert bodies["1"][0] == bodies["9"][0] and bodies["1"][1] == bodies["9"][1]
+    assert bodies["1"][0][28] == 0
+    fast = [_reference_and_port("resize", buf, {"width": "100", "type": "png",
+                                                "compression": lv, "speed": "1"})
+            for lv in ("1", "9")]
+    assert len(fast[0][0]) > len(fast[1][0]) and len(fast[0][1]) > len(fast[1][1])
+
+
+@pytest.mark.parametrize("speed", [0, 1, 5, 8])
+@pytest.mark.parametrize("interlace", [False, True])
+@pytest.mark.parametrize("form", ["gray", "gray-alpha", "rgb", "rgba", "palette"])
+def test_png_writer_round_trips(form, interlace, speed):
+    """Every colour type the writer takes, Adam7 or not, at each speed's
+    filters, on odd dims smaller than one Adam7 block and larger: Pillow
+    reads back the samples written, and the IHDR says the interlace."""
+    from imaginary_tpu_torch.codecs import png_writer
+
+    rng = np.random.default_rng(5)
+    for h, w in ((1, 1), (3, 5), (19, 37)):
+        kw = {}
+        if form == "palette":
+            pal = rng.integers(0, 256, (7, 3), dtype=np.uint8)
+            pixels = rng.integers(0, 7, (h, w), dtype=np.uint8)
+            trns = np.array([255, 0, 255], np.uint8)
+            kw = dict(palette=pal, transparent=trns)
+            alpha = np.where(pixels == 1, 0, 255)
+            want = np.dstack([pal[pixels], alpha]).astype(np.uint8)
+        else:
+            c = {"gray": 1, "gray-alpha": 2, "rgb": 3, "rgba": 4}[form]
+            pixels = rng.integers(0, 256, (h, w, c), dtype=np.uint8)
+            want = pixels
+        body = png_writer.encode(pixels, level=6, interlace=interlace, speed=speed, **kw)
+        assert body[28] == (1 if interlace else 0)
+        im = Image.open(io.BytesIO(body))
+        if form == "palette":
+            got = np.asarray(im.convert("RGBA"))
+        else:
+            got = np.asarray(im)
+            got = got[..., None] if got.ndim == 2 else got
+        assert np.array_equal(got, want)

@@ -19,8 +19,8 @@ and engine wiring) against the reference's, on the CPU.
   test_deadline_lands_in_wide_event_surfaces;
 - a parity group: the same requests to the reference's app (host_spill
   off: the port has no host path) and the port's with every plane armed:
-  the wide events' field names (but the reference's `worker` and `epoch`,
-  which come with its --workers supervisor), the `slo` and `capacity`
+  the wide events' field names (the supervisor's `worker` and `epoch`
+  among them), the `slo` and `capacity`
   key sets of /health, the new /metrics families and their types,
   /topz's keys, and the 404s of the gates with every plane off.
 """
@@ -1115,7 +1115,7 @@ class TestParity:
         assert len(got) == len(want) == len(PARITY_REQUESTS) + 5
         for g, w in zip(got, want):
             assert (g["method"], g["path"], g["status"]) == (w["method"], w["path"], w["status"])
-            want = set(w) - {"worker", "epoch"}
+            want = set(w)
             if g["status"] >= 400:
                 # the port's byte-touch ledger books no `ingress` stage, so a
                 # request refused before its decode copied nothing
