@@ -426,6 +426,32 @@ Phases, in order; any failure raises and exits non-zero:
    own launches: the kernels line's `launches_fleet` sums each worker
    incarnation's kernelLaunches as its /health last read them.
 
+21. two hosts of the port on the one card (`multihost_phase`): two
+   `--workers 2 --device cuda:0` supervisors, host-a and host-b, each
+   with its admin plane and its own shm file, cross-pointed `--peers`,
+   `--router`, `--peer-probe-interval 0.3`, `--fleet-cache-mb 64`,
+   `--enable-debug`, a `--pressure-rss-mb` governor and a qos policy with
+   a batch tenant; one process (`ServerProcess`) gives the answers they
+   must equal. Once each admin plane's `/fleetz?scope=cluster` shows the
+   other host alive and every worker has launched (requests pinned with
+   `X-Imaginary-Route: local`; a cold worker's first launch outlasts the
+   250 ms hop): (a) 32 config 1 variants (`/resize?width=W&height=200`)
+   to A: every answer byte-equal and stamped with A's `id:epoch`, the
+   B-owned ones (host rendezvous) forwarded (`forwards` > 0, none
+   fenced), B's answer to each of them stamped with B's `id:epoch`, B's
+   K1-K4 risen by at least the forwards, no worker placing work on the
+   host; the p50 of a forwarded and of a local request (no claim) and the
+   card's memory for the four contexts; (b) B's workers SIGKILLed with
+   B-owned requests sent to A at once (the dial refused:
+   `forward_fails` > 0), then B's supervisor: every answer from A 200 and
+   byte-equal; (c) B started again on its ports: A's gossip reads a
+   greater epoch and the forwards resume; (d) A held at the critical
+   rung (`memory.rss=error` through /debugz/failpoints on each worker):
+   its batch-class requests answer 200 from B (`spills`), then with B
+   critical too, 503 with Retry-After and nothing more served by B. The
+   kernels line's `launches_multihost` sums the one process's and every
+   worker's launches.
+
 It ends with the card's `nvidia-smi` name and power limit, one
 `{"kernels": [...]}` line, and the last line
 `{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}`.
@@ -7874,10 +7900,10 @@ class FleetProcess:
     and .err. `latest` keeps each worker incarnation's (index, epoch) last
     /health read, whose kernelLaunches are that process's launches."""
 
-    def __init__(self, name: str, workers: int, args: list):
+    def __init__(self, name: str, workers: int, args: list, port=None, env=None):
         self.name = name
         self.workers = workers
-        self.port = free_port()
+        self.port = port or free_port()
         self.latest: dict = {}
         os.makedirs(OUT_DIR, exist_ok=True)
         self.out_path = os.path.join(OUT_DIR, f"{name}.out")
@@ -7889,7 +7915,7 @@ class FleetProcess:
             [sys.executable, "-m", "imaginary_tpu_torch.cli", "--workers", str(workers),
              "--addr", "127.0.0.1", "--port", str(self.port), "--device", fleet_device(),
              "--log-level", "error", "--mount", TESTDATA] + args,
-            cwd=ROOT, stdout=self._out, stderr=self._err)
+            cwd=ROOT, stdout=self._out, stderr=self._err, env=env)
         try:
             self.boot = self.wait_workers(FLEET_BOOT_S)
         except BaseException:
@@ -8302,6 +8328,455 @@ def fleet_phase(smi: str) -> dict:
     return out
 
 
+# -- phase 21: two hosts of the port on one card ------------------------------
+
+MH_PROBE = "0.3"  # --peer-probe-interval
+MH_CONVERGE_S = 60  # gossip crossing both ways (and a restarted host's new epoch)
+MH_HUNT = range(321, 353)  # (a): 32 config 1 variants, about half of them owned by B
+MH_BURST = range(353, 385)  # (b): the B-owned ones sent the instant B's workers die
+MH_AFTER = range(385, 401)  # (b): after B is gone
+MH_RESUME = range(401, 433)  # (c)
+MH_SPILL = range(433, 441)  # (d): four spilled, four shed
+MH_BURST_CLIENTS = 8
+MH_QOS = json.dumps({"default": {"class": "standard"},
+                     "tenants": [{"name": "bulk", "class": "batch", "api_keys": ["bulk-key"]}]})
+MH_ROUTE = "X-Imaginary-Route"
+MH_EPOCH = "X-Imaginary-Host-Epoch"
+MH_COUNTERS = ("forwards", "forward_fails", "fenced_answers", "spills", "spill_fails",
+               "served_for_peer", "local_fallbacks")
+
+
+def mh_path(width: int) -> str:
+    return f"/resize?width={width}&height=200"
+
+
+def mh_owner(buf: bytes, width: int) -> str:
+    """The owner host of config 1 at `width`: host rendezvous over the
+    request's shared key, as the hosts' routers elect it."""
+    from imaginary_tpu_torch import cache
+    from imaginary_tpu_torch.fleet import multihost
+    from imaginary_tpu_torch.params import build_params_from_query
+
+    opts = build_params_from_query({"width": str(width), "height": "200"})
+    skey = cache.shared_key(cache.request_key(cache.source_digest(buf), "resize", opts))
+    return multihost.rendezvous_host(["host-a", "host-b"], skey)
+
+
+def mh_host(name: str, hid: str, port: int, admin: int, peer_admin: int) -> FleetProcess:
+    """One host: a supervisor of two workers on card 0 with its admin plane,
+    pointed at the other host's admin plane, routing on, its own shm file
+    (no inherited fleet path or host identity)."""
+    env = dict(os.environ)
+    for name_ in ("IMAGINARY_TPU_FLEET_PATH", "IMAGINARY_TPU_HOST_ID",
+                  "IMAGINARY_TPU_HOST_EPOCH"):
+        env.pop(name_, None)
+    return FleetProcess(name, 2, [
+        "--host-id", hid, "--peers", f"http://127.0.0.1:{peer_admin}", "--router",
+        "--peer-probe-interval", MH_PROBE, "--fleet-cache-mb", "64",
+        "--fleet-admin-port", str(admin), "--enable-debug",
+        "--pressure-rss-mb", "1000000", "--qos-config", MH_QOS], port=port, env=env)
+
+
+def mh_stats(host: FleetProcess) -> tuple:
+    """({index: /health}, the host's summed cross-host counters)."""
+    seen = host.wait_workers(30)
+    tot = {k: sum(h["multihost"][k] for h in seen.values()) for k in MH_COUNTERS}
+    return seen, tot
+
+
+def mh_identity(host: FleetProcess) -> str:
+    h = host.health()["host"]
+    return f"{h['id']}:{h['epoch']}"
+
+
+def mh_cluster(admin: int) -> dict:
+    return json.loads(http_get(admin, "/fleetz?scope=cluster")[2])
+
+
+def mh_wait_peer(admin: int, hid: str, newer_than: int = 0) -> dict:
+    """The admin plane's cluster view once `hid` reads alive at an epoch
+    above `newer_than`."""
+    deadline = time.monotonic() + MH_CONVERGE_S
+    while True:
+        try:
+            view = mh_cluster(admin)
+            rec = view.get("hosts", {}).get(hid, {})
+            if rec.get("alive") and rec.get("epoch", 0) > newer_than:
+                return view
+        except (OSError, ValueError):
+            pass
+        if time.monotonic() > deadline:
+            raise AssertionError(f"the admin plane on {admin} never saw {hid} alive above "
+                                 f"epoch {newer_than}")
+        time.sleep(0.3)
+
+
+def mh_warm(host: FleetProcess, buf: bytes) -> int:
+    """Requests pinned to the host (X-Imaginary-Route: local) until each of
+    its workers has launched: a cold worker's first launch outlasts the
+    250 ms hop, and its forwarder would then run locally."""
+    deadline = time.monotonic() + 60
+    n = 0
+    while True:
+        seen = host.wait_workers(30)
+        if DEVICE == "cpu" or min(h["kernelLaunches"]["resample"] for h in seen.values()):
+            return n
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{host.name}: a worker never launched")
+        http_get(host.port, mh_path(280 + n % 16), {"Content-Type": "image/jpeg",
+                                                    MH_ROUTE: "local"}, "POST", buf)
+        n += 1
+
+
+def mh_post(port: int, path: str, buf: bytes) -> tuple:
+    """(status, headers, body, ms) of one config 1 POST."""
+    t0 = time.perf_counter()
+    status, headers, body = http_get(port, path, {"Content-Type": "image/jpeg",
+                                                  "Connection": "close"}, "POST", buf)
+    return status, headers, body, (time.perf_counter() - t0) * 1e3
+
+
+def mh_check(host: FleetProcess, seen: dict) -> dict:
+    """Every worker serves on cuda:0 and placed nothing on the host; its
+    config 1 launches."""
+    out = {}
+    for w, h in sorted(seen.items()):
+        if h["device"] != fleet_device():
+            raise AssertionError(f"{host.name} worker {w} serves on {h['device']}")
+        if host_placements(h):
+            raise AssertionError(f"{host.name} worker {w} placed work on the host: "
+                                 f"{h['executor']}")
+        out[w] = {k: h["kernelLaunches"][k] for k in CONFIG1_KERNELS}
+    return out
+
+
+def mh_summed(launches: dict) -> dict:
+    return {k: sum(rec[k] for rec in launches.values()) for k in CONFIG1_KERNELS}
+
+
+def mh_forward_case(a, b, buf: bytes, want: dict, smi: str, base_mib, base_apps) -> dict:
+    """(a): config 1 variants to A until the owner host B served some over
+    the hop; every answer byte-equal to one process's, B's stamp on its own
+    answers, B's workers launching, nothing on the host."""
+    ids = {"a": mh_identity(a), "b": mh_identity(b)}
+    _, a0 = mh_stats(a)
+    seen_b0, b0 = mh_stats(b)
+    b_launch0 = mh_summed(mh_check(b, seen_b0))
+    lat: dict = {"host-a": [], "host-b": []}
+    owners = {}
+    for w in MH_HUNT:
+        status, headers, body, ms = mh_post(a.port, mh_path(w), buf)
+        if status != 200 or body != want[w]:
+            raise AssertionError(f"A's /resize?width={w}: {status}, byte-equal {body == want[w]}")
+        if headers.get(MH_EPOCH) != ids["a"]:
+            raise AssertionError(f"A's answer is stamped {headers.get(MH_EPOCH)}, not {ids['a']}")
+        owners[w] = mh_owner(buf, w)
+        lat[owners[w]].append(ms)
+    seen_a, a1 = mh_stats(a)
+    seen_b, b1 = mh_stats(b)
+    b_launch1 = mh_summed(mh_check(b, seen_b))
+    mh_check(a, seen_a)
+    forwards = a1["forwards"] - a0["forwards"]
+    served = b1["served_for_peer"] - b0["served_for_peer"]
+    fenced = a1["fenced_answers"] - a0["fenced_answers"]
+    rise = {k: b_launch1[k] - b_launch0[k] for k in CONFIG1_KERNELS}
+    b_owned = [w for w in MH_HUNT if owners[w] == "host-b"]
+    if forwards < 1 or served < forwards or fenced:
+        raise AssertionError(f"the hop: {forwards} forwards, {served} served for a peer, "
+                             f"{fenced} fenced answers over {len(b_owned)} B-owned digests")
+    if DEVICE != "cpu" and min(rise.values()) < forwards:
+        raise AssertionError(f"B's workers launched {rise} for {forwards} forwards")
+    # the owner's answer to the same request: byte-equal, stamped with B's
+    # identity (the stamp the forwarder's fence check read)
+    for w in b_owned:
+        status, headers, body, _ = mh_post(b.port, mh_path(w), buf)
+        if status != 200 or body != want[w] or headers.get(MH_EPOCH) != ids["b"]:
+            raise AssertionError(f"B's /resize?width={w}: {status} stamped "
+                                 f"{headers.get(MH_EPOCH)}, byte-equal {body == want[w]}")
+    apps = compute_apps()
+    used = device_used_mib()
+    memory = {"compute_apps": apps, "base_apps": base_apps, "device_used_mib": used,
+              "base_mib": base_mib}
+    if used is not None and base_mib is not None:
+        memory["per_context_mib"] = (used - base_mib) / 4
+    p50 = {k: statistics.median(v) if v else None for k, v in lat.items()}
+    out = {"identities": ids, "forwards": forwards, "served_for_peer": served,
+           "fenced_answers": fenced, "b_owned": len(b_owned), "hunted": len(MH_HUNT),
+           "b_launch_rise": rise, "lat_ms": lat, "p50_local_ms": p50["host-a"],
+           "p50_forwarded_ms": p50["host-b"], "memory": memory,
+           "a_counters": a1, "b_counters": b1}
+    log(f"  (a) {len(MH_HUNT)} config 1 variants to A ({ids['a']}): {forwards} forwarded to B "
+        f"({ids['b']}), {served} served for a peer, {fenced} fenced; all byte-equal to one "
+        f"process and stamped {ids['a']}; B's answers to the same {len(b_owned)} B-owned "
+        f"requests stamped {ids['b']}; B's K1-K4 rose {rise}; no host placement")
+    log(f"      p50 forwarded {p50['host-b']:.2f} ms ({len(lat['host-b'])}) against local "
+        f"{p50['host-a']:.2f} ms ({len(lat['host-a'])}), one request at a time, each digest "
+        f"computed once (no claim)  [{smi}]")
+    log(f"      device memory: nvidia-smi's compute apps {apps} (before the hosts: "
+        f"{base_apps}); the card's used memory rose "
+        f"{(used - base_mib) if used is not None else 0:.0f} MiB for the four workers, "
+        f"{memory.get('per_context_mib', 0):.0f} MiB a context")
+    return out
+
+
+def mh_children(pid: int) -> list:
+    """The child pids of `pid` (a supervisor's workers, respawns included)."""
+    try:
+        with open(f"/proc/{pid}/task/{pid}/children") as f:
+            return [int(c) for c in f.read().split()]
+    except OSError:
+        return []
+
+
+def mh_failopen_case(a, b, buf: bytes, want: dict) -> dict:
+    """(b): SIGKILL B's workers, send B-owned digests to A at once (B's admin
+    plane still answers gossip: the dial is refused), then SIGKILL B's
+    supervisor; every answer from A is 200 and byte-equal."""
+    import signal
+
+    _, a0 = mh_stats(a)
+    seen_b = b.wait_workers(30)
+    sup = b.proc.pid
+    burst = [w for w in MH_BURST if mh_owner(buf, w) == "host-b"]
+    answers: list = []
+    lock = threading.Lock()
+
+    def client(widths):
+        for w in widths:
+            try:
+                status, _, body, _ = mh_post(a.port, mh_path(w), buf)
+                got = (w, status, body == want[w])
+            except OSError as e:
+                got = (w, repr(e), False)
+            with lock:
+                answers.append(got)
+
+    for h in seen_b.values():
+        os.kill(h["pid"], signal.SIGKILL)
+    t_kill = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(burst[i::MH_BURST_CLIENTS],))
+               for i in range(MH_BURST_CLIENTS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    burst_s = time.perf_counter() - t_kill
+    for pid in [sup] + mh_children(sup):
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    b.proc.wait(timeout=30)
+    b.stop()
+    try:  # the killed supervisor's shm file
+        os.unlink(f"/dev/shm/imaginary-fleet-{sup}.shm")
+    except OSError:
+        pass
+    for w in MH_AFTER:
+        try:
+            status, _, body, _ = mh_post(a.port, mh_path(w), buf)
+            answers.append((w, status, body == want[w]))
+        except OSError as e:
+            answers.append((w, repr(e), False))
+    seen_a, a1 = mh_stats(a)
+    mh_check(a, seen_a)
+    bad = [x for x in answers if x[1:] != (200, True)]
+    fails = {k: a1[k] - a0[k] for k in ("forward_fails", "local_fallbacks", "forwards")}
+    if bad:
+        raise AssertionError(f"A answered {bad[:5]} with B gone")
+    if fails["forward_fails"] + fails["local_fallbacks"] < 1:
+        raise AssertionError(f"no hop failed open: {fails}")
+    out = {"answers": len(answers), "burst": len(burst), "burst_s": burst_s, **fails,
+           "killed": {"supervisor": sup, "workers": [h["pid"] for h in seen_b.values()]}}
+    log(f"  (b) B's workers and supervisor SIGKILLed: {len(answers)} answers from A "
+        f"({len(burst)} B-owned sent at once in {burst_s:.2f} s, {len(MH_AFTER)} after), all "
+        f"200 and byte-equal; forward_fails {fails['forward_fails']}, local_fallbacks "
+        f"{fails['local_fallbacks']}")
+    return out
+
+
+def mh_restart_case(a, admin_a: int, make_b, old_epoch: int, buf: bytes, want: dict):
+    """(c): B again, a new incarnation: gossip shows its greater epoch and
+    the forwards resume. Returns (report, the new host)."""
+    t0 = time.perf_counter()
+    b = make_b()
+    try:
+        view = mh_wait_peer(admin_a, "host-b", newer_than=old_epoch)
+        rec = view["hosts"]["host-b"]
+        warm = mh_warm(b, buf)
+        ident = mh_identity(b)
+        time.sleep(1.0)  # A's workers' own gossip, at 0.3 s a poll
+        _, a0 = mh_stats(a)
+        resumed = []
+        for w in MH_RESUME:
+            status, _, body, _ = mh_post(a.port, mh_path(w), buf)
+            if status != 200 or body != want[w]:
+                raise AssertionError(f"A's /resize?width={w} after B's restart: {status}, "
+                                     f"byte-equal {body == want[w]}")
+            if mh_owner(buf, w) == "host-b":
+                resumed.append(w)
+        seen_a, a1 = mh_stats(a)
+        mh_check(a, seen_a)
+        mh_check(b, b.wait_workers(30))
+        forwards = a1["forwards"] - a0["forwards"]
+        if forwards < 1 or a1["fenced_answers"] != a0["fenced_answers"]:
+            raise AssertionError(f"after B's restart: {forwards} forwards, fenced "
+                                 f"{a1['fenced_answers'] - a0['fenced_answers']}")
+        w = resumed[0]
+        status, headers, body, _ = mh_post(b.port, mh_path(w), buf)
+        if headers.get(MH_EPOCH) != ident or body != want[w]:
+            raise AssertionError(f"B's new answer is stamped {headers.get(MH_EPOCH)}")
+    except BaseException:
+        b.stop()
+        raise
+    out = {"old_epoch": old_epoch, "epoch": rec["epoch"], "epoch_bumps": rec.get("epoch_bumps"),
+           "identity": ident, "warm_requests": warm, "forwards": forwards,
+           "b_owned": len(resumed), "restart_s": time.perf_counter() - t0}
+    log(f"  (c) B restarted: gossip reads epoch {rec['epoch']} (was {old_epoch}, bumps "
+        f"{rec.get('epoch_bumps')}) in {out['restart_s']:.1f} s; {forwards} forwards over "
+        f"{len(resumed)} B-owned digests, all byte-equal")
+    return out, b
+
+
+def mh_arm(host: FleetProcess, spec: str, state: int) -> dict:
+    """Arm `spec` on every worker of `host` (PUT /debugz/failpoints, a
+    fresh connection each, until each worker's /health shows the pressure
+    state `state`)."""
+    deadline = time.monotonic() + 30
+    while True:
+        for _ in range(8):
+            http_get(host.port, "/debugz/failpoints", {"Connection": "close"}, "PUT",
+                     spec.encode())
+        time.sleep(0.35)  # past the governor's 0.25 s sample interval
+        seen = host.wait_workers(30)
+        states = {w: h["pressure"]["state"] for w, h in seen.items()}
+        if all(v == state for v in states.values()):
+            return states
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{host.name}: pressure states {states}, not {state}")
+
+
+def mh_spill_case(a, b, admin_a: int, admin_b: int, buf: bytes, want: dict) -> dict:
+    """(d): A at the critical rung (memory.rss); its batch-class requests
+    answer 200 from B, then with B critical too, A sheds 503 and nothing
+    ping-pongs."""
+    mh_arm(a, "memory.rss=error", 2)
+    _, a0 = mh_stats(a)
+    _, b0 = mh_stats(b)
+    spilled, shed = list(MH_SPILL[:4]), list(MH_SPILL[4:])
+    for w in spilled:
+        status, _, body, _ = mh_post(a.port, mh_path(w) + "&key=bulk-key", buf)
+        if status != 200 or body != want[w]:
+            raise AssertionError(f"A at critical, /resize?width={w}&key=bulk-key: {status}, "
+                                 f"byte-equal {body == want[w]}")
+    _, a1 = mh_stats(a)
+    _, b1 = mh_stats(b)
+    spills = a1["spills"] - a0["spills"]
+    if spills != len(spilled) or b1["served_for_peer"] - b0["served_for_peer"] < spills:
+        raise AssertionError(f"{spills} spills of {len(spilled)}, B served "
+                             f"{b1['served_for_peer'] - b0['served_for_peer']}")
+    mh_arm(b, "memory.rss=error", 2)
+    base_b = f"http://127.0.0.1:{admin_b}"
+    deadline = time.monotonic() + MH_CONVERGE_S
+    while mh_cluster(admin_a)["peers"][base_b]["state"]["pressure_level"] < 2:
+        if time.monotonic() > deadline:
+            raise AssertionError("A's gossip never read B at the critical rung")
+        time.sleep(0.3)
+    time.sleep(1.0)  # A's workers' own gossip
+    statuses = []
+    for w in shed:
+        status, headers, _, _ = mh_post(a.port, mh_path(w) + "&key=bulk-key", buf)
+        statuses.append(status)
+        if status != 503 or "Retry-After" not in headers:
+            raise AssertionError(f"A and B critical, /resize?width={w}: {status}")
+    _, a2 = mh_stats(a)
+    _, b2 = mh_stats(b)
+    if a2["spills"] != a1["spills"] or b2["served_for_peer"] != b1["served_for_peer"]:
+        raise AssertionError(f"with both critical: spills {a2['spills'] - a1['spills']}, B "
+                             f"served {b2['served_for_peer'] - b1['served_for_peer']}")
+    out = {"spills": spills, "spilled": len(spilled), "shed": statuses,
+           "spill_fails": a2["spill_fails"] - a0["spill_fails"]}
+    log(f"  (d) A critical: {spills} of {len(spilled)} batch-class requests answered 200 by B, "
+        f"byte-equal; A and B critical: {statuses}, no spill, B served nothing more")
+    return out
+
+
+def multihost_phase(smi: str) -> dict:
+    """Phase 21 (see the module docstring): two hosts of the port, each a
+    --workers 2 supervisor with its admin plane, on the one card, and one
+    process for the answers they must equal."""
+    import collections
+
+    t0 = time.perf_counter()
+    with open(LARGE_JPG, "rb") as f:
+        buf = f.read()
+    if DEVICE != "cpu":
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    base_mib, base_apps = device_used_mib(), compute_apps()
+    port_a, port_b, admin_a, admin_b = (free_port() for _ in range(4))
+
+    def make_b():
+        return mh_host("mh_host_b", "host-b", port_b, admin_b, admin_a)
+
+    pending = {"a": booting(lambda: mh_host("mh_host_a", "host-a", port_a, admin_a, admin_b)),
+               "b": booting(make_b)}
+    launches: collections.Counter = collections.Counter()
+    hosts: dict = {}
+    out: dict = {}
+    try:
+        single = ServerProcess("mh_single", [])
+        try:
+            want = {}
+            for w in list(MH_HUNT) + list(MH_BURST) + list(MH_AFTER) + list(MH_RESUME) \
+                    + list(MH_SPILL):
+                status, _, body = http(single.port, mh_path(w), buf)
+                if status != 200:
+                    raise AssertionError(f"one process: /resize?width={w} {status}")
+                want[w] = body
+            launches.update(single.health()["kernelLaunches"])
+        finally:
+            single.stop()
+        hosts["a"] = pending.pop("a")()
+        hosts["b"] = pending.pop("b")()
+        a, b = hosts["a"], hosts["b"]
+        out["boot_s"] = {"a": a.boot_s, "b": b.boot_s}
+        view = mh_wait_peer(admin_a, "host-b")
+        mh_wait_peer(admin_b, "host-a")
+        if not view["hosts"]["host-a"]["local"]:
+            raise AssertionError(f"A's cluster view: {view['hosts']}")
+        out["converge_s"] = time.perf_counter() - t0
+        out["warm"] = {"a": mh_warm(a, buf), "b": mh_warm(b, buf)}
+        time.sleep(1.0)  # each worker's own gossip has crossed too
+        out["forward"] = mh_forward_case(a, b, buf, want, smi, base_mib, base_apps)
+        old_epoch = int(out["forward"]["identities"]["b"].rsplit(":", 1)[1])
+        launches.update(b.launches())
+        hosts.pop("b")
+        out["failopen"] = mh_failopen_case(a, b, buf, want)
+        out["restart"], hosts["b"] = mh_restart_case(a, admin_a, make_b, old_epoch, buf, want)
+        out["spill"] = mh_spill_case(a, hosts["b"], admin_a, admin_b, buf, want)
+    finally:
+        for join in pending.values():
+            try:
+                join().stop()
+            except Exception as e:  # the step's own error is the one raised
+                log(f"  a host's boot failed too: {e}")
+        for host in hosts.values():
+            host.stop()
+            launches.update(host.launches())
+    out["launches"] = {k: launches.get(k, 0) for k in KERNEL_ROWS}
+    if DEVICE != "cpu":
+        for name in CONFIG1_KERNELS:
+            if out["launches"][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched in phase 21")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  launches_multihost (one process and every worker of both hosts, by /health): "
+        f"{out['launches']}; phase 21: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -8434,6 +8909,10 @@ def main() -> int:
         "a SIGHUP roll, a SIGKILLed worker, the shm tier, the forward hop, the claims and "
         "the admin plane)")
     report["fleet"] = fleet_phase(smi)
+    log("== phase 21: two hosts on the card (two --workers 2 supervisors with --peers, "
+        "--router and their admin planes: the cross-host hop, fail-open, a new "
+        "incarnation, spillover)")
+    report["multihost"] = multihost_phase(smi)
 
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
@@ -8473,6 +8952,7 @@ def main() -> int:
             "launches_vector": report["vector"]["launches"][name],
             "launches_obs": report["obs"]["launches"][name],
             "launches_fleet": report["fleet"]["launches"][name],
+            "launches_multihost": report["multihost"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],

@@ -16,6 +16,9 @@ server runs on the card: without CUDA it refuses to start unless
 `--device cpu` asks for the CPU, and `--require-device` refuses anything
 but a CUDA device. `--workers N` makes this process the supervisor of N
 serving processes on one port (web/workers.py), each on the same device.
+`--peers` arms the cross-host plane (fleet/multihost.py, fleet/router.py):
+the host identity is stamped into the environment here, once, so every
+worker a supervisor spawns inherits it.
 """
 
 from __future__ import annotations
@@ -236,6 +239,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "across respawns) and /fleetz (each worker's epoch, "
                         "restarts, liveness and /health); 0 disables; "
                         "meaningful only with --workers > 1")
+    p.add_argument("--peers",
+                   default=_env_str("IMAGINARY_TPU_PEERS", ""),
+                   help="peer supervisors' admin bases (http://host:admin-port) "
+                        "as a CSV/whitespace list or @file; arms the cross-host "
+                        "plane: host identity, /fleetz gossip, digest routing "
+                        "and pressure spillover; empty = entirely off")
+    p.add_argument("--router", action="store_true",
+                   default=_env_bool("IMAGINARY_TPU_ROUTER"),
+                   help="route non-owned digests one HTTP hop to the "
+                        "rendezvous owner host (requires --peers); without it "
+                        "only requests carrying an X-Imaginary-Route: route "
+                        "hint are routed")
+    p.add_argument("--host-id",
+                   default=_env_str("IMAGINARY_TPU_HOST_ID", ""),
+                   help="stable host identity for cross-host rendezvous and "
+                        "fencing (default: the hostname)")
+    p.add_argument("--peer-probe-interval", type=float,
+                   default=_env_float("IMAGINARY_TPU_PEER_PROBE_INTERVAL", 2.0),
+                   help="gossip's poll cadence against each peer's /fleetz, "
+                        "seconds")
     p.add_argument("--read-timeout", type=float,
                    default=_env_float("IMAGINARY_TPU_READ_TIMEOUT", 0.0),
                    help="close a connection whose request read (headers or "
@@ -566,6 +589,20 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         raise SystemExit(
             "--fleet-coherence/--fleet-qos require --fleet-cache-mb > 0 "
             "(the ownership/claim/qos tables live in the shared cache file)")
+    if args.router and not args.peers:
+        # a router with no peer table can never route
+        raise SystemExit("--router requires --peers (the routing ring is "
+                         "built from the gossiped peer table)")
+    if args.peers:
+        # an unreadable @file or an empty list refuses to start, never
+        # gossips into the void
+        from imaginary_tpu_torch.fleet import multihost
+
+        try:
+            if not multihost.parse_peers(args.peers):
+                raise ValueError("--peers resolved to an empty peer list")
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     if args.mesh_hosts > 1:
         if not args.coordinator_address:
             raise SystemExit("--mesh-hosts requires --coordinator-address (process 0 of "
@@ -627,6 +664,10 @@ def options_from_args(args: argparse.Namespace) -> ServerOptions:
         fleet_hop_ms=max(1.0, args.fleet_hop_ms),
         fleet_qos=args.fleet_qos,
         fleet_admin_port=max(0, args.fleet_admin_port),
+        peers=args.peers,
+        router=args.router,
+        host_id=args.host_id,
+        peer_probe_interval=max(0.05, args.peer_probe_interval),
         authorization=args.authorization,
         forward_headers=parse_forward_headers(args.forward_headers),
         placeholder=args.placeholder,
@@ -770,10 +811,11 @@ def main(argv=None) -> int:
     o = options_from_args(args)
     if args.gzip:  # ref: imaginary.go:168-171
         print("warning: -gzip flag is deprecated and will not have effect")
+    host_info = host_identity(o)
     from imaginary_tpu_torch.web.workers import WORKER_ENV
 
     if o.workers > 1 and WORKER_ENV not in os.environ:
-        return _supervise(args, o, argv)
+        return _supervise(args, o, argv, host_info)
     why = device_refusal(args)
     if why:
         print(f"imaginary_tpu_torch: refusing to start: {why}", file=sys.stderr)
@@ -799,12 +841,31 @@ def main(argv=None) -> int:
     return 0
 
 
-def _supervise(args: argparse.Namespace, o: ServerOptions, argv) -> int:
+def host_identity(o: ServerOptions):
+    """With --peers, this host's identity for the cross-host plane: the
+    (id, epoch) pair stamped into the environment once (so the workers a
+    supervisor spawns inherit the same incarnation, and never mint their
+    own epoch) and the serving base peers forward to. None without
+    --peers."""
+    if not o.peers:
+        return None
+    from imaginary_tpu_torch.fleet import multihost
+
+    hid, hepoch = multihost.ensure_host_identity(o.host_id)
+    scheme = "https" if o.cert_file and o.key_file else "http"
+    return {"id": hid, "epoch": hepoch,
+            "serve_url": (f"{scheme}://{o.address or '127.0.0.1'}:{o.port}"
+                          f"{o.path_prefix.rstrip('/')}")}
+
+
+def _supervise(args: argparse.Namespace, o: ServerOptions, argv, host_info=None) -> int:
     """The parent of a --workers fleet becomes its supervisor
     (web/workers.py): the device check (through NVML, never a CUDA
     context), the kernels built before the first spawn, the shared cache
     file created once for every worker, then the workers, each a fresh
-    `python -m imaginary_tpu_torch.cli` with the same arguments."""
+    `python -m imaginary_tpu_torch.cli` with the same arguments. With
+    --peers (`host_info`) it also runs the host's gossip and stamps the
+    host epoch into the shared cache file."""
     from imaginary_tpu_torch.web import workers
 
     # refuse loudly before any worker pays its boot
@@ -828,7 +889,8 @@ def _supervise(args: argparse.Namespace, o: ServerOptions, argv) -> int:
         return workers.run_supervisor(
             list(argv) if argv is not None else sys.argv[1:], o.workers,
             health_url=health_url, fleet=fleet, roll_grace_s=o.fleet_roll_grace_s,
-            admin_port=o.fleet_admin_port)
+            admin_port=o.fleet_admin_port, host_info=host_info, peers=o.peers,
+            peer_probe_interval=o.peer_probe_interval)
     finally:
         if fleet is not None:
             fleet.close()

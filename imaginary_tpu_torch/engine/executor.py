@@ -167,8 +167,18 @@ the port pads nothing (`_launch_chunk`).
 Multi-process serving: each process serves on its own devices; the
 process group (`parallel/mesh.init_distributed`, `--distributed`,
 `--mesh-hosts`) carries no serving collective, as the reference's does
-not. Not ported: the per-key refinement of the device price (the port
-prices the owed ledger by one measured rate).
+not.
+
+The device price: one global drain ms per wire MB (`_ms_per_mb`), and
+its per-chain-key refinement (`_rate_by_key`, the reference's
+executor.py:658-665, :1029-1038, :2867-2889): a drained chunk of one key
+books the same sample into its key's EWMA, seeded at most 16x the
+global, each later sample clamped to 4x the key's own history, the dict
+cleared when a 257th key arrives. `_rate_for` reads a key's price, capped
+at 8x the global, and prices every device item: its own term in the
+spill test, the probe's budget and the hedge's threshold, and its charge
+in the owed ledger, which stays in MB at the global price plus each
+queued item's excess over it (`_owed_excess_mb`).
 
 Cost attribution (obs/cost.py, the reference's executor.py:2087-2103,
 :2832-2846): with `cost_armed` (set by the service that binds a cost
@@ -607,6 +617,10 @@ class Executor:
         # seed, else None until the first drain (a zero seed leaves the
         # link unpriced, never free)
         self._ms_per_mb: Optional[float] = None
+        # the per-chain-key refinement of that price (bounded at 256 keys),
+        # and the MB the queued items owe beyond the global price
+        self._rate_by_key: dict = {}
+        self._owed_excess_mb = 0.0
         self._drain_floor_ms: Optional[float] = None  # smallest drain seen
         self.adopt_link_seed()
         # the host side of placement: its measured price (bootstrap 15 ms
@@ -847,17 +861,47 @@ class Executor:
             self.stats.host_owed_mpix = self._host_owed_mpix
 
     def _charge_owed(self, item: "_Item") -> None:
-        """Book the item's wire MB against the device (call under _lock);
-        its future's done-callback releases exactly that, however it ends."""
+        """Book the item's wire MB against the device (call under _lock),
+        and the MB its key's price owes beyond the global one; its
+        future's done-callback releases exactly that, however it ends."""
         self.stats.device_owed_mb += item.wire_mb
         self._device_items += 1
         mb = item.wire_mb
-        item.future.add_done_callback(lambda _f: self._on_done(mb))
+        glob = self._ms_per_mb
+        excess = mb * (self._rate_for_locked(item.key) / glob - 1.0) if glob else 0.0
+        self._owed_excess_mb += excess
+        item.future.add_done_callback(lambda _f: self._on_done(mb, excess))
 
-    def _on_done(self, wire_mb: float) -> None:
+    def _on_done(self, wire_mb: float, excess_mb: float = 0.0) -> None:
         with self._lock:
             self._device_items -= 1
             self.stats.device_owed_mb = max(0.0, self.stats.device_owed_mb - wire_mb)
+            self._owed_excess_mb -= excess_mb
+            if self._device_items == 0:
+                self._owed_excess_mb = 0.0  # no float residue on an idle card
+
+    def _rate_for(self, key) -> float:
+        """The device's price for a chain key in ms per wire MB: its own
+        measured rate where known, capped at 8x the global, so a key priced
+        on a bad day earns the card back as the global improves; the
+        global for an unknown key; 0 while the device is unpriced."""
+        with self._lock:
+            return self._rate_for_locked(key)
+
+    def _rate_for_locked(self, key) -> float:
+        glob = self._ms_per_mb
+        if glob is None:
+            return 0.0
+        key_rate = self._rate_by_key.get(key)
+        return glob if key_rate is None else min(key_rate, 8.0 * glob)
+
+    def _owed_ms_locked(self) -> float:
+        """The owed ledger priced: the queued MB at the global price plus
+        the queued items' excess at their keys' prices."""
+        rate = self._ms_per_mb
+        if not rate:
+            return 0.0
+        return max(0.0, self.stats.device_owed_mb + self._owed_excess_mb) * rate
 
     def _should_spill(self, item: "_Item") -> bool:
         """The reference's cost model: spill when the device wait (owed MB
@@ -865,14 +909,14 @@ class Executor:
         exceeds spill_factor x the host cost, with the host pool's backlog
         outside the factor on the host side (it cancels when the device is
         the CPU itself)."""
-        rate = self._ms_per_mb
-        if rate is None:
+        if self._ms_per_mb is None:
             return False  # the device's cost is unknown: it is the primary path
         with self._lock:
-            owed_mb = self.stats.device_owed_mb
+            rate = self._rate_for_locked(item.key)
+            owed_ms = self._owed_ms_locked()
             host_rate = self._host_ms_per_mpix
             host_owed = self._host_owed_mpix
-        wait_ms = (owed_mb + item.wire_mb) * rate + (self._drain_floor_ms or 0.0)
+        wait_ms = owed_ms + item.wire_mb * rate + (self._drain_floor_ms or 0.0)
         shares_cpu = self._devices[0].type == "cpu"
         host_queue_ms = 0.0 if shares_cpu else host_owed / self._ncpus * host_rate
         host_ms = max(item.mpix, 1e-3) * host_rate
@@ -932,7 +976,7 @@ class Executor:
     def _hedge_threshold_ms_for(self, item: "_Item") -> float:
         """The operator's threshold, floored at 50 ms and at 4x the item's
         own estimated device service time."""
-        est = (self._drain_floor_ms or 0.0) + item.wire_mb * (self._ms_per_mb or 0.0)
+        est = (self._drain_floor_ms or 0.0) + item.wire_mb * self._rate_for(item.key)
         return max(self.config.hedge_threshold_ms, 50.0, 4.0 * est)
 
     def _arm_hedge(self, item: "_Item") -> Optional[Future]:
@@ -1063,11 +1107,11 @@ class Executor:
 
     def estimated_wait_ms(self) -> float:
         """Estimated device-path queueing delay for a new arrival: the
-        wire MB submitted and not yet drained, priced at the measured
-        drain ms per MB (the reference's owed-work ledger, kept per MB)."""
+        wire MB submitted and not yet drained, each item's at its key's
+        measured drain ms per MB (the reference's owed-work ledger, kept
+        per MB)."""
         with self._lock:
-            rate = self._ms_per_mb
-            return self.stats.device_owed_mb * rate if rate else 0.0
+            return self._owed_ms_locked()
 
     def adopt_link_seed(self) -> None:
         """Price the owed ledger at the installed link seed unless a drain
@@ -1639,6 +1683,7 @@ class Executor:
         if cold:
             return
         mb = sum(it.wire_mb for it in items)
+        keys = {it.key for it in items}
         with self._lock:
             if self._drain_floor_ms is None or drain_ms < self._drain_floor_ms:
                 self._drain_floor_ms = drain_ms
@@ -1647,6 +1692,24 @@ class Executor:
                 prev = self._ms_per_mb
                 self._ms_per_mb = rate if prev is None else 0.8 * prev + 0.2 * rate
                 self.stats.device_ms_per_mb = self._ms_per_mb
+                if len(keys) == 1:
+                    # a chunk of one chain prices its key too
+                    self._note_key_rate(keys.pop(), rate, prev)
+
+    def _note_key_rate(self, key, rate: float, prev: Optional[float]) -> None:
+        """Fold one drain's ms per MB into `key`'s EWMA (call under _lock),
+        by the reference's rule: a new key's seed clamped to 16x the global
+        before this drain, a known key's sample clamped to 4x its own
+        history (not the global's: a chain legitimately far dearer than
+        the average must still be learned), and the dict cleared when a
+        257th key arrives."""
+        kprev = self._rate_by_key.get(key)
+        if kprev is None:
+            if len(self._rate_by_key) >= 256:
+                self._rate_by_key.clear()
+            self._rate_by_key[key] = rate if prev is None else min(rate, 16.0 * prev)
+        else:
+            self._rate_by_key[key] = 0.7 * kprev + 0.3 * min(rate, 4.0 * kprev)
 
     # -- the drain watchdog ----------------------------------------------------
 
@@ -2301,6 +2364,7 @@ class Executor:
                 "fetcher_generation": self._fetch_gen,
                 "hedges_inflight": self._hedges_inflight,
                 "device_items_inflight": self._device_items,
+                "rate_keys": len(self._rate_by_key),
                 "device_ms_per_mb": round(self._ms_per_mb or 0.0, 3),
                 "drain_floor_ms": round(self._drain_floor_ms or 0.0, 3),
                 "host_ms_per_mpix": round(self._host_ms_per_mpix, 3),

@@ -1,7 +1,7 @@
 """Fault injection for the port (a trimmed copy of
 `imaginary_tpu/failpoints.py`).
 
-Nineteen sites are ported:
+Every site of the reference is ported:
 
   source.fetch       one remote ?url= or watermark GET attempt
                      (web/sources.py);
@@ -60,7 +60,20 @@ Nineteen sites are ported:
   fleet.forward      the ownership forward hop, client side, before the
                      dial (fleet/ownership.py), keyable by the owner's
                      worker index: an error() forces the local fallback,
-                     a delay() burns the hop budget.
+                     a delay() burns the hop budget;
+  worker.hang        the /health handler, synchronously
+                     (web/handlers.py): a delay() blocks the worker's
+                     event loop for its duration, the "process alive,
+                     loop wedged" failure the supervisor's liveness probe
+                     exists to catch;
+  peer.forward       the cross-host forward and spill hop, client side,
+                     before the dial (fleet/router.py), keyable by the
+                     owning peer's host id: an error() forces the local
+                     run, a delay() burns the hop budget against the
+                     request deadline;
+  peer.health        one gossip probe of a peer's /fleetz
+                     (fleet/multihost.py): an error() makes that peer
+                     read dead, so routing and spillover go around it.
 
 Spec grammar: `site=action` clauses joined by `;`, where action is
 
@@ -92,9 +105,10 @@ SITES = ("source.fetch", "source.head", "qos.admit", "codec.decode", "codec.enco
          "codec.bomb", "memory.rss", "executor.submit", "device.execute",
          "device.chip_error", "host.spill", "device.oom", "device.corrupt",
          "device.slow", "cache.get", "fleet.write", "worker.zombie", "fleet.claim",
-         "fleet.forward")
+         "fleet.forward", "worker.hang", "peer.forward", "peer.health")
 
-_KEYED_SITE_RE = re.compile(r"^([\w.]+)\[(\w+)\]$")
+# a key is a device or worker index, or a host id (letters, digits, _ and -)
+_KEYED_SITE_RE = re.compile(r"^([\w.]+)\[([\w-]+)\]$")
 _DURATION_RE = re.compile(r"^(\d+(?:\.\d+)?)(ms|s)$")
 _DEFAULT_TIMEOUT_S = 60.0
 

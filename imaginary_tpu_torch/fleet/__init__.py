@@ -1,6 +1,5 @@
 """Fleet tier of the port: the data plane every local worker process of a
-`--workers N` server shares (the port's copy of `imaginary_tpu/fleet/`,
-without the cross-host plane).
+`--workers N` server shares (the port's copy of `imaginary_tpu/fleet/`).
 
 `web/workers.py` is the control plane (the SO_REUSEPORT supervisor,
 liveness probing, rolling restarts). Here: the crash-safe mmap result

@@ -1,10 +1,9 @@
 """Crash-safe shared result cache + worker-fencing epochs (mmap).
 
-The port's copy of `imaginary_tpu/fleet/shmcache.py`, without the
-cross-host plane's host-incarnation stamp (`stamp_host_epoch`,
-`host_fenced`): the file layout is the reference's byte for byte, so a
-slot one package writes the other reads (the header word at
-`_OFF_HOST_EPOCH` stays reserved and zero).
+The port's copy of `imaginary_tpu/fleet/shmcache.py`: the file layout is
+the reference's byte for byte, so a slot (and the header's host-
+incarnation stamp at `_OFF_HOST_EPOCH`) one package writes the other
+reads.
 
 Every local worker process maps ONE file (tmpfs when available) holding
 a content-addressed result cache, so a hot entry computed by any worker
@@ -289,9 +288,15 @@ class ShmCache:
                     f"{path} slot geometry {slot_bytes} != {SLOT_BYTES} "
                     "(fleet processes must run the same build)")
         # the creator stamps its own epoch so a standalone single
-        # process (no supervisor) is never fenced against itself
+        # process (no supervisor) is never fenced against itself; the
+        # same for the host incarnation when the cross-host plane is armed
         if create:
             self.stamp_epoch(self.worker, self.epoch)
+            from imaginary_tpu_torch.fleet import multihost
+
+            he = multihost.host_epoch()
+            if he:
+                self.stamp_host_epoch(he)
 
     # -- constructors ----------------------------------------------------
 
@@ -382,6 +387,29 @@ class ShmCache:
         """True when a successor for this worker index has been stamped:
         this process may read but must not publish."""
         return self.epoch_of(self.worker) != self.epoch
+
+    def stamp_host_epoch(self, epoch: int) -> None:
+        """Supervisor-side: record this HOST's current incarnation. After
+        a host restart the new supervisor stamps a strictly larger epoch,
+        so any process still mapping the old incarnation's view of this
+        host is deposed wholesale, as a replaced worker is."""
+        struct.pack_into("<Q", self._mm, _OFF_HOST_EPOCH, int(epoch))
+
+    def host_epoch_stamp(self) -> int:
+        (e,) = struct.unpack_from("<Q", self._mm, _OFF_HOST_EPOCH)
+        return e
+
+    def host_fenced(self) -> bool:
+        """True when the header carries a NEWER host incarnation than this
+        process was born into: a host-level zombie. Zero on either side
+        means the cross-host plane is unarmed: never fenced."""
+        stamped = self.host_epoch_stamp()
+        if not stamped:
+            return False
+        from imaginary_tpu_torch.fleet import multihost
+
+        mine = multihost.host_epoch()
+        return bool(mine) and mine < stamped
 
     def live_workers(self) -> list:
         """(idx, epoch) for every stamped worker — the ownership ring's

@@ -1,5 +1,5 @@
 """Fleet metrics aggregation: the supervisor's admin plane (the port's
-copy of `imaginary_tpu/obs/aggregate.py`, without the cross-host view).
+copy of `imaginary_tpu/obs/aggregate.py`).
 
 Runs inside the *supervisor* process (web/workers.py), which never
 touches the card and never serves aiohttp — so this module is
@@ -495,13 +495,18 @@ def scrape_fleet(metrics_url: str, health_url: str, expect,
 
 
 def build_fleetz(supervisor_view: dict, health_by_worker: dict,
-                 missed, now=None) -> dict:
+                 missed, now=None, host=None) -> dict:
     """Merge the supervisor's authoritative process table with each
     worker's self-reported /health into one JSON view.
 
     Degrades gracefully: a worker the scrape missed still appears (the
     supervisor knows its pid/epoch/restarts) with ``stale: true`` and
     ``health: null`` — partial data beats a 500.
+
+    `host` (the cross-host identity dict minted at boot) adds the
+    ``host`` block peers gossip on: identity and the host's load signals
+    (alive workers, the worst queue estimate, the worst pressure rung).
+    Absent when --peers is off: the block's presence is the armed signal.
     """
     now = time.time() if now is None else now
     workers = {}
@@ -517,6 +522,30 @@ def build_fleetz(supervisor_view: dict, health_by_worker: dict,
         "scraped": sorted(set(health_by_worker)),
         "missed": sorted(missed),
     }
+    if host:
+        est_q = 0.0
+        plevel = 0
+        for h in health_by_worker.values():
+            if not isinstance(h, dict):
+                continue
+            q = h.get("estimatedQueueMs")
+            if isinstance(q, (int, float)):
+                est_q = max(est_q, float(q))
+            press = h.get("pressure")
+            if isinstance(press, dict):
+                s = press.get("state")
+                if isinstance(s, int):
+                    plevel = max(plevel, s)
+        out["host"] = {
+            "id": str(host.get("id", "")),
+            "epoch": int(host.get("epoch", 0)),
+            "serve_url": str(host.get("serve_url", "")),
+            "workers_alive": sum(
+                1 for rec in supervisor_view.values()
+                if rec.get("alive", False)),
+            "est_queue_ms": round(est_q, 1),
+            "pressure_level": plevel,
+        }
     # fleet-merged capacity summary (obs/cost.py): window cost totals
     # summed across workers + each worker's live bound_by verdict side
     # by side. Present only when some worker is running with
@@ -571,7 +600,7 @@ class FleetAdmin:
     def __init__(self, port: int, metrics_url: str, health_url: str,
                  supervisor_view, scrape_deadline_s: float = 2.5,
                  per_request_timeout: float = 1.0, fetch=None,
-                 host: str = "127.0.0.1"):
+                 host: str = "127.0.0.1", host_info=None, peer_table=None):
         self._agg = Aggregator()
         self._metrics_url = metrics_url
         self._health_url = health_url
@@ -579,6 +608,11 @@ class FleetAdmin:
         self._deadline = scrape_deadline_s
         self._timeout = per_request_timeout
         self._fetch = fetch
+        # the cross-host plane (fleet/multihost.py): the identity dict and
+        # the gossiped peer table; both None when --peers is off, and then
+        # /fleetz is byte-equal to the single-host build
+        self._host_info = host_info
+        self._peer_table = peer_table
         admin = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -660,7 +694,11 @@ class FleetAdmin:
             ctype = "text/plain; version=0.0.4; charset=utf-8"
         elif parts.path == "/fleetz":
             view, health_by, missed = self._scrape()
-            local = build_fleetz(view, health_by, missed)
+            local = build_fleetz(view, health_by, missed, host=self._host_info)
+            if self._peer_table is not None and "scope=cluster" in (parts.query or ""):
+                from imaginary_tpu_torch.fleet import multihost
+
+                local = multihost.build_cluster_view(local, self._peer_table)
             body = json.dumps(local, indent=2, default=str).encode("utf-8")
             ctype = "application/json"
         else:

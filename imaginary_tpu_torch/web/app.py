@@ -120,6 +120,10 @@ def create_app(o: ServerOptions, log_stream=None) -> web.Application:
         # the fleet's forward-hop server needs the running loop; a no-op
         # unless --fleet-coherence
         await service.start_coherence()
+        # the cross-host gossip thread: started with the server, not the
+        # service, so a service built alone never polls; a no-op unless
+        # --peers
+        service.start_multihost()
 
     async def on_cleanup(app):
         looplag.stop(app.get("_looplag_task"))

@@ -76,6 +76,18 @@ class ServerOptions:
     fleet_qos: bool = False
     # the supervisor's admin plane on 127.0.0.1 (obs/aggregate.py)
     fleet_admin_port: int = 0
+    # --- the cross-host plane (fleet/multihost.py, fleet/router.py) ---------
+    # peer supervisors' admin bases: a CSV/whitespace list or @file; "" =
+    # the whole tier off (no gossip thread, no peer table, no route or
+    # spill surface, responses byte-equal to a single host's)
+    peers: str = ""
+    # route non-owned digests one HTTP hop to the rendezvous owner host;
+    # off = only requests with an X-Imaginary-Route: route hint are routed
+    router: bool = False
+    # stable host identity for rendezvous and fencing; "" = the hostname
+    host_id: str = ""
+    # gossip's poll cadence against each peer's /fleetz, in seconds
+    peer_probe_interval: float = 2.0
     # --- observability (obs/) ------------------------------------------------
     # Per-request span tracing: X-Request-ID is always assigned and
     # echoed; this gates span accumulation, Server-Timing, wide events and

@@ -56,6 +56,18 @@ arms the device-resident frame tier (ops/chain.py) and
 --cache-source-ttl the sources' TTL cache. /health carries the tiers'
 counters (`cache`).
 
+The cross-host plane (fleet/router.py, the reference's handlers.py:160-172,
+:396-405, :480-507, :673-715), off unless --peers: every answer carries
+`X-Imaginary-Host-Epoch` (this host's `id:epoch`); with --router (or a
+request's `X-Imaginary-Route: route`) a request whose shared key another
+host owns is shipped one hop there after the local cache lookups and
+before the intra-host forward (the source in the body, `url`, `file` and
+`sign` dropped from the query, `type=auto` resolved), and any fault runs
+it here; at the critical rung, batch-class work is offered verbatim to
+the least-loaded non-critical peer before its 503. A request that came
+over a hop is neither routed nor spilled again. A host-fenced worker
+(a newer host incarnation in the shm header) refuses the forward hop.
+
 With `--request-timeout` set, the request's deadline (deadline.py) is
 enforced at each hop here: admission sheds a 503 with Retry-After when
 the estimated queue delay already exceeds the remaining budget (a 504
@@ -238,6 +250,20 @@ class ImageService:
             if o.fleet_qos:
                 ownership.set_fleet_qos(ownership.FleetQos(self.caches.shm))
                 self._armed_fleet_qos = True
+        # the cross-host plane (fleet/multihost.py, fleet/router.py): None
+        # unless --peers, and then no peer table, no gossip thread, no
+        # route or spill code on the request path and no new header
+        self.multihost = None
+        if o.peers:
+            from imaginary_tpu_torch.fleet import multihost as multihost_mod
+            from imaginary_tpu_torch.fleet import router as router_mod
+
+            hid, hepoch = multihost_mod.ensure_host_identity(o.host_id)
+            self.multihost = router_mod.HostRouter(
+                multihost_mod.PeerTable(multihost_mod.parse_peers(o.peers)),
+                self_id=hid, self_epoch=hepoch, route_all=o.router,
+                hop_s=o.fleet_hop_ms / 1000.0,
+                probe_interval_s=o.peer_probe_interval)
         self.frame_cache = cache_mod.FrameCache(self.caches.frames, self.caches.stats)
         self.registry = SourceRegistry(o, caches=self.caches)
         # output integrity (None when --integrity is off); the golden
@@ -327,6 +353,8 @@ class ImageService:
         if self._closed:
             return
         self._closed = True
+        if self.multihost is not None:
+            self.multihost.close()
         if self._armed_fleet_qos:
             # this service's handle only: a later app must not read a
             # closed mapping
@@ -343,6 +371,13 @@ class ImageService:
             self._device_frames.clear()
         if self.caches.shm is not None:
             self.caches.shm.close()
+
+    def start_multihost(self) -> None:
+        """Start the cross-host gossip thread (a no-op without --peers),
+        from the app's startup hook, so a service built alone never
+        polls."""
+        if self.multihost is not None:
+            self.multihost.start()
 
     async def aclose(self) -> None:
         await self.stop_coherence()
@@ -383,7 +418,7 @@ class ImageService:
         not compute for the fleet."""
         flc = self.coherence
         shm = self.caches.shm
-        if flc is None or shm is None or shm.fenced():
+        if flc is None or shm is None or shm.fenced() or shm.host_fenced():
             if flc is not None:
                 flc.stats.serve_refused += 1
             return {"status": "fenced"}, b""
@@ -468,7 +503,9 @@ class ImageService:
             if o.enable_url_signature:
                 check_url_signature(request, o)
             validate_image_request(request, o)
-            await self._admit()
+            spilled = await self._admit(request)
+            if spilled is not None:
+                return spilled
             if self.pressure is not None and o.max_allowed_pixels > 0:
                 # the pre-decode dimension gate, armed before the fetch
                 codecs.set_decode_pixel_cap(o.max_allowed_pixels)
@@ -482,12 +519,14 @@ class ImageService:
         except ImageError as e:
             return error_response(request, e, o)
 
-    async def _admit(self) -> None:
+    async def _admit(self, request: web.Request) -> Optional[web.Response]:
         """Admission before any work (module docstring), in the
         reference's order; raises the shed's ImageError. The deadline's
         rung: a 504 when the budget is already spent, and a 503 with
         Retry-After when the estimated queue delay exceeds what is left of
-        it (a 503 now beats a sure 504 later)."""
+        it (a 503 now beats a sure 504 later). With --peers, work the
+        critical rung is about to shed is first offered to a peer
+        (`_try_spill`): its answer is returned, None otherwise."""
         o = self.options
         tr = obs_trace.current()
         dl = deadline_mod.current()
@@ -516,6 +555,12 @@ class ImageService:
             if tr is not None and tr.enabled:
                 tr.annotate(pressure=pressure_mod.LEVEL_NAMES[plevel])
             if qos is not None and shed_for_pressure(plevel, kidx):
+                if self.multihost is not None:
+                    spilled = await self._try_spill(request)
+                    if spilled is not None:
+                        if tr is not None:
+                            tr.annotate(placement_attempts=["spill_peer"])
+                        return spilled
                 gov.note_shed()
                 raise shed("Server under memory pressure, batch work shed, retry later",
                            "2")
@@ -537,6 +582,34 @@ class ImageService:
                            _retry_after_s(est_ms))
         if qos is not None:
             qos.stats.note_admitted(kidx)
+        return None
+
+    async def _try_spill(self, request: web.Request) -> Optional[web.Response]:
+        """Offer one about-to-shed request to the least-loaded
+        non-critical peer: the ORIGINAL request, verbatim (method, path
+        and query, body), and the peer runs its own fetch and admission.
+        None on any fault, when no peer qualifies, or for a request that
+        already came over a hop (two critical hosts shed; they do not
+        ping-pong): the caller sheds as it would have."""
+        from imaginary_tpu_torch.fleet import router as router_mod
+
+        mh = self.multihost
+        if str(request.headers.get(router_mod.ROUTE_HEADER, "")).startswith("fwd"):
+            return None
+        peer = mh.spill_target()
+        if peer is None:
+            return None
+        try:
+            body = await request.read()
+        except Exception:  # itpu: allow[ITPU004] an unreadable body is not offered: the caller sheds
+            return None
+        res = await mh.try_spill(peer, request.method, request.path_qs, body,
+                                 dict(request.headers))
+        if res is None:
+            return None
+        status, mime, rbody = res
+        return web.Response(body=rbody, status=status,
+                            content_type=mime or "application/octet-stream")
 
     async def _get_source_image(self, request: web.Request) -> bytes:
         try:
@@ -558,7 +631,7 @@ class ImageService:
         query = dict(request.query)
         caches = self.caches
         prepared = None
-        if op_name in _MARKED_ROUTES or caches.keyed:
+        if op_name in _MARKED_ROUTES or caches.keyed or self.multihost is not None:
             prepared = self.prepare(buf, query, request.headers)
         digest = key = etag = None
         if caches.keyed:
@@ -616,6 +689,35 @@ class ImageService:
                     out, op_name, prepared.vary, placement, etag))
             if tr is not None:
                 tr.annotate(cache="result_miss")
+
+        # the cross-host hop (--peers, with --router or a request's route
+        # hint): host rendezvous elects one owner host a shared key, and a
+        # non-owner ships the source bytes and the resolved query one hop
+        # there; after the local lookups (a local hit pays no hop), before
+        # the intra-host forward (the owner host runs its own). Any fault
+        # falls through to the local run
+        mh = self.multihost
+        if mh is not None and not mh.note_hop_marker(request.headers):
+            rkey = key if key is not None else cache_mod.request_key(
+                cache_mod.source_digest(buf), op_name, prepared.opts)
+            peer = mh.route_target(request.headers, cache_mod.shared_key(rkey))
+            if peer is not None:
+                # the owner fetches nothing: the source rides the body
+                fwd_query = {k: v for k, v in query.items()
+                             if k not in ("url", "file", "sign")}
+                if fwd_query.get("type") == "auto":
+                    # the negotiated type: the owner has no Accept header
+                    fwd_query["type"] = prepared.opts.type
+                fwd = await mh.try_forward(peer, op_name, fwd_query, buf,
+                                           get_image_mime_type(determine_image_type(buf)))
+                if fwd is not None:
+                    out, placement = fwd
+                    if caches.result.enabled and key is not None:
+                        caches.result.put(key, (out, placement), len(out.body))
+                    if tr is not None:
+                        tr.annotate(cache="host_forward", placement=placement)
+                    return self._web_response(self._build_response(
+                        out, op_name, prepared.vary, placement, etag))
 
         # fleet coherence: the digest's owner answers over the forward hop;
         # any fault of the hop falls through to the local run below
@@ -901,6 +1003,12 @@ class ImageService:
             headers["Vary"] = vary
         if etag:
             headers["ETag"] = etag
+        if self.multihost is not None:
+            # the incarnation stamp: a cross-host forwarder refuses an
+            # answer whose epoch gossip has deposed (fleet/router.py)
+            from imaginary_tpu_torch.fleet import router as router_mod
+
+            headers[router_mod.HOST_EPOCH_HEADER] = self.multihost.identity_header
         # every image the pipeline answers carries its output geometry; a
         # fleet tier entry carries none, and its header is probed
         if self.options.return_size and out.mime != "application/json":
@@ -963,6 +1071,11 @@ async def index_controller(request: web.Request, o: ServerOptions,
 
 async def health_controller(request: web.Request,
                             service: ImageService) -> web.Response:
+    # a chaos site, deliberately synchronous: a delay() armed here blocks
+    # the whole event loop, the "process alive, loop wedged" failure the
+    # supervisor's liveness probe exists to catch
+    # itpu: allow[ITPU001] deliberate sync block: this failpoint simulates the wedged-loop failure
+    failpoints.hit("worker.hang")
     return web.json_response(service.health())
 
 

@@ -14,7 +14,9 @@ governor's with `--pressure-rss-mb`, the SLO burn rates with
 scratch `arena`, the stage times, the estimated queueing delay, the
 cache tiers' counters (`cache`, always present, as in the reference),
 the fleet shm tier's block with `--fleet-cache-mb` (`fleet`, with the
-ownership plane's `coherence` under `--fleet-coherence`), the read
+ownership plane's `coherence` under `--fleet-coherence`), the host's
+incarnation (`host`) and the cross-host plane's counters and peers
+(`multihost`, fleet/router.py) with `--peers`, the read
 guard's counters with `--read-timeout` (`ingress`,
 web/ingress.py) and the event-loop lag probe's last sample (`eventLoop`,
 obs/looplag.py, once it has taken one). Beside them, the port's own: the
@@ -35,6 +37,7 @@ import torch
 from imaginary_tpu_torch import codecs, kernels, pipeline
 from imaginary_tpu_torch.codecs import native_backend
 from imaginary_tpu_torch.engine.timing import TIMES
+from imaginary_tpu_torch.fleet import multihost
 from imaginary_tpu_torch.obs import looplag
 from imaginary_tpu_torch.web.ingress import STATS as INGRESS_STATS
 from imaginary_tpu_torch.web.workers import worker_epoch, worker_index
@@ -67,6 +70,12 @@ def get_health_stats(service) -> dict:
         # generation for it: the roll's ready gate matches on both
         "worker": worker_index(),
         "epoch": worker_epoch(),
+    }
+    if multihost.host_id():
+        # the host-level incarnation, present only when the cross-host
+        # plane stamped an identity into the environment
+        stats["host"] = {"id": multihost.host_id(), "epoch": multihost.host_epoch()}
+    stats.update({
         "devices": torch.cuda.device_count() if cuda else 1,
         "backend": device.type,
         "device": str(device),
@@ -78,7 +87,7 @@ def get_health_stats(service) -> dict:
         "executor": executor.stats.to_dict(),
         # the fault domains: state, strikes, fail-slow and probe latency
         "deviceHealth": executor.devhealth.snapshot(),
-    }
+    })
     if executor.integrity is not None:  # --integrity's counters
         stats["integrity"] = executor.integrity.snapshot()
     if service.qos is not None:  # per-class counters and queue depths
@@ -109,6 +118,8 @@ def get_health_stats(service) -> dict:
         stats["fleet"] = shm.snapshot()
         if service.coherence is not None:  # the ring and the hop's outcomes
             stats["fleet"]["coherence"] = service.coherence.snapshot()
+    if service.multihost is not None:  # identity, route and spill counts, the peers
+        stats["multihost"] = service.multihost.snapshot()
     if service.options.read_timeout_s > 0:  # the read guard's counters
         stats["ingress"] = INGRESS_STATS.to_dict()
     loop_lag = looplag.snapshot()

@@ -1,5 +1,5 @@
 """Multi-process serving: the --workers N supervisor (the port's copy of
-`imaginary_tpu/web/workers.py`, without the cross-host plane).
+`imaginary_tpu/web/workers.py`).
 
 The reference gets multi-core scaling from Go's per-request goroutines
 (ref: server.go:110-166) and scales further with N identical instances
@@ -310,7 +310,8 @@ class _ReadyWaiter:
 
 def run_supervisor(argv: list, workers: int, health_url: str = "",
                    fleet=None, roll_grace_s: float = 5.0,
-                   admin_port: int = 0) -> int:
+                   admin_port: int = 0, host_info=None, peers: str = "",
+                   peer_probe_interval: float = 2.0) -> int:
     """Spawn and babysit `workers` serving processes; returns an exit code.
 
     Lifecycle: SIGTERM/SIGINT here fans out to every worker (each drains
@@ -329,8 +330,27 @@ def run_supervisor(argv: list, workers: int, health_url: str = "",
     from), the supervisor also serves the fleet observability plane on
     127.0.0.1:admin_port — the merged reset-corrected /metrics and the
     /fleetz process-table view (obs/aggregate.FleetAdmin).
+
+    With `host_info` (the cross-host identity cli.main minted) and
+    `peers`, the supervisor also runs the host-level gossip agent
+    (fleet/multihost.py, stdlib only: it never touches the card): /fleetz
+    grows a `host` block and answers ?scope=cluster with the merged
+    cross-host view, and the host epoch is stamped into the shared cache's
+    header.
     """
     check_reuseport()
+    # -- the cross-host plane: the peer table and its gossip --------------
+    peer_table = None
+    gossip = None
+    if peers and host_info:
+        from imaginary_tpu_torch.fleet import multihost
+
+        peer_table = multihost.PeerTable(multihost.parse_peers(peers))
+        gossip = multihost.GossipAgent(
+            peer_table, interval_s=max(0.05, peer_probe_interval)).start()
+        if fleet is not None:
+            # one header stamp deposes the whole previous host generation
+            fleet.stamp_host_epoch(int(host_info.get("epoch", 0)))
     probe_interval = _env_f("IMAGINARY_TPU_SUPERVISOR_PROBE_INTERVAL", 2.0)
     probe_timeout = _env_f("IMAGINARY_TPU_SUPERVISOR_PROBE_TIMEOUT", 2.0)
     # 0 disables hang detection (probing still runs for logs/ops)
@@ -441,7 +461,9 @@ def run_supervisor(argv: list, workers: int, health_url: str = "",
             return view
 
         admin = FleetAdmin(admin_port, metrics_url, health_url,
-                           _admin_view, fetch=_admin_fetch).start()
+                           _admin_view, fetch=_admin_fetch,
+                           host_info=host_info,
+                           peer_table=peer_table).start()
         print(f"imaginary-tpu supervisor: fleet admin plane on "
               f"127.0.0.1:{admin.port} (/metrics /fleetz)")
 
@@ -649,6 +671,8 @@ def run_supervisor(argv: list, workers: int, health_url: str = "",
 
     if admin is not None:
         admin.close()
+    if gossip is not None:
+        gossip.close()
     if probe is not None:
         probe.close()
     reap = list(procs.values()) + [p for p, _ in terminating]

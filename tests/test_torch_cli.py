@@ -5,6 +5,13 @@ Every flag the port takes parses from argv and from its
 parser's default. `--device` is the port's own flag (the torch device of
 the kernels) and has no counterpart. The historical variables PORT,
 URL_SIGNATURE_KEY and LOG_LEVEL still win, as in the reference.
+
+The surface as a whole: the port's parser takes every option string of
+the reference's (its list of exceptions is empty), each under the same
+dest, kind and type, with the reference's default and choices but for
+the recorded differences named below, and both parsers read the same
+value from each option's variable. The cross-host flags refuse the boot
+as the reference's do.
 """
 
 from __future__ import annotations
@@ -305,6 +312,111 @@ def test_observability_options_equal_the_references(argv):
     got = cli.options_from_args(cli.parse_args(argv))
     for field in OBS_FIELDS:
         assert getattr(got, field) == getattr(want, field), field
+
+
+def _reference_actions() -> dict:
+    """{option string: action} of the reference parser (-h and --version
+    aside)."""
+    from imaginary_tpu.cli import build_parser as reference_parser
+
+    return {o: a for a in reference_parser()._actions for o in a.option_strings
+            if a.dest not in ("help", "version")}
+
+
+def _reference_long_options() -> list:
+    from imaginary_tpu.cli import build_parser as reference_parser
+
+    return sorted(a.option_strings[-1] for a in reference_parser()._actions
+                  if a.dest not in ("help", "version"))
+
+
+# The reference's option strings the port's parser does not take, each with
+# its reason in ROADMAP.md ("recorded differences"): none.
+MISSING_OPTIONS: dict = {}
+# Options whose default or choices differ, each a recorded difference in
+# ROADMAP.md: the port's --host-spill defaults to off (the card serves
+# every request unless asked), and its --dct-native has no numpy arm.
+DEFAULT_DIFFERENCES = {"--host-spill": ("auto", "off")}
+CHOICE_DIFFERENCES = {"--dct-native": {"numpy"}}
+
+
+def _env_value(action, default) -> str:
+    """A value for the action's variable other than its default."""
+    if not action.option_strings or action.nargs == 0:
+        return "1"
+    if action.choices:
+        return str(next(c for c in action.choices if c != default))
+    if action.type is int:
+        return "7"
+    if action.type is float:
+        return "2.5"
+    return "x-value"
+
+
+def test_the_port_takes_every_reference_option_string():
+    ours = {s for a in cli.build_parser()._actions for s in a.option_strings}
+    missing = set(_reference_actions()) - ours
+    assert missing == set(MISSING_OPTIONS)
+    assert not MISSING_OPTIONS
+
+
+@pytest.mark.parametrize("option", _reference_long_options())
+def test_reference_option_parses_and_reads_its_variable_like_the_reference(
+        monkeypatch, option):
+    """Every option of the reference's parser: the port's has it under the
+    same dest, kind and type, with the reference's default and choices but
+    for the recorded differences, and both parsers read the same value
+    from its IMAGINARY_TPU_<FLAG> variable."""
+    from imaginary_tpu.cli import build_parser as reference_parser
+
+    ref = _reference_actions()[option]
+    ours = {o: a for a in cli.build_parser()._actions for o in a.option_strings}[option]
+    assert (ours.dest, type(ours), ours.type, ours.nargs) == (
+        ref.dest, type(ref), ref.type, ref.nargs)
+    for short in ref.option_strings:
+        assert short in ours.option_strings
+    want = getattr(reference_parser().parse_args([]), ref.dest)
+    got = getattr(cli.build_parser().parse_args([]), ours.dest)
+    assert (want, got) == DEFAULT_DIFFERENCES.get(option, (want, want))
+    if ref.choices is not None:
+        assert set(ref.choices) - set(ours.choices) == CHOICE_DIFFERENCES.get(option, set())
+        assert set(ours.choices) <= set(ref.choices)
+    value = _env_value(ref, want)
+    monkeypatch.setenv(_env_name(option), value)
+    want_env = getattr(reference_parser().parse_args([]), ref.dest)
+    got_env = getattr(cli.build_parser().parse_args([]), ours.dest)
+    assert got_env == want_env
+    assert got_env != want or option in DEFAULT_DIFFERENCES
+
+
+@pytest.mark.parametrize("argv,message", [
+    (["--router"], "--router requires --peers"),
+    (["--peers", " , "], "empty peer list"),
+    (["--peers", "@/nonexistent/peers.txt"], "--peers file"),
+], ids=["router-without-peers", "empty-peers", "unreadable-peers-file"])
+def test_cross_host_flags_refuse_the_boot_like_the_reference(argv, message):
+    from imaginary_tpu.cli import build_parser as reference_parser
+    from imaginary_tpu.cli import options_from_args as reference_options
+
+    with pytest.raises(SystemExit, match=message):
+        cli.options_from_args(cli.parse_args(argv))
+    with pytest.raises(SystemExit, match=message):
+        reference_options(reference_parser().parse_args(argv))
+
+
+def test_cross_host_options_equal_the_references(tmp_path):
+    from imaginary_tpu.cli import build_parser as reference_parser
+    from imaginary_tpu.cli import options_from_args as reference_options
+
+    peers = tmp_path / "peers.txt"
+    peers.write_text("# the other host\n127.0.0.1:9101\n")
+    argv = ["--peers", "@" + str(peers), "--router", "--host-id", "host-a",
+            "--peer-probe-interval", "0.01"]
+    got = cli.options_from_args(cli.parse_args(argv))
+    want = reference_options(reference_parser().parse_args(argv))
+    for field in ("peers", "router", "host_id", "peer_probe_interval"):
+        assert getattr(got, field) == getattr(want, field), field
+    assert got.peer_probe_interval == 0.05
 
 
 def test_enable_debug_reads_the_short_variable(monkeypatch):

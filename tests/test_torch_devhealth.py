@@ -555,9 +555,26 @@ class TestKeyedFailpoints:
         for spec in (f"{site}=error", f"{site}[2]=delay(5ms)"):
             assert set(failpoints.parse(spec)) == set(jfailpoints.parse(spec))
 
-    def test_worker_hang_is_not_a_port_site(self):
-        with pytest.raises(ValueError, match="unknown failpoint site"):
-            failpoints.parse("worker.hang=delay(30ms)")
+    @pytest.mark.parametrize("spec", ["worker.hang=delay(30ms)", "worker.hang=error",
+                                      "peer.forward[host-b]=error", "peer.forward=delay(5ms)",
+                                      "peer.health=error(0.5)"])
+    def test_worker_hang_and_peer_sites_parse_like_the_references(self, spec):
+        """The cross-host plane's sites and worker.hang: the same parse as
+        the reference's (a host id key may carry a dash)."""
+        got, want = failpoints.parse(spec), jfailpoints.parse(spec)
+        assert set(got) == set(want)
+        def fields(specs):
+            return [(sp.kind, sp.p, sp.duration_s, sp.once, sp.raw) for sp in specs.values()]
+
+        assert fields(got) == fields(want)
+
+    def test_worker_hang_delay_blocks_the_caller(self):
+        """worker.hang is a synchronous site: an armed delay(30ms) holds the
+        calling thread (the /health handler's event loop) for 30 ms."""
+        failpoints.activate("worker.hang=delay(30ms)")
+        t0 = time.perf_counter()
+        failpoints.hit("worker.hang")
+        assert time.perf_counter() - t0 >= 0.030
 
     def test_deactivate_disarms(self):
         failpoints.activate("device.chip_error=error")

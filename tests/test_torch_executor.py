@@ -261,3 +261,152 @@ def test_config_and_ladder_match_reference():
     assert jconfig.ServerOptions().batch_form_ms == 5.0
     assert jexecutor.batch_ladder(mine.max_batch)[-1] == mine.max_batch
     assert mine.device == "cuda"
+
+
+# --- the per-key device price (the reference's executor.py:658-665,
+# :1029-1038, :2867-2889) -------------------------------------------------------
+
+
+class _Drained:
+    """A drained item as `_note_drain` reads it: its chain key and wire MB."""
+
+    def __init__(self, key, wire_mb: float = 1.0):
+        self.key = key
+        self.wire_mb = wire_mb
+        self.stage_ms = {}
+        self.trace = None
+
+
+def _reference_key_rule(table: dict, key, per_mb: float, glob_prev) -> None:
+    """The reference's per-key update (executor.py:2874-2889), verbatim in
+    its arithmetic: the seed clamped to 16x the global before the drain,
+    a later sample to 4x the key's own history, the dict cleared when a
+    new key finds 256."""
+    kprev = table.get(key)
+    if kprev is None and len(table) >= 256:
+        table.clear()
+    if kprev is None:
+        table[key] = per_mb if glob_prev is None else min(per_mb, 16.0 * glob_prev)
+    else:
+        table[key] = 0.7 * kprev + 0.3 * min(per_mb, 4.0 * kprev)
+
+
+def _reference_rate_for(ex, key) -> float:
+    """The reference's `Executor._rate_for` on the port's state."""
+    import types
+
+    state = types.SimpleNamespace(_device_ms_per_mb=ex._ms_per_mb,
+                                  _rate_by_key=dict(ex._rate_by_key),
+                                  _owed_lock=threading.Lock())
+    return jexecutor.Executor._rate_for(state, key)
+
+
+class TestPerKeyPrice:
+    A, B = ("chain-a", 64, 64, 3), ("chain-b", 64, 64, 3)
+
+    def _drain(self, ex, model, key, per_mb):
+        prev = ex._ms_per_mb
+        ex._note_drain([_Drained(key)], per_mb)
+        _reference_key_rule(model, key, per_mb, prev)
+        assert ex._rate_by_key == pytest.approx(model)
+        for k in (self.A, self.B, ("never-drained",)):
+            assert ex._rate_for(k) == pytest.approx(_reference_rate_for(ex, k))
+
+    def test_two_keys_follow_the_reference_rule(self, make_ex):
+        ex = make_ex()
+        model: dict = {}
+        assert ex._rate_for(self.A) == 0.0  # unpriced, never free
+        self._drain(ex, model, self.A, 1.0)
+        assert ex._rate_by_key[self.A] == 1.0 and ex._ms_per_mb == 1.0
+        # a new key's seed: 100 ms/MB clamped to 16x the global of 1.0
+        self._drain(ex, model, self.B, 100.0)
+        assert ex._rate_by_key[self.B] == pytest.approx(16.0)
+        assert ex._rate_for(self.B) == pytest.approx(16.0)
+        # a known key's sample: 1000 clamped to 4x its own 16, then the EWMA
+        self._drain(ex, model, self.B, 1000.0)
+        assert ex._rate_by_key[self.B] == pytest.approx(0.7 * 16.0 + 0.3 * 64.0)
+        # the global falls under cheap drains of A until B's price is capped
+        # at 8x it
+        while 8.0 * ex._ms_per_mb >= ex._rate_by_key[self.B]:
+            self._drain(ex, model, self.A, 0.01)
+        assert ex._rate_for(self.B) == pytest.approx(8.0 * ex._ms_per_mb)
+        assert ex._rate_for(self.B) < ex._rate_by_key[self.B]
+        # an unknown key reads the global
+        assert ex._rate_for(("never-drained",)) == pytest.approx(ex._ms_per_mb)
+        assert ex.debug_snapshot()["rate_keys"] == 2
+
+    def test_the_257th_key_resets_the_table(self, make_ex):
+        ex = make_ex()
+        model: dict = {}
+        self._drain(ex, model, self.A, 2.0)
+        self._drain(ex, model, self.B, 3.0)
+        for i in range(254):
+            self._drain(ex, model, ("filler", i), 2.5)
+        assert len(ex._rate_by_key) == 256
+        self._drain(ex, model, ("the-257th",), 4.0)
+        assert list(ex._rate_by_key) == [("the-257th",)]
+        assert ex._rate_for(self.B) == pytest.approx(ex._ms_per_mb)
+        assert ex.debug_snapshot()["rate_keys"] == 1
+
+    def test_a_chunk_of_two_keys_prices_only_the_global(self, make_ex):
+        ex = make_ex()
+        ex._note_drain([_Drained(self.A), _Drained(self.B)], 4.0)
+        assert ex._ms_per_mb == pytest.approx(2.0)
+        assert ex._rate_by_key == {}
+
+    def test_a_dear_key_spills_where_the_global_would_not(self, make_ex, monkeypatch):
+        """The item's own term and the owed ledger read its key's price."""
+        ex = make_ex(host_spill=True, probe_interval=10**9)
+        monkeypatch.setattr(executor_mod.host_exec, "can_execute", lambda *a, **k: True)
+        item = executor_mod._Item(_img(64, 64), _resize_plan(64, 64, 32))
+        ex._host_ms_per_mpix = 8.0
+        # the global prices the item at a third of the host's cost x the
+        # spill factor, its key at 8x that
+        host_ms = ex.config.spill_factor * item.mpix * ex._host_ms_per_mpix
+        ex._ms_per_mb = host_ms / item.wire_mb / 3.0
+        assert not ex._should_spill(item)
+        with ex._lock:
+            ex._rate_by_key[item.key] = 100.0 * ex._ms_per_mb  # capped at 8x
+        dear = 8.0 * ex._ms_per_mb
+        assert ex._rate_for(item.key) == pytest.approx(dear)
+        assert ex._should_spill(item)
+        # a queued item of the dear key owes its MB at 8x the global
+        with ex._lock:
+            ex._charge_owed(item)
+            owed = ex._owed_ms_locked()
+        assert owed == pytest.approx(item.wire_mb * dear)
+        assert ex.estimated_wait_ms() == pytest.approx(owed)
+        item.future.cancel()
+        assert ex.estimated_wait_ms() == 0.0 and ex.stats.device_owed_mb == 0.0
+
+
+def test_rate_keys_on_debugz():
+    """`rate_keys` rides the executor's snapshot, which /debugz serves, as
+    in the reference (its /health executor block is ExecutorStats, which
+    has no such key)."""
+    import asyncio
+    import io
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from imaginary_tpu_torch.web.app import create_app
+    from imaginary_tpu_torch.web.config import ServerOptions
+
+    async def run():
+        app = create_app(ServerOptions(device="cpu", enable_debug=True),
+                         log_stream=io.StringIO())
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            ex = app["service"].executor
+            ex._note_drain([_Drained(("k",))], 1.0)
+            body = await (await client.get("/debugz")).json()
+            health = await (await client.get("/health")).json()
+        finally:
+            await client.close()
+        return body, health
+
+    body, health = asyncio.run(run())
+    assert body["executor"]["rate_keys"] == 1
+    assert "rate_keys" not in health["executor"]
+    assert "rate_keys" not in jexecutor.ExecutorStats().to_dict()
