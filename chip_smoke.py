@@ -85,7 +85,7 @@ Phases, in order; any failure raises and exits non-zero:
    --batch-form-ms 5 serving 32 client threads, 8 requests each, cycling
    through /thumbnail, /crop and /rotate?rotate=90 on large.jpg and
    /resize of the EXIF-rotated tests/testdata/exif-orient-6.jpg at equal
-   weights (the smoke's own mix, chosen, not measured traffic), in three
+   weights (the smoke's own mix, chosen, not measured traffic), in two
    timed windows with the launch counters set to 0 just before and read
    just after: every answer 200 image/jpeg of the expected size, batches
    formed (largest group at least 2), every request's decoded planes
@@ -106,7 +106,7 @@ Phases, in order; any failure raises and exits non-zero:
    window; every answer 200 with the right MIME type and size; the
    WEBP within a PSNR bound of the same chain's array on the CPU; p50/p99
    of one client, then requests per second, p50/p99 and the busy share
-   from 8 client threads in three windows; and the host's Pillow PNG
+   from 8 client threads in two windows; and the host's Pillow PNG
    decode and WEBP encode of the same bytes on the host clock;
 8. config 4's path (BASELINE.json config 4): the server (--max-batch 16
    --batch-form-ms 5) serving /smartcrop?width=300&height=300 on
@@ -114,7 +114,7 @@ Phases, in order; any failure raises and exits non-zero:
    560-1100, JPEG / PNG / WEBP, a salient disc each), made here with
    numpy and Pillow: one request at a time with the launch counters set
    to 0 just before and read just after (equal to the plans'), then 16
-   clients in three timed windows and a profiled fourth (req/s, p50/p99,
+   clients in two timed windows and a profiled third (req/s, p50/p99,
    mean batch, busy share), every answer under load byte-equal to the
    same request alone; and for every image the card's window offsets
    against the plain version's on the CPU (equal, or the card's window
@@ -140,7 +140,7 @@ Phases, in order; any failure raises and exits non-zero:
    plain version within 1e-3, a uint8 frame, and the times of the shards'
    K13 launches, the exchange, the whole call and K6 on the same image; (b) the server
    started from the command line with `--mesh-policy lanes` (one lane per
-   card) under phase 6's mix from 32 clients in three windows, every
+   card) under phase 6's mix from 32 clients in two windows, every
    answer byte-equal to the `--mesh-policy off` server's, /health showing
    one lane per card whose dispatches sum to the batches; (c) servers
    with lanes and with sharded dispatch over four entries of card 0 under
@@ -155,9 +155,13 @@ Phases, in order; any failure raises and exits non-zero:
    findings;
    (d) the spatial route: config 3's /pipeline and the dry run's chain
    (/resize?width=1920&sigma=2&colorspace=bw, as JPEG) on phase 7's 4K
-   PNG, and /resize?width=1920, /blur?sigma=2, /flip and the dry run's
-   chain on the same frame encoded by Pillow as a 4:2:0 JPEG (quality 90,
-   subsampling=2), which run on the yuv420 transport. First K2's and K3's
+   PNG, and /resize?width=1920, /blur?sigma=2, /flip, the dry run's
+   chain, /crop?width=3000&height=2000, /smartcrop?width=2400&height=2000,
+   /rotate?rotate=90, /flop and an embed with a white fill
+   (/resize?width=3000&height=2000&extend=white) on the same frame
+   encoded by Pillow as a 4:2:0 JPEG (quality 90, subsampling=2), and
+   /resize?width=1920 on it with EXIF orientation 6, which run on the
+   yuv420 transport. First K2's and K3's
    W-shard forms at the seams of their designs (SHARD_SEAM_CASES: odd
    widths, the valid chroma edge in a shard's halo, shards wholly past
    the valid width, a 6144-wide bucket holding 4100 columns, the edge on
@@ -166,25 +170,33 @@ Phases, in order; any failure raises and exits non-zero:
    without K8's luma. Then each chain launched W-sharded over four
    entries of card 0 (`chain.launch_spatial`), plus large.jpg's /blur,
    whose plan holds a bucket shrink: every shard's K2, K1, K13, K7, K8,
-   K4 shrink, K5 flip or K3 launch held against its plain version on the
-   same inputs (K2 with its chroma halos, K1 and the shrink on windows
-   from the window exchange, K13 after the halo exchange, K7 with its
-   shifted `left`, K3 with K8's luma folded in), no gather, the output
-   bit-equal to the unsharded chain's; config 3's K13 shards timed beside
+   K4 (shrink, extract, embed, the smartcrop's gather from K10's keys),
+   K5 (flip, flop, transpose), K9 (rows, then scan and columns), K10 or
+   K3 launch held against its plain version on the same inputs (K2 with
+   its chroma halos, K1, K4 and the flop on windows from the window
+   exchange, the transpose on row bands from the all-to-all, K13 and K9
+   after the halo exchange, K9's scan after every shard's segment totals,
+   K10 on an integral-image window, K7 with its shifted `left`, K3 with
+   K8's luma folded in), no gather, the output bit-equal to the unsharded
+   chain's, the smartcrop's integral-image shards bit-equal to K9 on the
+   frame; the new forms' shards each timed beside the unsharded kernel on
+   the same input, and the row-band exchange and the smartcrop's image
+   window exchange against their read-once-write-once bounds; config 3's K13 shards timed beside
    K6 on the same columns (K13's row in the kernels line), the 4K JPEG's
    four K2 shards beside K2 on the whole packed frame, its four K3 shards
    (4K /blur and 1080p /resize) beside K3 on the same columns, its four
    K5 flip shards beside K5 on the frame, the shrink plan's four K4
    shards beside K4 on the same columns, and the window exchange ahead
    of the /resize's K1 (its bytes and time). Then
-   five requests of each chain one at a time, from the off server, from
+   two requests of each chain one at a time, from the off server, from
    a `--mesh-policy lanes` server over four entries of card 0 with
    `--spatial 4` and the default bar, and from the off server again:
    every answer byte-equal to the off server's, /health's
    spatial_batches rising by the requests and spatial_gathers empty, the
    launches of the counted run 4 of each sharded stage's kernel a request
-   (K1 + K13 + K7 or K8 on the PNG; K2 + K1, K13 or K5 + K3 on the JPEG,
-   and no K8 beside a K3), the p50 of each chain on each server and the
+   (K1 + K13 + K7 or K8 on the PNG; K2, K1, K13, K4, K5, K3 on the JPEG,
+   12 K9 launches and 4 K10 a smartcrop, and no K8 beside a K3), the p50
+   of each chain on each server and the
    card's busy time a request of each chain on each (one profiled window
    a server, split by the requests' windows) as findings;
 11. the HTTP layer on the card: config 1 (GET
@@ -300,7 +312,7 @@ Phases, in order; any failure raises and exits non-zero:
 15. the executor's admission half on the card, every server from the
    port's command line with --prewarm, the launches of the paths each
    case drives summed in the kernels line's `launches_admission`: (a)
-   phase 6's mix (32 clients x 8, three windows) on `--batch-policy
+   phase 6's mix (32 clients x 8, two windows) on `--batch-policy
    convoy --batch-window-ms 3` and on the default continuous policy (both
    --max-batch 4 --cpus 32): every convoy answer byte-equal to the
    continuous server's answer to the same request alone, groups below
@@ -590,6 +602,25 @@ def bound_ms(nbytes: int, flops: float) -> tuple:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     tf = flops / F32_FLOPS_PER_S * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def k10_work(h: int, w: int, win_h: int, win_w: int, hb: int, wb: int, c0: int = 0,
+             c1=None) -> tuple:
+    """(bytes, operations) K10 needs for one image's candidates whose left
+    lies in [c0, c1): the f32 integral image entries it reads once (rows
+    [0, nr) and [win_h, win_h + nr) at the candidates' lefts and rights,
+    nr = h - win_h + 1; column 0 is zeros and not read), its 8-byte
+    answer, and 4 operations a candidate (3 subtractions, a compare)."""
+    lim_t, lim_l = h - win_h, w - win_w
+    nr = 0 if lim_t < 0 else min(lim_t, hb - 1) + 1
+    ncols = 0 if lim_l < 0 else min(lim_l, wb - 1) + 1
+    lefts = range(c0, min(ncols, wb if c1 is None else c1))
+    if nr == 0 or not lefts:
+        return 8, 0.0
+    rows = len(set(range(nr)) | set(range(win_h, win_h + nr)))
+    cols = set(lefts) | {min(lft + win_w, wb) for lft in lefts}
+    cols.discard(0)
+    return rows * len(cols) * 4 + 8, 4.0 * nr * len(lefts)
 
 
 # --- phase 3: kernels against their plain versions --------------------------
@@ -1607,7 +1638,7 @@ def timing(res, name, case, kernel_fn, plain_fn, lib_fn, nbytes, flops):
 
     ms = device_ms(kernel_fn)
     call = call_ms(kernel_fn)
-    plain = device_ms(plain_fn)
+    plain = device_ms(plain_fn, calls=3, reps=3)
     lib = device_ms(lib_fn) if lib_fn is not None else None
     b, by = bound_ms(int(nbytes), float(flops))
     res[name][case].update({"ms": ms, "call_ms": call, "plain_ms": plain,
@@ -1850,7 +1881,7 @@ CLIENTS = 32
 PER_CLIENT = 8
 # timed load windows of CLIENTS * PER_CLIENT requests each: one window
 # lasts about a second on the card's host, so one alone says little
-WINDOWS = 3
+WINDOWS = 2
 CONFIG2_MAX_BATCH = 32
 CONFIG2_FORM_MS = 5.0
 
@@ -2055,7 +2086,7 @@ JPEG_PIPELINE_OPS = [
 BW_QUERY = {"width": "640", "colorspace": "bw"}
 # (name, path, source, MIME type, decoded (h, w), requests served one at
 # a time in the counted run)
-CONFIG3_SERIAL = 20
+CONFIG3_SERIAL = 5
 CONFIG3_REQUESTS = (
     ("config3", "/pipeline?operations=" + urllib.parse.quote(json.dumps(CONFIG3_OPS)),
      "png", "image/webp", (720, 1280), CONFIG3_SERIAL),
@@ -2420,6 +2451,14 @@ def config3_phase(png: bytes) -> dict:
 # --- phase 3 (slice 4): K9-K12 against their plain versions -----------------
 
 II_RTOL = 1e-5  # K9's integral image, relative per entry (sums in another order)
+# K9's row pass on a W-shard (per-pixel saliency and segment totals)
+# against its plain version on the card: relative and absolute per entry.
+# The plain version's torch divides by a scalar through its reciprocal on
+# the card, so its expf argument (up to ~120) may be an ulp off: ~1.4e-5
+# relative on the skin term; the absolute term covers luma ulps in the
+# edge term of near-zero pixels
+SAL_MAP_RTOL = 1e-4
+SAL_MAP_ATOL = 1e-6
 WINDOW_RTOL = 1e-5  # a window's f64 saliency sum, relative
 COEF_TOL = 1  # K12's int16 coefficients
 COEF_SHARE = 1e-3  # at most this share of them may differ (rounding ties)
@@ -2622,6 +2661,7 @@ def config4_kernel_phase(res: dict) -> None:
 
     from imaginary_tpu_torch import kernels
     from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops import saliency as psal
 
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
@@ -2631,6 +2671,12 @@ def config4_kernel_phase(res: dict) -> None:
         case = f"B{bsz}"
         ii = kernels.saliency_ii(x, h, w)
         check_rel("saliency", ii, reference.saliency_ii(x, h, w), res, case, II_RTOL)
+        # the plain version sums rows in K9's own order; hold K9 against
+        # the reference's formulation too, cumsum over H, then over W
+        sal = psal.saliency_map(x, h, w)
+        h_first = torch.nn.functional.pad(torch.cumsum(torch.cumsum(sal, 1), 2), (1, 0, 1, 0))
+        check_rel("saliency", ii, h_first, res, case + "-h-first", II_RTOL)
+        del sal, h_first
         flops = 45.0 * bsz * hb * wb + 2.0 * bsz * hb * wb
         timing(res, "saliency", case, lambda x=x, h=h, w=w: kernels.saliency_ii(x, h, w),
                lambda x=x, h=h, w=w: reference.saliency_ii(x, h, w), None,
@@ -2643,11 +2689,13 @@ def config4_kernel_phase(res: dict) -> None:
                                  f"against the plain {rt.tolist()} {rl.tolist()}")
         res.setdefault("window_argmax", {})[case] = {"max_abs_err": 0.0,
                                                      "top": top.tolist(), "left": left.tolist()}
-        # every candidate: 3 subtractions and a compare; ii read once
+        # the ii entries the candidates read, once; 4 operations each
+        work = [k10_work(int(a), int(b), CONFIG4_WINDOW, CONFIG4_WINDOW, hb, wb)
+                for a, b in zip(h.tolist(), w.tolist())]
         timing(res, "window_argmax", case,
                lambda ii=ii, h=h, w=w, win=win: kernels.window_argmax(ii, h, w, win, win),
                lambda ii=ii, h=h, w=w, win=win: reference.window_argmax(ii, h, w, win, win),
-               None, ii.numel() * 4 + bsz * 8, 4.0 * bsz * hb * wb)
+               None, sum(b for b, _ in work), sum(f for _, f in work))
         for name, call in (("saliency", lambda: kernels.saliency_ii(x, h, w)),
                            ("window_argmax", lambda: kernels.window_argmax(ii, h, w, win, win))):
             kern = device_kernels(call, CALL_KERNELS[name])
@@ -2839,7 +2887,7 @@ CONFIG4_N = 24
 CONFIG4_SEED = 11
 CONFIG4_PATH = "/smartcrop?width=300&height=300"
 CONFIG4_CLIENTS = 16
-CONFIG4_PER_CLIENT = 6
+CONFIG4_PER_CLIENT = 3
 CONFIG4_MAX_BATCH = 16
 CONFIG4_MIME = {"JPEG": "image/jpeg", "PNG": "image/png", "WEBP": "image/webp"}
 
@@ -3580,10 +3628,13 @@ def mesh_lanes_phase() -> dict:
 # yuv420 transport; requests of each chain one at a time on each server
 SPATIAL_BW_QUERY = {"width": "1920", "sigma": "2", "colorspace": "bw", "type": "jpeg"}
 SPATIAL_JPEG_QUALITY = 90
-SPATIAL_SERIAL = 5
-SPATIAL_PROFILED = 2
+SPATIAL_SERIAL = 2
+SPATIAL_PROFILED = 1
 # (name, source, path, MIME type, decoded (h, w), plan: (op, query) or
 # the /pipeline's ops)
+SPATIAL_CROP = {"width": "3000", "height": "2000"}
+SPATIAL_SMART = {"width": "2400", "height": "2000"}
+SPATIAL_EMBED = {"width": "3000", "height": "2000", "extend": "white"}
 SPATIAL_REQUESTS = (
     ("config3", "png", "/pipeline?operations=" + urllib.parse.quote(json.dumps(CONFIG3_OPS)),
      "image/webp", (720, 1280), CONFIG3_OPS),
@@ -3596,9 +3647,21 @@ SPATIAL_REQUESTS = (
     ("jpeg-flip", "jpeg", "/flip", "image/jpeg", (2160, 3840), ("flip", {})),
     ("jpeg-bw", "jpeg", "/resize?" + urllib.parse.urlencode(SPATIAL_BW_QUERY), "image/jpeg",
      (1080, 1920), ("resize", SPATIAL_BW_QUERY)),
+    ("jpeg-crop", "jpeg", "/crop?" + urllib.parse.urlencode(SPATIAL_CROP), "image/jpeg",
+     (2000, 3000), ("crop", SPATIAL_CROP)),
+    ("jpeg-smartcrop", "jpeg", "/smartcrop?" + urllib.parse.urlencode(SPATIAL_SMART),
+     "image/jpeg", (2000, 2400), ("smartcrop", SPATIAL_SMART)),
+    ("jpeg-rotate", "jpeg", "/rotate?rotate=90", "image/jpeg", (3840, 2160),
+     ("rotate", {"rotate": "90"})),
+    ("jpeg-flop", "jpeg", "/flop", "image/jpeg", (2160, 3840), ("flop", {})),
+    ("jpeg-exif6", "jpeg6", "/resize?width=1920", "image/jpeg", (3413, 1920),
+     ("resize", {"width": "1920"})),
+    ("jpeg-embed", "jpeg", "/resize?" + urllib.parse.urlencode(SPATIAL_EMBED), "image/jpeg",
+     (2000, 3000), ("resize", SPATIAL_EMBED)),
 )
-# each chain's launches a request on the route over n shards, as kernel ->
-# shards (n of each W-sharded stage's kernel, no K8 beside a K3)
+# each chain's launches a request on the route over n shards, as the
+# kernels each shard launches (n of each W-sharded stage's kernel, no K8
+# beside a K3; the smartcrop's K9 three a shard: rows, scan, columns)
 SPATIAL_KERNELS = {
     "config3": ("resample", "blur_halo", "composite"),
     "bw": ("resample", "blur_halo", "gray"),
@@ -3606,32 +3669,47 @@ SPATIAL_KERNELS = {
     "jpeg-blur": ("yuv420_unpack", "blur_halo", "yuv420_pack"),
     "jpeg-flip": ("yuv420_unpack", "orient", "yuv420_pack"),
     "jpeg-bw": ("yuv420_unpack", "resample", "blur_halo", "yuv420_pack"),
+    "jpeg-crop": ("yuv420_unpack", "resample", "gather", "yuv420_pack"),
+    "jpeg-smartcrop": ("yuv420_unpack", "resample", "saliency", "saliency", "saliency",
+                       "window_argmax", "gather", "yuv420_pack"),
+    "jpeg-rotate": ("yuv420_unpack", "orient", "orient", "yuv420_pack"),
+    "jpeg-flop": ("yuv420_unpack", "orient", "yuv420_pack"),
+    "jpeg-exif6": ("yuv420_unpack", "orient", "orient", "resample", "yuv420_pack"),
+    "jpeg-embed": ("yuv420_unpack", "resample", "gather", "yuv420_pack"),
 }
+SPATIAL_EXIF = 6  # the orientation of the jpeg6 source
 # a plan with a bucket shrink (K4) on the route: large.jpg's /blur, whose
 # 1920 columns sit in a 2048-wide bucket, shrunk to 1920 before K3
 SPATIAL_SHRINK_PLAN = ("blur", {"sigma": "2"})
 
 
-def make_4k_jpeg(png: bytes) -> bytes:
-    """The phase's 4K PNG as a 4:2:0 JPEG (Pillow, subsampling=2)."""
+def make_4k_jpeg(png: bytes, orientation=None) -> bytes:
+    """The phase's 4K PNG as a 4:2:0 JPEG (Pillow, subsampling=2), with an
+    EXIF orientation when one is given."""
     import io
 
     from PIL import Image
 
     out = io.BytesIO()
+    kw = {}
+    if orientation is not None:
+        exif = Image.Exif()
+        exif[0x0112] = orientation
+        kw["exif"] = exif.tobytes()
     Image.open(io.BytesIO(png)).convert("RGB").save(out, "JPEG", quality=SPATIAL_JPEG_QUALITY,
-                                                    subsampling=2)
+                                                    subsampling=2, **kw)
     return out.getvalue()
 
 
-def spatial_plans(png: bytes, jpeg: bytes) -> dict:
-    """name -> (input array, plan) of each SPATIAL_REQUESTS chain."""
+def spatial_plans(srcs: dict) -> dict:
+    """name -> (input array, plan) of each SPATIAL_REQUESTS chain; srcs maps
+    each source name to its bytes."""
     out = {}
     for name, src, _, _, _, plan in SPATIAL_REQUESTS:
         if src == "png" and isinstance(plan, list):
-            out[name] = pipeline_request(png, plan, "rgb")
+            out[name] = pipeline_request(srcs[src], plan, "rgb")
         else:
-            out[name] = request_plan(png if src == "png" else jpeg, *plan)
+            out[name] = request_plan(srcs[src], *plan)
     return out
 
 
@@ -3655,17 +3733,71 @@ def spatial_expected(plan, arr, n: int) -> dict:
         if (names[k] == "GraySpec" and k + 1 < len(live) and names[k + 1] == "ToYuv420Spec"
                 and (i in sharded) == (live[k + 1] in sharded)):
             continue
-        name = "blur_halo" if names[k] == "BlurSpec" and i in sharded else None
-        for kname, v in SPEC_LAUNCHES[names[k]].items():
-            out[name or kname] += v * (n if i in sharded else 1)
+        per = SHARD_LAUNCHES.get(names[k], SPEC_LAUNCHES[names[k]]) if i in sharded \
+            else SPEC_LAUNCHES[names[k]]
+        for kname, v in per.items():
+            out[kname] += v * (n if i in sharded else 1)
     return out
 
 
-# each W-shard form's kernel (launch_spatial's trace names the spec)
+# a shard's launches of a W-shard form where they differ from the whole
+# stage's (SPEC_LAUNCHES): K13 in place of K6; K9's row pass, its scan and
+# its columns
+SHARD_LAUNCHES = {"BlurSpec": {"blur_halo": 1},
+                  "SmartExtractSpec": {"saliency": 3, "window_argmax": 1, "gather": 1}}
+# each W-shard form's kernel (launch_spatial's trace names the spec, or a
+# stages.ShardLaunch whose fn is counted as kernels._COUNT_AS says)
 SHARD_KERNELS = {"SampleSpec": "resample", "BlurSpec": "blur_halo",
                  "CompositeSpec": "composite", "GraySpec": "gray",
                  "FromYuv420Spec": "yuv420_unpack", "ToYuv420Spec": "yuv420_pack",
-                 "ShrinkBucketSpec": "gather", "FlipSpec": "orient"}
+                 "ShrinkBucketSpec": "gather", "ExtractSpec": "gather",
+                 "EmbedSpec": "gather", "FlipSpec": "orient", "FlopSpec": "orient",
+                 "TransposeSpec": "orient"}
+
+
+def shard_kernel(spec) -> str:
+    """The kernel a trace entry's spec launches (a ShardLaunch's fn counts
+    under the kernel `kernels._COUNT_AS` names)."""
+    from imaginary_tpu_torch import kernels
+
+    name = type(spec).__name__
+    return kernels._COUNT_AS[spec.fn] if name == "ShardLaunch" else SHARD_KERNELS[name]
+
+
+def check_shard(spec, args, out, res, case) -> None:
+    """A trace entry's launch against its plain version on its own
+    arguments: K9's outputs relative (II_RTOL: another expf), K10's keys
+    exact, the rest F32_TOL (U8_TOL where it writes uint8)."""
+    import torch
+
+    from imaginary_tpu_torch.kernels import reference
+
+    kname = shard_kernel(spec)
+    plain = spec.apply_shard(*args, impl=reference)[0]
+    pairs = list(zip(out, plain)) if isinstance(out, tuple) else [(out, plain)]
+    if kname == "saliency" and spec.fn == "saliency_rows_shard":
+        for k, (got, want) in enumerate(pairs):
+            d = (got.double() - want.double()).abs()
+            lim = SAL_MAP_ATOL + SAL_MAP_RTOL * want.double().abs()
+            if not bool((d <= lim).all()):
+                raise AssertionError(f"{kname} [{case}-{k}]: max |err| {float(d.max())} "
+                                     f"over {SAL_MAP_RTOL} |want| + {SAL_MAP_ATOL}")
+            res.setdefault(kname, {})[f"{case}-{k}" if k else case] = {
+                "max_abs_err": float(d.max())}
+    elif kname == "saliency":
+        check_rel(kname, out, plain, res, case, II_RTOL)
+    elif kname == "window_argmax":
+        if not torch.equal(out, plain):
+            raise AssertionError(f"{kname} [{case}]: keys differ from the plain version's")
+        res.setdefault(kname, {})[case] = {"max_abs_err": 0.0}
+    else:
+        u8 = pairs[0][0].dtype == torch.uint8
+        check_all(kname, pairs, res, case, U8_TOL if u8 else F32_TOL)
+
+
+def first_tensor(out):
+    """A trace entry's output, or the first of its outputs."""
+    return out[0] if isinstance(out, tuple) else out
 
 
 def same_output(a, b) -> bool:
@@ -3793,19 +3925,19 @@ def spatial_shard_check(plans: dict, res: dict, entry, n: int) -> dict:
     (`chain.launch_spatial`) and every shard's launch of every sharded
     stage (K2's packed columns with their chroma halos, K1's window from
     the host or from the window exchange, K13 after the halo exchange, K7
-    with its shifted `left`, K8, K4's bucket shrink, K5's flip, K3 with
-    the global valid mask and K8's luma folded in) held against its plain
-    version on the same inputs (F32_TOL; U8_TOL for the last stage, which
-    writes uint8), and the assembled output bit-equal to the unsharded
-    chain's. Then config 3's K13 shard launches, the 4K JPEG's K2, K3 and
-    K5 flip shard launches, the shrink plan's K4 shard launches and the
-    4K JPEG's window exchange timed, each beside the unsharded kernel on
-    the same columns."""
+    with its shifted `left`, K8, K4 in every mode, K5's flip, flop and
+    transpose, the smartcrop's K9, K10 and keyed K4, K3 with the global
+    valid mask and K8's luma folded in) held against its plain version on
+    the same inputs (`check_shard`), and the assembled output bit-equal to
+    the unsharded chain's. Then config 3's K13 shard launches, the 4K
+    JPEG's K2, K3 and K5 flip shard launches, the shrink plan's K4 shard
+    launches and the 4K JPEG's window exchange timed, each beside the
+    unsharded kernel on the same columns, and the new forms
+    (`new_form_timings`)."""
     import numpy as np
     import torch
 
     from imaginary_tpu_torch import kernels
-    from imaginary_tpu_torch.kernels import reference
     from imaginary_tpu_torch.ops import chain
     from imaginary_tpu_torch.parallel import spatial
 
@@ -3813,7 +3945,7 @@ def spatial_shard_check(plans: dict, res: dict, entry, n: int) -> dict:
 
     streams = [torch.cuda.Stream(entry) for _ in range(n)] if entry.type == "cuda" else None
     timed = {}  # the traces and launches kept for the timings below
-    counts = {}
+    counts, exchanged = {}, {}
     for name, (arr, p) in plans.items():
         trace = []
         launch = chain.launch_spatial(arr, p, [entry] * n, streams, trace)
@@ -3826,25 +3958,22 @@ def spatial_shard_check(plans: dict, res: dict, entry, n: int) -> dict:
             raise AssertionError(f"spatial {name}: the W-sharded chain differs from the "
                                  f"unsharded one")
         for i, j, spec, args, out in trace:
-            kname = SHARD_KERNELS[type(spec).__name__]
-            plain = spec.apply_shard(*args, impl=reference)[0]
-            check(kname, out, plain, res, f"spatial-{name}-stage{i}-shard{j}",
-                  U8_TOL if args[-1] else F32_TOL)
-        stages = sorted({(i, SHARD_KERNELS[type(sp).__name__], tuple(o.shape), str(o.dtype))
-                         for i, _, sp, _, o in trace})
+            check_shard(spec, args, out, res, f"spatial-{name}-stage{i}-shard{j}")
+        stages = sorted({(i, shard_kernel(sp), tuple(first_tensor(o).shape),
+                          str(first_tensor(o).dtype)) for i, _, sp, _, o in trace})
         wins = {i: [(k0, k1, [s for s, _, _ in parts]) for k0, k1, parts in v]
                 for i, v in launch.windows.items()}
         log(f"  spatial {name}: {len(trace)} shard launches each within tolerance of "
-            f"its plain version; stages {stages}; windows {wins}; output bit-equal to "
-            f"the unsharded chain")
+            f"its plain version; stages {stages}; windows {wins}; {launch.exchanged} "
+            f"bytes exchanged; output bit-equal to the unsharded chain")
         counts[name] = len(trace)
-        if name in ("config3", "jpeg-resize", "jpeg-blur", "jpeg-flip", "shrink"):
+        exchanged[name] = launch.exchanged
+        if name in TIMED_CHAINS:
             timed[name] = (arr, p, trace, launch.windows)
-    out = {"shard_launches": counts}
+    out = {"shard_launches": counts, "exchanged_bytes": exchanged}
 
     def stage_launches(name, kname):
-        return [(sp, a) for _, _, sp, a, _ in timed[name][2]
-                if SHARD_KERNELS[type(sp).__name__] == kname]
+        return [(sp, a) for _, _, sp, a, _ in timed[name][2] if shard_kernel(sp) == kname]
 
     # K13 at config 3's shard shapes: one launch a shard, on one stream
     k13 = stage_launches("config3", "blur_halo")
@@ -3951,6 +4080,159 @@ def spatial_shard_check(plans: dict, res: dict, entry, n: int) -> dict:
     log(f"  exchange_window ahead of the 4K JPEG /resize's K1: {copied} bytes copied "
         f"({copied / 1e6:.1f} MB, {n} windows of {[k1 - k0 for k0, k1 in wins]} columns) "
         f"in {ex_ms:.4f} ms, bound {b:.4f} ms (read and write once)")
+    out.update(new_form_timings(timed, res, entry, n))
+    torch.cuda.synchronize()
+    return out
+
+
+# the chains whose shard launches spatial_shard_check times
+TIMED_CHAINS = ("config3", "jpeg-resize", "jpeg-blur", "jpeg-flip", "shrink", "jpeg-crop",
+                "jpeg-embed", "jpeg-flop", "jpeg-rotate", "jpeg-smartcrop")
+
+
+def stage_input(trace, stage: int):
+    """The whole input of a sharded stage: the stage before's shard
+    outputs side by side."""
+    import torch
+
+    return torch.cat([o for i, _, _, _, o in trace if i == stage - 1], dim=2)
+
+
+def exchange_timing(entry, shards: list, col0s: list, exchange, what: str) -> dict:
+    """Time `exchange(row)` over shards holding shards[j] at col0s[j]
+    (every copy on the current stream, so that device_ms times them)
+    against the bound of reading and writing its bytes once."""
+    from imaginary_tpu_torch.parallel import spatial
+
+    def run():
+        row = []
+        for x, c0 in zip(shards, col0s):
+            sh = spatial.Shard(entry, None, 0, 1, c0)
+            sh.x = x
+            row.append(sh)
+        tally = [0]
+        exchange(row, tally)
+        return tally[0]
+
+    copied = run()
+    ms = device_ms(run)
+    b, by = bound_ms(2 * copied, 0.0)
+    log(f"  {what}: {copied} bytes copied ({copied / 1e6:.1f} MB) in {ms:.4f} ms, bound "
+        f"{b:.4f} ms (read and write once)")
+    return {"ms": ms, "bytes_copied": copied, "bound_ms": b, "bound_by": by}
+
+
+def new_form_timings(timed: dict, res: dict, entry, n: int) -> dict:
+    """The W-shard forms of K4 (extract, embed), K5 (flop, transpose) and
+    the smartcrop (K9, K10, K4 from the keys) at the 4K JPEG chains'
+    shards, each bit-equal to the unsharded kernel on the same input and
+    timed beside it (`shard_timing`); then the transpose's row-band
+    exchange and the smartcrop's image window exchange against their
+    bounds."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops.stages import FlopSpec, TransposeSpec
+    from imaginary_tpu_torch.parallel import spatial
+
+    out = {}
+
+    def stage_of(name, cls=None, fn=None):
+        """(stage index, [(spec, args, out)]) of the chain's launches of a
+        spec class or of a ShardLaunch fn."""
+        got = [(i, sp, a, o) for i, _, sp, a, o in timed[name][2]
+               if (cls is not None and isinstance(sp, cls))
+               or (fn is not None and getattr(sp, "fn", None) == fn)]
+        return got[0][0], [(sp, a, o) for _, sp, a, o in got]
+
+    def whole_of(name, stage, apply):
+        """The stage's unsharded kernel on its whole input; the shards'
+        outputs side by side must equal it bit for bit."""
+        x_full = stage_input(timed[name][2], stage)
+        return x_full, (lambda: apply(x_full))
+
+    # K4's extract and embed, K5's flop and transpose: one stage each
+    for name, key, cls, kname, label in (
+            ("jpeg-crop", "k4_extract", None, "gather", "ExtractSpec"),
+            ("jpeg-embed", "k4_embed", None, "gather", "EmbedSpec"),
+            ("jpeg-flop", "k5_flop", FlopSpec, "orient", None),
+            ("jpeg-rotate", "k5_transpose", TransposeSpec, "orient", None)):
+        trace = timed[name][2]
+        if cls is None:
+            cls = next(type(sp) for _, _, sp, _, _ in trace if type(sp).__name__ == label)
+        stage, launches = stage_of(name, cls=cls)
+        spec, a0, _ = launches[0]
+        h, w, dyn = a0[3], a0[4], a0[5]
+        x_full, whole = whole_of(name, stage, lambda x: spec.apply(x, h, w, dyn)[0])
+        got = torch.cat([o for _, _, o in launches], dim=2)
+        want = whole()
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}'s {cls.__name__} shards are not bit-equal to the "
+                                 f"kernel on the frame")
+        nbytes = 2 * want.numel() * want.element_size()
+        out[key] = shard_timing(res, kname, "spatial-" + name,
+                                [(sp, a) for sp, a, _ in launches], whole, nbytes, 0.0,
+                                kname)
+    # the smartcrop: K9's rows and scan, K10, the gather from the keys
+    name = "jpeg-smartcrop"
+    trace = timed[name][2]
+    stage, rows = stage_of(name, fn="saliency_rows_shard")
+    _, scans = stage_of(name, fn="saliency_scan_shard")
+    _, argmaxes = stage_of(name, fn="window_argmax_shard")
+    _, gathers = stage_of(name, fn="gather_shard")
+    x_full = stage_input(trace, stage)
+    a0 = rows[0][1]
+    h, w = a0[3], a0[4]
+    a10 = argmaxes[0][1]
+    win_h, win_w = a10[3], a10[4]
+    ii = kernels.saliency_ii(x_full, h, w)
+    if not torch.equal(torch.cat([o for _, _, o in scans], dim=2), ii[:, :, 1:]):
+        raise AssertionError("the smartcrop's integral image shards are not K9's on the frame")
+    top, left = kernels.window_argmax(ii, h, w, win_h, win_w)
+    keys = torch.stack([o for _, _, o in argmaxes], dim=1)
+    if [int(v[0]) for v in reference.decode_keys(keys.cpu(), x_full.shape[2])] != \
+            [int(top[0]), int(left[0])]:
+        raise AssertionError("the smartcrop's shard keys do not decode to K10's window")
+    spec = timed[name][1].spec_key()[stage]
+    whole_g = kernels.gather(x_full, spec.out_hb, spec.out_wb, top, left, mode="window")
+    if not torch.equal(torch.cat([o for _, _, o in gathers], dim=2), whole_g):
+        raise AssertionError("the smartcrop's gather shards are not K4's on the frame")
+    px = x_full.shape[1] * x_full.shape[2]
+    k9_bytes = x_full.numel() * x_full.element_size() + ii.numel() * 4
+    out["k9_smartcrop"] = shard_timing(
+        res, "saliency", "spatial-" + name, [(sp, a) for sp, a, _ in rows + scans],
+        lambda: kernels.saliency_ii(x_full, h, w), k9_bytes, 40.0 * px, "k9")
+    # what the shards' candidates read (the same count as the whole
+    # image's K10), not the windows exchanged to them
+    work = [k10_work(int(h[0]), int(w[0]), int(a[3][0]), int(a[4][0]), a[8], a[9],
+                     a[6], a[7]) for _, a, _ in argmaxes]
+    out["k10_smartcrop"] = shard_timing(
+        res, "window_argmax", "spatial-" + name, [(sp, a) for sp, a, _ in argmaxes],
+        lambda: kernels.window_argmax(ii, h, w, win_h, win_w), sum(b for b, _ in work),
+        sum(f for _, f in work), "k10")
+    out["k10_smartcrop"]["ii_window_bytes"] = sum(a[0].numel() * 4 for _, a, _ in argmaxes)
+    out["k4_smartcrop"] = shard_timing(
+        res, "gather", "spatial-" + name, [(sp, a) for sp, a, _ in gathers],
+        lambda: kernels.gather(x_full, spec.out_hb, spec.out_wb, top, left, mode="window"),
+        2 * whole_g.numel() * 4, 0.0, "k4")
+    sal_lw = x_full.shape[2] // n
+    out["smartcrop_window_exchange"] = exchange_timing(
+        entry, [x_full[:, :, j * sal_lw:(j + 1) * sal_lw] for j in range(n)],
+        [j * sal_lw for j in range(n)],
+        lambda row, tally: spatial.exchange_window(
+            row, [(k0, k1) for k0, k1, _ in timed[name][3][stage]], tally),
+        "the smartcrop's image window exchange ahead of its K4")
+    out["smartcrop_window_exchange"]["columns"] = [k1 - k0 for k0, k1, _ in
+                                                   timed[name][3][stage]]
+    # the transpose's all-to-all over the rotate's K2 shards
+    t_stage, _ = stage_of("jpeg-rotate", cls=TransposeSpec)
+    prev = [o for i, _, _, _, o in timed["jpeg-rotate"][2] if i == t_stage - 1]
+    lw_prev, band = prev[0].shape[2], prev[0].shape[1] // n
+    out["band_exchange"] = exchange_timing(
+        entry, prev, [j * lw_prev for j in range(n)],
+        lambda row, tally: spatial.exchange_bands(row, band, tally),
+        f"the transpose's row-band exchange ({n}x{n} blocks of {band} rows)")
     torch.cuda.synchronize()
     return out
 
@@ -3985,8 +4267,10 @@ def spatial_busy(prof, labels: list) -> dict:
 
 def spatial_route_phase(png: bytes, res: dict) -> dict:
     """Phase 10(d): the SPATIAL_REQUESTS chains (config 3's /pipeline and
-    the dry run's bw chain on the 4K PNG; /resize, /blur, /flip and the bw
-    chain on the same frame as a 4:2:0 JPEG), one request at a time, from
+    the dry run's bw chain on the 4K PNG; /resize, /blur, /flip, the bw
+    chain, /crop, /smartcrop, /rotate, /flop and a filled embed on the
+    same frame as a 4:2:0 JPEG, and an EXIF-6 /resize of it), one request
+    at a time, from
     the off server, then a lanes server over SPATIAL_SHARDS entries of
     card 0 with --spatial SPATIAL_SHARDS and the default bar (the PNG's
     input bucket 2560x4096 and the JPEG's packed 3840x4096 cross
@@ -3997,6 +4281,8 @@ def spatial_route_phase(png: bytes, res: dict) -> dict:
     launches those of `spatial_expected` (n of each sharded stage's
     kernel; no K8 on the JPEG bw chain, folded into its K3). p50 by
     server, and the card's busy time a request of each chain on each."""
+    import collections
+
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -4010,11 +4296,11 @@ def spatial_route_phase(png: bytes, res: dict) -> dict:
     jpeg = make_4k_jpeg(png)
     log(f"  the 4K frame as a 4:2:0 JPEG: {len(jpeg)} bytes (q {SPATIAL_JPEG_QUALITY}), "
         f"made in {time.perf_counter() - t0:.2f} s")
-    srcs = {"png": png, "jpeg": jpeg}
-    plans = spatial_plans(png, jpeg)
+    srcs = {"png": png, "jpeg": jpeg, "jpeg6": make_4k_jpeg(png, SPATIAL_EXIF)}
+    plans = spatial_plans(srcs)
     per_request = {name: spatial_expected(p, arr, n) for name, (arr, p) in plans.items()}
     for name, got in per_request.items():
-        want_k = dict.fromkeys(SPATIAL_KERNELS[name], n)
+        want_k = {k: c * n for k, c in collections.Counter(SPATIAL_KERNELS[name]).items()}
         if {k: v for k, v in got.items() if v} != want_k:
             raise AssertionError(f"spatial {name}: the plan launches {got}, not {want_k}")
     expected = dict.fromkeys(kernels.LAUNCHES, 0)
@@ -4705,7 +4991,7 @@ def url_source_phase(png: bytes, stream: list) -> dict:
 # --- phase 13: --prewarm and cold launches, the deadline, the golden matrix --
 
 PREWARM_CLIENTS = 8
-PREWARM_PER_CLIENT = 6
+PREWARM_PER_CLIENT = 3
 PREWARM_BOOT_S = 240  # a server's boot, its prewarm included
 TESTDATA = os.path.join(ROOT, "tests", "testdata")
 # each _COMMON row's source dims (h, w) -> the committed JPEG of those dims
@@ -5175,11 +5461,12 @@ LISTED_BOUNDS = (
      47.0 * 320 * 640),
     ("saliency", "2160x3840 f32 B=1", 2160 * 3840 * 3 * 4 + 2161 * 3841 * 4,
      47.0 * 2160 * 3840),
-    # K10 on SAL_SEAM_CASES' 320x640 (B=2): the integral image read once, two
-    # offsets out; 4 operations a candidate window, (300, 300) over 300x533
-    # valid and (1, 1) over 320x640
-    ("window_argmax", "320x640, windows 300x300 and 1x1", 2 * 321 * 641 * 4 + 2 * 8,
-     4.0 * ((300 - 300 + 1) * (533 - 300 + 1) + 320 * 640)),
+    # K10 on SAL_SEAM_CASES' 320x640 (B=2): the integral image entries its
+    # candidates read, once, two offsets out; 4 operations a candidate
+    # window, (300, 300) over 300x533 valid and (1, 1) over 320x640
+    ("window_argmax", "320x640, windows 300x300 and 1x1",
+     k10_work(300, 533, 300, 300, 320, 640)[0] + k10_work(320, 640, 1, 1, 320, 640)[0],
+     k10_work(300, 533, 300, 300, 320, 640)[1] + k10_work(320, 640, 1, 1, 320, 640)[1]),
 )
 
 
@@ -7005,7 +7292,7 @@ CONFIG5_N = 32
 CONFIG5_SEED = 23
 CONFIG5_PATH = "/resize?width=300"
 CONFIG5_CLIENTS = 16
-CONFIG5_PER_CLIENT = 6
+CONFIG5_PER_CLIENT = 3
 CONFIG5_BATCHING = dict(max_batch=16, batch_form_ms=5.0, cpus=CONFIG5_CLIENTS)
 # K2 -> K1 -> K3 on the JPEGs (yuv420 transport), K1 on the PNGs and WEBPs
 CONFIG5_KERNELS = ("yuv420_unpack", "resample", "yuv420_pack")
@@ -7382,7 +7669,7 @@ OBS_PLANES = ["--wide-events", "--wide-events-sample", "1.0", "--slo-config", OB
               "--enable-debug", "--cost-attribution"]
 OBS_SERIAL = 20  # (a): config 1, one request at a time
 OBS_PROFILE_S = 2.0  # (b): the capture's seconds
-OBS_LATENCY_N = 50  # (c): requests a block; blocks armed, off, off, armed
+OBS_LATENCY_N = 25  # (c): requests a block; blocks armed, off, off, armed
 OBS_TRICKLE = 8  # (e): chunks of the flowing slow body, OBS_TRICKLE_GAP_S apart
 OBS_TRICKLE_GAP_S = 0.3
 CONFIG1_PATH = "/resize?width=300&height=200"
@@ -7828,8 +8115,8 @@ def obs_phase(smi: str) -> dict:
 
 # -- phase 20: the single-host fleet ------------------------------------------
 
-FLEET_SERIAL = 20  # (a): config 1, one request at a time
-FLEET_CLIENTS, FLEET_PER_CLIENT = 16, 8  # (a): one window a server
+FLEET_SERIAL = 10  # (a): config 1, one request at a time
+FLEET_CLIENTS, FLEET_PER_CLIENT = 16, 4  # (a): one window a server
 FLEET_BOOT_S = 180  # every worker of a fleet answering /health
 FLEET_ROLL_S = 180  # (b): both replacements answering at their new epochs
 FLEET_ROLL_GRACE = "1"  # (b): --fleet-roll-grace
@@ -8777,6 +9064,11 @@ def multihost_phase(smi: str) -> dict:
     return out
 
 
+# the keys of a W-shard form's timing that the kernels line carries
+SHARD_FORM_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shards",
+                   "shard_shape", "ms_over_whole", "max_abs_err")
+
+
 def main() -> int:
     import torch
 
@@ -8791,15 +9083,34 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    report: dict = {}
+    report: dict = {"phase_seconds": {}}
+    marks = [("", time.perf_counter())]
+
+    def phase_log(header: str) -> None:
+        """The phase before's seconds, then the next phase's header."""
+        now = time.perf_counter()
+        if marks[-1][0]:
+            report["phase_seconds"][marks[-1][0]] = now - marks[-1][1]
+            log(f"  ({marks[-1][0]}: {now - marks[-1][1]:.1f} s)")
+        marks.append((header.split(":")[0].lstrip("= "), now))
+        log(header)
+
+    def step(label: str, fn, *args):
+        """fn(*args), its seconds logged and kept beside the phases'."""
+        t = time.perf_counter()
+        out = fn(*args)
+        report["phase_seconds"][label] = time.perf_counter() - t
+        log(f"  ({label}: {report['phase_seconds'][label]:.1f} s)")
+        return out
+
     smi = smi_line()
-    log("== phase 1: environment")
+    phase_log("== phase 1: environment")
     log(f"  {smi}")
     log(f"  python {sys.version.split()[0]}  torch {torch.__version__}  "
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)}")
     report["env"] = {"smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda}
 
-    log("== phase 2: build")
+    phase_log("== phase 2: build")
     codec_box: dict = {}
 
     def build_codec():
@@ -8832,88 +9143,89 @@ def main() -> int:
     report["build"]["entropy"] = {"seconds": entropy_secs, "arm": arm}
 
     rng = np.random.default_rng(SEED)
-    log("== phase 3: kernels against their plain versions")
-    report["kernels"] = kernel_phase(rng)
-    orient_phase(report["kernels"])
-    config2_kernel_phase(rng, report["kernels"])
-    config3_kernel_phase(report["kernels"])
-    pack_gray_phase(report["kernels"])
-    out_param_phase(report["kernels"])
-    seams_phase(report["kernels"])
-    config4_kernel_phase(report["kernels"])
-    dct_kernel_phase(report["kernels"])
-    log("== phase 4: main path through the server")
+    phase_log("== phase 3: kernels against their plain versions")
+    report["kernels"] = step("kernel_phase", kernel_phase, rng)
+    step("orient_phase", orient_phase, report["kernels"])
+    step("config2_kernel_phase", config2_kernel_phase, rng, report["kernels"])
+    step("config3_kernel_phase", config3_kernel_phase, report["kernels"])
+    step("pack_gray_phase", pack_gray_phase, report["kernels"])
+    step("out_param_phase", out_param_phase, report["kernels"])
+    step("seams_phase", seams_phase, report["kernels"])
+    step("config4_kernel_phase", config4_kernel_phase, report["kernels"])
+    step("dct_kernel_phase", dct_kernel_phase, report["kernels"])
+    phase_log("== phase 4: main path through the server")
     unwatch = watch_servers()
     report["main_path"] = main_path_phase()
     t0 = time.perf_counter()
     png = make_4k_png()
     log(f"  config 3's 3840x2160 PNG: {len(png)} bytes, made in "
         f"{time.perf_counter() - t0:.2f} s")
-    log("== phase 4b/5: cuda against cpu (run_single; run_batch B=16, B=32, B=1 and B=8)")
+    phase_log("== phase 4b/5: cuda against cpu (run_single; run_batch B=16, B=32, B=1 and B=8)")
     report["parity"] = parity_phase(rng, png)
-    log("== phase 6: config 2 under load (/thumbnail, /crop, /rotate, EXIF /resize)")
+    phase_log("== phase 6: config 2 under load (/thumbnail, /crop, /rotate, EXIF /resize)")
     report["config2"] = config2_phase()
-    log("== phase 7: config 3 (/pipeline on a 4K PNG to WEBP), the JPEG /pipeline, bw")
+    phase_log("== phase 7: config 3 (/pipeline on a 4K PNG to WEBP), the JPEG /pipeline, bw")
     report["config3"] = config3_phase(png)
     t0 = time.perf_counter()
     stream = make_config4_stream()
-    log(f"== phase 8: config 4 (/smartcrop on bench_firehose.py's stream; made in "
+    phase_log(f"== phase 8: config 4 (/smartcrop on bench_firehose.py's stream; made in "
         f"{time.perf_counter() - t0:.2f} s)")
     report["config4"] = config4_phase(stream)
-    log("== phase 9: the DCT transport both ways (/resize at k = 2 and k = 8)")
+    phase_log("== phase 9: the DCT transport both ways (/resize at k = 2 and k = 8)")
     report["dct"] = dct_phase()
-    log("== phase 10a: the W-sharded blur (K13) and its halo exchange")
+    phase_log("== phase 10a: the W-sharded blur (K13) and its halo exchange")
     report["sharded_blur"] = sharded_blur_phase(report["kernels"])
-    log("== phase 10b/c: multi-GPU lanes (--mesh-policy lanes; four lanes on one "
+    phase_log("== phase 10b/c: multi-GPU lanes (--mesh-policy lanes; four lanes on one "
         "card, lanes and sharded; chip_error[1] failover)")
     report["mesh_lanes"] = mesh_lanes_phase()
-    log(f"== phase 10d: the spatial route (config 3's /pipeline and the bw chain on the "
+    phase_log(f"== phase 10d: the spatial route (config 3's /pipeline and the bw chain on the "
         f"4K PNG; /resize, /blur, /flip and the bw chain on it as a 4:2:0 JPEG; "
         f"W-sharded over {SPATIAL_SHARDS} entries of one card)")
     report["spatial"] = spatial_route_phase(png, report["kernels"])
-    log("== phase 11: the HTTP layer on the card (config 1 with the reference's "
+    phase_log("== phase 11: the HTTP layer on the card (config 1 with the reference's "
         "middleware chain, /info, /metrics, a placeholder, the throttle)")
     report["http"] = http_layer_phase()
-    log("== phase 12: URL sources and watermarkImage on the card (config 1 over ?url=, "
+    phase_log("== phase 12: URL sources and watermarkImage on the card (config 1 over ?url=, "
         "the placed K7, the source's statuses, config 5's stream over ?url=)")
     report["url"] = url_source_phase(png, stream)
-    log("== phase 13: --prewarm and the cold server's compile misses, the request "
+    phase_log("== phase 13: --prewarm and the cold server's compile misses, the request "
         "deadline on the card, the golden matrix on the card")
-    report["prewarm"] = prewarm_phase(smi)
-    report["deadline"] = deadline_phase(smi)
-    report["golden"] = golden_phase()
-    report["chain_plain"] = chain_plain_phase(png)
-    report["listed_bounds"] = listed_bounds()
+    report["prewarm"] = step("prewarm_phase", prewarm_phase, smi)
+    report["deadline"] = step("deadline_phase", deadline_phase, smi)
+    report["golden"] = step("golden_phase", golden_phase)
+    report["chain_plain"] = step("chain_plain_phase", chain_plain_phase, png)
+    report["listed_bounds"] = step("listed_bounds", listed_bounds)
     unwatch()
-    log("== phase 14: the fault domain and the host placement (integrity, OOM, the "
+    phase_log("== phase 14: the fault domain and the host placement (integrity, OOM, the "
         "drain watchdog, hedging, fail-slow, --force-host)")
     report["fault_domain"] = fault_domain_phase(smi)
-    log("== phase 15: the executor's admission half (convoy, the governor's byte cap, "
+    phase_log("== phase 15: the executor's admission half (convoy, the governor's byte cap, "
         "qos, donation, WIRE and the arena, the drain)")
     report["admission"] = admission_phase(smi, png)
-    log("== phase 16: the cache tiers (the result tier and 304, singleflight and the "
+    phase_log("== phase 16: the cache tiers (the result tier and 304, singleflight and the "
         "coalesce wait's deadline, the frame tier, the device tier on one card and on "
         "four lanes, the brownout, the source tier, phase 6's mix on lanes)")
     report["cache"] = cache_phase(smi, png)
-    log("== phase 17: the mesh (config 5's stream under --use-mesh, sharded lanes and "
+    phase_log("== phase 17: the mesh (config 5's stream under --use-mesh, sharded lanes and "
         "unsharded on four entries of card 0; NCCL with a world of one; two "
         "--mesh-hosts processes)")
     report["mesh"] = mesh_phase()
-    log("== phase 18: the vector and HEIF/AVIF codecs (the loaders found, each route "
+    phase_log("== phase 18: the vector and HEIF/AVIF codecs (the loaders found, each route "
         "against the reference's rule, K1's launches)")
     report["vector"] = vector_phase()
-    log("== phase 19: the observability planes on the card (wide events, the SLO engine, "
+    phase_log("== phase 19: the observability planes on the card (wide events, the SLO engine, "
         "the cost and capacity plane, /debugz/profile, the armed latency, h2, --read-timeout)")
     report["obs"] = obs_phase(smi)
-    log("== phase 20: the single-host fleet on the card (--workers 2 against one process, "
+    phase_log("== phase 20: the single-host fleet on the card (--workers 2 against one process, "
         "a SIGHUP roll, a SIGKILLed worker, the shm tier, the forward hop, the claims and "
         "the admin plane)")
     report["fleet"] = fleet_phase(smi)
-    log("== phase 21: two hosts on the card (two --workers 2 supervisors with --peers, "
+    phase_log("== phase 21: two hosts on the card (two --workers 2 supervisors with --peers, "
         "--router and their admin planes: the cross-host hop, fail-open, a new "
         "incarnation, spillover)")
     report["multihost"] = multihost_phase(smi)
 
+    phase_log("== kernels line")
     rows = []
     for name, (source, replaces) in KERNEL_ROWS.items():
         per_case = report["kernels"][name]
@@ -8956,6 +9268,11 @@ def main() -> int:
             "max_abs_err": max(c["max_abs_err"] for c in per_case.values()),
             "ms": m["ms"], "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m["library_ms"],
+            # the W-shard forms timed at phase 10(d)'s shards (the spatial
+            # route's launches are in launches_spatial)
+            "shard_forms": {c: {k: v[k] for k in SHARD_FORM_KEYS if k in v}
+                            for c, v in per_case.items()
+                            if c.startswith("spatial-") and "ms" in v},
         })
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:

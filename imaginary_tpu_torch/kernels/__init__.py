@@ -16,6 +16,16 @@
 | to_dct          | csrc/to_dct.cu         | ops/stages.py:555-622 ToDctSpec + int16 drain    |
 | blur_halo       | csrc/blur_halo.cu      | parallel/spatial.py:56-124 sharded_blur (K6 on a W-shard) |
 
+W-shard forms (the spatial route, `ops/stages.py`): K1 (`cols`), K2
+(`yuv420_to_rgb_shard`), K3 (`rgb_to_yuv420_shard`) and K13 take a shard's
+columns through their own entry's extra parameters; K4 (`gather_shard`:
+every index map, and the smartcrop's gather from K10's keys), K5's flop
+(`flop_shard`), K9 (`saliency_rows_shard`, `saliency_scan_shard`) and
+K10 (`window_argmax_shard`) are kernels of their own in the same sources,
+so the whole-image launches do not change; each counts under its
+kernel's name. K5's flip and transpose, K7 and K8 run their whole-image
+kernel on the shard.
+
 Each wrapper below takes tensors on one device. On a CPU tensor it runs
 the kernel's plain version (`reference.py`). On a CUDA tensor it checks
 dtype, shape and contiguity, allocates outputs with `torch.empty` (the
@@ -76,11 +86,30 @@ _SIGNATURES = {
     "blur_halo": ("blur_halo", "itpu_blur_halo",
                   [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P]),
+    # the W-shard forms with kernels of their own (the spatial route),
+    # each counted under its kernel's name (`_COUNT_AS`)
+    "gather_shard": ("gather", "itpu_gather_shard",
+                     [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _I, _I, _P]),
+    "flop_shard": ("orient", "itpu_flop_shard",
+                   [_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "saliency_rows_shard": ("saliency", "itpu_saliency_rows_shard",
+                            [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                             _I, _I, _P]),
+    "saliency_scan_shard": ("saliency", "itpu_saliency_scan_shard",
+                            [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "window_argmax_shard": ("saliency", "itpu_window_argmax_shard",
+                            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P]),
 }
+_COUNT_AS = {"gather_shard": "gather", "flop_shard": "orient",
+             "saliency_rows_shard": "saliency", "saliency_scan_shard": "saliency",
+             "window_argmax_shard": "window_argmax"}
 
 # Kernel launches since the last reset, per kernel (saliency counts its
-# two passes as two launches). Written under _COUNT_LOCK only.
-LAUNCHES = {name: 0 for name in _SIGNATURES}
+# two passes as two launches; a W-shard form counts under its kernel's
+# name). Written under _COUNT_LOCK only.
+LAUNCHES = {name: 0 for name in _SIGNATURES if name not in _COUNT_AS}
 
 _FNS: dict = {}
 _LOCK = threading.Lock()  # the build and load
@@ -140,7 +169,7 @@ def _launch(name: str, device: torch.device, *args, passes: int = 1) -> None:
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    _count(name, passes)
+    _count(_COUNT_AS.get(name, name), passes)
 
 
 def _ptr(t):
@@ -382,6 +411,55 @@ def gather(x, out_hb: int, out_wb: int, off_y=None, off_x=None, size_h=None,
     return out
 
 
+def gather_shard(x, out_hb: int, lw: int, col0: int, in_col0: int, in_wb: int,
+                 off_y=None, off_x=None, size_h=None, size_w=None,
+                 mode: str = "window", fill=None, keys=None, key_wb: int = 0,
+                 out_u8: bool = False):
+    """K4's W-shard form: output columns [col0, col0 + lw) of `gather`'s
+    output, from x [B, Hb, kw, C] holding input columns [in_col0, in_col0 +
+    kw) of a bucket in_wb wide (the caller makes them cover every column
+    the shard reads: `stages.ExtractSpec.shard_window` and its kin). The
+    index maps are `gather`'s on global columns. keys (int64 [B, n], K10's
+    shard keys, or None): the window's offsets, decoded on the card from
+    the best key (an index over a bucket key_wb wide), in place of
+    off_y/off_x. One launch."""
+    if mode not in _GATHER_MODE:
+        raise ValueError(f"unknown gather mode {mode!r}")
+    if mode != "window" and (size_h is None or size_w is None or off_y is None
+                             or off_x is None):
+        raise ValueError(f"gather mode {mode!r} needs offsets and sizes")
+    if x.dim() != 4:
+        raise ValueError(f"x must be [B, H, W, C], got {tuple(x.shape)}")
+    bsz, in_hb, kw, c = x.shape
+    if not (0 <= in_col0 and in_col0 + kw <= in_wb and 0 <= col0 and lw >= 1):
+        raise ValueError(f"shard columns [{col0}, {col0 + lw}) from input columns "
+                         f"[{in_col0}, {in_col0 + kw}) of {in_wb}")
+    if keys is not None and key_wb < 1:
+        raise ValueError("keys need the bucket width their indices run over")
+    if x.device.type == "cpu":
+        return reference.gather_shard(x, out_hb, lw, col0, in_col0, in_wb, off_y, off_x,
+                                      size_h, size_w, mode, fill, keys, key_wb, out_u8)
+    dev = x.device
+    _require(x, "x", _IMG, (bsz, in_hb, kw, c), dev)
+    for t, n in ((off_y, "off_y"), (off_x, "off_x"), (size_h, "size_h"),
+                 (size_w, "size_w")):
+        if t is not None:
+            _require(t, n, _I32, (bsz,), dev)
+    if fill is not None:
+        _require(fill, "fill", _F32, (bsz, c), dev)
+    nkeys = 0
+    if keys is not None:
+        nkeys = keys.shape[-1]
+        _require(keys, "keys", (torch.int64,), (bsz, nkeys), dev)
+    out = torch.empty((bsz, out_hb, lw, c), dtype=torch.uint8 if out_u8 else torch.float32,
+                      device=dev)
+    _launch("gather_shard", dev, x.data_ptr(), int(x.dtype == torch.uint8),
+            out.data_ptr(), int(out_u8), _ptr(off_y), _ptr(off_x), _ptr(size_h),
+            _ptr(size_w), _ptr(fill), _ptr(keys), nkeys, key_wb, _GATHER_MODE[mode],
+            bsz, in_hb, in_wb, in_col0, kw, c, out_hb, lw, col0)
+    return out
+
+
 def orient(x, h, w, mode: str, out_u8: bool = False, out=None):
     """K5: "flip" or "flop" x [B, Hb, Wb, C] (uint8 or f32, C 1 to 4)
     inside each image's valid h or w (padding copied as it is), or
@@ -405,6 +483,29 @@ def orient(x, h, w, mode: str, out_u8: bool = False, out=None):
     _launch("orient", dev, x.data_ptr(), int(x.dtype == torch.uint8),
             out.data_ptr(), int(out_u8), h.data_ptr(), w.data_ptr(),
             _ORIENT_MODE[mode], bsz, hb, wb, c)
+    return out
+
+
+def flop_shard(x, h, w, col0: int, lw: int, in_col0: int, out_u8: bool = False):
+    """K5's flop on a W-shard: output columns [col0, col0 + lw) of
+    `orient(..., "flop")`, from x [B, Hb, kw, C] holding the mirrored input
+    columns from in_col0, then the shard's own padding columns, which end
+    the window (`stages.FlopSpec.shard_window`). h, w: int32 [B], the whole
+    image's valid dims. One launch."""
+    if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
+        raise ValueError(f"x must be [B, H, W, C] with C 1 to 4, got {tuple(x.shape)}")
+    if in_col0 < 0 or col0 < 0 or lw < 1:
+        raise ValueError(f"shard columns [{col0}, {col0 + lw}) from {in_col0}")
+    if x.device.type == "cpu":
+        return reference.flop_shard(x, h, w, col0, lw, in_col0, out_u8)
+    dev = x.device
+    bsz, hb, kw, c = x.shape
+    _require(x, "x", _IMG, (bsz, hb, kw, c), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    out = torch.empty((bsz, hb, lw, c), dtype=torch.uint8 if out_u8 else torch.float32,
+                      device=dev)
+    _launch("flop_shard", dev, x.data_ptr(), int(x.dtype == torch.uint8), out.data_ptr(),
+            int(out_u8), w.data_ptr(), bsz, hb, kw, lw, c, col0, in_col0)
     return out
 
 
@@ -514,6 +615,103 @@ def saliency_ii(x, h, w):
     _launch("saliency", dev, x.data_ptr(), int(x.dtype == torch.uint8),
             ii.data_ptr(), h.data_ptr(), w.data_ptr(), bsz, hb, wb, c, passes=2)
     return ii
+
+
+def saliency_segment(wb: int) -> int:
+    """The columns of one segment of K9's row scan on a bucket wb wide
+    (csrc/saliency.cu: `reference.SAL_LANES` lanes a row)."""
+    return -(-wb // reference.SAL_LANES)
+
+
+def saliency_rows_shard(x, left, right, h, w, col0: int, wb: int):
+    """K9's row pass on a W-shard: x [B, Hb, lw, C] (uint8 or f32, C 3 or
+    4) holds global columns [col0, col0 + lw) of a bucket wb wide; left and
+    right [B, Hb, per, C] (x's dtype, per = `saliency_segment(wb)`) the
+    per columns past each edge (None outside the bucket). Returns (sal f32
+    [B, Hb, lw + 2 (per - 1)]: the saliency over global columns [col0 - per
+    + 1, col0 + lw + per - 1), 0 outside the bucket; totals f32 [B, Hb,
+    nt]: the row scan's segments that start in [col0, col0 + lw)), equal to
+    the whole image's. h, w: int32 [B], the whole image's valid dims. One
+    launch."""
+    per = saliency_segment(wb)
+    if x.dim() != 4 or x.shape[3] not in (3, 4):
+        raise ValueError(f"x must be [B, H, W, C] with C 3 or 4, got {tuple(x.shape)}")
+    bsz, hb, lw, c = x.shape
+    if col0 < 0 or col0 + lw > wb or lw < per:
+        raise ValueError(f"shard columns [{col0}, {col0 + lw}) of {wb} (segment {per})")
+    for halo, name, needed in ((left, "left", col0 > 0), (right, "right", col0 + lw < wb)):
+        if halo is None and needed:
+            raise ValueError(f"the {name} halo of columns [{col0}, {col0 + lw}) is missing")
+    if x.device.type == "cpu":
+        return reference.saliency_rows_shard(x, left, right, h, w, col0, wb)
+    dev = x.device
+    _require(x, "x", _IMG, (bsz, hb, lw, c), dev)
+    for halo, name in ((left, "left"), (right, "right")):
+        if halo is not None:
+            _require(halo, name, (x.dtype,), (bsz, hb, per, c), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    nt = -(-(col0 + lw) // per) - -(-col0 // per)
+    sal = torch.empty((bsz, hb, lw + 2 * (per - 1)), dtype=torch.float32, device=dev)
+    totals = torch.empty((bsz, hb, nt), dtype=torch.float32, device=dev)
+    _launch("saliency_rows_shard", dev, x.data_ptr(), int(x.dtype == torch.uint8),
+            _ptr(left), _ptr(right), sal.data_ptr(), totals.data_ptr(), h.data_ptr(),
+            w.data_ptr(), bsz, hb, lw, c, col0, wb, per)
+    return sal, totals
+
+
+def saliency_scan_shard(sal, totals, col0: int, lw: int, wb: int):
+    """K9's scan and column pass on a W-shard: sal from
+    `saliency_rows_shard`, totals f32 [B, Hb, nt], every shard's segment
+    totals side by side (nt = ceil(wb / per)) -> f32 [B, Hb + 1, lw], the
+    whole image's integral image columns [col0 + 1, col0 + lw + 1). Two
+    launches: the scan, then the columns."""
+    per = saliency_segment(wb)
+    bsz, hb, ew = sal.shape
+    if ew != lw + 2 * (per - 1) or tuple(totals.shape[:2]) != (bsz, hb):
+        raise ValueError(f"sal {tuple(sal.shape)} and totals {tuple(totals.shape)} do not "
+                         f"fit {lw} columns of {wb}")
+    nt = totals.shape[2]
+    if nt > reference.SAL_LANES:
+        raise ValueError(f"{nt} segment totals, more than {reference.SAL_LANES}")
+    if sal.device.type == "cpu":
+        return reference.saliency_scan_shard(sal, totals, col0, lw, wb)
+    dev = sal.device
+    _require(sal, "sal", _F32, (bsz, hb, ew), dev)
+    _require(totals, "totals", _F32, (bsz, hb, nt), dev)
+    ii = torch.empty((bsz, hb + 1, lw), dtype=torch.float32, device=dev)
+    _launch("saliency_scan_shard", dev, sal.data_ptr(), totals.data_ptr(), ii.data_ptr(),
+            bsz, hb, lw, col0, wb, per, nt, passes=2)
+    return ii
+
+
+def window_argmax_shard(ii, h, w, win_h, win_w, k0: int, c0: int, c1: int, hb: int,
+                        wb: int):
+    """K10 on a W-shard: ii f32 [B, 2 nr, kw] holds integral image columns
+    [k0, k0 + kw) (k0 >= 1; column 0 is zeros) of an image bucket hb x wb,
+    covering its candidates' windows, and of those columns only the rows
+    K10 reads: [0, nr), then [win_h, win_h + nr) (nr at least the rows of
+    candidates, h - win_h + 1); the candidates are those whose left lies
+    in [c0, c1). Returns int64 [B], the shard's best key
+    (`reference.score_keys`: the score's order-preserving bits above the
+    complement of its global index), the whole image's first masked
+    candidate's key included. One launch: a thread-block cluster an
+    image, as K10."""
+    if ii.dim() != 3 or k0 < 1 or ii.shape[1] < 2 or ii.shape[1] % 2:
+        raise ValueError(f"ii must be [B, 2 nr, kw] from column k0 >= 1, got "
+                         f"{tuple(ii.shape)} from {k0}")
+    if ii.device.type == "cpu":
+        return reference.window_argmax_shard(ii, h, w, win_h, win_w, k0, c0, c1, hb, wb)
+    dev = ii.device
+    bsz, rows, kw = ii.shape
+    _require(ii, "ii", _F32, (bsz, rows, kw), dev)
+    for t, n in ((h, "h"), (w, "w"), (win_h, "win_h"), (win_w, "win_w")):
+        _require(t, n, _I32, (bsz,), dev)
+    keys = torch.empty((bsz,), dtype=torch.int64, device=dev)
+    _launch("window_argmax_shard", dev, ii.data_ptr(), h.data_ptr(), w.data_ptr(),
+            win_h.data_ptr(), win_w.data_ptr(), keys.data_ptr(), bsz, hb, wb, rows // 2,
+            k0, kw, c0, c1)
+    return keys
 
 
 def window_argmax(ii, h, w, win_h, win_w):

@@ -33,6 +33,16 @@
 //   uint8 output (a chain's last stage) applies the chain's clip(x + 0.5)
 //   epilogue on store, as in the gather kernel, so neither needs a launch
 //   of its own.
+//
+// W-shard form of the flop (`itpu_flop_shard`, the spatial route), a
+// kernel of its own so the whole-image launches do not change: a shard
+// writes output columns [col0, col0 + lw) from the in_wl columns it holds
+// (its window, exchanged from the shards that hold them: the mirrored
+// input columns from in_col0, then the shard's own padding columns, which
+// end the window); global column g reads w - 1 - g inside the valid width
+// and g in the padding, as the whole image's flop does. The flip's shard form is the whole
+// kernel on the shard (column-local); the transpose's is the whole kernel
+// on the row band the shard assembled from every shard.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +86,25 @@ __global__ void mirror(const TIn* __restrict__ in, TOut* __restrict__ out,
   }
   const TIn* src = in + ((size_t)b * Hb + src_y) * row_len;
   store(out + (size_t)row * row_len + e, load(src + src_e));
+}
+
+// The flop's shard form. grid: x = B * Hb rows, y = ceil(lw * C /
+// kThreads); block: kThreads.
+template <typename TIn, typename TOut>
+__global__ void flop_shard(const TIn* __restrict__ in, TOut* __restrict__ out,
+                           const int32_t* __restrict__ w, int Hb, int in_wl,
+                           int lw, int C, int col0, int in_col0) {
+  const int row = blockIdx.x;
+  const int b = row / Hb;
+  const int e = blockIdx.y * blockDim.x + threadIdx.x;
+  if (e >= lw * C) return;
+  const int x = e / C;
+  const int g = col0 + x;
+  const int ww = w[b];
+  // a padding column sits lw - x columns before the window's end
+  const int src = g < ww ? ww - 1 - g - in_col0 : in_wl - lw + x;
+  const TIn* p = in + (size_t)row * in_wl * C + (size_t)src * C + (e - x * C);
+  store(out + (size_t)row * lw * C + e, load(p));
 }
 
 // grid: x = ceil(Wb / kTile), y = ceil(Hb / kTile), z = B;
@@ -144,4 +173,35 @@ extern "C" int itpu_orient(const void* in, int in_u8, void* out, int out_u8,
   if (out_u8)
     return launch<float, uint8_t>(in, out, h, w, mode, B, Hb, Wb, C, s);
   return launch<float, float>(in, out, h, w, mode, B, Hb, Wb, C, s);
+}
+
+// The flop's W-shard form. in: [B, Hb, in_wl, C], the mirrored input
+// columns from in_col0, then the shard's padding columns; out: [B, Hb, lw, C], output columns [col0, col0 + lw)
+// (uint8 with the epilogue if out_u8, else f32); w: int32 [B] valid widths.
+// Returns the launch's CUDA error code.
+extern "C" int itpu_flop_shard(const void* in, int in_u8, void* out, int out_u8,
+                               const int32_t* w, int B, int Hb, int in_wl,
+                               int lw, int C, int col0, int in_col0,
+                               void* stream) {
+  if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
+  if ((size_t)B * Hb * lw == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  dim3 grid((unsigned)B * Hb, (lw * C + kThreads - 1) / kThreads);
+  if (in_u8 && out_u8)
+    flop_shard<uint8_t, uint8_t><<<grid, kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(in), static_cast<uint8_t*>(out), w, Hb,
+        in_wl, lw, C, col0, in_col0);
+  else if (in_u8)
+    flop_shard<uint8_t, float><<<grid, kThreads, 0, s>>>(
+        static_cast<const uint8_t*>(in), static_cast<float*>(out), w, Hb,
+        in_wl, lw, C, col0, in_col0);
+  else if (out_u8)
+    flop_shard<float, uint8_t><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(in), static_cast<uint8_t*>(out), w, Hb,
+        in_wl, lw, C, col0, in_col0);
+  else
+    flop_shard<float, float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(in), static_cast<float*>(out), w, Hb, in_wl,
+        lw, C, col0, in_col0);
+  return (int)cudaGetLastError();
 }

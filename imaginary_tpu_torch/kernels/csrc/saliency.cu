@@ -60,6 +60,32 @@
 // barrier, arrived at on entry, makes sure every block has started), and
 // after cluster.sync() rank 0 writes top = i / Wb and left = i % Wb. No
 // global scratch, no atomics.
+//
+// W-shard forms (the spatial route; kernels of their own, so the
+// whole-image launches do not change). Shard j holds input columns [c0,
+// c1) of a bucket Wb wide, and the shards' results equal the whole
+// image's bit for bit:
+//   rows (`itpu_saliency_rows_shard`): a block a row; each pixel's
+//     saliency recomputed from its own and its four neighbours' RGB with
+//     the functions above (luma is a function of the pixel alone), over
+//     the shard's columns and per - 1 past each edge (per = ceil(Wb /
+//     256), the whole row scan's segment width), reading input halos of
+//     per columns from the neighbouring shards; then the serial total of
+//     every segment that starts in the shard's columns (a segment may run
+//     into the next shard's columns, which the extension holds).
+//   scan (`itpu_saliency_scan_shard`, two launches): once every shard's
+//     totals are exchanged, a block a row scans all of them with the
+//     whole row kernel's tree (`scan_rows`) and writes the running sums of
+//     the shard's own columns from its segments' exclusive prefixes (a
+//     segment that starts in the left neighbour is rerun from there over
+//     the extension); then `saliency_cols` on the shard's ii columns [c0 +
+//     1, c1 + 1), which is column-local.
+//   argmax (`itpu_window_argmax_shard`): K10 over the candidates whose
+//     left lies in [c0, c1), from a window of ii columns (exchanged up to
+//     the last candidate's left + win_w) of only the rows K10 reads: the
+//     candidates' tops [0, nr) and bottoms [win_h, win_h + nr), two bands
+//     of nr rows stacked; keyed by the global index, it writes the shard's
+//     best key, and K4's shard form reduces the n keys.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -397,6 +423,98 @@ __global__ void __launch_bounds__(kColThreads)
   }
 }
 
+// Rec.709 luma of the pixel at p (0-1 scale), as the row kernel loads it.
+template <typename T>
+__device__ __forceinline__ float luma_at(const T* p) {
+  return luma(unit(load_f(p)), unit(load_f(p + 1)), unit(load_f(p + 2)));
+}
+
+// The pixel at global column gx of row y of image b, from the shard x
+// (columns [c0, c0 + lw)) or its halos (r columns each side).
+template <typename T>
+__device__ __forceinline__ const T* shard_px(const T* x, const T* left,
+                                             const T* right, int b, int y,
+                                             int gx, int hb, int lw, int r,
+                                             int c, int c0) {
+  if (gx < c0) return left + (((size_t)b * hb + y) * r + (gx - (c0 - r))) * c;
+  if (gx >= c0 + lw) return right + (((size_t)b * hb + y) * r + (gx - c0 - lw)) * c;
+  return x + (((size_t)b * hb + y) * lw + (gx - c0)) * c;
+}
+
+// The rows' shard form: grid (hb, B), kScan threads, ew floats of shared
+// memory. sal: [B, hb, ew] over global columns [c0 - e, c0 + lw + e), e =
+// per - 1 (0 outside the bucket); totals: [B, hb, nt], the segments g in
+// [ceil(c0 / per), ceil((c0 + lw) / per)).
+template <typename T>
+__global__ void __launch_bounds__(kScan)
+    saliency_rows_shard(const T* __restrict__ x, const T* __restrict__ left,
+                        const T* __restrict__ right, float* __restrict__ sal,
+                        float* __restrict__ totals,
+                        const int32_t* __restrict__ h,
+                        const int32_t* __restrict__ w, int hb, int lw, int c,
+                        int c0, int wb, int per) {
+  extern __shared__ float row[];
+  await_previous_kernel();
+  const int y = blockIdx.x, b = blockIdx.y;
+  const int e = per - 1, ew = lw + 2 * e, r = per;
+  const int ylim = min(h[b], hb), vcols = min(w[b], wb);
+  const int yu = max(y - 1, 0), yd = min(y + 1, hb - 1);
+  for (int k = threadIdx.x; k < ew; k += kScan) {
+    const int gx = c0 - e + k;
+    float s = 0.0f;
+    if (y < ylim && gx >= 0 && gx < vcols) {
+      const T* p = shard_px(x, left, right, b, y, gx, hb, lw, r, c, c0);
+      const float rr = unit(load_f(p)), gg = unit(load_f(p + 1)),
+                  bb = unit(load_f(p + 2));
+      const float up = luma_at(shard_px(x, left, right, b, yu, gx, hb, lw, r, c, c0));
+      const float dn = luma_at(shard_px(x, left, right, b, yd, gx, hb, lw, r, c, c0));
+      const float lf = luma_at(shard_px(x, left, right, b, y, max(gx - 1, 0), hb,
+                                        lw, r, c, c0));
+      const float rt = luma_at(shard_px(x, left, right, b, y, min(gx + 1, wb - 1),
+                                        hb, lw, r, c, c0));
+      s = saliency(sat_term(rr, gg, bb), skin_term(rr, gg, bb), up, dn, lf, rt);
+    }
+    row[k] = s;
+    sal[((size_t)b * hb + y) * ew + k] = s;
+  }
+  __syncthreads();
+  const int g0 = (c0 + per - 1) / per, g1 = (c0 + lw + per - 1) / per;
+  float* tot = totals + ((size_t)b * hb + y) * (g1 - g0);
+  for (int g = g0 + threadIdx.x; g < g1; g += kScan) {
+    const int x0 = g * per, x1 = min(x0 + per, wb);
+    float t = 0.0f;
+    for (int gx = x0; gx < x1; ++gx) t = __fadd_rn(t, row[gx - (c0 - e)]);
+    tot[g - g0] = t;
+  }
+}
+
+// The scan's shard form: grid (hb, B), kScan threads (thread g: segment
+// g). totals: [B, hb, nt], every segment's; ii: [B, hb + 1, lw], rows 1..hb
+// written here (global ii columns [c0 + 1, c0 + lw + 1)).
+__global__ void __launch_bounds__(kScan)
+    saliency_scan_shard(const float* __restrict__ sal,
+                        const float* __restrict__ totals, float* __restrict__ ii,
+                        int hb, int lw, int c0, int wb, int per, int nt) {
+  __shared__ float warp_tot[kWarpTots];
+  __shared__ float seg_incl[kScan];
+  await_previous_kernel();
+  const int y = blockIdx.x, b = blockIdx.y, g = threadIdx.x;
+  const int e = per - 1, ew = lw + 2 * e;
+  float v[1] = {g < nt ? totals[((size_t)b * hb + y) * nt + g] : 0.0f};
+  scan_rows<1>(v, warp_tot);
+  seg_incl[g] = v[0];
+  __syncthreads();
+  const int x0 = g * per, x1 = min(x0 + per, min(wb, c0 + lw));
+  if (x1 <= c0) return;  // the segment ends before the shard's columns
+  const float* srow = sal + ((size_t)b * hb + y) * ew - (c0 - e);
+  float* out = ii + ((size_t)b * (hb + 1) + y + 1) * lw - c0;
+  float run = g > 0 ? seg_incl[g - 1] : 0.0f;
+  for (int gx = x0; gx < x1; ++gx) {
+    run = __fadd_rn(run, srow[gx]);
+    if (gx >= c0) out[gx] = run;
+  }
+}
+
 __device__ __forceinline__ unsigned long long score_key(float s, int i) {
   if (s == 0.0f) s = 0.0f;  // -0 and +0 compare equal, as in the reference
   unsigned int u = __float_as_uint(s);
@@ -497,6 +615,97 @@ __global__ void __launch_bounds__(kArgThreads)
   }
 }
 
+// ii column g of a window holding ii columns [k0, k0 + kw); column 0 is
+// zeros (a window starts at column 1 at the earliest).
+__device__ __forceinline__ float ii_at(const float* row, int g, int k0) {
+  return g < k0 ? 0.0f : row[g - k0];
+}
+
+// K10's shard form, launched as K10 is; the candidates whose left lies in
+// [c0, c1), each keyed by its global index; rank 0 writes the best key.
+// The window holds ii rows [0, nr) then [win_h, win_h + nr): candidate
+// row t's top at row t, its bottom at row nr + t.
+__global__ void __launch_bounds__(kArgThreads)
+    window_argmax_shard(const float* __restrict__ iiw,
+                        const int32_t* __restrict__ h,
+                        const int32_t* __restrict__ w,
+                        const int32_t* __restrict__ win_h,
+                        const int32_t* __restrict__ win_w,
+                        unsigned long long* __restrict__ keys, int hb, int wb,
+                        int nr, int k0, int kw, int c0, int c1) {
+  __shared__ unsigned long long warp_best[kArgWarps];
+  __shared__ unsigned long long block_best[kCluster];
+  cg::cluster_group cluster = cg::this_cluster();
+  await_previous_kernel();
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  const int rank = (int)cluster.block_rank();
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float* I = iiw + (size_t)b * 2 * nr * kw;
+  const int wh = win_h[b], wl = win_w[b];
+  const int lim_t = h[b] - wh, lim_l = w[b] - wl;
+  const int nrows = lim_t < 0 ? 0 : min(min(lim_t, hb - 1) + 1, nr);
+  const int ncols = lim_l < 0 ? 0 : min(lim_l, wb - 1) + 1;
+  const int nloc = max(min(c1, ncols) - c0, 0);
+  const int nch = (nloc + kArgSpan - 1) / kArgSpan;
+  const int items = nrows * nch;
+  const int per = (items + kCluster - 1) / kCluster;
+  const int i0 = min(rank * per, items), i1 = min(i0 + per, items);
+  unsigned long long best = 0ull;
+  for (int it = i0 + warp; it < i1; it += kArgWarps) {
+    const int t = it / nch;
+    const int l0 = c0 + (it - t * nch) * kArgSpan + lane;
+    const float* rt = I + (size_t)t * kw;
+    const float* rb = I + (size_t)(nr + t) * kw;
+    float rt_l[kArgPer], rt_r[kArgPer], rb_l[kArgPer], rb_r[kArgPer];
+#pragma unroll
+    for (int k = 0; k < kArgPer; ++k) {
+      const int l = l0 + 32 * k;
+      if (l < c0 + nloc) {
+        const int right = min(max(l + wl, 0), wb);
+        rt_l[k] = ii_at(rt, l, k0);
+        rt_r[k] = ii_at(rt, right, k0);
+        rb_l[k] = ii_at(rb, l, k0);
+        rb_r[k] = ii_at(rb, right, k0);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kArgPer; ++k) {
+      const int l = l0 + 32 * k;
+      if (l < c0 + nloc) {
+        const float s = __fsub_rn(__fsub_rn(rb_r[k], rt_r[k]),
+                                  __fsub_rn(rb_l[k], rt_l[k]));
+        const unsigned long long key = score_key(s, t * wb + l);
+        best = key > best ? key : best;
+      }
+    }
+  }
+  best = warp_max(best);
+  if (lane == 0) warp_best[warp] = best;
+  __syncthreads();
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (warp == 0) {
+    best = warp_max(lane < kArgWarps ? warp_best[lane] : 0ull);
+    if (lane == 0) *cluster.map_shared_rank(&block_best[rank], 0) = best;
+  }
+  cluster.sync();
+  if (rank == 0 && warp == 0) {
+    best = warp_max(lane < kCluster ? block_best[lane] : 0ull);
+    if (lane == 0) {
+      // the whole image's first masked candidate, added by every shard
+      int m = -1;
+      if (lim_t < 0 || lim_l < 0) m = 0;
+      else if (lim_l + 1 < wb) m = lim_l + 1;
+      else if (lim_t + 1 < hb) m = (lim_t + 1) * wb;
+      if (m >= 0) {
+        const unsigned long long key = score_key(-1.0f, m);
+        best = key > best ? key : best;
+      }
+      keys[b] = best;
+    }
+  }
+}
+
 // The launch attributes of every kernel here: programmatic stream
 // serialization, and the cluster dimension when `cluster` > 1.
 struct Launch {
@@ -525,6 +734,25 @@ struct Launch {
 std::mutex g_mu;
 int g_sms[kMaxDevices];         // the card's SMs, 0 until read
 int g_cluster_ok[kMaxDevices];  // 0 unknown, 1 a cluster fits, -1 not
+int g_shard_cluster_ok[kMaxDevices];  // the same for K10's shard form
+
+// Whether a cluster of `kernel` fits on the current card (cached in ok[]).
+int cluster_fits(const void* kernel, const cudaLaunchConfig_t& cfg, int* ok) {
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_mu);
+  if (ok[dev] == 0) {
+    cudaLaunchConfig_t one = cfg;
+    one.gridDim = dim3(kCluster, 1);
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &one);
+    if (e != cudaSuccess) return (int)e;
+    ok[dev] = clusters > 0 ? 1 : -1;
+  }
+  return ok[dev] < 0 ? (int)cudaErrorLaunchOutOfResources : 0;
+}
 
 template <typename T, int G>
 int launch_rows(const T* in, float* ii, const int32_t* h, const int32_t* w,
@@ -631,4 +859,72 @@ extern "C" int itpu_window_argmax(const float* ii, const int32_t* h,
   }
   return (int)cudaLaunchKernelEx(&l.cfg, window_argmax, ii, h, w, win_h, win_w,
                                  top, left, hb, wb);
+}
+
+// K9's row pass on a W-shard. in: [B, hb, lw, c] (uint8 when in_u8, else
+// f32), c >= 3, global columns [c0, c0 + lw) of a bucket wb wide; left,
+// right: [B, hb, per, c] in in's dtype, the per columns past each edge
+// (null outside the bucket); sal: f32 [B, hb, lw + 2 (per - 1)]; totals:
+// f32 [B, hb, ceil((c0 + lw) / per) - ceil(c0 / per)]; per = ceil(wb /
+// 256). One launch.
+extern "C" int itpu_saliency_rows_shard(const void* in, int in_u8,
+                                        const void* left, const void* right,
+                                        float* sal, float* totals,
+                                        const int32_t* h, const int32_t* w,
+                                        int B, int hb, int lw, int c, int c0,
+                                        int wb, int per, void* stream) {
+  if (B == 0 || hb == 0) return 0;
+  if (B > 65535 || per < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)(lw + 2 * (per - 1)) * sizeof(float);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  Launch l(dim3(hb, B), kScan, smem, static_cast<cudaStream_t>(stream));
+  if (in_u8)
+    return (int)cudaLaunchKernelEx(
+        &l.cfg, saliency_rows_shard<uint8_t>, static_cast<const uint8_t*>(in),
+        static_cast<const uint8_t*>(left), static_cast<const uint8_t*>(right),
+        sal, totals, h, w, hb, lw, c, c0, wb, per);
+  return (int)cudaLaunchKernelEx(
+      &l.cfg, saliency_rows_shard<float>, static_cast<const float*>(in),
+      static_cast<const float*>(left), static_cast<const float*>(right), sal,
+      totals, h, w, hb, lw, c, c0, wb, per);
+}
+
+// K9's scan and column pass on a W-shard. sal: the row pass's; totals: f32
+// [B, hb, nt], every shard's segment totals side by side; ii: f32 [B, hb +
+// 1, lw]. Two launches: the scan, then the columns.
+extern "C" int itpu_saliency_scan_shard(const float* sal, const float* totals,
+                                        float* ii, int B, int hb, int lw,
+                                        int c0, int wb, int per, int nt,
+                                        void* stream) {
+  if (B == 0 || hb == 0) return 0;
+  if (B > 65535 || nt > kScan || per < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Launch l(dim3(hb, B), kScan, 0, s);
+  const cudaError_t e = cudaLaunchKernelEx(&l.cfg, saliency_scan_shard, sal,
+                                           totals, ii, hb, lw, c0, wb, per, nt);
+  if (e != cudaSuccess) return (int)e;
+  // the columns of [B, hb + 1, lw] as an ii of width lw - 1
+  Launch lc(dim3((lw - 1 + kColW) / kColW, B), kColThreads, 0, s);
+  return (int)cudaLaunchKernelEx(&lc.cfg, saliency_cols, ii, hb, lw - 1);
+}
+
+// K10 on a W-shard. iiw: f32 [B, 2 nr, kw], ii columns [k0, k0 + kw) of an
+// image bucket hb x wb (k0 >= 1; column 0 reads 0), ii rows [0, nr) then
+// [win_h, win_h + nr); the candidates' lefts [c0, c1); keys: uint64 [B],
+// the shard's best. One launch of B clusters.
+extern "C" int itpu_window_argmax_shard(const float* iiw, const int32_t* h,
+                                        const int32_t* w, const int32_t* win_h,
+                                        const int32_t* win_w,
+                                        unsigned long long* keys, int B, int hb,
+                                        int wb, int nr, int k0, int kw, int c0,
+                                        int c1, void* stream) {
+  if (B == 0) return 0;
+  if (k0 < 1 || nr < 1) return (int)cudaErrorInvalidValue;
+  Launch l(dim3(kCluster, B), kArgThreads, 0, static_cast<cudaStream_t>(stream),
+           kCluster);
+  const int err = cluster_fits((const void*)window_argmax_shard, l.cfg,
+                               g_shard_cluster_ok);
+  if (err != 0) return err;
+  return (int)cudaLaunchKernelEx(&l.cfg, window_argmax_shard, iiw, h, w, win_h,
+                                 win_w, keys, hb, wb, nr, k0, kw, c0, c1);
 }

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the thirteen kernels.
+"""Plain PyTorch versions of the thirteen kernels and their W-shard forms.
 
 Each function computes what its CUDA kernel computes, in the reference's
 formulation (dense sampling matrices and einsums for the resample, a
@@ -221,9 +221,10 @@ def rgb_to_yuv420_shard(x: torch.Tensor, h, w, hb: int, lw: int, col0: int,
     return rgb_to_yuv420(x, h, w, hb, lw, luma, col0)
 
 
-def _axis_index(out_b: int, in_b: int, off, size, mode: str):
-    """(idx, inside) for one axis; inside is None in window mode."""
-    pos = torch.arange(out_b, dtype=torch.int64, device=off.device)[None, :]
+def _axis_index(out_b: int, in_b: int, off, size, mode: str, pos0: int = 0):
+    """(idx, inside) for one axis, at positions [pos0, pos0 + out_b);
+    inside is None in window mode."""
+    pos = pos0 + torch.arange(out_b, dtype=torch.int64, device=off.device)[None, :]
     if mode == "window":
         return torch.clamp(pos + off.long()[:, None], 0, in_b - 1), None
     size = torch.clamp(size.long(), min=1)[:, None]
@@ -257,6 +258,29 @@ def gather(x: torch.Tensor, out_hb: int, out_wb: int, off_y=None, off_x=None,
     return _finish(out, out_u8)
 
 
+def gather_shard(x: torch.Tensor, out_hb: int, lw: int, col0: int, in_col0: int,
+                 in_wb: int, off_y=None, off_x=None, size_h=None, size_w=None,
+                 mode: str = "window", fill=None, keys=None, key_wb: int = 0,
+                 out_u8: bool = False) -> torch.Tensor:
+    """K4's W-shard form: `gather`'s index maps at output columns [col0,
+    col0 + lw) on global columns, read from x holding input columns
+    [in_col0, ...) of a bucket in_wb wide; with `keys`, the offsets of the
+    best of K10's shard keys (`decode_keys`)."""
+    bsz, in_hb = x.shape[:2]
+    if keys is not None:
+        off_y, off_x = decode_keys(keys, key_wb)
+    elif mode == "window" and off_y is None:
+        off_y = off_x = torch.zeros(bsz, dtype=torch.int32, device=x.device)
+    iy, in_y = _axis_index(out_hb, in_hb, off_y, size_h, mode)
+    ix, in_x = _axis_index(lw, in_wb, off_x, size_w, mode, pos0=col0)
+    bidx = torch.arange(bsz, device=x.device)[:, None, None]
+    out = x.float()[bidx, iy[:, :, None], (ix - in_col0)[:, None, :]]
+    if fill is not None and in_y is not None:
+        keep = (in_y[:, :, None] & in_x[:, None, :])[..., None]
+        out = torch.where(keep, out, fill.float()[:, None, None, :])
+    return _finish(out, out_u8)
+
+
 def orient(x: torch.Tensor, h, w, mode: str, out_u8: bool = False) -> torch.Tensor:
     """K5's function (stages.py:FlipSpec/FlopSpec/TransposeSpec): mirror
     rows ("flip") or columns ("flop") inside each image's valid h or w,
@@ -271,6 +295,19 @@ def orient(x: torch.Tensor, h, w, mode: str, out_u8: bool = False) -> torch.Tens
     idx = torch.where(pos < valid, valid - 1 - pos, pos)
     idx = idx[:, :, None, None] if axis == 1 else idx[:, None, :, None]
     return _finish(torch.take_along_dim(xf, idx, dim=axis), out_u8)
+
+
+def flop_shard(x: torch.Tensor, h, w, col0: int, lw: int, in_col0: int,
+               out_u8: bool = False) -> torch.Tensor:
+    """K5's flop on a W-shard: global column g of [col0, col0 + lw) reads
+    w - 1 - g inside the valid width, from x holding the mirrored input
+    columns from in_col0, and g in the padding, from the shard's padding
+    columns that end x."""
+    x_ = torch.arange(lw, dtype=torch.int64, device=x.device)[None, :]
+    g = col0 + x_
+    valid = w.long()[:, None]
+    src = torch.where(g < valid, valid - 1 - g - in_col0, x.shape[2] - lw + x_)
+    return _finish(torch.take_along_dim(x.float(), src[:, None, :, None], dim=2), out_u8)
 
 
 def blur_taps(sigma: torch.Tensor, radius: int) -> torch.Tensor:
@@ -404,6 +441,111 @@ def saliency_ii(x: torch.Tensor, h, w) -> torch.Tensor:
 def window_argmax(ii: torch.Tensor, h, w, win_h, win_w) -> tuple:
     """K10's function (smart_offsets.one): (top, left) int32 [B]."""
     return _saliency.window_argmax(ii, h, w, win_h, win_w)
+
+
+SAL_LANES = _saliency.LANES
+_SIGN64 = -(2 ** 63)  # the sign bit of an int64: XOR with it orders keys unsigned
+
+
+def saliency_rows_shard(x: torch.Tensor, left, right, h, w, col0: int, wb: int) -> tuple:
+    """K9's row pass on a W-shard (`kernels.saliency_rows_shard`): the
+    shard's columns and halos placed at their global columns of a zero
+    bucket, whose saliency map is computed whole (the same elementwise
+    passes as the whole image's, so every column the halos reach is the
+    whole image's bit for bit); then (sal over [col0 - per + 1, col0 + lw
+    + per - 1), the totals of the segments that start in [col0, col0 +
+    lw))."""
+    bsz, hb, lw, c = x.shape
+    per = -(-wb // SAL_LANES)
+    e = per - 1
+    full = torch.zeros((bsz, hb, wb, c), dtype=torch.float32, device=x.device)
+    full[:, :, col0:col0 + lw] = x.float()
+    if left is not None:
+        full[:, :, col0 - per:col0] = left.float()
+    if right is not None:
+        full[:, :, col0 + lw:col0 + lw + per] = right.float()
+    sal = torch.nn.functional.pad(_saliency.saliency_map(full, h, w),
+                                  (e, SAL_LANES * per - wb + e))
+    ext = sal[:, :, col0:col0 + lw + 2 * e]  # global col0 - e at col0 of the padded
+    g0, g1 = -(-col0 // per), -(-(col0 + lw) // per)
+    seg = sal[:, :, e + g0 * per:e + g1 * per]
+    return ext.contiguous(), _saliency.segment_totals(seg, per)
+
+
+def saliency_scan_shard(sal: torch.Tensor, totals: torch.Tensor, col0: int, lw: int,
+                        wb: int) -> torch.Tensor:
+    """K9's scan and column pass on a W-shard: every segment total scanned
+    as the whole row is (`ops/saliency.scan_totals`), the running sums of
+    the segments over the shard's columns from their exclusive prefixes
+    (over the row pass's extension), then cumsum over H -> [B, Hb + 1,
+    lw], the whole image's ii columns [col0 + 1, col0 + lw + 1)."""
+    per = -(-wb // SAL_LANES)
+    e = per - 1
+    tot = torch.nn.functional.pad(totals, (0, SAL_LANES - totals.shape[2]))
+    prefix = _saliency.exclusive(_saliency.scan_totals(tot))
+    s0, s1 = col0 // per, -(-(col0 + lw) // per)
+    region = sal[:, :, s0 * per - (col0 - e):s1 * per - (col0 - e)]
+    runs = _saliency.segment_runs(region, prefix[..., s0:s1], per)
+    mine = runs[:, :, col0 - s0 * per:col0 - s0 * per + lw]
+    return torch.nn.functional.pad(torch.cumsum(mine, dim=1), (0, 0, 1, 0))
+
+
+def score_keys(s: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K10's keys as int64 bit patterns of its uint64: the order-preserving
+    bits of the f32 score (-0 read as +0) above the complement of the
+    index, so the larger key is the larger score, then the smaller index
+    (`jnp.argmax`'s first maximum)."""
+    s = torch.where(s == 0, torch.zeros_like(s), s)
+    u = s.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    u = torch.where(u >= 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return (u << 32) | (~idx.to(torch.int64) & 0xFFFFFFFF)
+
+
+def max_key(keys: torch.Tensor, dim: int) -> torch.Tensor:
+    """The unsigned maximum of int64 key bit patterns along dim."""
+    return (keys ^ _SIGN64).max(dim=dim).values ^ _SIGN64
+
+
+def decode_keys(keys: torch.Tensor, key_wb: int) -> tuple:
+    """(top, left) int32 [B] of the best of keys int64 [B, n], an index over
+    a bucket key_wb wide (0, 0 when every key is 0)."""
+    best = max_key(keys, 1)
+    i = torch.where(best == 0, torch.zeros_like(best), ~best & 0xFFFFFFFF)
+    return (i // key_wb).to(torch.int32), (i % key_wb).to(torch.int32)
+
+
+def window_argmax_shard(ii: torch.Tensor, h, w, win_h, win_w, k0: int, c0: int, c1: int,
+                        hb: int, wb: int) -> torch.Tensor:
+    """K10 on a W-shard: every valid candidate whose left lies in [c0, c1)
+    scored as `window_argmax` scores it, from ii columns [k0, k0 + kw) of
+    the rows [0, nr) (its tops) and [win_h, win_h + nr) (its bottoms),
+    stacked in ii [B, 2 nr, kw] and placed in zero rows of the bucket's
+    width, and the whole image's first masked candidate at -1 (the
+    kernel's keys exactly; the shards' best is `window_argmax`'s choice);
+    the best key, int64 [B]."""
+    bsz, rows, kw = ii.shape
+    nr, dev = rows // 2, ii.device
+    c1 = min(c1, wb)
+    full = torch.zeros((bsz, rows, wb + 1), dtype=torch.float32, device=dev)
+    full[:, :, k0:k0 + kw] = ii
+    tops = torch.arange(min(nr, hb), dtype=torch.int64, device=dev)
+    lefts = torch.arange(c0, max(c1, c0), dtype=torch.int64, device=dev)
+    bidx = torch.arange(bsz, device=dev)[:, None, None]
+    right = torch.clamp(lefts[None, :] + win_w.long()[:, None], 0, wb)[:, None, :]
+    t, left = tops[None, :, None], lefts[None, None, :]
+    bot = nr + t
+    s = ((full[bidx, bot, right] - full[bidx, t, right])
+         - (full[bidx, bot, left] - full[bidx, t, left]))
+    lim_t = h.long() - win_h.long()
+    lim_l = w.long() - win_w.long()
+    ok = (t <= lim_t[:, None, None]) & (left <= lim_l[:, None, None])
+    keys = torch.where(ok, score_keys(s, t * wb + left), 0).reshape(bsz, -1)
+    # the first masked candidate in row-major order, where there is one
+    m = torch.where((lim_t < 0) | (lim_l < 0), 0,
+                    torch.where(lim_l + 1 < wb, lim_l + 1,
+                                torch.where(lim_t + 1 < hb, (lim_t + 1) * wb, -1)))
+    masked = torch.where(m >= 0, score_keys(torch.full((bsz,), -1.0, device=dev), m), 0)
+    return max_key(torch.cat([keys, masked[:, None]], dim=1), 1)
 
 
 # stages.py:_idct_basis(k) for k = 1, 2, 4, 8, bit for bit: the f32 words

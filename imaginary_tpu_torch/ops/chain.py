@@ -536,15 +536,15 @@ def spatial_split(specs, hb: int, wb: int, n: int) -> tuple:
 
     A stage runs W-sharded when it has a W-shard form (`shard_ok`, see
     `stages._ShardForm`: K2 as the first sharded stage and K3 on shards of
-    even width, K1, K13 with a radius below the local width, K7, K8, the
-    bucket shrink and the flip) and its output width splits evenly over
-    n."""
+    even width, K13 with a radius below the local width, the smartcrop on
+    an input that splits into whole row-scan segments, every other stage
+    but K11's and K12's) and its output width splits evenly over n."""
     sharded = []
     for i in live_stages(specs, hb, wb):
         spec = specs[i]
         out_hb, out_wb = _bucket_after(spec, hb, wb)
         ok = (hasattr(spec, "shard_ok") and out_wb % n == 0
-              and spec.shard_ok(out_wb // n, not sharded))
+              and spec.shard_ok(out_wb // n, not sharded, wb, n))
         if not ok:
             return sharded, i
         sharded.append(i)
@@ -560,13 +560,17 @@ class SpatialLaunch:
     event in `events` has completed. `gathered` names the spec class at
     which the shards were gathered (None: nowhere). `windows` maps each
     stage that took an exchanged input window to its shards' windows, (k0,
-    k1, parts) with parts `exchange_window`'s (source shard, g0, g1). The
-    staged host buffers are kept alive until the fetch."""
+    k1, parts) with parts `exchange_window`'s (source shard, g0, g1); a
+    transpose's entries are its row bands (r0, r1, parts), parts
+    `exchange_bands`'. `exchanged`: the bytes every exchange between the
+    shards copied (windows, halos, bands, the smartcrop's totals and
+    keys). The staged host buffers are kept alive until the fetch."""
 
-    __slots__ = ("host", "events", "staged", "shards", "gathered", "windows", "assemble")
+    __slots__ = ("host", "events", "staged", "shards", "gathered", "windows", "assemble",
+                 "exchanged")
 
     def __init__(self, host, events, staged, shards: int, gathered, windows=None,
-                 assemble=None):
+                 assemble=None, exchanged: int = 0):
         self.host = host
         self.events = events
         self.staged = staged
@@ -574,6 +578,7 @@ class SpatialLaunch:
         self.gathered = gathered
         self.windows = windows or {}
         self.assemble = assemble
+        self.exchanged = exchanged
 
     def to_host(self) -> np.ndarray:
         """Wait for every shard's event and assemble the batch array."""
@@ -595,17 +600,20 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
     The live stages `spatial_split` admits run W-sharded: shard j owns
     output columns [j lw, (j + 1) lw) of each stage. The first sharded
     stage's input comes from the host in each shard's own H2D (its
-    `shard_input`: K2's packed columns with their chroma halos, K1's input
-    window, else the shard's columns and, for K13, its halos). A later
-    stage that reads other columns than its own gets them from the shards
-    that hold them: a window (`shard_window`: K1's taps, the bucket
-    shrink's columns of a wider bucket) through
-    `parallel/spatial.exchange_window`, a halo (K13) through
-    `exchange_halos`. The host follows each stage's input valid width
-    (`shard_valid_w`). Each stage runs on a shard through its
-    `apply_shard`, with its `shard_dyn` (K7: `left` less the shard's first
-    column); a GraySpec right before the ToYuv420Spec folds into that
-    stage's launch on each shard (`launch_steps`; its dyn carries `luma`).
+    `shard_input`: K2's packed columns with their chroma halos, K1's and
+    K4's input windows, a transpose's row band, else the shard's columns
+    and, for K13 and the smartcrop, its halos). Each stage runs over the
+    row through its `run_shards`: a later stage that reads other columns
+    than its own gets them from the shards that hold them first (a window,
+    `shard_window`: K1's taps, K4's index maps, the flop's mirror, through
+    `parallel/spatial.exchange_window`; a halo (K13) through
+    `exchange_halos`; a transpose's row bands through `exchange_bands`),
+    then runs its `apply_shard` on each shard (the smartcrop's form runs
+    its five launches and four exchanges itself). The host follows each
+    stage's input valid dims (`shard_valid`). Each stage has its
+    `shard_dyn` (K7: `left` less the shard's first column); a GraySpec
+    right before the ToYuv420Spec folds into that stage's launch on each
+    shard (`launch_steps`; its dyn carries `luma`).
     A stage without a W-sharded form gathers the shards onto the row's
     first entry by an explicit copy (`SpatialLaunch.gathered` names it)
     and the rest of the chain runs there. The last stage writes uint8
@@ -639,13 +647,13 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
     h = np.array([img_h], dtype=np.int32)
     w = np.array([img_w], dtype=np.int32)
     host_dyns = _stack_dyns([plan])
-    # each sharded stage's input bucket width, input valid width and output
+    # each sharded stage's input bucket width, input valid dims and output
     # bucket
-    in_wb, in_w, dims, cur, vw = {}, {}, {}, (hb, wb), img_w
+    in_wb, in_hw, dims, cur, vhw = {}, {}, {}, (hb, wb), (img_h, img_w)
     for i in sharded:
-        in_wb[i], in_w[i] = cur[1], vw
+        in_wb[i], in_hw[i] = cur[1], vhw
         cur = dims[i] = _bucket_after(specs[i], *cur)
-        vw = specs[i].shard_valid_w(vw, host_dyns[i])
+        vhw = specs[i].shard_valid(vhw, host_dyns[i])
     first = specs[sharded[0]]
     lw0 = dims[sharded[0]][1] // n
     inputs = [first.shard_input(batch, j * lw0, (j + 1) * lw0, img_w,
@@ -671,35 +679,14 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
             sh.ready = spatial.record(stream)
         shards.append(sh)
         staged.append(buf)
-    windows = {}
+    windows, tally = {}, [0]
     for i, luma in launch_steps(specs, sharded):
-        spec, lw = specs[i], dims[i][1] // n
-        if i == sharded[0]:
-            in_col0 = [inp[3] for inp in inputs]
-        else:
-            for sh in shards:
-                sh.left = sh.right = None
-            wins = [spec.shard_window(j * lw, (j + 1) * lw, in_w[i], in_wb[i], host_dyns[i])
-                    for j in range(n)]
-            if wins[0] is not None:
-                parts = spatial.exchange_window(shards, wins)
-                windows[i] = [(k0, k1, p) for (k0, k1), p in zip(wins, parts)]
-                in_col0 = [k0 for k0, _ in wins]
-            else:
-                if spec.shard_halo:
-                    spatial.exchange_halos([shards], spec.shard_halo)
-                in_col0 = [sh.col0 for sh in shards]
-        for j, sh in enumerate(shards):
-            sh.col0 = j * lw
-            dyn = dict(dyns[j][i], luma=True) if luma else dyns[j][i]
-            args = (sh.x, sh.left, sh.right, sh.h, sh.w, dyn, sh.col0, lw,
-                    in_col0[j], in_wb[i], i == last)
-            with spatial.on(sh.stream):
-                out = spec.apply_shard(*args)
-                sh.x, sh.h, sh.w = out
-                sh.ready = spatial.record(sh.stream)
-            if trace is not None:
-                trace.append((i, j, spec, args, out[0]))
+        in_col0 = [inp[3] for inp in inputs] if i == sharded[0] else None
+        stage_dyns = [dict(d[i], luma=True) if luma else d[i] for d in dyns]
+        rec = specs[i].run_shards(shards, stage_dyns, dims[i][1] // n, in_col0, in_hw[i],
+                                  in_wb[i], host_dyns[i], i == last, trace, i, tally)
+        if rec is not None:
+            windows[i] = rec
     if gather_at is None:
         first_x = shards[0].x
         host = torch.empty((n,) + tuple(first_x.shape), dtype=first_x.dtype,
@@ -711,7 +698,7 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
                 _book_d2h(host[j], str(sh.device))
                 events.append(spatial.record(sh.stream))
         return SpatialLaunch(host, events, staged, n, None, windows,
-                             specs[last].shard_assemble)
+                             specs[last].shard_assemble, tally[0])
     # the gather: every shard's columns into one buffer on the row's first
     # entry, then the rest of the chain there
     s0, dev0 = streams[0], devices[0]
@@ -732,7 +719,7 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
         _book_d2h(host, str(dev0))
         event = spatial.record(s0)
     return SpatialLaunch(host, [event], staged, 0, type(specs[gather_at]).__name__,
-                         windows)
+                         windows, exchanged=tally[0])
 
 
 def _run_staged(specs, views: list, host_dyns: list, donate: bool = False) -> torch.Tensor:

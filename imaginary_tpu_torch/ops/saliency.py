@@ -5,12 +5,20 @@ Reimplements the *behavior* of libvips' smartcrop "attention" strategy
 score pixels by edge energy, colour saturation and skin-tone likelihood,
 then place the crop window over the highest-scoring region.
 
-These are the plain PyTorch versions, in the reference's formulation: an
-elementwise saliency map with shifted differences, a 2-D integral image
-(cumsum over H, then over W), and one masked argmax over every candidate
-window. On the card the same work runs as kernels K9 (`saliency_ii`:
-saliency map and integral image) and K10 (`window_argmax`); see
-`kernels/csrc/saliency.cu`. `smart_offsets` composes the plain versions.
+These are the plain PyTorch versions: an elementwise saliency map with
+shifted differences (the reference's formulation), a 2-D integral image,
+and one masked argmax over every candidate window. The integral image sums
+each row first, in the order of K9's row scan (`row_prefix`: segments of
+ceil(Wb / 256) columns summed serially, the 256 segment totals scanned by
+the kernel's shuffle tree, then each segment's running sums from its
+exclusive prefix), then down each column (`torch.cumsum`); the reference
+sums H first, so it matches the reference to a relative tolerance. The
+row scan's fixed tree is what lets a W-shard compute its columns' sums
+from every shard's segment totals, bit-equal to the whole image's
+(`kernels.reference.saliency_scan_shard`). On the card the same work runs
+as kernels K9 (`saliency_ii`: saliency map and integral image) and K10
+(`window_argmax`); see `kernels/csrc/saliency.cu`. `smart_offsets`
+composes the plain versions.
 """
 
 from __future__ import annotations
@@ -47,10 +55,75 @@ def saliency_map(x: torch.Tensor, h: torch.Tensor, w: torch.Tensor) -> torch.Ten
     return torch.where(valid, sal, 0.0)
 
 
+# Lanes of K9's row scan: a row's columns fall into this many segments.
+LANES = 256
+_WARP = 32
+
+
+def _warp_scan(v: torch.Tensor) -> torch.Tensor:
+    """Inclusive scans of v [..., 32] by the kernel's shuffle tree: five
+    rounds, lane l adding lane l - o's value of the round before."""
+    lane = torch.arange(_WARP, device=v.device)
+    for o in (1, 2, 4, 8, 16):
+        shifted = torch.nn.functional.pad(v[..., :-o], (o, 0))
+        v = torch.where(lane >= o, v + shifted, v)
+    return v
+
+
+def scan_totals(tot: torch.Tensor) -> torch.Tensor:
+    """Inclusive scan of the segment totals tot [..., LANES] in the row
+    kernel's order (`scan_rows`): each warp's 32 lanes, then the 8 warp
+    totals by the same tree, then each lane plus the scanned total of the
+    warps before its own."""
+    warps = LANES // _WARP
+    v = _warp_scan(tot.reshape(tot.shape[:-1] + (warps, _WARP)))
+    wt = _warp_scan(torch.nn.functional.pad(v[..., _WARP - 1], (0, _WARP - warps)))
+    before = torch.nn.functional.pad(wt[..., :warps - 1], (1, 0))[..., None]
+    first = torch.arange(warps, device=tot.device)[:, None] == 0
+    return torch.where(first, v, v + before).reshape(tot.shape)
+
+
+def segment_totals(sal: torch.Tensor, per: int) -> torch.Tensor:
+    """sal [..., n * per] -> [..., n]: each segment of per columns summed
+    serially from 0 (f32), as one lane of the row kernel sums it."""
+    seg = sal.reshape(sal.shape[:-1] + (-1, per))
+    tot = torch.zeros(seg.shape[:-1], dtype=sal.dtype, device=sal.device)
+    for k in range(per):
+        tot = tot + seg[..., k]
+    return tot
+
+
+def segment_runs(sal: torch.Tensor, prefix: torch.Tensor, per: int) -> torch.Tensor:
+    """The running sums of sal [..., n * per] within each segment, from
+    its exclusive prefix [..., n]."""
+    seg = sal.reshape(sal.shape[:-1] + (-1, per))
+    out = torch.empty_like(seg)
+    run = prefix
+    for k in range(per):
+        run = run + seg[..., k]
+        out[..., k] = run
+    return out.reshape(sal.shape)
+
+
+def exclusive(incl: torch.Tensor) -> torch.Tensor:
+    """Each segment's exclusive prefix from the inclusive scan."""
+    return torch.nn.functional.pad(incl[..., :-1], (1, 0))
+
+
+def row_prefix(sal: torch.Tensor) -> torch.Tensor:
+    """[B, Hb, Wb]: each row's running sums in K9's row-scan order."""
+    wb = sal.shape[-1]
+    per = -(-wb // LANES)
+    padded = torch.nn.functional.pad(sal, (0, LANES * per - wb))
+    incl = scan_totals(segment_totals(padded, per))
+    return segment_runs(padded, exclusive(incl), per)[..., :wb]
+
+
 def integral_image(sal: torch.Tensor) -> torch.Tensor:
-    """[B, Hb + 1, Wb + 1]: cumsum over H, then over W, padded by one zero
-    row on top and one zero column on the left."""
-    ii = torch.cumsum(torch.cumsum(sal, dim=1), dim=2)
+    """[B, Hb + 1, Wb + 1]: the rows' running sums (`row_prefix`), then
+    cumsum over H, padded by one zero row on top and one zero column on
+    the left."""
+    ii = torch.cumsum(row_prefix(sal), dim=1)
     return torch.nn.functional.pad(ii, (1, 0, 1, 0))
 
 

@@ -16,10 +16,14 @@ last kernel writes into (the chain runner's buffer donation). Every
 stage runs one or more of the port's CUDA kernels on a CUDA tensor and
 their plain versions on a CPU tensor (`kernels/`).
 
-The stages with a W-shard form (K2, K1, K13, K7, K8, K4's bucket shrink,
-K5's flip and K3) also carry the spatial route's side of it
-(`_ShardForm`); `ops/chain.launch_spatial` drives them through that
-alone.
+Every stage but K11's and K12's has a W-shard form: it also carries the
+spatial route's side of it (`_ShardForm`), and `ops/chain.launch_spatial`
+drives it through that alone. A form reads its own columns (K8, K7, K3,
+K5's flip), a halo (K13), a window exchanged from the shards that hold
+it (K1, K4 in every mode, K5's flop), a row band from every shard (K5's
+transpose), or, for the smartcrop (K9 -> K10 -> K4), halos, every
+shard's segment totals, an integral-image window, every shard's best key
+and an image window in turn (`SmartExtractSpec.run_shards`).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import numpy as np
 
 from imaginary_tpu_torch import kernels
 from imaginary_tpu_torch.options import Extend
+from imaginary_tpu_torch.parallel import spatial
 
 
 def _out_kw(out) -> dict:
@@ -37,6 +42,30 @@ def _out_kw(out) -> dict:
     buffer (ops/chain.py); nothing otherwise, so the stages also run over
     the plain versions (`kernels.reference`), which take no `out`."""
     return {} if out is None else {"out": out}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardLaunch:
+    """One launch of a W-shard form that takes several (the smartcrop's),
+    as `launch_spatial`'s trace records it: `apply_shard(*args, impl=)`
+    calls `impl.<fn>(*args)` (`kernels`, or `kernels.reference` for the
+    plain version)."""
+
+    fn: str
+
+    def apply_shard(self, *args, impl=kernels):
+        return getattr(impl, self.fn)(*args), None, None
+
+
+def _launch(sh, launch: ShardLaunch, args: tuple, trace, stage: int, j: int):
+    """Run one ShardLaunch on shard sh's stream, record its `ready` event
+    and the trace entry; returns its output."""
+    with spatial.on(sh.stream):
+        out = getattr(kernels, launch.fn)(*args)
+        sh.ready = spatial.record(sh.stream)
+    if trace is not None:
+        trace.append((stage, j, launch, args, out))
+    return out
 
 
 class _ShardForm:
@@ -49,18 +78,19 @@ class _ShardForm:
     # neighbours (the exchange fills `left` and `right` that wide)
     shard_halo = 0
 
-    def shard_ok(self, lw: int, first: bool) -> bool:
-        """Whether the stage runs W-sharded at local output width lw;
-        `first`: it would be the first sharded stage, whose input is
-        staged from the host."""
+    def shard_ok(self, lw: int, first: bool, in_wb: int, n: int) -> bool:
+        """Whether the stage runs W-sharded at local output width lw over
+        n shards of an input bucket in_wb wide; `first`: it would be the
+        first sharded stage, whose input is staged from the host."""
         return True
 
     def shard_window(self, c0: int, c1: int, in_w: int, in_wb: int, dyn: dict):
         """The input columns (k0, k1) the stage reads for output columns
         [c0, c1), of an input bucket in_wb wide whose valid width is in_w
-        (host params dyn); None: its own columns. A later sharded stage
-        with a window gets it from the shards that hold those columns
-        (`parallel/spatial.exchange_window`)."""
+        (host params dyn), or a tuple of such ranges side by side
+        (`spatial.window_spans`); None: its own columns. A later sharded
+        stage with a window gets it from the shards that hold those
+        columns (`parallel/spatial.exchange_window`)."""
         return None
 
     def shard_input(self, img: np.ndarray, c0: int, c1: int, w: int, dyn: dict) -> tuple:
@@ -70,7 +100,9 @@ class _ShardForm:
         bucket and the halos (None where there are none)."""
         win = self.shard_window(c0, c1, w, img.shape[1], dyn)
         if win is not None:
-            return img[:, win[0]:win[1]], None, None, win[0]
+            parts = [img[:, k0:k1] for k0, k1 in spatial.window_spans(win)]
+            x = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=1)
+            return x, None, None, spatial.window_spans(win)[0][0]
         wb, r = img.shape[1], self.shard_halo
         left = img[:, c0 - r:c0] if r and c0 > 0 else None
         right = img[:, c1:c1 + r] if r and c1 < wb else None
@@ -80,10 +112,55 @@ class _ShardForm:
         """The host params of the shard whose output starts at col0."""
         return dyn
 
-    def shard_valid_w(self, w: int, dyn: dict) -> int:
-        """The valid width the stage leaves, from its input's (the host's
+    def shard_valid(self, hw: tuple, dyn: dict) -> tuple:
+        """The valid (h, w) the stage leaves, from its input's (the host's
         copy of what the kernels carry on the device)."""
-        return w
+        return hw
+
+    def shard_exchange(self, row: list, lw: int, in_hw: tuple, in_wb: int, dyn: dict,
+                       tally=None) -> tuple:
+        """A later sharded stage's input, brought to each shard of `row`
+        from the others: its window (`shard_window`) through
+        `exchange_window`, else its halos. Returns (each shard's first input
+        column in the bucket, the windows taken as (k0, k1, parts) or
+        None: k0 the first range's start, k1 the last's end)."""
+        for sh in row:
+            sh.left = sh.right = None
+        wins = [self.shard_window(j * lw, (j + 1) * lw, in_hw[1], in_wb, dyn)
+                for j in range(len(row))]
+        if wins[0] is not None:
+            parts = spatial.exchange_window(row, wins, tally)
+            spans = [spatial.window_spans(win) for win in wins]
+            return ([s[0][0] for s in spans],
+                    [(s[0][0], s[-1][1], p) for s, p in zip(spans, parts)])
+        if self.shard_halo:
+            spatial.exchange_halos([row], self.shard_halo, tally)
+        return [sh.col0 for sh in row], None
+
+    def run_shards(self, row: list, dyns: list, lw: int, in_col0, in_hw: tuple,
+                   in_wb: int, dyn: dict, out_u8: bool, trace=None, stage: int = 0,
+                   tally=None):
+        """The stage on every shard of `row`: the exchange (`shard_exchange`;
+        none for the first sharded stage, whose inputs the host staged,
+        `in_col0` their first columns), then `apply_shard` on each shard's
+        stream with its device params dyns[j], after which the shard holds
+        output columns [j lw, (j + 1) lw) and its `ready` event. in_hw: the
+        input's valid (h, w) as the host follows them (`shard_valid`).
+        Returns the windows taken, or None."""
+        rec = None
+        if in_col0 is None:
+            in_col0, rec = self.shard_exchange(row, lw, in_hw, in_wb, dyn, tally)
+        for j, sh in enumerate(row):
+            sh.col0 = j * lw
+            args = (sh.x, sh.left, sh.right, sh.h, sh.w, dyns[j], sh.col0, lw,
+                    in_col0[j], in_wb, out_u8)
+            with spatial.on(sh.stream):
+                out = self.apply_shard(*args)
+                sh.x, sh.h, sh.w = out
+                sh.ready = spatial.record(sh.stream)
+            if trace is not None:
+                trace.append((stage, j, self, args, out[0]))
+        return rec
 
     def shard_assemble(self, host):
         """The chain's output as a host array [B, R, n * lw, C] from the
@@ -121,8 +198,8 @@ class SampleSpec(_ShardForm):
         return kernels.resample_window(self.kernel, in_w, float(dyn["dst_w"][0]),
                                        in_wb, self.out_wb, c0, c1)
 
-    def shard_valid_w(self, w, dyn):
-        return int(dyn["dst_w"][0])
+    def shard_valid(self, hw, dyn):
+        return int(dyn["dst_h"][0]), int(dyn["dst_w"][0])
 
     def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
                     out_u8, impl=kernels):
@@ -131,8 +208,13 @@ class SampleSpec(_ShardForm):
                              in_col0=in_col0, in_wb=in_wb)
 
 
+def _span(idx: np.ndarray) -> tuple:
+    """The input columns [k0, k1) an index map's columns fall in."""
+    return int(idx.min()), int(idx.max()) + 1
+
+
 @dataclasses.dataclass(frozen=True)
-class ExtractSpec:
+class ExtractSpec(_ShardForm):
     """Crop a (new_h, new_w) window at dynamic (top, left), each index
     clamped on its own (kernel K4, window mode).
     dyn: top, left, new_h, new_w (i32 [B])."""
@@ -147,12 +229,26 @@ class ExtractSpec:
                              dyn["left"], mode="window", out_u8=out_u8, **_out_kw(out))
         return out, dyn["new_h"], dyn["new_w"]
 
+    def shard_window(self, c0, c1, in_w, in_wb, dyn):
+        # output column x reads clamp(left + x) of the input bucket
+        left = int(dyn["left"][0])
+        return _span(np.clip(left + np.array([c0, c1 - 1]), 0, in_wb - 1))
+
+    def shard_valid(self, hw, dyn):
+        return int(dyn["new_h"][0]), int(dyn["new_w"][0])
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        out = impl.gather_shard(x, self.out_hb, lw, col0, in_col0, in_wb, dyn["top"],
+                                dyn["left"], out_u8=out_u8)
+        return out, dyn["new_h"], dyn["new_w"]
+
 
 _FILL_MODES = (Extend.BLACK, Extend.WHITE, Extend.BACKGROUND)
 
 
 @dataclasses.dataclass(frozen=True)
-class EmbedSpec:
+class EmbedSpec(_ShardForm):
     """Place the image on a (canvas_h, canvas_w) canvas with an extend mode
     (kernel K4: mirror, or clamp with an optional fill).
     dyn: off_y, off_x, canvas_h, canvas_w (i32 [B]), fill (f32 [B, C])."""
@@ -163,12 +259,39 @@ class EmbedSpec:
 
     donates = True
 
+    @property
+    def _gather_mode(self) -> str:
+        return "mirror" if self.mode is Extend.MIRROR else "clamp"
+
     def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
-        mode = "mirror" if self.mode is Extend.MIRROR else "clamp"
         fill = dyn["fill"] if self.mode in _FILL_MODES else None
         out = kernels.gather(x, self.out_hb, self.out_wb, dyn["off_y"],
-                             dyn["off_x"], h, w, mode=mode, fill=fill,
+                             dyn["off_x"], h, w, mode=self._gather_mode, fill=fill,
                              out_u8=out_u8, **_out_kw(out))
+        return out, dyn["canvas_h"], dyn["canvas_w"]
+
+    def shard_window(self, c0, c1, in_w, in_wb, dyn):
+        """The min..max of the columns' index map: a mirror folds back, so
+        the map itself, not its ends; columns in the fill keep their
+        clamped index (a shard wholly in the fill still reads one)."""
+        size = max(in_w, 1)
+        rel = np.arange(c0, c1) - int(dyn["off_x"][0])
+        if self.mode is Extend.MIRROR:
+            m = np.mod(rel, 2 * size)
+            idx = np.where(m < size, m, 2 * size - 1 - m)
+        else:
+            idx = np.clip(rel, 0, size - 1)
+        return _span(np.clip(idx, 0, in_wb - 1))
+
+    def shard_valid(self, hw, dyn):
+        return int(dyn["canvas_h"][0]), int(dyn["canvas_w"][0])
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        fill = dyn["fill"] if self.mode in _FILL_MODES else None
+        out = impl.gather_shard(x, self.out_hb, lw, col0, in_col0, in_wb, dyn["off_y"],
+                                dyn["off_x"], h, w, self._gather_mode, fill,
+                                out_u8=out_u8)
         return out, dyn["canvas_h"], dyn["canvas_w"]
 
 
@@ -189,7 +312,7 @@ class FlipSpec(_ShardForm):
 
 
 @dataclasses.dataclass(frozen=True)
-class FlopSpec:
+class FlopSpec(_ShardForm):
     """Horizontal flip of the valid region; padding columns stay as they
     are (kernel K5, flop)."""
 
@@ -198,16 +321,52 @@ class FlopSpec:
     def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
         return kernels.orient(x, h, w, "flop", out_u8, **_out_kw(out)), h, w
 
+    def shard_window(self, c0, c1, in_w, in_wb, dyn):
+        """The mirror map's columns: [w - c1, w - c0) inside the valid
+        width, the shard's own columns in the padding, and for the shard
+        that straddles w two ranges, the mirrored [0, w - c0) and its own
+        padding [w, c1), side by side (`flop_shard` reads the padding
+        columns from the window's end)."""
+        if c1 <= in_w:
+            return in_w - c1, in_w - c0
+        if c0 >= in_w or c0 == 0:
+            return c0, c1
+        return (0, in_w - c0), (in_w, c1)
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        return impl.flop_shard(x, h, w, col0, lw, in_col0, out_u8), h, w
+
 
 @dataclasses.dataclass(frozen=True)
-class TransposeSpec:
+class TransposeSpec(_ShardForm):
     """Swap H and W of the whole bucket, valid dims swapped with it
-    (kernel K5, transpose)."""
+    (kernel K5, transpose). W-shard form: output shard j is input rows [j
+    lw, (j + 1) lw) of every shard, transposed: an all-to-all
+    (`parallel/spatial.exchange_bands`), then K5 on the assembled band."""
 
     donates = True
 
     def apply(self, x, h, w, dyn, out_u8: bool = False, out=None):
         return kernels.orient(x, h, w, "transpose", out_u8, **_out_kw(out)), w, h
+
+    def shard_input(self, img, c0, c1, w, dyn):
+        # output columns [c0, c1) are the input's rows [c0, c1)
+        return img[c0:c1], None, None, 0
+
+    def shard_valid(self, hw, dyn):
+        return hw[1], hw[0]
+
+    def shard_exchange(self, row, lw, in_hw, in_wb, dyn, tally=None):
+        for sh in row:
+            sh.left = sh.right = None
+        parts = spatial.exchange_bands(row, lw, tally)
+        return [0] * len(row), [(j * lw, (j + 1) * lw, p) for j, p in enumerate(parts)]
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        # the band [B, lw, Wb, C] -> the shard's columns [B, Wb, lw, C]
+        return impl.orient(x, h, w, "transpose", out_u8), w, h
 
 
 @dataclasses.dataclass(frozen=True)
@@ -228,7 +387,7 @@ class BlurSpec(_ShardForm):
     def shard_halo(self) -> int:
         return self.radius
 
-    def shard_ok(self, lw: int, first: bool) -> bool:
+    def shard_ok(self, lw, first, in_wb, n):
         # a halo never reaches past the neighbouring shard (K13)
         return self.radius < lw
 
@@ -307,7 +466,7 @@ class FromYuv420Spec(_ShardForm):
             raise ValueError("FromYuv420Spec cannot end a chain")
         return kernels.yuv420_to_rgb(x, h, w, self.hb, self.wb), h, w
 
-    def shard_ok(self, lw, first):
+    def shard_ok(self, lw, first, in_wb, n):
         # it reads the packed host buffer; a chroma column covers two pixels
         return first and lw % 2 == 0
 
@@ -382,7 +541,7 @@ class ToYuv420Spec(_ShardForm):
             raise ValueError("ToYuv420Spec must end its chain")
         return kernels.rgb_to_yuv420(x, h, w, self.hb, self.wb, luma, **_out_kw(out)), h, w
 
-    def shard_ok(self, lw, first):
+    def shard_ok(self, lw, first, in_wb, n):
         # a 2x2 chroma block never straddles two shards
         return lw % 2 == 0
 
@@ -443,12 +602,42 @@ class GraySpec(_ShardForm):
         return impl.gray(x, out_u8), h, w
 
 
+_SAL_ROWS = ShardLaunch("saliency_rows_shard")
+_SAL_SCAN = ShardLaunch("saliency_scan_shard")
+_ARGMAX = ShardLaunch("window_argmax_shard")
+_SMART_GATHER = ShardLaunch("gather_shard")
+
+
+def _holding(row: list, xs: list, col0s: list) -> list:
+    """Shards of `row` (their devices, streams and `ready` events) holding
+    xs[j] at global columns from col0s[j]: the operands of an exchange of
+    something other than the row's images."""
+    out = []
+    for sh, x, c0 in zip(row, xs, col0s):
+        part = spatial.Shard(sh.device, sh.stream, 0, 1, c0)
+        part.x, part.ready = x, sh.ready
+        out.append(part)
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
-class SmartExtractSpec:
+class SmartExtractSpec(_ShardForm):
     """Saliency-guided crop (ref: bimg GravitySmart): the saliency integral
     image (kernel K9), the best window's offsets, chosen on the device
     (K10), and the window gather at those offsets (K4), with no host
-    round trip between them. dyn: new_h, new_w (i32 [B])."""
+    round trip between them. dyn: new_h, new_w (i32 [B]).
+
+    W-shard form (`run_shards`): input shard j holds columns [j in_lw, (j
+    + 1) in_lw). K9's rows on each shard over its columns and per - 1 past
+    each edge (per = ceil(in_wb / 256), the row scan's segment; input
+    halos of per columns), then every shard's segment totals to every
+    shard, K9's scan and columns (each shard's ii columns); K10 on the
+    candidates whose left lies in the shard's columns over an ii window up
+    to their windows' right edges, of only the rows K10 reads (its
+    candidates' tops and bottoms: two bands of nr = h - new_h + 1 rows),
+    then every shard's best key to every shard; K4 reduces the keys and
+    gathers from an image window that covers every offset K10 may choose
+    (left <= w - new_w)."""
 
     out_hb: int
     out_wb: int
@@ -461,3 +650,83 @@ class SmartExtractSpec:
         out = kernels.gather(x, self.out_hb, self.out_wb, top, left,
                              mode="window", out_u8=out_u8, **_out_kw(out))
         return out, dyn["new_h"], dyn["new_w"]
+
+    def shard_ok(self, lw, first, in_wb, n):
+        # whole segments of the row scan a shard, and halos of one segment
+        return in_wb % n == 0 and in_wb // n >= kernels.saliency_segment(in_wb)
+
+    def shard_input(self, img, c0, c1, w, dyn):
+        """The shard's input columns (of the input bucket, which its output
+        columns do not index) and halos of one segment."""
+        n = self.out_wb // (c1 - c0)
+        in_lw = img.shape[1] // n
+        k0 = c0 // (c1 - c0) * in_lw
+        k1, r = k0 + in_lw, kernels.saliency_segment(img.shape[1])
+        left = img[:, k0 - r:k0] if k0 > 0 else None
+        right = img[:, k1:k1 + r] if k1 < img.shape[1] else None
+        return img[:, k0:k1], left, right, k0
+
+    def shard_valid(self, hw, dyn):
+        return int(dyn["new_h"][0]), int(dyn["new_w"][0])
+
+    def run_shards(self, row, dyns, lw, in_col0, in_hw, in_wb, dyn, out_u8, trace=None,
+                   stage=0, tally=None):
+        n = len(row)
+        in_h, in_w = in_hw
+        in_lw, per = in_wb // n, kernels.saliency_segment(in_wb)
+        cols = [j * in_lw for j in range(n)]
+        if in_col0 is None:
+            for sh in row:
+                sh.left = sh.right = None
+            spatial.exchange_halos([row], per, tally)
+        for sh, c0 in zip(row, cols):
+            sh.col0 = c0
+        # K9: each shard's rows, then every shard's totals, then its scan
+        sals, tots = [], []
+        for j, sh in enumerate(row):
+            sal, tot = _launch(sh, _SAL_ROWS, (sh.x, sh.left, sh.right, sh.h, sh.w,
+                                               cols[j], in_wb), trace, stage, j)
+            sals.append(sal)
+            tots.append(tot)
+        firsts = [-(-c0 // per) for c0 in cols]
+        parts = _holding(row, tots, firsts)
+        spatial.exchange_window(parts, [(0, -(-in_wb // per))] * n, tally)
+        iis = [_launch(sh, _SAL_SCAN, (sals[j], parts[j].x, cols[j], in_lw, in_wb),
+                       trace, stage, j) for j, sh in enumerate(row)]
+        # K10: each shard's candidates over the ii rows and columns they
+        # read (rows [0, nr) and [new_h, new_h + nr), columns from the
+        # first candidate's left to the last one's right), then every key
+        in_hb = row[0].x.shape[1]
+        new_h, new_w = int(dyn["new_h"][0]), int(dyn["new_w"][0])
+        lim_t, lim_l = in_h - new_h, in_w - new_w
+        nr = 0 if lim_t < 0 else min(lim_t, in_hb - 1) + 1
+        ncols = 0 if lim_l < 0 or nr == 0 else min(lim_l, in_wb - 1) + 1
+        bands = [(0, nr), (new_h, new_h + nr)] if nr else [(0, 1), (0, 1)]
+        ii_wins = []
+        for c0 in cols:
+            last = min(c0 + in_lw, ncols) - 1  # the shard's last candidate
+            k0 = max(c0, 1)
+            hi = min(last + new_w, in_wb) if last >= c0 else k0
+            ii_wins.append((k0, max(hi, k0) + 1))
+        parts = _holding(row, iis, [c0 + 1 for c0 in cols])
+        spatial.exchange_window(parts, ii_wins, tally, rows=bands)
+        keys = []
+        for j, sh in enumerate(row):
+            k = _launch(sh, _ARGMAX, (parts[j].x, sh.h, sh.w, dyns[j]["new_h"],
+                                      dyns[j]["new_w"], ii_wins[j][0], cols[j],
+                                      cols[j] + in_lw, in_hb, in_wb), trace, stage, j)
+            keys.append(k.reshape(-1, 1, 1))
+        parts = _holding(row, keys, list(range(n)))
+        spatial.exchange_window(parts, [(0, n)] * n, tally)
+        # K4: the image window every offset K10 may choose reads
+        reach = max(lim_l + 1, 0)
+        wins = [(min(j * lw, in_wb - 1), min((j + 1) * lw - 1 + reach, in_wb - 1) + 1)
+                for j in range(n)]
+        sources = spatial.exchange_window(row, wins, tally)
+        for j, sh in enumerate(row):
+            args = (sh.x, self.out_hb, lw, j * lw, wins[j][0], in_wb, None, None, None,
+                    None, "window", None, parts[j].x.reshape(-1, n), in_wb, out_u8)
+            sh.x = _launch(sh, _SMART_GATHER, args, trace, stage, j)
+            sh.h, sh.w = dyns[j]["new_h"], dyns[j]["new_w"]
+            sh.col0, sh.left, sh.right = j * lw, None, None
+        return [(k0, k1, p) for (k0, k1), p in zip(wins, sources)]

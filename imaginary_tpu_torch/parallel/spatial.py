@@ -28,8 +28,12 @@ output on the whole image bit for bit. The chain's spatial route
 (`ops/chain.launch_spatial`) runs its blur stage through the same
 exchange and kernel, and fills a later stage's input window (K1's taps,
 the bucket shrink's columns) from the shards that hold it with
-`exchange_window`: today a copy of the whole window a shard, local on
-one card.
+`exchange_window`: today a copy of the whole window a shard (one or more
+column ranges, every row or only the row bands a stage reads), local on
+one card. A transpose's shards take their row bands from every shard
+(`exchange_bands`, an all-to-all of n^2 block copies). Every exchange
+adds the bytes it copies to a caller's `tally` (a one-item list) when
+one is given.
 
 Nothing waits on the host (no `synchronize()`): the call returns with the
 work queued on the caller's current stream. On a mesh of `cpu` entries
@@ -84,16 +88,20 @@ def wait(stream, event) -> None:
         stream.wait_event(event)
 
 
-def copy_into(dst: torch.Tensor, dst_stream, src: torch.Tensor, src_stream) -> None:
+def copy_into(dst: torch.Tensor, dst_stream, src: torch.Tensor, src_stream,
+              tally=None) -> None:
     """dst.copy_(src) with both shards' streams current. On one card the
     copy runs on dst_stream, so src (allocated on src_stream) is marked as
     used there; across cards PyTorch runs it on src_stream and makes
-    dst_stream wait for it."""
+    dst_stream wait for it. tally: a one-item list the copy's bytes are
+    added to, or None."""
     with on(src_stream), on(dst_stream):
         if (dst_stream is not None and src.device == dst.device
                 and src_stream is not dst_stream):
             src.record_stream(dst_stream)
         dst.copy_(src, non_blocking=True)
+    if tally is not None:
+        tally[0] += src.numel() * src.element_size()
 
 
 def shard_inputs(x: torch.Tensor, h, w, sigma, mesh: Mesh, streams=None) -> list:
@@ -133,7 +141,7 @@ def shard_inputs(x: torch.Tensor, h, w, sigma, mesh: Mesh, streams=None) -> list
     return grid
 
 
-def exchange_halos(grid: list, radius: int) -> None:
+def exchange_halos(grid: list, radius: int, tally=None) -> None:
     """Step 1: each shard's `left` <- its left neighbour's last R input
     columns, its `right` <- its right neighbour's first R, each copy after
     the destination's stream waited on the source's `ready`. The outer
@@ -154,43 +162,88 @@ def exchange_halos(grid: list, radius: int) -> None:
                 wait(dst.stream, src.ready)
                 with on(dst.stream):
                     halo = torch.empty(part.shape, dtype=part.dtype, device=dst.device)
-                copy_into(halo, dst.stream, part, src.stream)
+                copy_into(halo, dst.stream, part, src.stream, tally)
                 setattr(dst, side, halo)
 
 
-def exchange_window(row: list, windows: list) -> list:
+def window_spans(win) -> list:
+    """A window's column ranges: (k0, k1), or a tuple of such ranges laid
+    side by side in the window."""
+    return list(win) if isinstance(win[0], tuple) else [win]
+
+
+def exchange_window(row: list, windows: list, tally=None, rows=None) -> list:
     """Each shard's `x` <- columns [k0, k1) = windows[j] of the row's
     current output, whose shards hold contiguous columns [col0, col0 + lw)
     side by side (a later sharded stage's input window,
-    `stages._ShardForm.shard_window`). Each part is copied from the shard
-    that holds it after the destination's stream waited on the source's
-    `ready`; a window equal to the shard's own columns stays as it is.
-    Returns, for each shard, the parts it took as (source shard, first
-    global column, end column)."""
+    `stages._ShardForm.shard_window`); a window of several ranges
+    (`window_spans`) holds them side by side. rows: None (every row), or
+    the row ranges [(r0, r1), ...] the windows take, stacked in order.
+    Each part is copied from the shard that holds it after the
+    destination's stream waited on the source's `ready`; a window of every
+    row equal to the shard's own columns stays as it is. Returns, for each
+    shard, the parts it took as (source shard, first global column, end
+    column)."""
     wins, sources = [], []
-    for j, (dst, (k0, k1)) in enumerate(zip(row, windows)):
-        if (k0, k1) == (dst.col0, dst.col0 + dst.x.shape[2]):
+    for j, (dst, win) in enumerate(zip(row, windows)):
+        spans = window_spans(win)
+        if rows is None and spans == [(dst.col0, dst.col0 + dst.x.shape[2])]:
             wins.append(dst.x)
-            sources.append([(j, k0, k1)])
+            sources.append([(j, *spans[0])])
             continue
-        shape = dst.x.shape[:2] + (k1 - k0,) + dst.x.shape[3:]
+        bands = [(0, dst.x.shape[1])] if rows is None else rows
+        width = sum(k1 - k0 for k0, k1 in spans)
+        shape = (dst.x.shape[0], sum(r1 - r0 for r0, r1 in bands), width) + dst.x.shape[3:]
         with on(dst.stream):
-            win = torch.empty(shape, dtype=dst.x.dtype, device=dst.device)
-        parts = []
-        for s, src in enumerate(row):
-            a, b = max(k0, src.col0), min(k1, src.col0 + src.x.shape[2])
-            if a >= b:
-                continue
-            wait(dst.stream, src.ready)
-            copy_into(win[:, :, a - k0:b - k0], dst.stream,
-                      src.x[:, :, a - src.col0:b - src.col0], src.stream)
-            parts.append((s, a, b))
-        if sum(b - a for _, a, b in parts) != k1 - k0:
-            raise ValueError(f"window [{k0}, {k1}) is not covered by the row's shards")
-        wins.append(win)
+            out = torch.empty(shape, dtype=dst.x.dtype, device=dst.device)
+        parts, at = [], 0
+        for k0, k1 in spans:
+            for s, src in enumerate(row):
+                a, b = max(k0, src.col0), min(k1, src.col0 + src.x.shape[2])
+                if a >= b:
+                    continue
+                wait(dst.stream, src.ready)
+                y = 0
+                for r0, r1 in bands:
+                    copy_into(out[:, y:y + r1 - r0, at + a - k0:at + b - k0], dst.stream,
+                              src.x[:, r0:r1, a - src.col0:b - src.col0], src.stream, tally)
+                    y += r1 - r0
+                parts.append((s, a, b))
+            at += k1 - k0
+        if sum(b - a for _, a, b in parts) != width:
+            raise ValueError(f"window {spans} is not covered by the row's shards")
+        wins.append(out)
         sources.append(parts)
     for sh, win in zip(row, wins):
         sh.x = win
+    return sources
+
+
+def exchange_bands(row: list, lw: int, tally=None) -> list:
+    """A transpose's all-to-all: each shard j's `x` <- rows [j lw, (j + 1)
+    lw) of the row's current output across every shard's columns, an
+    assembled band [B, lw, Wb, C] whose shard s part sits at its columns
+    [col0, col0 + lw_s). n^2 block copies, each after the destination's
+    stream waited on the source's `ready` (a shard's own part too, a local
+    copy). Returns, for each shard, the parts it took as (source shard,
+    first global column, end column)."""
+    width = sum(src.x.shape[2] for src in row)
+    bands, sources = [], []
+    for j, dst in enumerate(row):
+        shape = dst.x.shape[:1] + (lw, width) + dst.x.shape[3:]
+        with on(dst.stream):
+            band = torch.empty(shape, dtype=dst.x.dtype, device=dst.device)
+        parts = []
+        for s, src in enumerate(row):
+            a, b = src.col0, src.col0 + src.x.shape[2]
+            wait(dst.stream, src.ready)
+            copy_into(band[:, :, a:b], dst.stream, src.x[:, j * lw:(j + 1) * lw],
+                      src.stream, tally)
+            parts.append((s, a, b))
+        bands.append(band)
+        sources.append(parts)
+    for sh, band in zip(row, bands):
+        sh.x = band
     return sources
 
 

@@ -13,9 +13,10 @@ W-sharded over a row of the lanes' mesh (`ops/chain.launch_spatial`,
   * the spatial output within 1 LSB of the JAX executor's spatial route
     on the conftest's eight virtual devices (mesh (2, 2), the same seeded
     PNG, `process_operation` with each executor as the runner): resize +
-    blur, the dry run's resize + blur + bw, and a small config-3
-    /pipeline;
-  * a stage with no W-sharded form (/rotate's transpose) shows one
+    blur, the dry run's resize + blur + bw, a small config-3 /pipeline,
+    /rotate, /flop, /crop, /smartcrop and an embed;
+  * a stage whose `shard_ok` refuses (a transpose whose output width, the
+    input bucket's height, does not split over 3 shards) shows one
     counted gather and the same output;
   * seams: K1 at a 6x downscale and a 2x upscale with the valid width
     ending inside a shard; K13 at R = lw - 1 (sharded) and R = lw
@@ -182,12 +183,21 @@ class TestSpatialServedRequest:
 
 # (name, options, the stage gathered at): /blur keeps the image's size and
 # ends in a bucket shrink (K4), whose W-shard form reads its columns of the
-# wider input bucket through the window exchange
+# wider input bucket through the window exchange; /rotate's transpose
+# takes its row bands from every shard, the flop its mirrored window; the
+# crop, the embed and the smartcrop's gather read K4 windows
 CHAINS = [
     ("resize-blur", dict(width=160, sigma=1.2), None),
     ("resize-blur-bw", dict(width=160, sigma=2.0, colorspace="bw"), None),
     ("blur", dict(sigma=1.5), None),
+    ("rotate", dict(rotate=90), None),
+    ("flop", dict(flop=True), None),
+    ("crop", dict(width=100, height=100), None),
+    ("smartcrop", dict(width=100, height=100), None),
+    ("embed", dict(width=400, height=300), None),
 ]
+_OPS = {"blur": "blur", "rotate": "rotate", "flop": "flop", "crop": "crop",
+        "smartcrop": "smartcrop"}
 
 
 def _chain_plan(name, kw, h, w):
@@ -196,8 +206,7 @@ def _chain_plan(name, kw, h, w):
     kw = dict(kw)
     if kw.get("colorspace") == "bw":
         kw["colorspace"] = Colorspace.BW
-    op = "blur" if name == "blur" else "resize"
-    return plan_operation(op, ImageOptions(**kw), h, w, 0, 3)
+    return plan_operation(_OPS.get(name, "resize"), ImageOptions(**kw), h, w, 0, 3)
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -207,7 +216,8 @@ def test_spatial_chain_is_bit_equal_to_the_unsharded_chain(name, kw, gather, n):
     plan = _chain_plan(name, kw, *arr.shape[:2])
     sharded, gather_at = chain.spatial_split(plan.spec_key(), 160, 448, n)
     assert (gather_at is None) == (gather is None)
-    assert len(sharded) == len(plan.stages) - (gather is not None)
+    live = chain.live_stages(plan.spec_key(), 160, 448)
+    assert len(sharded) == len(live) - (gather is not None)
     got, gathered = _spatial(arr, plan, n)
     assert gathered == gather
     assert np.array_equal(got, _unsharded(arr, plan))
@@ -228,13 +238,17 @@ def test_executor_route_counts_batches_and_matches(make_ex):
 
 
 @pytest.mark.parametrize("ops,gathered,dims", [
-    ([{"operation": "rotate", "params": {"rotate": 90}}], "TransposeSpec", (420, 150)),
-    ([{"operation": "resize", "params": {"width": 160}},
-      {"operation": "rotate", "params": {"rotate": 90}}], "TransposeSpec", (160, 57)),
+    ([{"operation": "rotate", "params": {"rotate": 90}}], "TransposeSpec", (380, 420)),
+    ([{"operation": "resize", "params": {"width": 192}},
+      {"operation": "rotate", "params": {"rotate": 90}}], "TransposeSpec", (192, 212)),
 ], ids=["rotate", "resize-rotate"])
 def test_stage_without_a_sharded_form_is_a_counted_gather(make_ex, ops, gathered, dims):
-    ex = make_ex(mesh_policy="lanes", n_devices=4, spatial=4, spatial_threshold_px=1)
-    buf = _png(150, 420, 4)
+    """A 420x380 PNG over 3 shards: its 384-wide bucket splits, its
+    448-row one does not, so the transpose's output width (the input's
+    bucket height: 448, or 256 after the resize to 192 columns) refuses
+    its `shard_ok`, and the chain is gathered there, counted."""
+    ex = make_ex(mesh_policy="lanes", n_devices=6, spatial=3, spatial_threshold_px=1)
+    buf = _png(420, 380, 4)
     seen, direct = [], []
 
     def run(arr, plan):
@@ -278,6 +292,11 @@ def test_any_quarantine_turns_the_route_off_until_the_mesh_is_whole(make_ex):
 JAX_CASES = [
     ("resize-blur", "resize", {"width": "160", "sigma": "1.2"}),
     ("dry-run-bw", "resize", {"width": "160", "sigma": "2", "colorspace": "bw"}),
+    ("rotate", "rotate", {"rotate": "90"}),
+    ("flop", "flop", {}),
+    ("crop", "crop", {"width": "100", "height": "100"}),
+    ("smartcrop", "smartcrop", {"width": "100", "height": "100"}),
+    ("embed", "resize", {"width": "400", "height": "300", "extend": "mirror"}),
     ("config3", "pipeline", {"operations": json.dumps([
         {"operation": "resize", "params": {"width": 160}},
         {"operation": "blur", "params": {"sigma": 1.2}},

@@ -2,13 +2,18 @@
 
 The chains a JPEG request runs by default start with K2 (FromYuv420Spec)
 and end with K3 (ToYuv420Spec); with their W-shard forms, K1 as a later
-stage and the bucket shrink over the window exchange, and the flip, they
-run W-sharded end to end (`ops/chain.launch_spatial`):
+stage and K4 (the bucket shrink, extract, embed) over the window exchange,
+K5 (the flip, the flop over a window, the transpose over the row-band
+all-to-all) and the smartcrop (K9 -> K10 -> K4), they run W-sharded end to
+end (`ops/chain.launch_spatial`):
 
   * `spatial_split` on a 3840x2160 JPEG's plans: no gather for /resize,
-    /enlarge, /blur, /flip and the bw dry run at n = 2 and 4, and the
-    gather at ExtractSpec for /crop;
-  * every such chain bit-equal to the unsharded chain on small JPEGs;
+    /enlarge, /blur, /flip, the bw dry run, /crop, /smartcrop,
+    /rotate?rotate=90, /flop, an embed with a fill and an EXIF-6 /resize
+    at n = 2 and 4;
+  * every such chain, /rotate at 90, 180 and 270, EXIF orientations 2-8
+    and the embed's mirror, copy and fill modes bit-equal to the
+    unsharded chain on small JPEGs;
   * K2's shard form at its seams (chip_smoke.SHARD_SEAM_CASES: odd w, the
     valid chroma edge in a shard's halo, a shard wholly past the valid
     width, where the clamp reaches columns outside the shard's halo),
@@ -18,7 +23,9 @@ run W-sharded end to end (`ops/chain.launch_spatial`):
     lanczos3, linear and nearest, its window from one, two or three
     other shards; the shrink's form where the input and output shards
     differ in width; the flip's form;
-  * an executor over four cpu entries with spatial=4, its gathers counted;
+  * an executor over four cpu entries with spatial=4: no gather on the
+    new chains, and a blur whose radius reaches past a shard still
+    gathered and counted;
   * within 1 LSB of the JAX executor's spatial route on the conftest's
     virtual devices on the same JPEG bytes.
 """
@@ -73,15 +80,21 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _jpeg(h, w, seed=0) -> bytes:
-    """A seeded 4:2:0 JPEG: a gradient under noise."""
+def _jpeg(h, w, seed=0, orientation=None) -> bytes:
+    """A seeded 4:2:0 JPEG: a gradient under noise, with an EXIF
+    orientation when one is given."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:h, 0:w]
     img = np.stack([xx * 255 // max(w - 1, 1), yy * 255 // max(h - 1, 1),
                     (xx + yy) % 256], axis=-1)
     img = np.clip(img + rng.integers(-40, 41, img.shape), 0, 255).astype(np.uint8)
     out = io.BytesIO()
-    Image.fromarray(img).save(out, "JPEG", quality=90, subsampling=2)
+    kw = {}
+    if orientation is not None:
+        exif = Image.Exif()
+        exif[0x0112] = orientation
+        kw["exif"] = exif.tobytes()
+    Image.fromarray(img).save(out, "JPEG", quality=90, subsampling=2, **kw)
     return out.getvalue()
 
 
@@ -123,7 +136,14 @@ ROUTES_4K = [
     ("flip", "flip", {}, ["FlipSpec"], None),
     ("bw", "resize", dict(BW, width="1920"), ["SampleSpec", "BlurSpec", "GraySpec"], None),
     ("crop", "crop", {"width": "1000", "height": "1000"}, ["SampleSpec", "ExtractSpec"],
-     "ExtractSpec"),
+     None),
+    ("smartcrop", "smartcrop", {"width": "2400", "height": "2000"},
+     ["SampleSpec", "SmartExtractSpec"], None),
+    ("rotate90", "rotate", {"rotate": "90"}, ["TransposeSpec", "FlopSpec"], None),
+    ("flop", "flop", {}, ["FlopSpec"], None),
+    ("embed-fill", "resize", {"width": "3000", "height": "2000", "extend": "white"},
+     ["SampleSpec", "EmbedSpec"], None),
+    ("exif6", "resize", {"width": "1920"}, ["TransposeSpec", "FlopSpec", "SampleSpec"], None),
 ]
 
 
@@ -132,11 +152,17 @@ def jpeg_4k() -> bytes:
     return _jpeg(2160, 3840, seed=1)
 
 
+@pytest.fixture(scope="module")
+def jpeg_4k_exif6() -> bytes:
+    return _jpeg(2160, 3840, seed=2, orientation=6)
+
+
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("name,op,query,middle,gather", ROUTES_4K,
                          ids=[r[0] for r in ROUTES_4K])
-def test_4k_jpeg_chains_shard_end_to_end(jpeg_4k, name, op, query, middle, gather, n):
-    plan = _yuv_plan(jpeg_4k, op, query)
+def test_4k_jpeg_chains_shard_end_to_end(jpeg_4k, jpeg_4k_exif6, name, op, query, middle,
+                                         gather, n):
+    plan = _yuv_plan(jpeg_4k_exif6 if name == "exif6" else jpeg_4k, op, query)
     specs = plan.spec_key()
     assert _names(plan) == ["FromYuv420Spec"] + middle + ["ToYuv420Spec"]
     sharded, gather_at = chain.spatial_split(specs, *plan.in_bucket, n)
@@ -159,7 +185,15 @@ ROUTES = [
     ("blur", "blur", {"sigma": "2"}, None),
     ("flip", "flip", {}, None),
     ("bw", "resize", BW, None),
-    ("crop", "crop", {"width": "100", "height": "100"}, "ExtractSpec"),
+    ("crop", "crop", {"width": "100", "height": "100"}, None),
+    ("smartcrop", "smartcrop", {"width": "100", "height": "100"}, None),
+    ("rotate90", "rotate", {"rotate": "90"}, None),
+    ("rotate180", "rotate", {"rotate": "180"}, None),
+    ("rotate270", "rotate", {"rotate": "270"}, None),
+    ("flop", "flop", {}, None),
+    ("embed-mirror", "resize", {"width": "400", "height": "300", "extend": "mirror"}, None),
+    ("embed-copy", "resize", {"width": "400", "height": "300", "extend": "copy"}, None),
+    ("embed-fill", "resize", {"width": "400", "height": "300", "extend": "white"}, None),
 ]
 
 
@@ -173,6 +207,20 @@ def test_jpeg_chain_is_bit_equal_to_the_unsharded_chain(name, op, query, gather,
     got, y = _spatial(arr, plan, n)
     assert y.gathered == gather
     assert y.shards == (0 if gather else n)
+    assert _same(got, _unsharded(arr, plan))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("orientation", range(2, 9))
+def test_exif_orientations_are_bit_equal_to_the_unsharded_chain(orientation, n):
+    """EXIF orientations 2-8 plan the flop, the flip and (5-8) the
+    transpose before the /resize: every one runs sharded, no gather."""
+    buf = _jpeg(151, 423, seed=orientation, orientation=orientation)
+    arr, plan = chip_smoke.request_plan(buf, "resize", {"width": "120"})
+    names = _names(plan)
+    assert ("TransposeSpec" in names) == (orientation >= 5)
+    got, y = _spatial(arr, plan, n)
+    assert y.gathered is None and y.shards == n
     assert _same(got, _unsharded(arr, plan))
 
 
@@ -385,6 +433,10 @@ def test_trace_holds_k2_k3_and_the_folded_luma():
 # -- the executor's route, its gathers counted ------------------------------------
 
 def test_executor_route_shards_the_jpeg_chains_and_counts_crop_gather():
+    """Every default JPEG chain runs on the route without a gather, /crop
+    and /smartcrop included; a blur whose radius (64, at sigma 20) reaches
+    past a 32-column shard of a 100-wide JPEG is K13's `shard_ok` refusal:
+    still gathered, and counted at BlurSpec."""
     ex = Executor(ExecutorConfig(device="cpu", mesh_policy="lanes", n_devices=4, spatial=4,
                                  spatial_threshold_px=1, max_form_ms=1.0))
     try:
@@ -397,16 +449,20 @@ def test_executor_route_shards_the_jpeg_chains_and_counts_crop_gather():
             seen.append(plan.transport)
             return out
 
-        for op, query in (("resize", {"width": "160"}), ("blur", {"sigma": "2"}),
-                          ("flip", {}), ("resize", BW)):
+        routes = (("resize", {"width": "160"}), ("blur", {"sigma": "2"}), ("flip", {}),
+                  ("resize", BW), ("crop", {"width": "100", "height": "100"}),
+                  ("smartcrop", {"width": "100", "height": "100"}),
+                  ("rotate", {"rotate": "90"}), ("flop", {}))
+        for op, query in routes:
             ppipeline.process_operation(op, buf, pquery(query), device="cpu", runner=run)
         d = ex.stats.to_dict()
-        assert seen == ["yuv420"] * 4
-        assert d["spatial_batches"] == 4 and d["spatial_gathers"] == {}
-        ppipeline.process_operation("crop", buf, pquery({"width": "100", "height": "100"}),
+        assert seen == ["yuv420"] * len(routes)
+        assert d["spatial_batches"] == len(routes) and d["spatial_gathers"] == {}
+        ppipeline.process_operation("blur", _jpeg(150, 100, seed=32), pquery({"sigma": "20"}),
                                     device="cpu", runner=run)
         d = ex.stats.to_dict()
-        assert d["spatial_batches"] == 5 and d["spatial_gathers"] == {"ExtractSpec": 1}
+        assert d["spatial_batches"] == len(routes) + 1
+        assert d["spatial_gathers"] == {"BlurSpec": 1}
     finally:
         ex.shutdown()
 
@@ -418,7 +474,16 @@ JAX_CASES = [
     ("blur", "blur", {"sigma": "2"}),
     ("flip", "flip", {}),
     ("dry-run-bw", "resize", BW),
-]
+    ("crop", "crop", {"width": "100", "height": "100"}),
+    ("smartcrop", "smartcrop", {"width": "100", "height": "100"}),
+    ("rotate90", "rotate", {"rotate": "90"}),
+    ("rotate180", "rotate", {"rotate": "180"}),
+    ("rotate270", "rotate", {"rotate": "270"}),
+    ("flop", "flop", {}),
+    ("embed-mirror", "resize", {"width": "400", "height": "300", "extend": "mirror"}),
+    ("embed-copy", "resize", {"width": "400", "height": "300", "extend": "copy"}),
+    ("embed-fill", "resize", {"width": "400", "height": "300", "extend": "white"}),
+] + [(f"exif{k}", "resize", {"width": "120"}) for k in range(2, 9)]
 
 
 @pytest.fixture(scope="module")
@@ -443,7 +508,8 @@ def executors():
 @pytest.mark.parametrize("case,op,query", JAX_CASES, ids=[c[0] for c in JAX_CASES])
 def test_jpeg_spatial_route_matches_the_jax_spatial_route(executors, case, op, query):
     jex, pex = executors
-    buf = _jpeg(150, 420, seed=11)
+    buf = _jpeg(150, 420, seed=11,
+                orientation=int(case[4:]) if case.startswith("exif") else None)
     jseen, pseen = [], []
     j0, p0 = jex.stats.spatial_batches, pex.stats.spatial_batches
     g0 = dict(pex.stats.spatial_gathers)
