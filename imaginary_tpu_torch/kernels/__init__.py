@@ -20,11 +20,11 @@ W-shard forms (the spatial route, `ops/stages.py`): K1 (`cols`), K2
 (`yuv420_to_rgb_shard`), K3 (`rgb_to_yuv420_shard`) and K13 take a shard's
 columns through their own entry's extra parameters; K4 (`gather_shard`:
 every index map, and the smartcrop's gather from K10's keys), K5's flop
-(`flop_shard`), K9 (`saliency_rows_shard`, `saliency_scan_shard`) and
-K10 (`window_argmax_shard`) are kernels of their own in the same sources,
-so the whole-image launches do not change; each counts under its
-kernel's name. K5's flip and transpose, K7 and K8 run their whole-image
-kernel on the shard.
+(`flop_shard`), K9 (`saliency_rows_shard`, `saliency_scan_shard`), K10
+(`window_argmax_shard`), K11 (`from_dct_shard`) and K12 (`to_dct_shard`)
+are kernels of their own in the same sources, so the whole-image
+launches do not change; each counts under its kernel's name. K5's flip
+and transpose, K7 and K8 run their whole-image kernel on the shard.
 
 Each wrapper below takes tensors on one device. On a CPU tensor it runs
 the kernel's plain version (`reference.py`). On a CUDA tensor it checks
@@ -101,10 +101,16 @@ _SIGNATURES = {
     "window_argmax_shard": ("saliency", "itpu_window_argmax_shard",
                             [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                              _I, _P]),
+    "from_dct_shard": ("from_dct", "itpu_from_dct_shard",
+                       [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P]),
+    "to_dct_shard": ("to_dct", "itpu_to_dct_shard",
+                     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 _COUNT_AS = {"gather_shard": "gather", "flop_shard": "orient",
              "saliency_rows_shard": "saliency", "saliency_scan_shard": "saliency",
-             "window_argmax_shard": "window_argmax"}
+             "window_argmax_shard": "window_argmax", "from_dct_shard": "from_dct",
+             "to_dct_shard": "to_dct"}
 
 # Kernel launches since the last reset, per kernel (saliency counts its
 # two passes as two launches; a W-shard form counts under its kernel's
@@ -792,6 +798,63 @@ def from_dct(x, h, w, hb: int, wb: int, k: int, layout: str):
     return out
 
 
+def dct_shard_step(layout: str, k: int) -> int:
+    """The output columns a K11 W-shard's width and first column must be a
+    multiple of: 16 where the chroma is upsampled (4:2:0 and 4:2:2 at k =
+    8: an MCU), else 8 (the kernel's 8-coefficient runs, which hold whole
+    blocks of every plane: k x k, 2k x 2k and k x 2k, k <= 4)."""
+    return 16 if k == 8 and layout in ("420", "422") else 8
+
+
+dct_halo_blocks = reference.dct_halo_blocks
+
+
+def from_dct_shard(x, left, right, h, w, hb: int, lw: int, k: int, layout: str,
+                   col0: int, wb: int):
+    """K11's W-shard form: x int16, `from_dct`'s packed layout at width lw
+    (`dct_in_shape(layout, k, hb, lw)`), holding output columns [col0,
+    col0 + lw) of a bucket wb wide; at 4:2:0 and 4:2:2 with k = 8, its
+    Y's lw columns, then U's and V's lw/2 chroma columns, and `left`,
+    `right` int16 [B, chroma rows, 16, 1]: the chroma blocks
+    `dct_halo_blocks` names for each image's w (U's 8 columns, then V's);
+    None in the other layouts. -> f32 RGB [B, hb, lw, 3], equal to
+    `from_dct`'s columns [col0, col0 + lw) bit for bit, padding included.
+    col0 and lw are multiples of `dct_shard_step`. h, w: int32 [B], the
+    whole image's valid dims. One launch, counted as from_dct."""
+    if layout not in reference.DCT_LAYOUTS or k not in (1, 2, 4, 8):
+        raise ValueError(f"unsupported dct layout {layout!r} / k {k}")
+    step = dct_shard_step(layout, k)
+    if lw <= 0 or lw % step or col0 % step or col0 < 0 or col0 + lw > wb:
+        raise ValueError(f"K11 shard columns [{col0}, {col0 + lw}) of {wb} are not "
+                         f"multiples of {step} inside the bucket")
+    chroma = step == 16
+    if chroma and (left is None or right is None):
+        raise ValueError("K11's shard form at 4:2:0 / 4:2:2, k = 8 needs both halos")
+    if x.device.type == "cpu":
+        return reference.from_dct_shard(x, left, right, h, w, hb, lw, k, layout, col0, wb)
+    dev = x.device
+    bsz = x.shape[0]
+    rows, cols, c = dct_in_shape(layout, k, hb, lw)
+    _require(x, "x", (torch.int16,), (bsz, rows, cols, c), dev)
+    if chroma:
+        for t, name in ((left, "left"), (right, "right")):
+            _require(t, name, (torch.int16,), (bsz, rows - hb, 16, 1), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    regions = dct_regions(layout, k, hb, lw)
+    for r0, nr, c0, nc, _, kv, kh in regions:
+        if nr % kv or nc % kh or c0 % kh:
+            raise ValueError(f"shard ({hb}, {lw}) does not tile into {kv}x{kh} blocks")
+    out = torch.empty((bsz, hb, lw, 3), dtype=torch.float32, device=dev)
+    mode = 3 if layout == "gray" else (
+        0 if (k, layout) == (8, "420") else 1 if (k, layout) == (8, "422") else 2)
+    kcv, kch = regions[-1][5:]
+    _launch("from_dct_shard", dev, x.data_ptr(), _ptr(left if chroma else None),
+            _ptr(right if chroma else None), out.data_ptr(), h.data_ptr(), w.data_ptr(),
+            mode, k, kcv, kch, bsz, hb, lw, col0, wb)
+    return out
+
+
 def to_dct(x, h, w, qy, qc, hb: int, wb: int, out=None):
     """K12: f32 RGB [B, hb, wb, 3] (hb, wb multiples of 16) -> int16
     [B, hb + hb/2, wb, 1] quantized coefficients, with qy, qc f32
@@ -810,6 +873,40 @@ def to_dct(x, h, w, qy, qc, hb: int, wb: int, out=None):
     out = _out(out, (bsz, hb + hb // 2, wb, 1), torch.int16, dev)
     _launch("to_dct", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(), w.data_ptr(),
             qy.data_ptr(), qc.data_ptr(), bsz, hb, wb)
+    return out
+
+
+def to_dct_shard(x, h, w, qy, qc, hb: int, lw: int, col0: int, k0: int, wb: int):
+    """K12's W-shard form: x f32 [B, hb, kw, 3] holds the input's global
+    columns [k0, k0 + kw) (`stages.ToDctSpec.shard_window`: every column
+    the whole MCUs over [col0, col0 + lw) read after the clamp to each
+    image's w - 1) -> int16 [B, hb + hb/2, lw, 1], the shard's own
+    coefficient columns: Y's [col0, col0 + lw), then U's and V's [col0/2,
+    (col0 + lw)/2) side by side (K3's shard packing, which
+    `ToYuv420Spec.shard_assemble` puts together), equal to `to_dct`'s bit
+    for bit. An MCU that straddles the shard's edge is computed whole and
+    stored in part. col0 and lw even; hb and the bucket width wb
+    multiples of 16. One launch, counted as to_dct."""
+    if hb % 16 or wb % 16:
+        raise ValueError(f"ToDctSpec bucket ({hb}, {wb}) must be multiples of 16")
+    if lw <= 0 or lw % 2 or col0 % 2 or col0 < 0 or col0 + lw > wb:
+        raise ValueError(f"K12 shard columns [{col0}, {col0 + lw}) of {wb} must be even "
+                         f"and inside the bucket")
+    kw = x.shape[2]
+    if k0 < 0 or k0 + kw > wb:
+        raise ValueError(f"K12 shard window [{k0}, {k0 + kw}) outside the bucket width {wb}")
+    if x.device.type == "cpu":
+        return reference.to_dct_shard(x, h, w, qy, qc, hb, lw, col0, k0, wb)
+    dev = x.device
+    bsz = x.shape[0]
+    _require(x, "x", _F32, (bsz, hb, kw, 3), dev)
+    _require(h, "h", _I32, (bsz,), dev)
+    _require(w, "w", _I32, (bsz,), dev)
+    _require(qy, "qy", _F32, (bsz, 8, 8), dev)
+    _require(qc, "qc", _F32, (bsz, 8, 8), dev)
+    out = torch.empty((bsz, hb + hb // 2, lw, 1), dtype=torch.int16, device=dev)
+    _launch("to_dct_shard", dev, x.data_ptr(), out.data_ptr(), h.data_ptr(), w.data_ptr(),
+            qy.data_ptr(), qc.data_ptr(), bsz, hb, wb, col0, lw, k0, kw)
     return out
 
 

@@ -38,6 +38,16 @@
 //     BT.601 (or the gray broadcast) and the clip, in the reference's
 //     operation order; so a warp writes 512 contiguous bytes a store.
 //   - Index math is 32-bit inside one image; the grid is the tiles.
+//   - W-shard form (`itpu_from_dct_shard`, the spatial route): the same
+//     tile code on a shard's own coefficient columns, its taps and clamps
+//     on global columns. At 4:2:0 and 4:2:2, k = 8, a chroma sample next
+//     to the shard needs its block's whole IDCT row, so the shard also
+//     takes one whole 8x8 chroma block of U and of V on each side: the
+//     neighbour, or the block holding the valid chroma edge when the
+//     clamp reaches past it (a shard past the valid width reads that
+//     column alone). The loads map each global chroma block to the buffer
+//     that holds it; nothing else differs, so a shard's samples equal the
+//     whole image's at its columns bit for bit.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -164,10 +174,22 @@ __device__ __forceinline__ void vcol(float* col, int stride, int nrows, int k,
 // below); 1: 4:2:2 at k = 8, [2 hb, wb, 1]; 2: three planes at the output
 // size, [hb, wb, 3], Y in k x k blocks and chroma in kcv x kch; 3: gray,
 // [hb, wb, 1] in k x k blocks. grid: (tiles across, tiles down, B).
-__global__ void __launch_bounds__(kThreads, 3)
-    from_dct(const int16_t* __restrict__ src, float* __restrict__ out,
-             const int32_t* __restrict__ h, const int32_t* __restrict__ w,
-             int mode, int k, int kcv, int kch, int hb, int wb) {
+//
+// kShard: the W-shard form. src then holds output columns [col0, col0 +
+// wb) of an image whose bucket is gwb wide (col0 a multiple of 16 in
+// modes 0 and 1, of 8 otherwise), and, in modes 0 and 1, lh and rh hold
+// one 8-column chroma block of U then of V a chroma row ([B, crows, 16]):
+// the blocks `kernels.dct_halo_blocks` picks, so that every clamped chroma
+// column the shard's taps read lies in a block of the window. Taps and
+// clamps use global columns; only the loads map a global chroma block to
+// the buffer that holds it. The whole image is kShard false, col0 0 and
+// gwb = wb.
+template <bool kShard>
+__device__ __forceinline__ void from_dct_tile(
+    const int16_t* __restrict__ src, const int16_t* __restrict__ lh,
+    const int16_t* __restrict__ rh, float* __restrict__ out,
+    const int32_t* __restrict__ h, const int32_t* __restrict__ w, int mode, int k,
+    int kcv, int kch, int hb, int wb, int col0, int gwb) {
   // modes 0, 1, 3: Y [kRows][kCols], then (0, 1) U, V [kCRows][kCCols];
   // mode 2: Y, U, V [kRows][kCols]
   __shared__ __align__(16) float sm[3 * kRows * kCols];
@@ -175,6 +197,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   __shared__ float4 stage[kThreads / 32][3 * 32];  // a warp's output row
   const int tid = threadIdx.x;
   const int X0 = blockIdx.x * kCols, R0 = blockIdx.y * kRows;
+  const int GX0 = kShard ? col0 + X0 : X0;  // the tile's first global column
   const int b = blockIdx.z;
   const int tw = min(kCols, wb - X0), th = min(kRows, hb - R0);
   const int C = mode == 2 ? 3 : 1;
@@ -188,15 +211,15 @@ __global__ void __launch_bounds__(kThreads, 3)
   // the chroma window (mode 0, 1): chroma rows [rlo, rhi] and columns
   // [clo, chi] that the tile's taps read, in blocks [brlo, +nbr) x
   // [bclo, +nbc); the valid chroma extent is clamped into the buffer
-  const int cwb = wb >> 1, chb = hb >> 1;
+  const int cwb = (kShard ? gwb : wb) >> 1, chb = hb >> 1;
   const int cnw = min((w[b] + 1) / 2, cwb);
   const int cnh = min((h[b] + 1) / 2, chb);
   int rlo = 0, rhi = 0, clo = 0, chi = 0, brlo = 0, nbr = 0, bclo = 0, nbc = 0;
   if (mode <= 1) {
     int i;
     float t;
-    up_taps(X0, cnw, cwb, &clo, &i, &t);
-    up_taps(X0 + tw - 1, cnw, cwb, &i, &chi, &t);
+    up_taps(GX0, cnw, cwb, &clo, &i, &t);
+    up_taps(GX0 + tw - 1, cnw, cwb, &i, &chi, &t);
     if (mode == 0) {
       up_taps(R0, cnh, chb, &rlo, &i, &t);
       up_taps(R0 + th - 1, cnh, chb, &i, &rhi, &t);
@@ -232,9 +255,19 @@ __global__ void __launch_bounds__(kThreads, 3)
       const int bc = i % kCBlocks, rq = i / kCBlocks;
       const int pl = rq / kCRows, cq = rq - pl * kCRows;
       if (pl < 2 && bc < nbc && cq < nbr * 8) {
-        // the chroma planes start at row hb
-        const int16_t* p = img + (hb + brlo * 8 + cq) * W + pl * cwb +
-                           (bclo + bc) * 8;
+        // the chroma planes start at row hb; a shard's blocks left and
+        // right of its own columns are its halo blocks
+        const int gb = bclo + bc, crow = brlo * 8 + cq;
+        const int16_t* p;
+        if (!kShard) {
+          p = img + (hb + crow) * W + pl * cwb + gb * 8;
+        } else {
+          const int own0 = col0 >> 4, own1 = (col0 + wb) >> 4;
+          const size_t hrow = ((size_t)b * (R - hb) + crow) * 16 + pl * 8;
+          p = gb < own0   ? lh + hrow
+              : gb < own1 ? img + (hb + crow) * W + pl * (W >> 1) + (gb - own0) * 8
+                          : rh + hrow;
+        }
         lc[m] = load8(p);
         cdst[m] = (pl * kCRows + cq) * kCCols + bc * 8;
       }
@@ -343,7 +376,7 @@ __global__ void __launch_bounds__(kThreads, 3)
         const float* up = sc;
         const float* vp = sc + kCRows * kCCols;
         const int hiw = max(cnw - 1, 0);
-        const int jb = (X0 + x - 1) >> 1;
+        const int jb = (GX0 + x - 1) >> 1;
         float cu[4], cv[4];
 #pragma unroll
         for (int m = 0; m < 4; ++m) {
@@ -390,6 +423,23 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 3)
+    from_dct(const int16_t* __restrict__ src, float* __restrict__ out,
+             const int32_t* __restrict__ h, const int32_t* __restrict__ w,
+             int mode, int k, int kcv, int kch, int hb, int wb) {
+  from_dct_tile<false>(src, nullptr, nullptr, out, h, w, mode, k, kcv, kch, hb, wb, 0,
+                       wb);
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+    from_dct_shard(const int16_t* __restrict__ src, const int16_t* __restrict__ lh,
+                   const int16_t* __restrict__ rh, float* __restrict__ out,
+                   const int32_t* __restrict__ h, const int32_t* __restrict__ w,
+                   int mode, int k, int kcv, int kch, int hb, int lw, int col0,
+                   int gwb) {
+  from_dct_tile<true>(src, lh, rh, out, h, w, mode, k, kcv, kch, hb, lw, col0, gwb);
+}
+
 }  // namespace
 
 // src: int16 packed coefficients, 16-byte aligned: [B, hb + hb/2, wb, 1]
@@ -416,5 +466,43 @@ extern "C" int itpu_from_dct(const int16_t* src, float* out, const int32_t* h,
   const dim3 grid((wb + kCols - 1) / kCols, (hb + kRows - 1) / kRows, B);
   from_dct<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       src, out, h, w, mode, k, kcv, kch, hb, wb);
+  return (int)cudaGetLastError();
+}
+
+// The W-shard form: src holds output columns [col0, col0 + lw) of an image
+// whose bucket is wb wide, in the layout of the whole image's entry at
+// width lw ([B, hb + hb/2, lw, 1] in mode 0: Y's lw columns, then U's and
+// V's lw/2 chroma columns side by side); in modes 0 and 1, left and right
+// are int16 [B, hb/2 (mode 0) or hb (mode 1), 16]: the chroma blocks
+// `kernels.dct_halo_blocks` names, U's 8 columns then V's (ignored, and
+// may be null, in modes 2 and 3). out: f32 [B, hb, lw, 3], equal to the
+// whole image's K11 at those columns bit for bit. col0 and lw: multiples
+// of 16 in modes 0 and 1, of 8 and of every plane's block width
+// otherwise. One launch; returns its CUDA error code.
+extern "C" int itpu_from_dct_shard(const int16_t* src, const int16_t* left,
+                                   const int16_t* right, float* out, const int32_t* h,
+                                   const int32_t* w, int mode, int k, int kcv, int kch,
+                                   int B, int hb, int lw, int col0, int wb,
+                                   void* stream) {
+  if (B == 0) return 0;
+  const bool pow2 = (k == 1 || k == 2 || k == 4 || k == 8) &&
+                    (kcv == 1 || kcv == 2 || kcv == 4 || kcv == 8) &&
+                    (kch == 1 || kch == 2 || kch == 4 || kch == 8);
+  const int step = mode <= 1 ? 16 : 8;
+  if (mode < 0 || mode > 3 || !pow2 || lw <= 0 || lw % step || col0 % step ||
+      col0 < 0 || col0 + lw > wb || wb % step || hb % k ||
+      (mode == 2 && (hb % kcv || lw % kch)) || (mode <= 1 && k != 8) ||
+      (mode == 0 && hb % 16) || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (mode <= 1 && (left == nullptr || right == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(left) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(right) & 15) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const dim3 grid((lw + kCols - 1) / kCols, (hb + kRows - 1) / kRows, B);
+  from_dct_shard<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      src, left, right, out, h, w, mode, k, kcv, kch, hb, lw, col0, wb);
   return (int)cudaGetLastError();
 }

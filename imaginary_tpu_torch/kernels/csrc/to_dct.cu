@@ -31,6 +31,13 @@
 //   - IEEE f32 throughout, every product and sum rounded on its own, in
 //     the reference's order; index math is 32-bit inside one image; the
 //     grid is the bands.
+//   - W-shard form (`itpu_to_dct_shard`, the spatial route): the bands
+//     cover the whole MCUs that hold the shard's columns, read from a
+//     window of the input (each column clamped to the valid width, as the
+//     whole image replicates its edge); an MCU that straddles two shards
+//     is computed whole by both and each stores only its own coefficient
+//     columns, into K3's shard packing (Y's columns, then U's and V's
+//     halves side by side).
 // Wider bands (4 or 8 MCUs), 4-pixel loads and whole 8-sum rows a thread
 // were slower at every measured shape on the H100 (more registers a
 // thread, fewer blocks in flight; PERF.md section 6).
@@ -54,12 +61,16 @@ __device__ __forceinline__ float clip255(float v) {
   return fminf(fmaxf(v, 0.0f), 255.0f);
 }
 
-// 2 pixels (6 floats) of one row from pixel x0, as 8-byte vectors; the
-// pixels past xmax replicate pixel xmax
-__device__ __forceinline__ void load2(const float* row, int x0, int xmax,
+// 2 pixels (6 floats) of one row from global pixel x0, as 8-byte vectors
+// (row: the row's pixel k0); the pixels past xmax replicate pixel xmax.
+// kShard: the row may start off an 8-byte boundary (a window of odd
+// width), so the vector path also checks the address.
+template <bool kShard>
+__device__ __forceinline__ void load2(const float* row, int x0, int xmax, int k0,
                                       float* a) {
-  if (x0 + 1 <= xmax) {
-    const float2* p = reinterpret_cast<const float2*>(row + x0 * 3);
+  const float* p0 = row + (x0 - k0) * 3;
+  if (x0 + 1 <= xmax && (!kShard || (reinterpret_cast<uintptr_t>(p0) & 7) == 0)) {
+    const float2* p = reinterpret_cast<const float2*>(p0);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       const float2 v = __ldg(p + i);
@@ -69,7 +80,7 @@ __device__ __forceinline__ void load2(const float* row, int x0, int xmax,
   } else {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float* p = row + min(x0 + i, xmax) * 3;
+      const float* p = row + (min(x0 + i, xmax) - k0) * 3;
       a[3 * i] = __ldg(p);
       a[3 * i + 1] = __ldg(p + 1);
       a[3 * i + 2] = __ldg(p + 2);
@@ -77,12 +88,35 @@ __device__ __forceinline__ void load2(const float* row, int x0, int xmax,
   }
 }
 
+// A shard's store of one 8-coefficient block row whose first column is
+// column `at` of the shard's plane row d (n columns wide): only the
+// columns inside [0, n), as one 16-byte store when the whole row is
+// inside and aligned.
+__device__ __forceinline__ void store_part(int16_t* d, int at, int n, const uint32_t* wd) {
+  if (at >= 0 && at + 8 <= n && (reinterpret_cast<uintptr_t>(d + at) & 15) == 0) {
+    *reinterpret_cast<uint4*>(d + at) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (at + e >= 0 && at + e < n) d[at + e] = (int16_t)(uint16_t)(wd[e >> 1] >> (16 * (e & 1)));
+}
+
 // grid: (bands across, bands down, B); hb and wb multiples of 16.
-__global__ void __launch_bounds__(kThreads)
-    to_dct(const float* __restrict__ in, int16_t* __restrict__ out,
-           const int32_t* __restrict__ h, const int32_t* __restrict__ w,
-           const float* __restrict__ qy, const float* __restrict__ qc,
-           int hb, int wb) {
+//
+// kShard: the W-shard form. It writes the shard's own coefficient columns,
+// Y's [col0, col0 + lw), then U's and V's [col0/2, (col0 + lw)/2) side by
+// side below ([B, hb + hb/2, lw]); its bands cover the whole MCUs [m0,
+// m1) that hold them (a straddling MCU is computed whole and stored in
+// part), and `in` holds the global columns [k0, k0 + kw) of every row
+// (each column the MCUs read, after the clamp to the valid width). The
+// whole image is kShard false: col0 = m0 = k0 = 0 and lw = m1 = kw = wb.
+template <bool kShard>
+__device__ __forceinline__ void to_dct_band(
+    const float* __restrict__ in, int16_t* __restrict__ out,
+    const int32_t* __restrict__ h, const int32_t* __restrict__ w,
+    const float* __restrict__ qy, const float* __restrict__ qc, int hb, int wb,
+    int col0, int lw, int m0, int m1, int k0, int kw) {
   // Y - 128 [16][32], Cb, Cr - 128 [8][16] each; the row pass writes its
   // sums into ty, tc
   __shared__ __align__(16) float sy[kRows][kCols], ty[kRows][kCols];
@@ -91,10 +125,11 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ float bs[8][8];
   __shared__ float qs[2][64];
   const int tid = threadIdx.x;
-  const int X0 = blockIdx.x * kCols, R0 = blockIdx.y * kRows;
+  const int X0 = (kShard ? m0 : 0) + blockIdx.x * kCols, R0 = blockIdx.y * kRows;
   const int b = blockIdx.z;
-  const int tw = min(kCols, wb - X0);
-  const float* img = in + (size_t)b * hb * wb * 3;
+  const int tw = min(kCols, (kShard ? m1 : wb) - X0);
+  const int iw = kShard ? kw : wb;  // the input's row width
+  const float* img = in + (size_t)b * hb * iw * 3;
 
   // rows 2 rp and 2 rp + 1, pixels 2 g and 2 g + 1 of the band
   const int rp = tid / (kCols / 2), g = tid % (kCols / 2);
@@ -102,8 +137,9 @@ __global__ void __launch_bounds__(kThreads)
   float a0[6], a1[6];
   if (has) {
     const int ymax = max(h[b] - 1, 0), xmax = max(w[b] - 1, 0);
-    load2(img + min(R0 + 2 * rp, ymax) * wb * 3, X0 + 2 * g, xmax, a0);
-    load2(img + min(R0 + 2 * rp + 1, ymax) * wb * 3, X0 + 2 * g, xmax, a1);
+    const int kk = kShard ? k0 : 0;
+    load2<kShard>(img + min(R0 + 2 * rp, ymax) * iw * 3, X0 + 2 * g, xmax, kk, a0);
+    load2<kShard>(img + min(R0 + 2 * rp + 1, ymax) * iw * 3, X0 + 2 * g, xmax, kk, a1);
   }
   if (tid < 64) bs[tid >> 3][tid & 7] = idct_basis(3, tid >> 3, tid & 7);
   qs[tid >> 6][tid & 63] = (tid < 64 ? qy : qc)[b * 64 + (tid & 63)];
@@ -178,20 +214,23 @@ __global__ void __launch_bounds__(kThreads)
   // columns, one output row of a block a thread: coef[u][v] = sum_x
   // bs[u][x] * t[x][v] for v = 0..7, quantized and stored as one 16-byte
   // row; items: Y (block, u), then Cb, Cr (plane, block, u)
-  int16_t* oimg = out + (size_t)b * (hb + hb / 2) * wb;
+  const int ow = kShard ? lw : wb;  // the output's row width
+  int16_t* oimg = out + (size_t)b * (hb + hb / 2) * ow;
   for (int i = tid; i < kItems; i += kThreads) {
     const int u = i & 7, nb = i >> 3;
     const float* p;
     const float* q;
     int16_t* d;
-    int stride;
+    int stride, at, n;  // the block row's first column in d's row, d's width
     if (nb < 2 * kBlk) {
       const int br = nb / kBlk, c0 = (nb % kBlk) * 8;
       if (c0 >= tw) continue;
       p = &ty[br * 8][c0];
       stride = kCols;
       q = qs[0] + u * 8;
-      d = oimg + (R0 + br * 8 + u) * wb + X0 + c0;
+      d = oimg + (R0 + br * 8 + u) * ow;
+      at = X0 + c0 - (kShard ? col0 : 0);
+      n = ow;
     } else {
       const int j = nb - 2 * kBlk;  // < 2 * kMcus
       const int pl = j / kMcus, c0 = (j % kMcus) * 8;
@@ -199,7 +238,9 @@ __global__ void __launch_bounds__(kThreads)
       p = &tc[pl][0][c0];
       stride = kCols / 2;
       q = qs[1] + u * 8;
-      d = oimg + (hb + R0 / 2 + u) * wb + pl * (wb / 2) + X0 / 2 + c0;
+      d = oimg + (hb + R0 / 2 + u) * ow + pl * (ow / 2);
+      at = X0 / 2 + c0 - (kShard ? col0 / 2 : 0);
+      n = ow / 2;
     }
     float bu[8], acc[8];
 #pragma unroll
@@ -224,8 +265,26 @@ __global__ void __launch_bounds__(kThreads)
                              32767.0f);
       wd[e] = (uint32_t)(uint16_t)(int16_t)lo | ((uint32_t)(uint16_t)(int16_t)hi << 16);
     }
-    *reinterpret_cast<uint4*>(d) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
+    if (kShard)
+      store_part(d, at, n, wd);
+    else
+      *reinterpret_cast<uint4*>(d + at) = make_uint4(wd[0], wd[1], wd[2], wd[3]);
   }
+}
+
+__global__ void __launch_bounds__(kThreads)
+    to_dct(const float* __restrict__ in, int16_t* __restrict__ out,
+           const int32_t* __restrict__ h, const int32_t* __restrict__ w,
+           const float* __restrict__ qy, const float* __restrict__ qc, int hb, int wb) {
+  to_dct_band<false>(in, out, h, w, qy, qc, hb, wb, 0, wb, 0, wb, 0, wb);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    to_dct_shard(const float* __restrict__ in, int16_t* __restrict__ out,
+                 const int32_t* __restrict__ h, const int32_t* __restrict__ w,
+                 const float* __restrict__ qy, const float* __restrict__ qc, int hb,
+                 int wb, int col0, int lw, int m0, int m1, int k0, int kw) {
+  to_dct_band<true>(in, out, h, w, qy, qc, hb, wb, col0, lw, m0, m1, k0, kw);
 }
 
 }  // namespace
@@ -244,5 +303,30 @@ extern "C" int itpu_to_dct(const float* in, int16_t* out, const int32_t* h,
   const dim3 grid((wb + kCols - 1) / kCols, hb / kRows, B);
   to_dct<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(in, out, h, w, qy,
                                                                    qc, hb, wb);
+  return (int)cudaGetLastError();
+}
+
+// The W-shard form: the shard's output columns [col0, col0 + lw) of a
+// bucket wb wide (col0 and lw even). in: f32 [B, hb, kw, 3], the global
+// columns [k0, k0 + kw) of the input, which must hold every column
+// min(x, w - 1) for x in the whole MCUs [16 floor(col0 / 16), 16 ceil((col0
+// + lw) / 16)); out: int16 [B, hb + hb/2, lw], the shard's Y columns, then
+// its U and V columns side by side, equal to the whole image's K12 at
+// those columns bit for bit. One launch.
+extern "C" int itpu_to_dct_shard(const float* in, int16_t* out, const int32_t* h,
+                                 const int32_t* w, const float* qy, const float* qc,
+                                 int B, int hb, int wb, int col0, int lw, int k0, int kw,
+                                 void* stream) {
+  if (B == 0) return 0;
+  if (hb % 16 || wb % 16 || B > 65535 || lw <= 0 || lw % 2 || col0 % 2 || col0 < 0 ||
+      col0 + lw > wb || kw <= 0 || k0 < 0 || k0 + kw > wb)
+    return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(in) & 3) != 0 ||
+      (reinterpret_cast<uintptr_t>(out) & 1) != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const int m0 = col0 & ~15, m1 = (col0 + lw + 15) & ~15;
+  const dim3 grid((m1 - m0 + kCols - 1) / kCols, hb / kRows, B);
+  to_dct_shard<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      in, out, h, w, qy, qc, hb, wb, col0, lw, m0, m1, k0, kw);
   return (int)cudaGetLastError();
 }

@@ -106,9 +106,10 @@ def resample(x, h, w, dst_h, dst_w, out_hb: int, out_wb: int, kind: str,
             dst_w.to(torch.int32))
 
 
-def _chroma_up_indices(out_n: int, cn: torch.Tensor, chroma_b: int):
-    """(i0, i1 [B, out_n], t [out_n]) of stages.py:_chroma_up_indices."""
-    r = torch.arange(out_n, dtype=torch.float32, device=cn.device)
+def _chroma_up_indices(out_n: int, cn: torch.Tensor, chroma_b: int, pos0: int = 0):
+    """(i0, i1 [B, out_n], t [out_n]) of stages.py:_chroma_up_indices, at
+    luma positions [pos0, pos0 + out_n)."""
+    r = torch.arange(pos0, pos0 + out_n, dtype=torch.float32, device=cn.device)
     pos = r * 0.5 - 0.25
     i0f = torch.floor(pos)
     t = pos - i0f
@@ -589,12 +590,22 @@ def idct_basis(k: int, device=None) -> torch.Tensor:
 
 
 def _idct(plane: torch.Tensor, kv: int, kh: int) -> torch.Tensor:
-    """Per-block k-point IDCT of plane [B, ph, pw] (kv x kh blocks), +128."""
+    """Per-block k-point IDCT of plane [B, ph, pw] (kv x kh blocks), +128:
+    the reference's einsum "brucv,ux,vz->brxcz" summed over v, then over
+    u, each in index order from 0 with every product and sum rounded on
+    its own, as K11 sums. Elementwise tensor ops only, so a block's
+    samples never depend on the plane's size (a W-shard's IDCT equals the
+    whole image's bit for bit)."""
     bsz, ph, pw = plane.shape
     bv = idct_basis(kv, plane.device)
     bh = idct_basis(kh, plane.device)
     blk = plane.reshape(bsz, ph // kv, kv, pw // kh, kh)
-    out = torch.einsum("brucv,ux,vz->brxcz", blk, bv, bh)
+    t = torch.zeros_like(blk)
+    for v in range(kh):
+        t = t + blk[..., v:v + 1] * bh[v]
+    out = torch.zeros_like(blk)
+    for u in range(kv):
+        out = out + bv[u][:, None, None] * t[:, :, u:u + 1]
     return out.reshape(bsz, ph, pw) + 128.0
 
 
@@ -629,35 +640,145 @@ def from_dct(x: torch.Tensor, h, w, hb: int, wb: int, k: int,
                        _idct(xf[..., 2], 2 * k, 2 * k) - 128.0)
 
 
+def dct_halo_blocks(col0: int, lw: int, w, wb: int) -> tuple:
+    """The chroma blocks (global 8-column block indices of U's and V's
+    planes) K11's W-shard form takes as its left and right halos at 4:2:0
+    and 4:2:2, k = 8, for output columns [col0, col0 + lw) of a bucket wb
+    wide whose valid width is w (an int, or an int tensor [B]): the blocks
+    beside its own, each clamped to the block that holds the valid chroma
+    edge hi = (w + 1) / 2 - 1, so that every chroma column the shard's taps
+    read after the clamp to [0, hi] lies in its window (a shard wholly past
+    the valid width reads column hi alone, in its left halo block).
+    csrc/from_dct.cu maps the blocks the same way."""
+    if isinstance(w, torch.Tensor):
+        hi = torch.clamp(torch.clamp((w.long() + 1) // 2 - 1, min=0), max=wb // 2 - 1)
+        last = hi // 8
+        return (torch.clamp(torch.minimum(torch.full_like(last, col0 // 16 - 1), last), min=0),
+                torch.minimum(torch.full_like(last, (col0 + lw) // 16), last))
+    hi = min(max((int(w) + 1) // 2 - 1, 0), wb // 2 - 1)
+    return max(min(col0 // 16 - 1, hi // 8), 0), min((col0 + lw) // 16, hi // 8)
+
+
+def from_dct_shard(x: torch.Tensor, left, right, h, w, hb: int, lw: int, k: int,
+                   layout: str, col0: int, wb: int) -> torch.Tensor:
+    """K11's W-shard form: the shard's packed coefficients (`from_dct`'s
+    layout at width lw, holding output columns [col0, col0 + lw) of a
+    bucket wb wide) and, at 4:2:0 and 4:2:2 with k = 8, its chroma halos
+    [B, chroma rows, 16, 1] (U's block `dct_halo_blocks` names, then V's)
+    -> f32 RGB [B, hb, lw, 3], equal to `from_dct`'s columns [col0, col0 +
+    lw) bit for bit. The other layouts are column-local: `from_dct` on
+    the shard's own blocks. At k = 8 the window [left block, own columns,
+    right block] of each chroma plane is transformed, and each pixel takes
+    the whole image's clamped taps, mapped into the window."""
+    if not (k == 8 and layout in ("420", "422")):
+        return from_dct(x, h, w, hb, lw, k, layout)
+    xf = x.float()
+    cw = lw // 2
+    y = _idct(xf[:, :hb, :, 0], 8, 8)
+
+    def window(p):
+        own = xf[:, hb:, p * cw:(p + 1) * cw, 0]
+        lf = left[:, :, p * 8:(p + 1) * 8, 0].float()
+        rf = right[:, :, p * 8:(p + 1) * 8, 0].float()
+        return _idct(torch.cat([lf, own, rf], dim=2), 8, 8)
+
+    lo, hi_blk = dct_halo_blocks(col0, lw, w, wb)
+    j0g, j1g, s = _chroma_up_indices(lw, (w.long() + 1) // 2, wb // 2, col0)
+    a, b = col0 // 2, (col0 + lw) // 2
+
+    def to_window(j):
+        return torch.where(j < a, j - 8 * lo[:, None],
+                           torch.where(j < b, 8 + j - a, 8 + cw + j - 8 * hi_blk[:, None]))
+
+    j0, j1 = to_window(j0g), to_window(j1g)
+    u, v = window(0), window(1)
+    if layout == "420":
+        i0, i1, t = _chroma_up_indices(hb, (h.long() + 1) // 2, hb // 2)
+    else:
+        i0 = i1 = t = None
+    return _ycc_to_rgb(y, _up2(u, i0, i1, t, j0, j1, s) - 128.0,
+                       _up2(v, i0, i1, t, j0, j1, s) - 128.0)
+
+
+def _pool2(c: torch.Tensor) -> torch.Tensor:
+    """The plain 2x2 mean of c [B, H, W]: ((a + b) + c) + d, then * 0.25
+    (the same number as / 4), in K12's order."""
+    q = c.reshape(c.shape[0], c.shape[1] // 2, 2, c.shape[2] // 2, 2)
+    return (((q[:, :, 0, :, 0] + q[:, :, 0, :, 1]) + q[:, :, 1, :, 0])
+            + q[:, :, 1, :, 1]) * 0.25
+
+
+def _to_dct_replicated(x: torch.Tensor, qy, qc, hb: int, wb: int) -> torch.Tensor:
+    """K12 on f32 RGB [B, hb, wb, 3] whose bucket padding already
+    replicates the valid edge: BT.601, the 2x2 chroma mean, the 8x8 FDCT
+    (the reference's einsum "brxcz,ux,vz->brucv" summed over z, then over
+    x, in index order, each product and sum rounded on its own, as K12
+    sums: a block's coefficients never depend on the buffer's size), the
+    division by qy / qc and the round half to even -> int16 [B, hb + hb/2,
+    wb, 1]."""
+    bsz = x.shape[0]
+    x = torch.clamp(x, 0.0, 255.0)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
+    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
+    basis = idct_basis(8, x.device)
+
+    def fdct_q(plane, q, ph, pw):
+        blk = plane.reshape(bsz, ph // 8, 8, pw // 8, 8) - 128.0
+        t = torch.zeros_like(blk)
+        for z in range(8):
+            t = t + blk[..., z:z + 1] * basis[:, z]
+        coef = torch.zeros_like(blk)
+        for k in range(8):
+            coef = coef + basis[:, k][:, None, None] * t[:, :, k:k + 1]
+        q = q.float()[:, None, :, None, :]
+        return torch.round(coef / q).reshape(bsz, ph, pw)
+
+    bottom = torch.cat([fdct_q(_pool2(cb), qc, hb // 2, wb // 2),
+                        fdct_q(_pool2(cr), qc, hb // 2, wb // 2)], dim=2)
+    packed = torch.cat([fdct_q(y, qy, hb, wb), bottom], dim=1)[..., None]
+    return torch.clamp(packed, -32768.0, 32767.0).to(torch.int16)
+
+
+def _replicate(x: torch.Tensor, h, w, hb: int, c0: int, c1: int, k0: int) -> torch.Tensor:
+    """Columns [c0, c1) and rows [0, hb) of an image whose valid pixels
+    replicate outward (each index clamped to h - 1, w - 1), from x, which
+    holds the global columns [k0, k0 + x.shape[2])."""
+    dev = x.device
+    iy = torch.minimum(torch.arange(hb, device=dev)[None, :],
+                       torch.clamp(h.long() - 1, min=0)[:, None])
+    ix = torch.minimum(torch.arange(c0, c1, device=dev)[None, :],
+                       torch.clamp(w.long() - 1, min=0)[:, None]) - k0
+    if bool((ix < 0).any()) or bool((ix >= x.shape[2]).any()):
+        raise ValueError(f"columns [{c0}, {c1}) read outside the window "
+                         f"[{k0}, {k0 + x.shape[2]})")
+    bidx = torch.arange(x.shape[0], device=dev)[:, None, None]
+    return x.float()[bidx, iy[:, :, None], ix[:, None, :]]
+
+
 def to_dct(x: torch.Tensor, h, w, qy, qc, hb: int, wb: int) -> torch.Tensor:
     """K12's function (stages.py:ToDctSpec + the int16 drain of
     chain.py:_run_chain): f32 RGB [B, hb, wb, 3] -> quantized int16
     [B, hb + hb/2, wb, 1] coefficients (Y above, U|V below), edges
     replicated, chroma the plain 2x2 mean, 8x8 FDCT, divided by the
     per-image qy / qc [B, 8, 8] and rounded half to even."""
-    bsz = x.shape[0]
-    dev = x.device
-    iy = torch.minimum(torch.arange(hb, device=dev)[None, :],
-                       torch.clamp(h.long() - 1, min=0)[:, None])
-    ix = torch.minimum(torch.arange(wb, device=dev)[None, :],
-                       torch.clamp(w.long() - 1, min=0)[:, None])
-    bidx = torch.arange(bsz, device=dev)[:, None, None]
-    x = torch.clamp(x.float()[bidx, iy[:, :, None], ix[:, None, :]], 0.0, 255.0)
-    r, g, b = x[..., 0], x[..., 1], x[..., 2]
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = -0.168736 * r - 0.331264 * g + 0.5 * b + 128.0
-    cr = 0.5 * r - 0.418688 * g - 0.081312 * b + 128.0
-    cbp = cb.reshape(bsz, hb // 2, 2, wb // 2, 2).mean(dim=(2, 4))
-    crp = cr.reshape(bsz, hb // 2, 2, wb // 2, 2).mean(dim=(2, 4))
-    basis = idct_basis(8, dev)
+    return _to_dct_replicated(_replicate(x, h, w, hb, 0, wb, 0), qy, qc, hb, wb)
 
-    def fdct_q(plane, q, ph, pw):
-        blk = plane.reshape(bsz, ph // 8, 8, pw // 8, 8) - 128.0
-        coef = torch.einsum("brxcz,ux,vz->brucv", blk, basis, basis)
-        q = q.float()[:, None, :, None, :]
-        return torch.round(coef / q).reshape(bsz, ph, pw)
 
-    bottom = torch.cat([fdct_q(cbp, qc, hb // 2, wb // 2),
-                        fdct_q(crp, qc, hb // 2, wb // 2)], dim=2)
-    packed = torch.cat([fdct_q(y, qy, hb, wb), bottom], dim=1)[..., None]
-    return torch.clamp(packed, -32768.0, 32767.0).to(torch.int16)
+def to_dct_shard(x: torch.Tensor, h, w, qy, qc, hb: int, lw: int, col0: int,
+                 k0: int, wb: int) -> torch.Tensor:
+    """K12's W-shard form: x f32 [B, hb, kw, 3] holds the input's global
+    columns [k0, k0 + kw), every column the whole MCUs [16 floor(col0 /
+    16), 16 ceil((col0 + lw) / 16)) read after the clamp to w - 1 -> the
+    shard's own coefficients int16 [B, hb + hb/2, lw, 1]: Y's columns
+    [col0, col0 + lw), then U's and V's [col0/2, (col0 + lw)/2) side by
+    side, equal to `to_dct`'s bit for bit. The MCUs are computed whole
+    and their columns outside the shard dropped."""
+    m0, m1 = col0 // 16 * 16, -(-(col0 + lw) // 16) * 16
+    full = _to_dct_replicated(_replicate(x, h, w, hb, m0, m1, k0), qy, qc, hb, m1 - m0)
+    half, a, cw = (m1 - m0) // 2, (col0 - m0) // 2, lw // 2
+    bottom = full[:, hb:]
+    return torch.cat([full[:, :hb, col0 - m0:col0 - m0 + lw],
+                      torch.cat([bottom[:, :, a:a + cw], bottom[:, :, half + a:half + a + cw]],
+                                dim=2)], dim=1)

@@ -534,11 +534,13 @@ def spatial_split(specs, hb: int, wb: int, n: int) -> tuple:
     when every one does). From gather_at on, the chain runs on the row's
     first entry after an explicit gather of the shards.
 
-    A stage runs W-sharded when it has a W-shard form (`shard_ok`, see
-    `stages._ShardForm`: K2 as the first sharded stage and K3 on shards of
-    even width, K13 with a radius below the local width, the smartcrop on
-    an input that splits into whole row-scan segments, every other stage
-    but K11's and K12's) and its output width splits evenly over n."""
+    A stage runs W-sharded when its W-shard form takes the shard
+    (`shard_ok`, see `stages._ShardForm`: K2 and K11 only as the first
+    sharded stage, K2 and K3 on shards of even width, K11 on whole MCUs
+    (`kernels.dct_shard_step`), K12 on shards of even width, K13 with a
+    radius below the local width, the smartcrop on an input that splits
+    into whole row-scan segments, every other stage always) and its
+    output width splits evenly over n."""
     sharded = []
     for i in live_stages(specs, hb, wb):
         spec = specs[i]
@@ -600,12 +602,15 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
     The live stages `spatial_split` admits run W-sharded: shard j owns
     output columns [j lw, (j + 1) lw) of each stage. The first sharded
     stage's input comes from the host in each shard's own H2D (its
-    `shard_input`: K2's packed columns with their chroma halos, K1's and
-    K4's input windows, a transpose's row band, else the shard's columns
-    and, for K13 and the smartcrop, its halos). Each stage runs over the
-    row through its `run_shards`: a later stage that reads other columns
-    than its own gets them from the shards that hold them first (a window,
-    `shard_window`: K1's taps, K4's index maps, the flop's mirror, through
+    `shard_input`: K2's packed columns with their chroma halos, K11's
+    packed coefficient columns with, at 4:2:0 and 4:2:2, k = 8, a whole
+    8x8 chroma block of halo on each side, K1's and K4's input windows, a
+    transpose's row band, else the shard's columns and, for K13 and the
+    smartcrop, its halos), never from the device frame tier. Each stage
+    runs over the row through its `run_shards`: a later stage that reads
+    other columns than its own gets them from the shards that hold them
+    first (a window, `shard_window`: K1's taps, K4's index maps, the
+    flop's mirror, K12's whole MCUs, through
     `parallel/spatial.exchange_window`; a halo (K13) through
     `exchange_halos`; a transpose's row bands through `exchange_bands`),
     then runs its `apply_shard` on each shard (the smartcrop's form runs
@@ -614,12 +619,15 @@ def launch_spatial(arr: np.ndarray, plan: ImagePlan, row, streams=None, trace=No
     `shard_dyn` (K7: `left` less the shard's first column); a GraySpec
     right before the ToYuv420Spec folds into that stage's launch on each
     shard (`launch_steps`; its dyn carries `luma`).
-    A stage without a W-sharded form gathers the shards onto the row's
-    first entry by an explicit copy (`SpatialLaunch.gathered` names it)
-    and the rest of the chain runs there. The last stage writes uint8
-    (epilogue fused); each shard copies its output back on its own stream
-    into one pinned host buffer and records its own event, and the last
-    stage's `shard_assemble` puts the shards together on the fetch.
+    A stage whose form refuses the shard gathers the shards onto the
+    row's first entry by an explicit copy (`SpatialLaunch.gathered` names
+    it) and the rest of the chain runs there. The last stage writes uint8
+    (epilogue fused), or K12's int16 coefficients; each shard copies its
+    output back on its own stream into one pinned host buffer of that
+    dtype and records its own event, and the last stage's
+    `shard_assemble` puts the shards together on the fetch (K3's and
+    K12's shards as the packed planes, which `finish_batch` reads as the
+    unsharded launch's).
 
     trace: None, or a list that gets (stage index, shard index, spec,
     apply_shard's arguments, its output) for every sharded launch of every

@@ -16,14 +16,17 @@ last kernel writes into (the chain runner's buffer donation). Every
 stage runs one or more of the port's CUDA kernels on a CUDA tensor and
 their plain versions on a CPU tensor (`kernels/`).
 
-Every stage but K11's and K12's has a W-shard form: it also carries the
-spatial route's side of it (`_ShardForm`), and `ops/chain.launch_spatial`
-drives it through that alone. A form reads its own columns (K8, K7, K3,
-K5's flip), a halo (K13), a window exchanged from the shards that hold
-it (K1, K4 in every mode, K5's flop), a row band from every shard (K5's
-transpose), or, for the smartcrop (K9 -> K10 -> K4), halos, every
-shard's segment totals, an integral-image window, every shard's best key
-and an image window in turn (`SmartExtractSpec.run_shards`).
+Every stage has a W-shard form: it also carries the spatial route's side
+of it (`_ShardForm`), and `ops/chain.launch_spatial` drives it through
+that alone. A form reads its own columns (K8, K7, K3, K5's flip, K11 in
+its three-plane and gray layouts), the host's packed columns with chroma
+halos (K2; K11 at 4:2:0 and 4:2:2, k = 8, whose halos are whole 8x8
+chroma blocks), a halo (K13), a window exchanged from the shards that
+hold it (K1, K4 in every mode, K5's flop, K12's whole MCUs), a row band
+from every shard (K5's transpose), or, for the smartcrop (K9 -> K10 ->
+K4), halos, every shard's segment totals, an integral-image window,
+every shard's best key and an image window in turn
+(`SmartExtractSpec.run_shards`).
 """
 
 from __future__ import annotations
@@ -507,7 +510,7 @@ class FromYuv420Spec(_ShardForm):
 
 
 @dataclasses.dataclass(frozen=True)
-class FromDctSpec:
+class FromDctSpec(_ShardForm):
     """Scaled k-point IDCT of the packed DCT-coefficient buffer (int16
     dequantized, frequency-folded coefficients from codecs/jpeg_dct.py)
     into RGB, with the 4:2:0 / 4:2:2 chroma upsample at k = 8 (kernel
@@ -522,6 +525,47 @@ class FromDctSpec:
         if out_u8:
             raise ValueError("FromDctSpec cannot end a chain")
         return kernels.from_dct(x, h, w, self.hb, self.wb, self.k, self.layout), h, w
+
+    @property
+    def _upsampled(self) -> bool:
+        return self.k == 8 and self.layout in ("420", "422")
+
+    def shard_ok(self, lw, first, in_wb, n):
+        # it reads the packed host buffer; a shard holds whole MCUs
+        return first and lw % kernels.dct_shard_step(self.layout, self.k) == 0
+
+    def shard_input(self, img, c0, c1, w, dyn):
+        """The shard's packed coefficients in `from_dct`'s layout at width
+        lw (the three-plane and gray layouts: its own columns) and, at
+        4:2:0 and 4:2:2 with k = 8, its Y columns, then U's and V's chroma
+        columns [c0/2, c1/2), with halos of one whole chroma block of U and
+        of V on each side ([chroma rows, 16, 1]): a chroma sample next to
+        the shard needs its block's whole IDCT row. Each halo block is the
+        neighbour clamped to the block that holds the valid chroma edge
+        (`kernels.dct_halo_blocks`), so a shard past the valid width gets
+        the columns the clamp reaches."""
+        if not self._upsampled:
+            return img[:, c0:c1], None, None, c0
+        hb, cwb, lw = self.hb, self.wb // 2, c1 - c0
+        lo, hi = kernels.dct_halo_blocks(c0, lw, w, self.wb)
+        img = img[..., 0]  # row copies of a 2-D view run as block copies
+        ch = img.shape[0] - hb
+        x = np.empty((hb + ch, lw), dtype=img.dtype)
+        x[:hb] = img[:hb, c0:c1]
+        left = np.empty((ch, 16), dtype=img.dtype)
+        right = np.empty((ch, 16), dtype=img.dtype)
+        for p, base in enumerate((0, cwb)):
+            x[hb:, p * lw // 2:(p + 1) * lw // 2] = img[hb:, base + c0 // 2:base + c1 // 2]
+            left[:, p * 8:(p + 1) * 8] = img[hb:, base + 8 * lo:base + 8 * lo + 8]
+            right[:, p * 8:(p + 1) * 8] = img[hb:, base + 8 * hi:base + 8 * hi + 8]
+        return x[..., None], left[..., None], right[..., None], c0
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        if out_u8:
+            raise ValueError("FromDctSpec cannot end a chain")
+        return impl.from_dct_shard(x, left, right, h, w, self.hb, lw, self.k, self.layout,
+                                   col0, self.wb), h, w
 
 
 @dataclasses.dataclass(frozen=True)
@@ -568,7 +612,7 @@ class ToYuv420Spec(_ShardForm):
 
 
 @dataclasses.dataclass(frozen=True)
-class ToDctSpec:
+class ToDctSpec(_ShardForm):
     """Forward DCT + quantize RGB into the packed egress coefficient buffer
     [B, hb + hb/2, wb, 1] int16, rounded half to even and clamped (kernel
     K12). dyn: qy, qc (f32 [B, 8, 8], the quality-scaled steps)."""
@@ -586,6 +630,28 @@ class ToDctSpec:
             raise ValueError("ToDctSpec must end its chain")
         return kernels.to_dct(x, h, w, dyn["qy"], dyn["qc"], self.hb, self.wb,
                               **_out_kw(out)), h, w
+
+    def shard_ok(self, lw, first, in_wb, n):
+        # a chroma column covers two pixels; an MCU may straddle two shards
+        return not first and lw % 2 == 0
+
+    def shard_window(self, c0, c1, in_w, in_wb, dyn):
+        """The whole MCUs [16 floor(c0/16), 16 ceil(c1/16)) that hold the
+        shard's coefficients, each column clamped to in_w - 1 as K12
+        replicates the valid edge outward: a shard wholly past the valid
+        width reads column in_w - 1 alone."""
+        m0, m1 = c0 // 16 * 16, -(-c1 // 16) * 16
+        return min(m0, in_w - 1), min(m1, in_w)
+
+    def apply_shard(self, x, left, right, h, w, dyn, col0, lw, in_col0, in_wb,
+                    out_u8, impl=kernels):
+        if not out_u8:
+            raise ValueError("ToDctSpec must end its chain")
+        return impl.to_dct_shard(x, h, w, dyn["qy"], dyn["qc"], self.hb, lw, col0,
+                                 in_col0, self.wb), h, w
+
+    # its shards hold K3's packing of their own columns
+    shard_assemble = ToYuv420Spec.shard_assemble
 
 
 @dataclasses.dataclass(frozen=True)
