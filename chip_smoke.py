@@ -13,8 +13,11 @@ Phases, in order; any failure raises and exits non-zero:
    DCT transport (g++), with the time each took;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (config 1: B=1 and B=16; config 2's orientation
-   kernel: the /rotate chain's 1080p buckets at B=1 and B=32, and uint8
-   input; K1, K2 and K3 at config 2's B=32 shapes; config 3's K1 on the
+   kernel: the /rotate chain's 1080p buckets at B=1 and B=32 in each
+   single mode and as the runs it launches once (rotate=90, 180 and 270,
+   EXIF 7), each run also bit-equal to its stages launched one by one and
+   timed beside them, uint8 in and out, and its W-shard forms over four
+   shards of the 4K frame beside the whole kernel; K1, K2 and K3 at config 2's B=32 shapes; config 3's K1 on the
    4K PNG's uint8 [1, 2560, 4096, 3] bucket, and in its W-shard form over
    four shards (each shard's input window alone, bit-equal to the whole
    launch's columns; also to width 800, whose 200-column shards end
@@ -94,8 +97,10 @@ Phases, in order; any failure raises and exits non-zero:
    /resize of the EXIF-rotated tests/testdata/exif-orient-6.jpg at equal
    weights (the smoke's own mix, chosen, not measured traffic), in two
    timed windows with the launch counters set to 0 just before and read
-   just after: every answer 200 image/jpeg of the expected size, batches
-   formed (largest group at least 2), every request's decoded planes
+   just after: each route served alone first, its launches equal to its
+   plan's (one K5 launch a /rotate and one an EXIF-6 /resize: the
+   orientation fold), every answer 200 image/jpeg of the expected size,
+   batches formed (largest group at least 2), every request's decoded planes
    within 1 LSB of the same request served alone; requests per second by
    window, p50/p99 latency, items per batch, and the card's busy share
    over a fourth, profiled window;
@@ -819,6 +824,19 @@ ORIENT_CASES = (("transpose", (1152, 2048, 3)), ("flop", (2048, 1152, 3)),
 ORIENT_BATCHES = (1, 32)
 ORIENT_FRAMES = ((1, 1088, 1920, 3), (32, 1088, 1920, 3))  # the 1080p frame, f32
 ORIENT_U8 = (4, 1088, 1920, 4)  # uint8 input (the RGB transport's first stage)
+# the runs of orientation stages K5 launches as one (rotate=90, 180 and
+# 270, and EXIF 7's three stages) on the /rotate chain's 1080p bucket
+ORIENT_RUNS = (("rotate90", ("transpose", "flop")), ("rotate180", ("flip", "flop")),
+               ("rotate270", ("transpose", "flip")),
+               ("exif7", ("transpose", "flip", "flop")))
+ORIENT_RUN_SHAPE = (1152, 2048, 3)
+# what the kernels line gives of each folded run at B = 32
+RUN_KEYS = ("ms", "plain_ms", "bound_ms", "unfolded_launches", "unfolded_ms")
+# K5's W-shard forms over four shards of the 4K JPEG's f32 [1, 2176, 3840,
+# 3] K2 output: the flop's windows and the flip's own columns (/flop and
+# /flip), and the transpose's row bands (/rotate)
+ORIENT_4K = (1, 2176, 3840, 3)
+ORIENT_SHARDS = 4
 SHRINK_IN, SHRINK_OUT = (2048, 1152, 3), (1920, 1088)  # /rotate's bucket shrink
 ROTATE_IN_BUCKET = (1152, 2048)  # /rotate's decode bucket (K2's RGB output)
 CONFIG2_BATCH = 32
@@ -839,9 +857,11 @@ def valid_dims(bsz: int, hb: int, wb: int, dev):
 
 def orient_phase(res: dict) -> None:
     """K5 against its plain version, exact, and timed at the /rotate
-    chain's shapes; the library call for the transpose is
-    permute(0, 2, 1, 3).contiguous(). Flip and flop inside per-image valid
-    dims have no single PyTorch call, so their library_ms is null."""
+    chain's shapes, one stage a launch; the library call for the transpose
+    is permute(0, 2, 1, 3).contiguous(). Flip and flop inside per-image
+    valid dims have no single PyTorch call, so their library_ms is null.
+    Then the runs of stages as one launch and the W-shard forms
+    (`orient_runs_phase`)."""
     import torch
 
     from imaginary_tpu_torch import kernels
@@ -886,6 +906,7 @@ def orient_phase(res: dict) -> None:
         del x, xu
     log("  orient: flip and flop have no single-call library equivalent "
         "(mirror inside per-image valid dims): library_ms null")
+    orient_runs_phase(res, gen)
     # K4's window at no offset on /rotate: the flopped [B, 2048, 1152, 3]
     # sliced to the [B, 1920, 1088, 3] output bucket; one library call
     # computes the same function
@@ -908,6 +929,97 @@ def orient_phase(res: dict) -> None:
                lambda x=x: reference.gather(x, ohb, owb, mode="window"),
                lib, got.numel() * 4 * 2, 0.0)
         del x, got, want
+
+
+def orient_runs_phase(res: dict, gen) -> None:
+    """K5's folded runs (ORIENT_RUNS) at ORIENT_BATCHES on the /rotate
+    chain's bucket, each exact against its plain version and against this
+    tree's single modes launched one after the other (the unfolded chain),
+    timed beside both; the runs in uint8 in and out; the W-shard forms at
+    the 4K shards (ORIENT_4K) beside the whole-image kernel."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+
+    dev = torch.device(DEVICE)
+
+    def unfolded(x, h, w, names):
+        for m in names:
+            x = kernels.orient(x, h, w, m)
+            if m == "transpose":
+                h, w = w, h
+        return x
+
+    for bsz in ORIENT_BATCHES:
+        x = torch.rand((bsz, *ORIENT_RUN_SHAPE), generator=gen, device=dev) * 255.0
+        h, w = valid_dims(bsz, *ORIENT_RUN_SHAPE[:2], dev)
+        for name, names in ORIENT_RUNS:
+            case = f"B{bsz}-{name}"
+            got = kernels.orient_run(x, h, w, names)
+            check("orient", got, reference.orient_run(x, h, w, names), res, case, 0.0)
+            if not torch.equal(got, unfolded(x, h, w, names)):
+                raise AssertionError(f"orient [{case}]: the run differs from its stages")
+            timing(res, "orient", case,
+                   lambda x=x, h=h, w=w, names=names: kernels.orient_run(x, h, w, names),
+                   lambda x=x, h=h, w=w, names=names: reference.orient_run(x, h, w, names),
+                   None, x.numel() * 4 + got.numel() * 4, 0.0)
+            row = res["orient"][case]
+            row["unfolded_launches"] = len(names)
+            row["unfolded_ms"] = device_ms(lambda x=x, h=h, w=w, names=names:
+                                           unfolded(x, h, w, names))
+            log(f"  orient         {case:16s} {len(names)} stages as one launch "
+                f"{row['ms']:.4f} ms, unfolded {row['unfolded_ms']:.4f} ms "
+                f"(bound {row['bound_ms']:.4f} ms)")
+            del got
+        del x
+    bsz, hb, wb, c = ORIENT_U8
+    xu = torch.randint(0, 256, ORIENT_U8, generator=gen, device=dev, dtype=torch.uint8)
+    h, w = valid_dims(bsz, hb, wb, dev)
+    for name, names in ORIENT_RUNS:
+        for out_u8 in (False, True):
+            check("orient", kernels.orient_run(xu, h, w, names, out_u8),
+                  reference.orient_run(xu, h, w, names, out_u8), res,
+                  f"u8-{'u8' if out_u8 else 'f32'}-{name}", 0.0)
+    del xu
+    # the W-shard forms: shard j of n owns output columns [j lw, (j + 1) lw)
+    x = torch.rand(ORIENT_4K, generator=gen, device=dev) * 255.0
+    one, hb, wb, c = ORIENT_4K
+    h = torch.tensor([2160], dtype=torch.int32, device=dev)
+    w = torch.tensor([wb], dtype=torch.int32, device=dev)
+    n = ORIENT_SHARDS
+    lw = wb // n
+    # /flop: shard j's window is the mirrored input columns [wb - (j + 1) lw,
+    # wb - j lw), its first column in_col0
+    wins = [(x[:, :, wb - (j + 1) * lw:wb - j * lw].contiguous(), j * lw, wb - (j + 1) * lw)
+            for j in range(n)]
+    cols = [x[:, :, j * lw:(j + 1) * lw].contiguous() for j in range(n)]
+    bands = [x[:, j * (hb // n):(j + 1) * (hb // n)].contiguous() for j in range(n)]
+    forms = {
+        "shard-flop": (lambda: [kernels.flop_shard(xs, h, w, c0, lw, k0) for xs, c0, k0 in wins],
+                       lambda: [reference.flop_shard(xs, h, w, c0, lw, k0)
+                                for xs, c0, k0 in wins],
+                       lambda: kernels.orient(x, h, w, "flop"), torch.cat),
+        "shard-flip": (lambda: [kernels.orient(xs, h, w, "flip") for xs in cols],
+                       lambda: [reference.orient(xs, h, w, "flip") for xs in cols],
+                       lambda: kernels.orient(x, h, w, "flip"), torch.cat),
+        "shard-transpose": (lambda: [kernels.orient(b, h, w, "transpose") for b in bands],
+                            lambda: [reference.orient(b, h, w, "transpose") for b in bands],
+                            lambda: kernels.orient(x, h, w, "transpose"), torch.cat),
+    }
+    for case, (fn, plain, whole, cat) in forms.items():
+        got = fn()
+        check_all("orient", list(zip(got, plain())), res, f"4K-{case}", 0.0)
+        if not torch.equal(cat(got, dim=2), whole()):
+            raise AssertionError(f"orient [4K-{case}]: the shards differ from the whole kernel")
+        timing(res, "orient", f"4K-{case}", fn, plain, None, x.numel() * 8, 0.0)
+        row = res["orient"][f"4K-{case}"]
+        row["shards"] = n
+        row["whole_ms"] = device_ms(whole)
+        log(f"  orient         4K-{case:13s} {n} shards {row['ms']:.4f} ms, the whole kernel "
+            f"{row['whole_ms']:.4f} ms (bound {row['bound_ms']:.4f} ms)")
+        del got
+    del x, wins, cols, bands
 
 
 def config2_kernel_phase(rng, res: dict) -> None:
@@ -2124,11 +2236,13 @@ def config2_phase() -> dict:
         for path, src, _ in CONFIG2_REQUESTS:
             http(port, path, bodies[src])
         alone = []
+        kernels.reset_launches()
         for path, src, dims in CONFIG2_REQUESTS:
             status, ctype, body = http(port, path, bodies[src])
             if (status, ctype) != (200, "image/jpeg"):
                 raise AssertionError(f"{path} alone: {status} {ctype}")
             alone.append((body, decoded_planes(codecs, body, dims)))
+        alone_launches = kernels.launch_counts()
         PHASE6_ANSWERS[:] = [body for body, _ in alone]  # phase 16(g)'s reference
         items0, batches0 = ex.stats.items, ex.stats.batches
         reqs = [(path, bodies[src]) for path, src, _ in CONFIG2_REQUESTS]
@@ -2153,6 +2267,19 @@ def config2_phase() -> dict:
     for name in CONFIG2_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on config 2's path")
+    # each route served alone launches its plan's kernels: one K5 for the
+    # /rotate's transpose and flop, one for the EXIF-6 /resize's (the fold)
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    for path, src, _ in CONFIG2_REQUESTS:
+        op, _, q = path[1:].partition("?")
+        arr, p = request_plan(bodies[src], op, dict(urllib.parse.parse_qsl(q)))
+        for k, v in expected_launches(p, arr).items():
+            want[k] += v
+    if alone_launches != want or want["orient"] != ROTATE_ORIENT + EXIF6_ORIENT:
+        raise AssertionError(f"config 2's routes alone launched {alone_launches}, the plans "
+                             f"say {want}")
+    log(f"  each route alone: launches {alone_launches} (K5 {want['orient']}: one a /rotate "
+        f"and one an EXIF-6 /resize)")
     if max_group < 2:
         raise AssertionError(f"no batch formed under load (largest group {max_group})")
     identical, worst = 0, 0
@@ -2183,7 +2310,7 @@ def config2_phase() -> dict:
         "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99)),
         "p50_ms_by_route": {p: float(np.percentile(v, 50)) for p, v in by_kind.items()},
         "items": items, "batches": batches, "mean_batch": items / batches,
-        "max_group_seen": max_group, "launches": launches,
+        "max_group_seen": max_group, "launches": launches, "launches_alone": alone_launches,
         "identical_bodies": identical, "max_lsb_vs_alone": worst,
         "profiled": {"wall_s": wall2, "rps": CLIENTS * PER_CLIENT / wall2,
                      "wall_us": prof_wall_us,
@@ -2283,6 +2410,13 @@ def make_4k_png() -> bytes:
 # identity shrink next to one of them still launches (see expected_launches)
 F32_ONLY_SPECS = ("ToYuv420Spec", "ToDctSpec")
 NOT_LAST_SPECS = ("FromYuv420Spec", "FromDctSpec")
+# The orientation stages: a run of them back to back is one K5 launch of
+# their composed mode (the chain runner's fold)
+ORIENT_SPECS = ("FlipSpec", "FlopSpec", "TransposeSpec")
+# K5 launches of one /rotate?rotate=90 request (transpose, flop) and of
+# one EXIF-6 /resize (transpose, flop, then K1)
+ROTATE_ORIENT = 1
+EXIF6_ORIENT = 1
 # Pinned gather (K4) launches of one request: config 3's only gather is an
 # identity shrink, /rotate?rotate=90's shrink changes the bucket
 CONFIG3_GATHERS = 0
@@ -2300,7 +2434,8 @@ def expected_launches(plan, arr) -> dict:
     left, and a GraySpec right before a ToYuv420Spec, which that stage's
     K3 applies itself. Worked out here from the specs' own dims, apart
     from the chain runner's `live_stages` and `launch_steps`, so that the
-    card's counts check the runner."""
+    card's counts check the runner. A run of consecutive orientation
+    stages counts one K5 launch (the runner's `orient_runs`)."""
     from imaginary_tpu_torch import kernels
     from imaginary_tpu_torch.ops.buckets import bucket_shape
 
@@ -2333,7 +2468,9 @@ def expected_launches(plan, arr) -> dict:
         else:
             steps.append(i)
     out = dict.fromkeys(kernels.LAUNCHES, 0)
-    for i in steps:
+    for k, i in enumerate(steps):
+        if k and names[i] in ORIENT_SPECS and names[steps[k - 1]] in ORIENT_SPECS:
+            continue  # one K5 launch for a run of orientation stages
         for name, n in SPEC_LAUNCHES[names[i]].items():
             out[name] += n
     return out
@@ -2350,14 +2487,23 @@ def check_bw_pins(bw_plan, bw_arr) -> None:
 
 def check_gather_pins(config3_plan, config3_arr) -> None:
     """Hold expected_launches to the pinned gather counts of config 3's
-    plan and of /rotate?rotate=90's."""
+    plan and of /rotate?rotate=90's, and to the pinned K5 launches of
+    /rotate?rotate=90's and of phase 6's EXIF-6 /resize (one each: the
+    fold)."""
     got = expected_launches(config3_plan, config3_arr)["gather"]
     if got != CONFIG3_GATHERS:
         raise AssertionError(f"config 3 plan: {got} gathers, pinned {CONFIG3_GATHERS}")
     arr, p = main_plan("rotate", "yuv420", {"rotate": "90"})
-    got = expected_launches(p, arr)["gather"]
-    if got != ROTATE_GATHERS:
-        raise AssertionError(f"/rotate plan: {got} gathers, pinned {ROTATE_GATHERS}")
+    got = expected_launches(p, arr)
+    if got["gather"] != ROTATE_GATHERS:
+        raise AssertionError(f"/rotate plan: {got['gather']} gathers, pinned {ROTATE_GATHERS}")
+    if got["orient"] != ROTATE_ORIENT:
+        raise AssertionError(f"/rotate plan: {got['orient']} K5 launches, pinned {ROTATE_ORIENT}")
+    with open(EXIF6_JPG, "rb") as f:
+        arr, p = request_plan(f.read(), "resize", {"width": "120", "height": "90"})
+    got = expected_launches(p, arr)["orient"]
+    if got != EXIF6_ORIENT:
+        raise AssertionError(f"EXIF-6 /resize plan: {got} K5 launches, pinned {EXIF6_ORIENT}")
 
 
 def psnr(a, b) -> float:
@@ -3918,8 +4064,9 @@ def spatial_expected(plan, arr, n: int) -> dict:
     """One request's launches on the spatial route over n shards: n of
     each W-sharded stage's kernels, one of each stage after a gather; a
     GraySpec right before a ToYuv420Spec on the same side of the gather
-    launches nothing (its K3 applies the luma). Worked out here from the
-    specs apart from the runner's `launch_steps`."""
+    launches nothing (its K3 applies the luma), and after the gather a run
+    of orientation stages is one K5. Worked out here from the specs apart
+    from the runner's `launch_steps` and `orient_runs`."""
     from imaginary_tpu_torch import kernels
     from imaginary_tpu_torch.ops import chain
     from imaginary_tpu_torch.ops.buckets import bucket_shape
@@ -3934,6 +4081,9 @@ def spatial_expected(plan, arr, n: int) -> dict:
         if (names[k] == "GraySpec" and k + 1 < len(live) and names[k + 1] == "ToYuv420Spec"
                 and (i in sharded) == (live[k + 1] in sharded)):
             continue
+        if (k and i not in sharded and live[k - 1] not in sharded
+                and names[k] in ORIENT_SPECS and names[k - 1] in ORIENT_SPECS):
+            continue  # the gathered tail folds an orientation run into one K5
         per = SHARD_LAUNCHES.get(names[k], SPEC_LAUNCHES[names[k]]) if i in sharded \
             else SPEC_LAUNCHES[names[k]]
         for kname, v in per.items():
@@ -9611,7 +9761,11 @@ def main() -> int:
             "shard_forms": {c: {k: v[k] for k in SHARD_FORM_KEYS if k in v}
                             for c, v in per_case.items()
                             if c.startswith("spatial-") and "ms" in v},
+            "case": main_case,
         })
+        if name == "orient":  # the folded runs beside the one-stage main case
+            rows[-1]["runs"] = {f"B32-{r}": {k: per_case[f"B32-{r}"][k] for k in RUN_KEYS}
+                                for r, _ in ORIENT_RUNS}
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)

@@ -6,7 +6,7 @@
 | yuv420_unpack   | csrc/yuv420_unpack.cu  | ops/stages.py:344-423 FromYuv420Spec (+ cast)    |
 | yuv420_pack     | csrc/yuv420_pack.cu    | ops/stages.py:521-552 ToYuv420Spec + epilogue, + GraySpec |
 | gather          | csrc/gather.cu         | ops/stages.py:119-198, 330-341 Extract/Embed/Shrink |
-| orient          | csrc/orient.cu         | ops/stages.py:201-234 Flip/Flop/Transpose        |
+| orient          | csrc/orient.cu         | ops/stages.py:201-234 Flip/Flop/Transpose (a run of them, one launch) |
 | blur            | csrc/blur.cu           | ops/stages.py:237-280 BlurSpec                   |
 | composite       | csrc/composite.cu      | ops/stages.py:283-327 CompositeSpec              |
 | gray            | csrc/gray.cu           | ops/stages.py:625-635 GraySpec                   |
@@ -69,7 +69,7 @@ _SIGNATURES = {
                [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                 _I, _P]),
     "orient": ("orient", "itpu_orient",
-               [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P]),
+               [_P, _I, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "blur": ("blur", "itpu_blur",
              [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
     "composite": ("composite", "itpu_composite",
@@ -122,7 +122,6 @@ _LOCK = threading.Lock()  # the build and load
 _COUNT_LOCK = threading.Lock()
 _RESAMPLE_KIND = {k: i for i, k in enumerate(reference.RESAMPLE_KINDS)}
 _GATHER_MODE = {m: i for i, m in enumerate(reference.GATHER_MODES)}
-_ORIENT_MODE = {m: i for i, m in enumerate(reference.ORIENT_MODES)}
 
 
 def reset_launches() -> None:
@@ -473,10 +472,26 @@ def orient(x, h, w, mode: str, out_u8: bool = False, out=None):
 
     h, w: int32 [B] valid dims. The caller swaps h and w after a
     transpose."""
-    if mode not in _ORIENT_MODE:
+    if mode not in reference.ORIENT_MODES:
         raise ValueError(f"unknown orient mode {mode!r}")
     if x.device.type == "cpu":
         return _into(out, reference.orient(x, h, w, mode, out_u8))
+    return _orient(x, h, w, reference.compose_orient((mode,)), out_u8, out)
+
+
+def orient_run(x, h, w, names, out_u8: bool = False, out=None):
+    """K5 for a run of orientation stages ("flip", "flop", "transpose",
+    applied in order) in one launch of their composed mode
+    (`reference.compose_orient`): [B, Hb, Wb, C] to [B, Hb, Wb, C], or
+    [B, Wb, Hb, C] when the run transposes an odd number of times. h, w:
+    int32 [B] valid dims of x; the caller swaps them when it transposes."""
+    mode = reference.compose_orient(names)
+    if x.device.type == "cpu":
+        return _into(out, reference.orient_run(x, h, w, names, out_u8))
+    return _orient(x, h, w, mode, out_u8, out)
+
+
+def _orient(x, h, w, mode: tuple, out_u8: bool, out):
     dev = x.device
     if x.dim() != 4 or not 1 <= x.shape[3] <= 4:
         raise ValueError(f"x must be [B, H, W, C] with C 1 to 4, got {tuple(x.shape)}")
@@ -484,11 +499,12 @@ def orient(x, h, w, mode: str, out_u8: bool = False, out=None):
     _require(x, "x", _IMG, (bsz, hb, wb, c), dev)
     _require(h, "h", _I32, (bsz,), dev)
     _require(w, "w", _I32, (bsz,), dev)
-    shape = (bsz, wb, hb, c) if mode == "transpose" else (bsz, hb, wb, c)
+    t, fy, fx = mode
+    shape = (bsz, wb, hb, c) if t else (bsz, hb, wb, c)
     out = _out(out, shape, torch.uint8 if out_u8 else torch.float32, dev)
     _launch("orient", dev, x.data_ptr(), int(x.dtype == torch.uint8),
-            out.data_ptr(), int(out_u8), h.data_ptr(), w.data_ptr(),
-            _ORIENT_MODE[mode], bsz, hb, wb, c)
+            out.data_ptr(), int(out_u8), h.data_ptr(), w.data_ptr(), t, fy, fx,
+            bsz, hb, wb, c)
     return out
 
 

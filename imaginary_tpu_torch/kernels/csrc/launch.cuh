@@ -1,4 +1,5 @@
-// Launch helpers shared by K3 (yuv420_pack.cu) and K8 (gray.cu).
+// Launch helpers shared by K3 (yuv420_pack.cu), K5 (orient.cu) and K8
+// (gray.cu).
 //
 // Programmatic dependent launch (Hopper): a kernel launched by `launch_pdl`
 // may be scheduled while the kernel ahead of it in the stream is still

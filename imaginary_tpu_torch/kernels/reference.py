@@ -298,6 +298,52 @@ def orient(x: torch.Tensor, h, w, mode: str, out_u8: bool = False) -> torch.Tens
     return _finish(torch.take_along_dim(xf, idx, dim=axis), out_u8)
 
 
+def compose_orient(names) -> tuple:
+    """The one mode (t, fy, fx) of a run of orientation stages ("flip",
+    "flop", "transpose") applied in order: a flip toggles fy, a flop
+    toggles fx, and a transpose toggles t and swaps fy and fx, since a
+    mirror pushed past the transpose lands on the other axis (orient.cu)."""
+    t = fy = fx = 0
+    for name in names:
+        if name == "flip":
+            fy ^= 1
+        elif name == "flop":
+            fx ^= 1
+        elif name == "transpose":
+            t, fy, fx = t ^ 1, fx, fy
+        else:
+            raise ValueError(f"unknown orient mode {name!r}")
+    return t, fy, fx
+
+
+def _mirror_index(n: int, valid, on: int) -> torch.Tensor:
+    """[B, n] source positions: v - 1 - i inside each image's valid v when
+    `on`, i elsewhere."""
+    pos = torch.arange(n, dtype=torch.int64, device=valid.device)[None, :]
+    v = valid.long()[:, None]
+    if not on:
+        return pos.expand(v.shape[0], n)
+    return torch.where(pos < v, v - 1 - pos, pos)
+
+
+def orient_run(x: torch.Tensor, h, w, names, out_u8: bool = False) -> torch.Tensor:
+    """K5's function for a run of orientation stages, computed directly as
+    the composed index map (orient.cu): with (t, fy, fx) =
+    `compose_orient(names)` and (ho, wo) the output's valid dims,
+    out[b, y, x] = x[b, mx(x), my(y)] if t else x[b, my(y), mx(x)], my
+    mirroring rows inside ho and mx columns inside wo when set."""
+    t, fy, fx = compose_orient(names)
+    bsz, hb, wb, c = x.shape
+    ho, wo = (w, h) if t else (h, w)
+    oh, ow = (wb, hb) if t else (hb, wb)
+    rows = _mirror_index(oh, ho, fy)[:, :, None].expand(bsz, oh, ow)
+    cols = _mirror_index(ow, wo, fx)[:, None, :].expand(bsz, oh, ow)
+    src_r, src_c = (cols, rows) if t else (rows, cols)
+    flat = x.float().reshape(bsz, hb * wb, c)
+    idx = (src_r * wb + src_c).reshape(bsz, oh * ow, 1).expand(bsz, oh * ow, c)
+    return _finish(torch.gather(flat, 1, idx).reshape(bsz, oh, ow, c), out_u8)
+
+
 def flop_shard(x: torch.Tensor, h, w, col0: int, lw: int, in_col0: int,
                out_u8: bool = False) -> torch.Tensor:
     """K5's flop on a W-shard: global column g of [col0, col0 + lw) reads

@@ -24,8 +24,12 @@ on W over one row of a mesh's spatial axis (the reference's chain under
 `PartitionSpec("batch", None, "spatial", None)`); see its docstring.
 On the CPU the chain runs at once and the fetch has nothing to wait for.
 A ShrinkBucketSpec that would copy its input unchanged launches nothing
-(`live_stages`), and a GraySpec right before a ToYuv420Spec folds into
-that stage's launch (`launch_steps`). The chain's uint8 -> f32 cast
+(`live_stages`), a GraySpec right before a ToYuv420Spec folds into
+that stage's launch (`launch_steps`), and each run of consecutive
+orientation stages (flip, flop, transpose: /rotate, EXIF orientations)
+launches as one K5 of their composed mode (`orient_runs`), so the
+image moves once; the spatial route's sharded stages keep one launch a
+stage, and its gathered tail folds. The chain's uint8 -> f32 cast
 (int16 -> f32 for the DCT
 transport's coefficients, staged as int16 in the same one H2D) and its
 uint8 epilogue are fused into the first and last stages' kernels. A chain
@@ -39,11 +43,12 @@ port's counterpart of XLA donating the batch operand. With donation on,
 `launch_batch` writes the chain's last launch's output into the batch
 region (offset 0) of the fresh staged device buffer, through that
 kernel's `out=`, when two shape rules hold: the region holds at least
-the output's bytes, and the chain has at least two launches, so the
-first kernel has consumed the region before the last one writes it (in
-stream order). Otherwise the chunk runs undonated. The staged buffer is
-always a fresh copy, so neither the caller's array nor its pinned host
-buffer is ever written; the sharded and spatial launches never donate.
+the output's bytes, and the chain has at least two launches (after the
+orientation fold), so the first kernel has consumed the region before
+the last one writes it (in stream order). Otherwise the chunk runs
+undonated. The staged buffer is always a fresh copy, so neither the
+caller's array nor its pinned host buffer is ever written; the sharded
+and spatial launches never donate.
 Nothing on the card refuses aliasing, so `donation_stats`' "rejected"
 (a backend's refusal, which latches the reference's donation off) stays
 0; its "donated" counts the launches that donated.
@@ -86,6 +91,7 @@ from imaginary_tpu_torch.engine.timing import WIRE
 from imaginary_tpu_torch.ops.buckets import bucket_shape
 from imaginary_tpu_torch.ops.plan import ImagePlan
 from imaginary_tpu_torch.ops.stages import (
+    ORIENT_STAGES,
     FromDctSpec,
     FromYuv420Spec,
     GraySpec,
@@ -93,6 +99,7 @@ from imaginary_tpu_torch.ops.stages import (
     ToDctSpec,
     ToYuv420Spec,
     TransposeSpec,
+    apply_orient_run,
 )
 from imaginary_tpu_torch.parallel import spatial
 from imaginary_tpu_torch.parallel.mesh import Mesh, split_batch
@@ -248,22 +255,49 @@ def _donated_out(spec, shape, donor):
     return donor[:nbytes].view(dtype).view(oshape)
 
 
-def _run_steps(specs, steps: list, x, h, w, dyns, donor=None):
-    """Launch `steps` (`launch_steps`); the last one writes uint8 (epilogue
-    fused). No steps return the input as it is. `donor`: the staged batch
-    region (flat uint8) that the last launch of two or more may write its
-    output into (module docstring)."""
-    global _DONATED
+def orient_runs(specs, steps: list) -> list:
+    """`steps` (`launch_steps`' pairs) as the launches `_run_steps` makes:
+    lists of steps, each run of consecutive orientation stages (FlipSpec,
+    FlopSpec, TransposeSpec; `stages.ORIENT_STAGES`) one list, launched as
+    ONE K5 of their composed mode (`stages.apply_orient_run`), every other
+    step a list of its own. The spatial route's sharded stages do not take
+    this path: they launch one form a stage."""
+    groups = []
     for i, luma in steps:
+        if (groups and type(specs[i]) in ORIENT_STAGES
+                and type(specs[groups[-1][-1][0]]) in ORIENT_STAGES):
+            groups[-1].append((i, luma))
+        else:
+            groups.append([(i, luma)])
+    return groups
+
+
+def _run_steps(specs, steps: list, x, h, w, dyns, donor=None):
+    """Launch `steps` (`launch_steps`), each run of orientation stages as
+    one launch (`orient_runs`); the last launch writes uint8 (epilogue
+    fused). No steps return the input as it is. `donor`: the staged batch
+    region (flat uint8) that the last of two or more launches may write
+    its output into (module docstring)."""
+    global _DONATED
+    groups = orient_runs(specs, steps)
+    for n, group in enumerate(groups):
+        i, luma = group[-1]
         kw = {"luma": True} if luma else {}
-        last = i == steps[-1][0]
-        if last and donor is not None and len(steps) >= 2:
-            out = _donated_out(specs[i], x.shape, donor)
+        last = n == len(groups) - 1
+        if last and donor is not None and len(groups) >= 2:
+            shape = tuple(x.shape)
+            for j, _ in group[:-1]:  # the shape the group's last stage sees
+                shape = (shape[0],) + _bucket_after(specs[j], *shape[1:3]) + shape[3:]
+            out = _donated_out(specs[i], shape, donor)
             if out is not None:
                 kw["out"] = out
                 with _LOCK:
                     _DONATED += 1
-        x, h, w = specs[i].apply(x, h, w, dyns[i], out_u8=last, **kw)
+        if type(specs[i]) in ORIENT_STAGES:
+            x, h, w = apply_orient_run([specs[j] for j, _ in group], x, h, w, out_u8=last,
+                                       **kw)
+        else:
+            x, h, w = specs[i].apply(x, h, w, dyns[i], out_u8=last, **kw)
     return x, h, w
 
 

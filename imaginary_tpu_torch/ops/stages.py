@@ -372,6 +372,20 @@ class TransposeSpec(_ShardForm):
         return impl.orient(x, h, w, "transpose", out_u8), w, h
 
 
+# The orientation stages, by the names K5 composes (`kernels.orient_run`).
+ORIENT_STAGES = {FlipSpec: "flip", FlopSpec: "flop", TransposeSpec: "transpose"}
+
+
+def apply_orient_run(specs, x, h, w, out_u8: bool = False, out=None):
+    """A run of consecutive orientation stages (ORIENT_STAGES) as ONE K5
+    launch of their composed mode, bit-equal to applying them one by one
+    (the chain runner's fold, ops/chain.py). Returns (x, h, w), h and w
+    swapped when the run transposes an odd number of times."""
+    names = [ORIENT_STAGES[type(s)] for s in specs]
+    x = kernels.orient_run(x, h, w, names, out_u8, **_out_kw(out))
+    return (x, w, h) if names.count("transpose") % 2 else (x, h, w)
+
+
 @dataclasses.dataclass(frozen=True)
 class BlurSpec(_ShardForm):
     """Separable gaussian blur, radius static, sigma dynamic, normalised

@@ -1,12 +1,13 @@
 """Hold the port's K6 (blur), K2 (yuv420_unpack), K11 (from_dct), K12
 (to_dct), K9 (saliency), K10 (window_argmax), K1 (resample), K13
-(blur_halo), K3 (yuv420_pack) and K8 (gray) against an earlier tree's on
-one card: outputs bit for bit, and device times in turns; and two chains
-of kernels launched back to back as the chain runner launches them.
+(blur_halo), K3 (yuv420_pack), K8 (gray) and K5 (orient) against an
+earlier tree's on one card: outputs bit for bit, and device times in
+turns; and three chains of kernels launched back to back as the chain
+runner launches them.
 
 Run from the repository root on a machine with the card:
 
-    python3 scripts/kernel_ab.py --parent DIR
+    python3 scripts/kernel_ab.py --parent DIR [--only orient]
 
 DIR is a checkout of the earlier tree. Its own `imaginary_tpu_torch.kernels`
 is imported first (its libraries built by its own `load_all` into DIR's
@@ -36,6 +37,15 @@ the earlier tree's kernels under its stages with every live stage its
 own launch, this tree's with its `launch_steps` (the bw chain then
 K2 -> K1 -> fused K3): what programmatic dependent launch and the fusion
 save on the card between launches, which single-kernel times cannot see.
+K5 (`orient_rows`; alone with `--only orient`): each single mode and
+chip_smoke's ORIENT_RUNS at B = 1 and 32 on the /rotate chain's bucket,
+a run of this tree's one launch against the earlier tree's stages
+launched one by one, uint8 in and out, the flop's W-shard form on four
+shards of the 4K frame (one straddling the valid width), and the
+/rotate?rotate=90 chain at B = 1 and 32: the earlier kernels under this
+tree's runner, a tree without K5's run form launching each orientation
+stage on its own (K2 -> K5 -> K5 -> K4 -> K3, `EarlierUnderThisChain`),
+against this tree's (K2 -> K5 -> K4 -> K3).
 One JSON line per case on stdout; all of them in
 chip_smoke_out/kernel_ab.json.
 """
@@ -58,7 +68,7 @@ import chip_smoke as cs  # noqa: E402
 PKG = "imaginary_tpu_torch"
 # the CUDA sources whose build logs are printed
 AB_SOURCES = ("blur", "yuv420_unpack", "from_dct", "to_dct", "saliency", "resample",
-              "blur_halo", "yuv420_pack", "gray")
+              "blur_halo", "yuv420_pack", "gray", "orient")
 
 
 def _package_modules() -> dict:
@@ -308,27 +318,41 @@ class EarlierUnderThisChain:
             raise ValueError("the earlier tree has no fused K3")
         return self._mod.rgb_to_yuv420(x, h, w, hb, wb)
 
+    def orient_run(self, x, h, w, names, out_u8=False, out=None):
+        """The earlier tree's K5 for a run of orientation stages: its own
+        composed launch where it has one, else each stage on its own."""
+        if hasattr(self._mod, "orient_run"):
+            return self._mod.orient_run(x, h, w, names, out_u8, out=out)
+        for k, name in enumerate(names):
+            last = k == len(names) - 1
+            x = self._mod.orient(x, h, w, name, out_u8 and last,
+                                 **({"out": out} if last and out is not None else {}))
+            if name == "transpose":
+                h, w = w, h
+        return x
 
-def chain_inputs(dev, op: str, query):
+
+def chain_inputs(dev, op: str, query, bsz: int = 1):
     """(specs, live stages, x, h, w, dyns) of chip_smoke's plan for `op` on
-    large.jpg over the yuv420 transport, staged on the card (B=1)."""
+    large.jpg over the yuv420 transport, staged on the card (B copies)."""
     import torch
 
     from imaginary_tpu_torch.ops import chain
 
     arr, plan = cs.main_plan(op, "yuv420", query)
     specs = plan.spec_key()
-    dyns = [{k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+    dyns = [{k: torch.from_numpy(np.stack([v[0]] * bsz)).to(dev) for k, v in d.items()}
             for d in chain._stack_dyns([plan])]
-    x = torch.from_numpy(np.array(arr[None])).to(dev)
-    h = torch.tensor([plan.in_h], dtype=torch.int32, device=dev)
-    w = torch.tensor([plan.in_w], dtype=torch.int32, device=dev)
+    x = torch.from_numpy(np.stack([arr] * bsz)).to(dev)
+    h = torch.full((bsz,), plan.in_h, dtype=torch.int32, device=dev)
+    w = torch.full((bsz,), plan.in_w, dtype=torch.int32, device=dev)
     return specs, chain.live_stages(specs, *arr.shape[:2]), x, h, w, dyns
 
 
 def run_chain_with(mod, specs, steps, x, h, w, dyns):
     """This tree's chain runner over `steps` with the stages launching
-    through kernels module `mod`."""
+    through kernels module `mod` (an earlier tree's under
+    `EarlierUnderThisChain`)."""
     from imaginary_tpu_torch.ops import chain, stages
 
     saved = stages.kernels
@@ -337,6 +361,89 @@ def run_chain_with(mod, specs, steps, x, h, w, dyns):
         return chain._run_steps(specs, steps, x, h, w, dyns)[0]
     finally:
         stages.kernels = saved
+
+
+def orient_rows(old, dev, gen, emit) -> None:
+    """K5 against the earlier tree's: each single mode and each run of
+    chip_smoke's ORIENT_RUNS at B = 1 and 32 on the /rotate chain's bucket
+    (a run against the earlier tree's stages launched one by one), uint8
+    in and out, the flop's W-shard form on four shards of the 4K frame,
+    then the /rotate chain: the earlier K2 -> K5 -> K5 -> K4 -> K3 against
+    this tree's K2 -> K5 -> K4 -> K3 at B = 1 and 32."""
+    import torch
+
+    from imaginary_tpu_torch import kernels
+    from imaginary_tpu_torch.kernels import reference
+    from imaginary_tpu_torch.ops import chain
+    from imaginary_tpu_torch.ops.stages import FlopSpec
+    from imaginary_tpu_torch.parallel import spatial
+
+    prev = EarlierUnderThisChain(old)
+    earlier = prev.orient_run
+    folds = hasattr(old, "orient_run")  # the earlier tree launches a run once
+
+    runs = [(m, (m,)) for m in reference.ORIENT_MODES] + list(cs.ORIENT_RUNS)
+    for bsz in cs.ORIENT_BATCHES:
+        x = torch.rand((bsz, *cs.ORIENT_RUN_SHAPE), generator=gen, device=dev) * 255.0
+        h, w = cs.valid_dims(bsz, *cs.ORIENT_RUN_SHAPE[:2], dev)
+        for name, names in runs:
+            got = kernels.orient_run(x, h, w, names)
+            err = cs.max_err(got, reference.orient_run(x, h, w, names))
+            if err != 0.0:
+                raise AssertionError(f"orient [B{bsz}-{name}]: max |err| {err}")
+            d, eq = diff(got, earlier(x, h, w, names))
+            ta, tb = turns(lambda: earlier(x, h, w, names),
+                           lambda: kernels.orient_run(x, h, w, names))
+            emit({"kernel": "orient", "case": f"B{bsz}-{name}", "shape": list(x.shape),
+                  "parent_launches": 1 if folds else len(names), "launches": 1,
+                  "err_vs_plain": err,
+                  "diff_vs_parent": d, "bit_equal": eq, "parent_ms": ta, "ms": tb,
+                  "bound_ms": cs.bound_ms(x.numel() * 8, 0.0)[0]})
+            del got
+        del x
+    xu = torch.randint(0, 256, cs.ORIENT_U8, generator=gen, device=dev, dtype=torch.uint8)
+    h, w = cs.valid_dims(*cs.ORIENT_U8[:3], dev)
+    for name, names in runs:
+        for out_u8 in (False, True):
+            got = kernels.orient_run(xu, h, w, names, out_u8)
+            if not torch.equal(got, reference.orient_run(xu, h, w, names, out_u8)):
+                raise AssertionError(f"orient [u8-{name}]: differs from its plain version")
+            d, eq = diff(got, earlier(xu, h, w, names, out_u8))
+            emit({"kernel": "orient", "case": f"u8-{'u8' if out_u8 else 'f32'}-{name}",
+                  "shape": list(xu.shape), "diff_vs_parent": d, "bit_equal": eq})
+    del xu
+    x = torch.rand(cs.ORIENT_4K, generator=gen, device=dev) * 255.0
+    wb, n = cs.ORIENT_4K[2], cs.ORIENT_SHARDS
+    lw = wb // n
+    h = torch.tensor([2160], dtype=torch.int32, device=dev)
+    w = torch.tensor([wb - 37], dtype=torch.int32, device=dev)  # a shard straddles w
+    for j in range(n):
+        spans = spatial.window_spans(FlopSpec().shard_window(j * lw, (j + 1) * lw, wb - 37,
+                                                             wb, {}))
+        xs = torch.cat([x[:, :, k0:k1] for k0, k1 in spans], dim=2).contiguous()
+        args = (xs, h, w, j * lw, lw, spans[0][0])
+        got = kernels.flop_shard(*args)
+        if not torch.equal(got, reference.flop_shard(*args)):
+            raise AssertionError(f"flop_shard [{j}]: differs from its plain version")
+        d, eq = diff(got, old.flop_shard(*args))
+        ta, tb = turns(lambda: old.flop_shard(*args), lambda: kernels.flop_shard(*args))
+        emit({"kernel": "orient", "case": f"4K-flop-shard{j}", "shape": list(xs.shape),
+              "diff_vs_parent": d, "bit_equal": eq, "parent_ms": ta, "ms": tb,
+              "bound_ms": cs.bound_ms(xs.numel() * 4 + got.numel() * 4, 0.0)[0]})
+    del x
+    for bsz in (1, cs.CONFIG2_BATCH):
+        specs, live, x, h, w, dyns = chain_inputs(dev, "rotate", {"rotate": "90"}, bsz)
+        steps = chain.launch_steps(specs, live)
+        got = run_chain_with(kernels, specs, steps, x, h, w, dyns)
+        d, eq = diff(got, run_chain_with(prev, specs, steps, x, h, w, dyns))
+        ta, tb = turns(lambda: run_chain_with(prev, specs, steps, x, h, w, dyns),
+                       lambda: run_chain_with(kernels, specs, steps, x, h, w, dyns))
+        emit({"kernel": "chain", "case": f"rotate90-B{bsz}",
+              "stages": [type(specs[i]).__name__ for i in live],
+              "parent_launches": len(chain.orient_runs(specs, steps)) if folds else len(steps),
+              "launches": len(chain.orient_runs(specs, steps)),
+              "diff_vs_parent": d, "bit_equal": eq, "parent_ms": ta, "ms": tb})
+        del x, got
 
 
 def pack_gray_rows(old, dev, gen, emit) -> None:
@@ -416,6 +523,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True)
+    ap.add_argument("--only", choices=("orient",),
+                    help="run only these rows (K5's and the /rotate chain's)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: torch.cuda.is_available() is False", file=sys.stderr)
@@ -438,6 +547,9 @@ def main() -> int:
         rows.append(row)
         cs.log(json.dumps(row))
 
+    if args.only == "orient":
+        orient_rows(old, dev, gen, emit)
+        return finish(smi, rows)
     for case, x, h, w, s, r, u8 in blur_cases(dev, gen):
         got = kernels.blur(x, h, w, s, r, u8)
         err = cs.max_err(got, reference.blur(x, h, w, s, r, u8))
@@ -553,10 +665,15 @@ def main() -> int:
             del grid, ograd, shards, got
         del k6
     pack_gray_rows(old, dev, gen, emit)
+    orient_rows(old, dev, gen, emit)
     # the device time of one small PyTorch launch: the fill the earlier
     # window_argmax put before its kernel
     emit({"kernel": "floor", "case": "torch.zeros((16,), int64)",
           "ms": cs.device_ms(lambda: torch.zeros((16,), dtype=torch.int64, device=dev))})
+    return finish(smi, rows)
+
+
+def finish(smi: str, rows: list) -> int:
     os.makedirs(cs.OUT_DIR, exist_ok=True)
     with open(os.path.join(cs.OUT_DIR, "kernel_ab.json"), "w") as f:
         json.dump({"smi": smi, "rows": rows}, f, indent=1)
