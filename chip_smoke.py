@@ -140,7 +140,14 @@ Phases, in order; any failure raises and exits non-zero:
    quantized coefficients within 1 (at most 0.1 % differing) of the same
    request on the CPU, its pixels within 1 LSB wherever an MCU's
    coefficients agree; and the host steps (entropy decode, chain,
-   entropy encode) on the host clock;
+   entropy encode) on the host clock; then the restart-segment fan-out:
+   phase 10(d)'s 8000x6000 4:2:0 frame and large.jpg saved with a
+   restart marker after every MCU row, /resize?width=3000 (k = 4, K11 ->
+   K1 -> K3) and /resize?width=300&height=200 on --transport-dct servers
+   with --dct-native native, numpy and python (large.jpg only), each with
+   its request pool as the segment pool, then with the pool detached:
+   every answer of a source the same bytes, the launches the plans', the
+   48 MP entropy decode serial and fanned out (median of 5) and the p50;
 10. multi-GPU: (a) `parallel/spatial.sharded_blur` on two f32 4K frames
    [2, 2160, 3840, 3] (valid 2100x3800, ending inside the last shard, and
    2160x1920, ending at a seam) at r = 8 (sigma 3) and r = 64 (sigma 20)
@@ -3455,7 +3462,7 @@ def coefficient_parity(card: bytes, cpu: bytes, dims: tuple, margin: int = 0) ->
             "bytes_identical": card == cpu}
 
 
-def dct_phase() -> dict:
+def dct_phase(png: bytes) -> dict:
     import torch
 
     from imaginary_tpu_torch import codecs, kernels, pipeline
@@ -3544,7 +3551,125 @@ def dct_phase() -> dict:
         log(f"  host steps of {path} (median of 5): "
             + ", ".join(f"{k} {v:.2f} ms" for k, v in st.items()))
     torch.cuda.synchronize()
+    out["fanout"] = dct_fanout_phase(png)
     return out
+
+
+# Phase 9's restart-segmented sources: phase 10(d)'s 8000x6000 4:2:0 frame
+# and large.jpg, each saved with a restart marker after every MCU row, so
+# the host's entropy decode fans its segments out across the request pool.
+# /resize?width=3000 on the 48 MP frame is shrink 2 (K11 at k = 4 -> K1 ->
+# K3, egress off); the python arm decodes only large.jpg.
+FANOUT_48MP = ((8000, 6000), "/resize?width=3000", {"width": "3000"}, (2250, 3000))
+FANOUT_LARGE = ("/resize?width=300&height=200", {"width": "300", "height": "200"}, (200, 300))
+FANOUT_TIMED = 5
+
+
+def dct_fanout_phase(png: bytes) -> dict:
+    """--transport-dct servers with --dct-native native, numpy and python
+    (the native one timed), each with its request pool registered as the
+    segment pool, as served; then the native server with the pool
+    detached (a serial decode). Every answer of a source must be the same
+    bytes, and the card's launches those of the plans."""
+    import io
+
+    from PIL import Image
+
+    from imaginary_tpu_torch import codecs, kernels
+    from imaginary_tpu_torch.codecs import jpeg_dct
+    from imaginary_tpu_torch.web.app import make_server
+
+    size, path48, q48, dims48 = FANOUT_48MP
+    big = make_4k_jpeg(png, size=size, restart_marker_rows=1)
+    out = io.BytesIO()
+    with Image.open(LARGE_JPG) as im:
+        im.convert("RGB").save(out, "JPEG", quality=SPATIAL_JPEG_QUALITY, subsampling=2,
+                               restart_marker_rows=1)
+    large = out.getvalue()
+    pathl, ql, dimsl = FANOUT_LARGE
+    srcs = {path48: (big, q48, dims48), pathl: (large, ql, dimsl)}
+    nseg = {p: len(jpeg_dct._split_scan_bounds(b, jpeg_dct._parse(b).entropy_pos))
+            for p, (b, _, _) in srcs.items()}
+    plan_launches = {p: expected_launches(*dct_request_plan(b, "resize", q, egress=False)[:2])
+                     for p, (b, q, _) in srcs.items()}
+    bodies: dict = {p: {} for p in srcs}
+    lat: dict = {}
+    served: list = []
+
+    def get(port: int, path: str, label: str) -> float:
+        buf, _, dims = srcs[path]
+        t0 = time.perf_counter()
+        status, ctype, body = http(port, path, buf)
+        ms = (time.perf_counter() - t0) * 1e3
+        if (status, ctype) != (200, "image/jpeg"):
+            raise AssertionError(f"fan-out {label} {path}: {status} {ctype}")
+        if codecs.decode(body).array.shape[:2] != dims:
+            raise AssertionError(f"fan-out {label} {path}: output is not {dims}")
+        bodies[path].setdefault(label, set()).add(body)
+        served.append(path)
+        return ms
+
+    decode_ms: dict = {}
+    kernels.reset_launches()
+    for arm in ("native", "numpy", "python"):
+        # the 48 MP source passes the pixel gate as in phase 10(d)
+        srv = make_server("127.0.0.1", 0, device=DEVICE, transport_dct=True, dct_native=arm,
+                          max_allowed_pixels=SPATIAL_DCT_MAX_MP)
+        th = threading.Thread(target=srv.serve_forever, daemon=True)
+        th.start()
+        try:
+            port = srv.server_address[1]
+            pool = srv.app["service"].pool
+            if jpeg_dct._SEGMENT_POOL is not pool:
+                raise AssertionError(f"the {arm} server's pool is not the segment pool")
+            if jpeg_dct.decoder_name(nseg[path48]) != arm:
+                raise AssertionError(f"--dct-native {arm} resolved to "
+                                     f"{jpeg_dct.decoder_name(nseg[path48])}")
+            get(port, pathl, arm)
+            if arm == "native":
+                get(port, path48, arm)  # untimed
+                lat[arm] = [get(port, path48, arm) for _ in range(FANOUT_TIMED)]
+                decode_ms["fanned_out"] = host_ms(
+                    lambda: jpeg_dct.decode_coefficients(big, decoder="native"))
+                jpeg_dct.set_segment_pool(None)
+                decode_ms["serial"] = host_ms(
+                    lambda: jpeg_dct.decode_coefficients(big, decoder="native"))
+                lat["serial"] = [get(port, path48, "serial")]
+                get(port, pathl, "serial")
+                decode_ms["workers"] = srv.app["service"].pool_workers
+            elif arm == "numpy":
+                lat[arm] = [get(port, path48, arm)]
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            th.join(timeout=10)
+            jpeg_dct.set_decoder("auto")
+    launches = kernels.launch_counts()
+    expected = dict.fromkeys(kernels.LAUNCHES, 0)
+    for path in served:
+        for k, v in plan_launches[path].items():
+            expected[k] += v
+    if launches != expected or launches["from_dct"] <= 0:
+        raise AssertionError(f"fan-out launches {launches}, the plans say {expected} "
+                             f"({len(served)} requests)")
+    for path, got in bodies.items():
+        distinct = set().union(*got.values())
+        if len(distinct) != 1:
+            raise AssertionError(f"fan-out {path}: {len(distinct)} distinct answers across "
+                                 f"{sorted(got)}")
+    p50 = {k: statistics.median(v) for k, v in lat.items()}
+    log(f"  fan-out: {size[0]}x{size[1]} 4:2:0 JPEG with {nseg[path48]} restart segments "
+        f"({len(big)} bytes), large.jpg with {nseg[pathl]}; {len(served)} requests, every "
+        f"answer of a source the same bytes across {sorted(bodies[path48])} and "
+        f"{sorted(bodies[pathl])}; launches as the plans say (K11 {launches['from_dct']})")
+    log(f"  fan-out: entropy decode of the 48 MP scan (median of 5, host clock): serial "
+        f"{decode_ms['serial']:.2f} ms, fanned out over {decode_ms['workers']} workers "
+        f"{decode_ms['fanned_out']:.2f} ms")
+    log(f"  fan-out: {path48} p50 " + ", ".join(f"{k} {v:.2f} ms" for k, v in p50.items())
+        + f" (native: {', '.join(f'{t:.2f}' for t in lat['native'])} ms)")
+    return {"segments": nseg, "jpeg_bytes": len(big), "requests": len(served),
+            "launches": launches, "entropy_decode_ms": decode_ms, "latency_ms": lat,
+            "p50_ms": p50}
 
 
 # --- phase 10: multi-GPU serving and the W-sharded blur ---------------------
@@ -4016,16 +4141,18 @@ SPATIAL_EXIF = 6  # the orientation of the jpeg6 source
 SPATIAL_SHRINK_PLAN = ("blur", {"sigma": "2"})
 
 
-def make_4k_jpeg(png: bytes, orientation=None, layout: str = "420", size=None) -> bytes:
+def make_4k_jpeg(png: bytes, orientation=None, layout: str = "420", size=None,
+                 **save) -> bytes:
     """The phase's 4K PNG as a JPEG (Pillow) of the layout ("420", "422",
     "444" or "gray"), with an EXIF orientation when one is given, scaled
-    to size = (w, h) when one is given."""
+    to size = (w, h) when one is given; `save` goes to Pillow's encoder
+    (restart_marker_rows=1 puts a restart marker after every MCU row)."""
     import io
 
     from PIL import Image
 
     out = io.BytesIO()
-    kw = {}
+    kw = dict(save)
     if orientation is not None:
         exif = Image.Exif()
         exif[0x0112] = orientation
@@ -9658,8 +9785,9 @@ def main() -> int:
     phase_log(f"== phase 8: config 4 (/smartcrop on bench_firehose.py's stream; made in "
         f"{time.perf_counter() - t0:.2f} s)")
     report["config4"] = config4_phase(stream)
-    phase_log("== phase 9: the DCT transport both ways (/resize at k = 2 and k = 8)")
-    report["dct"] = dct_phase()
+    phase_log("== phase 9: the DCT transport both ways (/resize at k = 2 and k = 8; a "
+              "restart-segmented 48 MP /resize on the native, numpy and python arms)")
+    report["dct"] = dct_phase(png)
     phase_log("== phase 10a: the W-sharded blur (K13) and its halo exchange")
     report["sharded_blur"] = sharded_blur_phase(report["kernels"])
     phase_log("== phase 10b/c: multi-GPU lanes (--mesh-policy lanes; four lanes on one "

@@ -446,11 +446,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "quantized DCT coefficients: the device runs the "
                         "forward DCT + quantization and the host only "
                         "entropy-codes (requires --transport-dct)")
-    p.add_argument("--dct-native", choices=("auto", "native", "python"),
+    p.add_argument("--dct-native", choices=("auto", "native", "numpy", "python"),
                    default=os.environ.get("IMAGINARY_TPU_DCT_NATIVE", "auto"),
                    help="entropy-decoder arm for the dct transport: the "
-                        "native C kernel, the pure-python oracle, or auto "
-                        "(native if built, else python)")
+                        "native C kernel, the vectorized numpy bit-plane "
+                        "decoder, the pure-python oracle, or auto (native "
+                        "if built, numpy for restart-segmented scans, else "
+                        "python)")
     # content-addressed caching (cache.py); every knob also honors an
     # IMAGINARY_TPU_CACHE_* env override and defaults OFF so the uncached
     # serving path stays byte-identical

@@ -26,15 +26,28 @@ comfortably: |dequantized| is bounded by the true DCT range ~±1100, and a
 fold sums at most 4 terms), and it removes any per-image dynamic input to
 the device stage.
 
-The entropy scan has two interchangeable decoder arms behind one
+The entropy scan has three interchangeable decoder arms behind one
 segment-ranged signature (set_decoder):
 
   * native — `native/entropy.cpp` (`_itpu_torch_entropy`), the same
     Huffman walk in C++ with the GIL released, built with g++ into
     `imaginary_tpu_torch/_build/` at first use (`native/build.py`).
-  * python — the `_Bits` loop. It is the parity oracle the native arm is
-    tested against, and it runs only when asked for, or in "auto" mode
-    when the native arm could not be built (no C++ toolchain).
+  * numpy — a lockstep decoder with one bit-cursor lane per restart
+    segment; its per-op overhead amortizes only across many segments.
+  * python — the `_Bits` loop. It is the parity oracle the other arms
+    are tested against.
+
+"auto" takes the native arm when it builds; without it, numpy for scans
+of 16 or more restart segments and python below that.
+
+A scan with restart markers is split into contiguous segment ranges
+across the host pool registered with set_segment_pool (the server's
+request pool): segments are independent (DC prediction resets at RSTn)
+and each range writes its own block rows of the shared planes. The
+calling thread decodes the first range itself and takes back any range
+no worker has started, so a request thread sharing the pool with its own
+submissions cannot deadlock. The numpy arm runs its lanes in one call
+and is not split.
 
 Packed layouts, per source sampling (`DctCoefficients.layout`):
 
@@ -70,6 +83,7 @@ request on the rgb/yuv420 pixel paths.
 
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import importlib.machinery
 import importlib.util
@@ -227,8 +241,9 @@ def _be16(d: bytes, p: int) -> int:
 # decoder arm selection
 # --------------------------------------------------------------------------
 
-_DECODER_MODES = ("auto", "native", "python")
+_DECODER_MODES = ("auto", "native", "numpy", "python")
 _DECODER_MODE = "auto"
+_SEGMENT_POOL = None
 
 _ENTROPY = None  # the loaded extension, once built
 _ENTROPY_ERROR = None  # why the build failed, once it has
@@ -267,29 +282,49 @@ def native_available() -> bool:
 
 
 def set_decoder(mode: str) -> None:
-    """Pick the entropy-scan decoder arm: auto | native | python.
+    """Pick the entropy-scan decoder arm: auto | native | numpy | python.
 
-    auto takes the native arm when it builds, else python; native raises
-    when it cannot be built."""
+    auto takes the native arm when it builds, else numpy for scans of 16
+    or more restart segments and python below; native raises when it
+    cannot be built."""
     global _DECODER_MODE
     if mode not in _DECODER_MODES:
         raise ValueError(f"unknown dct decoder {mode!r}")
     _DECODER_MODE = mode
 
 
-def _resolve_name(mode: str) -> str:
-    if mode == "python":
-        return "python"
+def set_segment_pool(pool) -> None:
+    """Executor used to fan restart-segment ranges of one image out; None
+    keeps decode on the calling thread."""
+    global _SEGMENT_POOL
+    _SEGMENT_POOL = pool
+
+
+def release_segment_pool(pool) -> None:
+    """Detach `pool` if it is the registered one (a server closing its
+    pool leaves a newer server's in place)."""
+    global _SEGMENT_POOL
+    if _SEGMENT_POOL is pool:
+        _SEGMENT_POOL = None
+
+
+def _resolve_name(mode: str, nseg: int) -> str:
+    if mode in ("numpy", "python"):
+        return mode
     if mode == "native":
         if _entropy() is None:
             raise RuntimeError(f"native entropy codec unavailable: {_ENTROPY_ERROR}")
         return "native"
-    return "native" if _entropy() is not None else "python"
+    # auto: native always wins; the lockstep decoder only amortizes its
+    # per-op numpy overhead across many parallel segments
+    if _entropy() is not None:
+        return "native"
+    return "numpy" if nseg >= 16 else "python"
 
 
-def decoder_name() -> str:
-    """The arm the current mode resolves to."""
-    return _resolve_name(_DECODER_MODE)
+def decoder_name(nseg: int = 1) -> str:
+    """The arm the current mode resolves to for an nseg-segment scan."""
+    return _resolve_name(_DECODER_MODE, nseg)
 
 
 # --------------------------------------------------------------------------
@@ -532,10 +567,160 @@ def _scan_native(sc: _Scan, planes: list, bounds: list, s0: int, s1: int):
         raise _Unsupported(str(e)) from None
 
 
+def _scan_numpy(sc: _Scan, planes: list, bounds: list, s0: int, s1: int):
+    """Vectorized lockstep decode: one bit-cursor lane per segment.
+
+    Every lane advances through the same (component, block, symbol)
+    schedule; Huffman lookups become one gather through the shared LUTs
+    and bit reads become shifted 3-/4-byte window gathers. Lanes whose
+    segment holds fewer MCUs (the tail segment) or that hit EOB early go
+    inactive under a mask. Rows are padded with >= 8 zero bytes and byte
+    indices clamped per-row, reproducing _Bits' zero-pad-past-end
+    semantics without ever reading a neighbour lane. The unstuffed
+    segments are held as one int64 row each, eight bytes for every byte
+    of the scan.
+    """
+    nseg = s1 - s0
+    per = sc.restart if sc.restart else sc.total_mcus
+    segs = [sc.data[lo:hi].replace(b"\xff\x00", b"\xff")
+            for lo, hi in bounds[s0:s1]]
+    maxlen = max(len(s) for s in segs) + 8
+    rows = np.zeros((nseg, maxlen), dtype=np.uint8)
+    for i, s in enumerate(segs):
+        rows[i, : len(s)] = np.frombuffer(s, dtype=np.uint8)
+    flat = rows.reshape(-1).astype(np.int64)
+    base = np.arange(nseg, dtype=np.int64) * maxlen
+    rel = np.zeros(nseg, dtype=np.int64)  # bit cursor per lane
+
+    mcu_lo = np.arange(s0, s1, dtype=np.int64) * per
+    lane_n = np.minimum(per, sc.total_mcus - mcu_lo)
+    preds = [np.zeros(nseg, dtype=np.int64) for _ in sc.comps]
+    pflats = [p.reshape(-1) for p in planes]
+    cols = [p.shape[1] for p in planes]
+    one = np.int64(1)
+
+    def peek16():
+        idx = base + np.minimum(rel >> 3, maxlen - 3)
+        w = (flat[idx] << 16) | (flat[idx + 1] << 8) | flat[idx + 2]
+        return (w >> (8 - (rel & 7))) & 0xFFFF
+
+    def take(t):
+        idx = base + np.minimum(rel >> 3, maxlen - 4)
+        w = ((flat[idx] << 24) | (flat[idx + 1] << 16)
+             | (flat[idx + 2] << 8) | flat[idx + 3])
+        return (w >> (32 - (rel & 7) - t)) & ((one << t) - 1)
+
+    def extend(v, t):
+        ext = np.where(v < (one << (np.maximum(t, 1) - 1)),
+                       v - (one << t) + 1, v)
+        return np.where(t > 0, ext, 0)
+
+    for m in range(int(lane_n.max())):
+        active = lane_n > m
+        g = mcu_lo + m
+        my = g // sc.mcu_x
+        mx = g % sc.mcu_x
+        for ci, comp in enumerate(sc.comps):
+            dc_lut = sc.lut_stack[comp["dc"]]
+            ac_lut = sc.lut_stack[comp["ac"]]
+            for by in range(comp["v"]):
+                for bx in range(comp["h"]):
+                    bb = ((my * comp["v"] + by) * cols[ci]
+                          + (mx * comp["h"] + bx)) * 64
+                    code = dc_lut[peek16()].astype(np.int64)
+                    ln = code >> 8
+                    if np.any(active & (ln == 0)):
+                        raise _Unsupported("bad DC code")
+                    rel = rel + np.where(active, ln, 0)
+                    t = np.where(active, code & 0xFF, 0)
+                    if np.any(t > 16):
+                        raise _Unsupported("bad DC category")
+                    v = take(t)
+                    rel = rel + t
+                    preds[ci] = preds[ci] + extend(v, t)
+                    pflats[ci][bb[active]] = \
+                        preds[ci][active].astype(np.int16)
+                    kk = np.ones(nseg, dtype=np.int64)
+                    lane = active.copy()
+                    while True:
+                        alive = lane & (kk < 64)
+                        if not alive.any():
+                            break
+                        code = ac_lut[peek16()].astype(np.int64)
+                        ln = code >> 8
+                        if np.any(alive & (ln == 0)):
+                            raise _Unsupported("bad AC code")
+                        rel = rel + np.where(alive, ln, 0)
+                        rs = np.where(alive, code & 0xFF, 0)
+                        s4 = rs & 0x0F
+                        r4 = rs >> 4
+                        iszrl = alive & (s4 == 0) & (r4 == 15)
+                        iseob = alive & (s4 == 0) & (r4 != 15)
+                        isval = alive & (s4 > 0)
+                        kk = (kk + np.where(iszrl, 16, 0)
+                              + np.where(isval, r4, 0))
+                        if np.any(isval & (kk > 63)):
+                            raise _Unsupported("AC run overflow")
+                        t = np.where(isval, s4, 0)
+                        v = take(t)
+                        rel = rel + t
+                        ext = extend(v, t)
+                        tgt = bb + _ZZ[np.minimum(kk, 63)]
+                        pflats[ci][tgt[isval]] = \
+                            ext[isval].astype(np.int16)
+                        kk = kk + np.where(isval, 1, 0)
+                        lane = lane & ~iseob
+
+
 _ARMS = {
     "python": _scan_python,
     "native": _scan_native,
+    "numpy": _scan_numpy,
 }
+
+
+def _resolve(mode, nseg: int):
+    return _ARMS[_resolve_name(mode or _DECODER_MODE, nseg)]
+
+
+def _run_scan(sc: _Scan, planes: list, bounds: list, fn) -> None:
+    """Run a decoder arm, fanning contiguous segment ranges across the
+    registered pool when the scan has enough restart segments.
+
+    The numpy arm already parallelizes across segments internally; for
+    the others the submitting thread decodes chunk 0 inline, then drains
+    — cancelling an unstarted future and running its range inline — so a
+    request thread that shares the pool with these submissions can never
+    deadlock waiting on itself (the handler pool is also the request
+    executor). When a range fails, the chunks no worker started are
+    dropped and the started ones finish before the error goes up, so no
+    chunk writes into the planes after the call returns.
+    """
+    nseg = len(bounds)
+    pool = _SEGMENT_POOL
+    if pool is None or nseg < 4 or fn is _scan_numpy:
+        fn(sc, planes, bounds, 0, nseg)
+        return
+    workers = max(2, int(getattr(pool, "_max_workers", 2)))
+    nchunk = min(nseg, workers)
+    edges = [round(i * nseg / nchunk) for i in range(nchunk + 1)]
+    futs = []
+    for a, b in zip(edges[1:-1], edges[2:]):
+        if a >= b:
+            continue
+        ctx = contextvars.copy_context()
+        futs.append((a, b, pool.submit(ctx.run, fn, sc, planes, bounds,
+                                       a, b)))
+    try:
+        fn(sc, planes, bounds, edges[0], edges[1])
+        for a, b, f in futs:
+            if f.cancel():
+                fn(sc, planes, bounds, a, b)
+            else:
+                f.result()
+    finally:
+        for f in [f for _, _, f in futs if not f.cancel()]:
+            f.exception()
 
 
 # --------------------------------------------------------------------------
@@ -546,7 +731,7 @@ def decode_coefficients(buf: bytes, decoder: str = None):
     """Entropy-decode a baseline JPEG. None when out of scope.
 
     decoder overrides the module-level arm (set_decoder) for this call:
-    auto | native | python.
+    auto | native | numpy | python.
     """
     try:
         return _decode(buf, decoder)
@@ -569,7 +754,7 @@ def _decode(buf: bytes, decoder: str = None):
         np.zeros((sc.mcu_y * c["v"], sc.mcu_x * c["h"], 64), dtype=np.int16)
         for c in sc.comps
     ]
-    _ARMS[_resolve_name(decoder or _DECODER_MODE)](sc, planes, bounds, 0, len(bounds))
+    _run_scan(sc, planes, bounds, _resolve(decoder, len(bounds)))
     qy = sc.qt.get(sc.comps[0]["tq"])
     if qy is None:
         raise _Unsupported("missing quant table")
@@ -1069,7 +1254,8 @@ def _encode_scan(qb: QuantizedBlocks, mcu_y: int, mcu_x: int,
             p.astype(np.int16).reshape(p.shape[0], p.shape[1], 64))
         for p in (qb.y, qb.u, qb.v)
     ]
-    ext = _entropy() if _resolve_name(_DECODER_MODE) == "native" else None
+    # the numpy arm decodes only; its mode encodes natively where built
+    ext = None if _resolve_name(_DECODER_MODE, 1) == "python" else _entropy()
     if ext is not None:
         hdr = np.array([
             3, restart, mcu_y * mcu_x, mcu_x,

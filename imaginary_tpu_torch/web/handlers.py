@@ -321,6 +321,11 @@ class ImageService:
         self.pool = ThreadPoolExecutor(max_workers=workers,
                                        thread_name_prefix="itpu-host")
         self.pool_workers = workers
+        # restart-segmented entropy decodes fan out across this same pool
+        # (jpeg_dct._run_scan runs chunk 0 inline and reclaims queued
+        # chunks on contention, so sharing the request pool cannot
+        # deadlock it)
+        jpeg_dct.set_segment_pool(self.pool)
         if self.cost is not None:
             self.cost.bind(executor=self.executor,
                            host_view=lambda: (self.pool_workers, self._inflight))
@@ -363,6 +368,8 @@ class ImageService:
             ownership.set_fleet_qos(None)
             self._armed_fleet_qos = False
         self.executor.shutdown()
+        # a later decode in this process must not submit to a closed pool
+        jpeg_dct.release_segment_pool(self.pool)
         self.pool.shutdown(wait=False)
         if (self._device_frames is not None
                 and chain_mod.device_frame_cache() is self._device_frames):

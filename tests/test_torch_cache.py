@@ -44,6 +44,9 @@ from imaginary_tpu_torch.engine.timing import COPIES
 from imaginary_tpu_torch.params import build_params_from_query
 from imaginary_tpu_torch.web.config import ServerOptions
 from tests.conftest import FIXTURES, fixture_bytes
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 @pytest.fixture(scope="module", autouse=True)

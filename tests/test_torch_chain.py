@@ -41,6 +41,9 @@ from imaginary_tpu_torch.ops.buckets import bucket_shape
 from imaginary_tpu_torch.params import build_params_from_query as pquery
 from tests.conftest import fixture_bytes
 from tests.test_torch_plan import assert_same_plan, plan_to_dict
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 U8_TOL = 1
 SRC = (270, 480)  # config 3's chain cut to a small PNG (resize to 1/3 of the width)

@@ -335,9 +335,9 @@ def _reference_long_options() -> list:
 MISSING_OPTIONS: dict = {}
 # Options whose default or choices differ, each a recorded difference in
 # ROADMAP.md: the port's --host-spill defaults to off (the card serves
-# every request unless asked), and its --dct-native has no numpy arm.
+# every request unless asked). Every option takes the reference's choices.
 DEFAULT_DIFFERENCES = {"--host-spill": ("auto", "off")}
-CHOICE_DIFFERENCES = {"--dct-native": {"numpy"}}
+CHOICE_DIFFERENCES: dict = {}
 
 
 def _env_value(action, default) -> str:

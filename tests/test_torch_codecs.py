@@ -38,6 +38,9 @@ from imaginary_tpu_torch.codecs import EncodeOptions, pil_backend
 from imaginary_tpu_torch.errors import ImageError
 from imaginary_tpu_torch.imgtype import ImageType
 from tests.conftest import fixture_bytes, psnr
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -6,7 +6,8 @@ Tolerances:
 
 - `decode_packed`, `quality_tables`, `unpack_dct_egress` and
   `encode_quantized`: bit for bit (integer and byte outputs of the same
-  algorithm), on both entropy arms;
+  algorithm), on both entropy arms (the numpy arm in
+  `tests/test_torch_dct_arms.py`);
 - FromDctSpec (K11's plain version): 1e-3 absolute on the 0-255 scale
   (f32; the IDCT's products are summed in another order);
 - ToDctSpec (K12's plain version): int16 coefficients within 1, and at
@@ -47,6 +48,9 @@ from imaginary_tpu_torch.ops import stages as pst
 from imaginary_tpu_torch.params import build_params_from_query as pquery
 from tests.conftest import fixture_bytes
 from tests.test_torch_plan import assert_same_plan
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 F32_TOL = 1e-3
 COEF_TOL = 1
@@ -119,8 +123,14 @@ def test_decode_packed_of_the_main_path_source_is_bit_exact():
 def test_native_arm_is_built_and_chosen_by_default():
     assert pdct.native_available()
     assert pdct.decoder_name() == "native"
+    assert pdct.decoder_name(64) == "native"
+    pdct.set_decoder("numpy")
+    try:
+        assert pdct.decoder_name() == "numpy"
+    finally:
+        pdct.set_decoder("auto")
     with pytest.raises(ValueError):
-        pdct.set_decoder("numpy")
+        pdct.set_decoder("turbo")
 
 
 def test_out_of_scope_streams_answer_none():

@@ -38,6 +38,9 @@ from imaginary_tpu_torch.obs import trace as obs_trace
 from imaginary_tpu_torch.web.app import create_app
 from imaginary_tpu_torch.web.config import ServerOptions
 from tests.conftest import fixture_bytes
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 @pytest.fixture(autouse=True)

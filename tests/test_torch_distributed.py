@@ -34,6 +34,9 @@ import pytest
 from PIL import Image
 
 from tests.conftest import fixture_bytes, free_port
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUDGET_S = 200  # each subprocess case waits at most this long (the bound is 240 s)

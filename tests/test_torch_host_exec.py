@@ -42,6 +42,9 @@ from imaginary_tpu_torch.ops import plan as pplan
 from imaginary_tpu_torch.ops.plan import plan_operation
 from tests.conftest import psnr as _psnr
 from tests.test_torch_plan import assert_same_plan
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 U8_TOL = 1
 INTEGRITY_TOL, INTEGRITY_MEAN = 96, 16.0
@@ -147,8 +150,7 @@ class TestSeparableResample:
 
     @pytest.mark.parametrize("c", [1, 2, 3, 4])
     def test_native_is_bit_equal_to_the_references(self, img, native_resize, c):
-        if not jnative.resample_available():
-            pytest.skip("the reference's native resampler is not built here")
+        assert jnative.resample_available()  # built by the module's reference_native
         x = np.ascontiguousarray(np.dstack([img] * 2)[:, :, :c])
         for dh, dw, kernel in self.GEOMS:
             assert np.array_equal(native_resize(x, dh, dw, kernel),

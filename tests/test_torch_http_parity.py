@@ -65,6 +65,9 @@ from aiohttp.test_utils import TestClient, TestServer
 from PIL import Image
 
 from tests.conftest import FIXTURES, fixture_bytes
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 LARGE = "large.jpg"
 # the `url` group's origin: "{origin}" in a path is its base URL and
@@ -311,10 +314,16 @@ async def _serve(create_app, options_cls, fields, cases, origin_port, **extra):
 @pytest.fixture(scope="module")
 def answers(testdata):
     """{group: ({case: reference answer}, {case: port answer})}."""
+    from imaginary_tpu.web import placeholder as ref_placeholder
     from imaginary_tpu.web.app import create_app as ref_app
     from imaginary_tpu.web.config import ServerOptions as RefOptions
     from imaginary_tpu_torch.web.app import create_app as port_app
     from imaginary_tpu_torch.web.config import ServerOptions as PortOptions
+
+    # the reference keeps each resized placeholder for the process, so a
+    # placeholder an earlier test file rendered in this worker would come
+    # back without its spans; the port renders it every time
+    ref_placeholder._resized_placeholder.cache_clear()
 
     async def run():
         out = {}

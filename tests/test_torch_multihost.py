@@ -43,6 +43,9 @@ from imaginary_tpu_torch.obs import aggregate as agg
 from imaginary_tpu_torch.obs import trace as obs_trace
 from imaginary_tpu_torch.web.config import ServerOptions
 from tests.conftest import fixture_bytes
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -48,6 +48,9 @@ from imaginary_tpu_torch.web.app import create_app
 from imaginary_tpu_torch.web.config import ServerOptions
 from tests.conftest import FIXTURES, fixture_bytes
 from tests.test_obs import check_histograms, parse_exposition_strict
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 SLO = '{"*": {"latency_ms": 500, "latency_target": 0.99, "availability": 0.999}}'
 

@@ -49,6 +49,9 @@ from imaginary_tpu_torch.ops.buckets import bucket_shape
 from imaginary_tpu_torch.params import build_params_from_query as pquery
 from tests.conftest import fixture_bytes
 from tests.test_torch_plan import plan_to_dict
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 U8_TOL = 1
 

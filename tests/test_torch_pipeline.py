@@ -43,6 +43,9 @@ from imaginary_tpu_torch.ops import plan as pplan
 from imaginary_tpu_torch.params import build_params_from_query as pquery
 from tests.conftest import fixture_bytes, psnr
 from tests.test_torch_plan import plan_to_dict
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 U8_TOL = 1
 QUERY = {"width": "300", "height": "200"}

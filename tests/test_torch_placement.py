@@ -43,6 +43,9 @@ from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.ops.plan import plan_operation
 from imaginary_tpu_torch.options import ImageOptions
 from tests.conftest import FIXTURES
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 WAIT_S = 60
 

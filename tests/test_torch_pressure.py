@@ -43,6 +43,9 @@ from imaginary_tpu_torch.obs import trace as obs_trace
 from imaginary_tpu_torch.ops.plan import plan_operation
 from imaginary_tpu_torch.options import ImageOptions
 from imaginary_tpu_torch.web.config import ServerOptions
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 def _cfg(**kw) -> pm.PressureConfig:

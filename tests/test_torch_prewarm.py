@@ -35,6 +35,9 @@ from imaginary_tpu_torch.engine.executor import Executor, ExecutorConfig, batch_
 from imaginary_tpu_torch.ops import chain as chain_mod
 from imaginary_tpu_torch.ops.plan import choose_decode_shrink, plan_operation
 from imaginary_tpu_torch.options import ImageOptions
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 WAIT_S = 60
 
@@ -245,8 +248,7 @@ def test_jpeg_request_meets_the_warmed_yuv420_chain(monkeypatch):
     stages, so the request launches a warmed signature."""
     from imaginary_tpu_torch import codecs, pipeline
 
-    if not codecs.yuv420_supported():
-        pytest.skip("the native JPEG codec is not built here")
+    assert codecs.yuv420_supported()  # g++ builds the port's codec on first use
     chain_mod.clear_cache()
     opts = ImageOptions(width=60)
     monkeypatch.setattr(prewarm, "_COMMON", [("resize", opts, (200, 320))])

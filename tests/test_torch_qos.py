@@ -56,6 +56,9 @@ from imaginary_tpu_torch.qos.tenancy import (
 from imaginary_tpu_torch.web import middleware as pmiddleware
 from imaginary_tpu_torch.web.config import ServerOptions
 from imaginary_tpu_torch.web.middleware import GCRARateLimiter
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 def policy_doc(**overrides) -> dict:

@@ -47,6 +47,9 @@ from imaginary_tpu_torch.params import build_params_from_query as pquery
 from tests.conftest import fixture_bytes
 from tests.gen_fixtures import _smart_crop_array
 from tests.test_torch_plan import assert_same_plan
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 SAL_ATOL = 1e-5
 II_RTOL = 1e-5

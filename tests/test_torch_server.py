@@ -48,6 +48,9 @@ import torch
 from imaginary_tpu_torch import codecs as pcodecs
 from imaginary_tpu_torch.web.app import make_server
 from tests.conftest import FIXTURES, fixture_bytes
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

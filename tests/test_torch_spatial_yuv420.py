@@ -65,6 +65,21 @@ from imaginary_tpu_torch.ops.stages import (
     ToYuv420Spec,
 )
 from imaginary_tpu_torch.params import build_params_from_query as pquery
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _reference_wire_unlabelled():
+    """The reference's lanes book its WIRE ledger by device; leave that
+    process-wide ledger unlabelled for the next test file in this worker
+    (the reference's exposition tests parse every label it renders)."""
+    yield
+    from imaginary_tpu.engine.timing import WIRE as reference_wire
+
+    reference_wire.reset()
+
 
 WAIT_S = 120
 U8_TOL = 1  # LSB, against the JAX package

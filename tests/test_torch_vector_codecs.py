@@ -36,6 +36,9 @@ from imaginary_tpu_torch import codecs as pcodecs
 from imaginary_tpu_torch.codecs import pdf_mini as ppdf
 from imaginary_tpu_torch.codecs import vector_backend as pvb
 from tests.conftest import fixture_bytes
+from tests.test_torch_refnative import reference_native  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("reference_native")
 
 
 def _meta(m) -> dict:
