@@ -9,8 +9,15 @@ Phases, in order; any failure raises and exits non-zero:
 
 1. environment: card name and power limit, torch and CUDA versions;
 2. build: the twelve CUDA sources of the thirteen kernels (nvcc, sm_90a,
-   in parallel), the native JPEG codec and the native entropy codec of the
-   DCT transport (g++), with the time each took;
+   in parallel), the native host codec (JPEG, PNG, WEBP, GIF and TIFF;
+   the build line names each library's link route and `FORMATS`) and the
+   native entropy codec of the DCT transport (g++), with the time each
+   took; then (2b) the host codec on CODEC_SEED's inputs against
+   CODEC_DIGESTS, pinned from the JAX package on the CPU by
+   tests/test_torch_native_codecs.py: the GIF bytes (the in-tree codec),
+   the decoded pixels of a PNG, a palette PNG, 16-bit PNGs with and
+   without gAMA and TIFFs (lossless), and for lossy WEBP its dims and
+   status;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (config 1: B=1 and B=16; config 2's orientation
    kernel: the /rotate chain's 1080p buckets at B=1 and B=32 in each
@@ -118,8 +125,10 @@ Phases, in order; any failure raises and exits non-zero:
    window; every answer 200 with the right MIME type and size; the
    WEBP within a PSNR bound of the same chain's array on the CPU; p50/p99
    of one client, then requests per second, p50/p99 and the busy share
-   from 8 client threads in two windows; and the host's Pillow PNG
-   decode and WEBP encode of the same bytes on the host clock;
+   from 8 client threads in two windows; and the host steps of one
+   request on the host clock (median of 5): the PNG decode and WEBP
+   encode through the port's native module, and Pillow's on the same
+   bytes beside them for the record;
 8. config 4's path (BASELINE.json config 4): the server (--max-batch 16
    --batch-form-ms 5) serving /smartcrop?width=300&height=300 on
    bench_firehose.py's stream (24 images from seed 11, 420-780 x
@@ -2584,7 +2593,7 @@ def config3_phase(png: bytes) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from imaginary_tpu_torch import codecs, kernels
-    from imaginary_tpu_torch.codecs import EncodeOptions
+    from imaginary_tpu_torch.codecs import EncodeOptions, native_backend
     from imaginary_tpu_torch.imgtype import ImageType
     from imaginary_tpu_torch.ops import chain
     from imaginary_tpu_torch.ops.text import _load_font, _parse_font_spec, _resolve_font_path
@@ -2681,12 +2690,23 @@ def config3_phase(png: bytes) -> dict:
     from imaginary_tpu_torch.params import build_params_from_query
 
     o3 = build_params_from_query({"operations": json.dumps(CONFIG3_OPS)})
+    if {codecs.ROUTES[t] for t in (ImageType.PNG, ImageType.WEBP)} != {"native"}:
+        raise AssertionError(f"config 3's codecs are not native: {codecs.routes()}")
+
+    def pil_webp():
+        out = io.BytesIO()
+        Image.fromarray(cpu).save(out, "WEBP", quality=webp_opts.effective_quality())
+
     steps = {
-        "png_decode": host_ms(lambda: codecs.decode(png)),
+        "png_decode": host_ms(lambda: native_backend.decode(png, ImageType.PNG)),
         "plan": host_ms(lambda: pipeline._build_pipeline_plan(
             o3, *CONFIG3_SRC, 0, 3, ImageType.PNG)),
         "chain_on_card": host_ms(lambda: chain.run_single(arr, p, device=DEVICE)),
-        "webp_encode": host_ms(lambda: codecs.encode(cpu, webp_opts)),
+        "webp_encode": host_ms(lambda: native_backend.encode(cpu, webp_opts)),
+        # Pillow's calls on the same bytes, for the record only
+        "png_decode_pillow": host_ms(
+            lambda: np.asarray(Image.open(io.BytesIO(png)).convert("RGB"))),
+        "webp_encode_pillow": host_ms(pil_webp),
     }
     busy, summed, by_name = busy_union_us(prof)
     lat_load = [r[1] for r in results]
@@ -9677,6 +9697,225 @@ def multihost_phase(smi: str) -> dict:
     return out
 
 
+# --- phase 2b: the host codec against digests pinned from the JAX package ---
+
+CODEC_SEED = 27
+CODEC_DIMS = (240, 320)  # (h, w) of the seeded frames
+# sha256 of each case (`codec_digests`): GIF bytes, else (h, w, c) and the
+# decoded pixels. tests/test_torch_native_codecs.py holds them equal to the
+# JAX package's native codec on the CPU.
+CODEC_DIGESTS = {
+    "gif-rgb": "98ff3936c083adfbd4db8fb96300704367be5cb71c79ce26c6337106b1c79399",
+    "gif-rgba": "7485fff157ff67326de1b19d62108341588c5962a95be317370a5a76309c182a",
+    "png-rgba": "4c5a21769d22934ae8d1b7345619119ebb9ad29d49c5e4c96671efbee6cf2f98",
+    "png-palette-rgb": "68cedde084e7175685e8ca62f6f37dafe96aa50a3f053e323c3692932170a2a2",
+    "png-palette-rgba": "eee6c11eee0e11c35ce31006408a89b8847f995525488ba8e2c6b9d2edf3b26f",
+    "png16-rgba-gama": "c83c9d90c2395ecfbf6fcbeb5700362b7b6ac5ab4942d7944a086cd150433ca4",
+    "tiff-rgba": "4c5a21769d22934ae8d1b7345619119ebb9ad29d49c5e4c96671efbee6cf2f98",
+    "tiff16-gray": "426daff8718e347b6fe4cabd468793e36a31cf17352b804627dc46a5c8549827",
+}
+# a lossy case's (h, w, c) after an encode and decode
+CODEC_WEBP_SHAPES = {"webp-q50-rgb": [240, 320, 3], "webp-q90-rgba": [240, 320, 4]}
+# The 16-bit PNGs without a gAMA chunk: libpng's simplified reader takes
+# their samples as linear light and converts them to 8-bit sRGB, and that
+# rounding moved by 1 LSB on a few samples between its releases (1.6.39
+# against 1.6.53 and 1.6.56). So their decoded pixels (16x16 frames) are
+# pinned whole, base64 of the (h, w, c) uint8 array the JAX package gives
+# with libpng CODEC_LIBPNG_PIN: exact where the port links that release,
+# within 1 LSB elsewhere, the differing samples counted.
+CODEC_LIBPNG_PIN = 10639
+CODEC_PIXEL_SHAPES = {"png16-rgb": (16, 16, 3), "png16-gray-alpha": (16, 16, 4)}
+CODEC_PIXELS = {
+    "png16-rgb": (
+        "eP+S11VB03Ta1bHqqvCym8zwyf7nd/lWct9tvbD0sserrfivVLY9peJfzcO9x+HvKc+c9bf+86vH4tnY"
+        "wIekw0N20+dbzsTLXIUilLxziX/qfOx0RMvHsNEe/HwGvcz0lcE/w/qrzpjybj12gLV5nLtTvMGvsXjr"
+        "TPnaPLbxSd7LzeHjfXLypL+Y4dTpb7DPloibnC3P8pa+pZSvsy7T9/6OzevvCqvr88bKjsrXxZTHj6O8"
+        "38f9s/i+7O5V6O/QxMTUDJyMKrzn0Bfx/PW3eEfKt+LYgKr3omjN6JyM27GwcpvZZU3G+87R/ejM/sbS"
+        "w2bUtpI72ffb0Vz8dMHElYrcRuz+kJeUe9zGn/W80q2Z6XnUZ+jVgeSlNYpG88ikdi7F+tPJ6ri/a43+"
+        "5xyv8ODc9KJd+MFxv4GWcYrFevXwL82WF4TjbWAlav38cnadtIXmgWP0oeDojdqppKScjXvF7Mi46XJA"
+        "+cmhT4vDxvRQwO7S8fb+//CV7GG5gK/f+O24n9fav7nh6ivmutjuzNa5wsbxR5y4mMqS4bO3QjY2qJ73"
+        "Z/r7eN+bY9381tmPcIjb0Gvh/s5qfNDqc+DiycVfx3p8sGmxhzOixJmv+jGGyELEZMbyw3nsbW6u2HF8"
+        "5G+mytKu5d647iy6tWjN7Ln3be+7sPbC1Oj0XOX2/vrB+z5NgPKyrqqa54CmI6DmzdFvXPBomRVF/Haj"
+        "fNrNdeyMsd7iruLJ55l8YmmWbvOjfpnnz6u5xsWyv99Jmpjn7tZZ9ayny+LlqlJh+WP15JJge/xn/Md3"
+        "vpO+n8+14ax092ekppOYp9Gj/LqQ+OTl3M2ueEaj0WuxINabjpi7up6IV7DQl3K9Q+KNvBPKy+WEkrun"
+        "nq/GQ3yomVLgz/L6qN7vzvQ2iu72/66ScePpet1Zx7pV2NEt3tPJebnvgff58Nrb5ny8tj2sKuyWo9m4"
+        "7KfA7YnIbeC4fIjkooOd/07lKCznnGxDq4yKa163rPx10OrDu/D1zMh90I252l/y"
+    ),
+    "png16-gray-alpha": (
+        "eHh4/tfX1xfT09Mt1dXVcqqqqt+bm5ucycnJ/Xd3d/JycnK9vb29cbKyspOtra3xVFRUeqWlpcPNzc2O"
+        "x8fHwikpKaH19fV78/PzaeLi4rLAwMA/w8PDDtPT083Ozs6PXFxcPZSUlIKJiYk3fHx81kRERJqwsLCk"
+        "/Pz8Nb29vZyVlZWLw8PD9M7OzlFubm4LgICAeJycnIG8vLyKsbGxMUxMTPI8PDx6SUlJvc3NzcN9fX0s"
+        "pKSkiOHh4atvb29xlpaWQJycnAby8vJQpaWlTbOzswb39/f+zc3N1QoKCmrz8/OTjo6OmMXFxU2Pj49f"
+        "39/flLOzs/Hs7Ozb6Ojo3cTExI4MDAxWKioqg9DQ0AH8/PzpeHh4D7e3t8SAgIBpoqKiI+jo6Ffb29tz"
+        "cnJyVWVlZRL7+/uf/f39z/7+/pLDw8Mitra2S9nZ2e3R0dEbdHR0ipWVlUJGRkbWkJCQUHt7e7ifn5/p"
+        "0tLSbenp6TJnZ2fOgYGBxjU1NULz8/OVdnZ2Bvr6+qnq6up8a2trRefn5wLw8PC/9PT0Xvj4+Iq/v785"
+        "cXFxQnp6eukvLy+eFxcXPG1tbR5qamr8cnJyL7S0tD2BgYEgoaGhv42NjbSkpKRgjY2NNOzs7JXp6ekr"
+        "+fn5mE9PT0TGxsbowMDA2/Hx8e3////g7OzsH4CAgHD4+Pjan5+fr7+/v37q6uoFurq6sczMzK3CwsKT"
+        "R0dHV5iYmJjh4eF1QkJCCKioqFlnZ2fzeHh4vmNjY7nW1tazcHBwQNDQ0Cb+/v6gfHx8pHNzc8DJycmQ"
+        "x8fHMrCwsCSHh4cIxMTEU/r6+gfIyMgNZGRkksPDwzFtbW0o2NjYKuTk5CnKysqm5eXlvO7u7gW1tbUk"
+        "7Ozsfm1tbd2wsLDr1NTU0FxcXMj+/v70+/v7C4CAgOSurq5o5+fnOCMjI1vNzc2lXFxc35mZmQH8/Pwv"
+        "fHx8tXV1ddexsbG9rq6uw+fn51NiYmIkbm5u5n5+flPPz89rxsbGkb+/v76amppS7u7urvX19WvLy8vE"
+        "qqqqFfn5+SDk5ORLe3t7+fz8/JW+vr5Mn5+fouHh4Wv39/cjpqamTKenp6T8/Px/+Pj4x9zc3J14eHgP"
+        "0dHRJiAgIK6Ojo5Surq6WFdXV3GXl5csQ0NDxLy8vAHLy8vJkpKSgZ6ennBDQ0M0mZmZFc/Pz+OoqKi8"
+        "zs7O5oqKitv///9vcXFxxnp6ervHx8d/2NjYpd7e3qd5eXl+gYGB7/Dw8LXm5uY0tra2CyoqKtijo6Oz"
+        "7OzsZe3t7UFtbW3AfHx8QKKiojv///8TKCgoBZycnCerq6tEa2trHKysrPnQ0NDTu7u738zMzJbQ0NBG"
+        "2traHQ=="
+    ),
+}
+
+
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    import struct
+    import zlib
+
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
+def png16(a, gamma: int = 0) -> bytes:
+    """A non-interlaced 16-bit PNG of uint16 a [H, W, C] (C = 1 gray, 2
+    gray + alpha, 3 RGB, 4 RGBA), with a gAMA chunk of `gamma` (in
+    1/100000) when it is not 0."""
+    import struct
+    import zlib
+
+    h, w, c = a.shape
+    raw = b"".join(b"\x00" + a[y].astype(">u2").tobytes() for y in range(h))
+    ihdr = struct.pack(">IIBBBBB", w, h, 16, {1: 0, 2: 4, 3: 2, 4: 6}[c], 0, 0, 0)
+    gama = _png_chunk(b"gAMA", struct.pack(">I", gamma)) if gamma else b""
+    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr) + gama
+            + _png_chunk(b"IDAT", zlib.compress(raw)) + _png_chunk(b"IEND", b""))
+
+
+def tiff_bytes(a) -> bytes:
+    """An uncompressed little-endian TIFF of a [H, W, C] (uint8 or
+    uint16; C = 1 gray, 3 RGB, 4 RGBA with unassociated alpha)."""
+    import struct
+
+    h, w, c = a.shape
+    bits = a.dtype.itemsize * 8
+    data = a.astype(f"<u{a.dtype.itemsize}").tobytes()
+    # BitsPerSample holds one value inline, else points past the strip
+    tags = [(256, 4, 1, w), (257, 4, 1, h), (258, 3, c, bits if c == 1 else 8 + len(data)),
+            (259, 3, 1, 1), (262, 3, 1, 1 if c == 1 else 2), (273, 4, 1, 8),
+            (277, 3, 1, c), (278, 4, 1, h), (279, 4, 1, len(data))]
+    if c == 4:
+        tags.append((338, 3, 1, 2))
+    body = data + (struct.pack(f"<{c}H", *[bits] * c) if c > 1 else b"")
+    ifd = struct.pack("<H", len(tags)) + b"".join(
+        struct.pack("<HHII", *t) for t in tags) + struct.pack("<I", 0)
+    return b"II*\x00" + struct.pack("<I", 8 + len(body)) + body + ifd
+
+
+def codec_frames() -> dict:
+    """The seeded frames of the codec check: a smooth 320x240 RGBA frame
+    (an alpha ramp across it, alpha under 128 on its left half) with noise
+    of +-6, its RGB part, and 16-bit noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(CODEC_SEED)
+    h, w = CODEC_DIMS
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([xx * 255 // w, yy * 255 // h, (xx + yy) * 255 // (w + h),
+                     xx * 255 // (w - 1)], axis=-1)
+    rgba = np.clip(base + rng.integers(-6, 7, size=base.shape), 0, 255).astype(np.uint8)
+    rgba[..., 3] = base[..., 3]
+    return {"rgba": rgba, "rgb": np.ascontiguousarray(rgba[..., :3]),
+            "u16": rng.integers(0, 65536, size=(h // 4, w // 4, 4), dtype=np.uint16)}
+
+
+def codec_digests(ext) -> tuple:
+    """(digests, webp shapes, pixels) of the codec cases through `ext`, a
+    native codec module with the JAX package's interface (the port's
+    `_itpu_torch_codecs` or the JAX package's `_imaginary_codecs`): decode
+    (bytes, fmt) and encode(buf, h, w, c, fmt, quality, compression,
+    progressive, palette, speed). pixels holds CODEC_PIXEL_SHAPES' cases
+    as uint8 arrays."""
+    import numpy as np
+
+    def enc(a, fmt, quality=80, interlace=0, palette=0, speed=0):
+        h, w, c = a.shape
+        return ext.encode(np.ascontiguousarray(a), h, w, c, fmt, quality, 6,
+                          interlace, palette, speed)
+
+    def pixels(buf, fmt):
+        data, h, w, c, _, _ = ext.decode(buf, fmt)
+        return [h, w, c], data
+
+    def digest(buf, fmt):
+        shape, data = pixels(buf, fmt)
+        return hashlib.sha256(repr(shape).encode() + data).hexdigest()
+
+    f = codec_frames()
+    u16 = f["u16"]
+    out = {
+        "gif-rgb": hashlib.sha256(enc(f["rgb"], "gif")).hexdigest(),
+        "gif-rgba": hashlib.sha256(enc(f["rgba"], "gif")).hexdigest(),
+        "png-rgba": digest(enc(f["rgba"], "png"), "png"),
+        "png-palette-rgb": digest(enc(f["rgb"], "png", palette=1), "png"),
+        "png-palette-rgba": digest(enc(f["rgba"], "png", interlace=1, palette=1, speed=5),
+                                   "png"),
+        "png16-rgba-gama": digest(png16(u16, gamma=45455), "png"),
+        "tiff-rgba": digest(enc(f["rgba"], "tiff"), "tiff"),
+        "tiff16-gray": digest(tiff_bytes(u16[..., :1]), "tiff"),
+    }
+    webp = {"webp-q50-rgb": pixels(enc(f["rgb"], "webp", quality=50), "webp")[0],
+            "webp-q90-rgba": pixels(enc(f["rgba"], "webp", quality=90), "webp")[0]}
+    pix = {}
+    for name, a in (("png16-rgb", u16[:16, :16, :3]), ("png16-gray-alpha", u16[:16, :16, :2])):
+        shape, data = pixels(png16(a), "png")
+        pix[name] = np.frombuffer(data, np.uint8).reshape(shape)
+    return out, webp, pix
+
+
+def pinned_pixels(name: str):
+    """CODEC_PIXELS[name] as its uint8 array."""
+    import base64
+
+    import numpy as np
+
+    return np.frombuffer(base64.b64decode(CODEC_PIXELS[name]), np.uint8).reshape(
+        CODEC_PIXEL_SHAPES[name])
+
+
+def codec_phase() -> dict:
+    """The port's native codec on the seeded cases against the JAX
+    package's answers on the CPU; a mismatch fails the run."""
+    import numpy as np
+
+    from imaginary_tpu_torch.codecs import native_backend
+
+    t0 = time.perf_counter()
+    ext = native_backend.extension()
+    got, webp, pix = codec_digests(ext)
+    bad = sorted(k for k in CODEC_DIGESTS if got.get(k) != CODEC_DIGESTS[k])
+    if bad or set(got) != set(CODEC_DIGESTS):
+        raise AssertionError(f"host codec digests differ from the JAX package's: {bad} "
+                             f"(got {got})")
+    if webp != CODEC_WEBP_SHAPES:
+        raise AssertionError(f"WEBP round trips {webp}, want {CODEC_WEBP_SHAPES}")
+    lsb = 0 if ext.LIBPNG == CODEC_LIBPNG_PIN else 1
+    linear = {}
+    for name in CODEC_PIXEL_SHAPES:
+        want = pinned_pixels(name)
+        if pix[name].shape != want.shape:
+            raise AssertionError(f"{name}: {pix[name].shape}, want {want.shape}")
+        d = np.abs(pix[name].astype(np.int16) - want)
+        linear[name] = {"max_abs": int(d.max()), "differing": int((d > 0).sum()),
+                        "samples": int(d.size)}
+        if d.max() > lsb:
+            raise AssertionError(f"{name}: {linear[name]} against the JAX package's pixels "
+                                 f"(libpng {ext.LIBPNG}, pinned with {CODEC_LIBPNG_PIN}; "
+                                 f"bound {lsb} LSB)")
+    secs = time.perf_counter() - t0
+    log(f"  host codec: {len(got)} digests equal to the JAX package's "
+        f"({', '.join(sorted(got))}); WEBP {webp}; 16-bit linear PNGs against the JAX "
+        f"package's pixels (libpng {ext.LIBPNG}, pinned with {CODEC_LIBPNG_PIN}, bound "
+        f"{lsb} LSB): {linear}; {secs:.2f} s")
+    return {"digests": got, "webp": webp, "linear_png16": linear, "libpng": ext.LIBPNG,
+            "seconds": secs}
+
+
 # the keys of a W-shard form's timing that the kernels line carries
 SHARD_FORM_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shards",
                    "shard_shape", "ms_over_whole", "max_abs_err")
@@ -9743,8 +9982,12 @@ def main() -> int:
         raise codec_box["error"]
     log(f"  kernels: {time.monotonic() - t0:.1f} s wall for "
         + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in built.items()))
-    _, codec_secs, codec_route = codec_box["result"]
-    log(f"  native codec: {codec_secs:.1f} s, libjpeg: {codec_route or 'an earlier build'}")
+    _, codec_secs, _ = codec_box["result"]
+    from imaginary_tpu_torch.codecs import native_backend
+
+    codec_ext = native_backend.extension()
+    log(f"  native codec: {codec_secs:.1f} s, FORMATS {codec_ext.FORMATS}; linked: "
+        f"{codec_ext.LINKED}")
     from imaginary_tpu_torch.codecs import jpeg_dct
 
     _, entropy_secs = codec_box["entropy"]
@@ -9753,8 +9996,11 @@ def main() -> int:
     if arm != "native":
         raise AssertionError(f"the entropy codec resolved to the {arm} arm")
     report["build"] = {k: {"seconds": v["seconds"], "log": v["log"]} for k, v in built.items()}
-    report["build"]["codec"] = {"seconds": codec_secs, "libjpeg": codec_route}
+    report["build"]["codec"] = {"seconds": codec_secs, "formats": codec_ext.FORMATS,
+                                "linked": native_backend.linked()}
     report["build"]["entropy"] = {"seconds": entropy_secs, "arm": arm}
+    phase_log("== phase 2b: the host codec against the JAX package's digests")
+    report["codec"] = codec_phase()
 
     rng = np.random.default_rng(SEED)
     phase_log("== phase 3: kernels against their plain versions")

@@ -2,10 +2,12 @@
 YUV 4:2:0 planes, plus the JPEG metadata carry.
 
 The port's own copy of the parts of `imaginary_tpu/codecs` that its
-slices use. The backend is chosen by format, never by failure: JPEG goes
-to the native extension (`native_backend`, libjpeg, also the packed-YUV
-transport), PNG, WEBP, GIF and TIFF to Pillow (`pil_backend`); a native
-JPEG error never retries in Pillow. SVG, PDF, HEIF and AVIF go to the
+slices use. The backend is chosen by format, never by failure: JPEG, PNG,
+WEBP, GIF and TIFF go to the native extension (`native_backend`: libjpeg,
+libpng, libwebp, libtiff and an in-tree GIF codec, also the packed-YUV
+transport), as the reference's native build takes them; a native error
+never retries in Pillow, which reads only /info's header metadata and
+writes AVIF's first rung (`pil_backend`). SVG, PDF, HEIF and AVIF go to the
 host's loaders (`vector_backend`: librsvg, poppler-glib, libheif) by the
 reference's routes, with only the reference's own second rungs (PDF:
 `pdf_mini` after poppler; AVIF: libheif after Pillow's plugin); a format
@@ -248,10 +250,10 @@ def insert_jpeg_segments(jpeg: bytes, segs: list) -> bytes:
 # The codec route of each format the port decodes and encodes.
 ROUTES = {
     ImageType.JPEG: "native",
-    ImageType.PNG: "pil",
-    ImageType.WEBP: "pil",
-    ImageType.GIF: "pil",
-    ImageType.TIFF: "pil",
+    ImageType.PNG: "native",
+    ImageType.WEBP: "native",
+    ImageType.GIF: "native",
+    ImageType.TIFF: "native",
 }
 
 
@@ -277,13 +279,8 @@ NEVER_ENCODED = (ImageType.PDF, ImageType.SVG)
 def _backend(t: ImageType, what: str):
     """The raster backend of format t; PDF and SVG targets answer the
     reference's 400, a format no backend knows 501."""
-    route = ROUTES.get(t)
-    if route == "native":
+    if ROUTES.get(t) == "native":
         return _native()
-    if route == "pil":
-        from imaginary_tpu_torch.codecs import pil_backend
-
-        return pil_backend
     if what == "encoding" and t in NEVER_ENCODED:
         raise CodecError(f"Cannot encode image: unsupported format {t.value}", 400)
     raise CodecError(f"{what} {t.value} is not ported to the PyTorch/CUDA package yet", 501)
@@ -460,7 +457,7 @@ def _encode_avif(arr: np.ndarray, opts: EncodeOptions) -> bytes:
     from imaginary_tpu_torch.codecs import pil_backend
 
     try:
-        return pil_backend.encode(arr, opts)
+        return pil_backend.encode_avif(arr, opts)
     except ImageError:
         from imaginary_tpu_torch.codecs import vector_backend as vb
 
@@ -475,7 +472,7 @@ def _encode_avif(arr: np.ndarray, opts: EncodeOptions) -> bytes:
 def probe(buf: bytes) -> ImageMetadata:
     """The rich header metadata /info reports (colour space, ICC flag and
     the decoded channel count), from Pillow's header parse as the
-    reference takes it (native_backend.py:137-149); a JPEG Pillow cannot
+    reference takes it (native_backend.py:137-149); an image Pillow cannot
     open falls back to the native header parser. Nothing loads pixels."""
     if not buf:
         raise CodecError("Cannot retrieve image metadata: empty buffer", 400)
@@ -488,9 +485,7 @@ def probe(buf: bytes) -> ImageMetadata:
     try:
         return pil_backend.metadata(buf, t)
     except CodecError:
-        if ROUTES.get(t) != "native":
-            raise
-    return _native().probe_fast(buf, t)
+        return _native().native_probe(buf, t)
 
 
 def probe_fast(buf: bytes) -> ImageMetadata:
@@ -501,10 +496,7 @@ def probe_fast(buf: bytes) -> ImageMetadata:
     t = determine_image_type(buf)
     if t in SPECIAL_TYPES:
         return _probe_special(buf, t)
-    backend = _backend(t, "probing")
-    if backend is _native():
-        return backend.probe_fast(buf, t)
-    return backend.probe(buf, t)
+    return _backend(t, "probing").probe_fast(buf, t)
 
 
 def _pil_header(buf: bytes, t: ImageType) -> ImageMetadata:

@@ -1,10 +1,14 @@
-"""Native JPEG codec backend of the port (JPEG only: `codecs._backend`
-routes every other format elsewhere).
+"""Native raster codec backend of the port: JPEG, PNG, WEBP, GIF and TIFF.
 
 Wraps the `_itpu_torch_codecs` extension (`imaginary_tpu_torch/native/
-codecs.cpp`, libjpeg, all codec work with the GIL released). The extension
-is built with g++ at first use into `imaginary_tpu_torch/_build/` and
-loaded from there; a failed build raises, there is no other decoder.
+codecs.cpp`: libjpeg, libpng, libwebp, libtiff, an in-tree GIF codec and
+the median-cut palette, all codec work with the GIL released), the port's
+copy of the reference's `native_backend`. The extension is built with g++
+at first use into `imaginary_tpu_torch/_build/` and loaded from there; a
+failed build raises, there is no other decoder and no partial build.
+Pillow appears only in the probes, as in the reference: its header parse
+is /info's first choice, and the hot path's fallback where the native
+header parser refuses a file.
 """
 
 from __future__ import annotations
@@ -125,8 +129,17 @@ def resize_separable(arr: np.ndarray, dst_h: int, dst_w: int,
     return np.frombuffer(out, dtype=np.uint8).reshape(dst_h, dst_w, c)
 
 
+def linked() -> dict:
+    """{library: route} of the loaded build (its `LINKED`), e.g.
+    {"png": "system libpng16.so.16", ...} or a wheel library's path."""
+    return dict(part.split(": ", 1) for part in extension().LINKED.split("; "))
+
+
 def decode(buf: bytes, t: ImageType, shrink: int = 1) -> DecodedImage:
-    denom = shrink if shrink in (2, 4, 8) else 1
+    """RGB or RGBA pixels; shrink in {2, 4, 8} is JPEG's DCT scaling, other
+    formats decode at full size (libpng's simplified reader converts any
+    bit depth, gamma and palette to 8-bit sRGB)."""
+    denom = shrink if (t is ImageType.JPEG and shrink in (2, 4, 8)) else 1
     try:
         pixels, h, w, c, orientation, has_alpha = extension().decode(buf, t.value, denom)
     except ValueError as e:
@@ -140,14 +153,28 @@ def encode(arr: np.ndarray, opts: EncodeOptions) -> bytes:
     h, w, c = arr.shape
     try:
         return extension().encode(arr, h, w, c, opts.type.value,
-                                  opts.effective_quality(),
-                                  1 if opts.interlace else 0)
+                                  opts.effective_quality(), opts.effective_compression(),
+                                  1 if opts.interlace else 0,
+                                  1 if opts.palette else 0, max(0, opts.speed))
     except ValueError as e:
         raise CodecError(f"Cannot encode image: {e}", 400) from None
 
 
 def probe_fast(buf: bytes, t: ImageType) -> ImageMetadata:
-    """Dims/orientation/subsampling from the JPEG header alone."""
+    """Dims/orientation (and JPEG subsampling) from the header alone, GIL
+    released; Pillow's header probe where the native parser refuses the
+    file (the reference's rule)."""
+    try:
+        return native_probe(buf, t)
+    except CodecError:
+        pass
+    from imaginary_tpu_torch.codecs import pil_backend
+
+    return pil_backend.probe(buf, t)
+
+
+def native_probe(buf: bytes, t: ImageType) -> ImageMetadata:
+    """The native header parser's answer, or its 400."""
     try:
         w, h, c, has_alpha, orientation, subsampling = extension().probe(buf, t.value)
     except ValueError as e:

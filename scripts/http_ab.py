@@ -24,7 +24,9 @@ into its `_build/`). A run:
   p99, mean and largest batch, and the card's busy share;
 - with `--config3`, runs `chip_smoke.config3_phase()` on the seeded 4K
   PNG (phase 7: one client, then 8 clients in three windows): the one
-  client's p50, req/s (median of the windows), p50 and p99 under load.
+  client's p50 and latencies, req/s (median of the windows), p50 and p99
+  under load, and the host steps of one request (the PNG decode, the
+  plan, the chain, the WEBP encode; median of 5 on the host clock).
 
 Each run prints one JSON line; all of them are also written to
 chip_smoke_out/http_ab.json. The card's name and power limit lead the
@@ -87,7 +89,9 @@ def child(tree: str, serial: int, config3: bool = False) -> dict:
         extra["phase7"] = {"p50_ms_one_client": p7["p50_ms_one_client"],
                            "rps": p7["load"]["rps"],
                            "rps_by_window": p7["load"]["rps_by_window"],
-                           "p50_ms": p7["load"]["p50_ms"], "p99_ms": p7["load"]["p99_ms"]}
+                           "p50_ms": p7["load"]["p50_ms"], "p99_ms": p7["load"]["p99_ms"],
+                           "serial_ms": p7["serial_ms"]["config3"],
+                           "host_steps_ms": p7["host_steps_ms"]}
     return {
         "tree": tree, "build_s": build_s,
         "config1_serial": {"n": serial, "p50_ms": float(np.percentile(lat, 50)),

@@ -511,19 +511,13 @@ def test_delay_holds_the_request(site):
     ("/flip?type=png", "test.png", ("decode", "transform", "encode")),
     ("/resize?width=100", "imaginary.jpg", ("decode",)),
 ], ids=["png-flip", "jpeg-resize"])
-def test_copies_for_one_request_equal_the_references(path, name, stages, monkeypatch):
+def test_copies_for_one_request_equal_the_references(path, name, stages):
     """One request's decode (and, on the exact PNG flip, transform and
     encode) bytes and events, equal to the reference's on the same
-    request. The PNG request runs the reference's Pillow backend, as the
-    port encodes PNG, since the encode stage books the body's length; the
-    JPEG one its native backend, whose packed 4:2:0 decode the port's
-    matches."""
-    from imaginary_tpu import codecs as ref_codecs
-    from imaginary_tpu.codecs import pil_backend as ref_pil
+    request. Both run their native codecs: the encode stage books the
+    body's length, which is the same PNG from the same libpng writer, and
+    the JPEG's packed 4:2:0 decode is the same."""
     from imaginary_tpu.engine.timing import COPIES as REF_COPIES
-
-    if name.endswith(".png"):
-        monkeypatch.setattr(ref_codecs, "_BACKEND", ref_pil)
 
     def one(runner, ledger):
         async def fn(client, _):

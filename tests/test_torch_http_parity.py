@@ -320,10 +320,18 @@ def answers(testdata):
     from imaginary_tpu_torch.web.app import create_app as port_app
     from imaginary_tpu_torch.web.config import ServerOptions as PortOptions
 
+    from imaginary_tpu.engine.timing import WIRE as REF_WIRE
+    from imaginary_tpu_torch.engine.timing import WIRE
+
     # the reference keeps each resized placeholder for the process, so a
     # placeholder an earlier test file rendered in this worker would come
     # back without its spans; the port renders it every time
     ref_placeholder._resized_placeholder.cache_clear()
+    # each process's link ledger starts empty: bytes an earlier test file
+    # moved over several devices in this worker add `wire_bytes_by_device`
+    # to one app's /health and not the other's
+    WIRE.reset()
+    REF_WIRE.reset()
 
     async def run():
         out = {}

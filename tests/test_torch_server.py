@@ -378,8 +378,8 @@ def test_index_and_health(server):
                                             "gather", "orient", "blur", "composite", "gray",
                                             "saliency", "window_argmax", "from_dct",
                                             "to_dct", "blur_halo"}
-    assert stats["codecs"] == {"jpeg": "native", "png": "pil", "webp": "pil",
-                               "gif": "pil", "tiff": "pil"}
+    assert stats["codecs"] == {"jpeg": "native", "png": "native", "webp": "native",
+                               "gif": "native", "tiff": "native"}
     ex = stats["executor"]
     assert {"items", "batches", "groups", "avg_batch", "max_group", "queue_depth",
             "device_failures", "batch_form_p99_ms", "dispatch_wait_p99_ms"} <= set(ex)
@@ -557,7 +557,8 @@ def test_import_leaves_jax_and_the_reference_out():
         "import imaginary_tpu_torch.web.ingress, imaginary_tpu_torch.web.workers\n"
         "import imaginary_tpu_torch.fleet.shmcache, imaginary_tpu_torch.fleet.ipc\n"
         "import imaginary_tpu_torch.fleet.ownership, imaginary_tpu_torch.obs.aggregate\n"
-        "import imaginary_tpu_torch.codecs.png_writer\n"
+        "import imaginary_tpu_torch.codecs.native_backend, imaginary_tpu_torch.codecs.pil_backend\n"
+        "imaginary_tpu_torch.codecs.native_backend.extension()\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "             or m == 'imaginary_tpu' or m.startswith('imaginary_tpu.'))\n"
         "print(','.join(bad))\n"
