@@ -17,7 +17,14 @@ Phases, in order; any failure raises and exits non-zero:
    tests/test_torch_native_codecs.py: the GIF bytes (the in-tree codec),
    the decoded pixels of a PNG, a palette PNG, 16-bit PNGs with and
    without gAMA and TIFFs (lossless), and for lossy WEBP its dims and
-   status;
+   status; then (2c) hostile bytes through that build in a child process
+   (`robustness_sweep`): a seeded 64x96 frame encoded as JPEG, PNG, WEBP,
+   GIF and TIFF, every cut of its first 64 bytes and ~180 strided cuts
+   of the rest, and 1500 seeded mutations of 1-3 flipped bits, each
+   through `decode` and `probe` (the JPEG's also through `probe_fast` and
+   `decode_yuv420`), the counts of results, ImageErrors and anything else
+   printed a format; anything else, a crash or a hang of the child fails
+   the phase;
 3. kernels: each kernel against its plain PyTorch version on the card at
    the main paths' shapes (config 1: B=1 and B=16; config 2's orientation
    kernel: the /rotate chain's 1080p buckets at B=1 and B=32 in each
@@ -447,7 +454,11 @@ Phases, in order; any failure raises and exits non-zero:
    HTTP/1.1 on one port, byte-equal (or why h2 was not driven: no
    libnghttp2, no curl with HTTP/2, no openssl); (e) --read-timeout 1: a
    stalled header read closed within 1-3 s and counted in /health's
-   ingress block, a trickled body served, config 1 still served. The
+   ingress block, a trickled body served, config 1 still served; (f) a
+   server armed from IMAGINARY_TPU_FAILPOINTS (FAILPOINT_ENV_SPEC):
+   /debugz/failpoints shows the spec and all 22 known sites, config 1
+   answers the reference's 400 for the armed codec.encode error, phase 4's
+   bytes after an empty PUT, and a boot with a bad spec exits non-zero. The
    plane's per-request device ms (the drain's wall share) is printed
    beside the profiler's card time a request. The launches of every
    request of the phase are the kernels line's `launches_obs`.
@@ -8305,6 +8316,14 @@ OBS_PROFILE_S = 2.0  # (b): the capture's seconds
 OBS_LATENCY_N = 25  # (c): requests a block; blocks armed, off, off, armed
 OBS_TRICKLE = 8  # (e): chunks of the flowing slow body, OBS_TRICKLE_GAP_S apart
 OBS_TRICKLE_GAP_S = 0.3
+# (f): the spec a server arms from IMAGINARY_TPU_FAILPOINTS (an error at
+# p = 1 and a keyed delay on card 0's launches) and one its boot refuses
+FAILPOINT_ENV_SPEC = "codec.encode=error;device.slow[0]=delay(1ms)"
+FAILPOINT_BAD_SPEC = "nope=error"
+# the reference app's message for the armed error (tests/test_torch_deadline.py
+# holds the port's answer equal to it)
+FAILPOINT_ENV_ANSWER = "Error processing image: failpoint codec.encode: injected error"
+FAILPOINT_BOOT_S = 120  # (f): the bad boot's limit
 CONFIG1_PATH = "/resize?width=300&height=200"
 # config 1's kernels by the symbol each source defines (kernels/csrc/*.cu)
 CONFIG1_SYMBOLS = {"yuv420_unpack": "yuv420_to_rgb", "resample": "resample_tiles",
@@ -8706,6 +8725,75 @@ def obs_ingress_case(buf: bytes, launches: dict, smi: str) -> dict:
     return {"closed_after_s": closed_s, "trickle_s": trickle_s, "ingress": after}
 
 
+def env_failpoints_case(buf: bytes, launches: dict) -> dict:
+    """(f) a server from the port's command line with IMAGINARY_TPU_FAILPOINTS
+    set and --enable-debug: GET /debugz/failpoints shows the spec armed and
+    every known site; config 1 answers the reference's 400 for the armed
+    codec.encode error (the card ran the chain before the encode, and
+    device.slow[0] was hit there); after an empty PUT config 1 answers
+    phase 4's bytes. Then `python -m imaginary_tpu_torch` with a bad spec
+    exits non-zero before it binds."""
+    from imaginary_tpu_torch import failpoints, kernels
+
+    t0 = time.perf_counter()
+    saved = os.environ.get(failpoints.ENV_VAR)
+    os.environ[failpoints.ENV_VAR] = FAILPOINT_ENV_SPEC
+    try:
+        srv, stop = obs_server(["--enable-debug"])
+    finally:  # later phases' servers and workers inherit this environment
+        if saved is None:
+            os.environ.pop(failpoints.ENV_VAR)
+        else:
+            os.environ[failpoints.ENV_VAR] = saved
+    out: dict = {}
+    try:
+        port = srv.server_address[1]
+        snap = get_json(port, "/debugz/failpoints")
+        if (not snap["enabled"] or snap["spec"] != FAILPOINT_ENV_SPEC
+                or snap["known_sites"] != list(failpoints.SITES)
+                or len(snap["known_sites"]) != 22
+                or set(snap) != {"enabled", "spec", "sites", "known_sites"}):
+            raise AssertionError(f"(f) /debugz/failpoints after an env boot: {snap}")
+        kernels.reset_launches()
+        status, headers, body = http_get(port, CONFIG1_PATH, method="POST", body=buf,
+                                         headers={"Content-Type": "image/jpeg"})
+        ctype = headers.get("Content-Type", "")
+        message = json.loads(body).get("message", "") if "json" in ctype else ""
+        if (status, message) != (400, FAILPOINT_ENV_ANSWER):
+            raise AssertionError(f"(f) config 1 with codec.encode armed: {status} {ctype} "
+                                 f"{body[:200]!r}")
+        fired = get_json(port, "/debugz/failpoints")["sites"]
+        if fired["codec.encode"]["fired"] != 1 or fired["device.slow[0]"]["fired"] < 1:
+            raise AssertionError(f"(f) the armed sites after one request: {fired}")
+        disarmed = json.loads(http_get(port, "/debugz/failpoints", method="PUT", body=b"")[2])
+        if disarmed["enabled"] or disarmed["spec"]:
+            raise AssertionError(f"(f) an empty PUT left {disarmed}")
+        out["disarmed_ms"] = config1_answer(port, buf, "(f) disarmed")
+        ran = kernels.launch_counts()
+        add_launches(launches, ran)
+        out.update({"status": status, "message": message, "sites": fired})
+    finally:
+        stop()
+        failpoints.deactivate()
+    t1 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "imaginary_tpu_torch", "--addr", "127.0.0.1", "--port",
+         str(free_port()), "--device", DEVICE, "--log-level", "error"],
+        cwd=ROOT, env=dict(os.environ, **{failpoints.ENV_VAR: FAILPOINT_BAD_SPEC}),
+        capture_output=True, text=True, timeout=FAILPOINT_BOOT_S)
+    if proc.returncode == 0 or "unknown failpoint site 'nope'" not in proc.stderr:
+        raise AssertionError(f"(f) a boot with {FAILPOINT_BAD_SPEC!r}: exit {proc.returncode}, "
+                             f"{proc.stderr[-1000:]}")
+    out.update({"bad_boot_exit": proc.returncode, "bad_boot_s": time.perf_counter() - t1,
+                "seconds": time.perf_counter() - t0})
+    log(f"  (f) IMAGINARY_TPU_FAILPOINTS={FAILPOINT_ENV_SPEC!r}: /debugz/failpoints shows it "
+        f"and {len(failpoints.SITES)} known sites; config 1 answered {status} {message!r} "
+        f"(codec.encode fired 1, device.slow[0] {fired['device.slow[0]']['fired']}), then "
+        f"phase 4's bytes after an empty PUT; {FAILPOINT_BAD_SPEC!r} failed the boot with "
+        f"exit {proc.returncode} in {out['bad_boot_s']:.1f} s; (f): {out['seconds']:.1f} s")
+    return out
+
+
 def obs_phase(smi: str) -> dict:
     """Phase 19 (see the module docstring): the port's server with every
     observability plane armed, on the card."""
@@ -8731,6 +8819,7 @@ def obs_phase(smi: str) -> dict:
         stop_off()
     out["h2"] = obs_h2_case(buf, launches, smi)
     out["ingress"] = obs_ingress_case(buf, launches, smi)
+    out["env_failpoints"] = env_failpoints_case(buf, launches)
     for name in CONFIG2_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in phase 19")
@@ -9916,6 +10005,123 @@ def codec_phase() -> dict:
             "seconds": secs}
 
 
+# --- phase 2c: hostile bytes through the host codec -------------------------
+
+ROBUST_SEED = 11
+ROBUST_FORMATS = ("jpeg", "png", "webp", "gif", "tiff")
+ROBUST_DIMS = (64, 96)  # (h, w) of the seeded frame each format encodes
+ROBUST_HEAD = 64  # every cut inside the first ROBUST_HEAD bytes
+ROBUST_BODY_CUTS = 180  # then cuts at this many strides through the body
+ROBUST_FLIPS = 1500  # seeded mutations a format, each of 1-3 flipped bits
+ROBUST_TIMEOUT_S = 300  # the child's limit: a hang is a failure too
+ROBUST_EXAMPLES = 5  # "other" outcomes kept a format, for the log
+
+
+def robustness_sweep(flips: int = ROBUST_FLIPS, body_cuts: int = ROBUST_BODY_CUTS) -> dict:
+    """Truncations and seeded bit flips of a seeded frame in each of
+    ROBUST_FORMATS through the port's `codecs.decode` and `codecs.probe`
+    (and, for the JPEG, `codecs.probe_fast` and `decode_yuv420` at the
+    frame's bucket): {format: counts of results, ImageErrors and anything
+    else}. A decode that returns something other than a 3-D array counts
+    as something else. The contract is a result or an ImageError; a crash
+    ends the process, which is why phase 2c runs this in a child."""
+    import numpy as np
+
+    from imaginary_tpu_torch import codecs
+    from imaginary_tpu_torch.codecs import EncodeOptions
+    from imaginary_tpu_torch.errors import ImageError
+    from imaginary_tpu_torch.imgtype import ImageType
+    from imaginary_tpu_torch.ops.buckets import bucket_shape
+
+    rng = np.random.default_rng(ROBUST_SEED)
+    h, w = ROBUST_DIMS
+    frame = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    hb, wb = bucket_shape(h, w)
+
+    def decode(buf):
+        if codecs.decode(buf, 1).array.ndim != 3:
+            raise TypeError("decode returned an array that is not 3-D")
+
+    def decode_yuv420(buf):
+        codecs.decode_yuv420(buf, 1, hb, wb)
+
+    def tally(counts, fn, *args):
+        try:
+            fn(*args)
+            counts["results"] += 1
+        except ImageError:
+            counts["image_errors"] += 1
+        except Exception as e:  # the contract's breach, counted and kept
+            counts["other"] += 1
+            if len(counts["examples"]) < ROBUST_EXAMPLES:
+                counts["examples"].append(f"{fn.__name__}: {type(e).__name__}: {e}"[:200])
+
+    out = {}
+    for fmt in ROBUST_FORMATS:
+        buf = codecs.encode(frame, EncodeOptions(type=ImageType(fmt), quality=85))
+        if codecs.decode(buf, 1).array.shape[:2] != (h, w):
+            raise AssertionError(f"{fmt}: the intact encode does not decode to {(h, w)}")
+        fns = [decode, codecs.probe]
+        if fmt == "jpeg":
+            fns += [codecs.probe_fast, decode_yuv420]
+        cuts = list(range(min(len(buf), ROBUST_HEAD)))
+        cuts += list(range(ROBUST_HEAD, len(buf), max(1, len(buf) // body_cuts)))
+        counts = {"bytes": len(buf), "truncations": len(cuts), "flips": flips,
+                  "calls": 0, "results": 0, "image_errors": 0, "other": 0, "examples": []}
+        t0 = time.perf_counter()
+        for cut in cuts:
+            for fn in fns:
+                tally(counts, fn, buf[:cut])
+        for _ in range(flips):
+            m = bytearray(buf)
+            for _ in range(int(rng.integers(1, 4))):
+                m[int(rng.integers(0, len(m)))] ^= 1 << int(rng.integers(0, 8))
+            for fn in fns:
+                tally(counts, fn, bytes(m))
+        counts["calls"] = counts["results"] + counts["image_errors"] + counts["other"]
+        counts["seconds"] = time.perf_counter() - t0
+        out[fmt] = counts
+    return out
+
+
+def robustness_phase() -> dict:
+    """Phase 2c: `robustness_sweep` in a child process on this machine's
+    build of the host codec (on the card machine, the wheel's libraries
+    with the vendored headers), so a crash or a hang is a failed phase
+    with its exit status. Fails on any outcome other than a result or an
+    ImageError."""
+    from imaginary_tpu_torch.codecs import native_backend
+
+    t0 = time.perf_counter()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    err_path = os.path.join(OUT_DIR, "robustness.err")
+    code = "import json, chip_smoke; print(json.dumps(chip_smoke.robustness_sweep()))"
+    with open(err_path, "w") as err:  # libjpeg's warnings, one a truncation
+        try:
+            proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                                  stderr=err, text=True, timeout=ROBUST_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"the robustness sweep hung past {ROBUST_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        with open(err_path) as f:
+            tail = f.read()[-2000:]
+        raise AssertionError(f"the robustness sweep's child exited {proc.returncode} "
+                             f"(a negative status is the signal that ended it): {tail}")
+    sweep = json.loads(proc.stdout.strip().splitlines()[-1])
+    linked = native_backend.linked()
+    for fmt, c in sweep.items():
+        log(f"  {fmt}: {c['truncations']} truncations, {c['flips']} flips, {c['calls']} calls: "
+            f"{c['results']} results, {c['image_errors']} ImageErrors, {c['other']} other "
+            f"({c['bytes']} B, {c['seconds']:.2f} s)"
+            + (f"; {c['examples']}" if c["examples"] else ""))
+    bad = {fmt: c["examples"] for fmt, c in sweep.items() if c["other"]}
+    if bad:
+        raise AssertionError(f"outcomes other than a result or an ImageError: {bad}")
+    secs = time.perf_counter() - t0
+    log(f"  codec linked {linked}; phase 2c: {secs:.1f} s (the child's interpreter included)")
+    return {"formats": sweep, "linked": linked, "seconds": secs}
+
+
 # the keys of a W-shard form's timing that the kernels line carries
 SHARD_FORM_KEYS = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shards",
                    "shard_shape", "ms_over_whole", "max_abs_err")
@@ -10001,6 +10207,8 @@ def main() -> int:
     report["build"]["entropy"] = {"seconds": entropy_secs, "arm": arm}
     phase_log("== phase 2b: the host codec against the JAX package's digests")
     report["codec"] = codec_phase()
+    phase_log("== phase 2c: truncations and bit flips through the host codec, in a child")
+    report["robustness"] = robustness_phase()
 
     rng = np.random.default_rng(SEED)
     phase_log("== phase 3: kernels against their plain versions")

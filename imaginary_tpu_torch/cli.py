@@ -5,7 +5,9 @@ The reference's flags for every subsystem the port has, with the
 reference's defaults. Every flag reads its default from
 `IMAGINARY_TPU_<FLAG>` (dashes as underscores), and the historical names
 PORT, URL_SIGNATURE_KEY and LOG_LEVEL still win, as in the reference.
-`--device` is the port's own: the torch device of the kernels, and
+`--device` is the port's own: the torch device of the kernels (its
+variable IMAGINARY_TPU_DEVICE, or the reference's IMAGINARY_TPU_PLATFORM=cpu
+when that is unset), and
 `--host-spill` defaults to off where the reference's defaults to auto
 (the card serves every request unless asked otherwise). `--dct-native`
 offers the port's two arms (native, python) and auto; the reference's
@@ -58,6 +60,16 @@ def _env_int(name: str, default: int) -> int:
         return int(os.environ.get(name, "") or default)
     except ValueError:
         return default
+
+
+def _platform_device() -> str:
+    """--device's default where IMAGINARY_TPU_DEVICE is unset: `cpu` when
+    the reference's IMAGINARY_TPU_PLATFORM asks for the CPU, else `cuda`.
+    The reference's other platform names are JAX's and mean nothing here,
+    and JAX_PLATFORMS, a JAX setting, is never read: it would move a
+    server off the card without a word."""
+    return "cpu" if os.environ.get("IMAGINARY_TPU_PLATFORM", "").strip().lower() == "cpu" \
+        else "cuda"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -153,8 +165,12 @@ def build_parser() -> argparse.ArgumentParser:
                    default=_env_str("IMAGINARY_TPU_DISABLE_ENDPOINTS", ""),
                    help="CSV of endpoints to disable")
     p.add_argument("--version", action="store_true")
+    # IMAGINARY_TPU_TRACE=0 is the reference's older spelling, honoured
+    # beside the flag's own variable as there
     p.add_argument("--disable-tracing", action="store_true",
-                   default=_env_bool("IMAGINARY_TPU_DISABLE_TRACING"),
+                   default=_env_bool("IMAGINARY_TPU_DISABLE_TRACING")
+                   or os.environ.get("IMAGINARY_TPU_TRACE", "").lower()
+                   in ("0", "off", "false"),
                    help="disable per-request span tracing and Server-Timing "
                         "(X-Request-ID is still assigned)")
     # the observability planes (obs/); all off by default
@@ -542,7 +558,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="share of its rotation a demoted device keeps "
                         "(0 = full shed)")
     # the port's own
-    p.add_argument("--device", default=_env_str("IMAGINARY_TPU_DEVICE", "cuda"),
+    p.add_argument("--device", default=_env_str("IMAGINARY_TPU_DEVICE", _platform_device()),
                    help="torch device to run the kernels on (cuda, cuda:N, or cpu)")
     return p
 

@@ -505,6 +505,13 @@ def _available_cpus() -> int:
         return os.cpu_count() or 1
 
 
+def host_gate_permits(ncpus: int) -> int:
+    """The host gate's permits: IMAGINARY_TPU_HOST_GATE where it is above 0
+    (an operator's override, as in the reference), else one a usable CPU."""
+    permits = int(os.environ.get("IMAGINARY_TPU_HOST_GATE", "0") or 0)
+    return permits if permits > 0 else max(1, ncpus)
+
+
 class _Item:
     __slots__ = ("arr", "plan", "future", "key", "t", "t_close", "wire_mb",
                  "mpix", "qos", "trace", "lane", "hops", "stage_ms")
@@ -625,12 +632,14 @@ class Executor:
         self.adopt_link_seed()
         # the host side of placement: its measured price (bootstrap 15 ms
         # a megapixel, the reference's), its backlog, and a gate of one
-        # permit a usable CPU so waiting happens before the run
+        # permit a usable CPU so waiting happens before the run;
+        # IMAGINARY_TPU_HOST_GATE > 0 overrides the permit count, as in the
+        # reference
         self._host_ms_per_mpix = 15.0
         self._host_owed_mpix = 0.0
         self._host_inflight = 0
         self._ncpus = _available_cpus()
-        self._host_gate = threading.BoundedSemaphore(max(1, self._ncpus))
+        self._host_gate = threading.BoundedSemaphore(host_gate_permits(self._ncpus))
         self._spill_seen = 0
         self._probe_slots_skipped = 0
         self._last_shadow_t = float("-inf")

@@ -75,7 +75,9 @@ Every site of the reference is ported:
                      (fleet/multihost.py): an error() makes that peer
                      read dead, so routing and spillover go around it.
 
-Spec grammar: `site=action` clauses joined by `;`, where action is
+Spec grammar (the `IMAGINARY_TPU_FAILPOINTS` variable, read when the app
+is assembled, or PUT /debugz/failpoints): `site=action` clauses joined by
+`;`, where action is
 
   error["(" P ")"]           raise FailpointError, with probability P
                              (default 1);
@@ -101,16 +103,19 @@ import threading
 import time
 from typing import Optional
 
-SITES = ("source.fetch", "source.head", "qos.admit", "codec.decode", "codec.encode",
-         "codec.bomb", "memory.rss", "executor.submit", "device.execute",
-         "device.chip_error", "host.spill", "device.oom", "device.corrupt",
-         "device.slow", "cache.get", "fleet.write", "worker.zombie", "fleet.claim",
-         "fleet.forward", "worker.hang", "peer.forward", "peer.health")
+SITES = ("source.fetch", "source.head", "qos.admit", "codec.decode",
+         "executor.submit", "device.execute", "device.chip_error", "worker.hang",
+         "host.spill", "codec.encode", "cache.get", "memory.rss", "device.oom",
+         "device.corrupt", "device.slow", "codec.bomb", "fleet.write",
+         "worker.zombie", "fleet.claim", "fleet.forward", "peer.forward",
+         "peer.health")
 
 # a key is a device or worker index, or a host id (letters, digits, _ and -)
 _KEYED_SITE_RE = re.compile(r"^([\w.]+)\[([\w-]+)\]$")
 _DURATION_RE = re.compile(r"^(\d+(?:\.\d+)?)(ms|s)$")
 _DEFAULT_TIMEOUT_S = 60.0
+
+ENV_VAR = "IMAGINARY_TPU_FAILPOINTS"
 
 
 class FailpointError(RuntimeError):
@@ -163,8 +168,7 @@ def _parse_action(text: str) -> _Spec:
     if name == "timeout":
         dur = _parse_duration(arg) if arg else _DEFAULT_TIMEOUT_S
         return _Spec("timeout", duration_s=dur, raw=text)
-    raise ValueError(f"unknown failpoint action {name!r} "
-                     "(want error, delay, timeout or once)")
+    raise ValueError(f"unknown failpoint action {name!r}")
 
 
 def parse(spec: str) -> dict:
@@ -210,15 +214,37 @@ def deactivate() -> None:
         _active = {}
 
 
+def activate_from_env(environ=None) -> bool:
+    """Arm from IMAGINARY_TPU_FAILPOINTS when it is set; returns whether
+    anything was armed. Called when the app is assembled, not at import,
+    so a process that only imports the package stays unarmed. A bad spec
+    raises ValueError."""
+    import os
+
+    spec = (environ or os.environ).get(ENV_VAR, "").strip()
+    if not spec:
+        return False
+    activate(spec)
+    return True
+
+
+def active_spec() -> str:
+    """The armed sites written back in the spec grammar."""
+    return ";".join(f"{site}={sp.raw}" for site, sp in _active.items())
+
+
 def snapshot() -> dict:
-    """{"enabled", "sites": {site: {"action", "hits", "fired"}}}."""
+    """The /debugz/failpoints body: {"enabled", "spec", "sites": {site:
+    {"action", "hits", "fired"}}, "known_sites"}, where `known_sites` is
+    every armable site (a keyable one also takes `site[key]`)."""
     with _lock:
         sites = {site: {"action": sp.raw, "hits": _counts.get(site, [0, 0])[0],
                         "fired": _counts.get(site, [0, 0])[1]}
                  for site, sp in _active.items()}
         for site, c in _counts.items():
             sites.setdefault(site, {"action": "(spent)", "hits": c[0], "fired": c[1]})
-    return {"enabled": bool(_active), "sites": sites}
+    return {"enabled": bool(_active), "spec": active_spec(), "sites": sites,
+            "known_sites": list(SITES)}
 
 
 def _decide(site: str, key=None) -> Optional[_Spec]:

@@ -1,13 +1,14 @@
 """Application assembly and server lifecycle (the port's copy of
 `imaginary_tpu/web/app.py`; ref: server.go:69-174).
 
-`create_app` builds the reference's aiohttp application: the qos policy
-(--qos-config), the memory-pressure governor (--pressure-rss-mb), the SLO
-engine (--slo-config) and the cost plane (--cost-attribution, seeded
-with the qos tenants), each once and shared by the trace middleware, the
-throttle, the service and its executor; the trace middleware outermost,
-the access log inside it, then the middleware chain, and the route
-table under --path-prefix (`/`, `/form`, `/health`, `/metrics`, the
+`create_app` builds the reference's aiohttp application: it arms the
+failpoints from IMAGINARY_TPU_FAILPOINTS first (a bad spec raises), then
+builds the qos policy (--qos-config), the memory-pressure governor
+(--pressure-rss-mb), the SLO engine (--slo-config) and the cost plane
+(--cost-attribution, seeded with the qos tenants), each once and shared
+by the trace middleware, the throttle, the service and its executor; the
+trace middleware outermost, the access log inside it, then the
+middleware chain, and the route table under --path-prefix (`/`, `/form`, `/health`, `/metrics`, the
 gated `/debugz`, `/debugz/profile` and `/debugz/failpoints`
 (--enable-debug) and `/topz` (--cost-attribution), each a 404 while its
 gate is off, and the 18 image routes); the event-loop lag probe runs
@@ -81,6 +82,10 @@ def tune_gc_for_serving() -> None:
 
 
 def create_app(o: ServerOptions, log_stream=None) -> web.Application:
+    # arm the failpoints from IMAGINARY_TPU_FAILPOINTS here, not at import,
+    # so a process that only imports the package stays unarmed; a bad
+    # spec raises and fails the boot rather than arming nothing
+    failpoints.activate_from_env()
     # the qos policy and the pressure governor, built once and handed to
     # everyone who enforces a slice of them (None when their flags are
     # off: every consumer takes its plain path)

@@ -12,6 +12,12 @@ dest, kind and type, with the reference's default and choices but for
 the recorded differences named below, and both parsers read the same
 value from each option's variable. The cross-host flags refuse the boot
 as the reference's do.
+
+The environment beyond the flags: every IMAGINARY_TPU_* name the
+reference's source reads is read by the port's, or is in
+UNREAD_VARIABLES with its reason; IMAGINARY_TPU_TRACE, IMAGINARY_TPU_HOST_GATE
+and IMAGINARY_TPU_PLATFORM=cpu act as in the reference, and JAX_PLATFORMS
+moves nothing.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import os
 import pytest
 
 from imaginary_tpu_torch import cli
+from tests.test_torch_refnative import reference_native  # noqa: F401
 
 # (option, dest, kind, a value other than the default)
 FLAGS = [
@@ -462,3 +469,136 @@ def test_version_prints_and_exits(capsys):
 
     assert cli.main(["--version"]) == 0
     assert capsys.readouterr().out.strip() == Version
+
+
+# --- the reference's other environment spellings --------------------------------
+
+# The IMAGINARY_TPU_* variables the reference reads and the port does not,
+# each with its reason (ROADMAP.md, "recorded differences").
+UNREAD_VARIABLES = {
+    # the XLA compile cache's directory (imaginary_tpu/prewarm.py): the port
+    # compiles its kernels with nvcc once a process and keeps no XLA cache
+    "IMAGINARY_TPU_CACHE": "XLA's persistent compile cache; the port has no XLA",
+}
+# The port's own variables, which the reference does not read.
+PORT_ONLY_VARIABLES = {"IMAGINARY_TPU_DEVICE"}
+
+
+def _variables_read(package: str) -> set:
+    """The IMAGINARY_TPU_* names a package's source spells as a string
+    constant (a docstring names, it does not read)."""
+    import ast
+    import pathlib
+    import re
+
+    root = pathlib.Path(__file__).resolve().parent.parent / package
+    names = set()
+    for path in root.rglob("*.py"):
+        tree = ast.parse(path.read_text())
+        docs = {id(n.body[0].value) for n in ast.walk(tree)
+                if isinstance(n, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                  ast.AsyncFunctionDef))
+                and n.body and isinstance(n.body[0], ast.Expr)
+                and isinstance(n.body[0].value, ast.Constant)}
+        for n in ast.walk(tree):
+            if (isinstance(n, ast.Constant) and isinstance(n.value, str)
+                    and id(n) not in docs
+                    and re.fullmatch(r"IMAGINARY_TPU_[A-Z0-9_]+", n.value)):
+                names.add(n.value)
+    return names
+
+
+def test_the_port_reads_every_reference_variable():
+    ref, ours = _variables_read("imaginary_tpu"), _variables_read("imaginary_tpu_torch")
+    assert {"IMAGINARY_TPU_FAILPOINTS", "IMAGINARY_TPU_TRACE", "IMAGINARY_TPU_HOST_GATE",
+            "IMAGINARY_TPU_PLATFORM"} <= ref & ours
+    assert ref - ours == set(UNREAD_VARIABLES)
+    assert ours - ref == PORT_ONLY_VARIABLES
+
+
+@pytest.mark.parametrize("value,disabled", [
+    ("0", True), ("off", True), ("false", True), ("OFF", True), ("1", False), ("", False),
+])
+def test_trace_variable_sets_disable_tracing_like_the_reference(monkeypatch, value, disabled):
+    from imaginary_tpu.cli import build_parser as reference_parser
+
+    monkeypatch.setenv("IMAGINARY_TPU_TRACE", value)
+    assert cli.parse_args([]).disable_tracing is disabled
+    assert reference_parser().parse_args([]).disable_tracing is disabled
+    assert cli.options_from_args(cli.parse_args([])).trace_enabled is not disabled
+
+
+@pytest.mark.usefixtures("testdata", "reference_native")
+def test_trace_0_answers_carry_no_server_timing_like_the_references(monkeypatch):
+    """Both apps built from their command lines: Server-Timing on an
+    answer by default, none with IMAGINARY_TPU_TRACE=0; X-Request-ID
+    either way."""
+    import asyncio
+    import dataclasses
+    import io
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from imaginary_tpu.cli import build_parser as reference_parser
+    from imaginary_tpu.cli import options_from_args as reference_options
+    from imaginary_tpu.web.app import create_app as reference_app
+    from imaginary_tpu_torch.web.app import create_app
+    from tests.conftest import fixture_bytes
+
+    async def headers(app):
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            res = await client.post("/resize?width=100",
+                                    data=fixture_bytes("imaginary.jpg"))
+            assert res.status == 200
+            return dict(res.headers)
+        finally:
+            await client.close()
+
+    def answers():
+        ref = dataclasses.replace(reference_options(reference_parser().parse_args([])),
+                                  host_spill=False)
+        port = dataclasses.replace(cli.options_from_args(cli.parse_args([])), device="cpu")
+        return [asyncio.run(headers(factory(o, log_stream=io.StringIO())))
+                for factory, o in ((reference_app, ref), (create_app, port))]
+
+    for h in answers():
+        assert "Server-Timing" in h and "X-Request-ID" in h
+    monkeypatch.setenv("IMAGINARY_TPU_TRACE", "0")
+    for h in answers():
+        assert "Server-Timing" not in h and "X-Request-ID" in h
+
+
+@pytest.mark.parametrize("value,permits", [("3", 3), ("1", 1), ("0", None), ("-2", None),
+                                           ("", None)])
+def test_host_gate_variable_sets_the_permits(monkeypatch, value, permits):
+    from imaginary_tpu_torch.engine import Executor, ExecutorConfig
+    from imaginary_tpu_torch.engine import executor as executor_mod
+
+    monkeypatch.setenv("IMAGINARY_TPU_HOST_GATE", value)
+    want = permits or max(1, executor_mod._available_cpus())
+    assert executor_mod.host_gate_permits(executor_mod._available_cpus()) == want
+    ex = Executor(ExecutorConfig(device="cpu"))
+    try:
+        assert ex._host_gate._value == want
+    finally:
+        ex.shutdown()
+
+
+@pytest.mark.parametrize("env,device", [
+    ({}, "cuda"),
+    ({"IMAGINARY_TPU_PLATFORM": "cpu"}, "cpu"),
+    ({"IMAGINARY_TPU_PLATFORM": " CPU "}, "cpu"),
+    ({"IMAGINARY_TPU_PLATFORM": "tpu"}, "cuda"),
+    ({"IMAGINARY_TPU_PLATFORM": "cpu", "IMAGINARY_TPU_DEVICE": "cuda:1"}, "cuda:1"),
+    ({"JAX_PLATFORMS": "cpu"}, "cuda"),
+], ids=["none", "platform-cpu", "platform-cpu-spaced", "platform-tpu",
+        "device-wins", "jax-platforms-ignored"])
+def test_platform_variable_asks_for_the_cpu(monkeypatch, env, device):
+    for name in ("IMAGINARY_TPU_PLATFORM", "IMAGINARY_TPU_DEVICE", "JAX_PLATFORMS"):
+        monkeypatch.delenv(name, raising=False)
+    for name, value in env.items():
+        monkeypatch.setenv(name, value)
+    assert cli.parse_args([]).device == device
+    assert cli.parse_args(["--device", "cpu"]).device == "cpu"

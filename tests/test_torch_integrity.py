@@ -8,8 +8,7 @@ reference within 1 LSB).
 Adapted where the port differs: a second device is `n_devices=2` of the
 CPU, so a sick device 0 is the keyed `device.chip_error[0]` failpoint (the
 CPU entries are not told apart by the launch's device argument); /health
-is a service's (`ImageService(device="cpu", integrity=True, ...)`); the
-port's failpoint snapshot has no `known_sites` (its SITES are checked).
+is a service's (`ImageService(device="cpu", integrity=True, ...)`).
 """
 
 import time
@@ -639,6 +638,7 @@ class TestSurfaces:
             failpoints.hit("device.slow", key=0)
             assert time.monotonic() - t0 >= 0.008
             assert failpoints.snapshot()["sites"]["device.corrupt[1]"]["fired"] == 1
+            assert "device.corrupt" in failpoints.snapshot()["known_sites"]
             assert {"device.oom", "host.spill"} <= set(failpoints.SITES)
         finally:
             failpoints.deactivate()

@@ -259,6 +259,7 @@ class TestDebugz:
             for key in ("pid", "threads", "tasks", "slowest_requests", "failpoints",
                         "copies", "executor", "executor_counters", "host_pool", "cache"):
                 assert key in body, key
+            assert set(body["failpoints"]) == {"enabled", "spec", "sites", "known_sites"}
             assert isinstance(body["tasks"], list) and body["tasks"]
             for key in ("queue_depth", "inflight_groups", "breaker_open",
                         "device_ms_per_mb", "drain_floor_ms"):
@@ -285,11 +286,15 @@ class TestDebugz:
             res = await client.put("/debugz/failpoints", data=b"codec.decode=error")
             assert res.status == 200
             body = await res.json()
-            assert "codec.decode" in json.dumps(body)
+            assert set(body) == {"enabled", "spec", "sites", "known_sites"}
+            assert body["enabled"] and body["spec"] == "codec.decode=error"
+            assert body["sites"]["codec.decode"]["action"] == "error"
+            assert body["known_sites"] == list(failpoints.SITES)
             res = await client.post("/resize?width=100", data=jpg())
             assert res.status >= 400
             assert (await client.put("/debugz/failpoints", data=b"nope=")).status == 400
-            await client.put("/debugz/failpoints", data=b"")
+            body = await (await client.put("/debugz/failpoints", data=b"")).json()
+            assert not body["enabled"] and body["spec"] == ""
             res = await client.post("/resize?width=100", data=jpg())
             assert res.status == 200
 
@@ -1153,6 +1158,9 @@ class TestParity:
         assert _keys(got["topz"]) == _keys(want["topz"])
         assert {"slo", "capacity", "slowest_requests", "failpoints", "copies"} <= \
             set(got["debugz"]) & set(want["debugz"])
+        fp_got, fp_want = got["debugz"]["failpoints"], want["debugz"]["failpoints"]
+        assert set(fp_got) == set(fp_want) == {"enabled", "spec", "sites", "known_sites"}
+        assert (fp_got["spec"], fp_got["known_sites"]) == (fp_want["spec"], fp_want["known_sites"])
         assert _keys(got["debugz"]["capacity"]) == _keys(want["debugz"]["capacity"]) or \
             set(got["debugz"]["capacity"]) == set(want["debugz"]["capacity"])
 
